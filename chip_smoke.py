@@ -47,7 +47,45 @@ JAX package ``deepspeed_tpu``):
    kernels line), then timed beside its bound, its plain version and the
    library's attention in the (B, H, T, d) layout, which the port never
    calls: ``scaled_dot_product_attention`` forward, the flash-attention
-   backward op (dQ, dK and dV in one call) and forward+backward.
+   backward op (dQ, dK and dV in one call) and forward+backward;
+7. sparse kernels vs plain: ``flash_fwd_lut``, ``flash_fwd_lut_ring``,
+   ``flash_bwd_dkdv_lut``, ``flash_bwd_dq_lut`` and the dense biased
+   ``flash_fwd_biased``, ``flash_bwd_dkdv_biased``, ``flash_bwd_dq_biased``
+   against their plain versions fed the same (O, lse, dO), element by
+   element with phase 2's limits: B=2, H=4, T in {256, 1024} and 1008,
+   layouts Fixed block 16 (per-head patterns), Fixed 32, BigBird 64,
+   BSLongformer 128 and a diagonal one whose first 64 queries and keys
+   have no live tile, no bias / an ``add`` key bias / a ``mul`` key bias
+   with a fully padded batch row / a (T, T) score bias, causal and not,
+   bf16 and fp32, head dims 64/96/128, qkv views and contiguous;
+8. BERT-large masked-LM training at full width (24 layers, 1024 wide, 16
+   heads, vocab 30522), position embeddings extended 512 -> 2048 with
+   ``extend_position_embedding``, T=2048, micro-batch 8, gas 1, bf16,
+   ZeRO-1, AdamW 1e-4, hidden dropout 0.1, remat, the
+   ``docs/tutorials/bert-pretraining.md`` ``sparse_attention`` section
+   (fixed, block 16, per-head layouts, local 4, global 1, bidirectional)
+   read through the engine config and ``build_sparsity_config``, through
+   ``build("bert-large")`` -> ``replace_model_self_attention`` ->
+   ``initialize`` -> ``train_batch()`` on padded batches from a numpy
+   seed: step 1 through the kernels against step 1 with the plain
+   ``_masked_dense`` attention from the same weights and batch; 3
+   warm-up and 10 timed steps (tokens/s, step p50/p99, MFU, peak memory);
+   exactly 48 / 24 / 24 launches per step of ``flash_fwd_lut`` /
+   ``flash_bwd_dkdv_lut`` / ``flash_bwd_dq_lut`` (remat runs each forward
+   twice); finite losses and no skipped step; 20 steps on one fixed batch
+   lower its loss by at least 0.5; a ``torch.profiler`` breakdown of one
+   step; 8b, two steps on unpadded batches (``flash_fwd_lut_ring``, not
+   ``flash_fwd_lut``); 8c, two padded steps with ``"mode": "dense"``
+   (an all-ones layout: the dense biased kernels);
+9. the sparse and biased kernels at the training shape, B=8, H=16,
+   T=2048, d=64, bf16, q/k/v views of one qkv tensor: the tutorial's
+   block-16 layout with the padding bias (and without it, the ring), the
+   block-64 Fixed layout of ``docs/tutorials/sparse-attention.md`` (tiles
+   skipped) and the all-ones layout with the padding bias; each kernel
+   held against its plain version (these errors go into the kernels
+   line), then timed beside its bound, its plain version and
+   ``scaled_dot_product_attention`` with the expanded boolean
+   layout-and-padding mask, forward and forward+backward.
 
 Prints a ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and as the
 last line ``{"ok": true, "device": {...}}``.  Any failure raises and the
@@ -70,22 +108,40 @@ import deepspeed_tpu_torch
 from deepspeed_tpu_torch.inference import (InferenceEngine, OK, Request,
                                            ServingConfig, ServingEngine)
 from deepspeed_tpu_torch.inference import paged_kv as pk
+from deepspeed_tpu_torch.models import build
 from deepspeed_tpu_torch.models.gpt2 import GPT2, params_from_jax
 from deepspeed_tpu_torch.ops.op_builder import cuda as builder
+from deepspeed_tpu_torch.ops.sparse_attention import (
+    BigBirdSparsityConfig, BSLongformerSparsityConfig, FixedSparsityConfig,
+    SparseSelfAttention, build_sparsity_config, extend_position_embedding,
+    replace_model_self_attention)
 from deepspeed_tpu_torch.ops.transformer import flash_attention as fa
 from deepspeed_tpu_torch.ops.transformer import paged_attention as pa
 from deepspeed_tpu_torch.runtime.comm.quantized import quantize_blockwise
 
 L_CYCLE = 12          # layers cycled through when timing (cold L2 per launch)
 SOURCE = "deepspeed_tpu_torch/csrc/paged_attention.cu"
-FLASH_SOURCE = "deepspeed_tpu_torch/csrc/flash_attention.cu"
+FLASH_REF = "deepspeed_tpu/ops/transformer/flash_attention.py"
 REPLACES = {"paged_attention_online":
             "deepspeed_tpu/ops/transformer/paged_attention.py:180",
             "paged_attention_exact":
             "deepspeed_tpu/ops/transformer/paged_attention.py:90",
-            "flash_fwd": "deepspeed_tpu/ops/transformer/flash_attention.py:144",
-            "flash_bwd_dkdv": "deepspeed_tpu/ops/transformer/flash_attention.py:617",
-            "flash_bwd_dq": "deepspeed_tpu/ops/transformer/flash_attention.py:691"}
+            "flash_fwd": f"{FLASH_REF}:144",
+            "flash_bwd_dkdv": f"{FLASH_REF}:617",
+            "flash_bwd_dq": f"{FLASH_REF}:691",
+            "flash_fwd_biased": f"{FLASH_REF}:144",      # use_kbias / use_abias
+            "flash_bwd_dkdv_biased": f"{FLASH_REF}:617",
+            "flash_bwd_dq_biased": f"{FLASH_REF}:691",
+            "flash_fwd_lut": f"{FLASH_REF}:144",         # use_lut + biases
+            "flash_fwd_lut_ring": f"{FLASH_REF}:306",    # _fwd_kernel_dma
+            "flash_bwd_dkdv_lut": f"{FLASH_REF}:617",
+            "flash_bwd_dq_lut": f"{FLASH_REF}:691"}
+
+
+def flash_source(name):
+    """The CUDA source of a flash entry (the kernels are in the .cuh it
+    includes)."""
+    return f"deepspeed_tpu_torch/csrc/{fa.ENTRIES[name][0]}.cu"
 # flash kernels vs their plain versions, element by element:
 #   O, dK, dV, dQ: |kernel - plain| <= a * rms(plain) + r * |plain|
 #   lse (fp32 on both sides): |kernel - plain| <= FLASH_LSE_TOL
@@ -169,7 +225,7 @@ def setup():
     builder.build_all()
     print(f"kernel build: {time.perf_counter() - t0:.2f} s")
     os.makedirs("chiprun_out", exist_ok=True)
-    for name in ("paged_attention", "flash_attention"):
+    for name in sorted(builder.build_log):
         log = builder.build_log[name]
         with open(f"chiprun_out/ptxas_{name}.txt", "w") as f:
             f.write(log["ptxas"])
@@ -288,7 +344,7 @@ def check_flash_kernels(dev, gen, B=2, H=4):
     """Phase 2, flash: each kernel against its plain version over head
     dims, lengths, masks, dtypes and both layouts.  Returns the max abs
     error per kernel."""
-    max_err = {name: 0.0 for name in fa.KERNELS}
+    max_err = {name: 0.0 for name in fa.DENSE_KERNELS}
     for dt, dims in fa.HEAD_DIMS.items():
         for d, T, causal, layout in itertools.product(
                 dims, (64, 96, 1000, 1024), (True, False), ("qkv", "dense")):
@@ -409,11 +465,11 @@ def check_decode_logits(srv, tag, toks, tables, lengths):
             raise AssertionError(f"{tag} {key}: logits differ by {err}")
 
 
-def time_ms(fn, n):
+def time_ms(fn, n, warmup=L_CYCLE):
     """Mean device time of ``fn(layer)`` over ``n`` calls cycling the
     layers (CUDA events around a backlogged stream); ``fn`` may ignore
     the layer."""
-    for i in range(L_CYCLE):
+    for i in range(warmup):
         fn(i)
     torch.cuda.synchronize()
     # a device-side backlog, so the host's enqueue time never shows
@@ -580,7 +636,7 @@ def train(dev, card, warmup=3, timed=10, fit_steps=20, preset="gpt2-350m", seq=1
             and abs(flash[1] - plain[1]) <= STEP1_GNORM_TOL * abs(plain[1])):
         raise AssertionError(f"step 1 flash {flash} vs plain {plain}")
     n_steps = warmup + timed
-    for name in fa.KERNELS:
+    for name in fa.DENSE_KERNELS:
         if first_counts[name] != n_layer or counts[name] != n_steps * n_layer:
             raise AssertionError(f"{name}: {first_counts[name]} launches in step 1, "
                                  f"{counts[name]} in {n_steps} steps; expected "
@@ -591,7 +647,7 @@ def train(dev, card, warmup=3, timed=10, fit_steps=20, preset="gpt2-350m", seq=1
     tok_s = timed * eng.train_batch_size() * model.config.max_seq / (step_ms.sum() / 1e3)
     mfu = tok_s * model.flops_per_token() / PEAK_OPS["bf16"]
     print(f"train {preset} T={seq} micro {micro} bf16 zero1: launches per step " +
-          ", ".join(f"{n} {counts[n] // n_steps}" for n in fa.KERNELS) +
+          ", ".join(f"{n} {counts[n] // n_steps}" for n in fa.DENSE_KERNELS) +
           f"; losses finite, skipped 0; {tok_s:.1f} tokens/s, step p50 "
           f"{np.percentile(step_ms, 50):.3f} ms p99 {np.percentile(step_ms, 99):.3f} ms, "
           f"MFU {mfu:.4f} of 989 TFLOP/s ({card}), peak device memory "
@@ -674,7 +730,7 @@ def flash_timing(dev, gen, bytes_per_s, B=8, T=1024, H=16, d=64):
     sdpa_b_ms = time_ms(lambda _: bwd_call(), 50) if bwd_call is not None else None
     saved = dict(fa.launches)
     out = {}
-    for name in fa.KERNELS:
+    for name in fa.DENSE_KERNELS:
         nbytes, ops = work[name]
         t_bytes, t_ops = nbytes / bytes_per_s * 1e3, ops / PEAK_OPS["bf16"] * 1e3
         bound, by = (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
@@ -690,9 +746,401 @@ def flash_timing(dev, gen, bytes_per_s, B=8, T=1024, H=16, d=64):
     print(f"timing SDPA (B, H, T, d) causal bf16: forward {sdpa_ms * 1e3:.2f} us, "
           f"backward (dq, dk, dv in one call) {b_us}, forward+backward "
           f"{sdpa_fb_ms * 1e3:.2f} us; flash_fwd + dkdv + dq "
-          f"{sum(out[n]['ms'] for n in fa.KERNELS) * 1e3:.2f} us")
+          f"{sum(out[n]['ms'] for n in fa.DENSE_KERNELS) * 1e3:.2f} us")
     fa.launches.update(saved)          # timing launches are not path launches
     return out
+
+
+# ------------------------------------------------- 7. sparse kernels vs plain
+BIAS_KINDS = ("none", "add", "mul", "attn")
+
+
+def sparse_configs(H):
+    """Phase 7's layouts: (label, SparsityConfig)."""
+    return [("fixed16", FixedSparsityConfig(
+                num_heads=H, block=16, num_local_blocks=4, num_global_blocks=1,
+                different_layout_per_head=True, num_different_global_patterns=4)),
+            ("fixed32", FixedSparsityConfig(num_heads=H, block=32, num_local_blocks=4,
+                                            num_global_blocks=1)),
+            ("bigbird64", BigBirdSparsityConfig(num_heads=H, block=64, num_random_blocks=1,
+                                                num_sliding_window_blocks=3)),
+            ("longformer128", BSLongformerSparsityConfig(
+                num_heads=H, block=128, num_sliding_window_blocks=3,
+                global_block_indices=[0]))]
+
+
+class EmptyRowsLayout:
+    """Block 16, the diagonal blocks only, with the first 64 queries and
+    keys in no live block: LUT rows and columns with no live tile."""
+
+    def make_layout(self, T):
+        layout = np.zeros((1, T // 16, T // 16), np.int32)
+        live = np.arange(4, T // 16)
+        layout[0, live, live] = 1
+        return layout
+
+
+def key_lengths(gen, B, T, dev):
+    """Per-row live lengths uniform in [T/2, T]."""
+    return torch.randint(T // 2, T + 1, (B,), generator=gen, device=dev)
+
+
+def bias_inputs(kind, gen, B, T, dev):
+    """``(key_padding_bias (B, T), attn_bias (T, T))`` of one kind, fp32:
+    ``add``, BERT's -10000 past each row's length; ``mul``, 0 / NEG_INF
+    with batch row 1 fully padded; ``attn``, a (T, T) score bias (N(0,
+    0.5), a tenth NEG_INF off the diagonal)."""
+    pos = torch.arange(T, device=dev)
+    if kind in ("add", "mul"):
+        keep = pos[None, :] < key_lengths(gen, B, T, dev)[:, None]
+        if kind == "mul":
+            keep[1 % B] = False
+            return torch.where(keep, 0.0, fa.NEG_INF).float(), None
+        return torch.where(keep, 0.0, -10000.0).float(), None
+    if kind == "attn":
+        noise = torch.randn((T, T), generator=gen, device=dev) * 0.5
+        drop = (torch.rand((T, T), generator=gen, device=dev) < 0.1) & (
+            pos[:, None] != pos[None, :])
+        return None, torch.where(drop, torch.full_like(noise, fa.NEG_INF), noise)
+    return None, None
+
+
+def masked_calls(q, k, v, do, lut, kb, ab, causal):
+    """The biased (``lut`` None) or LUT kernels of one case: ``(names,
+    kernel calls, plain calls)``, the backward calls taking (lse, delta).
+    An unbiased LUT case takes the ring forward, as the model path does."""
+    if lut is None:
+        names = fa.BIASED_KERNELS
+        calls = (lambda: fa.flash_fwd_biased(q, k, v, kb, ab, causal),
+                 lambda lse, de: fa.flash_bwd_dkdv_biased(q, k, v, do, lse, de, kb, ab,
+                                                          causal),
+                 lambda lse, de: fa.flash_bwd_dq_biased(q, k, v, do, lse, de, kb, ab, causal))
+    else:
+        ring = kb is None and ab is None
+        names = ("flash_fwd_lut_ring" if ring else "flash_fwd_lut", "flash_bwd_dkdv_lut",
+                 "flash_bwd_dq_lut")
+        calls = ((lambda: fa.flash_fwd_lut_ring(q, k, v, lut)) if ring
+                 else (lambda: fa.flash_fwd_lut(q, k, v, lut, kb, ab)),
+                 lambda lse, de: fa.flash_bwd_dkdv_lut(q, k, v, do, lse, de, lut, kb, ab),
+                 lambda lse, de: fa.flash_bwd_dq_lut(q, k, v, do, lse, de, lut, kb, ab))
+    kw = dict(lut=lut, key_padding_bias=kb, attn_bias=ab)
+    plains = (lambda: fa.flash_attention_reference_fwd(q, k, v, causal, **kw),
+              lambda lse, de: fa.flash_attention_reference_bwd_dkdv(q, k, v, do, lse, de,
+                                                                    causal, **kw),
+              lambda lse, de: fa.flash_attention_reference_bwd_dq(q, k, v, do, lse, de,
+                                                                  causal, **kw))
+    return names, calls, plains
+
+
+def check_masked_case(q, k, v, do, lut, kb, ab, causal, what):
+    """Each kernel of a biased / LUT case against its plain version on the
+    same inputs (the backward ones fed the kernel's own O and lse).
+    Returns {kernel: [(output, max abs error, share of limit)]}."""
+    names, calls, plains = masked_calls(q, k, v, do, lut, kb, ab, causal)
+    o, lse = calls[0]()
+    delta = fa.attention_delta(o, do)
+    dk, dv = calls[1](lse, delta)
+    dq = calls[2](lse, delta)
+    ro, rlse = plains[0]()
+    rdk, rdv = plains[1](lse, delta)
+    rdq = plains[2](lse, delta)
+    torch.cuda.synchronize()
+    pairs = {names[0]: [("o", o, ro), ("lse", lse, rlse)],
+             names[1]: [("dk", dk, rdk), ("dv", dv, rdv)],
+             names[2]: [("dq", dq, rdq)]}
+    return {name: [(label, *flash_close(f"{name} {what}", label, got, ref))
+                   for label, got, ref in ps] for name, ps in pairs.items()}
+
+
+def sparse_cases(H):
+    """Phase 7's cases: (T, layout label, config or None, dtype, causal,
+    bias kind, head dim, q/k/v layout)."""
+    dims, views = (64, 96, 128), ("qkv", "dense")
+    bf16, fp32 = torch.bfloat16, torch.float32
+    cases, i = [], 0
+    for T in (256, 1024):
+        for label, cfg in sparse_configs(H):
+            for dt, causal in itertools.product((bf16, fp32), (False, True)):
+                cases.append((T, label, cfg, dt, causal, BIAS_KINDS[i % 4],
+                              dims[(i // 4) % 3], views[(i // 2) % 2]))
+                i += 1
+    fixed16 = sparse_configs(H)[0][1]
+    for kind, dt in itertools.product(BIAS_KINDS, (bf16, fp32)):    # ragged T at block 16
+        cases.append((1008, "fixed16", fixed16, dt, False, kind, 64, "qkv"))
+    for d, dt in itertools.product(dims, (bf16, fp32)):   # the ring at every head dim
+        cases.append((1024, "fixed16", fixed16, dt, False, "none", d, "qkv"))
+    # not "add": a row whose every live key carries -10000 has scores of
+    # magnitude 1e4, resolved to ~1e-3 in fp32 on both sides (phase-7 reading)
+    for kind, dt in itertools.product(("none", "mul"), (bf16, fp32)):
+        cases.append((256, "empty-rows", EmptyRowsLayout(), dt, False, kind, 64, "qkv"))
+    for kind, dt, causal in itertools.product(BIAS_KINDS[1:], (bf16, fp32), (False, True)):
+        cases.append((1000, "dense", None, dt, causal, kind, 64, "qkv"))
+    return cases
+
+
+def check_sparse_kernels(dev, gen, B=2, H=4):
+    """Phase 7: every biased and LUT kernel against its plain version.
+    Returns the max abs error per kernel."""
+    max_err = {name: 0.0 for name in fa.BIASED_KERNELS + fa.LUT_KERNELS}
+    for T, label, cfg, dt, causal, kind, d, view in sparse_cases(H):
+        lut = None if cfg is None else fa.layout_luts(cfg.make_layout(T), T, H, causal)
+        kb, ab = bias_inputs(kind, gen, B, T, dev)
+        what = (f"{str(dt)[6:]} d={d} T={T} {label} bias={kind} causal={int(causal)} "
+                f"{view}")
+        res = check_masked_case(*flash_inputs(dev, gen, dt, B, T, H, d, view), lut, kb, ab,
+                                causal, what)
+        for name, rows in res.items():
+            max_err[name] = max([max_err[name]] + [err for _, err, _ in rows])
+        print(f"sparse-check {what}: {flash_line(res)}")
+    return max_err
+
+
+# ------------------------------------------------------ 8. BERT training
+SPARSE_SECTION = {"mode": "fixed", "block": 16, "different_layout_per_head": True,
+                  "num_local_blocks": 4, "num_global_blocks": 1,
+                  "attention": "bidirectional"}   # docs/tutorials/bert-pretraining.md:31-38
+BERT_CONFIG = {
+    "train_micro_batch_size_per_gpu": 8,
+    "gradient_accumulation_steps": 1,
+    "steps_per_print": 10 ** 9,
+    "bf16": {"enabled": True},
+    "optimizer": {"type": "AdamW", "params": {"lr": 1e-4}},
+    "zero_optimization": {"stage": 1},
+    "sparse_attention": SPARSE_SECTION,
+}
+# step 1 of BERT-large, kernels vs the plain _masked_dense attention, bf16: the
+# plain path rounds the scores to bf16 before the fp32 softmax (as JAX's
+# einsum in the input dtype does), the kernels keep them in fp32.  Readings
+# (H100): loss gap 2.3e-5 near 10.5, grad-norm gap 2.1e-4 relative; the
+# limits are about 40x and 10x those
+BERT_STEP1_LOSS_TOL = 1e-3        # absolute
+BERT_STEP1_GNORM_TOL = 2e-3       # relative
+BERT_FIT_MARGIN = 0.5             # fixed-batch loss fall over 20 steps
+
+
+class PlainSparseAttention(SparseSelfAttention):
+    """``SparseSelfAttention`` on the plain path: ``_masked_dense`` (the
+    layout expanded to an element mask, dense softmax) in place of the
+    kernels."""
+
+    def __call__(self, query, key, value, *, causal=None, sm_scale=None,
+                 key_padding_mask=None, attn_mask=None):
+        return self._masked_dense(query, key, value, self.get_layout(query.shape[1]),
+                                  self._causal(causal), sm_scale, key_padding_mask,
+                                  attn_mask)
+
+
+def bert_data(seed, n, T, vocab, padded=True):
+    """MLM samples from a numpy seed: ``input_ids`` uniform over the
+    vocab; per-row lengths uniform in [T/2, T] with ``attention_mask`` 0
+    past them (``padded``); ``labels`` the token at 15% of live
+    positions, -100 elsewhere; ``token_type_ids`` zero."""
+    rng = np.random.default_rng(seed)
+    ids = rng.integers(0, vocab, (n, T)).astype(np.int64)
+    lengths = rng.integers(T // 2, T + 1, n) if padded else np.full(n, T)
+    mask = (np.arange(T)[None, :] < lengths[:, None]).astype(np.int64)
+    labels = np.where((rng.random((n, T)) < 0.15) & (mask > 0), ids, -100)
+    data = {"input_ids": ids, "labels": labels, "token_type_ids": np.zeros_like(ids)}
+    if padded:
+        data["attention_mask"] = mask
+    return data
+
+
+def bert_engine(dev, base, data, section=SPARSE_SECTION, plain=False, preset="bert-large",
+                seq=2048, micro=8):
+    """``build(preset)`` -> ``extend_position_embedding`` (to ``seq``) ->
+    ``initialize`` -> ``replace_model_self_attention`` with the layout of
+    the engine config's ``sparse_attention`` section (``plain``: the
+    ``_masked_dense`` attention instead)."""
+    model = build(preset, dtype=torch.bfloat16, device=dev)
+    params, model = extend_position_embedding(base, model, seq)
+    config = dict(BERT_CONFIG, train_micro_batch_size_per_gpu=micro,
+                  sparse_attention=section)
+    engine, _, _, _ = deepspeed_tpu_torch.initialize(config=config, model=model,
+                                                     params=params, training_data=data)
+    cfg = build_sparsity_config(engine.config.sparse_attention, model.config.n_head)
+    replace_model_self_attention(model, cfg, max_seq_length=seq)
+    if plain:
+        model.sparse_self_attention = PlainSparseAttention(cfg, max_seq_length=seq)
+    return engine
+
+
+def check_launches(tag, counts, want, steps):
+    """Exact launch counts of a run: ``want`` per step for the kernels it
+    names, 0 for every other flash kernel."""
+    for name in fa.KERNELS:
+        expect = want.get(name, 0) * steps
+        if counts[name] != expect:
+            raise AssertionError(f"{tag}: {name} launched {counts[name]} times in {steps} "
+                                 f"steps, expected {expect}")
+
+
+def bert_train(dev, card, warmup=3, timed=10, fit_steps=20, preset="bert-large", seq=2048,
+               micro=8):
+    """Phase 8 (and 8b, 8c): BERT MLM training through initialize ->
+    train_batch.  Returns the launches of each phase's run."""
+    vocab = build(preset, device=dev).config.vocab_size
+    base = build(preset, device=dev).init(0)          # the 512-row position table
+    data = bert_data(0, 64, seq, vocab)
+    eng = bert_engine(dev, base, data, plain=True, preset=preset, seq=seq, micro=micro)
+    plain = (float(eng.train_batch()), eng.get_global_grad_norm())
+    del eng
+    torch.cuda.empty_cache()
+
+    eng = bert_engine(dev, base, data, preset=preset, seq=seq, micro=micro)
+    model = eng.module
+    L = model.config.n_layer
+    per_step = {"flash_fwd_lut": 2 * L, "flash_bwd_dkdv_lut": L, "flash_bwd_dq_lut": L}
+    lut = fa.layout_luts(model.sparse_self_attention.get_layout(seq), seq,
+                         model.config.n_head, False)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fa.reset_launches()
+    losses, times = [], []
+    for i in range(warmup + timed):
+        t0 = time.perf_counter()
+        losses.append(float(eng.train_batch()))
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        if i == 0:
+            step1 = (losses[0], eng.get_global_grad_norm())
+            check_launches(f"train {preset} step 1", dict(fa.launches), per_step, 1)
+    counts = {"8": dict(fa.launches)}
+    peak = torch.cuda.max_memory_allocated()
+    gaps = (abs(step1[0] - plain[0]), abs(step1[1] - plain[1]) / abs(plain[1]))
+    print(f"train {preset} step 1: loss kernels {step1[0]:.6f} plain {plain[0]:.6f}; grad "
+          f"norm kernels {step1[1]:.6f} plain {plain[1]:.6f} (gaps {gaps[0]:.3e} abs, "
+          f"{gaps[1]:.3e} rel; tol {BERT_STEP1_LOSS_TOL:g} abs, {BERT_STEP1_GNORM_TOL:g} rel)")
+    if not (gaps[0] <= BERT_STEP1_LOSS_TOL and gaps[1] <= BERT_STEP1_GNORM_TOL):
+        raise AssertionError(f"step 1 kernels {step1} vs plain {plain}")
+    n_steps = warmup + timed
+    check_launches(f"train {preset}", counts["8"], per_step, n_steps)
+    if not all(math.isfinite(x) for x in losses) or eng.skipped_steps != 0:
+        raise AssertionError(f"losses {losses}, skipped {eng.skipped_steps}")
+    step_ms = np.asarray(times[warmup:]) * 1e3
+    tok_s = timed * eng.train_batch_size() * seq / (step_ms.sum() / 1e3)
+    mfu = tok_s * model.flops_per_token() / PEAK_OPS["bf16"]
+    print(f"train {preset} T={seq} micro {micro} bf16 zero1 remat sparse16: launches per "
+          f"step " + ", ".join(f"{n} {counts['8'][n] // n_steps}" for n in per_step) +
+          f"; losses finite, skipped 0; {tok_s:.1f} tokens/s (padded positions "
+          f"counted), step p50 {np.percentile(step_ms, 50):.3f} ms p99 "
+          f"{np.percentile(step_ms, 99):.3f} ms, MFU {mfu:.4f} of 989 TFLOP/s by "
+          f"flops_per_token (dense attention FLOPs at T={seq}) ({card}), peak device "
+          f"memory {peak / 1e9:.2f} GB; tile density {lut.tile_density:.3f}, element "
+          f"density {lut.element_density:.4f}; losses {[round(x, 4) for x in losses]}")
+
+    first = {key: val[:micro] for key, val in data.items()}
+    fixed = itertools.repeat(first)
+    fit = [float(eng.train_batch(fixed)) for _ in range(fit_steps)]
+    print(f"train {preset} fixed batch: loss {fit[0]:.4f} -> {fit[-1]:.4f} over "
+          f"{fit_steps} steps (margin {BERT_FIT_MARGIN})")
+    if not fit[0] - fit[-1] >= BERT_FIT_MARGIN:
+        raise AssertionError(f"fixed-batch loss fell only {fit[0] - fit[-1]}")
+    profile_steps(lambda: eng.train_batch(), f"train {preset} sparse16", steps=1,
+                  unit="training step")
+    del eng
+    torch.cuda.empty_cache()
+
+    # 8b: unpadded batches (packed sequences): the ring forward, no bias
+    # 8c: "mode": "dense" (an all-ones layout) with padding: the dense biased kernels
+    for tag, section, padded, want in (
+            ("8b", SPARSE_SECTION, False, {"flash_fwd_lut_ring": 2 * L,
+                                           "flash_bwd_dkdv_lut": L, "flash_bwd_dq_lut": L}),
+            ("8c", {"mode": "dense", "block": 16}, True, {
+                "flash_fwd_biased": 2 * L, "flash_bwd_dkdv_biased": L,
+                "flash_bwd_dq_biased": L})):
+        eng = bert_engine(dev, base, bert_data(1, 16, seq, vocab, padded), section=section,
+                          preset=preset, seq=seq, micro=micro)
+        torch.cuda.synchronize()
+        fa.reset_launches()
+        run = [float(eng.train_batch()) for _ in range(2)]
+        counts[tag] = dict(fa.launches)
+        check_launches(f"train {preset} {tag}", counts[tag], want, 2)
+        if not all(math.isfinite(x) for x in run) or eng.skipped_steps != 0:
+            raise AssertionError(f"{tag}: losses {run}, skipped {eng.skipped_steps}")
+        print(f"train {preset} {tag} ({'padded' if padded else 'unpadded'}, mode "
+              f"{section['mode']}): 2 steps, losses {[round(x, 4) for x in run]}, launches "
+              f"per step " + ", ".join(f"{n} {counts[tag][n] // 2}" for n in want))
+        del eng
+        torch.cuda.empty_cache()
+    return counts
+
+
+# ------------------------------------------- 9. sparse kernels at the shape
+def sparse_timing(dev, gen, bytes_per_s, B=8, T=2048, H=16, d=64):
+    """Phase 9 at the training shape (q, k, v views of one qkv tensor):
+    the biased / LUT kernels of four cases, each held against its plain
+    version, then timed beside its bound, its plain version and SDPA with
+    the expanded boolean layout-and-padding mask.  Returns {case:
+    {kernel: kernels-line fields}} and the cases' densities."""
+    q, k, v, do = flash_inputs(dev, gen, torch.bfloat16, B, T, H, d, "qkv")
+    keep = torch.arange(T, device=dev)[None, :] < key_lengths(gen, B, T, dev)[:, None]
+    kb = torch.where(keep, 0.0, -10000.0).float()
+    tutorial = build_sparsity_config(SPARSE_SECTION, H)
+    fixed64 = FixedSparsityConfig(num_heads=H, block=64, num_local_blocks=4,
+                                  num_global_blocks=1, attention="bidirectional")
+    lut16 = fa.layout_luts(tutorial.make_layout(T), T, H, False)
+    lut64 = fa.layout_luts(fixed64.make_layout(T), T, H, False)
+    cases = {"tutorial16+pad": (lut16, kb), "tutorial16": (lut16, None),
+             "fixed64": (lut64, None), "dense+pad": (None, kb)}
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    qh, kh, vh, doh = (x.transpose(1, 2).contiguous() for x in (q, k, v, do))
+    elem, stat = B * T * H * d * 2, B * H * T * 4
+    saved = dict(fa.launches)
+    out, density = {}, {}
+    for case, (lut, bias) in cases.items():
+        what = f"B={B} T={T} H={H} d={d} bf16 qkv views {case}"
+        res = check_masked_case(q, k, v, do, lut, bias, None, False, what)
+        print(f"sparse-check {what} (the training shape): {flash_line(res)}")
+        names, calls, plains = masked_calls(q, k, v, do, lut, bias, None, False)
+        o, lse = calls[0]()
+        delta = fa.attention_delta(o, do)
+        layout_mask = (torch.ones((1, T, T), dtype=torch.bool, device=dev) if lut is None
+                       else lut.element_mask(dev))
+        pairs = B * int(layout_mask.sum().item()) * (H // layout_mask.shape[0])
+        density[case] = {"tile": 1.0 if lut is None else lut.tile_density,
+                         "element": pairs / (B * H * T * T)}
+        mask = layout_mask[None] & keep[:, None, None, :] if bias is not None else \
+            layout_mask[None]
+        mask = mask.expand(B, H, T, T)
+        lib = sdpa(qh, kh, vh, attn_mask=mask).transpose(1, 2)
+        err = (lib.float() - o.float()).abs().max().item()
+        if not err <= 2e-2 * o.float().abs().max().item():
+            raise AssertionError(f"SDPA yardstick {case} disagrees by {err}")
+        leaves = [x.detach().requires_grad_(True) for x in (qh, kh, vh)]
+        lib_f = time_ms(lambda _: sdpa(qh, kh, vh, attn_mask=mask), 10, warmup=2)
+        lib_fb = time_ms(lambda _: sdpa(*leaves, attn_mask=mask).backward(doh), 5, warmup=2)
+        kbytes = 0 if bias is None else B * T * 4
+        work = {names[0]: (4 * elem + stat + kbytes, 4 * d * pairs),
+                names[1]: (6 * elem + 2 * stat + kbytes, 8 * d * pairs),
+                names[2]: (5 * elem + 2 * stat + kbytes, 6 * d * pairs)}
+        kernel = {names[0]: calls[0], names[1]: lambda: calls[1](lse, delta),
+                  names[2]: lambda: calls[2](lse, delta)}
+        plain = {names[0]: plains[0], names[1]: lambda: plains[1](lse, delta),
+                 names[2]: lambda: plains[2](lse, delta)}
+        out[case] = {}
+        for name in names:
+            nbytes, ops = work[name]
+            t_bytes, t_ops = nbytes / bytes_per_s * 1e3, ops / PEAK_OPS["bf16"] * 1e3
+            bound, by = (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+            ms = time_ms(lambda _: kernel[name](), 20, warmup=3)
+            plain_ms = time_ms(lambda _: plain[name](), 2, warmup=1)
+            out[case][name] = {
+                "max_abs_err": max(e for _, e, _ in res[name]), "ms": ms,
+                "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
+                "library_ms": lib_f if name == names[0] else lib_fb}
+            print(f"timing {name} {what}: {ms * 1e3:.2f} us, bound {bound * 1e3:.2f} us "
+                  f"({by}; {nbytes / 1e6:.1f} MB, {ops / 1e9:.2f} GFLOP), plain "
+                  f"{plain_ms * 1e3:.2f} us; tile density {density[case]['tile']:.3f}, "
+                  f"element density {density[case]['element']:.4f}")
+        total = sum(out[case][n]["ms"] for n in names)
+        print(f"timing SDPA {case} (B, H, T, d) bf16 with the boolean layout-and-padding "
+              f"mask: forward {lib_f * 1e3:.2f} us, forward+backward {lib_fb * 1e3:.2f} us; "
+              f"the port's {' + '.join(names)} {total * 1e3:.2f} us")
+        del mask, lib, leaves
+        torch.cuda.empty_cache()
+    fa.launches.update(saved)          # timing launches are not path launches
+    return out, density
 
 
 def main():
@@ -755,9 +1203,30 @@ def main():
     train_launches = train(dev, card)
     tf = flash_timing(dev, gen, bw)
     print(json.dumps({"flash_sweep_max_abs_err": flash_err}))
-    kernels += [{"name": name, "route": "cuda", "source": FLASH_SOURCE,
+    kernels += [{"name": name, "route": "cuda", "source": flash_source(name),
                  "replaces": REPLACES[name], "launches": train_launches[name],
-                 **tf[name]} for name in fa.KERNELS]
+                 **tf[name]} for name in fa.DENSE_KERNELS]
+    torch.cuda.empty_cache()
+
+    # 7. sparse kernels vs plain; 8. BERT-large training; 9. sparse timing
+    sparse_err = check_sparse_kernels(dev, gen)
+    print(json.dumps({"sparse_sweep_max_abs_err": sparse_err}))
+    bert_launches = bert_train(dev, card)
+    ts, density = sparse_timing(dev, gen, bw)
+    print(json.dumps({"sparse_timing": ts, "density": density}))
+    # the kernels line: each kernel at the shape its main-path run gives it
+    # (8: the tutorial layout with padding; 8b: without; 8c: dense with padding)
+    for name, case, run in (
+            ("flash_fwd_biased", "dense+pad", "8c"),
+            ("flash_bwd_dkdv_biased", "dense+pad", "8c"),
+            ("flash_bwd_dq_biased", "dense+pad", "8c"),
+            ("flash_fwd_lut", "tutorial16+pad", "8"),
+            ("flash_fwd_lut_ring", "tutorial16", "8b"),
+            ("flash_bwd_dkdv_lut", "tutorial16+pad", "8"),
+            ("flash_bwd_dq_lut", "tutorial16+pad", "8")):
+        kernels.append({"name": name, "route": "cuda", "source": flash_source(name),
+                        "replaces": REPLACES[name], "launches": bert_launches[run][name],
+                        **ts[case][name]})
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card)

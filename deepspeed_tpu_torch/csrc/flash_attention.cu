@@ -1,679 +1,18 @@
-// Flash attention forward and backward for Hopper (sm_90a).
+// Flash attention for Hopper (sm_90a), dense path: the entries flash_fwd,
+// flash_bwd_dkdv and flash_bwd_dq.
 //
 // Replaces the Pallas TPU kernels of deepspeed_tpu/ops/transformer/flash_attention.py
 // (dense path, no biases, no LUT):
 //   flash_fwd       <- _fwd_kernel      (flash_attention.py:144-283, built by _fwd 441-613)
 //   flash_bwd_dkdv  <- _bwd_dkdv_kernel (flash_attention.py:617-688, called at 842)
 //   flash_bwd_dq    <- _bwd_dq_kernel   (flash_attention.py:691-753, called at 886)
-//
-// Layouts: q, k, v, dO are (B, T, H, D) tensors read through their (b, t, h) strides in
-// elements with the last dim contiguous, so q/k/v can be views of the fused qkv matmul
-// output; O, dQ, dK, dV are written contiguous (B, T, H, D); lse and delta are fp32
-// (B, H, T).  Element type T is bf16 (tensor cores) or fp32 (CUDA cores).
-//
-// What each kernel computes, as the Pallas code does:
-//   forward  S = Q K^T * scale, masked (k_pos < T, and q_pos >= k_pos when causal) with
-//            NEG_INF = -1e30; online softmax over the k tiles with fp32 m / l / acc;
-//            P rounded to T before P V; O = acc / l; lse = m + log(l); a row that saw no
-//            live key writes O = 0 and lse = NEG_INF.
-//   dK/dV    per k tile, over the q tiles: P = exp(S - lse) (0 where masked, and q_pos < T
-//            is part of the mask), dV += P^T dO with P rounded to T,
-//            dS = P * (dO V^T - delta) * scale, dK += dS^T Q with dS rounded to T.
-//   dQ       per q tile, over the k tiles: the same P and dS, dQ += dS K.
-//   delta = rowsum(dO * O) is computed by the caller in fp32 (XLA did it outside Pallas).
-//
-// What bounds them on this card: at the training shape (T = 1024, D = 64, causal, bf16)
-// the forward does 4·D flops per (q, k) pair for 4·2 bytes per q or k row, so its
-// arithmetic intensity is ~T/2 flops per byte, above the ~295 at which the H100's
-// tensor cores, not its memory, become the limit; the backward kernels do 4 and 3
-// products per pair.  So the design keeps every product on the tensor cores
-// (mma.sync m16n8k16, bf16 in, fp32 accumulate) and keeps S, P and dS out of device
-// memory:
-//   * one block of 4 warps owns a 64-row tile (q rows in the forward and dQ kernels,
-//     k rows in the dK/dV kernel); each warp owns 16 of those rows and loops over the
-//     other side's 64-row tiles, so every block writes only its own output tile: no
-//     atomics, deterministic results (the Pallas grid's sequential inner dimension
-//     becomes the loop inside the block);
-//   * tiles are staged global -> shared memory with 16-byte cp.async copies; the rows
-//     past T are zero-filled and masked, so any T works without padded copies;
-//   * every product is C(16x8) += A(16x16) * B(16x8).  The warp's own rows (Q, K, V,
-//     dO) are loaded as A fragments with ldmatrix; the B operands come from the
-//     row-major shared tiles with ldmatrix, or ldmatrix.trans where the product needs
-//     the tile transposed (V in the forward, Q and dO in dK/dV, K in dQ), so no
-//     transposed copy is ever made;
-//   * P and dS go from the fp32 accumulators straight into A fragments in registers,
-//     rounded to bf16 exactly where the Pallas code rounds them;
-//   * causal tiles wholly above the diagonal are skipped (flash_attention.py:208, 646,
-//     718), only the tiles crossing the diagonal or the ragged end are masked, and the
-//     forward and dQ grids start with the longest q tiles;
-//   * scores are kept in log2 units (S * scale * log2 e, one FMA) so every exponential
-//     is one exp2f; lse is converted back to natural log on output;
-//   * each block double-buffers the tiles it loops over: cp.async copies the next tile
-//     global -> shared while the warps run this tile's products.
-// Rows of shared tiles are padded by 8 elements so the 8 row addresses of an ldmatrix
-// fall in different banks.  The fp32 path runs the same tiling on the CUDA cores, with
-// P / dS staged through a per-warp shared tile.  wgmma, TMA and warp specialisation
-// are later work.
+// The kernels, what they compute, what bounds them and their design are in
+// flash_attention.cuh; here they run with every variant flag off.
 //
 // C interface for ctypes: each entry returns cudaGetLastError() after the launch
 // (0 on success), or -1 for a dtype / head dim / shape it was not built for.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <math.h>
-#include <stdint.h>
-
-#include <type_traits>
-
-namespace {
-
-constexpr int kThreads = 128;
-constexpr int kWarps = kThreads / 32;
-constexpr int kBQ = 16 * kWarps;   // q rows per tile
-constexpr int kBK = 64;            // k rows per tile
-constexpr int kPad = 8;            // shared-row padding, elements
-constexpr float kNegInf = -1e30f;  // flash_attention.py NEG_INF
-constexpr float kLog2e = 1.4426950408889634f;
-constexpr float kLn2 = 0.6931471805599453f;
-
-static_assert(kBQ == kBK, "the dK/dV kernel gives each warp 16 of the kBK key rows");
-
-using bf16 = __nv_bfloat16;
-
-struct Strides {
-  long long b, t, h;  // elements
-};
-
-struct Args {
-  const void* q;
-  const void* k;
-  const void* v;
-  const void* dout;
-  Strides sq, sk, sv, sdo;
-  void* out0;          // O (forward), dQ (dq kernel), dK (dkdv kernel)
-  void* out1;          // dV (dkdv kernel)
-  float* lse;          // written by the forward, read by the backward kernels
-  const float* delta;  // backward only
-  int B, T, H, causal;
-  float scale;
-};
-
-template <typename T> __device__ __forceinline__ T from_f(float x);
-template <> __device__ __forceinline__ float from_f<float>(float x) { return x; }
-template <> __device__ __forceinline__ bf16 from_f<bf16>(float x) { return __float2bfloat16_rn(x); }
-
-__host__ __device__ __forceinline__ int cdiv(int a, int b) { return (a + b - 1) / b; }
-
-__device__ __forceinline__ int lane_id() { return threadIdx.x & 31; }
-
-// ---------------------------------------------------------------- tile staging
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 16 bytes global -> shared without passing through registers; zero-filled when !pred
-// (the source address is then not read, but must still be a valid one)
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool pred) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)),
-               "l"(src), "r"(pred ? 16 : 0)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async4(void* dst, const void* src, bool pred) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_addr(dst)),
-               "l"(src), "r"(pred ? 4 : 0)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-// wait until at most N committed groups of this thread are still in flight
-template <int N> __device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-// Issue dst[r][c] = src[t0 + r][c] for r < 64, c < D; rows at or past T are zero.
-template <typename T, int D>
-__device__ __forceinline__ void load_rows(T* dst, int ld, const T* src, Strides s, int b, int h,
-                                          int t0, int T_len) {
-  constexpr int kEpv = 16 / sizeof(T);  // elements per 16-byte vector
-  constexpr int kVpr = D / kEpv;        // vectors per row
-  const T* base = src + b * s.b + h * s.h;
-  for (int i = threadIdx.x; i < 64 * kVpr; i += kThreads) {
-    const int r = i / kVpr, c = (i % kVpr) * kEpv, t = t0 + r;
-    cp_async16(dst + r * ld + c, base + (t < T_len ? t : 0) * s.t + c, t < T_len);
-  }
-}
-
-// Issue dst[i] = stat[t0 + i] for i < 64 (zero at or past T).
-__device__ __forceinline__ void load_stat(float* dst, const float* stat, int t0, int T_len) {
-  for (int i = threadIdx.x; i < 64; i += kThreads) {
-    const int t = t0 + i;
-    cp_async4(dst + i, stat + (t < T_len ? t : 0), t < T_len);
-  }
-}
-
-// ---------------------------------------------------------------- tensor cores
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p))
-               : "memory");
-}
-
-__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p))
-               : "memory");
-}
-
-// c (16x8) += a (16x16) * b (16x8).  Accumulator layout: lane = 4 g + i holds rows g
-// (c[0], c[1]) and g + 8 (c[2], c[3]) at columns 2i, 2i + 1.
-__device__ __forceinline__ void mma16816(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
-
-// ---------------------------------------------------------------- A operands
-// The A operand (16 x K) of a warp's products.  bf16: mma fragments in registers,
-// loaded with ldmatrix or packed from fp32 accumulators.  fp32: a pointer to the rows in
-// shared memory; accumulators are first stored to the warp's scratch tile.
-template <typename T, int K> struct FragA;
-
-template <int K> struct FragA<bf16, K> {
-  uint32_t r[K / 16][4];
-
-  __device__ __forceinline__ void load(const bf16* A, int lda) {
-    const int lane = lane_id();
-#pragma unroll
-    for (int kk = 0; kk < K / 16; ++kk)
-      ldsm_x4(r[kk], A + (lane & 15) * lda + kk * 16 + (lane >> 4) * 8);
-  }
-
-  // from the accumulators of a (16 x K) product, rounded to bf16
-  __device__ __forceinline__ void from_acc(const float (&v)[K / 8][4], bf16*, int) {
-#pragma unroll
-    for (int kk = 0; kk < K / 16; ++kk) {
-      r[kk][0] = pack_bf16(v[2 * kk][0], v[2 * kk][1]);
-      r[kk][1] = pack_bf16(v[2 * kk][2], v[2 * kk][3]);
-      r[kk][2] = pack_bf16(v[2 * kk + 1][0], v[2 * kk + 1][1]);
-      r[kk][3] = pack_bf16(v[2 * kk + 1][2], v[2 * kk + 1][3]);
-    }
-  }
-};
-
-template <int K> struct FragA<float, K> {
-  const float* p;
-  int ld;
-
-  __device__ __forceinline__ void load(const float* A, int lda) {
-    p = A;
-    ld = lda;
-  }
-
-  __device__ __forceinline__ void from_acc(const float (&v)[K / 8][4], float* scratch, int lds) {
-    const int lane = lane_id(), g = lane >> 2, q = (lane & 3) * 2;
-    __syncwarp();  // the previous product read the scratch tile
-#pragma unroll
-    for (int n = 0; n < K / 8; ++n) {
-      scratch[g * lds + n * 8 + q] = v[n][0];
-      scratch[g * lds + n * 8 + q + 1] = v[n][1];
-      scratch[(g + 8) * lds + n * 8 + q] = v[n][2];
-      scratch[(g + 8) * lds + n * 8 + q + 1] = v[n][3];
-    }
-    __syncwarp();
-    p = scratch;
-    ld = lds;
-  }
-};
-
-// acc (16 x N) += A (16 x K) * B (K x N).  B is read from shared memory: with kTransB
-// false it is given as its transpose, rows n of K contiguous elements (ldb apart); with
-// kTransB true as rows k of N contiguous elements.
-template <int N, int K, bool kTransB>
-__device__ __forceinline__ void warp_mm(float (&acc)[N / 8][4], const FragA<bf16, K>& a,
-                                        const bf16* B, int ldb) {
-  const int lane = lane_id();
-#pragma unroll
-  for (int kk = 0; kk < K / 16; ++kk) {
-#pragma unroll
-    for (int j = 0; j < N / 16; ++j) {
-      uint32_t b[4];
-      if (kTransB)
-        ldsm_x4_t(b, B + (kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * ldb + j * 16 +
-                         (lane >> 4) * 8);
-      else
-        ldsm_x4(b, B + (j * 16 + (lane & 7) + ((lane >> 4) << 3)) * ldb + kk * 16 +
-                       ((lane >> 3) & 1) * 8);
-      mma16816(acc[2 * j], a.r[kk], b[0], b[1]);
-      mma16816(acc[2 * j + 1], a.r[kk], b[2], b[3]);
-    }
-  }
-}
-
-// The fp32 path: the same accumulator elements, computed on the CUDA cores.
-template <int N, int K, bool kTransB>
-__device__ __forceinline__ void warp_mm(float (&acc)[N / 8][4], const FragA<float, K>& a,
-                                        const float* B, int ldb) {
-  const int lane = lane_id(), g = lane >> 2, q = (lane & 3) * 2;
-#pragma unroll 4
-  for (int kk = 0; kk < K; ++kk) {
-    const float lo = a.p[g * a.ld + kk], hi = a.p[(g + 8) * a.ld + kk];
-#pragma unroll
-    for (int n = 0; n < N / 8; ++n) {
-      const int c = n * 8 + q;
-      const float b0 = kTransB ? B[kk * ldb + c] : B[c * ldb + kk];
-      const float b1 = kTransB ? B[kk * ldb + c + 1] : B[(c + 1) * ldb + kk];
-      acc[n][0] = fmaf(lo, b0, acc[n][0]);
-      acc[n][1] = fmaf(lo, b1, acc[n][1]);
-      acc[n][2] = fmaf(hi, b0, acc[n][2]);
-      acc[n][3] = fmaf(hi, b1, acc[n][3]);
-    }
-  }
-}
-
-// out[b, row, h, :] of a contiguous (B, T, H, D) tensor, from a warp's accumulator rows.
-template <typename T, int D>
-__device__ __forceinline__ void write_rows(T* out, const float (&acc)[D / 8][4], const int (&row)[2],
-                                           const Args& a, int b, int h, const float (&mul)[2]) {
-  const int q = (lane_id() & 3) * 2;
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    if (row[r] >= a.T) continue;
-    T* dst = out + ((static_cast<long long>(b) * a.T + row[r]) * a.H + h) * D;
-#pragma unroll
-    for (int n = 0; n < D / 8; ++n) {
-      dst[n * 8 + q] = from_f<T>(acc[n][2 * r] * mul[r]);
-      dst[n * 8 + q + 1] = from_f<T>(acc[n][2 * r + 1] * mul[r]);
-    }
-  }
-}
-
-__device__ __forceinline__ float quad_max(float x) {
-  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
-  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
-}
-
-__device__ __forceinline__ float quad_sum(float x) {
-  x += __shfl_xor_sync(0xffffffffu, x, 1);
-  return x + __shfl_xor_sync(0xffffffffu, x, 2);
-}
-
-// per-warp scratch rows for P / dS: only the fp32 path stages them in shared memory
-template <typename T>
-__host__ __device__ constexpr int scratch_rows() {
-  return std::is_same<T, float>::value ? kWarps * 16 : 0;
-}
-
-constexpr int kLdS = 64 + kPad;  // scratch row stride (64 columns: kBQ == kBK)
-
-// ---------------------------------------------------------------- forward
-template <typename T, int D>
-size_t fwd_smem() {
-  return sizeof(T) * (static_cast<size_t>(kBQ + 4 * kBK) * (D + kPad) +
-                      static_cast<size_t>(scratch_rows<T>()) * kLdS);
-}
-
-template <typename T, int D>
-__global__ void __launch_bounds__(kThreads) fwd_kernel(Args a) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  constexpr int LDD = D + kPad, kStage = 2 * kBK * LDD;
-  T* sQ = reinterpret_cast<T*>(smem);  // [kBQ][LDD]
-  T* sKV = sQ + kBQ * LDD;             // 2 stages of K then V, [kBK][LDD] each
-  T* sP = sKV + 2 * kStage;            // fp32 only: [kBQ][kLdS], 16 rows per warp
-
-  const int nq = cdiv(a.T, kBQ);
-  const int q0 = (nq - 1 - blockIdx.x) * kBQ;  // longest causal rows first
-  const int b = blockIdx.y / a.H, h = blockIdx.y % a.H;
-  const int warp = threadIdx.x >> 5, lane = lane_id();
-  const int g = lane >> 2, qd = (lane & 3) * 2;
-  const int row[2] = {q0 + warp * 16 + g, q0 + warp * 16 + g + 8};
-  T* myP = sP + warp * 16 * kLdS;
-  const T* K = static_cast<const T*>(a.k);
-  const T* V = static_cast<const T*>(a.v);
-  int nk = cdiv(a.T, kBK);
-  if (a.causal) nk = min(nk, (q0 + kBQ - 1) / kBK + 1);
-  const float scale2 = a.scale * kLog2e;
-
-  load_rows<T, D>(sQ, LDD, static_cast<const T*>(a.q), a.sq, b, h, q0, a.T);
-  load_rows<T, D>(sKV, LDD, K, a.sk, b, h, 0, a.T);
-  load_rows<T, D>(sKV + kBK * LDD, LDD, V, a.sv, b, h, 0, a.T);
-  cp_async_commit();
-  FragA<T, D> qa;
-  float o[D / 8][4] = {};
-  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
-  for (int j = 0; j < nk; ++j) {
-    const int k0 = j * kBK;
-    const T* sK = sKV + (j & 1) * kStage;
-    const T* sV = sK + kBK * LDD;
-    if (j + 1 < nk) {  // the next tile's loads overlap this tile's products
-      T* nxt = sKV + ((j + 1) & 1) * kStage;
-      load_rows<T, D>(nxt, LDD, K, a.sk, b, h, k0 + kBK, a.T);
-      load_rows<T, D>(nxt + kBK * LDD, LDD, V, a.sv, b, h, k0 + kBK, a.T);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    if (j == 0) qa.load(sQ + warp * 16 * LDD, LDD);
-
-    float s[kBK / 8][4] = {};
-    warp_mm<kBK, D, false>(s, qa, sK, LDD);  // S = Q K^T
-    // scores in log2 units (S * scale * log2 e), so each exponential is one exp2f;
-    // only a tile crossing the diagonal or the ragged end needs the mask
-    const bool masked = k0 + kBK > a.T || (a.causal && k0 + kBK - 1 > q0);
-    float mc[2] = {kNegInf, kNegInf};
-#pragma unroll
-    for (int n = 0; n < kBK / 8; ++n) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int r = e >> 1, col = k0 + n * 8 + qd + (e & 1);
-        const bool valid = !masked || (col < a.T && (!a.causal || row[r] >= col));
-        s[n][e] = valid ? s[n][e] * scale2 : kNegInf;
-        mc[r] = fmaxf(mc[r], s[n][e]);
-      }
-    }
-    float alpha[2], ls[2] = {0.f, 0.f};
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      const float mn = fmaxf(m[r], quad_max(mc[r]));
-      alpha[r] = exp2f(m[r] - mn);
-      m[r] = mn;
-    }
-#pragma unroll
-    for (int n = 0; n < kBK / 8; ++n) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int r = e >> 1;
-        const float p = s[n][e] == kNegInf ? 0.f : exp2f(s[n][e] - m[r]);
-        s[n][e] = p;
-        ls[r] += p;
-      }
-    }
-#pragma unroll
-    for (int r = 0; r < 2; ++r) l[r] = l[r] * alpha[r] + quad_sum(ls[r]);
-#pragma unroll
-    for (int n = 0; n < D / 8; ++n) {
-      o[n][0] *= alpha[0];
-      o[n][1] *= alpha[0];
-      o[n][2] *= alpha[1];
-      o[n][3] *= alpha[1];
-    }
-    FragA<T, kBK> pa;
-    pa.from_acc(s, myP, kLdS);
-    warp_mm<D, kBK, true>(o, pa, sV, LDD);  // O += P V
-    __syncthreads();  // this stage is refilled at the next iteration
-  }
-
-  float inv[2];
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const bool live = m[r] > kNegInf * 0.5f;
-    const float l_safe = l[r] == 0.f ? 1.f : l[r];
-    inv[r] = live ? 1.f / l_safe : 0.f;
-    if ((lane & 3) == 0 && row[r] < a.T)
-      a.lse[(static_cast<long long>(b) * a.H + h) * a.T + row[r]] =
-          live ? m[r] * kLn2 + logf(l_safe) : kNegInf;
-  }
-  write_rows<T, D>(static_cast<T*>(a.out0), o, row, a, b, h, inv);
-}
-
-// ---------------------------------------------------------------- dK / dV
-template <typename T, int D>
-size_t dkdv_smem() {
-  return sizeof(T) * (static_cast<size_t>(2 * kBK + 4 * kBQ) * (D + kPad) +
-                      static_cast<size_t>(scratch_rows<T>()) * kLdS) +
-         sizeof(float) * 4 * kBQ;
-}
-
-template <typename T, int D>
-__global__ void __launch_bounds__(kThreads) dkdv_kernel(Args a) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  constexpr int LDD = D + kPad, kStage = 2 * kBQ * LDD;
-  T* sK = reinterpret_cast<T*>(smem);  // [kBK][LDD]
-  T* sV = sK + kBK * LDD;              // [kBK][LDD]
-  T* sQO = sV + kBK * LDD;             // 2 stages of Q then dO, [kBQ][LDD] each
-  T* sS = sQO + 2 * kStage;            // fp32 only: [kBK][kLdS], 16 rows per warp
-  float* sStat = reinterpret_cast<float*>(sS + scratch_rows<T>() * kLdS);  // 2 x {lse, delta}
-
-  const int k0 = blockIdx.x * kBK;  // longest causal columns first
-  const int b = blockIdx.y / a.H, h = blockIdx.y % a.H;
-  const int warp = threadIdx.x >> 5, lane = lane_id();
-  const int g = lane >> 2, qd = (lane & 3) * 2;
-  const int key[2] = {k0 + warp * 16 + g, k0 + warp * 16 + g + 8};
-  const long long stat0 = (static_cast<long long>(b) * a.H + h) * a.T;
-  T* myS = sS + warp * 16 * kLdS;
-  const T* Q = static_cast<const T*>(a.q);
-  const T* dO = static_cast<const T*>(a.dout);
-  const int nq = cdiv(a.T, kBQ);
-  // causal: q tile i meets this k tile iff i * kBQ + kBQ - 1 >= k0
-  const int first = a.causal ? k0 / kBQ : 0;
-  const float scale2 = a.scale * kLog2e;
-
-  auto issue_q_tile = [&](int i, int stage) {
-    T* dst = sQO + stage * kStage;
-    load_rows<T, D>(dst, LDD, Q, a.sq, b, h, i * kBQ, a.T);
-    load_rows<T, D>(dst + kBQ * LDD, LDD, dO, a.sdo, b, h, i * kBQ, a.T);
-    load_stat(sStat + stage * 2 * kBQ, a.lse + stat0, i * kBQ, a.T);
-    load_stat(sStat + stage * 2 * kBQ + kBQ, a.delta + stat0, i * kBQ, a.T);
-  };
-  load_rows<T, D>(sK, LDD, static_cast<const T*>(a.k), a.sk, b, h, k0, a.T);
-  load_rows<T, D>(sV, LDD, static_cast<const T*>(a.v), a.sv, b, h, k0, a.T);
-  issue_q_tile(first, 0);
-  cp_async_commit();
-
-  float dk[D / 8][4] = {}, dv[D / 8][4] = {};
-  for (int i = first; i < nq; ++i) {
-    const int q0 = i * kBQ, stage = (i - first) & 1;
-    const T* sQ = sQO + stage * kStage;
-    const T* sdO = sQ + kBQ * LDD;
-    const float* sLse = sStat + stage * 2 * kBQ;
-    const float* sDelta = sLse + kBQ;
-    if (i + 1 < nq) {  // the next tile's loads overlap this tile's products
-      issue_q_tile(i + 1, stage ^ 1);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-
-    // the warp's K and V rows as A fragments, reloaded per tile to spare registers
-    float st[kBQ / 8][4] = {}, dpt[kBQ / 8][4] = {};
-    FragA<T, D> kva;
-    kva.load(sK + warp * 16 * LDD, LDD);
-    warp_mm<kBQ, D, false>(st, kva, sQ, LDD);   // S^T = K Q^T
-    kva.load(sV + warp * 16 * LDD, LDD);
-    warp_mm<kBQ, D, false>(dpt, kva, sdO, LDD);  // dP^T = V dO^T
-    // P = exp2(S * scale * log2 e - lse * log2 e); only a tile crossing the diagonal
-    // or a ragged end needs the mask
-    const bool masked = q0 + kBQ > a.T || k0 + kBK > a.T || (a.causal && q0 < k0 + kBK - 1);
-#pragma unroll
-    for (int n = 0; n < kBQ / 8; ++n) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int r = e >> 1, c = n * 8 + qd + (e & 1), qpos = q0 + c;
-        const bool valid =
-            !masked || (qpos < a.T && key[r] < a.T && (!a.causal || qpos >= key[r]));
-        const float p = valid ? exp2f(fmaf(st[n][e], scale2, -sLse[c] * kLog2e)) : 0.f;
-        st[n][e] = p;
-        dpt[n][e] = p * (dpt[n][e] - sDelta[c]) * a.scale;
-      }
-    }
-    FragA<T, kBQ> fa;
-    fa.from_acc(st, myS, kLdS);
-    warp_mm<D, kBQ, true>(dv, fa, sdO, LDD);  // dV += P^T dO
-    fa.from_acc(dpt, myS, kLdS);
-    warp_mm<D, kBQ, true>(dk, fa, sQ, LDD);   // dK += dS^T Q
-    __syncthreads();  // this stage is refilled at the next iteration
-  }
-  const float one[2] = {1.f, 1.f};
-  write_rows<T, D>(static_cast<T*>(a.out0), dk, key, a, b, h, one);
-  write_rows<T, D>(static_cast<T*>(a.out1), dv, key, a, b, h, one);
-}
-
-// ---------------------------------------------------------------- dQ
-template <typename T, int D>
-size_t dq_smem() {
-  return sizeof(T) * (static_cast<size_t>(2 * kBQ + 4 * kBK) * (D + kPad) +
-                      static_cast<size_t>(scratch_rows<T>()) * kLdS);
-}
-
-template <typename T, int D>
-__global__ void __launch_bounds__(kThreads) dq_kernel(Args a) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  constexpr int LDD = D + kPad, kStage = 2 * kBK * LDD;
-  T* sQ = reinterpret_cast<T*>(smem);  // [kBQ][LDD]
-  T* sdO = sQ + kBQ * LDD;             // [kBQ][LDD]
-  T* sKV = sdO + kBQ * LDD;            // 2 stages of K then V, [kBK][LDD] each
-  T* sS = sKV + 2 * kStage;            // fp32 only: [kBQ][kLdS], 16 rows per warp
-
-  const int nq = cdiv(a.T, kBQ);
-  const int q0 = (nq - 1 - blockIdx.x) * kBQ;
-  const int b = blockIdx.y / a.H, h = blockIdx.y % a.H;
-  const int warp = threadIdx.x >> 5, lane = lane_id();
-  const int g = lane >> 2, qd = (lane & 3) * 2;
-  const int row[2] = {q0 + warp * 16 + g, q0 + warp * 16 + g + 8};
-  const long long stat0 = (static_cast<long long>(b) * a.H + h) * a.T;
-  const float scale2 = a.scale * kLog2e;
-  float lse2[2], delta[2];  // lse in log2 units
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    lse2[r] = row[r] < a.T ? a.lse[stat0 + row[r]] * kLog2e : 0.f;
-    delta[r] = row[r] < a.T ? a.delta[stat0 + row[r]] : 0.f;
-  }
-  T* myS = sS + warp * 16 * kLdS;
-  const T* K = static_cast<const T*>(a.k);
-  const T* V = static_cast<const T*>(a.v);
-  int nk = cdiv(a.T, kBK);
-  if (a.causal) nk = min(nk, (q0 + kBQ - 1) / kBK + 1);
-
-  load_rows<T, D>(sQ, LDD, static_cast<const T*>(a.q), a.sq, b, h, q0, a.T);
-  load_rows<T, D>(sdO, LDD, static_cast<const T*>(a.dout), a.sdo, b, h, q0, a.T);
-  load_rows<T, D>(sKV, LDD, K, a.sk, b, h, 0, a.T);
-  load_rows<T, D>(sKV + kBK * LDD, LDD, V, a.sv, b, h, 0, a.T);
-  cp_async_commit();
-
-  float dq[D / 8][4] = {};
-  for (int j = 0; j < nk; ++j) {
-    const int k0 = j * kBK;
-    const T* sK = sKV + (j & 1) * kStage;
-    const T* sV = sK + kBK * LDD;
-    if (j + 1 < nk) {  // the next tile's loads overlap this tile's products
-      T* nxt = sKV + ((j + 1) & 1) * kStage;
-      load_rows<T, D>(nxt, LDD, K, a.sk, b, h, k0 + kBK, a.T);
-      load_rows<T, D>(nxt + kBK * LDD, LDD, V, a.sv, b, h, k0 + kBK, a.T);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-
-    // the warp's Q and dO rows as A fragments, reloaded per tile to spare registers
-    float s[kBK / 8][4] = {}, dp[kBK / 8][4] = {};
-    FragA<T, D> qda;
-    qda.load(sQ + warp * 16 * LDD, LDD);
-    warp_mm<kBK, D, false>(s, qda, sK, LDD);   // S = Q K^T
-    qda.load(sdO + warp * 16 * LDD, LDD);
-    warp_mm<kBK, D, false>(dp, qda, sV, LDD);  // dP = dO V^T
-    const bool masked = q0 + kBQ > a.T || k0 + kBK > a.T || (a.causal && k0 + kBK - 1 > q0);
-#pragma unroll
-    for (int n = 0; n < kBK / 8; ++n) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int r = e >> 1, col = k0 + n * 8 + qd + (e & 1);
-        const bool valid =
-            !masked || (row[r] < a.T && col < a.T && (!a.causal || row[r] >= col));
-        const float p = valid ? exp2f(fmaf(s[n][e], scale2, -lse2[r])) : 0.f;
-        dp[n][e] = p * (dp[n][e] - delta[r]) * a.scale;
-      }
-    }
-    FragA<T, kBK> dsa;
-    dsa.from_acc(dp, myS, kLdS);
-    warp_mm<D, kBK, true>(dq, dsa, sK, LDD);  // dQ += dS K
-    __syncthreads();  // this stage is refilled at the next iteration
-  }
-  const float one[2] = {1.f, 1.f};
-  write_rows<T, D>(static_cast<T*>(a.out0), dq, row, a, b, h, one);
-}
-
-// ---------------------------------------------------------------- launch
-enum Which { kFwd, kDkdv, kDq };
-
-template <typename T, int D>
-int launch(Which which, const Args& a, cudaStream_t stream) {
-  const dim3 grid(which == kDkdv ? cdiv(a.T, kBK) : cdiv(a.T, kBQ), a.B * a.H);
-  void (*kernel)(Args);
-  size_t smem;
-  switch (which) {
-    case kFwd: kernel = fwd_kernel<T, D>; smem = fwd_smem<T, D>(); break;
-    case kDkdv: kernel = dkdv_kernel<T, D>; smem = dkdv_smem<T, D>(); break;
-    default: kernel = dq_kernel<T, D>; smem = dq_smem<T, D>(); break;
-  }
-  const cudaError_t e = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-  if (e != cudaSuccess) return static_cast<int>(e);
-  kernel<<<grid, kThreads, smem, stream>>>(a);
-  return static_cast<int>(cudaGetLastError());
-}
-
-// dtype: 0 fp32 (CUDA cores), 1 bf16 (tensor cores); head dims 64, 96, 128
-int dispatch(Which which, int dtype, int head_dim, const Args& a, cudaStream_t stream) {
-  if (a.B * a.H > 65535) return -1;
-  if (a.T == 0 || a.B * a.H == 0) return 0;
-  if (dtype == 1) {
-    switch (head_dim) {
-      case 64: return launch<bf16, 64>(which, a, stream);
-      case 96: return launch<bf16, 96>(which, a, stream);
-      case 128: return launch<bf16, 128>(which, a, stream);
-      default: return -1;
-    }
-  }
-  if (dtype == 0) {
-    switch (head_dim) {
-      case 64: return launch<float, 64>(which, a, stream);
-      case 96: return launch<float, 96>(which, a, stream);
-      case 128: return launch<float, 128>(which, a, stream);
-      default: return -1;
-    }
-  }
-  return -1;
-}
-
-Args make_args(const void* q, const void* k, const void* v, const void* dout,
-               const long long* strides, int B, int T, int H, int causal, float scale) {
-  Args a = {};
-  a.q = q;
-  a.k = k;
-  a.v = v;
-  a.dout = dout;
-  a.sq = {strides[0], strides[1], strides[2]};
-  a.sk = {strides[3], strides[4], strides[5]};
-  a.sv = {strides[6], strides[7], strides[8]};
-  a.sdo = {strides[9], strides[10], strides[11]};
-  a.B = B;
-  a.T = T;
-  a.H = H;
-  a.causal = causal;
-  a.scale = scale;
-  return a;
-}
-
-}  // namespace
+#include "flash_attention.cuh"
 
 // strides: 12 int64, the (b, t, h) element strides of q, k, v and dout (dout's ignored
 // by the forward).
@@ -683,7 +22,7 @@ extern "C" int flash_fwd(int dtype, int head_dim, const void* q, const void* k, 
   Args a = make_args(q, k, v, nullptr, strides, B, T, H, causal, scale);
   a.out0 = out;
   a.lse = lse;
-  return dispatch(kFwd, dtype, head_dim, a, reinterpret_cast<cudaStream_t>(stream));
+  return dispatch<kFwd, false, false>(dtype, head_dim, a, reinterpret_cast<cudaStream_t>(stream));
 }
 
 extern "C" int flash_bwd_dkdv(int dtype, int head_dim, const void* q, const void* k,
@@ -695,7 +34,8 @@ extern "C" int flash_bwd_dkdv(int dtype, int head_dim, const void* q, const void
   a.out1 = dv;
   a.lse = const_cast<float*>(lse);
   a.delta = delta;
-  return dispatch(kDkdv, dtype, head_dim, a, reinterpret_cast<cudaStream_t>(stream));
+  return dispatch<kDkdv, false, false>(dtype, head_dim, a,
+                                       reinterpret_cast<cudaStream_t>(stream));
 }
 
 extern "C" int flash_bwd_dq(int dtype, int head_dim, const void* q, const void* k,
@@ -706,5 +46,5 @@ extern "C" int flash_bwd_dq(int dtype, int head_dim, const void* q, const void* 
   a.out0 = dq;
   a.lse = const_cast<float*>(lse);
   a.delta = delta;
-  return dispatch(kDq, dtype, head_dim, a, reinterpret_cast<cudaStream_t>(stream));
+  return dispatch<kDq, false, false>(dtype, head_dim, a, reinterpret_cast<cudaStream_t>(stream));
 }

@@ -5,8 +5,10 @@ over the same JSON dicts.  Resolved here: the batch triple
 (``_configure_train_batch_size`` / ``_batch_assertion``, at world size
 1), the ``bf16``/``fp16`` blocks, ``optimizer``, ``scheduler``,
 ``gradient_clipping``, ``steps_per_print``, ``dataloader_drop_last``,
-``data_types.grad_accum_dtype``, ``zero_optimization.stage`` and the
-``health_check`` block's device sentinels.
+``data_types.grad_accum_dtype``, ``zero_optimization.stage``, the
+``health_check`` block's device sentinels and ``sparse_attention`` (the
+JSON section as a dict, default ``None``, as ``config.py:886`` stores it;
+the caller builds the layout with ``build_sparsity_config``).
 
 What the port does not run raises ``NotImplementedError`` instead of
 being ignored: world size > 1, ZeRO stage 3 and offload, ``fp16``
@@ -18,8 +20,12 @@ know.  ``prescale_gradients`` / ``gradient_predivide_factor`` and the
 ZeRO bucketing keys are accepted as no-ops, as in the JAX package, and
 listed in ``noop_keys_set``.
 
-Difference: a batch triple that does not multiply out raises
-``DeepSpeedConfigError`` (the JAX package uses ``assert``).
+Differences: a batch triple that does not multiply out raises
+``DeepSpeedConfigError`` (the JAX package uses ``assert``); a
+``sparse_attention`` section is validated at parse time through
+``build_sparsity_config`` (an unknown mode raises ``ValueError``, a bad
+parameter the config class's own error), where the JAX package only
+stores it.
 """
 
 from . import constants as C
@@ -31,7 +37,7 @@ PORTED_KEYS = {
     C.GRADIENT_ACCUMULATION_STEPS, C.STEPS_PER_PRINT, C.OPTIMIZER, C.SCHEDULER,
     C.FP16, C.BFLOAT16, C.BFLOAT16_OLD, C.GRADIENT_CLIPPING,
     C.PRESCALE_GRADIENTS, C.GRADIENT_PREDIVIDE_FACTOR, C.DATA_TYPES,
-    C.DATALOADER_DROP_LAST, C.ZERO_OPTIMIZATION, C.HEALTH_CHECK,
+    C.DATALOADER_DROP_LAST, C.ZERO_OPTIMIZATION, C.HEALTH_CHECK, C.SPARSE_ATTENTION,
 }
 
 
@@ -151,6 +157,16 @@ class DeepSpeedConfig:
             raise NotImplementedError("fp16 (the dynamic loss scaler) is not ported; "
                                       "use bf16")
         self.health_check = DeepSpeedHealthCheckConfig(pd)
+        self.sparse_attention = pd.get(C.SPARSE_ATTENTION)
+        if self.sparse_attention is not None:
+            if not isinstance(self.sparse_attention, dict):
+                raise DeepSpeedConfigError("sparse_attention must be a dict section, got "
+                                           f"{self.sparse_attention!r}")
+            from ..ops.sparse_attention.sparsity_config import build_sparsity_config
+            try:
+                build_sparsity_config(self.sparse_attention, num_heads=1)
+            except TypeError as e:       # a key the mode's config class does not take
+                raise DeepSpeedConfigError(f"sparse_attention: {e}") from e
 
     def _configure_train_batch_size(self):
         """Solve for the missing one of (train_batch, micro_batch, gas), at

@@ -32,6 +32,7 @@ DATALOADER_DROP_LAST = "dataloader_drop_last"
 DATALOADER_DROP_LAST_DEFAULT = False
 
 ZERO_OPTIMIZATION = "zero_optimization"
+SPARSE_ATTENTION = "sparse_attention"      # a dict (build_sparsity_config) or None
 
 HEALTH_CHECK = "health_check"
 HEALTH_DEFAULTS = {
@@ -60,9 +61,8 @@ UNPORTED = {
     "curriculum_learning": {}, "progressive_layer_drop": {}, "eigenvalue": {},
     "quantize_training": {}, "checkpoint": {}, "io_retry": {},
     "compile_cache": {}, "comms_compression": {}, "mesh": {},
-    "sequence_parallel": {}, "elasticity": {}, "sparse_attention": None,
-    "aio": {}, "autotuning": {}, "sparse_gradients": False,
-    "communication_data_type": None, "disable_allgather": False,
-    "dump_state": False, "wall_clock_breakdown": False,
+    "sequence_parallel": {}, "elasticity": {}, "aio": {}, "autotuning": {},
+    "sparse_gradients": False, "communication_data_type": None,
+    "disable_allgather": False, "dump_state": False, "wall_clock_breakdown": False,
     "memory_breakdown": False,
 }

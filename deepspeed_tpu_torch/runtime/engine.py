@@ -1,7 +1,9 @@
 """DeepSpeedEngine: the training loop wrapper, single-device fused path.
 
 Counterpart of ``deepspeed_tpu/runtime/engine.py`` (``DeepSpeedEngine``).
-Ported: ``_configure_optimizer`` (Adam/AdamW), ``_configure_lr_scheduler``,
+Ported: ``_resolve_model``'s parameter source (``params=``, else the
+model's own initialiser), ``_configure_optimizer`` (Adam/AdamW),
+``_configure_lr_scheduler``,
 ``_init_state`` (compute-dtype params, fp32 master, fp32 Adam moments,
 step counters), ``_grad_fn`` (gradient accumulation in fp32 — or bf16 with
 ``data_types.grad_accum_dtype`` — of ``loss / gas``),
@@ -57,10 +59,11 @@ def _to_master(params, device):
 class DeepSpeedEngine:
     """Config-driven training engine over one device.
 
-    Pass ``model`` (with ``.loss(params, batch, rng)`` and
-    ``.init_numpy(seed)``; the engine runs on ``model.device``) or
-    ``loss_fn`` + ``params`` (then ``device``, which defaults to CUDA and
-    raises without a card)."""
+    Pass ``model`` (with ``.loss(params, batch, rng)``; the engine runs on
+    ``model.device``) or ``loss_fn`` + ``params`` (then ``device``, which
+    defaults to CUDA and raises without a card).  Without ``params`` the
+    engine takes ``model.init_numpy(rng_seed)`` (GPT-2) or, as the JAX
+    engine's ``_resolve_model`` does, ``model.init(rng_seed)`` (BERT)."""
 
     def __init__(self, model=None, config=None, training_data=None, loss_fn=None,
                  params=None, rng_seed=0, device=None):
@@ -79,9 +82,13 @@ class DeepSpeedEngine:
                 raise ValueError("Provide model= (with .loss) or loss_fn= and params=")
             loss_fn = model.loss
         if params is None:
-            if model is None or not hasattr(model, "init_numpy"):
-                raise ValueError("Provide params= or a model with .init_numpy(seed)")
-            params = model.init_numpy(rng_seed)
+            if model is not None and hasattr(model, "init_numpy"):
+                params = model.init_numpy(rng_seed)
+            elif model is not None and hasattr(model, "init"):
+                params = model.init(rng_seed)     # as _resolve_model (engine.py:110-112)
+            else:
+                raise ValueError("Provide params= or a model with .init_numpy(seed) "
+                                 "or .init(seed)")
         self._loss_fn = loss_fn
         self.zero_stage = self.config.zero_optimization_stage
         self.compute_dtype = (torch.bfloat16 if self.config.precision_dtype == "bfloat16"

@@ -178,5 +178,8 @@ def test_entry_points_need_cuda_or_an_explicit_cpu(monkeypatch):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         build("gpt2-tiny")
     assert build("gpt2-tiny", device="cpu").device.type == "cpu"
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        build("bert-base")
+    assert build("bert-base", device="cpu").device.type == "cpu"
     with pytest.raises(ValueError, match="Unknown model preset"):
-        build("bert-base", device="cpu")
+        build("gptj-6b", device="cpu")
