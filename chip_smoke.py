@@ -87,6 +87,31 @@ JAX package ``deepspeed_tpu``):
    ``scaled_dot_product_attention`` with the expanded boolean
    layout-and-padding mask, forward and forward+backward.
 
+10. int8 kernels vs plain: ``int8_mm_nt`` and ``int8_mm_t`` against
+    ``int8_matmul_reference`` at the GPT-2 125M and 1.3B weight shapes
+    (qkv, proj, fc, fc_proj; the tied head transposed, N = 50257), M in
+    {1, 8, 16, 17, 64, 512}, per-tensor scales (and per-channel for the
+    head), bf16 and fp32 outputs: fp32 within d = 1e-5 of the largest |value|
+    + 1e-6, bf16 within one bf16 ulp of each value + d, and two calls
+    bit-identical;
+11. int8 serving: GPT-2 1.3B at published widths (24 layers, 2048 wide, 32
+    heads, vocab 50257), weights drawn on the card from a seeded generator
+    with ``init_numpy``'s distributions, through
+    ``deepspeed_tpu_torch.init_inference(model, params=..., dtype=torch.int8)``
+    -> ``ServingEngine(engine=...)`` with phase 3's traffic: every outcome OK,
+    every block recycled, ``int8_mm_nt`` launched (decode steps + prefills) x
+    96 times and ``int8_mm_t`` (decode steps + prefills) times, the int8
+    tree at most 0.55x the bf16 tree's bytes; the oracle serves the same
+    int8 values dequantized to bf16: its greedy choice on the int8 streams'
+    contexts agrees on at least 0.9 of the tokens, one decode step's logits
+    within 0.25; ``InferenceEngine.generate`` at int8 (B=4, T=64, +16)
+    against the serving streams; a ``torch.profiler`` breakdown of a decode
+    step of each;
+12. the int8 kernels at 1.3B's weights, decode (M = 8) and prefill (M =
+    512): each held against its plain version, then timed beside its bound,
+    its plain version, ``torch.matmul`` over the dequantized bf16 weight and
+    (the head) ``torch._weight_int8pack_mm``, which the port never calls.
+
 Prints a ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and as the
 last line ``{"ok": true, "device": {...}}``.  Any failure raises and the
 script exits non-zero without that line; with no CUDA device it exits 2.
@@ -115,7 +140,9 @@ from deepspeed_tpu_torch.ops.sparse_attention import (
     BigBirdSparsityConfig, BSLongformerSparsityConfig, FixedSparsityConfig,
     SparseSelfAttention, build_sparsity_config, extend_position_embedding,
     replace_model_self_attention)
+from deepspeed_tpu_torch.module_inject.module_quantize import dequantize_tree
 from deepspeed_tpu_torch.ops.transformer import flash_attention as fa
+from deepspeed_tpu_torch.ops.transformer import int8_matmul as im
 from deepspeed_tpu_torch.ops.transformer import paged_attention as pa
 from deepspeed_tpu_torch.runtime.comm.quantized import quantize_blockwise
 
@@ -135,7 +162,10 @@ REPLACES = {"paged_attention_online":
             "flash_fwd_lut": f"{FLASH_REF}:144",         # use_lut + biases
             "flash_fwd_lut_ring": f"{FLASH_REF}:306",    # _fwd_kernel_dma
             "flash_bwd_dkdv_lut": f"{FLASH_REF}:617",
-            "flash_bwd_dq_lut": f"{FLASH_REF}:691"}
+            "flash_bwd_dq_lut": f"{FLASH_REF}:691",
+            "int8_mm_nt": "deepspeed_tpu/ops/transformer/int8_matmul.py:45",
+            "int8_mm_t": "deepspeed_tpu/ops/transformer/int8_matmul.py:53"}
+INT8_SOURCE = "deepspeed_tpu_torch/csrc/int8_matmul.cu"
 
 
 def flash_source(name):
@@ -381,9 +411,12 @@ def check_flash_grad(dev, gen, B=2, T=256, H=4, d=64):
 
 
 def serve(engine, prompts, new, tag, kv_bits, mode):
-    """Phase 3 run: serve ``prompts`` greedily with counts reset just
-    before and read just after; checks outcomes, tokens, recycling and
-    launches == decode steps x layers.  Returns (engine, launches, tokens)."""
+    """Phase 3 (and 11) run: serve ``prompts`` greedily with counts reset
+    just before and read just after; checks outcomes, tokens, recycling,
+    paged-attention launches == decode steps x layers and, for an int8
+    engine, ``int8_mm_nt`` == (steps + prefills) x 4 x layers and
+    ``int8_mm_t`` == steps + prefills (0 for a float engine).  Returns
+    (server, paged launches, tokens)."""
     c = engine.module.config
     c.paged_attention_mode = mode
     cfg = ServingConfig(batch_slots=8, block_size=16, kv_bits=kv_bits,
@@ -393,12 +426,15 @@ def serve(engine, prompts, new, tag, kv_bits, mode):
     srv = ServingEngine(engine=engine, config=cfg)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
+    resident = torch.cuda.memory_allocated()
     pa.reset_launches()
+    im.reset_launches()
     t0 = time.perf_counter()
     res = srv.run([Request(tokens=p, uid=i) for i, p in enumerate(prompts)])
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = dict(pa.launches)
+    int8_counts = dict(im.launches)
     st = srv.stats()
     steps = st["decode_steps"]
     want = pa.KERNELS["exact" if mode == "exact" else "online"]
@@ -407,6 +443,12 @@ def serve(engine, prompts, new, tag, kv_bits, mode):
         if n != expect:
             raise AssertionError(f"{tag}: {name} launched {n} times, "
                                  f"expected {expect} ({steps} steps)")
+    calls = (steps + len(prompts)) if engine.quantized else 0   # decode steps + prefills
+    for name, expect in (("int8_mm_nt", calls * 4 * c.n_layer), ("int8_mm_t", calls)):
+        if int8_counts[name] != expect:
+            raise AssertionError(f"{tag}: {name} launched {int8_counts[name]} times, "
+                                 f"expected {expect} ({steps} steps, {len(prompts)} "
+                                 f"prefills)")
     for uid in range(len(prompts)):
         r = res[uid]
         if r["outcome"] != OK or len(r["tokens"]) != new:
@@ -416,13 +458,18 @@ def serve(engine, prompts, new, tag, kv_bits, mode):
     if srv.allocator.free_blocks != srv.num_blocks - 1:
         raise AssertionError(f"{tag}: {srv.allocator.free_blocks} free of "
                              f"{srv.num_blocks - 1}: blocks leaked")
+    int8_line = (f"int8_mm_nt {int8_counts['int8_mm_nt']} = (steps + prefills) x "
+                 f"{4 * c.n_layer}, int8_mm_t {int8_counts['int8_mm_t']} = steps + "
+                 f"prefills; " if engine.quantized else "")
     print(f"serve {tag}: {len(prompts)} requests OK, {steps} decode steps, "
-          f"{want} launches {counts[want]} = steps x {c.n_layer}; "
+          f"{want} launches {counts[want]} = steps x {c.n_layer}; {int8_line}"
           f"{st['generated_tokens'] / wall:.1f} tokens/s, decode step p50 "
           f"{st['step_ms']['p50']:.3f} ms p99 {st['step_ms']['p99']:.3f} ms, "
           f"TTFT p50 {st['ttft_ms']['p50']:.1f} ms, wall {wall:.2f} s, "
           f"pool {pk.pool_bytes(srv.pool) / 1e6:.1f} MB, peak device memory "
-          f"{torch.cuda.max_memory_allocated() / 1e6:.1f} MB")
+          f"{torch.cuda.max_memory_allocated() / 1e6:.1f} MB (resident before the run "
+          f"{resident / 1e6:.1f} MB)")
+    srv.int8_launches = int8_counts
     return srv, counts[want], {uid: res[uid]["tokens"] for uid in res}
 
 
@@ -1143,6 +1190,297 @@ def sparse_timing(dev, gen, bytes_per_s, B=8, T=2048, H=16, d=64):
     return out, density
 
 
+# ------------------------------------------------- 10. int8 kernels vs plain
+# int8_mm_nt / int8_mm_t vs int8_matmul_reference, element by element.  Both
+# sum exact bf16 x int8 products in fp32, in another order (the kernel's
+# split-K adds its partials in a fixed order): fp32 outputs within
+# d = INT8_FP32_TOL * max|plain| + 1e-6; bf16 outputs within one bf16 ulp of
+# the plain value plus d (both round an fp32 sum that may differ by d, and
+# near zero, where cancellation leaves small values, d exceeds their ulp: a
+# first chip run of the kernel read up to 624 ulps of such elements at M=512
+# under a bare one-ulp limit, every large element within one).
+INT8_FP32_TOL = 1e-5
+INT8_M = (1, 8, 16, 17, 64, 512)
+INT8_SHAPES = {name: {"qkv_w": (D, 3 * D), "proj_w": (D, D), "fc_w": (D, 4 * D),
+                      "fc_proj_w": (4 * D, D), "wte": (50257, D)}
+               for name, D in (("125m", 768), ("1.3b", 2048))}
+
+
+def int8_error(got, ref):
+    """(max abs error, largest share of its limit) of one int8 output."""
+    if got.shape != ref.shape or got.dtype != ref.dtype or not torch.isfinite(got).all():
+        raise AssertionError(f"bad output {tuple(got.shape)} {got.dtype}")
+    ref = ref.float()
+    err = (got.float() - ref).abs()
+    limit = INT8_FP32_TOL * ref.abs().max() + 1e-6
+    if got.dtype == torch.bfloat16:
+        limit = limit + torch.exp2(torch.floor(torch.log2(ref.abs().clamp_min(1e-30))) - 7)
+    return err.max().item(), (err / limit).max().item()
+
+
+def check_int8_kernels(dev, gen):
+    """Phase 10: both entries against the plain version over the 125M and
+    1.3B weight shapes (the head transposed, N = 50257), M in INT8_M,
+    per-tensor scales (and per-channel for the head), bf16 and fp32
+    outputs; each output within its limit and bit-identical on a second
+    call.  Returns the max abs error per kernel."""
+    max_err = {name: 0.0 for name in im.KERNELS.values()}
+    saved = dict(im.launches)
+    for preset, shapes in INT8_SHAPES.items():
+        for wname, (rows, cols) in shapes.items():
+            t = wname == "wte"
+            q = torch.randint(-128, 128, (rows, cols), generator=gen, device=dev,
+                              dtype=torch.int8)
+            K, N = (cols, rows) if t else (rows, cols)
+            name = im.KERNELS["t" if t else "nt"]
+            for M in INT8_M:
+                x = (torch.randn((M, K), generator=gen, device=dev) * 0.5).to(torch.bfloat16)
+                for kind in (("tensor", "channel") if t else ("tensor",)):
+                    scale = (torch.rand((N if kind == "channel" else 1,), generator=gen,
+                                        device=dev) + 0.5) * 1e-2
+                    res = []
+                    for od in (torch.bfloat16, torch.float32):
+                        got = im.int8_matmul(x, q, scale, w_transposed=t, out_dtype=od)
+                        again = im.int8_matmul(x, q, scale, w_transposed=t, out_dtype=od)
+                        ref = im.int8_matmul_reference(x, q, scale, w_transposed=t,
+                                                       out_dtype=od)
+                        torch.cuda.synchronize()
+                        if not torch.equal(got, again):
+                            raise AssertionError(f"{name} {preset} {wname} M={M}: two calls "
+                                                 "differ")
+                        err, share = int8_error(got, ref)
+                        if not share <= 1.0:
+                            raise AssertionError(f"{name} {preset} {wname} M={M} {kind} "
+                                                 f"{od}: error {err:.3e} is {share:.2f}x "
+                                                 "its limit")
+                        max_err[name] = max(max_err[name], err)
+                        res.append(f"{str(od)[6:]} {err:.2e} ({share:.2f})")
+                    tile, splits, per = im.plan(M, N, K, torch.cuda.get_device_properties(
+                        dev).multi_processor_count)
+                    print(f"int8-check {name} {preset} {wname} K={K} N={N} M={M} "
+                          f"scale={kind} tile {tile} splits {splits}: {', '.join(res)}; "
+                          f"deterministic")
+    im.launches.update(saved)          # checking launches are not path launches
+    return max_err
+
+
+# ------------------------------------------------- 11. int8 serving at 1.3B
+# one decode step, int8 weights vs the same int8 values dequantized to bf16:
+# the oracle rounds every dequantized weight to bf16 (2^-9 relative) where the
+# kernel scales the exact fp32 sum, and both round activations to bf16 through
+# 24 layers.  This phase read 6.9e-2 at max|logit| 4.15 on an H100 80GB HBM3
+# at 700 W; the limit is about 4x that.
+INT8_LOGIT_TOL = 0.25
+INT8_AGREE_MIN = 0.9          # teacher-forced greedy agreement with the oracle
+INT8_BYTES_MAX = 0.55         # int8 tree bytes over the bf16 tree's
+
+
+def draw_gpt2_params(model, dev, seed):
+    """fp32 parameters on the card with ``init_numpy``'s distributions
+    (normal(0.02), the output projections' std over sqrt(2L), wpe std
+    0.01, LayerNorms ones/zeros, biases zero) from a seeded generator."""
+    c = model.config
+    D, L, V, T = c.n_embd, c.n_layer, c.vocab_size, c.max_seq
+    g = torch.Generator(device=dev).manual_seed(seed)
+
+    def n(shape, std):
+        return torch.randn(shape, generator=g, device=dev) * std
+
+    proj = 0.02 / math.sqrt(2.0 * L)
+    ones, zeros = (lambda *s: torch.ones(s, device=dev)), (lambda *s: torch.zeros(s, device=dev))
+    return {"wte": n((V, D), 0.02), "wpe": n((T, D), 0.01),
+            "blocks": {"ln1_scale": ones(L, D), "ln1_bias": zeros(L, D),
+                       "qkv_w": n((L, D, 3 * D), 0.02), "qkv_b": zeros(L, 3 * D),
+                       "proj_w": n((L, D, D), proj), "proj_b": zeros(L, D),
+                       "ln2_scale": ones(L, D), "ln2_bias": zeros(L, D),
+                       "fc_w": n((L, D, 4 * D), 0.02), "fc_b": zeros(L, 4 * D),
+                       "fc_proj_w": n((L, 4 * D, D), proj), "fc_proj_b": zeros(L, D)},
+            "lnf_scale": ones(D), "lnf_bias": zeros(D)}
+
+
+def tree_bytes(tree):
+    if isinstance(tree, dict):
+        return sum(tree_bytes(v) for v in tree.values())
+    return tree.numel() * tree.element_size()
+
+
+def teacher_forced(model, params, prompts, streams):
+    """Share of the streams' tokens that ``model``'s greedy choice picks on
+    each stream's own context (prompt + the stream's earlier tokens)."""
+    hit = total = 0
+    with torch.no_grad():
+        for p, s in zip(prompts, streams):
+            seq = torch.as_tensor(np.concatenate([p, s[:-1]]), device=model.device)[None]
+            logits, _ = model.apply_with_cache(params, seq, model.init_cache(1, seq.shape[1]))
+            pick = logits[0, len(p) - 1:].argmax(-1).cpu().numpy()
+            hit += int((pick == np.asarray(s)).sum())
+            total += len(s)
+    return hit / total
+
+
+def int8_serving(dev, card, prompts, preset="gpt2-1.3b", new=32):
+    """Phase 11: GPT-2 1.3B at published widths with int8 weights through
+    ``init_inference(dtype=torch.int8)`` -> ``ServingEngine(engine=...)``,
+    phase 3's traffic; the oracle serves the same int8 values dequantized
+    to bf16.  Returns the int8 kernels' launches of the run."""
+    t0 = time.perf_counter()
+    model = GPT2(preset=preset, dtype=torch.bfloat16, device=dev)
+    c = model.config
+    params = draw_gpt2_params(model, dev, seed=0)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    engine = deepspeed_tpu_torch.init_inference(model, params=params, dtype=torch.int8)
+    del params
+    torch.cuda.synchronize()
+    print(f"int8 {preset}: weights drawn on the card in {t1 - t0:.2f} s, quantized in "
+          f"{time.perf_counter() - t1:.2f} s")
+    # the int8 run first, with no other model on the card
+    srv, _, toks_q = serve(engine, prompts, new, f"{preset} int8w kv16", 16, "auto")
+    launches = dict(srv.int8_launches)
+    del srv
+    torch.cuda.empty_cache()
+    oracle = InferenceEngine(GPT2(preset=preset, dtype=torch.bfloat16, device=dev),
+                             params=dequantize_tree(engine.params, torch.bfloat16))
+    int8_bytes, bf16_bytes = tree_bytes(engine.params), tree_bytes(oracle.params)
+    print(f"int8 {preset}: parameter bytes int8 tree {int8_bytes / 1e9:.3f} GB, bf16 oracle "
+          f"{bf16_bytes / 1e9:.3f} GB ({int8_bytes / bf16_bytes:.3f}, limit {INT8_BYTES_MAX})")
+    if not (engine.quantized and engine.dtype is None
+            and int8_bytes <= INT8_BYTES_MAX * bf16_bytes):
+        raise AssertionError(f"int8 tree {int8_bytes} vs bf16 {bf16_bytes}")
+    # the oracle's run holds the int8 engine's tree too (resident before its run)
+    _, _, toks_o = serve(oracle, prompts, new, f"{preset} bf16-oracle kv16", 16, "auto")
+    uids = sorted(toks_q)
+    agree = teacher_forced(oracle.module, oracle.params, [prompts[u] for u in uids],
+                           [toks_q[u] for u in uids])
+    same = sum(toks_q[u] == toks_o[u] for u in uids)
+    free = np.mean([np.mean(np.asarray(toks_q[u]) == np.asarray(toks_o[u])) for u in uids])
+    print(f"int8 vs bf16 oracle: the oracle's greedy choice on the int8 streams' contexts "
+          f"agrees on {agree:.4f} of the tokens (bound {INT8_AGREE_MIN}); free-running "
+          f"streams agree on {free:.4f} of the positions, {same}/{len(uids)} identical")
+    if not agree >= INT8_AGREE_MIN:
+        raise AssertionError(f"teacher-forced agreement {agree}")
+
+    # one decode step on the same seated state, int8 vs oracle
+    cfg = ServingConfig(batch_slots=8, block_size=16, kv_bits=16, max_new_tokens=new)
+    srv_q, srv_o = ServingEngine(engine=engine, config=cfg), ServingEngine(engine=oracle,
+                                                                           config=cfg)
+    toks, tables, lengths = seat(srv_q, prompts[::2])
+    seat(srv_o, prompts[::2])
+    with torch.no_grad():
+        lq, _ = srv_q.model.decode_step_paged(engine.params, toks, srv_q.pool, tables, lengths)
+        lo, _ = srv_o.model.decode_step_paged(oracle.params, toks, srv_o.pool, tables, lengths)
+    err = (lq - lo).abs().max().item()
+    print(f"decode-step logits {preset} int8 vs bf16 oracle: max_abs_err {err:.3e} (tol "
+          f"{INT8_LOGIT_TOL}), max|logit| {lo.abs().max().item():.2f}, argmax agree "
+          f"{(lq.argmax(-1) == lo.argmax(-1)).sum().item()}/{toks.shape[0]}")
+    if not (torch.isfinite(lq).all() and lq.shape == (8, c.vocab_size) and err <= INT8_LOGIT_TOL):
+        raise AssertionError(f"int8 decode logits differ from the oracle by {err}")
+    del srv_q, srv_o
+
+    # InferenceEngine.generate at int8 against the serving streams
+    rng = np.random.default_rng(1)
+    gp = [rng.integers(0, c.vocab_size, (64,)) for _ in range(4)]
+    im.reset_launches()
+    gen_out = engine.generate(np.stack(gp), max_new_tokens=16).cpu().numpy()[:, 64:]
+    gen_launches = dict(im.launches)
+    if gen_launches != {"int8_mm_nt": 16 * 4 * c.n_layer, "int8_mm_t": 16}:
+        raise AssertionError(f"generate launches {gen_launches}")
+    sres = ServingEngine(engine=engine, config=cfg).run(
+        [Request(tokens=p, uid=i, max_new_tokens=16) for i, p in enumerate(gp)])
+    streams = [sres[i]["tokens"] for i in range(4)]
+    g_agree = teacher_forced(engine.module._model, engine.params, gp, streams)
+    g_same = sum(list(gen_out[i]) == streams[i] for i in range(4))
+    print(f"generate B=4 T=64 +16 (launches {gen_launches}) vs serving the same prompts: "
+          f"generate's model chooses the serving streams' tokens on {g_agree:.4f} of their "
+          f"contexts (bound {INT8_AGREE_MIN}); {g_same}/4 streams identical (the contiguous "
+          f"cache's plain attention and the paged kernel round bf16 at other places)")
+    if not g_agree >= INT8_AGREE_MIN:
+        raise AssertionError(f"generate vs serving agreement {g_agree}")
+
+    prof = ServingEngine(engine=engine, config=cfg)
+    for i, p in enumerate(prompts[:8]):
+        prof.submit(Request(tokens=p, uid=i))
+    profile_steps(prof.step, f"{preset} int8w")
+    prof_o = ServingEngine(engine=oracle, config=cfg)
+    for i, p in enumerate(prompts[:8]):
+        prof_o.submit(Request(tokens=p, uid=i))
+    profile_steps(prof_o.step, f"{preset} bf16 oracle")
+    return launches
+
+
+# ------------------------------------------------------ 12. int8 timing
+def int8_timing(dev, gen, bytes_per_s):
+    """Phase 12 at GPT-2 1.3B's weights, decode (M = 8) and prefill
+    (M = 512): each entry held against its plain version, then timed with
+    CUDA events (12 weights cycled, 12x the 50 MB L2 at qkv) beside its
+    bound, its plain version and two yardsticks the port never calls:
+    ``torch.matmul`` over the pre-dequantized bf16 weight (the dequantize
+    untimed; it reads twice the weight bytes) and, for the head with
+    per-channel scales, ``torch._weight_int8pack_mm``.  Returns the
+    kernels-line fields at the decode shape (int8_mm_nt: qkv_w)."""
+    saved = dict(im.launches)
+    out = {}
+    for wname, (rows, cols) in INT8_SHAPES["1.3b"].items():
+        t = wname == "wte"
+        K, N = (cols, rows) if t else (rows, cols)
+        name = im.KERNELS["t" if t else "nt"]
+        od = torch.float32 if t else torch.bfloat16
+        qs = [torch.randint(-128, 128, (rows, cols), generator=gen, device=dev,
+                            dtype=torch.int8) for _ in range(L_CYCLE if not t else 2)]
+        scale = (torch.rand((N if t else 1,), generator=gen, device=dev) + 0.5) * 1e-2
+        deq = [(q.float() * (scale[:, None] if t else scale)).to(torch.bfloat16) for q in qs]
+        for M in (8, 512):
+            x = (torch.randn((M, K), generator=gen, device=dev) * 0.5).to(torch.bfloat16)
+            n = len(qs)
+            got = im.int8_matmul(x, qs[0], scale, w_transposed=t, out_dtype=od)
+            ref = im.int8_matmul_reference(x, qs[0], scale, w_transposed=t, out_dtype=od)
+            err, share = int8_error(got, ref)
+            if not share <= 1.0:
+                raise AssertionError(f"{name} {wname} M={M}: {err} is {share:.2f}x its limit")
+            lib = torch.matmul(x, deq[0].t() if t else deq[0])
+            lib_err = (lib.float() - ref.float()).abs().max().item()
+            if not lib_err <= 2e-2 * ref.float().abs().max().item():
+                raise AssertionError(f"cuBLAS yardstick {wname} M={M} disagrees by {lib_err}")
+            nbytes = M * K * 2 + K * N + M * N * got.element_size() + scale.numel() * 4
+            ops = 2 * M * N * K
+            t_b, t_o = nbytes / bytes_per_s * 1e3, ops / PEAK_OPS["bf16"] * 1e3
+            bound, by = (t_b, "bytes") if t_b >= t_o else (t_o, "operations")
+            reps = 200 if M == 8 else 50
+            ms = time_ms(lambda l: im.int8_matmul(x, qs[l % n], scale, w_transposed=t,
+                                                  out_dtype=od), reps)
+            plain_ms = time_ms(lambda l: im.int8_matmul_reference(
+                x, qs[l % n], scale, w_transposed=t, out_dtype=od), 10, warmup=2)
+            lib_ms = time_ms(lambda l: torch.matmul(x, deq[l % n].t() if t else deq[l % n]),
+                             reps)
+            pack_ms, pack_note = None, "not timed (block weight: (K, N) layout)"
+            if t:
+                try:
+                    sc16 = scale.to(torch.bfloat16)
+                    pk_out = torch._weight_int8pack_mm(x, qs[0], sc16)
+                    pk_err = (pk_out.float() - ref.float()).abs().max().item()
+                    pack_ms = time_ms(lambda l: torch._weight_int8pack_mm(x, qs[l % n], sc16),
+                                      20 if M == 8 else 3, warmup=2)
+                    pack_note = (f"{pack_ms * 1e3:.2f} us (bf16 scales, bf16 out; max abs "
+                                 f"diff {pk_err:.2e})")
+                except (RuntimeError, AttributeError, NotImplementedError) as e:
+                    pack_note = f"not available ({str(e).splitlines()[0][:120]})"
+            tile, splits, per = im.plan(M, N, K, torch.cuda.get_device_properties(
+                dev).multi_processor_count)
+            print(f"timing {name} 1.3b {wname} M={M} K={K} N={N} out={str(od)[6:]} (tile "
+                  f"{tile}, {splits} splits of {per} k tiles): {ms * 1e3:.2f} us, bound "
+                  f"{bound * 1e3:.2f} us ({by}; {nbytes / 1e6:.2f} MB, {ops / 1e9:.2f} "
+                  f"GFLOP), plain {plain_ms * 1e3:.2f} us, cuBLAS bf16 over the dequantized "
+                  f"weight {lib_ms * 1e3:.2f} us; _weight_int8pack_mm: {pack_note}")
+            if M == 8 and wname in ("qkv_w", "wte"):
+                out[name] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                             "bound_ms": bound, "bound_by": by, "library_ms": lib_ms,
+                             "int8pack_ms": pack_ms}
+        del qs, deq
+        torch.cuda.empty_cache()
+    im.launches.update(saved)          # timing launches are not path launches
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false", file=sys.stderr)
@@ -1227,6 +1565,17 @@ def main():
         kernels.append({"name": name, "route": "cuda", "source": flash_source(name),
                         "replaces": REPLACES[name], "launches": bert_launches[run][name],
                         **ts[case][name]})
+
+    # 10. int8 kernels vs plain; 11. int8 serving of GPT-2 1.3B; 12. int8 timing
+    int8_err = check_int8_kernels(dev, gen)
+    print(json.dumps({"int8_sweep_max_abs_err": int8_err}))
+    int8_launches = int8_serving(dev, card, prompts)
+    torch.cuda.empty_cache()
+    ti = int8_timing(dev, gen, bw)
+    for name in im.KERNELS.values():
+        fields = {k: v for k, v in ti[name].items() if k != "int8pack_ms"}
+        kernels.append({"name": name, "route": "cuda", "source": INT8_SOURCE,
+                        "replaces": REPLACES[name], "launches": int8_launches[name], **fields})
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -9,9 +9,9 @@ anything of ``deepspeed_tpu``.
 Deliberate difference: importing the package is light.  The JAX facade
 imports the training engine eagerly; here nothing below the package is
 imported until a caller asks for it (:func:`initialize`,
-``deepspeed_tpu_torch.inference``, ``deepspeed_tpu_torch.models``), and
-no kernel is built at import time — CUDA sources compile at the first
-launch (``ops/op_builder/cuda.py``).
+:func:`init_inference`, ``deepspeed_tpu_torch.inference``,
+``deepspeed_tpu_torch.models``), and no kernel is built at import time —
+CUDA sources compile at the first launch (``ops/op_builder/cuda.py``).
 """
 
 from .version import __version__
@@ -36,4 +36,13 @@ def initialize(model=None, training_data=None, config=None, loss_fn=None, params
     return engine, engine.optimizer, engine.training_dataloader, engine.lr_scheduler
 
 
-__all__ = ["__version__", "initialize"]
+def init_inference(model=None, **kwargs):
+    """Build an ``InferenceEngine`` (counterpart of
+    ``deepspeed_tpu.init_inference``, ``__init__.py:169-172``):
+    ``init_inference(model, params=..., dtype=torch.int8)`` serves with
+    int8 weights."""
+    from .inference.engine import InferenceEngine
+    return InferenceEngine(model, **kwargs)
+
+
+__all__ = ["__version__", "initialize", "init_inference"]

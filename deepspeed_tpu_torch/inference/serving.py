@@ -28,6 +28,9 @@ Deliberate differences:
   ``fold_in(PRNGKey(seed), i)`` — still a pure function of the request,
   whatever the arrival order or slot, but not JAX's bits;
 - ``stats()`` adds ``step_ms`` (decode-step wall p50/p99);
+- int8 weights route through ``resolve_decode_params`` as in JAX
+  (560-569): ``self.model`` is the inner model and the pool takes its
+  compute dtype (JAX 576), since a quantized engine's ``dtype`` is None;
 - ``ServingConfig.from_dict`` raises ``NotImplementedError`` for every
   JAX key the port does not implement yet (speculative decoding, prefix
   cache, roles/transfer, journal, KV snapshots, deadlines and overload
@@ -44,6 +47,7 @@ import torch
 
 from . import paged_kv as pk
 from .engine import InferenceEngine, sample_logits
+from ..module_inject.module_quantize import resolve_decode_params
 from ..monitor.histogram import LogHistogram
 from ..runtime.health import rows_nonfinite
 from ..utils.logging import log_dist, logger
@@ -154,7 +158,12 @@ class ServingEngine:
         elif isinstance(config, dict):
             config = ServingConfig.from_dict(config)
         self.config = config
-        self.model = engine.module
+        # int8 weights: the same routing as InferenceEngine.generate (a model
+        # that decodes int8 leaves itself gets the params untouched)
+        inner, self._deq = resolve_decode_params(engine.module)
+        if not getattr(inner, "supports_paged_decode", False):
+            raise ValueError(f"{type(inner).__name__} has no paged decode path")
+        self.model = inner
         self.device = engine.device
         mc = self.model.config
         self.max_seq = mc.max_seq
@@ -163,8 +172,9 @@ class ServingEngine:
             1 + config.batch_slots * self.nb_max)
         self.pool = pk.init_pool(
             mc.n_layer, self.num_blocks, config.block_size, mc.n_head,
-            mc.head_dim, engine.dtype, kv_bits=config.kv_bits,
-            quant_block=config.kv_quant_block, device=self.device)
+            mc.head_dim, getattr(inner, "dtype", torch.bfloat16),
+            kv_bits=config.kv_bits, quant_block=config.kv_quant_block,
+            device=self.device)
         self.allocator = pk.BlockAllocator(self.num_blocks)
 
         S = config.batch_slots
@@ -272,7 +282,8 @@ class ServingEngine:
         toks = torch.as_tensor(req.tokens, dtype=torch.long,
                                device=self.device)[None]
         cache = model.init_cache(1, T)
-        logits, cache = model.apply_with_cache(self.engine.params, toks, cache)
+        logits, cache = model.apply_with_cache(self._deq(self.engine.params), toks,
+                                               cache)
         k, v = cache["k"][:, :, 0], cache["v"][:, :, 0]     # (L, T, H, hd)
         pad = nb_pre * c.block_size - T
         if pad:
@@ -336,7 +347,7 @@ class ServingEngine:
         host reads anything."""
         dev = self.device
         logits, self.pool = self.model.decode_step_paged(
-            self.engine.params,
+            self._deq(self.engine.params),
             torch.as_tensor(self._toks, device=dev),
             self.pool,
             torch.as_tensor(self._tables, device=dev),

@@ -47,8 +47,15 @@ Deliberate differences:
 - the ``gather`` path calls ``paged_attention_reference`` (``gather_kv``
   + ``_masked_attend``'s math, the kernels' plain version) in place of
   ``GPT2._attend_paged``;
-- ``init`` (JAX PRNG draws), ``_chunked_head_nll``, ``stream_fns``, int8
-  weights, tensor parallelism and ``local_attn_window`` are not ported.
+- int8 weights (``supports_quantized_decode``, gpt2.py:504-518): the
+  cached and paged decode paths take ``{"q", "scale"}`` leaves through
+  ``q_matmul`` / ``q_gather`` (``module_inject/module_quantize.py``), the
+  product rounded to the compute dtype before the bias is added, as in
+  JAX; a quantized ``wte`` makes the head ``q_matmul(x, wte,
+  w_transposed=True, out_dtype=float32)``, a float one keeps
+  :func:`tied_head`;
+- ``init`` (JAX PRNG draws), ``_chunked_head_nll``, ``stream_fns``,
+  tensor parallelism and ``local_attn_window`` are not ported.
 """
 
 import dataclasses
@@ -61,6 +68,7 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from ..inference.engine import sample_seed as _fold
+from ..module_inject.module_quantize import is_quantized_leaf, q_gather, q_matmul
 from ..utils.device import resolve_device
 from ..utils.logging import warning_once
 
@@ -140,8 +148,12 @@ def params_from_jax(np_params, device, dtype=torch.float32):
             "lnf_bias": conv(np_params["lnf_bias"])}
 
 
-def _layer(blocks, i):
-    return {k: v[i] for k, v in blocks.items()}
+def layer_slice(blocks, i):
+    """Layer ``i`` of the stacked block params (JAX ``layer_slice``): an
+    int8 ``{"q", "scale"}`` leaf slices both its payload and its (L,
+    groups) scale."""
+    return {k: ({n: t[i] for n, t in v.items()} if is_quantized_leaf(v) else v[i])
+            for k, v in blocks.items()}
 
 
 def _pad_vocab(t, dim):
@@ -317,9 +329,17 @@ class GPT2:
         return params_from_jax(self.init_numpy(seed), self.device, self.dtype)
 
     # ----------------------------------------------------------- layer parts
+    # the cached and paged decode paths take int8 {"q", "scale"} leaves from
+    # init_inference(dtype=torch.int8): their matmuls stream int8 through the
+    # int8_matmul kernel; float leaves take the plain product
+    supports_quantized_decode = True
+    supports_paged_decode = True
+
     @staticmethod
     def _mm(h, w, b=None):
-        out = h @ w.to(h.dtype)
+        """``h @ w (+ b)``: the product in ``h.dtype`` (rounded before the
+        bias, gpt2.py:515-517), ``w`` float or a quantized leaf."""
+        out = q_matmul(h, w)
         if b is not None:
             out = out + b.to(out.dtype)
         return out
@@ -368,7 +388,12 @@ class GPT2:
         return x + self._mm(h, p["fc_proj_w"], p["fc_proj_b"])
 
     def _head(self, params, x):
-        return tied_head(x, params["wte"].to(x.dtype))
+        """fp32 logits of the tied head; an int8 ``wte`` streams through
+        the ``int8_mm_t`` kernel."""
+        wte = params["wte"]
+        if is_quantized_leaf(wte):
+            return q_matmul(x, wte, w_transposed=True, out_dtype=torch.float32)
+        return tied_head(x, wte.to(x.dtype))
 
     # --------------------------------------------------------------- forward
     def _attend(self, q, k, v, causal_mask, seed, deterministic):
@@ -485,10 +510,10 @@ class GPT2:
             raise ValueError(f"cache of {cache['k'].shape[1]} positions "
                              f"cannot take {T} tokens at index {index}")
         pos = torch.arange(index, index + T, device=tokens.device)
-        x = (params["wte"].to(self.dtype)[tokens]
-             + params["wpe"].to(self.dtype)[pos])
+        x = (q_gather(params["wte"], tokens, self.dtype)
+             + q_gather(params["wpe"], pos, self.dtype))
         for i in range(c.n_layer):
-            p = _layer(params["blocks"], i)
+            p = layer_slice(params["blocks"], i)
             h = _layer_norm(x, p["ln1_scale"], p["ln1_bias"], c.layer_norm_eps)
             q, k, v = self._qkv(p, h)
             ck, cv = cache["k"][i], cache["v"][i]          # (S, B, H, hd)
@@ -534,10 +559,10 @@ class GPT2:
         pos = (lengths.long()[:, None]
                + torch.arange(W, device=toks.device)[None, :]).clamp(
                    max=c.max_seq - 1)
-        x = (params["wte"].to(self.dtype)[toks]
-             + params["wpe"].to(self.dtype)[pos])             # (B, W, D)
+        x = (q_gather(params["wte"], toks, self.dtype)
+             + q_gather(params["wpe"], pos, self.dtype))      # (B, W, D)
         for i in range(c.n_layer):
-            p = _layer(params["blocks"], i)
+            p = layer_slice(params["blocks"], i)
             hn = _layer_norm(x, p["ln1_scale"], p["ln1_bias"], c.layer_norm_eps)
             q, k, v = self._qkv(p, hn)                          # (B, W, H, hd)
             pk.write_tokens(pool, i, block_tables, lengths, k, v)

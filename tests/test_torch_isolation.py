@@ -53,7 +53,9 @@ def test_forbidden_match_is_exact_not_prefix():
 def test_importing_the_port_loads_no_jax():
     code = ("import sys, deepspeed_tpu_torch.inference, "
             "deepspeed_tpu_torch.models, "
-            "deepspeed_tpu_torch.ops.transformer.paged_attention\n"
+            "deepspeed_tpu_torch.ops.transformer.paged_attention, "
+            "deepspeed_tpu_torch.ops.transformer.int8_matmul, "
+            "deepspeed_tpu_torch.module_inject\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'deepspeed_tpu'))\n"
             "print(bad)\n"
