@@ -110,7 +110,37 @@ JAX package ``deepspeed_tpu``):
 12. the int8 kernels at 1.3B's weights, decode (M = 8) and prefill (M =
     512): each held against its plain version, then timed beside its bound,
     its plain version, ``torch.matmul`` over the dequantized bf16 weight and
-    (the head) ``torch._weight_int8pack_mm``, which the port never calls.
+    (the head) ``torch._weight_int8pack_mm``, which the port never calls;
+13. banded and merged-row kernels vs plain: ``flash_fwd_banded`` and
+    ``flash_fwd_merged`` against ``flash_attention_reference_fwd`` over
+    their schedules (O and lse, phase 2's limits) at B=2,
+    H=4: causal BSLongformer layouts at blocks 16, 32, 64, 128 and 512,
+    windows 1, 3 and 5, global blocks [0] and [0, 3], T 1024 and 4096, a
+    ragged T=1008 at block 16 and an odd tile count (T=1088 at block 32);
+    the merged kernel also on a causal Fixed layout, per-head Fixed layouts
+    (causal and not), BigBird 64, phase 7's empty-rows layout and one whose
+    every merged row has an empty upper half; bf16 and fp32, head dims
+    64/96/128; then ``flash_attention_with_lse`` at GPT-2 350M's attention
+    shape (B=8, T=1024, H=16, d=64, bf16) under a loss on both outputs
+    (one launch of each dense kernel; O, lse and gradients against the plain
+    forward and backward with ``delta - dlse``) and in fp32 against autograd
+    of a dense attention returning its logsumexp;
+14. the causal block-sparse path at the repo's sparse workload
+    (``examples/bench_sparse_attention.py``: BSLongformer, a 3 x 512-token
+    window, the first 512 tokens global, unidirectional), B=1, H=8, d=64,
+    bf16, T in {4096, 8192, 16384}, layout blocks 512 and 64:
+    ``SparseSelfAttention`` forward + ``backward()`` with exactly one launch
+    each of ``flash_fwd_banded``, ``flash_bwd_dkdv_lut`` and
+    ``flash_bwd_dq_lut`` per call (``flash_fwd_lut_ring`` 0), and the same
+    through ``sparse_flash_attention(..., block_q_merge=2)`` (one
+    ``flash_fwd_merged``), then that merged path on the tutorial block-16
+    layout at BERT-large's attention shape (B=8, T=2048, H=16, non-causal);
+    O, lse and gradients against the plain versions at T <= 8192, O and lse
+    against ``flash_fwd_lut_ring`` at 16384; each forward timed (three
+    readings, the spread printed) beside its bound, its plain version, the
+    ring on the same LUT, the dense causal ``flash_fwd``, SDPA with the
+    expanded boolean layout mask and SDPA ``is_causal``, and each path's
+    forward+backward beside SDPA's with the mask.
 
 Prints a ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and as the
 last line ``{"ok": true, "device": {...}}``.  Any failure raises and the
@@ -121,6 +151,7 @@ import itertools
 import json
 import math
 import os
+import platform
 import re
 import subprocess
 import sys
@@ -161,6 +192,8 @@ REPLACES = {"paged_attention_online":
             "flash_bwd_dq_biased": f"{FLASH_REF}:691",
             "flash_fwd_lut": f"{FLASH_REF}:144",         # use_lut + biases
             "flash_fwd_lut_ring": f"{FLASH_REF}:306",    # _fwd_kernel_dma
+            "flash_fwd_banded": f"{FLASH_REF}:180",      # _fwd_kernel use_banded
+            "flash_fwd_merged": f"{FLASH_REF}:161",      # use_merge (and _fwd_kernel_dma 317)
             "flash_bwd_dkdv_lut": f"{FLASH_REF}:617",
             "flash_bwd_dq_lut": f"{FLASH_REF}:691",
             "int8_mm_nt": "deepspeed_tpu/ops/transformer/int8_matmul.py:45",
@@ -250,7 +283,8 @@ def setup():
     card = nvidia_smi()
     print(card)
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
-          f"python {sys.version.split()[0]} device {torch.cuda.get_device_name(0)}")
+          f"python {sys.version.split()[0]} device {torch.cuda.get_device_name(0)}; host CPU "
+          f"{host_cpu()}")
     t0 = time.perf_counter()
     builder.build_all()
     print(f"kernel build: {time.perf_counter() - t0:.2f} s")
@@ -1481,6 +1515,413 @@ def int8_timing(dev, gen, bytes_per_s):
     return out
 
 
+# ------------------------------ 13. banded and merged-row kernels vs plain
+class AlternateEmptyRowsLayout:
+    """Block 16, the diagonal blocks of the odd 64-row q tiles only: every
+    merged row's upper half has no live tile while its lower half has."""
+
+    def make_layout(self, T):
+        layout = np.zeros((1, T // 16, T // 16), np.int32)
+        live = np.arange(T // 16)
+        live = live[(live // 4) % 2 == 1]
+        layout[0, live, live] = 1
+        return layout
+
+
+def longformer(H, block, window, globals_, causal=True):
+    return BSLongformerSparsityConfig(
+        num_heads=H, block=block, num_sliding_window_blocks=window,
+        global_block_indices=globals_,
+        attention="unidirectional" if causal else "bidirectional")
+
+
+BAND_MERGE = ("flash_fwd_banded", "flash_fwd_merged")
+
+
+def band_cases(H):
+    """Phase 13's cases: (label, config, T, causal, dtype, head dim, q/k/v
+    layout, kernels).  The banded ones are causal BSLongformer layouts (each
+    band-expressible: W + globals < blocks); the merged kernel runs them too,
+    and the layouts that are not bands."""
+    dims, views = (64, 96, 128), ("qkv", "dense")
+    bf16, fp32 = torch.bfloat16, torch.float32
+    cases, i = [], 0
+    for T in (1024, 4096):
+        for block, window, g in ((16, 3, [0]), (16, 5, [0, 3]), (32, 1, [0]), (32, 5, [0, 3]),
+                                 (64, 3, [0]), (64, 5, [0, 3]), (128, 1, [0]),
+                                 (128, 5, [0]), (512, 1, [0]), (512, 3, [0])):
+            if T // block >= 8:
+                cases.append((f"longformer{block} w{window} g{g}",
+                              longformer(H, block, window, g), T, True, (bf16, fp32)[i % 2],
+                              dims[(i // 2) % 3], views[(i // 3) % 2], BAND_MERGE))
+                i += 1
+    # ragged: T not a multiple of the 64-row tiles (block 16, 63 rows: banded only);
+    # an odd tile count (block 32, 17 tiles: the last merged row has no lower half)
+    for dt in (bf16, fp32):
+        cases.append(("longformer16 w5 g[0, 3]", longformer(H, 16, 5, [0, 3]), 1008, True, dt,
+                      64, "qkv", ("flash_fwd_banded",)))
+        cases.append(("longformer32 w5 g[0, 3]", longformer(H, 32, 5, [0, 3]), 1088, True, dt,
+                      128, "dense", BAND_MERGE))
+    fixed = FixedSparsityConfig(num_heads=H, block=16, num_local_blocks=4, num_global_blocks=1,
+                                attention="unidirectional")
+    per_head = FixedSparsityConfig(num_heads=H, block=16, num_local_blocks=4,
+                                   num_global_blocks=1, different_layout_per_head=True,
+                                   num_different_global_patterns=4)
+    merged_only = (("fixed16 causal", fixed, 1024, True),
+                   ("fixed16 per-head", per_head, 1024, True),
+                   ("fixed16 per-head", per_head, 1024, False),
+                   ("bigbird64", sparse_configs(H)[2][1], 1024, False),
+                   ("empty-rows", EmptyRowsLayout(), 256, True),
+                   ("empty-rows", EmptyRowsLayout(), 256, False),
+                   ("alternate-empty-rows", AlternateEmptyRowsLayout(), 512, True))
+    for (label, cfg, T, causal), dt in itertools.product(merged_only, (bf16, fp32)):
+        cases.append((label, cfg, T, causal, dt, dims[i % 3], views[i % 2],
+                      ("flash_fwd_merged",)))
+        i += 1
+    return cases
+
+
+def band_merge_schedule(layout, T, H, causal, name):
+    """The schedule ``flash_fwd_banded`` (the layout's :class:`BandLut`) or
+    ``flash_fwd_merged`` (its :class:`MergedLut`) runs over."""
+    if name == "flash_fwd_merged":
+        return fa.layout_luts(layout, T, H, causal).merged
+    st = fa.banded_structure(layout, causal)
+    if st is None:
+        raise AssertionError("layout is not band-expressible")
+    return fa.band_lut(*st, T // layout.shape[1], T)
+
+
+def check_band_merge_kernels(dev, gen, B=2, H=4):
+    """Phase 13: the banded and merged forwards against their plain
+    versions, O and lse element by element.  Returns the max abs error per
+    kernel."""
+    max_err = {name: 0.0 for name in BAND_MERGE}
+    for label, cfg, T, causal, dt, d, view, names in band_cases(H):
+        layout = np.asarray(cfg.make_layout(T), np.int32)
+        q, k, v, _ = flash_inputs(dev, gen, dt, B, T, H, d, view)
+        what = f"{str(dt)[6:]} d={d} T={T} {label} causal={int(causal)} {view}"
+        res = {}
+        for name in names:
+            sched = band_merge_schedule(layout, T, H, causal, name)
+            o, lse = getattr(fa, name)(q, k, v, sched)
+            ro, rlse = fa.flash_attention_reference_fwd(q, k, v, sched.causal, lut=sched)
+            torch.cuda.synchronize()
+            res[name] = [(label_, *flash_close(f"{name} {what}", label_, got, ref))
+                         for label_, got, ref in (("o", o, ro), ("lse", lse, rlse))]
+            max_err[name] = max([max_err[name]] + [err for _, err, _ in res[name]])
+        print(f"band-check {what}: " + "; ".join(
+            f"{name[10:]} {flash_line({name: rows})}" for name, rows in res.items()))
+    return max_err
+
+
+def check_flash_lse(dev, gen, B=8, T=1024, H=16, d=64):
+    """Phase 13: ``flash_attention_with_lse`` at GPT-2 350M's attention
+    shape, bf16, under a loss on both outputs: exactly one launch of each
+    dense kernel; O, lse and the gradients against the plain forward and
+    backward fed the kernel's (O, lse) with ``delta - dlse``.  Then fp32 at
+    B=2 T=256 H=4 against autograd of a dense attention returning its
+    logsumexp."""
+    q, k, v, w = flash_inputs(dev, gen, torch.bfloat16, B, T, H, d, "qkv")
+    u = torch.randn((B, H, T), generator=gen, device=dev)
+    leaves = [x.detach().clone().requires_grad_(True) for x in (q, k, v)]
+    torch.cuda.synchronize()
+    fa.reset_launches()
+    o, lse = fa.flash_attention_with_lse(*leaves, causal=True)
+    ((o.float() * w.float()).sum() + (lse * u).sum()).backward()
+    torch.cuda.synchronize()
+    check_launches("flash_attention_with_lse", dict(fa.launches),
+                   {name: 1 for name in fa.DENSE_KERNELS}, 1)
+    o, lse = o.detach(), lse.detach()
+    ro, rlse = fa.flash_attention_reference_fwd(q, k, v, True)
+    delta = fa.attention_delta(o, w) - u
+    rdk, rdv = fa.flash_attention_reference_bwd_dkdv(q, k, v, w, lse, delta, True)
+    rdq = fa.flash_attention_reference_bwd_dq(q, k, v, w, lse, delta, True)
+    rows = [(label, *flash_close(f"flash_attention_with_lse {label}", label, got, ref))
+            for label, got, ref in (("o", o, ro), ("lse", lse, rlse), ("dq", leaves[0].grad, rdq),
+                                    ("dk", leaves[1].grad, rdk), ("dv", leaves[2].grad, rdv))]
+    print(f"flash_attention_with_lse B={B} T={T} H={H} d={d} causal bf16, loss on out and "
+          f"lse: launches 1/1/1; {flash_line({'': rows})}")
+
+    # forward + backward beside its bound (rows 1, 3 and 4's work), the plain
+    # versions and SDPA forward + backward (no lse output), which the port never calls
+    def fwd_bwd(_):
+        out, l = fa.flash_attention_with_lse(*leaves, causal=True)
+        torch.autograd.grad((out, l), leaves, (w, u))
+
+    def plain_fwd_bwd(_):
+        po, plse = fa.flash_attention_reference_fwd(q, k, v, True)
+        de = fa.attention_delta(po, w) - u
+        fa.flash_attention_reference_bwd_dkdv(q, k, v, w, plse, de, True)
+        fa.flash_attention_reference_bwd_dq(q, k, v, w, plse, de, True)
+
+    saved = dict(fa.launches)
+    pairs = B * H * T * (T + 1) // 2
+    elem, stat = B * T * H * d * 2, B * H * T * 4
+    t_b = (15 * elem + 5 * stat) / peak_bytes_per_s(torch.cuda.get_device_name(0)) * 1e3
+    t_o = 18 * d * pairs / PEAK_OPS["bf16"] * 1e3
+    bound, by = (t_b, "bytes") if t_b >= t_o else (t_o, "operations")
+    ms = repeat_ms(fwd_bwd, 10)
+    plain_ms = time_ms(plain_fwd_bwd, 2, warmup=1)
+    qh, kh, vh, doh = (x.detach().transpose(1, 2).contiguous() for x in (q, k, v, w))
+    lib_leaves = [x.requires_grad_(True) for x in (qh, kh, vh)]
+    lib = repeat_ms(lambda _: torch.autograd.grad(
+        torch.nn.functional.scaled_dot_product_attention(*lib_leaves, is_causal=True),
+        lib_leaves, doh), 10)
+    fa.launches.update(saved)
+    print(f"timing flash_attention_with_lse forward+backward B={B} T={T} H={H} d={d} causal "
+          f"bf16: {spread(ms)}; bound {bound * 1e3:.2f} us ({by}); plain "
+          f"{plain_ms * 1e3:.2f} us; SDPA forward+backward (no lse output) {spread(lib)}")
+
+    B, T, H = 2, 256, 4
+    q, k, v, w = (torch.randn((B, T, H, d), generator=gen, device=dev) for _ in range(4))
+    u = torch.randn((B, H, T), generator=gen, device=dev)
+    grads = []
+    for flash in (True, False):
+        leaves = [x.clone().requires_grad_(True) for x in (q, k, v)]
+        if flash:
+            out, lse = fa.flash_attention_with_lse(*leaves, causal=True)
+        else:
+            s = torch.einsum("bqhd,bkhd->bhqk", *leaves[:2]) / math.sqrt(d)
+            s = s.masked_fill(~torch.ones(T, T, dtype=torch.bool, device=dev).tril(),
+                              -math.inf)
+            lse = torch.logsumexp(s, -1)
+            out = torch.einsum("bhqk,bkhd->bqhd", s.softmax(-1), leaves[2])
+        ((out * w).sum() + (lse * u).sum()).backward()
+        grads.append([x.grad for x in leaves])
+    errs = [(a - b).abs().max().item() for a, b in zip(*grads)]
+    print(f"flash_attention_with_lse autograd vs dense autograd (fp32, loss on out and lse): "
+          f"dq {errs[0]:.2e} dk {errs[1]:.2e} dv {errs[2]:.2e} (tol {GRAD_TOL:g})")
+    if not max(errs) <= GRAD_TOL:
+        raise AssertionError(f"flash_attention_with_lse gradients differ by {errs}")
+
+
+# ------------------ 14. the causal block-sparse path at the sparse workload
+WORKLOAD_T = (4096, 8192, 16384)
+WORKLOAD_BLOCKS = (512, 64)
+# the plain versions' (B, H, T, T) fp32 tensors: 2.1 GB each at 8192 (H=8),
+# 8.6 GB at 16384, where the banded and merged O and lse are held against the
+# LUT ring (itself held against its plain version below 16384)
+PLAIN_T_MAX = 8192
+
+
+def workload_config(H, block):
+    """examples/bench_sparse_attention.py:53-98's layout (SPARSE_BENCH.json):
+    BSLongformer, a 3 x 512-token window, the first 512 tokens global,
+    causal, at layout block ``block``."""
+    return BSLongformerSparsityConfig(
+        num_heads=H, block=block, num_sliding_window_blocks=1536 // block,
+        global_block_indices=list(range(512 // block)), attention="unidirectional")
+
+
+def layout_pairs(layout, causal, block):
+    """Live (q, k) pairs of a block layout, summed over its head layouts."""
+    live = np.asarray(layout) > 0
+    if not causal:
+        return int(live.sum()) * block * block
+    nb = live.shape[-1]
+    below = int((live & np.tril(np.ones((nb, nb), bool), -1)).sum())
+    diag = int((live & np.eye(nb, dtype=bool)).sum())
+    return below * block * block + diag * block * (block + 1) // 2
+
+
+def host_cpu():
+    """The host's CPU as ``lscpu`` names it (vendor, model name, BIOS model
+    name; ``/proc/cpuinfo``'s model name where there is no ``lscpu``) and
+    its logical CPUs."""
+    fields = {}
+    try:
+        out = subprocess.run(["lscpu"], capture_output=True, text=True, timeout=30).stdout
+        fields = dict(line.split(":", 1) for line in out.splitlines() if ":" in line)
+    except (OSError, subprocess.SubprocessError):
+        try:
+            with open("/proc/cpuinfo") as f:
+                fields = {"Model name": next(line.split(":", 1)[1] for line in f
+                                             if line.startswith("model name"))}
+        except (OSError, StopIteration):
+            pass
+    names = [fields[k].strip() for k in ("Vendor ID", "Model name", "BIOS Model name")
+             if k in fields]
+    return f"{' / '.join(names) or platform.machine()}, {os.cpu_count()} logical CPUs"
+
+
+def repeat_ms(fn, n, warmup=3, times=3):
+    """``times`` readings of :func:`time_ms`: (median, min, max)."""
+    ms = sorted(time_ms(fn, n, warmup=warmup) for _ in range(times))
+    return ms[len(ms) // 2], ms[0], ms[-1]
+
+
+def spread(r):
+    return f"{r[0] * 1e3:.2f} us (min {r[1] * 1e3:.2f}, max {r[2] * 1e3:.2f})"
+
+
+def path_run(route, attn_or_layout, leaf, do, B, T, H, d, causal=True):
+    """One call of the slice's path, forward and ``backward()``, with the
+    counts reset just before and read just after: ``SparseSelfAttention``
+    (the banded route) or ``sparse_flash_attention(block_q_merge=2)``.
+    Returns (out, launches)."""
+    q, k, v = (t.view(B, T, H, d) for t in leaf.split(H * d, dim=-1))
+    torch.cuda.synchronize()
+    fa.reset_launches()
+    if route == "banded":
+        out = attn_or_layout(q, k, v)
+    else:
+        out = fa.sparse_flash_attention(q, k, v, attn_or_layout, causal=causal, block_q_merge=2)
+    out.backward(do)
+    torch.cuda.synchronize()
+    counts = dict(fa.launches)
+    check_launches(f"{route} path", counts, {f"flash_fwd_{route}": 1, "flash_bwd_dkdv_lut": 1,
+                                             "flash_bwd_dq_lut": 1}, 1)
+    return out.detach(), counts
+
+
+def check_path(route, name, sched, lut, leaf, do, out, B, T, H, d, what):
+    """The path's O (the kernel again gives the same bits), lse and
+    gradients against the plain versions at T <= PLAIN_T_MAX (the backward
+    ones fed the kernel's O and lse); above, O and lse against the ring.
+    Returns the rows of ``flash_line``."""
+    q, k, v = (t.detach().view(B, T, H, d) for t in leaf.split(H * d, dim=-1))
+    dq, dk, dv = (g.view(B, T, H, d) for g in leaf.grad.split(H * d, dim=-1))
+    kern = fa.flash_fwd_banded if route == "banded" else fa.flash_fwd_merged
+    o, lse = kern(q, k, v, sched)
+    if not torch.equal(o, out):
+        raise AssertionError(f"{what}: a second {name} launch gives other bits")
+    if T <= PLAIN_T_MAX:
+        ro, rlse = fa.flash_attention_reference_fwd(q, k, v, sched.causal, lut=sched)
+        delta = fa.attention_delta(o, do)
+        rdk, rdv = fa.flash_attention_reference_bwd_dkdv(q, k, v, do, lse, delta, lut=lut)
+        rdq = fa.flash_attention_reference_bwd_dq(q, k, v, do, lse, delta, lut=lut)
+        pairs = (("o", o, ro), ("lse", lse, rlse), ("dq", dq, rdq), ("dk", dk, rdk),
+                 ("dv", dv, rdv))
+    else:
+        ro, rlse = fa.flash_fwd_lut_ring(q, k, v, lut)
+        if not all(torch.isfinite(g).all() for g in (dq, dk, dv)):
+            raise AssertionError(f"{what}: gradients not finite")
+        pairs = (("o vs ring", o, ro), ("lse vs ring", lse, rlse))
+    torch.cuda.synchronize()
+    return [(label, *flash_close(f"{name} {what}", label.split()[0], got, ref))
+            for label, got, ref in pairs]
+
+
+def time_path(dev, route, name, sched, lut, layout, attn, leaf, do, B, T, H, d, causal,
+              bytes_per_s, card):
+    """Phase 14 timing at one shape: the kernel (three readings), its bound,
+    its plain version (T <= PLAIN_T_MAX), the LUT ring on the same LUT, the
+    dense causal ``flash_fwd``, SDPA with the expanded boolean layout mask
+    and SDPA ``is_causal``; the path's forward+backward against SDPA's with
+    the mask.  Returns the kernels-line fields."""
+    q, k, v = (t.detach().view(B, T, H, d) for t in leaf.split(H * d, dim=-1))
+    kern = fa.flash_fwd_banded if route == "banded" else fa.flash_fwd_merged
+    block = T // layout.shape[1]
+    pairs = layout_pairs(layout, causal, block) * B * (H // layout.shape[0])
+    nbytes, ops = 4 * B * T * H * d * 2 + B * H * T * 4, 4 * d * pairs
+    t_b, t_o = nbytes / bytes_per_s * 1e3, ops / PEAK_OPS["bf16"] * 1e3
+    bound, by = (t_b, "bytes") if t_b >= t_o else (t_o, "operations")
+    n = 20
+    ms = repeat_ms(lambda _: kern(q, k, v, sched), n)
+    ring = repeat_ms(lambda _: fa.flash_fwd_lut_ring(q, k, v, lut), n)
+    dense = repeat_ms(lambda _: fa.flash_fwd(q, k, v, causal), n)
+    plain_ms = time_ms(lambda _: fa.flash_attention_reference_fwd(
+        q, k, v, sched.causal, lut=sched), 2, warmup=1) if T <= PLAIN_T_MAX else None
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    qh, kh, vh, doh = (x.transpose(1, 2).contiguous() for x in (q, k, v, do))
+    mask = lut.element_mask(dev)[None]                       # (1, Lh, T, T)
+    o, _ = kern(q, k, v, sched)
+    err = (sdpa(qh, kh, vh, attn_mask=mask).transpose(1, 2).float() - o.float()).abs().max()
+    if not err.item() <= 2e-2 * o.float().abs().max().item():
+        raise AssertionError(f"SDPA yardstick {route} T={T} disagrees by {err.item()}")
+    lib = repeat_ms(lambda _: sdpa(qh, kh, vh, attn_mask=mask), 5, warmup=2)
+    lib_causal = repeat_ms(lambda _: sdpa(qh, kh, vh, is_causal=True), 5, warmup=2)
+    fb_leaf = leaf.detach().clone().requires_grad_(True)
+
+    def path_fb(_):
+        fq, fk, fv = (t.view(B, T, H, d) for t in fb_leaf.split(H * d, dim=-1))
+        out = attn(fq, fk, fv) if route == "banded" else fa.sparse_flash_attention(
+            fq, fk, fv, layout, causal=causal, block_q_merge=2)
+        out.backward(do)
+    leaves = [x.detach().requires_grad_(True) for x in (qh, kh, vh)]
+    fb = repeat_ms(path_fb, 5, warmup=2)
+    lib_fb = repeat_ms(lambda _: sdpa(*leaves, attn_mask=mask).backward(doh), 3, warmup=1)
+    plain_note = "not measured" if plain_ms is None else f"{plain_ms * 1e3:.2f} us"
+    print(f"timing {name} B={B} T={T} H={H} d={d} bf16 block {block} causal={int(causal)} "
+          f"({card}): {spread(ms)}; bound {bound * 1e3:.2f} us ({by}; {nbytes / 1e6:.1f} MB, "
+          f"{ops / 1e9:.2f} GFLOP, {pairs} live pairs); plain {plain_note}; "
+          f"flash_fwd_lut_ring {spread(ring)}; dense {'causal ' * causal}flash_fwd {spread(dense)}; SDPA "
+          f"with the layout mask {spread(lib)}; SDPA is_causal {spread(lib_causal)}")
+    print(f"timing {route} path forward+backward B={B} T={T} block {block}: {spread(fb)}; "
+          f"SDPA forward+backward with the layout mask {spread(lib_fb)}")
+    del mask, leaves
+    return {"ms": ms[0], "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
+            "library_ms": lib[0]}
+
+
+def sparse_workload(dev, gen, card, bytes_per_s, B=1, H=8, d=64, line_shape=(64, 8192),
+                    tutorial=(8, 2048, 16)):
+    """Phase 14: ``SparseSelfAttention`` over the workload's unidirectional
+    layouts (the banded forward) and ``sparse_flash_attention(...,
+    block_q_merge=2)`` (the merged forward), forward and ``backward()``, B=1
+    H=8 d=64 bf16 (q, k, v views of one qkv tensor), T in WORKLOAD_T, layout
+    blocks 512 and 64; then the merged path on the tutorial's block-16
+    layout at BERT-large's attention shape.  Exact launches per call,
+    outputs and gradients against the plain versions, timings.  Returns
+    (path launches per kernel, {kernel: kernels-line fields at
+    ``line_shape``})."""
+    print(f"{card}; host CPU {host_cpu()}")
+    saved = dict(fa.launches)
+    total = {name: 0 for name in BAND_MERGE}
+    line = {}
+    for block, T in itertools.product(WORKLOAD_BLOCKS, WORKLOAD_T):
+        attn = SparseSelfAttention(workload_config(H, block), max_seq_length=T)
+        layout = attn.get_layout(T)
+        lut = fa.layout_luts(layout, T, H, True)
+        W, gcols = fa.banded_structure(layout, True)
+        band = fa.band_lut(W, gcols, block, T)
+        qkv = torch.randn((B, T, 3 * H * d), generator=gen, device=dev).to(torch.bfloat16)
+        do = torch.randn((B, T, H, d), generator=gen, device=dev).to(torch.bfloat16)
+        for route, sched in (("banded", band), ("merged", lut.merged)):
+            name = f"flash_fwd_{route}"
+            leaf = qkv.detach().clone().requires_grad_(True)
+            out, counts = path_run(route, attn if route == "banded" else layout, leaf, do,
+                                   B, T, H, d)
+            total[name] += counts[name]
+            what = f"B={B} T={T} H={H} d={d} bf16 block {block}"
+            rows = check_path(route, name, sched, lut, leaf, do, out, B, T, H, d, what)
+            print(f"sparse-path {route} {what} (W={W}, {len(gcols)} gcols, kernel gcols "
+                  f"{list(band.kernel_gcols)}): launches {name} 1, flash_bwd_dkdv_lut 1, "
+                  f"flash_bwd_dq_lut 1, flash_fwd_lut_ring 0; {flash_line({name: rows})}")
+            fields = time_path(dev, route, name, sched, lut, layout, attn, leaf, do, B, T, H,
+                               d, True, bytes_per_s, card)
+            if (block, T) == line_shape:      # the forward kernel's own outputs
+                line[name] = {"max_abs_err": max(e for label, e, _ in rows
+                                                 if label in ("o", "lse")), **fields}
+            fa.launches.update(saved)
+            del leaf, out
+        del qkv, do
+        torch.cuda.empty_cache()
+
+    # the merged path on the tutorial layout at BERT-large's attention shape
+    B, T, H = tutorial
+    layout = np.asarray(build_sparsity_config(SPARSE_SECTION, H).make_layout(T), np.int32)
+    lut = fa.layout_luts(layout, T, H, False)
+    del attn
+    qkv = torch.randn((B, T, 3 * H * d), generator=gen, device=dev).to(torch.bfloat16)
+    do = torch.randn((B, T, H, d), generator=gen, device=dev).to(torch.bfloat16)
+    leaf = qkv.detach().clone().requires_grad_(True)
+    out, counts = path_run("merged", layout, leaf, do, B, T, H, d, causal=False)
+    total["flash_fwd_merged"] += counts["flash_fwd_merged"]
+    what = f"B={B} T={T} H={H} d={d} bf16 tutorial16 non-causal"
+    rows = check_path("merged", "flash_fwd_merged", lut.merged, lut, leaf, do, out, B, T, H, d,
+                      what)
+    print(f"sparse-path merged {what}: launches flash_fwd_merged 1, flash_bwd_dkdv_lut 1, "
+          f"flash_bwd_dq_lut 1; {flash_line({'flash_fwd_merged': rows})}")
+    time_path(dev, "merged", "flash_fwd_merged", lut.merged, lut, layout, None, leaf, do, B, T,
+              H, d, False, bytes_per_s, card)
+    fa.launches.update(saved)          # timing launches are not path launches
+    del qkv, do, leaf, out
+    torch.cuda.empty_cache()
+    return total, line
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false", file=sys.stderr)
@@ -1576,6 +2017,19 @@ def main():
         fields = {k: v for k, v in ti[name].items() if k != "int8pack_ms"}
         kernels.append({"name": name, "route": "cuda", "source": INT8_SOURCE,
                         "replaces": REPLACES[name], "launches": int8_launches[name], **fields})
+    torch.cuda.empty_cache()
+
+    # 13. banded and merged kernels vs plain, flash_attention_with_lse;
+    # 14. the causal block-sparse path at the sparse workload, with timing
+    band_err = check_band_merge_kernels(dev, gen)
+    print(json.dumps({"band_merge_sweep_max_abs_err": band_err}))
+    check_flash_lse(dev, gen)
+    torch.cuda.empty_cache()
+    band_launches, tb = sparse_workload(dev, gen, card, bw)
+    for name in BAND_MERGE:
+        kernels.append({"name": name, "route": "cuda", "source": flash_source(name),
+                        "replaces": REPLACES[name], "launches": band_launches[name],
+                        **tb[name]})
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card)

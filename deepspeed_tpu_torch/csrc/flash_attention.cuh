@@ -1,6 +1,7 @@
 // Flash attention forward and backward for Hopper (sm_90a): the kernels, shared by
 // flash_attention.cu (dense), flash_attention_sparse_fwd.cu and
-// flash_attention_sparse_bwd.cu (the biased and block-sparse LUT variants).
+// flash_attention_sparse_bwd.cu (the biased and block-sparse LUT variants); the banded
+// and merged-row forwards of flash_attention_band_merge_fwd.cu use its helpers.
 //
 // Replaces the Pallas TPU kernels of deepspeed_tpu/ops/transformer/flash_attention.py:
 //   fwd_kernel  <- _fwd_kernel      (144-283; dense, use_kbias/use_abias, use_lut)
@@ -90,7 +91,20 @@
 
 #include <type_traits>
 
-// The optional operands of the biased and LUT entries (a ctypes Structure on the host).
+// The banded forward's schedule (flash_attention_band_merge_fwd.cu), a kernel parameter:
+// the band width W and the layout block Lb, the global k tiles (ascending) that q tiles
+// reach below their band, and a bit per layout column that is a global one.  Sized for
+// T <= 65536: at most 1024 tiles of 64 rows and 4096 layout columns of 16.
+constexpr int kMaxGlobalTiles = 1024;
+constexpr int kMaxLayoutCols = 4096;
+struct Band {
+  int w, lb, cell_shift, n_gtiles;
+  unsigned short gtile[kMaxGlobalTiles];
+  unsigned int gbits[kMaxLayoutCols / 32];
+};
+
+// The optional operands of the biased, LUT and banded entries (a ctypes Structure on the
+// host).
 struct Extra {
   const int* map;
   const int* mask;
@@ -98,6 +112,7 @@ struct Extra {
   const float* kbias;
   const float* abias;
   int width, heads, cell_shift;
+  const Band* band;
 };
 
 namespace {
@@ -182,14 +197,15 @@ template <int N> __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
-// Issue dst[r][c] = src[t0 + r][c] for r < 64, c < D; rows at or past T are zero.
-template <typename T, int D>
+// Issue dst[r][c] = src[t0 + r][c] for r < 64, c < D; rows at or past T are zero.  NT: the
+// block's threads.
+template <typename T, int D, int NT = kThreads>
 __device__ __forceinline__ void load_rows(T* dst, int ld, const T* src, Strides s, int b, int h,
                                           int t0, int T_len) {
   constexpr int kEpv = 16 / sizeof(T);  // elements per 16-byte vector
   constexpr int kVpr = D / kEpv;        // vectors per row
   const T* base = src + b * s.b + h * s.h;
-  for (int i = threadIdx.x; i < 64 * kVpr; i += kThreads) {
+  for (int i = threadIdx.x; i < 64 * kVpr; i += NT) {
     const int r = i / kVpr, c = (i % kVpr) * kEpv, t = t0 + r;
     cp_async16(dst + r * ld + c, base + (t < T_len ? t : 0) * s.t + c, t < T_len);
   }

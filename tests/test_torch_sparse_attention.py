@@ -423,10 +423,18 @@ def test_flash_attention_with_biases_matches_jax(causal):
                                    atol=GRAD_TOL, err_msg=f"d{name}")
 
 
-def test_block_q_merge_raises():
-    q, k, v = _t(*_qkv(1))
-    with pytest.raises(NotImplementedError, match="block_q_merge"):
-        fa.sparse_flash_attention(q, k, v, _layout(16, 64, 2), block_q_merge=2)
+@pytest.mark.parametrize("T,merge,bias,match", [(64, 3, False, "row-merge factor"),
+                                                  (48, 2, False, "odd"),
+                                                  (64, 2, True, "unbiased")])
+def test_block_q_merge_invalid_arguments_raise(T, merge, bias, match):
+    """JAX's conditions on ``block_q_merge`` (1137-1138, 1143-1144), as
+    ``ValueError``: the factor is 1 or 2, the layout rows pair up, and the
+    merged rows take no bias."""
+    q, k, v = _t(*_qkv(1, T=T))
+    kb = torch.zeros((2, T)) if bias else None
+    with pytest.raises(ValueError, match=match):
+        fa.sparse_flash_attention(q, k, v, _layout(16, T, 2), block_q_merge=merge,
+                                  key_padding_bias=kb)
 
 
 # ------------------------------------------ the device path: launch or raise
