@@ -9,18 +9,23 @@ JAX package ``deepspeed_tpu``):
 1. setup: the card's name and power limit (``nvidia-smi``), the torch and
    CUDA versions, and the build of the CUDA kernels from ``csrc/`` (one
    ``nvcc`` per source, started together) with its time and ptxas
-   register/spill summary;
+   register/spill summary; ``flash_fwd_sm90``'s library (its build
+   seconds, registers and spills per instance) must build with no spill;
 2. kernels vs plain: ``paged_attention_online`` and ``paged_attention_exact``
    against ``paged_attention_reference`` at the serving shape (8 slots,
    12 heads, head dim 64, block 16, 64 blocks per slot), lengths
-   0..1020, windows 1 and 4, bf16 / int8+scales / fp32 pools; then
-   ``flash_fwd`` (O and lse), ``flash_bwd_dkdv`` and ``flash_bwd_dq``
-   against their plain versions fed the same (O, lse, dO), at B=2, H=4,
-   T in {64, 96, 1000, 1024}, head dims 64/96/128, bf16 and fp32 (TF32
-   off), causal and not, q/k/v as views of one qkv tensor and
-   contiguous, each element within its limit; and one gradient check of the
-   ``flash_attention`` autograd function against autograd of a dense
-   attention in fp32;
+   0..1020, windows 1 and 4, bf16 / int8+scales / fp32 pools; then the
+   dense forward its route takes (``flash_fwd_sm90`` for bf16 at head
+   dims 64 and 128, whose first launch waits on an event under a
+   deadline; the template ``flash_fwd`` for the rest, and beside every
+   ``flash_fwd_sm90`` case the template too), O and lse, and
+   ``flash_bwd_dkdv`` and ``flash_bwd_dq`` against their plain versions
+   fed the routed forward's (O, lse) and the same dO, at B=2, H=4, T in
+   {64, 96, 1000, 1024} (and 1088, 4096 for ``flash_fwd_sm90``), head dims
+   64/96/128, bf16 and fp32 (TF32 off), causal and not, q/k/v as views of
+   one qkv tensor and contiguous, each element within its limit; and one
+   gradient check of the ``flash_attention`` autograd function against
+   autograd of a dense attention in fp32;
 3. serving: GPT-2 125M at full width (bf16, random weights from
    ``init_numpy(seed=0)``) answers 16 greedy requests with 16-bit KV, with
    int8 KV, and with the exact kernel; every outcome must be OK, every
@@ -38,16 +43,22 @@ JAX package ``deepspeed_tpu``):
    tokens ``rng(0).integers(0, 50257, (64, 1025))``: step 1 with
    ``attention_impl="flash"`` against ``"jnp"`` from the same weights and
    batch; 3 warm-up and 10 timed steps (tokens/s, step time p50/p99, MFU,
-   peak memory); exactly 24 launches of each flash kernel per step;
+   peak memory); exactly 24 launches per step of ``flash_fwd_sm90``,
+   ``flash_bwd_dkdv`` and ``flash_bwd_dq``, and none of ``flash_fwd``;
    finite losses and no skipped step; 20 steps on one fixed batch lower
-   its loss by at least 0.5; a ``torch.profiler`` breakdown of one step;
+   its loss by at least 0.5; a ``torch.profiler`` breakdown of a step,
+   with the flash forward's device time per step;
 6. the flash kernels at the training shape, B=8, H=16, T=1024, d=64,
    causal, bf16 (q, k, v views of one qkv tensor, as the model passes
    them): each held against its plain version (these errors go into the
-   kernels line), then timed beside its bound, its plain version and the
-   library's attention in the (B, H, T, d) layout, which the port never
-   calls: ``scaled_dot_product_attention`` forward, the flash-attention
-   backward op (dQ, dK and dV in one call) and forward+backward;
+   kernels line), then timed (three readings, the spread printed) beside
+   its bound, its plain version and the library's attention in the (B, H,
+   T, d) layout, which the port never calls: ``flash_fwd_sm90`` and the
+   template ``flash_fwd`` (the PR 2 design) beside
+   ``scaled_dot_product_attention`` forward, the backward kernels beside
+   the flash-attention backward op (dQ, dK and dV in one call), and
+   forward+backward; then ``flash_fwd_sm90`` against SDPA ``is_causal``
+   at B*T=8192, H=16, T in {1024, 2048, 4096, 8192}, head dims 64 and 128;
 7. sparse kernels vs plain: ``flash_fwd_lut``, ``flash_fwd_lut_ring``,
    ``flash_bwd_dkdv_lut``, ``flash_bwd_dq_lut`` and the dense biased
    ``flash_fwd_biased``, ``flash_bwd_dkdv_biased``, ``flash_bwd_dq_biased``
@@ -122,7 +133,8 @@ JAX package ``deepspeed_tpu``):
     every merged row has an empty upper half; bf16 and fp32, head dims
     64/96/128; then ``flash_attention_with_lse`` at GPT-2 350M's attention
     shape (B=8, T=1024, H=16, d=64, bf16) under a loss on both outputs
-    (one launch of each dense kernel; O, lse and gradients against the plain
+    (one launch each of ``flash_fwd_sm90`` and the two dense backward
+    kernels; O, lse and gradients against the plain
     forward and backward with ``delta - dlse``) and in fp32 against autograd
     of a dense attention returning its logsumexp;
 14. the causal block-sparse path at the repo's sparse workload
@@ -138,7 +150,7 @@ JAX package ``deepspeed_tpu``):
     O, lse and gradients against the plain versions at T <= 8192, O and lse
     against ``flash_fwd_lut_ring`` at 16384; each forward timed (three
     readings, the spread printed) beside its bound, its plain version, the
-    ring on the same LUT, the dense causal ``flash_fwd``, SDPA with the
+    ring on the same LUT, the dense causal forward (``flash_fwd_sm90``), SDPA with the
     expanded boolean layout mask and SDPA ``is_causal``, and each path's
     forward+backward beside SDPA's with the mask.
 
@@ -185,6 +197,7 @@ REPLACES = {"paged_attention_online":
             "paged_attention_exact":
             "deepspeed_tpu/ops/transformer/paged_attention.py:90",
             "flash_fwd": f"{FLASH_REF}:144",
+            "flash_fwd_sm90": f"{FLASH_REF}:144",        # dense, bf16 at head dims 64 / 128
             "flash_bwd_dkdv": f"{FLASH_REF}:617",
             "flash_bwd_dq": f"{FLASH_REF}:691",
             "flash_fwd_biased": f"{FLASH_REF}:144",      # use_kbias / use_abias
@@ -199,6 +212,8 @@ REPLACES = {"paged_attention_online":
             "int8_mm_nt": "deepspeed_tpu/ops/transformer/int8_matmul.py:45",
             "int8_mm_t": "deepspeed_tpu/ops/transformer/int8_matmul.py:53"}
 INT8_SOURCE = "deepspeed_tpu_torch/csrc/int8_matmul.cu"
+SM90_LIB = fa.ENTRIES["flash_fwd_sm90"][0]
+SM90_DEADLINE_S = 10.0   # the first flash_fwd_sm90 launch must complete within this
 
 
 def flash_source(name):
@@ -296,6 +311,15 @@ def setup():
         print(f"  {name}.cu: nvcc {log['seconds']:.2f} s, cached={log['cached']}")
         for row in ptxas_summary(log["ptxas"]):
             print("  ptxas", row)
+        for line in log["ptxas"].splitlines():
+            if "Potential Performance Loss" in line:
+                print("  ptxas", line.strip())
+    sm90 = ptxas_summary(builder.build_log[SM90_LIB]["ptxas"])
+    print(f"{SM90_LIB}.cu: built in {builder.build_log[SM90_LIB]['seconds']:.2f} s; " + "; ".join(
+        f"{kname[kname.find('fwd_sm90_kernel'):]} {regs} registers, {spill} spill bytes"
+        for kname, regs, _, spill in sm90))
+    if not sm90 or any(spill for *_, spill in sm90):
+        raise AssertionError(f"{SM90_LIB}: no kernel built, or ptxas spilled registers: {sm90}")
     return card
 
 
@@ -380,9 +404,12 @@ def flash_close(what, label, got, ref):
 
 
 def check_flash_case(q, k, v, do, causal, what):
-    """Each flash kernel against its plain version on the same inputs (the
-    backward ones fed the kernel's own O and lse, as in training).
-    Returns {kernel: [(output, max abs error, share of limit)]}."""
+    """Each flash kernel against its plain version on the same inputs: the
+    dense forward the route takes (and beside ``flash_fwd_sm90`` the
+    template ``flash_fwd`` too), the backward ones fed the routed forward's
+    O and lse, as in training.  Returns {kernel: [(output, max abs error,
+    share of limit)]}."""
+    fwd = fa.dense_fwd_kernel(q.dtype, q.shape[-1])
     o, lse = fa.flash_fwd(q, k, v, causal)
     delta = fa.attention_delta(o, do)
     dk, dv = fa.flash_bwd_dkdv(q, k, v, do, lse, delta, causal)
@@ -390,10 +417,13 @@ def check_flash_case(q, k, v, do, causal, what):
     ro, rlse = fa.flash_attention_reference_fwd(q, k, v, causal)
     rdk, rdv = fa.flash_attention_reference_bwd_dkdv(q, k, v, do, lse, delta, causal)
     rdq = fa.flash_attention_reference_bwd_dq(q, k, v, do, lse, delta, causal)
-    torch.cuda.synchronize()
-    pairs = {"flash_fwd": [("o", o, ro), ("lse", lse, rlse)],
+    pairs = {fwd: [("o", o, ro), ("lse", lse, rlse)],
              "flash_bwd_dkdv": [("dk", dk, rdk), ("dv", dv, rdv)],
              "flash_bwd_dq": [("dq", dq, rdq)]}
+    if fwd != "flash_fwd":
+        to, tlse = fa.flash_fwd_template(q, k, v, causal)
+        pairs["flash_fwd"] = [("o", to, ro), ("lse", tlse, rlse)]
+    torch.cuda.synchronize()
     return {name: [(label, *flash_close(f"{name} {what}", label, got, ref))
                    for label, got, ref in ps] for name, ps in pairs.items()}
 
@@ -404,14 +434,39 @@ def flash_line(res):
                      for rows in res.values() for label, err, share in rows)
 
 
+def first_sm90_launch(dev, gen):
+    """The first ``flash_fwd_sm90`` launches (T=64, one tile, each head
+    dim), each waited for on a CUDA event polled under SM90_DEADLINE_S: a
+    launch that does not complete raises (the kernel also traps on an
+    mbarrier wait of more than 2 s), so a fault of its schedule ends the
+    run instead of stalling it."""
+    for d in fa.SM90_HEAD_DIMS[torch.bfloat16]:
+        q, k, v, _ = flash_inputs(dev, gen, torch.bfloat16, 1, 64, 1, d, "dense")
+        t0 = time.perf_counter()
+        o, lse = fa.flash_fwd_sm90(q, k, v, True)
+        done = torch.cuda.Event()
+        done.record()
+        while not done.query():
+            if time.perf_counter() - t0 > SM90_DEADLINE_S:
+                raise RuntimeError(f"flash_fwd_sm90 d={d}: the first launch did not complete "
+                                   f"within {SM90_DEADLINE_S} s")
+            time.sleep(1e-3)
+        err = (o.float() - fa.flash_attention_reference_fwd(q, k, v, True)[0].float()).abs().max()
+        print(f"flash_fwd_sm90 first launch d={d} T=64: completed in "
+              f"{(time.perf_counter() - t0) * 1e3:.1f} ms, O max abs error {err.item():.2e}")
+
+
 def check_flash_kernels(dev, gen, B=2, H=4):
     """Phase 2, flash: each kernel against its plain version over head
     dims, lengths, masks, dtypes and both layouts.  Returns the max abs
     error per kernel."""
+    first_sm90_launch(dev, gen)
     max_err = {name: 0.0 for name in fa.DENSE_KERNELS}
     for dt, dims in fa.HEAD_DIMS.items():
         for d, T, causal, layout in itertools.product(
-                dims, (64, 96, 1000, 1024), (True, False), ("qkv", "dense")):
+                dims, (64, 96, 1000, 1024, 1088, 4096), (True, False), ("qkv", "dense")):
+            if T > 1024 and fa.dense_fwd_kernel(dt, d) != "flash_fwd_sm90":
+                continue
             what = f"{str(dt)[6:]} d={d} T={T} causal={int(causal)} {layout}"
             res = check_flash_case(*flash_inputs(dev, gen, dt, B, T, H, d, layout),
                                    causal, what)
@@ -639,7 +694,7 @@ def profile_steps(step, tag, steps=6, unit="decode step"):
     kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
     if not kernels:
         print(f"profile {tag}: the profiler saw no device events")
-        return
+        return {}
     spans = sorted((e.time_range.start, e.time_range.end) for e in kernels)
     busy, end = 0.0, -math.inf
     for a, b in spans:                          # union of kernel intervals
@@ -657,6 +712,7 @@ def profile_steps(step, tag, steps=6, unit="decode step"):
           f"launches per step")
     for name, (t, n) in top:
         print(f"  {t / steps:8.1f} us/step {n / steps:6.1f} launches/step  {name[:90]}")
+    return {name: (t / steps, n / steps) for name, (t, n) in by_name.items()}
 
 
 TRAIN_CONFIG = {
@@ -717,11 +773,10 @@ def train(dev, card, warmup=3, timed=10, fit_steps=20, preset="gpt2-350m", seq=1
             and abs(flash[1] - plain[1]) <= STEP1_GNORM_TOL * abs(plain[1])):
         raise AssertionError(f"step 1 flash {flash} vs plain {plain}")
     n_steps = warmup + timed
-    for name in fa.DENSE_KERNELS:
-        if first_counts[name] != n_layer or counts[name] != n_steps * n_layer:
-            raise AssertionError(f"{name}: {first_counts[name]} launches in step 1, "
-                                 f"{counts[name]} in {n_steps} steps; expected "
-                                 f"{n_layer} per step (one per layer)")
+    fwd = fa.dense_fwd_kernel(torch.bfloat16, model.config.n_embd // model.config.n_head)
+    per_step = {fwd: n_layer, "flash_bwd_dkdv": n_layer, "flash_bwd_dq": n_layer}
+    check_launches(f"train {preset} step 1", first_counts, per_step, 1)
+    check_launches(f"train {preset}", counts, per_step, n_steps)
     if not all(math.isfinite(x) for x in losses) or eng.skipped_steps != 0:
         raise AssertionError(f"losses {losses}, skipped {eng.skipped_steps}")
     step_ms = np.asarray(times[warmup:]) * 1e3
@@ -739,8 +794,16 @@ def train(dev, card, warmup=3, timed=10, fit_steps=20, preset="gpt2-350m", seq=1
     print(f"train fixed batch: loss {fit[0]:.4f} -> {fit[-1]:.4f} over {fit_steps} steps")
     if not fit[0] - fit[-1] >= 0.5:
         raise AssertionError(f"fixed-batch loss fell only {fit[0] - fit[-1]}")
-    profile_steps(lambda: eng.train_batch(), f"train {preset}", steps=2,
-                  unit="training step")
+    by_name = profile_steps(lambda: eng.train_batch(), f"train {preset}", steps=2,
+                            unit="training step")
+    flash = {}
+    for name, (t, c) in by_name.items():
+        m = re.search(r"\b(fwd_sm90_kernel|fwd_kernel|dkdv_kernel|dq_kernel)\b", name)
+        if m:
+            t0, c0 = flash.get(m.group(1), (0.0, 0.0))
+            flash[m.group(1)] = (t0 + t, c0 + c)
+    print(f"profile train {preset}: flash kernels' device time per step: " + "; ".join(
+        f"{k} {t:.1f} us ({c:.0f} launches)" for k, (t, c) in flash.items()))
     return counts
 
 
@@ -763,12 +826,34 @@ def sdpa_backward(qh, kh, vh, doh):
         return None, None
 
 
-def flash_timing(dev, gen, bytes_per_s, B=8, T=1024, H=16, d=64):
+def flash_work(B, T, H, d):
+    """(bytes, operations) of each dense flash kernel on a causal call:
+    each input read once and each output written once, and the products
+    the causal (q, k) pairs need."""
+    pairs = B * H * T * (T + 1) // 2           # causal (q, k) pairs with q >= k
+    elem, stat = B * T * H * d * 2, B * H * T * 4
+    fwd = (4 * elem + stat, 4 * d * pairs)                             # QK, PV
+    return {"flash_fwd": fwd, "flash_fwd_sm90": fwd,
+            "flash_bwd_dkdv": (6 * elem + 2 * stat, 8 * d * pairs),   # QK, dOV, PdO, dSQ
+            "flash_bwd_dq": (5 * elem + 2 * stat, 6 * d * pairs)}     # QK, dOV, dSK
+
+
+def bound_ms(nbytes, ops, bytes_per_s):
+    """The least time the card could take: (ms, "bytes" or "operations")."""
+    t_bytes, t_ops = nbytes / bytes_per_s * 1e3, ops / PEAK_OPS["bf16"] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def flash_timing(dev, gen, bytes_per_s, card, B=8, T=1024, H=16, d=64,
+                 sweep_t=(1024, 2048, 4096, 8192), sweep_tokens=8192):
     """Phase 6 at the training shape (q, k, v views of one qkv tensor):
     each flash kernel held against its plain version (the kernels' errors
-    in the kernels line), then timed beside its plain version, SDPA and
-    the bound (bytes each input read once and each output written once,
-    or the products the causal pairs need)."""
+    in the kernels line), then timed (three readings) beside its plain
+    version, SDPA and the bound: ``flash_fwd_sm90`` and the template
+    ``flash_fwd`` (the PR 2 design) beside SDPA forward, the backward
+    kernels beside the flash-attention backward op.  Then
+    ``flash_fwd_sm90`` against SDPA ``is_causal`` over ``sweep_t`` at
+    B*T = ``sweep_tokens``, head dims 64 and 128."""
     q, k, v, do = flash_inputs(dev, gen, torch.bfloat16, B, T, H, d, "qkv")
     what = f"B={B} T={T} H={H} d={d} causal bf16 qkv views"
     res = check_flash_case(q, k, v, do, True, what)
@@ -776,15 +861,13 @@ def flash_timing(dev, gen, bytes_per_s, B=8, T=1024, H=16, d=64):
     max_err = {name: max(err for _, err, _ in rows) for name, rows in res.items()}
     o, lse = fa.flash_fwd(q, k, v, True)
     delta = fa.attention_delta(o, do)
-    pairs = B * H * T * (T + 1) // 2           # causal (q, k) pairs with q >= k
-    elem, stat = B * T * H * d * 2, B * H * T * 4
-    work = {"flash_fwd": (4 * elem + stat, 4 * d * pairs),            # QK, PV
-            "flash_bwd_dkdv": (6 * elem + 2 * stat, 8 * d * pairs),   # QK, dOV, PdO, dSQ
-            "flash_bwd_dq": (5 * elem + 2 * stat, 6 * d * pairs)}     # QK, dOV, dSK
-    kernel = {"flash_fwd": lambda: fa.flash_fwd(q, k, v, True),
+    work = flash_work(B, T, H, d)
+    kernel = {"flash_fwd_sm90": lambda: fa.flash_fwd_sm90(q, k, v, True),
+              "flash_fwd": lambda: fa.flash_fwd_template(q, k, v, True),
               "flash_bwd_dkdv": lambda: fa.flash_bwd_dkdv(q, k, v, do, lse, delta, True),
               "flash_bwd_dq": lambda: fa.flash_bwd_dq(q, k, v, do, lse, delta, True)}
-    plain = {"flash_fwd": lambda: fa.flash_attention_reference_fwd(q, k, v, True),
+    plain_fwd = lambda: fa.flash_attention_reference_fwd(q, k, v, True)
+    plain = {"flash_fwd_sm90": plain_fwd, "flash_fwd": plain_fwd,
              "flash_bwd_dkdv": lambda: fa.flash_attention_reference_bwd_dkdv(
                  q, k, v, do, lse, delta, True),
              "flash_bwd_dq": lambda: fa.flash_attention_reference_bwd_dq(
@@ -806,28 +889,43 @@ def flash_timing(dev, gen, bytes_per_s, B=8, T=1024, H=16, d=64):
         if not err <= 2e-2 * ref.float().abs().max().item():
             raise AssertionError(f"SDPA yardstick {label} disagrees by {err}")
     leaves = [x.detach().requires_grad_(True) for x in (qh, kh, vh)]
-    sdpa_ms = time_ms(lambda _: sdpa(qh, kh, vh, is_causal=True), 50)
+    sdpa_r = repeat_ms(lambda _: sdpa(qh, kh, vh, is_causal=True), 50)
     sdpa_fb_ms = time_ms(lambda _: sdpa(*leaves, is_causal=True).backward(doh), 20)
-    sdpa_b_ms = time_ms(lambda _: bwd_call(), 50) if bwd_call is not None else None
+    sdpa_b = repeat_ms(lambda _: bwd_call(), 50) if bwd_call is not None else None
     saved = dict(fa.launches)
     out = {}
-    for name in fa.DENSE_KERNELS:
+    for name in ("flash_fwd_sm90", "flash_fwd", "flash_bwd_dkdv", "flash_bwd_dq"):
         nbytes, ops = work[name]
-        t_bytes, t_ops = nbytes / bytes_per_s * 1e3, ops / PEAK_OPS["bf16"] * 1e3
-        bound, by = (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
-        ms = time_ms(lambda _: kernel[name](), 50)
+        bound, by = bound_ms(nbytes, ops, bytes_per_s)
+        r = repeat_ms(lambda _: kernel[name](), 50)
         plain_ms = time_ms(lambda _: plain[name](), 5)
-        out[name] = {"max_abs_err": max_err[name], "ms": ms, "plain_ms": plain_ms,
+        lib_r = sdpa_r if name.startswith("flash_fwd") else sdpa_b
+        out[name] = {"max_abs_err": max_err[name], "ms": r[0], "plain_ms": plain_ms,
                      "bound_ms": bound, "bound_by": by,
-                     "library_ms": sdpa_ms if name == "flash_fwd" else sdpa_b_ms}
-        print(f"timing {name} B={B} T={T} H={H} d={d} causal bf16: {ms * 1e3:.2f} us, "
-              f"bound {bound * 1e3:.2f} us ({by}; {nbytes / 1e6:.1f} MB, "
-              f"{ops / 1e9:.2f} GFLOP), plain {plain_ms * 1e3:.2f} us")
-    b_us = "not available" if sdpa_b_ms is None else f"{sdpa_b_ms * 1e3:.2f} us"
-    print(f"timing SDPA (B, H, T, d) causal bf16: forward {sdpa_ms * 1e3:.2f} us, "
-          f"backward (dq, dk, dv in one call) {b_us}, forward+backward "
-          f"{sdpa_fb_ms * 1e3:.2f} us; flash_fwd + dkdv + dq "
-          f"{sum(out[n]['ms'] for n in fa.DENSE_KERNELS) * 1e3:.2f} us")
+                     "library_ms": None if lib_r is None else lib_r[0]}
+        design = " (the PR 2 design)" if name == "flash_fwd" else ""
+        lib_note = ("SDPA forward" if name.startswith("flash_fwd")
+                    else "the flash-attention backward op (dq, dk, dv)")
+        print(f"timing {name}{design} B={B} T={T} H={H} d={d} causal bf16 ({card}): "
+              f"{spread(r)}; bound {bound * 1e3:.2f} us ({by}; {nbytes / 1e6:.1f} MB, "
+              f"{ops / 1e9:.2f} GFLOP); plain {plain_ms * 1e3:.2f} us; {lib_note} "
+              f"{'not available' if lib_r is None else spread(lib_r)}")
+    path_ms = sum(out[n]["ms"] for n in ("flash_fwd_sm90", "flash_bwd_dkdv", "flash_bwd_dq"))
+    print(f"timing SDPA (B, H, T, d) causal bf16: forward+backward {sdpa_fb_ms * 1e3:.2f} us; "
+          f"flash_fwd_sm90 + dkdv + dq {path_ms * 1e3:.2f} us")
+    del q, k, v, do, qh, kh, vh, doh, leaves, lib, lib_grads
+    for hd, t in itertools.product(fa.SM90_HEAD_DIMS[torch.bfloat16], sweep_t):
+        b = sweep_tokens // t
+        sq, sk, sv, _ = flash_inputs(dev, gen, torch.bfloat16, b, t, H, hd, "qkv")
+        bound, by = bound_ms(*flash_work(b, t, H, hd)["flash_fwd_sm90"], bytes_per_s)
+        r = repeat_ms(lambda _: fa.flash_fwd_sm90(sq, sk, sv, True), 20)
+        sh, kh_, vh_ = (x.transpose(1, 2).contiguous() for x in (sq, sk, sv))
+        lr = repeat_ms(lambda _: sdpa(sh, kh_, vh_, is_causal=True), 20)
+        ops = flash_work(b, t, H, hd)["flash_fwd_sm90"][1]
+        print(f"timing flash_fwd_sm90 sweep B={b} T={t} H={H} d={hd} causal bf16 ({card}): "
+              f"{spread(r)}, {ops / r[0] / 1e9:.1f} TFLOP/s; SDPA is_causal {spread(lr)}; "
+              f"ratio {r[0] / lr[0]:.3f}; bound {bound * 1e3:.2f} us ({by})")
+        del sq, sk, sv, sh, kh_, vh_
     fa.launches.update(saved)          # timing launches are not path launches
     return out
 
@@ -1630,8 +1728,9 @@ def check_flash_lse(dev, gen, B=8, T=1024, H=16, d=64):
     o, lse = fa.flash_attention_with_lse(*leaves, causal=True)
     ((o.float() * w.float()).sum() + (lse * u).sum()).backward()
     torch.cuda.synchronize()
+    fwd = fa.dense_fwd_kernel(q.dtype, d)
     check_launches("flash_attention_with_lse", dict(fa.launches),
-                   {name: 1 for name in fa.DENSE_KERNELS}, 1)
+                   {fwd: 1, "flash_bwd_dkdv": 1, "flash_bwd_dq": 1}, 1)
     o, lse = o.detach(), lse.detach()
     ro, rlse = fa.flash_attention_reference_fwd(q, k, v, True)
     delta = fa.attention_delta(o, w) - u
@@ -1641,7 +1740,7 @@ def check_flash_lse(dev, gen, B=8, T=1024, H=16, d=64):
             for label, got, ref in (("o", o, ro), ("lse", lse, rlse), ("dq", leaves[0].grad, rdq),
                                     ("dk", leaves[1].grad, rdk), ("dv", leaves[2].grad, rdv))]
     print(f"flash_attention_with_lse B={B} T={T} H={H} d={d} causal bf16, loss on out and "
-          f"lse: launches 1/1/1; {flash_line({'': rows})}")
+          f"lse: launches {fwd} 1, flash_bwd_dkdv 1, flash_bwd_dq 1; {flash_line({'': rows})}")
 
     # forward + backward beside its bound (rows 1, 3 and 4's work), the plain
     # versions and SDPA forward + backward (no lse output), which the port never calls
@@ -1846,7 +1945,8 @@ def time_path(dev, route, name, sched, lut, layout, attn, leaf, do, B, T, H, d, 
     print(f"timing {name} B={B} T={T} H={H} d={d} bf16 block {block} causal={int(causal)} "
           f"({card}): {spread(ms)}; bound {bound * 1e3:.2f} us ({by}; {nbytes / 1e6:.1f} MB, "
           f"{ops / 1e9:.2f} GFLOP, {pairs} live pairs); plain {plain_note}; "
-          f"flash_fwd_lut_ring {spread(ring)}; dense {'causal ' * causal}flash_fwd {spread(dense)}; SDPA "
+          f"flash_fwd_lut_ring {spread(ring)}; dense {'causal ' * causal}"
+          f"{fa.dense_fwd_kernel(q.dtype, d)} {spread(dense)}; SDPA "
           f"with the layout mask {spread(lib)}; SDPA is_causal {spread(lib_causal)}")
     print(f"timing {route} path forward+backward B={B} T={T} block {block}: {spread(fb)}; "
           f"SDPA forward+backward with the layout mask {spread(lib_fb)}")
@@ -1980,7 +2080,7 @@ def main():
 
     # 5. training at full width; 6. flash kernel timing at its shape
     train_launches = train(dev, card)
-    tf = flash_timing(dev, gen, bw)
+    tf = flash_timing(dev, gen, bw, card)
     print(json.dumps({"flash_sweep_max_abs_err": flash_err}))
     kernels += [{"name": name, "route": "cuda", "source": flash_source(name),
                  "replaces": REPLACES[name], "launches": train_launches[name],

@@ -75,8 +75,10 @@
 //     score bias is read straight from global memory.
 // Rows of shared tiles are padded by 8 elements so the 8 row addresses of an ldmatrix
 // fall in different banks.  The fp32 path runs the same tiling on the CUDA cores, with
-// P / dS staged through a per-warp shared tile.  wgmma, TMA and warp specialisation
-// are later work.
+// P / dS staged through a per-warp shared tile.  The dense bf16 forward at head dims 64
+// and 128 runs in flash_attention_fwd_sm90.cu instead (TMA, an mbarrier ring fed by a
+// producer warp, wgmma, 128-row q tiles); the dense fwd_kernel keeps fp32 and head dim
+// 96, and every kernel here is still mma.sync with cp.async.
 //
 // C interface for ctypes (in the .cu files): each entry returns cudaGetLastError()
 // after the launch (0 on success), or -1 for a dtype / head dim / shape it was not

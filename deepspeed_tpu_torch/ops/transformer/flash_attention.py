@@ -11,14 +11,22 @@ dense path (``flash_attention`` 913-934 over ``_flash_bhtd``'s custom VJP
 ``_merged_luts_cached`` 1053-1073).  Its Pallas kernels become hand-written
 CUDA kernels (``deepspeed_tpu_torch/csrc/flash_attention.cuh``, entries in
 ``flash_attention.cu``, ``flash_attention_sparse_fwd.cu``,
-``flash_attention_sparse_bwd.cu`` and ``flash_attention_band_merge_fwd.cu``),
-one wrapper and one launch counter per entry:
+``flash_attention_sparse_bwd.cu`` and ``flash_attention_band_merge_fwd.cu``;
+the dense bf16 forward at head dims 64 and 128 in
+``flash_attention_fwd_sm90.cu``), one wrapper and one launch counter per
+entry:
 
+- ``flash_fwd_sm90`` (for ``_fwd_kernel`` 144, dense): the bf16 forward
+  at head dims 64 and 128 with TMA, an mbarrier ring fed by a producer
+  warp, ``wgmma`` and 128-row q tiles over two consumer warpgroups;
+  :func:`flash_fwd` sends CUDA tensors of that dtype and head dim there
+  (:func:`dense_fwd_kernel`), by dtype and head dim alone, and
+  :func:`flash_fwd_sm90_schedule` is its schedule in Python;
 - ``flash_fwd`` / ``flash_fwd_biased`` / ``flash_fwd_lut`` (for
-  ``_fwd_kernel`` 144: dense; with the (B, T) key bias and the (T, T)
-  score bias; over the live tiles of a LUT, with the biases): online
-  softmax over the visited k tiles, O in the input dtype and the fp32
-  logsumexp;
+  ``_fwd_kernel`` 144: dense, fp32 and bf16 at head dim 96; with the (B,
+  T) key bias and the (T, T) score bias; over the live tiles of a LUT,
+  with the biases): online softmax over the visited k tiles, O in the
+  input dtype and the fp32 logsumexp;
 - ``flash_fwd_lut_ring`` (for ``_fwd_kernel_dma`` 306): the unbiased LUT
   forward with a 3-deep ring of K/V tiles in flight;
 - ``flash_fwd_banded`` (for ``_fwd_kernel`` with ``use_banded`` 180-198,
@@ -95,7 +103,7 @@ import torch
 
 # flash_attention.py NEG_INF: masked scores, and the lse of a row with no live key
 NEG_INF = -1e30
-DENSE_KERNELS = ("flash_fwd", "flash_bwd_dkdv", "flash_bwd_dq")
+DENSE_KERNELS = ("flash_fwd", "flash_fwd_sm90", "flash_bwd_dkdv", "flash_bwd_dq")
 BIASED_KERNELS = ("flash_fwd_biased", "flash_bwd_dkdv_biased", "flash_bwd_dq_biased")
 LUT_KERNELS = ("flash_fwd_lut", "flash_fwd_lut_ring", "flash_fwd_banded",
                "flash_fwd_merged", "flash_bwd_dkdv_lut", "flash_bwd_dq_lut")
@@ -103,6 +111,7 @@ KERNELS = DENSE_KERNELS + BIASED_KERNELS + LUT_KERNELS
 # entry -> (library = csrc/<library>.cu, C function, variant argument or None)
 ENTRIES = {
     "flash_fwd": ("flash_attention", "flash_fwd", None),
+    "flash_fwd_sm90": ("flash_attention_fwd_sm90", "flash_fwd_sm90", None),
     "flash_bwd_dkdv": ("flash_attention", "flash_bwd_dkdv", None),
     "flash_bwd_dq": ("flash_attention", "flash_bwd_dq", None),
     "flash_fwd_biased": ("flash_attention_sparse_fwd", "flash_fwd_variant", 1),
@@ -118,6 +127,10 @@ ENTRIES = {
 # launches per kernel since the last reset_launches(); only kernel launches count
 launches = {name: 0 for name in KERNELS}
 HEAD_DIMS = {torch.bfloat16: (64, 96, 128), torch.float32: (64, 96, 128)}
+# flash_fwd_sm90: the dtype and head dims it is built for, its q tile and its k tile
+# (csrc/flash_attention_fwd_sm90.cu: kBQ, Cfg<D>::kBN)
+SM90_HEAD_DIMS = {torch.bfloat16: (64, 128)}
+SM90_BLOCK_Q, SM90_BLOCK_N = 128, 128
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 TILE = 64            # the kernels' q and k tile rows (kBQ, kBK)
 # the banded kernel's Band parameter (csrc/flash_attention.cuh): global tiles, layout columns
@@ -552,7 +565,7 @@ def flash_attention_reference_bwd(q, k, v, o, lse, do, causal=True, sm_scale=Non
 
 
 # ------------------------------------------------------------- wrappers
-def _check(name, tensors, dtype, head_dim):
+def _check(name, tensors, dtype, head_dim, dims=HEAD_DIMS):
     q = tensors[0]
     for t in tensors:
         if t.device != q.device or t.dtype != q.dtype or t.shape != q.shape:
@@ -565,12 +578,12 @@ def _check(name, tensors, dtype, head_dim):
         if t.data_ptr() % 16 or any((s * es) % 16 for s in t.stride()[:3]):
             raise ValueError(f"{name}: operand base and (b, t, h) strides must be "
                              f"16-byte aligned for the kernel's vector loads")
-    if dtype not in HEAD_DIMS:
-        raise ValueError(f"{name}: dtype {dtype} unsupported (bf16 on the tensor cores, "
-                         f"fp32 on the CUDA cores)")
-    if head_dim not in HEAD_DIMS[dtype]:
+    if dtype not in dims:
+        raise ValueError(f"{name}: dtype {dtype} unsupported (supported "
+                         f"{', '.join(str(t) for t in dims)})")
+    if head_dim not in dims[dtype]:
         raise ValueError(f"{name}: head dim {head_dim} not built for {dtype} "
-                         f"(supported {HEAD_DIMS[dtype]})")
+                         f"(supported {dims[dtype]})")
     B, _, H, _ = q.shape
     if B * H > 65535:
         raise ValueError(f"{name}: B*H = {B * H} exceeds the grid's 65535")
@@ -628,7 +641,7 @@ def _entry(name):
     fn = getattr(builder.load(lib), fn_name)
     if fn.argtypes is None:
         v, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        n_ptr = {"fwd": 5, "dkdv": 8, "dq": 7}[fn_name.split("_")[-2 if variant else -1]]
+        n_ptr = 8 if "dkdv" in fn_name else 7 if "_dq" in fn_name else 5
         args = [i, i] + [v] * n_ptr + [v, i, i, i, i, f]
         fn.argtypes = (args + [v]) if variant is None else ([i] + args + [v, v])
         fn.restype = ctypes.c_int
@@ -648,7 +661,8 @@ def _fwd(name, q, k, v, causal, sm_scale, lut=None, kbias=None, abias=None):
         return flash_attention_reference_fwd(q, k, v, causal, sm_scale, lut=lut,
                                              key_padding_bias=kbias, attn_bias=abias)
     B, T, H, d = q.shape
-    _check(name, (q, k, v), q.dtype, d)
+    _check(name, (q, k, v), q.dtype, d,
+           SM90_HEAD_DIMS if name == "flash_fwd_sm90" else HEAD_DIMS)
     extra = [] if ENTRIES[name][2] is None else [_extra(name, q, lut, kbias, abias, "k")]
     o = torch.empty((B, T, H, d), dtype=q.dtype, device=q.device)
     lse = torch.empty((B, H, T), dtype=torch.float32, device=q.device)
@@ -659,10 +673,77 @@ def _fwd(name, q, k, v, causal, sm_scale, lut=None, kbias=None, abias=None):
     return o, lse
 
 
+def dense_fwd_kernel(dtype, head_dim):
+    """The dense forward kernel a CUDA tensor of ``dtype`` and ``head_dim``
+    takes: ``flash_fwd_sm90`` for bf16 at head dims 64 and 128, else the
+    template ``flash_fwd``.  Decided before any launch, never by a failure."""
+    return "flash_fwd_sm90" if head_dim in SM90_HEAD_DIMS.get(dtype, ()) else "flash_fwd"
+
+
 def flash_fwd(q, k, v, causal=True, sm_scale=None):
-    """``(o, lse)`` of (B, T, H, d) q/k/v: the ``flash_fwd`` kernel for
-    CUDA tensors, the plain version for CPU tensors."""
+    """``(o, lse)`` of (B, T, H, d) q/k/v: for CUDA tensors the kernel of
+    :func:`dense_fwd_kernel`, for CPU tensors the plain version."""
+    return _fwd(dense_fwd_kernel(q.dtype, q.shape[-1]), q, k, v, causal, sm_scale)
+
+
+def flash_fwd_template(q, k, v, causal=True, sm_scale=None):
+    """``(o, lse)``: the template ``flash_fwd`` kernel whatever the dtype
+    and head dim (for CUDA tensors; the plain version for CPU tensors)."""
     return _fwd("flash_fwd", q, k, v, causal, sm_scale)
+
+
+def flash_fwd_sm90(q, k, v, causal=True, sm_scale=None):
+    """``(o, lse)``: the ``flash_fwd_sm90`` kernel (bf16, head dims 64 and
+    128; others raise) for CUDA tensors, the plain version for CPU ones."""
+    return _fwd("flash_fwd_sm90", q, k, v, causal, sm_scale)
+
+
+def flash_fwd_sm90_blocks(n_work, n_sms):
+    """The work items each block of ``flash_fwd_sm90``'s persistent grid
+    takes, as the kernel deals them: ``min(n_sms, n_work)`` blocks; in
+    round ``r`` block ``x`` takes item ``r G + x``, or ``r G + G - 1 - x``
+    when ``r`` is odd (a snake, so the blocks that take the longer of the
+    longest-first items in one round take the shorter in the next)."""
+    G = min(n_sms, n_work)
+    out = []
+    for x in range(G):
+        items, r = [], 0
+        while True:
+            w = r * G + (G - 1 - x if r % 2 else x)
+            if w >= n_work:
+                break
+            items.append(w)
+            r += 1
+        out.append(items)
+    return out
+
+
+def flash_fwd_sm90_schedule(T, causal, block_n=SM90_BLOCK_N):
+    """The schedule of ``flash_fwd_sm90`` in Python, as the kernel computes
+    it, for one (b, h): its 128-row q tiles in the order of the kernel's
+    work items (item ``w`` is q tile ``nq - 1 - w // (B*H)``, so the
+    longest causal rows come first), and per q tile the k tiles of
+    ``block_n`` keys it visits in the kernel's order (the last first:
+    every tile under T and, when causal, those holding a key at or below
+    the tile's last row) with, for each 64-row half (one per consumer
+    warpgroup), whether the tile takes the per-element mask (it crosses T
+    or, when causal, the half's diagonal).  Returns ``[(q0, [(k0,
+    (masked_half0, masked_half1)), ...]), ...]``."""
+    bq = SM90_BLOCK_Q
+    nq = -(-T // bq)
+    out = []
+    for y in range(nq):
+        q0 = (nq - 1 - y) * bq
+        nk = -(-T // block_n)
+        if causal:
+            nk = min(nk, (q0 + bq - 1) // block_n + 1)
+        tiles = []
+        for it in range(nk):
+            k0 = (nk - 1 - it) * block_n
+            tiles.append((k0, tuple(k0 + block_n > T or (causal and k0 + block_n - 1 > q0 + 64 * c)
+                                    for c in range(2))))
+        out.append((q0, tiles))
+    return out
 
 
 def flash_fwd_biased(q, k, v, key_padding_bias=None, attn_bias=None, causal=True,

@@ -511,7 +511,7 @@ LUT_BWD = ["flash_bwd_dkdv_lut", "flash_bwd_dq_lut"]
     ("band", True, 1, True, ["flash_fwd_lut"], LUT_BWD),
     ("fixed", True, 1, False, ["flash_fwd_lut_ring"], LUT_BWD),
     ("fixed", True, 2, False, ["flash_fwd_merged"], LUT_BWD),
-    ("all-ones", True, 1, False, ["flash_fwd"], ["flash_bwd_dkdv", "flash_bwd_dq"]),
+    ("all-ones", True, 1, False, ["flash_fwd_sm90"], ["flash_bwd_dkdv", "flash_bwd_dq"]),
     ("all-ones", True, 2, False, ["flash_fwd_merged"], LUT_BWD),
     ("all-ones", True, 1, True, ["flash_fwd_biased"],
      ["flash_bwd_dkdv_biased", "flash_bwd_dq_biased"]),
