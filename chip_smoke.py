@@ -9,8 +9,9 @@ JAX package ``deepspeed_tpu``):
 1. setup: the card's name and power limit (``nvidia-smi``), the torch and
    CUDA versions, and the build of the CUDA kernels from ``csrc/`` (one
    ``nvcc`` per source, started together) with its time and ptxas
-   register/spill summary; ``flash_fwd_sm90``'s library (its build
-   seconds, registers and spills per instance) must build with no spill;
+   register/spill summary; ``flash_fwd_sm90``'s and ``int8_mm_nt_decode``'s
+   libraries (their build seconds, registers and spills per instance) must
+   build with no spill;
 2. kernels vs plain: ``paged_attention_online`` and ``paged_attention_exact``
    against ``paged_attention_reference`` at the serving shape (8 slots,
    12 heads, head dim 64, block 16, 64 blocks per slot), lengths
@@ -98,30 +99,34 @@ JAX package ``deepspeed_tpu``):
    ``scaled_dot_product_attention`` with the expanded boolean
    layout-and-padding mask, forward and forward+backward.
 
-10. int8 kernels vs plain: ``int8_mm_nt`` and ``int8_mm_t`` against
-    ``int8_matmul_reference`` at the GPT-2 125M and 1.3B weight shapes
-    (qkv, proj, fc, fc_proj; the tied head transposed, N = 50257), M in
-    {1, 8, 16, 17, 64, 512}, per-tensor scales (and per-channel for the
-    head), bf16 and fp32 outputs: fp32 within d = 1e-5 of the largest |value|
-    + 1e-6, bf16 within one bf16 ulp of each value + d, and two calls
-    bit-identical;
+10. int8 kernels vs plain: ``int8_mm_nt_decode`` (the block weights at
+    M <= 16), the tiled ``int8_mm_nt`` (M > 16) and ``int8_mm_t`` (the head)
+    against ``int8_matmul_reference`` at the GPT-2 125M and 1.3B weight
+    shapes (qkv, proj, fc, fc_proj; the tied head transposed, N = 50257), M
+    in {1, 8, 16, 17, 64, 512}, per-tensor scales (and per-channel for the
+    head), bf16 and fp32 outputs, each from the kernel its route names:
+    fp32 within d = 1e-5 of the largest |value| + 1e-6, bf16 within one bf16
+    ulp of each value + d, and two calls bit-identical;
 11. int8 serving: GPT-2 1.3B at published widths (24 layers, 2048 wide, 32
     heads, vocab 50257), weights drawn on the card from a seeded generator
     with ``init_numpy``'s distributions, through
     ``deepspeed_tpu_torch.init_inference(model, params=..., dtype=torch.int8)``
     -> ``ServingEngine(engine=...)`` with phase 3's traffic: every outcome OK,
-    every block recycled, ``int8_mm_nt`` launched (decode steps + prefills) x
-    96 times and ``int8_mm_t`` (decode steps + prefills) times, the int8
+    every block recycled, ``int8_mm_nt_decode`` launched decode steps x 96
+    times, ``int8_mm_nt`` prefills x 96 and ``int8_mm_t`` (decode steps +
+    prefills) times, the int8
     tree at most 0.55x the bf16 tree's bytes; the oracle serves the same
     int8 values dequantized to bf16: its greedy choice on the int8 streams'
     contexts agrees on at least 0.9 of the tokens, one decode step's logits
     within 0.25; ``InferenceEngine.generate`` at int8 (B=4, T=64, +16)
     against the serving streams; a ``torch.profiler`` breakdown of a decode
-    step of each;
+    step of each, with the int8 products' device time per step;
 12. the int8 kernels at 1.3B's weights, decode (M = 8) and prefill (M =
     512): each held against its plain version, then timed beside its bound,
     its plain version, ``torch.matmul`` over the dequantized bf16 weight and
     (the head) ``torch._weight_int8pack_mm``, which the port never calls;
+    at decode ``int8_mm_nt_decode`` beside the tiled ``int8_mm_nt``
+    (through ``int8_matmul_tiled``), median of three readings each;
 13. banded and merged-row kernels vs plain: ``flash_fwd_banded`` and
     ``flash_fwd_merged`` against ``flash_attention_reference_fwd`` over
     their schedules (O and lse, phase 2's limits) at B=2,
@@ -209,9 +214,11 @@ REPLACES = {"paged_attention_online":
             "flash_fwd_merged": f"{FLASH_REF}:161",      # use_merge (and _fwd_kernel_dma 317)
             "flash_bwd_dkdv_lut": f"{FLASH_REF}:617",
             "flash_bwd_dq_lut": f"{FLASH_REF}:691",
-            "int8_mm_nt": "deepspeed_tpu/ops/transformer/int8_matmul.py:45",
+            "int8_mm_nt": "deepspeed_tpu/ops/transformer/int8_matmul.py:45",     # M > 16
+            "int8_mm_nt_decode": "deepspeed_tpu/ops/transformer/int8_matmul.py:45",  # M <= 16
             "int8_mm_t": "deepspeed_tpu/ops/transformer/int8_matmul.py:53"}
-INT8_SOURCE = "deepspeed_tpu_torch/csrc/int8_matmul.cu"
+INT8_DECODE_LIB = im.LIBRARIES["int8_mm_nt_decode"]
+INT8_SOURCES = {name: f"deepspeed_tpu_torch/csrc/{lib}.cu" for name, lib in im.LIBRARIES.items()}
 SM90_LIB = fa.ENTRIES["flash_fwd_sm90"][0]
 SM90_DEADLINE_S = 10.0   # the first flash_fwd_sm90 launch must complete within this
 
@@ -320,6 +327,13 @@ def setup():
         for kname, regs, _, spill in sm90))
     if not sm90 or any(spill for *_, spill in sm90):
         raise AssertionError(f"{SM90_LIB}: no kernel built, or ptxas spilled registers: {sm90}")
+    dec = ptxas_summary(builder.build_log[INT8_DECODE_LIB]["ptxas"])
+    print(f"{INT8_DECODE_LIB}.cu: built in {builder.build_log[INT8_DECODE_LIB]['seconds']:.2f} s; "
+          + "; ".join(f"{kname[kname.find('int8_decode_kernel'):]} {regs} registers, {spill} "
+                      "spill bytes" for kname, regs, _, spill in dec))
+    if not dec or any(spill for *_, spill in dec):
+        raise AssertionError(f"{INT8_DECODE_LIB}: no kernel built, or ptxas spilled registers: "
+                             f"{dec}")
     return card
 
 
@@ -503,9 +517,9 @@ def serve(engine, prompts, new, tag, kv_bits, mode):
     """Phase 3 (and 11) run: serve ``prompts`` greedily with counts reset
     just before and read just after; checks outcomes, tokens, recycling,
     paged-attention launches == decode steps x layers and, for an int8
-    engine, ``int8_mm_nt`` == (steps + prefills) x 4 x layers and
-    ``int8_mm_t`` == steps + prefills (0 for a float engine).  Returns
-    (server, paged launches, tokens)."""
+    engine, ``int8_mm_nt_decode`` == steps x 4 x layers, ``int8_mm_nt`` ==
+    prefills x 4 x layers and ``int8_mm_t`` == steps + prefills (all 0 for a
+    float engine).  Returns (server, paged launches, tokens)."""
     c = engine.module.config
     c.paged_attention_mode = mode
     cfg = ServingConfig(batch_slots=8, block_size=16, kv_bits=kv_bits,
@@ -532,8 +546,13 @@ def serve(engine, prompts, new, tag, kv_bits, mode):
         if n != expect:
             raise AssertionError(f"{tag}: {name} launched {n} times, "
                                  f"expected {expect} ({steps} steps)")
-    calls = (steps + len(prompts)) if engine.quantized else 0   # decode steps + prefills
-    for name, expect in (("int8_mm_nt", calls * 4 * c.n_layer), ("int8_mm_t", calls)):
+    # int8: the block products of each decode step (8 rows) on the decode kernel, of each
+    # prefill (a prompt of 32 rows or more) on the tiled one; the head once per step or
+    # prefill.  A float engine launches none.
+    q = int(engine.quantized)
+    for name, expect in (("int8_mm_nt_decode", q * steps * 4 * c.n_layer),
+                         ("int8_mm_nt", q * len(prompts) * 4 * c.n_layer),
+                         ("int8_mm_t", q * (steps + len(prompts)))):
         if int8_counts[name] != expect:
             raise AssertionError(f"{tag}: {name} launched {int8_counts[name]} times, "
                                  f"expected {expect} ({steps} steps, {len(prompts)} "
@@ -547,7 +566,8 @@ def serve(engine, prompts, new, tag, kv_bits, mode):
     if srv.allocator.free_blocks != srv.num_blocks - 1:
         raise AssertionError(f"{tag}: {srv.allocator.free_blocks} free of "
                              f"{srv.num_blocks - 1}: blocks leaked")
-    int8_line = (f"int8_mm_nt {int8_counts['int8_mm_nt']} = (steps + prefills) x "
+    int8_line = (f"int8_mm_nt_decode {int8_counts['int8_mm_nt_decode']} = steps x "
+                 f"{4 * c.n_layer}, int8_mm_nt {int8_counts['int8_mm_nt']} = prefills x "
                  f"{4 * c.n_layer}, int8_mm_t {int8_counts['int8_mm_t']} = steps + "
                  f"prefills; " if engine.quantized else "")
     print(f"serve {tag}: {len(prompts)} requests OK, {steps} decode steps, "
@@ -1351,32 +1371,39 @@ def int8_error(got, ref):
 
 
 def check_int8_kernels(dev, gen):
-    """Phase 10: both entries against the plain version over the 125M and
-    1.3B weight shapes (the head transposed, N = 50257), M in INT8_M,
-    per-tensor scales (and per-channel for the head), bf16 and fp32
-    outputs; each output within its limit and bit-identical on a second
-    call.  Returns the max abs error per kernel."""
+    """Phase 10: the three entries against the plain version over the 125M
+    and 1.3B weight shapes (the head transposed, N = 50257), M in INT8_M
+    (``int8_mm_nt_decode`` takes the block weights at M <= 16, the tiled
+    ``int8_mm_nt`` the rest), per-tensor scales (and per-channel for the
+    head), bf16 and fp32 outputs; each output from the kernel its route
+    names, within its limit and bit-identical on a second call.  Returns
+    the max abs error per kernel."""
     max_err = {name: 0.0 for name in im.KERNELS.values()}
     saved = dict(im.launches)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     for preset, shapes in INT8_SHAPES.items():
         for wname, (rows, cols) in shapes.items():
             t = wname == "wte"
             q = torch.randint(-128, 128, (rows, cols), generator=gen, device=dev,
                               dtype=torch.int8)
             K, N = (cols, rows) if t else (rows, cols)
-            name = im.KERNELS["t" if t else "nt"]
             for M in INT8_M:
+                name = im.KERNELS["t"] if t else im.int8_nt_kernel(M, N, K, True)
                 x = (torch.randn((M, K), generator=gen, device=dev) * 0.5).to(torch.bfloat16)
                 for kind in (("tensor", "channel") if t else ("tensor",)):
                     scale = (torch.rand((N if kind == "channel" else 1,), generator=gen,
                                         device=dev) + 0.5) * 1e-2
                     res = []
                     for od in (torch.bfloat16, torch.float32):
+                        before = im.launches[name]
                         got = im.int8_matmul(x, q, scale, w_transposed=t, out_dtype=od)
                         again = im.int8_matmul(x, q, scale, w_transposed=t, out_dtype=od)
                         ref = im.int8_matmul_reference(x, q, scale, w_transposed=t,
                                                        out_dtype=od)
                         torch.cuda.synchronize()
+                        if im.launches[name] != before + 2:
+                            raise AssertionError(f"{preset} {wname} M={M}: not launched on "
+                                                 f"{name}: {im.launches}")
                         if not torch.equal(got, again):
                             raise AssertionError(f"{name} {preset} {wname} M={M}: two calls "
                                                  "differ")
@@ -1387,11 +1414,14 @@ def check_int8_kernels(dev, gen):
                                                  "its limit")
                         max_err[name] = max(max_err[name], err)
                         res.append(f"{str(od)[6:]} {err:.2e} ({share:.2f})")
-                    tile, splits, per = im.plan(M, N, K, torch.cuda.get_device_properties(
-                        dev).multi_processor_count)
+                    if name == "int8_mm_nt_decode":
+                        nt, kb, blocks = im.int8_decode_plan(N, K, sms)
+                        grid = f"{nt} tiles x {kb} k boxes on {blocks} blocks"
+                    else:
+                        tile, splits, _ = im.plan(M, N, K, sms)
+                        grid = f"tile {tile} splits {splits}"
                     print(f"int8-check {name} {preset} {wname} K={K} N={N} M={M} "
-                          f"scale={kind} tile {tile} splits {splits}: {', '.join(res)}; "
-                          f"deterministic")
+                          f"scale={kind} {grid}: {', '.join(res)}; deterministic")
     im.launches.update(saved)          # checking launches are not path launches
     return max_err
 
@@ -1515,7 +1545,9 @@ def int8_serving(dev, card, prompts, preset="gpt2-1.3b", new=32):
     im.reset_launches()
     gen_out = engine.generate(np.stack(gp), max_new_tokens=16).cpu().numpy()[:, 64:]
     gen_launches = dict(im.launches)
-    if gen_launches != {"int8_mm_nt": 16 * 4 * c.n_layer, "int8_mm_t": 16}:
+    # one prefill of 4 x 64 rows, 15 decode steps of 4 rows, the head each time
+    if gen_launches != {"int8_mm_nt": 4 * c.n_layer, "int8_mm_nt_decode": 15 * 4 * c.n_layer,
+                        "int8_mm_t": 16}:
         raise AssertionError(f"generate launches {gen_launches}")
     sres = ServingEngine(engine=engine, config=cfg).run(
         [Request(tokens=p, uid=i, max_new_tokens=16) for i, p in enumerate(gp)])
@@ -1532,7 +1564,16 @@ def int8_serving(dev, card, prompts, preset="gpt2-1.3b", new=32):
     prof = ServingEngine(engine=engine, config=cfg)
     for i, p in enumerate(prompts[:8]):
         prof.submit(Request(tokens=p, uid=i))
-    profile_steps(prof.step, f"{preset} int8w")
+    by_name = profile_steps(prof.step, f"{preset} int8w")
+    # the int8 products' device time per decode step: the block products (decode kernel)
+    # and the tied head (int8_matmul.cu's kernel, transposed layout)
+    dec = [v for k, v in by_name.items() if "int8_decode_kernel" in k]
+    other = [v for k, v in by_name.items() if "int8_mm_kernel" in k]
+    print(f"profile {preset} int8w: int8 products' device time per decode step "
+          f"{sum(t for t, _ in dec + other):.1f} us: int8_mm_nt_decode "
+          f"{sum(t for t, _ in dec):.1f} us ({sum(n for _, n in dec):.1f} launches), "
+          f"int8_matmul.cu {sum(t for t, _ in other):.1f} us ({sum(n for _, n in other):.1f} "
+          f"launches)")
     prof_o = ServingEngine(engine=oracle, config=cfg)
     for i, p in enumerate(prompts[:8]):
         prof_o.submit(Request(tokens=p, uid=i))
@@ -1543,28 +1584,36 @@ def int8_serving(dev, card, prompts, preset="gpt2-1.3b", new=32):
 # ------------------------------------------------------ 12. int8 timing
 def int8_timing(dev, gen, bytes_per_s):
     """Phase 12 at GPT-2 1.3B's weights, decode (M = 8) and prefill
-    (M = 512): each entry held against its plain version, then timed with
-    CUDA events (12 weights cycled, 12x the 50 MB L2 at qkv) beside its
-    bound, its plain version and two yardsticks the port never calls:
-    ``torch.matmul`` over the pre-dequantized bf16 weight (the dequantize
-    untimed; it reads twice the weight bytes) and, for the head with
-    per-channel scales, ``torch._weight_int8pack_mm``.  Returns the
-    kernels-line fields at the decode shape (int8_mm_nt: qkv_w)."""
+    (M = 512): the kernel each call routes to (``int8_mm_nt_decode`` for the
+    block weights at M = 8, the tiled ``int8_mm_nt`` at 512, ``int8_mm_t``
+    for the head) held against its plain version, then timed with CUDA
+    events (12 weights cycled, 12x the 50 MB L2 at qkv; the decode kernel
+    and, beside it, the tiled design through ``int8_matmul_tiled``, as the
+    median of three readings) beside its bound, its plain version and two
+    yardsticks the port never calls: ``torch.matmul`` over the
+    pre-dequantized bf16 weight (the dequantize untimed; it reads twice the
+    weight bytes) and, for the head with per-channel scales,
+    ``torch._weight_int8pack_mm``.  Returns the kernels-line fields at the
+    shape the main path gives each kernel: qkv at M = 8 (decode), qkv at
+    M = 512 (prefill), the head at M = 8."""
     saved = dict(im.launches)
     out = {}
     for wname, (rows, cols) in INT8_SHAPES["1.3b"].items():
         t = wname == "wte"
         K, N = (cols, rows) if t else (rows, cols)
-        name = im.KERNELS["t" if t else "nt"]
         od = torch.float32 if t else torch.bfloat16
         qs = [torch.randint(-128, 128, (rows, cols), generator=gen, device=dev,
                             dtype=torch.int8) for _ in range(L_CYCLE if not t else 2)]
         scale = (torch.rand((N if t else 1,), generator=gen, device=dev) + 0.5) * 1e-2
         deq = [(q.float() * (scale[:, None] if t else scale)).to(torch.bfloat16) for q in qs]
         for M in (8, 512):
+            name = im.KERNELS["t"] if t else im.int8_nt_kernel(M, N, K, True)
             x = (torch.randn((M, K), generator=gen, device=dev) * 0.5).to(torch.bfloat16)
             n = len(qs)
+            before = im.launches[name]
             got = im.int8_matmul(x, qs[0], scale, w_transposed=t, out_dtype=od)
+            if im.launches[name] != before + 1:
+                raise AssertionError(f"{wname} M={M}: not launched on {name}")
             ref = im.int8_matmul_reference(x, qs[0], scale, w_transposed=t, out_dtype=od)
             err, share = int8_error(got, ref)
             if not share <= 1.0:
@@ -1578,8 +1627,17 @@ def int8_timing(dev, gen, bytes_per_s):
             t_b, t_o = nbytes / bytes_per_s * 1e3, ops / PEAK_OPS["bf16"] * 1e3
             bound, by = (t_b, "bytes") if t_b >= t_o else (t_o, "operations")
             reps = 200 if M == 8 else 50
-            ms = time_ms(lambda l: im.int8_matmul(x, qs[l % n], scale, w_transposed=t,
-                                                  out_dtype=od), reps)
+            readings = sorted(time_ms(lambda l: im.int8_matmul(
+                x, qs[l % n], scale, w_transposed=t, out_dtype=od), reps)
+                for _ in range(3 if name == "int8_mm_nt_decode" else 1))
+            ms = readings[len(readings) // 2]
+            tiled = ""
+            if name == "int8_mm_nt_decode":
+                tiled_ms = sorted(time_ms(lambda l: im.int8_matmul_tiled(x, qs[l % n], scale,
+                                                                         out_dtype=od), reps)
+                                  for _ in range(3))
+                tiled = (f"; the tiled int8_mm_nt {tiled_ms[1] * 1e3:.2f} us "
+                         f"[{tiled_ms[0] * 1e3:.2f}, {tiled_ms[2] * 1e3:.2f}]")
             plain_ms = time_ms(lambda l: im.int8_matmul_reference(
                 x, qs[l % n], scale, w_transposed=t, out_dtype=od), 10, warmup=2)
             lib_ms = time_ms(lambda l: torch.matmul(x, deq[l % n].t() if t else deq[l % n]),
@@ -1596,14 +1654,19 @@ def int8_timing(dev, gen, bytes_per_s):
                                  f"diff {pk_err:.2e})")
                 except (RuntimeError, AttributeError, NotImplementedError) as e:
                     pack_note = f"not available ({str(e).splitlines()[0][:120]})"
-            tile, splits, per = im.plan(M, N, K, torch.cuda.get_device_properties(
-                dev).multi_processor_count)
-            print(f"timing {name} 1.3b {wname} M={M} K={K} N={N} out={str(od)[6:]} (tile "
-                  f"{tile}, {splits} splits of {per} k tiles): {ms * 1e3:.2f} us, bound "
-                  f"{bound * 1e3:.2f} us ({by}; {nbytes / 1e6:.2f} MB, {ops / 1e9:.2f} "
-                  f"GFLOP), plain {plain_ms * 1e3:.2f} us, cuBLAS bf16 over the dequantized "
-                  f"weight {lib_ms * 1e3:.2f} us; _weight_int8pack_mm: {pack_note}")
-            if M == 8 and wname in ("qkv_w", "wte"):
+            sms = torch.cuda.get_device_properties(dev).multi_processor_count
+            if name == "int8_mm_nt_decode":
+                grid = "{} tiles x {} k boxes on {} blocks".format(*im.int8_decode_plan(N, K, sms))
+            else:
+                grid = "tile {}, {} splits of {} k tiles".format(*im.plan(M, N, K, sms))
+            spread = (f" [{readings[0] * 1e3:.2f}, {readings[-1] * 1e3:.2f}]"
+                      if len(readings) > 1 else "")
+            print(f"timing {name} 1.3b {wname} M={M} K={K} N={N} out={str(od)[6:]} ({grid}): "
+                  f"{ms * 1e3:.2f} us{spread}, bound {bound * 1e3:.2f} us ({by}; "
+                  f"{nbytes / 1e6:.2f} MB, {ops / 1e9:.2f} GFLOP, {nbytes / ms / 1e9:.2f} TB/s), "
+                  f"plain {plain_ms * 1e3:.2f} us, cuBLAS bf16 over the dequantized weight "
+                  f"{lib_ms * 1e3:.2f} us{tiled}; _weight_int8pack_mm: {pack_note}")
+            if wname in ("qkv_w", "wte") and (M == 8) != (name == "int8_mm_nt"):
                 out[name] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                              "bound_ms": bound, "bound_by": by, "library_ms": lib_ms,
                              "int8pack_ms": pack_ms}
@@ -2115,7 +2178,7 @@ def main():
     ti = int8_timing(dev, gen, bw)
     for name in im.KERNELS.values():
         fields = {k: v for k, v in ti[name].items() if k != "int8pack_ms"}
-        kernels.append({"name": name, "route": "cuda", "source": INT8_SOURCE,
+        kernels.append({"name": name, "route": "cuda", "source": INT8_SOURCES[name],
                         "replaces": REPLACES[name], "launches": int8_launches[name], **fields})
     torch.cuda.empty_cache()
 

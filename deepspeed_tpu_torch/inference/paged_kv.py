@@ -29,6 +29,7 @@ import torch
 
 from ..runtime.comm.quantized import (dequantize_blockwise, pick_block,
                                       quantize_blockwise)
+from ..utils.device import resolve_device
 
 SCRATCH_BLOCK = 0     # reserved; never allocated (see module docstring)
 
@@ -122,11 +123,14 @@ class BlockAllocator:
 # ------------------------------------------------------------- device pool
 def init_pool(n_layer: int, num_blocks: int, block_size: int, n_head: int,
               head_dim: int, dtype=torch.bfloat16, kv_bits: int = 16,
-              quant_block: int = 64, device="cpu"):
+              quant_block: int = 64, device=None):
     """Zeroed pool (see module docstring for the layout).  ``kv_bits=8``
-    stores int8 payloads + fp32 scales over the head dim."""
+    stores int8 payloads + fp32 scales over the head dim.  ``device``
+    defaults to the CUDA card and raises without one (``resolve_device``);
+    pass ``device="cpu"`` for the plain path."""
     if kv_bits not in (8, 16):
         raise ValueError(f"kv_bits must be 8 or 16, got {kv_bits}")
+    device = resolve_device(device)
     shape = (n_layer, num_blocks, block_size, n_head, head_dim)
     if kv_bits == 16:
         return {"k": torch.zeros(shape, dtype=dtype, device=device),

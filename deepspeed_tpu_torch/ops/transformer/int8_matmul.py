@@ -1,28 +1,34 @@
 """Weight-int8 matmul: bf16 activations times int8 weights, streaming int8.
 
 Counterpart of ``deepspeed_tpu/ops/transformer/int8_matmul.py``.  The two
-Pallas kernels there become one hand-written CUDA kernel for Hopper in
-``deepspeed_tpu_torch/csrc/int8_matmul.cu`` with two entries:
+Pallas kernels there become hand-written CUDA kernels for Hopper:
 
-- ``int8_mm_nt`` (for ``_kernel_nt``): ``q`` is (K, N), N contiguous --
-  every block weight of GPT-2;
-- ``int8_mm_t`` (for ``_kernel_t``): ``q`` is (N, K), K contiguous --
-  the tied head.
+- ``int8_mm_nt_decode`` (for ``_kernel_nt`` at M <= 16), in
+  ``deepspeed_tpu_torch/csrc/int8_matmul_decode_sm90.cu``: ``q`` is
+  (K, N), N contiguous -- every block weight of GPT-2 at decode; TMA
+  streams the weight into an mbarrier ring and the consumer warps widen
+  it in registers;
+- ``int8_mm_nt`` (for ``_kernel_nt``, every other (K, N) case: M > 16,
+  N % 16 != 0, a ``q`` that is not 16-byte aligned) and ``int8_mm_t``
+  (for ``_kernel_t``: ``q`` is (N, K), K contiguous -- the tied head), in
+  ``deepspeed_tpu_torch/csrc/int8_matmul.cu``.
 
-Both compute what both branches of the JAX ``int8_matmul`` compute:
+All compute what both branches of the JAX ``int8_matmul`` compute:
 ``bf16(x) @ bf16(q)`` with the products summed in fp32, times the scale
 (per tensor, or per output channel with ``w_transposed``), cast to
 ``out_dtype`` last.  The widened weight never reaches device memory.
 
-:func:`int8_matmul` launches the kernel for CUDA tensors, at any M, and
-takes the plain version :func:`int8_matmul_reference` only for CPU
-tensors.  Differences from the JAX module: ``use_pallas`` and
-``block_n`` are accepted for signature parity and have no effect (the
-JAX default ``use_pallas=False`` sends every call to XLA's fused
-convert-in-dot; on the GPU no library call streams int8 into a bf16
-product, so the kernel serves both branches); outputs other than bf16
-and fp32 are computed in fp32 and cast (one rounding either way); a
-launch adds one to ``launches[<kernel name>]``.
+:func:`int8_matmul` launches the kernel that :func:`int8_nt_kernel` names
+(or ``int8_mm_t``) for CUDA tensors, at any M, and takes the plain version
+:func:`int8_matmul_reference` only for CPU tensors;
+:func:`int8_matmul_tiled` always takes the ``int8_matmul.cu`` kernels.
+Differences from the JAX module: ``use_pallas`` and ``block_n`` are
+accepted for signature parity and have no effect (the JAX default
+``use_pallas=False`` sends every call to XLA's fused convert-in-dot; on
+the GPU no library call streams int8 into a bf16 product, so the kernels
+serve both branches); outputs other than bf16 and fp32 are computed in
+fp32 and cast (one rounding either way); a launch adds one to
+``launches[<kernel name>]``.
 """
 
 import ctypes
@@ -30,7 +36,10 @@ import math
 
 import torch
 
-KERNELS = {"nt": "int8_mm_nt", "t": "int8_mm_t"}
+KERNELS = {"nt": "int8_mm_nt", "t": "int8_mm_t", "decode": "int8_mm_nt_decode"}
+# the csrc/<library>.cu each kernel is built from
+LIBRARIES = {"int8_mm_nt": "int8_matmul", "int8_mm_t": "int8_matmul",
+              "int8_mm_nt_decode": "int8_matmul_decode_sm90"}
 # launches per kernel since the last reset_launches(); only kernel launches count
 launches = {name: 0 for name in KERNELS.values()}
 
@@ -39,6 +48,11 @@ _OUT_CODES = {torch.float32: 0, torch.bfloat16: 1}
 TILES = {0: (16, 64, 128),     # M <= 16: decode
          1: (64, 128, 64)}     # larger M: prefill
 _counters = {}                 # (device, stream) -> zeroed int32 split-K tile counters
+# int8_mm_nt_decode (its source's kBN, kBK, kConsumers): weight columns and rows
+# of a TMA box (8 KB), the consumer threads (one warp per 32 columns)
+DECODE_BN, DECODE_BK = 128, 64
+DECODE_THREADS = 128
+DECODE_MAX_M = 16
 
 
 def reset_launches():
@@ -101,7 +115,74 @@ def int8_matmul(x, q, scale, *, w_transposed=False, block_n=512,
     if x.device.type == "cpu":
         return int8_matmul_reference(x, q, scale, w_transposed=w_transposed,
                                      out_dtype=out_dtype)
-    return _launch(x, q, scale, w_transposed, out_dtype)
+    return _launch(x, q, scale, w_transposed, out_dtype, routed=True)
+
+
+def int8_matmul_tiled(x, q, scale, *, w_transposed=False, out_dtype=None):
+    """:func:`int8_matmul` through the ``int8_matmul.cu`` kernels
+    (``int8_mm_nt`` / ``int8_mm_t``) whatever M is, for CUDA tensors; the
+    plain version for CPU tensors."""
+    out_dtype = out_dtype or x.dtype
+    if x.device.type == "cpu":
+        return int8_matmul_reference(x, q, scale, w_transposed=w_transposed,
+                                     out_dtype=out_dtype)
+    return _launch(x, q, scale, w_transposed, out_dtype, routed=False)
+
+
+def int8_nt_kernel(M, N, K, q_aligned):
+    """The kernel an (M, K) x (K, N) product takes on the card:
+    ``int8_mm_nt_decode`` for 1 <= M <= 16 with K >= 1, N % 16 == 0 and
+    ``q`` 16-byte aligned (the TMA map's row stride and base) and fewer than
+    2^21 boxes of 128 x 64 (the kernel's 32-bit box arithmetic), else the
+    tiled ``int8_mm_nt``.  Decided before any launch, never by a failure."""
+    boxes = -(-N // DECODE_BN) * -(-K // DECODE_BK)
+    if (1 <= M <= DECODE_MAX_M and K >= 1 and N > 0 and N % 16 == 0 and q_aligned
+            and boxes < 2 ** 21):
+        return KERNELS["decode"]
+    return KERNELS["nt"]
+
+
+def int8_decode_plan(N, K, sms):
+    """``(column tiles, k boxes per tile, blocks)`` of ``int8_mm_nt_decode``
+    on a card of ``sms`` SMs: 128 x 64 boxes, a persistent grid of one
+    block per SM, never more blocks than boxes."""
+    nt, kb = -(-N // DECODE_BN), -(-K // DECODE_BK)
+    return nt, kb, min(nt * kb, sms)
+
+
+def int8_decode_block_of(i, W, G):
+    """The block whose range holds box ``i`` (the kernel's ``block_of``):
+    the largest ``b`` with ``b W // G <= i``."""
+    return ((i + 1) * G + W - 1) // W - 1
+
+
+def int8_decode_blocks(N, K, blocks):
+    """``int8_mm_nt_decode``'s schedule, as the kernel computes it: the
+    boxes, ordered by (column tile, k box), cut into ``blocks`` contiguous
+    ranges (block b: ``[b W // G, (b + 1) W // G)``).  Returns, per block,
+    its segments ``(tile, first k box, end k box, slot)``: ``slot`` is the
+    workspace slot of a partial (``2 b``, or ``2 b + 1`` when the tile is
+    not the block's first), None when the block holds the whole tile and
+    stores it; and, per split tile, the blocks that share it, in the order
+    the last of them to count itself in adds their partials."""
+    nt, kb = -(-N // DECODE_BN), -(-K // DECODE_BK)
+    W, G = nt * kb, blocks
+    per_block, shared = [], {}
+    for b in range(G):
+        lo, hi = b * W // G, (b + 1) * W // G
+        segs, i = [], lo
+        while i < hi:
+            tile, end = i // kb, min(hi, (i // kb + 1) * kb)
+            bf = int8_decode_block_of(tile * kb, W, G)
+            bl = int8_decode_block_of(tile * kb + kb - 1, W, G)
+            slot = None
+            if bf != bl:
+                slot = 2 * b + (tile != lo // kb)
+                shared[tile] = list(range(bf, bl + 1))
+            segs.append((tile, i - tile * kb, end - tile * kb, slot))
+            i = end
+        per_block.append(segs)
+    return per_block, shared
 
 
 def plan(M, N, K, sms):
@@ -132,7 +213,7 @@ def _tile_counters(device, stream, n):
     return buf
 
 
-def _launch(x, q, scale, w_transposed, out_dtype):
+def _launch(x, q, scale, w_transposed, out_dtype, routed):
     lead, M, N, K = _shapes(x, q, w_transposed)
     dev = x.device
     if q.device != dev:
@@ -146,7 +227,11 @@ def _launch(x, q, scale, w_transposed, out_dtype):
     if M == 0 or N == 0:
         return out.to(out_dtype).reshape(*lead, N)
     name = KERNELS["t" if w_transposed else "nt"]
+    if routed and not w_transposed:
+        name = int8_nt_kernel(M, N, K, q.data_ptr() % 16 == 0)
     fn = _entry(name)                   # builds the library, or raises
+    if name == KERNELS["decode"]:
+        return _launch_decode(fn, x2, q, scale, out, lead, M, N, K, out_dtype)
     tile, splits, per = plan(M, N, K, _sm_count(dev))
     BM, BN, _ = TILES[tile]
     tiles = -(-M // BM) * -(-N // BN)
@@ -172,6 +257,32 @@ def _launch(x, q, scale, w_transposed, out_dtype):
     return out.reshape(*lead, N)
 
 
+def _launch_decode(fn, x2, q, scale, out, lead, M, N, K, out_dtype):
+    dev = x2.device
+    nt, _, blocks = int8_decode_plan(N, K, _sm_count(dev))
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    ws = torch.empty(2 * blocks * DECODE_THREADS * (8 if M <= 8 else 16), dtype=torch.float32,
+                     device=dev)
+    counters = _tile_counters(dev, stream, nt)
+    if K % 8 or x2.data_ptr() % 16:
+        # x's TMA map needs a 16-byte base and row stride: a padded copy (at most 16 x K)
+        xp = torch.empty((M, -(-K // 8) * 8), dtype=torch.bfloat16, device=dev)
+        xp[:, :K] = x2
+        x2 = xp
+    rc = fn(x2.data_ptr(), q.data_ptr(), scale.data_ptr(), out.data_ptr(),
+            _OUT_CODES[out.dtype], ws.data_ptr(), counters.data_ptr(), M, N, K, x2.shape[1],
+            blocks, stream)
+    name = KERNELS["decode"]
+    if rc != 0:
+        raise RuntimeError(f"{name} launch failed with code {rc}" + {
+            -1: " (unsupported configuration)", -2: " (tensor map not encodable)",
+            -3: " (the CUDA driver has no cuTensorMapEncodeTiled)"}.get(rc, ""))
+    launches[name] += 1
+    if out.dtype != out_dtype:
+        out = out.to(out_dtype)
+    return out.reshape(*lead, N)
+
+
 _sms = {}
 
 
@@ -184,9 +295,12 @@ def _sm_count(device):
 
 def _entry(name):
     from ..op_builder import cuda as builder
-    fn = getattr(builder.load("int8_matmul"), name)
+    fn = getattr(builder.load(LIBRARIES[name]), name)
     if fn.argtypes is None:
         v, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [v, v, v, i, v, i, v, v, i, i, i, i, i, i, i, i, v]
+        if name == KERNELS["decode"]:
+            fn.argtypes = [v, v, v, v, i, v, v, i, i, i, i, i, v]
+        else:
+            fn.argtypes = [v, v, v, i, v, i, v, v, i, i, i, i, i, i, i, i, v]
         fn.restype = ctypes.c_int
     return fn

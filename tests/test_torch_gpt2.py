@@ -96,7 +96,7 @@ def test_decode_step_paged_matches_jax(tiny, impl, n_window, kv_bits):
         jnp.arange(nb, dtype=jnp.int32), jnp.asarray(k), jnp.asarray(v))
     tpool = tpk.write_prefill(
         tpk.init_pool(c.n_layer, nb, BS, c.n_head, c.head_dim, torch.float32,
-                      kv_bits=kv_bits, quant_block=16),
+                      kv_bits=kv_bits, quant_block=16, device="cpu"),
         torch.arange(nb), torch.from_numpy(k), torch.from_numpy(v))
     jmodel.config.paged_attention_impl = impl
     tmodel.config.paged_attention_impl = impl
@@ -132,7 +132,7 @@ def test_decode_step_clamps_positions_past_max_seq(tiny):
     tmodel.config.paged_attention_impl = "gather"
     jpool = jpk.init_pool(c.n_layer, nb, BS, c.n_head, c.head_dim, jnp.float32)
     tpool = tpk.init_pool(c.n_layer, nb, BS, c.n_head, c.head_dim,
-                          torch.float32)
+                          torch.float32, device="cpu")
     jlog, _ = jax.jit(jmodel.decode_step_paged)(
         jparams, jnp.asarray(toks, jnp.int32), jpool, jnp.asarray(tables),
         jnp.asarray(lengths))

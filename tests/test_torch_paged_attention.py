@@ -54,7 +54,7 @@ def _pools(seed, kv_bits):
         jnp.arange(NB, dtype=jnp.int32), jnp.asarray(k), jnp.asarray(v))
     tpool = tpk.write_prefill(
         tpk.init_pool(L, NB, BS, H, HD, torch.float32, kv_bits=kv_bits,
-                      quant_block=8),
+                      quant_block=8, device="cpu"),
         torch.arange(NB), torch.from_numpy(k), torch.from_numpy(v))
     return jpool, tpool
 
@@ -157,13 +157,26 @@ def test_pool_helpers_match_jax():
         j = jpk.init_pool(L, NB, BS, H, HD, jnp.float32, kv_bits=kv_bits,
                           quant_block=8)
         t = tpk.init_pool(L, NB, BS, H, HD, torch.float32, kv_bits=kv_bits,
-                          quant_block=8)
+                          quant_block=8, device="cpu")
         assert tpk.is_quantized_pool(t) == jpk.is_quantized_pool(j)
         assert tpk.pool_quant_block(t) == jpk.pool_quant_block(j)
         assert tpk.pool_bytes(t) == jpk.pool_bytes(j)
         assert tpk.capacity_tokens(t) == jpk.capacity_tokens(j)
     for n in (1, 7, 8, 9, 64):
         assert tpk.blocks_needed(n, 8) == jpk.blocks_needed(n, 8)
+
+
+def test_init_pool_defaults_to_the_card_and_raises_without_one(monkeypatch):
+    """``init_pool`` with no device runs on the card, and with no card it
+    raises instead of building the pool on the CPU; ``device="cpu"`` still
+    builds it there."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tpk.init_pool(1, 2, 4, 1, 8)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tpk.init_pool(1, 2, 4, 1, 8, kv_bits=8, quant_block=8)
+    pool = tpk.init_pool(1, 2, 4, 1, 8, device="cpu")
+    assert pool["k"].device.type == "cpu" and pool["k"].shape == (1, 2, 4, 1, 8)
 
 
 def test_wrapper_checks_shapes_and_modes():
