@@ -9,9 +9,9 @@ JAX package ``deepspeed_tpu``):
 1. setup: the card's name and power limit (``nvidia-smi``), the torch and
    CUDA versions, and the build of the CUDA kernels from ``csrc/`` (one
    ``nvcc`` per source, started together) with its time and ptxas
-   register/spill summary; ``flash_fwd_sm90``'s and ``int8_mm_nt_decode``'s
-   libraries (their build seconds, registers and spills per instance) must
-   build with no spill;
+   register/spill summary; ``flash_fwd_sm90``'s, ``int8_mm_nt_decode``'s and
+   ``int8_mm_nt_prefill``'s libraries (their build seconds, registers and
+   spills per instance) must build with no spill;
 2. kernels vs plain: ``paged_attention_online`` and ``paged_attention_exact``
    against ``paged_attention_reference`` at the serving shape (8 slots,
    12 heads, head dim 64, block 16, 64 blocks per slot), lengths
@@ -100,33 +100,38 @@ JAX package ``deepspeed_tpu``):
    layout-and-padding mask, forward and forward+backward.
 
 10. int8 kernels vs plain: ``int8_mm_nt_decode`` (the block weights at
-    M <= 16), the tiled ``int8_mm_nt`` (M > 16) and ``int8_mm_t`` (the head)
+    M <= 16), ``int8_mm_nt_prefill`` (M > 16) and ``int8_mm_t`` (the head)
     against ``int8_matmul_reference`` at the GPT-2 125M and 1.3B weight
     shapes (qkv, proj, fc, fc_proj; the tied head transposed, N = 50257), M
     in {1, 8, 16, 17, 64, 512}, per-tensor scales (and per-channel for the
-    head), bf16 and fp32 outputs, each from the kernel its route names:
-    fp32 within d = 1e-5 of the largest |value| + 1e-6, bf16 within one bf16
-    ulp of each value + d, and two calls bit-identical;
+    head), bf16 and fp32 outputs, each from the kernel its route names, and
+    the tiled ``int8_mm_nt`` (through ``int8_matmul_tiled``) at every
+    M > 16 block case: fp32 within d = 1e-5 of the largest |value| + 1e-6,
+    bf16 within one bf16 ulp of each value + d, and two calls bit-identical;
 11. int8 serving: GPT-2 1.3B at published widths (24 layers, 2048 wide, 32
     heads, vocab 50257), weights drawn on the card from a seeded generator
     with ``init_numpy``'s distributions, through
     ``deepspeed_tpu_torch.init_inference(model, params=..., dtype=torch.int8)``
     -> ``ServingEngine(engine=...)`` with phase 3's traffic: every outcome OK,
     every block recycled, ``int8_mm_nt_decode`` launched decode steps x 96
-    times, ``int8_mm_nt`` prefills x 96 and ``int8_mm_t`` (decode steps +
-    prefills) times, the int8
+    times, ``int8_mm_nt_prefill`` prefills x 96, the tiled ``int8_mm_nt``
+    never and ``int8_mm_t`` (decode steps + prefills) times, the int8
     tree at most 0.55x the bf16 tree's bytes; the oracle serves the same
     int8 values dequantized to bf16: its greedy choice on the int8 streams'
     contexts agrees on at least 0.9 of the tokens, one decode step's logits
     within 0.25; ``InferenceEngine.generate`` at int8 (B=4, T=64, +16)
-    against the serving streams; a ``torch.profiler`` breakdown of a decode
-    step of each, with the int8 products' device time per step;
+    against the serving streams (the same launch counts); a
+    ``torch.profiler`` breakdown of a decode step of each, with the int8
+    products' device time per step, and of a prefill of 272 tokens (the
+    mean prompt), with the int8 products' device time per prefill;
 12. the int8 kernels at 1.3B's weights, decode (M = 8) and prefill (M =
-    512): each held against its plain version, then timed beside its bound,
-    its plain version, ``torch.matmul`` over the dequantized bf16 weight and
-    (the head) ``torch._weight_int8pack_mm``, which the port never calls;
-    at decode ``int8_mm_nt_decode`` beside the tiled ``int8_mm_nt``
-    (through ``int8_matmul_tiled``), median of three readings each;
+    272 and 512): each held against its plain version, then timed beside its
+    bound, its plain version, ``torch.matmul`` over the dequantized bf16
+    weight and (the head) ``torch._weight_int8pack_mm``, which the port
+    never calls; the block weights' kernel (``int8_mm_nt_decode`` at
+    decode, ``int8_mm_nt_prefill`` at prefill) beside the tiled
+    ``int8_mm_nt`` (through ``int8_matmul_tiled``: the earlier design),
+    median of three readings each;
 13. banded and merged-row kernels vs plain: ``flash_fwd_banded`` and
     ``flash_fwd_merged`` against ``flash_attention_reference_fwd`` over
     their schedules (O and lse, phase 2's limits) at B=2,
@@ -214,10 +219,12 @@ REPLACES = {"paged_attention_online":
             "flash_fwd_merged": f"{FLASH_REF}:161",      # use_merge (and _fwd_kernel_dma 317)
             "flash_bwd_dkdv_lut": f"{FLASH_REF}:617",
             "flash_bwd_dq_lut": f"{FLASH_REF}:691",
-            "int8_mm_nt": "deepspeed_tpu/ops/transformer/int8_matmul.py:45",     # M > 16
+            "int8_mm_nt": "deepspeed_tpu/ops/transformer/int8_matmul.py:45",     # the rest
             "int8_mm_nt_decode": "deepspeed_tpu/ops/transformer/int8_matmul.py:45",  # M <= 16
+            "int8_mm_nt_prefill": "deepspeed_tpu/ops/transformer/int8_matmul.py:45",  # M > 16
             "int8_mm_t": "deepspeed_tpu/ops/transformer/int8_matmul.py:53"}
 INT8_DECODE_LIB = im.LIBRARIES["int8_mm_nt_decode"]
+INT8_PREFILL_LIB = im.LIBRARIES["int8_mm_nt_prefill"]
 INT8_SOURCES = {name: f"deepspeed_tpu_torch/csrc/{lib}.cu" for name, lib in im.LIBRARIES.items()}
 SM90_LIB = fa.ENTRIES["flash_fwd_sm90"][0]
 SM90_DEADLINE_S = 10.0   # the first flash_fwd_sm90 launch must complete within this
@@ -327,13 +334,14 @@ def setup():
         for kname, regs, _, spill in sm90))
     if not sm90 or any(spill for *_, spill in sm90):
         raise AssertionError(f"{SM90_LIB}: no kernel built, or ptxas spilled registers: {sm90}")
-    dec = ptxas_summary(builder.build_log[INT8_DECODE_LIB]["ptxas"])
-    print(f"{INT8_DECODE_LIB}.cu: built in {builder.build_log[INT8_DECODE_LIB]['seconds']:.2f} s; "
-          + "; ".join(f"{kname[kname.find('int8_decode_kernel'):]} {regs} registers, {spill} "
-                      "spill bytes" for kname, regs, _, spill in dec))
-    if not dec or any(spill for *_, spill in dec):
-        raise AssertionError(f"{INT8_DECODE_LIB}: no kernel built, or ptxas spilled registers: "
-                             f"{dec}")
+    for lib, kernel in ((INT8_DECODE_LIB, "int8_decode_kernel"),
+                        (INT8_PREFILL_LIB, "int8_prefill_kernel")):
+        rows = ptxas_summary(builder.build_log[lib]["ptxas"])
+        print(f"{lib}.cu: built in {builder.build_log[lib]['seconds']:.2f} s; " + "; ".join(
+            f"{kname[kname.find(kernel):]} {regs} registers, {spill} spill bytes"
+            for kname, regs, _, spill in rows))
+        if not rows or any(spill for *_, spill in rows):
+            raise AssertionError(f"{lib}: no kernel built, or ptxas spilled registers: {rows}")
     return card
 
 
@@ -517,9 +525,10 @@ def serve(engine, prompts, new, tag, kv_bits, mode):
     """Phase 3 (and 11) run: serve ``prompts`` greedily with counts reset
     just before and read just after; checks outcomes, tokens, recycling,
     paged-attention launches == decode steps x layers and, for an int8
-    engine, ``int8_mm_nt_decode`` == steps x 4 x layers, ``int8_mm_nt`` ==
-    prefills x 4 x layers and ``int8_mm_t`` == steps + prefills (all 0 for a
-    float engine).  Returns (server, paged launches, tokens)."""
+    engine, ``int8_mm_nt_decode`` == steps x 4 x layers,
+    ``int8_mm_nt_prefill`` == prefills x 4 x layers, the tiled ``int8_mm_nt``
+    0 and ``int8_mm_t`` == steps + prefills (all 0 for a float engine).
+    Returns (server, paged launches, tokens)."""
     c = engine.module.config
     c.paged_attention_mode = mode
     cfg = ServingConfig(batch_slots=8, block_size=16, kv_bits=kv_bits,
@@ -547,11 +556,12 @@ def serve(engine, prompts, new, tag, kv_bits, mode):
             raise AssertionError(f"{tag}: {name} launched {n} times, "
                                  f"expected {expect} ({steps} steps)")
     # int8: the block products of each decode step (8 rows) on the decode kernel, of each
-    # prefill (a prompt of 32 rows or more) on the tiled one; the head once per step or
-    # prefill.  A float engine launches none.
+    # prefill (a prompt of 32 rows or more) on the prefill kernel, none on the tiled one;
+    # the head once per step or prefill.  A float engine launches none.
     q = int(engine.quantized)
     for name, expect in (("int8_mm_nt_decode", q * steps * 4 * c.n_layer),
-                         ("int8_mm_nt", q * len(prompts) * 4 * c.n_layer),
+                         ("int8_mm_nt_prefill", q * len(prompts) * 4 * c.n_layer),
+                         ("int8_mm_nt", 0),
                          ("int8_mm_t", q * (steps + len(prompts)))):
         if int8_counts[name] != expect:
             raise AssertionError(f"{tag}: {name} launched {int8_counts[name]} times, "
@@ -567,9 +577,10 @@ def serve(engine, prompts, new, tag, kv_bits, mode):
         raise AssertionError(f"{tag}: {srv.allocator.free_blocks} free of "
                              f"{srv.num_blocks - 1}: blocks leaked")
     int8_line = (f"int8_mm_nt_decode {int8_counts['int8_mm_nt_decode']} = steps x "
-                 f"{4 * c.n_layer}, int8_mm_nt {int8_counts['int8_mm_nt']} = prefills x "
-                 f"{4 * c.n_layer}, int8_mm_t {int8_counts['int8_mm_t']} = steps + "
-                 f"prefills; " if engine.quantized else "")
+                 f"{4 * c.n_layer}, int8_mm_nt_prefill {int8_counts['int8_mm_nt_prefill']} = "
+                 f"prefills x {4 * c.n_layer}, int8_mm_nt {int8_counts['int8_mm_nt']}, "
+                 f"int8_mm_t {int8_counts['int8_mm_t']} = steps + prefills; "
+                 if engine.quantized else "")
     print(f"serve {tag}: {len(prompts)} requests OK, {steps} decode steps, "
           f"{want} launches {counts[want]} = steps x {c.n_layer}; {int8_line}"
           f"{st['generated_tokens'] / wall:.1f} tokens/s, decode step p50 "
@@ -1371,13 +1382,14 @@ def int8_error(got, ref):
 
 
 def check_int8_kernels(dev, gen):
-    """Phase 10: the three entries against the plain version over the 125M
-    and 1.3B weight shapes (the head transposed, N = 50257), M in INT8_M
-    (``int8_mm_nt_decode`` takes the block weights at M <= 16, the tiled
-    ``int8_mm_nt`` the rest), per-tensor scales (and per-channel for the
-    head), bf16 and fp32 outputs; each output from the kernel its route
-    names, within its limit and bit-identical on a second call.  Returns
-    the max abs error per kernel."""
+    """Phase 10: the entries against the plain version over the 125M and
+    1.3B weight shapes (the head transposed, N = 50257), M in INT8_M
+    (``int8_mm_nt_decode`` takes the block weights at M <= 16,
+    ``int8_mm_nt_prefill`` the rest), per-tensor scales (and per-channel for
+    the head), bf16 and fp32 outputs; each output from the kernel its route
+    names, and at every M > 16 block case from the tiled ``int8_mm_nt``
+    through ``int8_matmul_tiled`` too; within its limit and bit-identical
+    on a second call.  Returns the max abs error per kernel."""
     max_err = {name: 0.0 for name in im.KERNELS.values()}
     saved = dict(im.launches)
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
@@ -1390,38 +1402,46 @@ def check_int8_kernels(dev, gen):
             for M in INT8_M:
                 name = im.KERNELS["t"] if t else im.int8_nt_kernel(M, N, K, True)
                 x = (torch.randn((M, K), generator=gen, device=dev) * 0.5).to(torch.bfloat16)
+                routes = [(name, im.int8_matmul)]
+                if name == "int8_mm_nt_prefill":
+                    routes.append((im.KERNELS["nt"], im.int8_matmul_tiled))
                 for kind in (("tensor", "channel") if t else ("tensor",)):
                     scale = (torch.rand((N if kind == "channel" else 1,), generator=gen,
                                         device=dev) + 0.5) * 1e-2
-                    res = []
-                    for od in (torch.bfloat16, torch.float32):
-                        before = im.launches[name]
-                        got = im.int8_matmul(x, q, scale, w_transposed=t, out_dtype=od)
-                        again = im.int8_matmul(x, q, scale, w_transposed=t, out_dtype=od)
-                        ref = im.int8_matmul_reference(x, q, scale, w_transposed=t,
-                                                       out_dtype=od)
-                        torch.cuda.synchronize()
-                        if im.launches[name] != before + 2:
-                            raise AssertionError(f"{preset} {wname} M={M}: not launched on "
-                                                 f"{name}: {im.launches}")
-                        if not torch.equal(got, again):
-                            raise AssertionError(f"{name} {preset} {wname} M={M}: two calls "
-                                                 "differ")
-                        err, share = int8_error(got, ref)
-                        if not share <= 1.0:
-                            raise AssertionError(f"{name} {preset} {wname} M={M} {kind} "
-                                                 f"{od}: error {err:.3e} is {share:.2f}x "
-                                                 "its limit")
-                        max_err[name] = max(max_err[name], err)
-                        res.append(f"{str(od)[6:]} {err:.2e} ({share:.2f})")
-                    if name == "int8_mm_nt_decode":
-                        nt, kb, blocks = im.int8_decode_plan(N, K, sms)
-                        grid = f"{nt} tiles x {kb} k boxes on {blocks} blocks"
-                    else:
-                        tile, splits, _ = im.plan(M, N, K, sms)
-                        grid = f"tile {tile} splits {splits}"
-                    print(f"int8-check {name} {preset} {wname} K={K} N={N} M={M} "
-                          f"scale={kind} {grid}: {', '.join(res)}; deterministic")
+                    for kname, fn in routes:
+                        res = []
+                        for od in (torch.bfloat16, torch.float32):
+                            before = im.launches[kname]
+                            got = fn(x, q, scale, w_transposed=t, out_dtype=od)
+                            again = fn(x, q, scale, w_transposed=t, out_dtype=od)
+                            ref = im.int8_matmul_reference(x, q, scale, w_transposed=t,
+                                                           out_dtype=od)
+                            torch.cuda.synchronize()
+                            if im.launches[kname] != before + 2:
+                                raise AssertionError(f"{preset} {wname} M={M}: not launched on "
+                                                     f"{kname}: {im.launches}")
+                            if not torch.equal(got, again):
+                                raise AssertionError(f"{kname} {preset} {wname} M={M}: two "
+                                                     "calls differ")
+                            err, share = int8_error(got, ref)
+                            if not share <= 1.0:
+                                raise AssertionError(f"{kname} {preset} {wname} M={M} {kind} "
+                                                     f"{od}: error {err:.3e} is {share:.2f}x "
+                                                     "its limit")
+                            max_err[kname] = max(max_err[kname], err)
+                            res.append(f"{str(od)[6:]} {err:.2e} ({share:.2f})")
+                        if kname == "int8_mm_nt_decode":
+                            nt, kb, blocks = im.int8_decode_plan(N, K, sms)
+                            grid = f"{nt} tiles x {kb} k boxes on {blocks} blocks"
+                        elif kname == "int8_mm_nt_prefill":
+                            mt, nt, kb, splits, per = im.int8_prefill_plan(M, N, K, sms)
+                            grid = (f"{mt} x {nt} tiles x {splits} splits of {per} k boxes "
+                                    f"(of {kb})")
+                        else:
+                            tile, splits, _ = im.plan(M, N, K, sms)
+                            grid = f"tile {tile} splits {splits}"
+                        print(f"int8-check {kname} {preset} {wname} K={K} N={N} M={M} "
+                              f"scale={kind} {grid}: {', '.join(res)}; deterministic")
     im.launches.update(saved)          # checking launches are not path launches
     return max_err
 
@@ -1435,6 +1455,7 @@ def check_int8_kernels(dev, gen):
 INT8_LOGIT_TOL = 0.25
 INT8_AGREE_MIN = 0.9          # teacher-forced greedy agreement with the oracle
 INT8_BYTES_MAX = 0.55         # int8 tree bytes over the bf16 tree's
+INT8_PREFILL_T = 272          # the profiled prefill: about phase 3's mean prompt (274.1 tokens)
 
 
 def draw_gpt2_params(model, dev, seed):
@@ -1546,8 +1567,8 @@ def int8_serving(dev, card, prompts, preset="gpt2-1.3b", new=32):
     gen_out = engine.generate(np.stack(gp), max_new_tokens=16).cpu().numpy()[:, 64:]
     gen_launches = dict(im.launches)
     # one prefill of 4 x 64 rows, 15 decode steps of 4 rows, the head each time
-    if gen_launches != {"int8_mm_nt": 4 * c.n_layer, "int8_mm_nt_decode": 15 * 4 * c.n_layer,
-                        "int8_mm_t": 16}:
+    if gen_launches != {"int8_mm_nt_prefill": 4 * c.n_layer, "int8_mm_nt": 0,
+                        "int8_mm_nt_decode": 15 * 4 * c.n_layer, "int8_mm_t": 16}:
         raise AssertionError(f"generate launches {gen_launches}")
     sres = ServingEngine(engine=engine, config=cfg).run(
         [Request(tokens=p, uid=i, max_new_tokens=16) for i, p in enumerate(gp)])
@@ -1567,13 +1588,20 @@ def int8_serving(dev, card, prompts, preset="gpt2-1.3b", new=32):
     by_name = profile_steps(prof.step, f"{preset} int8w")
     # the int8 products' device time per decode step: the block products (decode kernel)
     # and the tied head (int8_matmul.cu's kernel, transposed layout)
-    dec = [v for k, v in by_name.items() if "int8_decode_kernel" in k]
-    other = [v for k, v in by_name.items() if "int8_mm_kernel" in k]
-    print(f"profile {preset} int8w: int8 products' device time per decode step "
-          f"{sum(t for t, _ in dec + other):.1f} us: int8_mm_nt_decode "
-          f"{sum(t for t, _ in dec):.1f} us ({sum(n for _, n in dec):.1f} launches), "
-          f"int8_matmul.cu {sum(t for t, _ in other):.1f} us ({sum(n for _, n in other):.1f} "
-          f"launches)")
+    int8_device_time(by_name, preset, "decode step", "int8_decode_kernel", "int8_mm_nt_decode")
+    # one prefill of the mean prompt as ServingEngine._start runs it
+    srv_p = ServingEngine(engine=engine, config=cfg)
+    T = INT8_PREFILL_T
+    toks = torch.as_tensor(np.random.default_rng(2).integers(0, c.vocab_size, (1, T)),
+                           device=dev)
+    params_p = srv_p._deq(engine.params)
+
+    def prefill():
+        with torch.no_grad():
+            srv_p.model.apply_with_cache(params_p, toks, srv_p.model.init_cache(1, T))
+
+    by_name = profile_steps(prefill, f"{preset} int8w prefill T={T}", steps=4, unit="prefill")
+    int8_device_time(by_name, preset, "prefill", "int8_prefill_kernel", "int8_mm_nt_prefill")
     prof_o = ServingEngine(engine=oracle, config=cfg)
     for i, p in enumerate(prompts[:8]):
         prof_o.submit(Request(tokens=p, uid=i))
@@ -1581,23 +1609,41 @@ def int8_serving(dev, card, prompts, preset="gpt2-1.3b", new=32):
     return launches
 
 
+def int8_device_time(by_name, preset, unit, kernel, name):
+    """The int8 products' device time per ``unit`` from a profile: the block
+    products (``kernel``) and the tied head (int8_matmul.cu's kernel,
+    transposed layout)."""
+    blk = [v for k, v in by_name.items() if kernel in k]
+    other = [v for k, v in by_name.items() if "int8_mm_kernel" in k]
+    print(f"profile {preset} int8w: int8 products' device time per {unit} "
+          f"{sum(t for t, _ in blk + other):.1f} us: {name} {sum(t for t, _ in blk):.1f} us "
+          f"({sum(n for _, n in blk):.1f} launches), int8_matmul.cu "
+          f"{sum(t for t, _ in other):.1f} us ({sum(n for _, n in other):.1f} launches)")
+
+
 # ------------------------------------------------------ 12. int8 timing
+INT8_TIMING_M = {"block": (8, 272, 512), "head": (8, 512)}
+
+
 def int8_timing(dev, gen, bytes_per_s):
-    """Phase 12 at GPT-2 1.3B's weights, decode (M = 8) and prefill
-    (M = 512): the kernel each call routes to (``int8_mm_nt_decode`` for the
-    block weights at M = 8, the tiled ``int8_mm_nt`` at 512, ``int8_mm_t``
-    for the head) held against its plain version, then timed with CUDA
-    events (12 weights cycled, 12x the 50 MB L2 at qkv; the decode kernel
-    and, beside it, the tiled design through ``int8_matmul_tiled``, as the
-    median of three readings) beside its bound, its plain version and two
-    yardsticks the port never calls: ``torch.matmul`` over the
-    pre-dequantized bf16 weight (the dequantize untimed; it reads twice the
-    weight bytes) and, for the head with per-channel scales,
-    ``torch._weight_int8pack_mm``.  Returns the kernels-line fields at the
-    shape the main path gives each kernel: qkv at M = 8 (decode), qkv at
-    M = 512 (prefill), the head at M = 8."""
+    """Phase 12 at GPT-2 1.3B's weights, decode (M = 8) and prefill (M = 272,
+    the mean prompt, and 512; the head at 8 and 512): the kernel each call
+    routes to (``int8_mm_nt_decode`` for the block weights at M = 8,
+    ``int8_mm_nt_prefill`` at 272 and 512, ``int8_mm_t`` for the head) held
+    against its plain version, then timed with CUDA events (12 weights
+    cycled, 12x the 50 MB L2 at qkv; the block weights' kernel and, beside
+    it, the tiled design (``int8_matmul.cu``, held against the plain version
+    too) through ``int8_matmul_tiled``, as the median of three readings)
+    beside its bound, its plain version and two yardsticks the port never
+    calls: ``torch.matmul`` over the pre-dequantized bf16 weight (the
+    dequantize untimed; it reads twice the weight bytes) and, for the head
+    with per-channel scales, ``torch._weight_int8pack_mm``.  Returns the
+    kernels-line fields at the shape the main path gives each kernel: qkv at
+    M = 8 (decode), qkv at M = 512 (prefill, and the tiled design there),
+    the head at M = 8."""
     saved = dict(im.launches)
     out = {}
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     for wname, (rows, cols) in INT8_SHAPES["1.3b"].items():
         t = wname == "wte"
         K, N = (cols, rows) if t else (rows, cols)
@@ -1606,7 +1652,7 @@ def int8_timing(dev, gen, bytes_per_s):
                             dtype=torch.int8) for _ in range(L_CYCLE if not t else 2)]
         scale = (torch.rand((N if t else 1,), generator=gen, device=dev) + 0.5) * 1e-2
         deq = [(q.float() * (scale[:, None] if t else scale)).to(torch.bfloat16) for q in qs]
-        for M in (8, 512):
+        for M in INT8_TIMING_M["head" if t else "block"]:
             name = im.KERNELS["t"] if t else im.int8_nt_kernel(M, N, K, True)
             x = (torch.randn((M, K), generator=gen, device=dev) * 0.5).to(torch.bfloat16)
             n = len(qs)
@@ -1629,15 +1675,21 @@ def int8_timing(dev, gen, bytes_per_s):
             reps = 200 if M == 8 else 50
             readings = sorted(time_ms(lambda l: im.int8_matmul(
                 x, qs[l % n], scale, w_transposed=t, out_dtype=od), reps)
-                for _ in range(3 if name == "int8_mm_nt_decode" else 1))
+                for _ in range(1 if t else 3))
             ms = readings[len(readings) // 2]
-            tiled = ""
-            if name == "int8_mm_nt_decode":
+            tiled, tiled_fields = "", None
+            if not t:
+                tiled_out = im.int8_matmul_tiled(x, qs[0], scale, out_dtype=od)
+                tiled_err, tiled_share = int8_error(tiled_out, ref)
+                if not tiled_share <= 1.0:
+                    raise AssertionError(f"int8_mm_nt {wname} M={M}: {tiled_err} is "
+                                         f"{tiled_share:.2f}x its limit")
                 tiled_ms = sorted(time_ms(lambda l: im.int8_matmul_tiled(x, qs[l % n], scale,
                                                                          out_dtype=od), reps)
                                   for _ in range(3))
                 tiled = (f"; the tiled int8_mm_nt {tiled_ms[1] * 1e3:.2f} us "
                          f"[{tiled_ms[0] * 1e3:.2f}, {tiled_ms[2] * 1e3:.2f}]")
+                tiled_fields = {"max_abs_err": tiled_err, "ms": tiled_ms[1]}
             plain_ms = time_ms(lambda l: im.int8_matmul_reference(
                 x, qs[l % n], scale, w_transposed=t, out_dtype=od), 10, warmup=2)
             lib_ms = time_ms(lambda l: torch.matmul(x, deq[l % n].t() if t else deq[l % n]),
@@ -1654,22 +1706,27 @@ def int8_timing(dev, gen, bytes_per_s):
                                  f"diff {pk_err:.2e})")
                 except (RuntimeError, AttributeError, NotImplementedError) as e:
                     pack_note = f"not available ({str(e).splitlines()[0][:120]})"
-            sms = torch.cuda.get_device_properties(dev).multi_processor_count
             if name == "int8_mm_nt_decode":
                 grid = "{} tiles x {} k boxes on {} blocks".format(*im.int8_decode_plan(N, K, sms))
+            elif name == "int8_mm_nt_prefill":
+                grid = "{} x {} tiles, {} k boxes in {} splits of {}".format(
+                    *im.int8_prefill_plan(M, N, K, sms))
             else:
                 grid = "tile {}, {} splits of {} k tiles".format(*im.plan(M, N, K, sms))
             spread = (f" [{readings[0] * 1e3:.2f}, {readings[-1] * 1e3:.2f}]"
                       if len(readings) > 1 else "")
             print(f"timing {name} 1.3b {wname} M={M} K={K} N={N} out={str(od)[6:]} ({grid}): "
                   f"{ms * 1e3:.2f} us{spread}, bound {bound * 1e3:.2f} us ({by}; "
-                  f"{nbytes / 1e6:.2f} MB, {ops / 1e9:.2f} GFLOP, {nbytes / ms / 1e9:.2f} TB/s), "
+                  f"{nbytes / 1e6:.2f} MB, {ops / 1e9:.2f} GFLOP, {bound / ms:.2f} of the bound), "
                   f"plain {plain_ms * 1e3:.2f} us, cuBLAS bf16 over the dequantized weight "
-                  f"{lib_ms * 1e3:.2f} us{tiled}; _weight_int8pack_mm: {pack_note}")
-            if wname in ("qkv_w", "wte") and (M == 8) != (name == "int8_mm_nt"):
-                out[name] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                             "bound_ms": bound, "bound_by": by, "library_ms": lib_ms,
-                             "int8pack_ms": pack_ms}
+                  f"{lib_ms * 1e3:.2f} us ({ms / lib_ms:.2f}x){tiled}; _weight_int8pack_mm: "
+                  f"{pack_note}")
+            fields = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
+                      "bound_by": by, "library_ms": lib_ms, "int8pack_ms": pack_ms}
+            if (wname, M) in (("qkv_w", 8), ("qkv_w", 512), ("wte", 8)):
+                out[name] = fields
+            if (wname, M) == ("qkv_w", 512):
+                out[im.KERNELS["nt"]] = {**fields, **tiled_fields}
         del qs, deq
         torch.cuda.empty_cache()
     im.launches.update(saved)          # timing launches are not path launches

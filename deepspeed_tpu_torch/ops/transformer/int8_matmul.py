@@ -8,7 +8,13 @@ Pallas kernels there become hand-written CUDA kernels for Hopper:
   (K, N), N contiguous -- every block weight of GPT-2 at decode; TMA
   streams the weight into an mbarrier ring and the consumer warps widen
   it in registers;
-- ``int8_mm_nt`` (for ``_kernel_nt``, every other (K, N) case: M > 16,
+- ``int8_mm_nt_prefill`` (for ``_kernel_nt`` at M > 16), in
+  ``deepspeed_tpu_torch/csrc/int8_matmul_prefill_sm90.cu``: the block
+  weights at prefill; TMA feeds int8 weight and bf16 x tiles into an
+  mbarrier ring, and two consumer warpgroups widen the weight in
+  registers into the A fragments of ``wgmma`` with x as its
+  shared-memory B operand;
+- ``int8_mm_nt`` (for ``_kernel_nt``, every (K, N) case neither takes:
   N % 16 != 0, a ``q`` that is not 16-byte aligned) and ``int8_mm_t``
   (for ``_kernel_t``: ``q`` is (N, K), K contiguous -- the tied head), in
   ``deepspeed_tpu_torch/csrc/int8_matmul.cu``.
@@ -36,23 +42,30 @@ import math
 
 import torch
 
-KERNELS = {"nt": "int8_mm_nt", "t": "int8_mm_t", "decode": "int8_mm_nt_decode"}
+KERNELS = {"nt": "int8_mm_nt", "t": "int8_mm_t", "decode": "int8_mm_nt_decode",
+           "prefill": "int8_mm_nt_prefill"}
 # the csrc/<library>.cu each kernel is built from
 LIBRARIES = {"int8_mm_nt": "int8_matmul", "int8_mm_t": "int8_matmul",
-              "int8_mm_nt_decode": "int8_matmul_decode_sm90"}
+             "int8_mm_nt_decode": "int8_matmul_decode_sm90",
+             "int8_mm_nt_prefill": "int8_matmul_prefill_sm90"}
 # launches per kernel since the last reset_launches(); only kernel launches count
 launches = {name: 0 for name in KERNELS.values()}
 
 _OUT_CODES = {torch.float32: 0, torch.bfloat16: 1}
-# tile configurations of the kernel: (BM, BN, BK)
-TILES = {0: (16, 64, 128),     # M <= 16: decode
-         1: (64, 128, 64)}     # larger M: prefill
+# tile configurations of the tiled kernels (int8_matmul.cu): (BM, BN, BK)
+TILES = {0: (16, 64, 128),     # M <= 16
+         1: (64, 128, 64)}     # larger M
 _counters = {}                 # (device, stream) -> zeroed int32 split-K tile counters
 # int8_mm_nt_decode (its source's kBN, kBK, kConsumers): weight columns and rows
 # of a TMA box (8 KB), the consumer threads (one warp per 32 columns)
 DECODE_BN, DECODE_BK = 128, 64
 DECODE_THREADS = 128
 DECODE_MAX_M = 16
+# int8_mm_nt_prefill (its source's kBM, kBN, kBK): tokens and weight columns of an output
+# tile, weight rows of a k box; two blocks an SM; a split keeps at least 4 k boxes
+PREFILL_BM, PREFILL_BN, PREFILL_BK = 128, 128, 64
+PREFILL_BLOCKS_PER_SM = 2
+PREFILL_MIN_BOXES = 4
 
 
 def reset_launches():
@@ -130,16 +143,48 @@ def int8_matmul_tiled(x, q, scale, *, w_transposed=False, out_dtype=None):
 
 
 def int8_nt_kernel(M, N, K, q_aligned):
-    """The kernel an (M, K) x (K, N) product takes on the card:
-    ``int8_mm_nt_decode`` for 1 <= M <= 16 with K >= 1, N % 16 == 0 and
-    ``q`` 16-byte aligned (the TMA map's row stride and base) and fewer than
-    2^21 boxes of 128 x 64 (the kernel's 32-bit box arithmetic), else the
-    tiled ``int8_mm_nt``.  Decided before any launch, never by a failure."""
+    """The kernel an (M, K) x (K, N) product takes on the card, when K >= 1,
+    N % 16 == 0 and ``q`` is 16-byte aligned (its TMA map's row stride and
+    base; x gets a padded copy where its own rows do not suit a map):
+    ``int8_mm_nt_decode`` for 1 <= M <= 16 with fewer than 2^21 boxes of
+    128 x 64 (its 32-bit box arithmetic), ``int8_mm_nt_prefill`` for M > 16
+    with fewer than 2^31 (output tile, k box) pairs (its 32-bit block
+    index); else the tiled ``int8_mm_nt``.  Decided before any launch,
+    never by a failure."""
+    if not (K >= 1 and N > 0 and N % 16 == 0 and q_aligned):
+        return KERNELS["nt"]
     boxes = -(-N // DECODE_BN) * -(-K // DECODE_BK)
-    if (1 <= M <= DECODE_MAX_M and K >= 1 and N > 0 and N % 16 == 0 and q_aligned
-            and boxes < 2 ** 21):
+    if 1 <= M <= DECODE_MAX_M and boxes < 2 ** 21:
         return KERNELS["decode"]
+    pairs = -(-M // PREFILL_BM) * -(-N // PREFILL_BN) * -(-K // PREFILL_BK)
+    if M > DECODE_MAX_M and pairs < 2 ** 31:
+        return KERNELS["prefill"]
     return KERNELS["nt"]
+
+
+def int8_prefill_plan(M, N, K, sms):
+    """``(token tiles, column tiles, k boxes, splits, k boxes per split)``
+    of ``int8_mm_nt_prefill`` on a card of ``sms`` SMs: 128 x 128 output
+    tiles over 64-row k boxes; split-K while the tiles fill fewer than two
+    blocks an SM, each split keeping at least four boxes and none empty."""
+    mt, nt, kb = -(-M // PREFILL_BM), -(-N // PREFILL_BN), -(-K // PREFILL_BK)
+    splits = max(1, min(PREFILL_BLOCKS_PER_SM * sms // (mt * nt), kb // PREFILL_MIN_BOXES))
+    per = -(-kb // splits)
+    return mt, nt, kb, -(-kb // per), per
+
+
+def int8_prefill_blocks(M, N, K, splits, per):
+    """``int8_mm_nt_prefill``'s blocks in launch order, as the kernel
+    computes them: block b is split ``b % splits`` of tile ``b // splits``,
+    tile ``column tile * token tiles + token tile``.  Returns, per block,
+    ``(tile, token tile, column tile, split, first k box, end k box)``."""
+    mt, nt, kb = -(-M // PREFILL_BM), -(-N // PREFILL_BN), -(-K // PREFILL_BK)
+    blocks = []
+    for b in range(mt * nt * splits):
+        split, tile = b % splits, b // splits
+        blocks.append((tile, tile % mt, tile // mt, split, split * per,
+                       min(kb, split * per + per)))
+    return blocks
 
 
 def int8_decode_plan(N, K, sms):
@@ -232,6 +277,8 @@ def _launch(x, q, scale, w_transposed, out_dtype, routed):
     fn = _entry(name)                   # builds the library, or raises
     if name == KERNELS["decode"]:
         return _launch_decode(fn, x2, q, scale, out, lead, M, N, K, out_dtype)
+    if name == KERNELS["prefill"]:
+        return _launch_prefill(fn, x2, q, scale, out, lead, M, N, K, out_dtype)
     tile, splits, per = plan(M, N, K, _sm_count(dev))
     BM, BN, _ = TILES[tile]
     tiles = -(-M // BM) * -(-N // BN)
@@ -257,22 +304,18 @@ def _launch(x, q, scale, w_transposed, out_dtype, routed):
     return out.reshape(*lead, N)
 
 
-def _launch_decode(fn, x2, q, scale, out, lead, M, N, K, out_dtype):
-    dev = x2.device
-    nt, _, blocks = int8_decode_plan(N, K, _sm_count(dev))
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    ws = torch.empty(2 * blocks * DECODE_THREADS * (8 if M <= 8 else 16), dtype=torch.float32,
-                     device=dev)
-    counters = _tile_counters(dev, stream, nt)
-    if K % 8 or x2.data_ptr() % 16:
-        # x's TMA map needs a 16-byte base and row stride: a padded copy (at most 16 x K)
-        xp = torch.empty((M, -(-K // 8) * 8), dtype=torch.bfloat16, device=dev)
-        xp[:, :K] = x2
-        x2 = xp
-    rc = fn(x2.data_ptr(), q.data_ptr(), scale.data_ptr(), out.data_ptr(),
-            _OUT_CODES[out.dtype], ws.data_ptr(), counters.data_ptr(), M, N, K, x2.shape[1],
-            blocks, stream)
-    name = KERNELS["decode"]
+def _tma_rows(x2):
+    """x as its TMA map needs it: a 16-byte base and row stride, else a
+    copy padded to a multiple of 8 columns."""
+    M, K = x2.shape
+    if K % 8 == 0 and x2.data_ptr() % 16 == 0:
+        return x2
+    xp = torch.empty((M, -(-K // 8) * 8), dtype=torch.bfloat16, device=x2.device)
+    xp[:, :K] = x2
+    return xp
+
+
+def _finish_tma(name, rc, out, lead, N, out_dtype):
     if rc != 0:
         raise RuntimeError(f"{name} launch failed with code {rc}" + {
             -1: " (unsupported configuration)", -2: " (tensor map not encodable)",
@@ -281,6 +324,38 @@ def _launch_decode(fn, x2, q, scale, out, lead, M, N, K, out_dtype):
     if out.dtype != out_dtype:
         out = out.to(out_dtype)
     return out.reshape(*lead, N)
+
+
+def _launch_decode(fn, x2, q, scale, out, lead, M, N, K, out_dtype):
+    dev = x2.device
+    nt, _, blocks = int8_decode_plan(N, K, _sm_count(dev))
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    ws = torch.empty(2 * blocks * DECODE_THREADS * (8 if M <= 8 else 16), dtype=torch.float32,
+                     device=dev)
+    counters = _tile_counters(dev, stream, nt)
+    x2 = _tma_rows(x2)                  # at most 16 x K when copied
+    rc = fn(x2.data_ptr(), q.data_ptr(), scale.data_ptr(), out.data_ptr(),
+            _OUT_CODES[out.dtype], ws.data_ptr(), counters.data_ptr(), M, N, K, x2.shape[1],
+            blocks, stream)
+    return _finish_tma(KERNELS["decode"], rc, out, lead, N, out_dtype)
+
+
+def _launch_prefill(fn, x2, q, scale, out, lead, M, N, K, out_dtype):
+    dev = x2.device
+    mt, nt, _, splits, per = int8_prefill_plan(M, N, K, _sm_count(dev))
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    ws = counters = None
+    if splits > 1:
+        ws = torch.empty(mt * nt * splits * PREFILL_BM * PREFILL_BN, dtype=torch.float32,
+                         device=dev)
+        counters = _tile_counters(dev, stream, mt * nt)
+    x2 = _tma_rows(x2)
+    null = ctypes.c_void_p(0)
+    rc = fn(x2.data_ptr(), q.data_ptr(), scale.data_ptr(), out.data_ptr(),
+            _OUT_CODES[out.dtype], ws.data_ptr() if ws is not None else null,
+            counters.data_ptr() if counters is not None else null, M, N, K, x2.shape[1],
+            splits, per, stream)
+    return _finish_tma(KERNELS["prefill"], rc, out, lead, N, out_dtype)
 
 
 _sms = {}
@@ -300,6 +375,8 @@ def _entry(name):
         v, i = ctypes.c_void_p, ctypes.c_int
         if name == KERNELS["decode"]:
             fn.argtypes = [v, v, v, v, i, v, v, i, i, i, i, i, v]
+        elif name == KERNELS["prefill"]:
+            fn.argtypes = [v, v, v, v, i, v, v, i, i, i, i, i, i, v]
         else:
             fn.argtypes = [v, v, v, i, v, i, v, v, i, i, i, i, i, i, i, i, v]
         fn.restype = ctypes.c_int

@@ -32,6 +32,7 @@ from jax.experimental import pallas as pl
 
 from deepspeed_tpu.ops.transformer import int8_matmul as jim
 from deepspeed_tpu_torch.ops.transformer import int8_matmul as tim
+from int8_fragments import widen2
 
 BN, BK = tim.DECODE_BN, tim.DECODE_BK
 BOX_N = BN                     # columns of one TMA box (its 128-byte rows)
@@ -87,36 +88,6 @@ def test_decode_plan_at_gpt2_1p3b_qkv():
 
 
 # ------------------------------------------------- the kernel, emulated
-def _bf16_bits_to_f32(bits):
-    return (bits.astype(np.uint32) << 16).view(np.float32)
-
-
-def _byte_perm(a, b, sel):
-    """CUDA __byte_perm: byte i of the result is byte (sel >> 4 i) & 7 of
-    the 8 bytes of (b:a)."""
-    src = (b.astype(np.uint64) << 32) | a.astype(np.uint64)
-    out = np.zeros_like(a, dtype=np.uint32)
-    for i in range(4):
-        byte = (src >> np.uint64(8 * ((sel >> (4 * i)) & 7))) & np.uint64(0xFF)
-        out |= (byte.astype(np.uint32) << np.uint32(8 * i))
-    return out
-
-
-def _widen2(B, w0, w1):
-    """The kernel's widen2<B>: the two bf16 lanes (low, high) as floats."""
-    p = _byte_perm(w0, w1, B | ((B + 4) << 8))
-    hi = (p & np.uint32(0x007F007F)) | np.uint32(0x43004300)
-    lo = (p & np.uint32(0x00800080)) | np.uint32(0x43004300)
-    halves = []
-    for shift in (0, 16):                     # fma.rn.bf16x2: lo * -1 + hi, per lane
-        h = _bf16_bits_to_f32((hi >> np.uint32(shift)) & np.uint32(0xFFFF))
-        l_ = _bf16_bits_to_f32((lo >> np.uint32(shift)) & np.uint32(0xFFFF))
-        d = h - l_
-        assert (d == d.astype(np.int32)).all() and (np.abs(d) <= 128).all()   # exact in bf16
-        halves.append(d)
-    return halves
-
-
 def _tma_box(q, c0, k0, rows):
     """The box TMA writes at (column c0, row k0): ``rows`` rows of 128
     bytes, zero past K and N, chunk c of row r stored at chunk c ^ (r % 8)."""
@@ -209,10 +180,10 @@ def _emulate(x, q, sms):
                         addr = r * BOX_N + ((chunk ^ (r & 7)) << 4) + in_chunk
                         words.append(smem[addr[:, None] + np.arange(4)].copy()
                                      .view(np.uint32).reshape(32))
-                    a0 = [_widen2(0, *words[:2]), _widen2(1, *words[:2]),
-                          _widen2(0, *words[2:]), _widen2(1, *words[2:])]
-                    a1 = [_widen2(2, *words[:2]), _widen2(3, *words[:2]),
-                          _widen2(2, *words[2:]), _widen2(3, *words[2:])]
+                    a0 = [widen2(0, *words[:2]), widen2(1, *words[:2]),
+                          widen2(0, *words[2:]), widen2(1, *words[2:])]
+                    a1 = [widen2(2, *words[:2]), widen2(3, *words[:2]),
+                          widen2(2, *words[2:]), widen2(3, *words[2:])]
                     for f in range(NF):
                         xb = []
                         for h in range(2):    # byte address / 2: the pair's first element
@@ -292,8 +263,9 @@ def _route(monkeypatch, M, N, K=256, transposed=False, misaligned=False, tiled=F
     ("M=8", dict(M=8, N=2048), "int8_mm_nt_decode"),
     ("M=16", dict(M=16, N=8192), "int8_mm_nt_decode"),
     ("M=2x4 leading", dict(M=8, N=2048, lead=(2, 4)), "int8_mm_nt_decode"),
-    ("M=17", dict(M=17, N=2048), "int8_mm_nt"),
-    ("M=512", dict(M=512, N=6144), "int8_mm_nt"),
+    ("M=17", dict(M=17, N=2048), "int8_mm_nt_prefill"),
+    ("M=512", dict(M=512, N=6144), "int8_mm_nt_prefill"),
+    ("M=64 misaligned q", dict(M=64, N=2048, misaligned=True), "int8_mm_nt"),
     ("N%16", dict(M=8, N=200), "int8_mm_nt"),
     ("misaligned q", dict(M=8, N=2048, misaligned=True), "int8_mm_nt"),
     ("head", dict(M=8, N=50257, transposed=True), "int8_mm_t"),
@@ -310,7 +282,7 @@ def test_route_function():
     assert tim.int8_nt_kernel(8, 6144, 2048, True) == "int8_mm_nt_decode"
     assert tim.int8_nt_kernel(16, 16, 1, True) == "int8_mm_nt_decode"
     assert tim.int8_nt_kernel(8, 6144, 2048, False) == "int8_mm_nt"
-    assert tim.int8_nt_kernel(17, 6144, 2048, True) == "int8_mm_nt"
+    assert tim.int8_nt_kernel(17, 6144, 2048, True) == "int8_mm_nt_prefill"
     assert tim.int8_nt_kernel(8, 6152, 2048, True) == "int8_mm_nt"
     assert tim.int8_nt_kernel(8, 6144, 0, True) == "int8_mm_nt"
     assert tim.int8_nt_kernel(0, 6144, 2048, True) == "int8_mm_nt"

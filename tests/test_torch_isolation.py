@@ -1,6 +1,7 @@
 """The PyTorch port stands alone: it imports neither ``jax`` nor anything
 of the JAX package ``deepspeed_tpu`` (whose ``__init__`` imports jax and
-the engine), and neither does ``chip_smoke.py``."""
+the engine), and neither do ``chip_smoke.py`` and the scripts beside it
+that drive the port's kernels."""
 
 import ast
 import os
@@ -31,9 +32,14 @@ def _imports(path: Path):
             yield node.module or ""
 
 
+# scripts beside chip_smoke.py that drive the port's kernels on a card
+PORT_EXAMPLES = ("flash_fwd_sm90_split.py", "int8_decode_check.py", "int8_prefill_check.py")
+
+
 def _sources():
-    files = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
-    assert len(files) > 10 and files[-1].is_file()
+    files = (sorted(PORT.rglob("*.py")) + [REPO / "examples" / name for name in PORT_EXAMPLES]
+             + [REPO / "chip_smoke.py"])
+    assert len(files) > 10 and all(f.is_file() for f in files)
     return files
 
 
