@@ -9,9 +9,10 @@ JAX package ``deepspeed_tpu``):
 1. setup: the card's name and power limit (``nvidia-smi``), the torch and
    CUDA versions, and the build of the CUDA kernels from ``csrc/`` (one
    ``nvcc`` per source, started together) with its time and ptxas
-   register/spill summary; ``flash_fwd_sm90``'s, ``int8_mm_nt_decode``'s and
-   ``int8_mm_nt_prefill``'s libraries (their build seconds, registers and
-   spills per instance) must build with no spill;
+   register/spill summary; ``flash_fwd_sm90``'s, ``int8_mm_nt_decode``'s,
+   ``int8_mm_nt_prefill``'s and ``flash_bwd_dkdv_lut_sm90``'s libraries
+   (their build seconds, registers and spills per instance) must build with
+   no spill;
 2. kernels vs plain: ``paged_attention_online`` and ``paged_attention_exact``
    against ``paged_attention_reference`` at the serving shape (8 slots,
    12 heads, head dim 64, block 16, 64 blocks per slot), lengths
@@ -61,7 +62,11 @@ JAX package ``deepspeed_tpu``):
    forward+backward; then ``flash_fwd_sm90`` against SDPA ``is_causal``
    at B*T=8192, H=16, T in {1024, 2048, 4096, 8192}, head dims 64 and 128;
 7. sparse kernels vs plain: ``flash_fwd_lut``, ``flash_fwd_lut_ring``,
-   ``flash_bwd_dkdv_lut``, ``flash_bwd_dq_lut`` and the dense biased
+   the dK/dV kernel ``sparse_dkdv_kernel`` routes to
+   (``flash_bwd_dkdv_lut_sm90`` for bf16 at head dim 64 without a score
+   bias, and beside it the template ``flash_bwd_dkdv_lut`` through
+   ``flash_bwd_dkdv_lut_tiled``; the template for the rest),
+   ``flash_bwd_dq_lut`` and the dense biased
    ``flash_fwd_biased``, ``flash_bwd_dkdv_biased``, ``flash_bwd_dq_biased``
    against their plain versions fed the same (O, lse, dO), element by
    element with phase 2's limits: B=2, H=4, T in {256, 1024} and 1008,
@@ -83,11 +88,13 @@ JAX package ``deepspeed_tpu``):
    ``_masked_dense`` attention from the same weights and batch; 3
    warm-up and 10 timed steps (tokens/s, step p50/p99, MFU, peak memory);
    exactly 48 / 24 / 24 launches per step of ``flash_fwd_lut`` /
-   ``flash_bwd_dkdv_lut`` / ``flash_bwd_dq_lut`` (remat runs each forward
-   twice); finite losses and no skipped step; 20 steps on one fixed batch
-   lower its loss by at least 0.5; a ``torch.profiler`` breakdown of one
-   step; 8b, two steps on unpadded batches (``flash_fwd_lut_ring``, not
-   ``flash_fwd_lut``); 8c, two padded steps with ``"mode": "dense"``
+   ``flash_bwd_dkdv_lut_sm90`` / ``flash_bwd_dq_lut`` (remat runs each
+   forward twice) and none of the template ``flash_bwd_dkdv_lut``; finite
+   losses and no skipped step; 20 steps on one fixed batch lower its loss
+   by at least 0.5; a ``torch.profiler`` breakdown of one step, with the
+   dK/dV device time per step; 8b, two steps on unpadded batches
+   (``flash_fwd_lut_ring``, not ``flash_fwd_lut``); 8c, two padded steps
+   with ``"mode": "dense"``
    (an all-ones layout: the dense biased kernels);
 9. the sparse and biased kernels at the training shape, B=8, H=16,
    T=2048, d=64, bf16, q/k/v views of one qkv tensor: the tutorial's
@@ -97,7 +104,11 @@ JAX package ``deepspeed_tpu``):
    held against its plain version (these errors go into the kernels
    line), then timed beside its bound, its plain version and
    ``scaled_dot_product_attention`` with the expanded boolean
-   layout-and-padding mask, forward and forward+backward.
+   layout-and-padding mask: forward, forward+backward and its backward
+   alone (``autograd.grad`` over a retained graph), which the port never
+   calls; ``flash_bwd_dkdv_lut_sm90`` beside the template
+   ``flash_bwd_dkdv_lut`` (the template design) on the same call, with the
+   visits per head of each schedule.
 
 10. int8 kernels vs plain: ``int8_mm_nt_decode`` (the block weights at
     M <= 16), ``int8_mm_nt_prefill`` (M > 16) and ``int8_mm_t`` (the head)
@@ -152,7 +163,7 @@ JAX package ``deepspeed_tpu``):
     window, the first 512 tokens global, unidirectional), B=1, H=8, d=64,
     bf16, T in {4096, 8192, 16384}, layout blocks 512 and 64:
     ``SparseSelfAttention`` forward + ``backward()`` with exactly one launch
-    each of ``flash_fwd_banded``, ``flash_bwd_dkdv_lut`` and
+    each of ``flash_fwd_banded``, ``flash_bwd_dkdv_lut_sm90`` and
     ``flash_bwd_dq_lut`` per call (``flash_fwd_lut_ring`` 0), and the same
     through ``sparse_flash_attention(..., block_q_merge=2)`` (one
     ``flash_fwd_merged``), then that merged path on the tutorial block-16
@@ -218,6 +229,7 @@ REPLACES = {"paged_attention_online":
             "flash_fwd_banded": f"{FLASH_REF}:180",      # _fwd_kernel use_banded
             "flash_fwd_merged": f"{FLASH_REF}:161",      # use_merge (and _fwd_kernel_dma 317)
             "flash_bwd_dkdv_lut": f"{FLASH_REF}:617",
+            "flash_bwd_dkdv_lut_sm90": f"{FLASH_REF}:617",   # use_lut, bf16 at d 64
             "flash_bwd_dq_lut": f"{FLASH_REF}:691",
             "int8_mm_nt": "deepspeed_tpu/ops/transformer/int8_matmul.py:45",     # the rest
             "int8_mm_nt_decode": "deepspeed_tpu/ops/transformer/int8_matmul.py:45",  # M <= 16
@@ -227,6 +239,7 @@ INT8_DECODE_LIB = im.LIBRARIES["int8_mm_nt_decode"]
 INT8_PREFILL_LIB = im.LIBRARIES["int8_mm_nt_prefill"]
 INT8_SOURCES = {name: f"deepspeed_tpu_torch/csrc/{lib}.cu" for name, lib in im.LIBRARIES.items()}
 SM90_LIB = fa.ENTRIES["flash_fwd_sm90"][0]
+DKDV_SM90_LIB = fa.ENTRIES["flash_bwd_dkdv_lut_sm90"][0]
 SM90_DEADLINE_S = 10.0   # the first flash_fwd_sm90 launch must complete within this
 
 
@@ -335,7 +348,8 @@ def setup():
     if not sm90 or any(spill for *_, spill in sm90):
         raise AssertionError(f"{SM90_LIB}: no kernel built, or ptxas spilled registers: {sm90}")
     for lib, kernel in ((INT8_DECODE_LIB, "int8_decode_kernel"),
-                        (INT8_PREFILL_LIB, "int8_prefill_kernel")):
+                        (INT8_PREFILL_LIB, "int8_prefill_kernel"),
+                        (DKDV_SM90_LIB, "dkdv_sm90_kernel")):
         rows = ptxas_summary(builder.build_log[lib]["ptxas"])
         print(f"{lib}.cu: built in {builder.build_log[lib]['seconds']:.2f} s; " + "; ".join(
             f"{kname[kname.find(kernel):]} {regs} registers, {spill} spill bytes"
@@ -1018,7 +1032,8 @@ def bias_inputs(kind, gen, B, T, dev):
 def masked_calls(q, k, v, do, lut, kb, ab, causal):
     """The biased (``lut`` None) or LUT kernels of one case: ``(names,
     kernel calls, plain calls)``, the backward calls taking (lse, delta).
-    An unbiased LUT case takes the ring forward, as the model path does."""
+    An unbiased LUT case takes the ring forward, as the model path does,
+    and dK/dV the kernel ``sparse_dkdv_kernel`` names."""
     if lut is None:
         names = fa.BIASED_KERNELS
         calls = (lambda: fa.flash_fwd_biased(q, k, v, kb, ab, causal),
@@ -1027,8 +1042,8 @@ def masked_calls(q, k, v, do, lut, kb, ab, causal):
                  lambda lse, de: fa.flash_bwd_dq_biased(q, k, v, do, lse, de, kb, ab, causal))
     else:
         ring = kb is None and ab is None
-        names = ("flash_fwd_lut_ring" if ring else "flash_fwd_lut", "flash_bwd_dkdv_lut",
-                 "flash_bwd_dq_lut")
+        names = ("flash_fwd_lut_ring" if ring else "flash_fwd_lut",
+                 fa.sparse_dkdv_kernel(q.dtype, q.shape[-1], ab is not None), "flash_bwd_dq_lut")
         calls = ((lambda: fa.flash_fwd_lut_ring(q, k, v, lut)) if ring
                  else (lambda: fa.flash_fwd_lut(q, k, v, lut, kb, ab)),
                  lambda lse, de: fa.flash_bwd_dkdv_lut(q, k, v, do, lse, de, lut, kb, ab),
@@ -1044,8 +1059,10 @@ def masked_calls(q, k, v, do, lut, kb, ab, causal):
 
 def check_masked_case(q, k, v, do, lut, kb, ab, causal, what):
     """Each kernel of a biased / LUT case against its plain version on the
-    same inputs (the backward ones fed the kernel's own O and lse).
-    Returns {kernel: [(output, max abs error, share of limit)]}."""
+    same inputs (the backward ones fed the kernel's own O and lse); where
+    dK/dV routes to ``flash_bwd_dkdv_lut_sm90``, the template
+    ``flash_bwd_dkdv_lut`` too.  Returns {kernel: [(output, max abs error,
+    share of limit)]}."""
     names, calls, plains = masked_calls(q, k, v, do, lut, kb, ab, causal)
     o, lse = calls[0]()
     delta = fa.attention_delta(o, do)
@@ -1054,10 +1071,13 @@ def check_masked_case(q, k, v, do, lut, kb, ab, causal, what):
     ro, rlse = plains[0]()
     rdk, rdv = plains[1](lse, delta)
     rdq = plains[2](lse, delta)
-    torch.cuda.synchronize()
     pairs = {names[0]: [("o", o, ro), ("lse", lse, rlse)],
              names[1]: [("dk", dk, rdk), ("dv", dv, rdv)],
              names[2]: [("dq", dq, rdq)]}
+    if names[1] == "flash_bwd_dkdv_lut_sm90":
+        tdk, tdv = fa.flash_bwd_dkdv_lut_tiled(q, k, v, do, lse, delta, lut, kb, ab)
+        pairs["flash_bwd_dkdv_lut"] = [("dk", tdk, rdk), ("dv", tdv, rdv)]
+    torch.cuda.synchronize()
     return {name: [(label, *flash_close(f"{name} {what}", label, got, ref))
                    for label, got, ref in ps] for name, ps in pairs.items()}
 
@@ -1085,6 +1105,20 @@ def sparse_cases(H):
         cases.append((256, "empty-rows", EmptyRowsLayout(), dt, False, kind, 64, "qkv"))
     for kind, dt, causal in itertools.product(BIAS_KINDS[1:], (bf16, fp32), (False, True)):
         cases.append((1000, "dense", None, dt, causal, kind, 64, "qkv"))
+    # flash_bwd_dkdv_lut_sm90 (and the template beside it) at every layout, T, causal
+    # flag, key bias and q/k/v layout its route takes; T=1008 at block 16 only, the
+    # empty-rows layout not with "add" (above), and "mul" not causal: with the padded keys,
+    # the fully padded row and the keys no causal query reaches, over half of dV is 0,
+    # which lowers the rms its limit scales with, while one P that rounds to the other
+    # bf16 neighbour (S summed in another order) moves dV by ulp(P) |dO| all the same:
+    # at bigbird64 T=1024 both dK/dV kernels, bit-identical there, read 1.0026 of it
+    configs = sparse_configs(H) + [("empty-rows", EmptyRowsLayout())]
+    for j, ((label, cfg), T, causal, kind) in enumerate(itertools.product(
+            configs, (256, 1024, 1008), (False, True), ("none", "add", "mul"))):
+        if (T == 1008 and label not in ("fixed16", "empty-rows")) or (
+                label == "empty-rows" and kind == "add") or (kind == "mul" and causal):
+            continue
+        cases.append((T, label, cfg, bf16, causal, kind, 64, views[j % 2]))
     return cases
 
 
@@ -1200,7 +1234,10 @@ def bert_train(dev, card, warmup=3, timed=10, fit_steps=20, preset="bert-large",
     eng = bert_engine(dev, base, data, preset=preset, seq=seq, micro=micro)
     model = eng.module
     L = model.config.n_layer
-    per_step = {"flash_fwd_lut": 2 * L, "flash_bwd_dkdv_lut": L, "flash_bwd_dq_lut": L}
+    # flash_bwd_dkdv_lut_sm90 at BERT-large's head dim 64
+    dkdv = fa.sparse_dkdv_kernel(torch.bfloat16, model.config.hidden_size // model.config.n_head,
+                                 False)
+    per_step = {"flash_fwd_lut": 2 * L, dkdv: L, "flash_bwd_dq_lut": L}
     lut = fa.layout_luts(model.sparse_self_attention.get_layout(seq), seq,
                          model.config.n_head, False)
     torch.cuda.synchronize()
@@ -1246,16 +1283,21 @@ def bert_train(dev, card, warmup=3, timed=10, fit_steps=20, preset="bert-large",
           f"{fit_steps} steps (margin {BERT_FIT_MARGIN})")
     if not fit[0] - fit[-1] >= BERT_FIT_MARGIN:
         raise AssertionError(f"fixed-batch loss fell only {fit[0] - fit[-1]}")
-    profile_steps(lambda: eng.train_batch(), f"train {preset} sparse16", steps=1,
-                  unit="training step")
+    by_name = profile_steps(lambda: eng.train_batch(), f"train {preset} sparse16", steps=1,
+                            unit="training step")
+    spent = [(t, c) for name, (t, c) in by_name.items() if re.search(r"\bdkdv_", name)]
+    print(f"profile train {preset} sparse16: dK/dV device time per step "
+          f"{sum(t for t, _ in spent) / 1e3:.2f} ms over {sum(c for _, c in spent):.0f} "
+          f"launches ({dkdv}; the template flash_bwd_dkdv_lut took 78.40 ms a step, PERF.md "
+          f"section 5) ({card})")
     del eng
     torch.cuda.empty_cache()
 
     # 8b: unpadded batches (packed sequences): the ring forward, no bias
     # 8c: "mode": "dense" (an all-ones layout) with padding: the dense biased kernels
     for tag, section, padded, want in (
-            ("8b", SPARSE_SECTION, False, {"flash_fwd_lut_ring": 2 * L,
-                                           "flash_bwd_dkdv_lut": L, "flash_bwd_dq_lut": L}),
+            ("8b", SPARSE_SECTION, False, {"flash_fwd_lut_ring": 2 * L, dkdv: L,
+                                           "flash_bwd_dq_lut": L}),
             ("8c", {"mode": "dense", "block": 16}, True, {
                 "flash_fwd_biased": 2 * L, "flash_bwd_dkdv_biased": L,
                 "flash_bwd_dq_biased": L})):
@@ -1277,12 +1319,16 @@ def bert_train(dev, card, warmup=3, timed=10, fit_steps=20, preset="bert-large",
 
 
 # ------------------------------------------- 9. sparse kernels at the shape
-def sparse_timing(dev, gen, bytes_per_s, B=8, T=2048, H=16, d=64):
+def sparse_timing(dev, gen, bytes_per_s, card, B=8, T=2048, H=16, d=64):
     """Phase 9 at the training shape (q, k, v views of one qkv tensor):
     the biased / LUT kernels of four cases, each held against its plain
     version, then timed beside its bound, its plain version and SDPA with
-    the expanded boolean layout-and-padding mask.  Returns {case:
-    {kernel: kernels-line fields}} and the cases' densities."""
+    the expanded boolean layout-and-padding mask (forward, forward+backward
+    and the backward alone: ``autograd.grad`` over a retained graph); where
+    dK/dV takes ``flash_bwd_dkdv_lut_sm90``, the template
+    ``flash_bwd_dkdv_lut`` (the template design) on the same call beside it.
+    The backward kernels' library time is SDPA's backward alone.  Returns
+    {case: {kernel: kernels-line fields}} and the cases' densities."""
     q, k, v, do = flash_inputs(dev, gen, torch.bfloat16, B, T, H, d, "qkv")
     keep = torch.arange(T, device=dev)[None, :] < key_lengths(gen, B, T, dev)[:, None]
     kb = torch.where(keep, 0.0, -10000.0).float()
@@ -1320,6 +1366,10 @@ def sparse_timing(dev, gen, bytes_per_s, B=8, T=2048, H=16, d=64):
         leaves = [x.detach().requires_grad_(True) for x in (qh, kh, vh)]
         lib_f = time_ms(lambda _: sdpa(qh, kh, vh, attn_mask=mask), 10, warmup=2)
         lib_fb = time_ms(lambda _: sdpa(*leaves, attn_mask=mask).backward(doh), 5, warmup=2)
+        lib_out = sdpa(*leaves, attn_mask=mask)
+        lib_b = time_ms(lambda _: torch.autograd.grad(lib_out, leaves, doh, retain_graph=True),
+                        5, warmup=2)
+        del lib_out
         kbytes = 0 if bias is None else B * T * 4
         work = {names[0]: (4 * elem + stat + kbytes, 4 * d * pairs),
                 names[1]: (6 * elem + 2 * stat + kbytes, 8 * d * pairs),
@@ -1328,8 +1378,20 @@ def sparse_timing(dev, gen, bytes_per_s, B=8, T=2048, H=16, d=64):
                   names[2]: lambda: calls[2](lse, delta)}
         plain = {names[0]: plains[0], names[1]: lambda: plains[1](lse, delta),
                  names[2]: lambda: plains[2](lse, delta)}
+        timed = list(names)
+        if names[1] == "flash_bwd_dkdv_lut_sm90":      # the template design on the same call
+            timed.append("flash_bwd_dkdv_lut")
+            work["flash_bwd_dkdv_lut"] = work[names[1]]
+            kernel["flash_bwd_dkdv_lut"] = lambda: fa.flash_bwd_dkdv_lut_tiled(
+                q, k, v, do, lse, delta, lut, bias)
+            plain["flash_bwd_dkdv_lut"] = plain[names[1]]
+            groups = lut.groups("k")
+            print(f"schedule {case}: flash_bwd_dkdv_lut_sm90 {groups.visits_per_head.mean():.0f}"
+                  f" visits on {groups.tiles_per_head.mean():.0f} output tiles per head "
+                  f"(rows {groups.unit} a slot); the template "
+                  f"{lut.qlen.sum() / lut.heads:.0f} 64 x 64 tiles per head")
         out[case] = {}
-        for name in names:
+        for name in timed:
             nbytes, ops = work[name]
             t_bytes, t_ops = nbytes / bytes_per_s * 1e3, ops / PEAK_OPS["bf16"] * 1e3
             bound, by = (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
@@ -1338,15 +1400,18 @@ def sparse_timing(dev, gen, bytes_per_s, B=8, T=2048, H=16, d=64):
             out[case][name] = {
                 "max_abs_err": max(e for _, e, _ in res[name]), "ms": ms,
                 "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
-                "library_ms": lib_f if name == names[0] else lib_fb}
-            print(f"timing {name} {what}: {ms * 1e3:.2f} us, bound {bound * 1e3:.2f} us "
-                  f"({by}; {nbytes / 1e6:.1f} MB, {ops / 1e9:.2f} GFLOP), plain "
-                  f"{plain_ms * 1e3:.2f} us; tile density {density[case]['tile']:.3f}, "
-                  f"element density {density[case]['element']:.4f}")
+                "library_ms": lib_f if name == names[0] else lib_b}
+            design = " (the template design)" if name not in names else ""
+            print(f"timing {name}{design} {what} ({card}): {ms * 1e3:.2f} us, bound "
+                  f"{bound * 1e3:.2f} us ({by}; {nbytes / 1e6:.1f} MB, {ops / 1e9:.2f} GFLOP; "
+                  f"{bound / ms:.3f} of it), plain {plain_ms * 1e3:.2f} us; tile density "
+                  f"{density[case]['tile']:.3f}, element density "
+                  f"{density[case]['element']:.4f}")
         total = sum(out[case][n]["ms"] for n in names)
         print(f"timing SDPA {case} (B, H, T, d) bf16 with the boolean layout-and-padding "
-              f"mask: forward {lib_f * 1e3:.2f} us, forward+backward {lib_fb * 1e3:.2f} us; "
-              f"the port's {' + '.join(names)} {total * 1e3:.2f} us")
+              f"mask: forward {lib_f * 1e3:.2f} us, forward+backward {lib_fb * 1e3:.2f} us, "
+              f"backward alone {lib_b * 1e3:.2f} us; the port's {' + '.join(names)} "
+              f"{total * 1e3:.2f} us")
         del mask, lib, leaves
         torch.cuda.empty_cache()
     fa.launches.update(saved)          # timing launches are not path launches
@@ -1989,7 +2054,8 @@ def path_run(route, attn_or_layout, leaf, do, B, T, H, d, causal=True):
     out.backward(do)
     torch.cuda.synchronize()
     counts = dict(fa.launches)
-    check_launches(f"{route} path", counts, {f"flash_fwd_{route}": 1, "flash_bwd_dkdv_lut": 1,
+    check_launches(f"{route} path", counts, {f"flash_fwd_{route}": 1,
+                                             "flash_bwd_dkdv_lut_sm90": 1,
                                              "flash_bwd_dq_lut": 1}, 1)
     return out.detach(), counts
 
@@ -2107,7 +2173,7 @@ def sparse_workload(dev, gen, card, bytes_per_s, B=1, H=8, d=64, line_shape=(64,
             what = f"B={B} T={T} H={H} d={d} bf16 block {block}"
             rows = check_path(route, name, sched, lut, leaf, do, out, B, T, H, d, what)
             print(f"sparse-path {route} {what} (W={W}, {len(gcols)} gcols, kernel gcols "
-                  f"{list(band.kernel_gcols)}): launches {name} 1, flash_bwd_dkdv_lut 1, "
+                  f"{list(band.kernel_gcols)}): launches {name} 1, flash_bwd_dkdv_lut_sm90 1, "
                   f"flash_bwd_dq_lut 1, flash_fwd_lut_ring 0; {flash_line({name: rows})}")
             fields = time_path(dev, route, name, sched, lut, layout, attn, leaf, do, B, T, H,
                                d, True, bytes_per_s, card)
@@ -2132,8 +2198,8 @@ def sparse_workload(dev, gen, card, bytes_per_s, B=1, H=8, d=64, line_shape=(64,
     what = f"B={B} T={T} H={H} d={d} bf16 tutorial16 non-causal"
     rows = check_path("merged", "flash_fwd_merged", lut.merged, lut, leaf, do, out, B, T, H, d,
                       what)
-    print(f"sparse-path merged {what}: launches flash_fwd_merged 1, flash_bwd_dkdv_lut 1, "
-          f"flash_bwd_dq_lut 1; {flash_line({'flash_fwd_merged': rows})}")
+    print(f"sparse-path merged {what}: launches flash_fwd_merged 1, flash_bwd_dkdv_lut_sm90 "
+          f"1, flash_bwd_dq_lut 1; {flash_line({'flash_fwd_merged': rows})}")
     time_path(dev, "merged", "flash_fwd_merged", lut.merged, lut, layout, None, leaf, do, B, T,
               H, d, False, bytes_per_s, card)
     fa.launches.update(saved)          # timing launches are not path launches
@@ -2211,7 +2277,7 @@ def main():
     sparse_err = check_sparse_kernels(dev, gen)
     print(json.dumps({"sparse_sweep_max_abs_err": sparse_err}))
     bert_launches = bert_train(dev, card)
-    ts, density = sparse_timing(dev, gen, bw)
+    ts, density = sparse_timing(dev, gen, bw, card)
     print(json.dumps({"sparse_timing": ts, "density": density}))
     # the kernels line: each kernel at the shape its main-path run gives it
     # (8: the tutorial layout with padding; 8b: without; 8c: dense with padding)
@@ -2221,7 +2287,8 @@ def main():
             ("flash_bwd_dq_biased", "dense+pad", "8c"),
             ("flash_fwd_lut", "tutorial16+pad", "8"),
             ("flash_fwd_lut_ring", "tutorial16", "8b"),
-            ("flash_bwd_dkdv_lut", "tutorial16+pad", "8"),
+            ("flash_bwd_dkdv_lut", "tutorial16+pad", "8"),         # the template design: 0
+            ("flash_bwd_dkdv_lut_sm90", "tutorial16+pad", "8"),
             ("flash_bwd_dq_lut", "tutorial16+pad", "8")):
         kernels.append({"name": name, "route": "cuda", "source": flash_source(name),
                         "replaces": REPLACES[name], "launches": bert_launches[run][name],

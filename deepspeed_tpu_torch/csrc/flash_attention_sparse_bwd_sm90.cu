@@ -1,0 +1,756 @@
+// Block-sparse flash-attention dK/dV backward for Hopper (sm_90a): the entry
+// flash_bwd_dkdv_lut_sm90, bf16, head dim 64, the (B, T) key bias optional.
+//
+// Replaces the Pallas TPU kernel _bwd_dkdv_kernel of deepspeed_tpu/ops/transformer/
+// flash_attention.py (617-688) with use_lut and use_kbias, built by _bwd (756-891) over the
+// LUTs of _sparse_luts (84-127).  The template dkdv_kernel<kLut> of flash_attention.cuh
+// (flash_bwd_dkdv_lut: 4 warps, 64 x 64 tiles carrying a mask of their live layout cells,
+// mma.sync, a cp.async double buffer) keeps fp32, head dims 96 and 128 (here the largest
+// instance spilled) and the (T, T) score bias; ops/transformer/flash_attention.py:
+// sparse_dkdv_kernel routes bf16 at head dim 64 here.  For each key row, over the query
+// rows live for it, it computes what dkdv_kernel computes:
+//   P = exp(S * scale + kbias - lse), 0 where the pair is not live and on a row whose lse is
+//   NEG_INF (no live key); dV += P^T dO with P rounded to bf16; dS = P * (dO V^T - delta) *
+//   scale; dK += dS^T Q with dS rounded to bf16; fp32 accumulation; dK and dV written bf16,
+//   contiguous (B, T, H, D); a key row no live query reaches gets zeros.  delta = rowsum(dO
+//   * O) comes from the caller.
+//
+// What bounds it: 8·D flops per live (q, k) pair (the products S, dP, dV and dK).  At
+// BERT-large's shape with the tutorial layout (B=8, T=2048, H=16, D=64; Fixed, block 16,
+// local 4, global 1, bidirectional; element density 0.2734) that is 75.2 GFLOP, 76.0 us at
+// the H100's 989 bf16 TFLOP/s, against 203 MB of inputs and outputs, 60.6 us at 3.35 TB/s:
+// the operations bound it.  The template kernel computes every pair of each 64 x 64 tile
+// that holds a live cell (at block 16 that is every tile, 3.66x the live pairs) and masks
+// each element.  This design computes only live pairs, on wgmma:
+//   * the schedule (GroupLut in ops/transformer/flash_attention.py, built on the host from
+//     the layout and cached) groups the key blocks by the set of query blocks live for them
+//     and packs each group R = 64 / U blocks (U = min(block, 64) rows, a "slot") to a 64-row
+//     output tile; each tile visits its group's live query blocks, gathered R at a time into
+//     64-row visits.  So every pair of a visit is live except in the last visit of a group
+//     whose size is not a multiple of R (an empty slot) and in causal diagonal blocks, and
+//     only those visits, flagged by the schedule, take the per-element mask.  The tutorial
+//     layout's 1024 tiles per head become 40 output tiles and 288 visits, 97% live;
+//   * gathered tiles by TMA: the maps of q, k, v and dO are 4-D (D, H, T, B) over the
+//     tensors' own strides (views of the fused qkv output work) with U-row boxes, 128-byte
+//     swizzled.  A 16-row box is two swizzle atoms, so four boxes at 2 KB offsets give the
+//     same shared-memory image as one 64-row box and the wgmma descriptors read a gathered
+//     tile unchanged.  An empty slot loads rows from T on, which TMA fills with zeros (its
+//     products add nothing; its lse and delta load as 0 too and its columns are masked);
+//   * a block (one an SM, 384 threads) holds two pipes; a pipe is one consumer warpgroup fed
+//     by one thread of the producer warpgroup through its own half of shared memory: it owns
+//     one output tile at a time, loads its K, V and key bias once (two buffers, so the next
+//     tile's arrive during this one) and streams the tile's visits, Q, dO and their lse and
+//     delta slots, through a ring of kStages stages with full and empty mbarriers; the
+//     producer also hands each tile's and each visit's schedule entries over in shared
+//     memory, so the consumers read no global memory in their loop; setmaxnreg gives the
+//     consumers 224 registers and the producers 56 (as two blocks an SM of one consumer
+//     warpgroup each, at most 200 registers a thread, ptxas serialized the wgmmas, C7512,
+//     and the kernel took 13% longer); an mbarrier wait longer than 2 s traps;
+//   * S^T = K Q^T and dP^T = V dO^T are wgmma m64n64k16 with both operands in shared memory
+//     (K-major, as TMA writes them); the softmax gradient runs on the accumulators in
+//     registers, in log2 units (one FMA and one exp2 for P, one FMA and one multiply for
+//     dS), into bf16 register-A fragments of P^T and dS^T; a row of lse NEG_INF enters as
+//     +inf, so its P is 0 with no select; dV += P^T dO and dK += dS^T Q are wgmma with dO
+//     and Q read through the transpose bit, so no transposed copy is made, and the next
+//     visit's S^T / dP^T are issued right behind them;
+//   * instances by slot rows U (16, 32, 64; the stats' addresses are then constants) and key
+//     bias; the grid is persistent, one block an SM; the work items (an output tile of one
+//     (b, h)), ordered on the host by visit count, longest first, are dealt over the pipes in
+//     a snake as flash_fwd_sm90 deals its items; each key row belongs to one output tile,
+//     written once by its pipe from registers: no atomics, deterministic.
+// Where the time goes (examples/sparse_dkdv_check.py's variants, H100): the softmax step's
+// instructions, the loads' waits and the products add more than they overlap.  PERF.md
+// holds the figures.  flash_bwd_dkdv_lut_sm90_schedule in ops/transformer/flash_attention.py
+// is this kernel's schedule in Python (the items each pipe takes, their slots, visits and
+// flags).
+//
+// C interface for ctypes: the argument list of flash_bwd_dkdv (flash_attention.cu) plus the
+// schedule; returns cudaGetLastError() after the launch (0 on success), -1 for a dtype /
+// head dim / slot size it was not built for, -2 when a tensor map cannot be encoded and -3
+// when cuTensorMapEncodeTiled cannot be found.
+
+#include <cuda.h>  // CUtensorMap and its enums; the encoder is fetched at run time
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <math.h>
+#include <stdint.h>
+
+// The schedule of one call (GroupLut's arrays on the device; a ctypes Structure on the host).
+struct DkdvSchedule {
+  const int* out_slots;    // (tiles, 4): each output tile's key units, -1 for an empty slot
+  const int* vbeg;         // (tiles + 1): tile t's visits are vbeg[t] .. vbeg[t + 1] - 1
+  const int* visit_slots;  // (visits, 4): each visit's query units, -1 for an empty slot
+  const int* masked;       // (visits): 1 where the visit takes the per-element mask
+  const int* order;        // (n_work, 2): the work items (b * H + h, tile), longest first
+  const float* kbias;      // (B, T) fp32 key bias, or null
+  int n_work, unit;        // work items; rows per slot (16, 32 or 64)
+};
+
+namespace {
+
+using bf16 = __nv_bfloat16;
+
+constexpr int kWgThreads = 128;
+constexpr int kThreads = 3 * kWgThreads;  // a producer warpgroup, two consumer warpgroups
+constexpr int kProducerRegs = 56, kConsumerRegs = 224;   // setmaxnreg: 128 x 56 + 256 x 224
+constexpr int kRows = 64;                                 // rows of an output tile and a visit
+constexpr int kBox = 64;                                  // bf16 columns per swizzle row
+constexpr int kBoxBytes = kRows * 128;                    // one 64-column box of a tile
+constexpr int kStages = 4;                                // visits in the ring
+constexpr int kStatSlot = 64;                             // floats per lse / delta slot (256 B)
+constexpr int kStatBytes = 4 * kStatSlot * 4;             // one stage's lse (or delta)
+constexpr float kNegInf = -1e30f;                         // flash_attention.py NEG_INF
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr unsigned long long kHangNs = 2000000000ull;     // an mbarrier wait past this traps
+
+template <int D>
+struct Cfg {
+  static constexpr int kBoxes = D / kBox;
+  static constexpr int kTileBytes = kRows * D * 2;        // a 64-row tile of K, V, Q or dO
+  // one pipe's shared memory, a multiple of 1024 so the second pipe's tiles stay aligned
+  static constexpr size_t kPipe = (4 * static_cast<size_t>(kTileBytes) +
+                                   kStages * (2 * static_cast<size_t>(kTileBytes) +
+                                              2 * kStatBytes) +
+                                   2 * kStatBytes + 4 * 8 * (2 + kStages) +
+                                   8 * (4 + 2 * kStages) + 1023) / 1024 * 1024;
+  static constexpr size_t kSmem = 1024 + 2 * kPipe;
+};
+
+// ---------------------------------------------------------------- PTX helpers
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_addr(bar)), "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_addr(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_addr(bar)) : "memory");
+}
+
+__device__ __forceinline__ bool mbar_try(uint32_t bar, int parity) {
+  uint32_t done;
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+      "selp.u32 %0, 1, 0, p;\n}\n"
+      : "=r"(done)
+      : "r"(bar), "r"(parity)
+      : "memory");
+  return done != 0;
+}
+
+__device__ __forceinline__ unsigned long long globaltimer() {
+  unsigned long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;\n" : "=l"(t));
+  return t;
+}
+
+// Wait for the phase of parity `parity` of an mbarrier; a wait past kHangNs is a fault of the
+// schedule (a barrier nobody will complete): trap, so the launch fails instead of hanging.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
+  const uint32_t a = smem_addr(bar);
+  if (mbar_try(a, parity)) return;
+  const unsigned long long t0 = globaltimer();
+  while (!mbar_try(a, parity))
+    if (globaltimer() - t0 > kHangNs) __trap();
+}
+
+__device__ __forceinline__ void tma_load4(void* dst, const CUtensorMap* map, uint64_t* bar, int c0,
+                                          int c1, int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(c0), "r"(c1), "r"(c2),
+      "r"(c3)
+      : "memory");
+}
+
+__device__ __forceinline__ void tma_load2(void* dst, const CUtensorMap* map, uint64_t* bar, int c0,
+                                          int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(c0), "r"(c1)
+      : "memory");
+}
+
+__device__ __forceinline__ void tma_load3(void* dst, const CUtensorMap* map, uint64_t* bar, int c0,
+                                          int c1, int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
+// Shared-memory matrix descriptor of a 128-byte-swizzled operand (layout type 1): the start
+// address, the leading and stride byte offsets, all in 16-byte units.
+__device__ __forceinline__ uint64_t desc_sw128(const void* p, uint32_t lbo, uint32_t sbo) {
+  return static_cast<uint64_t>((smem_addr(p) & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>(lbo >> 4) << 16) | (static_cast<uint64_t>(sbo >> 4) << 32) |
+         (1ull << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// Keep the compiler from moving reads or writes of registers a wgmma owns across the
+// asynchronous window (between the issue and the wait).
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+template <int N>
+__device__ __forceinline__ void fence_regs(uint32_t (&r)[N][4]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(r[i][j])::"memory");
+}
+
+#define F8(i)                                                                         \
+  "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]), "+f"(d[i + 4]), "+f"(d[i + 5]), \
+      "+f"(d[i + 6]), "+f"(d[i + 7])
+
+// d (64 x 64, fp32) (+)= A (64 x 16) B (16 x 64): A and B K-major in shared memory
+__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da, uint64_t db,
+                                             int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n}\n"
+      : F8(0), F8(8), F8(16), F8(24)
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// d (64 x 64, fp32) += A (64 x 16, bf16 fragments in registers) B (16 x 64): B in shared
+// memory, MN-major (rows of B contiguous: the transpose bit)
+__device__ __forceinline__ void wgmma_rs_n64_tb(float (&d)[32], const uint32_t (&a)[4],
+                                                uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : F8(0), F8(8), F8(16), F8(24)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+#undef F8
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// 2^x with one MUFU instruction (denormal results flush to 0; 2^-inf = 0)
+__device__ __forceinline__ float exp2_ftz(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// S^T = K Q^T and dP^T = V dO^T of one visit, every operand in shared memory (K-major, as
+// TMA writes them): one commit group.  It may be issued while the last visit's dV and dK are
+// in flight, so it touches s and dp with nothing but the wgmmas: a register fence there
+// counts as a definition inside their pipeline stage, and ptxas then serializes every
+// wgmma of the kernel (C7515)
+template <int D>
+__device__ __forceinline__ void issue_sdp(float (&s)[32], float (&dp)[32], const unsigned char* tK,
+                                          const unsigned char* tV, const unsigned char* tQ,
+                                          const unsigned char* tdO) {
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    const int off = (kk / 4) * kBoxBytes + (kk % 4) * 32;
+    wgmma_ss_n64(s, desc_sw128(tK + off, 16, 1024), desc_sw128(tQ + off, 16, 1024), kk > 0);
+  }
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    const int off = (kk / 4) * kBoxBytes + (kk % 4) * 32;
+    wgmma_ss_n64(dp, desc_sw128(tV + off, 16, 1024), desc_sw128(tdO + off, 16, 1024), kk > 0);
+  }
+  wgmma_commit();
+}
+
+// P = 2^(S scale log2e + kbias log2e - lse log2e) and dS = P (dP scale - delta scale) of one
+// visit, from its S^T and dP^T accumulators, its lse and delta slots (sl, sd) and its entries
+// (vm: the mask flag and the query units); a row of lse NEG_INF takes +inf, so its P is 0.
+// Only a flagged visit (kMasked) masks: an empty query slot, and when causal a query before
+// the key.  P^T and dS^T go straight to bf16 A fragments: columns 8 n + qd + e of row r are
+// word 2 (n & 1) + r of fragment n / 2 (a 16-column slice of the accumulator is one
+// fragment).  s and dp are only read: no instruction but a wgmma defines an accumulator while
+// one is in flight, else ptxas serializes the kernel's wgmmas (C7515).
+template <int U, bool kMasked, bool kBias>
+__device__ __forceinline__ void softmax_grad(const float (&s)[32], const float (&dp)[32],
+                                             uint32_t (&pa)[4][4], uint32_t (&da)[4][4],
+                                             const float* sl, const float* sd, const int* vm,
+                                             const float (&kb2)[2], const int (&kpos)[2], int qd,
+                                             int causal, float scale, float scale2) {
+#pragma unroll
+  for (int n = 0; n < 8; ++n) {
+    float l2[2], ds[2];
+    int qpos[2] = {0, 0};
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      // column 8 n + qd + e (qd + e < 8): its slot and its row there are constants plus qd + e
+      const int slot = (8 * n) / U, row = (8 * n) % U + qd + e;
+      const int at = slot * kStatSlot + row;
+      const float lse = sl[at];
+      l2[e] = lse > kNegInf * 0.5f ? lse * kLog2e : INFINITY;
+      ds[e] = sd[at] * scale;
+      if (kMasked) {
+        const int u = vm[1 + slot];
+        qpos[e] = u < 0 ? -1 : u * U + row;
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      float pv[2], dsv[2];
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int idx = 4 * n + 2 * r + e;
+        pv[e] = exp2_ftz(fmaf(s[idx], scale2, kBias ? kb2[r] - l2[e] : -l2[e]));
+        if (kMasked && !(qpos[e] >= 0 && (!causal || qpos[e] >= kpos[r]))) pv[e] = 0.f;
+        dsv[e] = pv[e] * fmaf(dp[idx], scale, -ds[e]);
+      }
+      pa[n >> 1][2 * (n & 1) + r] = pack_bf16(pv[0], pv[1]);
+      da[n >> 1][2 * (n & 1) + r] = pack_bf16(dsv[0], dsv[1]);
+    }
+  }
+}
+
+struct Params {
+  DkdvSchedule s;
+  bf16* dk;
+  bf16* dv;
+  int T, H, causal;
+  float scale, scale2;          // scale; scale * log2 e
+};
+
+// ---------------------------------------------------------------- the kernel
+// Accumulator layout of the warpgroup's 64 x 64 products (wgmma, fp32): warp w holds rows
+// 16 w + g and 16 w + g + 8 (g = lane / 4); element 4 n + 2 r + e is row 16 w + g + 8 r,
+// column 8 n + 2 (lane % 4) + e.  Rows are key rows of the output tile, columns query rows
+// of the visit (in S^T and dP^T) or head-dim columns (in dK and dV).
+//
+// The producer hands each work item's and each visit's schedule entries to the consumers
+// through shared memory, written before its arrival on the item's (visit's) full barrier,
+// so the consumers read no global memory in their loop; it reads a visit's entries one
+// visit ahead.  The consumers issue the next visit's S^T and dP^T right behind this
+// visit's dV and dK, so the tensor cores run the two groups back to back.
+template <int D, int U, bool kBias>
+__global__ void __launch_bounds__(kThreads, 1)
+    dkdv_sm90_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
+                     const __grid_constant__ CUtensorMap tv,
+                     const __grid_constant__ CUtensorMap tdo,
+                     const __grid_constant__ CUtensorMap tlse,
+                     const __grid_constant__ CUtensorMap tdelta,
+                     const __grid_constant__ CUtensorMap tkb, Params p) {
+  using C = Cfg<D>;
+  constexpr int kB = C::kBoxes, kS = kStages, kTile = C::kTileBytes;
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  // two pipes a block, each a consumer warpgroup fed by one producer thread (warp 0 or 1 of
+  // the producer warpgroup, lane 0) through its own half of shared memory and barriers;
+  // 128-byte swizzled tiles must start on 1024 bytes
+  const int wg = threadIdx.x / kWgThreads;
+  const int pipe = wg == 0 ? (threadIdx.x >> 5) & 1 : wg - 1;
+  unsigned char* smem =
+      smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023) + pipe * C::kPipe;
+  unsigned char* sK = smem;                      // [buffer][box][64 rows][128 bytes]
+  unsigned char* sV = sK + 2 * kTile;            // the same
+  unsigned char* sQ = sV + 2 * kTile;            // [stage][box][64 rows][128 bytes]
+  unsigned char* sdO = sQ + kS * kTile;          // the same
+  float* sLse = reinterpret_cast<float*>(sdO + kS * kTile);  // [stage][slot][kStatSlot]
+  float* sDelta = sLse + kS * 4 * kStatSlot;                 // the same
+  float* sKb = sDelta + kS * 4 * kStatSlot;                  // [buffer][slot][kStatSlot]
+  int* sItem = reinterpret_cast<int*>(sKb + 2 * 4 * kStatSlot);  // [buffer][8]
+  int* sVisit = sItem + 2 * 8;                                   // [stage][8]
+  uint64_t* kv_full = reinterpret_cast<uint64_t*>(sVisit + kS * 8);
+  uint64_t* kv_empty = kv_full + 2;
+  uint64_t* full = kv_empty + 2;
+  uint64_t* empty = full + kS;
+
+  constexpr int R = kRows / U;  // slots per tile
+  const int T = p.T, H = p.H;
+  const DkdvSchedule sc = p.s;
+  // in round r pipe x = 2 blockIdx.x + pipe takes item r G + x, or r G + G - 1 - x when r is
+  // odd (G = 2 gridDim.x): a snake over the longest-first items, as flash_fwd_sm90 deals them
+  auto work = [&](int r) {
+    const int G = 2 * gridDim.x, x = 2 * blockIdx.x + pipe;
+    return r * G + ((r & 1) ? G - 1 - x : x);
+  };
+
+  if (threadIdx.x == 0 || threadIdx.x == 32) {  // each pipe's producer thread, its barriers
+#pragma unroll
+    for (int b = 0; b < 2; ++b) {
+      mbar_init(&kv_full[b], 1);
+      mbar_init(&kv_empty[b], 4);  // one arrival per consumer warp
+    }
+#pragma unroll
+    for (int s = 0; s < kS; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 4);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (wg == 0) {
+    // ------------------------------------------------------------ producer
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kProducerRegs));
+    if (threadIdx.x != 0 && threadIdx.x != 32) return;
+    int vt = 0;  // visits issued to this pipe
+    for (int i = 0, w = work(0); w < sc.n_work; w = work(++i)) {
+      const int2 item = reinterpret_cast<const int2*>(sc.order)[w];  // (b * H + h, tile)
+      const int b = item.x / H, h = item.x % H;
+      const int v0 = sc.vbeg[item.y], v1 = sc.vbeg[item.y + 1];
+      const int4 out = reinterpret_cast<const int4*>(sc.out_slots)[item.y];
+      int4 next = v0 < v1 ? reinterpret_cast<const int4*>(sc.visit_slots)[v0] : out;
+      int next_masked = v0 < v1 ? sc.masked[v0] : 0;
+      // the item's K / V buffer: its entries, then (if it has visits) its loads
+      const int kb = i & 1, kph = (i >> 1) & 1;
+      mbar_wait(&kv_empty[kb], kph ^ 1);
+      int* meta = sItem + kb * 8;
+      meta[0] = b;
+      meta[1] = h;
+      meta[2] = v1 - v0;
+      meta[3] = out.x;
+      meta[4] = out.y;
+      meta[5] = out.z;
+      meta[6] = out.w;
+      if (v0 == v1) {  // no visit: the consumers write zeros
+        mbar_arrive(&kv_full[kb]);
+        continue;
+      }
+      mbar_expect_tx(&kv_full[kb], 2 * kTile + (kBias ? kRows * 4 : 0));
+#pragma unroll
+      for (int s = 0; s < 4; ++s) {
+        if (s >= R) break;
+        const int u = (&out.x)[s];
+        const int r0 = u < 0 ? T : u * U;  // an empty slot: rows past T, zeros
+#pragma unroll
+        for (int x = 0; x < kB; ++x) {
+          const int off = kb * kTile + x * kBoxBytes + s * U * 128;
+          tma_load4(sK + off, &tk, &kv_full[kb], x * kBox, h, r0, b);
+          tma_load4(sV + off, &tv, &kv_full[kb], x * kBox, h, r0, b);
+        }
+        if (kBias) tma_load2(sKb + (kb * 4 + s) * kStatSlot, &tkb, &kv_full[kb], r0, b);
+      }
+      for (int v = v0; v < v1; ++v, ++vt) {
+        const int4 slots = next;
+        const int masked = next_masked;
+        if (v + 1 < v1) {  // the next visit's entries, read while this one is issued
+          next = reinterpret_cast<const int4*>(sc.visit_slots)[v + 1];
+          next_masked = sc.masked[v + 1];
+        }
+        const int st = vt % kS, ph = (vt / kS) & 1;
+        mbar_wait(&empty[st], ph ^ 1);
+        int* vm = sVisit + st * 8;
+        vm[0] = masked;
+        vm[1] = slots.x;
+        vm[2] = slots.y;
+        vm[3] = slots.z;
+        vm[4] = slots.w;
+        mbar_expect_tx(&full[st], 2 * kTile + 2 * kRows * 4);
+#pragma unroll
+        for (int s = 0; s < 4; ++s) {
+          if (s >= R) break;
+          const int u = (&slots.x)[s];
+          const int r0 = u < 0 ? T : u * U;
+#pragma unroll
+          for (int x = 0; x < kB; ++x) {
+            const int off = st * kTile + x * kBoxBytes + s * U * 128;
+            tma_load4(sQ + off, &tq, &full[st], x * kBox, h, r0, b);
+            tma_load4(sdO + off, &tdo, &full[st], x * kBox, h, r0, b);
+          }
+          tma_load3(sLse + (st * 4 + s) * kStatSlot, &tlse, &full[st], r0, h, b);
+          tma_load3(sDelta + (st * 4 + s) * kStatSlot, &tdelta, &full[st], r0, h, b);
+        }
+      }
+    }
+    return;
+  }
+  // -------------------------------------------------------------- consumers
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kConsumerRegs));
+  const int tid = static_cast<int>(threadIdx.x) - wg * kWgThreads;
+  const int warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, qd = (lane & 3) * 2;
+  const float scale = p.scale, scale2 = p.scale2;
+  int vt = 0;  // visits consumed by this pipe
+  for (int i = 0, w = work(0); w < sc.n_work; w = work(++i)) {
+    const int kb = i & 1, kph = (i >> 1) & 1;
+    mbar_wait(&kv_full[kb], kph);
+    const int* meta = sItem + kb * 8;
+    const int b = meta[0], h = meta[1], nv = meta[2];
+    // this thread's two key rows: row 16 warp + g + 8 r of the tile, in slot row / U
+    int kpos[2];
+    float kb2[2] = {0.f, 0.f};  // their key bias, log2 units
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int rl = 16 * warp + g + 8 * r, slot = rl / U;
+      const int u = meta[3 + slot];
+      kpos[r] = u < 0 ? -1 : u * U + (rl & (U - 1));
+      if (kBias) kb2[r] = sKb[(kb * 4 + slot) * kStatSlot + (rl & (U - 1))] * kLog2e;
+    }
+    float dk[kB][32], dv[kB][32];
+#pragma unroll
+    for (int x = 0; x < kB; ++x) {
+#pragma unroll
+      for (int e = 0; e < 32; ++e) dk[x][e] = dv[x][e] = 0.f;
+      fence_regs(dk[x]);  // zeroed here, before the first wgmma is issued
+      fence_regs(dv[x]);
+    }
+
+    if (nv > 0) {
+      const unsigned char* tK = sK + kb * kTile;
+      const unsigned char* tV = sV + kb * kTile;
+      float s[32], dp[32];
+      uint32_t pa[4][4], da[4][4];
+      int st = vt % kS;
+      mbar_wait(&full[st], (vt / kS) & 1);
+      issue_sdp<D>(s, dp, tK, tV, sQ + st * kTile, sdO + st * kTile);
+      for (int j = 0; j < nv; ++j, ++vt) {
+        // S^T and dP^T of this visit are done, and the last visit's dV and dK
+        wgmma_wait<0>();
+        fence_regs(s);
+        fence_regs(dp);
+#pragma unroll
+        for (int x = 0; x < kB; ++x) {
+          fence_regs(dv[x]);
+          fence_regs(dk[x]);
+        }
+        fence_regs(pa);
+        fence_regs(da);
+        if (j > 0 && lane == 0) mbar_arrive(&empty[(vt - 1) % kS]);
+        const float* sl = sLse + st * 4 * kStatSlot;
+        const float* sd = sDelta + st * 4 * kStatSlot;
+        const int* vm = sVisit + st * 8;
+
+        if (vm[0] != 0)
+          softmax_grad<U, true, kBias>(s, dp, pa, da, sl, sd, vm, kb2, kpos, qd, p.causal, scale,
+                                       scale2);
+        else
+          softmax_grad<U, false, kBias>(s, dp, pa, da, sl, sd, vm, kb2, kpos, qd, p.causal, scale,
+                                        scale2);
+
+        // dV += P^T dO and dK += dS^T Q, dO and Q read through the transpose bit
+        const unsigned char* tQ = sQ + st * kTile;
+        const unsigned char* tdO = sdO + st * kTile;
+#pragma unroll
+        for (int x = 0; x < kB; ++x) {
+          fence_regs(dv[x]);
+          fence_regs(dk[x]);
+        }
+        fence_regs(pa);
+        fence_regs(da);
+        wgmma_fence();
+#pragma unroll
+        for (int x = 0; x < kB; ++x)
+#pragma unroll
+          for (int kk = 0; kk < 4; ++kk)
+            wgmma_rs_n64_tb(dv[x], pa[kk],
+                            desc_sw128(tdO + x * kBoxBytes + kk * 16 * 128, kBoxBytes, 1024));
+#pragma unroll
+        for (int x = 0; x < kB; ++x)
+#pragma unroll
+          for (int kk = 0; kk < 4; ++kk)
+            wgmma_rs_n64_tb(dk[x], da[kk],
+                            desc_sw128(tQ + x * kBoxBytes + kk * 16 * 128, kBoxBytes, 1024));
+        wgmma_commit();
+        // the next visit's S^T and dP^T right behind them; after the last visit, this
+        // visit's again (its stage is still held; the results go unused): an issue that
+        // every iteration makes keeps ptxas from serializing the wgmmas (C7515)
+        if (j + 1 < nv) {
+          st = (vt + 1) % kS;
+          mbar_wait(&full[st], ((vt + 1) / kS) & 1);
+        }
+        issue_sdp<D>(s, dp, tK, tV, sQ + st * kTile, sdO + st * kTile);
+      }
+      wgmma_wait<0>();
+#pragma unroll
+      for (int x = 0; x < kB; ++x) {
+        fence_regs(dv[x]);
+        fence_regs(dk[x]);
+      }
+      fence_regs(pa);
+      fence_regs(da);
+      if (lane == 0) mbar_arrive(&empty[(vt - 1) % kS]);
+    }
+    if (lane == 0) mbar_arrive(&kv_empty[kb]);  // this item's entries and K / V are read
+
+    // ---------------------------------------------------------- epilogue
+    // each of the thread's rows in a live slot gets its 2 x kB x 8 column pairs, bf16
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      if (kpos[r] < 0) continue;
+      const long long row = (static_cast<long long>(b) * T + kpos[r]) * H + h;
+      bf16* ok = p.dk + row * D;
+      bf16* ov = p.dv + row * D;
+#pragma unroll
+      for (int x = 0; x < kB; ++x)
+#pragma unroll
+        for (int n = 0; n < 8; ++n) {
+          const int col = x * kBox + 8 * n + qd, e = 4 * n + 2 * r;
+          *reinterpret_cast<uint32_t*>(ok + col) = pack_bf16(dk[x][e], dk[x][e + 1]);
+          *reinterpret_cast<uint32_t*>(ov + col) = pack_bf16(dv[x][e], dv[x][e + 1]);
+        }
+    }
+  }
+}
+
+// ---------------------------------------------------------------- host side
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled fetched at run time, so the library needs no -lcuda
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* f = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t e = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &f, 12000,
+                                                           cudaEnableDefault, &found);
+#else
+    const cudaError_t e =
+        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &f, cudaEnableDefault, &found);
+#endif
+    if (e != cudaSuccess || found != cudaDriverEntryPointSuccess) return nullptr;
+    fn = reinterpret_cast<EncodeTiled>(f);
+  }
+  return fn;
+}
+
+// A 4-D map (D, H, T, B) of a bf16 (B, T, H, D) tensor with element strides s[0..2] for
+// (b, t, h), read in boxes of 64 columns x `rows` rows of one (b, h), 128-byte swizzled.
+bool make_map(EncodeTiled enc, CUtensorMap* map, const void* base, const long long* s, int B, int T,
+              int H, int D, int rows) {
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(D), static_cast<cuuint64_t>(H),
+                              static_cast<cuuint64_t>(T), static_cast<cuuint64_t>(B)};
+  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(s[2]) * 2,
+                                 static_cast<cuuint64_t>(s[1]) * 2,
+                                 static_cast<cuuint64_t>(s[0]) * 2};
+  const cuuint32_t box[4] = {kBox, 1, static_cast<cuuint32_t>(rows), 1};
+  const cuuint32_t estr[4] = {1, 1, 1, 1};
+  return enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims, strides, box,
+             estr, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+             CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// A 3-D map (T, H, B) of a contiguous fp32 (B, H, T) tensor (lse, delta), `rows` per box.
+bool make_stat_map(EncodeTiled enc, CUtensorMap* map, const float* base, int B, int T, int H,
+                   int rows) {
+  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(T), static_cast<cuuint64_t>(H),
+                              static_cast<cuuint64_t>(B)};
+  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(T) * 4,
+                                 static_cast<cuuint64_t>(T) * H * 4};
+  const cuuint32_t box[3] = {static_cast<cuuint32_t>(rows), 1, 1};
+  const cuuint32_t estr[3] = {1, 1, 1};
+  return enc(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 3, const_cast<float*>(base), dims, strides,
+             box, estr, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+             CU_TENSOR_MAP_L2_PROMOTION_NONE, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// A 2-D map (T, B) of the contiguous fp32 (B, T) key bias, `rows` per box.
+bool make_bias_map(EncodeTiled enc, CUtensorMap* map, const float* base, int B, int T, int rows) {
+  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(T), static_cast<cuuint64_t>(B)};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(T) * 4};
+  const cuuint32_t box[2] = {static_cast<cuuint32_t>(rows), 1};
+  const cuuint32_t estr[2] = {1, 1};
+  return enc(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2, const_cast<float*>(base), dims, strides,
+             box, estr, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+             CU_TENSOR_MAP_L2_PROMOTION_NONE, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int D, int U, bool kBias>
+int launch(const void* q, const void* k, const void* v, const void* dout, const float* lse,
+           const float* delta, void* dk, void* dv, const long long* strides, int B, int T, int H,
+           int causal, float scale, const DkdvSchedule& s, cudaStream_t stream) {
+  using C = Cfg<D>;
+  EncodeTiled enc = encode_tiled();
+  if (enc == nullptr) return -3;
+  CUtensorMap mq, mk, mv, mdo, mlse, mdelta, mkb = {};
+  if ((kBias && !make_bias_map(enc, &mkb, s.kbias, B, T, U)) ||
+      !make_map(enc, &mq, q, strides, B, T, H, D, U) ||
+      !make_map(enc, &mk, k, strides + 3, B, T, H, D, U) ||
+      !make_map(enc, &mv, v, strides + 6, B, T, H, D, U) ||
+      !make_map(enc, &mdo, dout, strides + 9, B, T, H, D, U) ||
+      !make_stat_map(enc, &mlse, lse, B, T, H, U) ||
+      !make_stat_map(enc, &mdelta, delta, B, T, H, U))
+    return -2;
+  const Params p = {s, static_cast<bf16*>(dk), static_cast<bf16*>(dv), T, H, causal, scale,
+                    scale * kLog2e};
+  auto kernel = dkdv_sm90_kernel<D, U, kBias>;
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       static_cast<int>(C::kSmem));
+  if (e == cudaSuccess) e = cudaGetDevice(&dev);
+  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, C::kSmem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  if (per_sm < 1) per_sm = 1;
+  const int half = (s.n_work + 1) / 2;
+  const int grid = sms * per_sm < half ? sms * per_sm : half;  // persistent, two pipes a block
+  kernel<<<grid, kThreads, C::kSmem, stream>>>(mq, mk, mv, mdo, mlse, mdelta, mkb, p);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// the instance of a head dim: by the slot rows and whether there is a key bias
+template <int D>
+int launch_any(const void* q, const void* k, const void* v, const void* dout, const float* lse,
+               const float* delta, void* dk, void* dv, const long long* strides, int B, int T,
+               int H, int causal, float scale, const DkdvSchedule& s, cudaStream_t st) {
+#define DKDV_LAUNCH(U, BIAS) \
+  launch<D, U, BIAS>(q, k, v, dout, lse, delta, dk, dv, strides, B, T, H, causal, scale, s, st)
+  const bool bias = s.kbias != nullptr;
+  switch (s.unit) {
+    case 16: return bias ? DKDV_LAUNCH(16, true) : DKDV_LAUNCH(16, false);
+    case 32: return bias ? DKDV_LAUNCH(32, true) : DKDV_LAUNCH(32, false);
+    case 64: return bias ? DKDV_LAUNCH(64, true) : DKDV_LAUNCH(64, false);
+    default: return -1;
+  }
+#undef DKDV_LAUNCH
+}
+
+}  // namespace
+
+// strides: 12 int64, the (b, t, h) element strides of q, k, v and dout; s: the schedule.
+extern "C" int flash_bwd_dkdv_lut_sm90(int dtype, int head_dim, const void* q, const void* k,
+                                       const void* v, const void* dout, const float* lse,
+                                       const float* delta, void* dk, void* dv,
+                                       const long long* strides, int B, int T, int H,
+                                       int causal, float scale, const DkdvSchedule* s,
+                                       void* stream) {
+  if (dtype != 1 || s == nullptr || (s->unit != 16 && s->unit != 32 && s->unit != 64) ||
+      T % s->unit != 0)
+    return -1;
+  if (s->n_work == 0) return 0;
+  cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
+  if (head_dim != 64) return -1;
+  return launch_any<64>(q, k, v, dout, lse, delta, dk, dv, strides, B, T, H, causal, scale, *s,
+                        st);
+}

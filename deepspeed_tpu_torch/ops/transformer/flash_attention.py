@@ -13,8 +13,9 @@ CUDA kernels (``deepspeed_tpu_torch/csrc/flash_attention.cuh``, entries in
 ``flash_attention.cu``, ``flash_attention_sparse_fwd.cu``,
 ``flash_attention_sparse_bwd.cu`` and ``flash_attention_band_merge_fwd.cu``;
 the dense bf16 forward at head dims 64 and 128 in
-``flash_attention_fwd_sm90.cu``), one wrapper and one launch counter per
-entry:
+``flash_attention_fwd_sm90.cu``, the block-sparse bf16 dK/dV in
+``flash_attention_sparse_bwd_sm90.cu``), one wrapper and one launch counter
+per entry:
 
 - ``flash_fwd_sm90`` (for ``_fwd_kernel`` 144, dense): the bf16 forward
   at head dims 64 and 128 with TMA, an mbarrier ring fed by a producer
@@ -38,6 +39,13 @@ entry:
 - ``flash_bwd_dkdv`` / ``_biased`` / ``_lut`` (for ``_bwd_dkdv_kernel``
   617): per k tile over the (live) q tiles, P recomputed from the lse, dV
   and dK;
+- ``flash_bwd_dkdv_lut_sm90`` (for ``_bwd_dkdv_kernel`` with ``use_lut``):
+  the block-sparse dK/dV in bf16 at head dim 64 over a
+  :class:`GroupLut` (key blocks grouped by their live query blocks, both
+  sides gathered by TMA into 64-row tiles, every product a ``wgmma``);
+  :func:`flash_bwd_dkdv_lut` sends CUDA tensors there by dtype, head dim and
+  the absence of a (T, T) score bias (:func:`sparse_dkdv_kernel`), and
+  :func:`flash_bwd_dkdv_lut_sm90_schedule` is its schedule in Python;
 - ``flash_bwd_dq`` / ``_biased`` / ``_lut`` (for ``_bwd_dq_kernel`` 691):
   per q tile over the (live) k tiles, dQ.
 
@@ -106,7 +114,8 @@ NEG_INF = -1e30
 DENSE_KERNELS = ("flash_fwd", "flash_fwd_sm90", "flash_bwd_dkdv", "flash_bwd_dq")
 BIASED_KERNELS = ("flash_fwd_biased", "flash_bwd_dkdv_biased", "flash_bwd_dq_biased")
 LUT_KERNELS = ("flash_fwd_lut", "flash_fwd_lut_ring", "flash_fwd_banded",
-               "flash_fwd_merged", "flash_bwd_dkdv_lut", "flash_bwd_dq_lut")
+               "flash_fwd_merged", "flash_bwd_dkdv_lut", "flash_bwd_dkdv_lut_sm90",
+               "flash_bwd_dq_lut")
 KERNELS = DENSE_KERNELS + BIASED_KERNELS + LUT_KERNELS
 # entry -> (library = csrc/<library>.cu, C function, variant argument or None)
 ENTRIES = {
@@ -121,6 +130,8 @@ ENTRIES = {
     "flash_fwd_merged": ("flash_attention_band_merge_fwd", "flash_fwd_variant", 5),
     "flash_bwd_dkdv_biased": ("flash_attention_sparse_bwd", "flash_bwd_dkdv_variant", 1),
     "flash_bwd_dkdv_lut": ("flash_attention_sparse_bwd", "flash_bwd_dkdv_variant", 2),
+    "flash_bwd_dkdv_lut_sm90": ("flash_attention_sparse_bwd_sm90", "flash_bwd_dkdv_lut_sm90",
+                                None),
     "flash_bwd_dq_biased": ("flash_attention_sparse_bwd", "flash_bwd_dq_variant", 1),
     "flash_bwd_dq_lut": ("flash_attention_sparse_bwd", "flash_bwd_dq_variant", 2),
 }
@@ -130,6 +141,8 @@ HEAD_DIMS = {torch.bfloat16: (64, 96, 128), torch.float32: (64, 96, 128)}
 # flash_fwd_sm90: the dtype and head dims it is built for, its q tile and its k tile
 # (csrc/flash_attention_fwd_sm90.cu: kBQ, Cfg<D>::kBN)
 SM90_HEAD_DIMS = {torch.bfloat16: (64, 128)}
+# flash_bwd_dkdv_lut_sm90: the dtype and head dim it is built for (at 128 it spills)
+SM90_DKDV_HEAD_DIMS = {torch.bfloat16: (64,)}
 SM90_BLOCK_Q, SM90_BLOCK_N = 128, 128
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 TILE = 64            # the kernels' q and k tile rows (kBQ, kBK)
@@ -205,10 +218,18 @@ class TileLut:
             np.ascontiguousarray(self.tile_mask.transpose(0, 2, 1)))
         self._device = {}
         self._merged = None
+        self._groups = {}
 
     @property
     def heads(self):
         return self.layout.shape[0]
+
+    def groups(self, side):
+        """The :class:`GroupLut` of one side of the backward (built once):
+        ``"k"`` for dK/dV, ``"q"`` for dQ."""
+        if side not in self._groups:
+            self._groups[side] = GroupLut(self, side)
+        return self._groups[side]
 
     @property
     def tile_density(self):
@@ -248,6 +269,116 @@ class TileLut:
                 mask = mask & torch.ones((self.T, self.T), dtype=torch.bool,
                                          device=device).tril()
             self._device[key] = mask
+        return self._device[key]
+
+
+class GroupLut:
+    """The grouped schedule of one side of the block-sparse backward, built
+    from a :class:`TileLut`'s layout: ``side="k"`` (dK/dV: output key rows,
+    visited query rows) or ``"q"`` (dQ: the roles swapped).
+
+    The layout is taken in units of ``unit = min(block, 64)`` rows, ``slots
+    = 64 // unit`` to a 64-row tile; at blocks 64 and above a unit is a
+    64-row slice of a block.  A pair of units is live iff its layout cell
+    is and, when causal, the key unit is at or below the query unit (exact:
+    units never straddle the diagonal).  For each head layout the output
+    units are grouped by the set of units live for them (groups in order of
+    their first unit, units ascending), and each group is packed ``slots``
+    units to an **output tile**; an output tile's **visits** are its
+    group's live units in ascending order, ``slots`` at a time.  So a pair
+    of a visit is live unless a slot is empty (``-1``: the last tile or
+    visit of a group whose size is not a multiple of ``slots``) or the pair
+    is a causal diagonal unit, and a visit is ``masked`` iff it has an
+    empty visited slot or, when causal, shares a unit with its tile (an
+    empty output slot needs no mask: its rows are not written and no other
+    row reads them).  Every live pair lies in exactly one visit, every
+    output row in exactly one tile (a unit with no live partner in a tile
+    with no visits: its rows get zeros), and units never cross ``T`` (a
+    multiple of the block).
+
+    Arrays (int32): ``out_slots`` (tiles, slots), ``vbeg`` (tiles + 1: tile
+    ``t``'s visits are ``vbeg[t]:vbeg[t + 1]``), ``visit_slots`` (visits,
+    slots), ``masked`` (visits), ``tile_off`` (heads + 1: head layout
+    ``l``'s tiles are ``tile_off[l]:tile_off[l + 1]``)."""
+
+    def __init__(self, lut, side):
+        if side not in ("k", "q"):
+            raise ValueError(f"side {side!r}: 'k' (dK/dV) or 'q' (dQ)")
+        U = min(lut.block, TILE)
+        R, f, nu = TILE // U, lut.block // U, lut.T // U
+        live = (lut.layout > 0).repeat(f, axis=1).repeat(f, axis=2)   # (Lh, q unit, k unit)
+        if lut.causal:
+            live = live & np.tril(np.ones((nu, nu), bool))
+        if side == "k":
+            live = live.transpose(0, 2, 1)                           # (Lh, out unit, visited)
+        self.unit, self.slots, self.heads = U, R, lut.heads
+        pad = lambda units: list(units) + [-1] * (R - len(units))    # noqa: E731
+        out, vbeg, visits, masked, tile_off = [], [0], [], [], [0]
+        for rows in live:
+            sets, first, inverse = np.unique(rows, axis=0, return_index=True,
+                                             return_inverse=True)
+            for gid in np.argsort(first, kind="stable"):
+                units = np.flatnonzero(inverse.reshape(-1) == gid).tolist()
+                seen = np.flatnonzero(sets[gid]).tolist()
+                for t0 in range(0, len(units), R):
+                    tile = pad(units[t0:t0 + R])
+                    out.append(tile)
+                    for v0 in range(0, len(seen), R):
+                        slots = pad(seen[v0:v0 + R])
+                        visits.append(slots)
+                        masked.append(-1 in slots or (lut.causal and bool(
+                            set(slots) & set(tile) - {-1})))
+                    vbeg.append(len(visits))
+            tile_off.append(len(out))
+        self.out_slots = np.array(out, np.int32).reshape(-1, R)
+        self.vbeg = np.array(vbeg, np.int32)
+        self.visit_slots = np.array(visits, np.int32).reshape(-1, R)
+        self.masked = np.array(masked, np.int32)
+        self.tile_off = np.array(tile_off, np.int32)
+        self._device = {}
+
+    @property
+    def visits_per_head(self):
+        """Visits of each head layout."""
+        return np.diff(self.vbeg[self.tile_off])
+
+    @property
+    def tiles_per_head(self):
+        """Output tiles of each head layout."""
+        return np.diff(self.tile_off)
+
+    def order(self, B, H):
+        """The work items of a (B, T, H) call, ``(n_work, 2)`` int32 rows
+        ``(b * H + h, tile)``: every output tile of every (b, h), longest
+        (most visits) first, then by (b, h) and tile, so the tiles of one
+        (b, h) run side by side and share its Q and dO in L2."""
+        key = ("order", B, H)
+        if key not in self._device:
+            bh, tile = [], []
+            for x in range(B * H):
+                l = x % H if self.heads > 1 else 0
+                lo, hi = self.tile_off[l], self.tile_off[l + 1]
+                bh.append(np.full(hi - lo, x, np.int32))
+                tile.append(np.arange(lo, hi, dtype=np.int32))
+            bh, tile = np.concatenate(bh), np.concatenate(tile)
+            nv = np.diff(self.vbeg)[tile]
+            pick = np.lexsort((tile, bh, -nv))
+            self._device[key] = np.ascontiguousarray(np.stack([bh[pick], tile[pick]], 1))
+        return self._device[key]
+
+    def tensors(self, device, B, H):
+        """``out_slots`` and ``visit_slots`` (padded to 4 slots with -1:
+        one 16-byte row each), ``vbeg``, ``masked`` and the ``order`` of a
+        (B, T, H) call as int32 tensors on ``device`` (cached)."""
+        key = (str(device), B, H)
+        if key not in self._device:
+            pad = lambda a: np.pad(a, ((0, 0), (0, 4 - a.shape[1])),  # noqa: E731
+                                   constant_values=-1)
+            arrays = {"out_slots": pad(self.out_slots), "vbeg": self.vbeg,
+                      "visit_slots": pad(self.visit_slots), "masked": self.masked,
+                      "order": self.order(B, H)}
+            self._device[key] = {name: torch.as_tensor(a, device=device)
+                                 for name, a in arrays.items()}
         return self._device[key]
 
 
@@ -598,11 +729,8 @@ class _Extra(ctypes.Structure):
                 ("band", ctypes.c_void_p)]
 
 
-def _extra(name, q, lut, kbias, abias, rows):
-    """The ``Extra`` of one launch (``rows``: "k" for the forward and dQ
-    loops over the LUT's k tiles, "q" for dK/dV's over its q tiles; ``lut``
-    a :class:`TileLut`, :class:`MergedLut` or :class:`BandLut`), after
-    checking the biases and the LUT against ``q``."""
+def _check_extra(name, q, lut, kbias, abias):
+    """Raise unless the biases and the LUT fit ``q``."""
     B, T, H, _ = q.shape
     for label, bias, shape in (("key_padding_bias", kbias, (B, T)),
                                ("attn_bias", abias, (T, T))):
@@ -610,13 +738,21 @@ def _extra(name, q, lut, kbias, abias, rows):
                                  or not bias.is_contiguous() or bias.device != q.device):
             raise ValueError(f"{name}: {label} must be a contiguous fp32 {shape} tensor "
                              "on q's device")
+    if lut is not None and (lut.T != T or lut.heads not in (1, H)):
+        raise ValueError(f"{name}: LUT of T={lut.T}, {lut.heads} head layouts does "
+                         f"not fit q {tuple(q.shape)}")
+
+
+def _extra(name, q, lut, kbias, abias, rows):
+    """The ``Extra`` of one launch (``rows``: "k" for the forward and dQ
+    loops over the LUT's k tiles, "q" for dK/dV's over its q tiles; ``lut``
+    a :class:`TileLut`, :class:`MergedLut` or :class:`BandLut`), after
+    checking the biases and the LUT against ``q``."""
+    _check_extra(name, q, lut, kbias, abias)
     x = _Extra()
     x.kbias = None if kbias is None else kbias.data_ptr()
     x.abias = None if abias is None else abias.data_ptr()
     if lut is not None:
-        if lut.T != T or lut.heads not in (1, H):
-            raise ValueError(f"{name}: LUT of T={lut.T}, {lut.heads} head layouts does "
-                             f"not fit q {tuple(q.shape)}")
         if isinstance(lut, BandLut):
             x.band = ctypes.addressof(lut.param())
             return x
@@ -635,6 +771,15 @@ def _strides(*tensors):
     return (ctypes.c_longlong * 12)(*vals)
 
 
+class _DkdvSchedule(ctypes.Structure):
+    """``DkdvSchedule`` of ``csrc/flash_attention_sparse_bwd_sm90.cu``: a
+    :class:`GroupLut`'s arrays, the work order and the key bias."""
+    _fields_ = [("out_slots", ctypes.c_void_p), ("vbeg", ctypes.c_void_p),
+                ("visit_slots", ctypes.c_void_p), ("masked", ctypes.c_void_p),
+                ("order", ctypes.c_void_p), ("kbias", ctypes.c_void_p),
+                ("n_work", ctypes.c_int), ("unit", ctypes.c_int)]
+
+
 def _entry(name):
     from ..op_builder import cuda as builder
     lib, fn_name, variant = ENTRIES[name]
@@ -643,7 +788,9 @@ def _entry(name):
         v, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         n_ptr = 8 if "dkdv" in fn_name else 7 if "_dq" in fn_name else 5
         args = [i, i] + [v] * n_ptr + [v, i, i, i, i, f]
-        fn.argtypes = (args + [v]) if variant is None else ([i] + args + [v, v])
+        # a variant takes its Extra, the sm90 dK/dV its schedule, before the stream
+        structs = 0 if variant is None and name != "flash_bwd_dkdv_lut_sm90" else 1
+        fn.argtypes = ([] if variant is None else [i]) + args + [v] * structs + [v]
         fn.restype = ctypes.c_int
     return fn if variant is None else functools.partial(fn, variant)
 
@@ -781,9 +928,9 @@ def flash_fwd_merged(q, k, v, merged, sm_scale=None):
     return _fwd("flash_fwd_merged", q, k, v, merged.causal, sm_scale, merged)
 
 
-def _bwd_args(name, q, k, v, do, lse, delta):
+def _bwd_args(name, q, k, v, do, lse, delta, dims=HEAD_DIMS):
     B, T, H, d = q.shape
-    _check(name, (q, k, v, do), q.dtype, d)
+    _check(name, (q, k, v, do), q.dtype, d, dims)
     for stat in (lse, delta):
         if (stat.shape != (B, H, T) or stat.dtype != torch.float32
                 or not stat.is_contiguous() or stat.device != q.device):
@@ -854,13 +1001,88 @@ def flash_bwd_dq_biased(q, k, v, do, lse, delta, key_padding_bias=None, attn_bia
                    None, key_padding_bias, attn_bias)
 
 
+def sparse_dkdv_kernel(dtype, head_dim, has_abias):
+    """The block-sparse dK/dV kernel a CUDA tensor of ``dtype`` and
+    ``head_dim`` takes: ``flash_bwd_dkdv_lut_sm90`` for bf16 at head dim 64
+    with no (T, T) score bias (the key bias is optional), else the
+    template ``flash_bwd_dkdv_lut``.  Decided before any launch, never by a
+    failure."""
+    sm90 = not has_abias and head_dim in SM90_DKDV_HEAD_DIMS.get(dtype, ())
+    return "flash_bwd_dkdv_lut_sm90" if sm90 else "flash_bwd_dkdv_lut"
+
+
 def flash_bwd_dkdv_lut(q, k, v, do, lse, delta, lut, key_padding_bias=None,
                        attn_bias=None, sm_scale=None):
-    """``(dk, dv)`` over the live q tiles of each k tile of ``lut`` (its
-    transpose, ``qmap``/``qlen``), with the optional biases:
-    ``flash_bwd_dkdv_lut``."""
+    """``(dk, dv)`` over the live pairs of ``lut`` with the optional biases:
+    for CUDA tensors the kernel of :func:`sparse_dkdv_kernel`, for CPU
+    tensors the plain version."""
+    if sparse_dkdv_kernel(q.dtype, q.shape[-1], attn_bias is not None) == \
+            "flash_bwd_dkdv_lut_sm90":
+        return flash_bwd_dkdv_lut_sm90(q, k, v, do, lse, delta, lut, key_padding_bias,
+                                       sm_scale)
+    return flash_bwd_dkdv_lut_tiled(q, k, v, do, lse, delta, lut, key_padding_bias,
+                                    attn_bias, sm_scale)
+
+
+def flash_bwd_dkdv_lut_tiled(q, k, v, do, lse, delta, lut, key_padding_bias=None,
+                             attn_bias=None, sm_scale=None):
+    """``(dk, dv)``: the template ``flash_bwd_dkdv_lut`` kernel (64 x 64
+    tiles over the LUT's transpose, ``qmap``/``qlen``, with their cell
+    masks) whatever the dtype and head dim (for CUDA tensors; the plain
+    version for CPU tensors)."""
     return _bwd_dkdv("flash_bwd_dkdv_lut", q, k, v, do, lse, delta, lut.causal, sm_scale,
                      lut, key_padding_bias, attn_bias)
+
+
+def flash_bwd_dkdv_lut_sm90(q, k, v, do, lse, delta, lut, key_padding_bias=None,
+                            sm_scale=None):
+    """``(dk, dv)``: the ``flash_bwd_dkdv_lut_sm90`` kernel over
+    ``lut.groups("k")`` (bf16, head dim 64; others raise) for CUDA
+    tensors, the plain version for CPU tensors."""
+    name = "flash_bwd_dkdv_lut_sm90"
+    if q.device.type == "cpu":
+        return flash_attention_reference_bwd_dkdv(q, k, v, do, lse, delta, lut.causal,
+                                                  sm_scale, lut=lut,
+                                                  key_padding_bias=key_padding_bias)
+    B, T, H, d = q.shape
+    ptrs = _bwd_args(name, q, k, v, do, lse, delta, SM90_DKDV_HEAD_DIMS)
+    _check_extra(name, q, lut, key_padding_bias, None)
+    groups = lut.groups("k")
+    t = groups.tensors(q.device, B, H)
+    sched = _DkdvSchedule(*(t[n].data_ptr() for n in ("out_slots", "vbeg", "visit_slots",
+                                                       "masked", "order")),
+                          None if key_padding_bias is None else key_padding_bias.data_ptr(),
+                          t["order"].shape[0], groups.unit)
+    dk = torch.empty((B, T, H, d), dtype=q.dtype, device=q.device)
+    dv = torch.empty_like(dk)
+    strides = _strides(q, k, v, do)
+    _run(name, _DTYPE_CODES[q.dtype], d, *ptrs, dk.data_ptr(), dv.data_ptr(),
+         ctypes.addressof(strides), B, T, H, int(lut.causal), _scale(q, sm_scale),
+         ctypes.addressof(sched), device=q.device)
+    return dk, dv
+
+
+def flash_bwd_dkdv_lut_sm90_schedule(lut, B, H, n_pipes):
+    """The schedule of ``flash_bwd_dkdv_lut_sm90`` in Python, as the kernel
+    runs it on a (B, T, H) call with ``n_pipes`` persistent pipes (two a
+    block, one block an SM: each pipe a consumer warpgroup with its own
+    stream of work): per pipe its work items in order (dealt from
+    ``GroupLut.order`` as :func:`flash_fwd_sm90_blocks` deals), each ``(b,
+    h, key units, visits)`` with ``visits`` a list of ``(query units,
+    masked)``; a unit ``u`` is rows ``u * unit .. u * unit + unit - 1``, -1
+    an empty slot."""
+    g = lut.groups("k")
+    order = g.order(B, H)
+    out = []
+    for items in flash_fwd_sm90_blocks(len(order), n_pipes):
+        block = []
+        for w in items:
+            bh, tile = (int(x) for x in order[w])
+            visits = [(tuple(int(u) for u in g.visit_slots[j]), bool(g.masked[j]))
+                      for j in range(g.vbeg[tile], g.vbeg[tile + 1])]
+            block.append((bh // H, bh % H, tuple(int(u) for u in g.out_slots[tile]), visits))
+        out.append(block)
+    return out
 
 
 def flash_bwd_dq_lut(q, k, v, do, lse, delta, lut, key_padding_bias=None, attn_bias=None,

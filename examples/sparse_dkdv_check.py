@@ -1,0 +1,310 @@
+#!/usr/bin/env python3
+"""Check and time ``flash_bwd_dkdv_lut_sm90`` alone on one Hopper card.
+
+    python3 examples/sparse_dkdv_check.py [--quick] [--no-timing] [--variants "a;b"]
+
+From the repo root, with a CUDA card and nvcc.  Builds
+``csrc/flash_attention_sparse_bwd_sm90.cu`` (and the template sources it is
+checked and timed beside), prints ptxas' registers, spills and stack
+frames (a spill fails), then:
+
+1. one first launch (the tutorial layout, T=256, a key bias), its event
+   polled under a 10 s deadline;
+2. every ``chip_smoke.py`` phase-7 case the route sends to the kernel (bf16
+   at head dim 64, no score bias), through ``check_masked_case``:
+   the kernel and the template ``flash_bwd_dkdv_lut`` against the plain
+   version with phase 2's limits, the launch counted, two calls
+   bit-identical (``--quick``: the first 12);
+3. at BERT-large's attention shape (B=8, T=2048, H=16, d=64, bf16, q/k/v
+   views of one qkv tensor) for ``tutorial16+pad``, ``tutorial16`` and
+   ``fixed64``: the kernel, the template design and SDPA's
+   masked backward alone (``autograd.grad`` over a retained graph, which
+   the port never calls), median of three readings with the spread, beside
+   the operation and byte bounds and the visits per head;
+4. with ``--variants``: the first check cases and the timing for copies of
+   the source changed as ``VARIANTS`` names them, in turns with the
+   committed kernel in this call (copies and builds under
+   ``.torch_build/sparse_dkdv/``).
+
+Writes the log to ``chiprun_out/sparse_dkdv_check.txt`` too.  Nothing here
+is used by the port.
+"""
+
+import argparse
+import ctypes
+import os
+import subprocess
+import sys
+import time
+
+import torch
+
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+
+import chip_smoke as cs  # noqa: E402  (repo root on the path first)
+from deepspeed_tpu_torch.ops.op_builder import cuda as builder  # noqa: E402
+from deepspeed_tpu_torch.ops.sparse_attention import (  # noqa: E402
+    FixedSparsityConfig, build_sparsity_config)
+from deepspeed_tpu_torch.ops.transformer import flash_attention as fa  # noqa: E402
+
+NAME = "flash_bwd_dkdv_lut_sm90"
+LIB = fa.ENTRIES[NAME][0]
+LOG = []
+
+
+def say(line):
+    print(line, flush=True)
+    LOG.append(line)
+
+
+def patch(text, old, new, count=1):
+    if text.count(old) != count:
+        raise RuntimeError(f"{LIB}.cu no longer holds {count} of {old[:50]!r}: update VARIANTS")
+    return text.replace(old, new)
+
+
+KV_TX = "      mbar_expect_tx(&kv_full[kb], 2 * kTile + (kBias ? kRows * 4 : 0));\n"
+KV_LOADS = ("          tma_load4(sK + off, &tk, &kv_full[kb], x * kBox, h, r0, b);\n"
+            "          tma_load4(sV + off, &tv, &kv_full[kb], x * kBox, h, r0, b);\n")
+KB_LOAD = ("        if (kBias) tma_load2(sKb + (kb * 4 + s) * kStatSlot, &tkb, &kv_full[kb], "
+           "r0, b);\n")
+VISIT_TX = "        mbar_expect_tx(&full[st], 2 * kTile + 2 * kRows * 4);\n"
+VISIT_LOADS = ("            tma_load4(sQ + off, &tq, &full[st], x * kBox, h, r0, b);\n"
+               "            tma_load4(sdO + off, &tdo, &full[st], x * kBox, h, r0, b);\n")
+STAT_LOADS = (
+    "          tma_load3(sLse + (st * 4 + s) * kStatSlot, &tlse, &full[st], r0, h, b);\n"
+    "          tma_load3(sDelta + (st * 4 + s) * kStatSlot, &tdelta, &full[st], r0, h, b);\n")
+PRODUCTS = (
+    "    wgmma_ss_n64(s, desc_sw128(tK + off, 16, 1024), desc_sw128(tQ + off, 16, 1024), "
+    "kk > 0);\n",
+    "    wgmma_ss_n64(dp, desc_sw128(tV + off, 16, 1024), desc_sw128(tdO + off, 16, 1024), "
+    "kk > 0);\n",
+    "            wgmma_rs_n64_tb(dv[x], pa[kk],\n"
+    "                            desc_sw128(tdO + x * kBoxBytes + kk * 16 * 128, kBoxBytes, "
+    "1024));\n",
+    "            wgmma_rs_n64_tb(dk[x], da[kk],\n"
+    "                            desc_sw128(tQ + x * kBoxBytes + kk * 16 * 128, kBoxBytes, "
+    "1024));\n")
+
+
+def no_tma(t, keep_reads):
+    """Every barrier arrived on instead of loaded (nothing copied); with
+    ``keep_reads`` the slot ids are still read and waited for."""
+    use = "          if (r0 < -1) __trap();\n" if keep_reads else ""
+    t = patch(patch(t, KV_TX, "      mbar_arrive(&kv_full[kb]);\n"), KV_LOADS, use)
+    t = patch(t, KB_LOAD, "")
+    t = patch(patch(t, VISIT_TX, "        mbar_arrive(&full[st]);\n"), VISIT_LOADS, use)
+    return patch(t, STAT_LOADS, "")
+
+
+def no_products(t):
+    for text in PRODUCTS:
+        t = patch(t, text, "")
+    return t
+
+
+# copies of the source, each with one change
+VARIANTS = {
+    "stages=2": lambda t: patch(t, "constexpr int kStages = 4;", "constexpr int kStages = 2;"),
+    "stages=3": lambda t: patch(t, "constexpr int kStages = 4;", "constexpr int kStages = 3;"),
+    # one register split of the two pipes: producers 24, consumers 240
+    "registers 24/240": lambda t: patch(t, "kProducerRegs = 56, kConsumerRegs = 224;",
+                                        "kProducerRegs = 24, kConsumerRegs = 240;"),
+    "no loads": lambda t: no_tma(t, False),
+    "no TMA, slot reads kept": lambda t: no_tma(t, True),
+    "no products": no_products,
+    "no loads, no products": lambda t: no_products(no_tma(t, False)),
+}
+PIPELINED = ("      issue_sdp<D>(s, dp, tK, tV, sQ + st * kTile, sdO + st * kTile);\n"
+             "      for (int j = 0; j < nv; ++j, ++vt) {\n"
+             "        // S^T and dP^T of this visit are done, and the last visit's dV and dK\n"
+             "        wgmma_wait<0>();\n")
+SERIAL = ("      for (int j = 0; j < nv; ++j, ++vt) {\n"
+          "        if (j > 0) {\n"
+          "          st = vt % kS;\n"
+          "          mbar_wait(&full[st], (vt / kS) & 1);\n"
+          "        }\n"
+          "        issue_sdp<D>(s, dp, tK, tV, sQ + st * kTile, sdO + st * kTile);\n"
+          "        wgmma_wait<0>();\n")
+NEXT_ISSUE = ("        if (j + 1 < nv) {\n"
+              "          st = (vt + 1) % kS;\n"
+              "          mbar_wait(&full[st], ((vt + 1) / kS) & 1);\n"
+              "        }\n"
+              "        issue_sdp<D>(s, dp, tK, tV, sQ + st * kTile, sdO + st * kTile);\n")
+VARIANTS.update({
+    # every visit through the masked softmax step
+    "always masked": lambda t: patch(t, "        if (vm[0] != 0)\n", "        if (true)\n"),
+    # each visit's S^T / dP^T issued at its top, after the last visit's dV / dK have ended
+    "no overlap": lambda t: patch(patch(t, PIPELINED, SERIAL), NEXT_ISSUE, ""),
+})
+UNCHECKED = ("no loads", "no TMA", "no products")   # variants whose outputs are not dK/dV
+
+
+def build_variant(tag, text_patch):
+    """Start nvcc on a copy of the source changed by ``text_patch``; returns
+    (process, library path)."""
+    src = builder.CSRC / f"{LIB}.cu"
+    out_dir = builder.BUILD_DIR / "sparse_dkdv"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    name = "".join(c if c.isalnum() else "_" for c in tag)
+    copy = out_dir / f"{name}.cu"
+    copy.write_text(text_patch(src.read_text()))
+    out = out_dir / f"{name}.so"
+    cmd = [builder.find_nvcc(), *builder.NVCC_FLAGS, "-o", str(out), str(copy)]
+    return subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True), out
+
+
+def first_launch(dev, gen, T=256, H=2):
+    lut = fa.layout_luts(build_sparsity_config(cs.SPARSE_SECTION, H).make_layout(T), T, H, False)
+    q, k, v, do = cs.flash_inputs(dev, gen, torch.bfloat16, 1, T, H, 64, "dense")
+    kb, _ = cs.bias_inputs("add", gen, 1, T, dev)
+    o, lse = fa.flash_attention_reference_fwd(q, k, v, lut=lut, key_padding_bias=kb)
+    delta = fa.attention_delta(o, do)
+    ev = torch.cuda.Event()
+    t0 = time.perf_counter()
+    dk, dv = fa.flash_bwd_dkdv_lut_sm90(q, k, v, do, lse, delta, lut, kb)
+    ev.record()
+    while not ev.query():
+        if time.perf_counter() - t0 > 10.0:
+            raise AssertionError(f"{NAME} first launch did not finish in 10 s")
+        time.sleep(0.01)
+    rdk, rdv = fa.flash_attention_reference_bwd_dkdv(q, k, v, do, lse, delta, lut=lut,
+                                                      key_padding_bias=kb)
+    rows = [(label, *cs.flash_close(f"{NAME} first", label, got, ref))
+            for label, got, ref in (("dk", dk, rdk), ("dv", dv, rdv))]
+    say(f"first launch tutorial16 T={T}: {time.perf_counter() - t0:.3f} s; "
+        f"{cs.flash_line({NAME: rows})}")
+
+
+def check(dev, gen, limit=None, H=4):
+    cases = [c for c in cs.sparse_cases(H) if c[2] is not None and fa.sparse_dkdv_kernel(
+        c[3], c[6], c[5] == "attn") == NAME][:limit]
+    for T, label, cfg, dt, causal, kind, d, view in cases:
+        lut = fa.layout_luts(cfg.make_layout(T), T, H, causal)
+        kb, ab = cs.bias_inputs(kind, gen, 2, T, dev)
+        what = f"bf16 d={d} T={T} {label} bias={kind} causal={int(causal)} {view}"
+        q, k, v, do = cs.flash_inputs(dev, gen, dt, 2, T, H, d, view)
+        before = fa.launches[NAME]
+        res = cs.check_masked_case(q, k, v, do, lut, kb, ab, causal, what)
+        o, lse = fa.flash_fwd_lut(q, k, v, lut, kb, ab)
+        delta = fa.attention_delta(o, do)
+        a = fa.flash_bwd_dkdv_lut(q, k, v, do, lse, delta, lut, kb)
+        b = fa.flash_bwd_dkdv_lut(q, k, v, do, lse, delta, lut, kb)
+        torch.cuda.synchronize()
+        if fa.launches[NAME] != before + 3:
+            raise AssertionError(f"{what}: launches {fa.launches[NAME] - before}, expected 3")
+        if not all(torch.equal(x, y) for x, y in zip(a, b)):
+            raise AssertionError(f"{what}: two calls differ")
+        say(f"check {what}: {cs.flash_line(res)}; deterministic")
+
+
+def timing(dev, gen, bytes_per_s, card, tag, others=True, B=8, T=2048, H=16, d=64):
+    q, k, v, do = cs.flash_inputs(dev, gen, torch.bfloat16, B, T, H, d, "qkv")
+    keep = torch.arange(T, device=dev)[None, :] < cs.key_lengths(gen, B, T, dev)[:, None]
+    kb = torch.where(keep, 0.0, -10000.0).float()
+    tutorial = build_sparsity_config(cs.SPARSE_SECTION, H)
+    fixed64 = FixedSparsityConfig(num_heads=H, block=64, num_local_blocks=4,
+                                  num_global_blocks=1, attention="bidirectional")
+    lut16 = fa.layout_luts(tutorial.make_layout(T), T, H, False)
+    lut64 = fa.layout_luts(fixed64.make_layout(T), T, H, False)
+    elem, stat = B * T * H * d * 2, B * H * T * 4
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    qh, kh, vh, doh = (x.transpose(1, 2).contiguous() for x in (q, k, v, do))
+    for case, (lut, bias) in {"tutorial16+pad": (lut16, kb), "tutorial16": (lut16, None),
+                              "fixed64": (lut64, None)}.items():
+        o, lse = fa.flash_fwd_lut(q, k, v, lut, bias)
+        delta = fa.attention_delta(o, do)
+        layout_mask = lut.element_mask(dev)
+        pairs = B * int(layout_mask.sum().item()) * (H // layout_mask.shape[0])
+        nbytes = 6 * elem + 2 * stat + (0 if bias is None else B * T * 4)
+        bound, by = cs.bound_ms(nbytes, 8 * d * pairs, bytes_per_s)
+        fns = [("sm90", lambda _: fa.flash_bwd_dkdv_lut_sm90(q, k, v, do, lse, delta, lut,
+                                                             bias))]
+        if others:
+            fns.append(("template", lambda _: fa.flash_bwd_dkdv_lut_tiled(
+                q, k, v, do, lse, delta, lut, bias)))
+            mask = layout_mask[None] & keep[:, None, None, :] if bias is not None else \
+                layout_mask[None]
+            mask = mask.expand(B, H, T, T)
+            leaves = [x.detach().requires_grad_(True) for x in (qh, kh, vh)]
+            out = sdpa(*leaves, attn_mask=mask)
+            fns.append(("SDPA backward", lambda _: torch.autograd.grad(out, leaves, doh,
+                                                                       retain_graph=True)))
+        r = {name: cs.repeat_ms(fn, 20 if name != "SDPA backward" else 5, warmup=2)
+             for name, fn in fns}
+        g = lut.groups("k")
+        rest = ""
+        if others:
+            rest = (f"; the template design {cs.spread(r['template'])}; SDPA masked "
+                    f"backward alone {cs.spread(r['SDPA backward'])} "
+                    f"({r['sm90'][0] / r['SDPA backward'][0]:.3f}x)")
+            del out, leaves, mask
+        say(f"timing {tag} {case} B={B} T={T} H={H} d={d} ({card}): sm90 "
+            f"{cs.spread(r['sm90'])}{rest}; bound {bound * 1e3:.2f} us ({by}; "
+            f"{bound / r['sm90'][0]:.3f} of it); visits per head {g.visits_per_head.mean():.0f} "
+            f"on {g.tiles_per_head.mean():.0f} tiles (template {lut.qlen.sum() / lut.heads:.0f})")
+        torch.cuda.empty_cache()
+
+
+def main():
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--variants", default="", help="keys of VARIANTS, separated by semicolons")
+    ap.add_argument("--quick", action="store_true")
+    ap.add_argument("--no-timing", action="store_true")
+    ap.add_argument("--no-check", action="store_true", help="skip step 2")
+    a = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("sparse_dkdv_check: no CUDA device", file=sys.stderr)
+        return 2
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    card = cs.nvidia_smi()
+    say(card)
+    t0 = time.perf_counter()
+    # a key of VARIANTS, or file:<path> for another source of the same entry
+    variants = [(k, build_variant(k, (lambda t, f=k[5:]: open(f).read()) if k.startswith("file:")
+                                  else VARIANTS[k])) for k in a.variants.split(";") if k]
+    builder.build_all([LIB, "flash_attention_sparse_fwd", "flash_attention_sparse_bwd"])
+    built = []
+    for tag, (proc, path) in variants:
+        out, _ = proc.communicate()
+        if proc.returncode != 0:
+            raise RuntimeError(f"variant {tag} failed:\n{out}")
+        built.append((tag, path, cs.ptxas_summary(out)))
+        if "C7515" in out or "C7512" in out:
+            say(f"  variant {tag}: ptxas serializes its wgmmas")
+    say(f"build {time.perf_counter() - t0:.2f} s ({LIB}.cu nvcc "
+        f"{builder.build_log[LIB]['seconds']:.2f} s)")
+    for row in cs.ptxas_summary(builder.build_log[LIB]["ptxas"]):
+        say(f"  ptxas {row}")
+        if row[3]:
+            raise AssertionError(f"{LIB}: ptxas spilled: {row}")
+    for line in builder.build_log[LIB]["ptxas"].splitlines():
+        if "stack frame" in line or "Performance Loss" in line or "warning" in line:
+            say(f"  ptxas {line.strip()}")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    first_launch(dev, gen)
+    if not a.no_check:
+        check(dev, gen, 12 if a.quick else None)
+    if not a.no_timing:
+        bw = cs.peak_bytes_per_s(torch.cuda.get_device_name(0))
+        timing(dev, gen, bw, card, "committed")
+        base = builder._loaded[LIB]
+        for tag, path, regs in built:
+            builder._loaded[LIB] = ctypes.CDLL(str(path))
+            if not any(u in tag for u in UNCHECKED):
+                check(dev, gen, 6)
+            timing(dev, gen, bw, card, f"{tag} (regs/spill {sorted({(r[1], r[3]) for r in regs})})",
+                   others=False)
+        builder._loaded[LIB] = base
+        if built:
+            timing(dev, gen, bw, card, "committed again", others=False)
+    say(card)
+    os.makedirs("chiprun_out", exist_ok=True)
+    with open("chiprun_out/sparse_dkdv_check.txt", "w") as f:
+        f.write("\n".join(LOG) + "\n")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

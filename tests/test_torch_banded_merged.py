@@ -484,13 +484,14 @@ def test_flash_attention_with_lse_lse_only_and_out_only():
 
 
 # --------------------------------------------------------------- routes
-def _routes(monkeypatch, layout, T=256, H=2, causal=True, merge=1, bias=False):
+def _routes(monkeypatch, layout, T=256, H=2, causal=True, merge=1, bias=False,
+            dtype=torch.bfloat16, d=64):
     """The kernels ``sparse_flash_attention`` launches, forward then
     backward, on meta tensors (standing for CUDA ones) with ``_run``
     recording names instead of launching."""
     names = []
     monkeypatch.setattr(fa, "_run", lambda name, *a, device: names.append(name))
-    q, k, v = (torch.empty((1, T, H, 64), dtype=torch.bfloat16, device="meta",
+    q, k, v = (torch.empty((1, T, H, d), dtype=dtype, device="meta",
                            requires_grad=True) for _ in range(3))
     kb = torch.zeros((1, T), device="meta") if bias else None
     out = fa.sparse_flash_attention(q, k, v, layout, causal=causal, block_q_merge=merge,
@@ -500,7 +501,8 @@ def _routes(monkeypatch, layout, T=256, H=2, causal=True, merge=1, bias=False):
     return fwd, names[len(fwd):]
 
 
-LUT_BWD = ["flash_bwd_dkdv_lut", "flash_bwd_dq_lut"]
+# bf16 at head dim 64: dK/dV on flash_bwd_dkdv_lut_sm90 (sparse_dkdv_kernel)
+LUT_BWD = ["flash_bwd_dkdv_lut_sm90", "flash_bwd_dq_lut"]
 
 
 @pytest.mark.parametrize("layout,causal,merge,bias,fwd,bwd", [
@@ -529,6 +531,17 @@ def test_routes(monkeypatch, layout, causal, merge, bias, fwd, bwd):
     layouts = {"band": band, "band-per-head": band.repeat(H, 0), "fixed": fixed,
                "all-ones": np.ones((1, 8, 8), np.int32)}
     assert _routes(monkeypatch, layouts[layout], T, H, causal, merge, bias) == (fwd, bwd)
+    assert fa.launches == {name: 0 for name in fa.KERNELS}
+
+
+@pytest.mark.parametrize("dtype,d", [(torch.float32, 64), (torch.bfloat16, 96)])
+def test_routes_keep_the_template_dkdv_off_the_sm90_dtypes(monkeypatch, dtype, d):
+    """fp32, and bf16 at head dim 96, keep the template LUT dK/dV under
+    every forward route."""
+    band = _longformer(16, 256, 5, [0, 3])
+    fwd, bwd = _routes(monkeypatch, band, dtype=dtype, d=d)
+    assert (fwd, bwd) == (["flash_fwd_banded"], ["flash_bwd_dkdv_lut", "flash_bwd_dq_lut"])
+    assert _routes(monkeypatch, band, merge=2, dtype=dtype, d=d)[1] == bwd
     assert fa.launches == {name: 0 for name in fa.KERNELS}
 
 
