@@ -10,9 +10,9 @@ JAX package ``deepspeed_tpu``):
    CUDA versions, and the build of the CUDA kernels from ``csrc/`` (one
    ``nvcc`` per source, started together) with its time and ptxas
    register/spill summary; ``flash_fwd_sm90``'s, ``int8_mm_nt_decode``'s,
-   ``int8_mm_nt_prefill``'s and ``flash_bwd_dkdv_lut_sm90``'s libraries
-   (their build seconds, registers and spills per instance) must build with
-   no spill;
+   ``int8_mm_nt_prefill``'s and ``flash_bwd_dkdv_lut_sm90`` /
+   ``flash_bwd_dq_lut_sm90``'s libraries (their build seconds, registers and
+   spills per instance) must build with no spill;
 2. kernels vs plain: ``paged_attention_online`` and ``paged_attention_exact``
    against ``paged_attention_reference`` at the serving shape (8 slots,
    12 heads, head dim 64, block 16, 64 blocks per slot), lengths
@@ -65,8 +65,12 @@ JAX package ``deepspeed_tpu``):
    the dK/dV kernel ``sparse_dkdv_kernel`` routes to
    (``flash_bwd_dkdv_lut_sm90`` for bf16 at head dim 64 without a score
    bias, and beside it the template ``flash_bwd_dkdv_lut`` through
-   ``flash_bwd_dkdv_lut_tiled``; the template for the rest),
-   ``flash_bwd_dq_lut`` and the dense biased
+   ``flash_bwd_dkdv_lut_tiled``; the template for the rest), the dQ kernel
+   ``sparse_dq_kernel`` routes to (``flash_bwd_dq_lut_sm90`` by the same
+   rule, and beside it the template ``flash_bwd_dq_lut`` through
+   ``flash_bwd_dq_lut_tiled``; the template for the rest; with a ``mul``
+   key bias and causal masking only dQ is held: dK/dV's limit there is
+   open, PERF.md section 7) and the dense biased
    ``flash_fwd_biased``, ``flash_bwd_dkdv_biased``, ``flash_bwd_dq_biased``
    against their plain versions fed the same (O, lse, dO), element by
    element with phase 2's limits: B=2, H=4, T in {256, 1024} and 1008,
@@ -88,12 +92,13 @@ JAX package ``deepspeed_tpu``):
    ``_masked_dense`` attention from the same weights and batch; 3
    warm-up and 10 timed steps (tokens/s, step p50/p99, MFU, peak memory);
    exactly 48 / 24 / 24 launches per step of ``flash_fwd_lut`` /
-   ``flash_bwd_dkdv_lut_sm90`` / ``flash_bwd_dq_lut`` (remat runs each
-   forward twice) and none of the template ``flash_bwd_dkdv_lut``; finite
-   losses and no skipped step; 20 steps on one fixed batch lower its loss
-   by at least 0.5; a ``torch.profiler`` breakdown of one step, with the
-   dK/dV device time per step; 8b, two steps on unpadded batches
-   (``flash_fwd_lut_ring``, not ``flash_fwd_lut``); 8c, two padded steps
+   ``flash_bwd_dkdv_lut_sm90`` / ``flash_bwd_dq_lut_sm90`` (remat runs each
+   forward twice) and none of the templates ``flash_bwd_dkdv_lut`` and
+   ``flash_bwd_dq_lut``; finite losses and no skipped step; 20 steps on one
+   fixed batch lower its loss by at least 0.5; a ``torch.profiler``
+   breakdown of one step, with the dK/dV and dQ device time per step; 8b,
+   two steps on unpadded batches (``flash_fwd_lut_ring``, not
+   ``flash_fwd_lut``; the same backward kernels); 8c, two padded steps
    with ``"mode": "dense"``
    (an all-ones layout: the dense biased kernels);
 9. the sparse and biased kernels at the training shape, B=8, H=16,
@@ -106,9 +111,10 @@ JAX package ``deepspeed_tpu``):
    ``scaled_dot_product_attention`` with the expanded boolean
    layout-and-padding mask: forward, forward+backward and its backward
    alone (``autograd.grad`` over a retained graph), which the port never
-   calls; ``flash_bwd_dkdv_lut_sm90`` beside the template
-   ``flash_bwd_dkdv_lut`` (the template design) on the same call, with the
-   visits per head of each schedule.
+   calls; ``flash_bwd_dkdv_lut_sm90`` and ``flash_bwd_dq_lut_sm90`` beside
+   the templates ``flash_bwd_dkdv_lut`` and ``flash_bwd_dq_lut`` (the
+   template design) on the same call, with the visits per head of each
+   schedule.
 
 10. int8 kernels vs plain: ``int8_mm_nt_decode`` (the block weights at
     M <= 16), ``int8_mm_nt_prefill`` (M > 16) and ``int8_mm_t`` (the head)
@@ -164,7 +170,7 @@ JAX package ``deepspeed_tpu``):
     bf16, T in {4096, 8192, 16384}, layout blocks 512 and 64:
     ``SparseSelfAttention`` forward + ``backward()`` with exactly one launch
     each of ``flash_fwd_banded``, ``flash_bwd_dkdv_lut_sm90`` and
-    ``flash_bwd_dq_lut`` per call (``flash_fwd_lut_ring`` 0), and the same
+    ``flash_bwd_dq_lut_sm90`` per call (``flash_fwd_lut_ring`` 0), and the same
     through ``sparse_flash_attention(..., block_q_merge=2)`` (one
     ``flash_fwd_merged``), then that merged path on the tutorial block-16
     layout at BERT-large's attention shape (B=8, T=2048, H=16, non-causal);
@@ -231,6 +237,7 @@ REPLACES = {"paged_attention_online":
             "flash_bwd_dkdv_lut": f"{FLASH_REF}:617",
             "flash_bwd_dkdv_lut_sm90": f"{FLASH_REF}:617",   # use_lut, bf16 at d 64
             "flash_bwd_dq_lut": f"{FLASH_REF}:691",
+            "flash_bwd_dq_lut_sm90": f"{FLASH_REF}:691",     # use_lut, bf16 at d 64
             "int8_mm_nt": "deepspeed_tpu/ops/transformer/int8_matmul.py:45",     # the rest
             "int8_mm_nt_decode": "deepspeed_tpu/ops/transformer/int8_matmul.py:45",  # M <= 16
             "int8_mm_nt_prefill": "deepspeed_tpu/ops/transformer/int8_matmul.py:45",  # M > 16
@@ -239,7 +246,7 @@ INT8_DECODE_LIB = im.LIBRARIES["int8_mm_nt_decode"]
 INT8_PREFILL_LIB = im.LIBRARIES["int8_mm_nt_prefill"]
 INT8_SOURCES = {name: f"deepspeed_tpu_torch/csrc/{lib}.cu" for name, lib in im.LIBRARIES.items()}
 SM90_LIB = fa.ENTRIES["flash_fwd_sm90"][0]
-DKDV_SM90_LIB = fa.ENTRIES["flash_bwd_dkdv_lut_sm90"][0]
+GROUP_SM90_LIB = fa.ENTRIES["flash_bwd_dkdv_lut_sm90"][0]    # and flash_bwd_dq_lut_sm90
 SM90_DEADLINE_S = 10.0   # the first flash_fwd_sm90 launch must complete within this
 
 
@@ -347,15 +354,18 @@ def setup():
         for kname, regs, _, spill in sm90))
     if not sm90 or any(spill for *_, spill in sm90):
         raise AssertionError(f"{SM90_LIB}: no kernel built, or ptxas spilled registers: {sm90}")
-    for lib, kernel in ((INT8_DECODE_LIB, "int8_decode_kernel"),
-                        (INT8_PREFILL_LIB, "int8_prefill_kernel"),
-                        (DKDV_SM90_LIB, "dkdv_sm90_kernel")):
+    for lib, kernels in ((INT8_DECODE_LIB, ("int8_decode_kernel",)),
+                         (INT8_PREFILL_LIB, ("int8_prefill_kernel",)),
+                         (GROUP_SM90_LIB, ("dkdv_sm90_kernel", "dq_sm90_kernel"))):
         rows = ptxas_summary(builder.build_log[lib]["ptxas"])
+        named = [(kernel, kname[kname.find(kernel):], regs, spill)
+                 for kname, regs, _, spill in rows for kernel in kernels if kernel in kname]
         print(f"{lib}.cu: built in {builder.build_log[lib]['seconds']:.2f} s; " + "; ".join(
-            f"{kname[kname.find(kernel):]} {regs} registers, {spill} spill bytes"
-            for kname, regs, _, spill in rows))
-        if not rows or any(spill for *_, spill in rows):
-            raise AssertionError(f"{lib}: no kernel built, or ptxas spilled registers: {rows}")
+            f"{kname} {regs} registers, {spill} spill bytes" for _, kname, regs, spill in named))
+        if any(kernel not in (k for k, *_ in named) for kernel in kernels) or any(
+                spill for *_, spill in rows):
+            raise AssertionError(f"{lib}: a kernel of {kernels} not built, or ptxas spilled "
+                                 f"registers: {rows}")
     return card
 
 
@@ -1033,7 +1043,8 @@ def masked_calls(q, k, v, do, lut, kb, ab, causal):
     """The biased (``lut`` None) or LUT kernels of one case: ``(names,
     kernel calls, plain calls)``, the backward calls taking (lse, delta).
     An unbiased LUT case takes the ring forward, as the model path does,
-    and dK/dV the kernel ``sparse_dkdv_kernel`` names."""
+    dK/dV the kernel ``sparse_dkdv_kernel`` names and dQ the one
+    ``sparse_dq_kernel`` names."""
     if lut is None:
         names = fa.BIASED_KERNELS
         calls = (lambda: fa.flash_fwd_biased(q, k, v, kb, ab, causal),
@@ -1043,7 +1054,8 @@ def masked_calls(q, k, v, do, lut, kb, ab, causal):
     else:
         ring = kb is None and ab is None
         names = ("flash_fwd_lut_ring" if ring else "flash_fwd_lut",
-                 fa.sparse_dkdv_kernel(q.dtype, q.shape[-1], ab is not None), "flash_bwd_dq_lut")
+                 fa.sparse_dkdv_kernel(q.dtype, q.shape[-1], ab is not None),
+                 fa.sparse_dq_kernel(q.dtype, q.shape[-1], ab is not None))
         calls = ((lambda: fa.flash_fwd_lut_ring(q, k, v, lut)) if ring
                  else (lambda: fa.flash_fwd_lut(q, k, v, lut, kb, ab)),
                  lambda lse, de: fa.flash_bwd_dkdv_lut(q, k, v, do, lse, de, lut, kb, ab),
@@ -1057,12 +1069,17 @@ def masked_calls(q, k, v, do, lut, kb, ab, causal):
     return names, calls, plains
 
 
-def check_masked_case(q, k, v, do, lut, kb, ab, causal, what):
+# the sm90 backward kernels and the template each is held beside
+SM90_TEMPLATES = {"flash_bwd_dkdv_lut_sm90": "flash_bwd_dkdv_lut",
+                  "flash_bwd_dq_lut_sm90": "flash_bwd_dq_lut"}
+
+
+def check_masked_case(q, k, v, do, lut, kb, ab, causal, what, held=None):
     """Each kernel of a biased / LUT case against its plain version on the
     same inputs (the backward ones fed the kernel's own O and lse); where
-    dK/dV routes to ``flash_bwd_dkdv_lut_sm90``, the template
-    ``flash_bwd_dkdv_lut`` too.  Returns {kernel: [(output, max abs error,
-    share of limit)]}."""
+    dK/dV or dQ routes to its sm90 kernel, the template too.  ``held``: the
+    kernels whose outputs are held (all by default).  Returns {kernel:
+    [(output, max abs error, share of limit)]}."""
     names, calls, plains = masked_calls(q, k, v, do, lut, kb, ab, causal)
     o, lse = calls[0]()
     delta = fa.attention_delta(o, do)
@@ -1074,17 +1091,22 @@ def check_masked_case(q, k, v, do, lut, kb, ab, causal, what):
     pairs = {names[0]: [("o", o, ro), ("lse", lse, rlse)],
              names[1]: [("dk", dk, rdk), ("dv", dv, rdv)],
              names[2]: [("dq", dq, rdq)]}
-    if names[1] == "flash_bwd_dkdv_lut_sm90":
+    if names[1] in SM90_TEMPLATES:
         tdk, tdv = fa.flash_bwd_dkdv_lut_tiled(q, k, v, do, lse, delta, lut, kb, ab)
         pairs["flash_bwd_dkdv_lut"] = [("dk", tdk, rdk), ("dv", tdv, rdv)]
+    if names[2] in SM90_TEMPLATES:
+        pairs["flash_bwd_dq_lut"] = [
+            ("dq", fa.flash_bwd_dq_lut_tiled(q, k, v, do, lse, delta, lut, kb, ab), rdq)]
     torch.cuda.synchronize()
     return {name: [(label, *flash_close(f"{name} {what}", label, got, ref))
-                   for label, got, ref in ps] for name, ps in pairs.items()}
+                   for label, got, ref in ps]
+            for name, ps in pairs.items() if held is None or name in held}
 
 
 def sparse_cases(H):
     """Phase 7's cases: (T, layout label, config or None, dtype, causal,
-    bias kind, head dim, q/k/v layout)."""
+    bias kind, head dim, q/k/v layout); :func:`dq_cases` adds the ones
+    where only dQ is held."""
     dims, views = (64, 96, 128), ("qkv", "dense")
     bf16, fp32 = torch.bfloat16, torch.float32
     cases, i = [], 0
@@ -1122,20 +1144,34 @@ def sparse_cases(H):
     return cases
 
 
+def dq_cases(H):
+    """Phase 7's cases where the forward and dQ (its sm90 kernel and the
+    template) are held, not dK/dV: the sm90 sweep's layouts, T and q/k/v
+    layouts with ``mul`` and causal masking, which :func:`sparse_cases`
+    leaves out for dK/dV."""
+    configs = sparse_configs(H) + [("empty-rows", EmptyRowsLayout())]
+    return [(T, label, cfg, torch.bfloat16, True, "mul", 64, ("qkv", "dense")[j % 2])
+            for j, ((label, cfg), T) in enumerate(itertools.product(configs, (256, 1024, 1008)))
+            if T != 1008 or label in ("fixed16", "empty-rows")]
+
+
 def check_sparse_kernels(dev, gen, B=2, H=4):
     """Phase 7: every biased and LUT kernel against its plain version.
     Returns the max abs error per kernel."""
     max_err = {name: 0.0 for name in fa.BIASED_KERNELS + fa.LUT_KERNELS}
-    for T, label, cfg, dt, causal, kind, d, view in sparse_cases(H):
-        lut = None if cfg is None else fa.layout_luts(cfg.make_layout(T), T, H, causal)
-        kb, ab = bias_inputs(kind, gen, B, T, dev)
-        what = (f"{str(dt)[6:]} d={d} T={T} {label} bias={kind} causal={int(causal)} "
-                f"{view}")
-        res = check_masked_case(*flash_inputs(dev, gen, dt, B, T, H, d, view), lut, kb, ab,
-                                causal, what)
-        for name, rows in res.items():
-            max_err[name] = max([max_err[name]] + [err for _, err, _ in rows])
-        print(f"sparse-check {what}: {flash_line(res)}")
+    dq_only = ("flash_fwd_lut", "flash_bwd_dq_lut_sm90", "flash_bwd_dq_lut")
+    for held, cases in ((None, sparse_cases(H)), (dq_only, dq_cases(H))):
+        for T, label, cfg, dt, causal, kind, d, view in cases:
+            lut = None if cfg is None else fa.layout_luts(cfg.make_layout(T), T, H, causal)
+            kb, ab = bias_inputs(kind, gen, B, T, dev)
+            what = (f"{str(dt)[6:]} d={d} T={T} {label} bias={kind} causal={int(causal)} "
+                    f"{view}")
+            res = check_masked_case(*flash_inputs(dev, gen, dt, B, T, H, d, view), lut, kb, ab,
+                                    causal, what, held)
+            for name, rows in res.items():
+                max_err[name] = max([max_err[name]] + [err for _, err, _ in rows])
+            note = "" if held is None else " (dK/dV not held: its limit here is open)"
+            print(f"sparse-check {what}{note}: {flash_line(res)}")
     return max_err
 
 
@@ -1234,10 +1270,11 @@ def bert_train(dev, card, warmup=3, timed=10, fit_steps=20, preset="bert-large",
     eng = bert_engine(dev, base, data, preset=preset, seq=seq, micro=micro)
     model = eng.module
     L = model.config.n_layer
-    # flash_bwd_dkdv_lut_sm90 at BERT-large's head dim 64
-    dkdv = fa.sparse_dkdv_kernel(torch.bfloat16, model.config.hidden_size // model.config.n_head,
-                                 False)
-    per_step = {"flash_fwd_lut": 2 * L, dkdv: L, "flash_bwd_dq_lut": L}
+    # flash_bwd_dkdv_lut_sm90 and flash_bwd_dq_lut_sm90 at BERT-large's head dim 64
+    head_dim = model.config.hidden_size // model.config.n_head
+    dkdv = fa.sparse_dkdv_kernel(torch.bfloat16, head_dim, False)
+    dq = fa.sparse_dq_kernel(torch.bfloat16, head_dim, False)
+    per_step = {"flash_fwd_lut": 2 * L, dkdv: L, dq: L}
     lut = fa.layout_luts(model.sparse_self_attention.get_layout(seq), seq,
                          model.config.n_head, False)
     torch.cuda.synchronize()
@@ -1285,19 +1322,21 @@ def bert_train(dev, card, warmup=3, timed=10, fit_steps=20, preset="bert-large",
         raise AssertionError(f"fixed-batch loss fell only {fit[0] - fit[-1]}")
     by_name = profile_steps(lambda: eng.train_batch(), f"train {preset} sparse16", steps=1,
                             unit="training step")
-    spent = [(t, c) for name, (t, c) in by_name.items() if re.search(r"\bdkdv_", name)]
-    print(f"profile train {preset} sparse16: dK/dV device time per step "
-          f"{sum(t for t, _ in spent) / 1e3:.2f} ms over {sum(c for _, c in spent):.0f} "
-          f"launches ({dkdv}; the template flash_bwd_dkdv_lut took 78.40 ms a step, PERF.md "
-          f"section 5) ({card})")
+    for what, pattern, name, template in (
+            ("dK/dV", r"\bdkdv_", dkdv, "flash_bwd_dkdv_lut took 78.40"),
+            ("dQ", r"\bdq_", dq, "flash_bwd_dq_lut took ~38.5")):
+        spent = [(t, c) for kname, (t, c) in by_name.items() if re.search(pattern, kname)]
+        print(f"profile train {preset} sparse16: {what} device time per step "
+              f"{sum(t for t, _ in spent) / 1e3:.2f} ms over {sum(c for _, c in spent):.0f} "
+              f"launches ({name}; the template {template} ms a step, PERF.md section 5) "
+              f"({card})")
     del eng
     torch.cuda.empty_cache()
 
     # 8b: unpadded batches (packed sequences): the ring forward, no bias
     # 8c: "mode": "dense" (an all-ones layout) with padding: the dense biased kernels
     for tag, section, padded, want in (
-            ("8b", SPARSE_SECTION, False, {"flash_fwd_lut_ring": 2 * L, dkdv: L,
-                                           "flash_bwd_dq_lut": L}),
+            ("8b", SPARSE_SECTION, False, {"flash_fwd_lut_ring": 2 * L, dkdv: L, dq: L}),
             ("8c", {"mode": "dense", "block": 16}, True, {
                 "flash_fwd_biased": 2 * L, "flash_bwd_dkdv_biased": L,
                 "flash_bwd_dq_biased": L})):
@@ -1325,8 +1364,8 @@ def sparse_timing(dev, gen, bytes_per_s, card, B=8, T=2048, H=16, d=64):
     version, then timed beside its bound, its plain version and SDPA with
     the expanded boolean layout-and-padding mask (forward, forward+backward
     and the backward alone: ``autograd.grad`` over a retained graph); where
-    dK/dV takes ``flash_bwd_dkdv_lut_sm90``, the template
-    ``flash_bwd_dkdv_lut`` (the template design) on the same call beside it.
+    dK/dV or dQ takes its sm90 kernel, the template (the template design)
+    on the same call beside it.
     The backward kernels' library time is SDPA's backward alone.  Returns
     {case: {kernel: kernels-line fields}} and the cases' densities."""
     q, k, v, do = flash_inputs(dev, gen, torch.bfloat16, B, T, H, d, "qkv")
@@ -1379,17 +1418,22 @@ def sparse_timing(dev, gen, bytes_per_s, card, B=8, T=2048, H=16, d=64):
         plain = {names[0]: plains[0], names[1]: lambda: plains[1](lse, delta),
                  names[2]: lambda: plains[2](lse, delta)}
         timed = list(names)
-        if names[1] == "flash_bwd_dkdv_lut_sm90":      # the template design on the same call
-            timed.append("flash_bwd_dkdv_lut")
-            work["flash_bwd_dkdv_lut"] = work[names[1]]
-            kernel["flash_bwd_dkdv_lut"] = lambda: fa.flash_bwd_dkdv_lut_tiled(
-                q, k, v, do, lse, delta, lut, bias)
-            plain["flash_bwd_dkdv_lut"] = plain[names[1]]
-            groups = lut.groups("k")
-            print(f"schedule {case}: flash_bwd_dkdv_lut_sm90 {groups.visits_per_head.mean():.0f}"
-                  f" visits on {groups.tiles_per_head.mean():.0f} output tiles per head "
-                  f"(rows {groups.unit} a slot); the template "
-                  f"{lut.qlen.sum() / lut.heads:.0f} 64 x 64 tiles per head")
+        # the template design on the same call
+        for name, side, tiled, tiles in (
+                (names[1], "k", lambda: fa.flash_bwd_dkdv_lut_tiled(q, k, v, do, lse, delta, lut,
+                                                                    bias), "qlen"),
+                (names[2], "q", lambda: fa.flash_bwd_dq_lut_tiled(q, k, v, do, lse, delta, lut,
+                                                                  bias), "klen")):
+            if name not in SM90_TEMPLATES:
+                continue
+            template = SM90_TEMPLATES[name]
+            timed.append(template)
+            work[template], kernel[template], plain[template] = work[name], tiled, plain[name]
+            groups = lut.groups(side)
+            print(f"schedule {case}: {name} {groups.visits_per_head.mean():.0f} visits on "
+                  f"{groups.tiles_per_head.mean():.0f} output tiles per head (rows "
+                  f"{groups.unit} a slot); the template "
+                  f"{getattr(lut, tiles).sum() / lut.heads:.0f} 64 x 64 tiles per head")
         out[case] = {}
         for name in timed:
             nbytes, ops = work[name]
@@ -2056,7 +2100,7 @@ def path_run(route, attn_or_layout, leaf, do, B, T, H, d, causal=True):
     counts = dict(fa.launches)
     check_launches(f"{route} path", counts, {f"flash_fwd_{route}": 1,
                                              "flash_bwd_dkdv_lut_sm90": 1,
-                                             "flash_bwd_dq_lut": 1}, 1)
+                                             "flash_bwd_dq_lut_sm90": 1}, 1)
     return out.detach(), counts
 
 
@@ -2174,7 +2218,7 @@ def sparse_workload(dev, gen, card, bytes_per_s, B=1, H=8, d=64, line_shape=(64,
             rows = check_path(route, name, sched, lut, leaf, do, out, B, T, H, d, what)
             print(f"sparse-path {route} {what} (W={W}, {len(gcols)} gcols, kernel gcols "
                   f"{list(band.kernel_gcols)}): launches {name} 1, flash_bwd_dkdv_lut_sm90 1, "
-                  f"flash_bwd_dq_lut 1, flash_fwd_lut_ring 0; {flash_line({name: rows})}")
+                  f"flash_bwd_dq_lut_sm90 1, flash_fwd_lut_ring 0; {flash_line({name: rows})}")
             fields = time_path(dev, route, name, sched, lut, layout, attn, leaf, do, B, T, H,
                                d, True, bytes_per_s, card)
             if (block, T) == line_shape:      # the forward kernel's own outputs
@@ -2199,7 +2243,7 @@ def sparse_workload(dev, gen, card, bytes_per_s, B=1, H=8, d=64, line_shape=(64,
     rows = check_path("merged", "flash_fwd_merged", lut.merged, lut, leaf, do, out, B, T, H, d,
                       what)
     print(f"sparse-path merged {what}: launches flash_fwd_merged 1, flash_bwd_dkdv_lut_sm90 "
-          f"1, flash_bwd_dq_lut 1; {flash_line({'flash_fwd_merged': rows})}")
+          f"1, flash_bwd_dq_lut_sm90 1; {flash_line({'flash_fwd_merged': rows})}")
     time_path(dev, "merged", "flash_fwd_merged", lut.merged, lut, layout, None, leaf, do, B, T,
               H, d, False, bytes_per_s, card)
     fa.launches.update(saved)          # timing launches are not path launches
@@ -2289,7 +2333,8 @@ def main():
             ("flash_fwd_lut_ring", "tutorial16", "8b"),
             ("flash_bwd_dkdv_lut", "tutorial16+pad", "8"),         # the template design: 0
             ("flash_bwd_dkdv_lut_sm90", "tutorial16+pad", "8"),
-            ("flash_bwd_dq_lut", "tutorial16+pad", "8")):
+            ("flash_bwd_dq_lut", "tutorial16+pad", "8"),           # the template design: 0
+            ("flash_bwd_dq_lut_sm90", "tutorial16+pad", "8")):
         kernels.append({"name": name, "route": "cuda", "source": flash_source(name),
                         "replaces": REPLACES[name], "launches": bert_launches[run][name],
                         **ts[case][name]})

@@ -1,73 +1,80 @@
-// Block-sparse flash-attention dK/dV backward for Hopper (sm_90a): the entry
-// flash_bwd_dkdv_lut_sm90, bf16, head dim 64, the (B, T) key bias optional.
+// Block-sparse flash-attention backward for Hopper (sm_90a): the entries flash_bwd_dkdv_lut_sm90
+// (dK, dV) and flash_bwd_dq_lut_sm90 (dQ), bf16, head dim 64, the (B, T) key bias optional.
 //
-// Replaces the Pallas TPU kernel _bwd_dkdv_kernel of deepspeed_tpu/ops/transformer/
-// flash_attention.py (617-688) with use_lut and use_kbias, built by _bwd (756-891) over the
-// LUTs of _sparse_luts (84-127).  The template dkdv_kernel<kLut> of flash_attention.cuh
-// (flash_bwd_dkdv_lut: 4 warps, 64 x 64 tiles carrying a mask of their live layout cells,
-// mma.sync, a cp.async double buffer) keeps fp32, head dims 96 and 128 (here the largest
-// instance spilled) and the (T, T) score bias; ops/transformer/flash_attention.py:
-// sparse_dkdv_kernel routes bf16 at head dim 64 here.  For each key row, over the query
-// rows live for it, it computes what dkdv_kernel computes:
+// Replace the Pallas TPU kernels _bwd_dkdv_kernel (617-688) and _bwd_dq_kernel (691-753) of
+// deepspeed_tpu/ops/transformer/flash_attention.py with use_lut and use_kbias, built by _bwd
+// (756-891) over the LUTs of _sparse_luts (84-127).  The template kernels dkdv_kernel<kLut> and
+// dq_kernel<kLut> of flash_attention.cuh (flash_bwd_dkdv_lut, flash_bwd_dq_lut: 4 warps, 64 x 64
+// tiles carrying a mask of their live layout cells, mma.sync, a cp.async double buffer) keep
+// fp32, head dims 96 and 128 (here the largest dK/dV instance spilled, and a dQ pipe of four
+// stages does not fit twice in shared memory) and the (T, T) score bias;
+// ops/transformer/flash_attention.py: sparse_dkdv_kernel and sparse_dq_kernel route bf16 at head
+// dim 64 here.  They compute what the template kernels compute:
 //   P = exp(S * scale + kbias - lse), 0 where the pair is not live and on a row whose lse is
-//   NEG_INF (no live key); dV += P^T dO with P rounded to bf16; dS = P * (dO V^T - delta) *
-//   scale; dK += dS^T Q with dS rounded to bf16; fp32 accumulation; dK and dV written bf16,
-//   contiguous (B, T, H, D); a key row no live query reaches gets zeros.  delta = rowsum(dO
-//   * O) comes from the caller.
+//   NEG_INF (no live key); dS = P * (dO V^T - delta) * scale; fp32 accumulation.
+//   dK/dV, for each key row over the query rows live for it: dV += P^T dO with P rounded to
+//   bf16, dK += dS^T Q with dS rounded to bf16.  dQ, for each query row over the key rows live
+//   for it: dQ += dS K with dS rounded to bf16.  Outputs bf16, contiguous (B, T, H, D); a row
+//   no live partner reaches gets zeros.  delta = rowsum(dO * O) comes from the caller.
 //
-// What bounds it: 8·D flops per live (q, k) pair (the products S, dP, dV and dK).  At
-// BERT-large's shape with the tutorial layout (B=8, T=2048, H=16, D=64; Fixed, block 16,
-// local 4, global 1, bidirectional; element density 0.2734) that is 75.2 GFLOP, 76.0 us at
-// the H100's 989 bf16 TFLOP/s, against 203 MB of inputs and outputs, 60.6 us at 3.35 TB/s:
-// the operations bound it.  The template kernel computes every pair of each 64 x 64 tile
-// that holds a live cell (at block 16 that is every tile, 3.66x the live pairs) and masks
-// each element.  This design computes only live pairs, on wgmma:
+// What bounds them: 8·D flops per live (q, k) pair for dK/dV (the products S, dP, dV and dK),
+// 6·D for dQ (S, dP and dQ).  At BERT-large's shape with the tutorial layout (B=8, T=2048, H=16,
+// D=64; Fixed, block 16, local 4, global 1, bidirectional; element density 0.2734) that is 75.2
+// GFLOP, 76.0 us at the H100's 989 bf16 TFLOP/s, against 203 MB of inputs and outputs, 60.6 us
+// at 3.35 TB/s (dK/dV), and 56.4 GFLOP, 57.0 us, against 170 MB, 50.7 us (dQ): the operations
+// bound them.  The template kernels compute every pair of each 64 x 64 tile that holds a live
+// cell (at block 16 that is every tile, 3.66x the live pairs) and mask each element.  This
+// design computes only live pairs, on wgmma; dK/dV and dQ are one design with the roles of the
+// query and key rows swapped:
 //   * the schedule (GroupLut in ops/transformer/flash_attention.py, built on the host from
-//     the layout and cached) groups the key blocks by the set of query blocks live for them
-//     and packs each group R = 64 / U blocks (U = min(block, 64) rows, a "slot") to a 64-row
-//     output tile; each tile visits its group's live query blocks, gathered R at a time into
-//     64-row visits.  So every pair of a visit is live except in the last visit of a group
-//     whose size is not a multiple of R (an empty slot) and in causal diagonal blocks, and
-//     only those visits, flagged by the schedule, take the per-element mask.  The tutorial
-//     layout's 1024 tiles per head become 40 output tiles and 288 visits, 97% live;
+//     the layout and cached; side "k" for dK/dV, "q" for dQ) groups the output blocks (key
+//     blocks for dK/dV, query blocks for dQ) by the set of blocks live for them and packs each
+//     group R = 64 / U blocks (U = min(block, 64) rows, a "slot") to a 64-row output tile; each
+//     tile visits its group's live blocks, gathered R at a time into 64-row visits.  So every
+//     pair of a visit is live except in the last visit of a group whose size is not a multiple
+//     of R (an empty slot) and in causal diagonal blocks, and only those visits, flagged by the
+//     schedule, take the per-element mask.  The tutorial layout's 1024 tiles per head become
+//     288 visits, on 40 output tiles for dK/dV and 32 for dQ, 97% live;
 //   * gathered tiles by TMA: the maps of q, k, v and dO are 4-D (D, H, T, B) over the
 //     tensors' own strides (views of the fused qkv output work) with U-row boxes, 128-byte
 //     swizzled.  A 16-row box is two swizzle atoms, so four boxes at 2 KB offsets give the
 //     same shared-memory image as one 64-row box and the wgmma descriptors read a gathered
 //     tile unchanged.  An empty slot loads rows from T on, which TMA fills with zeros (its
-//     products add nothing; its lse and delta load as 0 too and its columns are masked);
+//     products add nothing; its stats and key bias load as 0 too and its pairs are masked);
 //   * a block (one an SM, 384 threads) holds two pipes; a pipe is one consumer warpgroup fed
 //     by one thread of the producer warpgroup through its own half of shared memory: it owns
-//     one output tile at a time, loads its K, V and key bias once (two buffers, so the next
-//     tile's arrive during this one) and streams the tile's visits, Q, dO and their lse and
-//     delta slots, through a ring of kStages stages with full and empty mbarriers; the
+//     one output tile at a time, loads its operands once (dK/dV: K, V and the key-bias slots;
+//     dQ: Q, dO and the lse and delta slots; two buffers, so the next tile's arrive during
+//     this one) and streams the tile's visits (dK/dV: Q, dO, lse and delta; dQ: K, V and the
+//     key-bias slots) through a ring of kStages stages with full and empty mbarriers; the
 //     producer also hands each tile's and each visit's schedule entries over in shared
 //     memory, so the consumers read no global memory in their loop; setmaxnreg gives the
 //     consumers 224 registers and the producers 56 (as two blocks an SM of one consumer
 //     warpgroup each, at most 200 registers a thread, ptxas serialized the wgmmas, C7512,
-//     and the kernel took 13% longer); an mbarrier wait longer than 2 s traps;
-//   * S^T = K Q^T and dP^T = V dO^T are wgmma m64n64k16 with both operands in shared memory
-//     (K-major, as TMA writes them); the softmax gradient runs on the accumulators in
-//     registers, in log2 units (one FMA and one exp2 for P, one FMA and one multiply for
-//     dS), into bf16 register-A fragments of P^T and dS^T; a row of lse NEG_INF enters as
-//     +inf, so its P is 0 with no select; dV += P^T dO and dK += dS^T Q are wgmma with dO
-//     and Q read through the transpose bit, so no transposed copy is made, and the next
-//     visit's S^T / dP^T are issued right behind them;
+//     and the dK/dV kernel took 13% longer); an mbarrier wait longer than 2 s traps;
+//   * the two products of the softmax step (dK/dV: S^T = K Q^T and dP^T = V dO^T; dQ: S = Q K^T
+//     and dP = dO V^T) are wgmma m64n64k16 with both operands in shared memory (K-major, as
+//     TMA writes them); the softmax gradient runs on the accumulators in registers, in log2
+//     units (one FMA and one exp2 for P, one FMA and one multiply for dS), into bf16
+//     register-A fragments (P^T and dS^T; dS); a row of lse NEG_INF enters as +inf, so its P
+//     is 0 with no select; dV += P^T dO and dK += dS^T Q (dQ += dS K) are wgmma with dO and Q
+//     (K) read through the transpose bit, so no transposed copy is made, and the next visit's
+//     products of the softmax step are issued right behind them;
 //   * instances by slot rows U (16, 32, 64; the stats' addresses are then constants) and key
 //     bias; the grid is persistent, one block an SM; the work items (an output tile of one
 //     (b, h)), ordered on the host by visit count, longest first, are dealt over the pipes in
-//     a snake as flash_fwd_sm90 deals its items; each key row belongs to one output tile,
+//     a snake as flash_fwd_sm90 deals its items; each output row belongs to one output tile,
 //     written once by its pipe from registers: no atomics, deterministic.
-// Where the time goes (examples/sparse_dkdv_check.py's variants, H100): the softmax step's
-// instructions, the loads' waits and the products add more than they overlap.  PERF.md
-// holds the figures.  flash_bwd_dkdv_lut_sm90_schedule in ops/transformer/flash_attention.py
-// is this kernel's schedule in Python (the items each pipe takes, their slots, visits and
-// flags).
+// Where the dK/dV time goes (examples/sparse_dkdv_check.py's variants, H100): the softmax
+// step's instructions, the loads' waits and the products add more than they overlap.  PERF.md
+// holds the figures.  flash_bwd_dkdv_lut_sm90_schedule and flash_bwd_dq_lut_sm90_schedule in
+// ops/transformer/flash_attention.py are the kernels' schedules in Python (the items each pipe
+// takes, their slots, visits and flags).
 //
-// C interface for ctypes: the argument list of flash_bwd_dkdv (flash_attention.cu) plus the
-// schedule; returns cudaGetLastError() after the launch (0 on success), -1 for a dtype /
-// head dim / slot size it was not built for, -2 when a tensor map cannot be encoded and -3
-// when cuTensorMapEncodeTiled cannot be found.
+// C interface for ctypes: the argument lists of flash_bwd_dkdv and flash_bwd_dq
+// (flash_attention.cu) plus the schedule; returns cudaGetLastError() after the launch (0 on
+// success), -1 for a dtype / head dim / slot size it was not built for, -2 when a tensor map
+// cannot be encoded and -3 when cuTensorMapEncodeTiled cannot be found.
 
 #include <cuda.h>  // CUtensorMap and its enums; the encoder is fetched at run time
 #include <cuda_bf16.h>
@@ -76,10 +83,11 @@
 #include <stdint.h>
 
 // The schedule of one call (GroupLut's arrays on the device; a ctypes Structure on the host).
-struct DkdvSchedule {
-  const int* out_slots;    // (tiles, 4): each output tile's key units, -1 for an empty slot
+// Output units are key units for dK/dV and query units for dQ; visited units the others.
+struct GroupSchedule {
+  const int* out_slots;    // (tiles, 4): each output tile's units, -1 for an empty slot
   const int* vbeg;         // (tiles + 1): tile t's visits are vbeg[t] .. vbeg[t + 1] - 1
-  const int* visit_slots;  // (visits, 4): each visit's query units, -1 for an empty slot
+  const int* visit_slots;  // (visits, 4): each visit's units, -1 for an empty slot
   const int* masked;       // (visits): 1 where the visit takes the per-element mask
   const int* order;        // (n_work, 2): the work items (b * H + h, tile), longest first
   const float* kbias;      // (B, T) fp32 key bias, or null
@@ -114,6 +122,14 @@ struct Cfg {
                                    2 * kStatBytes + 4 * 8 * (2 + kStages) +
                                    8 * (4 + 2 * kStages) + 1023) / 1024 * 1024;
   static constexpr size_t kSmem = 1024 + 2 * kPipe;
+  // a dQ pipe: Q, dO and the lse and delta slots in two buffers, K, V and the key-bias slots
+  // in the ring
+  static constexpr size_t kPipeDq = (4 * static_cast<size_t>(kTileBytes) +
+                                     kStages * (2 * static_cast<size_t>(kTileBytes) +
+                                                kStatBytes) +
+                                     4 * kStatBytes + 4 * 8 * (2 + kStages) +
+                                     8 * (4 + 2 * kStages) + 1023) / 1024 * 1024;
+  static constexpr size_t kSmemDq = 1024 + 2 * kPipeDq;
 };
 
 // ---------------------------------------------------------------- PTX helpers
@@ -270,25 +286,27 @@ __device__ __forceinline__ float exp2_ftz(float x) {
   return y;
 }
 
-// S^T = K Q^T and dP^T = V dO^T of one visit, every operand in shared memory (K-major, as
-// TMA writes them): one commit group.  It may be issued while the last visit's dV and dK are
-// in flight, so it touches s and dp with nothing but the wgmmas: a register fence there
-// counts as a definition inside their pipeline stage, and ptxas then serializes every
-// wgmma of the kernel (C7515)
+// The two products of one visit's softmax step, every operand in shared memory (K-major, as
+// TMA writes them): s = tS vS^T and dp = tP vP^T, with tS, tP the output tile's operands and
+// vS, vP the visit's (dK/dV: S^T = K Q^T, dP^T = V dO^T; dQ: S = Q K^T, dP = dO V^T); one
+// commit group.  It may be issued while the last visit's output products are in flight, so
+// it touches s and dp with nothing but the wgmmas: a register fence there counts as a
+// definition inside their pipeline stage, and ptxas then serializes every wgmma of the kernel
+// (C7515)
 template <int D>
-__device__ __forceinline__ void issue_sdp(float (&s)[32], float (&dp)[32], const unsigned char* tK,
-                                          const unsigned char* tV, const unsigned char* tQ,
-                                          const unsigned char* tdO) {
+__device__ __forceinline__ void issue_sdp(float (&s)[32], float (&dp)[32], const unsigned char* tS,
+                                          const unsigned char* tP, const unsigned char* vS,
+                                          const unsigned char* vP) {
   wgmma_fence();
 #pragma unroll
   for (int kk = 0; kk < D / 16; ++kk) {
     const int off = (kk / 4) * kBoxBytes + (kk % 4) * 32;
-    wgmma_ss_n64(s, desc_sw128(tK + off, 16, 1024), desc_sw128(tQ + off, 16, 1024), kk > 0);
+    wgmma_ss_n64(s, desc_sw128(tS + off, 16, 1024), desc_sw128(vS + off, 16, 1024), kk > 0);
   }
 #pragma unroll
   for (int kk = 0; kk < D / 16; ++kk) {
     const int off = (kk / 4) * kBoxBytes + (kk % 4) * 32;
-    wgmma_ss_n64(dp, desc_sw128(tV + off, 16, 1024), desc_sw128(tdO + off, 16, 1024), kk > 0);
+    wgmma_ss_n64(dp, desc_sw128(tP + off, 16, 1024), desc_sw128(vP + off, 16, 1024), kk > 0);
   }
   wgmma_commit();
 }
@@ -340,10 +358,60 @@ __device__ __forceinline__ void softmax_grad(const float (&s)[32], const float (
   }
 }
 
+// dS = P (dP scale - delta scale) of one dQ visit, P = 2^(S scale log2e + kbias log2e - lse
+// log2e), from its S and dP accumulators, the thread's two query rows (qpos, -1 in an empty
+// slot; l2 = lse log2e, +inf where lse is NEG_INF, so that row's P is 0; dd = delta scale),
+// the visit's key-bias slots (kb) and its entries (vm: the mask flag and the key units).  Only
+// a flagged visit (kMasked) masks: an empty key slot, and when causal a key after the query.
+// dS goes straight to bf16 A fragments, as in softmax_grad; s and dp are only read.
+template <int U, bool kMasked, bool kBias>
+__device__ __forceinline__ void softmax_grad_dq(const float (&s)[32], const float (&dp)[32],
+                                                uint32_t (&da)[4][4], const float* kb,
+                                                const int* vm, const float (&l2)[2],
+                                                const float (&dd)[2], const int (&qpos)[2],
+                                                int qd, int causal, float scale, float scale2) {
+#pragma unroll
+  for (int n = 0; n < 8; ++n) {
+    // columns 8 n + qd + e (qd + e < 8) are rows row + e of the key slot `slot`; slot and
+    // row - qd are constants
+    const int slot = (8 * n) / U, row = (8 * n) % U + qd;
+    float kb2[2] = {0.f, 0.f};
+    if (kBias) {
+      const float2 b = *reinterpret_cast<const float2*>(kb + slot * kStatSlot + row);
+      kb2[0] = b.x * kLog2e;
+      kb2[1] = b.y * kLog2e;
+    }
+    int kpos = -1;  // the key row of column 8 n + qd; -1 in an empty slot
+    if (kMasked) {
+      const int u = vm[1 + slot];
+      kpos = u < 0 ? -1 : u * U + row;
+    }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      float dsv[2];
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int idx = 4 * n + 2 * r + e;
+        float pv = exp2_ftz(fmaf(s[idx], scale2, kBias ? kb2[e] - l2[r] : -l2[r]));
+        if (kMasked && !(kpos >= 0 && (!causal || qpos[r] >= kpos + e))) pv = 0.f;
+        dsv[e] = pv * fmaf(dp[idx], scale, -dd[r]);
+      }
+      da[n >> 1][2 * (n & 1) + r] = pack_bf16(dsv[0], dsv[1]);
+    }
+  }
+}
+
 struct Params {
-  DkdvSchedule s;
+  GroupSchedule s;
   bf16* dk;
   bf16* dv;
+  int T, H, causal;
+  float scale, scale2;          // scale; scale * log2 e
+};
+
+struct DqParams {
+  GroupSchedule s;
+  bf16* dq;
   int T, H, causal;
   float scale, scale2;          // scale; scale * log2 e
 };
@@ -393,7 +461,7 @@ __global__ void __launch_bounds__(kThreads, 1)
 
   constexpr int R = kRows / U;  // slots per tile
   const int T = p.T, H = p.H;
-  const DkdvSchedule sc = p.s;
+  const GroupSchedule sc = p.s;
   // in round r pipe x = 2 blockIdx.x + pipe takes item r G + x, or r G + G - 1 - x when r is
   // odd (G = 2 gridDim.x): a snake over the longest-first items, as flash_fwd_sm90 deals them
   auto work = [&](int r) {
@@ -619,6 +687,247 @@ __global__ void __launch_bounds__(kThreads, 1)
   }
 }
 
+// The dQ kernel: dkdv_sm90_kernel with the roles of the rows swapped.  Rows of the
+// accumulators are query rows of the output tile; columns are key rows of the visit (in S and
+// dP) or head-dim columns (in dQ).  A pipe loads each work item's Q, dO, lse and delta slots
+// once (two buffers) and streams each visit's K, V and key-bias slots through the ring; the
+// producer hands the entries over in shared memory as in dkdv_sm90_kernel, and the consumers
+// issue the next visit's S and dP right behind this visit's dQ.
+template <int D, int U, bool kBias>
+__global__ void __launch_bounds__(kThreads, 1)
+    dq_sm90_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
+                   const __grid_constant__ CUtensorMap tv, const __grid_constant__ CUtensorMap tdo,
+                   const __grid_constant__ CUtensorMap tlse,
+                   const __grid_constant__ CUtensorMap tdelta,
+                   const __grid_constant__ CUtensorMap tkb, DqParams p) {
+  using C = Cfg<D>;
+  constexpr int kB = C::kBoxes, kS = kStages, kTile = C::kTileBytes;
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  const int wg = threadIdx.x / kWgThreads;
+  const int pipe = wg == 0 ? (threadIdx.x >> 5) & 1 : wg - 1;
+  unsigned char* smem =
+      smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023) + pipe * C::kPipeDq;
+  unsigned char* sQ = smem;                      // [buffer][box][64 rows][128 bytes]
+  unsigned char* sdO = sQ + 2 * kTile;           // the same
+  unsigned char* sK = sdO + 2 * kTile;           // [stage][box][64 rows][128 bytes]
+  unsigned char* sV = sK + kS * kTile;           // the same
+  float* sLse = reinterpret_cast<float*>(sV + kS * kTile);  // [buffer][slot][kStatSlot]
+  float* sDelta = sLse + 2 * 4 * kStatSlot;                 // the same
+  float* sKb = sDelta + 2 * 4 * kStatSlot;                  // [stage][slot][kStatSlot]
+  int* sItem = reinterpret_cast<int*>(sKb + kS * 4 * kStatSlot);  // [buffer][8]
+  int* sVisit = sItem + 2 * 8;                                    // [stage][8]
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(sVisit + kS * 8);
+  uint64_t* q_empty = q_full + 2;
+  uint64_t* full = q_empty + 2;
+  uint64_t* empty = full + kS;
+
+  constexpr int R = kRows / U;  // slots per tile
+  const int T = p.T, H = p.H;
+  const GroupSchedule sc = p.s;
+  auto work = [&](int r) {  // the snake of dkdv_sm90_kernel
+    const int G = 2 * gridDim.x, x = 2 * blockIdx.x + pipe;
+    return r * G + ((r & 1) ? G - 1 - x : x);
+  };
+
+  if (threadIdx.x == 0 || threadIdx.x == 32) {
+#pragma unroll
+    for (int b = 0; b < 2; ++b) {
+      mbar_init(&q_full[b], 1);
+      mbar_init(&q_empty[b], 4);  // one arrival per consumer warp
+    }
+#pragma unroll
+    for (int s = 0; s < kS; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 4);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (wg == 0) {
+    // ------------------------------------------------------------ producer
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kProducerRegs));
+    if (threadIdx.x != 0 && threadIdx.x != 32) return;
+    int vt = 0;  // visits issued to this pipe
+    for (int i = 0, w = work(0); w < sc.n_work; w = work(++i)) {
+      const int2 item = reinterpret_cast<const int2*>(sc.order)[w];  // (b * H + h, tile)
+      const int b = item.x / H, h = item.x % H;
+      const int v0 = sc.vbeg[item.y], v1 = sc.vbeg[item.y + 1];
+      const int4 out = reinterpret_cast<const int4*>(sc.out_slots)[item.y];
+      int4 next = v0 < v1 ? reinterpret_cast<const int4*>(sc.visit_slots)[v0] : out;
+      int next_masked = v0 < v1 ? sc.masked[v0] : 0;
+      // the item's Q / dO buffer: its entries, then (if it has visits) its loads
+      const int qb = i & 1, qph = (i >> 1) & 1;
+      mbar_wait(&q_empty[qb], qph ^ 1);
+      int* meta = sItem + qb * 8;
+      meta[0] = b;
+      meta[1] = h;
+      meta[2] = v1 - v0;
+      meta[3] = out.x;
+      meta[4] = out.y;
+      meta[5] = out.z;
+      meta[6] = out.w;
+      if (v0 == v1) {  // no visit: the consumers write zeros
+        mbar_arrive(&q_full[qb]);
+        continue;
+      }
+      mbar_expect_tx(&q_full[qb], 2 * kTile + 2 * kRows * 4);
+#pragma unroll
+      for (int s = 0; s < 4; ++s) {
+        if (s >= R) break;
+        const int u = (&out.x)[s];
+        const int r0 = u < 0 ? T : u * U;  // an empty slot: rows past T, zeros
+#pragma unroll
+        for (int x = 0; x < kB; ++x) {
+          const int off = qb * kTile + x * kBoxBytes + s * U * 128;
+          tma_load4(sQ + off, &tq, &q_full[qb], x * kBox, h, r0, b);
+          tma_load4(sdO + off, &tdo, &q_full[qb], x * kBox, h, r0, b);
+        }
+        tma_load3(sLse + (qb * 4 + s) * kStatSlot, &tlse, &q_full[qb], r0, h, b);
+        tma_load3(sDelta + (qb * 4 + s) * kStatSlot, &tdelta, &q_full[qb], r0, h, b);
+      }
+      for (int v = v0; v < v1; ++v, ++vt) {
+        const int4 slots = next;
+        const int masked = next_masked;
+        if (v + 1 < v1) {  // the next visit's entries, read while this one is issued
+          next = reinterpret_cast<const int4*>(sc.visit_slots)[v + 1];
+          next_masked = sc.masked[v + 1];
+        }
+        const int st = vt % kS, ph = (vt / kS) & 1;
+        mbar_wait(&empty[st], ph ^ 1);
+        int* vm = sVisit + st * 8;
+        vm[0] = masked;
+        vm[1] = slots.x;
+        vm[2] = slots.y;
+        vm[3] = slots.z;
+        vm[4] = slots.w;
+        mbar_expect_tx(&full[st], 2 * kTile + (kBias ? kRows * 4 : 0));
+#pragma unroll
+        for (int s = 0; s < 4; ++s) {
+          if (s >= R) break;
+          const int u = (&slots.x)[s];
+          const int r0 = u < 0 ? T : u * U;
+#pragma unroll
+          for (int x = 0; x < kB; ++x) {
+            const int off = st * kTile + x * kBoxBytes + s * U * 128;
+            tma_load4(sK + off, &tk, &full[st], x * kBox, h, r0, b);
+            tma_load4(sV + off, &tv, &full[st], x * kBox, h, r0, b);
+          }
+          if (kBias) tma_load2(sKb + (st * 4 + s) * kStatSlot, &tkb, &full[st], r0, b);
+        }
+      }
+    }
+    return;
+  }
+  // -------------------------------------------------------------- consumers
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kConsumerRegs));
+  const int tid = static_cast<int>(threadIdx.x) - wg * kWgThreads;
+  const int warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, qd = (lane & 3) * 2;
+  const float scale = p.scale, scale2 = p.scale2;
+  int vt = 0;  // visits consumed by this pipe
+  for (int i = 0, w = work(0); w < sc.n_work; w = work(++i)) {
+    const int qb = i & 1, qph = (i >> 1) & 1;
+    mbar_wait(&q_full[qb], qph);
+    const int* meta = sItem + qb * 8;
+    const int b = meta[0], h = meta[1], nv = meta[2];
+    // this thread's two query rows: row 16 warp + g + 8 r of the tile, in slot row / U
+    int qpos[2], at[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int rl = 16 * warp + g + 8 * r, slot = rl / U;
+      const int u = meta[3 + slot];
+      qpos[r] = u < 0 ? -1 : u * U + (rl & (U - 1));
+      at[r] = (qb * 4 + slot) * kStatSlot + (rl & (U - 1));
+    }
+    float dq[kB][32];
+#pragma unroll
+    for (int x = 0; x < kB; ++x) {
+#pragma unroll
+      for (int e = 0; e < 32; ++e) dq[x][e] = 0.f;
+      fence_regs(dq[x]);  // zeroed here, before the first wgmma is issued
+    }
+
+    if (nv > 0) {
+      float l2[2], dd[2];  // the rows' lse log2 e (+inf where lse is NEG_INF), delta scale
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const float lse = sLse[at[r]];
+        l2[r] = lse > kNegInf * 0.5f ? lse * kLog2e : INFINITY;
+        dd[r] = sDelta[at[r]] * scale;
+      }
+      const unsigned char* tQ = sQ + qb * kTile;
+      const unsigned char* tdO = sdO + qb * kTile;
+      float s[32], dp[32];
+      uint32_t da[4][4];
+      int st = vt % kS;
+      mbar_wait(&full[st], (vt / kS) & 1);
+      issue_sdp<D>(s, dp, tQ, tdO, sK + st * kTile, sV + st * kTile);
+      for (int j = 0; j < nv; ++j, ++vt) {
+        // S and dP of this visit are done, and the last visit's dQ
+        wgmma_wait<0>();
+        fence_regs(s);
+        fence_regs(dp);
+#pragma unroll
+        for (int x = 0; x < kB; ++x) fence_regs(dq[x]);
+        fence_regs(da);
+        if (j > 0 && lane == 0) mbar_arrive(&empty[(vt - 1) % kS]);
+        const float* kb = sKb + st * 4 * kStatSlot;
+        const int* vm = sVisit + st * 8;
+
+        if (vm[0] != 0)
+          softmax_grad_dq<U, true, kBias>(s, dp, da, kb, vm, l2, dd, qpos, qd, p.causal, scale,
+                                          scale2);
+        else
+          softmax_grad_dq<U, false, kBias>(s, dp, da, kb, vm, l2, dd, qpos, qd, p.causal, scale,
+                                           scale2);
+
+        // dQ += dS K, K read through the transpose bit
+        const unsigned char* tK = sK + st * kTile;
+#pragma unroll
+        for (int x = 0; x < kB; ++x) fence_regs(dq[x]);
+        fence_regs(da);
+        wgmma_fence();
+#pragma unroll
+        for (int x = 0; x < kB; ++x)
+#pragma unroll
+          for (int kk = 0; kk < 4; ++kk)
+            wgmma_rs_n64_tb(dq[x], da[kk],
+                            desc_sw128(tK + x * kBoxBytes + kk * 16 * 128, kBoxBytes, 1024));
+        wgmma_commit();
+        // the next visit's S and dP right behind it; after the last visit, this visit's again
+        // (as in dkdv_sm90_kernel: an issue every iteration makes keeps the wgmmas unserialized)
+        if (j + 1 < nv) {
+          st = (vt + 1) % kS;
+          mbar_wait(&full[st], ((vt + 1) / kS) & 1);
+        }
+        issue_sdp<D>(s, dp, tQ, tdO, sK + st * kTile, sV + st * kTile);
+      }
+      wgmma_wait<0>();
+#pragma unroll
+      for (int x = 0; x < kB; ++x) fence_regs(dq[x]);
+      fence_regs(da);
+      if (lane == 0) mbar_arrive(&empty[(vt - 1) % kS]);
+    }
+    if (lane == 0) mbar_arrive(&q_empty[qb]);  // this item's entries, Q, dO and stats are read
+
+    // ---------------------------------------------------------- epilogue
+    // each of the thread's rows in a live slot gets its kB x 8 column pairs, bf16
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      if (qpos[r] < 0) continue;
+      bf16* oq = p.dq + ((static_cast<long long>(b) * T + qpos[r]) * H + h) * D;
+#pragma unroll
+      for (int x = 0; x < kB; ++x)
+#pragma unroll
+        for (int n = 0; n < 8; ++n) {
+          const int col = x * kBox + 8 * n + qd, e = 4 * n + 2 * r;
+          *reinterpret_cast<uint32_t*>(oq + col) = pack_bf16(dq[x][e], dq[x][e + 1]);
+        }
+    }
+  }
+}
+
 // ---------------------------------------------------------------- host side
 typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
@@ -685,10 +994,31 @@ bool make_bias_map(EncodeTiled enc, CUtensorMap* map, const float* base, int B, 
              CU_TENSOR_MAP_L2_PROMOTION_NONE, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-template <int D, int U, bool kBias>
+// A persistent grid of kernel: one block an SM at most, two pipes a block, one pipe for
+// each work item at most
+template <typename Kernel, typename... Args>
+int launch_pipes(Kernel kernel, size_t smem, int n_work, cudaStream_t stream,
+                 const Args&... args) {
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       static_cast<int>(smem));
+  if (e == cudaSuccess) e = cudaGetDevice(&dev);
+  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  if (per_sm < 1) per_sm = 1;
+  const int half = (n_work + 1) / 2;
+  const int grid = sms * per_sm < half ? sms * per_sm : half;
+  kernel<<<grid, kThreads, smem, stream>>>(args...);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// dK/dV (kDq false: out0 dK, out1 dV) or dQ (kDq true: out0 dQ) of one instance
+template <bool kDq, int D, int U, bool kBias>
 int launch(const void* q, const void* k, const void* v, const void* dout, const float* lse,
-           const float* delta, void* dk, void* dv, const long long* strides, int B, int T, int H,
-           int causal, float scale, const DkdvSchedule& s, cudaStream_t stream) {
+           const float* delta, void* out0, void* out1, const long long* strides, int B, int T,
+           int H, int causal, float scale, const GroupSchedule& s, cudaStream_t stream) {
   using C = Cfg<D>;
   EncodeTiled enc = encode_tiled();
   if (enc == nullptr) return -3;
@@ -701,56 +1031,67 @@ int launch(const void* q, const void* k, const void* v, const void* dout, const 
       !make_stat_map(enc, &mlse, lse, B, T, H, U) ||
       !make_stat_map(enc, &mdelta, delta, B, T, H, U))
     return -2;
-  const Params p = {s, static_cast<bf16*>(dk), static_cast<bf16*>(dv), T, H, causal, scale,
-                    scale * kLog2e};
-  auto kernel = dkdv_sm90_kernel<D, U, kBias>;
-  int dev = 0, sms = 0, per_sm = 0;
-  cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                       static_cast<int>(C::kSmem));
-  if (e == cudaSuccess) e = cudaGetDevice(&dev);
-  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (e == cudaSuccess)
-    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, C::kSmem);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  if (per_sm < 1) per_sm = 1;
-  const int half = (s.n_work + 1) / 2;
-  const int grid = sms * per_sm < half ? sms * per_sm : half;  // persistent, two pipes a block
-  kernel<<<grid, kThreads, C::kSmem, stream>>>(mq, mk, mv, mdo, mlse, mdelta, mkb, p);
-  return static_cast<int>(cudaGetLastError());
+  if constexpr (kDq) {
+    const DqParams p = {s, static_cast<bf16*>(out0), T, H, causal, scale, scale * kLog2e};
+    return launch_pipes(dq_sm90_kernel<D, U, kBias>, C::kSmemDq, s.n_work, stream, mq, mk, mv,
+                        mdo, mlse, mdelta, mkb, p);
+  } else {
+    const Params p = {s, static_cast<bf16*>(out0), static_cast<bf16*>(out1), T, H, causal,
+                      scale, scale * kLog2e};
+    return launch_pipes(dkdv_sm90_kernel<D, U, kBias>, C::kSmem, s.n_work, stream, mq, mk, mv,
+                        mdo, mlse, mdelta, mkb, p);
+  }
 }
 
 // the instance of a head dim: by the slot rows and whether there is a key bias
-template <int D>
+template <bool kDq, int D>
 int launch_any(const void* q, const void* k, const void* v, const void* dout, const float* lse,
-               const float* delta, void* dk, void* dv, const long long* strides, int B, int T,
-               int H, int causal, float scale, const DkdvSchedule& s, cudaStream_t st) {
-#define DKDV_LAUNCH(U, BIAS) \
-  launch<D, U, BIAS>(q, k, v, dout, lse, delta, dk, dv, strides, B, T, H, causal, scale, s, st)
+               const float* delta, void* out0, void* out1, const long long* strides, int B,
+               int T, int H, int causal, float scale, const GroupSchedule& s, cudaStream_t st) {
+#define GROUP_LAUNCH(U, BIAS)                                                                \
+  launch<kDq, D, U, BIAS>(q, k, v, dout, lse, delta, out0, out1, strides, B, T, H, causal, \
+                          scale, s, st)
   const bool bias = s.kbias != nullptr;
   switch (s.unit) {
-    case 16: return bias ? DKDV_LAUNCH(16, true) : DKDV_LAUNCH(16, false);
-    case 32: return bias ? DKDV_LAUNCH(32, true) : DKDV_LAUNCH(32, false);
-    case 64: return bias ? DKDV_LAUNCH(64, true) : DKDV_LAUNCH(64, false);
+    case 16: return bias ? GROUP_LAUNCH(16, true) : GROUP_LAUNCH(16, false);
+    case 32: return bias ? GROUP_LAUNCH(32, true) : GROUP_LAUNCH(32, false);
+    case 64: return bias ? GROUP_LAUNCH(64, true) : GROUP_LAUNCH(64, false);
     default: return -1;
   }
-#undef DKDV_LAUNCH
+#undef GROUP_LAUNCH
+}
+
+// whether the instances were built for a call: bf16, head dim 64, a slot of 16, 32 or 64 rows
+// that tiles T
+bool built_for(int dtype, int head_dim, int T, const GroupSchedule* s) {
+  return dtype == 1 && head_dim == 64 && s != nullptr &&
+         (s->unit == 16 || s->unit == 32 || s->unit == 64) && T % s->unit == 0;
 }
 
 }  // namespace
 
-// strides: 12 int64, the (b, t, h) element strides of q, k, v and dout; s: the schedule.
+// strides: 12 int64, the (b, t, h) element strides of q, k, v and dout; s: the schedule
+// (GroupLut side "k").
 extern "C" int flash_bwd_dkdv_lut_sm90(int dtype, int head_dim, const void* q, const void* k,
                                        const void* v, const void* dout, const float* lse,
                                        const float* delta, void* dk, void* dv,
                                        const long long* strides, int B, int T, int H,
-                                       int causal, float scale, const DkdvSchedule* s,
+                                       int causal, float scale, const GroupSchedule* s,
                                        void* stream) {
-  if (dtype != 1 || s == nullptr || (s->unit != 16 && s->unit != 32 && s->unit != 64) ||
-      T % s->unit != 0)
-    return -1;
+  if (!built_for(dtype, head_dim, T, s)) return -1;
   if (s->n_work == 0) return 0;
-  cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
-  if (head_dim != 64) return -1;
-  return launch_any<64>(q, k, v, dout, lse, delta, dk, dv, strides, B, T, H, causal, scale, *s,
-                        st);
+  return launch_any<false, 64>(q, k, v, dout, lse, delta, dk, dv, strides, B, T, H, causal,
+                               scale, *s, reinterpret_cast<cudaStream_t>(stream));
+}
+
+// The same arguments with one output; s: the schedule of GroupLut side "q".
+extern "C" int flash_bwd_dq_lut_sm90(int dtype, int head_dim, const void* q, const void* k,
+                                     const void* v, const void* dout, const float* lse,
+                                     const float* delta, void* dq, const long long* strides,
+                                     int B, int T, int H, int causal, float scale,
+                                     const GroupSchedule* s, void* stream) {
+  if (!built_for(dtype, head_dim, T, s)) return -1;
+  if (s->n_work == 0) return 0;
+  return launch_any<true, 64>(q, k, v, dout, lse, delta, dq, nullptr, strides, B, T, H, causal,
+                              scale, *s, reinterpret_cast<cudaStream_t>(stream));
 }

@@ -13,7 +13,7 @@ CUDA kernels (``deepspeed_tpu_torch/csrc/flash_attention.cuh``, entries in
 ``flash_attention.cu``, ``flash_attention_sparse_fwd.cu``,
 ``flash_attention_sparse_bwd.cu`` and ``flash_attention_band_merge_fwd.cu``;
 the dense bf16 forward at head dims 64 and 128 in
-``flash_attention_fwd_sm90.cu``, the block-sparse bf16 dK/dV in
+``flash_attention_fwd_sm90.cu``, the block-sparse bf16 dK/dV and dQ in
 ``flash_attention_sparse_bwd_sm90.cu``), one wrapper and one launch counter
 per entry:
 
@@ -47,7 +47,13 @@ per entry:
   the absence of a (T, T) score bias (:func:`sparse_dkdv_kernel`), and
   :func:`flash_bwd_dkdv_lut_sm90_schedule` is its schedule in Python;
 - ``flash_bwd_dq`` / ``_biased`` / ``_lut`` (for ``_bwd_dq_kernel`` 691):
-  per q tile over the (live) k tiles, dQ.
+  per q tile over the (live) k tiles, dQ;
+- ``flash_bwd_dq_lut_sm90`` (for ``_bwd_dq_kernel`` with ``use_lut``, 691-753):
+  the block-sparse dQ in bf16 at head dim 64, the dK/dV design with the
+  roles swapped, over ``GroupLut(side="q")`` (query blocks grouped by their
+  live key blocks); :func:`flash_bwd_dq_lut` sends CUDA tensors there by the
+  same rule (:func:`sparse_dq_kernel`), and
+  :func:`flash_bwd_dq_lut_sm90_schedule` is its schedule in Python.
 
 :func:`flash_attention`, :func:`flash_attention_with_lse` and
 :func:`sparse_flash_attention` are ``torch.autograd.Function``\\ s saving
@@ -115,7 +121,7 @@ DENSE_KERNELS = ("flash_fwd", "flash_fwd_sm90", "flash_bwd_dkdv", "flash_bwd_dq"
 BIASED_KERNELS = ("flash_fwd_biased", "flash_bwd_dkdv_biased", "flash_bwd_dq_biased")
 LUT_KERNELS = ("flash_fwd_lut", "flash_fwd_lut_ring", "flash_fwd_banded",
                "flash_fwd_merged", "flash_bwd_dkdv_lut", "flash_bwd_dkdv_lut_sm90",
-               "flash_bwd_dq_lut")
+               "flash_bwd_dq_lut", "flash_bwd_dq_lut_sm90")
 KERNELS = DENSE_KERNELS + BIASED_KERNELS + LUT_KERNELS
 # entry -> (library = csrc/<library>.cu, C function, variant argument or None)
 ENTRIES = {
@@ -134,15 +140,19 @@ ENTRIES = {
                                 None),
     "flash_bwd_dq_biased": ("flash_attention_sparse_bwd", "flash_bwd_dq_variant", 1),
     "flash_bwd_dq_lut": ("flash_attention_sparse_bwd", "flash_bwd_dq_variant", 2),
+    "flash_bwd_dq_lut_sm90": ("flash_attention_sparse_bwd_sm90", "flash_bwd_dq_lut_sm90", None),
 }
+# the entries that take a GroupLut's schedule (csrc/flash_attention_sparse_bwd_sm90.cu)
+GROUP_KERNELS = ("flash_bwd_dkdv_lut_sm90", "flash_bwd_dq_lut_sm90")
 # launches per kernel since the last reset_launches(); only kernel launches count
 launches = {name: 0 for name in KERNELS}
 HEAD_DIMS = {torch.bfloat16: (64, 96, 128), torch.float32: (64, 96, 128)}
 # flash_fwd_sm90: the dtype and head dims it is built for, its q tile and its k tile
 # (csrc/flash_attention_fwd_sm90.cu: kBQ, Cfg<D>::kBN)
 SM90_HEAD_DIMS = {torch.bfloat16: (64, 128)}
-# flash_bwd_dkdv_lut_sm90: the dtype and head dim it is built for (at 128 it spills)
-SM90_DKDV_HEAD_DIMS = {torch.bfloat16: (64,)}
+# GROUP_KERNELS: the dtype and head dim they are built for (at 128 the dK/dV instance spills
+# and a dQ pipe of four stages does not fit twice in shared memory)
+SM90_GROUP_HEAD_DIMS = {torch.bfloat16: (64,)}
 SM90_BLOCK_Q, SM90_BLOCK_N = 128, 128
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 TILE = 64            # the kernels' q and k tile rows (kBQ, kBK)
@@ -771,8 +781,8 @@ def _strides(*tensors):
     return (ctypes.c_longlong * 12)(*vals)
 
 
-class _DkdvSchedule(ctypes.Structure):
-    """``DkdvSchedule`` of ``csrc/flash_attention_sparse_bwd_sm90.cu``: a
+class _GroupSchedule(ctypes.Structure):
+    """``GroupSchedule`` of ``csrc/flash_attention_sparse_bwd_sm90.cu``: a
     :class:`GroupLut`'s arrays, the work order and the key bias."""
     _fields_ = [("out_slots", ctypes.c_void_p), ("vbeg", ctypes.c_void_p),
                 ("visit_slots", ctypes.c_void_p), ("masked", ctypes.c_void_p),
@@ -788,8 +798,8 @@ def _entry(name):
         v, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         n_ptr = 8 if "dkdv" in fn_name else 7 if "_dq" in fn_name else 5
         args = [i, i] + [v] * n_ptr + [v, i, i, i, i, f]
-        # a variant takes its Extra, the sm90 dK/dV its schedule, before the stream
-        structs = 0 if variant is None and name != "flash_bwd_dkdv_lut_sm90" else 1
+        # a variant takes its Extra, a group kernel its schedule, before the stream
+        structs = 0 if variant is None and name not in GROUP_KERNELS else 1
         fn.argtypes = ([] if variant is None else [i]) + args + [v] * structs + [v]
         fn.restype = ctypes.c_int
     return fn if variant is None else functools.partial(fn, variant)
@@ -1001,14 +1011,27 @@ def flash_bwd_dq_biased(q, k, v, do, lse, delta, key_padding_bias=None, attn_bia
                    None, key_padding_bias, attn_bias)
 
 
+def _group_route(dtype, head_dim, has_abias):
+    """Whether a CUDA tensor takes the group kernels (``GROUP_KERNELS``):
+    bf16 at head dim 64 with no (T, T) score bias (the key bias is
+    optional).  Decided before any launch, never by a failure."""
+    return not has_abias and head_dim in SM90_GROUP_HEAD_DIMS.get(dtype, ())
+
+
 def sparse_dkdv_kernel(dtype, head_dim, has_abias):
     """The block-sparse dK/dV kernel a CUDA tensor of ``dtype`` and
-    ``head_dim`` takes: ``flash_bwd_dkdv_lut_sm90`` for bf16 at head dim 64
-    with no (T, T) score bias (the key bias is optional), else the
-    template ``flash_bwd_dkdv_lut``.  Decided before any launch, never by a
-    failure."""
-    sm90 = not has_abias and head_dim in SM90_DKDV_HEAD_DIMS.get(dtype, ())
+    ``head_dim`` takes: ``flash_bwd_dkdv_lut_sm90`` where
+    :func:`_group_route` holds, else the template ``flash_bwd_dkdv_lut``."""
+    sm90 = _group_route(dtype, head_dim, has_abias)
     return "flash_bwd_dkdv_lut_sm90" if sm90 else "flash_bwd_dkdv_lut"
+
+
+def sparse_dq_kernel(dtype, head_dim, has_abias):
+    """The block-sparse dQ kernel a CUDA tensor of ``dtype`` and
+    ``head_dim`` takes: ``flash_bwd_dq_lut_sm90`` where
+    :func:`_group_route` holds, else the template ``flash_bwd_dq_lut``."""
+    return "flash_bwd_dq_lut_sm90" if _group_route(dtype, head_dim, has_abias) else \
+        "flash_bwd_dq_lut"
 
 
 def flash_bwd_dkdv_lut(q, k, v, do, lse, delta, lut, key_padding_bias=None,
@@ -1039,27 +1062,33 @@ def flash_bwd_dkdv_lut_sm90(q, k, v, do, lse, delta, lut, key_padding_bias=None,
     """``(dk, dv)``: the ``flash_bwd_dkdv_lut_sm90`` kernel over
     ``lut.groups("k")`` (bf16, head dim 64; others raise) for CUDA
     tensors, the plain version for CPU tensors."""
-    name = "flash_bwd_dkdv_lut_sm90"
     if q.device.type == "cpu":
         return flash_attention_reference_bwd_dkdv(q, k, v, do, lse, delta, lut.causal,
                                                   sm_scale, lut=lut,
                                                   key_padding_bias=key_padding_bias)
+    return tuple(_group_launch("flash_bwd_dkdv_lut_sm90", "k", 2, q, k, v, do, lse, delta, lut,
+                               key_padding_bias, sm_scale))
+
+
+def _group_launch(name, side, n_out, q, k, v, do, lse, delta, lut, kbias, sm_scale):
+    """Launch a group kernel (``GROUP_KERNELS``) over ``lut.groups(side)``
+    after checking its operands; returns its ``n_out`` outputs, (B, T, H,
+    d) in q's dtype."""
     B, T, H, d = q.shape
-    ptrs = _bwd_args(name, q, k, v, do, lse, delta, SM90_DKDV_HEAD_DIMS)
-    _check_extra(name, q, lut, key_padding_bias, None)
-    groups = lut.groups("k")
+    ptrs = _bwd_args(name, q, k, v, do, lse, delta, SM90_GROUP_HEAD_DIMS)
+    _check_extra(name, q, lut, kbias, None)
+    groups = lut.groups(side)
     t = groups.tensors(q.device, B, H)
-    sched = _DkdvSchedule(*(t[n].data_ptr() for n in ("out_slots", "vbeg", "visit_slots",
-                                                       "masked", "order")),
-                          None if key_padding_bias is None else key_padding_bias.data_ptr(),
-                          t["order"].shape[0], groups.unit)
-    dk = torch.empty((B, T, H, d), dtype=q.dtype, device=q.device)
-    dv = torch.empty_like(dk)
+    sched = _GroupSchedule(*(t[n].data_ptr() for n in ("out_slots", "vbeg", "visit_slots",
+                                                        "masked", "order")),
+                           None if kbias is None else kbias.data_ptr(),
+                           t["order"].shape[0], groups.unit)
+    outs = [torch.empty((B, T, H, d), dtype=q.dtype, device=q.device) for _ in range(n_out)]
     strides = _strides(q, k, v, do)
-    _run(name, _DTYPE_CODES[q.dtype], d, *ptrs, dk.data_ptr(), dv.data_ptr(),
+    _run(name, _DTYPE_CODES[q.dtype], d, *ptrs, *(o.data_ptr() for o in outs),
          ctypes.addressof(strides), B, T, H, int(lut.causal), _scale(q, sm_scale),
          ctypes.addressof(sched), device=q.device)
-    return dk, dv
+    return outs
 
 
 def flash_bwd_dkdv_lut_sm90_schedule(lut, B, H, n_pipes):
@@ -1071,7 +1100,18 @@ def flash_bwd_dkdv_lut_sm90_schedule(lut, B, H, n_pipes):
     h, key units, visits)`` with ``visits`` a list of ``(query units,
     masked)``; a unit ``u`` is rows ``u * unit .. u * unit + unit - 1``, -1
     an empty slot."""
-    g = lut.groups("k")
+    return _group_schedule(lut.groups("k"), B, H, n_pipes)
+
+
+def flash_bwd_dq_lut_sm90_schedule(lut, B, H, n_pipes):
+    """The schedule of ``flash_bwd_dq_lut_sm90`` in Python, as
+    :func:`flash_bwd_dkdv_lut_sm90_schedule` with the roles swapped: per
+    pipe its work items ``(b, h, query units, visits)``, ``visits`` a list
+    of ``(key units, masked)``."""
+    return _group_schedule(lut.groups("q"), B, H, n_pipes)
+
+
+def _group_schedule(g, B, H, n_pipes):
     order = g.order(B, H)
     out = []
     for items in flash_fwd_sm90_blocks(len(order), n_pipes):
@@ -1087,10 +1127,34 @@ def flash_bwd_dkdv_lut_sm90_schedule(lut, B, H, n_pipes):
 
 def flash_bwd_dq_lut(q, k, v, do, lse, delta, lut, key_padding_bias=None, attn_bias=None,
                      sm_scale=None):
-    """``dq`` over the live k tiles of each q tile of ``lut``, with the
-    optional biases: ``flash_bwd_dq_lut``."""
+    """``dq`` over the live pairs of ``lut`` with the optional biases: for
+    CUDA tensors the kernel of :func:`sparse_dq_kernel`, for CPU tensors the
+    plain version."""
+    if sparse_dq_kernel(q.dtype, q.shape[-1], attn_bias is not None) == "flash_bwd_dq_lut_sm90":
+        return flash_bwd_dq_lut_sm90(q, k, v, do, lse, delta, lut, key_padding_bias, sm_scale)
+    return flash_bwd_dq_lut_tiled(q, k, v, do, lse, delta, lut, key_padding_bias, attn_bias,
+                                  sm_scale)
+
+
+def flash_bwd_dq_lut_tiled(q, k, v, do, lse, delta, lut, key_padding_bias=None,
+                           attn_bias=None, sm_scale=None):
+    """``dq``: the template ``flash_bwd_dq_lut`` kernel (64 x 64 tiles over
+    the LUT's ``kmap``/``klen``, with their cell masks) whatever the dtype
+    and head dim (for CUDA tensors; the plain version for CPU tensors)."""
     return _bwd_dq("flash_bwd_dq_lut", q, k, v, do, lse, delta, lut.causal, sm_scale,
                    lut, key_padding_bias, attn_bias)
+
+
+def flash_bwd_dq_lut_sm90(q, k, v, do, lse, delta, lut, key_padding_bias=None,
+                          sm_scale=None):
+    """``dq``: the ``flash_bwd_dq_lut_sm90`` kernel over ``lut.groups("q")``
+    (bf16, head dim 64; others raise) for CUDA tensors, the plain version
+    for CPU tensors."""
+    if q.device.type == "cpu":
+        return flash_attention_reference_bwd_dq(q, k, v, do, lse, delta, lut.causal, sm_scale,
+                                                lut=lut, key_padding_bias=key_padding_bias)
+    return _group_launch("flash_bwd_dq_lut_sm90", "q", 1, q, k, v, do, lse, delta, lut,
+                         key_padding_bias, sm_scale)[0]
 
 
 def flash_bwd(q, k, v, o, lse, do, causal=True, sm_scale=None):

@@ -501,8 +501,9 @@ def _routes(monkeypatch, layout, T=256, H=2, causal=True, merge=1, bias=False,
     return fwd, names[len(fwd):]
 
 
-# bf16 at head dim 64: dK/dV on flash_bwd_dkdv_lut_sm90 (sparse_dkdv_kernel)
-LUT_BWD = ["flash_bwd_dkdv_lut_sm90", "flash_bwd_dq_lut"]
+# bf16 at head dim 64: dK/dV on flash_bwd_dkdv_lut_sm90 (sparse_dkdv_kernel), dQ on
+# flash_bwd_dq_lut_sm90 (sparse_dq_kernel)
+LUT_BWD = ["flash_bwd_dkdv_lut_sm90", "flash_bwd_dq_lut_sm90"]
 
 
 @pytest.mark.parametrize("layout,causal,merge,bias,fwd,bwd", [
@@ -534,10 +535,11 @@ def test_routes(monkeypatch, layout, causal, merge, bias, fwd, bwd):
     assert fa.launches == {name: 0 for name in fa.KERNELS}
 
 
-@pytest.mark.parametrize("dtype,d", [(torch.float32, 64), (torch.bfloat16, 96)])
+@pytest.mark.parametrize("dtype,d", [(torch.float32, 64), (torch.bfloat16, 96),
+                                     (torch.bfloat16, 128)])
 def test_routes_keep_the_template_dkdv_off_the_sm90_dtypes(monkeypatch, dtype, d):
-    """fp32, and bf16 at head dim 96, keep the template LUT dK/dV under
-    every forward route."""
+    """fp32, and bf16 at head dims 96 and 128, keep the template LUT dK/dV
+    and dQ under every forward route."""
     band = _longformer(16, 256, 5, [0, 3])
     fwd, bwd = _routes(monkeypatch, band, dtype=dtype, d=d)
     assert (fwd, bwd) == (["flash_fwd_banded"], ["flash_bwd_dkdv_lut", "flash_bwd_dq_lut"])

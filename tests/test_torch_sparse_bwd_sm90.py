@@ -369,13 +369,13 @@ def test_emulation_matches_jax_lut_backward(block, causal):
 
 # --------------------------------------------------------------- routes
 def _recorded(monkeypatch):
-    """Replace ``_run``: record (name, the sm90 call's schedule fields)."""
+    """Replace ``_run``: record (name, a group kernel's schedule fields)."""
     calls = []
 
     def run(name, *args, device):
         sched = None
-        if name == "flash_bwd_dkdv_lut_sm90":
-            s = fa._DkdvSchedule.from_address(args[-1])
+        if name in fa.GROUP_KERNELS:
+            s = fa._GroupSchedule.from_address(args[-1])
             sched = (s.n_work, s.unit)
         calls.append((name, sched))
     monkeypatch.setattr(fa, "_run", run)
@@ -412,17 +412,24 @@ def test_dkdv_routes(monkeypatch, dtype, d, kbias, abias, want):
     assert fa.launches == {n: 0 for n in fa.KERNELS}
 
 
-def test_sparse_path_backward_takes_the_sm90_kernel(monkeypatch):
+@pytest.mark.parametrize("name,causal,merge,fwd", [
+    ("tutorial16", False, 1, "flash_fwd_lut_ring"), ("longformer16", True, 1, "flash_fwd_banded"),
+    ("longformer16", True, 2, "flash_fwd_merged")])
+def test_sparse_path_backward_takes_the_sm90_kernel(monkeypatch, name, causal, merge, fwd):
     """``sparse_flash_attention(...).backward()`` in bf16 at head dim 64
-    launches the ring forward, the sm90 dK/dV and the template dQ."""
+    launches the forward of its route, then the sm90 dK/dV and the sm90 dQ,
+    each handed its own side's schedule (block 16: 16-row slots)."""
     calls = _recorded(monkeypatch)
     T, H = 256, 2
+    layout = _layout(name, T, H)
     q, k, v = (torch.empty((1, T, H, 64), dtype=torch.bfloat16, device="meta",
                            requires_grad=True) for _ in range(3))
-    fa.sparse_flash_attention(q, k, v, _layout("tutorial16", T, H), causal=False
+    fa.sparse_flash_attention(q, k, v, layout, causal=causal, block_q_merge=merge
                               ).sum().backward()
-    assert [n for n, _ in calls] == ["flash_fwd_lut_ring", "flash_bwd_dkdv_lut_sm90",
-                                     "flash_bwd_dq_lut"]
+    lut = fa.layout_luts(layout, T, H, causal)
+    n = {side: H * int(lut.groups(side).tiles_per_head.sum() // lut.heads) for side in "kq"}
+    assert calls == [(fwd, None), ("flash_bwd_dkdv_lut_sm90", (n["k"], 16)),
+                     ("flash_bwd_dq_lut_sm90", (n["q"], 16))]
 
 
 @pytest.mark.parametrize("dtype,d,match", [(torch.float32, 64, "dtype"),
