@@ -10,9 +10,11 @@ JAX package ``deepspeed_tpu``):
    CUDA versions, and the build of the CUDA kernels from ``csrc/`` (one
    ``nvcc`` per source, started together) with its time and ptxas
    register/spill summary; ``flash_fwd_sm90``'s, ``int8_mm_nt_decode``'s,
-   ``int8_mm_nt_prefill``'s and ``flash_bwd_dkdv_lut_sm90`` /
-   ``flash_bwd_dq_lut_sm90``'s libraries (their build seconds, registers and
-   spills per instance) must build with no spill;
+   ``int8_mm_nt_prefill``'s and the sm90 backward library's
+   (``flash_bwd_dkdv_lut_sm90`` / ``flash_bwd_dq_lut_sm90`` and the dense
+   ``flash_bwd_dkdv_sm90`` / ``flash_bwd_dq_sm90``: their build seconds,
+   registers and spills per instance) must build with no spill, and the
+   backward library with no wgmma serialized by ptxas;
 2. kernels vs plain: ``paged_attention_online`` and ``paged_attention_exact``
    against ``paged_attention_reference`` at the serving shape (8 slots,
    12 heads, head dim 64, block 16, 64 blocks per slot), lengths
@@ -20,9 +22,14 @@ JAX package ``deepspeed_tpu``):
    dense forward its route takes (``flash_fwd_sm90`` for bf16 at head
    dims 64 and 128, whose first launch waits on an event under a
    deadline; the template ``flash_fwd`` for the rest, and beside every
-   ``flash_fwd_sm90`` case the template too), O and lse, and
-   ``flash_bwd_dkdv`` and ``flash_bwd_dq`` against their plain versions
-   fed the routed forward's (O, lse) and the same dO, at B=2, H=4, T in
+   ``flash_fwd_sm90`` case the template too), O and lse, and the dense
+   backward ``dense_bwd_kernel`` routes to (``flash_bwd_dkdv_sm90`` and
+   ``flash_bwd_dq_sm90`` for bf16 at head dim 64, whose first launches, at
+   T 33, 65 and 200 on the plain forward's O and lse, wait on an event under
+   the deadline; the templates ``flash_bwd_dkdv`` and ``flash_bwd_dq`` for
+   the rest, and beside every sm90 case the templates too) against their
+   plain versions fed the routed forward's (O, lse) and the same dO, at
+   B=2, H=4, T in
    {64, 96, 1000, 1024} (and 1088, 4096 for ``flash_fwd_sm90``), head dims
    64/96/128, bf16 and fp32 (TF32 off), causal and not, q/k/v as views of
    one qkv tensor and contiguous, each element within its limit; and one
@@ -46,21 +53,24 @@ JAX package ``deepspeed_tpu``):
    ``attention_impl="flash"`` against ``"jnp"`` from the same weights and
    batch; 3 warm-up and 10 timed steps (tokens/s, step time p50/p99, MFU,
    peak memory); exactly 24 launches per step of ``flash_fwd_sm90``,
-   ``flash_bwd_dkdv`` and ``flash_bwd_dq``, and none of ``flash_fwd``;
+   ``flash_bwd_dkdv_sm90`` and ``flash_bwd_dq_sm90``, and none of
+   ``flash_fwd``, ``flash_bwd_dkdv`` and ``flash_bwd_dq``;
    finite losses and no skipped step; 20 steps on one fixed batch lower
    its loss by at least 0.5; a ``torch.profiler`` breakdown of a step,
-   with the flash forward's device time per step;
+   with the flash kernels' device time per step;
 6. the flash kernels at the training shape, B=8, H=16, T=1024, d=64,
    causal, bf16 (q, k, v views of one qkv tensor, as the model passes
    them): each held against its plain version (these errors go into the
    kernels line), then timed (three readings, the spread printed) beside
    its bound, its plain version and the library's attention in the (B, H,
    T, d) layout, which the port never calls: ``flash_fwd_sm90`` and the
-   template ``flash_fwd`` (the PR 2 design) beside
-   ``scaled_dot_product_attention`` forward, the backward kernels beside
-   the flash-attention backward op (dQ, dK and dV in one call), and
-   forward+backward; then ``flash_fwd_sm90`` against SDPA ``is_causal``
-   at B*T=8192, H=16, T in {1024, 2048, 4096, 8192}, head dims 64 and 128;
+   template ``flash_fwd`` (the template design) beside
+   ``scaled_dot_product_attention`` forward, ``flash_bwd_dkdv_sm90`` and
+   ``flash_bwd_dq_sm90`` and the templates ``flash_bwd_dkdv`` and
+   ``flash_bwd_dq`` (the template design) beside the flash-attention backward op
+   (dQ, dK and dV in one call), and forward+backward; then
+   ``flash_fwd_sm90`` against SDPA ``is_causal`` at B*T=8192, H=16, T in
+   {1024, 2048, 4096, 8192}, head dims 64 and 128;
 7. sparse kernels vs plain: ``flash_fwd_lut``, ``flash_fwd_lut_ring``,
    the dK/dV kernel ``sparse_dkdv_kernel`` routes to
    (``flash_bwd_dkdv_lut_sm90`` for bf16 at head dim 64 without a score
@@ -160,8 +170,8 @@ JAX package ``deepspeed_tpu``):
     every merged row has an empty upper half; bf16 and fp32, head dims
     64/96/128; then ``flash_attention_with_lse`` at GPT-2 350M's attention
     shape (B=8, T=1024, H=16, d=64, bf16) under a loss on both outputs
-    (one launch each of ``flash_fwd_sm90`` and the two dense backward
-    kernels; O, lse and gradients against the plain
+    (one launch each of ``flash_fwd_sm90``, ``flash_bwd_dkdv_sm90`` and
+    ``flash_bwd_dq_sm90``; O, lse and gradients against the plain
     forward and backward with ``delta - dlse``) and in fp32 against autograd
     of a dense attention returning its logsumexp;
 14. the causal block-sparse path at the repo's sparse workload
@@ -227,6 +237,8 @@ REPLACES = {"paged_attention_online":
             "flash_fwd_sm90": f"{FLASH_REF}:144",        # dense, bf16 at head dims 64 / 128
             "flash_bwd_dkdv": f"{FLASH_REF}:617",
             "flash_bwd_dq": f"{FLASH_REF}:691",
+            "flash_bwd_dkdv_sm90": f"{FLASH_REF}:617",     # dense, bf16 at d 64
+            "flash_bwd_dq_sm90": f"{FLASH_REF}:691",       # dense, bf16 at d 64
             "flash_fwd_biased": f"{FLASH_REF}:144",      # use_kbias / use_abias
             "flash_bwd_dkdv_biased": f"{FLASH_REF}:617",
             "flash_bwd_dq_biased": f"{FLASH_REF}:691",
@@ -246,8 +258,9 @@ INT8_DECODE_LIB = im.LIBRARIES["int8_mm_nt_decode"]
 INT8_PREFILL_LIB = im.LIBRARIES["int8_mm_nt_prefill"]
 INT8_SOURCES = {name: f"deepspeed_tpu_torch/csrc/{lib}.cu" for name, lib in im.LIBRARIES.items()}
 SM90_LIB = fa.ENTRIES["flash_fwd_sm90"][0]
-GROUP_SM90_LIB = fa.ENTRIES["flash_bwd_dkdv_lut_sm90"][0]    # and flash_bwd_dq_lut_sm90
-SM90_DEADLINE_S = 10.0   # the first flash_fwd_sm90 launch must complete within this
+# and flash_bwd_dq_lut_sm90, flash_bwd_dkdv_sm90, flash_bwd_dq_sm90
+GROUP_SM90_LIB = fa.ENTRIES["flash_bwd_dkdv_lut_sm90"][0]
+SM90_DEADLINE_S = 10.0   # the first launch of an sm90 kernel must complete within this
 
 
 def flash_source(name):
@@ -356,7 +369,8 @@ def setup():
         raise AssertionError(f"{SM90_LIB}: no kernel built, or ptxas spilled registers: {sm90}")
     for lib, kernels in ((INT8_DECODE_LIB, ("int8_decode_kernel",)),
                          (INT8_PREFILL_LIB, ("int8_prefill_kernel",)),
-                         (GROUP_SM90_LIB, ("dkdv_sm90_kernel", "dq_sm90_kernel"))):
+                         (GROUP_SM90_LIB, ("dkdv_sm90_kernel", "dq_sm90_kernel",
+                                           "dense_dkdv_kernel", "dense_dq_kernel"))):
         rows = ptxas_summary(builder.build_log[lib]["ptxas"])
         named = [(kernel, kname[kname.find(kernel):], regs, spill)
                  for kname, regs, _, spill in rows for kernel in kernels if kernel in kname]
@@ -366,6 +380,10 @@ def setup():
                 spill for *_, spill in rows):
             raise AssertionError(f"{lib}: a kernel of {kernels} not built, or ptxas spilled "
                                  f"registers: {rows}")
+    serialized = [line.strip() for line in builder.build_log[GROUP_SM90_LIB]["ptxas"].splitlines()
+                  if "C7515" in line or "C7512" in line]
+    if serialized:
+        raise AssertionError(f"{GROUP_SM90_LIB}: ptxas serialized wgmmas: {serialized}")
     return card
 
 
@@ -452,10 +470,12 @@ def flash_close(what, label, got, ref):
 def check_flash_case(q, k, v, do, causal, what):
     """Each flash kernel against its plain version on the same inputs: the
     dense forward the route takes (and beside ``flash_fwd_sm90`` the
-    template ``flash_fwd`` too), the backward ones fed the routed forward's
-    O and lse, as in training.  Returns {kernel: [(output, max abs error,
-    share of limit)]}."""
+    template ``flash_fwd`` too), the backward ones the route takes (and
+    beside ``flash_bwd_dkdv_sm90`` / ``flash_bwd_dq_sm90`` the templates
+    too) fed the routed forward's O and lse, as in training.  Returns
+    {kernel: [(output, max abs error, share of limit)]}."""
     fwd = fa.dense_fwd_kernel(q.dtype, q.shape[-1])
+    dkdv, dqk = fa.dense_bwd_kernel(q.dtype, q.shape[-1])
     o, lse = fa.flash_fwd(q, k, v, causal)
     delta = fa.attention_delta(o, do)
     dk, dv = fa.flash_bwd_dkdv(q, k, v, do, lse, delta, causal)
@@ -464,11 +484,16 @@ def check_flash_case(q, k, v, do, causal, what):
     rdk, rdv = fa.flash_attention_reference_bwd_dkdv(q, k, v, do, lse, delta, causal)
     rdq = fa.flash_attention_reference_bwd_dq(q, k, v, do, lse, delta, causal)
     pairs = {fwd: [("o", o, ro), ("lse", lse, rlse)],
-             "flash_bwd_dkdv": [("dk", dk, rdk), ("dv", dv, rdv)],
-             "flash_bwd_dq": [("dq", dq, rdq)]}
+             dkdv: [("dk", dk, rdk), ("dv", dv, rdv)],
+             dqk: [("dq", dq, rdq)]}
     if fwd != "flash_fwd":
         to, tlse = fa.flash_fwd_template(q, k, v, causal)
         pairs["flash_fwd"] = [("o", to, ro), ("lse", tlse, rlse)]
+    if dkdv != "flash_bwd_dkdv":
+        tdk, tdv = fa.flash_bwd_dkdv_template(q, k, v, do, lse, delta, causal)
+        pairs["flash_bwd_dkdv"] = [("dk", tdk, rdk), ("dv", tdv, rdv)]
+        pairs["flash_bwd_dq"] = [("dq", fa.flash_bwd_dq_template(q, k, v, do, lse, delta, causal),
+                                  rdq)]
     torch.cuda.synchronize()
     return {name: [(label, *flash_close(f"{name} {what}", label, got, ref))
                    for label, got, ref in ps] for name, ps in pairs.items()}
@@ -480,26 +505,53 @@ def flash_line(res):
                      for rows in res.values() for label, err, share in rows)
 
 
+def wait_first(name, what, t0):
+    """Poll an event recorded after a first launch under SM90_DEADLINE_S: a
+    launch that does not complete raises (the sm90 kernels also trap on an
+    mbarrier wait of more than 2 s), so a fault of its schedule ends the run
+    instead of stalling it.  Returns the milliseconds it took."""
+    done = torch.cuda.Event()
+    done.record()
+    while not done.query():
+        if time.perf_counter() - t0 > SM90_DEADLINE_S:
+            raise RuntimeError(f"{name} {what}: the first launch did not complete within "
+                               f"{SM90_DEADLINE_S} s")
+        time.sleep(1e-3)
+    return (time.perf_counter() - t0) * 1e3
+
+
 def first_sm90_launch(dev, gen):
     """The first ``flash_fwd_sm90`` launches (T=64, one tile, each head
-    dim), each waited for on a CUDA event polled under SM90_DEADLINE_S: a
-    launch that does not complete raises (the kernel also traps on an
-    mbarrier wait of more than 2 s), so a fault of its schedule ends the
-    run instead of stalling it."""
+    dim), then the first ``flash_bwd_dkdv_sm90`` and ``flash_bwd_dq_sm90``
+    launches (B=2, H=4, d=64, T 33, 65 and 200, causal, q/k/v views of one
+    qkv tensor, fed the plain forward's O and lse), each waited for under
+    SM90_DEADLINE_S (:func:`wait_first`) and held against its plain
+    version with phase 2's limits."""
     for d in fa.SM90_HEAD_DIMS[torch.bfloat16]:
         q, k, v, _ = flash_inputs(dev, gen, torch.bfloat16, 1, 64, 1, d, "dense")
         t0 = time.perf_counter()
         o, lse = fa.flash_fwd_sm90(q, k, v, True)
-        done = torch.cuda.Event()
-        done.record()
-        while not done.query():
-            if time.perf_counter() - t0 > SM90_DEADLINE_S:
-                raise RuntimeError(f"flash_fwd_sm90 d={d}: the first launch did not complete "
-                                   f"within {SM90_DEADLINE_S} s")
-            time.sleep(1e-3)
+        ms = wait_first("flash_fwd_sm90", f"d={d}", t0)
         err = (o.float() - fa.flash_attention_reference_fwd(q, k, v, True)[0].float()).abs().max()
-        print(f"flash_fwd_sm90 first launch d={d} T=64: completed in "
-              f"{(time.perf_counter() - t0) * 1e3:.1f} ms, O max abs error {err.item():.2e}")
+        print(f"flash_fwd_sm90 first launch d={d} T=64: completed in {ms:.1f} ms, O max abs "
+              f"error {err.item():.2e}")
+    for T in (33, 65, 200):
+        q, k, v, do = flash_inputs(dev, gen, torch.bfloat16, 2, T, 4, 64, "qkv")
+        o, lse = fa.flash_attention_reference_fwd(q, k, v, True)
+        delta = fa.attention_delta(o, do)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        dk, dv = fa.flash_bwd_dkdv_sm90(q, k, v, do, lse, delta, True)
+        ms = wait_first("flash_bwd_dkdv_sm90", f"T={T}", t0)
+        t0 = time.perf_counter()
+        dq = fa.flash_bwd_dq_sm90(q, k, v, do, lse, delta, True)
+        ms_dq = wait_first("flash_bwd_dq_sm90", f"T={T}", t0)
+        rdk, rdv = fa.flash_attention_reference_bwd_dkdv(q, k, v, do, lse, delta, True)
+        rdq = fa.flash_attention_reference_bwd_dq(q, k, v, do, lse, delta, True)
+        rows = [(label, *flash_close(f"first launch T={T}", label, got, ref))
+                for label, got, ref in (("dk", dk, rdk), ("dv", dv, rdv), ("dq", dq, rdq))]
+        print(f"flash_bwd_dkdv_sm90 / flash_bwd_dq_sm90 first launches T={T}: completed in "
+              f"{ms:.1f} / {ms_dq:.1f} ms; {flash_line({'': rows})}")
 
 
 def check_flash_kernels(dev, gen, B=2, H=4):
@@ -828,8 +880,9 @@ def train(dev, card, warmup=3, timed=10, fit_steps=20, preset="gpt2-350m", seq=1
             and abs(flash[1] - plain[1]) <= STEP1_GNORM_TOL * abs(plain[1])):
         raise AssertionError(f"step 1 flash {flash} vs plain {plain}")
     n_steps = warmup + timed
-    fwd = fa.dense_fwd_kernel(torch.bfloat16, model.config.n_embd // model.config.n_head)
-    per_step = {fwd: n_layer, "flash_bwd_dkdv": n_layer, "flash_bwd_dq": n_layer}
+    head_dim = model.config.n_embd // model.config.n_head
+    fwd = fa.dense_fwd_kernel(torch.bfloat16, head_dim)
+    per_step = {name: n_layer for name in (fwd, *fa.dense_bwd_kernel(torch.bfloat16, head_dim))}
     check_launches(f"train {preset} step 1", first_counts, per_step, 1)
     check_launches(f"train {preset}", counts, per_step, n_steps)
     if not all(math.isfinite(x) for x in losses) or eng.skipped_steps != 0:
@@ -853,7 +906,8 @@ def train(dev, card, warmup=3, timed=10, fit_steps=20, preset="gpt2-350m", seq=1
                             unit="training step")
     flash = {}
     for name, (t, c) in by_name.items():
-        m = re.search(r"\b(fwd_sm90_kernel|fwd_kernel|dkdv_kernel|dq_kernel)\b", name)
+        m = re.search(r"\b(fwd_sm90_kernel|fwd_kernel|dkdv_kernel|dq_kernel|dense_dkdv_kernel|"
+                      r"dense_dq_kernel)\b", name)
         if m:
             t0, c0 = flash.get(m.group(1), (0.0, 0.0))
             flash[m.group(1)] = (t0 + t, c0 + c)
@@ -888,9 +942,10 @@ def flash_work(B, T, H, d):
     pairs = B * H * T * (T + 1) // 2           # causal (q, k) pairs with q >= k
     elem, stat = B * T * H * d * 2, B * H * T * 4
     fwd = (4 * elem + stat, 4 * d * pairs)                             # QK, PV
-    return {"flash_fwd": fwd, "flash_fwd_sm90": fwd,
-            "flash_bwd_dkdv": (6 * elem + 2 * stat, 8 * d * pairs),   # QK, dOV, PdO, dSQ
-            "flash_bwd_dq": (5 * elem + 2 * stat, 6 * d * pairs)}     # QK, dOV, dSK
+    dkdv = (6 * elem + 2 * stat, 8 * d * pairs)                        # QK, dOV, PdO, dSQ
+    dq = (5 * elem + 2 * stat, 6 * d * pairs)                          # QK, dOV, dSK
+    return {"flash_fwd": fwd, "flash_fwd_sm90": fwd, "flash_bwd_dkdv": dkdv,
+            "flash_bwd_dkdv_sm90": dkdv, "flash_bwd_dq": dq, "flash_bwd_dq_sm90": dq}
 
 
 def bound_ms(nbytes, ops, bytes_per_s):
@@ -905,7 +960,7 @@ def flash_timing(dev, gen, bytes_per_s, card, B=8, T=1024, H=16, d=64,
     each flash kernel held against its plain version (the kernels' errors
     in the kernels line), then timed (three readings) beside its plain
     version, SDPA and the bound: ``flash_fwd_sm90`` and the template
-    ``flash_fwd`` (the PR 2 design) beside SDPA forward, the backward
+    ``flash_fwd`` (the template design) beside SDPA forward, the backward
     kernels beside the flash-attention backward op.  Then
     ``flash_fwd_sm90`` against SDPA ``is_causal`` over ``sweep_t`` at
     B*T = ``sweep_tokens``, head dims 64 and 128."""
@@ -919,14 +974,16 @@ def flash_timing(dev, gen, bytes_per_s, card, B=8, T=1024, H=16, d=64,
     work = flash_work(B, T, H, d)
     kernel = {"flash_fwd_sm90": lambda: fa.flash_fwd_sm90(q, k, v, True),
               "flash_fwd": lambda: fa.flash_fwd_template(q, k, v, True),
-              "flash_bwd_dkdv": lambda: fa.flash_bwd_dkdv(q, k, v, do, lse, delta, True),
-              "flash_bwd_dq": lambda: fa.flash_bwd_dq(q, k, v, do, lse, delta, True)}
+              "flash_bwd_dkdv_sm90": lambda: fa.flash_bwd_dkdv_sm90(q, k, v, do, lse, delta, True),
+              "flash_bwd_dkdv": lambda: fa.flash_bwd_dkdv_template(q, k, v, do, lse, delta, True),
+              "flash_bwd_dq_sm90": lambda: fa.flash_bwd_dq_sm90(q, k, v, do, lse, delta, True),
+              "flash_bwd_dq": lambda: fa.flash_bwd_dq_template(q, k, v, do, lse, delta, True)}
     plain_fwd = lambda: fa.flash_attention_reference_fwd(q, k, v, True)
+    plain_dkdv = lambda: fa.flash_attention_reference_bwd_dkdv(q, k, v, do, lse, delta, True)
+    plain_dq = lambda: fa.flash_attention_reference_bwd_dq(q, k, v, do, lse, delta, True)
     plain = {"flash_fwd_sm90": plain_fwd, "flash_fwd": plain_fwd,
-             "flash_bwd_dkdv": lambda: fa.flash_attention_reference_bwd_dkdv(
-                 q, k, v, do, lse, delta, True),
-             "flash_bwd_dq": lambda: fa.flash_attention_reference_bwd_dq(
-                 q, k, v, do, lse, delta, True)}
+             "flash_bwd_dkdv_sm90": plain_dkdv, "flash_bwd_dkdv": plain_dkdv,
+             "flash_bwd_dq_sm90": plain_dq, "flash_bwd_dq": plain_dq}
     sdpa = torch.nn.functional.scaled_dot_product_attention
     qh, kh, vh, doh = (x.transpose(1, 2).contiguous() for x in (q, k, v, do))
     # the yardsticks must compute the same function: within 2% of the
@@ -949,7 +1006,8 @@ def flash_timing(dev, gen, bytes_per_s, card, B=8, T=1024, H=16, d=64,
     sdpa_b = repeat_ms(lambda _: bwd_call(), 50) if bwd_call is not None else None
     saved = dict(fa.launches)
     out = {}
-    for name in ("flash_fwd_sm90", "flash_fwd", "flash_bwd_dkdv", "flash_bwd_dq"):
+    for name in ("flash_fwd_sm90", "flash_fwd", "flash_bwd_dkdv_sm90", "flash_bwd_dkdv",
+                 "flash_bwd_dq_sm90", "flash_bwd_dq"):
         nbytes, ops = work[name]
         bound, by = bound_ms(nbytes, ops, bytes_per_s)
         r = repeat_ms(lambda _: kernel[name](), 50)
@@ -958,16 +1016,24 @@ def flash_timing(dev, gen, bytes_per_s, card, B=8, T=1024, H=16, d=64,
         out[name] = {"max_abs_err": max_err[name], "ms": r[0], "plain_ms": plain_ms,
                      "bound_ms": bound, "bound_by": by,
                      "library_ms": None if lib_r is None else lib_r[0]}
-        design = " (the PR 2 design)" if name == "flash_fwd" else ""
+        design = " (the template design)" if name in ("flash_fwd", "flash_bwd_dkdv",
+                                                      "flash_bwd_dq") else ""
         lib_note = ("SDPA forward" if name.startswith("flash_fwd")
                     else "the flash-attention backward op (dq, dk, dv)")
         print(f"timing {name}{design} B={B} T={T} H={H} d={d} causal bf16 ({card}): "
               f"{spread(r)}; bound {bound * 1e3:.2f} us ({by}; {nbytes / 1e6:.1f} MB, "
               f"{ops / 1e9:.2f} GFLOP); plain {plain_ms * 1e3:.2f} us; {lib_note} "
               f"{'not available' if lib_r is None else spread(lib_r)}")
-    path_ms = sum(out[n]["ms"] for n in ("flash_fwd_sm90", "flash_bwd_dkdv", "flash_bwd_dq"))
+    bwd_ms = {design: sum(out[n]["ms"] for n in names) for design, names in (
+        ("sm90", ("flash_bwd_dkdv_sm90", "flash_bwd_dq_sm90")),
+        ("template", ("flash_bwd_dkdv", "flash_bwd_dq")))}
+    print(f"timing dense backward B={B} T={T} H={H} d={d} causal bf16 ({card}): "
+          f"flash_bwd_dkdv_sm90 + flash_bwd_dq_sm90 {bwd_ms['sm90'] * 1e3:.2f} us, the "
+          f"template design {bwd_ms['template'] * 1e3:.2f} us; the flash-attention backward op "
+          f"{'not available' if sdpa_b is None else f'{sdpa_b[0] * 1e3:.2f} us'}")
+    path_ms = out["flash_fwd_sm90"]["ms"] + bwd_ms["sm90"]
     print(f"timing SDPA (B, H, T, d) causal bf16: forward+backward {sdpa_fb_ms * 1e3:.2f} us; "
-          f"flash_fwd_sm90 + dkdv + dq {path_ms * 1e3:.2f} us")
+          f"flash_fwd_sm90 + flash_bwd_dkdv_sm90 + flash_bwd_dq_sm90 {path_ms * 1e3:.2f} us")
     del q, k, v, do, qh, kh, vh, doh, leaves, lib, lib_grads
     for hd, t in itertools.product(fa.SM90_HEAD_DIMS[torch.bfloat16], sweep_t):
         b = sweep_tokens // t
@@ -1958,8 +2024,8 @@ def check_flash_lse(dev, gen, B=8, T=1024, H=16, d=64):
     ((o.float() * w.float()).sum() + (lse * u).sum()).backward()
     torch.cuda.synchronize()
     fwd = fa.dense_fwd_kernel(q.dtype, d)
-    check_launches("flash_attention_with_lse", dict(fa.launches),
-                   {fwd: 1, "flash_bwd_dkdv": 1, "flash_bwd_dq": 1}, 1)
+    dkdv, dqk = fa.dense_bwd_kernel(q.dtype, d)
+    check_launches("flash_attention_with_lse", dict(fa.launches), {fwd: 1, dkdv: 1, dqk: 1}, 1)
     o, lse = o.detach(), lse.detach()
     ro, rlse = fa.flash_attention_reference_fwd(q, k, v, True)
     delta = fa.attention_delta(o, w) - u
@@ -1969,7 +2035,7 @@ def check_flash_lse(dev, gen, B=8, T=1024, H=16, d=64):
             for label, got, ref in (("o", o, ro), ("lse", lse, rlse), ("dq", leaves[0].grad, rdq),
                                     ("dk", leaves[1].grad, rdk), ("dv", leaves[2].grad, rdv))]
     print(f"flash_attention_with_lse B={B} T={T} H={H} d={d} causal bf16, loss on out and "
-          f"lse: launches {fwd} 1, flash_bwd_dkdv 1, flash_bwd_dq 1; {flash_line({'': rows})}")
+          f"lse: launches {fwd} 1, {dkdv} 1, {dqk} 1; {flash_line({'': rows})}")
 
     # forward + backward beside its bound (rows 1, 3 and 4's work), the plain
     # versions and SDPA forward + backward (no lse output), which the port never calls

@@ -1,5 +1,7 @@
-// Block-sparse flash-attention backward for Hopper (sm_90a): the entries flash_bwd_dkdv_lut_sm90
-// (dK, dV) and flash_bwd_dq_lut_sm90 (dQ), bf16, head dim 64, the (B, T) key bias optional.
+// Flash-attention backward for Hopper (sm_90a), bf16, head dim 64: the block-sparse entries
+// flash_bwd_dkdv_lut_sm90 (dK, dV) and flash_bwd_dq_lut_sm90 (dQ), the (B, T) key bias
+// optional, and the dense entries flash_bwd_dkdv_sm90 and flash_bwd_dq_sm90 (the end of this
+// note), which share their helpers.
 //
 // Replace the Pallas TPU kernels _bwd_dkdv_kernel (617-688) and _bwd_dq_kernel (691-753) of
 // deepspeed_tpu/ops/transformer/flash_attention.py with use_lut and use_kbias, built by _bwd
@@ -71,10 +73,43 @@
 // ops/transformer/flash_attention.py are the kernels' schedules in Python (the items each pipe
 // takes, their slots, visits and flags).
 //
+// The dense entries replace the same Pallas kernels on the dense path (_bwd_dkdv_kernel and
+// _bwd_dq_kernel with no LUT and no bias, built by _bwd 756-891, reached through
+// _flash_bwd_rule 906) for bf16 at head dim 64, where the template kernels dkdv_kernel and
+// dq_kernel of flash_attention.cuh (flash_bwd_dkdv, flash_bwd_dq) keep fp32 and head dims 96
+// and 128 (at 128 two pipes do not fit in shared memory even at two stages, and dK/dV's
+// accumulators alone take 128 registers a thread).  They compute what the templates compute on
+// the dense path: P = exp(S scale - lse), 0 where the pair is masked (q_pos < T, k_pos < T and,
+// when causal, q_pos >= k_pos); dV += P^T dO with P rounded to bf16; dS = P (dO V^T - delta)
+// scale; dK += dS^T Q and dQ += dS K with dS rounded to bf16; fp32 accumulation; outputs bf16,
+// contiguous (B, T, H, D).  At GPT-2 350M's shape (B=8, T=1024, H=16, D=64, causal) the
+// operations bound them: 8·D (dK/dV) and 6·D (dQ) flops per causal pair, 34.4 and 25.8 GFLOP,
+// 34.8 and 26.1 us at 989 TFLOP/s, against 101 and 85 MB, 30 and 25 us at 3.35 TB/s.  The
+// design is the group kernels' with a schedule the kernel computes from (B, H, T, causal), so
+// no arrays are read and nothing is handed over in shared memory:
+//   * a work item is one 64-row output tile of one (b, h): key rows for dK/dV, query rows for
+//     dQ; a visit is one 64-row tile of the other side, each operand one 64-row TMA box (the
+//     same 128-byte-swizzled image as the group kernels' gathered tiles); causal, key tile j
+//     visits query tiles j .. nt - 1 and query tile i visits key tiles 0 .. i; the items are
+//     ordered longest first (dK/dV: item w is key tile w / (B H); dQ: query tile
+//     nt - 1 - w / (B H)) and dealt over the pipes in the snake of the group kernels;
+//   * lse and delta (fp32 (B, H, T) rows of any length T, so no TMA map: its row stride would
+//     have to be a multiple of 16 bytes) are copied by the 32 lanes of the pipe's producer warp
+//     with cp.async, two rows a lane, zeros from T on, arriving on the same barrier as the
+//     TMA loads; rows of q, k, v and dO past T load as zeros; the visits that hold rows past T
+//     (the last, when T is not a multiple of 64) and the causal diagonal ones alone take the
+//     per-element mask, q_pos < T and k_pos < T included; rows of an output tile past T are
+//     computed and not stored;
+//   * the pipes, the ring, setmaxnreg, the softmax step (issue_sdp, softmax_grad,
+//     softmax_grad_dq) and the output products (issue_dvdk, issue_dq) are the group kernels'.
+// flash_bwd_dkdv_sm90_schedule and flash_bwd_dq_sm90_schedule in ops/transformer/
+// flash_attention.py are their schedules in Python.
+//
 // C interface for ctypes: the argument lists of flash_bwd_dkdv and flash_bwd_dq
-// (flash_attention.cu) plus the schedule; returns cudaGetLastError() after the launch (0 on
-// success), -1 for a dtype / head dim / slot size it was not built for, -2 when a tensor map
-// cannot be encoded and -3 when cuTensorMapEncodeTiled cannot be found.
+// (flash_attention.cu), the group entries with the schedule after them; returns
+// cudaGetLastError() after the launch (0 on success), -1 for a dtype / head dim / slot size /
+// shape it was not built for, -2 when a tensor map cannot be encoded and -3 when
+// cuTensorMapEncodeTiled cannot be found.
 
 #include <cuda.h>  // CUtensorMap and its enums; the encoder is fetched at run time
 #include <cuda_bf16.h>
@@ -188,6 +223,21 @@ __device__ __forceinline__ void tma_load4(void* dst, const CUtensorMap* map, uin
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(c0), "r"(c1), "r"(c2),
       "r"(c3)
       : "memory");
+}
+
+// 4 bytes from global to shared memory, asynchronously; zeros where !valid (src is then not
+// read, but must be a valid address)
+__device__ __forceinline__ void cp_async4(void* dst, const void* src, bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_addr(dst)), "l"(src),
+               "r"(valid ? 4 : 0)
+               : "memory");
+}
+
+// An arrival on an mbarrier once the thread's earlier cp.async copies have landed; it is one of
+// the arrivals the barrier was initialised to expect (noinc)
+__device__ __forceinline__ void cp_async_arrive(uint64_t* bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(smem_addr(bar))
+               : "memory");
 }
 
 __device__ __forceinline__ void tma_load2(void* dst, const CUtensorMap* map, uint64_t* bar, int c0,
@@ -314,17 +364,18 @@ __device__ __forceinline__ void issue_sdp(float (&s)[32], float (&dp)[32], const
 // P = 2^(S scale log2e + kbias log2e - lse log2e) and dS = P (dP scale - delta scale) of one
 // visit, from its S^T and dP^T accumulators, its lse and delta slots (sl, sd) and its entries
 // (vm: the mask flag and the query units); a row of lse NEG_INF takes +inf, so its P is 0.
-// Only a flagged visit (kMasked) masks: an empty query slot, and when causal a query before
-// the key.  P^T and dS^T go straight to bf16 A fragments: columns 8 n + qd + e of row r are
-// word 2 (n & 1) + r of fragment n / 2 (a 16-column slice of the accumulator is one
-// fragment).  s and dp are only read: no instruction but a wgmma defines an accumulator while
-// one is in flight, else ptxas serializes the kernel's wgmmas (C7515).
+// Only a flagged visit (kMasked) masks: an empty query slot, a query row from qend on (T: the
+// group kernels' filled slots never reach it, the dense kernel's last tile may), and when
+// causal a query before the key.  P^T and dS^T go straight to bf16 A fragments: columns
+// 8 n + qd + e of row r are word 2 (n & 1) + r of fragment n / 2 (a 16-column slice of the
+// accumulator is one fragment).  s and dp are only read: no instruction but a wgmma defines an
+// accumulator while one is in flight, else ptxas serializes the kernel's wgmmas (C7515).
 template <int U, bool kMasked, bool kBias>
 __device__ __forceinline__ void softmax_grad(const float (&s)[32], const float (&dp)[32],
                                              uint32_t (&pa)[4][4], uint32_t (&da)[4][4],
                                              const float* sl, const float* sd, const int* vm,
                                              const float (&kb2)[2], const int (&kpos)[2], int qd,
-                                             int causal, float scale, float scale2) {
+                                             int causal, float scale, float scale2, int qend) {
 #pragma unroll
   for (int n = 0; n < 8; ++n) {
     float l2[2], ds[2];
@@ -339,7 +390,7 @@ __device__ __forceinline__ void softmax_grad(const float (&s)[32], const float (
       ds[e] = sd[at] * scale;
       if (kMasked) {
         const int u = vm[1 + slot];
-        qpos[e] = u < 0 ? -1 : u * U + row;
+        qpos[e] = u < 0 || u * U + row >= qend ? -1 : u * U + row;
       }
     }
 #pragma unroll
@@ -362,14 +413,16 @@ __device__ __forceinline__ void softmax_grad(const float (&s)[32], const float (
 // log2e), from its S and dP accumulators, the thread's two query rows (qpos, -1 in an empty
 // slot; l2 = lse log2e, +inf where lse is NEG_INF, so that row's P is 0; dd = delta scale),
 // the visit's key-bias slots (kb) and its entries (vm: the mask flag and the key units).  Only
-// a flagged visit (kMasked) masks: an empty key slot, and when causal a key after the query.
-// dS goes straight to bf16 A fragments, as in softmax_grad; s and dp are only read.
+// a flagged visit (kMasked) masks: an empty key slot, a key row from kend on (as qend in
+// softmax_grad), and when causal a key after the query.  dS goes straight to bf16 A
+// fragments, as in softmax_grad; s and dp are only read.
 template <int U, bool kMasked, bool kBias>
 __device__ __forceinline__ void softmax_grad_dq(const float (&s)[32], const float (&dp)[32],
                                                 uint32_t (&da)[4][4], const float* kb,
                                                 const int* vm, const float (&l2)[2],
                                                 const float (&dd)[2], const int (&qpos)[2],
-                                                int qd, int causal, float scale, float scale2) {
+                                                int qd, int causal, float scale, float scale2,
+                                                int kend) {
 #pragma unroll
   for (int n = 0; n < 8; ++n) {
     // columns 8 n + qd + e (qd + e < 8) are rows row + e of the key slot `slot`; slot and
@@ -393,12 +446,65 @@ __device__ __forceinline__ void softmax_grad_dq(const float (&s)[32], const floa
       for (int e = 0; e < 2; ++e) {
         const int idx = 4 * n + 2 * r + e;
         float pv = exp2_ftz(fmaf(s[idx], scale2, kBias ? kb2[e] - l2[r] : -l2[r]));
-        if (kMasked && !(kpos >= 0 && (!causal || qpos[r] >= kpos + e))) pv = 0.f;
+        if (kMasked && !(kpos >= 0 && kpos + e < kend && (!causal || qpos[r] >= kpos + e)))
+          pv = 0.f;
         dsv[e] = pv * fmaf(dp[idx], scale, -dd[r]);
       }
       da[n >> 1][2 * (n & 1) + r] = pack_bf16(dsv[0], dsv[1]);
     }
   }
+}
+
+// The output products of one dK/dV visit, one commit group: dV += P^T dO and dK += dS^T Q
+// from the A fragments of softmax_grad, the visit's dO and Q tiles read through the transpose
+// bit (no transposed copy is made).  The caller fences the registers first.
+template <int kB>
+__device__ __forceinline__ void issue_dvdk(float (&dv)[kB][32], float (&dk)[kB][32],
+                                           const uint32_t (&pa)[4][4], const uint32_t (&da)[4][4],
+                                           const unsigned char* tdO, const unsigned char* tQ) {
+  wgmma_fence();
+#pragma unroll
+  for (int x = 0; x < kB; ++x)
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      wgmma_rs_n64_tb(dv[x], pa[kk], desc_sw128(tdO + x * kBoxBytes + kk * 16 * 128, kBoxBytes,
+                                                1024));
+#pragma unroll
+  for (int x = 0; x < kB; ++x)
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      wgmma_rs_n64_tb(dk[x], da[kk], desc_sw128(tQ + x * kBoxBytes + kk * 16 * 128, kBoxBytes,
+                                                1024));
+  wgmma_commit();
+}
+
+// The output product of one dQ visit, one commit group: dQ += dS K, the visit's K tile read
+// through the transpose bit.  The caller fences the registers first.
+template <int kB>
+__device__ __forceinline__ void issue_dq(float (&dq)[kB][32], const uint32_t (&da)[4][4],
+                                         const unsigned char* tK) {
+  wgmma_fence();
+#pragma unroll
+  for (int x = 0; x < kB; ++x)
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      wgmma_rs_n64_tb(dq[x], da[kk], desc_sw128(tK + x * kBoxBytes + kk * 16 * 128, kBoxBytes,
+                                                1024));
+  wgmma_commit();
+}
+
+// Row r (0 or 1: row 16 warp + g + 8 r of the tile) of a 64-row accumulator, bf16, to out
+// (that row's first column): its kB x 8 column pairs 64 x + 8 n + qd
+template <int kB>
+__device__ __forceinline__ void store_row(bf16* out, const float (&acc)[kB][32], int r, int qd) {
+#pragma unroll
+  for (int x = 0; x < kB; ++x)
+#pragma unroll
+    for (int n = 0; n < 8; ++n) {
+      const int e = 4 * n + 2 * r;
+      *reinterpret_cast<uint32_t*>(out + x * kBox + 8 * n + qd) = pack_bf16(acc[x][e],
+                                                                           acc[x][e + 1]);
+    }
 }
 
 struct Params {
@@ -617,14 +723,12 @@ __global__ void __launch_bounds__(kThreads, 1)
 
         if (vm[0] != 0)
           softmax_grad<U, true, kBias>(s, dp, pa, da, sl, sd, vm, kb2, kpos, qd, p.causal, scale,
-                                       scale2);
+                                       scale2, T);
         else
           softmax_grad<U, false, kBias>(s, dp, pa, da, sl, sd, vm, kb2, kpos, qd, p.causal, scale,
-                                        scale2);
+                                        scale2, T);
 
-        // dV += P^T dO and dK += dS^T Q, dO and Q read through the transpose bit
-        const unsigned char* tQ = sQ + st * kTile;
-        const unsigned char* tdO = sdO + st * kTile;
+        // dV += P^T dO and dK += dS^T Q
 #pragma unroll
         for (int x = 0; x < kB; ++x) {
           fence_regs(dv[x]);
@@ -632,20 +736,7 @@ __global__ void __launch_bounds__(kThreads, 1)
         }
         fence_regs(pa);
         fence_regs(da);
-        wgmma_fence();
-#pragma unroll
-        for (int x = 0; x < kB; ++x)
-#pragma unroll
-          for (int kk = 0; kk < 4; ++kk)
-            wgmma_rs_n64_tb(dv[x], pa[kk],
-                            desc_sw128(tdO + x * kBoxBytes + kk * 16 * 128, kBoxBytes, 1024));
-#pragma unroll
-        for (int x = 0; x < kB; ++x)
-#pragma unroll
-          for (int kk = 0; kk < 4; ++kk)
-            wgmma_rs_n64_tb(dk[x], da[kk],
-                            desc_sw128(tQ + x * kBoxBytes + kk * 16 * 128, kBoxBytes, 1024));
-        wgmma_commit();
+        issue_dvdk<kB>(dv, dk, pa, da, sdO + st * kTile, sQ + st * kTile);
         // the next visit's S^T and dP^T right behind them; after the last visit, this
         // visit's again (its stage is still held; the results go unused): an issue that
         // every iteration makes keeps ptxas from serializing the wgmmas (C7515)
@@ -668,21 +759,13 @@ __global__ void __launch_bounds__(kThreads, 1)
     if (lane == 0) mbar_arrive(&kv_empty[kb]);  // this item's entries and K / V are read
 
     // ---------------------------------------------------------- epilogue
-    // each of the thread's rows in a live slot gets its 2 x kB x 8 column pairs, bf16
+    // each of the thread's rows in a live slot
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
       if (kpos[r] < 0) continue;
       const long long row = (static_cast<long long>(b) * T + kpos[r]) * H + h;
-      bf16* ok = p.dk + row * D;
-      bf16* ov = p.dv + row * D;
-#pragma unroll
-      for (int x = 0; x < kB; ++x)
-#pragma unroll
-        for (int n = 0; n < 8; ++n) {
-          const int col = x * kBox + 8 * n + qd, e = 4 * n + 2 * r;
-          *reinterpret_cast<uint32_t*>(ok + col) = pack_bf16(dk[x][e], dk[x][e + 1]);
-          *reinterpret_cast<uint32_t*>(ov + col) = pack_bf16(dv[x][e], dv[x][e + 1]);
-        }
+      store_row<kB>(p.dk + row * D, dk, r, qd);
+      store_row<kB>(p.dv + row * D, dv, r, qd);
     }
   }
 }
@@ -877,24 +960,16 @@ __global__ void __launch_bounds__(kThreads, 1)
 
         if (vm[0] != 0)
           softmax_grad_dq<U, true, kBias>(s, dp, da, kb, vm, l2, dd, qpos, qd, p.causal, scale,
-                                          scale2);
+                                          scale2, T);
         else
           softmax_grad_dq<U, false, kBias>(s, dp, da, kb, vm, l2, dd, qpos, qd, p.causal, scale,
-                                           scale2);
+                                           scale2, T);
 
-        // dQ += dS K, K read through the transpose bit
-        const unsigned char* tK = sK + st * kTile;
+        // dQ += dS K
 #pragma unroll
         for (int x = 0; x < kB; ++x) fence_regs(dq[x]);
         fence_regs(da);
-        wgmma_fence();
-#pragma unroll
-        for (int x = 0; x < kB; ++x)
-#pragma unroll
-          for (int kk = 0; kk < 4; ++kk)
-            wgmma_rs_n64_tb(dq[x], da[kk],
-                            desc_sw128(tK + x * kBoxBytes + kk * 16 * 128, kBoxBytes, 1024));
-        wgmma_commit();
+        issue_dq<kB>(dq, da, sK + st * kTile);
         // the next visit's S and dP right behind it; after the last visit, this visit's again
         // (as in dkdv_sm90_kernel: an issue every iteration makes keeps the wgmmas unserialized)
         if (j + 1 < nv) {
@@ -912,19 +987,413 @@ __global__ void __launch_bounds__(kThreads, 1)
     if (lane == 0) mbar_arrive(&q_empty[qb]);  // this item's entries, Q, dO and stats are read
 
     // ---------------------------------------------------------- epilogue
-    // each of the thread's rows in a live slot gets its kB x 8 column pairs, bf16
+    // each of the thread's rows in a live slot
+#pragma unroll
+    for (int r = 0; r < 2; ++r)
+      if (qpos[r] >= 0)
+        store_row<kB>(p.dq + ((static_cast<long long>(b) * T + qpos[r]) * H + h) * D, dq, r, qd);
+  }
+}
+
+// ---------------------------------------------------------------- the dense kernels
+struct DenseParams {
+  const float* lse;             // (B, H, T) fp32, contiguous
+  const float* delta;           // the same
+  bf16* out0;                   // dK (dense_dkdv_kernel) or dQ (dense_dq_kernel)
+  bf16* out1;                   // dV, or null
+  int T, H, BH, nt, causal;     // nt = ceil(T / 64): tiles a side
+  float scale, scale2;          // scale; scale * log2 e
+};
+
+// lse and delta of query rows r0 .. r0 + 63 of one (b, h) (at: its first element) into 64-float
+// slots, two rows a lane of the producer warp by cp.async, zeros from T on; the copies arrive on
+// bar when they have landed (its count holds these 32 arrivals)
+__device__ __forceinline__ void load_stats(float* sl, float* sd, const DenseParams& p,
+                                           long long at, int r0, int lane, uint64_t* bar) {
+#pragma unroll
+  for (int x = 0; x < 2; ++x) {
+    const int r = 32 * x + lane;
+    const bool in = r0 + r < p.T;
+    const long long src = in ? at + r0 + r : 0;
+    cp_async4(sl + r, p.lse + src, in);
+    cp_async4(sd + r, p.delta + src, in);
+  }
+  cp_async_arrive(bar);
+}
+
+template <int D>
+struct DenseCfg {
+  static constexpr int kTileBytes = kRows * D * 2;        // a 64-row tile of K, V, Q or dO
+  // one pipe: the item's two tiles in two buffers, the visits' two tiles in the ring, the
+  // lse and delta of 64 rows in both (dK/dV: the ring; dQ: the buffers), the barriers; a
+  // multiple of 1024 so the second pipe's tiles stay aligned
+  static constexpr size_t kPipe = (4 * static_cast<size_t>(kTileBytes) +
+                                   kStages * (2 * static_cast<size_t>(kTileBytes) +
+                                              2 * kRows * 4) +
+                                   4 * kRows * 4 + 8 * (4 + 2 * kStages) + 1023) / 1024 * 1024;
+  static constexpr size_t kSmem = 1024 + 2 * kPipe;
+};
+
+// The dense dK/dV kernel.  Work item w (of nt * B * H) is key tile w / BH of (b, h) = w % BH,
+// so the causal items come longest first; a pipe takes its items in the snake of
+// dkdv_sm90_kernel, loads each item's K and V once (two buffers) and streams its visits' Q,
+// dO, lse and delta (query tiles j .. nt - 1 when causal, else 0 .. nt - 1) through the ring.
+// Producer and consumers derive the same schedule from (B, H, T, causal): nothing is read or
+// handed over.  The accumulator layout and the loop are dkdv_sm90_kernel's.
+template <int D>
+__global__ void __launch_bounds__(kThreads, 1)
+    dense_dkdv_kernel(const __grid_constant__ CUtensorMap tq,
+                      const __grid_constant__ CUtensorMap tk,
+                      const __grid_constant__ CUtensorMap tv,
+                      const __grid_constant__ CUtensorMap tdo, DenseParams p) {
+  using C = DenseCfg<D>;
+  constexpr int kB = D / kBox, kS = kStages, kTile = C::kTileBytes;
+  constexpr int kVisitTx = 2 * kTile;  // a visit's TMA bytes: Q, dO
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  const int wg = threadIdx.x / kWgThreads;
+  const int pipe = wg == 0 ? (threadIdx.x >> 5) & 1 : wg - 1;
+  unsigned char* smem =
+      smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023) + pipe * C::kPipe;
+  unsigned char* sK = smem;                      // [buffer][box][64 rows][128 bytes]
+  unsigned char* sV = sK + 2 * kTile;            // the same
+  unsigned char* sQ = sV + 2 * kTile;            // [stage][box][64 rows][128 bytes]
+  unsigned char* sdO = sQ + kS * kTile;          // the same
+  float* sLse = reinterpret_cast<float*>(sdO + kS * kTile);  // [stage][64]
+  float* sDelta = sLse + kS * kRows;                         // the same
+  uint64_t* kv_full = reinterpret_cast<uint64_t*>(sDelta + kS * kRows);
+  uint64_t* kv_empty = kv_full + 2;
+  uint64_t* full = kv_empty + 2;
+  uint64_t* empty = full + kS;
+
+  const int T = p.T, H = p.H, BH = p.BH, nt = p.nt, n_work = nt * BH;
+  const int ragged = T % kRows != 0;
+  auto work = [&](int r) {  // the snake of dkdv_sm90_kernel
+    const int G = 2 * gridDim.x, x = 2 * blockIdx.x + pipe;
+    return r * G + ((r & 1) ? G - 1 - x : x);
+  };
+
+  if (threadIdx.x == 0 || threadIdx.x == 32) {
+#pragma unroll
+    for (int b = 0; b < 2; ++b) {
+      mbar_init(&kv_full[b], 1);
+      mbar_init(&kv_empty[b], 4);  // one arrival per consumer warp
+    }
+#pragma unroll
+    for (int s = 0; s < kS; ++s) {
+      mbar_init(&full[s], 1 + 32);  // the TMA issue and the producer lanes' lse and delta
+      mbar_init(&empty[s], 4);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (wg == 0) {
+    // ------------------------------------------------------------ producer
+    // warp x of the producer warpgroup feeds pipe x: lane 0 issues the TMA loads, every lane
+    // copies two rows of each visit's lse and delta
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kProducerRegs));
+    if (threadIdx.x >= 64) return;
+    const int lane = threadIdx.x & 31;
+    int vt = 0;  // visits issued to this pipe
+    for (int i = 0, w = work(0); w < n_work; w = work(++i)) {
+      const int kt = w / BH, bh = w - kt * BH, b = bh / H, h = bh - b * H;
+      const int kb = i & 1, kph = (i >> 1) & 1;
+      if (lane == 0) {
+        mbar_wait(&kv_empty[kb], kph ^ 1);
+        mbar_expect_tx(&kv_full[kb], 2 * kTile);
+#pragma unroll
+        for (int x = 0; x < kB; ++x) {
+          const int off = kb * kTile + x * kBoxBytes;
+          tma_load4(sK + off, &tk, &kv_full[kb], x * kBox, h, kt * kRows, b);
+          tma_load4(sV + off, &tv, &kv_full[kb], x * kBox, h, kt * kRows, b);
+        }
+      }
+      for (int qt = p.causal ? kt : 0; qt < nt; ++qt, ++vt) {
+        const int st = vt % kS, ph = (vt / kS) & 1;
+        mbar_wait(&empty[st], ph ^ 1);
+        if (lane == 0) {
+          mbar_expect_tx(&full[st], kVisitTx);
+#pragma unroll
+          for (int x = 0; x < kB; ++x) {
+            const int off = st * kTile + x * kBoxBytes;
+            tma_load4(sQ + off, &tq, &full[st], x * kBox, h, qt * kRows, b);
+            tma_load4(sdO + off, &tdo, &full[st], x * kBox, h, qt * kRows, b);
+          }
+        }
+        load_stats(sLse + st * kRows, sDelta + st * kRows, p, static_cast<long long>(bh) * T,
+                   qt * kRows, lane, &full[st]);
+      }
+    }
+    return;
+  }
+  // -------------------------------------------------------------- consumers
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kConsumerRegs));
+  const int tid = static_cast<int>(threadIdx.x) - wg * kWgThreads;
+  const int warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, qd = (lane & 3) * 2;
+  const float scale = p.scale, scale2 = p.scale2;
+  const float no_bias[2] = {0.f, 0.f};
+  int vt = 0;  // visits consumed by this pipe
+  for (int i = 0, w = work(0); w < n_work; w = work(++i)) {
+    const int kt = w / BH, bh = w - kt * BH;
+    const int kb = i & 1, kph = (i >> 1) & 1;
+    // this thread's two key rows: row 16 warp + g + 8 r of the tile
+    int kpos[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) kpos[r] = kt * kRows + 16 * warp + g + 8 * r;
+    float dk[kB][32], dv[kB][32];
+#pragma unroll
+    for (int x = 0; x < kB; ++x) {
+#pragma unroll
+      for (int e = 0; e < 32; ++e) dk[x][e] = dv[x][e] = 0.f;
+      fence_regs(dk[x]);  // zeroed here, before the first wgmma is issued
+      fence_regs(dv[x]);
+    }
+    mbar_wait(&kv_full[kb], kph);
+    const unsigned char* tK = sK + kb * kTile;
+    const unsigned char* tV = sV + kb * kTile;
+    const int q0 = p.causal ? kt : 0, nv = nt - q0;  // every item has a visit
+    float s[32], dp[32];
+    uint32_t pa[4][4], da[4][4];
+    int st = vt % kS;
+    mbar_wait(&full[st], (vt / kS) & 1);
+    issue_sdp<D>(s, dp, tK, tV, sQ + st * kTile, sdO + st * kTile);
+    for (int j = 0; j < nv; ++j, ++vt) {
+      // S^T and dP^T of this visit are done, and the last visit's dV and dK
+      wgmma_wait<0>();
+      fence_regs(s);
+      fence_regs(dp);
+#pragma unroll
+      for (int x = 0; x < kB; ++x) {
+        fence_regs(dv[x]);
+        fence_regs(dk[x]);
+      }
+      fence_regs(pa);
+      fence_regs(da);
+      if (j > 0 && lane == 0) mbar_arrive(&empty[(vt - 1) % kS]);
+      const int qt = q0 + j;
+      const int vm[2] = {1, qt};  // softmax_grad's entries: the visit's one 64-row unit
+      const float* sl = sLse + st * kRows;
+      const float* sd = sDelta + st * kRows;
+      if ((p.causal && qt == kt) || (ragged && qt == nt - 1))
+        softmax_grad<kRows, true, false>(s, dp, pa, da, sl, sd, vm, no_bias, kpos, qd, p.causal,
+                                         scale, scale2, T);
+      else
+        softmax_grad<kRows, false, false>(s, dp, pa, da, sl, sd, vm, no_bias, kpos, qd,
+                                          p.causal, scale, scale2, T);
+#pragma unroll
+      for (int x = 0; x < kB; ++x) {
+        fence_regs(dv[x]);
+        fence_regs(dk[x]);
+      }
+      fence_regs(pa);
+      fence_regs(da);
+      issue_dvdk<kB>(dv, dk, pa, da, sdO + st * kTile, sQ + st * kTile);
+      // the next visit's S^T and dP^T right behind them; after the last visit this visit's
+      // again, as in dkdv_sm90_kernel (an issue every iteration makes keeps the wgmmas
+      // unserialized)
+      if (j + 1 < nv) {
+        st = (vt + 1) % kS;
+        mbar_wait(&full[st], ((vt + 1) / kS) & 1);
+      }
+      issue_sdp<D>(s, dp, tK, tV, sQ + st * kTile, sdO + st * kTile);
+    }
+    wgmma_wait<0>();
+#pragma unroll
+    for (int x = 0; x < kB; ++x) {
+      fence_regs(dv[x]);
+      fence_regs(dk[x]);
+    }
+    fence_regs(pa);
+    fence_regs(da);
+    if (lane == 0) {
+      mbar_arrive(&empty[(vt - 1) % kS]);
+      mbar_arrive(&kv_empty[kb]);  // this item's K and V are read
+    }
+
+    // ---------------------------------------------------------- epilogue
+    // each of the thread's rows under T
+    const int b = bh / H, h = bh - b * H;
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
-      if (qpos[r] < 0) continue;
-      bf16* oq = p.dq + ((static_cast<long long>(b) * T + qpos[r]) * H + h) * D;
-#pragma unroll
-      for (int x = 0; x < kB; ++x)
-#pragma unroll
-        for (int n = 0; n < 8; ++n) {
-          const int col = x * kBox + 8 * n + qd, e = 4 * n + 2 * r;
-          *reinterpret_cast<uint32_t*>(oq + col) = pack_bf16(dq[x][e], dq[x][e + 1]);
-        }
+      if (kpos[r] >= T) continue;
+      const long long row = (static_cast<long long>(b) * T + kpos[r]) * H + h;
+      store_row<kB>(p.out0 + row * D, dk, r, qd);
+      store_row<kB>(p.out1 + row * D, dv, r, qd);
     }
+  }
+}
+
+// The dense dQ kernel: dense_dkdv_kernel with the roles of the rows swapped.  Work item w is
+// query tile nt - 1 - w / BH of (b, h) = w % BH (the causal items longest first); a pipe loads
+// each item's Q, dO, lse and delta once (two buffers) and streams its visits' K and V (key
+// tiles 0 .. qt when causal, else 0 .. nt - 1) through the ring.  The accumulator layout and
+// the loop are dq_sm90_kernel's.
+template <int D>
+__global__ void __launch_bounds__(kThreads, 1)
+    dense_dq_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
+                    const __grid_constant__ CUtensorMap tv, const __grid_constant__ CUtensorMap tdo,
+                    DenseParams p) {
+  using C = DenseCfg<D>;
+  constexpr int kB = D / kBox, kS = kStages, kTile = C::kTileBytes;
+  constexpr int kItemTx = 2 * kTile;  // an item's TMA bytes: Q, dO
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  const int wg = threadIdx.x / kWgThreads;
+  const int pipe = wg == 0 ? (threadIdx.x >> 5) & 1 : wg - 1;
+  unsigned char* smem =
+      smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023) + pipe * C::kPipe;
+  unsigned char* sQ = smem;                      // [buffer][box][64 rows][128 bytes]
+  unsigned char* sdO = sQ + 2 * kTile;           // the same
+  unsigned char* sK = sdO + 2 * kTile;           // [stage][box][64 rows][128 bytes]
+  unsigned char* sV = sK + kS * kTile;           // the same
+  float* sLse = reinterpret_cast<float*>(sV + kS * kTile);  // [buffer][64]
+  float* sDelta = sLse + 2 * kRows;                         // the same
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(sDelta + 2 * kRows);
+  uint64_t* q_empty = q_full + 2;
+  uint64_t* full = q_empty + 2;
+  uint64_t* empty = full + kS;
+
+  const int T = p.T, H = p.H, BH = p.BH, nt = p.nt, n_work = nt * BH;
+  const int ragged = T % kRows != 0;
+  auto work = [&](int r) {  // the snake of dkdv_sm90_kernel
+    const int G = 2 * gridDim.x, x = 2 * blockIdx.x + pipe;
+    return r * G + ((r & 1) ? G - 1 - x : x);
+  };
+
+  if (threadIdx.x == 0 || threadIdx.x == 32) {
+#pragma unroll
+    for (int b = 0; b < 2; ++b) {
+      mbar_init(&q_full[b], 1 + 32);  // the TMA issue and the producer lanes' lse and delta
+      mbar_init(&q_empty[b], 4);      // one arrival per consumer warp
+    }
+#pragma unroll
+    for (int s = 0; s < kS; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 4);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (wg == 0) {
+    // ------------------------------------------------------------ producer
+    // warp x of the producer warpgroup feeds pipe x: lane 0 issues the TMA loads, every lane
+    // copies two rows of each item's lse and delta
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kProducerRegs));
+    if (threadIdx.x >= 64) return;
+    const int lane = threadIdx.x & 31;
+    int vt = 0;  // visits issued to this pipe
+    for (int i = 0, w = work(0); w < n_work; w = work(++i)) {
+      const int y = w / BH, bh = w - y * BH, b = bh / H, h = bh - b * H, qt = nt - 1 - y;
+      const int qb = i & 1, qph = (i >> 1) & 1;
+      const int nv = p.causal ? qt + 1 : nt;
+      mbar_wait(&q_empty[qb], qph ^ 1);
+      load_stats(sLse + qb * kRows, sDelta + qb * kRows, p, static_cast<long long>(bh) * T,
+                 qt * kRows, lane, &q_full[qb]);
+      if (lane != 0) continue;
+      mbar_expect_tx(&q_full[qb], kItemTx);
+#pragma unroll
+      for (int x = 0; x < kB; ++x) {
+        const int off = qb * kTile + x * kBoxBytes;
+        tma_load4(sQ + off, &tq, &q_full[qb], x * kBox, h, qt * kRows, b);
+        tma_load4(sdO + off, &tdo, &q_full[qb], x * kBox, h, qt * kRows, b);
+      }
+      for (int kt = 0; kt < nv; ++kt, ++vt) {
+        const int st = vt % kS, ph = (vt / kS) & 1;
+        mbar_wait(&empty[st], ph ^ 1);
+        mbar_expect_tx(&full[st], 2 * kTile);
+#pragma unroll
+        for (int x = 0; x < kB; ++x) {
+          const int off = st * kTile + x * kBoxBytes;
+          tma_load4(sK + off, &tk, &full[st], x * kBox, h, kt * kRows, b);
+          tma_load4(sV + off, &tv, &full[st], x * kBox, h, kt * kRows, b);
+        }
+      }
+    }
+    return;
+  }
+  // -------------------------------------------------------------- consumers
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kConsumerRegs));
+  const int tid = static_cast<int>(threadIdx.x) - wg * kWgThreads;
+  const int warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, qd = (lane & 3) * 2;
+  const float scale = p.scale, scale2 = p.scale2;
+  int vt = 0;  // visits consumed by this pipe
+  for (int i = 0, w = work(0); w < n_work; w = work(++i)) {
+    const int y = w / BH, bh = w - y * BH, qt = nt - 1 - y;
+    const int qb = i & 1, qph = (i >> 1) & 1;
+    // this thread's two query rows: row 16 warp + g + 8 r of the tile
+    int qpos[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) qpos[r] = qt * kRows + 16 * warp + g + 8 * r;
+    float dq[kB][32];
+#pragma unroll
+    for (int x = 0; x < kB; ++x) {
+#pragma unroll
+      for (int e = 0; e < 32; ++e) dq[x][e] = 0.f;
+      fence_regs(dq[x]);  // zeroed here, before the first wgmma is issued
+    }
+    mbar_wait(&q_full[qb], qph);
+    float l2[2], dd[2];  // the rows' lse log2 e (+inf where lse is NEG_INF), delta scale
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int at = qb * kRows + 16 * warp + g + 8 * r;
+      const float lse = sLse[at];
+      l2[r] = lse > kNegInf * 0.5f ? lse * kLog2e : INFINITY;
+      dd[r] = sDelta[at] * scale;
+    }
+    const unsigned char* tQ = sQ + qb * kTile;
+    const unsigned char* tdO = sdO + qb * kTile;
+    const int nv = p.causal ? qt + 1 : nt;  // every item has a visit
+    float s[32], dp[32];
+    uint32_t da[4][4];
+    int st = vt % kS;
+    mbar_wait(&full[st], (vt / kS) & 1);
+    issue_sdp<D>(s, dp, tQ, tdO, sK + st * kTile, sV + st * kTile);
+    for (int kt = 0; kt < nv; ++kt, ++vt) {
+      // S and dP of this visit are done, and the last visit's dQ
+      wgmma_wait<0>();
+      fence_regs(s);
+      fence_regs(dp);
+#pragma unroll
+      for (int x = 0; x < kB; ++x) fence_regs(dq[x]);
+      fence_regs(da);
+      if (kt > 0 && lane == 0) mbar_arrive(&empty[(vt - 1) % kS]);
+      const int vm[2] = {1, kt};  // softmax_grad_dq's entries: the visit's one 64-row unit
+      if ((p.causal && kt == qt) || (ragged && kt == nt - 1))
+        softmax_grad_dq<kRows, true, false>(s, dp, da, nullptr, vm, l2, dd, qpos, qd, p.causal,
+                                            scale, scale2, T);
+      else
+        softmax_grad_dq<kRows, false, false>(s, dp, da, nullptr, vm, l2, dd, qpos, qd,
+                                             p.causal, scale, scale2, T);
+#pragma unroll
+      for (int x = 0; x < kB; ++x) fence_regs(dq[x]);
+      fence_regs(da);
+      issue_dq<kB>(dq, da, sK + st * kTile);
+      // the next visit's S and dP right behind it; after the last visit this visit's again
+      if (kt + 1 < nv) {
+        st = (vt + 1) % kS;
+        mbar_wait(&full[st], ((vt + 1) / kS) & 1);
+      }
+      issue_sdp<D>(s, dp, tQ, tdO, sK + st * kTile, sV + st * kTile);
+    }
+    wgmma_wait<0>();
+#pragma unroll
+    for (int x = 0; x < kB; ++x) fence_regs(dq[x]);
+    fence_regs(da);
+    if (lane == 0) {
+      mbar_arrive(&empty[(vt - 1) % kS]);
+      mbar_arrive(&q_empty[qb]);  // this item's Q, dO, lse and delta are read
+    }
+
+    // ---------------------------------------------------------- epilogue
+    // each of the thread's rows under T
+    const int b = bh / H, h = bh - b * H;
+#pragma unroll
+    for (int r = 0; r < 2; ++r)
+      if (qpos[r] < T)
+        store_row<kB>(p.out0 + ((static_cast<long long>(b) * T + qpos[r]) * H + h) * D, dq, r,
+                      qd);
   }
 }
 
@@ -1068,6 +1537,38 @@ bool built_for(int dtype, int head_dim, int T, const GroupSchedule* s) {
          (s->unit == 16 || s->unit == 32 || s->unit == 64) && T % s->unit == 0;
 }
 
+// dK/dV (kDq false: out0 dK, out1 dV) or dQ (kDq true: out0 dQ) of a dense call
+template <bool kDq>
+int launch_dense(const void* q, const void* k, const void* v, const void* dout, const float* lse,
+                 const float* delta, void* out0, void* out1, const long long* strides, int B,
+                 int T, int H, int causal, float scale, cudaStream_t stream) {
+  constexpr int D = 64;
+  EncodeTiled enc = encode_tiled();
+  if (enc == nullptr) return -3;
+  CUtensorMap mq, mk, mv, mdo;
+  if (!make_map(enc, &mq, q, strides, B, T, H, D, kRows) ||
+      !make_map(enc, &mk, k, strides + 3, B, T, H, D, kRows) ||
+      !make_map(enc, &mv, v, strides + 6, B, T, H, D, kRows) ||
+      !make_map(enc, &mdo, dout, strides + 9, B, T, H, D, kRows))
+    return -2;
+  const int nt = (T + kRows - 1) / kRows;
+  const DenseParams p = {lse, delta, static_cast<bf16*>(out0), static_cast<bf16*>(out1), T, H,
+                         B * H, nt, causal, scale, scale * kLog2e};
+  if constexpr (kDq)
+    return launch_pipes(dense_dq_kernel<D>, DenseCfg<D>::kSmem, nt * B * H, stream, mq, mk, mv,
+                        mdo, p);
+  else
+    return launch_pipes(dense_dkdv_kernel<D>, DenseCfg<D>::kSmem, nt * B * H, stream, mq, mk,
+                        mv, mdo, p);
+}
+
+// whether the dense instances were built for a call: bf16, head dim 64, and the work items
+// within int
+bool dense_built_for(int dtype, int head_dim, int B, int T, int H) {
+  return dtype == 1 && head_dim == 64 && B > 0 && T > 0 && H > 0 &&
+         static_cast<long long>(B) * H * ((T + kRows - 1) / kRows) < (1ll << 31);
+}
+
 }  // namespace
 
 // strides: 12 int64, the (b, t, h) element strides of q, k, v and dout; s: the schedule
@@ -1094,4 +1595,25 @@ extern "C" int flash_bwd_dq_lut_sm90(int dtype, int head_dim, const void* q, con
   if (s->n_work == 0) return 0;
   return launch_any<true, 64>(q, k, v, dout, lse, delta, dq, nullptr, strides, B, T, H, causal,
                               scale, *s, reinterpret_cast<cudaStream_t>(stream));
+}
+
+// The dense dK/dV: flash_bwd_dkdv's arguments (flash_attention.cu).
+extern "C" int flash_bwd_dkdv_sm90(int dtype, int head_dim, const void* q, const void* k,
+                                   const void* v, const void* dout, const float* lse,
+                                   const float* delta, void* dk, void* dv,
+                                   const long long* strides, int B, int T, int H, int causal,
+                                   float scale, void* stream) {
+  if (!dense_built_for(dtype, head_dim, B, T, H)) return -1;
+  return launch_dense<false>(q, k, v, dout, lse, delta, dk, dv, strides, B, T, H, causal, scale,
+                             reinterpret_cast<cudaStream_t>(stream));
+}
+
+// The dense dQ: flash_bwd_dq's arguments (flash_attention.cu).
+extern "C" int flash_bwd_dq_sm90(int dtype, int head_dim, const void* q, const void* k,
+                                 const void* v, const void* dout, const float* lse,
+                                 const float* delta, void* dq, const long long* strides, int B,
+                                 int T, int H, int causal, float scale, void* stream) {
+  if (!dense_built_for(dtype, head_dim, B, T, H)) return -1;
+  return launch_dense<true>(q, k, v, dout, lse, delta, dq, nullptr, strides, B, T, H, causal,
+                            scale, reinterpret_cast<cudaStream_t>(stream));
 }

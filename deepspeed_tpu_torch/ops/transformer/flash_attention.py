@@ -13,9 +13,9 @@ CUDA kernels (``deepspeed_tpu_torch/csrc/flash_attention.cuh``, entries in
 ``flash_attention.cu``, ``flash_attention_sparse_fwd.cu``,
 ``flash_attention_sparse_bwd.cu`` and ``flash_attention_band_merge_fwd.cu``;
 the dense bf16 forward at head dims 64 and 128 in
-``flash_attention_fwd_sm90.cu``, the block-sparse bf16 dK/dV and dQ in
-``flash_attention_sparse_bwd_sm90.cu``), one wrapper and one launch counter
-per entry:
+``flash_attention_fwd_sm90.cu``, the dense and the block-sparse bf16 dK/dV
+and dQ at head dim 64 in ``flash_attention_sparse_bwd_sm90.cu``), one
+wrapper and one launch counter per entry:
 
 - ``flash_fwd_sm90`` (for ``_fwd_kernel`` 144, dense): the bf16 forward
   at head dims 64 and 128 with TMA, an mbarrier ring fed by a producer
@@ -36,9 +36,17 @@ per entry:
 - ``flash_fwd_merged`` (for ``_fwd_kernel`` / ``_fwd_kernel_dma`` with
   ``use_merge`` 161-164, 245-255, 317-319, 384-390): the forward over a
   :class:`MergedLut`, two q tiles per kernel row;
+- ``flash_bwd_dkdv_sm90`` / ``flash_bwd_dq_sm90`` (for ``_bwd_dkdv_kernel``
+  617 and ``_bwd_dq_kernel`` 691, dense): the bf16 backward at head dim 64,
+  the group kernels' design below over a schedule the kernels compute from
+  (B, H, T, causal), 64-row output tiles, each visit one 64-row TMA box per
+  operand; :func:`flash_bwd_dkdv` and :func:`flash_bwd_dq` send CUDA tensors
+  of that dtype and head dim there (:func:`dense_bwd_kernel`), and
+  :func:`flash_bwd_dkdv_sm90_schedule` / :func:`flash_bwd_dq_sm90_schedule`
+  are their schedules in Python;
 - ``flash_bwd_dkdv`` / ``_biased`` / ``_lut`` (for ``_bwd_dkdv_kernel``
   617): per k tile over the (live) q tiles, P recomputed from the lse, dV
-  and dK;
+  and dK (the dense one: fp32, and bf16 at head dims 96 and 128);
 - ``flash_bwd_dkdv_lut_sm90`` (for ``_bwd_dkdv_kernel`` with ``use_lut``):
   the block-sparse dK/dV in bf16 at head dim 64 over a
   :class:`GroupLut` (key blocks grouped by their live query blocks, both
@@ -47,7 +55,7 @@ per entry:
   the absence of a (T, T) score bias (:func:`sparse_dkdv_kernel`), and
   :func:`flash_bwd_dkdv_lut_sm90_schedule` is its schedule in Python;
 - ``flash_bwd_dq`` / ``_biased`` / ``_lut`` (for ``_bwd_dq_kernel`` 691):
-  per q tile over the (live) k tiles, dQ;
+  per q tile over the (live) k tiles, dQ (the dense one as its dK/dV);
 - ``flash_bwd_dq_lut_sm90`` (for ``_bwd_dq_kernel`` with ``use_lut``, 691-753):
   the block-sparse dQ in bf16 at head dim 64, the dK/dV design with the
   roles swapped, over ``GroupLut(side="q")`` (query blocks grouped by their
@@ -117,7 +125,8 @@ import torch
 
 # flash_attention.py NEG_INF: masked scores, and the lse of a row with no live key
 NEG_INF = -1e30
-DENSE_KERNELS = ("flash_fwd", "flash_fwd_sm90", "flash_bwd_dkdv", "flash_bwd_dq")
+DENSE_KERNELS = ("flash_fwd", "flash_fwd_sm90", "flash_bwd_dkdv", "flash_bwd_dq",
+                 "flash_bwd_dkdv_sm90", "flash_bwd_dq_sm90")
 BIASED_KERNELS = ("flash_fwd_biased", "flash_bwd_dkdv_biased", "flash_bwd_dq_biased")
 LUT_KERNELS = ("flash_fwd_lut", "flash_fwd_lut_ring", "flash_fwd_banded",
                "flash_fwd_merged", "flash_bwd_dkdv_lut", "flash_bwd_dkdv_lut_sm90",
@@ -129,6 +138,8 @@ ENTRIES = {
     "flash_fwd_sm90": ("flash_attention_fwd_sm90", "flash_fwd_sm90", None),
     "flash_bwd_dkdv": ("flash_attention", "flash_bwd_dkdv", None),
     "flash_bwd_dq": ("flash_attention", "flash_bwd_dq", None),
+    "flash_bwd_dkdv_sm90": ("flash_attention_sparse_bwd_sm90", "flash_bwd_dkdv_sm90", None),
+    "flash_bwd_dq_sm90": ("flash_attention_sparse_bwd_sm90", "flash_bwd_dq_sm90", None),
     "flash_fwd_biased": ("flash_attention_sparse_fwd", "flash_fwd_variant", 1),
     "flash_fwd_lut": ("flash_attention_sparse_fwd", "flash_fwd_variant", 2),
     "flash_fwd_lut_ring": ("flash_attention_sparse_fwd", "flash_fwd_variant", 3),
@@ -150,9 +161,11 @@ HEAD_DIMS = {torch.bfloat16: (64, 96, 128), torch.float32: (64, 96, 128)}
 # flash_fwd_sm90: the dtype and head dims it is built for, its q tile and its k tile
 # (csrc/flash_attention_fwd_sm90.cu: kBQ, Cfg<D>::kBN)
 SM90_HEAD_DIMS = {torch.bfloat16: (64, 128)}
-# GROUP_KERNELS: the dtype and head dim they are built for (at 128 the dK/dV instance spills
-# and a dQ pipe of four stages does not fit twice in shared memory)
-SM90_GROUP_HEAD_DIMS = {torch.bfloat16: (64,)}
+# the backward entries of csrc/flash_attention_sparse_bwd_sm90.cu (GROUP_KERNELS and
+# DENSE_BWD_SM90): the dtype and head dim they are built for (at 128 the dK/dV instances
+# spill and two pipes of four stages do not fit in shared memory)
+SM90_BWD_HEAD_DIMS = {torch.bfloat16: (64,)}
+DENSE_BWD_SM90 = ("flash_bwd_dkdv_sm90", "flash_bwd_dq_sm90")
 SM90_BLOCK_Q, SM90_BLOCK_N = 128, 128
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 TILE = 64            # the kernels' q and k tile rows (kBQ, kBK)
@@ -938,14 +951,18 @@ def flash_fwd_merged(q, k, v, merged, sm_scale=None):
     return _fwd("flash_fwd_merged", q, k, v, merged.causal, sm_scale, merged)
 
 
-def _bwd_args(name, q, k, v, do, lse, delta, dims=HEAD_DIMS):
+def _bwd_args(name, q, k, v, do, lse, delta):
     B, T, H, d = q.shape
-    _check(name, (q, k, v, do), q.dtype, d, dims)
+    sm90 = name in GROUP_KERNELS or name in DENSE_BWD_SM90
+    _check(name, (q, k, v, do), q.dtype, d, SM90_BWD_HEAD_DIMS if sm90 else HEAD_DIMS)
     for stat in (lse, delta):
         if (stat.shape != (B, H, T) or stat.dtype != torch.float32
                 or not stat.is_contiguous() or stat.device != q.device):
             raise ValueError(f"{name}: lse and delta must be contiguous fp32 (B, H, T) "
                              "on q's device")
+        if name in GROUP_KERNELS and stat.data_ptr() % 16:
+            raise ValueError(f"{name}: lse and delta must start 16-byte aligned for the "
+                             "kernel's TMA maps")
     return (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
             delta.data_ptr())
 
@@ -985,16 +1002,94 @@ def _bwd_dq(name, q, k, v, do, lse, delta, causal, sm_scale, lut=None, kbias=Non
     return dq
 
 
+def dense_bwd_kernel(dtype, head_dim):
+    """The dense backward kernels ``(dK/dV, dQ)`` a CUDA tensor of ``dtype``
+    and ``head_dim`` takes: ``flash_bwd_dkdv_sm90`` and ``flash_bwd_dq_sm90``
+    for bf16 at head dim 64, else the templates ``flash_bwd_dkdv`` and
+    ``flash_bwd_dq``.  Decided before any launch, never by a failure."""
+    if head_dim in SM90_BWD_HEAD_DIMS.get(dtype, ()):
+        return DENSE_BWD_SM90
+    return "flash_bwd_dkdv", "flash_bwd_dq"
+
+
 def flash_bwd_dkdv(q, k, v, do, lse, delta, causal=True, sm_scale=None):
-    """``(dk, dv)``: the ``flash_bwd_dkdv`` kernel for CUDA tensors, the
-    plain version for CPU tensors."""
-    return _bwd_dkdv("flash_bwd_dkdv", q, k, v, do, lse, delta, causal, sm_scale)
+    """``(dk, dv)``: for CUDA tensors the dK/dV kernel of
+    :func:`dense_bwd_kernel`, for CPU tensors the plain version."""
+    return _bwd_dkdv(dense_bwd_kernel(q.dtype, q.shape[-1])[0], q, k, v, do, lse, delta,
+                     causal, sm_scale)
 
 
 def flash_bwd_dq(q, k, v, do, lse, delta, causal=True, sm_scale=None):
-    """``dq``: the ``flash_bwd_dq`` kernel for CUDA tensors, the plain
-    version for CPU tensors."""
+    """``dq``: for CUDA tensors the dQ kernel of :func:`dense_bwd_kernel`,
+    for CPU tensors the plain version."""
+    return _bwd_dq(dense_bwd_kernel(q.dtype, q.shape[-1])[1], q, k, v, do, lse, delta, causal,
+                   sm_scale)
+
+
+def flash_bwd_dkdv_template(q, k, v, do, lse, delta, causal=True, sm_scale=None):
+    """``(dk, dv)``: the template ``flash_bwd_dkdv`` kernel whatever the
+    dtype and head dim (for CUDA tensors; the plain version for CPU ones)."""
+    return _bwd_dkdv("flash_bwd_dkdv", q, k, v, do, lse, delta, causal, sm_scale)
+
+
+def flash_bwd_dq_template(q, k, v, do, lse, delta, causal=True, sm_scale=None):
+    """``dq``: the template ``flash_bwd_dq`` kernel whatever the dtype and
+    head dim (for CUDA tensors; the plain version for CPU ones)."""
     return _bwd_dq("flash_bwd_dq", q, k, v, do, lse, delta, causal, sm_scale)
+
+
+def flash_bwd_dkdv_sm90(q, k, v, do, lse, delta, causal=True, sm_scale=None):
+    """``(dk, dv)``: the ``flash_bwd_dkdv_sm90`` kernel (bf16, head dim 64;
+    others raise) for CUDA tensors, the plain version for CPU ones."""
+    return _bwd_dkdv("flash_bwd_dkdv_sm90", q, k, v, do, lse, delta, causal, sm_scale)
+
+
+def flash_bwd_dq_sm90(q, k, v, do, lse, delta, causal=True, sm_scale=None):
+    """``dq``: the ``flash_bwd_dq_sm90`` kernel (bf16, head dim 64; others
+    raise) for CUDA tensors, the plain version for CPU ones."""
+    return _bwd_dq("flash_bwd_dq_sm90", q, k, v, do, lse, delta, causal, sm_scale)
+
+
+def flash_bwd_dkdv_sm90_schedule(B, T, H, causal, n_pipes):
+    """The schedule of ``flash_bwd_dkdv_sm90`` in Python, as the kernel
+    computes it on a (B, T, H) call with ``n_pipes`` persistent pipes (two a
+    block, one block an SM): work item ``w`` is key tile ``w // (B*H)`` of
+    ``(b, h) = divmod(w % (B*H), H)`` (the causal items longest first), dealt
+    over the pipes as :func:`flash_fwd_sm90_blocks` deals; per pipe its items
+    in order, each ``(b, h, key tile, visits)`` with ``visits`` a list of
+    ``(query tile, masked)``: the query tiles from the key tile on when
+    causal, else all, ``masked`` on the causal diagonal and on the tile
+    that crosses T.  A tile ``t`` is rows ``64 t .. 64 t + 63``."""
+    return _dense_schedule(B, T, H, causal, n_pipes, "k")
+
+
+def flash_bwd_dq_sm90_schedule(B, T, H, causal, n_pipes):
+    """The schedule of ``flash_bwd_dq_sm90`` in Python, as
+    :func:`flash_bwd_dkdv_sm90_schedule` with the roles swapped: item ``w``
+    is query tile ``nt - 1 - w // (B*H)``; each ``(b, h, query tile,
+    visits)`` with ``visits`` a list of ``(key tile, masked)``: the key
+    tiles up to the query tile when causal, else all."""
+    return _dense_schedule(B, T, H, causal, n_pipes, "q")
+
+
+def _dense_schedule(B, T, H, causal, n_pipes, side):
+    nt, BH = -(-T // TILE), B * H
+    ragged = T % TILE != 0
+    out = []
+    for items in flash_fwd_sm90_blocks(nt * BH, n_pipes):
+        pipe = []
+        for w in items:
+            y, bh = divmod(w, BH)
+            if side == "k":
+                tile, visits = y, range(y if causal else 0, nt)
+            else:
+                tile = nt - 1 - y
+                visits = range(tile + 1 if causal else nt)
+            pipe.append((bh // H, bh % H, tile,
+                         [(u, (causal and u == tile) or (ragged and u == nt - 1))
+                          for u in visits]))
+        out.append(pipe)
+    return out
 
 
 def flash_bwd_dkdv_biased(q, k, v, do, lse, delta, key_padding_bias=None, attn_bias=None,
@@ -1015,7 +1110,7 @@ def _group_route(dtype, head_dim, has_abias):
     """Whether a CUDA tensor takes the group kernels (``GROUP_KERNELS``):
     bf16 at head dim 64 with no (T, T) score bias (the key bias is
     optional).  Decided before any launch, never by a failure."""
-    return not has_abias and head_dim in SM90_GROUP_HEAD_DIMS.get(dtype, ())
+    return not has_abias and head_dim in SM90_BWD_HEAD_DIMS.get(dtype, ())
 
 
 def sparse_dkdv_kernel(dtype, head_dim, has_abias):
@@ -1075,7 +1170,7 @@ def _group_launch(name, side, n_out, q, k, v, do, lse, delta, lut, kbias, sm_sca
     after checking its operands; returns its ``n_out`` outputs, (B, T, H,
     d) in q's dtype."""
     B, T, H, d = q.shape
-    ptrs = _bwd_args(name, q, k, v, do, lse, delta, SM90_GROUP_HEAD_DIMS)
+    ptrs = _bwd_args(name, q, k, v, do, lse, delta)
     _check_extra(name, q, lut, kbias, None)
     groups = lut.groups(side)
     t = groups.tensors(q.device, B, H)
