@@ -10,11 +10,12 @@ JAX package ``deepspeed_tpu``):
    CUDA versions, and the build of the CUDA kernels from ``csrc/`` (one
    ``nvcc`` per source, started together) with its time and ptxas
    register/spill summary; ``flash_fwd_sm90``'s, ``int8_mm_nt_decode``'s,
-   ``int8_mm_nt_prefill``'s and the sm90 backward library's
+   ``int8_mm_nt_prefill``'s, the sm90 backward library's
    (``flash_bwd_dkdv_lut_sm90`` / ``flash_bwd_dq_lut_sm90`` and the dense
-   ``flash_bwd_dkdv_sm90`` / ``flash_bwd_dq_sm90``: their build seconds,
-   registers and spills per instance) must build with no spill, and the
-   backward library with no wgmma serialized by ptxas;
+   ``flash_bwd_dkdv_sm90`` / ``flash_bwd_dq_sm90``) and the sm90 LUT
+   forward's (``flash_fwd_lut_sm90``; their build seconds, registers and
+   spills per instance) must build with no spill, and the backward and the
+   LUT forward libraries with no wgmma serialized by ptxas;
 2. kernels vs plain: ``paged_attention_online`` and ``paged_attention_exact``
    against ``paged_attention_reference`` at the serving shape (8 slots,
    12 heads, head dim 64, block 16, 64 blocks per slot), lengths
@@ -71,8 +72,13 @@ JAX package ``deepspeed_tpu``):
    (dQ, dK and dV in one call), and forward+backward; then
    ``flash_fwd_sm90`` against SDPA ``is_causal`` at B*T=8192, H=16, T in
    {1024, 2048, 4096, 8192}, head dims 64 and 128;
-7. sparse kernels vs plain: ``flash_fwd_lut``, ``flash_fwd_lut_ring``,
-   the dK/dV kernel ``sparse_dkdv_kernel`` routes to
+7. sparse kernels vs plain: the first ``flash_fwd_lut_sm90`` launch
+   (tutorial layout, T=256, a key bias; waited on under the deadline), then
+   the LUT forward ``sparse_fwd_kernel`` routes to (``flash_fwd_lut_sm90``
+   for bf16 at head dim 64 without a score bias, and beside it the template
+   it replaced: ``flash_fwd_lut_ring`` without a bias, ``flash_fwd_lut``
+   with one; the templates for the rest), the dK/dV kernel
+   ``sparse_dkdv_kernel`` routes to
    (``flash_bwd_dkdv_lut_sm90`` for bf16 at head dim 64 without a score
    bias, and beside it the template ``flash_bwd_dkdv_lut`` through
    ``flash_bwd_dkdv_lut_tiled``; the template for the rest), the dQ kernel
@@ -101,14 +107,15 @@ JAX package ``deepspeed_tpu``):
    seed: step 1 through the kernels against step 1 with the plain
    ``_masked_dense`` attention from the same weights and batch; 3
    warm-up and 10 timed steps (tokens/s, step p50/p99, MFU, peak memory);
-   exactly 48 / 24 / 24 launches per step of ``flash_fwd_lut`` /
+   exactly 48 / 24 / 24 launches per step of ``flash_fwd_lut_sm90`` /
    ``flash_bwd_dkdv_lut_sm90`` / ``flash_bwd_dq_lut_sm90`` (remat runs each
-   forward twice) and none of the templates ``flash_bwd_dkdv_lut`` and
-   ``flash_bwd_dq_lut``; finite losses and no skipped step; 20 steps on one
-   fixed batch lower its loss by at least 0.5; a ``torch.profiler``
-   breakdown of one step, with the dK/dV and dQ device time per step; 8b,
-   two steps on unpadded batches (``flash_fwd_lut_ring``, not
-   ``flash_fwd_lut``; the same backward kernels); 8c, two padded steps
+   forward twice) and none of the templates ``flash_fwd_lut``,
+   ``flash_bwd_dkdv_lut`` and ``flash_bwd_dq_lut``; finite losses and no
+   skipped step; 20 steps on one fixed batch lower its loss by at least
+   0.5; a ``torch.profiler`` breakdown of one step, with the forward, dK/dV
+   and dQ device time per step; 8b, two steps on unpadded batches
+   (``flash_fwd_lut_sm90`` without the bias, 0 on ``flash_fwd_lut_ring``;
+   the same backward kernels); 8c, two padded steps
    with ``"mode": "dense"``
    (an all-ones layout: the dense biased kernels);
 9. the sparse and biased kernels at the training shape, B=8, H=16,
@@ -121,10 +128,13 @@ JAX package ``deepspeed_tpu``):
    ``scaled_dot_product_attention`` with the expanded boolean
    layout-and-padding mask: forward, forward+backward and its backward
    alone (``autograd.grad`` over a retained graph), which the port never
-   calls; ``flash_bwd_dkdv_lut_sm90`` and ``flash_bwd_dq_lut_sm90`` beside
-   the templates ``flash_bwd_dkdv_lut`` and ``flash_bwd_dq_lut`` (the
-   template design) on the same call, with the visits per head of each
-   schedule.
+   calls; ``flash_fwd_lut_sm90`` beside its template (``flash_fwd_lut``
+   with the padding bias, ``flash_fwd_lut_ring`` without), each forward
+   three readings with their spread, ``flash_bwd_dkdv_lut_sm90`` and
+   ``flash_bwd_dq_lut_sm90`` beside the templates ``flash_bwd_dkdv_lut``
+   and ``flash_bwd_dq_lut`` (the template design) on the same call, with
+   the visits per head of each schedule; and the path's forward+backward
+   (``sparse_flash_attention`` under ``autograd.grad``, three readings).
 
 10. int8 kernels vs plain: ``int8_mm_nt_decode`` (the block weights at
     M <= 16), ``int8_mm_nt_prefill`` (M > 16) and ``int8_mm_t`` (the head)
@@ -244,6 +254,7 @@ REPLACES = {"paged_attention_online":
             "flash_bwd_dq_biased": f"{FLASH_REF}:691",
             "flash_fwd_lut": f"{FLASH_REF}:144",         # use_lut + biases
             "flash_fwd_lut_ring": f"{FLASH_REF}:306",    # _fwd_kernel_dma
+            "flash_fwd_lut_sm90": f"{FLASH_REF}:144",    # use_lut + use_kbias, and 306; bf16 d 64
             "flash_fwd_banded": f"{FLASH_REF}:180",      # _fwd_kernel use_banded
             "flash_fwd_merged": f"{FLASH_REF}:161",      # use_merge (and _fwd_kernel_dma 317)
             "flash_bwd_dkdv_lut": f"{FLASH_REF}:617",
@@ -260,6 +271,7 @@ INT8_SOURCES = {name: f"deepspeed_tpu_torch/csrc/{lib}.cu" for name, lib in im.L
 SM90_LIB = fa.ENTRIES["flash_fwd_sm90"][0]
 # and flash_bwd_dq_lut_sm90, flash_bwd_dkdv_sm90, flash_bwd_dq_sm90
 GROUP_SM90_LIB = fa.ENTRIES["flash_bwd_dkdv_lut_sm90"][0]
+FWD_LUT_SM90_LIB = fa.ENTRIES["flash_fwd_lut_sm90"][0]
 SM90_DEADLINE_S = 10.0   # the first launch of an sm90 kernel must complete within this
 
 
@@ -370,7 +382,8 @@ def setup():
     for lib, kernels in ((INT8_DECODE_LIB, ("int8_decode_kernel",)),
                          (INT8_PREFILL_LIB, ("int8_prefill_kernel",)),
                          (GROUP_SM90_LIB, ("dkdv_sm90_kernel", "dq_sm90_kernel",
-                                           "dense_dkdv_kernel", "dense_dq_kernel"))):
+                                           "dense_dkdv_kernel", "dense_dq_kernel")),
+                         (FWD_LUT_SM90_LIB, ("fwd_lut_sm90_kernel",))):
         rows = ptxas_summary(builder.build_log[lib]["ptxas"])
         named = [(kernel, kname[kname.find(kernel):], regs, spill)
                  for kname, regs, _, spill in rows for kernel in kernels if kernel in kname]
@@ -380,10 +393,11 @@ def setup():
                 spill for *_, spill in rows):
             raise AssertionError(f"{lib}: a kernel of {kernels} not built, or ptxas spilled "
                                  f"registers: {rows}")
-    serialized = [line.strip() for line in builder.build_log[GROUP_SM90_LIB]["ptxas"].splitlines()
-                  if "C7515" in line or "C7512" in line]
-    if serialized:
-        raise AssertionError(f"{GROUP_SM90_LIB}: ptxas serialized wgmmas: {serialized}")
+    for lib in (GROUP_SM90_LIB, FWD_LUT_SM90_LIB):
+        serialized = [line.strip() for line in builder.build_log[lib]["ptxas"].splitlines()
+                      if "C7515" in line or "C7512" in line]
+        if serialized:
+            raise AssertionError(f"{lib}: ptxas serialized wgmmas: {serialized}")
     return card
 
 
@@ -1108,8 +1122,8 @@ def bias_inputs(kind, gen, B, T, dev):
 def masked_calls(q, k, v, do, lut, kb, ab, causal):
     """The biased (``lut`` None) or LUT kernels of one case: ``(names,
     kernel calls, plain calls)``, the backward calls taking (lse, delta).
-    An unbiased LUT case takes the ring forward, as the model path does,
-    dK/dV the kernel ``sparse_dkdv_kernel`` names and dQ the one
+    A LUT case takes the forward ``sparse_fwd_kernel`` names, as the model
+    path does, dK/dV the kernel ``sparse_dkdv_kernel`` names and dQ the one
     ``sparse_dq_kernel`` names."""
     if lut is None:
         names = fa.BIASED_KERNELS
@@ -1118,12 +1132,10 @@ def masked_calls(q, k, v, do, lut, kb, ab, causal):
                                                           causal),
                  lambda lse, de: fa.flash_bwd_dq_biased(q, k, v, do, lse, de, kb, ab, causal))
     else:
-        ring = kb is None and ab is None
-        names = ("flash_fwd_lut_ring" if ring else "flash_fwd_lut",
+        names = (fa.sparse_fwd_kernel(q.dtype, q.shape[-1], ab is not None, kb is not None),
                  fa.sparse_dkdv_kernel(q.dtype, q.shape[-1], ab is not None),
                  fa.sparse_dq_kernel(q.dtype, q.shape[-1], ab is not None))
-        calls = ((lambda: fa.flash_fwd_lut_ring(q, k, v, lut)) if ring
-                 else (lambda: fa.flash_fwd_lut(q, k, v, lut, kb, ab)),
+        calls = (lambda: fa.sparse_fwd(names[0], q, k, v, lut, kb, ab),
                  lambda lse, de: fa.flash_bwd_dkdv_lut(q, k, v, do, lse, de, lut, kb, ab),
                  lambda lse, de: fa.flash_bwd_dq_lut(q, k, v, do, lse, de, lut, kb, ab))
     kw = dict(lut=lut, key_padding_bias=kb, attn_bias=ab)
@@ -1135,6 +1147,12 @@ def masked_calls(q, k, v, do, lut, kb, ab, causal):
     return names, calls, plains
 
 
+def fwd_template(kb):
+    """The template the sm90 LUT forward is held beside: the ring without a
+    key bias, the biased LUT kernel with one (the template design)."""
+    return "flash_fwd_lut_ring" if kb is None else "flash_fwd_lut"
+
+
 # the sm90 backward kernels and the template each is held beside
 SM90_TEMPLATES = {"flash_bwd_dkdv_lut_sm90": "flash_bwd_dkdv_lut",
                   "flash_bwd_dq_lut_sm90": "flash_bwd_dq_lut"}
@@ -1143,9 +1161,9 @@ SM90_TEMPLATES = {"flash_bwd_dkdv_lut_sm90": "flash_bwd_dkdv_lut",
 def check_masked_case(q, k, v, do, lut, kb, ab, causal, what, held=None):
     """Each kernel of a biased / LUT case against its plain version on the
     same inputs (the backward ones fed the kernel's own O and lse); where
-    dK/dV or dQ routes to its sm90 kernel, the template too.  ``held``: the
-    kernels whose outputs are held (all by default).  Returns {kernel:
-    [(output, max abs error, share of limit)]}."""
+    the forward, dK/dV or dQ routes to its sm90 kernel, the template too.
+    ``held``: the kernels whose outputs are held (all by default).  Returns
+    {kernel: [(output, max abs error, share of limit)]}."""
     names, calls, plains = masked_calls(q, k, v, do, lut, kb, ab, causal)
     o, lse = calls[0]()
     delta = fa.attention_delta(o, do)
@@ -1157,6 +1175,9 @@ def check_masked_case(q, k, v, do, lut, kb, ab, causal, what, held=None):
     pairs = {names[0]: [("o", o, ro), ("lse", lse, rlse)],
              names[1]: [("dk", dk, rdk), ("dv", dv, rdv)],
              names[2]: [("dq", dq, rdq)]}
+    if names[0] == "flash_fwd_lut_sm90":
+        to, tlse = fa.sparse_fwd(fwd_template(kb), q, k, v, lut, kb, ab)
+        pairs[fwd_template(kb)] = [("o", to, ro), ("lse", tlse, rlse)]
     if names[1] in SM90_TEMPLATES:
         tdk, tdv = fa.flash_bwd_dkdv_lut_tiled(q, k, v, do, lse, delta, lut, kb, ab)
         pairs["flash_bwd_dkdv_lut"] = [("dk", tdk, rdk), ("dv", tdv, rdv)]
@@ -1221,11 +1242,34 @@ def dq_cases(H):
             if T != 1008 or label in ("fixed16", "empty-rows")]
 
 
+def first_fwd_lut_launch(dev, T=256, H=2, seed=14):
+    """The first ``flash_fwd_lut_sm90`` launch (the tutorial layout, B=1,
+    a key bias), waited for under SM90_DEADLINE_S and held against its
+    plain version with phase 2's limits.  Its inputs come from a generator
+    of its own, so the sweep after it draws what it drew before."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    lut = fa.layout_luts(build_sparsity_config(SPARSE_SECTION, H).make_layout(T), T, H, False)
+    q, k, v, _ = flash_inputs(dev, gen, torch.bfloat16, 1, T, H, 64, "qkv")
+    kb, _ = bias_inputs("add", gen, 1, T, dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    o, lse = fa.flash_fwd_lut_sm90(q, k, v, lut, kb)
+    ms = wait_first("flash_fwd_lut_sm90", f"T={T}", t0)
+    ro, rlse = fa.flash_attention_reference_fwd(q, k, v, lut=lut, key_padding_bias=kb)
+    rows = [(label, *flash_close(f"first launch T={T}", label, got, ref))
+            for label, got, ref in (("o", o, ro), ("lse", lse, rlse))]
+    print(f"flash_fwd_lut_sm90 first launch tutorial16 T={T}: completed in {ms:.1f} ms; "
+          f"{flash_line({'': rows})}")
+
+
 def check_sparse_kernels(dev, gen, B=2, H=4):
-    """Phase 7: every biased and LUT kernel against its plain version.
-    Returns the max abs error per kernel."""
+    """Phase 7: every biased and LUT kernel against its plain version, after
+    the first ``flash_fwd_lut_sm90`` launch.  Returns the max abs error per
+    kernel."""
+    first_fwd_lut_launch(dev)
     max_err = {name: 0.0 for name in fa.BIASED_KERNELS + fa.LUT_KERNELS}
-    dq_only = ("flash_fwd_lut", "flash_bwd_dq_lut_sm90", "flash_bwd_dq_lut")
+    dq_only = ("flash_fwd_lut_sm90", "flash_fwd_lut", "flash_bwd_dq_lut_sm90",
+               "flash_bwd_dq_lut")
     for held, cases in ((None, sparse_cases(H)), (dq_only, dq_cases(H))):
         for T, label, cfg, dt, causal, kind, d, view in cases:
             lut = None if cfg is None else fa.layout_luts(cfg.make_layout(T), T, H, causal)
@@ -1336,11 +1380,14 @@ def bert_train(dev, card, warmup=3, timed=10, fit_steps=20, preset="bert-large",
     eng = bert_engine(dev, base, data, preset=preset, seq=seq, micro=micro)
     model = eng.module
     L = model.config.n_layer
-    # flash_bwd_dkdv_lut_sm90 and flash_bwd_dq_lut_sm90 at BERT-large's head dim 64
+    # flash_fwd_lut_sm90, flash_bwd_dkdv_lut_sm90 and flash_bwd_dq_lut_sm90 at BERT-large's
+    # head dim 64, with the padding bias (8b: without it)
     head_dim = model.config.hidden_size // model.config.n_head
+    fwd = fa.sparse_fwd_kernel(torch.bfloat16, head_dim, False, True)
+    fwd_8b = fa.sparse_fwd_kernel(torch.bfloat16, head_dim, False, False)
     dkdv = fa.sparse_dkdv_kernel(torch.bfloat16, head_dim, False)
     dq = fa.sparse_dq_kernel(torch.bfloat16, head_dim, False)
-    per_step = {"flash_fwd_lut": 2 * L, dkdv: L, dq: L}
+    per_step = {fwd: 2 * L, dkdv: L, dq: L}
     lut = fa.layout_luts(model.sparse_self_attention.get_layout(seq), seq,
                          model.config.n_head, False)
     torch.cuda.synchronize()
@@ -1389,6 +1436,7 @@ def bert_train(dev, card, warmup=3, timed=10, fit_steps=20, preset="bert-large",
     by_name = profile_steps(lambda: eng.train_batch(), f"train {preset} sparse16", steps=1,
                             unit="training step")
     for what, pattern, name, template in (
+            ("forward", r"\bfwd_lut_sm90_kernel", fwd, "flash_fwd_lut took 87.8"),
             ("dK/dV", r"\bdkdv_", dkdv, "flash_bwd_dkdv_lut took 78.40"),
             ("dQ", r"\bdq_", dq, "flash_bwd_dq_lut took ~38.5")):
         spent = [(t, c) for kname, (t, c) in by_name.items() if re.search(pattern, kname)]
@@ -1399,10 +1447,10 @@ def bert_train(dev, card, warmup=3, timed=10, fit_steps=20, preset="bert-large",
     del eng
     torch.cuda.empty_cache()
 
-    # 8b: unpadded batches (packed sequences): the ring forward, no bias
+    # 8b: unpadded batches (packed sequences): the forward with no bias
     # 8c: "mode": "dense" (an all-ones layout) with padding: the dense biased kernels
     for tag, section, padded, want in (
-            ("8b", SPARSE_SECTION, False, {"flash_fwd_lut_ring": 2 * L, dkdv: L, dq: L}),
+            ("8b", SPARSE_SECTION, False, {fwd_8b: 2 * L, dkdv: L, dq: L}),
             ("8c", {"mode": "dense", "block": 16}, True, {
                 "flash_fwd_biased": 2 * L, "flash_bwd_dkdv_biased": L,
                 "flash_bwd_dq_biased": L})):
@@ -1430,8 +1478,10 @@ def sparse_timing(dev, gen, bytes_per_s, card, B=8, T=2048, H=16, d=64):
     version, then timed beside its bound, its plain version and SDPA with
     the expanded boolean layout-and-padding mask (forward, forward+backward
     and the backward alone: ``autograd.grad`` over a retained graph); where
-    dK/dV or dQ takes its sm90 kernel, the template (the template design)
-    on the same call beside it.
+    the forward, dK/dV or dQ takes its sm90 kernel, the template (the
+    template design) on the same call beside it; the forwards three
+    readings each (median, min, max); then the path's forward+backward
+    (``sparse_flash_attention`` under ``autograd.grad``).
     The backward kernels' library time is SDPA's backward alone.  Returns
     {case: {kernel: kernels-line fields}} and the cases' densities."""
     q, k, v, do = flash_inputs(dev, gen, torch.bfloat16, B, T, H, d, "qkv")
@@ -1485,6 +1535,17 @@ def sparse_timing(dev, gen, bytes_per_s, card, B=8, T=2048, H=16, d=64):
                  names[2]: lambda: plains[2](lse, delta)}
         timed = list(names)
         # the template design on the same call
+        if names[0] == "flash_fwd_lut_sm90":
+            template = fwd_template(bias)
+            timed.append(template)
+            work[template], plain[template] = work[names[0]], plain[names[0]]
+            kernel[template] = lambda t=template: fa.sparse_fwd(t, q, k, v, lut, bias)
+            groups = lut.groups("q")
+            print(f"schedule {case}: {names[0]} {groups.visits_per_head.mean():.0f} visits on "
+                  f"{groups.tiles_per_head.mean():.0f} output tiles per head (rows "
+                  f"{groups.unit} a slot); the template {template} "
+                  f"{lut.klen.sum() / lut.heads:.0f} 64 x 64 tiles per head")
+        forwards = {names[0], fwd_template(bias)}
         for name, side, tiled, tiles in (
                 (names[1], "k", lambda: fa.flash_bwd_dkdv_lut_tiled(q, k, v, do, lse, delta, lut,
                                                                     bias), "qlen"),
@@ -1505,24 +1566,34 @@ def sparse_timing(dev, gen, bytes_per_s, card, B=8, T=2048, H=16, d=64):
             nbytes, ops = work[name]
             t_bytes, t_ops = nbytes / bytes_per_s * 1e3, ops / PEAK_OPS["bf16"] * 1e3
             bound, by = (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
-            ms = time_ms(lambda _: kernel[name](), 20, warmup=3)
+            if name in forwards:
+                reading = repeat_ms(lambda _: kernel[name](), 20)
+                ms, shown = reading[0], spread(reading)
+            else:
+                ms = time_ms(lambda _: kernel[name](), 20, warmup=3)
+                shown = f"{ms * 1e3:.2f} us"
             plain_ms = time_ms(lambda _: plain[name](), 2, warmup=1)
             out[case][name] = {
                 "max_abs_err": max(e for _, e, _ in res[name]), "ms": ms,
                 "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
-                "library_ms": lib_f if name == names[0] else lib_b}
+                "library_ms": lib_f if name in forwards else lib_b}
             design = " (the template design)" if name not in names else ""
-            print(f"timing {name}{design} {what} ({card}): {ms * 1e3:.2f} us, bound "
+            print(f"timing {name}{design} {what} ({card}): {shown}, bound "
                   f"{bound * 1e3:.2f} us ({by}; {nbytes / 1e6:.1f} MB, {ops / 1e9:.2f} GFLOP; "
                   f"{bound / ms:.3f} of it), plain {plain_ms * 1e3:.2f} us; tile density "
                   f"{density[case]['tile']:.3f}, element density "
                   f"{density[case]['element']:.4f}")
         total = sum(out[case][n]["ms"] for n in names)
+        # the path: sparse_flash_attention forward and backward, as the model calls it
+        layout = np.ones((1, T // 16, T // 16), np.int32) if lut is None else lut.layout
+        leaves3 = [x.detach().requires_grad_(True) for x in (q, k, v)]
+        path = repeat_ms(lambda _: torch.autograd.grad(fa.sparse_flash_attention(
+            *leaves3, layout, causal=False, key_padding_bias=bias), leaves3, do), 5, warmup=2)
         print(f"timing SDPA {case} (B, H, T, d) bf16 with the boolean layout-and-padding "
               f"mask: forward {lib_f * 1e3:.2f} us, forward+backward {lib_fb * 1e3:.2f} us, "
               f"backward alone {lib_b * 1e3:.2f} us; the port's {' + '.join(names)} "
-              f"{total * 1e3:.2f} us")
-        del mask, lib, leaves
+              f"{total * 1e3:.2f} us, its path forward+backward {spread(path)} ({card})")
+        del mask, lib, leaves, leaves3
         torch.cuda.empty_cache()
     fa.launches.update(saved)          # timing launches are not path launches
     return out, density
@@ -2395,8 +2466,9 @@ def main():
             ("flash_fwd_biased", "dense+pad", "8c"),
             ("flash_bwd_dkdv_biased", "dense+pad", "8c"),
             ("flash_bwd_dq_biased", "dense+pad", "8c"),
-            ("flash_fwd_lut", "tutorial16+pad", "8"),
-            ("flash_fwd_lut_ring", "tutorial16", "8b"),
+            ("flash_fwd_lut", "tutorial16+pad", "8"),               # the template design: 0
+            ("flash_fwd_lut_ring", "tutorial16", "8b"),             # the template design: 0
+            ("flash_fwd_lut_sm90", "tutorial16+pad", "8"),
             ("flash_bwd_dkdv_lut", "tutorial16+pad", "8"),         # the template design: 0
             ("flash_bwd_dkdv_lut_sm90", "tutorial16+pad", "8"),
             ("flash_bwd_dq_lut", "tutorial16+pad", "8"),           # the template design: 0

@@ -14,8 +14,10 @@ CUDA kernels (``deepspeed_tpu_torch/csrc/flash_attention.cuh``, entries in
 ``flash_attention_sparse_bwd.cu`` and ``flash_attention_band_merge_fwd.cu``;
 the dense bf16 forward at head dims 64 and 128 in
 ``flash_attention_fwd_sm90.cu``, the dense and the block-sparse bf16 dK/dV
-and dQ at head dim 64 in ``flash_attention_sparse_bwd_sm90.cu``), one
-wrapper and one launch counter per entry:
+and dQ at head dim 64 in ``flash_attention_sparse_bwd_sm90.cu``, the
+block-sparse bf16 forward at head dim 64 in
+``flash_attention_sparse_fwd_sm90.cu``; the last two share the helpers of
+``flash_attention_sm90.cuh``), one wrapper and one launch counter per entry:
 
 - ``flash_fwd_sm90`` (for ``_fwd_kernel`` 144, dense): the bf16 forward
   at head dims 64 and 128 with TMA, an mbarrier ring fed by a producer
@@ -30,6 +32,16 @@ wrapper and one launch counter per entry:
   input dtype and the fp32 logsumexp;
 - ``flash_fwd_lut_ring`` (for ``_fwd_kernel_dma`` 306): the unbiased LUT
   forward with a 3-deep ring of K/V tiles in flight;
+- ``flash_fwd_lut_sm90`` (for ``_fwd_kernel`` with ``use_lut`` and
+  ``use_kbias`` 144-283, and ``_fwd_kernel_dma`` 306-415): the block-sparse
+  forward in bf16 at head dim 64, with or without the key bias, over
+  ``GroupLut(side="q")`` (the schedule dQ runs: Q gathered once per output
+  tile, the visits' K, V and key bias streamed, S and P V on ``wgmma``, the
+  online softmax on the accumulators); the sparse path sends CUDA tensors
+  there by dtype, head dim and the absence of a (T, T) score bias
+  (:func:`sparse_fwd_kernel`), and :func:`flash_fwd_lut_sm90_schedule` is
+  its schedule in Python; the templates ``flash_fwd_lut`` and
+  ``flash_fwd_lut_ring`` keep the rest;
 - ``flash_fwd_banded`` (for ``_fwd_kernel`` with ``use_banded`` 180-198,
   230-244): the causal forward over a :class:`BandLut`, its k tiles from
   affine arithmetic on the band and a positional element mask;
@@ -128,9 +140,9 @@ NEG_INF = -1e30
 DENSE_KERNELS = ("flash_fwd", "flash_fwd_sm90", "flash_bwd_dkdv", "flash_bwd_dq",
                  "flash_bwd_dkdv_sm90", "flash_bwd_dq_sm90")
 BIASED_KERNELS = ("flash_fwd_biased", "flash_bwd_dkdv_biased", "flash_bwd_dq_biased")
-LUT_KERNELS = ("flash_fwd_lut", "flash_fwd_lut_ring", "flash_fwd_banded",
-               "flash_fwd_merged", "flash_bwd_dkdv_lut", "flash_bwd_dkdv_lut_sm90",
-               "flash_bwd_dq_lut", "flash_bwd_dq_lut_sm90")
+LUT_KERNELS = ("flash_fwd_lut", "flash_fwd_lut_ring", "flash_fwd_lut_sm90",
+               "flash_fwd_banded", "flash_fwd_merged", "flash_bwd_dkdv_lut",
+               "flash_bwd_dkdv_lut_sm90", "flash_bwd_dq_lut", "flash_bwd_dq_lut_sm90")
 KERNELS = DENSE_KERNELS + BIASED_KERNELS + LUT_KERNELS
 # entry -> (library = csrc/<library>.cu, C function, variant argument or None)
 ENTRIES = {
@@ -143,6 +155,7 @@ ENTRIES = {
     "flash_fwd_biased": ("flash_attention_sparse_fwd", "flash_fwd_variant", 1),
     "flash_fwd_lut": ("flash_attention_sparse_fwd", "flash_fwd_variant", 2),
     "flash_fwd_lut_ring": ("flash_attention_sparse_fwd", "flash_fwd_variant", 3),
+    "flash_fwd_lut_sm90": ("flash_attention_sparse_fwd_sm90", "flash_fwd_lut_sm90", None),
     "flash_fwd_banded": ("flash_attention_band_merge_fwd", "flash_fwd_variant", 4),
     "flash_fwd_merged": ("flash_attention_band_merge_fwd", "flash_fwd_variant", 5),
     "flash_bwd_dkdv_biased": ("flash_attention_sparse_bwd", "flash_bwd_dkdv_variant", 1),
@@ -153,17 +166,18 @@ ENTRIES = {
     "flash_bwd_dq_lut": ("flash_attention_sparse_bwd", "flash_bwd_dq_variant", 2),
     "flash_bwd_dq_lut_sm90": ("flash_attention_sparse_bwd_sm90", "flash_bwd_dq_lut_sm90", None),
 }
-# the entries that take a GroupLut's schedule (csrc/flash_attention_sparse_bwd_sm90.cu)
-GROUP_KERNELS = ("flash_bwd_dkdv_lut_sm90", "flash_bwd_dq_lut_sm90")
+# the entries that take a GroupLut's schedule (csrc/flash_attention_sparse_bwd_sm90.cu,
+# csrc/flash_attention_sparse_fwd_sm90.cu)
+GROUP_KERNELS = ("flash_bwd_dkdv_lut_sm90", "flash_bwd_dq_lut_sm90", "flash_fwd_lut_sm90")
 # launches per kernel since the last reset_launches(); only kernel launches count
 launches = {name: 0 for name in KERNELS}
 HEAD_DIMS = {torch.bfloat16: (64, 96, 128), torch.float32: (64, 96, 128)}
 # flash_fwd_sm90: the dtype and head dims it is built for, its q tile and its k tile
 # (csrc/flash_attention_fwd_sm90.cu: kBQ, Cfg<D>::kBN)
 SM90_HEAD_DIMS = {torch.bfloat16: (64, 128)}
-# the backward entries of csrc/flash_attention_sparse_bwd_sm90.cu (GROUP_KERNELS and
-# DENSE_BWD_SM90): the dtype and head dim they are built for (at 128 the dK/dV instances
-# spill and two pipes of four stages do not fit in shared memory)
+# the entries of csrc/flash_attention_sparse_bwd_sm90.cu and sparse_fwd_sm90.cu
+# (GROUP_KERNELS and DENSE_BWD_SM90): the dtype and head dim they are built for (at 128 the
+# dK/dV instances spill and two pipes of four stages do not fit in shared memory)
 SM90_BWD_HEAD_DIMS = {torch.bfloat16: (64,)}
 DENSE_BWD_SM90 = ("flash_bwd_dkdv_sm90", "flash_bwd_dq_sm90")
 SM90_BLOCK_Q, SM90_BLOCK_N = 128, 128
@@ -937,6 +951,59 @@ def flash_fwd_lut_ring(q, k, v, lut, sm_scale=None):
     return _fwd("flash_fwd_lut_ring", q, k, v, lut.causal, sm_scale, lut)
 
 
+def sparse_fwd_kernel(dtype, head_dim, has_abias, has_kbias=False):
+    """The block-sparse forward kernel a CUDA tensor of ``dtype`` and
+    ``head_dim`` takes: ``flash_fwd_lut_sm90`` where :func:`_group_route`
+    holds (bf16 at head dim 64, no (T, T) score bias; with or without the
+    key bias), else the template it took before: ``flash_fwd_lut`` with a
+    bias, ``flash_fwd_lut_ring`` without."""
+    if _group_route(dtype, head_dim, has_abias):
+        return "flash_fwd_lut_sm90"
+    return "flash_fwd_lut" if has_abias or has_kbias else "flash_fwd_lut_ring"
+
+
+def sparse_fwd(name, q, k, v, lut, kbias=None, abias=None, sm_scale=None):
+    """``(o, lse)`` of the LUT forward ``name`` (one that
+    :func:`sparse_fwd_kernel` names) over ``lut`` with the biases it
+    takes."""
+    if name == "flash_fwd_lut_sm90":
+        return flash_fwd_lut_sm90(q, k, v, lut, kbias, sm_scale)
+    if name == "flash_fwd_lut_ring":
+        return flash_fwd_lut_ring(q, k, v, lut, sm_scale)
+    return flash_fwd_lut(q, k, v, lut, kbias, abias, sm_scale)
+
+
+def flash_fwd_lut_sm90(q, k, v, lut, key_padding_bias=None, sm_scale=None):
+    """``(o, lse)``: the ``flash_fwd_lut_sm90`` kernel over
+    ``lut.groups("q")`` with the optional (B, T) key bias (bf16, head dim
+    64; others raise) for CUDA tensors, the plain version for CPU tensors."""
+    if q.device.type == "cpu":
+        return flash_attention_reference_fwd(q, k, v, lut.causal, sm_scale, lut=lut,
+                                             key_padding_bias=key_padding_bias)
+    name = "flash_fwd_lut_sm90"
+    B, T, H, d = q.shape
+    _check(name, (q, k, v), q.dtype, d, SM90_BWD_HEAD_DIMS)
+    _check_extra(name, q, lut, key_padding_bias, None)
+    sched = _group_sched(name, q, lut, "q", key_padding_bias)
+    o = torch.empty((B, T, H, d), dtype=q.dtype, device=q.device)
+    lse = torch.empty((B, H, T), dtype=torch.float32, device=q.device)
+    strides = _strides(q, k, v)
+    _run(name, _DTYPE_CODES[q.dtype], d, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+         o.data_ptr(), lse.data_ptr(), ctypes.addressof(strides), B, T, H, int(lut.causal),
+         _scale(q, sm_scale), ctypes.addressof(sched), device=q.device)
+    return o, lse
+
+
+def flash_fwd_lut_sm90_schedule(lut, B, H, n_pipes):
+    """The schedule of ``flash_fwd_lut_sm90`` in Python, as the kernel runs
+    it on a (B, T, H) call with ``n_pipes`` persistent pipes: the one of
+    :func:`flash_bwd_dq_lut_sm90_schedule` (the forward and dQ visit the
+    same pairs), per pipe its work items ``(b, h, query units, visits)``,
+    ``visits`` a list of ``(key units, masked)``; a unit ``u`` is rows ``u *
+    unit .. u * unit + unit - 1``, -1 an empty slot."""
+    return _group_schedule(lut.groups("q"), B, H, n_pipes)
+
+
 def flash_fwd_banded(q, k, v, band, sm_scale=None):
     """``(o, lse)`` of causal attention over the band and global columns of
     ``band`` (a :class:`BandLut`): the ``flash_fwd_banded`` kernel for CUDA
@@ -1172,18 +1239,29 @@ def _group_launch(name, side, n_out, q, k, v, do, lse, delta, lut, kbias, sm_sca
     B, T, H, d = q.shape
     ptrs = _bwd_args(name, q, k, v, do, lse, delta)
     _check_extra(name, q, lut, kbias, None)
-    groups = lut.groups(side)
-    t = groups.tensors(q.device, B, H)
-    sched = _GroupSchedule(*(t[n].data_ptr() for n in ("out_slots", "vbeg", "visit_slots",
-                                                        "masked", "order")),
-                           None if kbias is None else kbias.data_ptr(),
-                           t["order"].shape[0], groups.unit)
+    sched = _group_sched(name, q, lut, side, kbias)
     outs = [torch.empty((B, T, H, d), dtype=q.dtype, device=q.device) for _ in range(n_out)]
     strides = _strides(q, k, v, do)
     _run(name, _DTYPE_CODES[q.dtype], d, *ptrs, *(o.data_ptr() for o in outs),
          ctypes.addressof(strides), B, T, H, int(lut.causal), _scale(q, sm_scale),
          ctypes.addressof(sched), device=q.device)
     return outs
+
+
+def _group_sched(name, q, lut, side, kbias):
+    """The ``_GroupSchedule`` of ``lut.groups(side)`` for a (B, T, H, d)
+    call of ``q``'s shape, with the key bias (or None), which must start
+    16-byte aligned for the kernels' TMA map."""
+    if kbias is not None and kbias.data_ptr() % 16:
+        raise ValueError(f"{name}: key_padding_bias must start 16-byte aligned for the "
+                         "kernel's TMA map")
+    B, _, H, _ = q.shape
+    groups = lut.groups(side)
+    t = groups.tensors(q.device, B, H)
+    return _GroupSchedule(*(t[n].data_ptr() for n in ("out_slots", "vbeg", "visit_slots",
+                                                       "masked", "order")),
+                          None if kbias is None else kbias.data_ptr(),
+                          t["order"].shape[0], groups.unit)
 
 
 def flash_bwd_dkdv_lut_sm90_schedule(lut, B, H, n_pipes):
@@ -1302,11 +1380,12 @@ class _FlashAttentionWithLse(torch.autograd.Function):
 class _MaskedFlashAttention(torch.autograd.Function):
     """The biased (``lut is None``) and block-sparse paths.  The forward:
     ``sched`` a :class:`BandLut` takes ``flash_fwd_banded``, a
-    :class:`MergedLut` ``flash_fwd_merged``; else the unbiased LUT forward
-    takes the ring kernel, the biased ones ``flash_fwd_lut`` /
-    ``flash_fwd_biased``.  The backward takes the LUT kernels over ``lut``
-    (or the biased ones).  Bias cotangents are zeros (the masks are
-    constants)."""
+    :class:`MergedLut` ``flash_fwd_merged``; else the LUT forward takes the
+    kernel :func:`sparse_fwd_kernel` names (``flash_fwd_lut_sm90``, or the
+    templates ``flash_fwd_lut_ring`` and ``flash_fwd_lut``), and the dense
+    biased one ``flash_fwd_biased``.  The backward takes the LUT kernels
+    over ``lut`` (or the biased ones).  Bias cotangents are zeros (the
+    masks are constants)."""
 
     @staticmethod
     def forward(ctx, q, k, v, kbias, abias, lut, causal, sm_scale, sched=None):
@@ -1316,10 +1395,10 @@ class _MaskedFlashAttention(torch.autograd.Function):
             o, lse = flash_fwd_banded(q, k, v, sched, sm_scale)
         elif isinstance(sched, MergedLut):
             o, lse = flash_fwd_merged(q, k, v, sched, sm_scale)
-        elif kbias is None and abias is None:
-            o, lse = flash_fwd_lut_ring(q, k, v, lut, sm_scale)
         else:
-            o, lse = flash_fwd_lut(q, k, v, lut, kbias, abias, sm_scale)
+            name = sparse_fwd_kernel(q.dtype, q.shape[-1], abias is not None,
+                                     kbias is not None)
+            o, lse = sparse_fwd(name, q, k, v, lut, kbias, abias, sm_scale)
         ctx.save_for_backward(q, k, v, o, lse, kbias, abias)
         ctx.lut, ctx.causal, ctx.sm_scale = lut, causal, sm_scale
         return o
@@ -1385,10 +1464,12 @@ def sparse_flash_attention(q, k, v, layout, *, causal=True, sm_scale=None, block
 
     The forward, in JAX's order: ``block_q_merge=2`` (unbiased, ``nq``
     even) runs the merged-row kernel on every layout; an all-ones layout
-    the dense kernels; biases the biased LUT kernel; a causal band layout
+    the dense kernels; a causal band layout with no bias
     (:func:`banded_structure`, ``T <= MAX_BAND_T``) the banded kernel; any
-    other layout the LUT ring.  The backward is the LUT (or dense, or
-    biased) kernels."""
+    other the LUT forward :func:`sparse_fwd_kernel` names
+    (``flash_fwd_lut_sm90`` for bf16 at head dim 64 with no score bias,
+    else the biased LUT template with a bias and the LUT ring without).
+    The backward is the LUT (or dense, or biased) kernels."""
     B, T, H, d = q.shape
     if isinstance(layout, torch.Tensor):
         layout = layout.cpu().numpy()

@@ -29,7 +29,8 @@ and stack frames (a spill fails), then:
 4. with ``--variants``: the first check cases and the timing for copies of
    the source changed as ``VARIANTS`` names them (each change made in both
    kernels where it applies to both), in turns with the committed kernel in
-   this call (copies and builds under ``.torch_build/sparse_dkdv/``).
+   this call (copies, with ``csrc/flash_attention_sm90.cuh`` pasted in, and
+   builds under ``.torch_build/sparse_dkdv/``).
 
 Writes the log to ``chiprun_out/sparse_dkdv_check.txt`` (``--side q``:
 ``sparse_dq_check.txt``) too.  Nothing here is used by the port.
@@ -64,7 +65,8 @@ def say(line):
 
 def patch(text, old, new, count=1):
     if text.count(old) != count:
-        raise RuntimeError(f"{LIB}.cu no longer holds {count} of {old[:50]!r}: update VARIANTS")
+        raise RuntimeError(f"the source no longer holds {count} of {old[:50]!r}: update "
+                           "VARIANTS")
     return text.replace(old, new)
 
 
@@ -177,17 +179,29 @@ VARIANTS.update({
 UNCHECKED = ("no loads", "no TMA", "no products")   # variants whose outputs are not dK/dV
 
 
-def build_variant(tag, text_patch):
-    """Start nvcc on a copy of the source changed by ``text_patch``; returns
-    (process, library path)."""
-    src = builder.CSRC / f"{LIB}.cu"
-    out_dir = builder.BUILD_DIR / "sparse_dkdv"
+SHARED = "flash_attention_sm90.cuh"   # the helpers the sm90 group sources include
+
+
+def standalone(text):
+    """A source with the shared header pasted in place of its include, so
+    a patch sees (and may change) the helpers too."""
+    include = f'#include "{SHARED}"\n'
+    return text.replace(include, (builder.CSRC / SHARED).read_text() + "\n") if include in text \
+        else text
+
+
+def build_variant(tag, text_patch, lib=LIB, subdir="sparse_dkdv"):
+    """Start nvcc on a copy of ``csrc/<lib>.cu`` (the shared header pasted
+    in) changed by ``text_patch``; returns (process, library path)."""
+    src = builder.CSRC / f"{lib}.cu"
+    out_dir = builder.BUILD_DIR / subdir
     out_dir.mkdir(parents=True, exist_ok=True)
     name = "".join(c if c.isalnum() else "_" for c in tag)
     copy = out_dir / f"{name}.cu"
-    copy.write_text(text_patch(src.read_text()))
+    copy.write_text(text_patch(standalone(src.read_text())))
     out = out_dir / f"{name}.so"
-    cmd = [builder.find_nvcc(), *builder.NVCC_FLAGS, "-o", str(out), str(copy)]
+    cmd = [builder.find_nvcc(), *builder.NVCC_FLAGS, "-I", str(builder.CSRC), "-o", str(out),
+           str(copy)]
     return subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True), out
 
 

@@ -508,11 +508,11 @@ LUT_BWD = ["flash_bwd_dkdv_lut_sm90", "flash_bwd_dq_lut_sm90"]
 
 @pytest.mark.parametrize("layout,causal,merge,bias,fwd,bwd", [
     ("band", True, 1, False, ["flash_fwd_banded"], LUT_BWD),
-    ("band", False, 1, False, ["flash_fwd_lut_ring"], LUT_BWD),
-    ("band-per-head", True, 1, False, ["flash_fwd_lut_ring"], LUT_BWD),
+    ("band", False, 1, False, ["flash_fwd_lut_sm90"], LUT_BWD),
+    ("band-per-head", True, 1, False, ["flash_fwd_lut_sm90"], LUT_BWD),
     ("band", True, 2, False, ["flash_fwd_merged"], LUT_BWD),
-    ("band", True, 1, True, ["flash_fwd_lut"], LUT_BWD),
-    ("fixed", True, 1, False, ["flash_fwd_lut_ring"], LUT_BWD),
+    ("band", True, 1, True, ["flash_fwd_lut_sm90"], LUT_BWD),
+    ("fixed", True, 1, False, ["flash_fwd_lut_sm90"], LUT_BWD),
     ("fixed", True, 2, False, ["flash_fwd_merged"], LUT_BWD),
     ("all-ones", True, 1, False, ["flash_fwd_sm90"], ["flash_bwd_dkdv_sm90", "flash_bwd_dq_sm90"]),
     ("all-ones", True, 2, False, ["flash_fwd_merged"], LUT_BWD),
@@ -544,6 +544,25 @@ def test_routes_keep_the_template_dkdv_off_the_sm90_dtypes(monkeypatch, dtype, d
     fwd, bwd = _routes(monkeypatch, band, dtype=dtype, d=d)
     assert (fwd, bwd) == (["flash_fwd_banded"], ["flash_bwd_dkdv_lut", "flash_bwd_dq_lut"])
     assert _routes(monkeypatch, band, merge=2, dtype=dtype, d=d)[1] == bwd
+    assert fa.launches == {name: 0 for name in fa.KERNELS}
+
+
+@pytest.mark.parametrize("dtype,d", [(torch.float32, 64), (torch.bfloat16, 96),
+                                     (torch.bfloat16, 128)])
+@pytest.mark.parametrize("layout,causal,bias,fwd", [
+    ("band", False, False, "flash_fwd_lut_ring"), ("fixed", True, False, "flash_fwd_lut_ring"),
+    ("band", True, True, "flash_fwd_lut")])
+def test_routes_keep_the_template_lut_forward_off_the_sm90_dtypes(monkeypatch, dtype, d, layout,
+                                                                  causal, bias, fwd):
+    """fp32, and bf16 at head dims 96 and 128, keep the template LUT
+    forwards: the ring without a bias, the biased LUT kernel with one."""
+    T, H = 256, 2
+    layouts = {"band": _longformer(16, T, 5, [0, 3]),
+               "fixed": tsc.FixedSparsityConfig(num_heads=H, block=16, num_local_blocks=4,
+                                                attention="unidirectional").make_layout(T)}
+    assert _routes(monkeypatch, layouts[layout].astype(np.int32), T, H, causal, bias=bias,
+                   dtype=dtype, d=d) == ([fwd], ["flash_bwd_dkdv_lut", "flash_bwd_dq_lut"])
+    assert fa.sparse_fwd_kernel(dtype, d, False, bias) == fwd
     assert fa.launches == {name: 0 for name in fa.KERNELS}
 
 

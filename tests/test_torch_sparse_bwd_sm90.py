@@ -413,7 +413,7 @@ def test_dkdv_routes(monkeypatch, dtype, d, kbias, abias, want):
 
 
 @pytest.mark.parametrize("name,causal,merge,fwd", [
-    ("tutorial16", False, 1, "flash_fwd_lut_ring"), ("longformer16", True, 1, "flash_fwd_banded"),
+    ("tutorial16", False, 1, "flash_fwd_lut_sm90"), ("longformer16", True, 1, "flash_fwd_banded"),
     ("longformer16", True, 2, "flash_fwd_merged")])
 def test_sparse_path_backward_takes_the_sm90_kernel(monkeypatch, name, causal, merge, fwd):
     """``sparse_flash_attention(...).backward()`` in bf16 at head dim 64
@@ -428,7 +428,8 @@ def test_sparse_path_backward_takes_the_sm90_kernel(monkeypatch, name, causal, m
                               ).sum().backward()
     lut = fa.layout_luts(layout, T, H, causal)
     n = {side: H * int(lut.groups(side).tiles_per_head.sum() // lut.heads) for side in "kq"}
-    assert calls == [(fwd, None), ("flash_bwd_dkdv_lut_sm90", (n["k"], 16)),
+    assert calls == [(fwd, (n["q"], 16) if fwd in fa.GROUP_KERNELS else None),
+                     ("flash_bwd_dkdv_lut_sm90", (n["k"], 16)),
                      ("flash_bwd_dq_lut_sm90", (n["q"], 16))]
 
 
