@@ -15,7 +15,9 @@ JAX package ``deepspeed_tpu``):
    ``flash_bwd_dkdv_sm90`` / ``flash_bwd_dq_sm90``) and the sm90 LUT
    forward's (``flash_fwd_lut_sm90``; their build seconds, registers and
    spills per instance) must build with no spill, and the backward and the
-   LUT forward libraries with no wgmma serialized by ptxas;
+   LUT forward libraries with no wgmma serialized by ptxas; the dense
+   backward's four instances (``dense_dkdv_kernel`` / ``dense_dq_kernel``
+   with and without the key bias) must each be built once;
 2. kernels vs plain: ``paged_attention_online`` and ``paged_attention_exact``
    against ``paged_attention_reference`` at the serving shape (8 slots,
    12 heads, head dim 64, block 16, 64 blocks per slot), lengths
@@ -73,7 +75,9 @@ JAX package ``deepspeed_tpu``):
    ``flash_fwd_sm90`` against SDPA ``is_causal`` at B*T=8192, H=16, T in
    {1024, 2048, 4096, 8192}, head dims 64 and 128;
 7. sparse kernels vs plain: the first ``flash_fwd_lut_sm90`` launch
-   (tutorial layout, T=256, a key bias; waited on under the deadline), then
+   (tutorial layout, T=256, a key bias; waited on under the deadline) and
+   the first launches of the dense sm90 pair's key-bias instances (T 33, 65
+   and 200; each waited on under the deadline), then
    the LUT forward ``sparse_fwd_kernel`` routes to (``flash_fwd_lut_sm90``
    for bf16 at head dim 64 without a score bias, and beside it the template
    it replaced: ``flash_fwd_lut_ring`` without a bias, ``flash_fwd_lut``
@@ -86,10 +90,15 @@ JAX package ``deepspeed_tpu``):
    rule, and beside it the template ``flash_bwd_dq_lut`` through
    ``flash_bwd_dq_lut_tiled``; the template for the rest; with a ``mul``
    key bias and causal masking only dQ is held: dK/dV's limit there is
-   open, PERF.md section 7) and the dense biased
-   ``flash_fwd_biased``, ``flash_bwd_dkdv_biased``, ``flash_bwd_dq_biased``
-   against their plain versions fed the same (O, lse, dO), element by
-   element with phase 2's limits: B=2, H=4, T in {256, 1024} and 1008,
+   open, PERF.md section 7), the dense biased forward ``flash_fwd_biased``
+   and the dense biased backward ``biased_bwd_kernel`` routes to (the
+   key-bias instances of ``flash_bwd_dkdv_sm90`` and ``flash_bwd_dq_sm90``
+   for bf16 at head dim 64 without a score bias, and beside them the
+   templates ``flash_bwd_dkdv_biased`` and ``flash_bwd_dq_biased``; the
+   templates for the rest), each against its plain version fed the same
+   (O, lse, dO), element by element with phase 2's limits: B=2, H=4, T in
+   {256, 1024} and 1008 (the dense biased path also at T 64, 65 and 1000,
+   ``add`` and ``mul`` biases, causal and not),
    layouts Fixed block 16 (per-head patterns), Fixed 32, BigBird 64,
    BSLongformer 128 and a diagonal one whose first 64 queries and keys
    have no live tile, no bias / an ``add`` key bias / a ``mul`` key bias
@@ -116,8 +125,11 @@ JAX package ``deepspeed_tpu``):
    and dQ device time per step; 8b, two steps on unpadded batches
    (``flash_fwd_lut_sm90`` without the bias, 0 on ``flash_fwd_lut_ring``;
    the same backward kernels); 8c, two padded steps
-   with ``"mode": "dense"``
-   (an all-ones layout: the dense biased kernels);
+   with ``"mode": "dense"`` (an all-ones layout): exactly 48 launches per
+   step of ``flash_fwd_biased`` and 24 of each of ``flash_bwd_dkdv_sm90``
+   and ``flash_bwd_dq_sm90`` (their key-bias instances), none of the
+   templates ``flash_bwd_dkdv_biased`` and ``flash_bwd_dq_biased``, then one
+   profiled step with the dense biased backward's device time per step;
 9. the sparse and biased kernels at the training shape, B=8, H=16,
    T=2048, d=64, bf16, q/k/v views of one qkv tensor: the tutorial's
    block-16 layout with the padding bias (and without it, the ring), the
@@ -133,8 +145,11 @@ JAX package ``deepspeed_tpu``):
    three readings with their spread, ``flash_bwd_dkdv_lut_sm90`` and
    ``flash_bwd_dq_lut_sm90`` beside the templates ``flash_bwd_dkdv_lut``
    and ``flash_bwd_dq_lut`` (the template design) on the same call, with
-   the visits per head of each schedule; and the path's forward+backward
-   (``sparse_flash_attention`` under ``autograd.grad``, three readings).
+   the visits per head of each schedule, and at dense+pad the key-bias
+   instances of ``flash_bwd_dkdv_sm90`` / ``flash_bwd_dq_sm90`` beside
+   ``flash_bwd_dkdv_biased`` / ``flash_bwd_dq_biased``; and the path's
+   forward+backward (``sparse_flash_attention`` under ``autograd.grad``,
+   three readings).
 
 10. int8 kernels vs plain: ``int8_mm_nt_decode`` (the block weights at
     M <= 16), ``int8_mm_nt_prefill`` (M > 16) and ``int8_mm_t`` (the head)
@@ -201,9 +216,12 @@ JAX package ``deepspeed_tpu``):
     expanded boolean layout mask and SDPA ``is_causal``, and each path's
     forward+backward beside SDPA's with the mask.
 
-Prints a ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and as the
-last line ``{"ok": true, "device": {...}}``.  Any failure raises and the
-script exits non-zero without that line; with no CUDA device it exits 2.
+Prints a ``{"kernels": [...]}`` line (the dense sm90 pair's key-bias
+instances as ``flash_bwd_dkdv_sm90 (key bias)`` / ``flash_bwd_dq_sm90 (key
+bias)``, with phase 8c's launches and phase 9's dense+pad figures), the
+``nvidia-smi`` line, and as the last line ``{"ok": true, "device": {...}}``.
+Any failure raises and the script exits non-zero without that line; with no
+CUDA device it exits 2.
 """
 
 import itertools
@@ -249,6 +267,8 @@ REPLACES = {"paged_attention_online":
             "flash_bwd_dq": f"{FLASH_REF}:691",
             "flash_bwd_dkdv_sm90": f"{FLASH_REF}:617",     # dense, bf16 at d 64
             "flash_bwd_dq_sm90": f"{FLASH_REF}:691",       # dense, bf16 at d 64
+            "flash_bwd_dkdv_sm90 (key bias)": f"{FLASH_REF}:617",   # use_kbias, 659-660
+            "flash_bwd_dq_sm90 (key bias)": f"{FLASH_REF}:691",     # use_kbias, 731-732
             "flash_fwd_biased": f"{FLASH_REF}:144",      # use_kbias / use_abias
             "flash_bwd_dkdv_biased": f"{FLASH_REF}:617",
             "flash_bwd_dq_biased": f"{FLASH_REF}:691",
@@ -273,6 +293,7 @@ SM90_LIB = fa.ENTRIES["flash_fwd_sm90"][0]
 GROUP_SM90_LIB = fa.ENTRIES["flash_bwd_dkdv_lut_sm90"][0]
 FWD_LUT_SM90_LIB = fa.ENTRIES["flash_fwd_lut_sm90"][0]
 SM90_DEADLINE_S = 10.0   # the first launch of an sm90 kernel must complete within this
+KEY_BIAS = "(key bias)"  # the kernels line's name suffix of the dense sm90 pair's biased instances
 
 
 def flash_source(name):
@@ -393,6 +414,16 @@ def setup():
                 spill for *_, spill in rows):
             raise AssertionError(f"{lib}: a kernel of {kernels} not built, or ptxas spilled "
                                  f"registers: {rows}")
+    # the dense pair's instances with and without the key bias (mangled <64, true / false>)
+    rows = ptxas_summary(builder.build_log[GROUP_SM90_LIB]["ptxas"])
+    dense = {f"{kernel}<64, {bias}>": [(regs, spill) for kname, regs, _, spill in rows
+                                       if f"{kernel}ILi64ELb{int(bias == 'true')}E" in kname]
+             for kernel in ("dense_dkdv_kernel", "dense_dq_kernel") for bias in ("false", "true")}
+    print(f"{GROUP_SM90_LIB}.cu dense instances: " + "; ".join(
+        f"{name} {found[0][0]} registers, {found[0][1]} spill bytes" if found else
+        f"{name} not built" for name, found in dense.items()))
+    if not all(len(found) == 1 for found in dense.values()):
+        raise AssertionError(f"{GROUP_SM90_LIB}: a dense instance not built once: {dense}")
     for lib in (GROUP_SM90_LIB, FWD_LUT_SM90_LIB):
         serialized = [line.strip() for line in builder.build_log[lib]["ptxas"].splitlines()
                       if "C7515" in line or "C7512" in line]
@@ -1124,9 +1155,10 @@ def masked_calls(q, k, v, do, lut, kb, ab, causal):
     kernel calls, plain calls)``, the backward calls taking (lse, delta).
     A LUT case takes the forward ``sparse_fwd_kernel`` names, as the model
     path does, dK/dV the kernel ``sparse_dkdv_kernel`` names and dQ the one
-    ``sparse_dq_kernel`` names."""
+    ``sparse_dq_kernel`` names; a biased case ``flash_fwd_biased`` and the
+    backward ``biased_bwd_kernel`` names."""
     if lut is None:
-        names = fa.BIASED_KERNELS
+        names = ("flash_fwd_biased", *fa.biased_bwd_kernel(q.dtype, q.shape[-1], ab is not None))
         calls = (lambda: fa.flash_fwd_biased(q, k, v, kb, ab, causal),
                  lambda lse, de: fa.flash_bwd_dkdv_biased(q, k, v, do, lse, de, kb, ab,
                                                           causal),
@@ -1153,15 +1185,38 @@ def fwd_template(kb):
     return "flash_fwd_lut_ring" if kb is None else "flash_fwd_lut"
 
 
-# the sm90 backward kernels and the template each is held beside
+# the sm90 backward kernels and the template each is held beside (the dense pair: on the
+# biased path, its key-bias instances beside the biased templates)
 SM90_TEMPLATES = {"flash_bwd_dkdv_lut_sm90": "flash_bwd_dkdv_lut",
                   "flash_bwd_dq_lut_sm90": "flash_bwd_dq_lut"}
+BIASED_TEMPLATES = {"flash_bwd_dkdv_sm90": "flash_bwd_dkdv_biased",
+                    "flash_bwd_dq_sm90": "flash_bwd_dq_biased"}
+
+
+def bwd_templates(q, k, v, do, lut, kb, ab, causal, names):
+    """The template design beside a case's sm90 backward kernels (``names``
+    as :func:`masked_calls` gives them): ``{sm90 name: (template name,
+    call(lse, delta))}``, the LUT templates through
+    ``flash_bwd_*_lut_tiled``, the biased ones through
+    ``flash_bwd_*_biased_template``."""
+    if lut is None:
+        pairs = BIASED_TEMPLATES
+        calls = (lambda lse, de: fa.flash_bwd_dkdv_biased_template(q, k, v, do, lse, de, kb, ab,
+                                                                   causal),
+                 lambda lse, de: fa.flash_bwd_dq_biased_template(q, k, v, do, lse, de, kb, ab,
+                                                                 causal))
+    else:
+        pairs = SM90_TEMPLATES
+        calls = (lambda lse, de: fa.flash_bwd_dkdv_lut_tiled(q, k, v, do, lse, de, lut, kb, ab),
+                 lambda lse, de: fa.flash_bwd_dq_lut_tiled(q, k, v, do, lse, de, lut, kb, ab))
+    return {name: (pairs[name], call) for name, call in zip(names[1:], calls) if name in pairs}
 
 
 def check_masked_case(q, k, v, do, lut, kb, ab, causal, what, held=None):
     """Each kernel of a biased / LUT case against its plain version on the
     same inputs (the backward ones fed the kernel's own O and lse); where
-    the forward, dK/dV or dQ routes to its sm90 kernel, the template too.
+    the forward, dK/dV or dQ routes to its sm90 kernel, the template too
+    (:func:`fwd_template`, :func:`bwd_templates`).
     ``held``: the kernels whose outputs are held (all by default).  Returns
     {kernel: [(output, max abs error, share of limit)]}."""
     names, calls, plains = masked_calls(q, k, v, do, lut, kb, ab, causal)
@@ -1178,12 +1233,11 @@ def check_masked_case(q, k, v, do, lut, kb, ab, causal, what, held=None):
     if names[0] == "flash_fwd_lut_sm90":
         to, tlse = fa.sparse_fwd(fwd_template(kb), q, k, v, lut, kb, ab)
         pairs[fwd_template(kb)] = [("o", to, ro), ("lse", tlse, rlse)]
-    if names[1] in SM90_TEMPLATES:
-        tdk, tdv = fa.flash_bwd_dkdv_lut_tiled(q, k, v, do, lse, delta, lut, kb, ab)
-        pairs["flash_bwd_dkdv_lut"] = [("dk", tdk, rdk), ("dv", tdv, rdv)]
-    if names[2] in SM90_TEMPLATES:
-        pairs["flash_bwd_dq_lut"] = [
-            ("dq", fa.flash_bwd_dq_lut_tiled(q, k, v, do, lse, delta, lut, kb, ab), rdq)]
+    for name, (template, call) in bwd_templates(q, k, v, do, lut, kb, ab, causal,
+                                                names).items():
+        got = call(lse, delta)
+        pairs[template] = ([("dk", got[0], rdk), ("dv", got[1], rdv)] if name == names[1]
+                           else [("dq", got, rdq)])
     torch.cuda.synchronize()
     return {name: [(label, *flash_close(f"{name} {what}", label, got, ref))
                    for label, got, ref in ps]
@@ -1193,7 +1247,8 @@ def check_masked_case(q, k, v, do, lut, kb, ab, causal, what, held=None):
 def sparse_cases(H):
     """Phase 7's cases: (T, layout label, config or None, dtype, causal,
     bias kind, head dim, q/k/v layout); :func:`dq_cases` adds the ones
-    where only dQ is held."""
+    where only dQ is held, :func:`dense_bias_cases` more of the dense
+    biased path."""
     dims, views = (64, 96, 128), ("qkv", "dense")
     bf16, fp32 = torch.bfloat16, torch.float32
     cases, i = [], 0
@@ -1231,6 +1286,19 @@ def sparse_cases(H):
     return cases
 
 
+def dense_bias_cases():
+    """Phase 7's further cases of the dense biased path, where the key-bias
+    instances of ``flash_bwd_dkdv_sm90`` / ``flash_bwd_dq_sm90`` are held
+    (and the biased templates beside them): bf16, head dim 64, one tile,
+    its ragged neighbour, T=1000 with contiguous q/k/v (:func:`sparse_cases`
+    holds its qkv views) and a ragged T=1008, ``add`` and ``mul`` key
+    biases, causal and not."""
+    return [(T, "dense", None, torch.bfloat16, causal, kind, 64, view)
+            for T, kind, causal, view in itertools.product(
+                (64, 65, 1000, 1008), ("add", "mul"), (False, True), ("qkv", "dense"))
+            if (T, view) != (1000, "qkv")]
+
+
 def dq_cases(H):
     """Phase 7's cases where the forward and dQ (its sm90 kernel and the
     template) are held, not dK/dV: the sm90 sweep's layouts, T and q/k/v
@@ -1262,15 +1330,52 @@ def first_fwd_lut_launch(dev, T=256, H=2, seed=14):
           f"{flash_line({'': rows})}")
 
 
+def first_biased_bwd_launch(dev, H=4, seed=15):
+    """The first launches of the key-bias instances of
+    ``flash_bwd_dkdv_sm90`` and ``flash_bwd_dq_sm90`` (B=2, H=4, d=64, T 33,
+    65 and 200, causal, an ``add`` key bias, q/k/v views of one qkv tensor,
+    fed the plain forward's O and lse), each waited for under
+    SM90_DEADLINE_S and held against its plain version with phase 2's
+    limits.  Its inputs come from a generator of its own."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    for T in (33, 65, 200):
+        kb, _ = bias_inputs("add", gen, 2, T, dev)
+        q, k, v, do = flash_inputs(dev, gen, torch.bfloat16, 2, T, H, 64, "qkv")
+        o, lse = fa.flash_attention_reference_fwd(q, k, v, True, key_padding_bias=kb)
+        delta = fa.attention_delta(o, do)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        dk, dv = fa.flash_bwd_dkdv_sm90(q, k, v, do, lse, delta, True, key_padding_bias=kb)
+        ms = wait_first("flash_bwd_dkdv_sm90 (key bias)", f"T={T}", t0)
+        t0 = time.perf_counter()
+        dq = fa.flash_bwd_dq_sm90(q, k, v, do, lse, delta, True, key_padding_bias=kb)
+        ms_dq = wait_first("flash_bwd_dq_sm90 (key bias)", f"T={T}", t0)
+        rdq, rdk, rdv = (fa.flash_attention_reference_bwd_dq(q, k, v, do, lse, delta, True,
+                                                             key_padding_bias=kb),
+                         *fa.flash_attention_reference_bwd_dkdv(q, k, v, do, lse, delta, True,
+                                                                key_padding_bias=kb))
+        rows = [(label, *flash_close(f"first key-bias launch T={T}", label, got, ref))
+                for label, got, ref in (("dk", dk, rdk), ("dv", dv, rdv), ("dq", dq, rdq))]
+        print(f"flash_bwd_dkdv_sm90 / flash_bwd_dq_sm90 (key bias) first launches T={T}: "
+              f"completed in {ms:.1f} / {ms_dq:.1f} ms; {flash_line({'': rows})}")
+
+
 def check_sparse_kernels(dev, gen, B=2, H=4):
     """Phase 7: every biased and LUT kernel against its plain version, after
-    the first ``flash_fwd_lut_sm90`` launch.  Returns the max abs error per
-    kernel."""
+    the first ``flash_fwd_lut_sm90`` launch and the first launches of the
+    dense sm90 pair's key-bias instances.  :func:`dense_bias_cases` draw
+    from a generator of their own, so the phases after this one draw what
+    they drew before.  Returns the max abs error per kernel
+    (``flash_bwd_dkdv_sm90`` / ``flash_bwd_dq_sm90``: their key-bias
+    instances)."""
     first_fwd_lut_launch(dev)
-    max_err = {name: 0.0 for name in fa.BIASED_KERNELS + fa.LUT_KERNELS}
+    first_biased_bwd_launch(dev)
+    max_err = {name: 0.0 for name in fa.BIASED_KERNELS + fa.LUT_KERNELS + fa.DENSE_BWD_SM90}
     dq_only = ("flash_fwd_lut_sm90", "flash_fwd_lut", "flash_bwd_dq_lut_sm90",
                "flash_bwd_dq_lut")
-    for held, cases in ((None, sparse_cases(H)), (dq_only, dq_cases(H))):
+    for held, cases, gen in ((None, sparse_cases(H), gen), (dq_only, dq_cases(H), gen),
+                             (None, dense_bias_cases(),
+                              torch.Generator(device=dev).manual_seed(16))):
         for T, label, cfg, dt, causal, kind, d, view in cases:
             lut = None if cfg is None else fa.layout_luts(cfg.make_layout(T), T, H, causal)
             kb, ab = bias_inputs(kind, gen, B, T, dev)
@@ -1448,12 +1553,13 @@ def bert_train(dev, card, warmup=3, timed=10, fit_steps=20, preset="bert-large",
     torch.cuda.empty_cache()
 
     # 8b: unpadded batches (packed sequences): the forward with no bias
-    # 8c: "mode": "dense" (an all-ones layout) with padding: the dense biased kernels
+    # 8c: "mode": "dense" (an all-ones layout) with padding: the dense biased forward and the
+    # key-bias instances of flash_bwd_dkdv_sm90 / flash_bwd_dq_sm90 (biased_bwd_kernel)
+    dkdv_8c, dq_8c = fa.biased_bwd_kernel(torch.bfloat16, head_dim, False)
     for tag, section, padded, want in (
             ("8b", SPARSE_SECTION, False, {fwd_8b: 2 * L, dkdv: L, dq: L}),
             ("8c", {"mode": "dense", "block": 16}, True, {
-                "flash_fwd_biased": 2 * L, "flash_bwd_dkdv_biased": L,
-                "flash_bwd_dq_biased": L})):
+                "flash_fwd_biased": 2 * L, dkdv_8c: L, dq_8c: L})):
         eng = bert_engine(dev, base, bert_data(1, 16, seq, vocab, padded), section=section,
                           preset=preset, seq=seq, micro=micro)
         torch.cuda.synchronize()
@@ -1466,6 +1572,19 @@ def bert_train(dev, card, warmup=3, timed=10, fit_steps=20, preset="bert-large",
         print(f"train {preset} {tag} ({'padded' if padded else 'unpadded'}, mode "
               f"{section['mode']}): 2 steps, losses {[round(x, 4) for x in run]}, launches "
               f"per step " + ", ".join(f"{n} {counts[tag][n] // 2}" for n in want))
+        if tag == "8c":
+            by_name = profile_steps(lambda: eng.train_batch(), f"train {preset} 8c dense",
+                                    steps=1, unit="training step")
+            spent = {what: [(t, c) for kname, (t, c) in by_name.items()
+                            if re.search(pattern, kname)]
+                     for what, pattern in (("dK/dV", r"\bdense_dkdv_kernel"),
+                                           ("dQ", r"\bdense_dq_kernel"))}
+            print(f"profile train {preset} 8c dense: dense biased backward device time per "
+                  f"step {sum(t for v in spent.values() for t, _ in v) / 1e3:.2f} ms (" +
+                  ", ".join(f"{what} {sum(t for t, _ in v) / 1e3:.2f} ms over "
+                            f"{sum(c for _, c in v):.0f} launches" for what, v in spent.items())
+                  + f"; {dkdv_8c} / {dq_8c}; the template design took 24 x 4.03 ms a step, "
+                  f"PERF.md section 6) ({card})")
         del eng
         torch.cuda.empty_cache()
     return counts
@@ -1546,16 +1665,18 @@ def sparse_timing(dev, gen, bytes_per_s, card, B=8, T=2048, H=16, d=64):
                   f"{groups.unit} a slot); the template {template} "
                   f"{lut.klen.sum() / lut.heads:.0f} 64 x 64 tiles per head")
         forwards = {names[0], fwd_template(bias)}
-        for name, side, tiled, tiles in (
-                (names[1], "k", lambda: fa.flash_bwd_dkdv_lut_tiled(q, k, v, do, lse, delta, lut,
-                                                                    bias), "qlen"),
-                (names[2], "q", lambda: fa.flash_bwd_dq_lut_tiled(q, k, v, do, lse, delta, lut,
-                                                                  bias), "klen")):
-            if name not in SM90_TEMPLATES:
-                continue
-            template = SM90_TEMPLATES[name]
+        nt = -(-T // fa.TILE)
+        for (name, (template, call)), side, tiles in zip(
+                bwd_templates(q, k, v, do, lut, bias, None, False, names).items(), "kq",
+                ("qlen", "klen")):
             timed.append(template)
-            work[template], kernel[template], plain[template] = work[name], tiled, plain[name]
+            work[template], plain[template] = work[name], plain[name]
+            kernel[template] = lambda call=call: call(lse, delta)
+            if lut is None:
+                print(f"schedule {case}: {name} {nt * nt} visits on {nt} output tiles per head "
+                      f"(64 rows each, computed in the kernel); the template {template} "
+                      f"{nt * nt} 64 x 64 tiles per head")
+                continue
             groups = lut.groups(side)
             print(f"schedule {case}: {name} {groups.visits_per_head.mean():.0f} visits on "
                   f"{groups.tiles_per_head.mean():.0f} output tiles per head (rows "
@@ -2464,8 +2585,8 @@ def main():
     # (8: the tutorial layout with padding; 8b: without; 8c: dense with padding)
     for name, case, run in (
             ("flash_fwd_biased", "dense+pad", "8c"),
-            ("flash_bwd_dkdv_biased", "dense+pad", "8c"),
-            ("flash_bwd_dq_biased", "dense+pad", "8c"),
+            ("flash_bwd_dkdv_biased", "dense+pad", "8c"),           # the template design: 0
+            ("flash_bwd_dq_biased", "dense+pad", "8c"),             # the template design: 0
             ("flash_fwd_lut", "tutorial16+pad", "8"),               # the template design: 0
             ("flash_fwd_lut_ring", "tutorial16", "8b"),             # the template design: 0
             ("flash_fwd_lut_sm90", "tutorial16+pad", "8"),
@@ -2476,6 +2597,11 @@ def main():
         kernels.append({"name": name, "route": "cuda", "source": flash_source(name),
                         "replaces": REPLACES[name], "launches": bert_launches[run][name],
                         **ts[case][name]})
+    # the key-bias instances of the dense sm90 pair (one launch count per entry: 8c's run)
+    for name in fa.DENSE_BWD_SM90:
+        kernels.append({"name": f"{name} {KEY_BIAS}", "route": "cuda",
+                        "source": flash_source(name), "replaces": REPLACES[f"{name} {KEY_BIAS}"],
+                        "launches": bert_launches["8c"][name], **ts["dense+pad"][name]})
 
     # 10. int8 kernels vs plain; 11. int8 serving of GPT-2 1.3B; 12. int8 timing
     int8_err = check_int8_kernels(dev, gen)

@@ -1,7 +1,7 @@
 // Flash-attention backward for Hopper (sm_90a), bf16, head dim 64: the block-sparse entries
-// flash_bwd_dkdv_lut_sm90 (dK, dV) and flash_bwd_dq_lut_sm90 (dQ), the (B, T) key bias
-// optional, and the dense entries flash_bwd_dkdv_sm90 and flash_bwd_dq_sm90 (the end of this
-// note), which share their helpers.
+// flash_bwd_dkdv_lut_sm90 (dK, dV) and flash_bwd_dq_lut_sm90 (dQ), and the dense entries
+// flash_bwd_dkdv_sm90 and flash_bwd_dq_sm90 (the end of this note), which share their helpers;
+// the (B, T) key bias optional in all four.
 //
 // Replace the Pallas TPU kernels _bwd_dkdv_kernel (617-688) and _bwd_dq_kernel (691-753) of
 // deepspeed_tpu/ops/transformer/flash_attention.py with use_lut and use_kbias, built by _bwd
@@ -73,20 +73,27 @@
 // ops/transformer/flash_attention.py are the kernels' schedules in Python (the items each pipe
 // takes, their slots, visits and flags).
 //
-// The dense entries replace the same Pallas kernels on the dense path (_bwd_dkdv_kernel and
-// _bwd_dq_kernel with no LUT and no bias, built by _bwd 756-891, reached through
-// _flash_bwd_rule 906) for bf16 at head dim 64, where the template kernels dkdv_kernel and
-// dq_kernel of flash_attention.cuh (flash_bwd_dkdv, flash_bwd_dq) keep fp32 and head dims 96
-// and 128 (at 128 two pipes do not fit in shared memory even at two stages, and dK/dV's
-// accumulators alone take 128 registers a thread).  They compute what the templates compute on
-// the dense path: P = exp(S scale - lse), 0 where the pair is masked (q_pos < T, k_pos < T and,
-// when causal, q_pos >= k_pos); dV += P^T dO with P rounded to bf16; dS = P (dO V^T - delta)
-// scale; dK += dS^T Q and dQ += dS K with dS rounded to bf16; fp32 accumulation; outputs bf16,
-// contiguous (B, T, H, D).  At GPT-2 350M's shape (B=8, T=1024, H=16, D=64, causal) the
-// operations bound them: 8·D (dK/dV) and 6·D (dQ) flops per causal pair, 34.4 and 25.8 GFLOP,
-// 34.8 and 26.1 us at 989 TFLOP/s, against 101 and 85 MB, 30 and 25 us at 3.35 TB/s.  The
-// design is the group kernels' with a schedule the kernel computes from (B, H, T, causal), so
-// no arrays are read and nothing is handed over in shared memory:
+// The dense entries replace the same Pallas kernels on the dense paths for bf16 at head dim 64:
+// _bwd_dkdv_kernel and _bwd_dq_kernel with no LUT, built by _bwd 756-891, without a bias
+// (reached through _flash_bwd_rule 906) and with use_kbias (the key bias added to S at 659-660
+// and 731-732; reached through flash_attention(key_padding_bias=) 913-934, _biased_call 1221
+// and _make_biased_bhtd 1178-1218).  The template kernels keep the rest: dkdv_kernel and
+// dq_kernel of flash_attention.cuh (flash_bwd_dkdv, flash_bwd_dq) fp32 and head dims 96 and 128
+// (at 128 two pipes do not fit in shared memory even at two stages, and dK/dV's accumulators
+// alone take 128 registers a thread), and flash_bwd_dkdv_biased / flash_bwd_dq_biased also
+// any (T, T) score bias; ops/transformer/flash_attention.py: dense_bwd_kernel and
+// biased_bwd_kernel route.  They compute what the templates compute on the dense paths:
+// P = exp(S scale + kbias - lse), 0 where the pair is masked (q_pos < T, k_pos < T and, when
+// causal, q_pos >= k_pos) and on a row whose lse is NEG_INF (a mul key bias's fully padded batch
+// row: no gradient, where JAX's backward computes exp(S - lse) = 1 there); dV += P^T dO with P
+// rounded to bf16; dS = P (dO V^T - delta) scale; dK += dS^T Q and dQ += dS K with dS rounded
+// to bf16; fp32 accumulation; outputs bf16, contiguous (B, T, H, D).  The operations bound them,
+// 8·D (dK/dV) and 6·D (dQ) flops per live pair: at GPT-2 350M's shape (B=8, T=1024, H=16, D=64,
+// causal) 34.4 and 25.8 GFLOP, 34.8 and 26.1 us at 989 TFLOP/s, against 101 and 85 MB, 30 and
+// 25 us at 3.35 TB/s; with the key bias at BERT-large's (B=8, T=2048, H=16, D=64, not causal)
+// 275 and 206 GFLOP, 277.9 and 208.5 us, against 203 and 170 MB, 61 and 51 us (the bias adds
+// 64 KB).  The design is the group kernels' with a schedule the kernel computes from (B, H, T,
+// causal), so no arrays are read and nothing is handed over in shared memory:
 //   * a work item is one 64-row output tile of one (b, h): key rows for dK/dV, query rows for
 //     dQ; a visit is one 64-row tile of the other side, each operand one 64-row TMA box (the
 //     same 128-byte-swizzled image as the group kernels' gathered tiles); causal, key tile j
@@ -96,7 +103,13 @@
 //   * lse and delta (fp32 (B, H, T) rows of any length T, so no TMA map: its row stride would
 //     have to be a multiple of 16 bytes) are copied by the 32 lanes of the pipe's producer warp
 //     with cp.async, two rows a lane, zeros from T on, arriving on the same barrier as the
-//     TMA loads; rows of q, k, v and dO past T load as zeros; the visits that hold rows past T
+//     TMA loads, and so is the key bias (kBias, fp32 (B, T)): dK/dV's, constant over a work
+//     item, once an item beside its K and V, each consumer thread keeping its two key rows' in
+//     registers (log2 units); dQ's, 64 other key rows each visit, into the ring stage beside
+//     the visit's K and V; softmax_grad and softmax_grad_dq add it in log2 units.  A padded
+//     key enters as a bias of -10000 (add) or NEG_INF (mul), so its P underflows to 0 and only
+//     the visits flagged below take an element mask; rows of q, k, v and dO past T load as
+//     zeros; the visits that hold rows past T
 //     (the last, when T is not a multiple of 64) and the causal diagonal ones alone take the
 //     per-element mask, q_pos < T and k_pos < T included; rows of an output tile past T are
 //     computed and not stored;
@@ -110,7 +123,8 @@
 // flash_attention_sparse_fwd_sm90.cu.
 //
 // C interface for ctypes: the argument lists of flash_bwd_dkdv and flash_bwd_dq
-// (flash_attention.cu), the group entries with the schedule after them; returns
+// (flash_attention.cu), the group entries with the schedule after them, the dense ones with
+// the key bias (or null) after them; returns
 // cudaGetLastError() after the launch (0 on success), -1 for a dtype / head dim / slot size /
 // shape it was not built for, -2 when a tensor map cannot be encoded and -3 when
 // cuTensorMapEncodeTiled cannot be found.
@@ -778,6 +792,7 @@ __global__ void __launch_bounds__(kThreads, 1)
 struct DenseParams {
   const float* lse;             // (B, H, T) fp32, contiguous
   const float* delta;           // the same
+  const float* kbias;           // (B, T) fp32, contiguous: the key bias (kBias instances)
   bf16* out0;                   // dK (dense_dkdv_kernel) or dQ (dense_dq_kernel)
   bf16* out1;                   // dV, or null
   int T, H, BH, nt, causal;     // nt = ceil(T / 64): tiles a side
@@ -800,15 +815,31 @@ __device__ __forceinline__ void load_stats(float* sl, float* sd, const DensePara
   cp_async_arrive(bar);
 }
 
+// The key bias of key rows r0 .. r0 + 63 of batch row b into a 64-float slot, as load_stats
+// copies lse and delta: two rows a lane of the producer warp by cp.async (a (B, T) fp32 row
+// of any T has no 16-byte aligned stride, so no TMA map), zeros from T on, the copies arriving
+// on bar
+__device__ __forceinline__ void load_kbias(float* sb, const DenseParams& p, int b, int r0,
+                                           int lane, uint64_t* bar) {
+#pragma unroll
+  for (int x = 0; x < 2; ++x) {
+    const int r = 32 * x + lane;
+    const bool in = r0 + r < p.T;
+    cp_async4(sb + r, p.kbias + (in ? static_cast<long long>(b) * p.T + r0 + r : 0), in);
+  }
+  cp_async_arrive(bar);
+}
+
 template <int D>
 struct DenseCfg {
   static constexpr int kTileBytes = kRows * D * 2;        // a 64-row tile of K, V, Q or dO
   // one pipe: the item's two tiles in two buffers, the visits' two tiles in the ring, the
-  // lse and delta of 64 rows in both (dK/dV: the ring; dQ: the buffers), the barriers; a
+  // lse and delta of 64 rows in both (dK/dV: the ring; dQ: the buffers), the key bias of 64
+  // rows in kStages slots (dK/dV: two, the item's buffers; dQ: the ring), the barriers; a
   // multiple of 1024 so the second pipe's tiles stay aligned
   static constexpr size_t kPipe = (4 * static_cast<size_t>(kTileBytes) +
                                    kStages * (2 * static_cast<size_t>(kTileBytes) +
-                                              2 * kRows * 4) +
+                                              3 * kRows * 4) +
                                    4 * kRows * 4 + 8 * (4 + 2 * kStages) + 1023) / 1024 * 1024;
   static constexpr size_t kSmem = 1024 + 2 * kPipe;
 };
@@ -818,8 +849,10 @@ struct DenseCfg {
 // dkdv_sm90_kernel, loads each item's K and V once (two buffers) and streams its visits' Q,
 // dO, lse and delta (query tiles j .. nt - 1 when causal, else 0 .. nt - 1) through the ring.
 // Producer and consumers derive the same schedule from (B, H, T, causal): nothing is read or
-// handed over.  The accumulator layout and the loop are dkdv_sm90_kernel's.
-template <int D>
+// handed over.  The accumulator layout and the loop are dkdv_sm90_kernel's.  kBias: the
+// item's key bias (its 64 key rows, constant over its visits) comes once with its K and V,
+// copied by the producer lanes, and each consumer thread keeps its two rows' in registers.
+template <int D, bool kBias>
 __global__ void __launch_bounds__(kThreads, 1)
     dense_dkdv_kernel(const __grid_constant__ CUtensorMap tq,
                       const __grid_constant__ CUtensorMap tk,
@@ -839,7 +872,8 @@ __global__ void __launch_bounds__(kThreads, 1)
   unsigned char* sdO = sQ + kS * kTile;          // the same
   float* sLse = reinterpret_cast<float*>(sdO + kS * kTile);  // [stage][64]
   float* sDelta = sLse + kS * kRows;                         // the same
-  uint64_t* kv_full = reinterpret_cast<uint64_t*>(sDelta + kS * kRows);
+  float* sKb = sDelta + kS * kRows;                          // [buffer][64]
+  uint64_t* kv_full = reinterpret_cast<uint64_t*>(sKb + kS * kRows);
   uint64_t* kv_empty = kv_full + 2;
   uint64_t* full = kv_empty + 2;
   uint64_t* empty = full + kS;
@@ -854,7 +888,7 @@ __global__ void __launch_bounds__(kThreads, 1)
   if (threadIdx.x == 0 || threadIdx.x == 32) {
 #pragma unroll
     for (int b = 0; b < 2; ++b) {
-      mbar_init(&kv_full[b], 1);
+      mbar_init(&kv_full[b], kBias ? 1 + 32 : 1);  // the TMA issue (and the key bias lanes)
       mbar_init(&kv_empty[b], 4);  // one arrival per consumer warp
     }
 #pragma unroll
@@ -869,7 +903,7 @@ __global__ void __launch_bounds__(kThreads, 1)
   if (wg == 0) {
     // ------------------------------------------------------------ producer
     // warp x of the producer warpgroup feeds pipe x: lane 0 issues the TMA loads, every lane
-    // copies two rows of each visit's lse and delta
+    // copies two rows of each visit's lse and delta (kBias: and of each item's key bias)
     asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kProducerRegs));
     if (threadIdx.x >= 64) return;
     const int lane = threadIdx.x & 31;
@@ -877,8 +911,9 @@ __global__ void __launch_bounds__(kThreads, 1)
     for (int i = 0, w = work(0); w < n_work; w = work(++i)) {
       const int kt = w / BH, bh = w - kt * BH, b = bh / H, h = bh - b * H;
       const int kb = i & 1, kph = (i >> 1) & 1;
+      if (kBias || lane == 0) mbar_wait(&kv_empty[kb], kph ^ 1);
+      if (kBias) load_kbias(sKb + kb * kRows, p, b, kt * kRows, lane, &kv_full[kb]);
       if (lane == 0) {
-        mbar_wait(&kv_empty[kb], kph ^ 1);
         mbar_expect_tx(&kv_full[kb], 2 * kTile);
 #pragma unroll
         for (int x = 0; x < kB; ++x) {
@@ -911,7 +946,6 @@ __global__ void __launch_bounds__(kThreads, 1)
   const int warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, qd = (lane & 3) * 2;
   const float scale = p.scale, scale2 = p.scale2;
-  const float no_bias[2] = {0.f, 0.f};
   int vt = 0;  // visits consumed by this pipe
   for (int i = 0, w = work(0); w < n_work; w = work(++i)) {
     const int kt = w / BH, bh = w - kt * BH;
@@ -929,6 +963,10 @@ __global__ void __launch_bounds__(kThreads, 1)
       fence_regs(dv[x]);
     }
     mbar_wait(&kv_full[kb], kph);
+    float kb2[2] = {0.f, 0.f};  // the key rows' bias, log2 units
+#pragma unroll
+    for (int r = 0; r < 2; ++r)
+      if (kBias) kb2[r] = sKb[kb * kRows + 16 * warp + g + 8 * r] * kLog2e;
     const unsigned char* tK = sK + kb * kTile;
     const unsigned char* tV = sV + kb * kTile;
     const int q0 = p.causal ? kt : 0, nv = nt - q0;  // every item has a visit
@@ -955,11 +993,11 @@ __global__ void __launch_bounds__(kThreads, 1)
       const float* sl = sLse + st * kRows;
       const float* sd = sDelta + st * kRows;
       if ((p.causal && qt == kt) || (ragged && qt == nt - 1))
-        softmax_grad<kRows, true, false>(s, dp, pa, da, sl, sd, vm, no_bias, kpos, qd, p.causal,
+        softmax_grad<kRows, true, kBias>(s, dp, pa, da, sl, sd, vm, kb2, kpos, qd, p.causal,
                                          scale, scale2, T);
       else
-        softmax_grad<kRows, false, false>(s, dp, pa, da, sl, sd, vm, no_bias, kpos, qd,
-                                          p.causal, scale, scale2, T);
+        softmax_grad<kRows, false, kBias>(s, dp, pa, da, sl, sd, vm, kb2, kpos, qd, p.causal,
+                                          scale, scale2, T);
 #pragma unroll
       for (int x = 0; x < kB; ++x) {
         fence_regs(dv[x]);
@@ -987,7 +1025,7 @@ __global__ void __launch_bounds__(kThreads, 1)
     fence_regs(da);
     if (lane == 0) {
       mbar_arrive(&empty[(vt - 1) % kS]);
-      mbar_arrive(&kv_empty[kb]);  // this item's K and V are read
+      mbar_arrive(&kv_empty[kb]);  // this item's K, V (and key bias) are read
     }
 
     // ---------------------------------------------------------- epilogue
@@ -1007,8 +1045,10 @@ __global__ void __launch_bounds__(kThreads, 1)
 // query tile nt - 1 - w / BH of (b, h) = w % BH (the causal items longest first); a pipe loads
 // each item's Q, dO, lse and delta once (two buffers) and streams its visits' K and V (key
 // tiles 0 .. qt when causal, else 0 .. nt - 1) through the ring.  The accumulator layout and
-// the loop are dq_sm90_kernel's.
-template <int D>
+// the loop are dq_sm90_kernel's.  kBias: each visit's key bias (64 other key rows each visit)
+// rides the ring beside its K and V, copied by the producer lanes, and softmax_grad_dq reads
+// it from the stage.
+template <int D, bool kBias>
 __global__ void __launch_bounds__(kThreads, 1)
     dense_dq_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
                     const __grid_constant__ CUtensorMap tv, const __grid_constant__ CUtensorMap tdo,
@@ -1027,7 +1067,8 @@ __global__ void __launch_bounds__(kThreads, 1)
   unsigned char* sV = sK + kS * kTile;           // the same
   float* sLse = reinterpret_cast<float*>(sV + kS * kTile);  // [buffer][64]
   float* sDelta = sLse + 2 * kRows;                         // the same
-  uint64_t* q_full = reinterpret_cast<uint64_t*>(sDelta + 2 * kRows);
+  float* sKb = sDelta + 2 * kRows;                          // [stage][64]
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(sKb + kS * kRows);
   uint64_t* q_empty = q_full + 2;
   uint64_t* full = q_empty + 2;
   uint64_t* empty = full + kS;
@@ -1047,7 +1088,7 @@ __global__ void __launch_bounds__(kThreads, 1)
     }
 #pragma unroll
     for (int s = 0; s < kS; ++s) {
-      mbar_init(&full[s], 1);
+      mbar_init(&full[s], kBias ? 1 + 32 : 1);  // the TMA issue (and the key bias lanes)
       mbar_init(&empty[s], 4);
     }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
@@ -1057,7 +1098,7 @@ __global__ void __launch_bounds__(kThreads, 1)
   if (wg == 0) {
     // ------------------------------------------------------------ producer
     // warp x of the producer warpgroup feeds pipe x: lane 0 issues the TMA loads, every lane
-    // copies two rows of each item's lse and delta
+    // copies two rows of each item's lse and delta (kBias: and of each visit's key bias)
     asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kProducerRegs));
     if (threadIdx.x >= 64) return;
     const int lane = threadIdx.x & 31;
@@ -1069,17 +1110,22 @@ __global__ void __launch_bounds__(kThreads, 1)
       mbar_wait(&q_empty[qb], qph ^ 1);
       load_stats(sLse + qb * kRows, sDelta + qb * kRows, p, static_cast<long long>(bh) * T,
                  qt * kRows, lane, &q_full[qb]);
-      if (lane != 0) continue;
-      mbar_expect_tx(&q_full[qb], kItemTx);
+      if (lane == 0) {
+        mbar_expect_tx(&q_full[qb], kItemTx);
 #pragma unroll
-      for (int x = 0; x < kB; ++x) {
-        const int off = qb * kTile + x * kBoxBytes;
-        tma_load4(sQ + off, &tq, &q_full[qb], x * kBox, h, qt * kRows, b);
-        tma_load4(sdO + off, &tdo, &q_full[qb], x * kBox, h, qt * kRows, b);
+        for (int x = 0; x < kB; ++x) {
+          const int off = qb * kTile + x * kBoxBytes;
+          tma_load4(sQ + off, &tq, &q_full[qb], x * kBox, h, qt * kRows, b);
+          tma_load4(sdO + off, &tdo, &q_full[qb], x * kBox, h, qt * kRows, b);
+        }
       }
+      // the visits: lane 0 issues their TMA loads (kBias: every lane copies their key bias)
+      if (!kBias && lane != 0) continue;
       for (int kt = 0; kt < nv; ++kt, ++vt) {
         const int st = vt % kS, ph = (vt / kS) & 1;
         mbar_wait(&empty[st], ph ^ 1);
+        if (kBias) load_kbias(sKb + st * kRows, p, b, kt * kRows, lane, &full[st]);
+        if (lane != 0) continue;
         mbar_expect_tx(&full[st], 2 * kTile);
 #pragma unroll
         for (int x = 0; x < kB; ++x) {
@@ -1139,12 +1185,13 @@ __global__ void __launch_bounds__(kThreads, 1)
       fence_regs(da);
       if (kt > 0 && lane == 0) mbar_arrive(&empty[(vt - 1) % kS]);
       const int vm[2] = {1, kt};  // softmax_grad_dq's entries: the visit's one 64-row unit
+      const float* kbs = sKb + st * kRows;
       if ((p.causal && kt == qt) || (ragged && kt == nt - 1))
-        softmax_grad_dq<kRows, true, false>(s, dp, da, nullptr, vm, l2, dd, qpos, qd, p.causal,
+        softmax_grad_dq<kRows, true, kBias>(s, dp, da, kbs, vm, l2, dd, qpos, qd, p.causal,
                                             scale, scale2, T);
       else
-        softmax_grad_dq<kRows, false, false>(s, dp, da, nullptr, vm, l2, dd, qpos, qd,
-                                             p.causal, scale, scale2, T);
+        softmax_grad_dq<kRows, false, kBias>(s, dp, da, kbs, vm, l2, dd, qpos, qd, p.causal,
+                                             scale, scale2, T);
 #pragma unroll
       for (int x = 0; x < kB; ++x) fence_regs(dq[x]);
       fence_regs(da);
@@ -1225,10 +1272,12 @@ int launch_any(const void* q, const void* k, const void* v, const void* dout, co
 }
 
 // dK/dV (kDq false: out0 dK, out1 dV) or dQ (kDq true: out0 dQ) of a dense call
+// (kbias: the (B, T) key bias, or null for none)
 template <bool kDq>
 int launch_dense(const void* q, const void* k, const void* v, const void* dout, const float* lse,
                  const float* delta, void* out0, void* out1, const long long* strides, int B,
-                 int T, int H, int causal, float scale, cudaStream_t stream) {
+                 int T, int H, int causal, float scale, const float* kbias,
+                 cudaStream_t stream) {
   constexpr int D = 64;
   EncodeTiled enc = encode_tiled();
   if (enc == nullptr) return -3;
@@ -1239,14 +1288,19 @@ int launch_dense(const void* q, const void* k, const void* v, const void* dout, 
       !make_map(enc, &mdo, dout, strides + 9, B, T, H, D, kRows))
     return -2;
   const int nt = (T + kRows - 1) / kRows;
-  const DenseParams p = {lse, delta, static_cast<bf16*>(out0), static_cast<bf16*>(out1), T, H,
-                         B * H, nt, causal, scale, scale * kLog2e};
-  if constexpr (kDq)
-    return launch_pipes(dense_dq_kernel<D>, DenseCfg<D>::kSmem, nt * B * H, stream, mq, mk, mv,
-                        mdo, p);
-  else
-    return launch_pipes(dense_dkdv_kernel<D>, DenseCfg<D>::kSmem, nt * B * H, stream, mq, mk,
-                        mv, mdo, p);
+  const DenseParams p = {lse, delta, kbias, static_cast<bf16*>(out0), static_cast<bf16*>(out1),
+                         T, H, B * H, nt, causal, scale, scale * kLog2e};
+  constexpr size_t smem = DenseCfg<D>::kSmem;
+  const int n_work = nt * B * H;
+  if constexpr (kDq) {
+    if (kbias != nullptr)
+      return launch_pipes(dense_dq_kernel<D, true>, smem, n_work, stream, mq, mk, mv, mdo, p);
+    return launch_pipes(dense_dq_kernel<D, false>, smem, n_work, stream, mq, mk, mv, mdo, p);
+  } else {
+    if (kbias != nullptr)
+      return launch_pipes(dense_dkdv_kernel<D, true>, smem, n_work, stream, mq, mk, mv, mdo, p);
+    return launch_pipes(dense_dkdv_kernel<D, false>, smem, n_work, stream, mq, mk, mv, mdo, p);
+  }
 }
 
 // whether the dense instances were built for a call: bf16, head dim 64, and the work items
@@ -1284,23 +1338,25 @@ extern "C" int flash_bwd_dq_lut_sm90(int dtype, int head_dim, const void* q, con
                               scale, *s, reinterpret_cast<cudaStream_t>(stream));
 }
 
-// The dense dK/dV: flash_bwd_dkdv's arguments (flash_attention.cu).
+// The dense dK/dV: flash_bwd_dkdv's arguments (flash_attention.cu), then kbias: the (B, T)
+// fp32 key bias, contiguous, or null for none.
 extern "C" int flash_bwd_dkdv_sm90(int dtype, int head_dim, const void* q, const void* k,
                                    const void* v, const void* dout, const float* lse,
                                    const float* delta, void* dk, void* dv,
                                    const long long* strides, int B, int T, int H, int causal,
-                                   float scale, void* stream) {
+                                   float scale, const float* kbias, void* stream) {
   if (!dense_built_for(dtype, head_dim, B, T, H)) return -1;
   return launch_dense<false>(q, k, v, dout, lse, delta, dk, dv, strides, B, T, H, causal, scale,
-                             reinterpret_cast<cudaStream_t>(stream));
+                             kbias, reinterpret_cast<cudaStream_t>(stream));
 }
 
-// The dense dQ: flash_bwd_dq's arguments (flash_attention.cu).
+// The dense dQ: flash_bwd_dq's arguments (flash_attention.cu), then kbias as above.
 extern "C" int flash_bwd_dq_sm90(int dtype, int head_dim, const void* q, const void* k,
                                  const void* v, const void* dout, const float* lse,
                                  const float* delta, void* dq, const long long* strides, int B,
-                                 int T, int H, int causal, float scale, void* stream) {
+                                 int T, int H, int causal, float scale, const float* kbias,
+                                 void* stream) {
   if (!dense_built_for(dtype, head_dim, B, T, H)) return -1;
   return launch_dense<true>(q, k, v, dout, lse, delta, dq, nullptr, strides, B, T, H, causal,
-                            scale, reinterpret_cast<cudaStream_t>(stream));
+                            scale, kbias, reinterpret_cast<cudaStream_t>(stream));
 }

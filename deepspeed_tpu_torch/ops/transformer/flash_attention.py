@@ -49,16 +49,24 @@ block-sparse bf16 forward at head dim 64 in
   ``use_merge`` 161-164, 245-255, 317-319, 384-390): the forward over a
   :class:`MergedLut`, two q tiles per kernel row;
 - ``flash_bwd_dkdv_sm90`` / ``flash_bwd_dq_sm90`` (for ``_bwd_dkdv_kernel``
-  617 and ``_bwd_dq_kernel`` 691, dense): the bf16 backward at head dim 64,
-  the group kernels' design below over a schedule the kernels compute from
-  (B, H, T, causal), 64-row output tiles, each visit one 64-row TMA box per
-  operand; :func:`flash_bwd_dkdv` and :func:`flash_bwd_dq` send CUDA tensors
-  of that dtype and head dim there (:func:`dense_bwd_kernel`), and
-  :func:`flash_bwd_dkdv_sm90_schedule` / :func:`flash_bwd_dq_sm90_schedule`
-  are their schedules in Python;
+  617 and ``_bwd_dq_kernel`` 691, dense, with or without ``use_kbias``,
+  659-660 and 731-732): the bf16 backward at head dim 64, the group
+  kernels' design below over a schedule the kernels compute from (B, H, T,
+  causal), 64-row output tiles, each visit one 64-row TMA box per operand;
+  with the (B, T) key bias (their key-bias instances) dK/dV loads a work
+  item's 64 bias rows once beside its K and V, dQ streams each visit's
+  beside its K and V, both copied by the producer warp with ``cp.async``,
+  and the softmax step adds them in log2 units; the operations bound both,
+  as without the bias (8·D and 6·D flops a pair).  :func:`flash_bwd_dkdv`
+  and :func:`flash_bwd_dq` send CUDA tensors of that dtype and head dim
+  there (:func:`dense_bwd_kernel`), and so do :func:`flash_bwd_dkdv_biased`
+  and :func:`flash_bwd_dq_biased` with a key bias and no (T, T) score bias
+  (:func:`biased_bwd_kernel`); :func:`flash_bwd_dkdv_sm90_schedule` /
+  :func:`flash_bwd_dq_sm90_schedule` are their schedules in Python;
 - ``flash_bwd_dkdv`` / ``_biased`` / ``_lut`` (for ``_bwd_dkdv_kernel``
   617): per k tile over the (live) q tiles, P recomputed from the lse, dV
-  and dK (the dense one: fp32, and bf16 at head dims 96 and 128);
+  and dK (the dense one: fp32, and bf16 at head dims 96 and 128; the biased
+  one: fp32, head dims 96 and 128, and any (T, T) score bias);
 - ``flash_bwd_dkdv_lut_sm90`` (for ``_bwd_dkdv_kernel`` with ``use_lut``):
   the block-sparse dK/dV in bf16 at head dim 64 over a
   :class:`GroupLut` (key blocks grouped by their live query blocks, both
@@ -121,8 +129,10 @@ Differences from the JAX module: no block-size arguments for the kernels
 lcm(bq, bk)); bf16 inputs run on the tensor cores, fp32 inputs on the
 CUDA cores (head dims 64, 96 and 128); an all-ones layout takes the dense
 kernels (the same numbers, no LUT) unless ``block_q_merge=2``; a row with
-no live key (O = 0, lse = NEG_INF) gets no gradient, where the JAX backward
-computes ``exp(S - lse) = 1`` on it (ROADMAP.md section C); the backward
+no live key (O = 0, lse = NEG_INF: a ``mul`` key bias's fully padded batch
+row) gets no gradient, where the JAX backward computes ``exp(S - lse) = 1``
+on it (ROADMAP.md section C), in every backward kernel, the sm90 ones with a
+key bias included (the row's lse enters as +inf, so its P is 0); the backward
 makes the output cotangent contiguous before the kernels (a cotangent
 expanded from a sum has stride 0); a launch adds one to
 ``launches[<kernel name>]``.
@@ -825,8 +835,9 @@ def _entry(name):
         v, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         n_ptr = 8 if "dkdv" in fn_name else 7 if "_dq" in fn_name else 5
         args = [i, i] + [v] * n_ptr + [v, i, i, i, i, f]
-        # a variant takes its Extra, a group kernel its schedule, before the stream
-        structs = 0 if variant is None and name not in GROUP_KERNELS else 1
+        # a variant takes its Extra, a group kernel its schedule, a dense sm90 backward its
+        # key bias (or null), before the stream
+        structs = 0 if variant is None and name not in GROUP_KERNELS + DENSE_BWD_SM90 else 1
         fn.argtypes = ([] if variant is None else [i]) + args + [v] * structs + [v]
         fn.restype = ctypes.c_int
     return fn if variant is None else functools.partial(fn, variant)
@@ -1018,10 +1029,20 @@ def flash_fwd_merged(q, k, v, merged, sm_scale=None):
     return _fwd("flash_fwd_merged", q, k, v, merged.causal, sm_scale, merged)
 
 
-def _bwd_args(name, q, k, v, do, lse, delta):
+def _bwd_args(name, q, k, v, do, lse, delta, kbias=None, abias=None):
+    """The operands' pointers, after checking them: q, k, v, dO, lse and
+    delta, and the biases an entry takes (the templates ``_biased`` and
+    ``_lut`` both, the sm90 ones the key bias, the dense templates none):
+    contiguous fp32, (B, T) and (T, T), on q's device."""
     B, T, H, d = q.shape
     sm90 = name in GROUP_KERNELS or name in DENSE_BWD_SM90
     _check(name, (q, k, v, do), q.dtype, d, SM90_BWD_HEAD_DIMS if sm90 else HEAD_DIMS)
+    template = ENTRIES[name][2] is not None      # the _biased and _lut templates
+    for label, bias, taken in (("key_padding_bias", kbias, template or sm90),
+                               ("attn_bias", abias, template)):
+        if bias is not None and not taken:
+            raise ValueError(f"{name}: takes no {label}")
+    _check_extra(name, q, None, kbias, abias)
     for stat in (lse, delta):
         if (stat.shape != (B, H, T) or stat.dtype != torch.float32
                 or not stat.is_contiguous() or stat.device != q.device):
@@ -1040,7 +1061,7 @@ def _bwd_dkdv(name, q, k, v, do, lse, delta, causal, sm_scale, lut=None, kbias=N
         return flash_attention_reference_bwd_dkdv(
             q, k, v, do, lse, delta, causal, sm_scale, lut=lut, key_padding_bias=kbias,
             attn_bias=abias)
-    ptrs = _bwd_args(name, q, k, v, do, lse, delta)
+    ptrs = _bwd_args(name, q, k, v, do, lse, delta, kbias, abias)
     extra = [] if ENTRIES[name][2] is None else [_extra(name, q, lut, kbias, abias, "q")]
     B, T, H, d = q.shape
     dk = torch.empty((B, T, H, d), dtype=q.dtype, device=q.device)
@@ -1048,7 +1069,7 @@ def _bwd_dkdv(name, q, k, v, do, lse, delta, causal, sm_scale, lut=None, kbias=N
     strides = _strides(q, k, v, do)
     _run(name, _DTYPE_CODES[q.dtype], d, *ptrs, dk.data_ptr(), dv.data_ptr(),
          ctypes.addressof(strides), B, T, H, int(causal), _scale(q, sm_scale),
-         *(ctypes.addressof(x) for x in extra), device=q.device)
+         *(ctypes.addressof(x) for x in extra), *_dense_kbias(name, kbias), device=q.device)
     return dk, dv
 
 
@@ -1058,15 +1079,23 @@ def _bwd_dq(name, q, k, v, do, lse, delta, causal, sm_scale, lut=None, kbias=Non
         return flash_attention_reference_bwd_dq(
             q, k, v, do, lse, delta, causal, sm_scale, lut=lut, key_padding_bias=kbias,
             attn_bias=abias)
-    ptrs = _bwd_args(name, q, k, v, do, lse, delta)
+    ptrs = _bwd_args(name, q, k, v, do, lse, delta, kbias, abias)
     extra = [] if ENTRIES[name][2] is None else [_extra(name, q, lut, kbias, abias, "k")]
     B, T, H, d = q.shape
     dq = torch.empty((B, T, H, d), dtype=q.dtype, device=q.device)
     strides = _strides(q, k, v, do)
     _run(name, _DTYPE_CODES[q.dtype], d, *ptrs, dq.data_ptr(), ctypes.addressof(strides),
          B, T, H, int(causal), _scale(q, sm_scale), *(ctypes.addressof(x) for x in extra),
-         device=q.device)
+         *_dense_kbias(name, kbias), device=q.device)
     return dq
+
+
+def _dense_kbias(name, kbias):
+    """The key-bias argument of a dense sm90 backward entry (null for none;
+    its kernels read it with 4-byte copies); no argument for the rest."""
+    if name not in DENSE_BWD_SM90:
+        return []
+    return [None if kbias is None else kbias.data_ptr()]
 
 
 def dense_bwd_kernel(dtype, head_dim):
@@ -1105,16 +1134,22 @@ def flash_bwd_dq_template(q, k, v, do, lse, delta, causal=True, sm_scale=None):
     return _bwd_dq("flash_bwd_dq", q, k, v, do, lse, delta, causal, sm_scale)
 
 
-def flash_bwd_dkdv_sm90(q, k, v, do, lse, delta, causal=True, sm_scale=None):
+def flash_bwd_dkdv_sm90(q, k, v, do, lse, delta, causal=True, sm_scale=None,
+                        key_padding_bias=None):
     """``(dk, dv)``: the ``flash_bwd_dkdv_sm90`` kernel (bf16, head dim 64;
-    others raise) for CUDA tensors, the plain version for CPU ones."""
-    return _bwd_dkdv("flash_bwd_dkdv_sm90", q, k, v, do, lse, delta, causal, sm_scale)
+    others raise), with the optional fp32 (B, T) key bias, for CUDA
+    tensors, the plain version for CPU ones."""
+    return _bwd_dkdv("flash_bwd_dkdv_sm90", q, k, v, do, lse, delta, causal, sm_scale,
+                     kbias=key_padding_bias)
 
 
-def flash_bwd_dq_sm90(q, k, v, do, lse, delta, causal=True, sm_scale=None):
+def flash_bwd_dq_sm90(q, k, v, do, lse, delta, causal=True, sm_scale=None,
+                      key_padding_bias=None):
     """``dq``: the ``flash_bwd_dq_sm90`` kernel (bf16, head dim 64; others
-    raise) for CUDA tensors, the plain version for CPU ones."""
-    return _bwd_dq("flash_bwd_dq_sm90", q, k, v, do, lse, delta, causal, sm_scale)
+    raise), with the optional fp32 (B, T) key bias, for CUDA tensors, the
+    plain version for CPU ones."""
+    return _bwd_dq("flash_bwd_dq_sm90", q, k, v, do, lse, delta, causal, sm_scale,
+                   kbias=key_padding_bias)
 
 
 def flash_bwd_dkdv_sm90_schedule(B, T, H, causal, n_pipes):
@@ -1159,23 +1194,59 @@ def _dense_schedule(B, T, H, causal, n_pipes, side):
     return out
 
 
+def biased_bwd_kernel(dtype, head_dim, has_abias):
+    """The dense biased backward kernels ``(dK/dV, dQ)`` a CUDA tensor of
+    ``dtype`` and ``head_dim`` takes: ``flash_bwd_dkdv_sm90`` and
+    ``flash_bwd_dq_sm90`` (their key-bias instances) where
+    :func:`_group_route` holds (bf16 at head dim 64, no (T, T) score bias),
+    else the templates ``flash_bwd_dkdv_biased`` and ``flash_bwd_dq_biased``
+    (fp32, head dims 96 and 128, any score bias).  Decided before any
+    launch, never by a failure."""
+    if _group_route(dtype, head_dim, has_abias):
+        return DENSE_BWD_SM90
+    return "flash_bwd_dkdv_biased", "flash_bwd_dq_biased"
+
+
 def flash_bwd_dkdv_biased(q, k, v, do, lse, delta, key_padding_bias=None, attn_bias=None,
                           causal=True, sm_scale=None):
-    """``(dk, dv)`` with the biases: ``flash_bwd_dkdv_biased``."""
-    return _bwd_dkdv("flash_bwd_dkdv_biased", q, k, v, do, lse, delta, causal, sm_scale,
-                     None, key_padding_bias, attn_bias)
+    """``(dk, dv)`` with the biases: for CUDA tensors the dK/dV kernel of
+    :func:`biased_bwd_kernel`, for CPU tensors the plain version."""
+    name = biased_bwd_kernel(q.dtype, q.shape[-1], attn_bias is not None)[0]
+    return _bwd_dkdv(name, q, k, v, do, lse, delta, causal, sm_scale, None, key_padding_bias,
+                     attn_bias)
 
 
 def flash_bwd_dq_biased(q, k, v, do, lse, delta, key_padding_bias=None, attn_bias=None,
                         causal=True, sm_scale=None):
-    """``dq`` with the biases: ``flash_bwd_dq_biased``."""
+    """``dq`` with the biases: for CUDA tensors the dQ kernel of
+    :func:`biased_bwd_kernel`, for CPU tensors the plain version."""
+    name = biased_bwd_kernel(q.dtype, q.shape[-1], attn_bias is not None)[1]
+    return _bwd_dq(name, q, k, v, do, lse, delta, causal, sm_scale, None, key_padding_bias,
+                   attn_bias)
+
+
+def flash_bwd_dkdv_biased_template(q, k, v, do, lse, delta, key_padding_bias=None,
+                                   attn_bias=None, causal=True, sm_scale=None):
+    """``(dk, dv)``: the template ``flash_bwd_dkdv_biased`` kernel whatever
+    the dtype, head dim and biases (for CUDA tensors; the plain version for
+    CPU ones)."""
+    return _bwd_dkdv("flash_bwd_dkdv_biased", q, k, v, do, lse, delta, causal, sm_scale,
+                     None, key_padding_bias, attn_bias)
+
+
+def flash_bwd_dq_biased_template(q, k, v, do, lse, delta, key_padding_bias=None,
+                                 attn_bias=None, causal=True, sm_scale=None):
+    """``dq``: the template ``flash_bwd_dq_biased`` kernel whatever the
+    dtype, head dim and biases (for CUDA tensors; the plain version for CPU
+    ones)."""
     return _bwd_dq("flash_bwd_dq_biased", q, k, v, do, lse, delta, causal, sm_scale,
                    None, key_padding_bias, attn_bias)
 
 
 def _group_route(dtype, head_dim, has_abias):
-    """Whether a CUDA tensor takes the group kernels (``GROUP_KERNELS``):
-    bf16 at head dim 64 with no (T, T) score bias (the key bias is
+    """Whether a CUDA tensor takes the sm90 kernels that carry the key bias
+    (``GROUP_KERNELS``, and the dense pair ``DENSE_BWD_SM90`` on the biased
+    path): bf16 at head dim 64 with no (T, T) score bias (the key bias is
     optional).  Decided before any launch, never by a failure."""
     return not has_abias and head_dim in SM90_BWD_HEAD_DIMS.get(dtype, ())
 
@@ -1384,8 +1455,10 @@ class _MaskedFlashAttention(torch.autograd.Function):
     kernel :func:`sparse_fwd_kernel` names (``flash_fwd_lut_sm90``, or the
     templates ``flash_fwd_lut_ring`` and ``flash_fwd_lut``), and the dense
     biased one ``flash_fwd_biased``.  The backward takes the LUT kernels
-    over ``lut`` (or the biased ones).  Bias cotangents are zeros (the
-    masks are constants)."""
+    over ``lut``, or without one the dense biased route
+    (:func:`biased_bwd_kernel`: the key-bias instances of
+    ``flash_bwd_dkdv_sm90`` / ``flash_bwd_dq_sm90``, or the templates).
+    Bias cotangents are zeros (the masks are constants)."""
 
     @staticmethod
     def forward(ctx, q, k, v, kbias, abias, lut, causal, sm_scale, sched=None):

@@ -3,7 +3,7 @@
 one Hopper card.
 
     python3 examples/dense_bwd_check.py [--quick] [--no-check] [--no-timing]
-                                        [--variants "a;b"]
+                                        [--variants "a;b"] [--bias]
 
 From the repo root, with a CUDA card and nvcc.  Both kernels live in
 ``csrc/flash_attention_sparse_bwd_sm90.cu``.  Builds it (and the template
@@ -31,7 +31,13 @@ then:
    ``file:<path>`` for another
    source of the same entries and arguments, in turns with the committed
    kernels in this call (copies and builds under ``.torch_build/
-   sparse_dkdv/``).
+   sparse_dkdv/``);
+5. with ``--bias``: at BERT-large's ``"mode": "dense"`` attention shape
+   (B=8, T=2048, H=16, d=64, bf16, q/k/v views, not causal, the padding
+   key bias of ``chip_smoke.py`` phase 9) the pair's key-bias instances
+   beside its instances without the bias and the biased templates
+   ``flash_bwd_dkdv_biased`` / ``flash_bwd_dq_biased``, median of three
+   readings with the spread, beside the bounds.
 
 Writes the log to ``chiprun_out/dense_bwd_check.txt`` too.  Nothing here is
 used by the port.
@@ -63,15 +69,15 @@ def say(line):
     LOG.append(line)
 
 
-# the dense kernels' loads: dK/dV's K and V per item, Q, dO, lse, delta per visit; dQ's the
-# other way round (lines of the source, each present once); lse and delta's copies give way to
-# bare arrivals, which the barriers count
+# the dense kernels' loads: dK/dV's K, V (and key bias) per item, Q, dO, lse, delta per visit;
+# dQ's the other way round (lines of the source, each present once); the copies of lse, delta
+# and the key bias give way to bare arrivals, which the barriers count
 DENSE_TX = (("        mbar_expect_tx(&kv_full[kb], 2 * kTile);\n",
              "        mbar_arrive(&kv_full[kb]);\n"),
             ("          mbar_expect_tx(&full[st], kVisitTx);\n",
              "          mbar_arrive(&full[st]);\n"),
-            ("      mbar_expect_tx(&q_full[qb], kItemTx);\n",
-             "      mbar_arrive(&q_full[qb]);\n"),
+            ("        mbar_expect_tx(&q_full[qb], kItemTx);\n",
+             "        mbar_arrive(&q_full[qb]);\n"),
             ("        mbar_expect_tx(&full[st], 2 * kTile);\n",
              "        mbar_arrive(&full[st]);\n"),
             ("        load_stats(sLse + st * kRows, sDelta + st * kRows, p, "
@@ -79,14 +85,20 @@ DENSE_TX = (("        mbar_expect_tx(&kv_full[kb], 2 * kTile);\n",
              "        cp_async_arrive(&full[st]);\n"),
             ("      load_stats(sLse + qb * kRows, sDelta + qb * kRows, p, "
              "static_cast<long long>(bh) * T,\n                 qt * kRows, lane, &q_full[qb]);\n",
-             "      cp_async_arrive(&q_full[qb]);\n"))
+             "      cp_async_arrive(&q_full[qb]);\n"),
+            ("      if (kBias) load_kbias(sKb + kb * kRows, p, b, kt * kRows, lane, "
+             "&kv_full[kb]);\n",
+             "      if (kBias) cp_async_arrive(&kv_full[kb]);\n"),
+            ("        if (kBias) load_kbias(sKb + st * kRows, p, b, kt * kRows, lane, "
+             "&full[st]);\n",
+             "        if (kBias) cp_async_arrive(&full[st]);\n"))
 DENSE_LOADS = (
     "          tma_load4(sK + off, &tk, &kv_full[kb], x * kBox, h, kt * kRows, b);\n",
     "          tma_load4(sV + off, &tv, &kv_full[kb], x * kBox, h, kt * kRows, b);\n",
     "            tma_load4(sQ + off, &tq, &full[st], x * kBox, h, qt * kRows, b);\n",
     "            tma_load4(sdO + off, &tdo, &full[st], x * kBox, h, qt * kRows, b);\n",
-    "        tma_load4(sQ + off, &tq, &q_full[qb], x * kBox, h, qt * kRows, b);\n",
-    "        tma_load4(sdO + off, &tdo, &q_full[qb], x * kBox, h, qt * kRows, b);\n",
+    "          tma_load4(sQ + off, &tq, &q_full[qb], x * kBox, h, qt * kRows, b);\n",
+    "          tma_load4(sdO + off, &tdo, &q_full[qb], x * kBox, h, qt * kRows, b);\n",
     "          tma_load4(sK + off, &tk, &full[st], x * kBox, h, kt * kRows, b);\n",
     "          tma_load4(sV + off, &tv, &full[st], x * kBox, h, kt * kRows, b);\n")
 DENSE_MASKED = ("      if ((p.causal && qt == kt) || (ragged && qt == nt - 1))\n",
@@ -109,18 +121,25 @@ def always_masked(t):
 
 
 LAUNCH_DENSE = (
-    "  if constexpr (kDq)\n"
-    "    return launch_pipes(dense_dq_kernel<D>, DenseCfg<D>::kSmem, nt * B * H, stream, mq, mk, "
-    "mv,\n                        mdo, p);\n"
-    "  else\n"
-    "    return launch_pipes(dense_dkdv_kernel<D>, DenseCfg<D>::kSmem, nt * B * H, stream, mq, "
-    "mk,\n                        mv, mdo, p);\n")
+    "  if constexpr (kDq) {\n"
+    "    if (kbias != nullptr)\n"
+    "      return launch_pipes(dense_dq_kernel<D, true>, smem, n_work, stream, mq, mk, mv, mdo, "
+    "p);\n"
+    "    return launch_pipes(dense_dq_kernel<D, false>, smem, n_work, stream, mq, mk, mv, mdo, "
+    "p);\n"
+    "  } else {\n"
+    "    if (kbias != nullptr)\n"
+    "      return launch_pipes(dense_dkdv_kernel<D, true>, smem, n_work, stream, mq, mk, mv, mdo, "
+    "p);\n"
+    "    return launch_pipes(dense_dkdv_kernel<D, false>, smem, n_work, stream, mq, mk, mv, mdo, "
+    "p);\n"
+    "  }\n")
 PINGPONG = os.path.join(os.path.dirname(os.path.abspath(__file__)), "dense_bwd_pingpong.cuh")
 
 
 def pingpong(t):
     """The 128-row ping-pong kernels of ``dense_bwd_pingpong.cuh`` in place
-    of the dense ones."""
+    of the dense ones (no key bias)."""
     anchor = "// dK/dV (kDq false: out0 dK, out1 dV) or dQ (kDq true: out0 dQ) of a dense call\n"
     t = patch(t, anchor, f'#include "{PINGPONG}"\n\n{anchor}')
     return patch(t, LAUNCH_DENSE, "  return launch_pp<kDq>(mq, mk, mv, mdo, p, stream);\n")
@@ -217,12 +236,48 @@ def timing(dev, gen, bytes_per_s, card, tag, others=True, causals=(True, False),
     torch.cuda.empty_cache()
 
 
+def bias_timing(dev, gen, bytes_per_s, card, B=8, T=2048, H=16, d=64):
+    """Step 5: the key-bias instances beside the unbiased ones and the
+    biased templates on the same inputs."""
+    q, k, v, do = cs.flash_inputs(dev, gen, torch.bfloat16, B, T, H, d, "qkv")
+    keep = torch.arange(T, device=dev)[None, :] < cs.key_lengths(gen, B, T, dev)[:, None]
+    kb = torch.where(keep, 0.0, -10000.0).float()
+    o, lse = fa.flash_fwd_biased(q, k, v, kb, None, False)
+    delta = fa.attention_delta(o, do)
+    work = cs.flash_work(B, T, H, d)
+    pairs, cp = B * H * T * T, B * H * T * (T + 1) // 2       # every pair, not causal
+    work = {n: (b + B * T * 4, ops * pairs // cp) for n, (b, ops) in work.items()}
+    fns = {"flash_bwd_dkdv_sm90 (key bias)": lambda _: fa.flash_bwd_dkdv_sm90(
+               q, k, v, do, lse, delta, False, key_padding_bias=kb),
+           "flash_bwd_dkdv_sm90 (no bias)": lambda _: fa.flash_bwd_dkdv_sm90(
+               q, k, v, do, lse, delta, False),
+           "flash_bwd_dkdv_biased": lambda _: fa.flash_bwd_dkdv_biased_template(
+               q, k, v, do, lse, delta, kb, None, False),
+           "flash_bwd_dq_sm90 (key bias)": lambda _: fa.flash_bwd_dq_sm90(
+               q, k, v, do, lse, delta, False, key_padding_bias=kb),
+           "flash_bwd_dq_sm90 (no bias)": lambda _: fa.flash_bwd_dq_sm90(
+               q, k, v, do, lse, delta, False),
+           "flash_bwd_dq_biased": lambda _: fa.flash_bwd_dq_biased_template(
+               q, k, v, do, lse, delta, kb, None, False)}
+    parts = []
+    for name, fn in fns.items():
+        r = cs.repeat_ms(fn, 20)
+        bound, by = cs.bound_ms(*work["flash_bwd_dkdv_sm90" if "dkdv" in name
+                                      else "flash_bwd_dq_sm90"], bytes_per_s)
+        parts.append(f"{name} {cs.spread(r)} ({bound / r[0]:.3f} of its {by} bound "
+                     f"{bound * 1e3:.2f} us)")
+    say(f"timing key bias B={B} T={T} H={H} d={d} causal=0 qkv, padding bias ({card}): "
+        + "; ".join(parts))
+    torch.cuda.empty_cache()
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--variants", default="", help="keys of VARIANTS, separated by semicolons")
     ap.add_argument("--quick", action="store_true")
     ap.add_argument("--no-timing", action="store_true")
     ap.add_argument("--no-check", action="store_true", help="skip step 2")
+    ap.add_argument("--bias", action="store_true", help="step 5: the key-bias instances")
     a = ap.parse_args()
     if not torch.cuda.is_available():
         print("dense_bwd_check: no CUDA device", file=sys.stderr)
@@ -234,7 +289,8 @@ def main():
     t0 = time.perf_counter()
     variants = [(k, build_variant(k, (lambda t, f=k[5:]: open(f).read()) if k.startswith("file:")
                                   else VARIANTS[k])) for k in a.variants.split(";") if k]
-    builder.build_all([LIB, "flash_attention", "flash_attention_fwd_sm90"])
+    builder.build_all([LIB, "flash_attention", "flash_attention_fwd_sm90",
+                       "flash_attention_sparse_fwd", "flash_attention_sparse_bwd"])
     built = []
     for tag, (proc, path) in variants:
         out, _ = proc.communicate()
@@ -272,6 +328,8 @@ def main():
         builder._loaded[LIB] = base
         if built:
             timing(dev, gen, bw, card, "committed again", others=False, causals=(True,))
+        if a.bias:
+            bias_timing(dev, gen, bw, card)
     for line in failed:
         say(f"past its limit: {line}")
     say(card)
