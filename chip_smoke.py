@@ -17,11 +17,21 @@ JAX package ``deepspeed_tpu``):
    spills per instance) must build with no spill, and the backward and the
    LUT forward libraries with no wgmma serialized by ptxas; the dense
    backward's four instances (``dense_dkdv_kernel`` / ``dense_dq_kernel``
-   with and without the key bias) must each be built once;
-2. kernels vs plain: ``paged_attention_online`` and ``paged_attention_exact``
-   against ``paged_attention_reference`` at the serving shape (8 slots,
-   12 heads, head dim 64, block 16, 64 blocks per slot), lengths
-   0..1020, windows 1 and 4, bf16 / int8+scales / fp32 pools; then the
+   with and without the key bias) and ``flash_fwd_sm90``'s four (head dims
+   64 and 128, with and without the key bias) must each be built once, and
+   ``paged_attention_exact_sm90``'s twelve (``exact_split_kernel``: three
+   compute dtypes, 16-bit and int8 pools, head dims 64 and 128) with no
+   spill;
+2. kernels vs plain: the first ``paged_attention_exact_sm90`` launch (waited
+   on under a deadline), then ``paged_attention_online``,
+   ``paged_attention_exact_sm90`` and beside it the first design
+   ``paged_attention_exact`` against ``paged_attention_reference`` at the
+   serving shape (8 slots, 12 heads, head dim 64, block 16, 64 blocks per
+   slot), lengths 0..1020, windows 1 and 4, bf16 / int8+scales / fp32
+   pools, and over ``split_cases`` (their own generator): the three pools
+   at head dims 64 and 128, windows 1, 4 and 8, lengths at 0, at S - W, on
+   the ranks' chunk edges and one row past the staging buffer, S = 1024
+   (and 320 for bf16); then the
    dense forward its route takes (``flash_fwd_sm90`` for bf16 at head
    dims 64 and 128, whose first launch waits on an event under a
    deadline; the template ``flash_fwd`` for the rest, and beside every
@@ -40,15 +50,16 @@ JAX package ``deepspeed_tpu``):
    autograd of a dense attention in fp32;
 3. serving: GPT-2 125M at full width (bf16, random weights from
    ``init_numpy(seed=0)``) answers 16 greedy requests with 16-bit KV, with
-   int8 KV, and with the exact kernel; every outcome must be OK, every
-   block recycled, and the kernel's launch count equal decode steps x 12;
-   one decode step's logits through the kernels are held against the
-   ``gather`` path;
+   int8 KV, and in exact mode (``paged_attention_exact_sm90``); every
+   outcome must be OK, every block recycled, and the kernel's launch count
+   equal decode steps x 12 (every other paged kernel 0); one decode step's
+   logits through the kernels are held against the ``gather`` path;
 4. timing: each paged kernel, its plain version and a library yardstick
    (``scaled_dot_product_attention`` over pre-gathered K/V, which the port
    never calls) with CUDA events at the phase-3 shape, beside the least
    time the card could take (the bytes the call must move over the
-   card's memory rate);
+   card's memory rate); the two exact designs in turns (first design,
+   split, split, first design), each the least of its readings;
 5. training: GPT-2 350M at full width (T=1024, micro-batch 8, gas 1,
    bf16, ZeRO-1, AdamW 6e-4 / wd 0.1, clip 1.0, dropout 0, no remat)
    through ``deepspeed_tpu_torch.initialize`` -> ``train_batch()`` on
@@ -90,15 +101,20 @@ JAX package ``deepspeed_tpu``):
    rule, and beside it the template ``flash_bwd_dq_lut`` through
    ``flash_bwd_dq_lut_tiled``; the template for the rest; with a ``mul``
    key bias and causal masking only dQ is held: dK/dV's limit there is
-   open, PERF.md section 7), the dense biased forward ``flash_fwd_biased``
-   and the dense biased backward ``biased_bwd_kernel`` routes to (the
+   open, PERF.md section 7), the dense biased forward ``biased_fwd_kernel``
+   routes to (the key-bias instance of ``flash_fwd_sm90`` for bf16 at head
+   dims 64 and 128 without a score bias, whose first launches at T 33, 65
+   and 200 wait on an event under the deadline, and beside it the template
+   ``flash_fwd_biased``; the template for the rest; a fully padded batch
+   row must read O = 0 and lse = NEG_INF in both) and the dense biased
+   backward ``biased_bwd_kernel`` routes to (the
    key-bias instances of ``flash_bwd_dkdv_sm90`` and ``flash_bwd_dq_sm90``
    for bf16 at head dim 64 without a score bias, and beside them the
    templates ``flash_bwd_dkdv_biased`` and ``flash_bwd_dq_biased``; the
    templates for the rest), each against its plain version fed the same
    (O, lse, dO), element by element with phase 2's limits: B=2, H=4, T in
    {256, 1024} and 1008 (the dense biased path also at T 64, 65 and 1000,
-   ``add`` and ``mul`` biases, causal and not),
+   ``add`` and ``mul`` biases, causal and not, and at head dim 128),
    layouts Fixed block 16 (per-head patterns), Fixed 32, BigBird 64,
    BSLongformer 128 and a diagonal one whose first 64 queries and keys
    have no live tile, no bias / an ``add`` key bias / a ``mul`` key bias
@@ -126,10 +142,11 @@ JAX package ``deepspeed_tpu``):
    (``flash_fwd_lut_sm90`` without the bias, 0 on ``flash_fwd_lut_ring``;
    the same backward kernels); 8c, two padded steps
    with ``"mode": "dense"`` (an all-ones layout): exactly 48 launches per
-   step of ``flash_fwd_biased`` and 24 of each of ``flash_bwd_dkdv_sm90``
+   step of ``flash_fwd_sm90`` and 24 of each of ``flash_bwd_dkdv_sm90``
    and ``flash_bwd_dq_sm90`` (their key-bias instances), none of the
-   templates ``flash_bwd_dkdv_biased`` and ``flash_bwd_dq_biased``, then one
-   profiled step with the dense biased backward's device time per step;
+   templates ``flash_fwd_biased``, ``flash_bwd_dkdv_biased`` and
+   ``flash_bwd_dq_biased``, then one profiled step with the dense biased
+   forward's and backward's device time per step;
 9. the sparse and biased kernels at the training shape, B=8, H=16,
    T=2048, d=64, bf16, q/k/v views of one qkv tensor: the tutorial's
    block-16 layout with the padding bias (and without it, the ring), the
@@ -146,8 +163,9 @@ JAX package ``deepspeed_tpu``):
    ``flash_bwd_dq_lut_sm90`` beside the templates ``flash_bwd_dkdv_lut``
    and ``flash_bwd_dq_lut`` (the template design) on the same call, with
    the visits per head of each schedule, and at dense+pad the key-bias
-   instances of ``flash_bwd_dkdv_sm90`` / ``flash_bwd_dq_sm90`` beside
-   ``flash_bwd_dkdv_biased`` / ``flash_bwd_dq_biased``; and the path's
+   instances of ``flash_fwd_sm90`` (three readings), ``flash_bwd_dkdv_sm90``
+   and ``flash_bwd_dq_sm90`` beside ``flash_fwd_biased``,
+   ``flash_bwd_dkdv_biased`` and ``flash_bwd_dq_biased``; and the path's
    forward+backward (``sparse_flash_attention`` under ``autograd.grad``,
    three readings).
 
@@ -216,9 +234,12 @@ JAX package ``deepspeed_tpu``):
     expanded boolean layout mask and SDPA ``is_causal``, and each path's
     forward+backward beside SDPA's with the mask.
 
-Prints a ``{"kernels": [...]}`` line (the dense sm90 pair's key-bias
-instances as ``flash_bwd_dkdv_sm90 (key bias)`` / ``flash_bwd_dq_sm90 (key
-bias)``, with phase 8c's launches and phase 9's dense+pad figures), the
+Prints a ``{"kernels": [...]}`` line (the dense sm90 kernels' key-bias
+instances as ``flash_fwd_sm90 (key bias)``, ``flash_bwd_dkdv_sm90 (key
+bias)`` and ``flash_bwd_dq_sm90 (key bias)``, with phase 8c's launches and
+phase 9's dense+pad figures; ``paged_attention_exact_sm90`` with the
+exact-mode serve's launches and the first design ``paged_attention_exact``
+beside it with 0), the
 ``nvidia-smi`` line, and as the last line ``{"ok": true, "device": {...}}``.
 Any failure raises and the script exits non-zero without that line; with no
 CUDA device it exits 2.
@@ -255,14 +276,19 @@ from deepspeed_tpu_torch.ops.transformer import paged_attention as pa
 from deepspeed_tpu_torch.runtime.comm.quantized import quantize_blockwise
 
 L_CYCLE = 12          # layers cycled through when timing (cold L2 per launch)
-SOURCE = "deepspeed_tpu_torch/csrc/paged_attention.cu"
+PAGED_LIB = "paged_attention"
+SOURCE = f"deepspeed_tpu_torch/csrc/{PAGED_LIB}.cu"
+SPLIT_SM90 = pa.KERNELS["exact"]          # paged_attention_exact_sm90, the cluster-split kernel
 FLASH_REF = "deepspeed_tpu/ops/transformer/flash_attention.py"
 REPLACES = {"paged_attention_online":
             "deepspeed_tpu/ops/transformer/paged_attention.py:180",
             "paged_attention_exact":
             "deepspeed_tpu/ops/transformer/paged_attention.py:90",
+            "paged_attention_exact_sm90":
+            "deepspeed_tpu/ops/transformer/paged_attention.py:90",
             "flash_fwd": f"{FLASH_REF}:144",
             "flash_fwd_sm90": f"{FLASH_REF}:144",        # dense, bf16 at head dims 64 / 128
+            "flash_fwd_sm90 (key bias)": f"{FLASH_REF}:144",   # use_kbias, 218
             "flash_bwd_dkdv": f"{FLASH_REF}:617",
             "flash_bwd_dq": f"{FLASH_REF}:691",
             "flash_bwd_dkdv_sm90": f"{FLASH_REF}:617",     # dense, bf16 at d 64
@@ -293,7 +319,7 @@ SM90_LIB = fa.ENTRIES["flash_fwd_sm90"][0]
 GROUP_SM90_LIB = fa.ENTRIES["flash_bwd_dkdv_lut_sm90"][0]
 FWD_LUT_SM90_LIB = fa.ENTRIES["flash_fwd_lut_sm90"][0]
 SM90_DEADLINE_S = 10.0   # the first launch of an sm90 kernel must complete within this
-KEY_BIAS = "(key bias)"  # the kernels line's name suffix of the dense sm90 pair's biased instances
+KEY_BIAS = "(key bias)"  # the kernels line's name suffix of the dense sm90 kernels' biased instances
 
 
 def flash_source(name):
@@ -398,8 +424,20 @@ def setup():
     print(f"{SM90_LIB}.cu: built in {builder.build_log[SM90_LIB]['seconds']:.2f} s; " + "; ".join(
         f"{kname[kname.find('fwd_sm90_kernel'):]} {regs} registers, {spill} spill bytes"
         for kname, regs, _, spill in sm90))
-    if not sm90 or any(spill for *_, spill in sm90):
-        raise AssertionError(f"{SM90_LIB}: no kernel built, or ptxas spilled registers: {sm90}")
+    # each head dim's instances with and without the key bias (mangled <D, false / true>), once
+    fwd = {(d, bias): sum(f"fwd_sm90_kernelILi{d}ELb{bias}E" in kname for kname, *_ in sm90)
+           for d in fa.SM90_HEAD_DIMS[torch.bfloat16] for bias in (0, 1)}
+    if any(n != 1 for n in fwd.values()) or any(spill for *_, spill in sm90):
+        raise AssertionError(f"{SM90_LIB}: an instance (head dim, key bias) not built once "
+                             f"{fwd}, or ptxas spilled registers: {sm90}")
+    split = [(kname, regs, spill) for kname, regs, _, spill in
+             ptxas_summary(builder.build_log[PAGED_LIB]["ptxas"]) if "exact_split_kernel" in kname]
+    print(f"{PAGED_LIB}.cu exact_split_kernel ({SPLIT_SM90}): {len(split)} instances, registers "
+          f"{sorted({regs for _, regs, _ in split})}, spill bytes "
+          f"{sorted({spill for *_, spill in split})}")
+    if len(split) != 12 or any(spill for *_, spill in split):
+        raise AssertionError(f"{PAGED_LIB}: exact_split_kernel not built for 3 dtypes x 2 pools "
+                             f"x 2 head dims, or ptxas spilled registers: {split}")
     for lib, kernels in ((INT8_DECODE_LIB, ("int8_decode_kernel",)),
                          (INT8_PREFILL_LIB, ("int8_prefill_kernel",)),
                          (GROUP_SM90_LIB, ("dkdv_sm90_kernel", "dq_sm90_kernel",
@@ -432,51 +470,132 @@ def setup():
     return card
 
 
+def paged_pool(dev, gen, kind, B, H, HD, BS, NB_MAX, layers=2):
+    """A pool of ``layers`` layers of ``1 + B * NB_MAX`` random blocks: bf16,
+    fp32, or int8 with fp32 scales (bf16 compute); returns (pool, compute
+    dtype)."""
+    shape = (layers, 1 + B * NB_MAX, BS, H, HD)
+    k = torch.randn(shape, generator=gen, device=dev)
+    v = torch.randn(shape, generator=gen, device=dev)
+    if kind == "int8":
+        qk, sk = quantize_blockwise(k, block_size=64)
+        qv, sv = quantize_blockwise(v, block_size=64)
+        return {"k": qk, "v": qv, "k_scale": sk, "v_scale": sv}, torch.bfloat16
+    dt = torch.float32 if kind == "fp32" else torch.bfloat16
+    return {"k": k.to(dt), "v": v.to(dt)}, dt
+
+
+def paged_tables(dev, gen, lengths_list, W, BS, NB_MAX):
+    """Block tables of distinct random blocks, each slot's live blocks only."""
+    B = len(lengths_list)
+    perm = torch.randperm(B * NB_MAX, generator=gen, device=dev) + 1
+    t = torch.zeros((B, NB_MAX), dtype=torch.int32, device=dev)
+    for b, n in enumerate(lengths_list):
+        live = pk.blocks_needed(n + W, BS)
+        t[b, :live] = perm[b * NB_MAX:b * NB_MAX + live].int()
+    return t
+
+
+def paged_case(q, pool, tables, lengths, what, kind, max_err):
+    """Each exact kernel and the online one against the plain version on
+    one case: the routed kernels and, beside ``paged_attention_exact_sm90``,
+    the first design ``paged_attention_exact``.  Raises past TOL."""
+    ref = pa.paged_attention_reference(q, pool, tables, lengths, 1)
+    calls = {name: (lambda mode=mode: pa.paged_attention(q, pool, tables, lengths, 1, mode=mode))
+             for mode, name in pa.KERNELS.items()}
+    calls[pa.TEMPLATE] = lambda: pa.paged_attention_exact_template(q, pool, tables, lengths, 1)
+    errs = {}
+    for name, call in calls.items():
+        out = call()
+        torch.cuda.synchronize()
+        if out.shape != ref.shape or not torch.isfinite(out).all():
+            raise AssertionError(f"{name} {what}: bad output")
+        errs[name] = (out.float() - ref.float()).abs().max().item()
+        max_err[name] = max(max_err[name], errs[name])
+        if not errs[name] <= TOL[kind]:
+            raise AssertionError(f"{name} {what}: error {errs[name]} above {TOL[kind]}")
+    return errs
+
+
+def first_split_launch(dev, seed=17):
+    """The first ``paged_attention_exact_sm90`` launch (one slot of 300
+    tokens, a cluster of 8 at S = 1024), waited for under SM90_DEADLINE_S
+    and held against the plain version.  Its inputs come from a generator
+    of its own, so the phases after it draw what they drew before."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    pool, dt = paged_pool(dev, gen, "bf16", 1, 12, 64, 16, 64)
+    tables = paged_tables(dev, gen, [300], 1, 16, 64)
+    lengths = torch.tensor([300], dtype=torch.int32, device=dev)
+    q = torch.randn((1, 1, 12, 64), generator=gen, device=dev).to(dt)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = pa.paged_attention(q, pool, tables, lengths, 1, mode="exact")
+    ms = wait_first(SPLIT_SM90, "len=300", t0)
+    err = (out.float() - pa.paged_attention_reference(q, pool, tables, lengths, 1).float()
+           ).abs().max().item()
+    print(f"{SPLIT_SM90} first launch len=300: completed in {ms:.1f} ms, max abs error "
+          f"{err:.2e} (tol {TOL['bf16']:g})")
+    if not err <= TOL["bf16"]:
+        raise AssertionError(f"{SPLIT_SM90} first launch: error {err}")
+
+
 def check_kernels(dev, gen, B=8, H=12, HD=64, BS=16, NB_MAX=64,
                   lengths_list=(0, 15, 16, 500, 1020, 37, 255, 768)):
-    """Phase 2: both kernels against the plain version on the card.
+    """Phase 2: every paged kernel against the plain version on the card
+    (:func:`paged_case`), then the exact ones over :func:`split_cases`.
     Returns the max abs error per kernel."""
-    max_err = {name: 0.0 for name in pa.KERNELS.values()}
-
-    def random_pool(kind):
-        shape = (2, 1 + B * NB_MAX, BS, H, HD)
-        k = torch.randn(shape, generator=gen, device=dev)
-        v = torch.randn(shape, generator=gen, device=dev)
-        if kind == "int8":
-            qk, sk = quantize_blockwise(k, block_size=64)
-            qv, sv = quantize_blockwise(v, block_size=64)
-            return {"k": qk, "v": qv, "k_scale": sk, "v_scale": sv}, torch.bfloat16
-        dt = torch.float32 if kind == "fp32" else torch.bfloat16
-        return {"k": k.to(dt), "v": v.to(dt)}, dt
-
-    def tables_for(W):
-        perm = torch.randperm(B * NB_MAX, generator=gen, device=dev) + 1
-        t = torch.zeros((B, NB_MAX), dtype=torch.int32, device=dev)
-        for b, n in enumerate(lengths_list):
-            live = pk.blocks_needed(n + W, BS)
-            t[b, :live] = perm[b * NB_MAX:b * NB_MAX + live].int()
-        return t
-
+    max_err = {name: 0.0 for name in pa.launches}
+    first_split_launch(dev)
     lengths = torch.tensor(lengths_list, dtype=torch.int32, device=dev)
     for kind in ("bf16", "int8", "fp32"):
-        pool, dt = random_pool(kind)
+        pool, dt = paged_pool(dev, gen, kind, B, H, HD, BS, NB_MAX)
         for W in (1, 4):
-            tables = tables_for(W)
+            tables = paged_tables(dev, gen, lengths_list, W, BS, NB_MAX)
             q = torch.randn((B, W, H, HD), generator=gen, device=dev).to(dt)
-            ref = pa.paged_attention_reference(q, pool, tables, lengths, 1)
-            for mode, name in pa.KERNELS.items():
-                out = pa.paged_attention(q, pool, tables, lengths, 1, mode=mode)
-                torch.cuda.synchronize()
-                if out.shape != ref.shape or not torch.isfinite(out).all():
-                    raise AssertionError(f"{name} {kind} W={W}: bad output")
-                err = (out.float() - ref.float()).abs().max().item()
-                max_err[name] = max(max_err[name], err)
+            errs = paged_case(q, pool, tables, lengths, f"pool={kind} W={W}", kind, max_err)
+            for name, err in errs.items():
                 print(f"kernel-check {name} pool={kind} W={W}: max_abs_err "
                       f"{err:.3e} (tol {TOL[kind]:g})")
-                if not err <= TOL[kind]:
-                    raise AssertionError(f"{name} pool={kind} W={W}: error "
-                                         f"{err} above {TOL[kind]}")
+    check_split_kernels(dev, max_err)
     return max_err
+
+
+def split_cases():
+    """Phase 2's cases for the exact kernels: (pool kind, head dim, W,
+    blocks a slot): bf16 / int8 / fp32 pools at head dims 64 and 128,
+    windows 1, 4 and 8, S = 1024 (a cluster of 8); bf16 at S = 320 (3)."""
+    return ([(kind, hd, W, 64) for kind in ("bf16", "int8", "fp32") for hd in (64, 128)
+             for W in (1, 4, 8)] + [("bf16", 64, W, 20) for W in (1, 8)])
+
+
+def split_lengths(S, W, C, R):
+    """Slot lengths that put the exact split on its edges: 0, the window
+    reaching S, rows a multiple of the ranks and one past, a rank's chunk
+    filling the staging buffer (R rows) and one row past it (streamed in
+    pieces), and two between."""
+    edges = (0, S - W, C * 40 - W, C * 40 + 1 - W, C * R - W, C * R + 1 - W, 37, S // 2)
+    return [min(max(n, 0), S - W) for n in edges]
+
+
+def check_split_kernels(dev, max_err, B=8, H=12, BS=16, seed=18):
+    """Phase 2, exact: ``paged_attention_exact_sm90`` and the first design
+    beside it (and the online kernel) against the plain version over
+    :func:`split_cases`; inputs from a generator of their own."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    for kind, hd, W, nb_max in split_cases():
+        pool, dt = paged_pool(dev, gen, kind, B, H, hd, BS, nb_max)
+        S = BS * nb_max
+        n_scales = pool["k_scale"].shape[-1] if kind == "int8" else 0
+        C, _, R = pa.exact_sm90_plan(S, hd, pool["k"].element_size(), n_scales)
+        lengths_list = split_lengths(S, W, C, R)
+        tables = paged_tables(dev, gen, lengths_list, W, BS, nb_max)
+        lengths = torch.tensor(lengths_list, dtype=torch.int32, device=dev)
+        q = torch.randn((B, W, H, hd), generator=gen, device=dev).to(dt)
+        what = f"pool={kind} hd={hd} W={W} S={S}"
+        errs = paged_case(q, pool, tables, lengths, what, kind, max_err)
+        print(f"split-check {what} (ranks {C}, staged rows {R}, lengths {lengths_list}): " +
+              ", ".join(f"{name} {err:.3e}" for name, err in errs.items()) +
+              f" (tol {TOL[kind]:g})")
 
 
 def flash_inputs(dev, gen, dt, B, T, H, d, layout):
@@ -649,7 +768,7 @@ def serve(engine, prompts, new, tag, kv_bits, mode):
     engine, ``int8_mm_nt_decode`` == steps x 4 x layers,
     ``int8_mm_nt_prefill`` == prefills x 4 x layers, the tiled ``int8_mm_nt``
     0 and ``int8_mm_t`` == steps + prefills (all 0 for a float engine).
-    Returns (server, paged launches, tokens)."""
+    Returns (server, paged launches by kernel, tokens)."""
     c = engine.module.config
     c.paged_attention_mode = mode
     cfg = ServingConfig(batch_slots=8, block_size=16, kv_bits=kv_bits,
@@ -702,8 +821,9 @@ def serve(engine, prompts, new, tag, kv_bits, mode):
                  f"prefills x {4 * c.n_layer}, int8_mm_nt {int8_counts['int8_mm_nt']}, "
                  f"int8_mm_t {int8_counts['int8_mm_t']} = steps + prefills; "
                  if engine.quantized else "")
+    others = ", ".join(f"{name} {n}" for name, n in counts.items() if name != want)
     print(f"serve {tag}: {len(prompts)} requests OK, {steps} decode steps, "
-          f"{want} launches {counts[want]} = steps x {c.n_layer}; {int8_line}"
+          f"{want} launches {counts[want]} = steps x {c.n_layer} ({others}); {int8_line}"
           f"{st['generated_tokens'] / wall:.1f} tokens/s, decode step p50 "
           f"{st['step_ms']['p50']:.3f} ms p99 {st['step_ms']['p99']:.3f} ms, "
           f"TTFT p50 {st['ttft_ms']['p50']:.1f} ms, wall {wall:.2f} s, "
@@ -711,7 +831,7 @@ def serve(engine, prompts, new, tag, kv_bits, mode):
           f"{torch.cuda.max_memory_allocated() / 1e6:.1f} MB (resident before the run "
           f"{resident / 1e6:.1f} MB)")
     srv.int8_launches = int8_counts
-    return srv, counts[want], {uid: res[uid]["tokens"] for uid in res}
+    return srv, counts, {uid: res[uid]["tokens"] for uid in res}
 
 
 def seat(srv, prompts):
@@ -760,8 +880,9 @@ def time_ms(fn, n, warmup=L_CYCLE):
     for i in range(warmup):
         fn(i)
     torch.cuda.synchronize()
-    # a device-side backlog, so the host's enqueue time never shows
-    torch.cuda._sleep(int(3e7))
+    # a device-side backlog, so the host's enqueue time never shows: ~17 ms, and ~285 us of
+    # enqueue a call at 200 calls (a slow host enqueues a paged call in over 100 us)
+    torch.cuda._sleep(int(max(3e7, 5e5 * n)))
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
@@ -816,11 +937,20 @@ def timing(srv, tag, pool_kind, gen, bytes_per_s):
            "bound_by": bound_by, "plain_ms": plain_ms,
            "library_ms": library_ms, "kernels_ms": {}}
     saved = dict(pa.launches)
-    for mode, name in pa.KERNELS.items():
-        ms = time_ms(lambda l: pa.paged_attention(q, pool, tables, lengths, l,
-                                                  mode=mode), 200)
-        out["kernels_ms"][name] = ms
-        print(f"timing {tag} {name}: {ms * 1e3:.2f} us, bound "
+    calls = {name: (lambda l, mode=mode: pa.paged_attention(q, pool, tables, lengths, l,
+                                                            mode=mode))
+             for mode, name in pa.KERNELS.items()}
+    calls[pa.TEMPLATE] = lambda l: pa.paged_attention_exact_template(q, pool, tables, lengths, l)
+    # the exact kernels in turns (the first design, the split, the split, the first design);
+    # each kernel's time is the least of its readings
+    readings = {}
+    for name in (pa.TEMPLATE, SPLIT_SM90, SPLIT_SM90, pa.TEMPLATE, pa.KERNELS["online"]):
+        readings.setdefault(name, []).append(time_ms(calls[name], 200))
+    for name, rs in readings.items():
+        ms = out["kernels_ms"][name] = min(rs)
+        design = " (the first design)" if name == pa.TEMPLATE else ""
+        print(f"timing {tag} {name}{design}: {ms * 1e3:.2f} us (readings "
+              f"{', '.join(f'{r * 1e3:.2f}' for r in rs)}), bound "
               f"{bound_ms * 1e3:.2f} us ({bound_by}), plain "
               f"{plain_ms * 1e3:.2f} us, library {library_ms * 1e3:.2f} us, "
               f"mean length {lens.mean():.1f}")
@@ -1155,10 +1285,11 @@ def masked_calls(q, k, v, do, lut, kb, ab, causal):
     kernel calls, plain calls)``, the backward calls taking (lse, delta).
     A LUT case takes the forward ``sparse_fwd_kernel`` names, as the model
     path does, dK/dV the kernel ``sparse_dkdv_kernel`` names and dQ the one
-    ``sparse_dq_kernel`` names; a biased case ``flash_fwd_biased`` and the
-    backward ``biased_bwd_kernel`` names."""
+    ``sparse_dq_kernel`` names; a biased case the forward ``biased_fwd_kernel``
+    names and the backward ``biased_bwd_kernel`` names."""
     if lut is None:
-        names = ("flash_fwd_biased", *fa.biased_bwd_kernel(q.dtype, q.shape[-1], ab is not None))
+        names = (fa.biased_fwd_kernel(q.dtype, q.shape[-1], ab is not None),
+                 *fa.biased_bwd_kernel(q.dtype, q.shape[-1], ab is not None))
         calls = (lambda: fa.flash_fwd_biased(q, k, v, kb, ab, causal),
                  lambda lse, de: fa.flash_bwd_dkdv_biased(q, k, v, do, lse, de, kb, ab,
                                                           causal),
@@ -1183,6 +1314,25 @@ def fwd_template(kb):
     """The template the sm90 LUT forward is held beside: the ring without a
     key bias, the biased LUT kernel with one (the template design)."""
     return "flash_fwd_lut_ring" if kb is None else "flash_fwd_lut"
+
+
+def fwd_templates(q, k, v, lut, kb, ab, causal, name):
+    """The template design beside a case's sm90 forward ``name``: ``{template
+    name: call()}``, the LUT templates through ``sparse_fwd`` (beside
+    ``flash_fwd_lut_sm90``), the dense biased one through
+    ``flash_fwd_biased_template`` (beside the key-bias ``flash_fwd_sm90``);
+    none beside a template."""
+    if name == "flash_fwd_lut_sm90":
+        return {fwd_template(kb): lambda: fa.sparse_fwd(fwd_template(kb), q, k, v, lut, kb, ab)}
+    if name == "flash_fwd_sm90":
+        return {"flash_fwd_biased": lambda: fa.flash_fwd_biased_template(q, k, v, kb, ab, causal)}
+    return {}
+
+
+def padded_rows(kb):
+    """The batch rows whose every key a ``mul`` bias pads (NEG_INF)."""
+    return [] if kb is None else [b for b in range(kb.shape[0])
+                                  if bool((kb[b] <= fa.NEG_INF * 0.5).all())]
 
 
 # the sm90 backward kernels and the template each is held beside (the dense pair: on the
@@ -1216,9 +1366,11 @@ def check_masked_case(q, k, v, do, lut, kb, ab, causal, what, held=None):
     """Each kernel of a biased / LUT case against its plain version on the
     same inputs (the backward ones fed the kernel's own O and lse); where
     the forward, dK/dV or dQ routes to its sm90 kernel, the template too
-    (:func:`fwd_template`, :func:`bwd_templates`).
-    ``held``: the kernels whose outputs are held (all by default).  Returns
-    {kernel: [(output, max abs error, share of limit)]}."""
+    (:func:`fwd_templates`, :func:`bwd_templates`).
+    ``held``: the kernels whose outputs are held (all by default).  On the
+    dense biased path a fully padded batch row must read O = 0 and lse =
+    NEG_INF exactly in both forwards.  Returns {kernel: [(output, max abs
+    error, share of limit)]}."""
     names, calls, plains = masked_calls(q, k, v, do, lut, kb, ab, causal)
     o, lse = calls[0]()
     delta = fa.attention_delta(o, do)
@@ -1230,9 +1382,17 @@ def check_masked_case(q, k, v, do, lut, kb, ab, causal, what, held=None):
     pairs = {names[0]: [("o", o, ro), ("lse", lse, rlse)],
              names[1]: [("dk", dk, rdk), ("dv", dv, rdv)],
              names[2]: [("dq", dq, rdq)]}
-    if names[0] == "flash_fwd_lut_sm90":
-        to, tlse = fa.sparse_fwd(fwd_template(kb), q, k, v, lut, kb, ab)
-        pairs[fwd_template(kb)] = [("o", to, ro), ("lse", tlse, rlse)]
+    forwards = {names[0]: (o, lse)}
+    for template, call in fwd_templates(q, k, v, lut, kb, ab, causal, names[0]).items():
+        to, tlse = forwards[template] = call()
+        pairs[template] = [("o", to, ro), ("lse", tlse, rlse)]
+    if lut is None:
+        # the dense biased forwards write O = 0 and lse = NEG_INF on a fully padded row
+        for name, (fo, flse) in forwards.items():
+            for b in padded_rows(kb):
+                if fo[b].any() or not (flse[b] == fa.NEG_INF).all():
+                    raise AssertionError(f"{name} {what}: batch row {b} has no live key but "
+                                         "O != 0 or lse != NEG_INF")
     for name, (template, call) in bwd_templates(q, k, v, do, lut, kb, ab, causal,
                                                 names).items():
         got = call(lse, delta)
@@ -1288,15 +1448,19 @@ def sparse_cases(H):
 
 def dense_bias_cases():
     """Phase 7's further cases of the dense biased path, where the key-bias
-    instances of ``flash_bwd_dkdv_sm90`` / ``flash_bwd_dq_sm90`` are held
-    (and the biased templates beside them): bf16, head dim 64, one tile,
-    its ragged neighbour, T=1000 with contiguous q/k/v (:func:`sparse_cases`
-    holds its qkv views) and a ragged T=1008, ``add`` and ``mul`` key
-    biases, causal and not."""
+    instances of ``flash_fwd_sm90``, ``flash_bwd_dkdv_sm90`` and
+    ``flash_bwd_dq_sm90`` are held (and the biased templates beside them):
+    bf16, head dim 64, one tile, its ragged neighbour, T=1000 with
+    contiguous q/k/v (:func:`sparse_cases` holds its qkv views) and a ragged
+    T=1008, ``add`` and ``mul`` key biases, causal and not; then head dim 128
+    (the forward's key-bias instance; the backward takes the templates) at
+    T 65 and 1000, q/k/v views."""
     return [(T, "dense", None, torch.bfloat16, causal, kind, 64, view)
             for T, kind, causal, view in itertools.product(
                 (64, 65, 1000, 1008), ("add", "mul"), (False, True), ("qkv", "dense"))
-            if (T, view) != (1000, "qkv")]
+            if (T, view) != (1000, "qkv")] + [
+        (T, "dense", None, torch.bfloat16, causal, kind, 128, "qkv")
+        for T, kind, causal in itertools.product((65, 1000), ("add", "mul"), (False, True))]
 
 
 def dq_cases(H):
@@ -1328,6 +1492,29 @@ def first_fwd_lut_launch(dev, T=256, H=2, seed=14):
             for label, got, ref in (("o", o, ro), ("lse", lse, rlse))]
     print(f"flash_fwd_lut_sm90 first launch tutorial16 T={T}: completed in {ms:.1f} ms; "
           f"{flash_line({'': rows})}")
+
+
+def first_biased_fwd_launch(dev, H=4, seed=19):
+    """The first launches of the key-bias instances of ``flash_fwd_sm90``
+    (B=2, H=4, head dims 64 and 128, T 33, 65 and 200, causal, an ``add`` and
+    a ``mul`` key bias, batch row 1 fully padded with ``mul``, q/k/v views of
+    one qkv tensor), each waited for under SM90_DEADLINE_S and held against
+    its plain version with phase 2's limits.  Its inputs come from a
+    generator of its own."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    for d in fa.SM90_HEAD_DIMS[torch.bfloat16]:
+        for T, kind in ((33, "add"), (65, "mul"), (200, "add")):
+            kb, _ = bias_inputs(kind, gen, 2, T, dev)
+            q, k, v, _ = flash_inputs(dev, gen, torch.bfloat16, 2, T, H, d, "qkv")
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            o, lse = fa.flash_fwd_sm90(q, k, v, True, key_padding_bias=kb)
+            ms = wait_first(f"flash_fwd_sm90 {KEY_BIAS}", f"d={d} T={T}", t0)
+            ro, rlse = fa.flash_attention_reference_fwd(q, k, v, True, key_padding_bias=kb)
+            rows = [(label, *flash_close(f"first key-bias launch d={d} T={T}", label, got, ref))
+                    for label, got, ref in (("o", o, ro), ("lse", lse, rlse))]
+            print(f"flash_fwd_sm90 {KEY_BIAS} first launch d={d} T={T} {kind}: completed in "
+                  f"{ms:.1f} ms; {flash_line({'': rows})}")
 
 
 def first_biased_bwd_launch(dev, H=4, seed=15):
@@ -1369,8 +1556,9 @@ def check_sparse_kernels(dev, gen, B=2, H=4):
     (``flash_bwd_dkdv_sm90`` / ``flash_bwd_dq_sm90``: their key-bias
     instances)."""
     first_fwd_lut_launch(dev)
+    first_biased_fwd_launch(dev)
     first_biased_bwd_launch(dev)
-    max_err = {name: 0.0 for name in fa.BIASED_KERNELS + fa.LUT_KERNELS + fa.DENSE_BWD_SM90}
+    max_err = {name: 0.0 for name in fa.BIASED_KERNELS + fa.LUT_KERNELS + fa.DENSE_SM90}
     dq_only = ("flash_fwd_lut_sm90", "flash_fwd_lut", "flash_bwd_dq_lut_sm90",
                "flash_bwd_dq_lut")
     for held, cases, gen in ((None, sparse_cases(H), gen), (dq_only, dq_cases(H), gen),
@@ -1553,13 +1741,15 @@ def bert_train(dev, card, warmup=3, timed=10, fit_steps=20, preset="bert-large",
     torch.cuda.empty_cache()
 
     # 8b: unpadded batches (packed sequences): the forward with no bias
-    # 8c: "mode": "dense" (an all-ones layout) with padding: the dense biased forward and the
-    # key-bias instances of flash_bwd_dkdv_sm90 / flash_bwd_dq_sm90 (biased_bwd_kernel)
+    # 8c: "mode": "dense" (an all-ones layout) with padding: the key-bias instances of
+    # flash_fwd_sm90 (biased_fwd_kernel) and of flash_bwd_dkdv_sm90 / flash_bwd_dq_sm90
+    # (biased_bwd_kernel)
+    fwd_8c = fa.biased_fwd_kernel(torch.bfloat16, head_dim, False)
     dkdv_8c, dq_8c = fa.biased_bwd_kernel(torch.bfloat16, head_dim, False)
     for tag, section, padded, want in (
             ("8b", SPARSE_SECTION, False, {fwd_8b: 2 * L, dkdv: L, dq: L}),
             ("8c", {"mode": "dense", "block": 16}, True, {
-                "flash_fwd_biased": 2 * L, dkdv_8c: L, dq_8c: L})):
+                fwd_8c: 2 * L, dkdv_8c: L, dq_8c: L})):
         eng = bert_engine(dev, base, bert_data(1, 16, seq, vocab, padded), section=section,
                           preset=preset, seq=seq, micro=micro)
         torch.cuda.synchronize()
@@ -1577,12 +1767,17 @@ def bert_train(dev, card, warmup=3, timed=10, fit_steps=20, preset="bert-large",
                                     steps=1, unit="training step")
             spent = {what: [(t, c) for kname, (t, c) in by_name.items()
                             if re.search(pattern, kname)]
-                     for what, pattern in (("dK/dV", r"\bdense_dkdv_kernel"),
+                     for what, pattern in (("forward", r"\bfwd_sm90_kernel"),
+                                           ("dK/dV", r"\bdense_dkdv_kernel"),
                                            ("dQ", r"\bdense_dq_kernel"))}
-            print(f"profile train {preset} 8c dense: dense biased backward device time per "
-                  f"step {sum(t for v in spent.values() for t, _ in v) / 1e3:.2f} ms (" +
-                  ", ".join(f"{what} {sum(t for t, _ in v) / 1e3:.2f} ms over "
-                            f"{sum(c for _, c in v):.0f} launches" for what, v in spent.items())
+            ms = {what: sum(t for t, _ in v) / 1e3 for what, v in spent.items()}
+            print(f"profile train {preset} 8c dense: dense biased forward device time per step "
+                  f"{ms['forward']:.2f} ms over {sum(c for _, c in spent['forward']):.0f} "
+                  f"launches ({fwd_8c} {KEY_BIAS}; the template design took 83.8 ms a step, "
+                  f"PERF.md section 5), dense biased backward device time per step "
+                  f"{ms['dK/dV'] + ms['dQ']:.2f} ms (" +
+                  ", ".join(f"{what} {ms[what]:.2f} ms over {sum(c for _, c in spent[what]):.0f} "
+                            f"launches" for what in ("dK/dV", "dQ"))
                   + f"; {dkdv_8c} / {dq_8c}; the template design took 24 x 4.03 ms a step, "
                   f"PERF.md section 6) ({card})")
         del eng
@@ -1654,17 +1849,17 @@ def sparse_timing(dev, gen, bytes_per_s, card, B=8, T=2048, H=16, d=64):
                  names[2]: lambda: plains[2](lse, delta)}
         timed = list(names)
         # the template design on the same call
-        if names[0] == "flash_fwd_lut_sm90":
-            template = fwd_template(bias)
+        forwards = {names[0]}
+        for template, call in fwd_templates(q, k, v, lut, bias, None, False, names[0]).items():
             timed.append(template)
-            work[template], plain[template] = work[names[0]], plain[names[0]]
-            kernel[template] = lambda t=template: fa.sparse_fwd(t, q, k, v, lut, bias)
+            forwards.add(template)
+            work[template], plain[template], kernel[template] = work[names[0]], plain[names[0]], call
+        if names[0] == "flash_fwd_lut_sm90":
             groups = lut.groups("q")
             print(f"schedule {case}: {names[0]} {groups.visits_per_head.mean():.0f} visits on "
                   f"{groups.tiles_per_head.mean():.0f} output tiles per head (rows "
-                  f"{groups.unit} a slot); the template {template} "
+                  f"{groups.unit} a slot); the template {fwd_template(bias)} "
                   f"{lut.klen.sum() / lut.heads:.0f} 64 x 64 tiles per head")
-        forwards = {names[0], fwd_template(bias)}
         nt = -(-T // fa.TILE)
         for (name, (template, call)), side, tiles in zip(
                 bwd_templates(q, k, v, do, lut, bias, None, False, names).items(), "kq",
@@ -2533,12 +2728,11 @@ def main():
     rng = np.random.default_rng(0)
     prompts = [rng.integers(0, model.config.vocab_size, (int(n),))
                for n in rng.integers(32, 513, (16,))]
-    launches = {}
-    srv16, launches[pa.KERNELS["online"]], toks16 = serve(
-        engine, prompts, 32, "kv16", 16, "auto")
+    srv16, online, toks16 = serve(engine, prompts, 32, "kv16", 16, "auto")
     srv8, _, _ = serve(engine, prompts, 32, "kv8", 8, "auto")
-    _, launches[pa.KERNELS["exact"]], toks_exact = serve(
-        engine, prompts, 32, "kv16-exact", 16, "exact")
+    _, launches, toks_exact = serve(engine, prompts, 32, "kv16-exact", 16, "exact")
+    # the exact run's counts (the split kernel's; the first design's 0), the online run's own
+    launches[pa.KERNELS["online"]] = online[pa.KERNELS["online"]]
     same = sum(toks16[u] == toks_exact[u] for u in toks16)
     print(f"exact-kernel streams identical to online-kernel streams: "
           f"{same}/{len(prompts)}")
@@ -2556,7 +2750,7 @@ def main():
                 "max_abs_err": max_err[name], "ms": t16["kernels_ms"][name],
                 "plain_ms": t16["plain_ms"], "bound_ms": t16["bound_ms"],
                 "bound_by": t16["bound_by"], "library_ms": t16["library_ms"]}
-               for name in pa.KERNELS.values()]
+               for name in (*pa.KERNELS.values(), pa.TEMPLATE)]
     print(json.dumps({"int8_pool_timing": {k: t8[k] for k in (
         "kernels_ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
         "shape")}}))
@@ -2584,7 +2778,7 @@ def main():
     # the kernels line: each kernel at the shape its main-path run gives it
     # (8: the tutorial layout with padding; 8b: without; 8c: dense with padding)
     for name, case, run in (
-            ("flash_fwd_biased", "dense+pad", "8c"),
+            ("flash_fwd_biased", "dense+pad", "8c"),                # the template design: 0
             ("flash_bwd_dkdv_biased", "dense+pad", "8c"),           # the template design: 0
             ("flash_bwd_dq_biased", "dense+pad", "8c"),             # the template design: 0
             ("flash_fwd_lut", "tutorial16+pad", "8"),               # the template design: 0
@@ -2597,8 +2791,8 @@ def main():
         kernels.append({"name": name, "route": "cuda", "source": flash_source(name),
                         "replaces": REPLACES[name], "launches": bert_launches[run][name],
                         **ts[case][name]})
-    # the key-bias instances of the dense sm90 pair (one launch count per entry: 8c's run)
-    for name in fa.DENSE_BWD_SM90:
+    # the key-bias instances of the dense sm90 kernels (one launch count per entry: 8c's run)
+    for name in fa.DENSE_SM90:
         kernels.append({"name": f"{name} {KEY_BIAS}", "route": "cuda",
                         "source": flash_source(name), "replaces": REPLACES[f"{name} {KEY_BIAS}"],
                         "launches": bert_launches["8c"][name], **ts["dense+pad"][name]})

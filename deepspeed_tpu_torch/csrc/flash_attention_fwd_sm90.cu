@@ -1,13 +1,19 @@
 // Flash-attention forward for Hopper (sm_90a) built the way the card is meant to be used:
-// the entry flash_fwd_sm90, bf16, head dims 64 and 128, causal or not.
+// the entry flash_fwd_sm90, bf16, head dims 64 and 128, causal or not, with or without a key
+// bias.
 //
 // Replaces the Pallas TPU kernel _fwd_kernel of deepspeed_tpu/ops/transformer/flash_attention.py
-// (144-283, built by _fwd 441-613) on its dense path, no biases and no LUT.  The template
-// fwd_kernel of flash_attention.cuh (4 warps, 64-row q tiles, mma.sync, a cp.async double
-// buffer) keeps fp32 and head dim 96; ops/transformer/flash_attention.py routes bf16 at head
-// dims 64 and 128 here.  It computes what fwd_kernel computes on its dense path:
-//   S = Q K^T * scale, masked with NEG_INF = -1e30 where k_pos >= T or, when causal,
-//   q_pos < k_pos; an online softmax over the visited k tiles with fp32 m, l and O; P
+// (144-283, built by _fwd 441-613) on its dense path with no LUT: without a bias, and (the kBias
+// instances) with use_kbias, the (B, T) key bias added to the scores at 218 (reached through
+// flash_attention(key_padding_bias=) 913 -> _biased_call 1221 -> _make_biased_bhtd 1178).  The
+// template fwd_kernel of flash_attention.cuh (4 warps, 64-row q tiles, mma.sync, a cp.async
+// double buffer) keeps fp32, head dim 96 and the (T, T) score bias (flash_fwd and
+// flash_fwd_biased); ops/transformer/flash_attention.py routes bf16 at head dims 64 and 128
+// here (dense_fwd_kernel, biased_fwd_kernel).  It computes what fwd_kernel computes on its
+// dense path:
+//   S = Q K^T * scale (+ kbias[b, k_pos]), masked with NEG_INF = -1e30 where k_pos >= T or,
+//   when causal, q_pos < k_pos; an online softmax over the visited k tiles with fp32 m, l and
+//   O; P
 //   rounded to bf16 before P V; O = acc / l written bf16, contiguous (B, T, H, D); lse =
 //   m + log l, fp32 (B, H, T), natural log; a row with no live key writes O = 0 and lse =
 //   NEG_INF (row_live, 278-283).  The backward kernels read this lse.
@@ -46,11 +52,23 @@
 //     K / V tiles while the consumers finish this one, so an item's start and end overlap
 //     its neighbours' work instead of each block's paying its own;
 //   * the epilogue scales O by 1/l, writes it bf16 into the warpgroup's staging tile in the
-//     swizzled layout and stores it with one TMA store per box (rows past T are clipped).
+//     swizzled layout and stores it with one TMA store per box (rows past T are clipped);
+//   * the key bias (kBias): a (B, T) fp32 row of any T has no 16-byte aligned stride, so no
+//     TMA map: the producer warp's 32 lanes copy each K tile's kBN bias values with 4-byte
+//     cp.async into a ring of their own beside K (zeros from T on), after the stage's V slot
+//     is free (the consumers read the bias until their P V), arriving on the stage's K full
+//     barrier, which then counts 1 + 32 arrivals.  The consumers add it in log2 units
+//     (kbias log2 e) to every score before the row maximum, on masked and unmasked tiles
+//     alike; a padded key (-10000, or NEG_INF for a mul bias) needs no element mask, and a
+//     row whose every key carries NEG_INF keeps m = NEG_INF and writes O = 0, lse = NEG_INF
+//     (the live test of the epilogue), which the key-bias backward kernels read as +inf.
+//     The producer keeps 40 registers and the consumers 232 in these instances (24 / 240
+//     without the bias, where the producer is one thread).
 // flash_fwd_sm90_schedule in ops/transformer/flash_attention.py is this kernel's schedule
 // in Python (the q tiles in launch order, the k tiles each visits, the masked ones).
 //
-// C interface for ctypes: the argument list of flash_fwd (flash_attention.cu); returns
+// C interface for ctypes: the argument list of flash_fwd (flash_attention.cu), then the key
+// bias (null for none) before the stream; returns
 // cudaGetLastError() after the launch (0 on success), -1 for a dtype / head dim / shape it
 // was not built for, -2 when a tensor map cannot be encoded (alignment, strides) and -3
 // when the driver has no cuTensorMapEncodeTiled.
@@ -60,6 +78,8 @@
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -76,7 +96,7 @@ constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
 constexpr unsigned long long kHangNs = 2000000000ull;      // an mbarrier wait past this traps
 
-template <int D>
+template <int D, bool kBias>
 struct Cfg {
   static constexpr int kBN = 128;      // keys per K / V tile
   static constexpr int kStages = 2;    // K and V tiles in the ring
@@ -84,8 +104,13 @@ struct Cfg {
   static constexpr int kQBytes = kBQ * D * 2;           // the Q tile, and O's staging tile
   static constexpr int kTileBytes = kBN * D * 2;        // one K or V tile
   static constexpr int kTileBox = kBN * 128;            // one box of a K or V tile
-  static constexpr size_t kSmem =
-      1024 + 2 * kQBytes + 2 * static_cast<size_t>(kStages) * kTileBytes + 8 * (2 + 4 * kStages);
+  static constexpr int kBiasBytes = kBias ? kStages * kBN * 4 : 0;   // the key bias's ring
+  static constexpr size_t kSmem = 1024 + 2 * kQBytes + 2 * static_cast<size_t>(kStages) * kTileBytes +
+                                  kBiasBytes + 8 * (2 + 4 * kStages);
+  // setmaxnreg: the producer warpgroup's and the consumers' registers (the bias instances'
+  // producer warp runs 32 lanes of copies)
+  static constexpr int kProducerRegs = kBias ? 40 : 24;
+  static constexpr int kConsumerRegs = kBias ? 232 : 240;
 };
 
 __host__ __device__ __forceinline__ int cdiv(int a, int b) { return (a + b - 1) / b; }
@@ -163,6 +188,21 @@ __device__ __forceinline__ void tma_store(const CUtensorMap* map, const void* sr
           reinterpret_cast<uint64_t>(map)),
       "r"(smem_addr(src)), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
       : "memory");
+}
+
+// 4 bytes from global to shared memory, asynchronously; zeros where !valid (src is then not
+// read, but must be a valid address)
+__device__ __forceinline__ void cp_async4(void* dst, const void* src, bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_addr(dst)), "l"(src),
+               "r"(valid ? 4 : 0)
+               : "memory");
+}
+
+// An arrival on an mbarrier once the thread's earlier cp.async copies have landed; it is one of
+// the arrivals the barrier was initialised to expect (noinc)
+__device__ __forceinline__ void cp_async_arrive(uint64_t* bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(smem_addr(bar))
+               : "memory");
 }
 
 __device__ __forceinline__ void named_barrier(int id) {
@@ -266,6 +306,7 @@ __device__ __forceinline__ float quad_sum(float x) {
 
 struct Params {
   float* lse;
+  const float* kbias;  // (B, T) fp32, contiguous: the key bias (kBias instances)
   int T, H, causal;
   int nq, n_work;  // q tiles per (b, h); work items (q tile, b, h)
   float scale2;    // scale * log2 e
@@ -275,12 +316,12 @@ struct Params {
 // Accumulator layout of a warpgroup's 64 x N product (wgmma, fp32): warp w of the group
 // holds rows 16 w + g and 16 w + g + 8 (g = lane / 4); element 4 n + 2 r + e is row
 // 16 w + g + 8 r, column 8 n + 2 (lane % 4) + e.
-template <int D>
+template <int D, bool kBias>
 __global__ void __launch_bounds__(kThreads, 1)
     fwd_sm90_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
                     const __grid_constant__ CUtensorMap tv, const __grid_constant__ CUtensorMap to,
                     Params p) {
-  using C = Cfg<D>;
+  using C = Cfg<D, kBias>;
   constexpr int kBN = C::kBN, kS = C::kStages, kBoxes = C::kBoxes;
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   // 128-byte swizzled tiles must start on 1024 bytes
@@ -289,7 +330,8 @@ __global__ void __launch_bounds__(kThreads, 1)
   unsigned char* sO = sQ + C::kQBytes;             // the same, O on its way out
   unsigned char* sK = sO + C::kQBytes;             // [stage][box][kBN rows][128 bytes]
   unsigned char* sV = sK + kS * C::kTileBytes;     // the same
-  uint64_t* q_full = reinterpret_cast<uint64_t*>(sV + kS * C::kTileBytes);
+  float* sKb = reinterpret_cast<float*>(sV + kS * C::kTileBytes);  // [stage][kBN] (kBias)
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(sV + kS * C::kTileBytes + C::kBiasBytes);
   uint64_t* q_empty = q_full + 1;
   uint64_t* k_full = q_empty + 1;
   uint64_t* k_empty = k_full + kS;
@@ -318,7 +360,7 @@ __global__ void __launch_bounds__(kThreads, 1)
     mbar_init(q_empty, kConsumers * 4);  // one arrival per consumer warp
 #pragma unroll
     for (int s = 0; s < kS; ++s) {
-      mbar_init(&k_full[s], 1);
+      mbar_init(&k_full[s], kBias ? 1 + 32 : 1);  // the TMA issue (and the key bias lanes)
       mbar_init(&v_full[s], 1);
       mbar_init(&k_empty[s], kConsumers * 4);
       mbar_init(&v_empty[s], kConsumers * 4);
@@ -329,41 +371,60 @@ __global__ void __launch_bounds__(kThreads, 1)
 
   if (wg == 0) {
     // ------------------------------------------------------------ producer
-    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n");
-    if (threadIdx.x != 0) return;
+    // thread 0 issues every TMA copy; with the key bias, the warp's 32 lanes copy the bias
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(C::kProducerRegs));
+    const int lane = threadIdx.x;
+    if (lane >= (kBias ? 32 : 1)) return;
     int t = 0;  // K / V tiles issued by this block
     for (int i = 0, w = work(0); w < p.n_work; w = work(++i)) {
       int b, h, q0;
       item(w, b, h, q0);
       const int nk = n_ktiles(T, q0, p.causal, kBN);
-      mbar_wait(q_empty, (i & 1) ^ 1);  // the previous item's last Q K^T is done
-      mbar_expect_tx(q_full, C::kQBytes);
+      if (lane == 0) {
+        mbar_wait(q_empty, (i & 1) ^ 1);  // the previous item's last Q K^T is done
+        mbar_expect_tx(q_full, C::kQBytes);
 #pragma unroll
-      for (int c = 0; c < kConsumers; ++c)
+        for (int c = 0; c < kConsumers; ++c)
 #pragma unroll
-        for (int x = 0; x < kBoxes; ++x)
-          tma_load(sQ + (c * kBoxes + x) * kBoxBytes, &tq, q_full, x * kBox, h, q0 + 64 * c, b);
+          for (int x = 0; x < kBoxes; ++x)
+            tma_load(sQ + (c * kBoxes + x) * kBoxBytes, &tq, q_full, x * kBox, h, q0 + 64 * c, b);
+      }
       // k tiles from the last (the diagonal one, or the ragged end) down to 0
       for (int j = nk - 1; j >= 0; --j, ++t) {
         const int s = t % kS, ph = (t / kS) & 1;
-        mbar_wait(&k_empty[s], ph ^ 1);
-        mbar_expect_tx(&k_full[s], C::kTileBytes);
+        if (lane == 0) {
+          mbar_wait(&k_empty[s], ph ^ 1);
+          mbar_expect_tx(&k_full[s], C::kTileBytes);
 #pragma unroll
-        for (int x = 0; x < kBoxes; ++x)
-          tma_load(sK + s * C::kTileBytes + x * C::kTileBox, &tk, &k_full[s], x * kBox, h,
-                   j * kBN, b);
-        mbar_wait(&v_empty[s], ph ^ 1);
-        mbar_expect_tx(&v_full[s], C::kTileBytes);
+          for (int x = 0; x < kBoxes; ++x)
+            tma_load(sK + s * C::kTileBytes + x * C::kTileBox, &tk, &k_full[s], x * kBox, h,
+                     j * kBN, b);
+        }
+        mbar_wait(&v_empty[s], ph ^ 1);  // and the stage's bias slot is read
+        if (kBias) {
+          // keys j kBN .. j kBN + kBN - 1 of batch row b, four a lane, zeros from T on
 #pragma unroll
-        for (int x = 0; x < kBoxes; ++x)
-          tma_load(sV + s * C::kTileBytes + x * C::kTileBox, &tv, &v_full[s], x * kBox, h,
-                   j * kBN, b);
+          for (int x = 0; x < kBN / 32; ++x) {
+            const int col = j * kBN + 32 * x + lane;
+            const bool in = col < T;
+            cp_async4(sKb + s * kBN + 32 * x + lane,
+                      p.kbias + (in ? static_cast<long long>(b) * T + col : 0), in);
+          }
+          cp_async_arrive(&k_full[s]);
+        }
+        if (lane == 0) {
+          mbar_expect_tx(&v_full[s], C::kTileBytes);
+#pragma unroll
+          for (int x = 0; x < kBoxes; ++x)
+            tma_load(sV + s * C::kTileBytes + x * C::kTileBox, &tv, &v_full[s], x * kBox, h,
+                     j * kBN, b);
+        }
       }
     }
     return;
   }
   // -------------------------------------------------------------- consumers
-  asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n");
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(C::kConsumerRegs));
   const int c = wg - 1;
   const int tid = static_cast<int>(threadIdx.x) - wg * kWgThreads;
   const int warp = tid >> 5, lane = tid & 31;
@@ -411,22 +472,41 @@ __global__ void __launch_bounds__(kThreads, 1)
 
       // the online softmax in log2 units; only a tile crossing the diagonal or the ragged
       // end takes the per-element mask.  Row max and row sum over four independent
-      // partials per row (short dependency chains): partial (n % 2) * 2 + e % 2 of row e / 2
+      // partials per row (short dependency chains): partial (n % 2) * 2 + e % 2 of row e / 2.
+      // With the key bias every score is scaled and biased in place first (pre)
       const bool masked = k0 + kBN > T || (p.causal && k0 + kBN - 1 > qw);
+      const bool pre = kBias || masked;
       float mp[2][4];
-      if (masked) {
+      if (pre) {
+        const float* kb = sKb + s * kBN;   // this tile's key bias (kBias)
+        // scores scaled (and biased) in place, with (kMasked) or without the element mask
+        auto scale_bias = [&](auto kMasked) {
 #pragma unroll
-        for (int e = 0; e < 8; ++e) mp[e >> 2][e & 3] = kNegInf;
+          for (int e = 0; e < 8; ++e) mp[e >> 2][e & 3] = kNegInf;
 #pragma unroll
-        for (int n = 0; n < kBN / 8; ++n)
+          for (int n = 0; n < kBN / 8; ++n) {
+            float2 kb2 = make_float2(0.f, 0.f);
+            if (kBias) {
+              kb2 = *reinterpret_cast<const float2*>(kb + n * 8 + qd);
+              kb2.x *= kLog2e;
+              kb2.y *= kLog2e;
+            }
 #pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            const int r = e >> 1, col = k0 + n * 8 + qd + (e & 1);
-            const bool valid = col < T && (!p.causal || row[r] >= col);
-            const float x = valid ? sc[4 * n + e] * scale2 : kNegInf;
-            sc[4 * n + e] = x;
-            mp[r][(n & 1) * 2 + (e & 1)] = fmaxf(mp[r][(n & 1) * 2 + (e & 1)], x);
+            for (int e = 0; e < 4; ++e) {
+              const int r = e >> 1, col = k0 + n * 8 + qd + (e & 1);
+              float x = kBias ? fmaf(sc[4 * n + e], scale2, (e & 1) ? kb2.y : kb2.x)
+                              : sc[4 * n + e] * scale2;
+              if (decltype(kMasked)::value && !(col < T && (!p.causal || row[r] >= col)))
+                x = kNegInf;
+              sc[4 * n + e] = x;
+              mp[r][(n & 1) * 2 + (e & 1)] = fmaxf(mp[r][(n & 1) * 2 + (e & 1)], x);
+            }
           }
+        };
+        if (!kBias || masked)
+          scale_bias(std::true_type());
+        else
+          scale_bias(std::false_type());
       } else if (scale2 >= 0.f) {  // max(S) * scale = max(S * scale)
 #pragma unroll
         for (int e = 0; e < 8; ++e) mp[e >> 2][e & 3] = sc[(e >> 2) * 2 + (e & 1) + (e & 2) * 2];
@@ -452,11 +532,11 @@ __global__ void __launch_bounds__(kThreads, 1)
 #pragma unroll
       for (int r = 0; r < 2; ++r) {
         float mx;
-        if (masked || scale2 >= 0.f)
+        if (pre || scale2 >= 0.f)
           mx = quad_max(fmaxf(fmaxf(mp[r][0], mp[r][1]), fmaxf(mp[r][2], mp[r][3])));
         else
           mx = quad_min(fminf(fminf(mp[r][0], mp[r][1]), fminf(mp[r][2], mp[r][3])));
-        if (!masked) mx *= scale2;
+        if (!pre) mx *= scale2;
         mn[r] = fmaxf(m[r], mx);
         alpha[r] = exp2_ftz(m[r] - mn[r]);
         m[r] = mn[r];
@@ -468,6 +548,15 @@ __global__ void __launch_bounds__(kThreads, 1)
 #pragma unroll
           for (int e = 0; e < 4; ++e) {
             const float x = sc[4 * n + e] == kNegInf ? 0.f : exp2_ftz(sc[4 * n + e] - mn[e >> 1]);
+            sc[4 * n + e] = x;
+            ls[e >> 1][(n & 1) * 2 + (e & 1)] += x;
+          }
+      } else if (kBias) {
+#pragma unroll
+        for (int n = 0; n < kBN / 8; ++n)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const float x = exp2_ftz(sc[4 * n + e] - mn[e >> 1]);
             sc[4 * n + e] = x;
             ls[e >> 1][(n & 1) * 2 + (e & 1)] += x;
           }
@@ -593,11 +682,11 @@ bool make_map(EncodeTiled enc, CUtensorMap* map, const void* base, const long lo
              CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-template <int D>
+template <int D, bool kBias>
 int launch(const void* q, const void* k, const void* v, void* out, float* lse,
            const long long* strides, int B, int T, int H, int causal, float scale,
-           cudaStream_t stream) {
-  using C = Cfg<D>;
+           const float* kbias, cudaStream_t stream) {
+  using C = Cfg<D, kBias>;
   EncodeTiled enc = encode_tiled();
   if (enc == nullptr) return -3;
   CUtensorMap mq, mk, mv, mo;
@@ -608,30 +697,43 @@ int launch(const void* q, const void* k, const void* v, void* out, float* lse,
       !make_map(enc, &mo, out, so, B, T, H, D, 64))
     return -2;
   const int nq = cdiv(T, kBQ), n_work = nq * B * H;
-  const Params p = {lse, T, H, causal, nq, n_work, scale * kLog2e};
+  const Params p = {lse, kbias, T, H, causal, nq, n_work, scale * kLog2e};
   int dev = 0, sms = 0;
   cudaError_t e = cudaFuncSetAttribute(
-      fwd_sm90_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(C::kSmem));
+      fwd_sm90_kernel<D, kBias>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(C::kSmem));
   if (e == cudaSuccess) e = cudaGetDevice(&dev);
   if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (e != cudaSuccess) return static_cast<int>(e);
   const int grid = sms < n_work ? sms : n_work;  // persistent: one block per SM
-  fwd_sm90_kernel<D><<<grid, kThreads, C::kSmem, stream>>>(mq, mk, mv, mo, p);
+  fwd_sm90_kernel<D, kBias><<<grid, kThreads, C::kSmem, stream>>>(mq, mk, mv, mo, p);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <int D>
+int launch_bias(const void* q, const void* k, const void* v, void* out, float* lse,
+                const long long* strides, int B, int T, int H, int causal, float scale,
+                const float* kbias, cudaStream_t stream) {
+  return kbias != nullptr
+             ? launch<D, true>(q, k, v, out, lse, strides, B, T, H, causal, scale, kbias, stream)
+             : launch<D, false>(q, k, v, out, lse, strides, B, T, H, causal, scale, kbias, stream);
 }
 
 }  // namespace
 
-// strides: 12 int64, the (b, t, h) element strides of q, k, v (and dout's, ignored here).
+// strides: 12 int64, the (b, t, h) element strides of q, k, v (and dout's, ignored here);
+// kbias: the (B, T) fp32 key bias, contiguous, or null for none.
 extern "C" int flash_fwd_sm90(int dtype, int head_dim, const void* q, const void* k,
                               const void* v, void* out, float* lse, const long long* strides,
-                              int B, int T, int H, int causal, float scale, void* stream) {
+                              int B, int T, int H, int causal, float scale, const float* kbias,
+                              void* stream) {
   if (dtype != 1 || static_cast<long long>(cdiv(T, kBQ)) * B * H > 0x7fffffffLL) return -1;
   if (T == 0 || B * H == 0) return 0;
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
   switch (head_dim) {
-    case 64: return launch<64>(q, k, v, out, lse, strides, B, T, H, causal, scale, st);
-    case 128: return launch<128>(q, k, v, out, lse, strides, B, T, H, causal, scale, st);
+    case 64: return launch_bias<64>(q, k, v, out, lse, strides, B, T, H, causal, scale, kbias, st);
+    case 128:
+      return launch_bias<128>(q, k, v, out, lse, strides, B, T, H, causal, scale, kbias, st);
     default: return -1;
   }
 }

@@ -19,17 +19,23 @@ block-sparse bf16 forward at head dim 64 in
 ``flash_attention_sparse_fwd_sm90.cu``; the last two share the helpers of
 ``flash_attention_sm90.cuh``), one wrapper and one launch counter per entry:
 
-- ``flash_fwd_sm90`` (for ``_fwd_kernel`` 144, dense): the bf16 forward
-  at head dims 64 and 128 with TMA, an mbarrier ring fed by a producer
-  warp, ``wgmma`` and 128-row q tiles over two consumer warpgroups;
+- ``flash_fwd_sm90`` (for ``_fwd_kernel`` 144, dense, with or without
+  ``use_kbias`` 218): the bf16 forward at head dims 64 and 128 with TMA,
+  an mbarrier ring fed by a producer warp, ``wgmma`` and 128-row q tiles
+  over two consumer warpgroups; with the (B, T) key bias (its key-bias
+  instances) the producer warp's lanes copy each K tile's bias with
+  ``cp.async`` beside it and the softmax adds it in log2 units.
   :func:`flash_fwd` sends CUDA tensors of that dtype and head dim there
-  (:func:`dense_fwd_kernel`), by dtype and head dim alone, and
-  :func:`flash_fwd_sm90_schedule` is its schedule in Python;
+  (:func:`dense_fwd_kernel`), by dtype and head dim alone, and so does
+  :func:`flash_fwd_biased` with no (T, T) score bias
+  (:func:`biased_fwd_kernel`); :func:`flash_fwd_sm90_schedule` is its
+  schedule in Python;
 - ``flash_fwd`` / ``flash_fwd_biased`` / ``flash_fwd_lut`` (for
   ``_fwd_kernel`` 144: dense, fp32 and bf16 at head dim 96; with the (B,
-  T) key bias and the (T, T) score bias; over the live tiles of a LUT,
-  with the biases): online softmax over the visited k tiles, O in the
-  input dtype and the fp32 logsumexp;
+  T) key bias and the (T, T) score bias, for fp32, head dim 96 and any
+  score bias; over the live tiles of a LUT, with the biases): online
+  softmax over the visited k tiles, O in the input dtype and the fp32
+  logsumexp;
 - ``flash_fwd_lut_ring`` (for ``_fwd_kernel_dma`` 306): the unbiased LUT
   forward with a 3-deep ring of K/V tiles in flight;
 - ``flash_fwd_lut_sm90`` (for ``_fwd_kernel`` with ``use_lut`` and
@@ -190,6 +196,8 @@ SM90_HEAD_DIMS = {torch.bfloat16: (64, 128)}
 # dK/dV instances spill and two pipes of four stages do not fit in shared memory)
 SM90_BWD_HEAD_DIMS = {torch.bfloat16: (64,)}
 DENSE_BWD_SM90 = ("flash_bwd_dkdv_sm90", "flash_bwd_dq_sm90")
+# the dense sm90 entries, which take the (B, T) key bias's pointer (null for none) last
+DENSE_SM90 = ("flash_fwd_sm90",) + DENSE_BWD_SM90
 SM90_BLOCK_Q, SM90_BLOCK_N = 128, 128
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 TILE = 64            # the kernels' q and k tile rows (kBQ, kBK)
@@ -835,9 +843,9 @@ def _entry(name):
         v, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         n_ptr = 8 if "dkdv" in fn_name else 7 if "_dq" in fn_name else 5
         args = [i, i] + [v] * n_ptr + [v, i, i, i, i, f]
-        # a variant takes its Extra, a group kernel its schedule, a dense sm90 backward its
-        # key bias (or null), before the stream
-        structs = 0 if variant is None and name not in GROUP_KERNELS + DENSE_BWD_SM90 else 1
+        # a variant takes its Extra, a group kernel its schedule, a dense sm90 entry its key
+        # bias (or null), before the stream
+        structs = 0 if variant is None and name not in GROUP_KERNELS + DENSE_SM90 else 1
         fn.argtypes = ([] if variant is None else [i]) + args + [v] * structs + [v]
         fn.restype = ctypes.c_int
     return fn if variant is None else functools.partial(fn, variant)
@@ -858,13 +866,23 @@ def _fwd(name, q, k, v, causal, sm_scale, lut=None, kbias=None, abias=None):
     B, T, H, d = q.shape
     _check(name, (q, k, v), q.dtype, d,
            SM90_HEAD_DIMS if name == "flash_fwd_sm90" else HEAD_DIMS)
-    extra = [] if ENTRIES[name][2] is None else [_extra(name, q, lut, kbias, abias, "k")]
+    template = ENTRIES[name][2] is not None       # the variants take both biases in their Extra
+    for label, bias, taken in (("key_padding_bias", kbias, template or name in DENSE_SM90),
+                               ("attn_bias", abias, template)):
+        if bias is not None and not taken:
+            raise ValueError(f"{name}: takes no {label}")
+    if template:
+        extra = [_extra(name, q, lut, kbias, abias, "k")]    # checks the biases and the LUT
+    else:
+        extra = []
+        _check_extra(name, q, None, kbias, abias)
     o = torch.empty((B, T, H, d), dtype=q.dtype, device=q.device)
     lse = torch.empty((B, H, T), dtype=torch.float32, device=q.device)
     strides = _strides(q, k, v)
     _run(name, _DTYPE_CODES[q.dtype], d, q.data_ptr(), k.data_ptr(), v.data_ptr(),
          o.data_ptr(), lse.data_ptr(), ctypes.addressof(strides), B, T, H, int(causal),
-         _scale(q, sm_scale), *(ctypes.addressof(x) for x in extra), device=q.device)
+         _scale(q, sm_scale), *(ctypes.addressof(x) for x in extra), *_dense_kbias(name, kbias),
+         device=q.device)
     return o, lse
 
 
@@ -887,10 +905,11 @@ def flash_fwd_template(q, k, v, causal=True, sm_scale=None):
     return _fwd("flash_fwd", q, k, v, causal, sm_scale)
 
 
-def flash_fwd_sm90(q, k, v, causal=True, sm_scale=None):
+def flash_fwd_sm90(q, k, v, causal=True, sm_scale=None, key_padding_bias=None):
     """``(o, lse)``: the ``flash_fwd_sm90`` kernel (bf16, head dims 64 and
-    128; others raise) for CUDA tensors, the plain version for CPU ones."""
-    return _fwd("flash_fwd_sm90", q, k, v, causal, sm_scale)
+    128; others raise), with the optional fp32 (B, T) key bias (its kBias
+    instances), for CUDA tensors, the plain version for CPU ones."""
+    return _fwd("flash_fwd_sm90", q, k, v, causal, sm_scale, kbias=key_padding_bias)
 
 
 def flash_fwd_sm90_blocks(n_work, n_sms):
@@ -941,10 +960,32 @@ def flash_fwd_sm90_schedule(T, causal, block_n=SM90_BLOCK_N):
     return out
 
 
+def biased_fwd_kernel(dtype, head_dim, has_abias):
+    """The dense biased forward kernel a CUDA tensor of ``dtype`` and
+    ``head_dim`` takes: ``flash_fwd_sm90`` (its key-bias instance) for bf16
+    at head dims 64 and 128 with no (T, T) score bias, else the template
+    ``flash_fwd_biased`` (fp32, head dim 96, any score bias).  Decided
+    before any launch, never by a failure."""
+    if not has_abias and head_dim in SM90_HEAD_DIMS.get(dtype, ()):
+        return "flash_fwd_sm90"
+    return "flash_fwd_biased"
+
+
 def flash_fwd_biased(q, k, v, key_padding_bias=None, attn_bias=None, causal=True,
                      sm_scale=None):
     """``(o, lse)`` with the additive fp32 biases ``key_padding_bias``
-    (B, T) and ``attn_bias`` (T, T), each optional: ``flash_fwd_biased``."""
+    (B, T) and ``attn_bias`` (T, T), each optional: for CUDA tensors the
+    kernel of :func:`biased_fwd_kernel`, for CPU tensors the plain
+    version."""
+    name = biased_fwd_kernel(q.dtype, q.shape[-1], attn_bias is not None)
+    return _fwd(name, q, k, v, causal, sm_scale, None, key_padding_bias, attn_bias)
+
+
+def flash_fwd_biased_template(q, k, v, key_padding_bias=None, attn_bias=None, causal=True,
+                              sm_scale=None):
+    """``(o, lse)``: the template ``flash_fwd_biased`` kernel whatever the
+    dtype, head dim and biases (for CUDA tensors; the plain version for CPU
+    ones)."""
     return _fwd("flash_fwd_biased", q, k, v, causal, sm_scale, None, key_padding_bias,
                 attn_bias)
 
@@ -1091,9 +1132,9 @@ def _bwd_dq(name, q, k, v, do, lse, delta, causal, sm_scale, lut=None, kbias=Non
 
 
 def _dense_kbias(name, kbias):
-    """The key-bias argument of a dense sm90 backward entry (null for none;
-    its kernels read it with 4-byte copies); no argument for the rest."""
-    if name not in DENSE_BWD_SM90:
+    """The key-bias argument of a dense sm90 entry (null for none; its
+    kernels read it with 4-byte copies); no argument for the rest."""
+    if name not in DENSE_SM90:
         return []
     return [None if kbias is None else kbias.data_ptr()]
 
@@ -1454,7 +1495,9 @@ class _MaskedFlashAttention(torch.autograd.Function):
     :class:`MergedLut` ``flash_fwd_merged``; else the LUT forward takes the
     kernel :func:`sparse_fwd_kernel` names (``flash_fwd_lut_sm90``, or the
     templates ``flash_fwd_lut_ring`` and ``flash_fwd_lut``), and the dense
-    biased one ``flash_fwd_biased``.  The backward takes the LUT kernels
+    biased one the kernel :func:`biased_fwd_kernel` names (the key-bias
+    instance of ``flash_fwd_sm90``, or the template ``flash_fwd_biased``).
+    The backward takes the LUT kernels
     over ``lut``, or without one the dense biased route
     (:func:`biased_bwd_kernel`: the key-bias instances of
     ``flash_bwd_dkdv_sm90`` / ``flash_bwd_dq_sm90``, or the templates).

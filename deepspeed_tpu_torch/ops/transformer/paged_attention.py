@@ -1,16 +1,22 @@
 """In-place paged attention over the shared KV pool: CUDA kernels for Hopper.
 
 Counterpart of ``deepspeed_tpu/ops/transformer/paged_attention.py``.
-The two Pallas kernels there become two hand-written CUDA kernels in
+The two Pallas kernels there become hand-written CUDA kernels in
 ``deepspeed_tpu_torch/csrc/paged_attention.cu``:
 
 - ``paged_attention_online`` (for ``_online_kernel``): the default on
   CUDA; walks only the slot's live rows with an fp32 online softmax;
-- ``paged_attention_exact`` (for ``_exact_kernel``): the full score
-  row in shared memory and an epilogue that mirrors
-  ``GPT2._masked_attend`` op for op, the card's exact mode.
+- ``paged_attention_exact_sm90`` (for ``_exact_kernel``): the card's
+  exact mode, an epilogue that mirrors ``GPT2._masked_attend`` op for op,
+  each (slot, head) split over a thread-block cluster of up to 8 blocks
+  (:func:`exact_sm90_plan`, :func:`exact_sm90_split`) that reduce the
+  row max and sum through distributed shared memory;
+- ``paged_attention_exact``: the first design of the exact kernel (one
+  block a (slot, head), the full score row in shared memory), callable
+  by name through :func:`paged_attention_exact_template` as the
+  yardstick beside its redesign; no main path launches it.
 
-Both read K/V straight from the pool through the block table (no
+All read K/V straight from the pool through the block table (no
 gathered copy) and dequantize int8 pools in registers.  Queries are a
 ``(B, W, H, hd)`` window (W=1 is plain decode, W <= 8), masked causally
 inside the window: key position ``s`` is live for window row ``w`` iff
@@ -35,13 +41,19 @@ from ...inference import paged_kv as pk
 # the oracle's mask value (GPT2._masked_attend uses finfo(float32).min)
 NEG_INF = float(torch.finfo(torch.float32).min)
 
-KERNELS = {"exact": "paged_attention_exact", "online": "paged_attention_online"}
+KERNELS = {"exact": "paged_attention_exact_sm90", "online": "paged_attention_online"}
+# the first design of the exact kernel, launched only by name (the yardstick beside its redesign)
+TEMPLATE = "paged_attention_exact"
 # launches per kernel since the last reset_launches(); only kernel launches count
-launches = {name: 0 for name in KERNELS.values()}
+launches = {name: 0 for name in (*KERNELS.values(), TEMPLATE)}
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 MAX_WINDOW = 8
 HEAD_DIMS = (64, 128)
+# paged_attention_exact_sm90's split (csrc/paged_attention.cu: kMaxRanks, kRankRows,
+# kStageBytes): ranks of a (slot, head)'s cluster, rows a rank is planned for, bytes of K + V
+# rows staged at once
+SPLIT_MAX_RANKS, SPLIT_RANK_ROWS, SPLIT_STAGE_BYTES = 8, 128, 24576
 
 
 def reset_launches():
@@ -57,6 +69,31 @@ def resolve_mode(mode: str) -> str:
         raise ValueError(
             f"paged-attention mode must be auto|exact|online, got {mode!r}")
     return mode
+
+
+def exact_sm90_plan(S, head_dim, itemsize, n_scales=0):
+    """``paged_attention_exact_sm90``'s split of a launch, from the shapes
+    alone, as the kernel's host side computes it: ``(C, cap, R)``, the
+    ranks of each (slot, head)'s cluster (``ceil(S / 128)``, at most 8),
+    the most rows a rank takes (``ceil(S / C)``) and the rows it stages in
+    shared memory at once (its K and V rows of ``head_dim * itemsize``
+    bytes and, for an int8 pool, ``n_scales`` fp32 scales each, within a
+    24 KB budget; a longer chunk streams through the buffer in pieces)."""
+    C = min(SPLIT_MAX_RANKS, max(1, -(-S // SPLIT_RANK_ROWS)))
+    cap = -(-S // C)
+    per_row = 2 * (head_dim * itemsize + 4 * n_scales)
+    return C, cap, min(cap, max(1, SPLIT_STAGE_BYTES // per_row))
+
+
+def exact_sm90_split(length, W, S, C):
+    """The rows each of the ``C`` ranks of a slot's cluster takes, as the
+    kernel splits them: ``[(r0, r1), ...]``, rank ``r`` the contiguous live
+    rows ``[r c, min((r + 1) c, n))`` of the ``n = min(length + W, S)``
+    rows the window reaches, ``c = ceil(n / C)`` (a rank past them takes
+    none, and joins the cluster's reductions all the same)."""
+    n = max(min(length + W, S), 0)
+    c = -(-n // C)
+    return [(min(r * c, n), min(r * c + c, n)) for r in range(C)]
 
 
 def paged_attention_reference(q, pool, block_tables, lengths, layer, *,
@@ -103,13 +140,24 @@ def paged_attention(q, pool, block_tables, lengths, layer: int, *,
     ``lengths``: (B,) int32 position of the first window token (its K/V
     already written); ``layer``: the pool layer.  Returns (B, W, H·hd)
     in ``q.dtype``."""
+    return _paged(KERNELS[resolve_mode(mode)], q, pool, block_tables, lengths, layer,
+                  scale_attn)
+
+
+def paged_attention_exact_template(q, pool, block_tables, lengths, layer: int, *,
+                                   scale_attn=True):
+    """:func:`paged_attention` in exact mode through the first design of
+    the exact kernel, ``paged_attention_exact`` (for CUDA tensors; the
+    plain version for CPU tensors)."""
+    return _paged(TEMPLATE, q, pool, block_tables, lengths, layer, scale_attn)
+
+
+def _paged(name, q, pool, block_tables, lengths, layer, scale_attn):
     _check(q, pool, block_tables, lengths, layer)
-    mode = resolve_mode(mode)
     if q.device.type == "cpu":
         return paged_attention_reference(q, pool, block_tables, lengths, layer,
                                          scale_attn=scale_attn)
-    return _launch(KERNELS[mode], q, pool, block_tables, lengths, layer,
-                   scale_attn)
+    return _launch(name, q, pool, block_tables, lengths, layer, scale_attn)
 
 
 def _launch(name, q, pool, block_tables, lengths, layer, scale_attn):
@@ -123,6 +171,9 @@ def _launch(name, q, pool, block_tables, lengths, layer, scale_attn):
             raise ValueError(f"paged_attention: tensor on {t.device}, q on {q.device}")
         if not t.is_contiguous():
             raise ValueError("paged_attention: every operand must be contiguous")
+    if any(t.data_ptr() % 16 for t in (q, pool["k"][layer], pool["v"][layer])):
+        raise ValueError("paged_attention: q and the pool's K/V layers must start 16-byte "
+                         "aligned for the kernels' vector loads")
     if q.dtype not in _DTYPE_CODES:
         raise ValueError(f"paged_attention: unsupported compute dtype {q.dtype}")
     if quantized:

@@ -105,7 +105,7 @@ def build():
             raise RuntimeError(f"nvcc failed for the {name!r} variant:\n{out}")
         fn = ctypes.CDLL(str(lib)).flash_fwd_sm90
         vp, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [i, i] + [vp] * 6 + [i] * 4 + [ctypes.c_float, vp]
+        fn.argtypes = [i, i] + [vp] * 6 + [i] * 4 + [ctypes.c_float, vp, vp]
         entries[name] = fn
     return entries
 
@@ -118,7 +118,7 @@ def launcher(fn, q, k, v):
 
     def call(_):
         rc = fn(1, d, q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(),
-                ctypes.addressof(strides), B, T, H, 1, 1 / math.sqrt(d),
+                ctypes.addressof(strides), B, T, H, 1, 1 / math.sqrt(d), None,
                 torch.cuda.current_stream().cuda_stream)
         if rc != 0:
             raise RuntimeError(f"launch failed with code {rc}")

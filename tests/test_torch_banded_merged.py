@@ -516,7 +516,7 @@ LUT_BWD = ["flash_bwd_dkdv_lut_sm90", "flash_bwd_dq_lut_sm90"]
     ("fixed", True, 2, False, ["flash_fwd_merged"], LUT_BWD),
     ("all-ones", True, 1, False, ["flash_fwd_sm90"], ["flash_bwd_dkdv_sm90", "flash_bwd_dq_sm90"]),
     ("all-ones", True, 2, False, ["flash_fwd_merged"], LUT_BWD),
-    ("all-ones", True, 1, True, ["flash_fwd_biased"],
+    ("all-ones", True, 1, True, ["flash_fwd_sm90"],
      ["flash_bwd_dkdv_sm90", "flash_bwd_dq_sm90"]),
 ])
 def test_routes(monkeypatch, layout, causal, merge, bias, fwd, bwd):

@@ -247,8 +247,10 @@ def test_biased_backward_routes(monkeypatch, dtype, d, abias):
     """bf16 at head dim 64 with no (T, T) score bias takes the sm90 pair,
     the rest the templates, through ``flash_bwd_*_biased``,
     ``flash_attention(key_padding_bias=)`` and ``sparse_flash_attention``
-    with an all-ones layout; the forward stays ``flash_fwd_biased``; the
-    ``_template`` wrappers always take the templates."""
+    with an all-ones layout; the forward takes the kernel
+    ``biased_fwd_kernel`` names (the key-bias ``flash_fwd_sm90`` for bf16 at
+    head dims 64 and 128 with no score bias); the ``_template`` wrappers
+    always take the templates."""
     calls = _names(monkeypatch)
     want = SM90 if (dtype, d, abias) == (torch.bfloat16, 64, False) else TEMPLATES
     assert list(fa.biased_bwd_kernel(dtype, d, abias)) == want
@@ -272,7 +274,7 @@ def test_biased_backward_routes(monkeypatch, dtype, d, abias):
             out = fa.sparse_flash_attention(*leaves, np.ones((1, 16, 16), np.int32),
                                             causal=False, key_padding_bias=kb, attn_bias=ab)
         out.sum().backward()                 # a cotangent of stride 0
-        assert [n for n, _ in calls] == ["flash_fwd_biased"] + want, route
+        assert [n for n, _ in calls] == [fa.biased_fwd_kernel(dtype, d, abias)] + want, route
     assert fa.launches == {n: 0 for n in fa.KERNELS}
 
 
