@@ -18,20 +18,23 @@ JAX package ``deepspeed_tpu``):
    LUT forward libraries with no wgmma serialized by ptxas; the dense
    backward's four instances (``dense_dkdv_kernel`` / ``dense_dq_kernel``
    with and without the key bias) and ``flash_fwd_sm90``'s four (head dims
-   64 and 128, with and without the key bias) must each be built once, and
+   64 and 128, with and without the key bias) must each be built once,
    ``paged_attention_exact_sm90``'s twelve (``exact_split_kernel``: three
    compute dtypes, 16-bit and int8 pools, head dims 64 and 128) with no
-   spill;
-2. kernels vs plain: the first ``paged_attention_exact_sm90`` launch (waited
-   on under a deadline), then ``paged_attention_online``,
-   ``paged_attention_exact_sm90`` and beside it the first design
+   spill, and ``paged_attention_online_sm90``'s 24 (``online_split_kernel``:
+   the same twelve for W = 1 and for W up to 8) with no spill;
+2. kernels vs plain: the first ``paged_attention_exact_sm90`` and
+   ``paged_attention_online_sm90`` launches (waited on under a deadline,
+   each from a generator of its own), then the two routed kernels
+   ``paged_attention_online_sm90`` and ``paged_attention_exact_sm90`` and
+   beside them their first designs ``paged_attention_online`` and
    ``paged_attention_exact`` against ``paged_attention_reference`` at the
    serving shape (8 slots, 12 heads, head dim 64, block 16, 64 blocks per
    slot), lengths 0..1020, windows 1 and 4, bf16 / int8+scales / fp32
    pools, and over ``split_cases`` (their own generator): the three pools
    at head dims 64 and 128, windows 1, 4 and 8, lengths at 0, at S - W, on
-   the ranks' chunk edges and one row past the staging buffer, S = 1024
-   (and 320 for bf16); then the
+   the ranks' chunk edges and one row past each kernel's staging buffer,
+   S = 1024 (and 320 for bf16); then the
    dense forward its route takes (``flash_fwd_sm90`` for bf16 at head
    dims 64 and 128, whose first launch waits on an event under a
    deadline; the template ``flash_fwd`` for the rest, and beside every
@@ -49,17 +52,20 @@ JAX package ``deepspeed_tpu``):
    gradient check of the ``flash_attention`` autograd function against
    autograd of a dense attention in fp32;
 3. serving: GPT-2 125M at full width (bf16, random weights from
-   ``init_numpy(seed=0)``) answers 16 greedy requests with 16-bit KV, with
-   int8 KV, and in exact mode (``paged_attention_exact_sm90``); every
-   outcome must be OK, every block recycled, and the kernel's launch count
-   equal decode steps x 12 (every other paged kernel 0); one decode step's
-   logits through the kernels are held against the ``gather`` path;
+   ``init_numpy(seed=0)``) answers 16 greedy requests with 16-bit and with
+   int8 KV (both on ``paged_attention_online_sm90``), and in exact mode
+   (``paged_attention_exact_sm90``); every outcome must be OK, every block
+   recycled, and the kernel's launch count equal decode steps x 12 (every
+   other paged kernel 0); one decode step's logits through the kernels are
+   held against the ``gather`` path;
 4. timing: each paged kernel, its plain version and a library yardstick
    (``scaled_dot_product_attention`` over pre-gathered K/V, which the port
    never calls) with CUDA events at the phase-3 shape, beside the least
    time the card could take (the bytes the call must move over the
-   card's memory rate); the two exact designs in turns (first design,
-   split, split, first design), each the least of its readings;
+   card's memory rate) and its share of it; each mode's two designs in
+   turns (first design, split, split, first design), each the least of its
+   readings; the paged kernels' device time per decode step from the
+   kv16 and kv8 profiles (and phase 11's);
 5. training: GPT-2 350M at full width (T=1024, micro-batch 8, gas 1,
    bf16, ZeRO-1, AdamW 6e-4 / wd 0.1, clip 1.0, dropout 0, no remat)
    through ``deepspeed_tpu_torch.initialize`` -> ``train_batch()`` on
@@ -239,7 +245,9 @@ instances as ``flash_fwd_sm90 (key bias)``, ``flash_bwd_dkdv_sm90 (key
 bias)`` and ``flash_bwd_dq_sm90 (key bias)``, with phase 8c's launches and
 phase 9's dense+pad figures; ``paged_attention_exact_sm90`` with the
 exact-mode serve's launches and the first design ``paged_attention_exact``
-beside it with 0), the
+beside it with 0; ``paged_attention_online_sm90`` with the kv16 serve's
+launches and the first design ``paged_attention_online`` beside it with
+0), the
 ``nvidia-smi`` line, and as the last line ``{"ok": true, "device": {...}}``.
 Any failure raises and the script exits non-zero without that line; with no
 CUDA device it exits 2.
@@ -279,8 +287,11 @@ L_CYCLE = 12          # layers cycled through when timing (cold L2 per launch)
 PAGED_LIB = "paged_attention"
 SOURCE = f"deepspeed_tpu_torch/csrc/{PAGED_LIB}.cu"
 SPLIT_SM90 = pa.KERNELS["exact"]          # paged_attention_exact_sm90, the cluster-split kernel
+ONLINE_SM90 = pa.KERNELS["online"]        # paged_attention_online_sm90, the same split, online
 FLASH_REF = "deepspeed_tpu/ops/transformer/flash_attention.py"
 REPLACES = {"paged_attention_online":
+            "deepspeed_tpu/ops/transformer/paged_attention.py:180",
+            "paged_attention_online_sm90":
             "deepspeed_tpu/ops/transformer/paged_attention.py:180",
             "paged_attention_exact":
             "deepspeed_tpu/ops/transformer/paged_attention.py:90",
@@ -430,14 +441,17 @@ def setup():
     if any(n != 1 for n in fwd.values()) or any(spill for *_, spill in sm90):
         raise AssertionError(f"{SM90_LIB}: an instance (head dim, key bias) not built once "
                              f"{fwd}, or ptxas spilled registers: {sm90}")
-    split = [(kname, regs, spill) for kname, regs, _, spill in
-             ptxas_summary(builder.build_log[PAGED_LIB]["ptxas"]) if "exact_split_kernel" in kname]
-    print(f"{PAGED_LIB}.cu exact_split_kernel ({SPLIT_SM90}): {len(split)} instances, registers "
-          f"{sorted({regs for _, regs, _ in split})}, spill bytes "
-          f"{sorted({spill for *_, spill in split})}")
-    if len(split) != 12 or any(spill for *_, spill in split):
-        raise AssertionError(f"{PAGED_LIB}: exact_split_kernel not built for 3 dtypes x 2 pools "
-                             f"x 2 head dims, or ptxas spilled registers: {split}")
+    # 3 compute dtypes x 2 pools x 2 head dims; the online kernel also x 2 (W = 1, W <= 8)
+    for kernel, name, n in (("exact_split_kernel", SPLIT_SM90, 12),
+                            ("online_split_kernel", ONLINE_SM90, 24)):
+        split = [(kname, regs, spill) for kname, regs, _, spill in
+                 ptxas_summary(builder.build_log[PAGED_LIB]["ptxas"]) if kernel in kname]
+        print(f"{PAGED_LIB}.cu {kernel} ({name}): {len(split)} instances, registers "
+              f"{sorted({regs for _, regs, _ in split})}, spill bytes "
+              f"{sorted({spill for *_, spill in split})}")
+        if len(split) != n or any(spill for *_, spill in split):
+            raise AssertionError(f"{PAGED_LIB}: {kernel} not built in {n} instances, or ptxas "
+                                 f"spilled registers: {split}")
     for lib, kernels in ((INT8_DECODE_LIB, ("int8_decode_kernel",)),
                          (INT8_PREFILL_LIB, ("int8_prefill_kernel",)),
                          (GROUP_SM90_LIB, ("dkdv_sm90_kernel", "dq_sm90_kernel",
@@ -496,14 +510,27 @@ def paged_tables(dev, gen, lengths_list, W, BS, NB_MAX):
     return t
 
 
-def paged_case(q, pool, tables, lengths, what, kind, max_err):
-    """Each exact kernel and the online one against the plain version on
-    one case: the routed kernels and, beside ``paged_attention_exact_sm90``,
-    the first design ``paged_attention_exact``.  Raises past TOL."""
-    ref = pa.paged_attention_reference(q, pool, tables, lengths, 1)
-    calls = {name: (lambda mode=mode: pa.paged_attention(q, pool, tables, lengths, 1, mode=mode))
+def paged_calls(q, pool, tables, lengths):
+    """``{kernel: fn(layer)}``: the routed kernels of both modes and their
+    first designs, each called by name."""
+    calls = {name: (lambda l, mode=mode: pa.paged_attention(q, pool, tables, lengths, l,
+                                                            mode=mode))
              for mode, name in pa.KERNELS.items()}
-    calls[pa.TEMPLATE] = lambda: pa.paged_attention_exact_template(q, pool, tables, lengths, 1)
+    calls[pa.TEMPLATES["exact"]] = lambda l: pa.paged_attention_exact_template(
+        q, pool, tables, lengths, l)
+    calls[pa.TEMPLATES["online"]] = lambda l: pa.paged_attention_online_template(
+        q, pool, tables, lengths, l)
+    return calls
+
+
+def paged_case(q, pool, tables, lengths, what, kind, max_err):
+    """Each paged kernel against the plain version on one case: the routed
+    kernels (``paged_attention_online_sm90``, ``paged_attention_exact_sm90``)
+    and beside them their first designs (``paged_attention_online``,
+    ``paged_attention_exact``).  Raises past TOL."""
+    ref = pa.paged_attention_reference(q, pool, tables, lengths, 1)
+    calls = {name: (lambda fn=fn: fn(1))
+             for name, fn in paged_calls(q, pool, tables, lengths).items()}
     errs = {}
     for name, call in calls.items():
         out = call()
@@ -517,11 +544,13 @@ def paged_case(q, pool, tables, lengths, what, kind, max_err):
     return errs
 
 
-def first_split_launch(dev, seed=17):
-    """The first ``paged_attention_exact_sm90`` launch (one slot of 300
-    tokens, a cluster of 8 at S = 1024), waited for under SM90_DEADLINE_S
-    and held against the plain version.  Its inputs come from a generator
-    of its own, so the phases after it draw what they drew before."""
+def first_split_launch(dev, mode="exact", seed=17):
+    """The first launch of the cluster-split kernel of ``mode`` (one slot of
+    300 tokens, a cluster of 8 at S = 1024), waited for under
+    SM90_DEADLINE_S and held against the plain version.  Its inputs come
+    from a generator of its own, so the phases after it draw what they
+    drew before."""
+    name = pa.KERNELS[mode]
     gen = torch.Generator(device=dev).manual_seed(seed)
     pool, dt = paged_pool(dev, gen, "bf16", 1, 12, 64, 16, 64)
     tables = paged_tables(dev, gen, [300], 1, 16, 64)
@@ -529,14 +558,14 @@ def first_split_launch(dev, seed=17):
     q = torch.randn((1, 1, 12, 64), generator=gen, device=dev).to(dt)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    out = pa.paged_attention(q, pool, tables, lengths, 1, mode="exact")
-    ms = wait_first(SPLIT_SM90, "len=300", t0)
+    out = pa.paged_attention(q, pool, tables, lengths, 1, mode=mode)
+    ms = wait_first(name, "len=300", t0)
     err = (out.float() - pa.paged_attention_reference(q, pool, tables, lengths, 1).float()
            ).abs().max().item()
-    print(f"{SPLIT_SM90} first launch len=300: completed in {ms:.1f} ms, max abs error "
+    print(f"{name} first launch len=300: completed in {ms:.1f} ms, max abs error "
           f"{err:.2e} (tol {TOL['bf16']:g})")
     if not err <= TOL["bf16"]:
-        raise AssertionError(f"{SPLIT_SM90} first launch: error {err}")
+        raise AssertionError(f"{name} first launch: error {err}")
 
 
 def check_kernels(dev, gen, B=8, H=12, HD=64, BS=16, NB_MAX=64,
@@ -546,6 +575,7 @@ def check_kernels(dev, gen, B=8, H=12, HD=64, BS=16, NB_MAX=64,
     Returns the max abs error per kernel."""
     max_err = {name: 0.0 for name in pa.launches}
     first_split_launch(dev)
+    first_split_launch(dev, "online", seed=20)
     lengths = torch.tensor(lengths_list, dtype=torch.int32, device=dev)
     for kind in ("bf16", "int8", "fp32"):
         pool, dt = paged_pool(dev, gen, kind, B, H, HD, BS, NB_MAX)
@@ -568,32 +598,38 @@ def split_cases():
              for W in (1, 4, 8)] + [("bf16", 64, W, 20) for W in (1, 8)])
 
 
-def split_lengths(S, W, C, R):
-    """Slot lengths that put the exact split on its edges: 0, the window
-    reaching S, rows a multiple of the ranks and one past, a rank's chunk
-    filling the staging buffer (R rows) and one row past it (streamed in
-    pieces), and two between."""
-    edges = (0, S - W, C * 40 - W, C * 40 + 1 - W, C * R - W, C * R + 1 - W, 37, S // 2)
+def split_lengths(S, W, C, R, R_online):
+    """Slot lengths that put the split kernels on their edges: 0, the
+    window reaching S, rows a multiple of the ranks and one past, a rank's
+    chunk filling each kernel's staging buffer (R rows, R_online rows) and
+    one row past it (streamed in pieces), and two between."""
+    edges = (0, S - W, C * 40 - W, C * 40 + 1 - W, C * R - W, C * R + 1 - W, 37, S // 2,
+             C * R_online - W, C * R_online + 1 - W)
     return [min(max(n, 0), S - W) for n in edges]
 
 
-def check_split_kernels(dev, max_err, B=8, H=12, BS=16, seed=18):
-    """Phase 2, exact: ``paged_attention_exact_sm90`` and the first design
-    beside it (and the online kernel) against the plain version over
-    :func:`split_cases`; inputs from a generator of their own."""
+def check_split_kernels(dev, max_err, H=12, BS=16, seed=18):
+    """Phase 2, split: ``paged_attention_exact_sm90`` and
+    ``paged_attention_online_sm90`` and their first designs beside them
+    against the plain version over :func:`split_cases`, one slot for each
+    of :func:`split_lengths`; inputs from a generator of their own."""
     gen = torch.Generator(device=dev).manual_seed(seed)
     for kind, hd, W, nb_max in split_cases():
-        pool, dt = paged_pool(dev, gen, kind, B, H, hd, BS, nb_max)
         S = BS * nb_max
-        n_scales = pool["k_scale"].shape[-1] if kind == "int8" else 0
-        C, _, R = pa.exact_sm90_plan(S, hd, pool["k"].element_size(), n_scales)
-        lengths_list = split_lengths(S, W, C, R)
+        itemsize = 4 if kind == "fp32" else 1 if kind == "int8" else 2
+        n_scales = hd // 64 if kind == "int8" else 0      # paged_pool's quant block of 64
+        C, _, R = pa.exact_sm90_plan(S, hd, itemsize, n_scales)
+        R_online = pa.online_sm90_plan(S, hd, itemsize, n_scales)[2]
+        lengths_list = split_lengths(S, W, C, R, R_online)
+        B = len(lengths_list)
+        pool, dt = paged_pool(dev, gen, kind, B, H, hd, BS, nb_max)
         tables = paged_tables(dev, gen, lengths_list, W, BS, nb_max)
         lengths = torch.tensor(lengths_list, dtype=torch.int32, device=dev)
         q = torch.randn((B, W, H, hd), generator=gen, device=dev).to(dt)
         what = f"pool={kind} hd={hd} W={W} S={S}"
         errs = paged_case(q, pool, tables, lengths, what, kind, max_err)
-        print(f"split-check {what} (ranks {C}, staged rows {R}, lengths {lengths_list}): " +
+        print(f"split-check {what} (ranks {C}, staged rows {R} exact / {R_online} online, "
+              f"lengths {lengths_list}): " +
               ", ".join(f"{name} {err:.3e}" for name, err in errs.items()) +
               f" (tol {TOL[kind]:g})")
 
@@ -937,21 +973,20 @@ def timing(srv, tag, pool_kind, gen, bytes_per_s):
            "bound_by": bound_by, "plain_ms": plain_ms,
            "library_ms": library_ms, "kernels_ms": {}}
     saved = dict(pa.launches)
-    calls = {name: (lambda l, mode=mode: pa.paged_attention(q, pool, tables, lengths, l,
-                                                            mode=mode))
-             for mode, name in pa.KERNELS.items()}
-    calls[pa.TEMPLATE] = lambda l: pa.paged_attention_exact_template(q, pool, tables, lengths, l)
-    # the exact kernels in turns (the first design, the split, the split, the first design);
-    # each kernel's time is the least of its readings
+    calls = paged_calls(q, pool, tables, lengths)
+    # each mode's two designs in turns (the first design, the split, the split, the first
+    # design); each kernel's time is the least of its readings
     readings = {}
-    for name in (pa.TEMPLATE, SPLIT_SM90, SPLIT_SM90, pa.TEMPLATE, pa.KERNELS["online"]):
-        readings.setdefault(name, []).append(time_ms(calls[name], 200))
+    for mode in ("exact", "online"):
+        first, split = pa.TEMPLATES[mode], pa.KERNELS[mode]
+        for name in (first, split, split, first):
+            readings.setdefault(name, []).append(time_ms(calls[name], 200))
     for name, rs in readings.items():
         ms = out["kernels_ms"][name] = min(rs)
-        design = " (the first design)" if name == pa.TEMPLATE else ""
+        design = " (the first design)" if name in pa.TEMPLATES.values() else ""
         print(f"timing {tag} {name}{design}: {ms * 1e3:.2f} us (readings "
               f"{', '.join(f'{r * 1e3:.2f}' for r in rs)}), bound "
-              f"{bound_ms * 1e3:.2f} us ({bound_by}), plain "
+              f"{bound_ms * 1e3:.2f} us ({bound_by}, share {bound_ms / ms:.3f}), plain "
               f"{plain_ms * 1e3:.2f} us, library {library_ms * 1e3:.2f} us, "
               f"mean length {lens.mean():.1f}")
     pa.launches.update(saved)          # timing launches are not path launches
@@ -2148,6 +2183,7 @@ def int8_serving(dev, card, prompts, preset="gpt2-1.3b", new=32):
     for i, p in enumerate(prompts[:8]):
         prof.submit(Request(tokens=p, uid=i))
     by_name = profile_steps(prof.step, f"{preset} int8w")
+    paged_device_time(by_name, f"{preset} int8w", c.n_layer)
     # the int8 products' device time per decode step: the block products (decode kernel)
     # and the tied head (int8_matmul.cu's kernel, transposed layout)
     int8_device_time(by_name, preset, "decode step", "int8_decode_kernel", "int8_mm_nt_decode")
@@ -2169,6 +2205,19 @@ def int8_serving(dev, card, prompts, preset="gpt2-1.3b", new=32):
         prof_o.submit(Request(tokens=p, uid=i))
     profile_steps(prof_o.step, f"{preset} bf16 oracle")
     return launches
+
+
+def paged_device_time(by_name, tag, layers):
+    """The paged-attention kernels' device time per decode step from a
+    profile (one launch a layer on the routed kernel)."""
+    paged = {name: tn for name, tn in by_name.items()
+             if any(k in name for k in ("online_split_kernel", "online_kernel",
+                                        "exact_split_kernel", "exact_kernel"))}
+    t = sum(tn[0] for tn in paged.values())
+    n = sum(tn[1] for tn in paged.values())
+    print(f"profile {tag}: paged attention's device time per decode step {t:.1f} us over "
+          f"{n:.1f} launches ({layers} layers): " + "; ".join(
+              f"{name[:60]} {tn[0]:.1f} us" for name, tn in paged.items()))
 
 
 def int8_device_time(by_name, preset, unit, kernel, name):
@@ -2750,13 +2799,13 @@ def main():
                 "max_abs_err": max_err[name], "ms": t16["kernels_ms"][name],
                 "plain_ms": t16["plain_ms"], "bound_ms": t16["bound_ms"],
                 "bound_by": t16["bound_by"], "library_ms": t16["library_ms"]}
-               for name in (*pa.KERNELS.values(), pa.TEMPLATE)]
+               for name in (*pa.KERNELS.values(), *pa.TEMPLATES.values())]
     print(json.dumps({"int8_pool_timing": {k: t8[k] for k in (
         "kernels_ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
         "shape")}}))
     print(json.dumps({"bf16_pool_shape": t16["shape"]}))
-    profile_steps(srv16.step, "kv16")
-    profile_steps(srv8.step, "kv8")
+    for tag, srv in (("kv16", srv16), ("kv8", srv8)):
+        paged_device_time(profile_steps(srv.step, tag), tag, model.config.n_layer)
     del srv16, srv8, engine
     torch.cuda.empty_cache()
 

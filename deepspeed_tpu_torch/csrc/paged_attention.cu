@@ -1,7 +1,8 @@
 // Paged attention over the serving layer's shared KV pool, for Hopper (sm_90a).
 //
 // Replaces the Pallas TPU kernels of deepspeed_tpu/ops/transformer/paged_attention.py:
-//   paged_attention_online      <- _online_kernel (paged_attention.py:180-272, via _online_call 275-318)
+//   paged_attention_online_sm90 <- _online_kernel (paged_attention.py:180-272, via _online_call 275-318)
+//   paged_attention_online      <- the same: the first design of it, kept as the yardstick
 //   paged_attention_exact_sm90  <- _exact_kernel  (paged_attention.py:90-132,  via _exact_call  135-176)
 //   paged_attention_exact       <- the same: the first design of it, kept as the yardstick
 //
@@ -16,8 +17,9 @@
 //
 // What bounds them on this card: KV bytes.  A decode step reads every live K/V row once
 // and does 4·HD flops per row per window row -- about 2 flops per byte at W = 1, far
-// below the ~295 flops/byte where the H100's compute would become the limit.  So the
-// design spends nothing on tensor cores and everything on reading each live row once:
+// below the ~295 flops/byte where the H100's compute would become the limit.  So the first
+// design spent nothing on tensor cores and everything on reading each live row once (its
+// redesign uses them to issue fewer instructions, not for their rate):
 //   * the grid is (B, H); one block walks only the slot's live rows, min(len + W, S),
 //     through its table row -- rows past the window's last position are never read;
 //   * each K/V row of one head (HD contiguous elements, 128 B at bf16 and HD = 64) is read
@@ -30,8 +32,9 @@
 //     parallel, each with its own running max / denominator / accumulator in fp32, and
 //     merge at the end (warp shuffles, then shared memory): blocks carry no state from one
 //     another, unlike the TPU grid, which ran the slots in order.
-// (The online kernel: later work, wgmma, TMA, a split across blocks for long contexts, is not
-// done here.)
+// That is paged_attention_online (online_kernel, the first design): a (B, H) grid of such blocks,
+// each row group loading one row and waiting for it before the next, keeps little in flight,
+// and the slot with the most rows sets the time.
 //
 // The exact kernels mirror GPT2._masked_attend op for op: score rounded to the compute
 // dtype, then fp32, divided by sqrt(HD), masked with finfo(float32).min, full-row softmax
@@ -63,6 +66,35 @@
 // launch a call, no global scratch and no atomics; only the order of the fp32 sums differs
 // from exact_kernel.  A chunk longer than the staging buffer (R rows, a fixed budget) streams
 // its K rows, then its V rows, through it in pieces.
+//
+// paged_attention_online_sm90 (online_split_kernel) splits each (b, h) over a cluster the same
+// way (C ranks from S alone, rank r the contiguous live rows [r c, min((r + 1) c, n_rows))).  A
+// rank stages its rows in pieces of at most 64 (one piece when the chunk fits a 16 KB buffer, or
+// two halves in turn, the next piece's copies in flight while the current one is consumed), and
+// each piece's rows go to the warps or row groups that copy them (16-byte cp.async) and alone
+// read them, so between the block-table barrier and the merge no block barrier stands in the
+// way: each waits on its own copies, one round trip when the chunk fits.
+//   * 16-bit compute (bf16, fp16) runs on the tensor cores: warp w takes a 16-row tile of each
+//     piece (swizzled in shared memory for ldmatrix; an int8 pool's rows first dequantized by
+//     the warp into such a tile, dequantize_blockwise's formula), S = K_tile q^T is one
+//     mma.sync m16n8k16 per 16 of HD (rows as M, the window as N = 8, fp32 accumulators), and
+//     after the softmax O^T += V_tile^T P^T one more per 16 of HD (P rounded to the compute
+//     dtype through shared memory);
+//   * fp32 compute runs on FMAs: row group g (HD / 8 lanes) takes rows g, g + G, ... of each
+//     piece, each lane multiplying 8 elements of a row (an int8 row dequantized first), the
+//     group summing a score by shuffles.
+// Either way a group scores all its rows of a piece for every window row (fp32, x sm_scale),
+// takes their max, then forms p = exp(s - max), l += p (unrounded) and acc += round(p) V: rows
+// are independent work, and the running (m, l, acc) is rescaled only between pieces.  The
+// groups merge (warp shuffles, then the warps through shared memory) into the rank's partial
+// (m, l, O); each rank stores m and l into every peer and each output's partial O into the
+// shared memory of the rank that writes it (stores, no remote reads); after one cluster.sync()
+// the writing rank combines the partials in rank order, each scaled by exp(m_r - m), and
+// divides by l (l == 0 -> 1).  One launch a call, no global scratch and no atomics; only the
+// order of the fp32 sums and the max each p is taken against differ from online_kernel.  What
+// sets its time at a decode step is residency: the 16-bit W = 1, head-dim-64 instances are held
+// to 64 registers and the buffer to 16 KB, so an SM holds 8 blocks and every cluster of a 125M
+// decode step runs at once.
 //
 // C interface for ctypes: each entry returns cudaGetLastError() after the launch
 // (0 on success), or -1 for a combination of dtype / head dim it was not built for.
@@ -466,6 +498,18 @@ __global__ void __launch_bounds__(kThreads) exact_kernel(Args a) {
 // ------------------------------------------------------------ exact kernel, cluster split
 constexpr int kSplitThreads = 128;
 constexpr int kSplitWarps = kSplitThreads / 32;
+constexpr int kOnlineThreads = 128;   // online_split_kernel's block
+constexpr int kOnlineWarps = kOnlineThreads / 32;
+// blocks an SM must hold at W = 1 and head dim 64 on the tensor-core path (64 registers a
+// thread): the 96 clusters of 8 ranks of a 125M decode step (8 slots x 12 heads) on the 124 SMs
+// that take clusters of 8, all at once (at 6 blocks an SM, 12.7 us against 9.3 at phase 4's
+// state; the FMA path, fp32 compute only, spilled at 64 and 73 and is left uncapped)
+constexpr int kOnlineBlocks = 8;
+
+template <typename T, int HD, int kW>
+constexpr int online_min_blocks() {
+  return kW == 1 && HD == 64 && !std::is_same<T, float>::value ? kOnlineBlocks : 1;
+}
 constexpr int kMaxRanks = 8;          // the portable cluster size
 constexpr int kRankRows = 128;        // S / kRankRows ranks, at most kMaxRanks
 constexpr int kStageBytes = 24576;    // K + V rows (and their scales) staged at once
@@ -479,11 +523,11 @@ struct Split {
 __host__ __device__ __forceinline__ int round16(int bytes) { return (bytes + 15) & ~15; }
 
 // Byte offsets of the dynamic shared memory of exact_split_kernel: the K staging rows (after
-// the scores, the AV reduction), the V staging rows, the int8 scales of both, the score rows
-// [W][cap], the slot's block-table row and the inbox of partial O's [C][per] (per = ceil(W HD /
-// C): rank r's partial of the outputs this rank writes, stored there by rank r)
+// the scores, the AV reduction `red`), the V staging rows, the int8 scales of both, the score
+// rows [W][cap], the slot's block-table row and the inbox of partial O's [C][per] (per =
+// ceil(W HD / C): rank r's partial of the outputs this rank writes, stored there by rank r)
 struct SplitLayout {
-  int k, v, ks, vs, sc, tab, po, total;
+  int k, v, ks, vs, sc, tab, red, po, tiles, total;
 };
 
 __host__ __device__ __forceinline__ int split_per(int C, int W, int HD) {
@@ -497,13 +541,39 @@ __host__ __device__ __forceinline__ SplitLayout split_layout(const Split& sp, in
   const int scales = n_scales > 0 ? round16(sp.R * n_scales * 4) : 0;
   const int red = (kSplitThreads / (HD / kEpt)) * HD * 4;   // row groups x HD floats
   L.k = 0;
+  L.red = 0;
   L.v = round16(rows > red ? rows : red);
   L.ks = L.v + round16(rows);
   L.vs = L.ks + scales;
   L.sc = L.vs + scales;
   L.tab = L.sc + round16(W * sp.cap * 4);
   L.po = L.tab + round16(nb_max * 4);
-  L.total = L.po + sp.C * split_per(sp.C, W, HD) * 4;
+  L.tiles = L.total = L.po + sp.C * split_per(sp.C, W, HD) * 4;
+  return L;
+}
+
+// Byte offsets of the dynamic shared memory of online_split_kernel: the K and V staging rows (R
+// rows rounded up to whole 16-row tiles: one piece, or two halves when a chunk streams), the int8
+// scales of both, the scores of a piece [W][R] (FMA path), the slot's block-table row, the warps'
+// partial O's [kOnlineWarps][W][HD], the inbox of partial O's [C][per], as exact_split_kernel's,
+// and with `tiles` (int8 pools on the tensor cores) each warp's K and V tiles dequantized to
+// 16 bits, [kOnlineWarps][2][16][HD]
+__host__ __device__ __forceinline__ SplitLayout online_layout(const Split& sp, int W, int HD,
+                                                              int elem, int n_scales, int nb_max,
+                                                              bool tiles) {
+  SplitLayout L;
+  const int rows = ((sp.R + 15) & ~15) * HD * elem;
+  const int scales = n_scales > 0 ? round16(((sp.R + 15) & ~15) * n_scales * 4) : 0;
+  L.k = 0;
+  L.v = rows;
+  L.ks = L.v + rows;
+  L.vs = L.ks + scales;
+  L.sc = L.vs + scales;
+  L.tab = L.sc + round16(W * sp.R * 4);
+  L.red = L.tab + round16(nb_max * 4);
+  L.po = L.red + kOnlineWarps * W * HD * 4;
+  L.tiles = round16(L.po + sp.C * split_per(sp.C, W, HD) * 4);
+  L.total = L.tiles + (tiles ? kOnlineWarps * 2 * 16 * HD * 2 : 0);
   return L;
 }
 
@@ -514,6 +584,38 @@ __device__ __forceinline__ uint32_t smem_addr(const void* p) {
 __device__ __forceinline__ void cp_async16(void* dst, const void* src) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_addr(dst)), "l"(src)
                : "memory");
+}
+
+// 16-byte copies to a shared-memory address; the second reads no byte of src and writes zeros
+__device__ __forceinline__ void cp_async16_at(uint32_t dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst), "l"(src) : "memory");
+}
+
+__device__ __forceinline__ void cp_async16_zero(uint32_t dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src), "r"(0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async4_at(uint32_t dst, const void* src, bool zero) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst), "l"(src),
+               "r"(zero ? 0 : 4) : "memory");
+}
+
+__device__ __forceinline__ void sts128(uint32_t at, uint32_t a, uint32_t b, uint32_t c,
+                                       uint32_t d) {
+  asm volatile("st.shared.v4.b32 [%0], {%1, %2, %3, %4};\n" ::"r"(at), "r"(a), "r"(b), "r"(c),
+               "r"(d) : "memory");
+}
+
+// two floats rounded to the 16-bit T, packed (the first in the low half)
+template <typename T> __device__ __forceinline__ uint32_t pack2(float x, float y);
+template <> __device__ __forceinline__ uint32_t pack2<__nv_bfloat16>(float x, float y) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(x, y);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+template <> __device__ __forceinline__ uint32_t pack2<__half>(float x, float y) {
+  const __half2 v = __floats2half2_rn(x, y);
+  return *reinterpret_cast<const uint32_t*>(&v);
 }
 
 __device__ __forceinline__ void cp_async4(void* dst, const void* src) {
@@ -528,6 +630,36 @@ __device__ __forceinline__ void cp_async_commit() {
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// four 8x8 b16 matrices from shared memory (lane l gives the address of row l % 8 of matrix
+// l / 8), into the layout of an mma.sync operand; kTrans delivers each transposed
+template <bool kTrans>
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t at) {
+  if constexpr (kTrans) {
+    asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+                 : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(at) : "memory");
+  } else {
+    asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+                 : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(at) : "memory");
+  }
+}
+
+// d += A B for one m16n8k16 tile of 16-bit T, fp32 accumulators
+template <typename T>
+__device__ __forceinline__ void mma16816(float (&d)[4], uint32_t a0, uint32_t a1, uint32_t a2,
+                                         uint32_t a3, uint32_t b0, uint32_t b1) {
+  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+    asm volatile("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+                 "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+                 : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+                 : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
+  } else {
+    asm volatile("mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 {%0, %1, %2, %3}, "
+                 "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+                 : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+                 : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
+  }
 }
 
 struct Max {
@@ -588,7 +720,7 @@ __global__ void __launch_bounds__(kSplitThreads) exact_split_kernel(Args a, Spli
   float* sc = reinterpret_cast<float*>(split_smem + L.sc);
   int* tab = reinterpret_cast<int*>(split_smem + L.tab);
   float* inbox = reinterpret_cast<float*>(split_smem + L.po);
-  float* red_acc = reinterpret_cast<float*>(split_smem + L.k);   // [kGroups][HD], after the scores
+  float* red_acc = reinterpret_cast<float*>(split_smem + L.red);  // [kGroups][HD], after the scores
 
   const int gi = tid / kLanes, sub = tid % kLanes, d0 = sub * kEpt;
   const int G = kGroups / W;
@@ -824,6 +956,477 @@ __global__ void __launch_bounds__(kSplitThreads) exact_split_kernel(Args a, Spli
   }
 }
 
+// ----------------------------------------------------------- online kernel, cluster split
+// K + V rows (and their scales) staged at once: a block of ~18 KB, so an SM holds 12 and every
+// cluster of a decode step is resident at once (at 32 KB, 6 an SM, some clusters waited for a
+// second wave: 13.2 us against 10.5 at phase 4's state, examples/paged_exact_split.py)
+constexpr int kOnlineStageBytes = 16384;
+
+// Grid (B, H, C), clusters of (1, 1, C), as exact_split_kernel.  Row group gi = tid / kLanes
+// (kLanes lanes of kEpt elements span a row) takes rows gi, gi + kGroups, ... of each piece of
+// the rank's chunk, for every window row.  kW (1, or kMaxW for W > 1) sizes the registers a
+// lane keeps per window row, so plain decode keeps its blocks' registers few.
+template <typename T, typename P, int HD, int kW>
+__global__ void __launch_bounds__(kOnlineThreads, online_min_blocks<T, HD, kW>())
+    online_split_kernel(Args a, Split sp) {
+  constexpr int kLanes = HD / kEpt;
+  constexpr int kGroups = kOnlineThreads / kLanes;
+  constexpr int kRowBytes = HD * static_cast<int>(sizeof(P));
+  constexpr int kPieces = kRowBytes / 16;             // 16-byte copies a row
+  constexpr bool kQuant = std::is_same<P, int8_t>::value;
+  // QK^T and PV on the tensor cores (mma.sync m16n8k16, fp32 accumulators) for 16-bit compute
+  // (int8 pools dequantized into 16-bit tiles first); fp32 compute takes FMAs
+  constexpr bool kMma = !std::is_same<T, float>::value;
+  constexpr int kRowT = HD * 2;                       // bytes of a 16-bit tile row
+  static_assert(kRowBytes % 16 == 0, "a pool row must be a whole number of 16-byte copies");
+  static_assert(!kMma || kRowT >= 128, "the swizzle spans 8 chunks: rows of 128 bytes or more");
+  extern __shared__ __align__(16) unsigned char split_smem[];
+  // the tensor-core path's P^T tile of each warp, [window row][tile row] in T
+  __shared__ __align__(16) uint16_t p_t[kOnlineWarps][kMaxW * 16];
+  // each warp's partial row max and sum, then each rank's (stored by that rank)
+  __shared__ float warp_m[kOnlineWarps][kMaxW], warp_l[kOnlineWarps][kMaxW];
+  __shared__ float rank_m[kMaxRanks][kMaxW], rank_l[kMaxRanks][kMaxW];
+
+  cg::cluster_group cluster = cg::this_cluster();
+  const int C = sp.C, rank = static_cast<int>(cluster.block_rank());
+  const int b = blockIdx.x, h = blockIdx.y;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int W = a.W, S = a.nb_max * a.bs, ns = kQuant ? a.n_scales : 0;
+  const SplitLayout L =
+      online_layout(sp, W, HD, static_cast<int>(sizeof(P)), ns, a.nb_max, kMma && kQuant);
+  unsigned char* sK = split_smem + L.k;
+  unsigned char* sV = split_smem + L.v;
+  float* sKs = reinterpret_cast<float*>(split_smem + L.ks);
+  float* sVs = reinterpret_cast<float*>(split_smem + L.vs);
+  float* sc = reinterpret_cast<float*>(split_smem + L.sc);
+  int* tab = reinterpret_cast<int*>(split_smem + L.tab);
+  float* red_acc = reinterpret_cast<float*>(split_smem + L.red);
+  float* inbox = reinterpret_cast<float*>(split_smem + L.po);
+
+  const int gi = tid / kLanes, sub = tid % kLanes, d0 = sub * kEpt;
+  const T* q = static_cast<const T*>(a.q);
+  const unsigned char* kp = static_cast<const unsigned char*>(a.k);
+  const unsigned char* vp = static_cast<const unsigned char*>(a.v);
+
+  // arrive on the cluster barrier now and wait before the first store into a peer's shared
+  // memory (after the rows): a peer is then known to be running
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+
+  // the queries, lengths[b] and the slot's block-table row: independent loads, issued together
+  // (the tensor-core path: q^T as the B operand of QK^T, column n = window row lane / 4, its
+  // elements 2 (lane % 4) + {0, 1} and + 8 of each 16-wide k step, two T to a register)
+  float qr[kMma ? 1 : kW][kEpt];
+  uint32_t qf[kMma ? HD / 8 : 1];
+  if constexpr (kMma) {
+    const int wq = lane >> 2;
+    const T* qw = q + ((static_cast<size_t>(b) * W + wq) * a.H + h) * HD + 2 * (lane & 3);
+#pragma unroll
+    for (int j = 0; j < HD / 8; ++j)
+      qf[j] = wq < W ? *reinterpret_cast<const uint32_t*>(qw + 8 * j) : 0u;
+  } else {
+#pragma unroll
+    for (int w = 0; w < kW; ++w) {
+      if (w < W) {
+        load_vec<T>(q + ((static_cast<size_t>(b) * W + w) * a.H + h) * HD + d0, qr[w]);
+      } else {
+#pragma unroll
+        for (int j = 0; j < kEpt; ++j) qr[w][j] = 0.f;
+      }
+    }
+  }
+  const int len = __ldg(a.lengths + b);
+  // a block id outside the pool is clamped into it, as the gather oracle's clamped indexing
+  for (int t = tid; t < a.nb_max; t += kOnlineThreads)
+    tab[t] = min(max(__ldg(a.tables + static_cast<size_t>(b) * a.nb_max + t), 0),
+                 a.num_blocks - 1);
+  __syncthreads();
+
+  // this rank's rows: rows past the window's last position are masked for every window row,
+  // so they are neither read nor scored; a chunk that fits the staging buffer is one piece,
+  // a longer one streams through its two halves in turn
+  const int n_rows = max(min(len + W, S), 0);
+  const int c = (n_rows + C - 1) / C;
+  const int r0 = min(rank * c, n_rows);
+  const int nr = min(r0 + c, n_rows) - r0;
+  // rows a piece (the tensor-core path's halves whole 16-row tiles: R is 32 or 64 there)
+  const int pr = nr <= sp.R ? sp.R : kMma ? (sp.R / 2) & ~15 : sp.R / 2;
+  const int np = (nr + pr - 1) / pr;
+
+  if constexpr (kMma) {
+    // ---- the tensor-core path (16-bit compute): warp w takes rows [16 w, 16 w + 16) of each
+    // piece, a tile it copies itself (rows of the tile past the piece zeroed); 16-bit rows are
+    // staged with 16-byte chunk x of buffer row i at chunk x ^ (i & 7), so ldmatrix reads 8 rows
+    // without bank conflicts, int8 rows as they are and then dequantized into such a tile.
+    // S = K_tile q^T is one m16n8k16 per 16 of HD (rows as M, the window as N = 8); O^T +=
+    // V_tile^T P^T one per 16 of HD (HD as M, the window as N), so a lane keeps the same two
+    // window rows, 2 t4 and 2 t4 + 1, through the scores, the softmax and O
+    const int g = lane >> 2, t4 = lane & 3;
+    const uint32_t sKu = smem_addr(sK), sVu = smem_addr(sV);
+    // int8: the staged rows are plain (16-byte chunk x of buffer row i at x), the scales beside
+    // them, and the warp's dequantized tiles swizzled; 16-bit: the staged rows swizzled
+    const uint32_t tKu = smem_addr(split_smem + L.tiles) + warp * 2 * 16 * kRowT;
+    const uint32_t tVu = tKu + 16 * kRowT;
+    auto issue = [&](int k) {
+      if (k < np) {
+        const int s0 = k * pr, n = min(pr, nr - s0), off = (k & 1) * pr, i0 = 16 * warp;
+        if (i0 < n) {
+          for (int cidx = lane; cidx < 16 * kPieces; cidx += 32) {
+            const int i = i0 + cidx / kPieces, x = cidx % kPieces, prow = off + i;
+            const uint32_t at = prow * kRowBytes + ((kQuant ? x : x ^ (prow & 7)) * 16);
+            if (i < n) {
+              const int r = r0 + s0 + i, j = r / a.bs;
+              const size_t row = (static_cast<size_t>(tab[j]) * a.bs + (r - j * a.bs)) * a.H + h;
+              cp_async16_at(sKu + at, kp + row * kRowBytes + x * 16);
+              cp_async16_at(sVu + at, vp + row * kRowBytes + x * 16);
+            } else {
+              cp_async16_zero(sKu + at, kp);
+              cp_async16_zero(sVu + at, vp);
+            }
+          }
+          if constexpr (kQuant) {   // the rows' scales, zeros past the piece
+            for (int cidx = lane; cidx < 16 * ns; cidx += 32) {
+              const int i = i0 + cidx / ns, x = cidx % ns, prow = off + i;
+              size_t row = 0;
+              if (i < n) {
+                const int r = r0 + s0 + i, j = r / a.bs;
+                row = (static_cast<size_t>(tab[j]) * a.bs + (r - j * a.bs)) * a.H + h;
+              }
+              cp_async4_at(smem_addr(sKs + prow * ns + x), a.k_scale + row * ns + x, i >= n);
+              cp_async4_at(smem_addr(sVs + prow * ns + x), a.v_scale + row * ns + x, i >= n);
+            }
+          }
+        }
+      }
+      cp_async_commit();
+    };
+    // int8: element d of a row takes scale d >> qshift (the quant block HD / ns, a power of 2)
+    const int qshift = kQuant ? __ffs(HD / max(ns, 1)) - 1 : 0;
+    // rows [lr0, lr0 + 16) of the staged int8 K or V (and their scales) into the tile at t,
+    // dequantize_blockwise's formula (float(q) * scale, rounded to T), 8 elements a step
+    auto dequant = [&](const unsigned char* rows, const float* scales, int lr0, uint32_t t) {
+      for (int e = lane; e < 16 * (HD / 8); e += 32) {
+        const int lr = e / (HD / 8), grp = e % (HD / 8), prow = lr0 + lr;
+        const uint2 raw = *reinterpret_cast<const uint2*>(rows + prow * kRowBytes + grp * 8);
+        const float* s = scales + prow * ns;
+        float f[8];
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          const uint32_t word = j < 4 ? raw.x : raw.y;
+          f[j] = static_cast<float>(static_cast<int8_t>((word >> (8 * (j & 3))) & 0xff)) *
+                 (qshift >= 3 ? s[(grp * 8) >> qshift] : s[(grp * 8 + j) >> qshift]);
+        }
+        sts128(t + lr * kRowT + ((grp ^ (lr & 7)) * 16), pack2<T>(f[0], f[1]), pack2<T>(f[2], f[3]),
+               pack2<T>(f[4], f[5]), pack2<T>(f[6], f[7]));
+      }
+    };
+    issue(0);
+    issue(1);
+    // the warp's running state for window rows 2 t4 + cc: max, this lane's share of the
+    // denominator, and O^T rows 16 j + g (cc) and 16 j + g + 8 (2 + cc)
+    float m2[2] = {-INFINITY, -INFINITY}, l2[2] = {0.f, 0.f};
+    float o[HD / 16][4];
+#pragma unroll
+    for (int j = 0; j < HD / 16; ++j) o[j][0] = o[j][1] = o[j][2] = o[j][3] = 0.f;
+    T* pt = reinterpret_cast<T*>(p_t[warp]);     // P of the tile: [window row][tile row]
+    for (int k = 0; k < np; ++k) {
+      cp_async_wait<1>();          // this thread's copies of piece k have landed
+      __syncwarp();                // and the warp's other lanes' too
+      const int s0 = k * pr, n = min(pr, nr - s0), off = (k & 1) * pr, i0 = 16 * warp;
+      if (i0 < n) {                // warp-uniform
+        // the tile's 16 rows of T, row lr at tK + lr kRowT, 16-byte chunk x at x ^ (lr & 7)
+        uint32_t tK = sKu + (off + i0) * kRowBytes, tV = sVu + (off + i0) * kRowBytes;
+        if constexpr (kQuant) {
+          dequant(sK, sKs, off + i0, tKu);
+          dequant(sV, sVs, off + i0, tVu);
+          __syncwarp();            // the tiles are in shared memory
+          tK = tKu;
+          tV = tVu;
+        }
+        // 1. S = K_tile q^T (16 rows x 8 window rows), fp32, x sm_scale; matrix l / 8 of a
+        // ldmatrix: rows 8 (l / 8 % 2) .., columns 8 (l / 16) .. of the 16 x 16 step
+        const int krow = ((lane >> 3) & 1) * 8 + (lane & 7);
+        float s[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+        for (int ks = 0; ks < HD / 16; ++ks) {
+          uint32_t ka[4];
+          ldsm_x4<false>(ka, tK + krow * kRowT + (((2 * ks + (lane >> 4)) ^ (krow & 7)) * 16));
+          mma16816<T>(s, ka[0], ka[1], ka[2], ka[3], qf[2 * ks], qf[2 * ks + 1]);
+        }
+        // s[cc]: tile row g, window row 2 t4 + cc; s[2 + cc]: tile row g + 8
+        float alpha[2];
+#pragma unroll
+        for (int cc = 0; cc < 2; ++cc) {
+          const int w = 2 * t4 + cc, ra = r0 + s0 + i0 + g;
+          const bool la = i0 + g < n && w < W && ra <= len + w;
+          const bool lb = i0 + g + 8 < n && w < W && ra + 8 <= len + w;
+          const float sa = la ? s[cc] * a.sm_scale : -INFINITY;
+          const float sb = lb ? s[cc + 2] * a.sm_scale : -INFINITY;
+          float pm = fmaxf(sa, sb);
+#pragma unroll
+          for (int off2 = 4; off2 < 32; off2 <<= 1)
+            pm = fmaxf(pm, __shfl_xor_sync(0xffffffffu, pm, off2));
+          // 2. the running state rescaled to the tile's max: once a piece, never once a row
+          const float m_new = fmaxf(m2[cc], pm);
+          alpha[cc] = m2[cc] == -INFINITY ? 0.f : expf(m2[cc] - m_new);
+          m2[cc] = m_new;
+          const float pa = la ? expf(sa - m_new) : 0.f;
+          const float pb = lb ? expf(sb - m_new) : 0.f;
+          l2[cc] = l2[cc] * alpha[cc] + pa + pb;
+          pt[w * 16 + g] = from_f<T>(pa);        // p.astype(compute) for AV only
+          pt[w * 16 + g + 8] = from_f<T>(pb);
+        }
+#pragma unroll
+        for (int j = 0; j < HD / 16; ++j) {
+          o[j][0] *= alpha[0];
+          o[j][2] *= alpha[0];
+          o[j][1] *= alpha[1];
+          o[j][3] *= alpha[1];
+        }
+        __syncwarp();              // P is in shared memory
+        // 3. O^T += V_tile^T P^T: A = V^T by ldmatrix.trans (matrix l / 8: tile rows
+        // 8 (l / 16) .., HD columns 8 (l / 8 % 2) ..), B = P^T (window row g, tile rows 2 t4..)
+        const uint32_t pb0 = *reinterpret_cast<const uint32_t*>(pt + g * 16 + 2 * t4);
+        const uint32_t pb1 = *reinterpret_cast<const uint32_t*>(pt + g * 16 + 2 * t4 + 8);
+        const int vrow = ((lane >> 4) & 1) * 8 + (lane & 7);
+#pragma unroll
+        for (int j = 0; j < HD / 16; ++j) {
+          uint32_t va[4];
+          const int chunk = (2 * j + ((lane >> 3) & 1)) ^ (vrow & 7);
+          ldsm_x4<true>(va, tV + vrow * kRowT + chunk * 16);
+          mma16816<T>(o[j], va[0], va[1], va[2], va[3], pb0, pb1);
+        }
+      }
+      __syncwarp();                // the tile and P are read
+      issue(k + 2);
+    }
+    // 4. the warp's partial: the denominator summed over the tile rows (the lanes of one t4),
+    // then (m, l) and O of window rows 2 t4, 2 t4 + 1
+#pragma unroll
+    for (int cc = 0; cc < 2; ++cc) {
+#pragma unroll
+      for (int off2 = 4; off2 < 32; off2 <<= 1)
+        l2[cc] += __shfl_xor_sync(0xffffffffu, l2[cc], off2);
+      const int w = 2 * t4 + cc;
+      if (w < W) {
+        if (g == 0) {
+          warp_m[warp][w] = m2[cc];
+          warp_l[warp][w] = l2[cc];
+        }
+#pragma unroll
+        for (int j = 0; j < HD / 16; ++j) {
+          red_acc[(warp * W + w) * HD + 16 * j + g] = o[j][cc];
+          red_acc[(warp * W + w) * HD + 16 * j + g + 8] = o[j][2 + cc];
+        }
+      }
+    }
+  } else {
+    // ---- the FMA path (fp32 compute, fp32 or int8 pools)
+    // this group's rows of piece k (and their scales) into the piece's half (k odd: the second),
+    // 16 bytes a copy; one commit group a piece, empty past the last
+    auto issue = [&](int k) {
+      if (k < np) {
+        const int s0 = k * pr, n = min(pr, nr - s0), off = (k & 1) * pr;
+        for (int i = gi; i < n; i += kGroups) {
+          const int r = r0 + s0 + i, j = r / a.bs;
+          const size_t row = (static_cast<size_t>(tab[j]) * a.bs + (r - j * a.bs)) * a.H + h;
+          for (int x = sub; x < kPieces; x += kLanes) {
+            cp_async16(sK + (off + i) * kRowBytes + x * 16, kp + row * kRowBytes + x * 16);
+            cp_async16(sV + (off + i) * kRowBytes + x * 16, vp + row * kRowBytes + x * 16);
+          }
+          if constexpr (kQuant) {
+            for (int x = sub; x < ns; x += kLanes) {
+              cp_async4(sKs + (off + i) * ns + x, a.k_scale + row * ns + x);
+              cp_async4(sVs + (off + i) * ns + x, a.v_scale + row * ns + x);
+            }
+          }
+        }
+      }
+      cp_async_commit();
+    };
+    issue(0);
+    issue(1);
+
+    // one lane's slice of staged row i as the compute dtype T (int8: through its scales, with
+    // dequantize_blockwise's formula).  The quant block HD / ns divides HD, so it is a power of
+    // two: element d takes scale d >> qshift
+    const int qshift = kQuant ? __ffs(HD / max(ns, 1)) - 1 : 0;
+    auto staged = [&](const unsigned char* rows, const float* scales, int i, float (&out)[kEpt]) {
+      load_vec<P, true>(reinterpret_cast<const P*>(rows + i * kRowBytes) + d0, out);
+      if constexpr (kQuant) {
+        const float* s = scales + i * ns;
+#pragma unroll
+        for (int j = 0; j < kEpt; ++j) out[j] = round_to<T>(out[j] * s[(d0 + j) >> qshift]);
+      }
+    };
+
+    // the group's running state per window row: max, denominator (of the unrounded p), AV
+    float m[kW], l[kW], acc[kW][kEpt];
+#pragma unroll
+    for (int w = 0; w < kW; ++w) {
+      m[w] = -INFINITY;
+      l[w] = 0.f;
+#pragma unroll
+      for (int j = 0; j < kEpt; ++j) acc[w][j] = 0.f;
+    }
+    for (int k = 0; k < np; ++k) {
+      cp_async_wait<1>();            // this thread's copies of piece k have landed
+      __syncwarp();                  // and the group's other lanes' too
+      const int s0 = k * pr, n = min(pr, nr - s0), off = (k & 1) * pr;
+      // a trip count uniform over the block: the group sums shuffle across every lane
+      const int trips = (n + kGroups - 1) / kGroups;
+
+      // 1. the scores of the group's rows (fp32, x sm_scale) and their max, each window row
+      float pm[kW];
+#pragma unroll
+      for (int w = 0; w < kW; ++w) pm[w] = -INFINITY;
+      for (int t = 0; t < trips; ++t) {
+        const int i = gi + t * kGroups, r = r0 + s0 + i;
+        const bool live = i < n;
+        float kr[kEpt];
+        if (live) {
+          staged(sK, sKs, off + i, kr);
+        } else {
+#pragma unroll
+          for (int j = 0; j < kEpt; ++j) kr[j] = 0.f;
+        }
+#pragma unroll
+        for (int w = 0; w < kW; ++w) {
+          if (w >= W) break;
+          float s = 0.f;
+#pragma unroll
+          for (int j = 0; j < kEpt; ++j) s = fmaf(qr[w][j], kr[j], s);
+          s = group_sum<kLanes>(s) * a.sm_scale;
+          if (live && r <= len + w) pm[w] = fmaxf(pm[w], s);
+          if (live && sub == 0) sc[w * sp.R + i] = s;
+        }
+      }
+      __syncwarp();                  // the group's scores are in shared memory
+
+      // 2. the running state rescaled to the piece's max: once a piece, never once a row
+#pragma unroll
+      for (int w = 0; w < kW; ++w) {
+        if (w >= W) break;
+        const float m_new = fmaxf(m[w], pm[w]);
+        const float alpha = m[w] == -INFINITY ? 0.f : expf(m[w] - m_new);
+        l[w] *= alpha;
+#pragma unroll
+        for (int j = 0; j < kEpt; ++j) acc[w][j] *= alpha;
+        m[w] = m_new;
+      }
+
+      // 3. p = exp(s - m), l += p, acc += round(p) V over the group's rows: independent rows
+      for (int t = 0; t < trips; ++t) {
+        const int i = gi + t * kGroups, r = r0 + s0 + i;
+        if (i >= n) break;
+        float vr[kEpt];
+        staged(sV, sVs, off + i, vr);
+#pragma unroll
+        for (int w = 0; w < kW; ++w) {
+          if (w >= W) break;
+          if (r <= len + w) {
+            const float p = expf(sc[w * sp.R + i] - m[w]);
+            const float pv = round_to<T>(p);      // p.astype(compute) for AV only
+            l[w] += p;
+#pragma unroll
+            for (int j = 0; j < kEpt; ++j) acc[w][j] = fmaf(pv, vr[j], acc[w][j]);
+          }
+        }
+      }
+      __syncwarp();                  // the group's rows of this half and its scores are read
+      issue(k + 2);
+    }
+
+    // 4. the groups of each warp merged (groups that saw no live row hold m = -inf), then each
+    // warp's partial into shared memory
+#pragma unroll
+    for (int off = kLanes; off < 32; off <<= 1) {
+#pragma unroll
+      for (int w = 0; w < kW; ++w) {
+        if (w >= W) break;
+        const float mo = __shfl_xor_sync(0xffffffffu, m[w], off);
+        const float lo = __shfl_xor_sync(0xffffffffu, l[w], off);
+        const float mn = fmaxf(m[w], mo);
+        const float fa = m[w] == -INFINITY ? 0.f : expf(m[w] - mn);
+        const float fb = mo == -INFINITY ? 0.f : expf(mo - mn);
+        l[w] = l[w] * fa + lo * fb;
+#pragma unroll
+        for (int j = 0; j < kEpt; ++j) {
+          const float ao = __shfl_xor_sync(0xffffffffu, acc[w][j], off);
+          acc[w][j] = acc[w][j] * fa + ao * fb;
+        }
+        m[w] = mn;
+      }
+    }
+    if (lane < kLanes) {
+#pragma unroll
+      for (int w = 0; w < kW; ++w) {
+        if (w >= W) break;
+#pragma unroll
+        for (int j = 0; j < kEpt; ++j) red_acc[(warp * W + w) * HD + d0 + j] = acc[w][j];
+        if (lane == 0) {
+          warp_m[warp][w] = m[w];
+          warp_l[warp][w] = l[w];
+        }
+      }
+    }
+  }
+  __syncthreads();
+
+  // 5. the rank's partial (m, l, O) over its warps: m and l stored into every rank, each
+  // output's O into the inbox of the rank that writes it (outputs q per .. q per + per - 1)
+  asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
+  if (tid < W) {
+    float mx = -INFINITY, ls = 0.f;
+#pragma unroll
+    for (int k = 0; k < kOnlineWarps; ++k) mx = fmaxf(mx, warp_m[k][tid]);
+#pragma unroll
+    for (int k = 0; k < kOnlineWarps; ++k) {
+      const float mk = warp_m[k][tid];
+      if (mk != -INFINITY) ls += warp_l[k][tid] * expf(mk - mx);
+    }
+    push(cluster, &rank_m[rank][tid], mx, C);
+    push(cluster, &rank_l[rank][tid], ls, C);
+  }
+  const int per = split_per(C, W, HD);
+  for (int i = tid; i < W * HD; i += kOnlineThreads) {
+    const int x = i / HD, d = i - x * HD, q_rank = i / per;
+    float mx = -INFINITY, o = 0.f;
+#pragma unroll
+    for (int k = 0; k < kOnlineWarps; ++k) mx = fmaxf(mx, warp_m[k][x]);
+#pragma unroll
+    for (int k = 0; k < kOnlineWarps; ++k) {
+      const float mk = warp_m[k][x];
+      if (mk != -INFINITY) o += red_acc[(k * W + x) * HD + d] * expf(mk - mx);
+    }
+    *cluster.map_shared_rank(inbox + rank * per + (i - q_rank * per), q_rank) = o;
+  }
+  cluster.sync();                  // every store into every rank has landed
+
+  // 6. the partials combined in rank order, each scaled by exp(m_r - m), divided by l; row 0
+  // is live for every window row, so some rank has a finite max.  After the barrier no rank
+  // touches a peer's shared memory, so each may exit
+  const int lo = rank * per, hi = min(lo + per, W * HD);
+  T* out = static_cast<T*>(a.out);
+  for (int i = lo + tid; i < hi; i += kOnlineThreads) {
+    const int x = i / HD, d = i - x * HD;
+    const float mx = in_rank_order(&rank_m[0][x], kMaxW, C, -INFINITY, Max());
+    float o = 0.f, ls = 0.f;
+#pragma unroll
+    for (int r = 0; r < kMaxRanks; ++r) {     // no early exit: the ranks' loads and exps overlap
+      const float mr = r < C ? rank_m[r][x] : -INFINITY;
+      const float f = mr == -INFINITY ? 0.f : expf(mr - mx);
+      if (r < C) {
+        o += f * inbox[r * per + (i - lo)];
+        ls += f * rank_l[r][x];
+      }
+    }
+    // __fdividef (within 2 ulp for l in [1, 2^126]: the row's max contributes p = 1) has no
+    // slow-path call, across which ptxas spilled live values in two int8 instances
+    out[((static_cast<size_t>(b) * W + x) * a.H + h) * HD + d] =
+        from_f<T>(__fdividef(o, ls == 0.f ? 1.f : ls));
+  }
+}
+
 // The split of a launch from S, the head dim and the pool's row bytes (ops/transformer/
 // paged_attention.py exact_sm90_plan is the same rule)
 Split split_plan(int S, int HD, int elem, int n_scales) {
@@ -835,23 +1438,39 @@ Split split_plan(int S, int HD, int elem, int n_scales) {
   return sp;
 }
 
-enum Kind { kOnline, kExact, kExactSplit };
+// online_split_kernel's: the same ranks; R rows staged at once, what kOnlineStageBytes holds
+// but 32 to 64 (a 16-row tile a warp), so a streamed chunk's halves are whole tiles
+// (online_sm90_plan is the same rule)
+Split online_plan(int S, int HD, int elem, int n_scales) {
+  Split sp = split_plan(S, HD, elem, n_scales);
+  const int per_row = 2 * (HD * elem + 4 * n_scales);
+  sp.R = std::min(std::min(sp.cap, 16 * kOnlineWarps), std::max(32, kOnlineStageBytes / per_row));
+  return sp;
+}
+
+enum Kind { kOnline, kExact, kExactSplit, kOnlineSplit };
 
 template <typename T, typename P, int HD>
 int launch(Kind kind, const Args& a, int B, cudaStream_t stream) {
   const dim3 grid(B, a.H);
-  if (kind == kExactSplit) {
+  if (kind == kExactSplit || kind == kOnlineSplit) {
+    const bool online = kind == kOnlineSplit;
     const int ns = std::is_same<P, int8_t>::value ? a.n_scales : 0;
-    const Split sp = split_plan(a.nb_max * a.bs, HD, static_cast<int>(sizeof(P)), ns);
-    const size_t smem =
-        split_layout(sp, a.W, HD, static_cast<int>(sizeof(P)), ns, a.nb_max).total;
-    cudaError_t e = cudaFuncSetAttribute(exact_split_kernel<T, P, HD>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+    const int elem = static_cast<int>(sizeof(P));
+    const Split sp = online ? online_plan(a.nb_max * a.bs, HD, elem, ns)
+                            : split_plan(a.nb_max * a.bs, HD, elem, ns);
+    const bool tiles = !std::is_same<T, float>::value && ns > 0;   // int8 on the tensor cores
+    const size_t smem = online ? online_layout(sp, a.W, HD, elem, ns, a.nb_max, tiles).total
+                               : split_layout(sp, a.W, HD, elem, ns, a.nb_max).total;
+    void (*kernel)(Args, Split) =
+        !online ? exact_split_kernel<T, P, HD>
+        : a.W == 1 ? online_split_kernel<T, P, HD, 1> : online_split_kernel<T, P, HD, kMaxW>;
+    cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
     if (e != cudaSuccess) return static_cast<int>(e);
     cudaLaunchConfig_t cfg = {};
     cfg.gridDim = dim3(B, a.H, sp.C);
-    cfg.blockDim = dim3(kSplitThreads);
+    cfg.blockDim = dim3(online ? kOnlineThreads : kSplitThreads);
     cfg.dynamicSmemBytes = smem;
     cfg.stream = stream;
     cudaLaunchAttribute attr[1];
@@ -861,7 +1480,7 @@ int launch(Kind kind, const Args& a, int B, cudaStream_t stream) {
     attr[0].val.clusterDim.z = sp.C;
     cfg.attrs = attr;
     cfg.numAttrs = 1;
-    e = cudaLaunchKernelEx(&cfg, exact_split_kernel<T, P, HD>, a, sp);
+    e = cudaLaunchKernelEx(&cfg, kernel, a, sp);
     if (e != cudaSuccess) return static_cast<int>(e);
   } else if (kind == kExact) {
     const size_t smem =
@@ -949,3 +1568,4 @@ int entry(Kind kind, int compute_dtype, int quantized, int head_dim, const void*
 PAGED_ENTRY(paged_attention_online, kOnline)
 PAGED_ENTRY(paged_attention_exact, kExact)
 PAGED_ENTRY(paged_attention_exact_sm90, kExactSplit)
+PAGED_ENTRY(paged_attention_online_sm90, kOnlineSplit)

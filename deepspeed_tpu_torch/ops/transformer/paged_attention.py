@@ -4,17 +4,21 @@ Counterpart of ``deepspeed_tpu/ops/transformer/paged_attention.py``.
 The two Pallas kernels there become hand-written CUDA kernels in
 ``deepspeed_tpu_torch/csrc/paged_attention.cu``:
 
-- ``paged_attention_online`` (for ``_online_kernel``): the default on
-  CUDA; walks only the slot's live rows with an fp32 online softmax;
+- ``paged_attention_online_sm90`` (for ``_online_kernel``): the default
+  on CUDA; an fp32 online softmax over the slot's live rows, each
+  (slot, head) split over a thread-block cluster of up to 8 blocks
+  (:func:`online_sm90_plan`, :func:`exact_sm90_split`) whose partial
+  (max, sum, O) merge through distributed shared memory in one exchange;
 - ``paged_attention_exact_sm90`` (for ``_exact_kernel``): the card's
   exact mode, an epilogue that mirrors ``GPT2._masked_attend`` op for op,
-  each (slot, head) split over a thread-block cluster of up to 8 blocks
-  (:func:`exact_sm90_plan`, :func:`exact_sm90_split`) that reduce the
-  row max and sum through distributed shared memory;
-- ``paged_attention_exact``: the first design of the exact kernel (one
-  block a (slot, head), the full score row in shared memory), callable
-  by name through :func:`paged_attention_exact_template` as the
-  yardstick beside its redesign; no main path launches it.
+  each (slot, head) split over a cluster the same way
+  (:func:`exact_sm90_plan`) that reduce the row max and sum through
+  distributed shared memory;
+- ``paged_attention_online`` and ``paged_attention_exact``: the first
+  designs of the two (one block a (slot, head)), callable by name
+  through :func:`paged_attention_online_template` and
+  :func:`paged_attention_exact_template` as the yardsticks beside their
+  redesigns; no main path launches them.
 
 All read K/V straight from the pool through the block table (no
 gathered copy) and dequantize int8 pools in registers.  Queries are a
@@ -41,19 +45,24 @@ from ...inference import paged_kv as pk
 # the oracle's mask value (GPT2._masked_attend uses finfo(float32).min)
 NEG_INF = float(torch.finfo(torch.float32).min)
 
-KERNELS = {"exact": "paged_attention_exact_sm90", "online": "paged_attention_online"}
-# the first design of the exact kernel, launched only by name (the yardstick beside its redesign)
-TEMPLATE = "paged_attention_exact"
+KERNELS = {"exact": "paged_attention_exact_sm90", "online": "paged_attention_online_sm90"}
+# the first design of each kernel, launched only by name (the yardsticks beside their redesigns)
+TEMPLATES = {"exact": "paged_attention_exact", "online": "paged_attention_online"}
 # launches per kernel since the last reset_launches(); only kernel launches count
-launches = {name: 0 for name in (*KERNELS.values(), TEMPLATE)}
+launches = {name: 0 for name in (*KERNELS.values(), *TEMPLATES.values())}
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 MAX_WINDOW = 8
 HEAD_DIMS = (64, 128)
-# paged_attention_exact_sm90's split (csrc/paged_attention.cu: kMaxRanks, kRankRows,
-# kStageBytes): ranks of a (slot, head)'s cluster, rows a rank is planned for, bytes of K + V
-# rows staged at once
-SPLIT_MAX_RANKS, SPLIT_RANK_ROWS, SPLIT_STAGE_BYTES = 8, 128, 24576
+# the cluster split of paged_attention_exact_sm90 and paged_attention_online_sm90
+# (csrc/paged_attention.cu: kMaxRanks, kRankRows, kStageBytes, kOnlineStageBytes): ranks of a
+# (slot, head)'s cluster, rows a rank is planned for, bytes of K + V rows staged at once by
+# each kernel
+SPLIT_MAX_RANKS, SPLIT_RANK_ROWS = 8, 128
+SPLIT_STAGE_BYTES, ONLINE_STAGE_BYTES = 24576, 16384
+# paged_attention_online_sm90's block (kOnlineWarps): at most a 16-row tile a warp staged at once
+ONLINE_WARPS = 4
+ONLINE_MAX_ROWS = 16 * ONLINE_WARPS
 
 
 def reset_launches():
@@ -94,6 +103,31 @@ def exact_sm90_split(length, W, S, C):
     n = max(min(length + W, S), 0)
     c = -(-n // C)
     return [(min(r * c, n), min(r * c + c, n)) for r in range(C)]
+
+
+def online_sm90_plan(S, head_dim, itemsize, n_scales=0):
+    """``paged_attention_online_sm90``'s split of a launch: ``(C, cap,
+    R)``, the ranks and ``cap`` of :func:`exact_sm90_plan`, and ``R``, the
+    rows staged at once: what a 16 KB budget holds, but 32 to 64 (a 16-row
+    tile for each of the block's 4 warps) and at most ``cap``.  The rows
+    of each rank are :func:`exact_sm90_split`'s and go through the buffer
+    as :func:`online_sm90_pieces` says."""
+    C, cap, _ = exact_sm90_plan(S, head_dim, itemsize, n_scales)
+    per_row = 2 * (head_dim * itemsize + 4 * n_scales)
+    return C, cap, min(cap, ONLINE_MAX_ROWS, max(32, ONLINE_STAGE_BYTES // per_row))
+
+
+def online_sm90_pieces(rows, R, mma=False):
+    """How ``paged_attention_online_sm90`` streams a rank's ``rows`` rows
+    through its staging buffer of ``R`` rows: ``[(s0, n, slot), ...]``,
+    piece k the chunk's rows ``[s0, s0 + n)`` staged from buffer row
+    ``slot``; one piece when they fit, else pieces of ``R // 2`` rows (with
+    ``mma``, the tensor-core path of 16-bit compute, rounded down to whole
+    16-row tiles) in the buffer's two halves in turn (the next piece's
+    copies in flight while the current one is consumed)."""
+    pr = R if rows <= R else (R // 2) & ~15 if mma else R // 2
+    return [(s0, min(pr, rows - s0), (k % 2) * pr)
+            for k, s0 in enumerate(range(0, rows, pr))]
 
 
 def paged_attention_reference(q, pool, block_tables, lengths, layer, *,
@@ -149,7 +183,15 @@ def paged_attention_exact_template(q, pool, block_tables, lengths, layer: int, *
     """:func:`paged_attention` in exact mode through the first design of
     the exact kernel, ``paged_attention_exact`` (for CUDA tensors; the
     plain version for CPU tensors)."""
-    return _paged(TEMPLATE, q, pool, block_tables, lengths, layer, scale_attn)
+    return _paged(TEMPLATES["exact"], q, pool, block_tables, lengths, layer, scale_attn)
+
+
+def paged_attention_online_template(q, pool, block_tables, lengths, layer: int, *,
+                                    scale_attn=True):
+    """:func:`paged_attention` in online mode through the first design of
+    the online kernel, ``paged_attention_online`` (for CUDA tensors; the
+    plain version for CPU tensors)."""
+    return _paged(TEMPLATES["online"], q, pool, block_tables, lengths, layer, scale_attn)
 
 
 def _paged(name, q, pool, block_tables, lengths, layer, scale_attn):

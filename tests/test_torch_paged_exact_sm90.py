@@ -214,7 +214,9 @@ def test_exact_mode_routes_to_the_cluster_kernel(monkeypatch, kv_bits):
     it; ``auto`` stays on the online kernel; the first design launches only
     by name; every call hands the C entry its 20 arguments and the stream."""
     assert tpa.KERNELS["exact"] == SM90 and tpa.resolve_mode("auto") == "online"
-    assert set(tpa.launches) == {SM90, TEMPLATE, "paged_attention_online"}
+    assert tpa.TEMPLATES["exact"] == TEMPLATE
+    online, online_first = tpa.KERNELS["online"], tpa.TEMPLATES["online"]
+    assert set(tpa.launches) == {SM90, TEMPLATE, online, online_first}
     calls = _fake_entry(monkeypatch)
     q, pool, tables, lengths = _meta_operands(kv_bits=kv_bits)
     tpa.reset_launches()
@@ -222,8 +224,8 @@ def test_exact_mode_routes_to_the_cluster_kernel(monkeypatch, kv_bits):
     assert out.shape == (3, 2, H * HD) and out.dtype == q.dtype
     tpa.paged_attention(q, pool, tables, lengths, 1)
     tpa.paged_attention_exact_template(q, pool, tables, lengths, 0)
-    assert [n for n, _ in calls] == [SM90, "paged_attention_online", TEMPLATE]
-    assert tpa.launches == {SM90: 1, "paged_attention_online": 1, TEMPLATE: 1}
+    assert [n for n, _ in calls] == [SM90, online, TEMPLATE]
+    assert tpa.launches == {SM90: 1, online: 1, TEMPLATE: 1, online_first: 0}
     for _, args in calls:
         assert len(args) == 21
         assert args[:3] == (1, int(kv_bits == 8), HD)
