@@ -10,7 +10,8 @@ JAX package ``deepspeed_tpu``):
    CUDA versions, and the build of the CUDA kernels from ``csrc/`` (one
    ``nvcc`` per source, started together) with its time and ptxas
    register/spill summary; ``flash_fwd_sm90``'s, ``int8_mm_nt_decode``'s,
-   ``int8_mm_nt_prefill``'s, the sm90 backward library's
+   ``int8_mm_nt_prefill``'s and ``int8_mm_t_prefill``'s (the latter's four
+   instances with no wgmma serialized), the sm90 backward library's
    (``flash_bwd_dkdv_lut_sm90`` / ``flash_bwd_dq_lut_sm90`` and the dense
    ``flash_bwd_dkdv_sm90`` / ``flash_bwd_dq_sm90``) and the sm90 LUT
    forward's (``flash_fwd_lut_sm90``; their build seconds, registers and
@@ -175,15 +176,20 @@ JAX package ``deepspeed_tpu``):
    forward+backward (``sparse_flash_attention`` under ``autograd.grad``,
    three readings).
 
-10. int8 kernels vs plain: ``int8_mm_nt_decode`` (the block weights at
-    M <= 16), ``int8_mm_nt_prefill`` (M > 16) and ``int8_mm_t`` (the head)
-    against ``int8_matmul_reference`` at the GPT-2 125M and 1.3B weight
-    shapes (qkv, proj, fc, fc_proj; the tied head transposed, N = 50257), M
-    in {1, 8, 16, 17, 64, 512}, per-tensor scales (and per-channel for the
+10. int8 kernels vs plain: the first ``int8_mm_t_prefill`` launch (the
+    head at M = 272, waited on under a deadline, from a generator of its
+    own), then ``int8_mm_nt_decode`` (the block weights at M <= 16),
+    ``int8_mm_nt_prefill`` (M > 16), ``int8_mm_t`` (the head at M <= 16) and
+    ``int8_mm_t_prefill`` (the head at M > 16) against
+    ``int8_matmul_reference`` at the GPT-2 125M and 1.3B weight shapes
+    (qkv, proj, fc, fc_proj; the tied head transposed, N = 50257), M in
+    {1, 8, 16, 17, 64, 512} (the head also 127, 128, 129 and 272, from a
+    generator of its own), per-tensor scales (and per-channel for the
     head), bf16 and fp32 outputs, each from the kernel its route names, and
-    the tiled ``int8_mm_nt`` (through ``int8_matmul_tiled``) at every
-    M > 16 block case: fp32 within d = 1e-5 of the largest |value| + 1e-6,
-    bf16 within one bf16 ulp of each value + d, and two calls bit-identical;
+    the earlier tiled design (``int8_mm_nt`` / ``int8_mm_t`` through
+    ``int8_matmul_tiled``) at every M > 16 case: fp32 within d = 1e-5 of
+    the largest |value| + 1e-6, bf16 within one bf16 ulp of each value + d,
+    and two calls bit-identical;
 11. int8 serving: GPT-2 1.3B at published widths (24 layers, 2048 wide, 32
     heads, vocab 50257), weights drawn on the card from a seeded generator
     with ``init_numpy``'s distributions, through
@@ -191,7 +197,8 @@ JAX package ``deepspeed_tpu``):
     -> ``ServingEngine(engine=...)`` with phase 3's traffic: every outcome OK,
     every block recycled, ``int8_mm_nt_decode`` launched decode steps x 96
     times, ``int8_mm_nt_prefill`` prefills x 96, the tiled ``int8_mm_nt``
-    never and ``int8_mm_t`` (decode steps + prefills) times, the int8
+    never, ``int8_mm_t`` decode steps times and ``int8_mm_t_prefill``
+    prefills times (the head), the int8
     tree at most 0.55x the bf16 tree's bytes; the oracle serves the same
     int8 values dequantized to bf16: its greedy choice on the int8 streams'
     contexts agrees on at least 0.9 of the tokens, one decode step's logits
@@ -199,15 +206,19 @@ JAX package ``deepspeed_tpu``):
     against the serving streams (the same launch counts); a
     ``torch.profiler`` breakdown of a decode step of each, with the int8
     products' device time per step, and of a prefill of 272 tokens (the
-    mean prompt), with the int8 products' device time per prefill;
+    mean prompt), with the int8 products' device time per prefill (the
+    block products and the head);
 12. the int8 kernels at 1.3B's weights, decode (M = 8) and prefill (M =
     272 and 512): each held against its plain version, then timed beside its
     bound, its plain version, ``torch.matmul`` over the dequantized bf16
-    weight and (the head) ``torch._weight_int8pack_mm``, which the port
-    never calls; the block weights' kernel (``int8_mm_nt_decode`` at
-    decode, ``int8_mm_nt_prefill`` at prefill) beside the tiled
-    ``int8_mm_nt`` (through ``int8_matmul_tiled``: the earlier design),
-    median of three readings each;
+    weight and (the head) ``torch._weight_int8pack_mm`` and the port's own
+    bf16 head call (``torch.mm`` over the vocab-padded weight, fp32 out),
+    which the int8 path never calls; the routed kernel (``int8_mm_nt_decode``
+    / ``int8_mm_nt_prefill`` for the block weights, ``int8_mm_t`` /
+    ``int8_mm_t_prefill`` for the head) beside the earlier tiled design
+    (``int8_mm_nt`` / ``int8_mm_t`` through ``int8_matmul_tiled``; the head
+    at M = 8 routes to it), the two timed in turns, median of three
+    readings each;
 13. banded and merged-row kernels vs plain: ``flash_fwd_banded`` and
     ``flash_fwd_merged`` against ``flash_attention_reference_fwd`` over
     their schedules (O and lse, phase 2's limits) at B=2,
@@ -271,7 +282,7 @@ from deepspeed_tpu_torch.inference import (InferenceEngine, OK, Request,
                                            ServingConfig, ServingEngine)
 from deepspeed_tpu_torch.inference import paged_kv as pk
 from deepspeed_tpu_torch.models import build
-from deepspeed_tpu_torch.models.gpt2 import GPT2, params_from_jax
+from deepspeed_tpu_torch.models.gpt2 import GPT2, _pad_vocab, params_from_jax
 from deepspeed_tpu_torch.ops.op_builder import cuda as builder
 from deepspeed_tpu_torch.ops.sparse_attention import (
     BigBirdSparsityConfig, BSLongformerSparsityConfig, FixedSparsityConfig,
@@ -321,7 +332,8 @@ REPLACES = {"paged_attention_online":
             "int8_mm_nt": "deepspeed_tpu/ops/transformer/int8_matmul.py:45",     # the rest
             "int8_mm_nt_decode": "deepspeed_tpu/ops/transformer/int8_matmul.py:45",  # M <= 16
             "int8_mm_nt_prefill": "deepspeed_tpu/ops/transformer/int8_matmul.py:45",  # M > 16
-            "int8_mm_t": "deepspeed_tpu/ops/transformer/int8_matmul.py:53"}
+            "int8_mm_t": "deepspeed_tpu/ops/transformer/int8_matmul.py:53",       # M <= 16
+            "int8_mm_t_prefill": "deepspeed_tpu/ops/transformer/int8_matmul.py:53"}  # M > 16
 INT8_DECODE_LIB = im.LIBRARIES["int8_mm_nt_decode"]
 INT8_PREFILL_LIB = im.LIBRARIES["int8_mm_nt_prefill"]
 INT8_SOURCES = {name: f"deepspeed_tpu_torch/csrc/{lib}.cu" for name, lib in im.LIBRARIES.items()}
@@ -453,7 +465,7 @@ def setup():
             raise AssertionError(f"{PAGED_LIB}: {kernel} not built in {n} instances, or ptxas "
                                  f"spilled registers: {split}")
     for lib, kernels in ((INT8_DECODE_LIB, ("int8_decode_kernel",)),
-                         (INT8_PREFILL_LIB, ("int8_prefill_kernel",)),
+                         (INT8_PREFILL_LIB, ("int8_prefill_kernel", "int8_t_prefill_kernel")),
                          (GROUP_SM90_LIB, ("dkdv_sm90_kernel", "dq_sm90_kernel",
                                            "dense_dkdv_kernel", "dense_dq_kernel")),
                          (FWD_LUT_SM90_LIB, ("fwd_lut_sm90_kernel",))):
@@ -476,9 +488,15 @@ def setup():
         f"{name} not built" for name, found in dense.items()))
     if not all(len(found) == 1 for found in dense.values()):
         raise AssertionError(f"{GROUP_SM90_LIB}: a dense instance not built once: {dense}")
-    for lib in (GROUP_SM90_LIB, FWD_LUT_SM90_LIB):
+    t_rows = [kname for kname, *_ in ptxas_summary(builder.build_log[INT8_PREFILL_LIB]["ptxas"])
+              if "int8_t_prefill_kernel" in kname]
+    if len(t_rows) != 2 * len(im.T_PREFILL_TILES):
+        raise AssertionError(f"{INT8_PREFILL_LIB}: int8_mm_t_prefill's instances (token tiles x "
+                             f"bf16 / fp32 out) not built once each: {t_rows}")
+    for lib, kernel in ((GROUP_SM90_LIB, ""), (FWD_LUT_SM90_LIB, ""),
+                        (INT8_PREFILL_LIB, "int8_t_prefill_kernel")):
         serialized = [line.strip() for line in builder.build_log[lib]["ptxas"].splitlines()
-                      if "C7515" in line or "C7512" in line]
+                      if ("C7515" in line or "C7512" in line) and kernel in line]
         if serialized:
             raise AssertionError(f"{lib}: ptxas serialized wgmmas: {serialized}")
     return card
@@ -803,7 +821,8 @@ def serve(engine, prompts, new, tag, kv_bits, mode):
     paged-attention launches == decode steps x layers and, for an int8
     engine, ``int8_mm_nt_decode`` == steps x 4 x layers,
     ``int8_mm_nt_prefill`` == prefills x 4 x layers, the tiled ``int8_mm_nt``
-    0 and ``int8_mm_t`` == steps + prefills (all 0 for a float engine).
+    0, ``int8_mm_t`` == steps and ``int8_mm_t_prefill`` == prefills (all 0
+    for a float engine).
     Returns (server, paged launches by kernel, tokens)."""
     c = engine.module.config
     c.paged_attention_mode = mode
@@ -833,12 +852,14 @@ def serve(engine, prompts, new, tag, kv_bits, mode):
                                  f"expected {expect} ({steps} steps)")
     # int8: the block products of each decode step (8 rows) on the decode kernel, of each
     # prefill (a prompt of 32 rows or more) on the prefill kernel, none on the tiled one;
-    # the head once per step or prefill.  A float engine launches none.
+    # the head once per step (int8_mm_t) or prefill (int8_mm_t_prefill).  A float engine
+    # launches none.
     q = int(engine.quantized)
     for name, expect in (("int8_mm_nt_decode", q * steps * 4 * c.n_layer),
                          ("int8_mm_nt_prefill", q * len(prompts) * 4 * c.n_layer),
                          ("int8_mm_nt", 0),
-                         ("int8_mm_t", q * (steps + len(prompts)))):
+                         ("int8_mm_t", q * steps),
+                         ("int8_mm_t_prefill", q * len(prompts))):
         if int8_counts[name] != expect:
             raise AssertionError(f"{tag}: {name} launched {int8_counts[name]} times, "
                                  f"expected {expect} ({steps} steps, {len(prompts)} "
@@ -855,7 +876,8 @@ def serve(engine, prompts, new, tag, kv_bits, mode):
     int8_line = (f"int8_mm_nt_decode {int8_counts['int8_mm_nt_decode']} = steps x "
                  f"{4 * c.n_layer}, int8_mm_nt_prefill {int8_counts['int8_mm_nt_prefill']} = "
                  f"prefills x {4 * c.n_layer}, int8_mm_nt {int8_counts['int8_mm_nt']}, "
-                 f"int8_mm_t {int8_counts['int8_mm_t']} = steps + prefills; "
+                 f"int8_mm_t {int8_counts['int8_mm_t']} = steps, int8_mm_t_prefill "
+                 f"{int8_counts['int8_mm_t_prefill']} = prefills; "
                  if engine.quantized else "")
     others = ", ".join(f"{name} {n}" for name, n in counts.items() if name != want)
     print(f"serve {tag}: {len(prompts)} requests OK, {steps} decode steps, "
@@ -1961,6 +1983,7 @@ def sparse_timing(dev, gen, bytes_per_s, card, B=8, T=2048, H=16, d=64):
 # under a bare one-ulp limit, every large element within one).
 INT8_FP32_TOL = 1e-5
 INT8_M = (1, 8, 16, 17, 64, 512)
+INT8_HEAD_M = (127, 128, 129, 272)   # the head's token tiles' edges and two 136-token tiles
 INT8_SHAPES = {name: {"qkv_w": (D, 3 * D), "proj_w": (D, D), "fc_w": (D, 4 * D),
                       "fc_proj_w": (4 * D, D), "wte": (50257, D)}
                for name, D in (("125m", 768), ("1.3b", 2048))}
@@ -1978,32 +2001,65 @@ def int8_error(got, ref):
     return err.max().item(), (err / limit).max().item()
 
 
+def first_t_prefill_launch(dev, M=272, seed=21):
+    """The first ``int8_mm_t_prefill`` launch: GPT-2 1.3B's head at M
+    tokens, per-channel scales, fp32 out, from a generator of its own (so
+    the later phases draw what they drew before), waited on under
+    SM90_DEADLINE_S and held against the plain version."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    N, K = INT8_SHAPES["1.3b"]["wte"]
+    q = torch.randint(-128, 128, (N, K), generator=g, device=dev, dtype=torch.int8)
+    x = (torch.randn((M, K), generator=g, device=dev) * 0.5).to(torch.bfloat16)
+    scale = (torch.rand((N,), generator=g, device=dev) + 0.5) * 1e-2
+    torch.cuda.synchronize()
+    before = im.launches["int8_mm_t_prefill"]
+    t0 = time.perf_counter()
+    got = im.int8_matmul(x, q, scale, w_transposed=True, out_dtype=torch.float32)
+    ms = wait_first("int8_mm_t_prefill", f"head M={M}", t0)
+    if im.launches["int8_mm_t_prefill"] != before + 1:
+        raise AssertionError(f"head M={M}: not launched on int8_mm_t_prefill: {im.launches}")
+    err, share = int8_error(got, im.int8_matmul_reference(x, q, scale, w_transposed=True,
+                                                          out_dtype=torch.float32))
+    print(f"int8_mm_t_prefill first launch head 1.3b M={M}: completed in {ms:.1f} ms, max abs "
+          f"error {err:.2e} ({share:.2f} of its limit)")
+    if not share <= 1.0:
+        raise AssertionError(f"int8_mm_t_prefill first launch: {err} is {share:.2f}x its limit")
+    im.launches["int8_mm_t_prefill"] = before   # a checking launch, not a path launch
+
+
 def check_int8_kernels(dev, gen):
-    """Phase 10: the entries against the plain version over the 125M and
-    1.3B weight shapes (the head transposed, N = 50257), M in INT8_M
-    (``int8_mm_nt_decode`` takes the block weights at M <= 16,
-    ``int8_mm_nt_prefill`` the rest), per-tensor scales (and per-channel for
-    the head), bf16 and fp32 outputs; each output from the kernel its route
-    names, and at every M > 16 block case from the tiled ``int8_mm_nt``
-    through ``int8_matmul_tiled`` too; within its limit and bit-identical
-    on a second call.  Returns the max abs error per kernel."""
+    """Phase 10: the first ``int8_mm_t_prefill`` launch, then the entries
+    against the plain version over the 125M and 1.3B weight shapes (the
+    head transposed, N = 50257), M in INT8_M (the head also INT8_HEAD_M,
+    drawn from a generator of its own) (``int8_mm_nt_decode`` takes the
+    block weights at M <= 16, ``int8_mm_nt_prefill`` the rest;
+    ``int8_mm_t`` the head at M <= 16, ``int8_mm_t_prefill`` the rest),
+    per-tensor scales (and per-channel for the head), bf16 and fp32
+    outputs; each output from the kernel its route names, and at every
+    M > 16 case from the earlier tiled design (``int8_mm_nt`` /
+    ``int8_mm_t``) through ``int8_matmul_tiled`` too; within its limit and
+    bit-identical on a second call.  Returns the max abs error per
+    kernel."""
+    first_t_prefill_launch(dev)
     max_err = {name: 0.0 for name in im.KERNELS.values()}
     saved = dict(im.launches)
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    head_gen = torch.Generator(device=dev).manual_seed(22)
     for preset, shapes in INT8_SHAPES.items():
         for wname, (rows, cols) in shapes.items():
             t = wname == "wte"
             q = torch.randint(-128, 128, (rows, cols), generator=gen, device=dev,
                               dtype=torch.int8)
             K, N = (cols, rows) if t else (rows, cols)
-            for M in INT8_M:
-                name = im.KERNELS["t"] if t else im.int8_nt_kernel(M, N, K, True)
-                x = (torch.randn((M, K), generator=gen, device=dev) * 0.5).to(torch.bfloat16)
+            for M in INT8_M + (INT8_HEAD_M if t else ()):
+                g = head_gen if M in INT8_HEAD_M else gen
+                name = (im.int8_t_kernel if t else im.int8_nt_kernel)(M, N, K, True)
+                x = (torch.randn((M, K), generator=g, device=dev) * 0.5).to(torch.bfloat16)
                 routes = [(name, im.int8_matmul)]
-                if name == "int8_mm_nt_prefill":
-                    routes.append((im.KERNELS["nt"], im.int8_matmul_tiled))
+                if name in (im.KERNELS["prefill"], im.KERNELS["t_prefill"]):
+                    routes.append((im.KERNELS["t" if t else "nt"], im.int8_matmul_tiled))
                 for kind in (("tensor", "channel") if t else ("tensor",)):
-                    scale = (torch.rand((N if kind == "channel" else 1,), generator=gen,
+                    scale = (torch.rand((N if kind == "channel" else 1,), generator=g,
                                         device=dev) + 0.5) * 1e-2
                     for kname, fn in routes:
                         res = []
@@ -2034,6 +2090,10 @@ def check_int8_kernels(dev, gen):
                             mt, nt, kb, splits, per = im.int8_prefill_plan(M, N, K, sms)
                             grid = (f"{mt} x {nt} tiles x {splits} splits of {per} k boxes "
                                     f"(of {kb})")
+                        elif kname == "int8_mm_t_prefill":
+                            tm, mt, nt, kb, splits, per = im.int8_t_prefill_plan(M, N, K, sms)
+                            grid = (f"{mt} x {nt} tiles of {tm} tokens x 128 rows x {splits} "
+                                    f"splits of {per} k boxes (of {kb})")
                         else:
                             tile, splits, _ = im.plan(M, N, K, sms)
                             grid = f"tile {tile} splits {splits}"
@@ -2165,7 +2225,8 @@ def int8_serving(dev, card, prompts, preset="gpt2-1.3b", new=32):
     gen_launches = dict(im.launches)
     # one prefill of 4 x 64 rows, 15 decode steps of 4 rows, the head each time
     if gen_launches != {"int8_mm_nt_prefill": 4 * c.n_layer, "int8_mm_nt": 0,
-                        "int8_mm_nt_decode": 15 * 4 * c.n_layer, "int8_mm_t": 16}:
+                        "int8_mm_nt_decode": 15 * 4 * c.n_layer, "int8_mm_t": 15,
+                        "int8_mm_t_prefill": 1}:
         raise AssertionError(f"generate launches {gen_launches}")
     sres = ServingEngine(engine=engine, config=cfg).run(
         [Request(tokens=p, uid=i, max_new_tokens=16) for i, p in enumerate(gp)])
@@ -2186,7 +2247,8 @@ def int8_serving(dev, card, prompts, preset="gpt2-1.3b", new=32):
     paged_device_time(by_name, f"{preset} int8w", c.n_layer)
     # the int8 products' device time per decode step: the block products (decode kernel)
     # and the tied head (int8_matmul.cu's kernel, transposed layout)
-    int8_device_time(by_name, preset, "decode step", "int8_decode_kernel", "int8_mm_nt_decode")
+    int8_device_time(by_name, preset, "decode step", "int8_decode_kernel", "int8_mm_nt_decode",
+                     "int8_mm_kernel", "int8_mm_t")
     # one prefill of the mean prompt as ServingEngine._start runs it
     srv_p = ServingEngine(engine=engine, config=cfg)
     T = INT8_PREFILL_T
@@ -2199,7 +2261,8 @@ def int8_serving(dev, card, prompts, preset="gpt2-1.3b", new=32):
             srv_p.model.apply_with_cache(params_p, toks, srv_p.model.init_cache(1, T))
 
     by_name = profile_steps(prefill, f"{preset} int8w prefill T={T}", steps=4, unit="prefill")
-    int8_device_time(by_name, preset, "prefill", "int8_prefill_kernel", "int8_mm_nt_prefill")
+    int8_device_time(by_name, preset, "prefill", "int8_prefill_kernel", "int8_mm_nt_prefill",
+                     "int8_t_prefill_kernel", "int8_mm_t_prefill")
     prof_o = ServingEngine(engine=oracle, config=cfg)
     for i, p in enumerate(prompts[:8]):
         prof_o.submit(Request(tokens=p, uid=i))
@@ -2220,41 +2283,52 @@ def paged_device_time(by_name, tag, layers):
               f"{name[:60]} {tn[0]:.1f} us" for name, tn in paged.items()))
 
 
-def int8_device_time(by_name, preset, unit, kernel, name):
+def int8_device_time(by_name, preset, unit, kernel, name, head_kernel, head_name):
     """The int8 products' device time per ``unit`` from a profile: the block
-    products (``kernel``) and the tied head (int8_matmul.cu's kernel,
-    transposed layout)."""
-    blk = [v for k, v in by_name.items() if kernel in k]
-    other = [v for k, v in by_name.items() if "int8_mm_kernel" in k]
-    print(f"profile {preset} int8w: int8 products' device time per {unit} "
-          f"{sum(t for t, _ in blk + other):.1f} us: {name} {sum(t for t, _ in blk):.1f} us "
-          f"({sum(n for _, n in blk):.1f} launches), int8_matmul.cu "
-          f"{sum(t for t, _ in other):.1f} us ({sum(n for _, n in other):.1f} launches)")
+    products (``kernel``, entry ``name``), the tied head (``head_kernel``,
+    entry ``head_name``) and any other int8 kernel (int8_matmul.cu's tiled
+    ones, or the other entry's)."""
+    rows = {}
+    for k, v in by_name.items():
+        if "int8" not in k:
+            continue
+        key = name if kernel in k else head_name if head_kernel in k else "other int8"
+        rows.setdefault(key, []).append(v)
+    total = sum(t for vs in rows.values() for t, _ in vs)
+    print(f"profile {preset} int8w: int8 products' device time per {unit} {total:.1f} us: "
+          + ", ".join(f"{key} {sum(t for t, _ in rows.get(key, [])):.1f} us "
+                      f"({sum(n for _, n in rows.get(key, [])):.1f} launches)"
+                      for key in (name, head_name, "other int8")))
 
 
 # ------------------------------------------------------ 12. int8 timing
-INT8_TIMING_M = {"block": (8, 272, 512), "head": (8, 512)}
+INT8_TIMING_M = {"block": (8, 272, 512), "head": (8, 272, 512)}
+INT8_TIMING_OWN = ("wte", 272)   # drawn from a generator of its own: later phases draw as before
 
 
 def int8_timing(dev, gen, bytes_per_s):
     """Phase 12 at GPT-2 1.3B's weights, decode (M = 8) and prefill (M = 272,
-    the mean prompt, and 512; the head at 8 and 512): the kernel each call
-    routes to (``int8_mm_nt_decode`` for the block weights at M = 8,
-    ``int8_mm_nt_prefill`` at 272 and 512, ``int8_mm_t`` for the head) held
-    against its plain version, then timed with CUDA events (12 weights
-    cycled, 12x the 50 MB L2 at qkv; the block weights' kernel and, beside
-    it, the tiled design (``int8_matmul.cu``, held against the plain version
-    too) through ``int8_matmul_tiled``, as the median of three readings)
-    beside its bound, its plain version and two yardsticks the port never
-    calls: ``torch.matmul`` over the pre-dequantized bf16 weight (the
-    dequantize untimed; it reads twice the weight bytes) and, for the head
-    with per-channel scales, ``torch._weight_int8pack_mm``.  Returns the
-    kernels-line fields at the shape the main path gives each kernel: qkv at
-    M = 8 (decode), qkv at M = 512 (prefill, and the tiled design there),
-    the head at M = 8."""
+    the mean prompt, and 512): the kernel each call routes to
+    (``int8_mm_nt_decode`` / ``int8_mm_nt_prefill`` for the block weights,
+    ``int8_mm_t`` / ``int8_mm_t_prefill`` for the head) held against its
+    plain version, then timed with CUDA events (12 block weights cycled, 12x
+    the 50 MB L2 at qkv; two 103 MB heads), and beside it (but for the head
+    at M = 8, which routes to it) the earlier tiled design (``int8_matmul.cu``, held against the plain
+    version too) through ``int8_matmul_tiled``, the two timed in turns
+    (routed, tiled, routed, tiled, ...), median of three readings each; the
+    bound, the plain version, and yardsticks the int8 path never calls:
+    ``torch.matmul`` over the pre-dequantized bf16 weight (the dequantize
+    untimed; it reads twice the weight bytes) and, for the head with
+    per-channel scales, ``torch._weight_int8pack_mm`` and the port's own
+    bf16 head call (``tied_head``'s ``torch.mm`` over the vocab-padded
+    weight, fp32 out, the pad included).  Returns the kernels-line fields at
+    the shape the main path gives each kernel: qkv at M = 8 (decode), qkv
+    at M = 512 (prefill, and the tiled design there), the head at M = 8
+    (``int8_mm_t``) and M = 512 (``int8_mm_t_prefill``)."""
     saved = dict(im.launches)
     out = {}
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    own = torch.Generator(device=dev).manual_seed(23)
     for wname, (rows, cols) in INT8_SHAPES["1.3b"].items():
         t = wname == "wte"
         K, N = (cols, rows) if t else (rows, cols)
@@ -2264,8 +2338,9 @@ def int8_timing(dev, gen, bytes_per_s):
         scale = (torch.rand((N if t else 1,), generator=gen, device=dev) + 0.5) * 1e-2
         deq = [(q.float() * (scale[:, None] if t else scale)).to(torch.bfloat16) for q in qs]
         for M in INT8_TIMING_M["head" if t else "block"]:
-            name = im.KERNELS["t"] if t else im.int8_nt_kernel(M, N, K, True)
-            x = (torch.randn((M, K), generator=gen, device=dev) * 0.5).to(torch.bfloat16)
+            name = (im.int8_t_kernel if t else im.int8_nt_kernel)(M, N, K, True)
+            g = own if (wname, M) == INT8_TIMING_OWN else gen
+            x = (torch.randn((M, K), generator=g, device=dev) * 0.5).to(torch.bfloat16)
             n = len(qs)
             before = im.launches[name]
             got = im.int8_matmul(x, qs[0], scale, w_transposed=t, out_dtype=od)
@@ -2284,28 +2359,38 @@ def int8_timing(dev, gen, bytes_per_s):
             t_b, t_o = nbytes / bytes_per_s * 1e3, ops / PEAK_OPS["bf16"] * 1e3
             bound, by = (t_b, "bytes") if t_b >= t_o else (t_o, "operations")
             reps = 200 if M == 8 else 50
-            readings = sorted(time_ms(lambda l: im.int8_matmul(
-                x, qs[l % n], scale, w_transposed=t, out_dtype=od), reps)
-                for _ in range(1 if t else 3))
-            ms = readings[len(readings) // 2]
+
+            def routed(l):
+                return im.int8_matmul(x, qs[l % n], scale, w_transposed=t, out_dtype=od)
+
+            def tiled_call(l):
+                return im.int8_matmul_tiled(x, qs[l % n], scale, w_transposed=t, out_dtype=od)
+
             tiled, tiled_fields = "", None
-            if not t:
-                tiled_out = im.int8_matmul_tiled(x, qs[0], scale, out_dtype=od)
+            if M == 8 and t:                            # the routed kernel is the tiled one
+                readings = [time_ms(routed, reps)]
+            else:
+                tiled_kernel = im.KERNELS["t" if t else "nt"]
+                tiled_out = tiled_call(0)
                 tiled_err, tiled_share = int8_error(tiled_out, ref)
                 if not tiled_share <= 1.0:
-                    raise AssertionError(f"int8_mm_nt {wname} M={M}: {tiled_err} is "
+                    raise AssertionError(f"{tiled_kernel} {wname} M={M}: {tiled_err} is "
                                          f"{tiled_share:.2f}x its limit")
-                tiled_ms = sorted(time_ms(lambda l: im.int8_matmul_tiled(x, qs[l % n], scale,
-                                                                         out_dtype=od), reps)
-                                  for _ in range(3))
-                tiled = (f"; the tiled int8_mm_nt {tiled_ms[1] * 1e3:.2f} us "
-                         f"[{tiled_ms[0] * 1e3:.2f}, {tiled_ms[2] * 1e3:.2f}]")
+                readings, tiled_ms = [], []
+                for _ in range(3):                      # in turns: routed, tiled, ...
+                    readings.append(time_ms(routed, reps))
+                    tiled_ms.append(time_ms(tiled_call, reps))
+                readings, tiled_ms = sorted(readings), sorted(tiled_ms)
+                tiled = (f"; the tiled {tiled_kernel} {tiled_ms[1] * 1e3:.2f} us "
+                         f"[{tiled_ms[0] * 1e3:.2f}, {tiled_ms[2] * 1e3:.2f}] "
+                         f"({bound / tiled_ms[1]:.3f} of the bound)")
                 tiled_fields = {"max_abs_err": tiled_err, "ms": tiled_ms[1]}
+            ms = readings[len(readings) // 2]
             plain_ms = time_ms(lambda l: im.int8_matmul_reference(
                 x, qs[l % n], scale, w_transposed=t, out_dtype=od), 10, warmup=2)
             lib_ms = time_ms(lambda l: torch.matmul(x, deq[l % n].t() if t else deq[l % n]),
                              reps)
-            pack_ms, pack_note = None, "not timed (block weight: (K, N) layout)"
+            pack_ms, pack_note, head_note = None, "not timed (block weight: (K, N) layout)", ""
             if t:
                 try:
                     sc16 = scale.to(torch.bfloat16)
@@ -2317,24 +2402,31 @@ def int8_timing(dev, gen, bytes_per_s):
                                  f"diff {pk_err:.2e})")
                 except (RuntimeError, AttributeError, NotImplementedError) as e:
                     pack_note = f"not available ({str(e).splitlines()[0][:120]})"
+                head_ms = time_ms(lambda l: torch.mm(x, _pad_vocab(deq[l % n], 0).t(),
+                                                     out_dtype=torch.float32), reps)
+                head_note = (f"; the port's bf16 head (torch.mm over the vocab-padded weight, "
+                             f"fp32 out, the pad included) {head_ms * 1e3:.2f} us")
             if name == "int8_mm_nt_decode":
                 grid = "{} tiles x {} k boxes on {} blocks".format(*im.int8_decode_plan(N, K, sms))
             elif name == "int8_mm_nt_prefill":
                 grid = "{} x {} tiles, {} k boxes in {} splits of {}".format(
                     *im.int8_prefill_plan(M, N, K, sms))
+            elif name == "int8_mm_t_prefill":
+                grid = "{}-token tiles: {} x {} tiles, {} k boxes in {} splits of {}".format(
+                    *im.int8_t_prefill_plan(M, N, K, sms))
             else:
                 grid = "tile {}, {} splits of {} k tiles".format(*im.plan(M, N, K, sms))
             spread = (f" [{readings[0] * 1e3:.2f}, {readings[-1] * 1e3:.2f}]"
                       if len(readings) > 1 else "")
             print(f"timing {name} 1.3b {wname} M={M} K={K} N={N} out={str(od)[6:]} ({grid}): "
                   f"{ms * 1e3:.2f} us{spread}, bound {bound * 1e3:.2f} us ({by}; "
-                  f"{nbytes / 1e6:.2f} MB, {ops / 1e9:.2f} GFLOP, {bound / ms:.2f} of the bound), "
+                  f"{nbytes / 1e6:.2f} MB, {ops / 1e9:.2f} GFLOP, {bound / ms:.3f} of the bound), "
                   f"plain {plain_ms * 1e3:.2f} us, cuBLAS bf16 over the dequantized weight "
                   f"{lib_ms * 1e3:.2f} us ({ms / lib_ms:.2f}x){tiled}; _weight_int8pack_mm: "
-                  f"{pack_note}")
+                  f"{pack_note}{head_note}")
             fields = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
-                      "bound_by": by, "library_ms": lib_ms, "int8pack_ms": pack_ms}
-            if (wname, M) in (("qkv_w", 8), ("qkv_w", 512), ("wte", 8)):
+                      "bound_by": by, "library_ms": lib_ms}
+            if (wname, M) in (("qkv_w", 8), ("qkv_w", 512), ("wte", 8), ("wte", 512)):
                 out[name] = fields
             if (wname, M) == ("qkv_w", 512):
                 out[im.KERNELS["nt"]] = {**fields, **tiled_fields}
@@ -2853,9 +2945,9 @@ def main():
     torch.cuda.empty_cache()
     ti = int8_timing(dev, gen, bw)
     for name in im.KERNELS.values():
-        fields = {k: v for k, v in ti[name].items() if k != "int8pack_ms"}
         kernels.append({"name": name, "route": "cuda", "source": INT8_SOURCES[name],
-                        "replaces": REPLACES[name], "launches": int8_launches[name], **fields})
+                        "replaces": REPLACES[name], "launches": int8_launches[name],
+                        **ti[name]})
     torch.cuda.empty_cache()
 
     # 13. banded and merged kernels vs plain, flash_attention_with_lse;

@@ -1,5 +1,7 @@
-// Weight-int8 matrix product at prefill for Hopper (sm_90a): the entry int8_mm_nt_prefill,
-// bf16 activations of more than 16 rows times an int8 (K, N) weight, accumulated in fp32.
+// Weight-int8 matrix products at prefill for Hopper (sm_90a): bf16 activations of more than
+// 16 rows times an int8 weight, accumulated in fp32.  Two entries share the helpers below:
+// int8_mm_nt_prefill for a (K, N) weight (the block weights) and int8_mm_t_prefill for an
+// (N, K) weight (the tied head), described before its kernel ("the (N, K) entry").
 //
 // Replaces, for M > 16, the Pallas TPU kernel _kernel_nt of
 // deepspeed_tpu/ops/transformer/int8_matmul.py (45; pallas_call at 74) and the XLA branch of
@@ -60,9 +62,23 @@
 // int8_prefill_plan and int8_prefill_blocks in ops/transformer/int8_matmul.py are this
 // schedule in Python; tests/test_torch_int8_prefill.py emulates the kernel lane by lane.
 //
-// C interface for ctypes: returns cudaGetLastError() after the launch (0 on success), -1 for
-// a shape, alignment, split or output type it was not built for, -2 when a tensor map
-// cannot be encoded and -3 when the CUDA driver has no cuTensorMapEncodeTiled.
+// int8_mm_t_prefill replaces, for M > 16, the Pallas TPU kernel _kernel_t of the same file
+// (53; pallas_call at 74) and the XLA branch with w_transposed: out[m, n] = cast(s_n * sum_k
+// bf16(x[m, k]) * q[n, k]), the scale per tensor or per output channel n, on the fp32 sum.
+// At GPT-2 1.3B's head (N = 50257, K = 2048) and M = 512 that is 105.4 GFLOP against 208.2
+// MB (the 103 MB weight, the 103 MB fp32 logits, x): 106.57 us of operations against 62.13
+// of bytes; at M = 272 56.61 against 47.44 us.  int8_matmul.cu's int8_mm_t (its tiled
+// design, which keeps M <= 16 and the rest) read 0.17 of the operation bound.  This entry is
+// int8_mm_nt_prefill's design on the (N, K) layout, where a weight row is already a K-major
+// A row (no byte transposes), with one block an SM and token tiles of 136 or 256 (two tiles
+// cover M = 272 and M = 512); its stores are single elements (N is odd), and with one block
+// an SM they do not overlap the products.  tests/test_torch_int8_t_prefill.py emulates it
+// lane by lane; examples/int8_prefill_check.py --layout t times it and its variants.
+//
+// C interface for ctypes (both entries): returns cudaGetLastError() after the launch (0 on
+// success), -1 for a shape, alignment, split, tile or output type it was not built for, -2
+// when a tensor map cannot be encoded and -3 when the CUDA driver has no
+// cuTensorMapEncodeTiled.
 
 #include <cuda.h>  // CUtensorMap and its enums; the CUDA driver function is fetched at run time
 #include <cuda_bf16.h>
@@ -86,7 +102,8 @@ constexpr size_t kSmem = 1024 + static_cast<size_t>(kStages) * (kQBytes + kXByte
 constexpr unsigned long long kHangNs = 2000000000ull;  // an mbarrier wait past this traps
 
 struct Params {
-  const float* scale;   // one value
+  const float* scale;   // one value (or, int8_mm_t_prefill with per_channel, N)
+  int per_channel;
   void* out;            // (M, N)
   float4* ws;           // splits > 1: tiles x splits x kAcc / 4 x kConsumers partials
   int* counters;        // splits > 1: one per tile, zero between launches
@@ -199,8 +216,7 @@ __device__ __forceinline__ void fence_frags(uint32_t (&r)[4]) {
 
 // d (64 x 128, fp32) += A (64 x 16, bf16 fragments in registers) B (16 x 128): B in shared
 // memory, K-major (no transpose bit)
-__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64], const uint32_t (&a)[4],
-                                              uint64_t db) {
+__device__ __forceinline__ void wgmma_rs_n128(float* d, const uint32_t (&a)[4], uint64_t db) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
@@ -210,6 +226,42 @@ __device__ __forceinline__ void wgmma_rs_n128(float (&d)[64], const uint32_t (&a
       "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
       "{%64, %65, %66, %67}, %68, p, 1, 1, 0;\n}\n"
       : F8(0), F8(8), F8(16), F8(24), F8(32), F8(40), F8(48), F8(56)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+// d (64 x 136) += A B (16 x 136), as wgmma_rs_n128
+__device__ __forceinline__ void wgmma_rs_n136(float* d, const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %73, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n136k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67"
+      "}, "
+      "{%68, %69, %70, %71}, %72, p, 1, 1, 0;\n}\n"
+      : F8(0), F8(8), F8(16), F8(24), F8(32), F8(40), F8(48), F8(56), "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// d (64 x 256) += A B (16 x 256), as wgmma_rs_n128
+__device__ __forceinline__ void wgmma_rs_n256(float* d, const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, "
+      "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127"
+      "}, "
+      "{%128, %129, %130, %131}, %132, p, 1, 1, 0;\n}\n"
+      : F8(0), F8(8), F8(16), F8(24), F8(32), F8(40), F8(48), F8(56), F8(64), F8(72), F8(80), F8(88), F8(96), F8(104), F8(112), F8(120)
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 #undef F8
@@ -427,6 +479,213 @@ __global__ void __launch_bounds__(kThreads, 2)
   if (ctid == 0) p.counters[tile] = 0;  // ready for the next launch on this stream
 }
 
+// ---------------------------------------------------------------- the (N, K) entry
+// int8_mm_t_prefill: the weight stored (N, K), K contiguous (the tied head), out = x q^T.  A
+// block owns kBN = 128 weight rows n (the 64-row M sides of the two consumer warpgroups'
+// products: warpgroup T takes rows 64 T .. 64 T + 63) and kTM tokens (their N side), over
+// 64-wide k boxes: a 128 x 64 int8 box of q (64-byte rows, TMA's 64-byte swizzle: 16-byte
+// chunk c of row r lands at chunk c ^ ((r >> 1) & 3)) and a kTM x 64 bf16 box of x
+// (128-byte swizzle, as above).  A row of the q box is already a K-major A row: lane 4 g + t
+// of warp w reads, per 16-k step ks, the byte pairs k 2 t, 2 t + 1 and 2 t + 8, 2 t + 9 of
+// rows 16 w + g and 16 w + g + 8 as four 16-bit reads (16 distinct banks a read; on an H100
+// 32-bit reads with a byte choice in the permute read 1.08x the time at M = 272) and widens
+// each pair into one A register, which then feeds kTM tokens' products.  One
+// block an SM (168 registers: kTM / 2 accumulators a thread without serializing the wgmmas;
+// at two blocks an SM, 96 registers, ptxas serializes them, and on an H100 128 x 128 tiles
+// read 1.17x the time of 128 x 256 at the 1.3B head and M = 512).
+template <int kTM>
+struct TCfg {
+  static constexpr int kAcc = kTM / 2;                  // fp32 accumulators a consumer thread
+  static constexpr int kXBytes = kTM * kBK * 2;         // bf16 x box
+  // as many stages as 200 KB hold, at most 8
+  static constexpr int kStages = (200 * 1024) / (kQBytes + kXBytes) < 8
+                                     ? (200 * 1024) / (kQBytes + kXBytes) : 8;
+  static constexpr size_t kSmem =
+      1024 + static_cast<size_t>(kStages) * (kQBytes + kXBytes) + 16 * kStages;
+};
+
+template <typename T> struct Store1;
+template <> struct Store1<float> {
+  __device__ static void run(float* dst, float v) { *dst = v; }
+};
+template <> struct Store1<bf16> {
+  __device__ static void run(bf16* dst, float v) { *dst = __float2bfloat16_rn(v); }
+};
+
+// k step ks of a warpgroup's product: the 16 x kTM B slice of the x box, one wgmma (on an
+// H100, one m64n136 a k step read 146.28 us at the 1.3B head and M = 272 where m64n128 +
+// m64n8 on the same fragment read 148.82: examples/int8_prefill_check.py)
+template <int kTM>
+__device__ __forceinline__ void t_products(float* acc, const uint32_t (&a)[4],
+                                           const unsigned char* xbox, int ks) {
+  static_assert(kTM == 136 || kTM == 256, "the built token tiles");
+  if constexpr (kTM == 136)
+    wgmma_rs_n136(acc, a, desc_sw128(xbox + 32 * ks, 16, 1024));
+  else
+    wgmma_rs_n256(acc, a, desc_sw128(xbox + 32 * ks, 16, 1024));
+}
+
+// A consumer thread's store of its tile's sums.  Accumulator element 4 j + 2 r + e of warp w
+// of warpgroup T, lane 4 g + t, is weight row c + 8 r (c = n0 + 64 T + 16 w + g) and token
+// m0 + 8 j + 2 t + e: per (j, e, r) the warp stores 8 adjacent columns of 4 tokens, one
+// element a lane (N is odd at the head: no wider store is aligned on every row).
+template <typename OutT, int kTM>
+__device__ __forceinline__ void store_t_tile(const float (&acc)[kTM / 2], const Params& p,
+                                             int m0, int c) {
+  const int t = threadIdx.x & 3;
+  float sc[2];
+  bool live[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    live[r] = c + 8 * r < p.N;
+    sc[r] = p.per_channel ? (live[r] ? p.scale[c + 8 * r] : 0.f) : p.scale[0];
+  }
+  OutT* out = static_cast<OutT*>(p.out) + c;
+#pragma unroll
+  for (int j = 0; j < kTM / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int m = m0 + 8 * j + 2 * t + e;
+      if (m >= p.M) continue;
+      OutT* row = out + static_cast<long long>(m) * p.N;
+#pragma unroll
+      for (int r = 0; r < 2; ++r)
+        if (live[r]) Store1<OutT>::run(row + 8 * r, acc[4 * j + 2 * r + e] * sc[r]);
+    }
+}
+
+// Block b: split b % splits of tile b / splits; tile = weight-row tile * mt + token tile, so
+// the token tiles (and the splits) of one weight tile are neighbours in launch order.
+template <typename OutT, int kTM>
+__global__ void __launch_bounds__(kThreads, 1)
+    int8_t_prefill_kernel(const __grid_constant__ CUtensorMap tmq,
+                          const __grid_constant__ CUtensorMap tmx, Params tp) {
+  using C = TCfg<kTM>;
+  extern __shared__ __align__(1024) unsigned char smem_t[];
+  // swizzled boxes must start on 1024 bytes (the x boxes' pattern repeats every 1024)
+  unsigned char* xboxes = smem_t + ((1024 - (smem_addr(smem_t) & 1023)) & 1023);
+  unsigned char* qboxes = xboxes + C::kStages * C::kXBytes;
+  uint64_t* filled = reinterpret_cast<uint64_t*>(qboxes + C::kStages * kQBytes);
+  uint64_t* freed = filled + C::kStages;
+  __shared__ int counted_last;
+
+  const int split = blockIdx.x % tp.splits, tile = blockIdx.x / tp.splits;
+  const int m0 = (tile % tp.mt) * kTM, n0 = (tile / tp.mt) * kBN;
+  const int kb0 = split * tp.per, kb1 = min(tp.KB, kb0 + tp.per);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+
+  if (threadIdx.x == 0) {
+#pragma unroll
+    for (int s = 0; s < C::kStages; ++s) {
+      mbar_init(&filled[s], 1);
+      mbar_init(&freed[s], kConsumers / 32);  // one arrival per consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= kConsumers) {
+    // ------------------------------------------------------------ producer
+    if (lane == 0) {
+      prefetch_map(&tmq);
+      prefetch_map(&tmx);
+      int s = 0, ph = 0;
+      for (int kb = kb0; kb < kb1; ++kb) {
+        mbar_wait(&freed[s], ph ^ 1);
+        mbar_expect_tx(&filled[s], kQBytes + C::kXBytes);
+        tma_load_2d(qboxes + s * kQBytes, &tmq, &filled[s], kb * kBK, n0);
+        tma_load_2d(xboxes + s * C::kXBytes, &tmx, &filled[s], kb * kBK, m0);
+        if (++s == C::kStages) s = 0, ph ^= 1;
+      }
+    }
+    return;
+  }
+  // -------------------------------------------------------------- consumers
+  const int T = threadIdx.x >> 7, w = warp & 3, g = lane >> 2, t = lane & 3;
+  // pair h of k step ks: row 64 T + 16 w + g (+ 8 for h & 1), k byte 2 t (+ 8 for h >> 1)
+  // of chunk ks, which the swizzle XORs with (g >> 1) (rows g and g + 8 alike)
+  const int wbase = (64 * T + 16 * w + g) * kBK + 2 * t;
+  const int wswz = (g >> 1) << 4;
+  uint32_t magic;
+  asm volatile("mov.b32 %0, 0x43004300;\n" : "=r"(magic));
+  float acc[C::kAcc];
+#pragma unroll
+  for (int e = 0; e < C::kAcc; ++e) acc[e] = 0.f;
+  uint32_t afrag[2][4];  // [k step parity][A register]
+
+  int s = 0, ph = 0;
+  for (int kb = kb0; kb < kb1; ++kb) {
+    mbar_wait(&filled[s], ph);
+    const unsigned char* qb = qboxes + s * kQBytes;
+    const unsigned char* xb = xboxes + s * C::kXBytes;
+#pragma unroll
+    for (int ks = 0; ks < kBK / 16; ++ks) {
+      // a[0]: row g at k 2 t; a[1]: row g + 8; a[2]: row g at k 2 t + 8; a[3]: row g + 8
+      // there (the pairs of one k step at a time), bytes 0 and 1 into the bf16 lanes
+      const unsigned char* chunk = qb + wbase + ((ks << 4) ^ wswz);
+      uint32_t qw[4];
+      qw[0] = *reinterpret_cast<const uint16_t*>(chunk);
+      qw[1] = *reinterpret_cast<const uint16_t*>(chunk + 8 * kBK);
+      qw[2] = *reinterpret_cast<const uint16_t*>(chunk + 8);
+      qw[3] = *reinterpret_cast<const uint16_t*>(chunk + 8 * kBK + 8);
+      uint32_t (&a)[4] = afrag[ks & 1];
+#pragma unroll
+      for (int h = 0; h < 4; ++h) a[h] = widen2(qw[h], qw[h], 0x0100u, magic);
+      fence_regs(acc);
+      fence_frags(a);
+      wgmma_fence();
+      t_products<kTM>(acc, a, xb, ks);
+      wgmma_commit();
+      // one group left in flight: the last k step's is done, its fragments free, and at
+      // ks = 0 the previous box's stage is read to the end
+      wgmma_wait<1>();
+      fence_regs(acc);
+      fence_frags(afrag[(ks + 1) & 1]);
+      if (ks == 0 && kb != kb0 && lane == 0)
+        mbar_arrive(&freed[s == 0 ? C::kStages - 1 : s - 1]);
+    }
+    if (++s == C::kStages) s = 0, ph ^= 1;
+  }
+  wgmma_wait<0>();
+  fence_regs(acc);
+  fence_frags(afrag[0]);
+  fence_frags(afrag[1]);
+
+  const int c = n0 + 64 * T + 16 * w + g;
+  if (tp.splits > 1) {
+    // a split tile: the partial goes to slot tile * splits + split as kAcc / 4 float4 a
+    // thread, float4 i of all threads adjacent (coalesced stores and loads)
+    const int ctid = threadIdx.x;
+    float4* base =
+        tp.ws + static_cast<long long>(tile) * tp.splits * (C::kAcc / 4) * kConsumers + ctid;
+    float4* mine = base + static_cast<long long>(split) * (C::kAcc / 4) * kConsumers;
+#pragma unroll
+    for (int i = 0; i < C::kAcc / 4; ++i)
+      mine[i * kConsumers] =
+          make_float4(acc[4 * i], acc[4 * i + 1], acc[4 * i + 2], acc[4 * i + 3]);
+    consumers_sync();
+    if (ctid == 0) counted_last = count_in(tp.counters + tile) == tp.splits - 1;
+    consumers_sync();
+    if (!counted_last) return;
+    // counted last: the partials in split order (a fixed order: two calls give the same bits)
+#pragma unroll
+    for (int e = 0; e < C::kAcc; ++e) acc[e] = 0.f;
+    for (int sp = 0; sp < tp.splits; ++sp) {
+      const float4* src = base + static_cast<long long>(sp) * (C::kAcc / 4) * kConsumers;
+#pragma unroll
+      for (int i = 0; i < C::kAcc / 4; ++i) {
+        const float4 u = __ldcg(src + i * kConsumers);
+        acc[4 * i] += u.x;
+        acc[4 * i + 1] += u.y;
+        acc[4 * i + 2] += u.z;
+        acc[4 * i + 3] += u.w;
+      }
+    }
+    if (ctid == 0) tp.counters[tile] = 0;  // ready for the next launch on this stream
+  }
+  store_t_tile<OutT, kTM>(acc, tp, m0, c);
+}
+
 // ---------------------------------------------------------------- host side
 typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
@@ -471,6 +730,30 @@ int launch(const CUtensorMap& mq, const CUtensorMap& mx, const Params& p, int bl
   return static_cast<int>(cudaGetLastError());
 }
 
+template <typename OutT, int kTM>
+int launch_t(const CUtensorMap& mq, const CUtensorMap& mx, const Params& p, int blocks,
+             cudaStream_t stream) {
+  using C = TCfg<kTM>;
+  auto kernel = int8_t_prefill_kernel<OutT, kTM>;
+  static bool attr_set = false;
+  if (!attr_set) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(C::kSmem));
+    if (e != cudaSuccess) return static_cast<int>(e);
+    attr_set = true;
+  }
+  kernel<<<blocks, kThreads, C::kSmem, stream>>>(mq, mx, p);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// the token tiles built: 136 (two tiles at M = 272) and 256
+template <typename OutT>
+int launch_t_tile(int tm, const CUtensorMap& mq, const CUtensorMap& mx, const Params& p,
+                  int blocks, cudaStream_t stream) {
+  return tm == 136 ? launch_t<OutT, 136>(mq, mx, p, blocks, stream)
+                   : launch_t<OutT, 256>(mq, mx, p, blocks, stream);
+}
+
 }  // namespace
 
 // x (M, K) bf16 in rows of ldx elements (16-byte aligned, ldx % 8 == 0, ldx >= K), q (K, N)
@@ -487,6 +770,7 @@ extern "C" int int8_mm_nt_prefill(const void* x, const void* q, const float* sca
     return -1;
   Params p;
   p.scale = scale;
+  p.per_channel = 0;
   p.out = out;
   p.ws = ws;
   p.counters = counters;
@@ -523,4 +807,61 @@ extern "C" int int8_mm_nt_prefill(const void* x, const void* q, const float* sca
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int blocks = static_cast<int>(tiles * splits);
   return out_dtype == 1 ? launch<bf16>(mq, mx, p, blocks, st) : launch<float>(mq, mx, p, blocks, st);
+}
+
+// x (M, K) bf16 in rows of ldx elements (16-byte aligned, ldx % 8 == 0, ldx >= K), q (N, K)
+// int8 (16-byte aligned, K % 16 == 0), scale one fp32 or (per_channel) N, out (M, N) bf16
+// (out_dtype 1) or fp32 (0); tm: the token tile, 136 or 256; splits, per: each 128 x tm
+// output tile's k boxes (64 wide) cut into `splits` ranges of `per` (the last may be
+// shorter, none empty); with splits > 1, ws holds tiles x splits x 128 x tm fp32 and counters
+// one zeroed int per tile.
+extern "C" int int8_mm_t_prefill(const void* x, const void* q, const float* scale,
+                                 int per_channel, void* out, int out_dtype, float4* ws,
+                                 int* counters, int M, int N, int K, int ldx, int tm, int splits,
+                                 int per, void* stream) {
+  const auto misaligned = [](const void* ptr) { return reinterpret_cast<uintptr_t>(ptr) % 16; };
+  if (M < 1 || N < 1 || K < 16 || K % 16 != 0 || ldx < K || ldx % 8 != 0 || misaligned(x) ||
+      misaligned(q) || misaligned(out) || (out_dtype != 0 && out_dtype != 1) ||
+      (tm != 136 && tm != 256))
+    return -1;
+  Params p;
+  p.scale = scale;
+  p.per_channel = per_channel != 0;
+  p.out = out;
+  p.ws = ws;
+  p.counters = counters;
+  p.M = M;
+  p.N = N;
+  p.mt = (M + tm - 1) / tm;
+  p.KB = (K + kBK - 1) / kBK;
+  p.splits = splits;
+  p.per = per;
+  const long long tiles = static_cast<long long>(p.mt) * ((N + kBN - 1) / kBN);
+  if (splits < 1 || per < 1 || static_cast<long long>(splits - 1) * per >= p.KB ||
+      static_cast<long long>(splits) * per < p.KB || tiles * splits >= 0x7fffffffLL ||
+      (splits > 1 && (ws == nullptr || counters == nullptr)))
+    return -1;
+  EncodeTiled enc = encode_tiled();
+  if (enc == nullptr) return -3;
+  // q: (N, K) bytes in 128-row x 64-byte boxes, 64-byte swizzled; x: (M, K) bf16 in tm x 64
+  // boxes, 128-byte swizzled; zero past the ends
+  CUtensorMap mq, mx;
+  const cuuint64_t qdims[2] = {static_cast<cuuint64_t>(K), static_cast<cuuint64_t>(N)};
+  const cuuint64_t qstrides[1] = {static_cast<cuuint64_t>(K)};
+  const cuuint32_t qbox[2] = {kBK, kBN};
+  const cuuint64_t xdims[2] = {static_cast<cuuint64_t>(K), static_cast<cuuint64_t>(M)};
+  const cuuint64_t xstrides[1] = {static_cast<cuuint64_t>(ldx) * 2};
+  const cuuint32_t xbox[2] = {kBK, static_cast<cuuint32_t>(tm)};
+  const cuuint32_t estr[2] = {1, 1};
+  if (enc(&mq, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, const_cast<void*>(q), qdims, qstrides, qbox,
+          estr, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_64B,
+          CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS ||
+      enc(&mx, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(x), xdims, xstrides, xbox,
+          estr, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+          CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
+    return -2;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int blocks = static_cast<int>(tiles * splits);
+  return out_dtype == 1 ? launch_t_tile<bf16>(tm, mq, mx, p, blocks, st)
+                        : launch_t_tile<float>(tm, mq, mx, p, blocks, st);
 }

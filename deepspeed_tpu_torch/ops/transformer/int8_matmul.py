@@ -14,9 +14,14 @@ Pallas kernels there become hand-written CUDA kernels for Hopper:
   mbarrier ring, and two consumer warpgroups widen the weight in
   registers into the A fragments of ``wgmma`` with x as its
   shared-memory B operand;
+- ``int8_mm_t_prefill`` (for ``_kernel_t`` at M > 16: ``q`` is (N, K),
+  K contiguous -- the tied head at prefill), in the same source: the
+  design of ``int8_mm_nt_prefill``, a K-contiguous weight row read
+  straight into the A fragments of ``wgmma``;
 - ``int8_mm_nt`` (for ``_kernel_nt``, every (K, N) case neither takes:
   N % 16 != 0, a ``q`` that is not 16-byte aligned) and ``int8_mm_t``
-  (for ``_kernel_t``: ``q`` is (N, K), K contiguous -- the tied head), in
+  (for ``_kernel_t`` at M <= 16 -- the head at decode -- and every (N, K)
+  case ``int8_mm_t_prefill`` does not take), in
   ``deepspeed_tpu_torch/csrc/int8_matmul.cu``.
 
 All compute what both branches of the JAX ``int8_matmul`` compute:
@@ -24,8 +29,9 @@ All compute what both branches of the JAX ``int8_matmul`` compute:
 (per tensor, or per output channel with ``w_transposed``), cast to
 ``out_dtype`` last.  The widened weight never reaches device memory.
 
-:func:`int8_matmul` launches the kernel that :func:`int8_nt_kernel` names
-(or ``int8_mm_t``) for CUDA tensors, at any M, and takes the plain version
+:func:`int8_matmul` launches the kernel that :func:`int8_nt_kernel` (or,
+for an (N, K) weight, :func:`int8_t_kernel`) names for CUDA tensors, at
+any M, and takes the plain version
 :func:`int8_matmul_reference` only for CPU tensors;
 :func:`int8_matmul_tiled` always takes the ``int8_matmul.cu`` kernels.
 Differences from the JAX module: ``use_pallas`` and ``block_n`` are
@@ -43,11 +49,12 @@ import math
 import torch
 
 KERNELS = {"nt": "int8_mm_nt", "t": "int8_mm_t", "decode": "int8_mm_nt_decode",
-           "prefill": "int8_mm_nt_prefill"}
+           "prefill": "int8_mm_nt_prefill", "t_prefill": "int8_mm_t_prefill"}
 # the csrc/<library>.cu each kernel is built from
 LIBRARIES = {"int8_mm_nt": "int8_matmul", "int8_mm_t": "int8_matmul",
              "int8_mm_nt_decode": "int8_matmul_decode_sm90",
-             "int8_mm_nt_prefill": "int8_matmul_prefill_sm90"}
+             "int8_mm_nt_prefill": "int8_matmul_prefill_sm90",
+             "int8_mm_t_prefill": "int8_matmul_prefill_sm90"}
 # launches per kernel since the last reset_launches(); only kernel launches count
 launches = {name: 0 for name in KERNELS.values()}
 
@@ -66,6 +73,11 @@ DECODE_MAX_M = 16
 PREFILL_BM, PREFILL_BN, PREFILL_BK = 128, 128, 64
 PREFILL_BLOCKS_PER_SM = 2
 PREFILL_MIN_BOXES = 4
+# int8_mm_t_prefill (its source's kBN, kBK and instances): weight rows of an output tile, k
+# of a box, the token tiles built; one block an SM
+T_PREFILL_BN, T_PREFILL_BK = 128, 64
+T_PREFILL_TILES = (136, 256)
+T_PREFILL_MIN_K = 16                 # the q map's row stride of K bytes: K % 16 == 0
 
 
 def reset_launches():
@@ -160,6 +172,52 @@ def int8_nt_kernel(M, N, K, q_aligned):
     if M > DECODE_MAX_M and pairs < 2 ** 31:
         return KERNELS["prefill"]
     return KERNELS["nt"]
+
+
+def int8_t_kernel(M, N, K, q_aligned):
+    """The kernel an (M, K) x (N, K)^T product takes on the card:
+    ``int8_mm_t_prefill`` for M > 16 when K % 16 == 0 (its TMA map's row
+    stride; x gets a padded copy where its own rows do not suit a map),
+    ``q`` is 16-byte aligned and fewer than 2^31 (output tile, k box) pairs
+    keep its block index in 32 bits; else ``int8_mm_t``.  Decided before
+    any launch, never by a failure."""
+    if not (M > DECODE_MAX_M and N > 0 and K >= T_PREFILL_MIN_K and K % T_PREFILL_MIN_K == 0
+            and q_aligned):
+        return KERNELS["t"]
+    pairs = -(-M // min(T_PREFILL_TILES)) * -(-N // T_PREFILL_BN) * -(-K // T_PREFILL_BK)
+    return KERNELS["t_prefill"] if pairs < 2 ** 31 else KERNELS["t"]
+
+
+def int8_t_tile(M):
+    """``int8_mm_t_prefill``'s token tile for M rows: the built tile that
+    pads M the least, the wider on a tie (more products per widened
+    weight fragment)."""
+    return min(T_PREFILL_TILES, key=lambda tm: (-(-M // tm) * tm, -tm))
+
+
+def int8_t_prefill_plan(M, N, K, sms, tm=None):
+    """``(token tile, token tiles, weight-row tiles, k boxes, splits, k
+    boxes per split)`` of ``int8_mm_t_prefill`` on a card of ``sms`` SMs:
+    128 weight rows x ``tm`` tokens an output tile (``tm`` by default
+    :func:`int8_t_tile`) over 64-wide k boxes; split-K while the tiles
+    number fewer than the SMs (one block an SM), each split keeping at
+    least four boxes and none empty."""
+    tm = tm or int8_t_tile(M)
+    mt, nt, kb = -(-M // tm), -(-N // T_PREFILL_BN), -(-K // T_PREFILL_BK)
+    splits = max(1, min(sms // (mt * nt), kb // PREFILL_MIN_BOXES))
+    per = -(-kb // splits)
+    return tm, mt, nt, kb, -(-kb // per), per
+
+
+def int8_t_prefill_blocks(M, N, K, tm, splits, per):
+    """``int8_mm_t_prefill``'s blocks in launch order, as the kernel computes
+    them: block b is split ``b % splits`` of tile ``b // splits``, tile
+    ``weight-row tile * token tiles + token tile``.  Returns, per block,
+    ``(tile, token tile, weight-row tile, split, first k box, end k box)``."""
+    mt, nt, kb = -(-M // tm), -(-N // T_PREFILL_BN), -(-K // T_PREFILL_BK)
+    return [(b // splits, (b // splits) % mt, (b // splits) // mt, b % splits,
+             (b % splits) * per, min(kb, (b % splits) * per + per))
+            for b in range(mt * nt * splits)]
 
 
 def int8_prefill_plan(M, N, K, sms):
@@ -272,13 +330,16 @@ def _launch(x, q, scale, w_transposed, out_dtype, routed):
     if M == 0 or N == 0:
         return out.to(out_dtype).reshape(*lead, N)
     name = KERNELS["t" if w_transposed else "nt"]
-    if routed and not w_transposed:
-        name = int8_nt_kernel(M, N, K, q.data_ptr() % 16 == 0)
+    if routed:
+        name = (int8_t_kernel if w_transposed else int8_nt_kernel)(M, N, K,
+                                                                  q.data_ptr() % 16 == 0)
     fn = _entry(name)                   # builds the library, or raises
     if name == KERNELS["decode"]:
         return _launch_decode(fn, x2, q, scale, out, lead, M, N, K, out_dtype)
     if name == KERNELS["prefill"]:
         return _launch_prefill(fn, x2, q, scale, out, lead, M, N, K, out_dtype)
+    if name == KERNELS["t_prefill"]:
+        return _launch_t_prefill(fn, x2, q, scale, out, lead, M, N, K, out_dtype)
     tile, splits, per = plan(M, N, K, _sm_count(dev))
     BM, BN, _ = TILES[tile]
     tiles = -(-M // BM) * -(-N // BN)
@@ -358,6 +419,23 @@ def _launch_prefill(fn, x2, q, scale, out, lead, M, N, K, out_dtype):
     return _finish_tma(KERNELS["prefill"], rc, out, lead, N, out_dtype)
 
 
+def _launch_t_prefill(fn, x2, q, scale, out, lead, M, N, K, out_dtype):
+    dev = x2.device
+    tm, mt, nt, _, splits, per = int8_t_prefill_plan(M, N, K, _sm_count(dev))
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    ws = counters = None
+    if splits > 1:
+        ws = torch.empty(mt * nt * splits * T_PREFILL_BN * tm, dtype=torch.float32, device=dev)
+        counters = _tile_counters(dev, stream, mt * nt)
+    x2 = _tma_rows(x2)
+    null = ctypes.c_void_p(0)
+    rc = fn(x2.data_ptr(), q.data_ptr(), scale.data_ptr(), int(scale.numel() > 1),
+            out.data_ptr(), _OUT_CODES[out.dtype], ws.data_ptr() if ws is not None else null,
+            counters.data_ptr() if counters is not None else null, M, N, K, x2.shape[1], tm,
+            splits, per, stream)
+    return _finish_tma(KERNELS["t_prefill"], rc, out, lead, N, out_dtype)
+
+
 _sms = {}
 
 
@@ -377,6 +455,8 @@ def _entry(name):
             fn.argtypes = [v, v, v, v, i, v, v, i, i, i, i, i, v]
         elif name == KERNELS["prefill"]:
             fn.argtypes = [v, v, v, v, i, v, v, i, i, i, i, i, i, v]
+        elif name == KERNELS["t_prefill"]:
+            fn.argtypes = [v, v, v, i, v, i, v, v, i, i, i, i, i, i, i, v]
         else:
             fn.argtypes = [v, v, v, i, v, i, v, v, i, i, i, i, i, i, i, i, v]
         fn.restype = ctypes.c_int

@@ -1,7 +1,9 @@
 #!/usr/bin/env python3
-"""Check and time ``int8_mm_nt_prefill`` alone on one Hopper card.
+"""Check and time ``int8_mm_nt_prefill`` (or ``int8_mm_t_prefill``) alone on one
+Hopper card.
 
     python3 examples/int8_prefill_check.py [--variants "a;b"] [--sass] [--quick]
+    python3 examples/int8_prefill_check.py --layout t [--tiles 128,136] [--variants "a;b"]
 
 From the repo root, with a CUDA card and nvcc.  Builds
 ``csrc/int8_matmul_prefill_sm90.cu`` (and ``int8_matmul.cu``, the tiled
@@ -24,11 +26,23 @@ design it is timed beside), prints ptxas' registers, spills and any
    source changed as ``VARIANTS`` names them, taken in turns in this call
    (copies and their builds go to ``.torch_build/int8_prefill/``).
 
+With ``--layout t`` the same for ``int8_mm_t_prefill``, the tied head at
+prefill ((N, K) weight, N = 50257): a first launch at 1.3B's head, M = 512;
+the check at 125M's and 1.3B's head, M in {17, 64, 127, 128, 129, 272, 333,
+512}, per-tensor and per-channel scales, and every built token tile forced
+at M 17/272/333; then at 1.3B's head and M in {512, 272} the kernel at each
+token tile of ``--tiles`` (forced), ``int8_mm_t`` (the earlier design,
+through ``int8_matmul_tiled``), cuBLAS over the dequantized weight and the
+port's bf16 head call (``torch.mm`` over the vocab-padded weight, fp32 out),
+three readings each taken in turns; ``--variants`` from ``VARIANTS_T`` (no
+products, no reads or widening, no stores, no loads, 32-bit reads, 4
+stages), timed in turns beside the committed kernel.
+
 ``--sass`` writes ``cuobjdump -sass`` of the library (and of each variant)
 to ``chiprun_out/``.
 ``--quick`` checks the 1.3B shapes only; ``--no-timing`` stops after the
 checks.  Writes the log to
-``chiprun_out/int8_prefill_check.txt`` too.  Nothing here is used by the
+``chiprun_out/int8_prefill_check.txt`` (``int8_t_prefill_check.txt``) too.  Nothing here is used by the
 port.
 """
 
@@ -44,6 +58,7 @@ import torch
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import chip_smoke as cs  # noqa: E402  (repo root on the path first)
+from deepspeed_tpu_torch.models.gpt2 import _pad_vocab  # noqa: E402
 from deepspeed_tpu_torch.ops.op_builder import cuda as builder  # noqa: E402
 from deepspeed_tpu_torch.ops.transformer import int8_matmul as im  # noqa: E402
 
@@ -160,6 +175,48 @@ BOX_GROUPS = """  uint32_t f0[kBK / 16][4], f1[kBK / 16][4];  // a box's fragmen
 """
 
 
+# int8_mm_t_prefill's copies: its own text (the anchors above are int8_mm_nt_prefill's)
+T_PRODUCTS = "      t_products<kTM>(acc, a, xb, ks);\n"
+T_WIDEN = "      for (int h = 0; h < 4; ++h) a[h] = widen2(qw[h], qw[h], 0x0100u, magic);\n"
+T_READ = "*reinterpret_cast<const uint16_t*>(chunk"
+T_LOADS = ("        mbar_expect_tx(&filled[s], kQBytes + C::kXBytes);\n"
+           "        tma_load_2d(qboxes + s * kQBytes, &tmq, &filled[s], kb * kBK, n0);\n"
+           "        tma_load_2d(xboxes + s * C::kXBytes, &tmx, &filled[s], kb * kBK, m0);\n")
+T_STORE = "  store_t_tile<OutT, kTM>(acc, tp, m0, c);\n"
+T_STAGES = ("  static constexpr int kStages = (200 * 1024) / (kQBytes + kXBytes) < 8\n"
+            "                                     ? (200 * 1024) / (kQBytes + kXBytes) : 8;\n")
+
+
+def t_no_words(t):
+    """No q words read or widened: each A register a lane constant."""
+    for h, off in enumerate(("", " + 8 * kBK", " + 8", " + 8 * kBK + 8")):
+        t = patch(t, f"      qw[{h}] = {T_READ}{off});\n",
+                  f"      qw[{h}] = lane * 0x01010101u + {h};\n")
+    return patch(t, T_WIDEN, "      for (int h = 0; h < 4; ++h) a[h] = qw[h];\n")
+
+
+VARIANTS_T = {
+    # the ring, reads and widening, no wgmma issued
+    "no products": lambda t: patch(t, T_PRODUCTS, ""),
+    # products on constant fragments: no q words read or widened
+    "no words": t_no_words,
+    # the sums kept (a branch the data never takes), no stores
+    "no stores": lambda t: patch(t, T_STORE, "  if (acc[0] == 1.25e-38f) " + T_STORE.lstrip()),
+    # nothing loaded: the producer arrives on each full barrier
+    "no loads": lambda t: patch(t, T_LOADS, "        mbar_arrive(&filled[s]);\n"),
+    # each A register from a 32-bit read holding its two bytes, chosen in the permute
+    "32-bit reads": lambda t: patch(patch(patch(
+        t, "* kBK + 2 * t;\n", "* kBK + 4 * (t >> 1);\n"),
+        T_WIDEN, T_WIDEN.replace("0x0100u", "(t & 1) ? 0x0302u : 0x0100u")),
+        T_READ, "*reinterpret_cast<const uint32_t*>(chunk", count=4),
+    # a ring of 4 stages instead of as many as 200 KB hold (at most 8)
+    "stages=4": lambda t: patch(t, T_STAGES, "  static constexpr int kStages = 4;\n"),
+}
+UNCHECKED_T = ("no products", "no words", "no stores", "no loads")
+HEAD = {"125m": (768, 50257), "1.3b": (2048, 50257)}       # (K, N) of wte
+T_CHECK_M = (17, 64, 127, 128, 129, 272, 333, 512)
+
+
 def main_loop(t, new):
     i, j = t.index(MAIN_LOOP_START), t.index(MAIN_LOOP_END) + len(MAIN_LOOP_END)
     return t[:i] + new + t[j:]
@@ -261,9 +318,131 @@ def timings(dev, gen, bytes_per_s, tag, Ms=(512, 272), others=True):
     return rows
 
 
+class forced_tile:
+    """Within the block, ``int8_mm_t_prefill`` takes token tile ``tile``
+    (None: its plan's)."""
+
+    def __init__(self, tile):
+        self.tile = tile
+
+    def __enter__(self):
+        self.saved = im.int8_t_tile
+        if self.tile:
+            im.int8_t_tile = lambda M: self.tile
+
+    def __exit__(self, *exc):
+        im.int8_t_tile = self.saved
+
+
+def t_call(x, q, scale, od, tiled=False):
+    fn = im.int8_matmul_tiled if tiled else im.int8_matmul
+    return fn(x, q, scale, w_transposed=True, out_dtype=od)
+
+
+def t_first_launch(dev, gen):
+    K, N = HEAD["1.3b"]
+    x = (torch.randn((512, K), generator=gen, device=dev) * 0.5).to(torch.bfloat16)
+    q = torch.randint(-128, 128, (N, K), generator=gen, device=dev, dtype=torch.int8)
+    scale = (torch.rand((N,), generator=gen, device=dev) + 0.5) * 1e-2
+    torch.cuda.synchronize()
+    im.reset_launches()
+    t0 = time.perf_counter()
+    out = t_call(x, q, scale, torch.float32)
+    ms = cs.wait_first("int8_mm_t_prefill", "head M=512", t0)
+    if im.launches["int8_mm_t_prefill"] != 1:
+        raise AssertionError(f"not routed to int8_mm_t_prefill: {im.launches}")
+    err, share = cs.int8_error(out, im.int8_matmul_reference(x, q, scale, w_transposed=True,
+                                                             out_dtype=torch.float32))
+    say(f"first launch head M=512: {ms:.1f} ms, max_abs_err {err:.3e} ({share:.2f} of its "
+        "limit)")
+    if not share <= 1.0:
+        raise AssertionError("first launch outside its limit")
+
+
+def t_check(dev, gen, presets, Ms=T_CHECK_M, tiles=(None,)):
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for preset in presets:
+        K, N = HEAD[preset]
+        q = torch.randint(-128, 128, (N, K), generator=gen, device=dev, dtype=torch.int8)
+        for tm in tiles:
+            for M in Ms:
+                x = (torch.randn((M, K), generator=gen, device=dev) * 0.5).to(torch.bfloat16)
+                for kind in ("tensor", "channel"):
+                    scale = (torch.rand((N if kind == "channel" else 1,), generator=gen,
+                                        device=dev) + 0.5) * 1e-2
+                    res = []
+                    with forced_tile(tm):
+                        plan = im.int8_t_prefill_plan(M, N, K, sms)
+                        for od in (torch.bfloat16, torch.float32):
+                            im.reset_launches()
+                            got = t_call(x, q, scale, od)
+                            again = t_call(x, q, scale, od)
+                            ref = im.int8_matmul_reference(x, q, scale, w_transposed=True,
+                                                           out_dtype=od)
+                            torch.cuda.synchronize()
+                            if im.launches["int8_mm_t_prefill"] != 2:
+                                raise AssertionError(f"not routed: {im.launches}")
+                            if not torch.equal(got, again):
+                                raise AssertionError(f"{preset} M={M} tm={tm}: two calls differ")
+                            err, share = cs.int8_error(got, ref)
+                            if not share <= 1.0:
+                                raise AssertionError(f"{preset} M={M} tm={tm} {kind} {od}: "
+                                                     f"{err:.3e} is {share:.2f}x its limit")
+                            res.append(f"{str(od)[6:]} {err:.2e} ({share:.2f})")
+                    say(f"check head {preset} K={K} N={N} M={M} scale={kind} plan {plan}: "
+                        f"{', '.join(res)}; deterministic")
+
+
+def t_timings(dev, gen, bytes_per_s, tag, tiles, Ms=(512, 272), others=True):
+    """Three readings of each call, taken in turns (round r times every call
+    once), at 1.3B's head with per-channel scales and fp32 out."""
+    K, N = HEAD["1.3b"]
+    qs = [torch.randint(-128, 128, (N, K), generator=gen, device=dev, dtype=torch.int8)
+          for _ in range(2)]
+    scale = (torch.rand((N,), generator=gen, device=dev) + 0.5) * 1e-2
+    deq = [(q.float() * scale[:, None]).to(torch.bfloat16) for q in qs]
+    od = torch.float32
+    rows = {}
+    for M in Ms:
+        x = (torch.randn((M, K), generator=gen, device=dev) * 0.5).to(torch.bfloat16)
+        nbytes = M * K * 2 + K * N + M * N * 4 + N * 4
+        t_b, t_o = nbytes / bytes_per_s * 1e3, 2 * M * N * K / cs.PEAK_OPS["bf16"] * 1e3
+        bound, by = (t_b, "bytes") if t_b >= t_o else (t_o, "operations")
+
+        def kernel(tm):
+            def run(l):
+                with forced_tile(tm):
+                    return t_call(x, qs[l % 2], scale, od)
+            return run
+
+        fns = [(f"tile {tm}" if tm else "planned", kernel(tm)) for tm in tiles]
+        if others:
+            fns += [("int8_mm_t", lambda l: t_call(x, qs[l % 2], scale, od, tiled=True)),
+                    ("cuBLAS over the dequantized", lambda l: torch.matmul(x, deq[l % 2].t())),
+                    ("the port's bf16 head", lambda l: torch.mm(
+                        x, _pad_vocab(deq[l % 2], 0).t(), out_dtype=torch.float32))]
+        r = {name: [] for name, _ in fns}
+        for _ in range(3):
+            for name, fn in fns:
+                r[name].append(cs.time_ms(fn, 20, warmup=2))
+        rows[M] = {name: sorted(v) for name, v in r.items()}
+        text = "; ".join(f"{name} {v[1] * 1e3:.2f} us [{v[0] * 1e3:.2f}, {v[2] * 1e3:.2f}] "
+                         f"({bound / v[1]:.3f} of the bound)"
+                         for name, v in rows[M].items())
+        say(f"timing {tag} head 1.3b K={K} N={N} M={M} fp32 out, per-channel: bound "
+            f"{bound * 1e3:.2f} us ({by}); {text}")
+    del qs, deq
+    torch.cuda.empty_cache()
+    return rows
+
+
 def main():
     ap = argparse.ArgumentParser()
-    ap.add_argument("--variants", default="", help="keys of VARIANTS, separated by semicolons")
+    ap.add_argument("--variants", default="",
+                    help="keys of VARIANTS (VARIANTS_T with --layout t), separated by semicolons")
+    ap.add_argument("--layout", choices=("nt", "t"), default="nt")
+    ap.add_argument("--tiles", default="",
+                    help="--layout t: token tiles to time forced, comma-separated (136,256)")
     ap.add_argument("--quick", action="store_true")
     ap.add_argument("--no-timing", action="store_true")
     ap.add_argument("--sass", action="store_true",
@@ -276,7 +455,8 @@ def main():
     card = cs.nvidia_smi()
     say(card)
     t0 = time.perf_counter()
-    variants = [(k, build_variant(k, VARIANTS[k])) for k in a.variants.split(";") if k]
+    table = VARIANTS_T if a.layout == "t" else VARIANTS
+    variants = [(k, build_variant(k, table[k])) for k in a.variants.split(";") if k]
     builder.build_all([LIB, "int8_matmul"])
     built = []
     for tag, (proc, path) in variants:
@@ -305,6 +485,8 @@ def main():
             with open(f"chiprun_out/int8_prefill_{name}.sass", "w") as f:
                 subprocess.run([cuobjdump, "-sass", str(path)], stdout=f, check=True)
     gen = torch.Generator(device=dev).manual_seed(0)
+    if a.layout == "t":
+        return t_main(a, dev, gen, card, built)
     first_launch(dev, gen)
     check(dev, gen, ("1.3b",) if a.quick else ("125m", "1.3b"))
     if not a.no_timing:
@@ -323,6 +505,30 @@ def main():
     say(card)
     os.makedirs("chiprun_out", exist_ok=True)
     with open("chiprun_out/int8_prefill_check.txt", "w") as f:
+        f.write("\n".join(LOG) + "\n")
+    return 0
+
+
+def t_main(a, dev, gen, card, built):
+    t_first_launch(dev, gen)
+    t_check(dev, gen, ("1.3b",) if a.quick else ("125m", "1.3b"))
+    t_check(dev, gen, ("125m",), Ms=(17, 272, 333), tiles=im.T_PREFILL_TILES)
+    if not a.no_timing:
+        bw = cs.peak_bytes_per_s(torch.cuda.get_device_name(0))
+        tiles = [None] + [int(v) for v in a.tiles.split(",") if v]
+        t_timings(dev, gen, bw, "committed", tiles)
+        base = builder._loaded[LIB]
+        for tag, path, regs in built:
+            builder._loaded[LIB] = ctypes.CDLL(str(path))
+            if not any(u in tag for u in UNCHECKED_T):
+                t_check(dev, gen, ("1.3b",), Ms=(17, 272, 512))
+            t_timings(dev, gen, bw, f"{tag} (regs/spill {sorted({(r[1], r[3]) for r in regs})})",
+                      [None], others=False)
+            builder._loaded[LIB] = base
+            t_timings(dev, gen, bw, "committed again", [None], others=False)
+    say(card)
+    os.makedirs("chiprun_out", exist_ok=True)
+    with open("chiprun_out/int8_t_prefill_check.txt", "w") as f:
         f.write("\n".join(LOG) + "\n")
     return 0
 

@@ -1,6 +1,7 @@
 """Numpy emulation of the int8 widening the Hopper int8 kernels share
 (``widen2`` in ``csrc/int8_matmul_decode_sm90.cu`` and
-``csrc/int8_matmul_prefill_sm90.cu``), for their lane-by-lane tests."""
+``csrc/int8_matmul_prefill_sm90.cu``, whose two entries use it), for their
+lane-by-lane tests."""
 
 import numpy as np
 
@@ -23,7 +24,13 @@ def byte_perm(a, b, sel):
 def widen2(B, w0, w1):
     """The kernels' widen2 of byte B of w0 and w1: the two bf16 lanes (low,
     high) as floats."""
-    p = byte_perm(w0, w1, B | ((B + 4) << 8))
+    return widen_permuted(byte_perm(w0, w1, B | ((B + 4) << 8)))
+
+
+def widen_permuted(p):
+    """widen2 after its byte permute: bytes 0 and 2 of ``p`` (int8) as the
+    low and high bf16 lanes, through the masks, the 0x43004300 magic and
+    one bf16x2 FMA; returns the two lanes as floats."""
     hi = (p & np.uint32(0x007F007F)) | np.uint32(0x43004300)
     lo = (p & np.uint32(0x00800080)) | np.uint32(0x43004300)
     halves = []
