@@ -15,11 +15,13 @@ JAX package ``deepspeed_tpu``):
    (``flash_bwd_dkdv_lut_sm90`` / ``flash_bwd_dq_lut_sm90`` and the dense
    ``flash_bwd_dkdv_sm90`` / ``flash_bwd_dq_sm90``) and the sm90 LUT
    forward's (``flash_fwd_lut_sm90``; their build seconds, registers and
-   spills per instance) must build with no spill, and the backward and the
-   LUT forward libraries with no wgmma serialized by ptxas; the dense
-   backward's four instances (``dense_dkdv_kernel`` / ``dense_dq_kernel``
-   with and without the key bias) and ``flash_fwd_sm90``'s four (head dims
-   64 and 128, with and without the key bias) must each be built once,
+   spills per instance) must build with no spill, and the backward, the
+   LUT forward and the ``flash_fwd_sm90`` libraries with no wgmma
+   serialized by ptxas; the dense backward's four instances
+   (``dense_dkdv_kernel`` / ``dense_dq_kernel`` with and without the key
+   bias) and ``flash_fwd_sm90``'s eight (head dims 64 and 128: dense with
+   and without the key bias, the banded schedule, the merged one) must each
+   be built once,
    ``paged_attention_exact_sm90``'s twelve (``exact_split_kernel``: three
    compute dtypes, 16-bit and int8 pools, head dims 64 and 128) with no
    spill, and ``paged_attention_online_sm90``'s 24 (``online_split_kernel``:
@@ -219,8 +221,14 @@ JAX package ``deepspeed_tpu``):
     (``int8_mm_nt`` / ``int8_mm_t`` through ``int8_matmul_tiled``; the head
     at M = 8 routes to it), the two timed in turns, median of three
     readings each;
-13. banded and merged-row kernels vs plain: ``flash_fwd_banded`` and
-    ``flash_fwd_merged`` against ``flash_attention_reference_fwd`` over
+13. banded and merged-row kernels vs plain: the first
+    ``flash_fwd_banded_sm90`` and ``flash_fwd_merged_sm90`` launches (under
+    the deadline, from a generator of their own), then the
+    kernel ``banded_fwd_kernel`` / ``merged_fwd_kernel`` routes to
+    (``flash_fwd_banded_sm90`` / ``flash_fwd_merged_sm90`` for bf16 at
+    head dims 64 and 128, and beside them the templates ``flash_fwd_banded`` /
+    ``flash_fwd_merged`` by name; the templates for the rest) against
+    ``flash_attention_reference_fwd`` over
     their schedules (O and lse, phase 2's limits) at B=2,
     H=4: causal BSLongformer layouts at blocks 16, 32, 64, 128 and 512,
     windows 1, 3 and 5, global blocks [0] and [0, 3], T 1024 and 4096, a
@@ -233,23 +241,28 @@ JAX package ``deepspeed_tpu``):
     (one launch each of ``flash_fwd_sm90``, ``flash_bwd_dkdv_sm90`` and
     ``flash_bwd_dq_sm90``; O, lse and gradients against the plain
     forward and backward with ``delta - dlse``) and in fp32 against autograd
-    of a dense attention returning its logsumexp;
+    of a dense attention returning its logsumexp; then both sm90 instances'
+    O and lse over three seeds (generators of their own) at phase 14's
+    shapes up to T=8192, each within phase 2's limits;
 14. the causal block-sparse path at the repo's sparse workload
     (``examples/bench_sparse_attention.py``: BSLongformer, a 3 x 512-token
     window, the first 512 tokens global, unidirectional), B=1, H=8, d=64,
     bf16, T in {4096, 8192, 16384}, layout blocks 512 and 64:
     ``SparseSelfAttention`` forward + ``backward()`` with exactly one launch
-    each of ``flash_fwd_banded``, ``flash_bwd_dkdv_lut_sm90`` and
-    ``flash_bwd_dq_lut_sm90`` per call (``flash_fwd_lut_ring`` 0), and the same
+    each of ``flash_fwd_banded_sm90``, ``flash_bwd_dkdv_lut_sm90`` and
+    ``flash_bwd_dq_lut_sm90`` per call (the template ``flash_fwd_banded`` and
+    ``flash_fwd_lut_ring`` 0), and the same
     through ``sparse_flash_attention(..., block_q_merge=2)`` (one
-    ``flash_fwd_merged``), then that merged path on the tutorial block-16
+    ``flash_fwd_merged_sm90``), then that merged path on the tutorial block-16
     layout at BERT-large's attention shape (B=8, T=2048, H=16, non-causal);
     O, lse and gradients against the plain versions at T <= 8192, O and lse
-    against ``flash_fwd_lut_ring`` at 16384; each forward timed (three
-    readings, the spread printed) beside its bound, its plain version, the
-    ring on the same LUT, the dense causal forward (``flash_fwd_sm90``), SDPA with the
-    expanded boolean layout mask and SDPA ``is_causal``, and each path's
-    forward+backward beside SDPA's with the mask.
+    against ``flash_fwd_lut_ring`` at 16384 (the template design's O and lse
+    beside them); each forward and the template design timed in turns (three
+    readings each, the spread printed) beside its bound, its plain version, the ring and
+    ``flash_fwd_lut_sm90`` on the same LUT, the dense causal forward
+    (``flash_fwd_sm90``), SDPA with the expanded boolean layout mask and
+    SDPA ``is_causal``, and each path's forward+backward beside SDPA's with
+    the mask.
 
 Prints a ``{"kernels": [...]}`` line (the dense sm90 kernels' key-bias
 instances as ``flash_fwd_sm90 (key bias)``, ``flash_bwd_dkdv_sm90 (key
@@ -258,7 +271,9 @@ phase 9's dense+pad figures; ``paged_attention_exact_sm90`` with the
 exact-mode serve's launches and the first design ``paged_attention_exact``
 beside it with 0; ``paged_attention_online_sm90`` with the kv16 serve's
 launches and the first design ``paged_attention_online`` beside it with
-0), the
+0; ``flash_fwd_banded_sm90`` and ``flash_fwd_merged_sm90`` with phase 14's
+path launches and their figures at block 64, T=8192, the template
+``flash_fwd_banded`` and ``flash_fwd_merged`` beside them with 0), the
 ``nvidia-smi`` line, and as the last line ``{"ok": true, "device": {...}}``.
 Any failure raises and the script exits non-zero without that line; with no
 CUDA device it exits 2.
@@ -325,6 +340,8 @@ REPLACES = {"paged_attention_online":
             "flash_fwd_lut_sm90": f"{FLASH_REF}:144",    # use_lut + use_kbias, and 306; bf16 d 64
             "flash_fwd_banded": f"{FLASH_REF}:180",      # _fwd_kernel use_banded
             "flash_fwd_merged": f"{FLASH_REF}:161",      # use_merge (and _fwd_kernel_dma 317)
+            "flash_fwd_banded_sm90": f"{FLASH_REF}:180",  # use_banded, bf16 at d 64 / 128
+            "flash_fwd_merged_sm90": f"{FLASH_REF}:161",  # use_merge, bf16 at d 64 / 128
             "flash_bwd_dkdv_lut": f"{FLASH_REF}:617",
             "flash_bwd_dkdv_lut_sm90": f"{FLASH_REF}:617",   # use_lut, bf16 at d 64
             "flash_bwd_dq_lut": f"{FLASH_REF}:691",
@@ -445,14 +462,17 @@ def setup():
                 print("  ptxas", line.strip())
     sm90 = ptxas_summary(builder.build_log[SM90_LIB]["ptxas"])
     print(f"{SM90_LIB}.cu: built in {builder.build_log[SM90_LIB]['seconds']:.2f} s; " + "; ".join(
-        f"{kname[kname.find('fwd_sm90_kernel'):]} {regs} registers, {spill} spill bytes"
-        for kname, regs, _, spill in sm90))
-    # each head dim's instances with and without the key bias (mangled <D, false / true>), once
-    fwd = {(d, bias): sum(f"fwd_sm90_kernelILi{d}ELb{bias}E" in kname for kname, *_ in sm90)
-           for d in fa.SM90_HEAD_DIMS[torch.bfloat16] for bias in (0, 1)}
+        f"{kname[kname.find('fwd_sm90_kernel'):kname.find('EEv')]} {regs} registers, "
+        f"{spill} spill bytes" for kname, regs, _, spill in sm90))
+    # each head dim's instances, once: dense with and without the key bias, banded, merged
+    # (mangled <D, kBias, kSched>)
+    fwd = {(d, bias, sched): sum(f"fwd_sm90_kernelILi{d}ELb{bias}ELi{sched}EE" in kname
+                                 for kname, *_ in sm90)
+           for d in fa.SM90_HEAD_DIMS[torch.bfloat16]
+           for bias, sched in ((0, 0), (1, 0), (0, 1), (0, 2))}
     if any(n != 1 for n in fwd.values()) or any(spill for *_, spill in sm90):
-        raise AssertionError(f"{SM90_LIB}: an instance (head dim, key bias) not built once "
-                             f"{fwd}, or ptxas spilled registers: {sm90}")
+        raise AssertionError(f"{SM90_LIB}: an instance (head dim, key bias, schedule) "
+                             f"not built once {fwd}, or ptxas spilled registers: {sm90}")
     # 3 compute dtypes x 2 pools x 2 head dims; the online kernel also x 2 (W = 1, W <= 8)
     for kernel, name, n in (("exact_split_kernel", SPLIT_SM90, 12),
                             ("online_split_kernel", ONLINE_SM90, 24)):
@@ -493,7 +513,7 @@ def setup():
     if len(t_rows) != 2 * len(im.T_PREFILL_TILES):
         raise AssertionError(f"{INT8_PREFILL_LIB}: int8_mm_t_prefill's instances (token tiles x "
                              f"bf16 / fp32 out) not built once each: {t_rows}")
-    for lib, kernel in ((GROUP_SM90_LIB, ""), (FWD_LUT_SM90_LIB, ""),
+    for lib, kernel in ((GROUP_SM90_LIB, ""), (FWD_LUT_SM90_LIB, ""), (SM90_LIB, ""),
                         (INT8_PREFILL_LIB, "int8_t_prefill_kernel")):
         serialized = [line.strip() for line in builder.build_log[lib]["ptxas"].splitlines()
                       if ("C7515" in line or "C7512" in line) and kernel in line]
@@ -2457,6 +2477,10 @@ def longformer(H, block, window, globals_, causal=True):
 
 
 BAND_MERGE = ("flash_fwd_banded", "flash_fwd_merged")
+# the schedule instances of flash_fwd_sm90 that replace them for bf16 at head dims 64 / 128
+BAND_MERGE_SM90 = fa.SCHED_SM90
+BAND_MERGE_ROUTE = {"flash_fwd_banded": fa.banded_fwd_kernel,
+                    "flash_fwd_merged": fa.merged_fwd_kernel}
 
 
 def band_cases(H):
@@ -2483,23 +2507,28 @@ def band_cases(H):
                       64, "qkv", ("flash_fwd_banded",)))
         cases.append(("longformer32 w5 g[0, 3]", longformer(H, 32, 5, [0, 3]), 1088, True, dt,
                       128, "dense", BAND_MERGE))
+    for (label, cfg, T, causal), dt in itertools.product(merged_only_layouts(H), (bf16, fp32)):
+        cases.append((label, cfg, T, causal, dt, dims[i % 3], views[i % 2],
+                      ("flash_fwd_merged",)))
+        i += 1
+    return cases
+
+
+def merged_only_layouts(H):
+    """The layouts phase 13 runs through the merged kernel alone (no band):
+    (label, config, T, causal)."""
     fixed = FixedSparsityConfig(num_heads=H, block=16, num_local_blocks=4, num_global_blocks=1,
                                 attention="unidirectional")
     per_head = FixedSparsityConfig(num_heads=H, block=16, num_local_blocks=4,
                                    num_global_blocks=1, different_layout_per_head=True,
                                    num_different_global_patterns=4)
-    merged_only = (("fixed16 causal", fixed, 1024, True),
-                   ("fixed16 per-head", per_head, 1024, True),
-                   ("fixed16 per-head", per_head, 1024, False),
-                   ("bigbird64", sparse_configs(H)[2][1], 1024, False),
-                   ("empty-rows", EmptyRowsLayout(), 256, True),
-                   ("empty-rows", EmptyRowsLayout(), 256, False),
-                   ("alternate-empty-rows", AlternateEmptyRowsLayout(), 512, True))
-    for (label, cfg, T, causal), dt in itertools.product(merged_only, (bf16, fp32)):
-        cases.append((label, cfg, T, causal, dt, dims[i % 3], views[i % 2],
-                      ("flash_fwd_merged",)))
-        i += 1
-    return cases
+    return (("fixed16 causal", fixed, 1024, True),
+            ("fixed16 per-head", per_head, 1024, True),
+            ("fixed16 per-head", per_head, 1024, False),
+            ("bigbird64", sparse_configs(H)[2][1], 1024, False),
+            ("empty-rows", EmptyRowsLayout(), 256, True),
+            ("empty-rows", EmptyRowsLayout(), 256, False),
+            ("alternate-empty-rows", AlternateEmptyRowsLayout(), 512, True))
 
 
 def band_merge_schedule(layout, T, H, causal, name):
@@ -2513,27 +2542,112 @@ def band_merge_schedule(layout, T, H, causal, name):
     return fa.band_lut(*st, T // layout.shape[1], T)
 
 
+def band_merge_runs(name, q, k, v, sched):
+    """The kernels phase 13 holds for the forward ``name`` on these inputs:
+    {kernel: (o, lse)}, the one :data:`BAND_MERGE_ROUTE` names through the
+    routed wrapper and, where that is an sm90 instance, the template design
+    beside it by name."""
+    routed = BAND_MERGE_ROUTE[name](q.dtype, q.shape[-1])
+    runs = {routed: getattr(fa, name)(q, k, v, sched)}
+    if routed != name:
+        runs[name] = getattr(fa, f"{name}_template")(q, k, v, sched)
+    return runs
+
+
+def first_band_merge_launch(dev, seed=22):
+    """The first ``flash_fwd_banded_sm90`` and ``flash_fwd_merged_sm90``
+    launches, B=1, H=2, d=64, T=512, the
+    causal BSLongformer layout at block 32 (a window of 5, globals [0, 3]),
+    each waited for under SM90_DEADLINE_S and held against its plain
+    version with phase 2's limits, from a generator of its own so later
+    phases draw what they drew before."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    B, T, H, d = 1, 512, 2, 64
+    layout = np.asarray(longformer(H, 32, 5, [0, 3]).make_layout(T), np.int32)
+    q, k, v, _ = flash_inputs(dev, gen, torch.bfloat16, B, T, H, d, "qkv")
+    band = band_merge_schedule(layout, T, H, True, "flash_fwd_banded")
+    merged = band_merge_schedule(layout, T, H, True, "flash_fwd_merged")
+    calls = [("flash_fwd_banded_sm90", band, lambda: fa.flash_fwd_banded_sm90(q, k, v, band)),
+             ("flash_fwd_merged_sm90", merged, lambda: fa.flash_fwd_merged_sm90(q, k, v, merged))]
+    for name, sched, call in calls:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        o, lse = call()
+        ms = wait_first(name, f"T={T}", t0)
+        ro, rlse = fa.flash_attention_reference_fwd(q, k, v, True, lut=sched)
+        rows = [(label, *flash_close(f"{name} first launch", label, got, ref))
+                for label, got, ref in (("o", o, ro), ("lse", lse, rlse))]
+        print(f"{name} first launch T={T} longformer32: completed in {ms:.1f} ms; "
+              f"{flash_line({'': rows})}")
+
+
 def check_band_merge_kernels(dev, gen, B=2, H=4):
     """Phase 13: the banded and merged forwards against their plain
-    versions, O and lse element by element.  Returns the max abs error per
-    kernel."""
-    max_err = {name: 0.0 for name in BAND_MERGE}
-    for label, cfg, T, causal, dt, d, view, names in band_cases(H):
+    versions, O and lse element by element: the kernel each case's route
+    names and, beside an sm90 instance, the template design by
+    name; then every merged-only layout in bf16 at each sm90 head dim (the
+    cases' rotation of head dims sends some to 96), from a generator of its
+    own so later phases draw what they drew before.  Returns the max abs
+    error per kernel."""
+    first_band_merge_launch(dev)
+    own = torch.Generator(device=dev).manual_seed(26)
+    sm90 = [(label, cfg, T, causal, torch.bfloat16, d, "qkv", ("flash_fwd_merged",), own)
+            for (label, cfg, T, causal), d in itertools.product(
+                merged_only_layouts(H), fa.SM90_HEAD_DIMS[torch.bfloat16])]
+    max_err = {}
+    for label, cfg, T, causal, dt, d, view, names, g in (
+            [case + (gen,) for case in band_cases(H)] + sm90):
         layout = np.asarray(cfg.make_layout(T), np.int32)
-        q, k, v, _ = flash_inputs(dev, gen, dt, B, T, H, d, view)
+        q, k, v, _ = flash_inputs(dev, g, dt, B, T, H, d, view)
         what = f"{str(dt)[6:]} d={d} T={T} {label} causal={int(causal)} {view}"
         res = {}
         for name in names:
             sched = band_merge_schedule(layout, T, H, causal, name)
-            o, lse = getattr(fa, name)(q, k, v, sched)
             ro, rlse = fa.flash_attention_reference_fwd(q, k, v, sched.causal, lut=sched)
-            torch.cuda.synchronize()
-            res[name] = [(label_, *flash_close(f"{name} {what}", label_, got, ref))
-                         for label_, got, ref in (("o", o, ro), ("lse", lse, rlse))]
-            max_err[name] = max([max_err[name]] + [err for _, err, _ in res[name]])
+            for kernel, (o, lse) in band_merge_runs(name, q, k, v, sched).items():
+                torch.cuda.synchronize()
+                res[kernel] = [(label_, *flash_close(f"{kernel} {what}", label_, got, ref))
+                               for label_, got, ref in (("o", o, ro), ("lse", lse, rlse))]
+                max_err[kernel] = max([max_err.get(kernel, 0.0)]
+                                      + [err for _, err, _ in res[kernel]])
         print(f"band-check {what}: " + "; ".join(
             f"{name[10:]} {flash_line({name: rows})}" for name, rows in res.items()))
     return max_err
+
+
+def check_band_merge_seeds(dev, seeds=(23, 24, 25), B=1, H=8, d=64):
+    """Phase 13: the two sm90 instances' O and lse against their plain
+    versions over three seeds (generators of their own) at phase 14's
+    shapes at T <= PLAIN_T_MAX, phase 2's limits: no single draw decides
+    the forward's limit.  Returns the largest share of a limit per
+    kernel."""
+    worst = {name: 0.0 for name in BAND_MERGE_SM90}
+    for block, T in itertools.product(WORKLOAD_BLOCKS, WORKLOAD_T):
+        if T > PLAIN_T_MAX:
+            continue
+        layout = np.asarray(workload_config(H, block).make_layout(T), np.int32)
+        scheds = {"flash_fwd_banded_sm90": band_merge_schedule(layout, T, H, True,
+                                                               "flash_fwd_banded"),
+                  "flash_fwd_merged_sm90": band_merge_schedule(layout, T, H, True,
+                                                               "flash_fwd_merged")}
+        for seed in seeds:
+            gen = torch.Generator(device=dev).manual_seed(seed)
+            q, k, v, _ = flash_inputs(dev, gen, torch.bfloat16, B, T, H, d, "qkv")
+            shares = {}
+            for name, sched in scheds.items():
+                o, lse = getattr(fa, name)(q, k, v, sched)
+                ro, rlse = fa.flash_attention_reference_fwd(q, k, v, True, lut=sched)
+                torch.cuda.synchronize()
+                shares[name] = [flash_close(f"{name} seed {seed} T={T}", label, got, ref)[1]
+                                for label, got, ref in (("o", o, ro), ("lse", lse, rlse))]
+                worst[name] = max([worst[name]] + shares[name])
+                del ro, rlse
+            print(f"band-seeds B={B} T={T} H={H} d={d} bf16 block {block} seed {seed}: " +
+                  "; ".join(f"{name} o {sh[0]:.2f} lse {sh[1]:.2f} of the limit"
+                            for name, sh in shares.items()))
+            del q, k, v
+        torch.cuda.empty_cache()
+    return worst
 
 
 def check_flash_lse(dev, gen, B=8, T=1024, H=16, d=64):
@@ -2680,8 +2794,10 @@ def spread(r):
 def path_run(route, attn_or_layout, leaf, do, B, T, H, d, causal=True):
     """One call of the slice's path, forward and ``backward()``, with the
     counts reset just before and read just after: ``SparseSelfAttention``
-    (the banded route) or ``sparse_flash_attention(block_q_merge=2)``.
-    Returns (out, launches)."""
+    (the banded route) or ``sparse_flash_attention(block_q_merge=2)``:
+    one launch each of the forward its route names (the sm90 instance),
+    ``flash_bwd_dkdv_lut_sm90`` and ``flash_bwd_dq_lut_sm90``, none of any
+    other flash kernel.  Returns (out, launches)."""
     q, k, v = (t.view(B, T, H, d) for t in leaf.split(H * d, dim=-1))
     torch.cuda.synchronize()
     fa.reset_launches()
@@ -2692,8 +2808,8 @@ def path_run(route, attn_or_layout, leaf, do, B, T, H, d, causal=True):
     out.backward(do)
     torch.cuda.synchronize()
     counts = dict(fa.launches)
-    check_launches(f"{route} path", counts, {f"flash_fwd_{route}": 1,
-                                             "flash_bwd_dkdv_lut_sm90": 1,
+    fwd = BAND_MERGE_ROUTE[f"flash_fwd_{route}"](q.dtype, d)
+    check_launches(f"{route} path", counts, {fwd: 1, "flash_bwd_dkdv_lut_sm90": 1,
                                              "flash_bwd_dq_lut_sm90": 1}, 1)
     return out.detach(), counts
 
@@ -2701,12 +2817,13 @@ def path_run(route, attn_or_layout, leaf, do, B, T, H, d, causal=True):
 def check_path(route, name, sched, lut, leaf, do, out, B, T, H, d, what):
     """The path's O (the kernel again gives the same bits), lse and
     gradients against the plain versions at T <= PLAIN_T_MAX (the backward
-    ones fed the kernel's O and lse); above, O and lse against the ring.
-    Returns the rows of ``flash_line``."""
+    ones fed the kernel's O and lse), and the template design's O and lse beside
+    them; above, O and lse against the ring.  Returns the rows of
+    ``flash_line`` for the routed kernel and for the template design."""
     q, k, v = (t.detach().view(B, T, H, d) for t in leaf.split(H * d, dim=-1))
     dq, dk, dv = (g.view(B, T, H, d) for g in leaf.grad.split(H * d, dim=-1))
-    kern = fa.flash_fwd_banded if route == "banded" else fa.flash_fwd_merged
-    o, lse = kern(q, k, v, sched)
+    o, lse = getattr(fa, f"flash_fwd_{route}")(q, k, v, sched)
+    to, tlse = getattr(fa, f"flash_fwd_{route}_template")(q, k, v, sched)
     if not torch.equal(o, out):
         raise AssertionError(f"{what}: a second {name} launch gives other bits")
     if T <= PLAIN_T_MAX:
@@ -2716,40 +2833,56 @@ def check_path(route, name, sched, lut, leaf, do, out, B, T, H, d, what):
         rdq = fa.flash_attention_reference_bwd_dq(q, k, v, do, lse, delta, lut=lut)
         pairs = (("o", o, ro), ("lse", lse, rlse), ("dq", dq, rdq), ("dk", dk, rdk),
                  ("dv", dv, rdv))
+        tpairs = (("o", to, ro), ("lse", tlse, rlse))
     else:
         ro, rlse = fa.flash_fwd_lut_ring(q, k, v, lut)
         if not all(torch.isfinite(g).all() for g in (dq, dk, dv)):
             raise AssertionError(f"{what}: gradients not finite")
         pairs = (("o vs ring", o, ro), ("lse vs ring", lse, rlse))
+        tpairs = (("o vs ring", to, ro), ("lse vs ring", tlse, rlse))
     torch.cuda.synchronize()
-    return [(label, *flash_close(f"{name} {what}", label.split()[0], got, ref))
-            for label, got, ref in pairs]
+    return [[(label, *flash_close(f"{kernel} {what}", label.split()[0], got, ref))
+             for label, got, ref in ps]
+            for kernel, ps in ((name, pairs), (f"flash_fwd_{route}", tpairs))]
+
+
+def turns_ms(fns, n, rounds=3, warmup=3):
+    """Each of ``fns`` timed with :func:`time_ms` in turns (one reading of
+    each, then the next round): {label: (median, min, max)}."""
+    ms = {label: [] for label in fns}
+    for _ in range(rounds):
+        for label, fn in fns.items():
+            ms[label].append(time_ms(fn, n, warmup=warmup))
+    return {label: (sorted(r)[len(r) // 2], min(r), max(r)) for label, r in ms.items()}
 
 
 def time_path(dev, route, name, sched, lut, layout, attn, leaf, do, B, T, H, d, causal,
               bytes_per_s, card):
-    """Phase 14 timing at one shape: the kernel (three readings), its bound,
-    its plain version (T <= PLAIN_T_MAX), the LUT ring on the same LUT, the
-    dense causal ``flash_fwd``, SDPA with the expanded boolean layout mask
-    and SDPA ``is_causal``; the path's forward+backward against SDPA's with
-    the mask.  Returns the kernels-line fields."""
+    """Phase 14 timing at one shape: the routed kernel and the template design in
+    turns (three readings each), its bound, its plain version (T <= PLAIN_T_MAX), the LUT ring and
+    ``flash_fwd_lut_sm90`` on the same LUT, the dense causal forward, SDPA
+    with the expanded boolean layout mask and SDPA ``is_causal``; the
+    path's forward+backward against SDPA's with the mask.  Returns the
+    kernels-line fields of the routed kernel and of the template design."""
     q, k, v = (t.detach().view(B, T, H, d) for t in leaf.split(H * d, dim=-1))
-    kern = fa.flash_fwd_banded if route == "banded" else fa.flash_fwd_merged
+    template = f"flash_fwd_{route}"
     block = T // layout.shape[1]
     pairs = layout_pairs(layout, causal, block) * B * (H // layout.shape[0])
     nbytes, ops = 4 * B * T * H * d * 2 + B * H * T * 4, 4 * d * pairs
     t_b, t_o = nbytes / bytes_per_s * 1e3, ops / PEAK_OPS["bf16"] * 1e3
     bound, by = (t_b, "bytes") if t_b >= t_o else (t_o, "operations")
     n = 20
-    ms = repeat_ms(lambda _: kern(q, k, v, sched), n)
+    turns = turns_ms({name: lambda _: getattr(fa, template)(q, k, v, sched),
+                      template: lambda _: getattr(fa, f"{template}_template")(q, k, v, sched)}, n)
     ring = repeat_ms(lambda _: fa.flash_fwd_lut_ring(q, k, v, lut), n)
+    lut_sm90 = repeat_ms(lambda _: fa.flash_fwd_lut_sm90(q, k, v, lut), n)
     dense = repeat_ms(lambda _: fa.flash_fwd(q, k, v, causal), n)
     plain_ms = time_ms(lambda _: fa.flash_attention_reference_fwd(
         q, k, v, sched.causal, lut=sched), 2, warmup=1) if T <= PLAIN_T_MAX else None
     sdpa = torch.nn.functional.scaled_dot_product_attention
     qh, kh, vh, doh = (x.transpose(1, 2).contiguous() for x in (q, k, v, do))
     mask = lut.element_mask(dev)[None]                       # (1, Lh, T, T)
-    o, _ = kern(q, k, v, sched)
+    o, _ = getattr(fa, template)(q, k, v, sched)
     err = (sdpa(qh, kh, vh, attn_mask=mask).transpose(1, 2).float() - o.float()).abs().max()
     if not err.item() <= 2e-2 * o.float().abs().max().item():
         raise AssertionError(f"SDPA yardstick {route} T={T} disagrees by {err.item()}")
@@ -2767,16 +2900,21 @@ def time_path(dev, route, name, sched, lut, layout, attn, leaf, do, B, T, H, d, 
     lib_fb = repeat_ms(lambda _: sdpa(*leaves, attn_mask=mask).backward(doh), 3, warmup=1)
     plain_note = "not measured" if plain_ms is None else f"{plain_ms * 1e3:.2f} us"
     print(f"timing {name} B={B} T={T} H={H} d={d} bf16 block {block} causal={int(causal)} "
-          f"({card}): {spread(ms)}; bound {bound * 1e3:.2f} us ({by}; {nbytes / 1e6:.1f} MB, "
+          f"({card}): {spread(turns[name])}, {bound / turns[name][0]:.3f} of the bound; "
+          f"the template design {template} in turns {spread(turns[template])}; "
+          f"bound {bound * 1e3:.2f} us ({by}; {nbytes / 1e6:.1f} MB, "
           f"{ops / 1e9:.2f} GFLOP, {pairs} live pairs); plain {plain_note}; "
-          f"flash_fwd_lut_ring {spread(ring)}; dense {'causal ' * causal}"
-          f"{fa.dense_fwd_kernel(q.dtype, d)} {spread(dense)}; SDPA "
+          f"flash_fwd_lut_ring {spread(ring)}; flash_fwd_lut_sm90 {spread(lut_sm90)}; dense "
+          f"{'causal ' * causal}{fa.dense_fwd_kernel(q.dtype, d)} {spread(dense)}; SDPA "
           f"with the layout mask {spread(lib)}; SDPA is_causal {spread(lib_causal)}")
     print(f"timing {route} path forward+backward B={B} T={T} block {block}: {spread(fb)}; "
           f"SDPA forward+backward with the layout mask {spread(lib_fb)}")
+    if not turns[name][0] < turns[template][0]:
+        print(f"NOTE {name} B={B} T={T} block {block}: {spread(turns[name])} does not read "
+              f"below the template design {template} {spread(turns[template])}")
     del mask, leaves
-    return {"ms": ms[0], "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
-            "library_ms": lib[0]}
+    return {kernel: {"ms": turns[kernel][0], "plain_ms": plain_ms, "bound_ms": bound,
+                     "bound_by": by, "library_ms": lib[0]} for kernel in (name, template)}
 
 
 def sparse_workload(dev, gen, card, bytes_per_s, B=1, H=8, d=64, line_shape=(64, 8192),
@@ -2789,10 +2927,10 @@ def sparse_workload(dev, gen, card, bytes_per_s, B=1, H=8, d=64, line_shape=(64,
     layout at BERT-large's attention shape.  Exact launches per call,
     outputs and gradients against the plain versions, timings.  Returns
     (path launches per kernel, {kernel: kernels-line fields at
-    ``line_shape``})."""
+    ``line_shape``}) for the sm90 instances and the template designs."""
     print(f"{card}; host CPU {host_cpu()}")
     saved = dict(fa.launches)
-    total = {name: 0 for name in BAND_MERGE}
+    total = {name: 0 for name in BAND_MERGE + BAND_MERGE_SM90}
     line = {}
     for block, T in itertools.product(WORKLOAD_BLOCKS, WORKLOAD_T):
         attn = SparseSelfAttention(workload_config(H, block), max_seq_length=T)
@@ -2803,21 +2941,26 @@ def sparse_workload(dev, gen, card, bytes_per_s, B=1, H=8, d=64, line_shape=(64,
         qkv = torch.randn((B, T, 3 * H * d), generator=gen, device=dev).to(torch.bfloat16)
         do = torch.randn((B, T, H, d), generator=gen, device=dev).to(torch.bfloat16)
         for route, sched in (("banded", band), ("merged", lut.merged)):
-            name = f"flash_fwd_{route}"
+            name = BAND_MERGE_ROUTE[f"flash_fwd_{route}"](torch.bfloat16, d)
             leaf = qkv.detach().clone().requires_grad_(True)
             out, counts = path_run(route, attn if route == "banded" else layout, leaf, do,
                                    B, T, H, d)
-            total[name] += counts[name]
+            for kernel in total:
+                total[kernel] += counts[kernel]
             what = f"B={B} T={T} H={H} d={d} bf16 block {block}"
-            rows = check_path(route, name, sched, lut, leaf, do, out, B, T, H, d, what)
+            rows, trows = check_path(route, name, sched, lut, leaf, do, out, B, T, H, d, what)
             print(f"sparse-path {route} {what} (W={W}, {len(gcols)} gcols, kernel gcols "
                   f"{list(band.kernel_gcols)}): launches {name} 1, flash_bwd_dkdv_lut_sm90 1, "
-                  f"flash_bwd_dq_lut_sm90 1, flash_fwd_lut_ring 0; {flash_line({name: rows})}")
+                  f"flash_bwd_dq_lut_sm90 1, flash_fwd_{route} 0, flash_fwd_lut_ring 0; "
+                  f"{flash_line({name: rows})}; the template design flash_fwd_{route} "
+                  f"{flash_line({'': trows})}")
             fields = time_path(dev, route, name, sched, lut, layout, attn, leaf, do, B, T, H,
                                d, True, bytes_per_s, card)
-            if (block, T) == line_shape:      # the forward kernel's own outputs
-                line[name] = {"max_abs_err": max(e for label, e, _ in rows
-                                                 if label in ("o", "lse")), **fields}
+            if (block, T) == line_shape:      # the forward kernels' own outputs
+                for kernel, kr in ((name, rows), (f"flash_fwd_{route}", trows)):
+                    line[kernel] = {"max_abs_err": max(e for label, e, _ in kr
+                                                       if label in ("o", "lse")),
+                                    **fields[kernel]}
             fa.launches.update(saved)
             del leaf, out
         del qkv, do
@@ -2832,14 +2975,16 @@ def sparse_workload(dev, gen, card, bytes_per_s, B=1, H=8, d=64, line_shape=(64,
     do = torch.randn((B, T, H, d), generator=gen, device=dev).to(torch.bfloat16)
     leaf = qkv.detach().clone().requires_grad_(True)
     out, counts = path_run("merged", layout, leaf, do, B, T, H, d, causal=False)
-    total["flash_fwd_merged"] += counts["flash_fwd_merged"]
+    for kernel in total:
+        total[kernel] += counts[kernel]
+    name = fa.merged_fwd_kernel(torch.bfloat16, d)
     what = f"B={B} T={T} H={H} d={d} bf16 tutorial16 non-causal"
-    rows = check_path("merged", "flash_fwd_merged", lut.merged, lut, leaf, do, out, B, T, H, d,
-                      what)
-    print(f"sparse-path merged {what}: launches flash_fwd_merged 1, flash_bwd_dkdv_lut_sm90 "
-          f"1, flash_bwd_dq_lut_sm90 1; {flash_line({'flash_fwd_merged': rows})}")
-    time_path(dev, "merged", "flash_fwd_merged", lut.merged, lut, layout, None, leaf, do, B, T,
-              H, d, False, bytes_per_s, card)
+    rows, trows = check_path("merged", name, lut.merged, lut, leaf, do, out, B, T, H, d, what)
+    print(f"sparse-path merged {what}: launches {name} 1, flash_bwd_dkdv_lut_sm90 1, "
+          f"flash_bwd_dq_lut_sm90 1, flash_fwd_merged 0; {flash_line({name: rows})}; the template "
+          f"design flash_fwd_merged {flash_line({'': trows})}")
+    time_path(dev, "merged", name, lut.merged, lut, layout, None, leaf, do, B, T, H, d, False,
+              bytes_per_s, card)
     fa.launches.update(saved)          # timing launches are not path launches
     del qkv, do, leaf, out
     torch.cuda.empty_cache()
@@ -2956,8 +3101,9 @@ def main():
     print(json.dumps({"band_merge_sweep_max_abs_err": band_err}))
     check_flash_lse(dev, gen)
     torch.cuda.empty_cache()
+    print(json.dumps({"band_merge_seeds_largest_share": check_band_merge_seeds(dev)}))
     band_launches, tb = sparse_workload(dev, gen, card, bw)
-    for name in BAND_MERGE:
+    for name in BAND_MERGE + BAND_MERGE_SM90:
         kernels.append({"name": name, "route": "cuda", "source": flash_source(name),
                         "replaces": REPLACES[name], "launches": band_launches[name],
                         **tb[name]})

@@ -37,6 +37,11 @@
 // Both stage K/V through a ring of cp.async stages (3 where shared memory allows, as
 // flash_fwd_lut_ring; fewer for the wide fp32 tiles) and take no biases.
 //
+// bf16 at head dims 64 and 128 runs the schedule instances of flash_fwd_sm90 instead
+// (flash_fwd_banded_sm90 / flash_fwd_merged_sm90 in flash_attention_fwd_sm90.cu: TMA, wgmma,
+// 128-row q tiles, a persistent grid); these entries keep fp32 and head dim 96 and are
+// called by name for the rest (flash_fwd_banded_template / flash_fwd_merged_template).
+//
 // C interface for ctypes: returns cudaGetLastError() after the launch (0 on success), or
 // -1 for a variant / dtype / head dim / shape it was not built for.
 

@@ -67,8 +67,43 @@
 // flash_fwd_sm90_schedule in ops/transformer/flash_attention.py is this kernel's schedule
 // in Python (the q tiles in launch order, the k tiles each visits, the masked ones).
 //
+// Two more schedules run the same block (the template's kSched), for the causal block-sparse
+// path's forwards; what changes is which k tiles a work item visits and which take the
+// element mask.  Both replace the templates of flash_attention_band_merge_fwd.cu (mma.sync,
+// cp.async, 64-row q tiles), which keep fp32 and head dim 96:
+//   * flash_fwd_banded_sm90 (kBanded) replaces _fwd_kernel with use_banded (180-198 for the
+//     affine slots, 230-244 for the positional band mask): causal attention over a layout
+//     shared by the heads whose live blocks are a band of W layout blocks below the diagonal
+//     plus global columns.  Its schedule is computed in the kernel from the BandSm90
+//     parameter, with no LUT in device memory: for the q tile at q0 (first layout row r0),
+//     the 128-key tiles of the kernel global columns that lie wholly below the band's first
+//     key (gtile, ascending), then the band's tiles from floor(max(r0 - W + 1, 0) Lb / 128)
+//     up to the tile holding q0 + 127.  The producer works out, for each tile it issues, each
+//     16-key chunk's layout column and whether it is global, and for each consumer's 64 rows
+//     whether the tile needs the element mask (it crosses T or the diagonal, or holds a key
+//     of a non-global column below the band of the half's last row), and hands them to the
+//     consumers in the stage's slot; a masked tile's live test is k <= q, k < T and
+//     row(q) - col(k) < W or col(k) global (the chunk's column, so layout blocks 16 and 32
+//     are exact too).  At the workload's block 64, W = 13, only the band's first tile (for
+//     the lower half) and the diagonal one are masked.
+//   * flash_fwd_merged_sm90 (kMerged) replaces _fwd_kernel with use_merge (161-164, 245-255)
+//     and _fwd_kernel_dma with use_merge (317-319, 384-390): a work item is one merged row
+//     of the MergedLut, q tiles 2i and 2i + 1 of 64 rows, which are the two consumers'
+//     halves.  The producer walks the row's k list (its 32 lanes load 32 slots at a time and
+//     hand them round by shuffles) and puts each slot's tile masks, one a half and 64-key
+//     subtile (adjacent 64-key tiles paired on the host into 128-key slots, none wholly above
+//     a causal half's diagonal), in the stage's slot; a consumer whose masks are all 0 skips
+//     both products but still waits for the tile and releases the stage, -1 needs no
+//     element mask (but for T and, when causal, the diagonal), cell bits mask per element
+//     at the layout's cell size.  An odd last tile leaves half 1 empty: its rows are past T
+//     and not stored.
+// In both the producer keeps 40 registers and the consumers 232, as in the kBias instances.
+// flash_fwd_banded_sm90_schedule / flash_fwd_merged_sm90_schedule are these schedules in
+// Python.
+//
 // C interface for ctypes: the argument list of flash_fwd (flash_attention.cu), then the key
-// bias (null for none) before the stream; returns
+// bias (null for none) before the stream; the banded and merged entries take their
+// schedule (a BandSm90, a MergedSched) in its place.  Each returns
 // cudaGetLastError() after the launch (0 on success), -1 for a dtype / head dim / shape it
 // was not built for, -2 when a tensor map cannot be encoded (alignment, strides) and -3
 // when the driver has no cuTensorMapEncodeTiled.
@@ -80,6 +115,32 @@
 #include <stdint.h>
 
 #include <type_traits>
+
+// The schedule structs the C entries take (ctypes Structures on the host), outside the
+// anonymous namespace so the entries keep external linkage.
+//
+// The banded schedule's parameter (flash_fwd_banded_sm90): band width W and layout block lb,
+// the 128-key tiles holding a kernel global column (ascending), and a bit per layout column
+// that is global.  Sized for T <= 65536: 512 tiles, 4096 layout columns of 16.
+constexpr int kMaxBandTiles = 512;
+constexpr int kMaxBandCols = 4096;
+struct BandSm90 {
+  int w, lb, n_gtiles;
+  unsigned short gtile[kMaxBandTiles];
+  unsigned int gbits[kMaxBandCols / 32];
+};
+
+// The merged schedule (flash_fwd_merged_sm90): for head layout hl (h, or 0 when shared) and
+// merged row r, len[hl rows + r] slots; slot j is key tile map[(hl rows + r) width + j] of
+// 128 keys, with two masks a half, one a 64-key subtile, at mask[((hl rows + r) width + j) 4
+// + half 2 + sub]: -1, the cell bits of a 64 x 64 tile (bit (q_cell << (6 - cell_shift)) +
+// k_cell), or 0 (the half has no such tile).
+struct MergedSched {
+  const int* map;
+  const int* mask;
+  const int* len;
+  int width, heads, cell_shift;
+};
 
 namespace {
 
@@ -96,22 +157,36 @@ constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
 constexpr unsigned long long kHangNs = 2000000000ull;      // an mbarrier wait past this traps
 
-template <int D, bool kBias>
+// the schedules: every k tile up to T (and the diagonal); the band and global tiles of a
+// BandSm90; the k list of a merged row of a MergedLut
+constexpr int kDense = 0, kBanded = 1, kMerged = 2;
+constexpr int kSlotInts = 16;   // a stage's slot: k0, the halves' flags or masks, chunk columns
+
+template <int D, bool kBias, int kSched = kDense>
 struct Cfg {
-  static constexpr int kBN = 128;      // keys per K / V tile
+  static constexpr int kBN = 128;      // keys per K / V tile (a merged slot: two 64-key tiles)
   static constexpr int kStages = 2;    // K and V tiles in the ring
   static constexpr int kBoxes = D / kBox;
   static constexpr int kQBytes = kBQ * D * 2;           // the Q tile, and O's staging tile
   static constexpr int kTileBytes = kBN * D * 2;        // one K or V tile
   static constexpr int kTileBox = kBN * 128;            // one box of a K or V tile
   static constexpr int kBiasBytes = kBias ? kStages * kBN * 4 : 0;   // the key bias's ring
+  // the schedule's slots (a stage's tile and flags, and the item's visit count)
+  static constexpr int kSlotBytes = kSched == kDense ? 0 : (kStages + 1) * kSlotInts * 4;
   static constexpr size_t kSmem = 1024 + 2 * kQBytes + 2 * static_cast<size_t>(kStages) * kTileBytes +
-                                  kBiasBytes + 8 * (2 + 4 * kStages);
-  // setmaxnreg: the producer warpgroup's and the consumers' registers (the bias instances'
-  // producer warp runs 32 lanes of copies)
-  static constexpr int kProducerRegs = kBias ? 40 : 24;
-  static constexpr int kConsumerRegs = kBias ? 232 : 240;
+                                  kBiasBytes + kSlotBytes + 8 * (2 + 4 * kStages);
+  // lanes of the producer warp that run: its copies of the key bias, its loads of a merged
+  // row's k list; else one
+  static constexpr int kProducerLanes = kBias || kSched == kMerged ? 32 : 1;
+  // setmaxnreg: the producer warpgroup's and the consumers' registers
+  static constexpr int kProducerRegs = kBias || kSched != kDense ? 40 : 24;
+  static constexpr int kConsumerRegs = kBias || kSched != kDense ? 232 : 240;
 };
+
+struct NoSched {};
+template <int S> struct SchedArg { using type = NoSched; };
+template <> struct SchedArg<kBanded> { using type = BandSm90; };
+template <> struct SchedArg<kMerged> { using type = MergedSched; };
 
 __host__ __device__ __forceinline__ int cdiv(int a, int b) { return (a + b - 1) / b; }
 
@@ -312,17 +387,62 @@ struct Params {
   float scale2;    // scale * log2 e
 };
 
+// ---------------------------------------------------------------- the banded schedule
+// The visits of the q tile at q0: n_glob global tiles (gtile[0 .. n_glob - 1]), then the
+// band's tiles lo .. hi; visit j is tile gtile[j] for j < n_glob, else lo + j - n_glob.
+struct BandItem {
+  int n_glob, lo, n;
+};
+
+__device__ __forceinline__ BandItem band_item(const BandSm90& bd, int q0, int T, int bn) {
+  BandItem it;
+  const int r0 = q0 / bd.lb;
+  it.lo = (r0 - bd.w + 1 > 0 ? r0 - bd.w + 1 : 0) * bd.lb / bn;
+  const int last = (q0 + kBQ - 1) / bn, nk = cdiv(T, bn);
+  const int hi = last < nk - 1 ? last : nk - 1;
+  it.n_glob = 0;
+  while (it.n_glob < bd.n_gtiles && bd.gtile[it.n_glob] < it.lo) ++it.n_glob;
+  it.n = it.n_glob + (hi >= it.lo ? hi - it.lo + 1 : 0);
+  return it;
+}
+
+// Fill a stage's slot for the banded tile at k0: [0] k0; [1 + c] whether consumer c's 64 rows
+// need the element mask; [3] a bit per 16-key chunk whose layout column is global; [4 + u]
+// chunk u's layout column.
+template <int kBN>
+__device__ __forceinline__ void band_slot(int* slot, const BandSm90& bd, int k0, int q0, int T) {
+  // the halves' last layout rows; a half's edge: a key of a non-global column below the band
+  // of that row
+  const int r_last0 = (q0 + 63) / bd.lb, r_last1 = (q0 + 127) / bd.lb;
+  int gbits = 0;
+  bool edge0 = false, edge1 = false;
+#pragma unroll
+  for (int u = 0; u < kBN / 16; ++u) {
+    const int cu = (k0 + 16 * u) / bd.lb;
+    const bool g = cu < kMaxBandCols && ((bd.gbits[cu >> 5] >> (cu & 31)) & 1);
+    gbits |= g << u;
+    edge0 |= r_last0 - cu >= bd.w && !g;
+    edge1 |= r_last1 - cu >= bd.w && !g;
+    slot[4 + u] = cu;
+  }
+  slot[0] = k0;
+  slot[1] = k0 + kBN > T || k0 + kBN - 1 > q0 || edge0;
+  slot[2] = k0 + kBN > T || k0 + kBN - 1 > q0 + 64 || edge1;
+  slot[3] = gbits;
+}
+
 // ---------------------------------------------------------------- the kernel
 // Accumulator layout of a warpgroup's 64 x N product (wgmma, fp32): warp w of the group
 // holds rows 16 w + g and 16 w + g + 8 (g = lane / 4); element 4 n + 2 r + e is row
 // 16 w + g + 8 r, column 8 n + 2 (lane % 4) + e.
-template <int D, bool kBias>
+template <int D, bool kBias, int kSched>
 __global__ void __launch_bounds__(kThreads, 1)
     fwd_sm90_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
                     const __grid_constant__ CUtensorMap tv, const __grid_constant__ CUtensorMap to,
-                    Params p) {
-  using C = Cfg<D, kBias>;
+                    Params p, const __grid_constant__ typename SchedArg<kSched>::type sa) {
+  using C = Cfg<D, kBias, kSched>;
   constexpr int kBN = C::kBN, kS = C::kStages, kBoxes = C::kBoxes;
+  constexpr int kSubs = kBN / 64;   // the merged schedule's masks a half and slot
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   // 128-byte swizzled tiles must start on 1024 bytes
   unsigned char* smem = smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
@@ -331,7 +451,11 @@ __global__ void __launch_bounds__(kThreads, 1)
   unsigned char* sK = sO + C::kQBytes;             // [stage][box][kBN rows][128 bytes]
   unsigned char* sV = sK + kS * C::kTileBytes;     // the same
   float* sKb = reinterpret_cast<float*>(sV + kS * C::kTileBytes);  // [stage][kBN] (kBias)
-  uint64_t* q_full = reinterpret_cast<uint64_t*>(sV + kS * C::kTileBytes + C::kBiasBytes);
+  // [stage][kSlotInts] the schedule's slots, then the item's visit count (kBanded, kMerged)
+  int* sSlot = reinterpret_cast<int*>(sV + kS * C::kTileBytes + C::kBiasBytes);
+  int* sNk = sSlot + kS * kSlotInts;
+  uint64_t* q_full =
+      reinterpret_cast<uint64_t*>(sV + kS * C::kTileBytes + C::kBiasBytes + C::kSlotBytes);
   uint64_t* q_empty = q_full + 1;
   uint64_t* k_full = q_empty + 1;
   uint64_t* k_empty = k_full + kS;
@@ -371,17 +495,36 @@ __global__ void __launch_bounds__(kThreads, 1)
 
   if (wg == 0) {
     // ------------------------------------------------------------ producer
-    // thread 0 issues every TMA copy; with the key bias, the warp's 32 lanes copy the bias
+    // thread 0 issues every TMA copy; with the key bias, the warp's 32 lanes copy the bias;
+    // with the merged schedule, they load the row's k list
     asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(C::kProducerRegs));
     const int lane = threadIdx.x;
-    if (lane >= (kBias ? 32 : 1)) return;
+    if (lane >= C::kProducerLanes) return;
     int t = 0;  // K / V tiles issued by this block
     for (int i = 0, w = work(0); w < p.n_work; w = work(++i)) {
       int b, h, q0;
       item(w, b, h, q0);
-      const int nk = n_ktiles(T, q0, p.causal, kBN);
+      int nk;
+      BandItem bi;
+      const int* row_map = nullptr;
+      const int* row_mask = nullptr;
+      if constexpr (kSched == kDense) {
+        nk = n_ktiles(T, q0, p.causal, kBN);
+      } else if constexpr (kSched == kBanded) {
+        bi = band_item(sa, q0, T, kBN);
+        nk = bi.n;
+      } else {
+        // the merged row's list, read before the wait for the previous item's Q
+        const long long r = static_cast<long long>(sa.heads == 1 ? 0 : h) * p.nq + q0 / kBQ;
+        row_map = sa.map + r * sa.width;
+        row_mask = sa.mask + r * sa.width * 2 * kSubs;
+        nk = sa.len[r];
+      }
+      // the merged row's slots, 32 at a time: lane x holds slot (j & ~31) + x
+      int e_map = 0, e_mask[2 * kSubs] = {};
       if (lane == 0) {
         mbar_wait(q_empty, (i & 1) ^ 1);  // the previous item's last Q K^T is done
+        if constexpr (kSched != kDense) *sNk = nk;  // released by the arrival below
         mbar_expect_tx(q_full, C::kQBytes);
 #pragma unroll
         for (int c = 0; c < kConsumers; ++c)
@@ -389,23 +532,50 @@ __global__ void __launch_bounds__(kThreads, 1)
           for (int x = 0; x < kBoxes; ++x)
             tma_load(sQ + (c * kBoxes + x) * kBoxBytes, &tq, q_full, x * kBox, h, q0 + 64 * c, b);
       }
-      // k tiles from the last (the diagonal one, or the ragged end) down to 0
+      // k tiles from the last visit (the diagonal one, or the ragged end) down to the first
       for (int j = nk - 1; j >= 0; --j, ++t) {
         const int s = t % kS, ph = (t / kS) & 1;
+        int k0 = j * kBN;
+        if constexpr (kSched == kBanded) {
+          k0 = (j < bi.n_glob ? static_cast<int>(sa.gtile[j]) : bi.lo + j - bi.n_glob) * kBN;
+        } else if constexpr (kSched == kMerged) {
+          if (j == nk - 1 || (j & 31) == 31) {
+            const int e = (j & ~31) + lane;
+            if (e < nk) {
+              e_map = row_map[e];
+#pragma unroll
+              for (int x = 0; x < 2 * kSubs; ++x) e_mask[x] = row_mask[e * 2 * kSubs + x];
+            }
+          }
+          k0 = __shfl_sync(0xffffffffu, e_map, j & 31) * kBN;
+        }
+        int masks[2 * kSubs];
+        if constexpr (kSched == kMerged) {
+#pragma unroll
+          for (int x = 0; x < 2 * kSubs; ++x)
+            masks[x] = __shfl_sync(0xffffffffu, e_mask[x], j & 31);
+        }
         if (lane == 0) {
           mbar_wait(&k_empty[s], ph ^ 1);
+          int* slot = sSlot + s * kSlotInts;   // read by the consumers before they free K
+          if constexpr (kSched == kBanded) band_slot<kBN>(slot, sa, k0, q0, T);
+          if constexpr (kSched == kMerged) {
+            slot[0] = k0;
+#pragma unroll
+            for (int x = 0; x < 2 * kSubs; ++x) slot[1 + x] = masks[x];
+          }
           mbar_expect_tx(&k_full[s], C::kTileBytes);
 #pragma unroll
           for (int x = 0; x < kBoxes; ++x)
-            tma_load(sK + s * C::kTileBytes + x * C::kTileBox, &tk, &k_full[s], x * kBox, h,
-                     j * kBN, b);
+            tma_load(sK + s * C::kTileBytes + x * C::kTileBox, &tk, &k_full[s], x * kBox, h, k0,
+                     b);
         }
-        mbar_wait(&v_empty[s], ph ^ 1);  // and the stage's bias slot is read
-        if (kBias) {
-          // keys j kBN .. j kBN + kBN - 1 of batch row b, four a lane, zeros from T on
+        if (kBias || lane == 0) mbar_wait(&v_empty[s], ph ^ 1);  // and the stage's bias slot
+        if constexpr (kBias) {
+          // keys k0 .. k0 + kBN - 1 of batch row b, four a lane, zeros from T on
 #pragma unroll
           for (int x = 0; x < kBN / 32; ++x) {
-            const int col = j * kBN + 32 * x + lane;
+            const int col = k0 + 32 * x + lane;
             const bool in = col < T;
             cp_async4(sKb + s * kBN + 32 * x + lane,
                       p.kbias + (in ? static_cast<long long>(b) * T + col : 0), in);
@@ -416,8 +586,8 @@ __global__ void __launch_bounds__(kThreads, 1)
           mbar_expect_tx(&v_full[s], C::kTileBytes);
 #pragma unroll
           for (int x = 0; x < kBoxes; ++x)
-            tma_load(sV + s * C::kTileBytes + x * C::kTileBox, &tv, &v_full[s], x * kBox, h,
-                     j * kBN, b);
+            tma_load(sV + s * C::kTileBytes + x * C::kTileBox, &tv, &v_full[s], x * kBox, h, k0,
+                     b);
         }
       }
     }
@@ -436,9 +606,13 @@ __global__ void __launch_bounds__(kThreads, 1)
   for (int i = 0, w = work(0); w < p.n_work; w = work(++i)) {
     int b, h, q0;
     item(w, b, h, q0);
-    const int nk = n_ktiles(T, q0, p.causal, kBN);
     const int qw = q0 + 64 * c;                        // this warpgroup's first row
     const int row[2] = {qw + 16 * warp + g, qw + 16 * warp + g + 8};
+    int rrow[2] = {0, 0};                              // kBanded: the rows' layout rows
+    if constexpr (kSched == kBanded) {
+      rrow[0] = row[0] / sa.lb;
+      rrow[1] = row[1] / sa.lb;
+    }
     float o[kBoxes][32];
 #pragma unroll
     for (int x = 0; x < kBoxes; ++x)
@@ -449,32 +623,82 @@ __global__ void __launch_bounds__(kThreads, 1)
     uint32_t pa[kBN / 16][4];                            // P as bf16 A fragments
 
     mbar_wait(q_full, i & 1);
+    const int nk = kSched == kDense ? n_ktiles(T, q0, p.causal, kBN) : *sNk;
+    if (nk == 0 && lane == 0) mbar_arrive(q_empty);    // a merged row with no slot
     for (int j = nk - 1; j >= 0; --j, ++t) {
-      const int k0 = j * kBN, s = t % kS, ph = (t / kS) & 1;
+      const int s = t % kS, ph = (t / kS) & 1;
+      mbar_wait(&k_full[s], ph);
+      // the visit: its first key, whether this warpgroup computes it and whether it takes
+      // the element mask; kBanded: each row's live chunks (bit u: chunk u is in the row's
+      // band or global); kMerged: each row's cell bits of its tile masks
+      const int* slot = sSlot + s * kSlotInts;
+      int k0 = j * kBN;
+      bool visit = true, masked;
+      uint32_t live[2] = {~0u, ~0u};
+      int cell[2][kSubs];
+      if constexpr (kSched == kDense) {
+        masked = k0 + kBN > T || (p.causal && k0 + kBN - 1 > qw);
+      } else if constexpr (kSched == kBanded) {
+        k0 = slot[0];
+        masked = slot[1 + c] != 0;
+        if (masked) {
+          const int gb = slot[3];
+          live[0] = live[1] = 0;
+#pragma unroll
+          for (int u = 0; u < kBN / 16; ++u) {
+            const int cu = slot[4 + u];
+#pragma unroll
+            for (int r = 0; r < 2; ++r)
+              live[r] |= static_cast<uint32_t>(rrow[r] - cu < sa.w || ((gb >> u) & 1)) << u;
+          }
+        }
+      } else {
+        k0 = slot[0];
+        int any = 0, whole = 1;
+        const int cs = sa.cell_shift;
+#pragma unroll
+        for (int x = 0; x < kSubs; ++x) {
+          const int cm = slot[1 + c * kSubs + x];
+          any |= cm;
+          whole &= cm == -1;
+#pragma unroll
+          for (int r = 0; r < 2; ++r) cell[r][x] = cm >> (((row[r] - qw) >> cs) << (6 - cs));
+        }
+        visit = any != 0;
+        masked = !whole || k0 + kBN > T || (p.causal && k0 + kBN - 1 > qw);
+      }
       // S = Q K^T, both operands in shared memory
       const unsigned char* tK = sK + s * C::kTileBytes;
-      mbar_wait(&k_full[s], ph);
-      fence_regs(sc);
-      wgmma_fence();
+      if (visit) {
+        fence_regs(sc);
+        wgmma_fence();
 #pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk) {
-        const int x = kk / 4, off = (kk % 4) * 32;
-        wgmma_ss_n128(sc, desc_sw128(myQ + x * kBoxBytes + off, 16, 1024),
-                      desc_sw128(tK + x * C::kTileBox + off, 16, 1024), kk > 0);
+        for (int kk = 0; kk < D / 16; ++kk) {
+          const int x = kk / 4, off = (kk % 4) * 32;
+          wgmma_ss_n128(sc, desc_sw128(myQ + x * kBoxBytes + off, 16, 1024),
+                        desc_sw128(tK + x * C::kTileBox + off, 16, 1024), kk > 0);
+        }
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(sc);
       }
-      wgmma_commit();
-      wgmma_wait<0>();
-      fence_regs(sc);
       if (lane == 0) {
         mbar_arrive(&k_empty[s]);
         if (j == 0) mbar_arrive(q_empty);
+      }
+      if (!visit) {
+        // kMerged: no live tile of this half here; the stage is released once its V has
+        // landed (V of this round lands only after the previous round's release, so this
+        // arrival cannot count toward the previous round while the other half reads it)
+        mbar_wait(&v_full[s], ph);
+        if (lane == 0) mbar_arrive(&v_empty[s]);
+        continue;
       }
 
       // the online softmax in log2 units; only a tile crossing the diagonal or the ragged
       // end takes the per-element mask.  Row max and row sum over four independent
       // partials per row (short dependency chains): partial (n % 2) * 2 + e % 2 of row e / 2.
       // With the key bias every score is scaled and biased in place first (pre)
-      const bool masked = k0 + kBN > T || (p.causal && k0 + kBN - 1 > qw);
       const bool pre = kBias || masked;
       float mp[2][4];
       if (pre) {
@@ -496,8 +720,15 @@ __global__ void __launch_bounds__(kThreads, 1)
               const int r = e >> 1, col = k0 + n * 8 + qd + (e & 1);
               float x = kBias ? fmaf(sc[4 * n + e], scale2, (e & 1) ? kb2.y : kb2.x)
                               : sc[4 * n + e] * scale2;
-              if (decltype(kMasked)::value && !(col < T && (!p.causal || row[r] >= col)))
-                x = kNegInf;
+              if constexpr (decltype(kMasked)::value) {
+                bool ok = col < T && (!p.causal || row[r] >= col);
+                if constexpr (kSched == kBanded) ok = ok && ((live[r] >> (n >> 1)) & 1);
+                if constexpr (kSched == kMerged) {
+                  const int ki = (n * 8 + qd + (e & 1)) & 63;   // the key in its 64-key subtile
+                  ok = ok && ((cell[r][n / 8] >> (ki >> sa.cell_shift)) & 1);
+                }
+                if (!ok) x = kNegInf;
+              }
               sc[4 * n + e] = x;
               mp[r][(n & 1) * 2 + (e & 1)] = fmaxf(mp[r][(n & 1) * 2 + (e & 1)], x);
             }
@@ -682,11 +913,11 @@ bool make_map(EncodeTiled enc, CUtensorMap* map, const void* base, const long lo
              CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-template <int D, bool kBias>
+template <int D, bool kBias, int kSched = kDense>
 int launch(const void* q, const void* k, const void* v, void* out, float* lse,
            const long long* strides, int B, int T, int H, int causal, float scale,
-           const float* kbias, cudaStream_t stream) {
-  using C = Cfg<D, kBias>;
+           const float* kbias, const typename SchedArg<kSched>::type& sa, cudaStream_t stream) {
+  using C = Cfg<D, kBias, kSched>;
   EncodeTiled enc = encode_tiled();
   if (enc == nullptr) return -3;
   CUtensorMap mq, mk, mv, mo;
@@ -699,14 +930,14 @@ int launch(const void* q, const void* k, const void* v, void* out, float* lse,
   const int nq = cdiv(T, kBQ), n_work = nq * B * H;
   const Params p = {lse, kbias, T, H, causal, nq, n_work, scale * kLog2e};
   int dev = 0, sms = 0;
-  cudaError_t e = cudaFuncSetAttribute(
-      fwd_sm90_kernel<D, kBias>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(C::kSmem));
+  auto kernel = fwd_sm90_kernel<D, kBias, kSched>;
+  cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       static_cast<int>(C::kSmem));
   if (e == cudaSuccess) e = cudaGetDevice(&dev);
   if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (e != cudaSuccess) return static_cast<int>(e);
   const int grid = sms < n_work ? sms : n_work;  // persistent: one block per SM
-  fwd_sm90_kernel<D, kBias><<<grid, kThreads, C::kSmem, stream>>>(mq, mk, mv, mo, p);
+  kernel<<<grid, kThreads, C::kSmem, stream>>>(mq, mk, mv, mo, p, sa);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -714,9 +945,17 @@ template <int D>
 int launch_bias(const void* q, const void* k, const void* v, void* out, float* lse,
                 const long long* strides, int B, int T, int H, int causal, float scale,
                 const float* kbias, cudaStream_t stream) {
+  const NoSched none{};
   return kbias != nullptr
-             ? launch<D, true>(q, k, v, out, lse, strides, B, T, H, causal, scale, kbias, stream)
-             : launch<D, false>(q, k, v, out, lse, strides, B, T, H, causal, scale, kbias, stream);
+             ? launch<D, true>(q, k, v, out, lse, strides, B, T, H, causal, scale, kbias, none,
+                               stream)
+             : launch<D, false>(q, k, v, out, lse, strides, B, T, H, causal, scale, kbias, none,
+                                stream);
+}
+
+// the entries' common refusals: bf16 only, and work item indices in an int
+bool fits(int dtype, int B, int T, int H) {
+  return dtype == 1 && static_cast<long long>(cdiv(T, kBQ)) * B * H <= 0x7fffffffLL;
 }
 
 }  // namespace
@@ -727,13 +966,57 @@ extern "C" int flash_fwd_sm90(int dtype, int head_dim, const void* q, const void
                               const void* v, void* out, float* lse, const long long* strides,
                               int B, int T, int H, int causal, float scale, const float* kbias,
                               void* stream) {
-  if (dtype != 1 || static_cast<long long>(cdiv(T, kBQ)) * B * H > 0x7fffffffLL) return -1;
+  if (!fits(dtype, B, T, H)) return -1;
   if (T == 0 || B * H == 0) return 0;
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
   switch (head_dim) {
     case 64: return launch_bias<64>(q, k, v, out, lse, strides, B, T, H, causal, scale, kbias, st);
     case 128:
       return launch_bias<128>(q, k, v, out, lse, strides, B, T, H, causal, scale, kbias, st);
+    default: return -1;
+  }
+}
+
+// The banded forward: causal only, T <= 65536, band: the schedule's parameter (BandSm90).
+extern "C" int flash_fwd_banded_sm90(int dtype, int head_dim, const void* q, const void* k,
+                                     const void* v, void* out, float* lse,
+                                     const long long* strides, int B, int T, int H, int causal,
+                                     float scale, const BandSm90* band, void* stream) {
+  if (!fits(dtype, B, T, H) || band == nullptr || !causal || T > kMaxBandCols * 16 ||
+      band->n_gtiles < 0 || band->n_gtiles > kMaxBandTiles || band->w < 0 || band->lb <= 0)
+    return -1;
+  if (T == 0 || B * H == 0) return 0;
+  cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
+  switch (head_dim) {
+    case 64:
+      return launch<64, false, kBanded>(q, k, v, out, lse, strides, B, T, H, 1, scale, nullptr,
+                                        *band, st);
+    case 128:
+      return launch<128, false, kBanded>(q, k, v, out, lse, strides, B, T, H, 1, scale, nullptr,
+                                         *band, st);
+    default: return -1;
+  }
+}
+
+// The merged-row forward: m, the MergedLut's slot arrays (rows of 128 queries: cdiv(T, 128) a
+// head layout) at 128 keys a slot.
+extern "C" int flash_fwd_merged_sm90(int dtype, int head_dim, const void* q, const void* k,
+                                     const void* v, void* out, float* lse,
+                                     const long long* strides, int B, int T, int H, int causal,
+                                     float scale, const MergedSched* m, void* stream) {
+  if (!fits(dtype, B, T, H) || m == nullptr || m->map == nullptr || m->mask == nullptr ||
+      m->len == nullptr || (m->heads != 1 && m->heads != H) || m->cell_shift < 4 ||
+      m->cell_shift > 6)
+    return -1;
+  if (T == 0 || B * H == 0) return 0;
+  cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
+  switch (head_dim) {
+    case 64:
+      return launch<64, false, kMerged>(q, k, v, out, lse, strides, B, T, H, causal, scale,
+                                        nullptr, *m, st);
+    case 128:
+      return launch<128, false, kMerged>(q, k, v, out, lse, strides, B, T, H, causal, scale,
+                                         nullptr, *m, st);
     default: return -1;
   }
 }

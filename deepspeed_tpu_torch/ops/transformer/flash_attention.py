@@ -48,12 +48,25 @@ block-sparse bf16 forward at head dim 64 in
   (:func:`sparse_fwd_kernel`), and :func:`flash_fwd_lut_sm90_schedule` is
   its schedule in Python; the templates ``flash_fwd_lut`` and
   ``flash_fwd_lut_ring`` keep the rest;
-- ``flash_fwd_banded`` (for ``_fwd_kernel`` with ``use_banded`` 180-198,
-  230-244): the causal forward over a :class:`BandLut`, its k tiles from
-  affine arithmetic on the band and a positional element mask;
-- ``flash_fwd_merged`` (for ``_fwd_kernel`` / ``_fwd_kernel_dma`` with
-  ``use_merge`` 161-164, 245-255, 317-319, 384-390): the forward over a
-  :class:`MergedLut`, two q tiles per kernel row;
+- ``flash_fwd_banded_sm90`` / ``flash_fwd_merged_sm90`` (for
+  ``_fwd_kernel`` with ``use_banded`` 180-198, 230-244, and with
+  ``use_merge`` 161-164, 245-255, and ``_fwd_kernel_dma`` with
+  ``use_merge`` 317-319, 384-390): schedule instances of
+  ``flash_fwd_sm90``'s block (TMA ring, producer warp, ``wgmma``, 128-row
+  q tiles over two consumer warpgroups, persistent grid), bf16 at head dims
+  64 and 128: the causal forward over a :class:`BandLut`, its 128-key
+  tiles computed in the kernel from the band and a positional element mask
+  on the tiles that need it; the forward over a :class:`MergedLut`, one
+  merged row (two 64-row q tiles) a work item, each consumer warpgroup one
+  half under its own tile masks.  :func:`flash_fwd_banded` and
+  :func:`flash_fwd_merged` send CUDA tensors there by dtype and head dim
+  (:func:`banded_fwd_kernel`, :func:`merged_fwd_kernel`);
+  :func:`flash_fwd_banded_sm90_schedule` and
+  :func:`flash_fwd_merged_sm90_schedule` are their schedules in Python;
+- ``flash_fwd_banded`` / ``flash_fwd_merged`` (the same TPU kernels): the
+  templates for fp32 and head dim 96, 64-row q tiles on ``mma.sync``;
+  ``flash_fwd_banded_template`` / ``flash_fwd_merged_template`` take them
+  at any dtype;
 - ``flash_bwd_dkdv_sm90`` / ``flash_bwd_dq_sm90`` (for ``_bwd_dkdv_kernel``
   617 and ``_bwd_dq_kernel`` 691, dense, with or without ``use_kbias``,
   659-660 and 731-732): the bf16 backward at head dim 64, the group
@@ -157,7 +170,8 @@ DENSE_KERNELS = ("flash_fwd", "flash_fwd_sm90", "flash_bwd_dkdv", "flash_bwd_dq"
                  "flash_bwd_dkdv_sm90", "flash_bwd_dq_sm90")
 BIASED_KERNELS = ("flash_fwd_biased", "flash_bwd_dkdv_biased", "flash_bwd_dq_biased")
 LUT_KERNELS = ("flash_fwd_lut", "flash_fwd_lut_ring", "flash_fwd_lut_sm90",
-               "flash_fwd_banded", "flash_fwd_merged", "flash_bwd_dkdv_lut",
+               "flash_fwd_banded", "flash_fwd_banded_sm90", "flash_fwd_merged",
+               "flash_fwd_merged_sm90", "flash_bwd_dkdv_lut",
                "flash_bwd_dkdv_lut_sm90", "flash_bwd_dq_lut", "flash_bwd_dq_lut_sm90")
 KERNELS = DENSE_KERNELS + BIASED_KERNELS + LUT_KERNELS
 # entry -> (library = csrc/<library>.cu, C function, variant argument or None)
@@ -174,6 +188,8 @@ ENTRIES = {
     "flash_fwd_lut_sm90": ("flash_attention_sparse_fwd_sm90", "flash_fwd_lut_sm90", None),
     "flash_fwd_banded": ("flash_attention_band_merge_fwd", "flash_fwd_variant", 4),
     "flash_fwd_merged": ("flash_attention_band_merge_fwd", "flash_fwd_variant", 5),
+    "flash_fwd_banded_sm90": ("flash_attention_fwd_sm90", "flash_fwd_banded_sm90", None),
+    "flash_fwd_merged_sm90": ("flash_attention_fwd_sm90", "flash_fwd_merged_sm90", None),
     "flash_bwd_dkdv_biased": ("flash_attention_sparse_bwd", "flash_bwd_dkdv_variant", 1),
     "flash_bwd_dkdv_lut": ("flash_attention_sparse_bwd", "flash_bwd_dkdv_variant", 2),
     "flash_bwd_dkdv_lut_sm90": ("flash_attention_sparse_bwd_sm90", "flash_bwd_dkdv_lut_sm90",
@@ -198,11 +214,16 @@ SM90_BWD_HEAD_DIMS = {torch.bfloat16: (64,)}
 DENSE_BWD_SM90 = ("flash_bwd_dkdv_sm90", "flash_bwd_dq_sm90")
 # the dense sm90 entries, which take the (B, T) key bias's pointer (null for none) last
 DENSE_SM90 = ("flash_fwd_sm90",) + DENSE_BWD_SM90
+# the schedule instances of flash_fwd_sm90 (csrc/flash_attention_fwd_sm90.cu), which take
+# their schedule (a _BandSm90, a _MergedSched) last; built for SM90_HEAD_DIMS
+SCHED_SM90 = ("flash_fwd_banded_sm90", "flash_fwd_merged_sm90")
 SM90_BLOCK_Q, SM90_BLOCK_N = 128, 128
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 TILE = 64            # the kernels' q and k tile rows (kBQ, kBK)
 # the banded kernel's Band parameter (csrc/flash_attention.cuh): global tiles, layout columns
 MAX_GLOBAL_TILES, MAX_LAYOUT_COLS = 1024, 4096
+# flash_fwd_banded_sm90's BandSm90 parameter: global tiles of 128 keys
+MAX_GLOBAL_TILES_SM90 = 512
 MAX_BAND_T = MAX_LAYOUT_COLS * 16
 
 
@@ -520,6 +541,14 @@ class _Band(ctypes.Structure):
                 ("gbits", ctypes.c_uint * (MAX_LAYOUT_COLS // 32))]
 
 
+class _BandSm90(ctypes.Structure):
+    """``BandSm90`` of ``csrc/flash_attention_fwd_sm90.cu``: the schedule of
+    ``flash_fwd_banded_sm90``."""
+    _fields_ = [("w", ctypes.c_int), ("lb", ctypes.c_int), ("n_gtiles", ctypes.c_int),
+                ("gtile", ctypes.c_ushort * MAX_GLOBAL_TILES_SM90),
+                ("gbits", ctypes.c_uint * (MAX_LAYOUT_COLS // 32))]
+
+
 class BandLut:
     """The banded forward's schedule for a layout of :func:`banded_structure`
     ``(W, gcols)`` with layout block ``block`` at ``T`` (causal, one layout
@@ -535,7 +564,9 @@ class BandLut:
     ``c`` (``r >= c``) has it in its band, so dropping ``c`` leaves the live
     set unchanged (the trailing "global" columns of :func:`banded_structure`
     are all of this kind).  ``T`` is at most ``MAX_BAND_T``, the size of
-    the kernel's band parameter."""
+    the kernel's band parameter.  ``gtiles_sm90``: the same for
+    ``flash_fwd_banded_sm90``'s 128-key tiles (see
+    :func:`flash_fwd_banded_sm90_schedule`)."""
 
     causal = True
     heads = 1
@@ -548,11 +579,18 @@ class BandLut:
         self.W, self.gcols, self.block, self.T = int(W), tuple(gcols), int(block), int(T)
         self.kernel_gcols = tuple(c for c in self.gcols if c + self.W <= nb - 1)
         self.cell_shift = int(math.log2(block)) if block < TILE else 6
-        self.gtiles = np.array(sorted({
+        self.gtiles, self.gtiles_sm90 = (np.array(sorted({
             t for c in self.kernel_gcols
-            for t in range(c * block // TILE, ((c + 1) * block - 1) // TILE + 1)}), np.int32)
+            for t in range(c * block // n, ((c + 1) * block - 1) // n + 1)}), np.int32)
+            for n in (TILE, SM90_BLOCK_N))
         self._device = {}
         self._param = None
+        self._param_sm90 = None
+
+    def _gbits(self):
+        bits = np.zeros(MAX_LAYOUT_COLS, bool)
+        bits[list(self.kernel_gcols)] = True
+        return np.packbits(bits, bitorder="little").view("<u4").tolist()
 
     def param(self):
         """The kernel's ``Band`` parameter (built once)."""
@@ -560,11 +598,18 @@ class BandLut:
             band = _Band(w=self.W, lb=self.block, cell_shift=self.cell_shift,
                          n_gtiles=len(self.gtiles))
             band.gtile[:len(self.gtiles)] = self.gtiles.tolist()
-            bits = np.zeros(MAX_LAYOUT_COLS, bool)
-            bits[list(self.kernel_gcols)] = True
-            band.gbits[:] = np.packbits(bits, bitorder="little").view("<u4").tolist()
+            band.gbits[:] = self._gbits()
             self._param = band
         return self._param
+
+    def param_sm90(self):
+        """``flash_fwd_banded_sm90``'s ``BandSm90`` parameter (built once)."""
+        if self._param_sm90 is None:
+            band = _BandSm90(w=self.W, lb=self.block, n_gtiles=len(self.gtiles_sm90))
+            band.gtile[:len(self.gtiles_sm90)] = self.gtiles_sm90.tolist()
+            band.gbits[:] = self._gbits()
+            self._param_sm90 = band
+        return self._param_sm90
 
     def element_mask(self, device):
         """(1, T, T) bool: the live (q, k) pairs from the band alone, ``k <=
@@ -629,6 +674,42 @@ class MergedLut:
         if key not in self._device:
             self._device[key] = {name: torch.as_tensor(getattr(self, name), device=device)
                                  for name in ("kmap", "kmask", "klen")}
+        return self._device[key]
+
+    def slots(self):
+        """``flash_fwd_merged_sm90``'s slot arrays: ``(map, mask, len)`` per
+        head layout and merged row, the key tiles of ``SM90_BLOCK_N`` (128)
+        keys either half holds, ascending, each pairing the LUT's 64-key
+        tiles ``2p`` and ``2p + 1``; ``mask`` (Lh, rows, width, 2, 2) holds
+        one a half and 64-key subtile (0 where the half has no such tile).
+        When causal, a tile wholly above a half's diagonal (a k tile past
+        its q tile, which a layout block of 128 or more holds: its cells
+        repeat over the block's tiles) gets 0 for that half, and a slot with
+        no live half is dropped: such tiles hold no live pair."""
+        Lh, rows, width = self.kmap.shape
+        sub = SM90_BLOCK_N // TILE
+        ncol = -(-self.T // SM90_BLOCK_N) * sub                    # 64-key tiles, whole slots
+        dense = np.zeros((Lh, rows, 2, ncol), np.int32)            # (.., half, k tile)
+        hh, ii, jj = np.nonzero(np.arange(width) < self.klen[..., None])
+        for half in (0, 1):
+            dense[hh, ii, half, self.kmap[hh, ii, jj]] = self.kmask[hh, ii, jj, half]
+        if self.causal:
+            q_tile = 2 * np.arange(rows)[:, None, None] + np.arange(2)[None, :, None]
+            dense[:, np.arange(ncol)[None, None, :] > q_tile] = 0
+        dense = dense.reshape(Lh, rows, 2, ncol // sub, sub)       # (.., half, slot, sub)
+        smap, _, slen = _lut_rows((dense != 0).any(axis=(2, 4)).astype(np.int32))
+        idx = np.broadcast_to(smap[:, :, None, :, None], (Lh, rows, 2, smap.shape[-1], sub))
+        masks = np.take_along_axis(dense, idx, axis=3)
+        live = np.arange(smap.shape[-1]) < slen[..., None]
+        masks = np.where(live[:, :, None, :, None], masks, 0).transpose(0, 1, 3, 2, 4)
+        return smap, np.ascontiguousarray(masks), slen
+
+    def sched_tensors(self, device):
+        """:meth:`slots` as int32 tensors on ``device`` (cached)."""
+        key = ("slots", str(device))
+        if key not in self._device:
+            self._device[key] = [torch.as_tensor(np.ascontiguousarray(a, np.int32), device=device)
+                                 for a in self.slots()]
         return self._device[key]
 
     def element_mask(self, device):
@@ -843,9 +924,10 @@ def _entry(name):
         v, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         n_ptr = 8 if "dkdv" in fn_name else 7 if "_dq" in fn_name else 5
         args = [i, i] + [v] * n_ptr + [v, i, i, i, i, f]
-        # a variant takes its Extra, a group kernel its schedule, a dense sm90 entry its key
-        # bias (or null), before the stream
-        structs = 0 if variant is None and name not in GROUP_KERNELS + DENSE_SM90 else 1
+        # a variant takes its Extra, a group kernel or a schedule instance its schedule, a
+        # dense sm90 entry its key bias (or null), before the stream
+        structs = 0 if variant is None and name not in (GROUP_KERNELS + DENSE_SM90
+                                                        + SCHED_SM90) else 1
         fn.argtypes = ([] if variant is None else [i]) + args + [v] * structs + [v]
         fn.restype = ctypes.c_int
     return fn if variant is None else functools.partial(fn, variant)
@@ -859,13 +941,16 @@ def _run(name, *args, device):
     launches[name] += 1
 
 
-def _fwd(name, q, k, v, causal, sm_scale, lut=None, kbias=None, abias=None):
+def _fwd(name, q, k, v, causal, sm_scale, lut=None, kbias=None, abias=None, sched=None):
+    """Launch the forward ``name`` after checking its operands: a template
+    takes its ``Extra``, a dense sm90 entry its key bias, a schedule
+    instance (``SCHED_SM90``) the struct ``sched()`` builds over ``lut``."""
     if q.device.type == "cpu":
         return flash_attention_reference_fwd(q, k, v, causal, sm_scale, lut=lut,
                                              key_padding_bias=kbias, attn_bias=abias)
     B, T, H, d = q.shape
     _check(name, (q, k, v), q.dtype, d,
-           SM90_HEAD_DIMS if name == "flash_fwd_sm90" else HEAD_DIMS)
+           SM90_HEAD_DIMS if name in ("flash_fwd_sm90",) + SCHED_SM90 else HEAD_DIMS)
     template = ENTRIES[name][2] is not None       # the variants take both biases in their Extra
     for label, bias, taken in (("key_padding_bias", kbias, template or name in DENSE_SM90),
                                ("attn_bias", abias, template)):
@@ -874,8 +959,8 @@ def _fwd(name, q, k, v, causal, sm_scale, lut=None, kbias=None, abias=None):
     if template:
         extra = [_extra(name, q, lut, kbias, abias, "k")]    # checks the biases and the LUT
     else:
-        extra = []
-        _check_extra(name, q, None, kbias, abias)
+        _check_extra(name, q, lut, kbias, abias)
+        extra = [sched()] if sched else []
     o = torch.empty((B, T, H, d), dtype=q.dtype, device=q.device)
     lse = torch.empty((B, H, T), dtype=torch.float32, device=q.device)
     strides = _strides(q, k, v)
@@ -1056,18 +1141,150 @@ def flash_fwd_lut_sm90_schedule(lut, B, H, n_pipes):
     return _group_schedule(lut.groups("q"), B, H, n_pipes)
 
 
+class _MergedSched(ctypes.Structure):
+    """``MergedSched`` of ``csrc/flash_attention_fwd_sm90.cu``: a
+    :class:`MergedLut`'s slot arrays (:meth:`MergedLut.slots`)."""
+    _fields_ = [("map", ctypes.c_void_p), ("mask", ctypes.c_void_p), ("len", ctypes.c_void_p),
+                ("width", ctypes.c_int), ("heads", ctypes.c_int), ("cell_shift", ctypes.c_int)]
+
+
+def banded_fwd_kernel(dtype, head_dim):
+    """The banded forward kernel a CUDA tensor of ``dtype`` and
+    ``head_dim`` takes: ``flash_fwd_banded_sm90`` for bf16 at head dims 64
+    and 128, else the template ``flash_fwd_banded``.  Decided before any
+    launch, never by a failure."""
+    sm90 = head_dim in SM90_HEAD_DIMS.get(dtype, ())
+    return "flash_fwd_banded_sm90" if sm90 else "flash_fwd_banded"
+
+
+def merged_fwd_kernel(dtype, head_dim):
+    """The merged-row forward kernel a CUDA tensor of ``dtype`` and
+    ``head_dim`` takes: ``flash_fwd_merged_sm90`` for bf16 at head dims 64
+    and 128, else the template ``flash_fwd_merged``.  Decided before any
+    launch, never by a failure."""
+    sm90 = head_dim in SM90_HEAD_DIMS.get(dtype, ())
+    return "flash_fwd_merged_sm90" if sm90 else "flash_fwd_merged"
+
+
 def flash_fwd_banded(q, k, v, band, sm_scale=None):
     """``(o, lse)`` of causal attention over the band and global columns of
-    ``band`` (a :class:`BandLut`): the ``flash_fwd_banded`` kernel for CUDA
-    tensors, the plain version for CPU tensors."""
+    ``band`` (a :class:`BandLut`): for CUDA tensors the kernel of
+    :func:`banded_fwd_kernel`, for CPU tensors the plain version."""
+    if banded_fwd_kernel(q.dtype, q.shape[-1]) == "flash_fwd_banded_sm90":
+        return flash_fwd_banded_sm90(q, k, v, band, sm_scale)
+    return flash_fwd_banded_template(q, k, v, band, sm_scale)
+
+
+def flash_fwd_banded_template(q, k, v, band, sm_scale=None):
+    """``(o, lse)``: the template ``flash_fwd_banded`` kernel whatever the
+    dtype and head dim (for CUDA tensors; the plain version for CPU ones)."""
     return _fwd("flash_fwd_banded", q, k, v, True, sm_scale, band)
+
+
+def flash_fwd_banded_sm90(q, k, v, band, sm_scale=None):
+    """``(o, lse)``: the ``flash_fwd_banded_sm90`` kernel (bf16, head dims
+    64 and 128; others raise) over ``band.param_sm90()`` for CUDA tensors,
+    the plain version for CPU ones."""
+    return _fwd("flash_fwd_banded_sm90", q, k, v, True, sm_scale, band, sched=band.param_sm90)
 
 
 def flash_fwd_merged(q, k, v, merged, sm_scale=None):
     """``(o, lse)`` over the merged rows of ``merged`` (a :class:`MergedLut`,
-    causal as its layout was built): the ``flash_fwd_merged`` kernel for
-    CUDA tensors, the plain version for CPU tensors."""
+    causal as its layout was built): for CUDA tensors the kernel of
+    :func:`merged_fwd_kernel`, for CPU tensors the plain version."""
+    if merged_fwd_kernel(q.dtype, q.shape[-1]) == "flash_fwd_merged_sm90":
+        return flash_fwd_merged_sm90(q, k, v, merged, sm_scale)
+    return flash_fwd_merged_template(q, k, v, merged, sm_scale)
+
+
+def flash_fwd_merged_template(q, k, v, merged, sm_scale=None):
+    """``(o, lse)``: the template ``flash_fwd_merged`` kernel whatever the
+    dtype and head dim (for CUDA tensors; the plain version for CPU ones)."""
     return _fwd("flash_fwd_merged", q, k, v, merged.causal, sm_scale, merged)
+
+
+def flash_fwd_merged_sm90(q, k, v, merged, sm_scale=None):
+    """``(o, lse)``: the ``flash_fwd_merged_sm90`` kernel (bf16, head dims
+    64 and 128; others raise) over ``merged.slots()`` for CUDA tensors, the
+    plain version for CPU ones."""
+    return _fwd("flash_fwd_merged_sm90", q, k, v, merged.causal, sm_scale, merged,
+                sched=lambda: merged_sched(merged, q.device))
+
+
+def merged_sched(merged, device):
+    """The ``_MergedSched`` of ``merged.slots()`` on ``device`` (the arrays
+    cached on ``merged``)."""
+    tmap, tmask, tlen = merged.sched_tensors(device)
+    return _MergedSched(tmap.data_ptr(), tmask.data_ptr(), tlen.data_ptr(), tmap.shape[-1],
+                        merged.heads, merged.cell_shift)
+
+
+def flash_fwd_banded_sm90_schedule(band):
+    """The schedule of ``flash_fwd_banded_sm90`` in Python, as the kernel
+    computes it from ``band.param_sm90()``, for one (b, h): its 128-row q
+    tiles in the order of the kernel's work items (as
+    :func:`flash_fwd_sm90_schedule`), and per q tile at ``q0`` (first
+    layout row ``r0``) its visits in the kernel's order, the last first:
+    the 128-key tiles of ``gtiles_sm90`` below the band's first tile
+    ``floor(max(r0 - W + 1, 0) * block / 128)``, then the band's tiles up to
+    the one holding ``q0 + 127`` (and below T).  Per visit and 64-row half
+    (one per consumer warpgroup) whether it takes the element mask: the
+    tile crosses T or the half's diagonal, or a 16-key chunk of it lies in
+    a non-global layout column below the band of the half's last row.
+    Returns ``[(q0, [(k0, (masked_half0, masked_half1)), ...]), ...]``."""
+    bq = bn = SM90_BLOCK_N
+    T, lb, W = band.T, band.block, band.W
+    nq, nk = -(-T // bq), -(-T // bn)
+    glob = set(band.kernel_gcols)
+
+    def masked(k0, qw):
+        r_last = (qw + 63) // lb
+        edge = any(r_last - c >= W and not (c < MAX_LAYOUT_COLS and c in glob)
+                   for c in ((k0 + 16 * u) // lb for u in range(bn // 16)))
+        return k0 + bn > T or k0 + bn - 1 > qw or edge
+
+    out = []
+    for y in range(nq):
+        q0 = (nq - 1 - y) * bq
+        lo = max(q0 // lb - W + 1, 0) * lb // bn
+        hi = min((q0 + bq - 1) // bn, nk - 1)
+        tiles = [int(t) for t in band.gtiles_sm90 if t < lo] + list(range(lo, hi + 1))
+        out.append((q0, [(t * bn, tuple(masked(t * bn, q0 + 64 * c) for c in range(2)))
+                         for t in reversed(tiles)]))
+    return out
+
+
+def flash_fwd_merged_sm90_schedule(merged, h=0):
+    """The schedule of ``flash_fwd_merged_sm90`` in Python, as the kernel
+    runs it over ``merged.slots()`` for head ``h``: its 128-row q
+    tiles (merged rows) in the order of the kernel's work items (as
+    :func:`flash_fwd_sm90_schedule`), and per q tile its row's slots in
+    the kernel's order, the last first, each ``(k0, (half0, half1))``: a
+    half is None where its masks are all 0 (the consumer skips both
+    products), else ``(masked, masks)`` with its mask per 64-key subtile and
+    whether it takes the element mask (a mask is not -1, or the tile
+    crosses T or, when causal, the half's diagonal)."""
+    tmap, tmask, tlen = merged.slots()
+    l = h if merged.heads > 1 else 0
+    T, bq, bn = merged.T, SM90_BLOCK_Q, SM90_BLOCK_N
+    nq = -(-T // bq)
+    out = []
+    for y in range(nq):
+        q0 = (nq - 1 - y) * bq
+        r = q0 // bq
+        visits = []
+        for j in reversed(range(int(tlen[l, r]))):
+            k0 = int(tmap[l, r, j]) * bn
+            halves = []
+            for c in range(2):
+                ms = tuple(int(x) for x in tmask[l, r, j, c])
+                qw = q0 + 64 * c
+                halves.append(None if not any(ms) else (
+                    any(m != -1 for m in ms) or k0 + bn > T
+                    or (merged.causal and k0 + bn - 1 > qw), ms))
+            visits.append((k0, tuple(halves)))
+        out.append((q0, visits))
+    return out
 
 
 def _bwd_args(name, q, k, v, do, lse, delta, kbias=None, abias=None):
@@ -1491,8 +1708,10 @@ class _FlashAttentionWithLse(torch.autograd.Function):
 
 class _MaskedFlashAttention(torch.autograd.Function):
     """The biased (``lut is None``) and block-sparse paths.  The forward:
-    ``sched`` a :class:`BandLut` takes ``flash_fwd_banded``, a
-    :class:`MergedLut` ``flash_fwd_merged``; else the LUT forward takes the
+    ``sched`` a :class:`BandLut` takes :func:`flash_fwd_banded`, a
+    :class:`MergedLut` :func:`flash_fwd_merged` (their sm90 instances, or
+    the templates, by :func:`banded_fwd_kernel` / :func:`merged_fwd_kernel`);
+    else the LUT forward takes the
     kernel :func:`sparse_fwd_kernel` names (``flash_fwd_lut_sm90``, or the
     templates ``flash_fwd_lut_ring`` and ``flash_fwd_lut``), and the dense
     biased one the kernel :func:`biased_fwd_kernel` names (the key-bias

@@ -38,7 +38,7 @@ from deepspeed_tpu_torch.ops.transformer import flash_attention as fa  # noqa: E
 
 SOURCE = builder.CSRC / "flash_attention_fwd_sm90.cu"
 OUT = builder.BUILD_DIR / "sm90_split"
-S_PRODUCT = "#pragma unroll\n      for (int kk = 0; kk < D / 16; ++kk) {"
+S_PRODUCT = "#pragma unroll\n        for (int kk = 0; kk < D / 16; ++kk) {"
 PV_PRODUCT = ("#pragma unroll\n      for (int x = 0; x < kBoxes; ++x)\n#pragma unroll\n"
               "        for (int kk = 0; kk < kBN / 16; ++kk)\n          wgmma_rs_n64_tb")
 COMMIT = "      wgmma_commit();"
@@ -66,7 +66,7 @@ def no_softmax(t):
 
 
 def no_products(t):
-    t = cut(t, S_PRODUCT, COMMIT, "#pragma unroll\n      for (int e = 0; e < kBN / 2; ++e) "
+    t = cut(t, S_PRODUCT, COMMIT, "#pragma unroll\n        for (int e = 0; e < kBN / 2; ++e) "
             "sc[e] = __int_as_float(0x3f800000 + (e << 16) + lane);\n")
     return cut(t, PV_PRODUCT, COMMIT, "#pragma unroll\n      for (int x = 0; x < kBoxes; ++x) "
                "o[x][0] += __uint_as_float(pa[0][0] & 0x3fffffff) * 1e-30f;\n")

@@ -507,15 +507,15 @@ LUT_BWD = ["flash_bwd_dkdv_lut_sm90", "flash_bwd_dq_lut_sm90"]
 
 
 @pytest.mark.parametrize("layout,causal,merge,bias,fwd,bwd", [
-    ("band", True, 1, False, ["flash_fwd_banded"], LUT_BWD),
+    ("band", True, 1, False, ["flash_fwd_banded_sm90"], LUT_BWD),
     ("band", False, 1, False, ["flash_fwd_lut_sm90"], LUT_BWD),
     ("band-per-head", True, 1, False, ["flash_fwd_lut_sm90"], LUT_BWD),
-    ("band", True, 2, False, ["flash_fwd_merged"], LUT_BWD),
+    ("band", True, 2, False, ["flash_fwd_merged_sm90"], LUT_BWD),
     ("band", True, 1, True, ["flash_fwd_lut_sm90"], LUT_BWD),
     ("fixed", True, 1, False, ["flash_fwd_lut_sm90"], LUT_BWD),
-    ("fixed", True, 2, False, ["flash_fwd_merged"], LUT_BWD),
+    ("fixed", True, 2, False, ["flash_fwd_merged_sm90"], LUT_BWD),
     ("all-ones", True, 1, False, ["flash_fwd_sm90"], ["flash_bwd_dkdv_sm90", "flash_bwd_dq_sm90"]),
-    ("all-ones", True, 2, False, ["flash_fwd_merged"], LUT_BWD),
+    ("all-ones", True, 2, False, ["flash_fwd_merged_sm90"], LUT_BWD),
     ("all-ones", True, 1, True, ["flash_fwd_sm90"],
      ["flash_bwd_dkdv_sm90", "flash_bwd_dq_sm90"]),
 ])
@@ -535,14 +535,15 @@ def test_routes(monkeypatch, layout, causal, merge, bias, fwd, bwd):
     assert fa.launches == {name: 0 for name in fa.KERNELS}
 
 
-@pytest.mark.parametrize("dtype,d", [(torch.float32, 64), (torch.bfloat16, 96),
-                                     (torch.bfloat16, 128)])
-def test_routes_keep_the_template_dkdv_off_the_sm90_dtypes(monkeypatch, dtype, d):
+@pytest.mark.parametrize("dtype,d,banded", [(torch.float32, 64, "flash_fwd_banded"),
+                                            (torch.bfloat16, 96, "flash_fwd_banded"),
+                                            (torch.bfloat16, 128, "flash_fwd_banded_sm90")])
+def test_routes_keep_the_template_dkdv_off_the_sm90_dtypes(monkeypatch, dtype, d, banded):
     """fp32, and bf16 at head dims 96 and 128, keep the template LUT dK/dV
     and dQ under every forward route."""
     band = _longformer(16, 256, 5, [0, 3])
     fwd, bwd = _routes(monkeypatch, band, dtype=dtype, d=d)
-    assert (fwd, bwd) == (["flash_fwd_banded"], ["flash_bwd_dkdv_lut", "flash_bwd_dq_lut"])
+    assert (fwd, bwd) == ([banded], ["flash_bwd_dkdv_lut", "flash_bwd_dq_lut"])
     assert _routes(monkeypatch, band, merge=2, dtype=dtype, d=d)[1] == bwd
     assert fa.launches == {name: 0 for name in fa.KERNELS}
 

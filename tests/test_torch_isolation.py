@@ -35,7 +35,7 @@ def _imports(path: Path):
 # scripts beside chip_smoke.py that drive the port's kernels on a card
 PORT_EXAMPLES = ("flash_fwd_sm90_split.py", "int8_decode_check.py", "int8_prefill_check.py",
                  "sparse_dkdv_check.py", "dense_bwd_check.py", "sparse_fwd_check.py",
-                 "biased_dkdv_seeds.py", "paged_exact_split.py")
+                 "biased_dkdv_seeds.py", "paged_exact_split.py", "band_merge_check.py")
 
 
 def _sources():

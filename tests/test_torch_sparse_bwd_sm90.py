@@ -413,8 +413,9 @@ def test_dkdv_routes(monkeypatch, dtype, d, kbias, abias, want):
 
 
 @pytest.mark.parametrize("name,causal,merge,fwd", [
-    ("tutorial16", False, 1, "flash_fwd_lut_sm90"), ("longformer16", True, 1, "flash_fwd_banded"),
-    ("longformer16", True, 2, "flash_fwd_merged")])
+    ("tutorial16", False, 1, "flash_fwd_lut_sm90"),
+    ("longformer16", True, 1, "flash_fwd_banded_sm90"),
+    ("longformer16", True, 2, "flash_fwd_merged_sm90")])
 def test_sparse_path_backward_takes_the_sm90_kernel(monkeypatch, name, causal, merge, fwd):
     """``sparse_flash_attention(...).backward()`` in bf16 at head dim 64
     launches the forward of its route, then the sm90 dK/dV and the sm90 dQ,
