@@ -57,10 +57,20 @@ JAX package ``deepspeed_tpu``):
 3. serving: GPT-2 125M at full width (bf16, random weights from
    ``init_numpy(seed=0)``) answers 16 greedy requests with 16-bit and with
    int8 KV (both on ``paged_attention_online_sm90``), and in exact mode
-   (``paged_attention_exact_sm90``); every outcome must be OK, every block
-   recycled, and the kernel's launch count equal decode steps x 12 (every
-   other paged kernel 0); one decode step's logits through the kernels are
-   held against the ``gather`` path;
+   (``paged_attention_exact_sm90``), each step a CUDA graph (the model's
+   ``decode_impl`` "fused", the default: the decode step one graph, each
+   prefill bucket one); every outcome must be OK, every block recycled,
+   and the kernel's launch count equal (decode replays + decode warm-ups)
+   x 12 (every other paged kernel 0); then the kv16 traffic through both
+   decode impls (``ab_serve``: "fused" and "unroll", the same step bodies
+   run eagerly), each with its launches checked (eager: decode steps x
+   12), its greedy streams identical to the captured serve's request by
+   request, three timed passes (tokens/s, decode step p50/p99, TTFT p50,
+   every bucket captured by then, each with its readings and spread), its
+   graphs and the memory of their pool, and a profiled decode step (wall,
+   busy and idle shares), then one decode step of each on the same seated
+   state (max |delta logits|); one decode step's logits through the
+   kernels are held against the ``gather`` path;
 4. timing: each paged kernel, its plain version and a library yardstick
    (``scaled_dot_product_attention`` over pre-gathered K/V, which the port
    never calls) with CUDA events at the phase-3 shape, beside the least
@@ -196,20 +206,26 @@ JAX package ``deepspeed_tpu``):
     heads, vocab 50257), weights drawn on the card from a seeded generator
     with ``init_numpy``'s distributions, through
     ``deepspeed_tpu_torch.init_inference(model, params=..., dtype=torch.int8)``
-    -> ``ServingEngine(engine=...)`` with phase 3's traffic: every outcome OK,
-    every block recycled, ``int8_mm_nt_decode`` launched decode steps x 96
-    times, ``int8_mm_nt_prefill`` prefills x 96, the tiled ``int8_mm_nt``
-    never, ``int8_mm_t`` decode steps times and ``int8_mm_t_prefill``
-    prefills times (the head), the int8
+    -> ``ServingEngine(engine=...)`` with phase 3's traffic on the captured
+    steps: every outcome OK, every block recycled, ``int8_mm_nt_decode``
+    launched decode runs x 96 times, ``int8_mm_nt_prefill`` prefill runs x
+    96, the tiled ``int8_mm_nt`` never, ``int8_mm_t`` decode runs times and
+    ``int8_mm_t_prefill`` prefill runs times (the head), a run being a
+    graph's replay or warm-up; then phase 3's ``ab_serve`` on this
+    traffic (both decode impls: launches, identical streams, timed
+    passes, graphs, profiles, one step's logits); the int8
     tree at most 0.55x the bf16 tree's bytes; the oracle serves the same
     int8 values dequantized to bf16: its greedy choice on the int8 streams'
     contexts agrees on at least 0.9 of the tokens, one decode step's logits
-    within 0.25; ``InferenceEngine.generate`` at int8 (B=4, T=64, +16)
-    against the serving streams (the same launch counts); a
+    within 0.25; ``InferenceEngine.generate`` at int8 (B=4, T=64, +16; its
+    token step captured, 15 replays and a warm-up) against the serving
+    streams (launches per token-step run as per decode step), then three
+    calls on each decode impl, the tokens identical; a
     ``torch.profiler`` breakdown of a decode step of each, with the int8
     products' device time per step, and of a prefill of 272 tokens (the
-    mean prompt), with the int8 products' device time per prefill (the
-    block products and the head);
+    mean prompt, its own bucket), captured and eager, with the int8
+    products' device time per captured prefill (the block products and
+    the head);
 12. the int8 kernels at 1.3B's weights, decode (M = 8) and prefill (M =
     272 and 512): each held against its plain version, then timed beside its
     bound, its plain version, ``torch.matmul`` over the dequantized bf16
@@ -279,12 +295,14 @@ Any failure raises and the script exits non-zero without that line; with no
 CUDA device it exits 2.
 """
 
+import gc
 import itertools
 import json
 import math
 import os
 import platform
 import re
+import statistics
 import subprocess
 import sys
 import time
@@ -304,6 +322,7 @@ from deepspeed_tpu_torch.ops.sparse_attention import (
     SparseSelfAttention, build_sparsity_config, extend_position_embedding,
     replace_model_self_attention)
 from deepspeed_tpu_torch.module_inject.module_quantize import dequantize_tree
+from deepspeed_tpu_torch.monitor.histogram import LogHistogram
 from deepspeed_tpu_torch.ops.transformer import flash_attention as fa
 from deepspeed_tpu_torch.ops.transformer import int8_matmul as im
 from deepspeed_tpu_torch.ops.transformer import paged_attention as pa
@@ -836,21 +855,61 @@ def check_flash_grad(dev, gen, B=2, T=256, H=4, d=64):
 
 
 def serve(engine, prompts, new, tag, kv_bits, mode):
-    """Phase 3 (and 11) run: serve ``prompts`` greedily with counts reset
-    just before and read just after; checks outcomes, tokens, recycling,
-    paged-attention launches == decode steps x layers and, for an int8
-    engine, ``int8_mm_nt_decode`` == steps x 4 x layers,
-    ``int8_mm_nt_prefill`` == prefills x 4 x layers, the tiled ``int8_mm_nt``
-    0, ``int8_mm_t`` == steps and ``int8_mm_t_prefill`` == prefills (all 0
-    for a float engine).
-    Returns (server, paged launches by kernel, tokens)."""
+    """Phase 3 (and 11) run: a warm-up serve, then ``prompts`` served
+    greedily by a fresh server through :func:`run_checked`.  Returns
+    (server, paged launches by kernel, tokens)."""
     c = engine.module.config
     c.paged_attention_mode = mode
     cfg = ServingConfig(batch_slots=8, block_size=16, kv_bits=kv_bits,
                         max_new_tokens=new)
     ServingEngine(engine=engine, config=cfg).run(
         [Request(tokens=prompts[0][:40], max_new_tokens=4)])   # warm-up
-    srv = ServingEngine(engine=engine, config=cfg)
+    return run_checked(ServingEngine(engine=engine, config=cfg), engine, prompts, new, tag,
+                       mode)
+
+
+def step_runs(srv, prefills):
+    """(decode steps, prefills) that launched kernels in ``srv``'s runs:
+    each graph's replays plus its warm-ups when the steps are captured
+    (``decode_impl`` fused), the steps and prefills themselves when eager."""
+    st = srv.stats()
+    g = st["graphs"]
+    if g["decode_impl"] == "fused":
+        return (g["decode_replays"] + g["decode_warmups"],
+                g["prefill_replays"] + g["prefill_warmups"])
+    return st["decode_steps"], prefills
+
+
+def graph_pool_mb(srv):
+    """MB of the caching allocator's segments in ``srv``'s graph pool
+    (``torch.cuda.memory_snapshot``), or None with no pool."""
+    pool = srv._graphs
+    if pool is None:
+        return None
+    return sum(seg["total_size"] for seg in torch.cuda.memory_snapshot()
+               if tuple(seg.get("segment_pool_id", ())) == tuple(pool.handle)) / 1e6
+
+
+def graphs_line(srv):
+    g = srv.stats()["graphs"]
+    mb = graph_pool_mb(srv)
+    return (f"decode_impl {g['decode_impl']}: {g['graphs']} graphs ({g['captures']} captures; "
+            f"decode warm-ups {g['decode_warmups']}, replays {g['decode_replays']}; prefill "
+            f"warm-ups {g['prefill_warmups']}, replays {g['prefill_replays']}), graph pool "
+            + ("none" if mb is None else f"{mb:.1f} MB"))
+
+
+def run_checked(srv, engine, prompts, new, tag, mode):
+    """Serve ``prompts`` greedily on ``srv`` with counts reset just before
+    and read just after; checks outcomes, tokens, recycling, paged-attention
+    launches == decode runs x layers and, for an int8 engine,
+    ``int8_mm_nt_decode`` == decode runs x 4 x layers, ``int8_mm_nt_prefill``
+    == prefill runs x 4 x layers, the tiled ``int8_mm_nt`` 0, ``int8_mm_t``
+    == decode runs and ``int8_mm_t_prefill`` == prefill runs (all 0 for a
+    float engine), a run being a replay or a warm-up of the step's graph, or
+    an eager step (:func:`step_runs`).
+    Returns (server, paged launches by kernel, tokens)."""
+    c = engine.module.config
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     resident = torch.cuda.memory_allocated()
@@ -864,26 +923,27 @@ def serve(engine, prompts, new, tag, kv_bits, mode):
     int8_counts = dict(im.launches)
     st = srv.stats()
     steps = st["decode_steps"]
+    runs, pre = step_runs(srv, len(prompts))
     want = pa.KERNELS["exact" if mode == "exact" else "online"]
     for name, n in counts.items():
-        expect = steps * c.n_layer if name == want else 0
+        expect = runs * c.n_layer if name == want else 0
         if n != expect:
             raise AssertionError(f"{tag}: {name} launched {n} times, "
-                                 f"expected {expect} ({steps} steps)")
+                                 f"expected {expect} ({runs} decode runs)")
     # int8: the block products of each decode step (8 rows) on the decode kernel, of each
     # prefill (a prompt of 32 rows or more) on the prefill kernel, none on the tiled one;
     # the head once per step (int8_mm_t) or prefill (int8_mm_t_prefill).  A float engine
     # launches none.
     q = int(engine.quantized)
-    for name, expect in (("int8_mm_nt_decode", q * steps * 4 * c.n_layer),
-                         ("int8_mm_nt_prefill", q * len(prompts) * 4 * c.n_layer),
+    for name, expect in (("int8_mm_nt_decode", q * runs * 4 * c.n_layer),
+                         ("int8_mm_nt_prefill", q * pre * 4 * c.n_layer),
                          ("int8_mm_nt", 0),
-                         ("int8_mm_t", q * steps),
-                         ("int8_mm_t_prefill", q * len(prompts))):
+                         ("int8_mm_t", q * runs),
+                         ("int8_mm_t_prefill", q * pre)):
         if int8_counts[name] != expect:
             raise AssertionError(f"{tag}: {name} launched {int8_counts[name]} times, "
-                                 f"expected {expect} ({steps} steps, {len(prompts)} "
-                                 f"prefills)")
+                                 f"expected {expect} ({runs} decode runs, {pre} prefill "
+                                 f"runs)")
     for uid in range(len(prompts)):
         r = res[uid]
         if r["outcome"] != OK or len(r["tokens"]) != new:
@@ -893,23 +953,95 @@ def serve(engine, prompts, new, tag, kv_bits, mode):
     if srv.allocator.free_blocks != srv.num_blocks - 1:
         raise AssertionError(f"{tag}: {srv.allocator.free_blocks} free of "
                              f"{srv.num_blocks - 1}: blocks leaked")
-    int8_line = (f"int8_mm_nt_decode {int8_counts['int8_mm_nt_decode']} = steps x "
+    int8_line = (f"int8_mm_nt_decode {int8_counts['int8_mm_nt_decode']} = decode runs x "
                  f"{4 * c.n_layer}, int8_mm_nt_prefill {int8_counts['int8_mm_nt_prefill']} = "
-                 f"prefills x {4 * c.n_layer}, int8_mm_nt {int8_counts['int8_mm_nt']}, "
-                 f"int8_mm_t {int8_counts['int8_mm_t']} = steps, int8_mm_t_prefill "
-                 f"{int8_counts['int8_mm_t_prefill']} = prefills; "
+                 f"prefill runs x {4 * c.n_layer}, int8_mm_nt {int8_counts['int8_mm_nt']}, "
+                 f"int8_mm_t {int8_counts['int8_mm_t']} = decode runs, int8_mm_t_prefill "
+                 f"{int8_counts['int8_mm_t_prefill']} = prefill runs; "
                  if engine.quantized else "")
     others = ", ".join(f"{name} {n}" for name, n in counts.items() if name != want)
-    print(f"serve {tag}: {len(prompts)} requests OK, {steps} decode steps, "
-          f"{want} launches {counts[want]} = steps x {c.n_layer} ({others}); {int8_line}"
+    print(f"serve {tag}: {len(prompts)} requests OK, {steps} decode steps, {runs} decode "
+          f"runs, {pre} prefill runs, {want} launches {counts[want]} = decode runs x "
+          f"{c.n_layer} ({others}); {int8_line}"
           f"{st['generated_tokens'] / wall:.1f} tokens/s, decode step p50 "
           f"{st['step_ms']['p50']:.3f} ms p99 {st['step_ms']['p99']:.3f} ms, "
-          f"TTFT p50 {st['ttft_ms']['p50']:.1f} ms, wall {wall:.2f} s, "
+          f"TTFT p50 {st['ttft_ms']['p50']:.1f} ms, wall {wall:.2f} s (captures included), "
           f"pool {pk.pool_bytes(srv.pool) / 1e6:.1f} MB, peak device memory "
           f"{torch.cuda.max_memory_allocated() / 1e6:.1f} MB (resident before the run "
-          f"{resident / 1e6:.1f} MB)")
+          f"{resident / 1e6:.1f} MB); {graphs_line(srv)}")
     srv.int8_launches = int8_counts
     return srv, counts, {uid: res[uid]["tokens"] for uid in res}
+
+
+AB_PASSES = 3   # timed passes of each decode impl
+
+
+def ab_serve(engine, prompts, new, tag, kv_bits, fused_tokens):
+    """The same traffic through both decode impls, "fused" (each step a
+    CUDA graph) and "unroll" (the same step bodies, eager).  For each: a
+    first pass through :func:`run_checked` (launches, outcomes, recycling;
+    every prefill bucket captured), whose streams must equal
+    ``fused_tokens`` request by request; AB_PASSES timed passes (tokens/s,
+    decode step p50/p99, TTFT p50); its graphs and their pool; one decode
+    step profiled.  Then one decode step of each on the same seated state:
+    max |delta logits| and the argmax.  Returns {impl: [(tokens/s, p50,
+    p99, TTFT p50), ...]}."""
+    c = engine.module.config
+    cfg = ServingConfig(batch_slots=8, block_size=16, kv_bits=kv_bits, max_new_tokens=new)
+    readings, logits = {}, {}
+    try:
+        for impl in ("fused", "unroll"):
+            c.decode_impl = impl
+            srv, _, toks = run_checked(ServingEngine(engine=engine, config=cfg), engine,
+                                       prompts, new, f"{tag} {impl}", "auto")
+            diff = [u for u in fused_tokens if toks[u] != fused_tokens[u]]
+            if diff:
+                raise AssertionError(f"{tag} {impl}: streams differ from the captured serve's "
+                                     f"for uids {diff}")
+            rows = []
+            for r in range(AB_PASSES):
+                # each pass's own step and TTFT percentiles
+                srv._step_wall_hist, srv._ttft_hist = LogHistogram(), LogHistogram()
+                reqs = [Request(tokens=p, uid=1000 * (r + 1) + i) for i, p in enumerate(prompts)]
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                res = srv.run(reqs)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+                if not all(res[q.uid]["outcome"] == OK for q in reqs):
+                    raise AssertionError(f"{tag} {impl}: pass {r} not all OK")
+                st = srv.stats()
+                rows.append((len(prompts) * new / wall, st["step_ms"]["p50"],
+                             st["step_ms"]["p99"], st["ttft_ms"]["p50"]))
+            readings[impl] = rows
+            cols = list(zip(*rows))
+            print(f"ab {tag} {impl}: " + ", ".join(
+                f"{name} {statistics.median(col):.3f} (readings "
+                f"{', '.join(f'{x:.3f}' for x in col)}; spread {max(col) - min(col):.3f})"
+                for name, col in zip(("tokens/s", "decode step p50 ms", "decode step p99 ms",
+                                      "TTFT p50 ms"), cols))
+                  + f"; {graphs_line(srv)}")
+            for i, p in enumerate(prompts[:8]):
+                srv.submit(Request(tokens=p, uid=10 ** 6 + i))
+            profile_steps(srv.step, f"{tag} {impl}")
+            del srv
+            # one decode step on the same seated state
+            one = ServingEngine(engine=engine, config=cfg)
+            seat(one, prompts[::2])
+            with torch.no_grad():
+                logits[impl] = one._decode_graph()(toks=one._toks, tables=one._tables,
+                                                   lengths=one._lengths)[0].clone()
+            del one
+            gc.collect()
+    finally:
+        c.decode_impl = "auto"
+    err = (logits["fused"] - logits["unroll"]).abs().max().item()
+    agree = (logits["fused"].argmax(-1) == logits["unroll"].argmax(-1)).sum().item()
+    print(f"ab {tag}: one decode step, captured vs eager: max |delta logits| {err:.3e}, "
+          f"argmax agree {agree}/{logits['fused'].shape[0]}")
+    if not torch.isfinite(logits["fused"]).all():
+        raise AssertionError(f"{tag}: captured decode logits not finite")
+    return readings
 
 
 def seat(srv, prompts):
@@ -2198,6 +2330,8 @@ def int8_serving(dev, card, prompts, preset="gpt2-1.3b", new=32):
     srv, _, toks_q = serve(engine, prompts, new, f"{preset} int8w kv16", 16, "auto")
     launches = dict(srv.int8_launches)
     del srv
+    ab_serve(engine, prompts, new, f"{preset} int8w", 16, toks_q)
+    gc.collect()
     torch.cuda.empty_cache()
     oracle = InferenceEngine(GPT2(preset=preset, dtype=torch.bfloat16, device=dev),
                              params=dequantize_tree(engine.params, torch.bfloat16))
@@ -2243,11 +2377,32 @@ def int8_serving(dev, card, prompts, preset="gpt2-1.3b", new=32):
     im.reset_launches()
     gen_out = engine.generate(np.stack(gp), max_new_tokens=16).cpu().numpy()[:, 64:]
     gen_launches = dict(im.launches)
-    # one prefill of 4 x 64 rows, 15 decode steps of 4 rows, the head each time
+    token_step = engine._token_steps[(4, 80, False)][0]
+    runs = token_step.replays + token_step.warmups      # 15 replays + its warm-up
+    # one eager prefill of 4 x 64 rows, the token step's runs of 4 rows, the head each time
     if gen_launches != {"int8_mm_nt_prefill": 4 * c.n_layer, "int8_mm_nt": 0,
-                        "int8_mm_nt_decode": 15 * 4 * c.n_layer, "int8_mm_t": 15,
-                        "int8_mm_t_prefill": 1}:
-        raise AssertionError(f"generate launches {gen_launches}")
+                        "int8_mm_nt_decode": runs * 4 * c.n_layer, "int8_mm_t": runs,
+                        "int8_mm_t_prefill": 1} or token_step.replays != 15:
+        raise AssertionError(f"generate launches {gen_launches} ({runs} token-step runs)")
+    # generate's two paths: the captured token step (three calls after the one that
+    # captured it) and the eager loop, the same tokens
+    gen_ms = {}
+    for impl in ("fused", "unroll"):
+        c.decode_impl = impl
+        walls = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = engine.generate(np.stack(gp), max_new_tokens=16).cpu().numpy()[:, 64:]
+            walls.append((time.perf_counter() - t0) * 1e3)
+            if not np.array_equal(out, gen_out):
+                raise AssertionError(f"generate {impl}: tokens differ from the captured run's")
+        gen_ms[impl] = walls
+    c.decode_impl = "auto"
+    print("generate B=4 T=64 +16, wall ms per call (prefill + 15 token steps; tokens "
+          "identical on both paths): " + "; ".join(
+              f"{impl} {statistics.median(w):.2f} (readings {', '.join(f'{x:.2f}' for x in w)}"
+              f"; spread {max(w) - min(w):.2f})" for impl, w in gen_ms.items()))
     sres = ServingEngine(engine=engine, config=cfg).run(
         [Request(tokens=p, uid=i, max_new_tokens=16) for i, p in enumerate(gp)])
     streams = [sres[i]["tokens"] for i in range(4)]
@@ -2269,20 +2424,27 @@ def int8_serving(dev, card, prompts, preset="gpt2-1.3b", new=32):
     # and the tied head (int8_matmul.cu's kernel, transposed layout)
     int8_device_time(by_name, preset, "decode step", "int8_decode_kernel", "int8_mm_nt_decode",
                      "int8_mm_kernel", "int8_mm_t")
-    # one prefill of the mean prompt as ServingEngine._start runs it
-    srv_p = ServingEngine(engine=engine, config=cfg)
+    # one prefill of the mean prompt (a block multiple: its own bucket) as
+    # ServingEngine._start runs it, captured and eager
     T = INT8_PREFILL_T
-    toks = torch.as_tensor(np.random.default_rng(2).integers(0, c.vocab_size, (1, T)),
-                           device=dev)
-    params_p = srv_p._deq(engine.params)
+    toks = np.random.default_rng(2).integers(0, c.vocab_size, (1, T))
+    blocks = np.arange(1, 1 + T // cfg.block_size, dtype=np.int64)
+    for impl in ("fused", "unroll"):
+        c.decode_impl = impl
+        step = ServingEngine(engine=engine, config=cfg)._prefill_step(T)
 
-    def prefill():
-        with torch.no_grad():
-            srv_p.model.apply_with_cache(params_p, toks, srv_p.model.init_cache(1, T))
+        def prefill():
+            with torch.no_grad():
+                step(toks=toks, blocks=blocks, t_real=np.int64(T))
 
-    by_name = profile_steps(prefill, f"{preset} int8w prefill T={T}", steps=4, unit="prefill")
-    int8_device_time(by_name, preset, "prefill", "int8_prefill_kernel", "int8_mm_nt_prefill",
-                     "int8_t_prefill_kernel", "int8_mm_t_prefill")
+        by_name = profile_steps(prefill, f"{preset} int8w prefill T={T} {impl}", steps=4,
+                                unit="prefill")
+        if impl == "fused":
+            int8_device_time(by_name, preset, "prefill", "int8_prefill_kernel",
+                             "int8_mm_nt_prefill", "int8_t_prefill_kernel", "int8_mm_t_prefill")
+    c.decode_impl = "auto"
+    del step
+    gc.collect()
     prof_o = ServingEngine(engine=oracle, config=cfg)
     for i, p in enumerate(prompts[:8]):
         prof_o.submit(Request(tokens=p, uid=i))
@@ -3023,6 +3185,8 @@ def main():
     print(f"exact-kernel streams identical to online-kernel streams: "
           f"{same}/{len(prompts)}")
     model.config.paged_attention_mode = "auto"
+    # the captured steps (the default) against the same bodies run eagerly
+    ab_serve(engine, prompts, 32, "kv16", 16, toks16)
     # every other prompt: 8 slots at a mean length of about 270
     for tag, srv in (("kv16", srv16), ("kv8", srv8)):
         check_decode_logits(srv, tag, *seat(srv, prompts[::2]))

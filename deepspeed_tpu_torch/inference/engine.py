@@ -13,25 +13,39 @@ is wrapped in a ``QuantizedModel`` whose inner model computes in bf16
 ``resolve_decode_params``, so GPT-2's decode takes the int8 leaves
 itself.
 
-Deliberate differences: the token loop is a Python loop of eager steps
-(the JAX engine jits one ``lax.scan``); sampling draws token ``i`` of
-the continuation from a generator seeded by ``(seed, i)``
-(:func:`sample_seed`), so it is reproducible within the port but not
-bit-identical to JAX's ``fold_in(PRNGKey(seed), i)``; ``generate`` takes
-an int ``seed`` where JAX takes a PRNG key; without a quantization the
-engine's ``dtype`` is the model's compute dtype (JAX: the ``dtype``
-argument, None when not given).  Meshes, tensor parallelism, the compile
-cache, checkpoint loading and HF injection are not ported.
+``generate`` (JAX 232-330) makes the JAX engine's two dispatches: the
+prefill, then the token step.  With the model's ``decode_impl`` "fused"
+(the default) the token step is one CUDA graph (``runtime/step_graph.py``)
+over a static cache and token buffer, replayed ``max_new_tokens - 1``
+times: the greedy token feeds back on the device and the host reads
+nothing until the end; ``"unroll"`` keeps a Python loop of eager steps,
+and the CPU calls the token step's body directly.
+
+Deliberate differences: the JAX ``lax.scan`` over tokens becomes a graph
+replayed once a token; the prefill runs eagerly (one forward per call,
+JAX jits it too); sampling draws token ``i`` of the continuation from a
+generator seeded by ``(seed, i)`` (:func:`sample_seed`), after each
+replay from the step's static logits, so it is reproducible within the
+port but not bit-identical to JAX's ``fold_in(PRNGKey(seed), i)``;
+``generate`` takes an int ``seed`` where JAX takes a PRNG key; without a
+quantization the engine's ``dtype`` is the model's compute dtype (JAX:
+the ``dtype`` argument, None when not given).  Meshes, tensor
+parallelism, the compile cache, checkpoint loading and HF injection are
+not ported.
 """
 
+from collections import OrderedDict
 from typing import Optional
 
 import torch
 
 from ..module_inject.module_quantize import (QuantizedModel, is_quantized_leaf,
                                               quantize_param_tree, resolve_decode_params)
+from ..runtime.step_graph import GraphPool, StepGraph
 from ..utils.device import resolve_device
 from ..utils.logging import log_dist
+
+TOKEN_STEPS_CAP = 8     # live token-step graphs, least recently used out (JAX 198)
 
 _MASK64 = (1 << 64) - 1
 
@@ -109,6 +123,9 @@ class InferenceEngine:
         else:
             self.dtype = model.dtype
             self.params = _to(params, self.device, self.dtype)
+        self._graphs = None       # the token steps' GraphPool, made at first use
+        # (B, max_len, do_sample) → (StepGraph, its state), LRU-ordered
+        self._token_steps = OrderedDict()
         log_dist(f"InferenceEngine ready: device={self.device} "
                  f"dtype={self.dtype} quantized={self.quantized}", ranks=[0])
 
@@ -126,26 +143,87 @@ class InferenceEngine:
     @torch.no_grad()
     def generate(self, tokens, max_new_tokens: int = 32,
                  temperature: float = 1.0, do_sample: bool = False,
-                 top_k: Optional[int] = None, seed: int = 0):
-        """``tokens`` (B, T) int prompt → (B, T + max_new_tokens)."""
+                 top_k: Optional[int] = None, seed: int = 0,
+                 max_len: Optional[int] = None):
+        """``tokens`` (B, T) int prompt → (B, T + max_new_tokens).
+        ``max_len`` (the cache's length) defaults to ``T +
+        max_new_tokens`` and may not be smaller (JAX 252-253)."""
         model, deq = resolve_decode_params(self.module)
-        params = deq(self.params)           # once, outside the token loop
         tokens = torch.as_tensor(tokens, dtype=torch.long, device=self.device)
         B, T = tokens.shape
-        cache = model.init_cache(B, T + max_new_tokens)
+        total = T + max_new_tokens
+        max_len = max_len or total
+        if max_len < total:
+            raise ValueError(f"max_len {max_len} must cover prompt + new tokens "
+                             f"({T} + {max_new_tokens} = {total})")
+        if model.decode_impl() == "unroll":
+            return self._generate_unroll(model, deq(self.params), tokens,
+                                         max_new_tokens, temperature, do_sample,
+                                         top_k, seed, max_len)
+        step, st = self._token_step(model, deq, B, max_len, do_sample)
+        step.prepare()                      # its warm-up advances the cache: reset after
+        cache, seq = st["cache"], st["seq"]
+        for t in (cache["k"], cache["v"], cache["index"]):
+            t.zero_()
+        logits, _ = model.apply_with_cache(st["params"], tokens, cache)
+        seq[:, :T] = tokens
+        seq[:, T] = self._select(logits[:, -1], do_sample, temperature, top_k, seed, 0)
+        for i in range(1, max_new_tokens):
+            logits = step()
+            if do_sample:
+                seq[:, T + i] = sample_logits(logits, temperature, top_k, seed, i)
+        return seq[:, :total].clone()
+
+    def _token_step(self, model, deq, B, max_len, do_sample):
+        """The captured token step of ``(B, max_len, do_sample)`` and its
+        state (params, cache, the token sequence), built at first use."""
+        key = (B, max_len, bool(do_sample))
+        hit = self._token_steps.get(key)
+        if hit is not None:
+            self._token_steps.move_to_end(key)
+            return hit
+        if self._graphs is None and self.device.type == "cuda":
+            self._graphs = GraphPool(self.device)
+        st = {"params": deq(self.params),          # once, outside the token loop
+              "cache": model.init_cache(B, max_len),
+              "seq": torch.zeros((B, max_len), dtype=torch.long, device=self.device)}
+
+        def body():
+            """Feed ``seq[:, index]``, advance the cache; greedy: write the
+            argmax at ``seq[:, index + 1]``, sampled: return the logits."""
+            cache, seq = st["cache"], st["seq"]
+            tok = seq.index_select(1, cache["index"].reshape(1))
+            logits, _ = model.apply_with_cache(st["params"], tok, cache)
+            logits = logits[:, -1]
+            if not do_sample:
+                seq.index_copy_(1, cache["index"].reshape(1),
+                                torch.argmax(logits, dim=-1)[:, None])
+            return logits
+
+        step = StepGraph(f"generate.token[{B}x{max_len},{'sample' if do_sample else 'greedy'}]",
+                         body, {}, self.device, self._graphs)
+        while len(self._token_steps) >= TOKEN_STEPS_CAP:
+            self._token_steps.popitem(last=False)
+        self._token_steps[key] = (step, st)
+        return step, st
+
+    @staticmethod
+    def _select(logits, do_sample, temperature, top_k, seed, index):
+        if do_sample:
+            return sample_logits(logits, temperature, top_k, seed, index)
+        return torch.argmax(logits, dim=-1)
+
+    def _generate_unroll(self, model, params, tokens, max_new_tokens, temperature,
+                         do_sample, top_k, seed, max_len):
+        """``decode_impl="unroll"``: a Python loop of eager token steps."""
+        cache = model.init_cache(tokens.shape[0], max_len)
         logits, cache = model.apply_with_cache(params, tokens, cache)
-        last = logits[:, -1]
         out = []
         for i in range(max_new_tokens):
-            if do_sample:
-                nxt = sample_logits(last, temperature, top_k, seed, i)
-            else:
-                nxt = torch.argmax(last, dim=-1)
+            nxt = self._select(logits[:, -1], do_sample, temperature, top_k, seed, i)
             out.append(nxt)
             if i + 1 < max_new_tokens:
-                logits, cache = model.apply_with_cache(params, nxt[:, None],
-                                                       cache)
-                last = logits[:, -1]
+                logits, cache = model.apply_with_cache(params, nxt[:, None], cache)
         return torch.cat([tokens, torch.stack(out, dim=1)], dim=1)
 
 

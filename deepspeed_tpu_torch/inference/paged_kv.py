@@ -219,7 +219,9 @@ def gather_kv(pool, layer: int, block_tables, dtype):
 def write_prefill(pool, blocks, k, v):
     """Scatter a prefilled sequence's K/V into its blocks, in place.
 
-    ``blocks``: (nb,) block ids; ``k``/``v``: (L, T, H, hd) with
+    ``blocks``: (nb,) block ids, an integer tensor on the pool's device
+    (what a captured step takes: no host-to-device copy in the body) or,
+    outside a graph, a list; ``k``/``v``: (L, T, H, hd) with
     ``T == nb · block_size`` (rows past the prompt are masked by the
     slot's length at attention time)."""
     L, T, H, hd = k.shape
@@ -227,8 +229,11 @@ def write_prefill(pool, blocks, k, v):
     nb = T // bs
     if nb * bs != T:
         raise ValueError(f"prefill length {T} is not a multiple of {bs}")
-    blocks = torch.as_tensor(blocks, dtype=torch.long,
-                             device=pool["k"].device)
+    if not isinstance(blocks, torch.Tensor):
+        blocks = torch.as_tensor(blocks, dtype=torch.long, device=pool["k"].device)
+    elif blocks.device != pool["k"].device or blocks.is_floating_point():
+        raise ValueError(f"write_prefill block ids must be integers on "
+                         f"{pool['k'].device}, got {blocks.dtype} on {blocks.device}")
     if blocks.shape != (nb,):
         raise ValueError(
             f"write_prefill needs exactly T//block_size={nb} block ids, got "

@@ -8,10 +8,27 @@ finishes, returning its blocks.  Each step runs ONE paged decode for all
 slots (``GPT2.decode_step_paged``, whose attention is the CUDA
 paged-attention kernel on the card), samples, and joins/evicts.
 
+Each step is one executable, as JAX jits ``_build_decode`` (1156-1211)
+and ``_prefill_fn(bucket)`` (1213-1264): with the model's ``decode_impl``
+"fused" (the default) on the card, the W=1 decode step (embeddings, the
+layers, the head, the non-finite sentinel, the greedy token and the
+sentinel token forced into poisoned rows) is one CUDA graph over static
+``tables`` / ``lengths`` / ``toks`` buffers, the pool updated in place at
+fixed addresses, and each prefill bucket (``blocks_needed(T, block_size)
+· block_size`` tokens, the forward at ``min(bucket, max_seq)``, its K/V
+zero-padded to the bucket, the real last row's logits taken by a device
+index, the greedy first token and the sentinel inside) is one graph
+captured at its first use (``runtime/step_graph.py``).  Warm-up and
+capture run on tables whose every entry is the scratch block 0, so they
+write no seated request's blocks.  ``decode_impl="unroll"`` and the CPU
+call the same step bodies directly, op by op.
+
 Ported: ``ServingConfig`` (slots, block size, pool, kv_bits 8|16,
 quantizer block, max_new_tokens, top_k, eos, max_queue), ``Request``,
-``submit``, ``_admit``, ``_alloc_blocks``, ``_start`` (prefill),
-``step`` (the plain W=1 branch), ``_sample_tokens``, ``_finish``,
+``submit``, ``_admit``, ``_alloc_blocks``, ``_start`` (prefill) with
+``_prefill_fn``, ``step`` (the plain W=1 branch) with ``_build_decode``,
+``_sample_tokens`` (greedy in the step, sampled rows in
+``_draw_sampled``), ``_finish``,
 ``run``, ``pop_result``, ``results`` and ``stats()``; outcomes ``OK``
 and ``POISONED`` with the in-step non-finite sentinel (a slot whose
 logits are non-finite is evicted, its blocks scrubbed and returned,
@@ -19,15 +36,18 @@ while its neighbours' rows are untouched).
 
 Deliberate differences:
 
-- no bucket padding: eager PyTorch has no recompiles, so the prefill
-  runs the prompt's own length and zero-pads the K/V up to whole blocks
-  for ``write_prefill``;
-- the JAX layer scan becomes the model's Python layer loop;
+- the JAX layer scan becomes the model's Python layer loop, captured
+  whole into the step's graph;
 - sampling: token ``i`` of a request draws from a generator seeded by
   ``(request.seed, i)`` (``engine.sample_seed``) in place of
   ``fold_in(PRNGKey(seed), i)`` — still a pure function of the request,
-  whatever the arrival order or slot, but not JAX's bits;
-- ``stats()`` adds ``step_ms`` (decode-step wall p50/p99);
+  whatever the arrival order or slot, but not JAX's bits.  Sampled rows
+  are drawn after the replay from the step's static logits (a seeded
+  generator per row cannot be replayed); greedy rows never leave the
+  graph;
+- ``stats()`` adds ``step_ms`` (decode-step wall p50/p99) and ``graphs``
+  (the decode impl, graphs, captures, warm-ups, decode and prefill
+  replays);
 - int8 weights route through ``resolve_decode_params`` as in JAX
   (560-569): ``self.model`` is the inner model and the pool takes its
   compute dtype (JAX 576), since a quantized engine's ``dtype`` is None;
@@ -50,6 +70,7 @@ from .engine import InferenceEngine, sample_logits
 from ..module_inject.module_quantize import resolve_decode_params
 from ..monitor.histogram import LogHistogram
 from ..runtime.health import rows_nonfinite
+from ..runtime.step_graph import GraphPool, StepGraph
 from ..utils.logging import log_dist, logger
 
 OK = "ok"                 # completed normally (length or eos)
@@ -176,6 +197,13 @@ class ServingEngine:
             kv_bits=config.kv_bits, quant_block=config.kv_quant_block,
             device=self.device)
         self.allocator = pk.BlockAllocator(self.num_blocks)
+        # "fused": every step one CUDA graph on the card; "unroll" and the CPU
+        # call the step bodies directly
+        self.decode_impl = inner.decode_impl()
+        self._graphs = (GraphPool(self.device) if self.decode_impl == "fused"
+                        and self.device.type == "cuda" else None)
+        self._decode_step: Optional[StepGraph] = None
+        self._prefills: Dict[int, StepGraph] = {}   # bucket → its prefill step
 
         S = config.batch_slots
         self._slots: List[Optional[_Slot]] = [None] * S
@@ -202,6 +230,7 @@ class ServingEngine:
             f"ServingEngine ready: slots={S} block_size={config.block_size} "
             f"blocks={self.num_blocks} (nb_max={self.nb_max}) "
             f"kv_bits={config.kv_bits} device={self.device} "
+            f"decode_impl={self.decode_impl} "
             f"pool={pk.pool_bytes(self.pool) / 1e6:.1f} MB", ranks=[0])
 
     # ------------------------------------------------------------ admission
@@ -273,29 +302,23 @@ class ServingEngine:
 
     @torch.no_grad()
     def _start(self, slot: int, req: Request, blocks: List[int]):
-        """Prefill one request (B=1, its own length), write its K/V into
-        its first blocks, and sample the first token."""
+        """Prefill one request through its bucket's step (JAX ``_start``:
+        the prompt zero-padded to ``blocks_needed(T) · block_size``
+        tokens), write its K/V into its first blocks, and sample the
+        first token."""
         c = self.config
-        model = self.model
         T = int(len(req.tokens))
-        nb_pre = pk.blocks_needed(T, c.block_size)
-        toks = torch.as_tensor(req.tokens, dtype=torch.long,
-                               device=self.device)[None]
-        cache = model.init_cache(1, T)
-        logits, cache = model.apply_with_cache(self._deq(self.engine.params), toks,
-                                               cache)
-        k, v = cache["k"][:, :, 0], cache["v"][:, :, 0]     # (L, T, H, hd)
-        pad = nb_pre * c.block_size - T
-        if pad:
-            k = torch.nn.functional.pad(k, (0, 0, 0, 0, 0, pad))
-            v = torch.nn.functional.pad(v, (0, 0, 0, 0, 0, pad))
-        pk.write_prefill(self.pool, blocks[:nb_pre], k, v)
-        row = logits[0, T - 1][None]
-        bad = rows_nonfinite(row)[0]
-        first = self._sample_tokens(row, [req.seed], [0], [req.temperature],
-                                    [req.do_sample])[0]
+        bucket = pk.blocks_needed(T, c.block_size) * c.block_size
+        toks = np.zeros((1, min(bucket, self.max_seq)), np.int64)
+        toks[0, :T] = req.tokens
+        row, first, bad = self._prefill_step(bucket)(
+            toks=toks, blocks=np.asarray(blocks[:bucket // c.block_size], np.int64),
+            t_real=np.int64(T))
+        if req.do_sample:
+            first = self._draw_sampled(row, first, bad,
+                                       [(0, req.seed, 0, req.temperature)])
         first, bad = (int(x) for x in torch.stack(
-            [first, bad.long()]).cpu())
+            [first[0], bad[0].long()]).cpu())
         if bad:
             # quarantined at prefill: never seated, blocks scrubbed and
             # returned, the sentinel token never surfaced
@@ -327,38 +350,92 @@ class ServingEngine:
         rec["t_done"] = time.monotonic()
         self._outcomes[outcome] += 1
 
-    # -------------------------------------------------------------- sampling
-    def _sample_tokens(self, logits, seeds, ngen, temps, flags):
-        """(B, V) fp32 → (B,) int64 on the device: greedy argmax, or for
-        flagged rows a draw keyed on ``(seed, token index)`` alone."""
-        out = torch.argmax(logits, dim=-1)
-        for i, flag in enumerate(flags):
-            if flag:
-                out[i] = sample_logits(logits[i], float(temps[i]),
-                                       self.config.top_k, int(seeds[i]),
-                                       int(ngen[i]))
-        return out
+    # ---------------------------------------------------------------- steps
+    def _prefill_step(self, bucket: int) -> StepGraph:
+        """The prefill of prompts padded to ``bucket`` tokens, one step
+        per bucket built at its first use (JAX ``_prefill_fn``).  Its
+        warm-up and capture write the scratch block only."""
+        step = self._prefills.get(bucket)
+        if step is None:
+            fwd_len = min(bucket, self.max_seq)
+            z = lambda *shape: torch.zeros(shape, dtype=torch.long)
+            step = self._prefills[bucket] = StepGraph(
+                f"serving.prefill[{bucket},kv{self.config.kv_bits}]",
+                lambda toks, blocks, t_real: self._prefill_body(bucket, toks, blocks,
+                                                                t_real),
+                {"toks": z(1, fwd_len), "blocks": z(bucket // self.config.block_size),
+                 "t_real": torch.tensor(fwd_len)},
+                self.device, self._graphs)
+        return step
+
+    def _prefill_body(self, bucket, toks, blocks, t_real):
+        """``toks`` (1, fwd_len) → ``(row (1, V) fp32, first (1,), bad
+        (1,))``: the forward at ``fwd_len = min(bucket, max_seq)`` tokens,
+        its K/V zero-padded to the bucket and scattered into ``blocks``,
+        the logits of row ``t_real - 1`` (a device index), the greedy
+        first token with the sentinel forced where they are non-finite."""
+        model = self.model
+        fwd_len = toks.shape[1]
+        cache = model.init_cache(1, fwd_len)
+        logits, cache = model.apply_with_cache(self._deq(self.engine.params), toks, cache)
+        k, v = cache["k"][:, :, 0], cache["v"][:, :, 0]     # (L, fwd_len, H, hd)
+        if fwd_len < bucket:
+            pad = (0, 0, 0, 0, 0, bucket - fwd_len)
+            k, v = torch.nn.functional.pad(k, pad), torch.nn.functional.pad(v, pad)
+        pk.write_prefill(self.pool, blocks, k, v)
+        row = logits[0].index_select(0, t_real.reshape(1) - 1)
+        bad = rows_nonfinite(row)
+        first = torch.argmax(row, dim=-1).masked_fill(bad, POISON_SENTINEL_TOKEN)
+        return row, first, bad
+
+    def _decode_graph(self) -> StepGraph:
+        """The W=1 decode step over static ``toks`` / ``tables`` /
+        ``lengths`` (JAX ``_build_decode``), built at first use; its
+        warm-up and capture run on all-scratch tables."""
+        if self._decode_step is None:
+            S, c = self.config.batch_slots, self.config
+            self._decode_step = StepGraph(
+                f"serving.decode[{S}x{self.nb_max}x{c.block_size},kv{c.kv_bits}]",
+                self._decode_body,
+                {"toks": torch.zeros((S,), dtype=torch.long),
+                 "tables": torch.zeros((S, self.nb_max), dtype=torch.int32),
+                 "lengths": torch.zeros((S,), dtype=torch.int32)},
+                self.device, self._graphs)
+        return self._decode_step
+
+    def _decode_body(self, toks, tables, lengths):
+        """One W=1 decode step for every slot (JAX ``step``, 1161-1178):
+        ``(logits (S, V) fp32, greedy tokens (S,), poisoned (S,))``, the
+        sentinel token forced into poisoned rows.  The pool is updated in
+        place."""
+        logits, _ = self.model.decode_step_paged(
+            self._deq(self.engine.params), toks, self.pool, tables, lengths)
+        poisoned = rows_nonfinite(logits)
+        nxt = torch.argmax(logits, dim=-1).masked_fill(poisoned, POISON_SENTINEL_TOKEN)
+        return logits, nxt, poisoned
+
+    def _draw_sampled(self, logits, nxt, bad, rows):
+        """``nxt`` with each sampled row ``(i, seed, index, temperature)``
+        drawn from ``logits[i]`` by the ``(seed, index)`` stream, the
+        sentinel kept where ``bad``; on the device, after the step."""
+        nxt = nxt.clone()
+        for i, seed, index, temp in rows:
+            nxt[i] = sample_logits(logits[i], float(temp), self.config.top_k,
+                                   int(seed), int(index))
+        return nxt.masked_fill(bad, POISON_SENTINEL_TOKEN)
 
     # ------------------------------------------------------------- scheduler
     @torch.no_grad()
     def _decode(self, active):
         """One decode step for every slot: ``(next tokens, poisoned)`` as
         host arrays.  The sentinel is computed on the device before the
-        host reads anything."""
-        dev = self.device
-        logits, self.pool = self.model.decode_step_paged(
-            self._deq(self.engine.params),
-            torch.as_tensor(self._toks, device=dev),
-            self.pool,
-            torch.as_tensor(self._tables, device=dev),
-            torch.as_tensor(self._lengths, device=dev))
-        poisoned = rows_nonfinite(logits)
-        flags = [bool(self._flags[i]) and i in active
-                 for i in range(len(self._slots))]
-        nxt = self._sample_tokens(logits, self._seeds, self._ngen,
-                                  self._temps, flags)
-        nxt = torch.where(poisoned, torch.full_like(nxt, POISON_SENTINEL_TOKEN),
-                          nxt)
+        host reads anything, and the host reads once."""
+        logits, nxt, poisoned = self._decode_graph()(
+            toks=self._toks, tables=self._tables, lengths=self._lengths)
+        sampled = [(i, self._seeds[i], self._ngen[i], self._temps[i])
+                   for i in active if self._flags[i]]
+        if sampled:
+            nxt = self._draw_sampled(logits, nxt, poisoned, sampled)
         host = torch.stack([nxt, poisoned.long()]).cpu().numpy()
         return host[0], host[1].astype(bool)
 
@@ -472,13 +549,24 @@ class ServingEngine:
 
     def stats(self) -> dict:
         """Counts plus p50/p99/p999 submit→done and submit→first-token
-        and decode-step wall (ms) over every completion."""
+        and decode-step wall (ms) over every completion, and the step
+        graphs' counters."""
         out = {"completed": self._completed_total,
                "pending": len(self.queue) + sum(
                    s is not None for s in self._slots),
                "decode_steps": self._steps,
                "generated_tokens": self._generated_total,
                "outcomes": dict(self._outcomes)}
+        dec = [self._decode_step] if self._decode_step is not None else []
+        pre = list(self._prefills.values())
+        out["graphs"] = {
+            "decode_impl": self.decode_impl,
+            "graphs": sum(s.captured for s in dec + pre),
+            "captures": sum(s.captures for s in dec + pre),
+            "decode_warmups": sum(s.warmups for s in dec),
+            "prefill_warmups": sum(s.warmups for s in pre),
+            "decode_replays": sum(s.replays for s in dec),
+            "prefill_replays": sum(s.replays for s in pre)}
         for name, h in (("latency_ms", self._lat_hist),
                         ("ttft_ms", self._ttft_hist),
                         ("step_ms", self._step_wall_hist)):

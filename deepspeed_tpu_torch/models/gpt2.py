@@ -7,10 +7,10 @@ Counterpart of ``deepspeed_tpu/models/gpt2.py``.  Ported: ``GPT2Config``,
 ``gpt2_block_forward``, ``GPT2.init_numpy``, ``apply``, ``loss``,
 ``_split_batch``, ``num_params``, ``flops_per_token``, ``init_cache`` +
 ``apply_with_cache`` (the ``fused`` seq-major cache path only — the
-serving prefill), ``_qkv``, ``_masked_attend``, ``_attend_cached``,
-``_ffn``, ``paged_attention_impl`` and ``decode_step_paged`` with its
-``kernel|gather`` switch.  GELU is the tanh approximation, as
-``jax.nn.gelu(approximate=True)``.
+serving prefill and generate's steps), ``_qkv``, ``_masked_attend``,
+``_attend_cached``, ``_ffn``, ``paged_attention_impl``, ``decode_impl``
+and ``decode_step_paged`` with its ``kernel|gather`` switch.  GELU is
+the tanh approximation, as ``jax.nn.gelu(approximate=True)``.
 
 Parameters are a dict of tensors with the JAX pytree's keys and shapes
 (``wte``, ``wpe``, ``blocks`` stacked over layers, ``lnf_*``) and the JAX
@@ -20,12 +20,15 @@ package's numpy parameters with no transpose.
 Deliberate differences:
 
 - the JAX ``lax.scan`` over stacked layers becomes a Python loop over
-  layers (CUDA graphs come later); ``unroll_layers`` is accepted and has
-  no effect.  The training forward ``unbind``\\ s each stacked leaf once
+  layers; ``unroll_layers`` is accepted and has no effect.  With
+  ``decode_impl`` "fused" (JAX's default) the serving and generate steps
+  capture the whole loop into one CUDA graph each
+  (``runtime/step_graph.py``); "unroll" runs the same loop eagerly, as
+  JAX keeps it for A/B runs; "legacy_scan" raises.  The training forward ``unbind``\\ s each stacked leaf once
   per call: indexing ``blocks[k][i]`` per layer would make autograd add
   up one zero tensor of the whole stack per layer;
-- the KV cache and the pool are updated in place (JAX threads new arrays
-  through donation);
+- the KV cache (its ``index`` too) and the pool are updated in place
+  (JAX threads new arrays through donation);
 - JAX clamps out-of-range gathers; the position clamp
   ``min(lengths + w, max_seq - 1)`` of ``decode_step_paged`` is explicit;
 - the tied head (:func:`tied_head`) keeps JAX's fp32 accumulation of the
@@ -92,6 +95,11 @@ class GPT2Config:
     loss_chunk: int = 0
     # accepted for config parity; the layer loop is always a Python loop
     unroll_layers: bool = False
+    # KV-cache decode steps (serving and generate): "fused" (each step one
+    # CUDA graph on the card, runtime/step_graph.py) | "unroll" (the same
+    # step bodies run eagerly, op by op: the A/B path) | "auto" (= "fused");
+    # JAX's "legacy_scan" raises NotImplementedError
+    decode_impl: str = "auto"
     # training attention: "auto" (flash for CUDA tensors unless attention
     # dropout is active, else jnp) | "flash" | "jnp"
     attention_impl: str = "auto"
@@ -371,7 +379,8 @@ class GPT2:
 
     def _attend_cached(self, q, cache_k, cache_v, index, seq_major=False):
         """Contiguous-cache attention: causal mask from the write
-        ``index``, then :meth:`_masked_attend`."""
+        ``index`` (an int or a 0-d device tensor), then
+        :meth:`_masked_attend`."""
         T = q.shape[1]
         S = cache_k.shape[0] if seq_major else cache_k.shape[1]
         q_pos = index + torch.arange(T, device=q.device)[:, None]
@@ -484,10 +493,26 @@ class GPT2:
         return 6 * self.num_params() + 12 * c.n_layer * c.n_embd * c.max_seq
 
     # ------------------------------------------------------- KV-cache decode
+    def decode_impl(self) -> str:
+        """Resolve ``config.decode_impl`` ("auto" → "fused"), as JAX's
+        ``decode_impl`` (gpt2.py:469-476); ``"legacy_scan"`` (JAX's
+        batch-major restacked cache) is not ported."""
+        impl = self.config.decode_impl
+        if impl == "auto":
+            impl = "fused"
+        if impl == "legacy_scan":
+            raise NotImplementedError("decode_impl='legacy_scan' is not ported "
+                                      "(fused and unroll are)")
+        if impl not in ("fused", "unroll"):
+            raise ValueError(f"decode_impl must be auto|fused|unroll|legacy_scan, "
+                             f"got {impl!r}")
+        return impl
+
     def init_cache(self, batch_size: int, max_len: Optional[int] = None,
                    dtype=None):
         """Empty seq-major cache ``{"k", "v": (L, S, B, H, hd), "index"}``
-        (the JAX ``fused`` layout; ``index`` is a host int)."""
+        (the JAX ``fused`` layout; ``index`` is a 0-d int64 tensor on the
+        model's device, as JAX keeps it on its device)."""
         c = self.config
         max_len = max_len or c.max_seq
         if max_len > c.max_seq:
@@ -497,19 +522,22 @@ class GPT2:
         dtype = dtype or self.dtype
         return {"k": torch.zeros(shape, dtype=dtype, device=self.device),
                 "v": torch.zeros(shape, dtype=dtype, device=self.device),
-                "index": 0}
+                "index": torch.zeros((), dtype=torch.long, device=self.device)}
 
     def apply_with_cache(self, params, tokens, cache):
         """Forward ``tokens`` (B, T) from ``cache["index"]``; returns
         ``(logits (B, T, V) fp32, cache)`` with the cache updated in
-        place and its index advanced by T."""
+        place and its index advanced by T in place.  The write positions
+        and the causal mask come from the device index (no host read, so
+        a captured step replays it); positions past the cache raise
+        (JAX clamps them)."""
         c = self.config
         B, T = tokens.shape
-        index = int(cache["index"])
-        if index + T > cache["k"].shape[1]:
+        if T > cache["k"].shape[1]:
             raise ValueError(f"cache of {cache['k'].shape[1]} positions "
-                             f"cannot take {T} tokens at index {index}")
-        pos = torch.arange(index, index + T, device=tokens.device)
+                             f"cannot take {T} tokens")
+        index = cache["index"]
+        pos = index + torch.arange(T, device=tokens.device)
         x = (q_gather(params["wte"], tokens, self.dtype)
              + q_gather(params["wpe"], pos, self.dtype))
         for i in range(c.n_layer):
@@ -517,13 +545,13 @@ class GPT2:
             h = _layer_norm(x, p["ln1_scale"], p["ln1_bias"], c.layer_norm_eps)
             q, k, v = self._qkv(p, h)
             ck, cv = cache["k"][i], cache["v"][i]          # (S, B, H, hd)
-            ck[index:index + T] = k.transpose(0, 1).to(ck.dtype)
-            cv[index:index + T] = v.transpose(0, 1).to(cv.dtype)
+            ck.index_copy_(0, pos, k.transpose(0, 1).to(ck.dtype))
+            cv.index_copy_(0, pos, v.transpose(0, 1).to(cv.dtype))
             attn = self._attend_cached(q, ck, cv, index, seq_major=True)
             x = self._ffn(p, x + self._mm(attn, p["proj_w"], p["proj_b"]))
         x = _layer_norm(x, params["lnf_scale"], params["lnf_bias"],
                         c.layer_norm_eps)
-        cache["index"] = index + T
+        index.add_(T)
         return self._head(params, x), cache
 
     # ---------------------------------------------------- paged-KV decode

@@ -40,7 +40,8 @@ accepted for signature parity and have no effect (the JAX default
 the GPU no library call streams int8 into a bf16 product, so the kernels
 serve both branches); outputs other than bf16 and fp32 are computed in
 fp32 and cast (one rounding either way); a launch adds one to
-``launches[<kernel name>]``.
+``launches[<kernel name>]`` (inside a captured step, each replay adds the
+launches its capture made: ``runtime/step_graph.py``).
 """
 
 import ctypes
@@ -63,6 +64,7 @@ _OUT_CODES = {torch.float32: 0, torch.bfloat16: 1}
 TILES = {0: (16, 64, 128),     # M <= 16
          1: (64, 128, 64)}     # larger M
 _counters = {}                 # (device, stream) -> zeroed int32 split-K tile counters
+_retired = []                  # outgrown counter buffers, kept for the graphs that hold them
 # int8_mm_nt_decode (its source's kBN, kBK, kConsumers): weight columns and rows
 # of a TMA box (8 KB), the consumer threads (one warp per 32 columns)
 DECODE_BN, DECODE_BK = 128, 64
@@ -307,10 +309,21 @@ def plan(M, N, K, sms):
 
 def _tile_counters(device, stream, n):
     """A zeroed int32 counter per output tile, kept per (device, stream):
-    the kernel's last block of each tile sets its counter back to 0."""
+    the kernel's last block of each tile sets its counter back to 0.
+
+    A captured CUDA graph bakes the buffer's address in, so a buffer is
+    never freed once made (a larger one is added beside it), and none is
+    made while the stream captures: the step's warm-up on the capture
+    stream makes it (``runtime/step_graph.py``)."""
     key = (device, stream)
     buf = _counters.get(key)
     if buf is None or buf.numel() < n:
+        if device.type == "cuda" and torch.cuda.is_current_stream_capturing():
+            raise RuntimeError(
+                f"int8_matmul: no split-K tile counters of {n} for this stream while it "
+                "captures a CUDA graph; run the step once on the capture stream first")
+        if buf is not None:
+            _retired.append(buf)
         buf = torch.zeros(max(n, 1024), dtype=torch.int32, device=device)
         _counters[key] = buf
     return buf

@@ -32,7 +32,8 @@ plain version, :func:`paged_attention_reference` (``gather_kv`` +
 from the JAX module: ``mode="auto"`` resolves to ``online`` on CUDA
 (JAX: ``online`` on a TPU, ``exact`` under the interpreter); on the CPU
 both modes are the plain version; a launch adds one to
-``launches[<kernel name>]``.
+``launches[<kernel name>]`` (inside a captured step, each replay adds the
+launches its capture made: ``runtime/step_graph.py``).
 """
 
 import ctypes

@@ -35,7 +35,8 @@ def _imports(path: Path):
 # scripts beside chip_smoke.py that drive the port's kernels on a card
 PORT_EXAMPLES = ("flash_fwd_sm90_split.py", "int8_decode_check.py", "int8_prefill_check.py",
                  "sparse_dkdv_check.py", "dense_bwd_check.py", "sparse_fwd_check.py",
-                 "biased_dkdv_seeds.py", "paged_exact_split.py", "band_merge_check.py")
+                 "biased_dkdv_seeds.py", "paged_exact_split.py", "band_merge_check.py",
+                 "serving_graph_check.py")
 
 
 def _sources():
@@ -63,6 +64,7 @@ def test_importing_the_port_loads_no_jax():
             "deepspeed_tpu_torch.models, "
             "deepspeed_tpu_torch.ops.transformer.paged_attention, "
             "deepspeed_tpu_torch.ops.transformer.int8_matmul, "
+            "deepspeed_tpu_torch.runtime.step_graph, "
             "deepspeed_tpu_torch.module_inject\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'deepspeed_tpu'))\n"
