@@ -278,7 +278,28 @@ JAX package ``deepspeed_tpu``):
     ``flash_fwd_lut_sm90`` on the same LUT, the dense causal forward
     (``flash_fwd_sm90``), SDPA with the expanded boolean layout mask and
     SDPA ``is_causal``, and each path's forward+backward beside SDPA's with
-    the mask.
+    the mask;
+15. checkpoints: phase 5's configuration (GPT-2 350M, T=1024, micro 8,
+    bf16, ZeRO-1, AdamW, clip 1.0, dropout 0) with ``WarmupLR``, so the lr
+    moves every step.  Run A trains 3 steps, ``save_checkpoint``\ s to a
+    temporary directory (removed at the end), trains steps 4-6, reloads
+    its own checkpoint and repeats steps 4-6 (the repeat difference).  Run
+    B, from other weights (seed 1), calls ``load_checkpoint`` and trains
+    steps 4-6.  Hard: every restored leaf (params, master, ``exp_avg``,
+    ``exp_avg_sq``) ``torch.equal`` to its host snapshot taken at the save,
+    after B's load and after A's reload; the counters, lr, lr-schedule and
+    loader state equal; the same batches; step 4's loss bit-equal; steps
+    5-6 within the measured repeat difference (never a constant); 24
+    launches a step of ``flash_fwd_sm90``, ``flash_bwd_dkdv_sm90`` and
+    ``flash_bwd_dq_sm90`` after the load, 0 on the templates;
+    ``InferenceEngine(model, checkpoint=dir)`` gives the params, greedy
+    ``generate`` tokens (B=2, T=32, 8 new, the captured token step) and
+    served streams (``paged_attention_online_sm90``, launches checked as
+    in phase 3) of an engine built from A's in-memory step-3 weights; a
+    save crashed at ``ckpt.before_commit`` (``fault.configure``) leaves a
+    ``.tmp`` that ``load_checkpoint`` skips for the step-3 tag.  Prints the
+    model and optimizer files' bytes, save and load seconds (median of 3)
+    and the peak host RSS during a save.
 
 Prints a ``{"kernels": [...]}`` line (the dense sm90 kernels' key-bias
 instances as ``flash_fwd_sm90 (key bias)``, ``flash_bwd_dkdv_sm90 (key
@@ -302,15 +323,21 @@ import math
 import os
 import platform
 import re
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
+import threading
 import time
 
 import numpy as np
 import torch
 
 import deepspeed_tpu_torch
+from deepspeed_tpu_torch import fault
+from deepspeed_tpu_torch.checkpoint import atomic
+from deepspeed_tpu_torch.checkpoint.constants import MODEL_FILE, OPTIM_FILE
 from deepspeed_tpu_torch.inference import (InferenceEngine, OK, Request,
                                            ServingConfig, ServingEngine)
 from deepspeed_tpu_torch.inference import paged_kv as pk
@@ -326,7 +353,9 @@ from deepspeed_tpu_torch.monitor.histogram import LogHistogram
 from deepspeed_tpu_torch.ops.transformer import flash_attention as fa
 from deepspeed_tpu_torch.ops.transformer import int8_matmul as im
 from deepspeed_tpu_torch.ops.transformer import paged_attention as pa
+from deepspeed_tpu_torch.runtime import engine as engine_module
 from deepspeed_tpu_torch.runtime.comm.quantized import quantize_blockwise
+from deepspeed_tpu_torch.runtime.utils import tree_leaves, tree_map
 
 L_CYCLE = 12          # layers cycled through when timing (cold L2 per launch)
 PAGED_LIB = "paged_attention"
@@ -3152,6 +3181,309 @@ def sparse_workload(dev, gen, card, bytes_per_s, B=1, H=8, d=64, line_shape=(64,
     torch.cuda.empty_cache()
     return total, line
 
+CKPT_WARMUP_STEPS = 10      # phase 15's WarmupLR warm-up: the lr moves at every step it runs
+CKPT_TIMED = 3              # saves and loads timed in phase 15 (the median is reported)
+
+
+def host_rss_bytes():
+    with open("/proc/self/statm") as f:
+        return int(f.read().split()[1]) * os.sysconf("SC_PAGE_SIZE")
+
+
+class RssPeak:
+    """The peak resident set size of this process while the ``with``
+    block runs, sampled every 2 ms by a thread (``base``: before it)."""
+
+    def __enter__(self):
+        self.base = self.peak = host_rss_bytes()
+        self._stop = threading.Event()
+
+        def sample():
+            while not self._stop.wait(0.002):
+                self.peak = max(self.peak, host_rss_bytes())
+
+        self._thread = threading.Thread(target=sample, daemon=True)
+        self._thread.start()
+        return self
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        self._thread.join()
+        self.peak = max(self.peak, host_rss_bytes())
+
+
+def ckpt_state(eng):
+    """The engine's checkpointed tensors by group, in tree order."""
+    return {"params": tree_leaves(eng.params), "master": tree_leaves(eng.master),
+            "exp_avg": tree_leaves(eng.opt_state.exp_avg),
+            "exp_avg_sq": tree_leaves(eng.opt_state.exp_avg_sq)}
+
+
+def host_snapshot(eng):
+    return {k: [t.detach().to("cpu", copy=True) for t in v] for k, v in ckpt_state(eng).items()}
+
+
+def check_restored(tag, eng, snap):
+    """Every leaf of ``eng`` ``torch.equal`` to the snapshot; returns the
+    number of leaves held."""
+    n = 0
+    for group, leaves in ckpt_state(eng).items():
+        if len(leaves) != len(snap[group]):
+            raise AssertionError(f"{tag}: {group} has {len(leaves)} leaves, "
+                                 f"saved {len(snap[group])}")
+        for i, (t, s) in enumerate(zip(leaves, snap[group])):
+            if t.dtype != s.dtype or not torch.equal(t.cpu(), s):
+                raise AssertionError(f"{tag}: {group} leaf {i} differs from the saved one")
+            n += 1
+    return n
+
+
+def ckpt_counters(eng):
+    return {"global_steps": eng.global_steps, "optimizer_steps": eng.optimizer_steps,
+            "skipped_steps": eng.skipped_steps, "micro_steps": eng.micro_steps,
+            "global_samples": eng.global_samples, "stream_step": eng._stream_step,
+            "lr": eng.get_lr()[0], "lr_scheduler": eng.lr_scheduler.state_dict(),
+            "loader": eng.training_dataloader.state_dict()}
+
+
+def record_batches(eng):
+    """The token batch of each step ``eng`` takes, as the loader gave it."""
+    seen = []
+    stack = eng._stack_microbatches
+
+    def recorded(micro_batches):
+        seen.append(np.stack([np.asarray(mb[0]) for mb in micro_batches]))
+        return stack(micro_batches)
+
+    eng._stack_microbatches = recorded
+    return seen
+
+
+class CallTimes:
+    """Wall seconds spent in the named functions of ``module`` while the
+    ``with`` block runs, summed by name (the functions are wrapped, then
+    restored)."""
+
+    def __init__(self, module, names):
+        self.module, self.names, self.s = module, names, {n: 0.0 for n in names}
+
+    def __enter__(self):
+        self._saved = {n: getattr(self.module, n) for n in self.names}
+
+        def wrap(name, fn):
+            def timed(*args, **kwargs):
+                t0 = time.perf_counter()
+                try:
+                    return fn(*args, **kwargs)
+                finally:
+                    self.s[name] += time.perf_counter() - t0
+            return timed
+
+        for name, fn in self._saved.items():
+            setattr(self.module, name, wrap(name, fn))
+        return self
+
+    def __exit__(self, *exc):
+        for name, fn in self._saved.items():
+            setattr(self.module, name, fn)
+
+
+def same_batches(tag, got, want):
+    if len(got) != len(want) or not all(np.array_equal(g, w) for g, w in zip(got, want)):
+        raise AssertionError(f"{tag}: the steps took other batches")
+
+
+def checkpoint_resume(dev, card, preset="gpt2-350m", seq=1024, micro=8, steps=3,
+                      timed=CKPT_TIMED, new=8):
+    """Phase 15: training -> save -> resume -> serve at phase 5's
+    configuration with WarmupLR.  Run A trains ``steps`` steps, saves,
+    trains ``steps`` more, reloads its own checkpoint and repeats them (the
+    repeat difference); run B, from other weights (seed 1), loads the
+    checkpoint and trains the same steps.  Returns the phase's figures."""
+    vocab = GPT2(preset=preset, device=dev).config.vocab_size
+    tokens = np.random.default_rng(0).integers(0, vocab, (64, seq + 1)).astype(np.int32)
+    config = dict(TRAIN_CONFIG, train_micro_batch_size_per_gpu=micro,
+                  scheduler={"type": "WarmupLR", "params": {
+                      "warmup_num_steps": CKPT_WARMUP_STEPS, "warmup_max_lr": 6e-4}})
+
+    def model():
+        return GPT2(preset=preset, max_seq=seq, dtype=torch.bfloat16, device=dev,
+                    embd_pdrop=0.0, attn_pdrop=0.0, resid_pdrop=0.0, remat=False,
+                    attention_impl="flash")
+
+    def engine(seed):
+        m = model()
+        eng = deepspeed_tpu_torch.initialize(config=config, model=m,
+                                             params=m.init_numpy(seed=seed),
+                                             training_data=(tokens,))[0]
+        return eng, record_batches(eng)
+
+    def run(eng):
+        return [float(eng.train_batch()) for _ in range(steps)]
+
+    root = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    save_dir = os.path.join(root, "run")
+    tag = f"global_step{steps}"
+    try:
+        # run A: train, save, train on; then reload and repeat the same steps
+        a, a_batches = engine(0)
+        run(a)
+        a.save_checkpoint(save_dir)
+        snap = host_snapshot(a)
+        counters = ckpt_counters(a)
+        ref_params = tree_map(lambda t: t.detach().to("cpu", copy=True), a.params)
+        run1 = run(a)
+        a.load_checkpoint(save_dir)
+        check_restored("checkpoint repeat", a, snap)
+        if ckpt_counters(a) != counters:
+            raise AssertionError(f"repeat counters {ckpt_counters(a)} != {counters}")
+        run2 = run(a)
+        same_batches("checkpoint repeat", a_batches[2 * steps:], a_batches[steps:2 * steps])
+        if run2[0] != run1[0]:
+            raise AssertionError(f"repeat step {steps + 1} loss {run2[0]!r} != {run1[0]!r}")
+        repeat_diff = max(abs(x - y) for x, y in zip(run1[1:], run2[1:]))
+        head_dim = a.module.config.n_embd // a.module.config.n_head
+        n_layer = a.module.config.n_layer
+        del a
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # run B: other weights, load, train the same steps
+        b, b_batches = engine(1)
+        if torch.equal(b.params["wte"].cpu(), ref_params["wte"]):
+            raise AssertionError("run B starts from run A's weights")
+        path, _ = b.load_checkpoint(save_dir)
+        if os.path.basename(path) != tag:
+            raise AssertionError(f"loaded {path}, expected the tag {tag}")
+        n_leaves = check_restored("checkpoint load", b, snap)
+        if ckpt_counters(b) != counters:
+            raise AssertionError(f"loaded counters {ckpt_counters(b)} != {counters}")
+        fa.reset_launches()
+        run_b = run(b)
+        counts = dict(fa.launches)
+        per_step = {name: n_layer for name in (fa.dense_fwd_kernel(torch.bfloat16, head_dim),
+                                               *fa.dense_bwd_kernel(torch.bfloat16, head_dim))}
+        check_launches(f"checkpoint resume {preset}", counts, per_step, steps)
+        same_batches("checkpoint load", b_batches, a_batches[steps:2 * steps])
+        if run_b[0] != run1[0]:
+            raise AssertionError(f"step {steps + 1} loss after load {run_b[0]!r} != "
+                                 f"{run1[0]!r}")
+        load_diff = max(abs(x - y) for x, y in zip(run1[1:], run_b[1:]))
+        if load_diff > repeat_diff:
+            raise AssertionError(f"steps {steps + 2}-{2 * steps} after load differ by "
+                                 f"{load_diff!r}, a repeat by {repeat_diff!r}")
+        print(f"checkpoint {preset} T={seq} micro {micro} bf16 zero1 WarmupLR: {n_leaves} "
+              f"leaves (params, master, exp_avg, exp_avg_sq) torch.equal after load and after "
+              f"the repeat's reload; counters, lr {counters['lr']!r}, loader "
+              f"{counters['loader']} equal; steps {steps + 1}-{2 * steps} losses A {run1} "
+              f"repeat {run2} B {run_b}; step {steps + 1} bit-equal; steps {steps + 2}-"
+              f"{2 * steps} max |B - A| {load_diff!r} <= max |repeat - A| {repeat_diff!r}; "
+              f"launches per step after load " + ", ".join(
+                  f"{n} {counts[n] // steps}" for n in fa.DENSE_KERNELS))
+
+        # serving from the checkpoint against the in-memory weights of step `steps`
+        ids = np.random.default_rng(15).integers(0, vocab, (2, 32))
+        ref = InferenceEngine(GPT2(preset=preset, max_seq=seq, dtype=torch.bfloat16,
+                                   device=dev), params=ref_params)
+        ck = InferenceEngine(GPT2(preset=preset, max_seq=seq, dtype=torch.bfloat16,
+                                  device=dev), checkpoint=save_dir)
+        for x, y in zip(tree_leaves(ref.params), tree_leaves(ck.params)):
+            if not torch.equal(x, y):
+                raise AssertionError("InferenceEngine(checkpoint=) params differ")
+        want = ref.generate(ids, max_new_tokens=new)
+        got = ck.generate(ids, max_new_tokens=new)
+        if not torch.equal(got.cpu(), want.cpu()):
+            raise AssertionError(f"generate from the checkpoint {got[:, 32:].tolist()} != "
+                                 f"{want[:, 32:].tolist()}")
+        cfg = ServingConfig(batch_slots=2, block_size=16, max_new_tokens=new)
+        prompts = list(ids)
+        _, _, toks_ref = run_checked(ServingEngine(engine=ref, config=cfg), ref, prompts,
+                                     new, "checkpoint-ref", "auto")
+        _, served, toks = run_checked(ServingEngine(engine=ck, config=cfg), ck, prompts,
+                                      new, "checkpoint", "auto")
+        if toks != toks_ref:
+            raise AssertionError(f"served from the checkpoint {toks} != {toks_ref}")
+        print(f"checkpoint serve {preset}: generate B=2 T=32 +{new} tokens equal to the "
+              f"in-memory step-{steps} weights' {got[:, 32:].tolist()}; served streams equal "
+              f"too ({pa.KERNELS['online']} {served[pa.KERNELS['online']]} launches)")
+        del ref, ck
+        torch.cuda.empty_cache()
+
+        # a torn tag: a save crashed before its commit is never loaded
+        fault.configure("crash_at=ckpt.before_commit")
+        try:
+            b.save_checkpoint(save_dir)
+            raise AssertionError("the armed save did not crash")
+        except fault.InjectedCrash:
+            pass
+        finally:
+            fault.reset()
+        torn = f"global_step{2 * steps}"
+        if not os.path.isdir(atomic.stage_path(save_dir, torn)) or \
+                os.path.isdir(os.path.join(save_dir, torn)) or \
+                atomic.read_latest(save_dir) != tag:
+            raise AssertionError(f"torn save left {sorted(os.listdir(save_dir))}, latest "
+                                 f"{atomic.read_latest(save_dir)}")
+        path, _ = b.load_checkpoint(save_dir)
+        if os.path.basename(path) != tag or b.global_steps != steps:
+            raise AssertionError(f"after the torn save loaded {path} at {b.global_steps}")
+        atomic.clean_stale_staging(save_dir)
+        print(f"checkpoint torn tag: {torn}.tmp staged and crashed at ckpt.before_commit; "
+              f"latest {tag}, load_checkpoint took {tag}")
+
+        # sizes, save and load times, host memory during a save
+        sizes = {name: os.path.getsize(os.path.join(save_dir, tag, name))
+                 for name in (MODEL_FILE, OPTIM_FILE)}
+        # where a save's and a load's seconds go: the two files' writes (device to
+        # host, zip, page cache), the manifest's SHA-256, the commit's fsync and
+        # rename; the manifest check, the two files' reads, the rest (the copies
+        # to the card)
+        save_s, rss, save_parts = [], [], []
+        for i in range(timed):
+            d = os.path.join(root, f"timed{i}")
+            torch.cuda.synchronize()
+            with RssPeak() as r, CallTimes(engine_module, ("save_tree",)) as w, \
+                    CallTimes(atomic, ("write_manifest", "commit_staged")) as c:
+                t0 = time.perf_counter()
+                b.save_checkpoint(d)
+                save_s.append(time.perf_counter() - t0)
+            save_parts.append({**w.s, **c.s})
+            rss.append((r.base, r.peak))
+            shutil.rmtree(d)
+        load_s, load_parts = [], []
+        for _ in range(timed):
+            torch.cuda.synchronize()
+            with CallTimes(engine_module, ("load_tree",)) as rd, \
+                    CallTimes(atomic, ("verify_checkpoint",)) as v:
+                t0 = time.perf_counter()
+                b.load_checkpoint(save_dir)
+                torch.cuda.synchronize()
+                load_s.append(time.perf_counter() - t0)
+            load_parts.append({**v.s, **rd.s})
+        base, peak = max(rss, key=lambda bp: bp[1] - bp[0])
+        med = lambda parts: {k: statistics.median(p[k] for p in parts) for k in parts[0]}
+        figures = {"model_file_bytes": sizes[MODEL_FILE], "optim_file_bytes": sizes[OPTIM_FILE],
+                   "save_s": statistics.median(save_s), "save_s_readings": save_s,
+                   "save_parts_s": med(save_parts),
+                   "load_s": statistics.median(load_s), "load_s_readings": load_s,
+                   "load_parts_s": med(load_parts),
+                   "save_rss_peak_bytes": peak, "save_rss_base_bytes": base,
+                   "repeat_diff": repeat_diff, "load_diff": load_diff,
+                   "losses": {"a": run1, "repeat": run2, "b": run_b}}
+        parts = lambda d: ", ".join(f"{k} {v:.3f}" for k, v in d.items())
+        print(f"checkpoint timing {preset}: model file {sizes[MODEL_FILE]} B, optim file "
+              f"{sizes[OPTIM_FILE]} B; save (fsync, sha256 manifest, commit) median "
+              f"{figures['save_s']:.3f} s of {[round(x, 3) for x in save_s]} (medians: "
+              f"{parts(figures['save_parts_s'])}); load (full verify, warm page cache) median "
+              f"{figures['load_s']:.3f} s of {[round(x, 3) for x in load_s]} (medians: "
+              f"{parts(figures['load_parts_s'])}); host RSS during a save peaks at "
+              f"{peak / 1e9:.3f} GB, {(peak - base) / 1e6:.1f} MB above the "
+              f"{base / 1e9:.3f} GB before it ({card})")
+        return figures
+    finally:
+        fault.reset()
+        shutil.rmtree(root, ignore_errors=True)
+
 
 def main():
     if not torch.cuda.is_available():
@@ -3271,6 +3603,10 @@ def main():
         kernels.append({"name": name, "route": "cuda", "source": flash_source(name),
                         "replaces": REPLACES[name], "launches": band_launches[name],
                         **tb[name]})
+    torch.cuda.empty_cache()
+
+    # 15. checkpoints: train -> save -> resume -> serve at phase 5's configuration
+    print(json.dumps({"checkpoint": checkpoint_resume(dev, card)}))
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card)

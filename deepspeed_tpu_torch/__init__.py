@@ -18,7 +18,7 @@ from .version import __version__
 
 
 def initialize(model=None, training_data=None, config=None, loss_fn=None, params=None,
-               rng_seed=0, device=None):
+               rng_seed=0, device=None, auto_resume=None):
     """Build the training engine; returns ``(engine, optimizer,
     dataloader, lr_scheduler)``.
 
@@ -26,14 +26,49 @@ def initialize(model=None, training_data=None, config=None, loss_fn=None, params
     one device: the engine runs on ``model.device`` (CUDA unless the model
     was built with ``device="cpu"``), or on ``device`` for a
     ``loss_fn`` + ``params`` pair, which defaults to CUDA and raises
-    without a card.  The JAX package's client optimizer / scheduler,
-    mesh, pipeline, auto-resume, elastic and monitor arguments are not
-    ported."""
+    without a card.  ``auto_resume`` (then ``DSTPU_AUTO_RESUME``, then
+    the config's ``checkpoint.auto_resume``) restarts from the newest
+    valid checkpoint in ``checkpoint.dir``.  The JAX package's client
+    optimizer / scheduler, mesh, pipeline, elastic and monitor arguments
+    are not ported."""
     from .runtime.engine import DeepSpeedEngine
     engine = DeepSpeedEngine(model=model, config=config, training_data=training_data,
                              loss_fn=loss_fn, params=params, rng_seed=rng_seed,
                              device=device)
+    _maybe_auto_resume(engine, auto_resume)
     return engine, engine.optimizer, engine.training_dataloader, engine.lr_scheduler
+
+
+def _maybe_auto_resume(engine, auto_resume):
+    """Resolve the auto-resume request (kwarg > env > config) and restart
+    from the newest valid checkpoint in ``checkpoint.dir`` if there is one
+    (JAX ``__init__.py:90-118``); a directory with no checkpoint is a cold
+    start, logged, not an error."""
+    import os
+    from .utils.logging import log_dist
+    ckpt_cfg = engine.config.checkpoint_config
+    if auto_resume is None:
+        env = os.environ.get("DSTPU_AUTO_RESUME")
+        if env:      # when set, it can also disable a config's auto_resume
+            auto_resume = env.lower() in ("1", "true", "yes")
+        else:
+            auto_resume = ckpt_cfg.auto_resume
+    if not auto_resume:
+        return
+    load_dir = ckpt_cfg.dir
+    if not load_dir:
+        from .runtime.config import DeepSpeedConfigError
+        raise DeepSpeedConfigError("auto_resume needs checkpoint.dir in the config "
+                                   "(where to look)")
+    from .checkpoint import atomic
+    atomic.clean_stale_staging(load_dir, min_age_s=atomic.LOAD_STAGING_MIN_AGE_S)
+    # cold-start detection only: tag resolution, verification and the
+    # torn-tag fallback happen inside load_checkpoint
+    if not atomic.has_checkpoint(load_dir):
+        log_dist(f"auto_resume: no checkpoint in {load_dir}; cold start", ranks=[0])
+        return
+    path, _ = engine.load_checkpoint(load_dir)
+    log_dist(f"auto_resume: restarted from {path}", ranks=[0])
 
 
 def init_inference(model=None, **kwargs):

@@ -29,16 +29,22 @@ replay from the step's static logits, so it is reproducible within the
 port but not bit-identical to JAX's ``fold_in(PRNGKey(seed), i)``;
 ``generate`` takes an int ``seed`` where JAX takes a PRNG key; without a
 quantization the engine's ``dtype`` is the model's compute dtype (JAX:
-the ``dtype`` argument, None when not given).  Meshes, tensor
-parallelism, the compile cache, checkpoint loading and HF injection are
-not ported.
+the ``dtype`` argument, None when not given).  ``checkpoint=`` loads
+``params`` saved by either package's ``save_checkpoint`` from a
+directory (through its ``latest`` pointer), a tag directory or a model
+file (JAX ``_load_checkpoint``, :328-344), before the cast or the int8
+quantization.  Meshes, tensor parallelism, the compile cache and HF
+injection are not ported.
 """
 
+import os
 from collections import OrderedDict
 from typing import Optional
 
 import torch
 
+from ..checkpoint.constants import LATEST_FILE, MODEL_FILE
+from ..checkpoint.serialization import load_tree
 from ..module_inject.module_quantize import (QuantizedModel, is_quantized_leaf,
                                               quantize_param_tree, resolve_decode_params)
 from ..runtime.step_graph import GraphPool, StepGraph
@@ -78,16 +84,18 @@ def sample_logits(logits, temperature: float, top_k: Optional[int],
 
 class InferenceEngine:
     """``InferenceEngine(model, params=None, dtype=None, device=None,
-    rng_seed=0, quantization_setting=None)``.
+    rng_seed=0, quantization_setting=None, checkpoint=None)``.
 
     ``params``: the port's params dict (``params_from_jax``), possibly
-    quantized already; None → ``model.init_params(rng_seed)``.  ``dtype``
+    quantized already; None → the ``params`` of ``checkpoint`` when given,
+    else ``model.init_params(rng_seed)``.  ``dtype``
     (a torch, numpy or string spelling): a floating dtype overrides the
     model's compute dtype and casts the params; ``torch.int8`` quantizes
     them.  ``device`` defaults to the model's device."""
 
     def __init__(self, model=None, params=None, dtype=None, device=None,
-                 rng_seed: int = 0, quantization_setting=None):
+                 rng_seed: int = 0, quantization_setting=None,
+                 checkpoint: Optional[str] = None):
         if model is None:
             raise ValueError("InferenceEngine needs a model")
         self.module = model
@@ -95,7 +103,8 @@ class InferenceEngine:
                        else resolve_device(device))
         dtype = _normalize_dtype(dtype)
         if params is None:
-            params = model.init_params(rng_seed)
+            params = (self._load_checkpoint(checkpoint) if checkpoint is not None
+                      else model.init_params(rng_seed))
         # params may arrive quantized (a QuantizedModel + an int8 tree)
         self.quantized = _any_leaf(params, is_quantized_leaf)
         # dtype=int8 means "quantize", never "cast": an int8 cast of weights in
@@ -225,6 +234,22 @@ class InferenceEngine:
             if i + 1 < max_new_tokens:
                 logits, cache = model.apply_with_cache(params, nxt[:, None], cache)
         return torch.cat([tokens, torch.stack(out, dim=1)], dim=1)
+
+    @staticmethod
+    def _load_checkpoint(load_dir, tag=None):
+        """The ``params`` tree of a checkpoint, as CPU tensors: ``load_dir``
+        is a save directory (its ``latest`` tag unless ``tag``), a tag
+        directory, or a model file."""
+        if os.path.isdir(load_dir):
+            latest = os.path.join(load_dir, LATEST_FILE)
+            if tag is None and os.path.isfile(latest):
+                with open(latest) as f:
+                    tag = f.read().strip()
+            path = os.path.join(load_dir, tag) if tag else load_dir
+            path = os.path.join(path, MODEL_FILE)
+        else:
+            path = load_dir
+        return load_tree(path)["params"]
 
 
 def _any_leaf(tree, pred):

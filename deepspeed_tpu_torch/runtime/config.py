@@ -6,6 +6,8 @@ over the same JSON dicts.  Resolved here: the batch triple
 1), the ``bf16``/``fp16`` blocks, ``optimizer``, ``scheduler``,
 ``gradient_clipping``, ``steps_per_print``, ``dataloader_drop_last``,
 ``data_types.grad_accum_dtype``, ``zero_optimization.stage``, the
+``checkpoint`` and ``io_retry`` blocks (``DeepSpeedCheckpointConfig`` /
+``DeepSpeedIORetryConfig``, JAX ``config.py:873-874``), the
 ``health_check`` block's device sentinels and ``sparse_attention`` (the
 JSON section as a dict, default ``None``, as ``config.py:886`` stores it;
 the caller builds the layout with ``build_sparsity_config``).
@@ -38,6 +40,7 @@ PORTED_KEYS = {
     C.FP16, C.BFLOAT16, C.BFLOAT16_OLD, C.GRADIENT_CLIPPING,
     C.PRESCALE_GRADIENTS, C.GRADIENT_PREDIVIDE_FACTOR, C.DATA_TYPES,
     C.DATALOADER_DROP_LAST, C.ZERO_OPTIMIZATION, C.HEALTH_CHECK, C.SPARSE_ATTENTION,
+    C.CHECKPOINT, C.IO_RETRY,
 }
 
 
@@ -79,6 +82,75 @@ class DeepSpeedHealthCheckConfig:
             raise DeepSpeedConfigError("health_check.spike_zmax must be >= 0")
         if self.skip_on_spike and self.spike_zmax <= 0:
             raise DeepSpeedConfigError("health_check.skip_on_spike needs spike_zmax > 0")
+
+
+class DeepSpeedCheckpointConfig:
+    """``checkpoint`` (JAX ``config.py:323``): ``keep_n``, ``verify``,
+    ``auto_resume``, ``dir`` and ``fsync`` drive the engine's save / load
+    and ``initialize``'s auto-resume.  Difference: the JAX package stores
+    ``tag_validation`` and ``load_universal`` and reads neither (the
+    reference's cross-rank tag check, the universal checkpoint format);
+    the port validates them the same way, then raises
+    ``NotImplementedError`` for any value but the default."""
+
+    def __init__(self, param_dict):
+        ckpt = param_dict.get(C.CHECKPOINT, {}) or {}
+        self.tag_validation = ckpt.get(C.CHECKPOINT_TAG_VALIDATION,
+                                       C.CHECKPOINT_TAG_VALIDATION_DEFAULT)
+        if self.tag_validation not in C.CHECKPOINT_TAG_VALIDATION_MODES:
+            raise DeepSpeedConfigError("checkpoint.tag_validation must be one of "
+                                       f"{C.CHECKPOINT_TAG_VALIDATION_MODES}")
+        self.load_universal = ckpt.get(C.LOAD_UNIVERSAL_CHECKPOINT,
+                                       C.LOAD_UNIVERSAL_CHECKPOINT_DEFAULT)
+        if self.tag_validation != C.CHECKPOINT_TAG_VALIDATION_DEFAULT or self.load_universal:
+            raise NotImplementedError("checkpoint.tag_validation / load_universal are not "
+                                      "run; they may only keep their defaults")
+        keep_n = ckpt.get(C.CHECKPOINT_KEEP_N, C.CHECKPOINT_KEEP_N_DEFAULT)
+        keep_n = 0 if keep_n is None else int(keep_n)
+        if keep_n < 0:
+            raise DeepSpeedConfigError("checkpoint.keep_n must be >= 0")
+        self.keep_n = keep_n
+        self.verify = ckpt.get(C.CHECKPOINT_VERIFY, C.CHECKPOINT_VERIFY_DEFAULT)
+        if self.verify not in C.CHECKPOINT_VERIFY_MODES:
+            raise DeepSpeedConfigError(
+                f"checkpoint.verify must be one of {C.CHECKPOINT_VERIFY_MODES}")
+        self.auto_resume = ckpt.get(C.CHECKPOINT_AUTO_RESUME, C.CHECKPOINT_AUTO_RESUME_DEFAULT)
+        self.dir = ckpt.get(C.CHECKPOINT_DIR, C.CHECKPOINT_DIR_DEFAULT)
+        self.fsync = ckpt.get(C.CHECKPOINT_FSYNC, C.CHECKPOINT_FSYNC_DEFAULT)
+
+
+class DeepSpeedIORetryConfig:
+    """``io_retry`` (JAX ``config.py:354``): the bounded backoff of
+    checkpoint IO (``utils/retry.py``)."""
+
+    def __init__(self, param_dict):
+        r = param_dict.get(C.IO_RETRY, {}) or {}
+        self.max_attempts = int(r.get(C.IO_RETRY_MAX_ATTEMPTS, C.IO_RETRY_MAX_ATTEMPTS_DEFAULT))
+        self.base_delay_s = float(r.get(C.IO_RETRY_BASE_DELAY_S,
+                                        C.IO_RETRY_BASE_DELAY_S_DEFAULT))
+        self.max_delay_s = float(r.get(C.IO_RETRY_MAX_DELAY_S, C.IO_RETRY_MAX_DELAY_S_DEFAULT))
+        self.jitter = float(r.get(C.IO_RETRY_JITTER, C.IO_RETRY_JITTER_DEFAULT))
+        self.full_jitter = bool(r.get(C.IO_RETRY_FULL_JITTER, C.IO_RETRY_FULL_JITTER_DEFAULT))
+        self.max_elapsed_s = r.get(C.IO_RETRY_MAX_ELAPSED_S, C.IO_RETRY_MAX_ELAPSED_S_DEFAULT)
+        if self.max_attempts < 1:
+            raise DeepSpeedConfigError("io_retry.max_attempts must be >= 1")
+        if self.base_delay_s < 0 or self.max_delay_s < 0:
+            raise DeepSpeedConfigError("io_retry.base_delay_s/max_delay_s must be >= 0")
+        if not 0.0 <= self.jitter < 1.0:
+            raise DeepSpeedConfigError("io_retry.jitter must be in [0, 1)")
+        if self.max_elapsed_s is not None:
+            self.max_elapsed_s = float(self.max_elapsed_s)
+            if self.max_elapsed_s <= 0:
+                raise DeepSpeedConfigError("io_retry.max_elapsed_s must be > 0 (or absent)")
+
+    def policy(self, **overrides):
+        from ..utils.retry import RetryPolicy
+        kw = dict(max_attempts=self.max_attempts, base_delay_s=self.base_delay_s,
+                  max_delay_s=self.max_delay_s, jitter=self.jitter,
+                  jitter_mode="full" if self.full_jitter else "proportional",
+                  max_elapsed_s=self.max_elapsed_s)
+        kw.update(overrides)
+        return RetryPolicy(**kw)
 
 
 def _world_size():
@@ -157,6 +229,8 @@ class DeepSpeedConfig:
             raise NotImplementedError("fp16 (the dynamic loss scaler) is not ported; "
                                       "use bf16")
         self.health_check = DeepSpeedHealthCheckConfig(pd)
+        self.checkpoint_config = DeepSpeedCheckpointConfig(pd)
+        self.io_retry_config = DeepSpeedIORetryConfig(pd)
         self.sparse_attention = pd.get(C.SPARSE_ATTENTION)
         if self.sparse_attention is not None:
             if not isinstance(self.sparse_attention, dict):

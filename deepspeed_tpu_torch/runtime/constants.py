@@ -34,6 +34,40 @@ DATALOADER_DROP_LAST_DEFAULT = False
 ZERO_OPTIMIZATION = "zero_optimization"
 SPARSE_ATTENTION = "sparse_attention"      # a dict (build_sparsity_config) or None
 
+# checkpoint: the atomic-commit layer's retention / validation / auto-resume
+CHECKPOINT = "checkpoint"
+CHECKPOINT_TAG_VALIDATION = "tag_validation"
+CHECKPOINT_TAG_VALIDATION_DEFAULT = "Warn"
+CHECKPOINT_TAG_VALIDATION_MODES = ["Warn", "Ignore", "Fail"]
+LOAD_UNIVERSAL_CHECKPOINT = "load_universal"
+LOAD_UNIVERSAL_CHECKPOINT_DEFAULT = False
+CHECKPOINT_KEEP_N = "keep_n"
+CHECKPOINT_KEEP_N_DEFAULT = 0          # 0 = keep everything
+CHECKPOINT_VERIFY = "verify"
+CHECKPOINT_VERIFY_DEFAULT = "full"     # full | size | off
+CHECKPOINT_VERIFY_MODES = ["full", "size", "off"]
+CHECKPOINT_AUTO_RESUME = "auto_resume"
+CHECKPOINT_AUTO_RESUME_DEFAULT = False
+CHECKPOINT_DIR = "dir"
+CHECKPOINT_DIR_DEFAULT = None
+CHECKPOINT_FSYNC = "fsync"
+CHECKPOINT_FSYNC_DEFAULT = True
+
+# io_retry: the bounded backoff of checkpoint IO
+IO_RETRY = "io_retry"
+IO_RETRY_MAX_ATTEMPTS = "max_attempts"
+IO_RETRY_MAX_ATTEMPTS_DEFAULT = 5
+IO_RETRY_BASE_DELAY_S = "base_delay_s"
+IO_RETRY_BASE_DELAY_S_DEFAULT = 0.05
+IO_RETRY_MAX_DELAY_S = "max_delay_s"
+IO_RETRY_MAX_DELAY_S_DEFAULT = 2.0
+IO_RETRY_JITTER = "jitter"
+IO_RETRY_JITTER_DEFAULT = 0.25
+IO_RETRY_FULL_JITTER = "full_jitter"
+IO_RETRY_FULL_JITTER_DEFAULT = False   # True = AWS-style uniform(0, nominal)
+IO_RETRY_MAX_ELAPSED_S = "max_elapsed_s"
+IO_RETRY_MAX_ELAPSED_S_DEFAULT = None  # None = no overall wall-clock cap
+
 HEALTH_CHECK = "health_check"
 HEALTH_DEFAULTS = {
     "enabled": True,
@@ -59,8 +93,7 @@ UNPORTED = {
     "amp": {}, "activation_checkpointing": {}, "flops_profiler": {},
     "tensorboard": {}, "monitor": {}, "analysis": {}, "pipeline": {},
     "curriculum_learning": {}, "progressive_layer_drop": {}, "eigenvalue": {},
-    "quantize_training": {}, "checkpoint": {}, "io_retry": {},
-    "compile_cache": {}, "comms_compression": {}, "mesh": {},
+    "quantize_training": {}, "compile_cache": {}, "comms_compression": {}, "mesh": {},
     "sequence_parallel": {}, "elasticity": {}, "aio": {}, "autotuning": {},
     "sparse_gradients": False, "communication_data_type": None,
     "disable_allgather": False, "dump_state": False, "wall_clock_breakdown": False,

@@ -4,9 +4,12 @@ Counterpart of ``deepspeed_tpu/runtime/dataloader.py``
 (``DeepSpeedDataLoader``, ``RepeatingLoader``): the same
 ``(seed, epoch)`` permutation, batch order and tail padding (lines
 162-201), so the port sees the JAX engine's batches in the JAX engine's
-order.  Batches are host numpy trees; the engine moves them to its
-device.  The checkpointable sampler state (``state_dict``) is not
-ported.
+order, and the same checkpointable sampler state (:45-50, :121-145):
+``state_dict`` is ``{"seed", "epoch", "batch_index", "batch_size"}``
+and ``load_state_dict`` resumes the exact stream at the next
+``__iter__``, converting the position through rows when the batch size
+changed.  Batches are host numpy trees; the engine moves them to its
+device.  The ``collate_fn`` argument is not ported.
 
 Accepted dataset forms: a tuple/list of numpy arrays with equal leading
 dim (samples are tuples), a dict of arrays (samples are dicts), or
@@ -37,6 +40,19 @@ class RepeatingLoader:
             self.data_iter = iter(self.loader)
             return next(self.data_iter)
 
+    def state_dict(self):
+        sd = getattr(self.loader, "state_dict", None)
+        return sd() if callable(sd) else None
+
+    def load_state_dict(self, state):
+        lsd = getattr(self.loader, "load_state_dict", None)
+        if callable(lsd) and state is not None:
+            exact = lsd(state)
+            # the restored position takes effect at the next __next__
+            self.data_iter = iter(self.loader)
+            return exact
+        return None
+
 
 def _default_collate(samples):
     """Stack a list of samples into a batch tree of numpy arrays."""
@@ -58,6 +74,8 @@ class DeepSpeedDataLoader:
         self.shuffle = shuffle
         self.seed = seed
         self.epoch = 0
+        self.batch_index = 0      # batches yielded so far this epoch
+        self._resume_batch = 0    # one-shot __iter__ offset set by load_state_dict
         self.drop_last = drop_last
         self._columnar = None
         if isinstance(dataset, dict):
@@ -86,6 +104,35 @@ class DeepSpeedDataLoader:
 
     def new_epoch(self):
         self.epoch += 1
+        self.batch_index = 0
+        self._resume_batch = 0
+
+    def state_dict(self):
+        return {"seed": self.seed, "epoch": self.epoch, "batch_index": self.batch_index,
+                "batch_size": self.batch_size}
+
+    def load_state_dict(self, state):
+        """Restore the sampler position.  Returns True when it is exact,
+        False when a batch-size change landed between batch boundaries and
+        the position was floored (up to one batch of rows then replays)."""
+        self.seed = int(state.get("seed", self.seed))
+        self.epoch = int(state.get("epoch", 0))
+        idx = int(state.get("batch_index", 0))
+        saved_bs = int(state.get("batch_size", self.batch_size))
+        exact = True
+        if saved_bs != self.batch_size:
+            # the row stream depends on (seed, epoch) only: convert through rows
+            rows = idx * saved_bs
+            idx, rem = divmod(rows, self.batch_size)
+            if rem:
+                exact = False
+                logger.warning(f"data-loader position ({rows} rows at saved batch_size "
+                               f"{saved_bs}) does not land on a batch boundary at the "
+                               f"new batch_size {self.batch_size}; resuming at batch "
+                               f"{idx} — up to {rem} rows replay")
+        self.batch_index = idx
+        self._resume_batch = idx     # consumed by the next __iter__ only
+        return exact
 
     def _order(self):
         idx = np.arange(self._len)
@@ -114,5 +161,10 @@ class DeepSpeedDataLoader:
             yield np.resize(order, self.batch_size)
 
     def __iter__(self):
-        for idx in self._batch_indices(self._order()):
+        start, self._resume_batch = self._resume_batch, 0
+        self.batch_index = start
+        for i, idx in enumerate(self._batch_indices(self._order())):
+            if i < start:
+                continue
+            self.batch_index = i + 1
             yield self._take(idx)

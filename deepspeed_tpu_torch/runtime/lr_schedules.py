@@ -4,9 +4,10 @@ Counterpart of ``deepspeed_tpu/runtime/lr_schedules.py``: the same
 names, parameters and curves.  Each schedule is a pure function
 ``lr_fn(step) -> float`` of the global step, computed in float32 as the
 JAX package traces it, so the engine reads the step's lr on the host
-with no device work.  The stateful wrapper keeps ``step()`` and
-``get_lr()``; ``OneCycle.momentum_fn``, ``get_last_lr`` and the state
-dicts are not ported (no ported optimizer or checkpoint reads them).
+with no device work.  The stateful wrapper keeps ``step()``,
+``get_lr()`` and the checkpointed ``state_dict`` / ``load_state_dict``
+(JAX :72-78, ``{"last_batch_iteration": n}``); ``OneCycle.momentum_fn``
+and ``get_last_lr`` are not ported (no ported optimizer reads them).
 """
 
 import math
@@ -44,6 +45,12 @@ class _ScheduleBase:
     def step(self):
         self.last_batch_iteration += 1
         return self.get_lr()
+
+    def state_dict(self):
+        return {"last_batch_iteration": self.last_batch_iteration}
+
+    def load_state_dict(self, sd):
+        self.last_batch_iteration = sd["last_batch_iteration"]
 
 
 class LRRangeTest(_ScheduleBase):

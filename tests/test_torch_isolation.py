@@ -52,6 +52,27 @@ def test_no_jax_or_jax_package_import(path):
     assert not bad, f"{path.relative_to(REPO)} imports {bad}"
 
 
+@pytest.mark.parametrize("path", _sources(), ids=lambda p: str(p.relative_to(REPO)))
+def test_no_ml_dtypes_import(path):
+    """The card's machine has no ``ml_dtypes``: checkpoints carry bf16 as
+    raw 2-byte words (``checkpoint/serialization.py``), never through it."""
+    bad = [m for m in _imports(path) if m.split(".")[0] == "ml_dtypes"]
+    assert not bad, f"{path.relative_to(REPO)} imports {bad}"
+
+
+def test_importing_the_checkpoint_layer_loads_no_jax_or_ml_dtypes():
+    code = ("import sys, deepspeed_tpu_torch.checkpoint, deepspeed_tpu_torch.fault, "
+            "deepspeed_tpu_torch.utils.zero_to_fp32, deepspeed_tpu_torch.runtime.engine\n"
+            "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'deepspeed_tpu', 'ml_dtypes'))\n"
+            "print(bad)\n"
+            "sys.exit(1 if bad else 0)\n")
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    r = subprocess.run([sys.executable, "-c", code], cwd=str(REPO), env=env,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stdout + r.stderr
+
+
 def test_forbidden_match_is_exact_not_prefix():
     assert _forbidden("deepspeed_tpu") and _forbidden("deepspeed_tpu.models")
     assert _forbidden("jax.numpy")
