@@ -82,15 +82,26 @@ JAX package ``deepspeed_tpu``):
 5. training: GPT-2 350M at full width (T=1024, micro-batch 8, gas 1,
    bf16, ZeRO-1, AdamW 6e-4 / wd 0.1, clip 1.0, dropout 0, no remat)
    through ``deepspeed_tpu_torch.initialize`` -> ``train_batch()`` on
-   tokens ``rng(0).integers(0, 50257, (64, 1025))``: step 1 with
-   ``attention_impl="flash"`` against ``"jnp"`` from the same weights and
-   batch; 3 warm-up and 10 timed steps (tokens/s, step time p50/p99, MFU,
-   peak memory); exactly 24 launches per step of ``flash_fwd_sm90``,
-   ``flash_bwd_dkdv_sm90`` and ``flash_bwd_dq_sm90``, and none of
-   ``flash_fwd``, ``flash_bwd_dkdv`` and ``flash_bwd_dq``;
-   finite losses and no skipped step; 20 steps on one fixed batch lower
-   its loss by at least 0.5; a ``torch.profiler`` breakdown of a step,
-   with the flash kernels' device time per step;
+   tokens ``rng(0).integers(0, 50257, (64, 1025))``, through both
+   step impls from the same weights and data (``ab_train``): "graph"
+   (the whole step one CUDA graph, the default on the card) and "eager"
+   (the same body called directly).  Step 1 of the captured run with
+   ``attention_impl="flash"`` against an eager ``"jnp"`` one from the same
+   weights and batch; for each impl 3 warm-up steps and 3 timed passes of
+   10 steps (step time p50/p99, tokens/s, MFU per pass, the readings and
+   their spread; peak memory; the graphs, their captures, warm-ups and
+   replays and the graph pool's MB); exactly 24 launches of
+   ``flash_fwd_sm90``, ``flash_bwd_dkdv_sm90`` and ``flash_bwd_dq_sm90`` per
+   kernel run (a replay or the warm-up when captured, a step when eager),
+   and none of ``flash_fwd``, ``flash_bwd_dkdv`` and ``flash_bwd_dq``;
+   finite losses and no skipped step; a ``torch.profiler`` breakdown of a
+   step of each, its busy time against the unprofiled step p50 (the idle
+   share); the losses and grad norms of every step bit-equal between the
+   impls; on the captured engine, 20 steps on one fixed batch lower its
+   loss by at least 0.5, and the flash kernels' device time per step; then
+   3 steps each with Lamb and with SGD (Nesterov) in place of AdamW,
+   captured and eager (one graph, exact launches, bit-equal losses and
+   grad norms);
 6. the flash kernels at the training shape, B=8, H=16, T=1024, d=64,
    causal, bf16 (q, k, v views of one qkv tensor, as the model passes
    them): each held against its plain version (these errors go into the
@@ -148,24 +159,30 @@ JAX package ``deepspeed_tpu``):
    read through the engine config and ``build_sparsity_config``, through
    ``build("bert-large")`` -> ``replace_model_self_attention`` ->
    ``initialize`` -> ``train_batch()`` on padded batches from a numpy
-   seed: step 1 through the kernels against step 1 with the plain
-   ``_masked_dense`` attention from the same weights and batch; 3
-   warm-up and 10 timed steps (tokens/s, step p50/p99, MFU, peak memory);
-   exactly 48 / 24 / 24 launches per step of ``flash_fwd_lut_sm90`` /
+   seed, through both step impls as phase 5 (the dropout masks of
+   the captured step drawn from generators registered with the graph and
+   re-seeded before each replay, so every loss and grad norm is bit-equal
+   to the eager run's): step 1 of the captured run through the kernels
+   against an eager step 1 with the plain ``_masked_dense`` attention from
+   the same weights and batch; 3 warm-up steps and 3 timed passes of 10
+   (tokens/s, step p50/p99, MFU, peak memory, graphs, profiled busy time
+   and idle share); exactly 48 / 24 / 24 launches per kernel run of
+   ``flash_fwd_lut_sm90`` /
    ``flash_bwd_dkdv_lut_sm90`` / ``flash_bwd_dq_lut_sm90`` (remat runs each
    forward twice) and none of the templates ``flash_fwd_lut``,
    ``flash_bwd_dkdv_lut`` and ``flash_bwd_dq_lut``; finite losses and no
    skipped step; 20 steps on one fixed batch lower its loss by at least
    0.5; a ``torch.profiler`` breakdown of one step, with the forward, dK/dV
-   and dQ device time per step; 8b, two steps on unpadded batches
+   and dQ device time per step; 8b, two captured steps on unpadded batches
    (``flash_fwd_lut_sm90`` without the bias, 0 on ``flash_fwd_lut_ring``;
-   the same backward kernels); 8c, two padded steps
-   with ``"mode": "dense"`` (an all-ones layout): exactly 48 launches per
-   step of ``flash_fwd_sm90`` and 24 of each of ``flash_bwd_dkdv_sm90``
+   the same backward kernels); 8c, padded steps with ``"mode": "dense"``
+   (an all-ones layout) through both step impls (2 warm-up steps, 3
+   passes of 5): exactly 48 launches per
+   kernel run of ``flash_fwd_sm90`` and 24 of each of ``flash_bwd_dkdv_sm90``
    and ``flash_bwd_dq_sm90`` (their key-bias instances), none of the
    templates ``flash_fwd_biased``, ``flash_bwd_dkdv_biased`` and
-   ``flash_bwd_dq_biased``, then one profiled step with the dense biased
-   forward's and backward's device time per step;
+   ``flash_bwd_dq_biased``, then one profiled captured step with the dense
+   biased forward's and backward's device time per step;
 9. the sparse and biased kernels at the training shape, B=8, H=16,
    T=2048, d=64, bf16, q/k/v views of one qkv tensor: the tutorial's
    block-16 layout with the padding bias (and without it, the ring), the
@@ -281,7 +298,7 @@ JAX package ``deepspeed_tpu``):
     the mask;
 15. checkpoints: phase 5's configuration (GPT-2 350M, T=1024, micro 8,
     bf16, ZeRO-1, AdamW, clip 1.0, dropout 0) with ``WarmupLR``, so the lr
-    moves every step.  Run A trains 3 steps, ``save_checkpoint``\ s to a
+    moves every step.  Run A trains 3 steps, saves (``save_checkpoint``) to a
     temporary directory (removed at the end), trains steps 4-6, reloads
     its own checkpoint and repeats steps 4-6 (the repeat difference).  Run
     B, from other weights (seed 1), calls ``load_checkpoint`` and trains
@@ -289,9 +306,11 @@ JAX package ``deepspeed_tpu``):
     ``exp_avg_sq``) ``torch.equal`` to its host snapshot taken at the save,
     after B's load and after A's reload; the counters, lr, lr-schedule and
     loader state equal; the same batches; step 4's loss bit-equal; steps
-    5-6 within the measured repeat difference (never a constant); 24
-    launches a step of ``flash_fwd_sm90``, ``flash_bwd_dkdv_sm90`` and
-    ``flash_bwd_dq_sm90`` after the load, 0 on the templates;
+    5-6 within the measured repeat difference (never a constant); every
+    step captured (A's one graph holds across its reload, B captures once
+    after its load); 24 launches a kernel run (replays and the warm-up) of
+    ``flash_fwd_sm90``, ``flash_bwd_dkdv_sm90`` and ``flash_bwd_dq_sm90``
+    after the load, 0 on the templates;
     ``InferenceEngine(model, checkpoint=dir)`` gives the params, greedy
     ``generate`` tokens (B=2, T=32, 8 new, the captured token step) and
     served streams (``paged_attention_online_sm90``, launches checked as
@@ -1196,11 +1215,12 @@ def timing(srv, tag, pool_kind, gen, bytes_per_s):
     return out
 
 
-def profile_steps(step, tag, steps=6, unit="decode step"):
+def profile_steps(step, tag, steps=6, unit="decode step", summary=None):
     """Where a step's time goes: ``steps`` calls of ``step()`` (after one
     to reach steady state) under ``torch.profiler``; prints the wall time
     per step, the device's busy and idle shares, the kernel launches per
-    step and the kernels that take the most device time."""
+    step and the kernels that take the most device time.  ``summary``
+    (a dict) receives ``busy_us`` and ``wall_us`` per step."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     step()                                      # steady state first
@@ -1226,6 +1246,8 @@ def profile_steps(step, tag, steps=6, unit="decode step"):
         t, n = by_name.get(e.name, (0.0, 0))
         by_name[e.name] = (t + e.time_range.elapsed_us(), n + 1)
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12]
+    if summary is not None:
+        summary.update(busy_us=busy / steps, wall_us=wall_us / steps)
     print(f"profile {tag}: {wall_us / steps:.1f} us per {unit}, device busy "
           f"{busy / steps:.1f} us ({100 * busy / wall_us:.1f}%), idle "
           f"{100 * (1 - busy / wall_us):.1f}%, {len(kernels) / steps:.1f} kernel "
@@ -1246,87 +1268,219 @@ TRAIN_CONFIG = {
 }
 
 
-def train_engine(dev, np_params, tokens, impl, preset, seq, micro):
+def train_engine(dev, np_params, tokens, impl, preset, seq, micro, step_impl="auto",
+                 optimizer=None):
     model = GPT2(preset=preset, max_seq=seq, dtype=torch.bfloat16, device=dev,
                  embd_pdrop=0.0, attn_pdrop=0.0, resid_pdrop=0.0, remat=False,
                  attention_impl=impl)
-    config = dict(TRAIN_CONFIG, train_micro_batch_size_per_gpu=micro)
+    config = dict(TRAIN_CONFIG, train_micro_batch_size_per_gpu=micro,
+                  optimizer=optimizer or TRAIN_CONFIG["optimizer"])
     engine, _, _, _ = deepspeed_tpu_torch.initialize(
-        config=config, model=model, params=np_params, training_data=(tokens,))
+        config=config, model=model, params=np_params, training_data=(tokens,),
+        step_impl=step_impl)
     return engine
+
+
+TRAIN_PASSES = 3      # timed passes of each step_impl
+
+
+def kernel_runs(eng):
+    """Steps whose kernels ran so far: each graph's replays plus its
+    warm-ups when the step is captured (``step_impl`` "graph" on the card),
+    else the steps taken (``global_steps``, which a load moves: take
+    differences within a run)."""
+    g = eng.stats()["graphs"]
+    if eng.step_impl == "graph" and eng.device.type == "cuda":
+        return g["replays"] + g["warmups"]
+    return eng.global_steps
+
+
+def engine_graphs_line(eng):
+    g = eng.stats()["graphs"]
+    mb = graph_pool_mb(eng)
+    return (f"step_impl {g['step_impl']}: {g['graphs']} graphs ({g['captures']} captures, "
+            f"{g['warmups']} warm-ups, {g['replays']} replays, {g['dropout_draws']} dropout "
+            f"draws re-seeded a replay), graph pool "
+            + ("none" if mb is None else f"{mb:.1f} MB") + " (capture added " + ", ".join(
+                f"{b / 1e6:.1f} MB" for b in g["pool_bytes"].values()) + ")")
+
+
+def ab_train(make, tag, per_step, card, tokens_per_step, flops_per_token, warmup=3,
+             timed=10, passes=TRAIN_PASSES, profile_n=2, first=None, after=None):
+    """The same training run through both step impls, "graph" (the step
+    one CUDA graph) and "eager" (the same body called directly), each from
+    ``make(impl)`` (the same params and data): ``warmup`` steps, then
+    ``passes`` timed passes of ``timed`` steps.  For each impl: exact
+    launches (``per_step`` x the runs: replays and warm-ups when
+    captured), step p50 / p99, tokens/s and MFU of each pass, peak device
+    memory, the graphs and their pool, and a profiled step's busy time
+    against the unprofiled step p50 (the idle share).  ``first(eng, loss,
+    grad_norm)`` checks the graph impl's step 1; ``after(eng, by_name)``
+    runs on the graph engine before it is dropped (with its profile).
+    The losses and grad norms of every step must be bit-equal between the
+    impls.  Returns {impl: {"counts", "p50", ...}}."""
+    out, curves = {}, {}
+    for impl in ("graph", "eager"):
+        eng = make(impl)
+        if eng.step_impl != impl:
+            raise AssertionError(f"{tag}: step_impl {eng.step_impl}, asked for {impl}")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        fa.reset_launches()
+        runs0 = kernel_runs(eng)
+        curve, rows = [], []
+        for i in range(warmup):
+            loss = float(eng.train_batch())
+            curve.append((loss, eng.get_global_grad_norm()))
+            if i == 0:
+                check_launches(f"{tag} {impl} step 1", dict(fa.launches), per_step,
+                               kernel_runs(eng) - runs0)
+                if first is not None and impl == "graph":
+                    first(eng, *curve[0])
+        for _ in range(passes):
+            times = []
+            for _ in range(timed):
+                t0 = time.perf_counter()
+                loss = float(eng.train_batch())
+                torch.cuda.synchronize()
+                times.append(time.perf_counter() - t0)
+                curve.append((loss, eng.get_global_grad_norm()))
+            ms = np.asarray(times) * 1e3
+            tok_s = timed * tokens_per_step / (ms.sum() / 1e3)
+            rows.append((np.percentile(ms, 50), np.percentile(ms, 99), tok_s,
+                         tok_s * flops_per_token / PEAK_OPS["bf16"]))
+        counts = dict(fa.launches)
+        runs = kernel_runs(eng) - runs0
+        check_launches(f"{tag} {impl}", counts, per_step, runs)
+        peak = torch.cuda.max_memory_allocated()
+        losses = [x for x, _ in curve]
+        if not all(math.isfinite(x) for x in losses) or eng.skipped_steps != 0:
+            raise AssertionError(f"{tag} {impl}: losses {losses}, skipped {eng.skipped_steps}")
+        graphs = engine_graphs_line(eng)
+        summary = {}
+        by_name = profile_steps(lambda: eng.train_batch(), f"{tag} {impl}", steps=profile_n,
+                                unit="training step", summary=summary)
+        cols = list(zip(*rows))
+        p50 = statistics.median(cols[0])
+        busy_ms = summary.get("busy_us", float("nan")) / 1e3
+        print(f"ab {tag} {impl}: " + ", ".join(
+            f"{name} {statistics.median(col):.3f} (readings "
+            f"{', '.join(f'{x:.3f}' for x in col)}; spread {max(col) - min(col):.3f})"
+            for name, col in zip(("step p50 ms", "step p99 ms", "tokens/s", "MFU"), cols))
+              + f"; launches per step " + ", ".join(f"{n} {counts[n] // runs}" for n in per_step)
+              + f" over {runs} kernel runs; peak device memory {peak / 1e9:.2f} GB; {graphs}; "
+              f"profiled step busy {busy_ms:.3f} ms, idle {100 * (1 - busy_ms / p50):.1f}% of "
+              f"the unprofiled step p50 ({card})")
+        if after is not None and impl == "graph":
+            after(eng, by_name)
+        out[impl] = {"counts": counts, "p50": p50, "busy_ms": busy_ms, "rows": rows,
+                     "peak_gb": peak / 1e9, "graphs": eng.stats()["graphs"]}
+        curves[impl] = curve
+        del eng
+        gc.collect()
+        torch.cuda.empty_cache()
+    if curves["graph"] != curves["eager"]:
+        diff = [i for i, (a, b) in enumerate(zip(curves["graph"], curves["eager"])) if a != b]
+        raise AssertionError(f"{tag}: captured and eager steps differ at steps {diff}: "
+                             f"{[(curves['graph'][i], curves['eager'][i]) for i in diff[:3]]}")
+    print(f"ab {tag}: losses and grad norms bit-equal, captured vs eager, at all "
+          f"{len(curves['graph'])} steps; step p50 captured {out['graph']['p50']:.3f} ms, eager "
+          f"{out['eager']['p50']:.3f} ms, captured busy {out['graph']['busy_ms']:.3f} ms ({card})")
+    return out
 
 
 def train(dev, card, warmup=3, timed=10, fit_steps=20, preset="gpt2-350m", seq=1024,
           micro=8):
     """Phase 5: GPT-2 training through initialize -> train_batch (350M,
-    T=1024, micro-batch 8 as the driver runs it).  Returns the flash
-    kernels' launches in the timed run."""
+    T=1024, micro-batch 8, the JAX headline configuration), captured and eager
+    (:func:`ab_train`).  Returns the flash kernels' launches in the
+    captured run."""
     vocab = GPT2(preset=preset, device=dev).config.vocab_size
     tokens = np.random.default_rng(0).integers(0, vocab, (64, seq + 1)).astype(np.int32)
     np_params = GPT2(preset=preset, max_seq=seq, device=dev).init_numpy(seed=0)
     eng = train_engine(dev, np_params, tokens, "jnp", preset, seq, micro)
     plain = (float(eng.train_batch()), eng.get_global_grad_norm())
     del eng
+    gc.collect()
     torch.cuda.empty_cache()
 
-    eng = train_engine(dev, np_params, tokens, "flash", preset, seq, micro)
-    model = eng.module
-    n_layer = model.config.n_layer
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    fa.reset_launches()
-    losses, times = [], []
-    for i in range(warmup + timed):
-        t0 = time.perf_counter()
-        losses.append(float(eng.train_batch()))
-        torch.cuda.synchronize()
-        times.append(time.perf_counter() - t0)
-        if i == 0:
-            flash = (losses[0], eng.get_global_grad_norm())
-            first_counts = dict(fa.launches)
-    counts = dict(fa.launches)
-    peak = torch.cuda.max_memory_allocated()
-    print(f"train step 1: loss flash {flash[0]:.6f} plain {plain[0]:.6f}; grad norm "
-          f"flash {flash[1]:.6f} plain {plain[1]:.6f} (tol {STEP1_LOSS_TOL:g} abs, "
-          f"{STEP1_GNORM_TOL:g} rel)")
-    if not (abs(flash[0] - plain[0]) <= STEP1_LOSS_TOL
-            and abs(flash[1] - plain[1]) <= STEP1_GNORM_TOL * abs(plain[1])):
-        raise AssertionError(f"step 1 flash {flash} vs plain {plain}")
-    n_steps = warmup + timed
+    model = GPT2(preset=preset, max_seq=seq, device=dev)
     head_dim = model.config.n_embd // model.config.n_head
     fwd = fa.dense_fwd_kernel(torch.bfloat16, head_dim)
-    per_step = {name: n_layer for name in (fwd, *fa.dense_bwd_kernel(torch.bfloat16, head_dim))}
-    check_launches(f"train {preset} step 1", first_counts, per_step, 1)
-    check_launches(f"train {preset}", counts, per_step, n_steps)
-    if not all(math.isfinite(x) for x in losses) or eng.skipped_steps != 0:
-        raise AssertionError(f"losses {losses}, skipped {eng.skipped_steps}")
-    step_ms = np.asarray(times[warmup:]) * 1e3
-    tok_s = timed * eng.train_batch_size() * model.config.max_seq / (step_ms.sum() / 1e3)
-    mfu = tok_s * model.flops_per_token() / PEAK_OPS["bf16"]
-    print(f"train {preset} T={seq} micro {micro} bf16 zero1: launches per step " +
-          ", ".join(f"{n} {counts[n] // n_steps}" for n in fa.DENSE_KERNELS) +
-          f"; losses finite, skipped 0; {tok_s:.1f} tokens/s, step p50 "
-          f"{np.percentile(step_ms, 50):.3f} ms p99 {np.percentile(step_ms, 99):.3f} ms, "
-          f"MFU {mfu:.4f} of 989 TFLOP/s ({card}), peak device memory "
-          f"{peak / 1e9:.2f} GB; losses {[round(x, 4) for x in losses]}")
+    per_step = {name: model.config.n_layer
+                for name in (fwd, *fa.dense_bwd_kernel(torch.bfloat16, head_dim))}
 
-    fixed = itertools.repeat((tokens[:micro],))
-    fit = [float(eng.train_batch(fixed)) for _ in range(fit_steps)]
-    print(f"train fixed batch: loss {fit[0]:.4f} -> {fit[-1]:.4f} over {fit_steps} steps")
-    if not fit[0] - fit[-1] >= 0.5:
-        raise AssertionError(f"fixed-batch loss fell only {fit[0] - fit[-1]}")
-    by_name = profile_steps(lambda: eng.train_batch(), f"train {preset}", steps=2,
-                            unit="training step")
-    flash = {}
-    for name, (t, c) in by_name.items():
-        m = re.search(r"\b(fwd_sm90_kernel|fwd_kernel|dkdv_kernel|dq_kernel|dense_dkdv_kernel|"
-                      r"dense_dq_kernel)\b", name)
-        if m:
-            t0, c0 = flash.get(m.group(1), (0.0, 0.0))
-            flash[m.group(1)] = (t0 + t, c0 + c)
-    print(f"profile train {preset}: flash kernels' device time per step: " + "; ".join(
-        f"{k} {t:.1f} us ({c:.0f} launches)" for k, (t, c) in flash.items()))
-    return counts
+    def first(eng, loss, gnorm):
+        print(f"train step 1 (captured): loss flash {loss:.6f} plain {plain[0]:.6f}; grad "
+              f"norm flash {gnorm:.6f} plain {plain[1]:.6f} (tol {STEP1_LOSS_TOL:g} abs, "
+              f"{STEP1_GNORM_TOL:g} rel)")
+        if not (abs(loss - plain[0]) <= STEP1_LOSS_TOL
+                and abs(gnorm - plain[1]) <= STEP1_GNORM_TOL * abs(plain[1])):
+            raise AssertionError(f"step 1 flash {(loss, gnorm)} vs plain {plain}")
+
+    def after(eng, by_name):
+        fixed = itertools.repeat((tokens[:micro],))
+        fit = [float(eng.train_batch(fixed)) for _ in range(fit_steps)]
+        print(f"train fixed batch: loss {fit[0]:.4f} -> {fit[-1]:.4f} over {fit_steps} steps")
+        if not fit[0] - fit[-1] >= 0.5:
+            raise AssertionError(f"fixed-batch loss fell only {fit[0] - fit[-1]}")
+        flash = {}
+        for name, (t, c) in by_name.items():
+            m = re.search(r"\b(fwd_sm90_kernel|fwd_kernel|dkdv_kernel|dq_kernel|"
+                          r"dense_dkdv_kernel|dense_dq_kernel)\b", name)
+            if m:
+                t0, c0 = flash.get(m.group(1), (0.0, 0.0))
+                flash[m.group(1)] = (t0 + t, c0 + c)
+        print(f"profile train {preset}: flash kernels' device time per captured step: " +
+              "; ".join(f"{k} {t:.1f} us ({c:.0f} launches)" for k, (t, c) in flash.items()))
+
+    res = ab_train(lambda impl: train_engine(dev, np_params, tokens, "flash", preset, seq,
+                                             micro, step_impl=impl),
+                   f"train {preset} T={seq} micro {micro} bf16 zero1", per_step, card,
+                   micro * seq, model.flops_per_token(), warmup=warmup, timed=timed,
+                   first=first, after=after)
+    for opt in TRAIN_OPTIMIZERS:
+        other_optimizer(dev, np_params, tokens, preset, seq, micro, opt, per_step)
+    return res["graph"]["counts"]
+
+
+# the other optimizers the config admits, each through the captured step too
+TRAIN_OPTIMIZERS = ({"type": "Lamb", "params": {"lr": 6e-4, "weight_decay": 0.01}},
+                    {"type": "SGD", "params": {"lr": 1e-2, "momentum": 0.9,
+                                               "nesterov": True, "weight_decay": 1e-4}})
+
+
+def other_optimizer(dev, np_params, tokens, preset, seq, micro, optimizer, per_step,
+                    steps=3):
+    """``steps`` steps of phase 5's run with ``optimizer`` in place of
+    AdamW, captured and eager from the same weights and data: finite
+    losses, no skip, exact launches, the captured step one graph, every
+    loss and grad norm bit-equal between the impls."""
+    curves = {}
+    for impl in ("graph", "eager"):
+        eng = train_engine(dev, np_params, tokens, "flash", preset, seq, micro,
+                           step_impl=impl, optimizer=optimizer)
+        fa.reset_launches()
+        runs0 = kernel_runs(eng)
+        curves[impl] = [(float(eng.train_batch()), eng.get_global_grad_norm())
+                        for _ in range(steps)]
+        tag = f"train {preset} {optimizer['type']} {impl}"
+        check_launches(tag, dict(fa.launches), per_step, kernel_runs(eng) - runs0)
+        captured = impl == "graph" and eng.device.type == "cuda"
+        if (not all(math.isfinite(x) for x, _ in curves[impl]) or eng.skipped_steps != 0
+                or eng.stats()["graphs"]["graphs"] != captured):
+            raise AssertionError(f"{tag}: {curves[impl]}, skipped {eng.skipped_steps}, "
+                                 f"{eng.stats()['graphs']}")
+        del eng
+        gc.collect()
+        torch.cuda.empty_cache()
+    if curves["graph"] != curves["eager"]:
+        raise AssertionError(f"train {preset} {optimizer['type']}: captured {curves['graph']} "
+                             f"!= eager {curves['eager']}")
+    print(f"train {preset} {optimizer['type']} {optimizer['params']}: {steps} steps captured "
+          f"(one graph) and eager, losses and grad norms bit-equal "
+          f"{[(round(x, 6), round(g, 6)) for x, g in curves['graph']]}, launches per kernel "
+          f"run as AdamW's")
 
 
 def sdpa_backward(qh, kh, vh, doh):
@@ -1868,17 +2022,19 @@ def bert_data(seed, n, T, vocab, padded=True):
 
 
 def bert_engine(dev, base, data, section=SPARSE_SECTION, plain=False, preset="bert-large",
-                seq=2048, micro=8):
+                seq=2048, micro=8, step_impl="auto"):
     """``build(preset)`` -> ``extend_position_embedding`` (to ``seq``) ->
     ``initialize`` -> ``replace_model_self_attention`` with the layout of
     the engine config's ``sparse_attention`` section (``plain``: the
-    ``_masked_dense`` attention instead)."""
+    ``_masked_dense`` attention instead, eager: it copies the layout to the
+    card each call, which a capture refuses)."""
     model = build(preset, dtype=torch.bfloat16, device=dev)
     params, model = extend_position_embedding(base, model, seq)
     config = dict(BERT_CONFIG, train_micro_batch_size_per_gpu=micro,
                   sparse_attention=section)
-    engine, _, _, _ = deepspeed_tpu_torch.initialize(config=config, model=model,
-                                                     params=params, training_data=data)
+    engine, _, _, _ = deepspeed_tpu_torch.initialize(
+        config=config, model=model, params=params, training_data=data,
+        step_impl="eager" if plain else step_impl)
     cfg = build_sparsity_config(engine.config.sparse_attention, model.config.n_head)
     replace_model_self_attention(model, cfg, max_seq_length=seq)
     if plain:
@@ -1899,127 +2055,120 @@ def check_launches(tag, counts, want, steps):
 def bert_train(dev, card, warmup=3, timed=10, fit_steps=20, preset="bert-large", seq=2048,
                micro=8):
     """Phase 8 (and 8b, 8c): BERT MLM training through initialize ->
-    train_batch.  Returns the launches of each phase's run."""
+    train_batch; 8 and 8c captured and eager (:func:`ab_train`).  Returns
+    the launches of each phase's captured run."""
     vocab = build(preset, device=dev).config.vocab_size
     base = build(preset, device=dev).init(0)          # the 512-row position table
     data = bert_data(0, 64, seq, vocab)
     eng = bert_engine(dev, base, data, plain=True, preset=preset, seq=seq, micro=micro)
     plain = (float(eng.train_batch()), eng.get_global_grad_norm())
     del eng
+    gc.collect()
     torch.cuda.empty_cache()
 
-    eng = bert_engine(dev, base, data, preset=preset, seq=seq, micro=micro)
-    model = eng.module
-    L = model.config.n_layer
+    model = build(preset, device=dev)
+    c = model.config
+    L = c.n_layer
     # flash_fwd_lut_sm90, flash_bwd_dkdv_lut_sm90 and flash_bwd_dq_lut_sm90 at BERT-large's
     # head dim 64, with the padding bias (8b: without it)
-    head_dim = model.config.hidden_size // model.config.n_head
+    head_dim = c.hidden_size // c.n_head
     fwd = fa.sparse_fwd_kernel(torch.bfloat16, head_dim, False, True)
     fwd_8b = fa.sparse_fwd_kernel(torch.bfloat16, head_dim, False, False)
     dkdv = fa.sparse_dkdv_kernel(torch.bfloat16, head_dim, False)
     dq = fa.sparse_dq_kernel(torch.bfloat16, head_dim, False)
     per_step = {fwd: 2 * L, dkdv: L, dq: L}
-    lut = fa.layout_luts(model.sparse_self_attention.get_layout(seq), seq,
-                         model.config.n_head, False)
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    fa.reset_launches()
-    losses, times = [], []
-    for i in range(warmup + timed):
-        t0 = time.perf_counter()
-        losses.append(float(eng.train_batch()))
-        torch.cuda.synchronize()
-        times.append(time.perf_counter() - t0)
-        if i == 0:
-            step1 = (losses[0], eng.get_global_grad_norm())
-            check_launches(f"train {preset} step 1", dict(fa.launches), per_step, 1)
-    counts = {"8": dict(fa.launches)}
-    peak = torch.cuda.max_memory_allocated()
-    gaps = (abs(step1[0] - plain[0]), abs(step1[1] - plain[1]) / abs(plain[1]))
-    print(f"train {preset} step 1: loss kernels {step1[0]:.6f} plain {plain[0]:.6f}; grad "
-          f"norm kernels {step1[1]:.6f} plain {plain[1]:.6f} (gaps {gaps[0]:.3e} abs, "
-          f"{gaps[1]:.3e} rel; tol {BERT_STEP1_LOSS_TOL:g} abs, {BERT_STEP1_GNORM_TOL:g} rel)")
-    if not (gaps[0] <= BERT_STEP1_LOSS_TOL and gaps[1] <= BERT_STEP1_GNORM_TOL):
-        raise AssertionError(f"step 1 kernels {step1} vs plain {plain}")
-    n_steps = warmup + timed
-    check_launches(f"train {preset}", counts["8"], per_step, n_steps)
-    if not all(math.isfinite(x) for x in losses) or eng.skipped_steps != 0:
-        raise AssertionError(f"losses {losses}, skipped {eng.skipped_steps}")
-    step_ms = np.asarray(times[warmup:]) * 1e3
-    tok_s = timed * eng.train_batch_size() * seq / (step_ms.sum() / 1e3)
-    mfu = tok_s * model.flops_per_token() / PEAK_OPS["bf16"]
-    print(f"train {preset} T={seq} micro {micro} bf16 zero1 remat sparse16: launches per "
-          f"step " + ", ".join(f"{n} {counts['8'][n] // n_steps}" for n in per_step) +
-          f"; losses finite, skipped 0; {tok_s:.1f} tokens/s (padded positions "
-          f"counted), step p50 {np.percentile(step_ms, 50):.3f} ms p99 "
-          f"{np.percentile(step_ms, 99):.3f} ms, MFU {mfu:.4f} of 989 TFLOP/s by "
-          f"flops_per_token (dense attention FLOPs at T={seq}) ({card}), peak device "
-          f"memory {peak / 1e9:.2f} GB; tile density {lut.tile_density:.3f}, element "
-          f"density {lut.element_density:.4f}; losses {[round(x, 4) for x in losses]}")
+    lut = fa.layout_luts(np.asarray(build_sparsity_config(SPARSE_SECTION, c.n_head)
+                                    .make_layout(seq), np.int32), seq, c.n_head, False)
+    print(f"train {preset} T={seq} micro {micro} bf16 zero1 remat sparse16, hidden dropout "
+          f"{c.hidden_dropout} (captured: each mask from a generator registered with the graph "
+          f"and re-seeded before each replay): tile density {lut.tile_density:.3f}, element "
+          f"density {lut.element_density:.4f}; tokens/s count padded positions, MFU by "
+          f"flops_per_token (dense attention FLOPs at T={seq})")
 
-    first = {key: val[:micro] for key, val in data.items()}
-    fixed = itertools.repeat(first)
-    fit = [float(eng.train_batch(fixed)) for _ in range(fit_steps)]
-    print(f"train {preset} fixed batch: loss {fit[0]:.4f} -> {fit[-1]:.4f} over "
-          f"{fit_steps} steps (margin {BERT_FIT_MARGIN})")
-    if not fit[0] - fit[-1] >= BERT_FIT_MARGIN:
-        raise AssertionError(f"fixed-batch loss fell only {fit[0] - fit[-1]}")
-    by_name = profile_steps(lambda: eng.train_batch(), f"train {preset} sparse16", steps=1,
-                            unit="training step")
-    for what, pattern, name, template in (
-            ("forward", r"\bfwd_lut_sm90_kernel", fwd, "flash_fwd_lut took 87.8"),
-            ("dK/dV", r"\bdkdv_", dkdv, "flash_bwd_dkdv_lut took 78.40"),
-            ("dQ", r"\bdq_", dq, "flash_bwd_dq_lut took ~38.5")):
-        spent = [(t, c) for kname, (t, c) in by_name.items() if re.search(pattern, kname)]
-        print(f"profile train {preset} sparse16: {what} device time per step "
-              f"{sum(t for t, _ in spent) / 1e3:.2f} ms over {sum(c for _, c in spent):.0f} "
-              f"launches ({name}; the template {template} ms a step, PERF.md section 5) "
-              f"({card})")
-    del eng
-    torch.cuda.empty_cache()
+    def first(eng, loss, gnorm):
+        gaps = (abs(loss - plain[0]), abs(gnorm - plain[1]) / abs(plain[1]))
+        print(f"train {preset} step 1 (captured): loss kernels {loss:.6f} plain "
+              f"{plain[0]:.6f}; grad norm kernels {gnorm:.6f} plain {plain[1]:.6f} (gaps "
+              f"{gaps[0]:.3e} abs, {gaps[1]:.3e} rel; tol {BERT_STEP1_LOSS_TOL:g} abs, "
+              f"{BERT_STEP1_GNORM_TOL:g} rel)")
+        if not (gaps[0] <= BERT_STEP1_LOSS_TOL and gaps[1] <= BERT_STEP1_GNORM_TOL):
+            raise AssertionError(f"step 1 kernels {(loss, gnorm)} vs plain {plain}")
+
+    def after(eng, by_name):
+        first_batch = {key: val[:micro] for key, val in data.items()}
+        fixed = itertools.repeat(first_batch)
+        fit = [float(eng.train_batch(fixed)) for _ in range(fit_steps)]
+        print(f"train {preset} fixed batch: loss {fit[0]:.4f} -> {fit[-1]:.4f} over "
+              f"{fit_steps} steps (margin {BERT_FIT_MARGIN})")
+        if not fit[0] - fit[-1] >= BERT_FIT_MARGIN:
+            raise AssertionError(f"fixed-batch loss fell only {fit[0] - fit[-1]}")
+        for what, pattern, name, template in (
+                ("forward", r"\bfwd_lut_sm90_kernel", fwd, "flash_fwd_lut took 87.8"),
+                ("dK/dV", r"\bdkdv_", dkdv, "flash_bwd_dkdv_lut took 78.40"),
+                ("dQ", r"\bdq_", dq, "flash_bwd_dq_lut took ~38.5")):
+            spent = [(t, n) for kname, (t, n) in by_name.items() if re.search(pattern, kname)]
+            print(f"profile train {preset} sparse16: {what} device time per captured step "
+                  f"{sum(t for t, _ in spent) / 1e3:.2f} ms over {sum(n for _, n in spent):.0f} "
+                  f"launches ({name}; the template {template} ms a step, PERF.md section 5) "
+                  f"({card})")
+
+    counts = {"8": ab_train(
+        lambda impl: bert_engine(dev, base, data, preset=preset, seq=seq, micro=micro,
+                                 step_impl=impl),
+        f"train {preset} T={seq} micro {micro} bf16 zero1 remat sparse16", per_step, card,
+        micro * seq, model.flops_per_token(), warmup=warmup, timed=timed, profile_n=1,
+        first=first, after=after)["graph"]["counts"]}
 
     # 8b: unpadded batches (packed sequences): the forward with no bias
+    eng = bert_engine(dev, base, bert_data(1, 16, seq, vocab, False), preset=preset, seq=seq,
+                      micro=micro)
+    torch.cuda.synchronize()
+    fa.reset_launches()
+    run = [float(eng.train_batch()) for _ in range(2)]
+    counts["8b"] = dict(fa.launches)
+    want = {fwd_8b: 2 * L, dkdv: L, dq: L}
+    check_launches(f"train {preset} 8b", counts["8b"], want, kernel_runs(eng))
+    if not all(math.isfinite(x) for x in run) or eng.skipped_steps != 0:
+        raise AssertionError(f"8b: losses {run}, skipped {eng.skipped_steps}")
+    print(f"train {preset} 8b (unpadded, mode fixed): 2 steps, losses "
+          f"{[round(x, 4) for x in run]}, launches per kernel run " + ", ".join(
+              f"{n} {counts['8b'][n] // kernel_runs(eng)}" for n in want)
+          + f"; {engine_graphs_line(eng)}")
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+
     # 8c: "mode": "dense" (an all-ones layout) with padding: the key-bias instances of
     # flash_fwd_sm90 (biased_fwd_kernel) and of flash_bwd_dkdv_sm90 / flash_bwd_dq_sm90
     # (biased_bwd_kernel)
     fwd_8c = fa.biased_fwd_kernel(torch.bfloat16, head_dim, False)
     dkdv_8c, dq_8c = fa.biased_bwd_kernel(torch.bfloat16, head_dim, False)
-    for tag, section, padded, want in (
-            ("8b", SPARSE_SECTION, False, {fwd_8b: 2 * L, dkdv: L, dq: L}),
-            ("8c", {"mode": "dense", "block": 16}, True, {
-                fwd_8c: 2 * L, dkdv_8c: L, dq_8c: L})):
-        eng = bert_engine(dev, base, bert_data(1, 16, seq, vocab, padded), section=section,
-                          preset=preset, seq=seq, micro=micro)
-        torch.cuda.synchronize()
-        fa.reset_launches()
-        run = [float(eng.train_batch()) for _ in range(2)]
-        counts[tag] = dict(fa.launches)
-        check_launches(f"train {preset} {tag}", counts[tag], want, 2)
-        if not all(math.isfinite(x) for x in run) or eng.skipped_steps != 0:
-            raise AssertionError(f"{tag}: losses {run}, skipped {eng.skipped_steps}")
-        print(f"train {preset} {tag} ({'padded' if padded else 'unpadded'}, mode "
-              f"{section['mode']}): 2 steps, losses {[round(x, 4) for x in run]}, launches "
-              f"per step " + ", ".join(f"{n} {counts[tag][n] // 2}" for n in want))
-        if tag == "8c":
-            by_name = profile_steps(lambda: eng.train_batch(), f"train {preset} 8c dense",
-                                    steps=1, unit="training step")
-            spent = {what: [(t, c) for kname, (t, c) in by_name.items()
-                            if re.search(pattern, kname)]
-                     for what, pattern in (("forward", r"\bfwd_sm90_kernel"),
-                                           ("dK/dV", r"\bdense_dkdv_kernel"),
-                                           ("dQ", r"\bdense_dq_kernel"))}
-            ms = {what: sum(t for t, _ in v) / 1e3 for what, v in spent.items()}
-            print(f"profile train {preset} 8c dense: dense biased forward device time per step "
-                  f"{ms['forward']:.2f} ms over {sum(c for _, c in spent['forward']):.0f} "
-                  f"launches ({fwd_8c} {KEY_BIAS}; the template design took 83.8 ms a step, "
-                  f"PERF.md section 5), dense biased backward device time per step "
-                  f"{ms['dK/dV'] + ms['dQ']:.2f} ms (" +
-                  ", ".join(f"{what} {ms[what]:.2f} ms over {sum(c for _, c in spent[what]):.0f} "
-                            f"launches" for what in ("dK/dV", "dQ"))
-                  + f"; {dkdv_8c} / {dq_8c}; the template design took 24 x 4.03 ms a step, "
-                  f"PERF.md section 6) ({card})")
-        del eng
-        torch.cuda.empty_cache()
+    dense = {"mode": "dense", "block": 16}
+    data_8c = bert_data(1, 32, seq, vocab)
+
+    def after_8c(eng, by_name):
+        spent = {what: [(t, n) for kname, (t, n) in by_name.items()
+                        if re.search(pattern, kname)]
+                 for what, pattern in (("forward", r"\bfwd_sm90_kernel"),
+                                       ("dK/dV", r"\bdense_dkdv_kernel"),
+                                       ("dQ", r"\bdense_dq_kernel"))}
+        ms = {what: sum(t for t, _ in v) / 1e3 for what, v in spent.items()}
+        print(f"profile train {preset} 8c dense: dense biased forward device time per captured "
+              f"step {ms['forward']:.2f} ms over {sum(n for _, n in spent['forward']):.0f} "
+              f"launches ({fwd_8c} {KEY_BIAS}; the template design took 83.8 ms a step, "
+              f"PERF.md section 5), dense biased backward device time per step "
+              f"{ms['dK/dV'] + ms['dQ']:.2f} ms (" +
+              ", ".join(f"{what} {ms[what]:.2f} ms over {sum(n for _, n in spent[what]):.0f} "
+                        f"launches" for what in ("dK/dV", "dQ"))
+              + f"; {dkdv_8c} / {dq_8c}; the template design took 24 x 4.03 ms a step, "
+              f"PERF.md section 6) ({card})")
+
+    counts["8c"] = ab_train(
+        lambda impl: bert_engine(dev, base, data_8c, section=dense, preset=preset, seq=seq,
+                                 micro=micro, step_impl=impl),
+        f"train {preset} 8c dense padded", {fwd_8c: 2 * L, dkdv_8c: L, dq_8c: L}, card,
+        micro * seq, model.flops_per_token(), warmup=2, timed=5, profile_n=1,
+        after=after_8c)["graph"]["counts"]
     return counts
 
 
@@ -3342,6 +3491,9 @@ def checkpoint_resume(dev, card, preset="gpt2-350m", seq=1024, micro=8, steps=3,
         if run2[0] != run1[0]:
             raise AssertionError(f"repeat step {steps + 1} loss {run2[0]!r} != {run1[0]!r}")
         repeat_diff = max(abs(x - y) for x, y in zip(run1[1:], run2[1:]))
+        a_graphs = engine_graphs_line(a)
+        if a.step_impl != "graph" or a.stats()["graphs"]["captures"] != 1:
+            raise AssertionError(f"run A's step is not captured once: {a.stats()['graphs']}")
         head_dim = a.module.config.n_embd // a.module.config.n_head
         n_layer = a.module.config.n_layer
         del a
@@ -3359,11 +3511,15 @@ def checkpoint_resume(dev, card, preset="gpt2-350m", seq=1024, micro=8, steps=3,
         if ckpt_counters(b) != counters:
             raise AssertionError(f"loaded counters {ckpt_counters(b)} != {counters}")
         fa.reset_launches()
+        runs0 = kernel_runs(b)
         run_b = run(b)
         counts = dict(fa.launches)
+        runs_b = kernel_runs(b) - runs0
         per_step = {name: n_layer for name in (fa.dense_fwd_kernel(torch.bfloat16, head_dim),
                                                *fa.dense_bwd_kernel(torch.bfloat16, head_dim))}
-        check_launches(f"checkpoint resume {preset}", counts, per_step, steps)
+        check_launches(f"checkpoint resume {preset}", counts, per_step, runs_b)
+        if b.step_impl != "graph" or b.stats()["graphs"]["graphs"] != 1:
+            raise AssertionError(f"run B's step is not captured: {b.stats()['graphs']}")
         same_batches("checkpoint load", b_batches, a_batches[steps:2 * steps])
         if run_b[0] != run1[0]:
             raise AssertionError(f"step {steps + 1} loss after load {run_b[0]!r} != "
@@ -3378,8 +3534,9 @@ def checkpoint_resume(dev, card, preset="gpt2-350m", seq=1024, micro=8, steps=3,
               f"{counters['loader']} equal; steps {steps + 1}-{2 * steps} losses A {run1} "
               f"repeat {run2} B {run_b}; step {steps + 1} bit-equal; steps {steps + 2}-"
               f"{2 * steps} max |B - A| {load_diff!r} <= max |repeat - A| {repeat_diff!r}; "
-              f"launches per step after load " + ", ".join(
-                  f"{n} {counts[n] // steps}" for n in fa.DENSE_KERNELS))
+              f"launches per kernel run after load ({runs_b} runs: {steps} replays and the "
+              f"warm-up) " + ", ".join(f"{n} {counts[n] // runs_b}" for n in fa.DENSE_KERNELS)
+              + f"; A's graph held across its reload ({a_graphs}); B {engine_graphs_line(b)}")
 
         # serving from the checkpoint against the in-memory weights of step `steps`
         ids = np.random.default_rng(15).integers(0, vocab, (2, 32))

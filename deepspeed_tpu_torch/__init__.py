@@ -18,7 +18,7 @@ from .version import __version__
 
 
 def initialize(model=None, training_data=None, config=None, loss_fn=None, params=None,
-               rng_seed=0, device=None, auto_resume=None):
+               rng_seed=0, device=None, auto_resume=None, step_impl="auto"):
     """Build the training engine; returns ``(engine, optimizer,
     dataloader, lr_scheduler)``.
 
@@ -28,13 +28,16 @@ def initialize(model=None, training_data=None, config=None, loss_fn=None, params
     ``loss_fn`` + ``params`` pair, which defaults to CUDA and raises
     without a card.  ``auto_resume`` (then ``DSTPU_AUTO_RESUME``, then
     the config's ``checkpoint.auto_resume``) restarts from the newest
-    valid checkpoint in ``checkpoint.dir``.  The JAX package's client
+    valid checkpoint in ``checkpoint.dir``.  ``step_impl`` ("auto",
+    "graph", "eager") picks how ``train_batch`` runs its step: captured
+    as one CUDA graph ("auto" / "graph" on CUDA) or called directly
+    ("eager", and the CPU).  The JAX package's client
     optimizer / scheduler, mesh, pipeline, elastic and monitor arguments
     are not ported."""
     from .runtime.engine import DeepSpeedEngine
     engine = DeepSpeedEngine(model=model, config=config, training_data=training_data,
                              loss_fn=loss_fn, params=params, rng_seed=rng_seed,
-                             device=device)
+                             device=device, step_impl=step_impl)
     _maybe_auto_resume(engine, auto_resume)
     return engine, engine.optimizer, engine.training_dataloader, engine.lr_scheduler
 

@@ -31,10 +31,12 @@ Deliberate differences:
   biases) from a ``torch.Generator`` seeded with ``rng`` (an int) on the
   model's device, not from JAX's PRNG; parity tests carry JAX's own
   weights across with :func:`bert_params_from_jax`;
-- ``rng`` of ``apply``/``loss`` is an integer seed: dropout masks come
+- ``rng`` of ``apply``/``loss`` is an integer seed (or the engine
+  step's ``FoldedSeed``, ``runtime/step_graph.py``): dropout masks come
   from generators re-seeded inside each block from a splitmix64 hash of
   (seed, layer, site), so ``remat`` (``torch.utils.checkpoint``,
-  ``use_reentrant=False``) recomputes the same masks.  They cannot match
+  ``use_reentrant=False``, ``preserve_rng_state=False``) recomputes the
+  same masks and a captured step's replay draws them too.  They cannot match
   JAX's Bernoulli bits; parity runs use dropout 0;
 - ``partition_specs`` (tensor parallelism) is not ported.
 """
@@ -49,7 +51,7 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from .gpt2 import _dropout, _layer_norm
-from ..inference.engine import sample_seed as _fold
+from ..runtime.step_graph import as_seed, fold as _fold
 from ..utils.device import resolve_device
 from ..utils.logging import warning_once
 
@@ -222,7 +224,7 @@ class Bert:
         B, T = input_ids.shape
         if T > c.max_seq:
             raise ValueError(f"sequence length {T} exceeds max_seq {c.max_seq}")
-        seed = 0 if rng is None else int(rng)
+        seed = as_seed(rng)
         dtype = self.dtype
         pos = torch.arange(T, device=input_ids.device)
         tt = token_type_ids if token_type_ids is not None else torch.zeros_like(input_ids)
@@ -243,7 +245,9 @@ class Bert:
         for i in range(c.n_layer):
             lp = {k: v[i] for k, v in layers.items()}
             args = (x, lp, add_mask, _fold(layer_seed, i), deterministic)
-            x = (checkpoint(self._block, *args, use_reentrant=False) if c.remat
+            # preserve_rng_state=False: as GPT-2's (models/gpt2.py)
+            x = (checkpoint(self._block, *args, use_reentrant=False,
+                            preserve_rng_state=False) if c.remat
                  else self._block(*args))
         return x
 

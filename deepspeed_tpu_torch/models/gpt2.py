@@ -34,13 +34,17 @@ Deliberate differences:
 - the tied head (:func:`tied_head`) keeps JAX's fp32 accumulation of the
   compute-dtype operands; its gradient products take the fp32 cotangent
   rounded to the compute dtype (identical in fp32);
-- ``rng`` is an integer seed, not a PRNG key: dropout masks come from
-  ``torch.Generator``\\ s re-seeded inside each block from a splitmix64
-  hash of (seed, layer, site), so ``remat`` recomputes the same masks.
-  They cannot match JAX's Bernoulli bits; parity runs use dropout 0;
+- ``rng`` is an integer seed (or, inside the engine's step, the
+  ``FoldedSeed`` of ``runtime/step_graph.py``), not a PRNG key: dropout
+  masks come from ``torch.Generator``\\ s re-seeded inside each block
+  from a splitmix64 hash of (seed, layer, site), so ``remat`` recomputes
+  the same masks and a captured step's replay draws them too.  They
+  cannot match JAX's Bernoulli bits; parity runs use dropout 0;
 - ``remat=True`` checkpoints each block with ``torch.utils.checkpoint``
-  (``use_reentrant=False``); the selective ``remat_policy`` values,
-  ``loss_chunk > 0`` and the sequence-parallel ``attention_impl``\\ s
+  (``use_reentrant=False``, ``preserve_rng_state=False``: no mask comes
+  from the default generator, whose state a capture may not read); the
+  selective ``remat_policy`` values, ``loss_chunk > 0`` and the
+  sequence-parallel ``attention_impl``\\ s
   (``ring``, ``ring_flash``, ``ulysses``) raise ``NotImplementedError``;
 - ``attention_impl="auto"`` picks the flash kernels for CUDA tensors
   (JAX: on a TPU) unless attention dropout is active; ``scale_attn=False``
@@ -70,7 +74,7 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
-from ..inference.engine import sample_seed as _fold
+from ..runtime.step_graph import as_seed, dropout_uniform, fold as _fold
 from ..module_inject.module_quantize import is_quantized_leaf, q_gather, q_matmul
 from ..utils.device import resolve_device
 from ..utils.logging import warning_once
@@ -214,13 +218,12 @@ def tied_head(x, wte):
 
 def _dropout(x, rate, seed, deterministic):
     """``where(keep, x / (1 - rate), 0)`` with ``keep`` drawn from a
-    generator seeded by ``seed`` (an int), so a recompute under remat
-    draws the same mask."""
+    generator seeded by ``seed`` (an int, or a captured step's
+    ``FoldedSeed``: ``runtime/step_graph.py``), so a recompute under remat
+    and a replay draw the same mask."""
     if deterministic or rate == 0.0:
         return x
-    g = torch.Generator(device=x.device)
-    g.manual_seed(seed)
-    keep = torch.rand(x.shape, generator=g, device=x.device) < 1.0 - rate
+    keep = dropout_uniform(x.shape, seed, x.device) < 1.0 - rate
     return torch.where(keep, x / (1.0 - rate), torch.zeros_like(x)).to(x.dtype)
 
 
@@ -432,7 +435,7 @@ class GPT2:
             raise NotImplementedError(
                 f"remat_policy={c.remat_policy!r} is not ported (None, "
                 "recompute the whole block, is)")
-        seed = 0 if rng is None else int(rng)
+        seed = as_seed(rng)
         dtype = self.dtype
         pos = torch.arange(T, device=tokens.device)
         x = params["wte"].to(dtype)[tokens] + params["wpe"].to(dtype)[pos]
@@ -445,7 +448,10 @@ class GPT2:
         for i in range(c.n_layer):
             lp = {k: v[i] for k, v in layers.items()}
             args = (x, lp, _fold(layer_seed, i), deterministic, causal_mask)
-            x = (checkpoint(self._block, *args, use_reentrant=False)
+            # no RNG state to preserve: masks come from seeded generators,
+            # never the default one, whose state a capture may not read
+            x = (checkpoint(self._block, *args, use_reentrant=False,
+                            preserve_rng_state=False)
                  if c.remat else self._block(*args))
         x = _layer_norm(x, params["lnf_scale"], params["lnf_bias"],
                         c.layer_norm_eps)

@@ -1,0 +1,1 @@
+"""LAMB of the port (counterpart of ``deepspeed_tpu/ops/lamb``)."""

@@ -14,10 +14,11 @@ the caller builds the layout with ``build_sparsity_config``).
 
 What the port does not run raises ``NotImplementedError`` instead of
 being ignored: world size > 1, ZeRO stage 3 and offload, ``fp16``
-(the loss scaler), an optimizer other than Adam/AdamW, the health
-guardian's host escalation ladder, and every other block of the JAX
-config surface (monitor, compile cache, comms compression, curriculum,
-PLD, ...) set to anything but off.  So is a key the JAX package does not
+(the loss scaler), an optimizer other than Adam, AdamW, Lamb and SGD
+(the 1-bit ones, Adagrad), the health guardian's host escalation
+ladder, and every other block of the JAX config surface (monitor,
+compile cache, comms compression, curriculum, PLD, ...) set to
+anything but off.  So is a key the JAX package does not
 know.  ``prescale_gradients`` / ``gradient_predivide_factor`` and the
 ZeRO bucketing keys are accepted as no-ops, as in the JAX package, and
 listed in ``noop_keys_set``.
@@ -208,9 +209,10 @@ class DeepSpeedConfig:
             if self.optimizer_name is not None:
                 self.optimizer_name = self.optimizer_name.lower()
             self.optimizer_params = opt.get(C.OPTIMIZER_PARAMS, {})
-            if self.optimizer_name not in (None, C.ADAM_OPTIMIZER, C.ADAMW_OPTIMIZER):
-                raise NotImplementedError(f"optimizer {opt.get(C.TYPE)!r}: only Adam and "
-                                          "AdamW are ported")
+            if self.optimizer_name not in (None, C.ADAM_OPTIMIZER, C.ADAMW_OPTIMIZER,
+                                           C.LAMB_OPTIMIZER, C.SGD_OPTIMIZER):
+                raise NotImplementedError(f"optimizer {opt.get(C.TYPE)!r}: only Adam, "
+                                          "AdamW, Lamb and SGD are ported")
         self.scheduler_name = self.scheduler_params = None
         sched = pd.get(C.SCHEDULER)
         if sched is not None:

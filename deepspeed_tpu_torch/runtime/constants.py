@@ -16,6 +16,8 @@ SCHEDULER = "scheduler"
 SCHEDULER_PARAMS = "params"
 ADAM_OPTIMIZER = "adam"
 ADAMW_OPTIMIZER = "adamw"
+LAMB_OPTIMIZER = "lamb"
+SGD_OPTIMIZER = "sgd"
 
 FP16 = "fp16"
 BFLOAT16 = "bf16"

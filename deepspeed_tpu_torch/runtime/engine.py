@@ -2,7 +2,8 @@
 
 Counterpart of ``deepspeed_tpu/runtime/engine.py`` (``DeepSpeedEngine``).
 Ported: ``_resolve_model``'s parameter source (``params=``, else the
-model's own initialiser), ``_configure_optimizer`` (Adam/AdamW),
+model's own initialiser), ``_configure_optimizer`` (Adam, AdamW, Lamb,
+SGD),
 ``_configure_lr_scheduler``,
 ``_init_state`` (compute-dtype params, fp32 master, fp32 Adam moments,
 step counters), ``_grad_fn`` (gradient accumulation in fp32 — or bf16 with
@@ -27,28 +28,57 @@ the master, the parameters and the optimizer state: the skip flag stays
 on the device, so the step needs no host sync, and ``optimizer_steps``
 (Adam's bias-correction step) does not advance on a skip.
 
-Deliberate differences: eager PyTorch instead of one jitted step; the
-state is updated in place (JAX donates it); the engine runs on the
-model's device (ZeRO stages 0-2 share the single-device placement);
-the lr of a step is a host float (the schedules are pure functions of
-the host step counter); dropout seeds are integers folded from
-``(rng_seed, micro_steps, microbatch)`` with splitmix64, not PRNG keys.
+The step (JAX's jitted, donated ``train_step``, :451-455 and
+:1138-1221) is one CUDA graph on the card: ``train_batch`` runs
+``_train_step`` through a :class:`~.step_graph.StepGraph` per (micro-batch
+leaf shapes and dtypes, gas; ``_step_for``) on the engine's own
+``GraphPool``, so every
+micro-batch's forward and backward, the accumulation, the clip, the
+health sentinels, the optimizer update and the commit are one replay.
+Its inputs are static buffers refilled from pinned staging before each
+replay: the stacked ``(gas, micro, ...)`` batch leaves, the lr (a 0-d
+fp32 device tensor, filled from the host ``lr_fn``; the host float stays
+in the metrics) and ``commit``, a 0-d flag that is False during the
+warm-up and the capture, which run the body once each on the static
+values, and True on every real call: it gates the base, the optimizer
+state, the health EMA and both step counters exactly as a skip does, so
+neither trains.  Dropout seeds reach the body as a ``FoldedSeed`` and are
+re-seeded before each replay (``runtime/step_graph.py``).  The state is
+updated in place (the EMA too), so the captured addresses stay valid;
+``train_batch`` returns a clone of the step's loss and keeps clones in
+the metrics.  ``step_impl`` (``DeepSpeedEngine`` / ``initialize``):
+"auto" resolves to "graph", which is a capture on CUDA and a direct call
+of the same body on the CPU; "eager" calls that body directly on the card
+too (the A/B path).  A capture or replay that fails raises naming the
+step; a ``loss_fn`` that reads a device value back to the host cannot be
+captured (``StepGraph`` refuses it during capture) and needs "eager".
+Nothing falls back to eager.  What stays on the host each step: drawing
+the micro-batches, ``fault.site`` / ``fault.corrupt_batch``, the lr
+schedule, the seed folds, the staging copies and the counters' host
+mirrors.
+
+Other deliberate differences: the engine runs on the model's device (ZeRO
+stages 0-2 share the single-device placement); the lr schedules are pure
+functions of the host step counter; dropout seeds are integers folded
+from ``(rng_seed, micro_steps, microbatch)`` with splitmix64, not PRNG
+keys.
 ``load_checkpoint`` copies every leaf into the engine's existing
-tensors (``copy_``), so their addresses stay the same; the device step
-counters are filled in place and the health EMA zeroed in place (JAX
-re-initialises it, :2583-2588).  A checkpoint holds one device's full
-arrays, and its meta records JAX's 1-device mesh (:data:`ONE_DEVICE_MESH`);
-a checkpoint from a larger mesh loads with JAX's warning when the global
-batch changed (``elasticity``, under which JAX raises there, is refused by
-the port's config).  What the port does not run raises
-``NotImplementedError`` naming the key: a loss ``scale`` (fp16) or any
-other optimizer tree but ``opt_state`` / ``master`` / ``comm_error``
-(ignored, as JAX ignores it in an engine without error feedback).
+tensors (``copy_``), so their addresses, and the captured graphs, stay
+valid; the device step counters are filled in place and the health EMA
+zeroed in place (JAX re-initialises it, :2583-2588).  A checkpoint holds
+one device's full arrays, and its meta records JAX's 1-device mesh
+(:data:`ONE_DEVICE_MESH`); a checkpoint from a larger mesh loads with
+JAX's warning when the global batch changed (``elasticity``, under which
+JAX raises there, is refused by the port's config).  What the port does
+not run raises ``NotImplementedError`` naming the key: a loss ``scale``
+(fp16) or any other optimizer tree but ``opt_state`` / ``master`` /
+``comm_error`` (ignored, as JAX ignores it in an engine without error
+feedback).
 
 Not ported: fp16 loss scaling, offload, ZeRO across ranks, the health
 monitor's host ladder (and so rewind), the forward/backward/step shim,
-monitoring, curriculum and PLD (the config raises for each), and client
-optimizer / scheduler objects.
+monitoring, curriculum and PLD (the config raises for each), the 1-bit
+optimizers and CPU Adagrad, and client optimizer / scheduler objects.
 """
 
 import json
@@ -66,10 +96,12 @@ from .config import DeepSpeedConfig
 from . import health as hmod
 from .dataloader import DeepSpeedDataLoader, RepeatingLoader
 from .lr_schedules import get_lr_scheduler
+from .step_graph import GraphPool, StepGraph, fold as _fold
 from .utils import (DummyOptim, clip_by_global_norm, global_norm, tree_cast,
                     tree_leaves, tree_map)
-from ..inference.engine import sample_seed as _fold
 from ..ops.adam.fused_adam import FusedAdam, FusedAdamW
+from ..ops.lamb.fused_lamb import FusedLamb
+from ..ops.sgd import SGD
 from ..utils.device import resolve_device
 from ..utils.logging import log_dist, logger
 
@@ -78,6 +110,31 @@ from ..utils.logging import log_dist, logger
 ONE_DEVICE_MESH = {"pipe": 1, "data": 1, "fsdp": 1, "expert": 1, "seq": 1, "tensor": 1}
 # optimizer-file trees the port loads (comm_error is ignored, see load_checkpoint)
 OPTIM_TREES = ("opt_state", "master", "comm_error")
+STEP_IMPLS = ("auto", "graph", "eager")
+CAPTURE_HINT = ("a loss_fn that reads a device value back to the host cannot be captured; "
+                "train it with step_impl='eager'")
+
+
+def _named_leaves(tree, prefix="batch"):
+    """``{name: leaf}`` over a tree's leaves, names its dict keys and
+    sequence indices joined with ``/``."""
+    if isinstance(tree, dict):
+        return {n: l for k in tree for n, l in _named_leaves(tree[k], f"{prefix}/{k}").items()}
+    if isinstance(tree, (tuple, list)):
+        return {n: l for i, t in enumerate(tree)
+                for n, l in _named_leaves(t, f"{prefix}/{i}").items()}
+    return {prefix: tree}
+
+
+def _like(template, named, prefix="batch"):
+    """The inverse of :func:`_named_leaves`: ``template``'s structure with
+    its leaves taken from ``named``."""
+    if isinstance(template, dict):
+        return {k: _like(v, named, f"{prefix}/{k}") for k, v in template.items()}
+    if isinstance(template, (tuple, list)):
+        items = [_like(t, named, f"{prefix}/{i}") for i, t in enumerate(template)]
+        return type(template)(*items) if hasattr(template, "_fields") else type(template)(items)
+    return named[prefix]
 
 
 def _to_master(params, device):
@@ -96,10 +153,12 @@ class DeepSpeedEngine:
     ``model.device``) or ``loss_fn`` + ``params`` (then ``device``, which
     defaults to CUDA and raises without a card).  Without ``params`` the
     engine takes ``model.init_numpy(rng_seed)`` (GPT-2) or, as the JAX
-    engine's ``_resolve_model`` does, ``model.init(rng_seed)`` (BERT)."""
+    engine's ``_resolve_model`` does, ``model.init(rng_seed)`` (BERT).
+    ``step_impl``: "auto" / "graph" (the step captured on CUDA, called
+    directly on the CPU) or "eager" (called directly on the card too)."""
 
     def __init__(self, model=None, config=None, training_data=None, loss_fn=None,
-                 params=None, rng_seed=0, device=None):
+                 params=None, rng_seed=0, device=None, step_impl="auto"):
         if config is None:
             raise ValueError("DeepSpeed requires a config (dict or JSON path)")
         self.config = DeepSpeedConfig(config)
@@ -123,6 +182,11 @@ class DeepSpeedEngine:
                 raise ValueError("Provide params= or a model with .init_numpy(seed) "
                                  "or .init(seed)")
         self._loss_fn = loss_fn
+        if step_impl not in STEP_IMPLS:
+            raise ValueError(f"step_impl must be one of {STEP_IMPLS}, got {step_impl!r}")
+        self.step_impl = "eager" if step_impl == "eager" else "graph"
+        self._graphs = None                 # the step graphs' GraphPool, made at first use
+        self._steps = {}                    # graph key -> its StepGraph
         self.zero_stage = self.config.zero_optimization_stage
         self.compute_dtype = (torch.bfloat16 if self.config.precision_dtype == "bfloat16"
                               else torch.float32)
@@ -152,7 +216,8 @@ class DeepSpeedEngine:
         log_dist(f"DeepSpeedEngine ready: zero_stage={self.zero_stage} "
                  f"dtype={self.config.precision_dtype} device={self.device} "
                  f"micro_batch={self.train_micro_batch_size_per_gpu()} "
-                 f"gas={self.gradient_accumulation_steps()}", ranks=[0])
+                 f"gas={self.gradient_accumulation_steps()} step_impl={self.step_impl}",
+                 ranks=[0])
 
     # ------------------------------------------------------------------ config
     def _configure_optimizer(self):
@@ -164,6 +229,10 @@ class DeepSpeedEngine:
         if name == "adamw":
             p.pop("adam_w_mode", None)   # implied by the optimizer type
             return FusedAdamW(**p)
+        if name == "lamb":
+            return FusedLamb(**p)
+        if name == "sgd":
+            return SGD(**p)
         return FusedAdam(**p)
 
     def _configure_lr_scheduler(self):
@@ -235,8 +304,7 @@ class DeepSpeedEngine:
             grads, gnorm = clip_by_global_norm(grads, self.config.gradient_clipping)
         else:
             gnorm = global_norm(grads)
-        lr = self._lr_at(self._global_steps)
-        return grads, lr, {"loss": loss, "grad_norm": gnorm, "lr": lr}
+        return grads, {"loss": loss, "grad_norm": gnorm}
 
     def _health_sentinels(self, loss, grads):
         """``(skip, new_health, metrics)``: the device flags gating the step."""
@@ -253,16 +321,20 @@ class DeepSpeedEngine:
         return skip, new_health, {"nonfinite_grads": nf_grads, "nonfinite_loss": nf_loss,
                                   "health_z": z, "loss_spike": spike}
 
-    def _train_step(self, batch, seed):
+    def _train_step(self, batch, seed, lr, commit):
         """One optimizer step over the gas microbatches of ``batch``,
-        committed in place (a ``where`` no-op when skipped)."""
+        committed in place where ``commit`` (a 0-d bool tensor) holds and
+        the step is not skipped (a ``where`` no-op otherwise).  ``lr`` is a
+        0-d fp32 tensor.  Returns the step's device metrics."""
         base = self._base
-        grads, lr, metrics = self._grads_and_metrics(base, batch, seed)
+        grads, metrics = self._grads_and_metrics(base, batch, seed)
         with torch.no_grad():
             skip = torch.zeros((), dtype=torch.bool, device=self.device)
             if self._health_enabled:
-                skip, self.health, sm = self._health_sentinels(metrics["loss"], grads)
+                skip, new_health, sm = self._health_sentinels(metrics["loss"], grads)
                 metrics.update(sm)
+                for old, new in zip(self.health, new_health):
+                    torch.where(commit, new, old, out=old)
             new_base, new_opt = self.optimizer.update(
                 grads, self.opt_state, base, step=self._optimizer_steps + 1, lr=lr)
             del grads
@@ -270,24 +342,49 @@ class DeepSpeedEngine:
                 nf_params = hmod.tree_nonfinite(new_base)
                 skip = skip | nf_params
                 metrics["nonfinite_params"] = nf_params
-            gate = self._health_enabled and (self._health_cfg.skip_nonfinite
-                                             or self._health_cfg.skip_on_spike)
-            commit = ((lambda old, new: old.copy_(torch.where(skip, old, new))) if gate
-                      else (lambda old, new: old.copy_(new)))
-            tree_map(commit, base, new_base)
-            tree_map(commit, self.opt_state, new_opt)
+            keep = skip | ~commit
+
+            def put(old, new):
+                torch.where(keep, old, new, out=old)
+            tree_map(put, base, new_base)
+            tree_map(put, self.opt_state, new_opt)
             if self._needs_master:
                 tree_map(lambda p, m: p.copy_(m), self.params, self.master)
-            skip_i = skip.int()
-            self._optimizer_steps += 1 - skip_i
-            self._skipped_steps += skip_i
+            self._optimizer_steps += (commit & ~skip).int()
+            self._skipped_steps += (commit & skip).int()
         metrics["skip"] = skip
         return metrics
+
+    def _step_for(self, batch, named):
+        """The :class:`StepGraph` of this batch's leaf shapes and dtypes,
+        built at first use; its body rebuilds ``batch``'s structure from
+        the named leaves."""
+        gas = self.gradient_accumulation_steps()
+        key = (tuple((n, a.shape, a.dtype.str) for n, a in sorted(named.items())), gas)
+        step = self._steps.get(key)
+        if step is None:
+            if (self.step_impl == "graph" and self.device.type == "cuda"
+                    and self._graphs is None):
+                self._graphs = GraphPool(self.device)
+            pool = self._graphs if self.step_impl == "graph" else None
+            inputs = {n: torch.from_numpy(np.array(a)) for n, a in named.items()}
+            inputs["commit"] = torch.tensor(False)   # the warm-up and the capture train not
+            inputs["lr"] = torch.zeros((), dtype=torch.float32)
+            shapes = ",".join(f"{n[6:]}:{'x'.join(map(str, a.shape))}"
+                              for n, a in sorted(named.items()))
+
+            def body(seed, commit, lr, **leaves):
+                return self._train_step(_like(batch, leaves), seed, lr, commit)
+            step = self._steps[key] = StepGraph(
+                f"engine.train[{shapes},gas{gas}]", body, inputs, self.device, pool,
+                seeded=True, hint=CAPTURE_HINT)
+        return step
 
     # ------------------------------------------------------------- public API
     def train_batch(self, data_iter=None):
         """One training step (gas microbatches → one optimizer step);
-        returns the step's mean loss as a 0-dim device tensor."""
+        returns the step's mean loss as a 0-dim device tensor (a clone:
+        the next step does not overwrite it)."""
         fault.site("engine.step")        # host-side only
         it = data_iter if data_iter is not None else self._data_iterator
         if it is None:
@@ -300,13 +397,18 @@ class DeepSpeedEngine:
         if fault.is_enabled():
             micro_batches = [fault.corrupt_batch(mb, index) for mb in micro_batches]
         batch = self._stack_microbatches(micro_batches)
-        metrics = self._train_step(batch, _fold(self._rng_seed, self.micro_steps))
+        named = _named_leaves(batch)
+        lr = self._lr_at(self._global_steps)
+        out = self._step_for(batch, named)(step_seed=_fold(self._rng_seed, self.micro_steps),
+                                    commit=np.bool_(True), lr=np.float32(lr), **named)
+        metrics = {k: v.clone() for k, v in out.items()}
+        metrics["lr"] = lr
         return self._finish_step(metrics)
 
     def _stack_microbatches(self, micro_batches):
-        """Host microbatches → one device tree with a leading gas axis."""
-        return tree_map(lambda *xs: torch.from_numpy(np.stack(
-            [np.asarray(x) for x in xs])).to(self.device), *micro_batches)
+        """Host microbatches → one host tree of numpy arrays with a leading
+        gas axis (the step's static inputs take them)."""
+        return tree_map(lambda *xs: np.stack([np.asarray(x) for x in xs]), *micro_batches)
 
     def _finish_step(self, metrics):
         self._last_metrics = metrics
@@ -323,6 +425,21 @@ class DeepSpeedEngine:
                 msg += f", SKIPPED (health sentinel; total {self.skipped_steps})"
             log_dist(msg, ranks=[0])
         return metrics["loss"]
+
+    def stats(self):
+        """The step graphs' counters: ``step_impl``, graphs captured,
+        captures, warm-ups and replays, dropout draws re-seeded per replay,
+        and each graph's pool bytes by its name (the reserved device memory
+        its capture added; 0 without a capture)."""
+        steps = list(self._steps.values())
+        return {"graphs": {
+            "step_impl": self.step_impl,
+            "graphs": sum(s.captured for s in steps),
+            "captures": sum(s.captures for s in steps),
+            "warmups": sum(s.warmups for s in steps),
+            "replays": sum(s.replays for s in steps),
+            "dropout_draws": sum(s.dropout_draws for s in steps),
+            "pool_bytes": {s.name: s.pool_bytes for s in steps}}}
 
     def eval_batch(self, batch, rng=None):
         """The loss of ``batch`` (host arrays) without gradients or update."""

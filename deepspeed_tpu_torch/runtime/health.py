@@ -4,7 +4,10 @@ Counterpart of ``deepspeed_tpu/runtime/health.py``: ``HealthState`` /
 ``init_state``, ``tree_nonfinite``, ``rows_nonfinite`` and
 ``update_ema`` (lines 63-148).  Every function returns device tensors
 and reads nothing back to the host, so the engine's branchless skip-step
-needs no sync.  The host-side ``HealthMonitor`` escalation ladder
+needs no sync.  :func:`update_ema` returns a new state, as JAX's does;
+the engine copies it into its ``HealthState`` tensors in place (gated by
+the step's ``commit`` flag), so a captured step keeps reading and writing
+the same storage.  The host-side ``HealthMonitor`` escalation ladder
 (rewind / abort) is not ported.
 """
 

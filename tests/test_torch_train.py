@@ -119,7 +119,7 @@ def test_config_fields_match_jax(pd):
         "stage": 2, "offload_optimizer": {"device": "cpu"}}}, 1),
     ({"train_batch_size": 8, "zero_optimization": {"stage": 2, "cpu_offload": True}}, 1),
     ({"train_batch_size": 8, "fp16": {"enabled": True}}, 1),
-    ({"train_batch_size": 8, "optimizer": {"type": "Lamb", "params": {}}}, 1),
+    ({"train_batch_size": 8, "optimizer": {"type": "OneBitAdam", "params": {}}}, 1),
     ({"train_batch_size": 8, "monitor": {"enabled": True}}, 1),
     ({"train_batch_size": 8, "checkpoint": {"tag_validation": "Fail"}}, 1),
     ({"train_batch_size": 8, "curriculum_learning": {"enabled": True}}, 1),
