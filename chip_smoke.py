@@ -37,7 +37,9 @@ JAX package ``deepspeed_tpu``):
    pools, and over ``split_cases`` (their own generator): the three pools
    at head dims 64 and 128, windows 1, 4 and 8, lengths at 0, at S - W, on
    the ranks' chunk edges and one row past each kernel's staging buffer,
-   S = 1024 (and 320 for bf16); then the
+   S = 1024 (and 320 for bf16), and the two routed kernels with windows
+   that cross the table's end (lengths S - W + 1 and S - 1 for W 5 and 8,
+   the three pools, their own generator); then the
    dense forward its route takes (``flash_fwd_sm90`` for bf16 at head
    dims 64 and 128, whose first launch waits on an event under a
    deadline; the template ``flash_fwd`` for the rest, and beside every
@@ -67,18 +69,23 @@ JAX package ``deepspeed_tpu``):
    12), its greedy streams identical to the captured serve's request by
    request, three timed passes (tokens/s, decode step p50/p99, TTFT p50,
    every bucket captured by then, each with its readings and spread), its
-   graphs and the memory of their pool, and a profiled decode step (wall,
-   busy and idle shares), then one decode step of each on the same seated
-   state (max |delta logits|); one decode step's logits through the
-   kernels are held against the ``gather`` path;
+   graphs and the memory of their pool (and what each graph's capture
+   added), and a profiled decode step (wall, busy and idle shares, the
+   copies' device time: the tied head reads a copy of ``wte`` padded once,
+   so no step copies the 77 MB table), then one decode step of each on the
+   same seated state (max |delta logits|); one decode step's logits
+   through the kernels are held against the ``gather`` path; each serve
+   prints its first request's TTFT (its bucket's warm-up and capture
+   included) beside the TTFT p50;
 4. timing: each paged kernel, its plain version and a library yardstick
    (``scaled_dot_product_attention`` over pre-gathered K/V, which the port
    never calls) with CUDA events at the phase-3 shape, beside the least
    time the card could take (the bytes the call must move over the
    card's memory rate) and its share of it; each mode's two designs in
    turns (first design, split, split, first design), each the least of its
-   readings; the paged kernels' device time per decode step from the
-   kv16 and kv8 profiles (and phase 11's);
+   readings; the same at phase 16's window (W = 5) on the same seated
+   state, its q from a generator of its own; the paged kernels' device
+   time per decode step from the kv16 and kv8 profiles (and phase 11's);
 5. training: GPT-2 350M at full width (T=1024, micro-batch 8, gas 1,
    bf16, ZeRO-1, AdamW 6e-4 / wd 0.1, clip 1.0, dropout 0, no remat)
    through ``deepspeed_tpu_torch.initialize`` -> ``train_batch()`` on
@@ -213,7 +220,8 @@ JAX package ``deepspeed_tpu``):
     ``int8_matmul_reference`` at the GPT-2 125M and 1.3B weight shapes
     (qkv, proj, fc, fc_proj; the tied head transposed, N = 50257), M in
     {1, 8, 16, 17, 64, 512} (the head also 127, 128, 129 and 272, from a
-    generator of its own), per-tensor scales (and per-channel for the
+    generator of its own) and 40 (phase 16's window products, 8 slots x 5
+    tokens, from another), per-tensor scales (and per-channel for the
     head), bf16 and fp32 outputs, each from the kernel its route names, and
     the earlier tiled design (``int8_mm_nt`` / ``int8_mm_t`` through
     ``int8_matmul_tiled``) at every M > 16 case: fp32 within d = 1e-5 of
@@ -235,9 +243,11 @@ JAX package ``deepspeed_tpu``):
     int8 values dequantized to bf16: its greedy choice on the int8 streams'
     contexts agrees on at least 0.9 of the tokens, one decode step's logits
     within 0.25; ``InferenceEngine.generate`` at int8 (B=4, T=64, +16; its
-    token step captured, 15 replays and a warm-up) against the serving
-    streams (launches per token-step run as per decode step), then three
-    calls on each decode impl, the tokens identical; a
+    prefill captured, one replay and a warm-up, its token step captured,
+    15 replays and a warm-up) against the serving streams (launches per
+    prefill run as per serving prefill, per token-step run as per decode
+    step), the captured prefill's wall per call against its body run
+    eagerly, then three calls on each decode impl, the tokens identical; a
     ``torch.profiler`` breakdown of a decode step of each, with the int8
     products' device time per step, and of a prefill of 272 tokens (the
     mean prompt, its own bucket), captured and eager, with the int8
@@ -319,6 +329,32 @@ JAX package ``deepspeed_tpu``):
     ``.tmp`` that ``load_checkpoint`` skips for the step-3 tag.  Prints the
     model and optimizer files' bytes, save and load seconds (median of 3)
     and the peak host RSS during a save.
+16. speculative serving (``ServingConfig(speculative={"k": 4, "ngram":
+    3})``): GPT-2 125M (bf16, ``init_numpy(seed=0)``) on phase 3's 16
+    requests and 8 loopy prompts (a short random sequence tiled, from a
+    generator of its own), 32 new tokens, kv16 and kv8: a plain serve that
+    keeps each step's top-2 logit gap and a speculative one, each through
+    the launch checks (``paged_attention_online_sm90`` = (replays +
+    warm-ups) x 12 on the one ``spec4`` decode graph, 0 on every other
+    paged kernel), every outcome OK and every block recycled; accepted
+    drafts > 0 on the loopy prompts.  Before the serves, one speculative
+    step against the 5 plain steps it stands for on the same seated state
+    (the window holding the plain steps' own tokens), at kv16 and kv8: max
+    |delta logits| d over every slot and position, within LOGIT_TOL; every
+    request whose speculative stream parts from its plain one must part at
+    a token where the plain step's top-2 gap is within SPEC_GAP_FACTOR x d
+    (the share of plain tokens within that limit printed); at kv16 both
+    decode impls of the speculative serve (identical streams, one step's
+    |delta logits| = 0), three timed passes each (tokens/s, step p50/p99,
+    TTFT p50, accept rate, tokens per step, with their spread), a profiled
+    step with its copies, and plain decode's passes on the same traffic
+    beside them; the decode step's host split (drafter, step call, read),
+    speculative and plain.  Then GPT-2 1.3B with int8 weights on phase 11's
+    traffic, the same noise reading (within INT8_LOGIT_TOL), plain and
+    speculative serves and divergence rule: the window's 40 rows take
+    ``int8_mm_nt_prefill`` (96) and ``int8_mm_t_prefill`` (1) per
+    speculative replay or warm-up and no decode kernel; a profiled
+    speculative step with its int8 products' device time.
 
 Prints a ``{"kernels": [...]}`` line (the dense sm90 kernels' key-bias
 instances as ``flash_fwd_sm90 (key bias)``, ``flash_bwd_dkdv_sm90 (key
@@ -692,6 +728,7 @@ def check_kernels(dev, gen, B=8, H=12, HD=64, BS=16, NB_MAX=64,
                 print(f"kernel-check {name} pool={kind} W={W}: max_abs_err "
                       f"{err:.3e} (tol {TOL[kind]:g})")
     check_split_kernels(dev, max_err)
+    check_window_end(dev, max_err)
     return max_err
 
 
@@ -737,6 +774,40 @@ def check_split_kernels(dev, max_err, H=12, BS=16, seed=18):
               f"lengths {lengths_list}): " +
               ", ".join(f"{name} {err:.3e}" for name, err in errs.items()) +
               f" (tol {TOL[kind]:g})")
+
+
+def check_window_end(dev, max_err, H=12, HD=64, BS=16, nb_max=64, seed=27):
+    """Phase 2, windows past the table's end (a speculative window near the
+    end of a request): ``paged_attention_online_sm90`` and
+    ``paged_attention_exact_sm90`` against the plain version at lengths S -
+    W + 1 and S - 1 for W 5 and 8 (rows past S clamped to S by the kernels,
+    all S rows live for the window's last queries in the plain version),
+    bf16 / int8 / fp32 pools; inputs from a generator of their own."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    S = BS * nb_max
+    for kind in ("bf16", "int8", "fp32"):
+        for W in (5, 8):
+            lengths_list = [S - W + 1, S - 1]
+            pool, dt = paged_pool(dev, gen, kind, len(lengths_list), H, HD, BS, nb_max)
+            perm = torch.randperm(len(lengths_list) * nb_max, generator=gen, device=dev) + 1
+            tables = perm.int().reshape(len(lengths_list), nb_max)     # every block live
+            lengths = torch.tensor(lengths_list, dtype=torch.int32, device=dev)
+            q = torch.randn((len(lengths_list), W, H, HD), generator=gen, device=dev).to(dt)
+            ref = pa.paged_attention_reference(q, pool, tables, lengths, 1)
+            errs = {}
+            for mode, name in pa.KERNELS.items():
+                out = pa.paged_attention(q, pool, tables, lengths, 1, mode=mode)
+                torch.cuda.synchronize()
+                if out.shape != ref.shape or not torch.isfinite(out).all():
+                    raise AssertionError(f"{name} window end W={W}: bad output")
+                errs[name] = (out.float() - ref.float()).abs().max().item()
+                max_err[name] = max(max_err[name], errs[name])
+                if not errs[name] <= TOL[kind]:
+                    raise AssertionError(f"{name} window end pool={kind} W={W}: error "
+                                         f"{errs[name]} above {TOL[kind]}")
+            print(f"window-end-check pool={kind} W={W} S={S} lengths {lengths_list}: "
+                  + ", ".join(f"{name} {err:.3e}" for name, err in errs.items())
+                  + f" (tol {TOL[kind]:g})")
 
 
 def flash_inputs(dev, gen, dt, B, T, H, d, layout):
@@ -938,13 +1009,17 @@ def graph_pool_mb(srv):
                if tuple(seg.get("segment_pool_id", ())) == tuple(pool.handle)) / 1e6
 
 
-def graphs_line(srv):
+def graphs_line(srv, per_graph=False):
     g = srv.stats()["graphs"]
     mb = graph_pool_mb(srv)
-    return (f"decode_impl {g['decode_impl']}: {g['graphs']} graphs ({g['captures']} captures; "
+    line = (f"decode_impl {g['decode_impl']}: {g['graphs']} graphs ({g['captures']} captures; "
             f"decode warm-ups {g['decode_warmups']}, replays {g['decode_replays']}; prefill "
             f"warm-ups {g['prefill_warmups']}, replays {g['prefill_replays']}), graph pool "
             + ("none" if mb is None else f"{mb:.1f} MB"))
+    if per_graph and mb is not None:
+        line += " (MB its capture added, by graph: " + ", ".join(
+            f"{name} {b / 1e6:.1f}" for name, b in g["pool_bytes"].items()) + ")"
+    return line
 
 
 def run_checked(srv, engine, prompts, new, tag, mode):
@@ -955,7 +1030,10 @@ def run_checked(srv, engine, prompts, new, tag, mode):
     == prefill runs x 4 x layers, the tiled ``int8_mm_nt`` 0, ``int8_mm_t``
     == decode runs and ``int8_mm_t_prefill`` == prefill runs (all 0 for a
     float engine), a run being a replay or a warm-up of the step's graph, or
-    an eager step (:func:`step_runs`).
+    an eager step (:func:`step_runs`).  Under speculation (a W = k + 1
+    window) whose decode rows exceed ``DECODE_MAX_M`` the decode runs take
+    the prefill kernels (``int8_mm_nt_prefill`` x 4 x layers and
+    ``int8_mm_t_prefill``) and the decode kernels none.
     Returns (server, paged launches by kernel, tokens)."""
     c = engine.module.config
     torch.cuda.synchronize()
@@ -980,14 +1058,19 @@ def run_checked(srv, engine, prompts, new, tag, mode):
                                  f"expected {expect} ({runs} decode runs)")
     # int8: the block products of each decode step (8 rows) on the decode kernel, of each
     # prefill (a prompt of 32 rows or more) on the prefill kernel, none on the tiled one;
-    # the head once per step (int8_mm_t) or prefill (int8_mm_t_prefill).  A float engine
+    # the head once per step (int8_mm_t) or prefill (int8_mm_t_prefill); a speculative step
+    # of more than DECODE_MAX_M rows (8 slots x 5) on the prefill kernels.  A float engine
     # launches none.
     q = int(engine.quantized)
-    for name, expect in (("int8_mm_nt_decode", q * runs * 4 * c.n_layer),
-                         ("int8_mm_nt_prefill", q * pre * 4 * c.n_layer),
-                         ("int8_mm_nt", 0),
-                         ("int8_mm_t", q * runs),
-                         ("int8_mm_t_prefill", q * pre)):
+    W = 1 if srv.spec is None else srv.spec.k + 1
+    wide = srv.config.batch_slots * W > im.DECODE_MAX_M
+    dec_nt, dec_t = (("int8_mm_nt_prefill", "int8_mm_t_prefill") if wide
+                     else ("int8_mm_nt_decode", "int8_mm_t"))
+    want8 = {"int8_mm_nt_decode": 0, "int8_mm_nt_prefill": q * pre * 4 * c.n_layer,
+             "int8_mm_nt": 0, "int8_mm_t": 0, "int8_mm_t_prefill": q * pre}
+    want8[dec_nt] += q * runs * 4 * c.n_layer
+    want8[dec_t] += q * runs
+    for name, expect in want8.items():
         if int8_counts[name] != expect:
             raise AssertionError(f"{tag}: {name} launched {int8_counts[name]} times, "
                                  f"expected {expect} ({runs} decode runs, {pre} prefill "
@@ -1001,22 +1084,36 @@ def run_checked(srv, engine, prompts, new, tag, mode):
     if srv.allocator.free_blocks != srv.num_blocks - 1:
         raise AssertionError(f"{tag}: {srv.allocator.free_blocks} free of "
                              f"{srv.num_blocks - 1}: blocks leaked")
-    int8_line = (f"int8_mm_nt_decode {int8_counts['int8_mm_nt_decode']} = decode runs x "
-                 f"{4 * c.n_layer}, int8_mm_nt_prefill {int8_counts['int8_mm_nt_prefill']} = "
-                 f"prefill runs x {4 * c.n_layer}, int8_mm_nt {int8_counts['int8_mm_nt']}, "
-                 f"int8_mm_t {int8_counts['int8_mm_t']} = decode runs, int8_mm_t_prefill "
-                 f"{int8_counts['int8_mm_t_prefill']} = prefill runs; "
+    int8_line = ((f"int8_mm_nt_decode {int8_counts['int8_mm_nt_decode']} = decode runs x "
+                  f"{4 * c.n_layer}, int8_mm_nt_prefill {int8_counts['int8_mm_nt_prefill']} = "
+                  f"prefill runs x {4 * c.n_layer}, int8_mm_nt {int8_counts['int8_mm_nt']}, "
+                  f"int8_mm_t {int8_counts['int8_mm_t']} = decode runs, int8_mm_t_prefill "
+                  f"{int8_counts['int8_mm_t_prefill']} = prefill runs; " if not wide else
+                  f"speculative W={W} x {srv.config.batch_slots} slots > DECODE_MAX_M: "
+                  f"int8_mm_nt_prefill {int8_counts['int8_mm_nt_prefill']} = (decode runs + "
+                  f"prefill runs) x {4 * c.n_layer}, int8_mm_t_prefill "
+                  f"{int8_counts['int8_mm_t_prefill']} = decode runs + prefill runs, "
+                  f"int8_mm_nt_decode {int8_counts['int8_mm_nt_decode']}, int8_mm_t "
+                  f"{int8_counts['int8_mm_t']}, int8_mm_nt {int8_counts['int8_mm_nt']}; ")
                  if engine.quantized else "")
+    spec_line = ""
+    if srv.spec is not None:
+        sp = st["speculative"]
+        spec_line = (f"speculative k={sp['k']}: proposed {sp['proposed']}, accepted "
+                     f"{sp['accepted']}, accept rate {sp['accept_rate']}, tokens per step "
+                     f"{sp['tokens_per_step']}; ")
     others = ", ".join(f"{name} {n}" for name, n in counts.items() if name != want)
     print(f"serve {tag}: {len(prompts)} requests OK, {steps} decode steps, {runs} decode "
           f"runs, {pre} prefill runs, {want} launches {counts[want]} = decode runs x "
-          f"{c.n_layer} ({others}); {int8_line}"
+          f"{c.n_layer} ({others}); {int8_line}{spec_line}"
           f"{st['generated_tokens'] / wall:.1f} tokens/s, decode step p50 "
           f"{st['step_ms']['p50']:.3f} ms p99 {st['step_ms']['p99']:.3f} ms, "
-          f"TTFT p50 {st['ttft_ms']['p50']:.1f} ms, wall {wall:.2f} s (captures included), "
+          f"TTFT p50 {st['ttft_ms']['p50']:.1f} ms, first request's TTFT "
+          f"{(res[0]['t_first'] - res[0]['t_submit']) * 1e3:.1f} ms (its bucket's warm-up and "
+          f"capture included), wall {wall:.2f} s (captures included), "
           f"pool {pk.pool_bytes(srv.pool) / 1e6:.1f} MB, peak device memory "
           f"{torch.cuda.max_memory_allocated() / 1e6:.1f} MB (resident before the run "
-          f"{resident / 1e6:.1f} MB); {graphs_line(srv)}")
+          f"{resident / 1e6:.1f} MB); {graphs_line(srv, per_graph=True)}")
     srv.int8_launches = int8_counts
     return srv, counts, {uid: res[uid]["tokens"] for uid in res}
 
@@ -1024,21 +1121,30 @@ def run_checked(srv, engine, prompts, new, tag, mode):
 AB_PASSES = 3   # timed passes of each decode impl
 
 
-def ab_serve(engine, prompts, new, tag, kv_bits, fused_tokens):
+def ab_serve(engine, prompts, new, tag, kv_bits, fused_tokens, spec=None,
+             impls=("fused", "unroll")):
     """The same traffic through both decode impls, "fused" (each step a
     CUDA graph) and "unroll" (the same step bodies, eager).  For each: a
     first pass through :func:`run_checked` (launches, outcomes, recycling;
     every prefill bucket captured), whose streams must equal
     ``fused_tokens`` request by request; AB_PASSES timed passes (tokens/s,
-    decode step p50/p99, TTFT p50); its graphs and their pool; one decode
-    step profiled.  Then one decode step of each on the same seated state:
-    max |delta logits| and the argmax.  Returns {impl: [(tokens/s, p50,
-    p99, TTFT p50), ...]}."""
+    decode step p50/p99, TTFT p50; under speculation (``spec``, the
+    ``speculative`` block) also each pass's accept rate and tokens per
+    step); its graphs and their pool; one decode step profiled.  Then one
+    decode step of each on the same seated state: max |delta logits| and
+    the argmax (under speculation it must be 0), when ``impls`` holds both.
+    Returns {impl:
+    [(tokens/s, p50, p99, TTFT p50[, accept rate, tokens per step]),
+    ...]}."""
     c = engine.module.config
-    cfg = ServingConfig(batch_slots=8, block_size=16, kv_bits=kv_bits, max_new_tokens=new)
+    cfg = ServingConfig(batch_slots=8, block_size=16, kv_bits=kv_bits, max_new_tokens=new,
+                        speculative=spec)
+    names = ("tokens/s", "decode step p50 ms", "decode step p99 ms", "TTFT p50 ms")
+    if spec:
+        names += ("accept rate", "tokens per step")
     readings, logits = {}, {}
     try:
-        for impl in ("fused", "unroll"):
+        for impl in impls:
             c.decode_impl = impl
             srv, _, toks = run_checked(ServingEngine(engine=engine, config=cfg), engine,
                                        prompts, new, f"{tag} {impl}", "auto")
@@ -1051,6 +1157,7 @@ def ab_serve(engine, prompts, new, tag, kv_bits, fused_tokens):
                 # each pass's own step and TTFT percentiles
                 srv._step_wall_hist, srv._ttft_hist = LogHistogram(), LogHistogram()
                 reqs = [Request(tokens=p, uid=1000 * (r + 1) + i) for i, p in enumerate(prompts)]
+                steps0 = srv.stats()["decode_steps"]
                 torch.cuda.synchronize()
                 t0 = time.perf_counter()
                 res = srv.run(reqs)
@@ -1059,36 +1166,46 @@ def ab_serve(engine, prompts, new, tag, kv_bits, fused_tokens):
                 if not all(res[q.uid]["outcome"] == OK for q in reqs):
                     raise AssertionError(f"{tag} {impl}: pass {r} not all OK")
                 st = srv.stats()
-                rows.append((len(prompts) * new / wall, st["step_ms"]["p50"],
-                             st["step_ms"]["p99"], st["ttft_ms"]["p50"]))
+                row = (len(prompts) * new / wall, st["step_ms"]["p50"],
+                       st["step_ms"]["p99"], st["ttft_ms"]["p50"])
+                if spec:
+                    proposed = sum(res[q.uid]["spec"]["proposed"] for q in reqs)
+                    accepted = sum(res[q.uid]["spec"]["accepted"] for q in reqs)
+                    row += (accepted / proposed,
+                            len(prompts) * new / (st["decode_steps"] - steps0))
+                rows.append(row)
             readings[impl] = rows
             cols = list(zip(*rows))
             print(f"ab {tag} {impl}: " + ", ".join(
                 f"{name} {statistics.median(col):.3f} (readings "
                 f"{', '.join(f'{x:.3f}' for x in col)}; spread {max(col) - min(col):.3f})"
-                for name, col in zip(("tokens/s", "decode step p50 ms", "decode step p99 ms",
-                                      "TTFT p50 ms"), cols))
-                  + f"; {graphs_line(srv)}")
+                for name, col in zip(names, cols)) + f"; {graphs_line(srv)}")
             for i, p in enumerate(prompts[:8]):
                 srv.submit(Request(tokens=p, uid=10 ** 6 + i))
-            profile_steps(srv.step, f"{tag} {impl}")
+            copy_device_time(profile_steps(srv.step, f"{tag} {impl}"), f"{tag} {impl}")
             del srv
             # one decode step on the same seated state
             one = ServingEngine(engine=engine, config=cfg)
             seat(one, prompts[::2])
             with torch.no_grad():
-                logits[impl] = one._decode_graph()(toks=one._toks, tables=one._tables,
+                logits[impl] = one._decode_graph()(toks=one._window(seated(one)),
+                                                   tables=one._tables,
                                                    lengths=one._lengths)[0].clone()
             del one
             gc.collect()
     finally:
         c.decode_impl = "auto"
+    if len(logits) < 2:
+        return readings
     err = (logits["fused"] - logits["unroll"]).abs().max().item()
     agree = (logits["fused"].argmax(-1) == logits["unroll"].argmax(-1)).sum().item()
     print(f"ab {tag}: one decode step, captured vs eager: max |delta logits| {err:.3e}, "
-          f"argmax agree {agree}/{logits['fused'].shape[0]}")
+          f"argmax agree {agree}/{logits['fused'].argmax(-1).numel()}")
     if not torch.isfinite(logits["fused"]).all():
         raise AssertionError(f"{tag}: captured decode logits not finite")
+    if spec and err != 0:
+        raise AssertionError(f"{tag}: the captured speculative step's logits differ from the "
+                             f"eager one's by {err}")
     return readings
 
 
@@ -1151,23 +1268,26 @@ def time_ms(fn, n, warmup=L_CYCLE):
     return start.elapsed_time(end) / n
 
 
-def timing(srv, tag, pool_kind, gen, bytes_per_s):
-    """Phase 4 at the seated state of ``srv`` (W = 1): each kernel, the
+def timing(srv, tag, pool_kind, gen, bytes_per_s, W=1):
+    """Phase 4 at the seated state of ``srv`` (a window of ``W`` queries a
+    slot: 1 is plain decode, k + 1 a speculative step): each kernel, the
     plain version, the SDPA yardstick, and the bound."""
     dev, pool = srv.device, srv.pool
     H, HD = pool["k"].shape[3], pool["k"].shape[4]
     B, S = srv._tables.shape[0], srv.nb_max * srv.config.block_size
     tables = torch.as_tensor(srv._tables, device=dev)
     lengths = torch.as_tensor(srv._lengths, device=dev)
-    q = torch.randn((B, 1, H, HD), generator=gen, device=dev).to(torch.bfloat16)
+    q = torch.randn((B, W, H, HD), generator=gen, device=dev).to(torch.bfloat16)
     lens = srv._lengths.astype(np.int64)
-    rows = int(np.minimum(lens + 1, S).sum())
+    rows = int(np.minimum(lens + W, S).sum())               # K/V rows the window reaches
+    # query row w attends min(length + w + 1, S) rows
+    pairs = int(sum(np.minimum(lens + w + 1, S).sum() for w in range(W)))
     nbytes = (q.numel() * 2 * 2                             # q read, out written
               + rows * H * HD * pool["k"].element_size() * 2   # live K and V
               + tables.numel() * 4 + lengths.numel() * 4)
     if pk.is_quantized_pool(pool):
         nbytes += rows * H * pool["k_scale"].shape[-1] * 4 * 2
-    ops = 4 * rows * H * HD                                 # QK and PV
+    ops = 4 * pairs * H * HD                                # QK and PV
     t_bytes = nbytes / bytes_per_s * 1e3
     t_ops = ops / PEAK_OPS[pool_kind] * 1e3
     bound_ms, bound_by = ((t_bytes, "bytes") if t_bytes >= t_ops
@@ -1177,11 +1297,12 @@ def timing(srv, tag, pool_kind, gen, bytes_per_s):
     for layer in range(L_CYCLE):
         k, v = pk.gather_kv(pool, layer, tables, torch.bfloat16)
         dense.append((k.transpose(1, 2).contiguous(), v.transpose(1, 2).contiguous()))
-    mask = (torch.arange(S, device=dev)[None, :]
-            <= lengths.long()[:, None])[:, None, None, :]
+    mask = (torch.arange(S, device=dev)[None, None, :]
+            <= lengths.long()[:, None, None]
+            + torch.arange(W, device=dev)[None, :, None])[:, None]     # (B, 1, W, S)
     qh = q.transpose(1, 2).contiguous()
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    lib = sdpa(qh, *dense[0], attn_mask=mask).transpose(1, 2).reshape(B, 1, H * HD)
+    lib = sdpa(qh, *dense[0], attn_mask=mask).transpose(1, 2).reshape(B, W, H * HD)
     lib_err = (lib.float() - pa.paged_attention_reference(
         q, pool, tables, lengths, 0).float()).abs().max().item()
     if not lib_err <= TOL[pool_kind]:
@@ -1189,7 +1310,7 @@ def timing(srv, tag, pool_kind, gen, bytes_per_s):
     library_ms = time_ms(lambda l: sdpa(qh, *dense[l], attn_mask=mask), 200)
     plain_ms = time_ms(lambda l: pa.paged_attention_reference(
         q, pool, tables, lengths, l), 40)
-    out = {"shape": {"slots": B, "mean_length": float(lens.mean()),
+    out = {"shape": {"slots": B, "mean_length": float(lens.mean()), "window": W,
                      "live_rows": rows, "pool": pool_kind},
            "bytes": nbytes, "ops": ops, "bound_ms": bound_ms,
            "bound_by": bound_by, "plain_ms": plain_ms,
@@ -1206,7 +1327,7 @@ def timing(srv, tag, pool_kind, gen, bytes_per_s):
     for name, rs in readings.items():
         ms = out["kernels_ms"][name] = min(rs)
         design = " (the first design)" if name in pa.TEMPLATES.values() else ""
-        print(f"timing {tag} {name}{design}: {ms * 1e3:.2f} us (readings "
+        print(f"timing {tag} W={W} {name}{design}: {ms * 1e3:.2f} us (readings "
               f"{', '.join(f'{r * 1e3:.2f}' for r in rs)}), bound "
               f"{bound_ms * 1e3:.2f} us ({bound_by}, share {bound_ms / ms:.3f}), plain "
               f"{plain_ms * 1e3:.2f} us, library {library_ms * 1e3:.2f} us, "
@@ -2314,6 +2435,7 @@ def sparse_timing(dev, gen, bytes_per_s, card, B=8, T=2048, H=16, d=64):
 INT8_FP32_TOL = 1e-5
 INT8_M = (1, 8, 16, 17, 64, 512)
 INT8_HEAD_M = (127, 128, 129, 272)   # the head's token tiles' edges and two 136-token tiles
+INT8_SPEC_M = (8 * (4 + 1),)   # phase 16's window products: 8 slots x (SPEC's k = 4, + 1)
 INT8_SHAPES = {name: {"qkv_w": (D, 3 * D), "proj_w": (D, D), "fc_w": (D, 4 * D),
                       "fc_proj_w": (4 * D, D), "wte": (50257, D)}
                for name, D in (("125m", 768), ("1.3b", 2048))}
@@ -2361,7 +2483,8 @@ def check_int8_kernels(dev, gen):
     """Phase 10: the first ``int8_mm_t_prefill`` launch, then the entries
     against the plain version over the 125M and 1.3B weight shapes (the
     head transposed, N = 50257), M in INT8_M (the head also INT8_HEAD_M,
-    drawn from a generator of its own) (``int8_mm_nt_decode`` takes the
+    drawn from a generator of its own) and INT8_SPEC_M, the speculative
+    step's M, drawn from another (``int8_mm_nt_decode`` takes the
     block weights at M <= 16, ``int8_mm_nt_prefill`` the rest;
     ``int8_mm_t`` the head at M <= 16, ``int8_mm_t_prefill`` the rest),
     per-tensor scales (and per-channel for the head), bf16 and fp32
@@ -2375,14 +2498,15 @@ def check_int8_kernels(dev, gen):
     saved = dict(im.launches)
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     head_gen = torch.Generator(device=dev).manual_seed(22)
+    spec_gen = torch.Generator(device=dev).manual_seed(29)
     for preset, shapes in INT8_SHAPES.items():
         for wname, (rows, cols) in shapes.items():
             t = wname == "wte"
             q = torch.randint(-128, 128, (rows, cols), generator=gen, device=dev,
                               dtype=torch.int8)
             K, N = (cols, rows) if t else (rows, cols)
-            for M in INT8_M + (INT8_HEAD_M if t else ()):
-                g = head_gen if M in INT8_HEAD_M else gen
+            for M in INT8_M + (INT8_HEAD_M if t else ()) + INT8_SPEC_M:
+                g = head_gen if M in INT8_HEAD_M else spec_gen if M in INT8_SPEC_M else gen
                 name = (im.int8_t_kernel if t else im.int8_nt_kernel)(M, N, K, True)
                 x = (torch.randn((M, K), generator=g, device=dev) * 0.5).to(torch.bfloat16)
                 routes = [(name, im.int8_matmul)]
@@ -2466,6 +2590,21 @@ def draw_gpt2_params(model, dev, seed):
                        "fc_w": n((L, D, 4 * D), 0.02), "fc_b": zeros(L, 4 * D),
                        "fc_proj_w": n((L, 4 * D, D), proj), "fc_proj_b": zeros(L, D)},
             "lnf_scale": ones(D), "lnf_bias": zeros(D)}
+
+
+def call_ms(fn, n=5, warmup=2):
+    """Wall ms of ``fn()`` through a synchronize, ``n`` readings after
+    ``warmup`` calls."""
+    for _ in range(warmup):
+        fn()
+    out = []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        out.append((time.perf_counter() - t0) * 1e3)
+    return out
 
 
 def tree_bytes(tree):
@@ -2555,13 +2694,28 @@ def int8_serving(dev, card, prompts, preset="gpt2-1.3b", new=32):
     im.reset_launches()
     gen_out = engine.generate(np.stack(gp), max_new_tokens=16).cpu().numpy()[:, 64:]
     gen_launches = dict(im.launches)
-    token_step = engine._token_steps[(4, 80, False)][0]
+    token_step, token_state = engine._token_steps[(4, 80, False)]
     runs = token_step.replays + token_step.warmups      # 15 replays + its warm-up
-    # one eager prefill of 4 x 64 rows, the token step's runs of 4 rows, the head each time
-    if gen_launches != {"int8_mm_nt_prefill": 4 * c.n_layer, "int8_mm_nt": 0,
+    prefill_step = token_state["prefills"][64]
+    pre_runs = prefill_step.replays + prefill_step.warmups      # 1 replay + its warm-up
+    # the captured prefill's runs of 4 x 64 rows, the token step's runs of 4 rows, the head
+    # each time
+    if gen_launches != {"int8_mm_nt_prefill": pre_runs * 4 * c.n_layer, "int8_mm_nt": 0,
                         "int8_mm_nt_decode": runs * 4 * c.n_layer, "int8_mm_t": runs,
-                        "int8_mm_t_prefill": 1} or token_step.replays != 15:
-        raise AssertionError(f"generate launches {gen_launches} ({runs} token-step runs)")
+                        "int8_mm_t_prefill": pre_runs} or token_step.replays != 15 \
+            or (prefill_step.captures, prefill_step.replays) != (1, 1):
+        raise AssertionError(f"generate launches {gen_launches} ({runs} token-step runs, "
+                             f"{pre_runs} prefill runs)")
+    # generate's prefill: its graph's replay against its body run eagerly, wall per call
+    ptoks = torch.as_tensor(np.stack(gp))
+    with torch.no_grad():
+        pre_ms = {"captured": call_ms(lambda: prefill_step(tokens=ptoks)),
+                  "eager": call_ms(lambda: prefill_step.body(
+                      tokens=prefill_step.static["tokens"]))}
+    print(f"generate prefill B=4 T=64 ({prefill_step.name}: {pre_runs} runs in the generate "
+          f"call, launches above), wall ms per call: " + "; ".join(
+              f"{k} {statistics.median(w):.3f} (readings {', '.join(f'{x:.3f}' for x in w)}; "
+              f"spread {max(w) - min(w):.3f})" for k, w in pre_ms.items()))
     # generate's two paths: the captured token step (three calls after the one that
     # captured it) and the eager loop, the same tokens
     gen_ms = {}
@@ -2641,6 +2795,21 @@ def paged_device_time(by_name, tag, layers):
     print(f"profile {tag}: paged attention's device time per decode step {t:.1f} us over "
           f"{n:.1f} launches ({layers} layers): " + "; ".join(
               f"{name[:60]} {tn[0]:.1f} us" for name, tn in paged.items()))
+
+
+def copy_device_time(by_name, tag, unit="decode step"):
+    """The copies' device time per ``unit`` from a profile: every kernel or
+    memcpy whose name says copy (casts, contiguous copies, the static
+    buffers' refills and, before the head was padded once, the 77 MB vocab
+    pad of ``wte``)."""
+    rows = {name: tn for name, tn in by_name.items()
+            if any(k in name.lower() for k in ("copy", "memcpy"))}
+    t = sum(tn[0] for tn in rows.values())
+    n = sum(tn[1] for tn in rows.values())
+    print(f"profile {tag}: copies' device time per {unit} {t:.1f} us over {n:.1f} launches: "
+          + "; ".join(f"{name[:70]} {tn[0]:.1f} us ({tn[1]:.1f})"
+                      for name, tn in sorted(rows.items(), key=lambda kv: -kv[1][0])[:4]))
+    return t
 
 
 def int8_device_time(by_name, preset, unit, kernel, name, head_kernel, head_name):
@@ -3642,6 +3811,263 @@ def checkpoint_resume(dev, card, preset="gpt2-350m", seq=1024, micro=8, steps=3,
         shutil.rmtree(root, ignore_errors=True)
 
 
+# ------------------------------------------------ 16. speculative serving
+SPEC = {"k": 4, "ngram": 3}
+assert INT8_SPEC_M == (8 * (SPEC["k"] + 1),)
+# where a bf16 speculative stream may part from plain decode: the W = k + 1 step runs its
+# GEMMs at M = 8 x 5 rows where the plain step runs M = 8, so its activations round at other
+# places.  Where the two steps' logits differ by at most d, two candidates can swap order
+# only where the plain step's top-2 gap is within 2 d.  d is measured in the same run,
+# before the serves: the largest |delta logits| of one speculative step against the k + 1
+# plain steps it stands for (spec_window_noise), over every kv width of the preset.  Set
+# before phase 16's first run with this rule; the first runs (position 0 only) read d
+# 2.6e-2 to 2.8e-2 at 125M and 5.7e-2 at 1.3B int8 on an H100 80GB HBM3 at 700 W.
+SPEC_GAP_FACTOR = 2.0
+SPEC_LOOPY = 8          # loopy prompts: a short random sequence tiled, the drafter's best case
+
+
+def seated(srv):
+    return [i for i, s in enumerate(srv._slots) if s is not None]
+
+
+class GapServer(ServingEngine):
+    """A plain server that keeps the plain step's top-2 logit gap for each
+    token it decodes, by (uid, token index)."""
+
+    def __init__(self, *args, **kwargs):
+        super().__init__(*args, **kwargs)
+        self.gaps = {}
+
+    def _decode_body(self, toks, tables, lengths):
+        out = super()._decode_body(toks, tables, lengths)
+        self.step_logits = out[0]       # the captured step's static logits, or this call's
+        return out
+
+    def _decode(self, active):
+        res = super()._decode(active)
+        top = self.step_logits.topk(2, dim=-1).values
+        gap = (top[:, 0] - top[:, 1]).cpu().numpy()
+        for i in active:
+            self.gaps[self._slots[i].req.uid, int(self._ngen[i])] = float(gap[i])
+        return res
+
+
+class TimedCall:
+    """``step`` whose calls (the static inputs' refill and the replay's
+    launch) are timed on the host into ``out`` (ms)."""
+
+    def __init__(self, step, out):
+        self.step, self.out = step, out
+
+    def __call__(self, **values):
+        t0 = time.perf_counter()
+        res = self.step(**values)
+        self.out.append((time.perf_counter() - t0) * 1e3)
+        return res
+
+    def __getattr__(self, name):
+        return getattr(self.step, name)
+
+
+class SplitServer(ServingEngine):
+    """A server that times each decode step's parts on the host (ms):
+    ``draft``, building the window (``_window``, the n-gram drafter);
+    ``call``, the step call (refill and replay launch); ``decode``, the
+    whole of ``_decode``, the step wall the stats read.  What is left of
+    ``decode`` is the one read, which waits for the device, and any
+    sampling."""
+
+    def __init__(self, *args, **kwargs):
+        super().__init__(*args, **kwargs)
+        self.split = {"draft": [], "call": [], "decode": []}
+
+    def _window(self, active):
+        t0 = time.perf_counter()
+        win = super()._window(active)
+        self.split["draft"].append((time.perf_counter() - t0) * 1e3)
+        return win
+
+    def _decode_graph(self):
+        return TimedCall(super()._decode_graph(), self.split["call"])
+
+    def _decode(self, active):
+        t0 = time.perf_counter()
+        res = super()._decode(active)
+        self.split["decode"].append((time.perf_counter() - t0) * 1e3)
+        return res
+
+
+def host_split(engine, traffic, new, tag, kv_bits):
+    """The decode step's host split, speculative and plain, on ``traffic``:
+    a first serve (captures), then a timed one whose per-step medians are
+    printed and returned as {mode: {part: median ms}}."""
+    out = {}
+    for mode, spec in (("spec", SPEC), ("plain", None)):
+        srv = SplitServer(engine=engine, config=ServingConfig(
+            batch_slots=8, block_size=16, kv_bits=kv_bits, max_new_tokens=new, speculative=spec))
+        srv.run([Request(tokens=p, uid=i) for i, p in enumerate(traffic)])
+        for v in srv.split.values():
+            v.clear()
+        srv.run([Request(tokens=p, uid=1000 + i) for i, p in enumerate(traffic)])
+        sp = srv.split
+        rest = [d - w - c for d, w, c in zip(sp["decode"], sp["draft"], sp["call"])]
+        out[mode] = {"steps": len(sp["decode"]), "draft": statistics.median(sp["draft"]),
+                     "call": statistics.median(sp["call"]), "read": statistics.median(rest),
+                     "decode": statistics.median(sp["decode"])}
+        print(f"host split {tag} {mode}: per decode step over {out[mode]['steps']} steps, "
+              f"medians on the host's clock: window build (drafter) "
+              f"{out[mode]['draft']:.3f} ms, step call (refill + replay launch) "
+              f"{out[mode]['call']:.3f} ms, the rest (the read, waiting on the device, and "
+              f"sampling) {out[mode]['read']:.3f} ms; the whole step "
+              f"{out[mode]['decode']:.3f} ms")
+        del srv
+    return out
+
+
+def spec_divergence(tag, plain, spec, gaps, limit):
+    """Where speculative streams part from the plain ones: each request's
+    first differing token index and the plain step's top-2 gap there,
+    which must be within ``limit``.  Prints the share of all plain tokens
+    whose gap is within it (where the rule would let a stream part)."""
+    parted = []
+    for u in sorted(plain):
+        j = next((j for j, (a, b) in enumerate(zip(plain[u], spec[u])) if a != b), None)
+        if j is None:
+            continue
+        gap = gaps.get((u, j))
+        parted.append((u, j, gap))
+        if gap is None or not gap <= limit:
+            raise AssertionError(f"{tag}: uid {u} parts from plain decode at token {j} where "
+                                 f"the plain step's top-2 gap is {gap} (limit {limit})")
+    within = sum(g <= limit for g in gaps.values())
+    print(f"spec vs plain {tag}: {len(plain) - len(parted)}/{len(plain)} streams identical; "
+          f"partings (uid, token, plain top-2 gap): {parted} (limit {limit:.4e}); plain "
+          f"tokens with a top-2 gap within the limit: {within}/{len(gaps)} "
+          f"({within / len(gaps):.4f})")
+    return parted
+
+
+def spec_serve(engine, traffic, new, tag, kv_bits, limit, loopy=()):
+    """A plain serve that records its gaps and a speculative one on the
+    same traffic, both through :func:`run_checked` (launches, outcomes,
+    recycling); accepted drafts > 0 on the ``loopy`` uids; the divergence
+    rule at ``limit``.  Returns (speculative server, its tokens, plain
+    tokens)."""
+    base = dict(batch_slots=8, block_size=16, kv_bits=kv_bits, max_new_tokens=new)
+    plain_srv = GapServer(engine=engine, config=ServingConfig(**base))
+    _, _, plain = run_checked(plain_srv, engine, traffic, new, f"{tag} plain", "auto")
+    srv, _, spec = run_checked(ServingEngine(engine=engine, config=ServingConfig(
+        **base, speculative=SPEC)), engine, traffic, new, f"{tag} spec", "auto")
+    if srv._decode_step.name != (f"serving.decode[8x{srv.nb_max}x16,kv{kv_bits},"
+                                 f"spec{SPEC['k']}]"):
+        raise AssertionError(f"{tag}: decode step {srv._decode_step.name}")
+    if loopy:
+        accepted = sum(srv.results[u]["spec"]["accepted"] for u in loopy)
+        print(f"spec {tag}: accepted drafts on the loopy prompts {accepted} of "
+              f"{sum(srv.results[u]['spec']['proposed'] for u in loopy)} proposed")
+        if not accepted > 0:
+            raise AssertionError(f"{tag}: no draft accepted on the loopy prompts")
+    spec_divergence(tag, plain, spec, plain_srv.gaps, limit)
+    return srv, spec, plain
+
+
+def spec_window_noise(engine, prompts, tag, kv_bits, tol):
+    """One speculative step against the k + 1 plain steps it stands for,
+    on the same seated state: the window holds the current token and the
+    plain steps' own next k tokens (a draft accepted whole), so window
+    position i sees what plain step i saw.  Max |delta logits| over every
+    slot and position, which must be within ``tol``; returns it."""
+    W = SPEC["k"] + 1
+    cfg = dict(batch_slots=8, block_size=16, kv_bits=kv_bits, max_new_tokens=W + 2)
+    plain = GapServer(engine=engine, config=ServingConfig(**cfg))
+    spec = ServingEngine(engine=engine, config=ServingConfig(**cfg, speculative=SPEC))
+    seat(plain, prompts)
+    seat(spec, prompts)
+    rows = seated(spec)
+    if rows != seated(plain) or not np.array_equal(plain._toks, spec._toks):
+        raise AssertionError(f"{tag}: the two servers seated different states")
+    lp = []
+    for _ in range(W):
+        plain.step()
+        lp.append(plain.step_logits[rows].clone())
+    lp = torch.stack(lp, dim=1)
+    win = np.repeat(spec._toks[:, None], W, axis=1)
+    for i in rows:
+        win[i, 1:] = plain._slots[i].out_tokens[1:W]
+    with torch.no_grad():
+        ls = spec._decode_graph()(toks=win, tables=spec._tables,
+                                  lengths=spec._lengths)[0][rows]
+    if not (torch.isfinite(ls).all() and torch.isfinite(lp).all()):
+        raise AssertionError(f"{tag}: window logits not finite")
+    err = (lp - ls).abs()
+    by_pos = err.amax(dim=(0, 2)).tolist()
+    err = max(by_pos)
+    print(f"spec window noise {tag}: one speculative step vs the {W} plain steps it stands "
+          f"for, max |delta logits| {err:.3e} (by window position "
+          f"{', '.join(f'{e:.3e}' for e in by_pos)}; tolerance {tol}), argmax agree "
+          f"{(lp.argmax(-1) == ls.argmax(-1)).sum().item()}/{len(rows) * W}")
+    if not err <= tol:
+        raise AssertionError(f"{tag}: the speculative step's logits differ from plain "
+                             f"decode's by {err} (tolerance {tol})")
+    del plain, spec
+    return err
+
+
+def spec_serving(dev, card, prompts, new=32, presets=("gpt2-125m", "gpt2-1.3b")):
+    """Phase 16: speculative serving (k = 4, ngram 3) of GPT-2 125M (bf16,
+    ``init_numpy(seed=0)``) on phase 3's 16 requests and SPEC_LOOPY loopy
+    prompts, kv16 and kv8, then GPT-2 1.3B with int8 weights on phase 11's
+    traffic.  Returns the 1.3B speculative serve's int8 launches."""
+    model = GPT2(preset=presets[0], dtype=torch.bfloat16, device=dev)
+    engine = InferenceEngine(model, params_from_jax(model.init_numpy(seed=0), dev,
+                                                    torch.bfloat16))
+    rng = np.random.default_rng(16)
+    V = model.config.vocab_size
+    loopy = [np.tile(rng.integers(0, V, (int(rng.integers(4, 17)),)), 64)[:int(n)]
+             for n in rng.integers(64, 257, (SPEC_LOOPY,))]
+    traffic = list(prompts) + loopy
+    loopy_uids = range(len(prompts), len(traffic))
+    noise = max(spec_window_noise(engine, prompts[::2], f"125M kv{kv_bits}", kv_bits,
+                                  LOGIT_TOL) for kv_bits in (16, 8))
+    limit = SPEC_GAP_FACTOR * noise
+    print(f"spec gap limit 125M: {SPEC_GAP_FACTOR} x {noise:.4e} = {limit:.4e}")
+    for kv_bits in (16, 8):
+        tag = f"125M kv{kv_bits}"
+        srv, spec, plain = spec_serve(engine, traffic, new, tag, kv_bits, limit, loopy_uids)
+        del srv
+        if kv_bits == 16:
+            ab_serve(engine, traffic, new, f"{tag} spec", 16, spec, spec=SPEC)
+            ab_serve(engine, traffic, new, f"{tag} plain (phase 16 traffic)", 16, plain,
+                     impls=("fused",))
+            host_split(engine, traffic, new, tag, 16)
+        gc.collect()
+    del engine, model
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # GPT-2 1.3B, int8 weights: the window's products take the prefill kernels
+    model = GPT2(preset=presets[1], dtype=torch.bfloat16, device=dev)
+    engine = deepspeed_tpu_torch.init_inference(model, params=draw_gpt2_params(model, dev, 0),
+                                                dtype=torch.int8)
+    gc.collect()
+    noise = spec_window_noise(engine, prompts[::2], "1.3B int8w kv16", 16, INT8_LOGIT_TOL)
+    limit = SPEC_GAP_FACTOR * noise
+    print(f"spec gap limit 1.3B int8w: {SPEC_GAP_FACTOR} x {noise:.4e} = {limit:.4e}")
+    srv, _, _ = spec_serve(engine, prompts, new, "1.3B int8w kv16", 16, limit)
+    launches = dict(srv.int8_launches)
+    prof = ServingEngine(engine=engine, config=ServingConfig(
+        batch_slots=8, block_size=16, max_new_tokens=new, speculative=SPEC))
+    for i, p in enumerate(prompts[:8]):
+        prof.submit(Request(tokens=p, uid=i))
+    by_name = profile_steps(prof.step, "1.3B int8w spec")
+    int8_device_time(by_name, "gpt2-1.3b", "speculative step", "int8_prefill_kernel",
+                     "int8_mm_nt_prefill", "int8_t_prefill_kernel", "int8_mm_t_prefill")
+    del srv, prof, engine, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false", file=sys.stderr)
@@ -3684,6 +4110,14 @@ def main():
     bw = peak_bytes_per_s(kind)
     t16 = timing(srv16, "kv16", "bf16", gen, bw)
     t8 = timing(srv8, "kv8", "int8", gen, bw)
+    # the speculative step's window (phase 16) at the same seated state; its q from a
+    # generator of its own
+    spec_gen = torch.Generator(device=dev).manual_seed(28)
+    t16w = timing(srv16, "kv16", "bf16", spec_gen, bw, W=SPEC["k"] + 1)
+    t8w = timing(srv8, "kv8", "int8", spec_gen, bw, W=SPEC["k"] + 1)
+    print(json.dumps({"paged_timing_spec_window": {
+        tag: {k: t[k] for k in ("kernels_ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+                                "shape")} for tag, t in (("kv16", t16w), ("kv8", t8w))}}))
     kernels = [{"name": name, "route": "cuda", "source": SOURCE,
                 "replaces": REPLACES[name], "launches": launches[name],
                 "max_abs_err": max_err[name], "ms": t16["kernels_ms"][name],
@@ -3695,7 +4129,9 @@ def main():
         "shape")}}))
     print(json.dumps({"bf16_pool_shape": t16["shape"]}))
     for tag, srv in (("kv16", srv16), ("kv8", srv8)):
-        paged_device_time(profile_steps(srv.step, tag), tag, model.config.n_layer)
+        by_name = profile_steps(srv.step, tag)
+        paged_device_time(by_name, tag, model.config.n_layer)
+        copy_device_time(by_name, tag)
     del srv16, srv8, engine
     torch.cuda.empty_cache()
 
@@ -3764,6 +4200,10 @@ def main():
 
     # 15. checkpoints: train -> save -> resume -> serve at phase 5's configuration
     print(json.dumps({"checkpoint": checkpoint_resume(dev, card)}))
+    torch.cuda.empty_cache()
+
+    # 16. speculative serving: 125M bf16 (kv16, kv8), then 1.3B int8 weights
+    print(json.dumps({"spec_int8_launches": spec_serving(dev, card, prompts)}))
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -5,8 +5,8 @@ journal and transfer queue are not ported yet)."""
 from .engine import InferenceEngine
 from .serving import (OK, OUTCOMES, POISONED, QueueFullError, Request,
                       ServingConfig, ServingEngine, ServingError,
-                      ServingStalledError)
+                      ServingStalledError, SpeculativeConfig)
 
 __all__ = ["InferenceEngine", "ServingEngine", "ServingConfig", "Request",
-           "ServingError", "QueueFullError", "ServingStalledError",
-           "OK", "POISONED", "OUTCOMES"]
+           "SpeculativeConfig", "ServingError", "QueueFullError",
+           "ServingStalledError", "OK", "POISONED", "OUTCOMES"]

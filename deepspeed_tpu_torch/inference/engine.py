@@ -15,15 +15,20 @@ itself.
 
 ``generate`` (JAX 232-330) makes the JAX engine's two dispatches: the
 prefill, then the token step.  With the model's ``decode_impl`` "fused"
-(the default) the token step is one CUDA graph (``runtime/step_graph.py``)
-over a static cache and token buffer, replayed ``max_new_tokens - 1``
-times: the greedy token feeds back on the device and the host reads
-nothing until the end; ``"unroll"`` keeps a Python loop of eager steps,
-and the CPU calls the token step's body directly.
+(the default) each is one CUDA graph (``runtime/step_graph.py``) over a
+static cache and token buffer: the prefill, one graph per (B, T,
+max_len, do_sample) as JAX jits it per shape (269-274), resets the
+cache, writes it and ``seq[:, :T]`` and the greedy first token; the
+token step, one graph per (B, max_len, do_sample), is replayed
+``max_new_tokens - 1`` times: the greedy token feeds back on the device
+and the host reads nothing until the end.  Token steps sit in an LRU of
+``TOKEN_STEPS_CAP`` graphs, and each keeps its prefills, which write its
+cache, in an LRU of its own under the same cap (they leave with it).  ``"unroll"`` keeps a Python loop of eager steps, and the CPU calls
+the steps' bodies directly.  The tied head reads the engine's
+:meth:`InferenceEngine.decode_head`, padded once, never per step.
 
 Deliberate differences: the JAX ``lax.scan`` over tokens becomes a graph
-replayed once a token; the prefill runs eagerly (one forward per call,
-JAX jits it too); sampling draws token ``i`` of the continuation from a
+replayed once a token; sampling draws token ``i`` of the continuation from a
 generator seeded by ``(seed, i)`` (:func:`sample_seed`), after each
 replay from the step's static logits, so it is reproducible within the
 port but not bit-identical to JAX's ``fold_in(PRNGKey(seed), i)``;
@@ -132,9 +137,11 @@ class InferenceEngine:
         else:
             self.dtype = model.dtype
             self.params = _to(params, self.device, self.dtype)
-        self._graphs = None       # the token steps' GraphPool, made at first use
-        # (B, max_len, do_sample) → (StepGraph, its state), LRU-ordered
+        self._graphs = None       # generate's GraphPool, made at first use
+        # (B, max_len, do_sample) → (StepGraph, its state), LRU-ordered; the
+        # state holds the step's prefills
         self._token_steps = OrderedDict()
+        self._head = None         # the tied head padded for decode, made at first use
         log_dist(f"InferenceEngine ready: device={self.device} "
                  f"dtype={self.dtype} quantized={self.quantized}", ranks=[0])
 
@@ -158,7 +165,7 @@ class InferenceEngine:
         ``max_len`` (the cache's length) defaults to ``T +
         max_new_tokens`` and may not be smaller (JAX 252-253)."""
         model, deq = resolve_decode_params(self.module)
-        tokens = torch.as_tensor(tokens, dtype=torch.long, device=self.device)
+        tokens = torch.as_tensor(tokens, dtype=torch.long)
         B, T = tokens.shape
         total = T + max_new_tokens
         max_len = max_len or total
@@ -166,26 +173,35 @@ class InferenceEngine:
             raise ValueError(f"max_len {max_len} must cover prompt + new tokens "
                              f"({T} + {max_new_tokens} = {total})")
         if model.decode_impl() == "unroll":
-            return self._generate_unroll(model, deq(self.params), tokens,
+            return self._generate_unroll(model, deq(self.params), tokens.to(self.device),
                                          max_new_tokens, temperature, do_sample,
                                          top_k, seed, max_len)
         step, st = self._token_step(model, deq, B, max_len, do_sample)
-        step.prepare()                      # its warm-up advances the cache: reset after
-        cache, seq = st["cache"], st["seq"]
-        for t in (cache["k"], cache["v"], cache["index"]):
-            t.zero_()
-        logits, _ = model.apply_with_cache(st["params"], tokens, cache)
-        seq[:, :T] = tokens
-        seq[:, T] = self._select(logits[:, -1], do_sample, temperature, top_k, seed, 0)
+        prefill = self._prefill_step(model, st, B, T, max_len, do_sample)
+        st["head"].sync()
+        step.prepare()                      # its warm-up advances the cache: the prefill resets it
+        last = prefill(tokens=tokens)
+        seq = st["seq"]
+        if do_sample:
+            seq[:, T] = sample_logits(last, temperature, top_k, seed, 0)
         for i in range(1, max_new_tokens):
             logits = step()
             if do_sample:
                 seq[:, T + i] = sample_logits(logits, temperature, top_k, seed, i)
         return seq[:, :total].clone()
 
+    def decode_head(self, model, params):
+        """The tied head's weight padded once for this engine's decode
+        steps (``models/gpt2.py`` :class:`PaddedHead`), made at first use;
+        the serving engines built on this engine share it."""
+        if self._head is None:
+            self._head = model.decode_head(params)
+        return self._head
+
     def _token_step(self, model, deq, B, max_len, do_sample):
         """The captured token step of ``(B, max_len, do_sample)`` and its
-        state (params, cache, the token sequence), built at first use."""
+        state (params, the padded head, cache, the token sequence, and its
+        prefills by T, which write that cache), built at first use."""
         key = (B, max_len, bool(do_sample))
         hit = self._token_steps.get(key)
         if hit is not None:
@@ -193,28 +209,62 @@ class InferenceEngine:
             return hit
         if self._graphs is None and self.device.type == "cuda":
             self._graphs = GraphPool(self.device)
-        st = {"params": deq(self.params),          # once, outside the token loop
+        params = deq(self.params)                  # once, outside the token loop
+        st = {"params": params, "head": self.decode_head(model, params),
               "cache": model.init_cache(B, max_len),
-              "seq": torch.zeros((B, max_len), dtype=torch.long, device=self.device)}
+              "seq": torch.zeros((B, max_len), dtype=torch.long, device=self.device),
+              "prefills": OrderedDict()}
 
         def body():
             """Feed ``seq[:, index]``, advance the cache; greedy: write the
             argmax at ``seq[:, index + 1]``, sampled: return the logits."""
             cache, seq = st["cache"], st["seq"]
             tok = seq.index_select(1, cache["index"].reshape(1))
-            logits, _ = model.apply_with_cache(st["params"], tok, cache)
+            logits, _ = model.apply_with_cache(st["params"], tok, cache, st["head"].weight)
             logits = logits[:, -1]
             if not do_sample:
                 seq.index_copy_(1, cache["index"].reshape(1),
                                 torch.argmax(logits, dim=-1)[:, None])
             return logits
 
-        step = StepGraph(f"generate.token[{B}x{max_len},{'sample' if do_sample else 'greedy'}]",
+        step = StepGraph(f"generate.token[{B}x{max_len},{_mode(do_sample)}]",
                          body, {}, self.device, self._graphs)
         while len(self._token_steps) >= TOKEN_STEPS_CAP:
             self._token_steps.popitem(last=False)
         self._token_steps[key] = (step, st)
         return step, st
+
+    def _prefill_step(self, model, st, B, T, max_len, do_sample):
+        """The captured prefill of ``T`` prompt tokens into the token step's
+        state ``st`` (its ``(B, max_len, do_sample)``), kept in
+        ``st["prefills"]`` and built at first use: it zeroes the cache,
+        runs the prompt, writes ``seq[:, :T]`` and, greedy, the first token
+        at ``seq[:, T]``; it returns the last row's logits (a sampled first
+        token is drawn from them after the replay)."""
+        steps = st["prefills"]
+        step = steps.get(T)
+        if step is not None:
+            steps.move_to_end(T)
+            return step
+
+        def body(tokens):
+            cache, seq = st["cache"], st["seq"]
+            for t in (cache["k"], cache["v"], cache["index"]):
+                t.zero_()
+            logits, _ = model.apply_with_cache(st["params"], tokens, cache, st["head"].weight)
+            seq[:, :T] = tokens
+            last = logits[:, -1]
+            if not do_sample:
+                seq[:, T] = torch.argmax(last, dim=-1)
+            return last
+
+        step = StepGraph(f"generate.prefill[{B}x{T},{max_len},{_mode(do_sample)}]", body,
+                         {"tokens": torch.zeros((B, T), dtype=torch.long)}, self.device,
+                         self._graphs)
+        while len(steps) >= TOKEN_STEPS_CAP:
+            steps.popitem(last=False)
+        steps[T] = step
+        return step
 
     @staticmethod
     def _select(logits, do_sample, temperature, top_k, seed, index):
@@ -225,14 +275,17 @@ class InferenceEngine:
     def _generate_unroll(self, model, params, tokens, max_new_tokens, temperature,
                          do_sample, top_k, seed, max_len):
         """``decode_impl="unroll"``: a Python loop of eager token steps."""
+        head = self.decode_head(model, params)
+        head.sync()
         cache = model.init_cache(tokens.shape[0], max_len)
-        logits, cache = model.apply_with_cache(params, tokens, cache)
+        logits, cache = model.apply_with_cache(params, tokens, cache, head.weight)
         out = []
         for i in range(max_new_tokens):
             nxt = self._select(logits[:, -1], do_sample, temperature, top_k, seed, i)
             out.append(nxt)
             if i + 1 < max_new_tokens:
-                logits, cache = model.apply_with_cache(params, nxt[:, None], cache)
+                logits, cache = model.apply_with_cache(params, nxt[:, None], cache,
+                                                       head.weight)
         return torch.cat([tokens, torch.stack(out, dim=1)], dim=1)
 
     @staticmethod
@@ -250,6 +303,10 @@ class InferenceEngine:
         else:
             path = load_dir
         return load_tree(path)["params"]
+
+
+def _mode(do_sample):
+    return "sample" if do_sample else "greedy"
 
 
 def _any_leaf(tree, pred):

@@ -172,7 +172,15 @@ def write_tokens(pool, layer: int, block_tables, lengths, k, v):
     first window token's position (token i lands at ``lengths + i``);
     ``k``/``v``: (B, W, H, hd) in the compute dtype.  All-scratch slots
     write block 0, and a position past the table's end is redirected to
-    the scratch block instead of overwriting the table's last block."""
+    the scratch block instead of overwriting the table's last block.
+
+    A seated slot's window (W > 1, ``lengths > 0``) writes zeros where it
+    lands in the scratch block: its positions past its own blocks, which
+    no emitted token reads.  The block is shared and read masked, so a
+    quarantined slot's non-finite rows there would reach its neighbours
+    as 0·NaN.  JAX writes the computed values (a reference fault the port
+    does not mirror, ROADMAP §C).  Inactive slots (length 0, all-scratch
+    tables) write theirs, as in JAX."""
     bs = pool["k"].shape[2]
     nb_max = block_tables.shape[1]
     W = k.shape[1]
@@ -181,6 +189,9 @@ def write_tokens(pool, layer: int, block_tables, lengths, k, v):
     idx = pos // bs
     blk = torch.gather(block_tables.long(), 1, idx.clamp(max=nb_max - 1))
     blk = torch.where(idx < nb_max, blk, torch.zeros_like(blk))
+    if W > 1:
+        spill = ((blk == SCRATCH_BLOCK) & (lengths[:, None] > 0))[..., None, None]
+        k, v = k.masked_fill(spill, 0), v.masked_fill(spill, 0)
     off = pos % bs
     if not is_quantized_pool(pool):
         dt = pool["k"].dtype

@@ -24,15 +24,33 @@ write no seated request's blocks.  ``decode_impl="unroll"`` and the CPU
 call the same step bodies directly, op by op.
 
 Ported: ``ServingConfig`` (slots, block size, pool, kv_bits 8|16,
-quantizer block, max_new_tokens, top_k, eos, max_queue), ``Request``,
-``submit``, ``_admit``, ``_alloc_blocks``, ``_start`` (prefill) with
-``_prefill_fn``, ``step`` (the plain W=1 branch) with ``_build_decode``,
-``_sample_tokens`` (greedy in the step, sampled rows in
-``_draw_sampled``), ``_finish``,
-``run``, ``pop_result``, ``results`` and ``stats()``; outcomes ``OK``
-and ``POISONED`` with the in-step non-finite sentinel (a slot whose
-logits are non-finite is evicted, its blocks scrubbed and returned,
-while its neighbours' rows are untouched).
+quantizer block, max_new_tokens, top_k, eos, max_queue, speculative),
+``Request``, ``submit``, ``_admit``, ``_alloc_blocks``, ``_start``
+(prefill) with ``_prefill_fn``, ``step`` (the plain W=1 branch and the
+speculative window branch) with ``_build_decode`` (``step`` or
+``spec_step``), ``_sample_tokens`` (greedy in the step, sampled rows in
+``_draw_sampled``), ``_finish``, ``run``, ``pop_result``, ``results`` and
+``stats()``; outcomes ``OK`` and ``POISONED`` with the in-step non-finite
+sentinel (a slot whose logits are non-finite is evicted, its blocks
+scrubbed and returned, while its neighbours' rows are untouched).
+
+Speculative decoding (``speculative``: JAX ``SpeculativeConfig``,
+``ngram_draft``, ``spec_step`` and the window branch of ``step``,
+serving.py:140-226, 1176-1211, 2365-2535): each step the host drafts
+``k`` tokens per live slot from its committed history (``ngram_draft``
+over the last ``DRAFT_WINDOW`` tokens), and ONE captured W=k+1 decode
+step (``serving.decode[...,spec{k}]``, which replaces the W=1 step)
+scores [current, drafts] for every slot, flags non-finite positions,
+takes the greedy token at each and computes each slot's accept length
+in the graph.  The host walks the accepted window (a poison keeps the
+tokens before it and evicts; eos or ``max_new_tokens`` truncates and
+finishes) and advances ``lengths`` by what it emitted: the rejected tail
+is never advanced over, which is the rollback.  Greedy streams equal
+plain decoding's token for token; a sampled position ``i`` draws with the
+plain path's index ``ngen + i``, so sampled streams equal the port's own
+plain sampled streams under any arrival order.  ``rec["spec"]`` and
+``stats()["speculative"]`` count proposed and accepted drafts (only
+drafts that contributed an emitted token).
 
 Deliberate differences:
 
@@ -44,17 +62,32 @@ Deliberate differences:
   whatever the arrival order or slot, but not JAX's bits.  Sampled rows
   are drawn after the replay from the step's static logits (a seeded
   generator per row cannot be replayed); greedy rows never leave the
-  graph;
+  graph.  Under speculation a sampled row's accept length is recomputed
+  from its drawn tokens on the device after the replay;
+- ``speculative.k + 1`` above the paged kernels' ``MAX_WINDOW`` (8,
+  ``ops/transformer/paged_attention.py``) raises ``NotImplementedError``
+  (JAX scores any window); nothing falls back to the gather path;
+- the window's K/V at positions past a slot's own blocks land in the
+  shared scratch block as zeros (``paged_kv.write_tokens``), where JAX
+  writes the computed values: a quarantined slot's non-finite rows past
+  its blocks would otherwise reach its neighbours' masked rows as 0·NaN;
+- the parts of JAX's window branch whose modules are not ported are left
+  out: prefix-ingestion ``pending``, deadlines, the journal, traces, KV
+  snapshots, the monitor bus and the tokens-per-step EMA;
 - ``stats()`` adds ``step_ms`` (decode-step wall p50/p99) and ``graphs``
   (the decode impl, graphs, captures, warm-ups, decode and prefill
-  replays);
+  replays, and ``pool_bytes``: the graph-pool bytes each graph's capture
+  added, by step name);
 - int8 weights route through ``resolve_decode_params`` as in JAX
   (560-569): ``self.model`` is the inner model and the pool takes its
   compute dtype (JAX 576), since a quantized engine's ``dtype`` is None;
+- the tied head reads the engine's padded copy of ``wte``
+  (``InferenceEngine.decode_head``), synced before each step, so no
+  captured step pads the 77 MB table (GPT-2 125M);
 - ``ServingConfig.from_dict`` raises ``NotImplementedError`` for every
-  JAX key the port does not implement yet (speculative decoding, prefix
-  cache, roles/transfer, journal, KV snapshots, deadlines and overload
-  policy, the poison breaker, tracing, sanitizer, preflight).
+  JAX key the port does not implement yet (prefix cache, roles/transfer,
+  journal, KV snapshots, deadlines and overload policy, the poison
+  breaker, tracing, sanitizer, preflight).
 """
 
 import dataclasses
@@ -69,6 +102,7 @@ from . import paged_kv as pk
 from .engine import InferenceEngine, sample_logits
 from ..module_inject.module_quantize import resolve_decode_params
 from ..monitor.histogram import LogHistogram
+from ..ops.transformer.paged_attention import MAX_WINDOW
 from ..runtime.health import rows_nonfinite
 from ..runtime.step_graph import GraphPool, StepGraph
 from ..utils.logging import log_dist, logger
@@ -85,7 +119,7 @@ UNPORTED_KEYS = (
     "preflight", "hbm_budget_bytes", "preflight_safety",
     "deadline_ms", "overload", "queue_high_watermark", "queue_low_watermark",
     "poison_budget", "poison_window", "journal_dir", "forensic_dir",
-    "drain_timeout_s", "trace_sample_rate", "speculative", "sanitize",
+    "drain_timeout_s", "trace_sample_rate", "sanitize",
     "sanitize_halt", "kv_snapshot", "prefix_cache", "role", "transfer")
 
 
@@ -103,6 +137,90 @@ class ServingStalledError(ServingError):
 
 
 @dataclasses.dataclass
+class SpeculativeConfig:
+    """The ``serving.speculative`` block (JAX ``SpeculativeConfig``):
+    self-drafting n-gram speculation over the paged decode.  Each step the
+    drafter proposes ``k`` tokens a live slot (``draft`` "ngram": the
+    continuation of the most recent previous occurrence of the slot's
+    tail ``ngram``-gram, shorter grams as fallback, then last-token
+    repeat) and one W=k+1 decode step scores them.
+
+    Deliberate difference: ``k + 1`` above ``MAX_WINDOW`` (the window the
+    paged kernels take) raises ``NotImplementedError``."""
+    k: int = 4                      # drafted tokens per slot per step
+    draft: str = "ngram"            # the only drafter (self-drafting)
+    ngram: int = 3                  # longest tail gram the drafter matches
+
+    def __post_init__(self):
+        assert self.k >= 1, f"speculative.k must be >= 1, got {self.k}"
+        assert self.draft == "ngram", \
+            f"speculative.draft must be 'ngram', got {self.draft!r}"
+        assert self.ngram >= 1, \
+            f"speculative.ngram must be >= 1, got {self.ngram}"
+        if self.k + 1 > MAX_WINDOW:
+            raise NotImplementedError(
+                f"speculative.k={self.k} scores a window of {self.k + 1} tokens; the paged "
+                f"kernels take at most MAX_WINDOW={MAX_WINDOW}")
+
+    @classmethod
+    def from_value(cls, v):
+        """None/False → off; True → defaults; dict → the JSON block."""
+        if not v:
+            return None
+        if v is True:
+            return cls()
+        if isinstance(v, cls):
+            return v
+        known = {f.name for f in dataclasses.fields(cls)}
+        unknown = set(v) - known
+        if unknown:
+            raise ValueError(
+                f"unknown serving.speculative keys: {sorted(unknown)} "
+                f"(known: {sorted(known)})")
+        return cls(**v)
+
+
+# the drafter's search window over each slot's committed history (the last
+# DRAFT_WINDOW tokens): drafting stays a pure function of the history while
+# its host cost a step stays O(window)
+DRAFT_WINDOW = 1024
+
+
+def ngram_draft(history, k: int, ngram: int):
+    """The ``k`` tokens that followed the most recent PREVIOUS occurrence
+    of the history's tail n-gram (longest gram first, shorter grams as
+    fallback; last-token repeat when nothing matches), as int32.  A pure
+    function of the slot's committed tokens (JAX ``ngram_draft``)."""
+    h = np.asarray(history, np.int64)
+    L = h.size
+    out = np.full((k,), int(h[-1]) if L else 0, np.int32)
+    if L < 2:
+        return out
+    for order in range(min(ngram, L - 1), 0, -1):
+        tail = h[L - order:]
+        # every earlier window of `order` tokens (the last one is the tail)
+        win = np.lib.stride_tricks.sliding_window_view(h, order)[:L - order]
+        hits = np.nonzero((win == tail).all(axis=1))[0]
+        if hits.size == 0:
+            continue
+        start = int(hits[-1]) + order       # the match's continuation
+        cont = h[start:start + k]
+        if cont.size == 0:
+            continue
+        out[:cont.size] = cont
+        out[cont.size:] = int(cont[-1])
+        return out
+    return out
+
+
+def accept_lengths(toks, out):
+    """Per slot, 1 + the run of drafts ``toks[:, 1:]`` equal to the tokens
+    ``out[:, :-1]`` the window chose before them (JAX ``spec_step``)."""
+    match = (toks[:, 1:] == out[:, :-1]).long()
+    return 1 + torch.cumprod(match, dim=1).sum(dim=1)
+
+
+@dataclasses.dataclass
 class ServingConfig:
     batch_slots: int = 8            # fixed decode batch width
     block_size: int = 16            # tokens per KV block
@@ -115,6 +233,9 @@ class ServingConfig:
     top_k: Optional[int] = None
     eos_token_id: Optional[int] = None
     max_queue: int = 4096
+    # speculative decoding: None/False off, True defaults, or a dict
+    # (SpeculativeConfig's fields)
+    speculative: Any = None
 
     def __post_init__(self):
         if self.kv_bits not in (8, 16):
@@ -157,6 +278,10 @@ class _Slot:
         self.blocks = blocks
         self.max_new = max_new
         self.out_tokens: List[int] = []
+        # prompt + emitted tokens: the drafter's input
+        self.hist: List[int] = [int(t) for t in req.tokens]
+        self.spec_proposed = 0
+        self.spec_accepted = 0
 
 
 class ServingEngine:
@@ -179,12 +304,16 @@ class ServingEngine:
         elif isinstance(config, dict):
             config = ServingConfig.from_dict(config)
         self.config = config
+        # speculative decoding: None = plain one-token decode
+        self.spec = SpeculativeConfig.from_value(config.speculative)
         # int8 weights: the same routing as InferenceEngine.generate (a model
         # that decodes int8 leaves itself gets the params untouched)
         inner, self._deq = resolve_decode_params(engine.module)
         if not getattr(inner, "supports_paged_decode", False):
             raise ValueError(f"{type(inner).__name__} has no paged decode path")
         self.model = inner
+        # the tied head padded once per engine weight, synced before each step
+        self._head = engine.decode_head(inner, self._deq(engine.params))
         self.device = engine.device
         mc = self.model.config
         self.max_seq = mc.max_seq
@@ -223,6 +352,8 @@ class ServingEngine:
         self._step_wall_hist = LogHistogram()   # decode-step wall, ms
         self._completed_total = 0
         self._generated_total = 0
+        self._spec_proposed_total = 0
+        self._spec_accepted_total = 0
         self._next_uid = 0
         self._steps = 0
         self._outcomes = {k: 0 for k in OUTCOMES}
@@ -231,6 +362,7 @@ class ServingEngine:
             f"blocks={self.num_blocks} (nb_max={self.nb_max}) "
             f"kv_bits={config.kv_bits} device={self.device} "
             f"decode_impl={self.decode_impl} "
+            f"speculative={'off' if self.spec is None else f'k={self.spec.k}'} "
             f"pool={pk.pool_bytes(self.pool) / 1e6:.1f} MB", ranks=[0])
 
     # ------------------------------------------------------------ admission
@@ -311,6 +443,7 @@ class ServingEngine:
         bucket = pk.blocks_needed(T, c.block_size) * c.block_size
         toks = np.zeros((1, min(bucket, self.max_seq)), np.int64)
         toks[0, :T] = req.tokens
+        self._head.sync()
         row, first, bad = self._prefill_step(bucket)(
             toks=toks, blocks=np.asarray(blocks[:bucket // c.block_size], np.int64),
             t_real=np.int64(T))
@@ -330,6 +463,7 @@ class ServingEngine:
             return
         s = _Slot(req, blocks, req.max_new_tokens)
         s.out_tokens.append(first)
+        s.hist.append(first)
         self._slots[slot] = s
         self._tables[slot] = 0
         self._tables[slot, :len(blocks)] = blocks
@@ -377,7 +511,8 @@ class ServingEngine:
         model = self.model
         fwd_len = toks.shape[1]
         cache = model.init_cache(1, fwd_len)
-        logits, cache = model.apply_with_cache(self._deq(self.engine.params), toks, cache)
+        logits, cache = model.apply_with_cache(self._deq(self.engine.params), toks, cache,
+                                               self._head.weight)
         k, v = cache["k"][:, :, 0], cache["v"][:, :, 0]     # (L, fwd_len, H, hd)
         if fwd_len < bucket:
             pad = (0, 0, 0, 0, 0, bucket - fwd_len)
@@ -389,30 +524,39 @@ class ServingEngine:
         return row, first, bad
 
     def _decode_graph(self) -> StepGraph:
-        """The W=1 decode step over static ``toks`` / ``tables`` /
-        ``lengths`` (JAX ``_build_decode``), built at first use; its
-        warm-up and capture run on all-scratch tables."""
+        """The decode step over static ``toks`` / ``tables`` / ``lengths``
+        (JAX ``_build_decode``), built at first use: the W=1 step, or with
+        speculation the W=k+1 one in its place (``toks`` then (S, k+1));
+        its warm-up and capture run on all-scratch tables."""
         if self._decode_step is None:
             S, c = self.config.batch_slots, self.config
+            spec = f",spec{self.spec.k}" if self.spec is not None else ""
+            toks = (S,) if self.spec is None else (S, self.spec.k + 1)
             self._decode_step = StepGraph(
-                f"serving.decode[{S}x{self.nb_max}x{c.block_size},kv{c.kv_bits}]",
+                f"serving.decode[{S}x{self.nb_max}x{c.block_size},kv{c.kv_bits}{spec}]",
                 self._decode_body,
-                {"toks": torch.zeros((S,), dtype=torch.long),
+                {"toks": torch.zeros(toks, dtype=torch.long),
                  "tables": torch.zeros((S, self.nb_max), dtype=torch.int32),
                  "lengths": torch.zeros((S,), dtype=torch.int32)},
                 self.device, self._graphs)
         return self._decode_step
 
     def _decode_body(self, toks, tables, lengths):
-        """One W=1 decode step for every slot (JAX ``step``, 1161-1178):
+        """One decode step for every slot (JAX ``step``, 1161-1178):
         ``(logits (S, V) fp32, greedy tokens (S,), poisoned (S,))``, the
         sentinel token forced into poisoned rows.  The pool is updated in
-        place."""
+        place.  With a (S, W) window [current, drafts] (JAX ``spec_step``,
+        1176-1204) each of those gains a window axis, position i's logits
+        being what plain decode sees at generation index ``ngen + i``, and
+        the accept lengths (S,) follow."""
         logits, _ = self.model.decode_step_paged(
-            self._deq(self.engine.params), toks, self.pool, tables, lengths)
+            self._deq(self.engine.params), toks, self.pool, tables, lengths,
+            self._head.weight)
         poisoned = rows_nonfinite(logits)
         nxt = torch.argmax(logits, dim=-1).masked_fill(poisoned, POISON_SENTINEL_TOKEN)
-        return logits, nxt, poisoned
+        if toks.dim() == 1:
+            return logits, nxt, poisoned
+        return logits, nxt, poisoned, accept_lengths(toks, nxt)
 
     def _draw_sampled(self, logits, nxt, bad, rows):
         """``nxt`` with each sampled row ``(i, seed, index, temperature)``
@@ -425,23 +569,53 @@ class ServingEngine:
         return nxt.masked_fill(bad, POISON_SENTINEL_TOKEN)
 
     # ------------------------------------------------------------- scheduler
+    def _window(self, active):
+        """The decode step's ``toks`` for the ``active`` slots: the current
+        tokens (S,), or with speculation the window (S, k+1) [current,
+        drafts], the drafts from each slot's committed history, on the
+        host, before the static window is refilled."""
+        if self.spec is None:
+            return self._toks
+        win = np.repeat(self._toks[:, None], self.spec.k + 1, axis=1)
+        for i in active:
+            win[i, 1:] = ngram_draft(self._slots[i].hist[-DRAFT_WINDOW:], self.spec.k,
+                                     self.spec.ngram)
+        return win
+
     @torch.no_grad()
     def _decode(self, active):
-        """One decode step for every slot: ``(next tokens, poisoned)`` as
-        host arrays.  The sentinel is computed on the device before the
-        host reads anything, and the host reads once."""
-        logits, nxt, poisoned = self._decode_graph()(
-            toks=self._toks, tables=self._tables, lengths=self._lengths)
-        sampled = [(i, self._seeds[i], self._ngen[i], self._temps[i])
-                   for i in active if self._flags[i]]
+        """One decode step for every slot: ``(tokens (S, W), accept lengths
+        (S,), non-finite (S, W))`` as host arrays, W = 1 without
+        speculation (every token accepted).  The sentinel is computed on
+        the device before the host reads anything, and the host reads
+        once."""
+        step = self._decode_graph()
+        self._head.sync()
+        S = self.config.batch_slots
+        res = step(toks=self._window(active), tables=self._tables, lengths=self._lengths)
+        if self.spec is None:
+            logits, out, bad = (t[:, None] for t in res)
+            accept = None
+        else:
+            logits, out, bad, accept = res
+        W = out.shape[1]
+        # a sampled window position j draws with the plain path's index ngen + j
+        sampled = [(i * W + j, self._seeds[i], self._ngen[i] + j, self._temps[i])
+                   for i in active if self._flags[i] for j in range(W)]
         if sampled:
-            nxt = self._draw_sampled(logits, nxt, poisoned, sampled)
-        host = torch.stack([nxt, poisoned.long()]).cpu().numpy()
-        return host[0], host[1].astype(bool)
+            out = self._draw_sampled(logits.reshape(S * W, -1), out.reshape(-1),
+                                     bad.reshape(-1), sampled).reshape(S, W)
+            if accept is not None:
+                accept = accept_lengths(step.static["toks"], out)
+        host = torch.cat([out, bad.long()] + ([] if accept is None else [accept[:, None]]),
+                         dim=1).cpu().numpy()
+        accept = np.ones((S,), np.int64) if accept is None else host[:, -1]
+        return host[:, :W], accept, host[:, W:2 * W].astype(bool)
 
     def step(self) -> bool:
-        """One scheduler iteration: admit, ONE decode for the whole
-        batch, sample, join/evict.  Returns False when nothing is left."""
+        """One scheduler iteration: admit, ONE decode for the whole batch
+        (a W=k+1 window under speculation), sample, join/evict.  Returns
+        False when nothing is left."""
         self._admit()
         active = [i for i, s in enumerate(self._slots) if s is not None]
         if not active:
@@ -449,24 +623,44 @@ class ServingEngine:
                 self._raise_stalled()
             return False
         t0 = time.perf_counter()
-        nxt, poisoned = self._decode(active)
+        out, accept, nonfin = self._decode(active)
         # the host read above synced the step: this is its true wall time
         self._step_wall_hist.add((time.perf_counter() - t0) * 1e3)
         self._steps += 1
         c = self.config
         for i in active:
             s = self._slots[i]
-            if poisoned[i]:
+            # the emission plan: the accepted window, cut by a poison (the
+            # tokens before it kept) or by eos / max_new (the slot finishes)
+            plan, poisoned, finished = [], False, False
+            for j in range(int(accept[i])):
+                if nonfin[i, j]:
+                    poisoned = True
+                    break
+                tok = int(out[i, j])
+                plan.append(tok)
+                if len(s.out_tokens) + len(plan) >= s.max_new or tok == c.eos_token_id:
+                    finished = True
+                    break
+            if self.spec is not None:
+                # only drafts that contributed an emitted token count as accepted
+                used = max(0, len(plan) - 1)
+                s.spec_proposed += self.spec.k
+                s.spec_accepted += used
+                self._spec_proposed_total += self.spec.k
+                self._spec_accepted_total += used
+            s.out_tokens.extend(plan)
+            s.hist.extend(plan)
+            if poisoned:
                 self._evict_poisoned(i)
                 continue
-            tok = int(nxt[i])
-            s.out_tokens.append(tok)
-            if len(s.out_tokens) >= s.max_new or tok == c.eos_token_id:
+            if finished:
                 self._finish(i)
                 continue
-            self._lengths[i] += 1
-            self._ngen[i] += 1
-            self._toks[i] = tok
+            # the rejected tail is never advanced over: that is the rollback
+            self._lengths[i] += len(plan)
+            self._ngen[i] += len(plan)
+            self._toks[i] = s.out_tokens[-1]
         return True
 
     def _raise_stalled(self):
@@ -502,6 +696,8 @@ class ServingEngine:
         rec["tokens"] = list(s.out_tokens)
         rec["outcome"] = outcome
         rec["t_done"] = time.monotonic()
+        if self.spec is not None:
+            rec["spec"] = {"proposed": s.spec_proposed, "accepted": s.spec_accepted}
         self._outcomes[outcome] += 1
         self._generated_total += len(s.out_tokens)
         if outcome == OK:
@@ -549,8 +745,9 @@ class ServingEngine:
 
     def stats(self) -> dict:
         """Counts plus p50/p99/p999 submit→done and submit→first-token
-        and decode-step wall (ms) over every completion, and the step
-        graphs' counters."""
+        and decode-step wall (ms) over every completion, the step graphs'
+        counters and pool bytes, and with speculation the drafts proposed
+        and accepted."""
         out = {"completed": self._completed_total,
                "pending": len(self.queue) + sum(
                    s is not None for s in self._slots),
@@ -566,7 +763,16 @@ class ServingEngine:
             "decode_warmups": sum(s.warmups for s in dec),
             "prefill_warmups": sum(s.warmups for s in pre),
             "decode_replays": sum(s.replays for s in dec),
-            "prefill_replays": sum(s.replays for s in pre)}
+            "prefill_replays": sum(s.replays for s in pre),
+            "pool_bytes": {s.name: s.pool_bytes for s in dec + pre}}
+        if self.spec is not None:
+            out["speculative"] = {
+                "k": self.spec.k,
+                "proposed": self._spec_proposed_total,
+                "accepted": self._spec_accepted_total,
+                "accept_rate": round(self._spec_accepted_total
+                                     / max(1, self._spec_proposed_total), 4),
+                "tokens_per_step": round(self._generated_total / max(1, self._steps), 2)}
         for name, h in (("latency_ms", self._lat_hist),
                         ("ttft_ms", self._ttft_hist),
                         ("step_ms", self._step_wall_hist)):

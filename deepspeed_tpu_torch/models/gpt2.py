@@ -33,7 +33,10 @@ Deliberate differences:
   ``min(lengths + w, max_seq - 1)`` of ``decode_step_paged`` is explicit;
 - the tied head (:func:`tied_head`) keeps JAX's fp32 accumulation of the
   compute-dtype operands; its gradient products take the fp32 cotangent
-  rounded to the compute dtype (identical in fp32);
+  rounded to the compute dtype (identical in fp32).  The decode paths
+  (``apply_with_cache`` and ``decode_step_paged``, ``head=``) take the
+  vocab-padded weight an engine made once (:class:`PaddedHead`,
+  :meth:`GPT2.decode_head`); training pads per call;
 - ``rng`` is an integer seed (or, inside the engine's step, the
   ``FoldedSeed`` of ``runtime/step_graph.py``), not a PRNG key: dropout
   masks come from ``torch.Generator``\\ s re-seeded inside each block
@@ -178,16 +181,18 @@ def _pad_vocab(t, dim):
 
 class _TiedHead(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, wte):
+    def forward(ctx, x, wte, padded):
         ctx.save_for_backward(x, wte)
         V = wte.shape[0]
         x2 = x.reshape(-1, x.shape[-1])
         if x.dtype == torch.float32:
             out = x2 @ wte.t()
         elif x.is_cuda:
-            out = torch.mm(x2, _pad_vocab(wte, 0).t(), out_dtype=torch.float32)[:, :V]
+            w = _pad_vocab(wte, 0) if padded is None else padded
+            out = torch.mm(x2, w.t(), out_dtype=torch.float32)[:, :V]
         else:
-            out = x2.float() @ wte.float().t()
+            w = wte if padded is None else padded
+            out = (x2.float() @ w.float().t())[:, :V]
         return out.reshape(*x.shape[:-1], V)
 
     @staticmethod
@@ -200,10 +205,10 @@ class _TiedHead(torch.autograd.Function):
             g2, wte = _pad_vocab(g2, 1), _pad_vocab(wte, 0)
         dx = (g2 @ wte).reshape(x.shape)
         dw = (g2.t() @ x2)[:V]
-        return dx, dw
+        return dx, dw, None
 
 
-def tied_head(x, wte):
+def tied_head(x, wte, padded=None):
     """Logits ``x @ wte.T`` in fp32 from compute-dtype operands, as JAX's
     ``einsum(..., preferred_element_type=float32)``: fp32 products of the
     16-bit values summed in fp32, kept in fp32.  On CUDA a 16-bit model
@@ -212,8 +217,45 @@ def tied_head(x, wte):
     operands zero-padded to a multiple of 8 so cuBLAS can take an aligned
     kernel (GPT-2's 50257 is odd); on the CPU the operands are upcast
     (exact for bf16) and multiplied in fp32.  The gradient takes the
-    cotangent rounded to the compute dtype (identical in fp32)."""
-    return _TiedHead.apply(x, wte)
+    cotangent rounded to the compute dtype (identical in fp32).
+
+    ``padded``: ``wte`` already padded (a :class:`PaddedHead`'s weight),
+    which the decode steps pass so that no step copies the table.  Without
+    it a 16-bit head pads ``wte`` on every call, as training does: there
+    ``wte`` changes every step, and the backward pads both operands."""
+    return _TiedHead.apply(x, wte, padded)
+
+
+class PaddedHead:
+    """The tied head's weight zero-padded to a multiple of 8 vocab rows
+    once, for the decode steps of an engine (``InferenceEngine.
+    decode_head``): decode-time state beside the parameters, which keep
+    the reference shapes.  ``weight`` is None where the head takes no pad
+    (an fp32 model, an int8 ``wte`` — ``int8_mm_t`` / ``int8_mm_t_prefill``
+    take an odd N — or a vocab that is a multiple of 8), else the padded
+    copy, one extra ``V x D`` buffer (77 MB at GPT-2 125M in bf16) at a
+    fixed address that captured steps read.
+
+    No port API rebinds or rewrites an engine's ``wte`` after it is built
+    (a rebind would leave every captured step on the old tensors anyway).
+    An in-place write to it (``engine.params["wte"][i] = ...``) bumps the
+    tensor's version counter; :meth:`sync`, which the engines call before
+    each step, copies ``wte`` into the copy's first V rows when the
+    version moved, at the same address."""
+
+    def __init__(self, wte, dtype):
+        self.src = wte
+        self.weight = None
+        if (is_quantized_leaf(wte) or dtype == torch.float32
+                or wte.shape[0] % 8 == 0):
+            return
+        self.weight = _pad_vocab(wte.to(dtype), 0)
+        self._version = wte._version
+
+    def sync(self):
+        if self.weight is not None and self.src._version != self._version:
+            self.weight[:self.src.shape[0]].copy_(self.src)
+            self._version = self.src._version
 
 
 def _dropout(x, rate, seed, deterministic):
@@ -399,13 +441,14 @@ class GPT2:
         h = F.gelu(self._mm(h, p["fc_w"], p["fc_b"]), approximate="tanh")
         return x + self._mm(h, p["fc_proj_w"], p["fc_proj_b"])
 
-    def _head(self, params, x):
+    def _head(self, params, x, head=None):
         """fp32 logits of the tied head; an int8 ``wte`` streams through
-        the ``int8_mm_t`` kernel."""
+        the ``int8_mm_t`` kernel.  ``head``: the padded weight of a
+        :class:`PaddedHead` (decode), or None to pad per call."""
         wte = params["wte"]
         if is_quantized_leaf(wte):
             return q_matmul(x, wte, w_transposed=True, out_dtype=torch.float32)
-        return tied_head(x, wte.to(x.dtype))
+        return tied_head(x, wte.to(x.dtype), head)
 
     # --------------------------------------------------------------- forward
     def _attend(self, q, k, v, causal_mask, seed, deterministic):
@@ -514,6 +557,11 @@ class GPT2:
                              f"got {impl!r}")
         return impl
 
+    def decode_head(self, params) -> PaddedHead:
+        """The tied head's weight padded once for decode (:class:`PaddedHead`
+        over ``params["wte"]`` in the compute dtype)."""
+        return PaddedHead(params["wte"], self.dtype)
+
     def init_cache(self, batch_size: int, max_len: Optional[int] = None,
                    dtype=None):
         """Empty seq-major cache ``{"k", "v": (L, S, B, H, hd), "index"}``
@@ -530,13 +578,14 @@ class GPT2:
                 "v": torch.zeros(shape, dtype=dtype, device=self.device),
                 "index": torch.zeros((), dtype=torch.long, device=self.device)}
 
-    def apply_with_cache(self, params, tokens, cache):
+    def apply_with_cache(self, params, tokens, cache, head=None):
         """Forward ``tokens`` (B, T) from ``cache["index"]``; returns
         ``(logits (B, T, V) fp32, cache)`` with the cache updated in
         place and its index advanced by T in place.  The write positions
         and the causal mask come from the device index (no host read, so
         a captured step replays it); positions past the cache raise
-        (JAX clamps them)."""
+        (JAX clamps them).  ``head``: the tied head's padded weight
+        (:class:`PaddedHead`), or None."""
         c = self.config
         B, T = tokens.shape
         if T > cache["k"].shape[1]:
@@ -558,7 +607,7 @@ class GPT2:
         x = _layer_norm(x, params["lnf_scale"], params["lnf_bias"],
                         c.layer_norm_eps)
         index.add_(T)
-        return self._head(params, x), cache
+        return self._head(params, x, head), cache
 
     # ---------------------------------------------------- paged-KV decode
     def paged_attention_impl(self) -> str:
@@ -571,7 +620,7 @@ class GPT2:
                              f" got {impl!r}")
         return impl
 
-    def decode_step_paged(self, params, toks, pool, block_tables, lengths):
+    def decode_step_paged(self, params, toks, pool, block_tables, lengths, head=None):
         """One decode window for B slots over the paged pool.
 
         ``toks``: (B,) or (B, W) int tokens at positions ``lengths + w``;
@@ -580,7 +629,9 @@ class GPT2:
         scratch block 0).  Writes the window's K/V into the pool in place
         and returns ``(logits, pool)``: logits (B, V) fp32 for 1-D
         ``toks``, (B, W, V) for a window.  Inactive slots decode garbage
-        into scratch block 0; the scheduler discards their outputs."""
+        into scratch block 0; the scheduler discards their outputs.
+        ``head``: the tied head's padded weight (:class:`PaddedHead`), or
+        None."""
         from ..inference import paged_kv as pk
         from ..ops.transformer.paged_attention import (
             paged_attention, paged_attention_reference)
@@ -614,4 +665,4 @@ class GPT2:
                         c.layer_norm_eps)
         if squeeze:
             x = x[:, 0]
-        return self._head(params, x), pool
+        return self._head(params, x, head), pool

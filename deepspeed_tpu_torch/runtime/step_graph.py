@@ -11,7 +11,8 @@ A :class:`StepGraph` owns
 
 - its static input buffers on the device, refilled before each replay
   with ``copy_(..., non_blocking=True)`` from pinned host staging
-  tensors, and the static outputs of the captured body;
+  tensors (a value already on the device is copied directly), and the
+  static outputs of the captured body;
 - warm-up: the body runs on the pool's capture stream before capture, so
   every kernel library is built, every lazy cache filled and the int8
   kernels' tile counters (kept per stream) exist before capture begins;
@@ -43,7 +44,11 @@ Capture also refuses what would be frozen into the graph: a host read of
 a value on the step's device (``.item()``, ``int()``, ``bool()``) and a
 copy between the host and the card raise :class:`HostTraffic`, naming
 the op, under a ``TorchDispatchMode`` that is active during capture only
-(the warm-up may fill host-built caches).  Each graph's pool bytes (what
+(the warm-up may fill host-built caches).  Python's garbage collector is
+kept off during capture: an earlier engine's graph freed by a collection
+inside a capture makes a call the capture forbids (``torch.cuda.graph``
+collects before capture instead, which costs ~0.3 s a capture in a large
+process, on a request's time to first token).  Each graph's pool bytes (what
 the capture added to the allocator's reserved memory) are kept in
 :attr:`StepGraph.pool_bytes`.
 
@@ -66,6 +71,7 @@ recompute (which draws again, from a generator of its own).
 """
 
 import contextlib
+import gc
 from typing import Callable, Dict, Optional
 
 import numpy as np
@@ -327,7 +333,7 @@ class StepGraph:
             self._copied.synchronize()   # the last step's copies have left the staging
         for k, v in values.items():
             src = v if isinstance(v, torch.Tensor) else torch.from_numpy(np.asarray(v))
-            if self._staging is None:
+            if self._staging is None or src.device == self.device:
                 self.static[k].copy_(src.reshape(self.static[k].shape))
                 continue
             self._staging[k].copy_(src.reshape(self._staging[k].shape))
@@ -354,6 +360,10 @@ class StepGraph:
             before = _snapshot(counters)
             graph = pool.graph_factory()
             reserved = torch.cuda.memory_reserved(self.device) if cuda else 0
+            # no garbage collection inside the capture: a collection there may free an
+            # earlier engine's graph (a call the capture forbids, which invalidates it)
+            gc_was_on = gc.isenabled()
+            gc.disable()
             try:
                 if self._draws is not None and self._draws.paths:
                     self._draws.bind(graph, self.device, self._seed)
@@ -370,6 +380,8 @@ class StepGraph:
                 raise RuntimeError(f"step {self.name}: CUDA graph capture failed: {e}"
                                    + (f" ({self.hint})" if self.hint else "")) from e
             finally:
+                if gc_was_on:
+                    gc.enable()
                 after = _snapshot(counters)
                 for counter, snap in zip(counters, before):
                     counter.update(snap)
