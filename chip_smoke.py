@@ -410,6 +410,7 @@ from deepspeed_tpu_torch.ops.transformer import int8_matmul as im
 from deepspeed_tpu_torch.ops.transformer import paged_attention as pa
 from deepspeed_tpu_torch.runtime import engine as engine_module
 from deepspeed_tpu_torch.runtime.comm.quantized import quantize_blockwise
+from deepspeed_tpu_torch.runtime.fp16 import loss_scaler as ls
 from deepspeed_tpu_torch.runtime.utils import tree_leaves, tree_map
 
 L_CYCLE = 12          # layers cycled through when timing (cold L2 per launch)
@@ -480,7 +481,17 @@ def flash_source(name):
 # ulp of the element (1.6e-2 at |dV| in [2, 4)), fp32 at most 1.5e-6, lse at
 # most 9.6e-7.  A dropped 40-key tail tile at T=1000 moves lse by ~4e-2.
 FLASH_TOL = {torch.bfloat16: (2 ** -5, 2 ** -7),
-             torch.float32: (1e-4, 1e-5)}
+             torch.float32: (1e-4, 1e-5),
+             # fp16 (phase 17), u = 2^-11: r is bf16's 2u, a is 32u (bf16's is 8u).  The
+             # kernel's P differs from the plain version's by ~1e-6 relative (exp2 of an
+             # fma'd argument against exp), which flips the rounding of P or dS to the input
+             # dtype in a share of the row's terms that grows as u shrinks, while each flip
+             # is u in size: the flips' sum does not shrink with u.  Readings (H100, B=8
+             # H=16 d=64 causal qkv, T 127-1088): bf16's multiples (2^-8, 2^-10) up to 1.52x
+             # (seeds 30-32) and 2.16x (dQ, T=1088, seed 30), at |plain| 0.03-0.4, where the
+             # kernel's and the plain version's distances from the unrounded fp32 values are
+             # of one size; bf16 at 0.74x of its own limit on the same draws
+             torch.float16: (2 ** -6, 2 ** -10)}
 FLASH_LSE_TOL = 1e-4
 GRAD_TOL = 1e-4       # flash_attention's autograd vs a dense attention's, fp32
 # step 1 of GPT-2 350M, flash vs plain attention, bf16: the plain path rounds
@@ -516,6 +527,8 @@ def peak_bytes_per_s(name):
 
 
 PEAK_OPS = {"bf16": 989e12, "int8": 989e12, "fp32": 67e12}   # dense, per s
+# the element types' names in the kernels' mangled names (the template argument E)
+MANGLED_BF16, MANGLED_F16 = "13__nv_bfloat16", "6__half"
 
 
 def nvidia_smi():
@@ -568,11 +581,13 @@ def setup():
         f"{kname[kname.find('fwd_sm90_kernel'):kname.find('EEv')]} {regs} registers, "
         f"{spill} spill bytes" for kname, regs, _, spill in sm90))
     # each head dim's instances, once: dense with and without the key bias, banded, merged
-    # (mangled <D, kBias, kSched>)
-    fwd = {(d, bias, sched): sum(f"fwd_sm90_kernelILi{d}ELb{bias}ELi{sched}EE" in kname
-                                 for kname, *_ in sm90)
+    # in bf16, and dense without the key bias in fp16 (mangled <D, kBias, kSched, E>)
+    fwd = {(d, bias, sched, ty): sum(f"fwd_sm90_kernelILi{d}ELb{bias}ELi{sched}E{ty}E" in kname
+                                     for kname, *_ in sm90)
            for d in fa.SM90_HEAD_DIMS[torch.bfloat16]
-           for bias, sched in ((0, 0), (1, 0), (0, 1), (0, 2))}
+           for bias, sched, ty in ((0, 0, MANGLED_BF16), (1, 0, MANGLED_BF16),
+                                   (0, 1, MANGLED_BF16), (0, 2, MANGLED_BF16),
+                                   (0, 0, MANGLED_F16))}
     if any(n != 1 for n in fwd.values()) or any(spill for *_, spill in sm90):
         raise AssertionError(f"{SM90_LIB}: an instance (head dim, key bias, schedule) "
                              f"not built once {fwd}, or ptxas spilled registers: {sm90}")
@@ -601,11 +616,15 @@ def setup():
                 spill for *_, spill in rows):
             raise AssertionError(f"{lib}: a kernel of {kernels} not built, or ptxas spilled "
                                  f"registers: {rows}")
-    # the dense pair's instances with and without the key bias (mangled <64, true / false>)
+    # the dense pair's instances: bf16 with and without the key bias, fp16 without (mangled
+    # <64, true / false, E>)
     rows = ptxas_summary(builder.build_log[GROUP_SM90_LIB]["ptxas"])
-    dense = {f"{kernel}<64, {bias}>": [(regs, spill) for kname, regs, _, spill in rows
-                                       if f"{kernel}ILi64ELb{int(bias == 'true')}E" in kname]
-             for kernel in ("dense_dkdv_kernel", "dense_dq_kernel") for bias in ("false", "true")}
+    dense = {f"{kernel}<64, {bias}, {name}>": [
+        (regs, spill) for kname, regs, _, spill in rows
+        if f"{kernel}ILi64ELb{int(bias == 'true')}E{ty}E" in kname]
+        for kernel in ("dense_dkdv_kernel", "dense_dq_kernel")
+        for bias, name, ty in (("false", "bf16", MANGLED_BF16), ("true", "bf16", MANGLED_BF16),
+                               ("false", "f16", MANGLED_F16))}
     print(f"{GROUP_SM90_LIB}.cu dense instances: " + "; ".join(
         f"{name} {found[0][0]} registers, {found[0][1]} spill bytes" if found else
         f"{name} not built" for name, found in dense.items()))
@@ -1390,12 +1409,16 @@ TRAIN_CONFIG = {
 
 
 def train_engine(dev, np_params, tokens, impl, preset, seq, micro, step_impl="auto",
-                 optimizer=None):
-    model = GPT2(preset=preset, max_seq=seq, dtype=torch.bfloat16, device=dev,
-                 embd_pdrop=0.0, attn_pdrop=0.0, resid_pdrop=0.0, remat=False,
-                 attention_impl=impl)
-    config = dict(TRAIN_CONFIG, train_micro_batch_size_per_gpu=micro,
-                  optimizer=optimizer or TRAIN_CONFIG["optimizer"])
+                 optimizer=None, dtype=torch.bfloat16, config=None, **model_kw):
+    """Phase 5's engine; ``config`` entries replace TRAIN_CONFIG's (an
+    ``fp16`` block drops its ``bf16``), ``model_kw`` the model's."""
+    kw = dict(dict(embd_pdrop=0.0, attn_pdrop=0.0, resid_pdrop=0.0, remat=False), **model_kw)
+    model = GPT2(preset=preset, max_seq=seq, dtype=dtype, device=dev, attention_impl=impl,
+                 **kw)
+    base = {k: v for k, v in TRAIN_CONFIG.items() if not (config and "fp16" in config
+                                                          and k == "bf16")}
+    config = dict(base, train_micro_batch_size_per_gpu=micro,
+                  optimizer=optimizer or TRAIN_CONFIG["optimizer"], **(config or {}))
     engine, _, _, _ = deepspeed_tpu_torch.initialize(
         config=config, model=model, params=np_params, training_data=(tokens,),
         step_impl=step_impl)
@@ -1427,7 +1450,8 @@ def engine_graphs_line(eng):
 
 
 def ab_train(make, tag, per_step, card, tokens_per_step, flops_per_token, warmup=3,
-             timed=10, passes=TRAIN_PASSES, profile_n=2, first=None, after=None):
+             timed=10, passes=TRAIN_PASSES, profile_n=2, first=None, after=None,
+             extra=None, skips_ok=False):
     """The same training run through both step impls, "graph" (the step
     one CUDA graph) and "eager" (the same body called directly), each from
     ``make(impl)`` (the same params and data): ``warmup`` steps, then
@@ -1439,7 +1463,9 @@ def ab_train(make, tag, per_step, card, tokens_per_step, flops_per_token, warmup
     grad_norm)`` checks the graph impl's step 1; ``after(eng, by_name)``
     runs on the graph engine before it is dropped (with its profile).
     The losses and grad norms of every step must be bit-equal between the
-    impls.  Returns {impl: {"counts", "p50", ...}}."""
+    impls, and ``extra(eng)`` (a tuple: the loss scaler's state) after every
+    step too; skipped steps fail the run unless ``skips_ok``.  Returns
+    {impl: {"counts", "p50", "first" (step 1's loss and grad norm), ...}}."""
     out, curves = {}, {}
     for impl in ("graph", "eager"):
         eng = make(impl)
@@ -1450,14 +1476,16 @@ def ab_train(make, tag, per_step, card, tokens_per_step, flops_per_token, warmup
         fa.reset_launches()
         runs0 = kernel_runs(eng)
         curve, rows = [], []
+        def record(loss):
+            curve.append((loss, eng.get_global_grad_norm())
+                         + (extra(eng) if extra is not None else ()))
         for i in range(warmup):
-            loss = float(eng.train_batch())
-            curve.append((loss, eng.get_global_grad_norm()))
+            record(float(eng.train_batch()))
             if i == 0:
                 check_launches(f"{tag} {impl} step 1", dict(fa.launches), per_step,
                                kernel_runs(eng) - runs0)
                 if first is not None and impl == "graph":
-                    first(eng, *curve[0])
+                    first(eng, *curve[0][:2])
         for _ in range(passes):
             times = []
             for _ in range(timed):
@@ -1465,7 +1493,7 @@ def ab_train(make, tag, per_step, card, tokens_per_step, flops_per_token, warmup
                 loss = float(eng.train_batch())
                 torch.cuda.synchronize()
                 times.append(time.perf_counter() - t0)
-                curve.append((loss, eng.get_global_grad_norm()))
+                record(loss)
             ms = np.asarray(times) * 1e3
             tok_s = timed * tokens_per_step / (ms.sum() / 1e3)
             rows.append((np.percentile(ms, 50), np.percentile(ms, 99), tok_s,
@@ -1474,8 +1502,9 @@ def ab_train(make, tag, per_step, card, tokens_per_step, flops_per_token, warmup
         runs = kernel_runs(eng) - runs0
         check_launches(f"{tag} {impl}", counts, per_step, runs)
         peak = torch.cuda.max_memory_allocated()
-        losses = [x for x, _ in curve]
-        if not all(math.isfinite(x) for x in losses) or eng.skipped_steps != 0:
+        losses = [x for x, *_ in curve]
+        if not all(math.isfinite(x) for x in losses) or (eng.skipped_steps != 0
+                                                          and not skips_ok):
             raise AssertionError(f"{tag} {impl}: losses {losses}, skipped {eng.skipped_steps}")
         graphs = engine_graphs_line(eng)
         summary = {}
@@ -1495,16 +1524,20 @@ def ab_train(make, tag, per_step, card, tokens_per_step, flops_per_token, warmup
         if after is not None and impl == "graph":
             after(eng, by_name)
         out[impl] = {"counts": counts, "p50": p50, "busy_ms": busy_ms, "rows": rows,
-                     "peak_gb": peak / 1e9, "graphs": eng.stats()["graphs"]}
+                     "peak_gb": peak / 1e9, "graphs": eng.stats()["graphs"],
+                     "first": curve[0][:2], "skipped": eng.skipped_steps}
         curves[impl] = curve
         del eng
         gc.collect()
         torch.cuda.empty_cache()
-    if curves["graph"] != curves["eager"]:
-        diff = [i for i, (a, b) in enumerate(zip(curves["graph"], curves["eager"])) if a != b]
+    # repr: an overflow step's grad norm is inf or nan on both sides
+    if repr(curves["graph"]) != repr(curves["eager"]):
+        diff = [i for i, (a, b) in enumerate(zip(curves["graph"], curves["eager"]))
+                if repr(a) != repr(b)]
         raise AssertionError(f"{tag}: captured and eager steps differ at steps {diff}: "
                              f"{[(curves['graph'][i], curves['eager'][i]) for i in diff[:3]]}")
-    print(f"ab {tag}: losses and grad norms bit-equal, captured vs eager, at all "
+    print(f"ab {tag}: losses and grad norms{' and the loss scaler' if extra else ''} "
+          f"bit-equal, captured vs eager, at all "
           f"{len(curves['graph'])} steps; step p50 captured {out['graph']['p50']:.3f} ms, eager "
           f"{out['eager']['p50']:.3f} ms, captured busy {out['graph']['busy_ms']:.3f} ms ({card})")
     return out
@@ -1514,8 +1547,8 @@ def train(dev, card, warmup=3, timed=10, fit_steps=20, preset="gpt2-350m", seq=1
           micro=8):
     """Phase 5: GPT-2 training through initialize -> train_batch (350M,
     T=1024, micro-batch 8, the JAX headline configuration), captured and eager
-    (:func:`ab_train`).  Returns the flash kernels' launches in the
-    captured run."""
+    (:func:`ab_train`).  Returns :func:`ab_train`'s results (the captured
+    run's flash launches under ``["graph"]["counts"]``)."""
     vocab = GPT2(preset=preset, device=dev).config.vocab_size
     tokens = np.random.default_rng(0).integers(0, vocab, (64, seq + 1)).astype(np.int32)
     np_params = GPT2(preset=preset, max_seq=seq, device=dev).init_numpy(seed=0)
@@ -1562,7 +1595,7 @@ def train(dev, card, warmup=3, timed=10, fit_steps=20, preset="gpt2-350m", seq=1
                    first=first, after=after)
     for opt in TRAIN_OPTIMIZERS:
         other_optimizer(dev, np_params, tokens, preset, seq, micro, opt, per_step)
-    return res["graph"]["counts"]
+    return res
 
 
 # the other optimizers the config admits, each through the captured step too
@@ -4068,6 +4101,392 @@ def spec_serving(dev, card, prompts, new=32, presets=("gpt2-125m", "gpt2-1.3b"))
     return launches
 
 
+# ------------------------------------------------- 17. fp16 training at full width
+FP16 = "fp16"               # the kernels line's name suffix of the fp16 instances
+FP16_SEED = 30              # phase 17a's inputs come from a generator of their own
+FP16_T = (127, 129, 1024, 1088)
+FP16_INF_AT = 65520.0       # the least magnitude fp16's round-to-nearest takes to inf
+# phase 17b's configuration: phase 5's with the dynamic loss scaler
+FP16_CONFIG = {"fp16": {"enabled": True, "loss_scale": 0, "initial_scale_power": 16,
+                        "loss_scale_window": 1000, "hysteresis": 2, "min_loss_scale": 1}}
+FP16_SOURCES = ("flash_attention_fwd_sm90.cu", "flash_attention_sparse_bwd_sm90.cu",
+                "flash_attention_sm90.cuh")
+
+
+def fp16_rows(q, k, v, do, causal, what, bwd=True):
+    """The fp16 instances against their plain versions on one input (the
+    routed forward; dK/dV and dQ fed its O and lse when ``bwd``): each
+    route must name the sm90 entry.  Returns {kernel: [(output, max abs
+    error, share of limit)]}."""
+    d = q.shape[-1]
+    if fa.dense_fwd_kernel(q.dtype, d) != "flash_fwd_sm90" or (
+            bwd and fa.dense_bwd_kernel(q.dtype, d) != fa.DENSE_BWD_SM90):
+        raise AssertionError(f"{what}: fp16 does not route to the sm90 entries")
+    o, lse = fa.flash_fwd(q, k, v, causal)
+    ro, rlse = fa.flash_attention_reference_fwd(q, k, v, causal)
+    pairs = {"flash_fwd_sm90": [("o", o, ro), ("lse", lse, rlse)]}
+    if bwd:
+        delta = fa.attention_delta(o, do)
+        dk, dv = fa.flash_bwd_dkdv(q, k, v, do, lse, delta, causal)
+        dq = fa.flash_bwd_dq(q, k, v, do, lse, delta, causal)
+        rdk, rdv = fa.flash_attention_reference_bwd_dkdv(q, k, v, do, lse, delta, causal)
+        rdq = fa.flash_attention_reference_bwd_dq(q, k, v, do, lse, delta, causal)
+        pairs["flash_bwd_dkdv_sm90"] = [("dk", dk, rdk), ("dv", dv, rdv)]
+        pairs["flash_bwd_dq_sm90"] = [("dq", dq, rdq)]
+    torch.cuda.synchronize()
+    return {name: [(label, *flash_close(f"{name} fp16 {what}", label, got, ref))
+                   for label, got, ref in ps] for name, ps in pairs.items()}
+
+
+def first_fp16_launches(dev, gen):
+    """The first fp16 launches: ``flash_fwd_sm90`` at T=64 for each head
+    dim, then ``flash_bwd_dkdv_sm90`` / ``flash_bwd_dq_sm90`` at B=2 H=4
+    d=64 T 33, 65 and 200, each waited for under SM90_DEADLINE_S and held
+    against its plain version with the fp16 limit."""
+    for d in fa.DENSE_SM90_HEAD_DIMS[torch.float16]:
+        q, k, v, _ = flash_inputs(dev, gen, torch.float16, 1, 64, 1, d, "dense")
+        t0 = time.perf_counter()
+        o, lse = fa.flash_fwd_sm90(q, k, v, True)
+        ms = wait_first("flash_fwd_sm90 fp16", f"d={d}", t0)
+        row = flash_close(f"first launch fp16 d={d}", "o", o,
+                          fa.flash_attention_reference_fwd(q, k, v, True)[0])
+        print(f"flash_fwd_sm90 fp16 first launch d={d} T=64: completed in {ms:.1f} ms, O max "
+              f"abs error {row[0]:.2e} ({row[1]:.2f} of its limit)")
+    for T in (33, 65, 200):
+        q, k, v, do = flash_inputs(dev, gen, torch.float16, 2, T, 4, 64, "qkv")
+        o, lse = fa.flash_attention_reference_fwd(q, k, v, True)
+        delta = fa.attention_delta(o, do)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        dk, dv = fa.flash_bwd_dkdv_sm90(q, k, v, do, lse, delta, True)
+        ms = wait_first("flash_bwd_dkdv_sm90 fp16", f"T={T}", t0)
+        t0 = time.perf_counter()
+        dq = fa.flash_bwd_dq_sm90(q, k, v, do, lse, delta, True)
+        ms_dq = wait_first("flash_bwd_dq_sm90 fp16", f"T={T}", t0)
+        rdk, rdv = fa.flash_attention_reference_bwd_dkdv(q, k, v, do, lse, delta, True)
+        rdq = fa.flash_attention_reference_bwd_dq(q, k, v, do, lse, delta, True)
+        rows = [(label, *flash_close(f"fp16 first launch T={T}", label, got, ref))
+                for label, got, ref in (("dk", dk, rdk), ("dv", dv, rdv), ("dq", dq, rdq))]
+        print(f"flash_bwd_dkdv_sm90 / flash_bwd_dq_sm90 fp16 first launches T={T}: completed "
+              f"in {ms:.1f} / {ms_dq:.1f} ms; {flash_line({'': rows})}")
+
+
+def check_fp16_overflow(dev, gen, B=8, T=1024, H=16, d=64):
+    """dO (made positive, so dV sums without cancelling) scaled so that
+    the plain fp32 |dV| passes FP16_INF_AT, each dO element kept finite in
+    fp16: wherever a
+    plain fp32 dK, dV or dQ element passes it by more than the fp16 limit,
+    the fp16 kernel's element must be inf or NaN (no conversion
+    saturates), and ``has_overflow`` over the three must be true.  The
+    largest error among the finite elements, as a share of the limit
+    against the unrounded fp32 plain values, is printed."""
+    q, k, v, do = flash_inputs(dev, gen, torch.float16, B, T, H, d, "qkv")
+    do = do.float().abs().clamp(max=4)
+    o, lse = fa.flash_fwd(q, k, v, True)
+    f32 = [x.float() for x in (q, k, v)]
+    unit_dv = fa.flash_attention_reference_bwd_dkdv(
+        *f32, do, lse, fa.attention_delta(o, do), True)[1]
+    gain = 1.5 * FP16_INF_AT / unit_dv.abs().max().item()
+    do = (do * gain).clamp(max=65504.0).to(torch.float16)
+    delta = fa.attention_delta(o, do)
+    dk, dv = fa.flash_bwd_dkdv(q, k, v, do, lse, delta, True)
+    dq = fa.flash_bwd_dq(q, k, v, do, lse, delta, True)
+    rdk, rdv = fa.flash_attention_reference_bwd_dkdv(*f32, do.float(), lse, delta, True)
+    rdq = fa.flash_attention_reference_bwd_dq(*f32, do.float(), lse, delta, True)
+    a, r = FLASH_TOL[torch.float16]
+    notes = []
+    for label, got, ref in (("dk", dk, rdk), ("dv", dv, rdv), ("dq", dq, rdq)):
+        limit = a * ref.pow(2).mean().sqrt() + r * ref.abs()
+        past = ref.abs() > FP16_INF_AT + limit
+        finite = torch.isfinite(got)
+        if label == "dv" and not bool(past.any()):
+            raise AssertionError(f"fp16 overflow: dO x {gain:.1f} took no plain |dV| past "
+                                 f"{FP16_INF_AT}")
+        if bool((past & finite).any()):
+            raise AssertionError(f"fp16 overflow {label}: {int((past & finite).sum())} elements "
+                                 f"past {FP16_INF_AT} in fp32 came out finite")
+        inside = finite & (ref.abs() < 65504.0 - limit)
+        share = torch.where(inside, (got.float() - ref).abs() / limit, 0.0).max().item()
+        notes.append(f"{label} {int(past.sum())} past, {int((~finite).sum())} non-finite, "
+                     f"largest share of the limit among finite elements {share:.2f}")
+    flag = bool(ls.has_overflow({"dk": dk, "dv": dv, "dq": dq}))
+    if not flag or not any(not torch.isfinite(x).all() for x in (dk, dv, dq)):
+        raise AssertionError(f"fp16 overflow: has_overflow {flag}")
+    for name in FP16_SOURCES:
+        text = open(os.path.join(builder.CSRC, name)).read()
+        if "satfinite" in text:
+            raise AssertionError(f"{name}: a saturating conversion (.satfinite)")
+    print(f"fp16 overflow B={B} T={T} H={H} d={d} causal, dO x {gain:.1f} (plain fp32 |dV| max "
+          f"{rdv.abs().max().item():.1f}): {'; '.join(notes)}; has_overflow {flag}; no "
+          f".satfinite in {', '.join(FP16_SOURCES)}")
+
+
+def check_fp16_kernels(dev, B=8, H=16):
+    """Phase 17a: the fp16 instances of rows 1, 3 and 4 against their plain
+    versions with the fp16 limit, from a generator of their own (seed
+    FP16_SEED): first launches, then the 350M shape (causal, qkv views) at
+    T in FP16_T with d=64 (forward and backward) and d=128 (forward), then
+    the overflow check.  Returns the max abs error per kernel."""
+    gen = torch.Generator(device=dev).manual_seed(FP16_SEED)
+    first_fp16_launches(dev, gen)
+    max_err = {name: 0.0 for name in fa.DENSE_SM90}
+    for T, d in itertools.product(FP16_T, fa.DENSE_SM90_HEAD_DIMS[torch.float16]):
+        what = f"B={B} H={H} d={d} T={T} causal qkv"
+        bwd = d in fa.DENSE_BWD_SM90_HEAD_DIMS[torch.float16]
+        res = fp16_rows(*flash_inputs(dev, gen, torch.float16, B, T, H, d, "qkv"), True, what,
+                        bwd=bwd)
+        for name, rows in res.items():
+            max_err[name] = max([max_err[name]] + [err for _, err, _ in rows])
+        print(f"fp16-check {what}: {flash_line(res)}")
+    check_fp16_overflow(dev, gen)
+    return max_err
+
+
+def fp16_timing(dev, bytes_per_s, card, B=8, T=1024, H=16, d=64):
+    """Phase 17d at the 350M training shape (causal, q/k/v views of one qkv
+    tensor, a generator of its own): each fp16 instance and its bf16 twin
+    on the same values (three readings each, in turns), beside the plain
+    version, the bound and SDPA's forward or the flash-attention backward
+    op at fp16.  Returns {kernel: the kernels line's numbers} for the fp16
+    instances."""
+    gen = torch.Generator(device=dev).manual_seed(FP16_SEED + 1)
+    q, k, v, do = flash_inputs(dev, gen, torch.float16, B, T, H, d, "qkv")
+    twins = {torch.float16: (q, k, v, do),
+             torch.bfloat16: tuple(x.to(torch.bfloat16) for x in (q, k, v, do))}
+    calls = {}
+    for dt, (tq, tk, tv, tdo) in twins.items():
+        o, lse = fa.flash_fwd(tq, tk, tv, True)
+        delta = fa.attention_delta(o, tdo)
+        calls[dt] = {
+            "flash_fwd_sm90": lambda tq=tq, tk=tk, tv=tv: fa.flash_fwd_sm90(tq, tk, tv, True),
+            "flash_bwd_dkdv_sm90": lambda tq=tq, tk=tk, tv=tv, tdo=tdo, lse=lse, delta=delta:
+                fa.flash_bwd_dkdv_sm90(tq, tk, tv, tdo, lse, delta, True),
+            "flash_bwd_dq_sm90": lambda tq=tq, tk=tk, tv=tv, tdo=tdo, lse=lse, delta=delta:
+                fa.flash_bwd_dq_sm90(tq, tk, tv, tdo, lse, delta, True)}
+    o, lse = fa.flash_fwd(q, k, v, True)
+    delta = fa.attention_delta(o, do)
+    plain = {"flash_fwd_sm90": lambda: fa.flash_attention_reference_fwd(q, k, v, True),
+             "flash_bwd_dkdv_sm90": lambda: fa.flash_attention_reference_bwd_dkdv(
+                 q, k, v, do, lse, delta, True),
+             "flash_bwd_dq_sm90": lambda: fa.flash_attention_reference_bwd_dq(
+                 q, k, v, do, lse, delta, True)}
+    res = fp16_rows(q, k, v, do, True, f"B={B} T={T} H={H} d={d} (the timed inputs)")
+    max_err = {name: max(err for _, err, _ in rows) for name, rows in res.items()}
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    qh, kh, vh, doh = (x.transpose(1, 2).contiguous() for x in (q, k, v, do))
+    sdpa_r = repeat_ms(lambda _: sdpa(qh, kh, vh, is_causal=True), 50)
+    bwd_call, _ = sdpa_backward(qh, kh, vh, doh)
+    sdpa_b = repeat_ms(lambda _: bwd_call(), 50) if bwd_call is not None else None
+    work = flash_work(B, T, H, d)
+    saved = dict(fa.launches)
+    out = {}
+    for name in fa.DENSE_SM90:
+        nbytes, ops = work[name]
+        bound, by = bound_ms(nbytes, ops, bytes_per_s)
+        r16a = repeat_ms(lambda _: calls[torch.float16][name](), 50)
+        rbf = repeat_ms(lambda _: calls[torch.bfloat16][name](), 50)
+        r16b = repeat_ms(lambda _: calls[torch.float16][name](), 50)
+        r16 = (statistics.median([r16a[0], r16b[0]]), min(r16a[1], r16b[1]),
+               max(r16a[2], r16b[2]))
+        plain_ms = time_ms(lambda _: plain[name](), 5)
+        lib_r = sdpa_r if name == "flash_fwd_sm90" else sdpa_b
+        out[name] = {"max_abs_err": max_err[name], "ms": r16[0], "plain_ms": plain_ms,
+                     "bound_ms": bound, "bound_by": by,
+                     "library_ms": None if lib_r is None else lib_r[0]}
+        lib_note = ("SDPA forward fp16" if name == "flash_fwd_sm90"
+                    else "the flash-attention backward op fp16 (dq, dk, dv)")
+        print(f"timing {name} fp16 B={B} T={T} H={H} d={d} causal ({card}): {spread(r16)} "
+              f"(readings before and after the bf16 twin: {spread(r16a)}; {spread(r16b)}); bf16 "
+              f"twin {spread(rbf)}; bound {bound * 1e3:.2f} us ({by}; {nbytes / 1e6:.1f} MB, "
+              f"{ops / 1e9:.2f} GFLOP at {PEAK_OPS['bf16'] / 1e12:.0f} TFLOP/s fp16 as bf16); "
+              f"plain {plain_ms * 1e3:.2f} us; {lib_note} "
+              f"{'not available' if lib_r is None else spread(lib_r)}")
+    fa.launches.update(saved)          # timing launches are not path launches
+    return out
+
+
+def scaler_state(eng):
+    """The loss scaler's state and the skipped steps (host reads)."""
+    st = eng.scale
+    return (float(st.cur_scale), int(st.cur_hysteresis), int(st.last_overflow_iter),
+            int(st.iter_num), eng.skipped_steps)
+
+
+def train_tensors(eng):
+    """Clones of every tensor a step commits: params, master, optimizer state."""
+    return [t.clone() for tree in (eng.params, eng.master, eng.opt_state)
+            for t in tree_leaves(tree)]
+
+
+def fp16_forced_overflow(make, steps=2):
+    """Phase 17b: ``steps`` steps, then the loss scale set in place to
+    2^40 (the captured step reads the same tensor): that step must be
+    skipped with params, master and optimizer state bit-unchanged, and the
+    scaler must move as in eager (the same state after it on both impls)."""
+    rows = {}
+    for impl in ("graph", "eager"):
+        eng = make(impl)
+        for _ in range(steps):
+            eng.train_batch()
+        before, skipped = train_tensors(eng), eng.skipped_steps
+        eng.scale.cur_scale.fill_(2.0 ** 40)
+        loss = float(eng.train_batch())
+        after = train_tensors(eng)
+        same = all(torch.equal(a, b) for a, b in zip(before, after))
+        rows[impl] = (loss, eng.get_global_grad_norm(), scaler_state(eng))
+        if eng.skipped_steps != skipped + 1 or not same:
+            raise AssertionError(f"fp16 forced overflow {impl}: skipped {skipped} -> "
+                                 f"{eng.skipped_steps}, state unchanged {same}")
+        del eng, before, after
+        gc.collect()
+        torch.cuda.empty_cache()
+    if repr(rows["graph"]) != repr(rows["eager"]):
+        raise AssertionError(f"fp16 forced overflow: captured {rows['graph']} != eager "
+                             f"{rows['eager']}")
+    print(f"fp16 forced overflow (scale set to 2^40 after {steps} steps): the step skipped, "
+          f"params, master and optimizer state bit-unchanged, captured and eager alike; loss "
+          f"{rows['graph'][0]:.6f}, grad norm {rows['graph'][1]}, scaler (scale, hysteresis, "
+          f"last overflow, iter, skipped) {rows['graph'][2]}")
+
+
+def fp16_train(dev, card, phase5, warmup=3, timed=10, fit_steps=20, preset="gpt2-350m",
+               seq=1024, micro=8):
+    """Phase 17b: phase 5's run in fp16 with the dynamic loss scaler
+    (FP16_CONFIG) through :func:`ab_train`: captured and eager bit-equal in
+    losses, grad norms and scaler state at every step; exact launches of the
+    fp16 instances (per step: L of each, 0 on the templates); step 1
+    against plain attention within phase 5's limits; the fixed-batch loss
+    fall over ``fit_steps`` with the skipped steps and the scale
+    trajectory; a forced overflow; the timing figures beside phase 5's.
+    Returns :func:`ab_train`'s results."""
+    vocab = GPT2(preset=preset, device=dev).config.vocab_size
+    tokens = np.random.default_rng(0).integers(0, vocab, (64, seq + 1)).astype(np.int32)
+    np_params = GPT2(preset=preset, max_seq=seq, device=dev).init_numpy(seed=0)
+
+    def make(impl, attention="flash", **model_kw):
+        return train_engine(dev, np_params, tokens, attention, preset, seq, micro,
+                            step_impl=impl, dtype=torch.float16, config=FP16_CONFIG, **model_kw)
+
+    # eager (captured steps equal eager ones, phase 5): plain attention's (B, H, T, T)
+    # scores make a capture's warm-up and its own pool too large for a card that ran
+    # phases 1-16
+    eng = make("eager", attention="jnp")
+    plain = (float(eng.train_batch()), eng.get_global_grad_norm())
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    model = GPT2(preset=preset, max_seq=seq, device=dev)
+    head_dim = model.config.n_embd // model.config.n_head
+    fwd = fa.dense_fwd_kernel(torch.float16, head_dim)
+    per_step = {name: model.config.n_layer
+                for name in (fwd, *fa.dense_bwd_kernel(torch.float16, head_dim))}
+    if set(per_step) != set(fa.DENSE_SM90):
+        raise AssertionError(f"fp16 at head dim {head_dim} routes to {per_step}")
+
+    def first(eng, loss, gnorm):
+        print(f"train fp16 step 1 (captured): loss flash {loss:.6f} plain {plain[0]:.6f}; grad "
+              f"norm flash {gnorm:.6f} plain {plain[1]:.6f} (tol {STEP1_LOSS_TOL:g} abs, "
+              f"{STEP1_GNORM_TOL:g} rel); scaler {scaler_state(eng)}")
+        overflowed = not math.isfinite(gnorm), not math.isfinite(plain[1])
+        if not (abs(loss - plain[0]) <= STEP1_LOSS_TOL and (
+                overflowed == (True, True)
+                or abs(gnorm - plain[1]) <= STEP1_GNORM_TOL * abs(plain[1]))):
+            raise AssertionError(f"fp16 step 1 flash {(loss, gnorm)} vs plain {plain}")
+
+    def after(eng, by_name):
+        fixed = itertools.repeat((tokens[:micro],))
+        fit, states = [], []
+        for _ in range(fit_steps):
+            fit.append(float(eng.train_batch(fixed)))
+            states.append(scaler_state(eng))
+        print(f"train fp16 fixed batch: loss {fit[0]:.4f} -> {fit[-1]:.4f} over {fit_steps} "
+              f"steps; skipped steps {states[0][4]} -> {states[-1][4]}; scale trajectory "
+              + ", ".join(f"{st[0]:g}" for st in states))
+        if not fit[0] - fit[-1] >= 0.5:
+            raise AssertionError(f"fp16 fixed-batch loss fell only {fit[0] - fit[-1]}")
+        flash = {}
+        for name, (t, c) in by_name.items():
+            m = re.search(r"\b(fwd_sm90_kernel|dense_dkdv_kernel|dense_dq_kernel)\b", name)
+            if m:
+                t0, c0 = flash.get(m.group(1), (0.0, 0.0))
+                flash[m.group(1)] = (t0 + t, c0 + c)
+        print(f"profile train {preset} fp16: flash kernels' device time per captured step: " +
+              "; ".join(f"{k} {t:.1f} us ({c:.0f} launches)" for k, (t, c) in flash.items()))
+
+    tag = f"train {preset} T={seq} micro {micro} fp16 zero1"
+    res = ab_train(make, tag, per_step, card, micro * seq, model.flops_per_token(),
+                   warmup=warmup, timed=timed, first=first, after=after, extra=scaler_state,
+                   skips_ok=True)
+    for impl in ("graph", "eager"):
+        a, b = res[impl], phase5[impl]
+        print(f"fp16 vs bf16 {preset} {impl} ({card}): step p50 {a['p50']:.3f} vs "
+              f"{b['p50']:.3f} ms; busy {a['busy_ms']:.3f} vs {b['busy_ms']:.3f} ms; idle "
+              f"{100 * (1 - a['busy_ms'] / a['p50']):.1f}% vs "
+              f"{100 * (1 - b['busy_ms'] / b['p50']):.1f}%; tokens/s "
+              f"{statistics.median(r[2] for r in a['rows']):.0f} vs "
+              f"{statistics.median(r[2] for r in b['rows']):.0f}; MFU "
+              f"{statistics.median(r[3] for r in a['rows']):.4f} vs "
+              f"{statistics.median(r[3] for r in b['rows']):.4f}; peak memory "
+              f"{a['peak_gb']:.2f} vs {b['peak_gb']:.2f} GB; skipped {a['skipped']}")
+    fp16_forced_overflow(make)
+    return res
+
+
+MODEL_OPTIONS = (("remat dots", dict(remat=True, remat_policy="dots")),
+                 ("loss_chunk 1024", dict(loss_chunk=1024)))
+
+
+def model_options(dev, card, phase5, steps=3, preset="gpt2-350m", seq=1024, micro=8):
+    """Phase 17c: phase 5's bf16 run with ``remat=True, remat_policy="dots"``
+    and with ``loss_chunk=1024``: ``steps`` steps captured and eager, bit-equal,
+    exact launches (the forward twice a layer under remat), step 1's loss
+    and grad norm against phase 5's within its step-1 limits, peak memory
+    beside phase 5's."""
+    vocab = GPT2(preset=preset, device=dev).config.vocab_size
+    tokens = np.random.default_rng(0).integers(0, vocab, (64, seq + 1)).astype(np.int32)
+    np_params = GPT2(preset=preset, max_seq=seq, device=dev).init_numpy(seed=0)
+    model = GPT2(preset=preset, max_seq=seq, device=dev)
+    L = model.config.n_layer
+    ref_loss, ref_gnorm = phase5["graph"]["first"]
+    for label, kw in MODEL_OPTIONS:
+        per_step = {"flash_fwd_sm90": 2 * L if kw.get("remat") else L,
+                    "flash_bwd_dkdv_sm90": L, "flash_bwd_dq_sm90": L}
+        curves, peaks = {}, {}
+        for impl in ("graph", "eager"):
+            eng = train_engine(dev, np_params, tokens, "flash", preset, seq, micro,
+                               step_impl=impl, **kw)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            fa.reset_launches()
+            runs0 = kernel_runs(eng)
+            curves[impl] = [(float(eng.train_batch()), eng.get_global_grad_norm())
+                            for _ in range(steps)]
+            check_launches(f"{label} {impl}", dict(fa.launches), per_step,
+                           kernel_runs(eng) - runs0)
+            peaks[impl] = torch.cuda.max_memory_allocated() / 1e9
+            if not all(math.isfinite(x) for x, _ in curves[impl]) or eng.skipped_steps:
+                raise AssertionError(f"{label} {impl}: {curves[impl]}, skipped "
+                                     f"{eng.skipped_steps}")
+            del eng
+            gc.collect()
+            torch.cuda.empty_cache()
+        loss, gnorm = curves["graph"][0]
+        if curves["graph"] != curves["eager"]:
+            raise AssertionError(f"{label}: captured {curves['graph']} != eager "
+                                 f"{curves['eager']}")
+        if not (abs(loss - ref_loss) <= STEP1_LOSS_TOL
+                and abs(gnorm - ref_gnorm) <= STEP1_GNORM_TOL * abs(ref_gnorm)):
+            raise AssertionError(f"{label}: step 1 {(loss, gnorm)} vs phase 5's "
+                                 f"{(ref_loss, ref_gnorm)}")
+        print(f"train {preset} bf16 {label} {kw}: {steps} steps captured and eager bit-equal "
+              f"{[(round(x, 6), round(g, 6)) for x, g in curves['graph']]}; step 1 loss "
+              f"{loss:.6f} (phase 5 {ref_loss:.6f}, gap {loss - ref_loss:.3e}), grad norm "
+              f"{gnorm:.6f} (phase 5 {ref_gnorm:.6f}, bit-equal {gnorm == ref_gnorm}); launches "
+              f"per step {per_step}; peak device memory captured {peaks['graph']:.2f} GB, eager "
+              f"{peaks['eager']:.2f} GB (phase 5: {phase5['graph']['peak_gb']:.2f} / "
+              f"{phase5['eager']['peak_gb']:.2f} GB) ({card})")
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false", file=sys.stderr)
@@ -4136,7 +4555,8 @@ def main():
     torch.cuda.empty_cache()
 
     # 5. training at full width; 6. flash kernel timing at its shape
-    train_launches = train(dev, card)
+    phase5 = train(dev, card)
+    train_launches = phase5["graph"]["counts"]
     tf = flash_timing(dev, gen, bw, card)
     print(json.dumps({"flash_sweep_max_abs_err": flash_err}))
     kernels += [{"name": name, "route": "cuda", "source": flash_source(name),
@@ -4204,6 +4624,21 @@ def main():
 
     # 16. speculative serving: 125M bf16 (kv16, kv8), then 1.3B int8 weights
     print(json.dumps({"spec_int8_launches": spec_serving(dev, card, prompts)}))
+    torch.cuda.empty_cache()
+
+    # 17. fp16 training: the fp16 instances vs plain, phase 5's run in fp16, the GPT-2
+    # model options, the fp16 instances' timing
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"phase 17 starts with {torch.cuda.memory_allocated() / 1e9:.2f} GB allocated")
+    print(json.dumps({"fp16_sweep_max_abs_err": check_fp16_kernels(dev)}))
+    fp16_res = fp16_train(dev, card, phase5)
+    model_options(dev, card, phase5)
+    t16 = fp16_timing(dev, bw, card)
+    for name in fa.DENSE_SM90:
+        kernels.append({"name": f"{name} {FP16}", "route": "cuda", "source": flash_source(name),
+                        "replaces": REPLACES[name], "launches": fp16_res["graph"]["counts"][name],
+                        **t16[name]})
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -1,6 +1,6 @@
 // Flash-attention forward for Hopper (sm_90a) built the way the card is meant to be used:
 // the entry flash_fwd_sm90, bf16, head dims 64 and 128, causal or not, with or without a key
-// bias.
+// bias; and fp16 at head dims 64 and 128 without the key bias (fp16 training, below).
 //
 // Replaces the Pallas TPU kernel _fwd_kernel of deepspeed_tpu/ops/transformer/flash_attention.py
 // (144-283, built by _fwd 441-613) on its dense path with no LUT: without a bias, and (the kBias
@@ -98,6 +98,13 @@
 //     at the layout's cell size.  An odd last tile leaves half 1 empty: its rows are past T
 //     and not stored.
 // In both the producer keeps 40 registers and the consumers 232, as in the kBias instances.
+//
+// fp16 (dtype code 2): the dense instances without the key bias at head dims 64 and 128
+// (fwd_sm90_kernel<D, false, kDense, f16>) are the bf16 ones with the element type a template
+// parameter: wgmma .f32.f16.f16, P rounded to fp16 before P V (__floats2half2_rn), O written
+// fp16 and the tensor maps of data type FLOAT16.  An O past fp16's 65504 (it is a convex mix of
+// V rows, so only an inf or a V past 65504 gives one) becomes inf: no conversion saturates.
+// The key-bias, banded and merged instances stay bf16 only (-1 for fp16).
 // flash_fwd_banded_sm90_schedule / flash_fwd_merged_sm90_schedule are these schedules in
 // Python.
 //
@@ -110,6 +117,7 @@
 
 #include <cuda.h>  // CUtensorMap and its enums; the driver function is fetched at run time
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -145,6 +153,10 @@ struct MergedSched {
 namespace {
 
 using bf16 = __nv_bfloat16;
+using f16 = __half;
+// whether an element type E (bf16 or f16) is fp16
+template <typename E>
+constexpr bool kHalf = std::is_same<E, f16>::value;
 
 constexpr int kWgThreads = 128;
 constexpr int kConsumers = 2;                              // consumer warpgroups
@@ -322,39 +334,62 @@ __device__ __forceinline__ void fence_regs(uint32_t (&r)[N][4]) {
   "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]), "+f"(d[i + 4]), "+f"(d[i + 5]), \
       "+f"(d[i + 6]), "+f"(d[i + 7])
 
-// d (64 x 128, fp32) (+)= A (64 x 16) B (16 x 128): A and B K-major in shared memory
+// d (64 x 128, fp32) (+)= A (64 x 16) B (16 x 128): A and B K-major in shared memory, of
+// element type E (TY: its PTX type, bf16 or f16)
+#define WGMMA_SS_N128(TY)                                                             \
+  asm volatile(                                                                       \
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"                                    \
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32." TY "." TY " "                   \
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "       \
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, " \
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, " \
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, " \
+      "%64, %65, p, 1, 1, 0, 0;\n}\n"                                                 \
+      : F8(0), F8(8), F8(16), F8(24), F8(32), F8(40), F8(48), F8(56)                  \
+      : "l"(da), "l"(db), "r"(accumulate))
+template <typename E>
 __device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da, uint64_t db,
                                               int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
-      "%64, %65, p, 1, 1, 0, 0;\n}\n"
-      : F8(0), F8(8), F8(16), F8(24), F8(32), F8(40), F8(48), F8(56)
-      : "l"(da), "l"(db), "r"(accumulate));
+  if constexpr (kHalf<E>)
+    WGMMA_SS_N128("f16");
+  else
+    WGMMA_SS_N128("bf16");
 }
+#undef WGMMA_SS_N128
 
-// d (64 x 64, fp32) += A (64 x 16, bf16 fragments in registers) B (16 x 64): B in shared
+// d (64 x 64, fp32) += A (64 x 16, E fragments in registers) B (16 x 64): B in shared
 // memory, MN-major (rows of B contiguous: the transpose bit)
+#define WGMMA_RS_N64_TB(TY)                                                           \
+  asm volatile(                                                                       \
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"                                    \
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32." TY "." TY " "                    \
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "       \
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, " \
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"                                   \
+      : F8(0), F8(8), F8(16), F8(24)                                                  \
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1))
+template <typename E>
 __device__ __forceinline__ void wgmma_rs_n64_tb(float (&d)[32], const uint32_t (&a)[4],
                                                 uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
-      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : F8(0), F8(8), F8(16), F8(24)
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+  if constexpr (kHalf<E>)
+    WGMMA_RS_N64_TB("f16");
+  else
+    WGMMA_RS_N64_TB("bf16");
 }
+#undef WGMMA_RS_N64_TB
 #undef F8
 
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
+// two floats rounded to nearest into one word of E: lo in the low half (an fp16 value past
+// 65504 becomes inf, not 65504)
+template <typename E>
+__device__ __forceinline__ uint32_t pack2(float lo, float hi) {
+  if constexpr (kHalf<E>) {
+    const __half2 v = __floats2half2_rn(lo, hi);
+    return *reinterpret_cast<const uint32_t*>(&v);
+  } else {
+    const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+    return *reinterpret_cast<const uint32_t*>(&v);
+  }
 }
 
 // 2^x with one MUFU instruction (denormal results flush to 0)
@@ -435,7 +470,7 @@ __device__ __forceinline__ void band_slot(int* slot, const BandSm90& bd, int k0,
 // Accumulator layout of a warpgroup's 64 x N product (wgmma, fp32): warp w of the group
 // holds rows 16 w + g and 16 w + g + 8 (g = lane / 4); element 4 n + 2 r + e is row
 // 16 w + g + 8 r, column 8 n + 2 (lane % 4) + e.
-template <int D, bool kBias, int kSched>
+template <int D, bool kBias, int kSched, typename E>
 __global__ void __launch_bounds__(kThreads, 1)
     fwd_sm90_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
                     const __grid_constant__ CUtensorMap tv, const __grid_constant__ CUtensorMap to,
@@ -675,8 +710,8 @@ __global__ void __launch_bounds__(kThreads, 1)
 #pragma unroll
         for (int kk = 0; kk < D / 16; ++kk) {
           const int x = kk / 4, off = (kk % 4) * 32;
-          wgmma_ss_n128(sc, desc_sw128(myQ + x * kBoxBytes + off, 16, 1024),
-                        desc_sw128(tK + x * C::kTileBox + off, 16, 1024), kk > 0);
+          wgmma_ss_n128<E>(sc, desc_sw128(myQ + x * kBoxBytes + off, 16, 1024),
+                           desc_sw128(tK + x * C::kTileBox + off, 16, 1024), kk > 0);
         }
         wgmma_commit();
         wgmma_wait<0>();
@@ -804,12 +839,12 @@ __global__ void __launch_bounds__(kThreads, 1)
 #pragma unroll
       for (int r = 0; r < 2; ++r)
         l[r] = l[r] * alpha[r] + ((ls[r][0] + ls[r][1]) + (ls[r][2] + ls[r][3]));
-      // P as bf16 A fragments: a 16-column slice of the accumulator is one fragment
+      // P as E A fragments: a 16-column slice of the accumulator is one fragment
 #pragma unroll
       for (int kk = 0; kk < kBN / 16; ++kk)
 #pragma unroll
         for (int q = 0; q < 4; ++q)
-          pa[kk][q] = pack_bf16(sc[8 * kk + 2 * q], sc[8 * kk + 2 * q + 1]);
+          pa[kk][q] = pack2<E>(sc[8 * kk + 2 * q], sc[8 * kk + 2 * q + 1]);
 #pragma unroll
       for (int x = 0; x < kBoxes; ++x)
 #pragma unroll
@@ -826,8 +861,8 @@ __global__ void __launch_bounds__(kThreads, 1)
       for (int x = 0; x < kBoxes; ++x)
 #pragma unroll
         for (int kk = 0; kk < kBN / 16; ++kk)
-          wgmma_rs_n64_tb(o[x], pa[kk],
-                          desc_sw128(tV + x * C::kTileBox + kk * 16 * 128, C::kTileBox, 1024));
+          wgmma_rs_n64_tb<E>(o[x], pa[kk],
+                             desc_sw128(tV + x * C::kTileBox + kk * 16 * 128, C::kTileBox, 1024));
       wgmma_commit();
       wgmma_wait<0>();
 #pragma unroll
@@ -857,7 +892,7 @@ __global__ void __launch_bounds__(kThreads, 1)
         for (int r = 0; r < 2; ++r) {
           const int rl = 16 * warp + g + 8 * r;  // row in the group's 64
           const uint32_t v =
-              pack_bf16(o[x][4 * n + 2 * r] * inv[r], o[x][4 * n + 2 * r + 1] * inv[r]);
+              pack2<E>(o[x][4 * n + 2 * r] * inv[r], o[x][4 * n + 2 * r + 1] * inv[r]);
           unsigned char* dst = myO + x * kBoxBytes + rl * 128 + ((n ^ (rl & 7)) << 4) + qd * 2;
           *reinterpret_cast<uint32_t*>(dst) = v;
         }
@@ -897,10 +932,11 @@ EncodeTiled encode_tiled() {
   return fn;
 }
 
-// A 4-D map (D, H, T, B) of a bf16 (B, T, H, D) tensor with element strides s[0..2] for
-// (b, t, h), read in boxes of 64 columns x `rows` rows of one (b, h), 128-byte swizzled.
+// A 4-D map (D, H, T, B) of a 16-bit (B, T, H, D) tensor of data type `type` with element
+// strides s[0..2] for (b, t, h), read in boxes of 64 columns x `rows` rows of one (b, h),
+// 128-byte swizzled.
 bool make_map(EncodeTiled enc, CUtensorMap* map, const void* base, const long long* s, int B, int T,
-              int H, int D, int rows) {
+              int H, int D, int rows, CUtensorMapDataType type) {
   const cuuint64_t dims[4] = {static_cast<cuuint64_t>(D), static_cast<cuuint64_t>(H),
                               static_cast<cuuint64_t>(T), static_cast<cuuint64_t>(B)};
   const cuuint64_t strides[3] = {static_cast<cuuint64_t>(s[2]) * 2,
@@ -908,29 +944,32 @@ bool make_map(EncodeTiled enc, CUtensorMap* map, const void* base, const long lo
                                  static_cast<cuuint64_t>(s[0]) * 2};
   const cuuint32_t box[4] = {kBox, 1, static_cast<cuuint32_t>(rows), 1};
   const cuuint32_t estr[4] = {1, 1, 1, 1};
-  return enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims, strides, box,
-             estr, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+  return enc(map, type, 4, const_cast<void*>(base), dims, strides, box, estr,
+             CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
              CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-template <int D, bool kBias, int kSched = kDense>
+// one call of instance (D, kBias, kSched) of element type E (bf16, fp16)
+template <int D, bool kBias, int kSched = kDense, typename E = bf16>
 int launch(const void* q, const void* k, const void* v, void* out, float* lse,
            const long long* strides, int B, int T, int H, int causal, float scale,
            const float* kbias, const typename SchedArg<kSched>::type& sa, cudaStream_t stream) {
   using C = Cfg<D, kBias, kSched>;
+  constexpr CUtensorMapDataType type =
+      kHalf<E> ? CU_TENSOR_MAP_DATA_TYPE_FLOAT16 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
   EncodeTiled enc = encode_tiled();
   if (enc == nullptr) return -3;
   CUtensorMap mq, mk, mv, mo;
   const long long so[3] = {static_cast<long long>(T) * H * D, static_cast<long long>(H) * D, D};
-  if (!make_map(enc, &mq, q, strides, B, T, H, D, 64) ||
-      !make_map(enc, &mk, k, strides + 3, B, T, H, D, C::kBN) ||
-      !make_map(enc, &mv, v, strides + 6, B, T, H, D, C::kBN) ||
-      !make_map(enc, &mo, out, so, B, T, H, D, 64))
+  if (!make_map(enc, &mq, q, strides, B, T, H, D, 64, type) ||
+      !make_map(enc, &mk, k, strides + 3, B, T, H, D, C::kBN, type) ||
+      !make_map(enc, &mv, v, strides + 6, B, T, H, D, C::kBN, type) ||
+      !make_map(enc, &mo, out, so, B, T, H, D, 64, type))
     return -2;
   const int nq = cdiv(T, kBQ), n_work = nq * B * H;
   const Params p = {lse, kbias, T, H, causal, nq, n_work, scale * kLog2e};
   int dev = 0, sms = 0;
-  auto kernel = fwd_sm90_kernel<D, kBias, kSched>;
+  auto kernel = fwd_sm90_kernel<D, kBias, kSched, E>;
   cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                        static_cast<int>(C::kSmem));
   if (e == cudaSuccess) e = cudaGetDevice(&dev);
@@ -941,11 +980,16 @@ int launch(const void* q, const void* k, const void* v, void* out, float* lse,
   return static_cast<int>(cudaGetLastError());
 }
 
+// a dense call: bf16 (dtype code 1) with or without the key bias, fp16 (code 2) without
 template <int D>
-int launch_bias(const void* q, const void* k, const void* v, void* out, float* lse,
+int launch_bias(int dtype, const void* q, const void* k, const void* v, void* out, float* lse,
                 const long long* strides, int B, int T, int H, int causal, float scale,
                 const float* kbias, cudaStream_t stream) {
   const NoSched none{};
+  if (dtype == 2)
+    return kbias != nullptr ? -1
+                            : launch<D, false, kDense, f16>(q, k, v, out, lse, strides, B, T, H,
+                                                            causal, scale, kbias, none, stream);
   return kbias != nullptr
              ? launch<D, true>(q, k, v, out, lse, strides, B, T, H, causal, scale, kbias, none,
                                stream)
@@ -953,26 +997,32 @@ int launch_bias(const void* q, const void* k, const void* v, void* out, float* l
                                 stream);
 }
 
-// the entries' common refusals: bf16 only, and work item indices in an int
-bool fits(int dtype, int B, int T, int H) {
-  return dtype == 1 && static_cast<long long>(cdiv(T, kBQ)) * B * H <= 0x7fffffffLL;
+// the entries' common refusals: bf16 (dtype code 1), or fp16 (code 2) where `fp16`, and work
+// item indices in an int
+bool fits(int dtype, int B, int T, int H, bool fp16 = false) {
+  return (dtype == 1 || (fp16 && dtype == 2)) &&
+         static_cast<long long>(cdiv(T, kBQ)) * B * H <= 0x7fffffffLL;
 }
 
 }  // namespace
 
-// strides: 12 int64, the (b, t, h) element strides of q, k, v (and dout's, ignored here);
-// kbias: the (B, T) fp32 key bias, contiguous, or null for none.
+// dtype: 1 bf16, 2 fp16; strides: 12 int64, the (b, t, h) element strides of q, k, v (and
+// dout's, ignored here); kbias: the (B, T) fp32 key bias, contiguous, or null for none (bf16
+// only).
 extern "C" int flash_fwd_sm90(int dtype, int head_dim, const void* q, const void* k,
                               const void* v, void* out, float* lse, const long long* strides,
                               int B, int T, int H, int causal, float scale, const float* kbias,
                               void* stream) {
-  if (!fits(dtype, B, T, H)) return -1;
+  if (!fits(dtype, B, T, H, true) || (dtype == 2 && kbias != nullptr)) return -1;
   if (T == 0 || B * H == 0) return 0;
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
   switch (head_dim) {
-    case 64: return launch_bias<64>(q, k, v, out, lse, strides, B, T, H, causal, scale, kbias, st);
+    case 64:
+      return launch_bias<64>(dtype, q, k, v, out, lse, strides, B, T, H, causal, scale, kbias,
+                             st);
     case 128:
-      return launch_bias<128>(q, k, v, out, lse, strides, B, T, H, causal, scale, kbias, st);
+      return launch_bias<128>(dtype, q, k, v, out, lse, strides, B, T, H, causal, scale, kbias,
+                              st);
     default: return -1;
   }
 }

@@ -8,10 +8,11 @@
 //   * the launch geometry: 384 threads, a producer warpgroup and two consumer warpgroups
 //     (two pipes a block), 64-row tiles stored as 128-byte-swizzled 64-column boxes;
 //   * PTX: mbarriers (a wait past 2 s traps), TMA loads, cp.async, wgmma (m64n64k16, both
-//     operands in shared memory, or A from registers with B read through the transpose bit)
-//     and the register fences around them;
+//     operands in shared memory, or A from registers with B read through the transpose bit,
+//     bf16 or fp16 operands: the element type E) and the register fences around them;
 //   * the output product dQ += dS K, which is also the forward's O += P V, and the store of a
-//     64-row accumulator's rows;
+//     64-row accumulator's rows, rounded to nearest into E (an fp16 value past 65504 becomes
+//     inf: no conversion here saturates);
 //   * the host side: cuTensorMapEncodeTiled fetched at run time (no -lcuda), the tensor maps
 //     of q / k / v / dO, lse / delta and the key bias, and the persistent launch of two pipes
 //     a block (launch_pipes).
@@ -20,9 +21,12 @@
 
 #include <cuda.h>  // CUtensorMap and its enums; the encoder is fetched at run time
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 // The schedule of one call (GroupLut's arrays on the device; a ctypes Structure on the host).
 // Output units are key units for dK/dV and query units for dQ; visited units the others.
@@ -39,6 +43,10 @@ struct GroupSchedule {
 namespace {
 
 using bf16 = __nv_bfloat16;
+using f16 = __half;
+// whether an element type E (bf16 or f16) is fp16
+template <typename E>
+constexpr bool kHalf = std::is_same<E, f16>::value;
 
 constexpr int kWgThreads = 128;
 constexpr int kThreads = 3 * kWgThreads;  // a producer warpgroup, two consumer warpgroups
@@ -179,38 +187,63 @@ __device__ __forceinline__ void fence_regs(uint32_t (&r)[N][4]) {
   "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]), "+f"(d[i + 4]), "+f"(d[i + 5]), \
       "+f"(d[i + 6]), "+f"(d[i + 7])
 
-// d (64 x 64, fp32) (+)= A (64 x 16) B (16 x 64): A and B K-major in shared memory
+// d (64 x 64, fp32) (+)= A (64 x 16) B (16 x 64): A and B K-major in shared memory, of
+// element type E (TY: its PTX type, bf16 or f16)
+#define WGMMA_SS_N64(TY)                                                              \
+  asm volatile(                                                                       \
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"                                    \
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32." TY "." TY " "                    \
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "       \
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, " \
+      "%32, %33, p, 1, 1, 0, 0;\n}\n"                                                 \
+      : F8(0), F8(8), F8(16), F8(24)                                                  \
+      : "l"(da), "l"(db), "r"(accumulate))
+template <typename E = bf16>
 __device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da, uint64_t db,
                                              int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
-      "%32, %33, p, 1, 1, 0, 0;\n}\n"
-      : F8(0), F8(8), F8(16), F8(24)
-      : "l"(da), "l"(db), "r"(accumulate));
+  if constexpr (kHalf<E>)
+    WGMMA_SS_N64("f16");
+  else
+    WGMMA_SS_N64("bf16");
 }
+#undef WGMMA_SS_N64
 
-// d (64 x 64, fp32) += A (64 x 16, bf16 fragments in registers) B (16 x 64): B in shared
+// d (64 x 64, fp32) += A (64 x 16, E fragments in registers) B (16 x 64): B in shared
 // memory, MN-major (rows of B contiguous: the transpose bit)
+#define WGMMA_RS_N64_TB(TY)                                                           \
+  asm volatile(                                                                       \
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"                                    \
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32." TY "." TY " "                    \
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "       \
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, " \
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"                                   \
+      : F8(0), F8(8), F8(16), F8(24)                                                  \
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1))
+template <typename E = bf16>
 __device__ __forceinline__ void wgmma_rs_n64_tb(float (&d)[32], const uint32_t (&a)[4],
                                                 uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
-      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : F8(0), F8(8), F8(16), F8(24)
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+  if constexpr (kHalf<E>)
+    WGMMA_RS_N64_TB("f16");
+  else
+    WGMMA_RS_N64_TB("bf16");
 }
+#undef WGMMA_RS_N64_TB
 #undef F8
 
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
+// two floats rounded to nearest into one word of E: lo in the low half (an fp16 value past
+// 65504 becomes inf, not 65504: the overflow reaches the loss scaler)
+template <typename E = bf16>
+__device__ __forceinline__ uint32_t pack2(float lo, float hi) {
+  if constexpr (kHalf<E>) {
+    const __half2 v = __floats2half2_rn(lo, hi);
+    return *reinterpret_cast<const uint32_t*>(&v);
+  } else {
+    const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+    return *reinterpret_cast<const uint32_t*>(&v);
+  }
 }
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) { return pack2<bf16>(lo, hi); }
 
 // 2^x with one MUFU instruction (denormal results flush to 0; 2^-inf = 0)
 __device__ __forceinline__ float exp2_ftz(float x) {
@@ -220,9 +253,9 @@ __device__ __forceinline__ float exp2_ftz(float x) {
 }
 
 // The output product of one dQ visit, one commit group: dQ += dS K, the visit's K tile read
-// through the transpose bit (the forward's O += P V: P in the A fragments, V's tile).  The
-// caller fences the registers first.
-template <int kB>
+// through the transpose bit (the forward's O += P V: P in the A fragments, V's tile), of
+// element type E.  The caller fences the registers first.
+template <int kB, typename E = bf16>
 __device__ __forceinline__ void issue_dq(float (&dq)[kB][32], const uint32_t (&da)[4][4],
                                          const unsigned char* tK) {
   wgmma_fence();
@@ -230,22 +263,22 @@ __device__ __forceinline__ void issue_dq(float (&dq)[kB][32], const uint32_t (&d
   for (int x = 0; x < kB; ++x)
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk)
-      wgmma_rs_n64_tb(dq[x], da[kk], desc_sw128(tK + x * kBoxBytes + kk * 16 * 128, kBoxBytes,
-                                                1024));
+      wgmma_rs_n64_tb<E>(dq[x], da[kk], desc_sw128(tK + x * kBoxBytes + kk * 16 * 128,
+                                                   kBoxBytes, 1024));
   wgmma_commit();
 }
 
-// Row r (0 or 1: row 16 warp + g + 8 r of the tile) of a 64-row accumulator, bf16, to out
-// (that row's first column): its kB x 8 column pairs 64 x + 8 n + qd
-template <int kB>
-__device__ __forceinline__ void store_row(bf16* out, const float (&acc)[kB][32], int r, int qd) {
+// Row r (0 or 1: row 16 warp + g + 8 r of the tile) of a 64-row accumulator, in E (bf16 or
+// fp16), to out (that row's first column): its kB x 8 column pairs 64 x + 8 n + qd
+template <int kB, typename E>
+__device__ __forceinline__ void store_row(E* out, const float (&acc)[kB][32], int r, int qd) {
 #pragma unroll
   for (int x = 0; x < kB; ++x)
 #pragma unroll
     for (int n = 0; n < 8; ++n) {
       const int e = 4 * n + 2 * r;
-      *reinterpret_cast<uint32_t*>(out + x * kBox + 8 * n + qd) = pack_bf16(acc[x][e],
-                                                                           acc[x][e + 1]);
+      *reinterpret_cast<uint32_t*>(out + x * kBox + 8 * n + qd) = pack2<E>(acc[x][e],
+                                                                          acc[x][e + 1]);
     }
 }
 
@@ -274,10 +307,16 @@ EncodeTiled encode_tiled() {
   return fn;
 }
 
-// A 4-D map (D, H, T, B) of a bf16 (B, T, H, D) tensor with element strides s[0..2] for
-// (b, t, h), read in boxes of 64 columns x `rows` rows of one (b, h), 128-byte swizzled.
+// The tensor-map data type of an element type E (bf16 or fp16)
+template <typename E>
+constexpr CUtensorMapDataType kMapType =
+    kHalf<E> ? CU_TENSOR_MAP_DATA_TYPE_FLOAT16 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+
+// A 4-D map (D, H, T, B) of a 16-bit (B, T, H, D) tensor of data type `type` with element
+// strides s[0..2] for (b, t, h), read in boxes of 64 columns x `rows` rows of one (b, h),
+// 128-byte swizzled.
 bool make_map(EncodeTiled enc, CUtensorMap* map, const void* base, const long long* s, int B, int T,
-              int H, int D, int rows) {
+              int H, int D, int rows, CUtensorMapDataType type = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16) {
   const cuuint64_t dims[4] = {static_cast<cuuint64_t>(D), static_cast<cuuint64_t>(H),
                               static_cast<cuuint64_t>(T), static_cast<cuuint64_t>(B)};
   const cuuint64_t strides[3] = {static_cast<cuuint64_t>(s[2]) * 2,
@@ -285,8 +324,8 @@ bool make_map(EncodeTiled enc, CUtensorMap* map, const void* base, const long lo
                                  static_cast<cuuint64_t>(s[0]) * 2};
   const cuuint32_t box[4] = {kBox, 1, static_cast<cuuint32_t>(rows), 1};
   const cuuint32_t estr[4] = {1, 1, 1, 1};
-  return enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims, strides, box,
-             estr, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+  return enc(map, type, 4, const_cast<void*>(base), dims, strides, box, estr,
+             CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
              CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 

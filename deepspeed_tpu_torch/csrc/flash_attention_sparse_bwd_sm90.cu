@@ -1,7 +1,8 @@
 // Flash-attention backward for Hopper (sm_90a), bf16, head dim 64: the block-sparse entries
 // flash_bwd_dkdv_lut_sm90 (dK, dV) and flash_bwd_dq_lut_sm90 (dQ), and the dense entries
 // flash_bwd_dkdv_sm90 and flash_bwd_dq_sm90 (the end of this note), which share their helpers;
-// the (B, T) key bias optional in all four.
+// the (B, T) key bias optional in all four.  The dense entries are built for fp16 too, without
+// the key bias (fp16 mixed-precision training; the last paragraph of this note).
 //
 // Replace the Pallas TPU kernels _bwd_dkdv_kernel (617-688) and _bwd_dq_kernel (691-753) of
 // deepspeed_tpu/ops/transformer/flash_attention.py with use_lut and use_kbias, built by _bwd
@@ -118,6 +119,15 @@
 // flash_bwd_dkdv_sm90_schedule and flash_bwd_dq_sm90_schedule in ops/transformer/
 // flash_attention.py are their schedules in Python.
 //
+// fp16: the dense instances without the key bias (dense_dkdv_kernel<64, false, f16>,
+// dense_dq_kernel<64, false, f16>, dtype code 2) are the bf16 ones with the element type a
+// template parameter: wgmma .f32.f16.f16 in place of .f32.bf16.bf16, P and dS rounded to fp16
+// (__floats2half2_rn) where the bf16 instances round to bf16, fp16 stores, and the tensor maps
+// of data type FLOAT16.  fp16's range ends at 65504: a P^T dO, dS^T Q or dS K past it (or a dS
+// rounded past it) becomes inf, no conversion saturates, so an overflow reaches the outputs and
+// the loss scaler skips the step, as the reference's fp16 kernels do.  The group instances, the
+// key-bias instances and head dim 128 stay bf16 only (-1 for fp16).
+//
 // The PTX, TMA, mbarrier, wgmma, tensor-map and launch helpers, the GroupSchedule struct and
 // the output product issue_dq are in flash_attention_sm90.cuh, shared with the forward of
 // flash_attention_sparse_fwd_sm90.cu.
@@ -164,8 +174,8 @@ struct Cfg {
 // commit group.  It may be issued while the last visit's output products are in flight, so
 // it touches s and dp with nothing but the wgmmas: a register fence there counts as a
 // definition inside their pipeline stage, and ptxas then serializes every wgmma of the kernel
-// (C7515)
-template <int D>
+// (C7515).  E: the operands' element type.
+template <int D, typename E = bf16>
 __device__ __forceinline__ void issue_sdp(float (&s)[32], float (&dp)[32], const unsigned char* tS,
                                           const unsigned char* tP, const unsigned char* vS,
                                           const unsigned char* vP) {
@@ -173,12 +183,13 @@ __device__ __forceinline__ void issue_sdp(float (&s)[32], float (&dp)[32], const
 #pragma unroll
   for (int kk = 0; kk < D / 16; ++kk) {
     const int off = (kk / 4) * kBoxBytes + (kk % 4) * 32;
-    wgmma_ss_n64(s, desc_sw128(tS + off, 16, 1024), desc_sw128(vS + off, 16, 1024), kk > 0);
+    wgmma_ss_n64<E>(s, desc_sw128(tS + off, 16, 1024), desc_sw128(vS + off, 16, 1024), kk > 0);
   }
 #pragma unroll
   for (int kk = 0; kk < D / 16; ++kk) {
     const int off = (kk / 4) * kBoxBytes + (kk % 4) * 32;
-    wgmma_ss_n64(dp, desc_sw128(tP + off, 16, 1024), desc_sw128(vP + off, 16, 1024), kk > 0);
+    wgmma_ss_n64<E>(dp, desc_sw128(tP + off, 16, 1024), desc_sw128(vP + off, 16, 1024),
+                    kk > 0);
   }
   wgmma_commit();
 }
@@ -188,11 +199,11 @@ __device__ __forceinline__ void issue_sdp(float (&s)[32], float (&dp)[32], const
 // (vm: the mask flag and the query units); a row of lse NEG_INF takes +inf, so its P is 0.
 // Only a flagged visit (kMasked) masks: an empty query slot, a query row from qend on (T: the
 // group kernels' filled slots never reach it, the dense kernel's last tile may), and when
-// causal a query before the key.  P^T and dS^T go straight to bf16 A fragments: columns
+// causal a query before the key.  P^T and dS^T go straight to E A fragments (bf16, fp16): columns
 // 8 n + qd + e of row r are word 2 (n & 1) + r of fragment n / 2 (a 16-column slice of the
 // accumulator is one fragment).  s and dp are only read: no instruction but a wgmma defines an
 // accumulator while one is in flight, else ptxas serializes the kernel's wgmmas (C7515).
-template <int U, bool kMasked, bool kBias>
+template <int U, bool kMasked, bool kBias, typename E = bf16>
 __device__ __forceinline__ void softmax_grad(const float (&s)[32], const float (&dp)[32],
                                              uint32_t (&pa)[4][4], uint32_t (&da)[4][4],
                                              const float* sl, const float* sd, const int* vm,
@@ -225,8 +236,8 @@ __device__ __forceinline__ void softmax_grad(const float (&s)[32], const float (
         if (kMasked && !(qpos[e] >= 0 && (!causal || qpos[e] >= kpos[r]))) pv[e] = 0.f;
         dsv[e] = pv[e] * fmaf(dp[idx], scale, -ds[e]);
       }
-      pa[n >> 1][2 * (n & 1) + r] = pack_bf16(pv[0], pv[1]);
-      da[n >> 1][2 * (n & 1) + r] = pack_bf16(dsv[0], dsv[1]);
+      pa[n >> 1][2 * (n & 1) + r] = pack2<E>(pv[0], pv[1]);
+      da[n >> 1][2 * (n & 1) + r] = pack2<E>(dsv[0], dsv[1]);
     }
   }
 }
@@ -236,9 +247,9 @@ __device__ __forceinline__ void softmax_grad(const float (&s)[32], const float (
 // slot; l2 = lse log2e, +inf where lse is NEG_INF, so that row's P is 0; dd = delta scale),
 // the visit's key-bias slots (kb) and its entries (vm: the mask flag and the key units).  Only
 // a flagged visit (kMasked) masks: an empty key slot, a key row from kend on (as qend in
-// softmax_grad), and when causal a key after the query.  dS goes straight to bf16 A
+// softmax_grad), and when causal a key after the query.  dS goes straight to E A
 // fragments, as in softmax_grad; s and dp are only read.
-template <int U, bool kMasked, bool kBias>
+template <int U, bool kMasked, bool kBias, typename E = bf16>
 __device__ __forceinline__ void softmax_grad_dq(const float (&s)[32], const float (&dp)[32],
                                                 uint32_t (&da)[4][4], const float* kb,
                                                 const int* vm, const float (&l2)[2],
@@ -272,15 +283,15 @@ __device__ __forceinline__ void softmax_grad_dq(const float (&s)[32], const floa
           pv = 0.f;
         dsv[e] = pv * fmaf(dp[idx], scale, -dd[r]);
       }
-      da[n >> 1][2 * (n & 1) + r] = pack_bf16(dsv[0], dsv[1]);
+      da[n >> 1][2 * (n & 1) + r] = pack2<E>(dsv[0], dsv[1]);
     }
   }
 }
 
 // The output products of one dK/dV visit, one commit group: dV += P^T dO and dK += dS^T Q
 // from the A fragments of softmax_grad, the visit's dO and Q tiles read through the transpose
-// bit (no transposed copy is made).  The caller fences the registers first.
-template <int kB>
+// bit (no transposed copy is made), of element type E.  The caller fences the registers first.
+template <int kB, typename E = bf16>
 __device__ __forceinline__ void issue_dvdk(float (&dv)[kB][32], float (&dk)[kB][32],
                                            const uint32_t (&pa)[4][4], const uint32_t (&da)[4][4],
                                            const unsigned char* tdO, const unsigned char* tQ) {
@@ -289,14 +300,14 @@ __device__ __forceinline__ void issue_dvdk(float (&dv)[kB][32], float (&dk)[kB][
   for (int x = 0; x < kB; ++x)
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk)
-      wgmma_rs_n64_tb(dv[x], pa[kk], desc_sw128(tdO + x * kBoxBytes + kk * 16 * 128, kBoxBytes,
-                                                1024));
+      wgmma_rs_n64_tb<E>(dv[x], pa[kk], desc_sw128(tdO + x * kBoxBytes + kk * 16 * 128,
+                                                   kBoxBytes, 1024));
 #pragma unroll
   for (int x = 0; x < kB; ++x)
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk)
-      wgmma_rs_n64_tb(dk[x], da[kk], desc_sw128(tQ + x * kBoxBytes + kk * 16 * 128, kBoxBytes,
-                                                1024));
+      wgmma_rs_n64_tb<E>(dk[x], da[kk], desc_sw128(tQ + x * kBoxBytes + kk * 16 * 128,
+                                                   kBoxBytes, 1024));
   wgmma_commit();
 }
 
@@ -793,8 +804,8 @@ struct DenseParams {
   const float* lse;             // (B, H, T) fp32, contiguous
   const float* delta;           // the same
   const float* kbias;           // (B, T) fp32, contiguous: the key bias (kBias instances)
-  bf16* out0;                   // dK (dense_dkdv_kernel) or dQ (dense_dq_kernel)
-  bf16* out1;                   // dV, or null
+  void* out0;                   // dK (dense_dkdv_kernel) or dQ (dense_dq_kernel), of type E
+  void* out1;                   // dV, or null
   int T, H, BH, nt, causal;     // nt = ceil(T / 64): tiles a side
   float scale, scale2;          // scale; scale * log2 e
 };
@@ -852,7 +863,8 @@ struct DenseCfg {
 // handed over.  The accumulator layout and the loop are dkdv_sm90_kernel's.  kBias: the
 // item's key bias (its 64 key rows, constant over its visits) comes once with its K and V,
 // copied by the producer lanes, and each consumer thread keeps its two rows' in registers.
-template <int D, bool kBias>
+// E: the element type of q, k, v, dO, dK and dV (bf16, fp16).
+template <int D, bool kBias, typename E>
 __global__ void __launch_bounds__(kThreads, 1)
     dense_dkdv_kernel(const __grid_constant__ CUtensorMap tq,
                       const __grid_constant__ CUtensorMap tk,
@@ -974,7 +986,7 @@ __global__ void __launch_bounds__(kThreads, 1)
     uint32_t pa[4][4], da[4][4];
     int st = vt % kS;
     mbar_wait(&full[st], (vt / kS) & 1);
-    issue_sdp<D>(s, dp, tK, tV, sQ + st * kTile, sdO + st * kTile);
+    issue_sdp<D, E>(s, dp, tK, tV, sQ + st * kTile, sdO + st * kTile);
     for (int j = 0; j < nv; ++j, ++vt) {
       // S^T and dP^T of this visit are done, and the last visit's dV and dK
       wgmma_wait<0>();
@@ -993,11 +1005,11 @@ __global__ void __launch_bounds__(kThreads, 1)
       const float* sl = sLse + st * kRows;
       const float* sd = sDelta + st * kRows;
       if ((p.causal && qt == kt) || (ragged && qt == nt - 1))
-        softmax_grad<kRows, true, kBias>(s, dp, pa, da, sl, sd, vm, kb2, kpos, qd, p.causal,
-                                         scale, scale2, T);
+        softmax_grad<kRows, true, kBias, E>(s, dp, pa, da, sl, sd, vm, kb2, kpos, qd, p.causal,
+                                            scale, scale2, T);
       else
-        softmax_grad<kRows, false, kBias>(s, dp, pa, da, sl, sd, vm, kb2, kpos, qd, p.causal,
-                                          scale, scale2, T);
+        softmax_grad<kRows, false, kBias, E>(s, dp, pa, da, sl, sd, vm, kb2, kpos, qd,
+                                             p.causal, scale, scale2, T);
 #pragma unroll
       for (int x = 0; x < kB; ++x) {
         fence_regs(dv[x]);
@@ -1005,7 +1017,7 @@ __global__ void __launch_bounds__(kThreads, 1)
       }
       fence_regs(pa);
       fence_regs(da);
-      issue_dvdk<kB>(dv, dk, pa, da, sdO + st * kTile, sQ + st * kTile);
+      issue_dvdk<kB, E>(dv, dk, pa, da, sdO + st * kTile, sQ + st * kTile);
       // the next visit's S^T and dP^T right behind them; after the last visit this visit's
       // again, as in dkdv_sm90_kernel (an issue every iteration makes keeps the wgmmas
       // unserialized)
@@ -1013,7 +1025,7 @@ __global__ void __launch_bounds__(kThreads, 1)
         st = (vt + 1) % kS;
         mbar_wait(&full[st], ((vt + 1) / kS) & 1);
       }
-      issue_sdp<D>(s, dp, tK, tV, sQ + st * kTile, sdO + st * kTile);
+      issue_sdp<D, E>(s, dp, tK, tV, sQ + st * kTile, sdO + st * kTile);
     }
     wgmma_wait<0>();
 #pragma unroll
@@ -1035,8 +1047,8 @@ __global__ void __launch_bounds__(kThreads, 1)
     for (int r = 0; r < 2; ++r) {
       if (kpos[r] >= T) continue;
       const long long row = (static_cast<long long>(b) * T + kpos[r]) * H + h;
-      store_row<kB>(p.out0 + row * D, dk, r, qd);
-      store_row<kB>(p.out1 + row * D, dv, r, qd);
+      store_row<kB>(static_cast<E*>(p.out0) + row * D, dk, r, qd);
+      store_row<kB>(static_cast<E*>(p.out1) + row * D, dv, r, qd);
     }
   }
 }
@@ -1047,8 +1059,8 @@ __global__ void __launch_bounds__(kThreads, 1)
 // tiles 0 .. qt when causal, else 0 .. nt - 1) through the ring.  The accumulator layout and
 // the loop are dq_sm90_kernel's.  kBias: each visit's key bias (64 other key rows each visit)
 // rides the ring beside its K and V, copied by the producer lanes, and softmax_grad_dq reads
-// it from the stage.
-template <int D, bool kBias>
+// it from the stage.  E: the element type (bf16, fp16).
+template <int D, bool kBias, typename E>
 __global__ void __launch_bounds__(kThreads, 1)
     dense_dq_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
                     const __grid_constant__ CUtensorMap tv, const __grid_constant__ CUtensorMap tdo,
@@ -1174,7 +1186,7 @@ __global__ void __launch_bounds__(kThreads, 1)
     uint32_t da[4][4];
     int st = vt % kS;
     mbar_wait(&full[st], (vt / kS) & 1);
-    issue_sdp<D>(s, dp, tQ, tdO, sK + st * kTile, sV + st * kTile);
+    issue_sdp<D, E>(s, dp, tQ, tdO, sK + st * kTile, sV + st * kTile);
     for (int kt = 0; kt < nv; ++kt, ++vt) {
       // S and dP of this visit are done, and the last visit's dQ
       wgmma_wait<0>();
@@ -1187,21 +1199,21 @@ __global__ void __launch_bounds__(kThreads, 1)
       const int vm[2] = {1, kt};  // softmax_grad_dq's entries: the visit's one 64-row unit
       const float* kbs = sKb + st * kRows;
       if ((p.causal && kt == qt) || (ragged && kt == nt - 1))
-        softmax_grad_dq<kRows, true, kBias>(s, dp, da, kbs, vm, l2, dd, qpos, qd, p.causal,
-                                            scale, scale2, T);
+        softmax_grad_dq<kRows, true, kBias, E>(s, dp, da, kbs, vm, l2, dd, qpos, qd, p.causal,
+                                               scale, scale2, T);
       else
-        softmax_grad_dq<kRows, false, kBias>(s, dp, da, kbs, vm, l2, dd, qpos, qd, p.causal,
-                                             scale, scale2, T);
+        softmax_grad_dq<kRows, false, kBias, E>(s, dp, da, kbs, vm, l2, dd, qpos, qd,
+                                                p.causal, scale, scale2, T);
 #pragma unroll
       for (int x = 0; x < kB; ++x) fence_regs(dq[x]);
       fence_regs(da);
-      issue_dq<kB>(dq, da, sK + st * kTile);
+      issue_dq<kB, E>(dq, da, sK + st * kTile);
       // the next visit's S and dP right behind it; after the last visit this visit's again
       if (kt + 1 < nv) {
         st = (vt + 1) % kS;
         mbar_wait(&full[st], ((vt + 1) / kS) & 1);
       }
-      issue_sdp<D>(s, dp, tQ, tdO, sK + st * kTile, sV + st * kTile);
+      issue_sdp<D, E>(s, dp, tQ, tdO, sK + st * kTile, sV + st * kTile);
     }
     wgmma_wait<0>();
 #pragma unroll
@@ -1218,8 +1230,9 @@ __global__ void __launch_bounds__(kThreads, 1)
 #pragma unroll
     for (int r = 0; r < 2; ++r)
       if (qpos[r] < T)
-        store_row<kB>(p.out0 + ((static_cast<long long>(b) * T + qpos[r]) * H + h) * D, dq, r,
-                      qd);
+        store_row<kB>(
+            static_cast<E*>(p.out0) + ((static_cast<long long>(b) * T + qpos[r]) * H + h) * D, dq,
+            r, qd);
   }
 }
 
@@ -1271,43 +1284,61 @@ int launch_any(const void* q, const void* k, const void* v, const void* dout, co
 #undef GROUP_LAUNCH
 }
 
-// dK/dV (kDq false: out0 dK, out1 dV) or dQ (kDq true: out0 dQ) of a dense call
-// (kbias: the (B, T) key bias, or null for none)
-template <bool kDq>
+// dK/dV (kDq false: out0 dK, out1 dV) or dQ (kDq true: out0 dQ) of a dense call of element
+// type E (kbias: the (B, T) key bias, or null for none; bf16 only)
+template <bool kDq, typename E>
 int launch_dense(const void* q, const void* k, const void* v, const void* dout, const float* lse,
                  const float* delta, void* out0, void* out1, const long long* strides, int B,
                  int T, int H, int causal, float scale, const float* kbias,
                  cudaStream_t stream) {
   constexpr int D = 64;
+  constexpr CUtensorMapDataType type = kMapType<E>;
   EncodeTiled enc = encode_tiled();
   if (enc == nullptr) return -3;
   CUtensorMap mq, mk, mv, mdo;
-  if (!make_map(enc, &mq, q, strides, B, T, H, D, kRows) ||
-      !make_map(enc, &mk, k, strides + 3, B, T, H, D, kRows) ||
-      !make_map(enc, &mv, v, strides + 6, B, T, H, D, kRows) ||
-      !make_map(enc, &mdo, dout, strides + 9, B, T, H, D, kRows))
+  if (!make_map(enc, &mq, q, strides, B, T, H, D, kRows, type) ||
+      !make_map(enc, &mk, k, strides + 3, B, T, H, D, kRows, type) ||
+      !make_map(enc, &mv, v, strides + 6, B, T, H, D, kRows, type) ||
+      !make_map(enc, &mdo, dout, strides + 9, B, T, H, D, kRows, type))
     return -2;
   const int nt = (T + kRows - 1) / kRows;
-  const DenseParams p = {lse, delta, kbias, static_cast<bf16*>(out0), static_cast<bf16*>(out1),
-                         T, H, B * H, nt, causal, scale, scale * kLog2e};
+  const DenseParams p = {lse, delta, kbias, out0, out1, T, H, B * H, nt, causal, scale,
+                         scale * kLog2e};
   constexpr size_t smem = DenseCfg<D>::kSmem;
   const int n_work = nt * B * H;
   if constexpr (kDq) {
-    if (kbias != nullptr)
-      return launch_pipes(dense_dq_kernel<D, true>, smem, n_work, stream, mq, mk, mv, mdo, p);
-    return launch_pipes(dense_dq_kernel<D, false>, smem, n_work, stream, mq, mk, mv, mdo, p);
+    if constexpr (!kHalf<E>)
+      if (kbias != nullptr)
+        return launch_pipes(dense_dq_kernel<D, true, E>, smem, n_work, stream, mq, mk, mv, mdo,
+                            p);
+    return launch_pipes(dense_dq_kernel<D, false, E>, smem, n_work, stream, mq, mk, mv, mdo, p);
   } else {
-    if (kbias != nullptr)
-      return launch_pipes(dense_dkdv_kernel<D, true>, smem, n_work, stream, mq, mk, mv, mdo, p);
-    return launch_pipes(dense_dkdv_kernel<D, false>, smem, n_work, stream, mq, mk, mv, mdo, p);
+    if constexpr (!kHalf<E>)
+      if (kbias != nullptr)
+        return launch_pipes(dense_dkdv_kernel<D, true, E>, smem, n_work, stream, mq, mk, mv,
+                            mdo, p);
+    return launch_pipes(dense_dkdv_kernel<D, false, E>, smem, n_work, stream, mq, mk, mv, mdo,
+                        p);
   }
 }
 
-// whether the dense instances were built for a call: bf16, head dim 64, and the work items
-// within int
-bool dense_built_for(int dtype, int head_dim, int B, int T, int H) {
-  return dtype == 1 && head_dim == 64 && B > 0 && T > 0 && H > 0 &&
-         static_cast<long long>(B) * H * ((T + kRows - 1) / kRows) < (1ll << 31);
+// whether the dense instances were built for a call: bf16 (dtype code 1), or fp16 (code 2)
+// without a key bias; head dim 64; the work items within int
+bool dense_built_for(int dtype, int head_dim, int B, int T, int H, const float* kbias) {
+  return (dtype == 1 || (dtype == 2 && kbias == nullptr)) && head_dim == 64 && B > 0 && T > 0 &&
+         H > 0 && static_cast<long long>(B) * H * ((T + kRows - 1) / kRows) < (1ll << 31);
+}
+
+// a dense call of dtype code 1 (bf16) or 2 (fp16)
+template <bool kDq>
+int launch_dense_any(int dtype, const void* q, const void* k, const void* v, const void* dout,
+                     const float* lse, const float* delta, void* out0, void* out1,
+                     const long long* strides, int B, int T, int H, int causal, float scale,
+                     const float* kbias, cudaStream_t stream) {
+  return dtype == 2 ? launch_dense<kDq, f16>(q, k, v, dout, lse, delta, out0, out1, strides, B,
+                                             T, H, causal, scale, kbias, stream)
+                    : launch_dense<kDq, bf16>(q, k, v, dout, lse, delta, out0, out1, strides, B,
+                                              T, H, causal, scale, kbias, stream);
 }
 
 }  // namespace
@@ -1338,16 +1369,16 @@ extern "C" int flash_bwd_dq_lut_sm90(int dtype, int head_dim, const void* q, con
                               scale, *s, reinterpret_cast<cudaStream_t>(stream));
 }
 
-// The dense dK/dV: flash_bwd_dkdv's arguments (flash_attention.cu), then kbias: the (B, T)
-// fp32 key bias, contiguous, or null for none.
+// The dense dK/dV: flash_bwd_dkdv's arguments (flash_attention.cu; dtype 1 bf16, 2 fp16), then
+// kbias: the (B, T) fp32 key bias, contiguous, or null for none (bf16 only).
 extern "C" int flash_bwd_dkdv_sm90(int dtype, int head_dim, const void* q, const void* k,
                                    const void* v, const void* dout, const float* lse,
                                    const float* delta, void* dk, void* dv,
                                    const long long* strides, int B, int T, int H, int causal,
                                    float scale, const float* kbias, void* stream) {
-  if (!dense_built_for(dtype, head_dim, B, T, H)) return -1;
-  return launch_dense<false>(q, k, v, dout, lse, delta, dk, dv, strides, B, T, H, causal, scale,
-                             kbias, reinterpret_cast<cudaStream_t>(stream));
+  if (!dense_built_for(dtype, head_dim, B, T, H, kbias)) return -1;
+  return launch_dense_any<false>(dtype, q, k, v, dout, lse, delta, dk, dv, strides, B, T, H,
+                                 causal, scale, kbias, reinterpret_cast<cudaStream_t>(stream));
 }
 
 // The dense dQ: flash_bwd_dq's arguments (flash_attention.cu), then kbias as above.
@@ -1356,7 +1387,7 @@ extern "C" int flash_bwd_dq_sm90(int dtype, int head_dim, const void* q, const v
                                  const float* delta, void* dq, const long long* strides, int B,
                                  int T, int H, int causal, float scale, const float* kbias,
                                  void* stream) {
-  if (!dense_built_for(dtype, head_dim, B, T, H)) return -1;
-  return launch_dense<true>(q, k, v, dout, lse, delta, dq, nullptr, strides, B, T, H, causal,
-                            scale, kbias, reinterpret_cast<cudaStream_t>(stream));
+  if (!dense_built_for(dtype, head_dim, B, T, H, kbias)) return -1;
+  return launch_dense_any<true>(dtype, q, k, v, dout, lse, delta, dq, nullptr, strides, B, T, H,
+                                causal, scale, kbias, reinterpret_cast<cudaStream_t>(stream));
 }

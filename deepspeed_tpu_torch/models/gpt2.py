@@ -4,7 +4,9 @@ KV cache, and paged-KV decode.
 Counterpart of ``deepspeed_tpu/models/gpt2.py``.  Ported: ``GPT2Config``,
 ``PRESETS``, ``_layer_norm`` (fp32 statistics, population variance),
 ``_dropout``, ``_attention_jnp``, ``flash_or_jnp_attention``,
-``gpt2_block_forward``, ``GPT2.init_numpy``, ``apply``, ``loss``,
+``gpt2_block_forward`` (with ``checkpoint_name``), ``resolve_remat_policy``,
+``_chunked_head_nll``, ``GPT2.init_numpy``, ``apply``, ``loss`` (with
+``_chunked_loss``),
 ``_split_batch``, ``num_params``, ``flops_per_token``, ``init_cache`` +
 ``apply_with_cache`` (the ``fused`` seq-major cache path only — the
 serving prefill and generate's steps), ``_qkv``, ``_masked_attend``,
@@ -45,10 +47,27 @@ Deliberate differences:
   cannot match JAX's Bernoulli bits; parity runs use dropout 0;
 - ``remat=True`` checkpoints each block with ``torch.utils.checkpoint``
   (``use_reentrant=False``, ``preserve_rng_state=False``: no mask comes
-  from the default generator, whose state a capture may not read); the
-  selective ``remat_policy`` values, ``loss_chunk > 0`` and the
-  sequence-parallel ``attention_impl``\\ s
-  (``ring``, ``ring_flash``, ``ulysses``) raise ``NotImplementedError``;
+  from the default generator, whose state a capture may not read).  A
+  ``remat_policy`` is a selective-checkpoint policy
+  (:func:`resolve_remat_policy`, ``torch.utils.checkpoint.
+  create_selective_checkpoint_contexts``): ``"dots"`` saves the outputs of
+  the block's four weight products (``aten.mm`` / ``aten.addmm``: JAX's
+  dots with no batch dimensions; the attention's batched products and the
+  flash kernels, which write a ``torch.empty`` buffer through ``ctypes``
+  where no op records it, are recomputed), ``"names:a,b"`` saves the
+  tensors :func:`checkpoint_name` marks with those names (``attn_out``,
+  ``mlp_fc``, as JAX's ``checkpoint_name``), as an alias op the policy
+  recognises.  Difference: the recompute reruns the whole block forward
+  and takes the saved outputs from the cache where XLA prunes the work
+  they make dead, so the saved tensors, and so the memory, are JAX's, the
+  recomputed work is not.  The policies read no RNG state and make no
+  host read, so a captured step runs them.  The sequence-parallel
+  ``attention_impl``\\ s (``ring``, ``ring_flash``, ``ulysses``) raise
+  ``NotImplementedError``;
+- ``loss_chunk > 0`` (:func:`_chunked_head_nll`): each chunk of tokens
+  under ``torch.utils.checkpoint`` where JAX maps ``jax.checkpoint`` over
+  them, so a chunk's fp32 logits live only inside it, forward and
+  backward; the chunk totals are summed in chunk order;
 - ``attention_impl="auto"`` picks the flash kernels for CUDA tensors
   (JAX: on a TPU) unless attention dropout is active; ``scale_attn=False``
   runs on them too (``sm_scale=1``; JAX sends it to the jnp path);
@@ -64,18 +83,21 @@ Deliberate differences:
   JAX; a quantized ``wte`` makes the head ``q_matmul(x, wte,
   w_transposed=True, out_dtype=float32)``, a float one keeps
   :func:`tied_head`;
-- ``init`` (JAX PRNG draws), ``_chunked_head_nll``, ``stream_fns``,
-  tensor parallelism and ``local_attn_window`` are not ported.
+- ``init`` (JAX PRNG draws), ``stream_fns``, tensor parallelism and
+  ``local_attn_window`` are not ported.
 """
 
 import dataclasses
+import functools
 import math
+import threading
 from typing import Optional
 
 import numpy as np
 import torch
 import torch.nn.functional as F
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from ..runtime.step_graph import as_seed, dropout_uniform, fold as _fold
 from ..module_inject.module_quantize import is_quantized_leaf, q_gather, q_matmul
@@ -94,11 +116,13 @@ class GPT2Config:
     attn_pdrop: float = 0.1
     resid_pdrop: float = 0.1
     layer_norm_eps: float = 1e-5
-    # checkpoint each block (torch.utils.checkpoint); only remat_policy=None
-    # (recompute the whole block) is ported
+    # checkpoint each block (torch.utils.checkpoint); remat_policy (with remat):
+    # None (recompute the whole block) | "dots" (save the weight products'
+    # outputs) | "names:a,b" (save the tensors checkpoint_name marks so)
     remat: bool = True
     remat_policy: Optional[str] = None
-    # > 0 (the chunked tied-head loss) is not ported
+    # > 0: the tied head and the loss over chunks of this many tokens, each
+    # checkpointed (the (B*T, V) fp32 logits never exist at once)
     loss_chunk: int = 0
     # accepted for config parity; the layer loop is always a Python loop
     unroll_layers: bool = False
@@ -306,6 +330,52 @@ def flash_or_jnp_attention(q, k, v, causal_mask, attn_pdrop, seed,
                           deterministic, scale=scale)
 
 
+# the name checkpoint_name is marking while its alias op runs (read by a names policy)
+_MARKING = threading.local()
+# the weight products of a block as the dispatcher sees them ("dots" saves their outputs)
+_DOT_OPS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def checkpoint_name(x, name):
+    """``x`` marked ``name`` for a ``names:`` remat policy (JAX
+    ``checkpoint_name``): an alias of ``x`` (no copy) whose op the policy
+    saves when it lists ``name``; the same values either way."""
+    _MARKING.name = name
+    try:
+        return torch.ops.aten.alias.default(x)
+    finally:
+        _MARKING.name = None
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    return (CheckpointPolicy.MUST_SAVE if op in _DOT_OPS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _names_policy(names, ctx, op, *args, **kwargs):
+    saved = op is torch.ops.aten.alias.default and getattr(_MARKING, "name", None) in names
+    return CheckpointPolicy.MUST_SAVE if saved else CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def resolve_remat_policy(spec):
+    """``GPT2Config.remat_policy`` → the ``context_fn`` of a selective
+    ``torch.utils.checkpoint`` (JAX ``resolve_remat_policy``: None
+    recomputes everything, ``"dots"`` JAX's
+    ``dots_with_no_batch_dims_saveable``, ``"names:a,b"``
+    ``save_only_these_names``)."""
+    if spec is None:
+        return None
+    if spec == "dots":
+        policy = _dots_policy
+    elif spec.startswith("names:"):
+        names = frozenset(n.strip() for n in spec[len("names:"):].split(",") if n.strip())
+        policy = functools.partial(_names_policy, names)
+    else:
+        raise ValueError(f"unknown remat_policy {spec!r} "
+                         "(None | 'dots' | 'names:<n1,n2,...>')")
+    return functools.partial(create_selective_checkpoint_contexts, policy)
+
+
 def gpt2_block_forward(c, p, x, seed, deterministic, causal_mask, attend):
     """One GPT-2 block (LN → attn → residual → LN → MLP → residual);
     ``attend(q, k, v, mask, seed, deterministic)``.  q, k and v are views
@@ -317,13 +387,51 @@ def gpt2_block_forward(c, p, x, seed, deterministic, causal_mask, attend):
     qkv = h @ p["qkv_w"].to(h.dtype) + p["qkv_b"].to(h.dtype)
     q, k, v = (t.reshape(B, T, H, hd) for t in qkv.split(D, dim=-1))
     attn = attend(q, k, v, causal_mask, r1, deterministic).reshape(B, T, D)
+    if c.remat and c.remat_policy is not None:
+        attn = checkpoint_name(attn, "attn_out")
     attn = attn @ p["proj_w"].to(h.dtype) + p["proj_b"].to(h.dtype)
     x = x + _dropout(attn, c.resid_pdrop, r2, deterministic)
     h = _layer_norm(x, p["ln2_scale"], p["ln2_bias"], c.layer_norm_eps)
     h = h @ p["fc_w"].to(h.dtype) + p["fc_b"].to(h.dtype)
+    if c.remat and c.remat_policy is not None:
+        h = checkpoint_name(h, "mlp_fc")
     h = F.gelu(h, approximate="tanh")
     h = h @ p["fc_proj_w"].to(h.dtype) + p["fc_proj_b"].to(h.dtype)
     return x + _dropout(h, c.resid_pdrop, r3, deterministic)
+
+
+def _chunk_nll(xc, lc, vc, wte, head):
+    """The summed NLL of one chunk of tokens (the tied head's fp32 logits
+    live only here)."""
+    logits = tied_head(xc, wte, head)
+    lse = torch.logsumexp(logits, dim=-1)
+    lab = torch.gather(logits, -1, lc[:, None])[:, 0]
+    return ((lse - lab) * vc).sum()
+
+
+def _chunked_head_nll(c, wte, x, labels):
+    """Tied head + cross-entropy over chunks of ``c.loss_chunk`` tokens,
+    each under ``torch.utils.checkpoint`` (JAX ``_chunked_head_nll``): a
+    chunk's fp32 logits live only inside it, forward and backward.  The
+    token axis pads to a chunk multiple with masked rows.  ``x``: the
+    final-LN hidden states (B, T, D); returns the mean NLL over B*T."""
+    B, T, D = x.shape
+    BT = B * T
+    chunk = min(int(c.loss_chunk), BT)
+    n = -(-BT // chunk)
+    pad = n * chunk - BT
+    xf = F.pad(x.reshape(BT, D), (0, 0, 0, pad)).reshape(n, chunk, D)
+    lf = F.pad(labels.reshape(BT).long(), (0, pad)).reshape(n, chunk)
+    valid = F.pad(torch.ones(BT, dtype=torch.float32, device=x.device), (0, pad))
+    valid = valid.reshape(n, chunk)
+    wte = wte.to(x.dtype)
+    # a 16-bit CUDA head pads the vocab once for every chunk's forward
+    head = _pad_vocab(wte, 0) if x.is_cuda and x.dtype != torch.float32 else None
+    total = torch.stack([
+        checkpoint(_chunk_nll, xf[i], lf[i], valid[i], wte, head, use_reentrant=False,
+                   preserve_rng_state=False)
+        for i in range(n)])
+    return total.sum() / BT
 
 
 class GPT2:
@@ -474,10 +582,8 @@ class GPT2:
         B, T = tokens.shape
         if T > c.max_seq:
             raise ValueError(f"sequence length {T} exceeds max_seq {c.max_seq}")
-        if c.remat and c.remat_policy is not None:
-            raise NotImplementedError(
-                f"remat_policy={c.remat_policy!r} is not ported (None, "
-                "recompute the whole block, is)")
+        context = resolve_remat_policy(c.remat_policy) if c.remat else None
+        remat_kw = {} if context is None else {"context_fn": context}
         seed = as_seed(rng)
         dtype = self.dtype
         pos = torch.arange(T, device=tokens.device)
@@ -494,7 +600,7 @@ class GPT2:
             # no RNG state to preserve: masks come from seeded generators,
             # never the default one, whose state a capture may not read
             x = (checkpoint(self._block, *args, use_reentrant=False,
-                            preserve_rng_state=False)
+                            preserve_rng_state=False, **remat_kw)
                  if c.remat else self._block(*args))
         x = _layer_norm(x, params["lnf_scale"], params["lnf_bias"],
                         c.layer_norm_eps)
@@ -506,14 +612,19 @@ class GPT2:
         """Next-token LM loss (mean over tokens) with dropout on.
         ``batch``: (B, T+1) int tokens, a dict with ``input_ids`` (and
         optional ``labels``), or a ``(tokens,)`` tuple."""
-        if self.config.loss_chunk > 0:
-            raise NotImplementedError("loss_chunk > 0 (the chunked tied-head "
-                                      "loss) is not ported")
         tokens, labels = self._split_batch(batch)
+        if self.config.loss_chunk > 0:
+            return self._chunked_loss(params, tokens, labels, rng)
         logits = self.apply(params, tokens, rng=rng, deterministic=False)
         lse = torch.logsumexp(logits, dim=-1)
         label_logit = torch.gather(logits, -1, labels[..., None].long())[..., 0]
         return (lse - label_logit).mean()
+
+    def _chunked_loss(self, params, tokens, labels, rng):
+        """The tied head and the loss over token chunks (JAX ``_chunked_loss``,
+        :func:`_chunked_head_nll`)."""
+        x = self.apply(params, tokens, rng=rng, deterministic=False, return_hidden=True)
+        return _chunked_head_nll(self.config, params["wte"], x, labels)
 
     @staticmethod
     def _split_batch(batch):

@@ -29,7 +29,9 @@ block-sparse bf16 forward at head dim 64 in
   (:func:`dense_fwd_kernel`), by dtype and head dim alone, and so does
   :func:`flash_fwd_biased` with no (T, T) score bias
   (:func:`biased_fwd_kernel`); :func:`flash_fwd_sm90_schedule` is its
-  schedule in Python;
+  schedule in Python.  Its instances without the key bias are built for
+  fp16 too (fp16 training; dtype code 2), and :func:`dense_fwd_kernel`
+  sends fp16 at head dims 64 and 128 there;
 - ``flash_fwd`` / ``flash_fwd_biased`` / ``flash_fwd_lut`` (for
   ``_fwd_kernel`` 144: dense, fp32 and bf16 at head dim 96; with the (B,
   T) key bias and the (T, T) score bias, for fp32, head dim 96 and any
@@ -81,7 +83,9 @@ block-sparse bf16 forward at head dim 64 in
   there (:func:`dense_bwd_kernel`), and so do :func:`flash_bwd_dkdv_biased`
   and :func:`flash_bwd_dq_biased` with a key bias and no (T, T) score bias
   (:func:`biased_bwd_kernel`); :func:`flash_bwd_dkdv_sm90_schedule` /
-  :func:`flash_bwd_dq_sm90_schedule` are their schedules in Python;
+  :func:`flash_bwd_dq_sm90_schedule` are their schedules in Python.  Their
+  instances without the key bias are built for fp16 too, and
+  :func:`dense_bwd_kernel` sends fp16 at head dim 64 there;
 - ``flash_bwd_dkdv`` / ``_biased`` / ``_lut`` (for ``_bwd_dkdv_kernel``
   617): per k tile over the (live) q tiles, P recomputed from the lse, dV
   and dK (the dense one: fp32, and bf16 at head dims 96 and 128; the biased
@@ -146,7 +150,13 @@ no biases; ``ValueError`` where JAX asserts).
 Differences from the JAX module: no block-size arguments for the kernels
 (64-row tiles, the ragged tail masked in place of padding T to
 lcm(bq, bk)); bf16 inputs run on the tensor cores, fp32 inputs on the
-CUDA cores (head dims 64, 96 and 128); an all-ones layout takes the dense
+CUDA cores (head dims 64, 96 and 128); fp16 inputs (which the JAX kernels
+take at any dtype) run only on the dense sm90 entries without a key bias
+(``flash_fwd_sm90`` at head dims 64 and 128, ``flash_bwd_dkdv_sm90`` /
+``flash_bwd_dq_sm90`` at 64): every other fp16 route on a CUDA tensor
+(the templates, the key bias, the LUT, banded and merged kernels) raises,
+and the plain versions compute fp16 as they compute bf16, rounding P and
+dS to the input dtype; an all-ones layout takes the dense
 kernels (the same numbers, no LUT) unless ``block_q_merge=2``; a row with
 no live key (O = 0, lse = NEG_INF: a ``mul`` key bias's fully padded batch
 row) gets no gradient, where the JAX backward computes ``exp(S - lse) = 1``
@@ -211,6 +221,11 @@ SM90_HEAD_DIMS = {torch.bfloat16: (64, 128)}
 # (GROUP_KERNELS and DENSE_BWD_SM90): the dtype and head dim they are built for (at 128 the
 # dK/dV instances spill and two pipes of four stages do not fit in shared memory)
 SM90_BWD_HEAD_DIMS = {torch.bfloat16: (64,)}
+# the dense sm90 entries without the key bias are built for fp16 too (fp16 training): the
+# forward at SM90_HEAD_DIMS, dK/dV and dQ at SM90_BWD_HEAD_DIMS; every other fp16 route raises
+DENSE_SM90_HEAD_DIMS = {**SM90_HEAD_DIMS, torch.float16: SM90_HEAD_DIMS[torch.bfloat16]}
+DENSE_BWD_SM90_HEAD_DIMS = {**SM90_BWD_HEAD_DIMS,
+                            torch.float16: SM90_BWD_HEAD_DIMS[torch.bfloat16]}
 DENSE_BWD_SM90 = ("flash_bwd_dkdv_sm90", "flash_bwd_dq_sm90")
 # the dense sm90 entries, which take the (B, T) key bias's pointer (null for none) last
 DENSE_SM90 = ("flash_fwd_sm90",) + DENSE_BWD_SM90
@@ -218,7 +233,7 @@ DENSE_SM90 = ("flash_fwd_sm90",) + DENSE_BWD_SM90
 # their schedule (a _BandSm90, a _MergedSched) last; built for SM90_HEAD_DIMS
 SCHED_SM90 = ("flash_fwd_banded_sm90", "flash_fwd_merged_sm90")
 SM90_BLOCK_Q, SM90_BLOCK_N = 128, 128
-_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 TILE = 64            # the kernels' q and k tile rows (kBQ, kBK)
 # the banded kernel's Band parameter (csrc/flash_attention.cuh): global tiles, layout columns
 MAX_GLOBAL_TILES, MAX_LAYOUT_COLS = 1024, 4096
@@ -949,7 +964,9 @@ def _fwd(name, q, k, v, causal, sm_scale, lut=None, kbias=None, abias=None, sche
         return flash_attention_reference_fwd(q, k, v, causal, sm_scale, lut=lut,
                                              key_padding_bias=kbias, attn_bias=abias)
     B, T, H, d = q.shape
+    dense = name == "flash_fwd_sm90" and kbias is None
     _check(name, (q, k, v), q.dtype, d,
+           DENSE_SM90_HEAD_DIMS if dense else
            SM90_HEAD_DIMS if name in ("flash_fwd_sm90",) + SCHED_SM90 else HEAD_DIMS)
     template = ENTRIES[name][2] is not None       # the variants take both biases in their Extra
     for label, bias, taken in (("key_padding_bias", kbias, template or name in DENSE_SM90),
@@ -973,9 +990,11 @@ def _fwd(name, q, k, v, causal, sm_scale, lut=None, kbias=None, abias=None, sche
 
 def dense_fwd_kernel(dtype, head_dim):
     """The dense forward kernel a CUDA tensor of ``dtype`` and ``head_dim``
-    takes: ``flash_fwd_sm90`` for bf16 at head dims 64 and 128, else the
-    template ``flash_fwd``.  Decided before any launch, never by a failure."""
-    return "flash_fwd_sm90" if head_dim in SM90_HEAD_DIMS.get(dtype, ()) else "flash_fwd"
+    takes: ``flash_fwd_sm90`` for bf16 and fp16 at head dims 64 and 128,
+    else the template ``flash_fwd`` (which raises for fp16).  Decided before
+    any launch, never by a failure."""
+    return ("flash_fwd_sm90" if head_dim in DENSE_SM90_HEAD_DIMS.get(dtype, ())
+            else "flash_fwd")
 
 
 def flash_fwd(q, k, v, causal=True, sm_scale=None):
@@ -991,9 +1010,10 @@ def flash_fwd_template(q, k, v, causal=True, sm_scale=None):
 
 
 def flash_fwd_sm90(q, k, v, causal=True, sm_scale=None, key_padding_bias=None):
-    """``(o, lse)``: the ``flash_fwd_sm90`` kernel (bf16, head dims 64 and
-    128; others raise), with the optional fp32 (B, T) key bias (its kBias
-    instances), for CUDA tensors, the plain version for CPU ones."""
+    """``(o, lse)``: the ``flash_fwd_sm90`` kernel (bf16 and fp16, head dims
+    64 and 128; others raise), with the optional fp32 (B, T) key bias (its
+    kBias instances, bf16 only), for CUDA tensors, the plain version for CPU
+    ones."""
     return _fwd("flash_fwd_sm90", q, k, v, causal, sm_scale, kbias=key_padding_bias)
 
 
@@ -1294,7 +1314,9 @@ def _bwd_args(name, q, k, v, do, lse, delta, kbias=None, abias=None):
     contiguous fp32, (B, T) and (T, T), on q's device."""
     B, T, H, d = q.shape
     sm90 = name in GROUP_KERNELS or name in DENSE_BWD_SM90
-    _check(name, (q, k, v, do), q.dtype, d, SM90_BWD_HEAD_DIMS if sm90 else HEAD_DIMS)
+    dense = name in DENSE_BWD_SM90 and kbias is None
+    _check(name, (q, k, v, do), q.dtype, d,
+           DENSE_BWD_SM90_HEAD_DIMS if dense else SM90_BWD_HEAD_DIMS if sm90 else HEAD_DIMS)
     template = ENTRIES[name][2] is not None      # the _biased and _lut templates
     for label, bias, taken in (("key_padding_bias", kbias, template or sm90),
                                ("attn_bias", abias, template)):
@@ -1359,9 +1381,10 @@ def _dense_kbias(name, kbias):
 def dense_bwd_kernel(dtype, head_dim):
     """The dense backward kernels ``(dK/dV, dQ)`` a CUDA tensor of ``dtype``
     and ``head_dim`` takes: ``flash_bwd_dkdv_sm90`` and ``flash_bwd_dq_sm90``
-    for bf16 at head dim 64, else the templates ``flash_bwd_dkdv`` and
-    ``flash_bwd_dq``.  Decided before any launch, never by a failure."""
-    if head_dim in SM90_BWD_HEAD_DIMS.get(dtype, ()):
+    for bf16 and fp16 at head dim 64, else the templates ``flash_bwd_dkdv``
+    and ``flash_bwd_dq`` (which raise for fp16).  Decided before any launch,
+    never by a failure."""
+    if head_dim in DENSE_BWD_SM90_HEAD_DIMS.get(dtype, ()):
         return DENSE_BWD_SM90
     return "flash_bwd_dkdv", "flash_bwd_dq"
 
@@ -1394,18 +1417,18 @@ def flash_bwd_dq_template(q, k, v, do, lse, delta, causal=True, sm_scale=None):
 
 def flash_bwd_dkdv_sm90(q, k, v, do, lse, delta, causal=True, sm_scale=None,
                         key_padding_bias=None):
-    """``(dk, dv)``: the ``flash_bwd_dkdv_sm90`` kernel (bf16, head dim 64;
-    others raise), with the optional fp32 (B, T) key bias, for CUDA
-    tensors, the plain version for CPU ones."""
+    """``(dk, dv)``: the ``flash_bwd_dkdv_sm90`` kernel (bf16 and fp16, head
+    dim 64; others raise), with the optional fp32 (B, T) key bias (bf16
+    only), for CUDA tensors, the plain version for CPU ones."""
     return _bwd_dkdv("flash_bwd_dkdv_sm90", q, k, v, do, lse, delta, causal, sm_scale,
                      kbias=key_padding_bias)
 
 
 def flash_bwd_dq_sm90(q, k, v, do, lse, delta, causal=True, sm_scale=None,
                       key_padding_bias=None):
-    """``dq``: the ``flash_bwd_dq_sm90`` kernel (bf16, head dim 64; others
-    raise), with the optional fp32 (B, T) key bias, for CUDA tensors, the
-    plain version for CPU ones."""
+    """``dq``: the ``flash_bwd_dq_sm90`` kernel (bf16 and fp16, head dim 64;
+    others raise), with the optional fp32 (B, T) key bias (bf16 only), for
+    CUDA tensors, the plain version for CPU ones."""
     return _bwd_dq("flash_bwd_dq_sm90", q, k, v, do, lse, delta, causal, sm_scale,
                    kbias=key_padding_bias)
 

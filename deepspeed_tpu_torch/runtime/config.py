@@ -3,7 +3,8 @@
 Counterpart of ``deepspeed_tpu/runtime/config.py`` (``DeepSpeedConfig``)
 over the same JSON dicts.  Resolved here: the batch triple
 (``_configure_train_batch_size`` / ``_batch_assertion``, at world size
-1), the ``bf16``/``fp16`` blocks, ``optimizer``, ``scheduler``,
+1), the ``bf16`` block and the ``fp16`` block (``DeepSpeedFP16Config``:
+the dynamic or static loss scaler), ``optimizer``, ``scheduler``,
 ``gradient_clipping``, ``steps_per_print``, ``dataloader_drop_last``,
 ``data_types.grad_accum_dtype``, ``zero_optimization.stage``, the
 ``checkpoint`` and ``io_retry`` blocks (``DeepSpeedCheckpointConfig`` /
@@ -13,8 +14,10 @@ JSON section as a dict, default ``None``, as ``config.py:886`` stores it;
 the caller builds the layout with ``build_sparsity_config``).
 
 What the port does not run raises ``NotImplementedError`` instead of
-being ignored: world size > 1, ZeRO stage 3 and offload, ``fp16``
-(the loss scaler), an optimizer other than Adam, AdamW, Lamb and SGD
+being ignored: world size > 1, ZeRO stage 3 and offload,
+``fp16.master_weights_and_grads`` (a no-op key in the JAX package, whose
+fp32 master is unconditional), an optimizer other than Adam, AdamW, Lamb
+and SGD
 (the 1-bit ones, Adagrad), the health guardian's host escalation
 ladder, and every other block of the JAX config surface (monitor,
 compile cache, comms compression, curriculum, PLD, ...) set to
@@ -54,6 +57,35 @@ def _is_off(value, off):
         return isinstance(value, dict) and all(
             k == "enabled" and not v for k, v in value.items())
     return value == off
+
+
+class DeepSpeedFP16Config:
+    """``fp16`` (JAX ``config.py:49-70``): the same keys and defaults;
+    ``loss_scale == 0`` means dynamic scaling from
+    ``2**initial_scale_power``.  ``master_weights_and_grads`` set raises
+    ``NotImplementedError`` (the port keeps an fp32 master, as JAX does,
+    and runs nothing else)."""
+
+    def __init__(self, param_dict):
+        fp16_dict = param_dict.get(C.FP16) or {}
+        get = lambda key, default: fp16_dict.get(key, default)  # noqa: E731
+        self.enabled = get(C.FP16_ENABLED, C.FP16_ENABLED_DEFAULT)
+        self.loss_scale = get(C.FP16_LOSS_SCALE, C.FP16_LOSS_SCALE_DEFAULT)
+        self.initial_scale_power = get(C.FP16_INITIAL_SCALE_POWER,
+                                       C.FP16_INITIAL_SCALE_POWER_DEFAULT)
+        self.loss_scale_window = get(C.FP16_LOSS_SCALE_WINDOW, C.FP16_LOSS_SCALE_WINDOW_DEFAULT)
+        self.hysteresis = get(C.FP16_HYSTERESIS, C.FP16_HYSTERESIS_DEFAULT)
+        self.min_loss_scale = get(C.FP16_MIN_LOSS_SCALE, C.FP16_MIN_LOSS_SCALE_DEFAULT)
+        self.master_weights_and_grads = get(
+            "master_weights_and_grads",
+            param_dict.get(C.FP16_MASTER_WEIGHTS_AND_GRADS,
+                           C.FP16_MASTER_WEIGHTS_AND_GRADS_DEFAULT))
+        if self.master_weights_and_grads:
+            raise NotImplementedError("fp16.master_weights_and_grads is not ported")
+
+    @property
+    def dynamic_loss_scale(self):
+        return self.loss_scale == 0
 
 
 class DeepSpeedHealthCheckConfig:
@@ -221,15 +253,12 @@ class DeepSpeedConfig:
 
         self.zero_config = DeepSpeedZeroConfig(pd)
         self.noop_keys_set += [f"zero_optimization.{k}" for k in self.zero_config.noop_keys_set]
-        fp16 = pd.get(C.FP16) or {}
-        self.fp16_enabled = bool(fp16.get("enabled", False))
+        self.fp16 = DeepSpeedFP16Config(pd)
+        self.fp16_enabled = bool(self.fp16.enabled)
         bf16 = pd.get(C.BFLOAT16, pd.get(C.BFLOAT16_OLD)) or {}
         self.bf16_enabled = bool(bf16.get("enabled", False))
         if self.fp16_enabled and self.bf16_enabled:
             raise DeepSpeedConfigError("fp16 and bf16 cannot both be enabled")
-        if self.fp16_enabled:
-            raise NotImplementedError("fp16 (the dynamic loss scaler) is not ported; "
-                                      "use bf16")
         self.health_check = DeepSpeedHealthCheckConfig(pd)
         self.checkpoint_config = DeepSpeedCheckpointConfig(pd)
         self.io_retry_config = DeepSpeedIORetryConfig(pd)
@@ -285,5 +314,9 @@ class DeepSpeedConfig:
 
     @property
     def precision_dtype(self):
-        """'bfloat16' or 'float32' (fp16 raises at parse time)."""
-        return "bfloat16" if self.bf16_enabled else "float32"
+        """Compute dtype implied by the config ('bfloat16'|'float16'|'float32')."""
+        if self.bf16_enabled:
+            return "bfloat16"
+        if self.fp16_enabled:
+            return "float16"
+        return "float32"

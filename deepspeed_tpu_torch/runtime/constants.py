@@ -20,6 +20,20 @@ LAMB_OPTIMIZER = "lamb"
 SGD_OPTIMIZER = "sgd"
 
 FP16 = "fp16"
+FP16_ENABLED = "enabled"
+FP16_ENABLED_DEFAULT = False
+FP16_LOSS_SCALE = "loss_scale"
+FP16_LOSS_SCALE_DEFAULT = 0            # 0 = dynamic loss scaling
+FP16_INITIAL_SCALE_POWER = "initial_scale_power"
+FP16_INITIAL_SCALE_POWER_DEFAULT = 16
+FP16_LOSS_SCALE_WINDOW = "loss_scale_window"
+FP16_LOSS_SCALE_WINDOW_DEFAULT = 1000
+FP16_HYSTERESIS = "hysteresis"
+FP16_HYSTERESIS_DEFAULT = 2
+FP16_MIN_LOSS_SCALE = "min_loss_scale"
+FP16_MIN_LOSS_SCALE_DEFAULT = 1
+FP16_MASTER_WEIGHTS_AND_GRADS = "fp16_master_weights_and_grads"
+FP16_MASTER_WEIGHTS_AND_GRADS_DEFAULT = False
 BFLOAT16 = "bf16"
 BFLOAT16_OLD = "bfloat16"  # the reference accepts both spellings
 

@@ -6,10 +6,12 @@ model's own initialiser), ``_configure_optimizer`` (Adam, AdamW, Lamb,
 SGD),
 ``_configure_lr_scheduler``,
 ``_init_state`` (compute-dtype params, fp32 master, fp32 Adam moments,
-step counters), ``_grad_fn`` (gradient accumulation in fp32 — or bf16 with
-``data_types.grad_accum_dtype`` — of ``loss / gas``),
-``_grads_and_metrics`` (clip by global norm), ``_health_sentinels``,
-``_train_step`` with the branchless skip-step, ``train_batch``,
+step counters, the fp16 loss scaler's state), ``_grad_fn`` (gradient
+accumulation in fp32 — or bf16 with ``data_types.grad_accum_dtype`` — of
+``loss * cur_scale / gas``), ``_grads_and_metrics`` (unscale and the
+overflow scan in fp16, clip by global norm), ``_health_sentinels``,
+``_train_step`` with the branchless skip-step and the loss-scale tick,
+``train_batch``,
 ``_stack_microbatches``, ``_finish_step``, ``eval_batch``, the
 accessors, and checkpoints (JAX :2154-2628): ``save_checkpoint``,
 ``save_16bit_model``, ``_copy_recovery_script``,
@@ -27,6 +29,17 @@ whose loss spikes, with ``skip_on_spike``) is a ``torch.where`` no-op on
 the master, the parameters and the optimizer state: the skip flag stays
 on the device, so the step needs no host sync, and ``optimizer_steps``
 (Adam's bias-correction step) does not advance on a skip.
+
+fp16 (``"fp16": {"enabled": true}``, JAX :614-645, :915-931, :1068-1113,
+:1115-1137, :1175-1199): fp16 params, the fp32 master and fp32 optimizer
+state; each micro-batch's loss is scaled by the scaler's ``cur_scale`` (a
+0-d device tensor, ``runtime/fp16/loss_scaler.py``), the fp32 gradients
+are divided by it and scanned once for inf / NaN (``overflow``); an
+overflow skips the step whether or not the health guardian is on, the
+guardian's ``nonfinite_grads`` reuses the scan, and the scaler ticks on
+``overflow`` alone (never on a health skip), in place and gated by
+``commit`` like the health EMA.  The metrics gain ``overflow`` and
+``loss_scale`` (the scale the step used).  Gradients stay fp32.
 
 The step (JAX's jitted, donated ``train_step``, :451-455 and
 :1138-1221) is one CUDA graph on the card: ``train_batch`` runs
@@ -65,17 +78,19 @@ keys.
 ``load_checkpoint`` copies every leaf into the engine's existing
 tensors (``copy_``), so their addresses, and the captured graphs, stay
 valid; the device step counters are filled in place and the health EMA
-zeroed in place (JAX re-initialises it, :2583-2588).  A checkpoint holds
-one device's full arrays, and its meta records JAX's 1-device mesh
+zeroed in place (JAX re-initialises it, :2583-2588); an fp16 engine saves
+its scaler state as the ``scale`` optimizer tree (JAX :2251) and loads it
+in place, and any other engine ignores a ``scale`` tree (JAX :2525-2549).
+A checkpoint holds one device's full arrays, and its meta records JAX's
+1-device mesh
 (:data:`ONE_DEVICE_MESH`); a checkpoint from a larger mesh loads with
 JAX's warning when the global batch changed (``elasticity``, under which
 JAX raises there, is refused by the port's config).  What the port does
-not run raises ``NotImplementedError`` naming the key: a loss ``scale``
-(fp16) or any other optimizer tree but ``opt_state`` / ``master`` /
-``comm_error`` (ignored, as JAX ignores it in an engine without error
-feedback).
+not run raises ``NotImplementedError`` naming the key: any optimizer tree
+but ``opt_state`` / ``master`` / ``scale`` / ``comm_error`` (ignored, as
+JAX ignores it in an engine without error feedback).
 
-Not ported: fp16 loss scaling, offload, ZeRO across ranks, the health
+Not ported: the streamed / offload paths, ZeRO across ranks, the health
 monitor's host ladder (and so rewind), the forward/backward/step shim,
 monitoring, curriculum and PLD (the config raises for each), the 1-bit
 optimizers and CPU Adagrad, and client optimizer / scheduler objects.
@@ -94,6 +109,7 @@ from ..checkpoint.constants import MODEL_FILE, OPTIM_FILE
 from ..checkpoint.serialization import load_tree, restore_like, save_tree
 from .config import DeepSpeedConfig
 from . import health as hmod
+from .fp16 import loss_scaler as ls
 from .dataloader import DeepSpeedDataLoader, RepeatingLoader
 from .lr_schedules import get_lr_scheduler
 from .step_graph import GraphPool, StepGraph, fold as _fold
@@ -109,7 +125,9 @@ from ..utils.logging import log_dist, logger
 # writes it for its 1-device mesh (the axes of parallel/mesh.py)
 ONE_DEVICE_MESH = {"pipe": 1, "data": 1, "fsdp": 1, "expert": 1, "seq": 1, "tensor": 1}
 # optimizer-file trees the port loads (comm_error is ignored, see load_checkpoint)
-OPTIM_TREES = ("opt_state", "master", "comm_error")
+OPTIM_TREES = ("opt_state", "master", "scale", "comm_error")
+COMPUTE_DTYPES = {"bfloat16": torch.bfloat16, "float16": torch.float16,
+                  "float32": torch.float32}
 STEP_IMPLS = ("auto", "graph", "eager")
 CAPTURE_HINT = ("a loss_fn that reads a device value back to the host cannot be captured; "
                 "train it with step_impl='eager'")
@@ -188,9 +206,9 @@ class DeepSpeedEngine:
         self._graphs = None                 # the step graphs' GraphPool, made at first use
         self._steps = {}                    # graph key -> its StepGraph
         self.zero_stage = self.config.zero_optimization_stage
-        self.compute_dtype = (torch.bfloat16 if self.config.precision_dtype == "bfloat16"
-                              else torch.float32)
+        self.compute_dtype = COMPUTE_DTYPES[self.config.precision_dtype]
         self._needs_master = self.compute_dtype != torch.float32
+        self.fp16_enabled = self.config.fp16_enabled
         self._health_cfg = self.config.health_check
         self._health_enabled = self._health_cfg.enabled
         if self.config.noop_keys_set:
@@ -251,7 +269,8 @@ class DeepSpeedEngine:
     # ------------------------------------------------------------------- state
     def _init_state(self, master):
         """fp32 master (16-bit training only), compute-dtype params, optimizer
-        state over the fp32 base, device step counters, health EMA."""
+        state over the fp32 base, device step counters, health EMA, and in
+        fp16 the loss scaler (``self.scale`` is its state, updated in place)."""
         if self._needs_master:
             self.master = master
             self.params = tree_cast(master, self.compute_dtype)
@@ -262,6 +281,9 @@ class DeepSpeedEngine:
         z = lambda: torch.zeros((), dtype=torch.int32, device=self.device)
         self._optimizer_steps, self._skipped_steps = z(), z()
         self.health = hmod.init_state(self.device) if self._health_enabled else None
+        self._scaler = (ls.create_loss_scaler(self.config.fp16, self.device)
+                        if self.fp16_enabled else None)
+        self.scale = self._scaler.state if self._scaler is not None else None
 
     @property
     def _base(self):
@@ -270,9 +292,10 @@ class DeepSpeedEngine:
 
     # -------------------------------------------------------------- train step
     def _grad_fn(self, base, batch, seed):
-        """fp32 gradients of ``mean loss`` w.r.t. ``base`` over the ``gas``
-        microbatches of ``batch`` (leaves shaped (gas, micro, ...)),
-        through the cast to the compute dtype.  Returns ``(grads, loss)``."""
+        """fp32 gradients of ``mean loss`` (times the loss scale in fp16)
+        w.r.t. ``base`` over the ``gas`` microbatches of ``batch`` (leaves
+        shaped (gas, micro, ...)), through the cast to the compute dtype.
+        Returns ``(grads, scaled_loss)``."""
         gas = self.gradient_accumulation_steps()
         leaves = tree_leaves(base)
         acc_dtype = (torch.bfloat16 if gas > 1 and self.config.grad_accum_dtype == "bf16"
@@ -284,7 +307,10 @@ class DeepSpeedEngine:
             for i in range(gas):
                 mb = tree_map(lambda a: a[i], batch)
                 p = tree_cast(base, self.compute_dtype) if self._needs_master else base
-                scaled = self._loss_fn(p, mb, _fold(seed, i)) / gas
+                loss = self._loss_fn(p, mb, _fold(seed, i))
+                if self.scale is not None:
+                    loss = loss * self.scale.cur_scale
+                scaled = loss / gas
                 grads = torch.autograd.grad(scaled, leaves, allow_unused=True)
                 loss_sum = loss_sum + scaled.detach().float()
                 grads = [torch.zeros(l.shape, dtype=acc_dtype, device=l.device)
@@ -298,22 +324,32 @@ class DeepSpeedEngine:
         return tree_map(lambda leaf: by_leaf[id(leaf)], base), loss_sum
 
     def _grads_and_metrics(self, base, batch, seed):
-        """Gradients, clipped by global norm, and the step's metrics."""
+        """Gradients, unscaled and scanned for overflow in fp16 (JAX :1068-1113:
+        unscale, overflow, clip), clipped by global norm, and the step's
+        metrics (``overflow`` and ``loss_scale`` in fp16)."""
         grads, loss = self._grad_fn(base, batch, seed)
+        metrics = {}
+        if self.scale is not None:
+            cur_scale = self.scale.cur_scale
+            grads = tree_map(lambda g: g / cur_scale, grads)
+            loss = loss / cur_scale
+            metrics = {"overflow": ls.has_overflow(grads), "loss_scale": cur_scale.clone()}
         if self.config.gradient_clipping > 0:
             grads, gnorm = clip_by_global_norm(grads, self.config.gradient_clipping)
         else:
             gnorm = global_norm(grads)
-        return grads, {"loss": loss, "grad_norm": gnorm}
+        return grads, {"loss": loss, "grad_norm": gnorm, **metrics}
 
-    def _health_sentinels(self, loss, grads):
-        """``(skip, new_health, metrics)``: the device flags gating the step."""
+    def _health_sentinels(self, loss, grads, overflow=None):
+        """``(skip, new_health, metrics)``: the device flags gating the step.
+        In fp16 the skip starts from ``overflow``, and the gradient flag
+        reuses that scan (JAX :1115-1137)."""
         cfg = self._health_cfg
-        nf_grads = hmod.tree_nonfinite(grads)
+        nf_grads = hmod.tree_nonfinite(grads) if overflow is None else overflow
         nf_loss = ~torch.isfinite(loss)
         new_health, z, spike = hmod.update_ema(self.health, loss,
                                                window=cfg.spike_window, zmax=cfg.spike_zmax)
-        skip = torch.zeros((), dtype=torch.bool, device=self.device)
+        skip = self._start_skip(overflow)
         if cfg.skip_nonfinite:
             skip = skip | nf_grads | nf_loss
         if cfg.skip_on_spike:
@@ -328,12 +364,19 @@ class DeepSpeedEngine:
         0-d fp32 tensor.  Returns the step's device metrics."""
         base = self._base
         grads, metrics = self._grads_and_metrics(base, batch, seed)
+        overflow = metrics.get("overflow")
         with torch.no_grad():
-            skip = torch.zeros((), dtype=torch.bool, device=self.device)
+            skip = self._start_skip(overflow)
             if self._health_enabled:
-                skip, new_health, sm = self._health_sentinels(metrics["loss"], grads)
+                skip, new_health, sm = self._health_sentinels(metrics["loss"], grads, overflow)
                 metrics.update(sm)
                 for old, new in zip(self.health, new_health):
+                    torch.where(commit, new, old, out=old)
+            if self.scale is not None:
+                # the scale reacts to an overflow only, never to a health skip
+                new_scale = ls.update_scale(self.scale, overflow,
+                                            **self._scaler.update_kwargs())
+                for old, new in zip(self.scale, new_scale):
                     torch.where(commit, new, old, out=old)
             new_base, new_opt = self.optimizer.update(
                 grads, self.opt_state, base, step=self._optimizer_steps + 1, lr=lr)
@@ -354,6 +397,13 @@ class DeepSpeedEngine:
             self._skipped_steps += (commit & skip).int()
         metrics["skip"] = skip
         return metrics
+
+    def _start_skip(self, overflow):
+        """The skip flag before the health sentinels: the fp16 overflow
+        (JAX's ``gate``, :1175), else False."""
+        if overflow is not None:
+            return overflow.clone()
+        return torch.zeros((), dtype=torch.bool, device=self.device)
 
     def _step_for(self, batch, named):
         """The :class:`StepGraph` of this batch's leaf shapes and dtypes,
@@ -421,7 +471,10 @@ class DeepSpeedEngine:
             # the only host read of a step, on reporting steps
             msg = (f"step={self._global_steps}, loss={float(metrics['loss']):.6f}, "
                    f"lr={metrics['lr']:.3e}")
-            if self._health_enabled and bool(metrics["skip"]):
+            if self.fp16_enabled:
+                msg += (f", loss_scale={float(metrics['loss_scale']):.1f}"
+                        f", skipped={self.skipped_steps}")
+            elif self._health_enabled and bool(metrics["skip"]):
                 msg += f", SKIPPED (health sentinel; total {self.skipped_steps})"
             log_dist(msg, ranks=[0])
         return metrics["loss"]
@@ -465,6 +518,10 @@ class DeepSpeedEngine:
     @property
     def optimizer_steps(self):
         return int(self._optimizer_steps)
+
+    def loss_scale(self):
+        """The current loss scale (1.0 outside fp16; a host read)."""
+        return 1.0 if self._scaler is None else self._scaler.loss_scale
 
     def train_batch_size(self):
         return self.config.train_batch_size
@@ -534,6 +591,8 @@ class DeepSpeedEngine:
         optim_tree = {"opt_state": self.opt_state}
         if self.master is not None:
             optim_tree["master"] = self.master
+        if self.scale is not None:
+            optim_tree["scale"] = self.scale
         save_tree(os.path.join(path, OPTIM_FILE), optim_tree, fsync=False, retry=retry)
         fault.site("ckpt.after_optim_file")
         self._copy_recovery_script(path)
@@ -665,9 +724,6 @@ class DeepSpeedEngine:
         optim_tree = None
         if load_optimizer_states and not load_module_only:
             optim_tree = load_tree(os.path.join(path, OPTIM_FILE), retry=retry)
-            if "scale" in optim_tree:
-                raise NotImplementedError("checkpoint optimizer key 'scale' (the fp16 loss "
-                                          "scaler) is not ported")
             extra = sorted(set(optim_tree) - set(OPTIM_TREES))
             if extra:
                 raise NotImplementedError(f"checkpoint optimizer keys {extra} are not ported")
@@ -684,6 +740,10 @@ class DeepSpeedEngine:
             if "master" in optim_tree and self.master is not None:
                 self._copy_into(self.master, restore_like(self.master, optim_tree["master"]),
                                 "master")
+            if "scale" in optim_tree and self.scale is not None:
+                # an engine without a scaler ignores the tree, as JAX does
+                self._copy_into(self.scale, restore_like(self.scale, optim_tree["scale"]),
+                                "scale")
             # comm_error (qgZ error feedback) is ignored: this engine keeps none
         self._global_steps = int(meta["global_steps"])
         self._optimizer_steps.fill_(int(meta["optimizer_steps"]))

@@ -43,7 +43,7 @@ PV_PRODUCT = ("#pragma unroll\n      for (int x = 0; x < kBoxes; ++x)\n#pragma u
               "        for (int kk = 0; kk < kBN / 16; ++kk)\n          wgmma_rs_n64_tb")
 COMMIT = "      wgmma_commit();"
 SOFTMAX = "      // the online softmax in log2 units;"
-PACK = "      // P as bf16 A fragments: a 16-column"
+PACK = "      // P as E A fragments: a 16-column"
 EXP = "            const float x = exp2_ftz(fmaf(sc[4 * n + e], scale2, -mn[e >> 1]));"
 
 

@@ -98,16 +98,16 @@ KB_VISIT_LOAD = ("          if (kBias) tma_load2(sKb + (st * 4 + s) * kStatSlot,
 # S and dP (shared by every kernel of the source), then dV and dK (issue_dvdk), then dQ
 # (issue_dq)
 PRODUCTS = (
-    "    wgmma_ss_n64(s, desc_sw128(tS + off, 16, 1024), desc_sw128(vS + off, 16, 1024), "
+    "    wgmma_ss_n64<E>(s, desc_sw128(tS + off, 16, 1024), desc_sw128(vS + off, 16, 1024), "
     "kk > 0);\n",
-    "    wgmma_ss_n64(dp, desc_sw128(tP + off, 16, 1024), desc_sw128(vP + off, 16, 1024), "
-    "kk > 0);\n",
-    "      wgmma_rs_n64_tb(dv[x], pa[kk], desc_sw128(tdO + x * kBoxBytes + kk * 16 * 128, "
-    "kBoxBytes,\n                                                1024));\n",
-    "      wgmma_rs_n64_tb(dk[x], da[kk], desc_sw128(tQ + x * kBoxBytes + kk * 16 * 128, "
-    "kBoxBytes,\n                                                1024));\n",
-    "      wgmma_rs_n64_tb(dq[x], da[kk], desc_sw128(tK + x * kBoxBytes + kk * 16 * 128, "
-    "kBoxBytes,\n                                                1024));\n")
+    "    wgmma_ss_n64<E>(dp, desc_sw128(tP + off, 16, 1024), desc_sw128(vP + off, 16, 1024),\n"
+    "                    kk > 0);\n",
+    "      wgmma_rs_n64_tb<E>(dv[x], pa[kk], desc_sw128(tdO + x * kBoxBytes + kk * 16 * 128,\n"
+    "                                                   kBoxBytes, 1024));\n",
+    "      wgmma_rs_n64_tb<E>(dk[x], da[kk], desc_sw128(tQ + x * kBoxBytes + kk * 16 * 128,\n"
+    "                                                   kBoxBytes, 1024));\n",
+    "      wgmma_rs_n64_tb<E>(dq[x], da[kk], desc_sw128(tK + x * kBoxBytes + kk * 16 * 128,\n"
+    "                                                   kBoxBytes, 1024));\n")
 
 
 def no_tma(t, keep_reads):

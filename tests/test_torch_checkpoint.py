@@ -327,12 +327,13 @@ def test_load_module_only_casts_the_master_from_the_params(port_saved):
 
 
 def test_unported_optimizer_trees_raise(port_saved, tmp_path):
-    """A loss scale (fp16) or an unknown optimizer tree raises
-    NotImplementedError naming the key; ``comm_error`` is ignored, as JAX
+    """An unknown optimizer tree raises NotImplementedError naming the
+    key; a loss ``scale`` (fp16) is ignored by this bf16 engine, as JAX
+    ignores it in an engine without a scaler, and ``comm_error`` as JAX
     ignores it in an engine without error feedback."""
     import shutil
     te = _port_engine(_np_params(1))
-    for extra, match in (({"scale": {"cur_scale": torch.ones(())}}, "'scale'"),
+    for extra, match in (({"scale": {"cur_scale": torch.ones(())}}, None),
                          ({"moe_state": {"x": torch.ones(1)}}, "moe_state"),
                          ({"comm_error": {"x": torch.ones(1)}}, None)):
         d = str(tmp_path / f"c{len(os.listdir(tmp_path))}")

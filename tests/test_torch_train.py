@@ -118,7 +118,7 @@ def test_config_fields_match_jax(pd):
     ({"train_batch_size": 8, "zero_optimization": {
         "stage": 2, "offload_optimizer": {"device": "cpu"}}}, 1),
     ({"train_batch_size": 8, "zero_optimization": {"stage": 2, "cpu_offload": True}}, 1),
-    ({"train_batch_size": 8, "fp16": {"enabled": True}}, 1),
+    ({"train_batch_size": 8, "progressive_layer_drop": {"enabled": True}}, 1),
     ({"train_batch_size": 8, "optimizer": {"type": "OneBitAdam", "params": {}}}, 1),
     ({"train_batch_size": 8, "monitor": {"enabled": True}}, 1),
     ({"train_batch_size": 8, "checkpoint": {"tag_validation": "Fail"}}, 1),
@@ -371,7 +371,8 @@ def test_remat_and_dropout_recompute_the_same_masks(tiny):
         != out[0][0]
 
 
-@pytest.mark.parametrize("overrides", [dict(remat_policy="dots"), dict(loss_chunk=256),
+@pytest.mark.parametrize("overrides", [dict(attention_impl="ulysses"),
+                                       dict(attention_impl="ring_flash"),
                                        dict(attention_impl="ring")])
 def test_unported_model_options_raise(tiny, overrides):
     _, np_params, toks = tiny
