@@ -355,6 +355,28 @@ JAX package ``deepspeed_tpu``):
     ``int8_mm_nt_prefill`` (96) and ``int8_mm_t_prefill`` (1) per
     speculative replay or warm-up and no decode kernel; a profiled
     speculative step with its int8 products' device time.
+17. fp16 training: 17a the dense sm90 fp16 instances against their plain
+    versions and the overflow check; 17b phase 5's run in fp16 with the
+    dynamic loss scaler on both step impls; 17c GPT-2's remat policy and
+    chunked loss; 17a+ every other flash route's fp16 instance (the LUT,
+    key-bias, banded and merged sm90 kernels, every template; d 64/96/128)
+    against its plain version over seeds 33-35 at BERT's T and H, a fully
+    padded ``mul`` row exactly 0, the LUT dK/dV also under C1_BOUND; 17d
+    each fp16 instance timed beside its bf16 twin, bound, plain version and
+    SDPA / the flash backward op at fp16.
+18. BERT-large in fp16 (phase 8's run with ``"fp16": {"enabled": true}``):
+    the tutorial's sparse layout and its ``"mode": "dense"`` twin with
+    padding, captured and eager, every flash launch on an fp16 instance
+    (dtype code 2; 48/24/24 a kernel run), captured = eager in losses, grad
+    norms and scaler state, step 1 against plain attention within phase 8's
+    limits, the fixed-batch loss fall, a forced overflow skipped
+    bit-exactly, the figures beside phase 8's.
+19. the imperative API on phase 5's configuration at gas 2
+    (``forward`` / ``backward`` / ``step`` bit-equal to ``train_batch`` on
+    one graph), a fixed_linear seqlen curriculum 128 -> 1024 with PLD (the
+    schedule followed, a graph and its pool bytes a difficulty, the
+    reserved memory a step; at micro 4 the past graphs held, at micro 8
+    released), PLD's theta beside its formula.
 
 Prints a ``{"kernels": [...]}`` line (the dense sm90 kernels' key-bias
 instances as ``flash_fwd_sm90 (key bias)``, ``flash_bwd_dkdv_sm90 (key
@@ -365,7 +387,9 @@ beside it with 0; ``paged_attention_online_sm90`` with the kv16 serve's
 launches and the first design ``paged_attention_online`` beside it with
 0; ``flash_fwd_banded_sm90`` and ``flash_fwd_merged_sm90`` with phase 14's
 path launches and their figures at block 64, T=8192, the template
-``flash_fwd_banded`` and ``flash_fwd_merged`` beside them with 0), the
+``flash_fwd_banded`` and ``flash_fwd_merged`` beside them with 0; each
+fp16 instance as ``<name> fp16``, with phase 17b's (dense), 18's (LUT) or
+18c's (key bias) launches and 17d's figures), the
 ``nvidia-smi`` line, and as the last line ``{"ok": true, "device": {...}}``.
 Any failure raises and the script exits non-zero without that line; with no
 CUDA device it exits 2.
@@ -580,14 +604,13 @@ def setup():
     print(f"{SM90_LIB}.cu: built in {builder.build_log[SM90_LIB]['seconds']:.2f} s; " + "; ".join(
         f"{kname[kname.find('fwd_sm90_kernel'):kname.find('EEv')]} {regs} registers, "
         f"{spill} spill bytes" for kname, regs, _, spill in sm90))
-    # each head dim's instances, once: dense with and without the key bias, banded, merged
-    # in bf16, and dense without the key bias in fp16 (mangled <D, kBias, kSched, E>)
+    # each head dim's instances, once: dense with and without the key bias, banded, merged,
+    # each in bf16 and fp16 (mangled <D, kBias, kSched, E>)
     fwd = {(d, bias, sched, ty): sum(f"fwd_sm90_kernelILi{d}ELb{bias}ELi{sched}E{ty}E" in kname
                                      for kname, *_ in sm90)
            for d in fa.SM90_HEAD_DIMS[torch.bfloat16]
-           for bias, sched, ty in ((0, 0, MANGLED_BF16), (1, 0, MANGLED_BF16),
-                                   (0, 1, MANGLED_BF16), (0, 2, MANGLED_BF16),
-                                   (0, 0, MANGLED_F16))}
+           for bias, sched in ((0, 0), (1, 0), (0, 1), (0, 2))
+           for ty in (MANGLED_BF16, MANGLED_F16)}
     if any(n != 1 for n in fwd.values()) or any(spill for *_, spill in sm90):
         raise AssertionError(f"{SM90_LIB}: an instance (head dim, key bias, schedule) "
                              f"not built once {fwd}, or ptxas spilled registers: {sm90}")
@@ -616,7 +639,7 @@ def setup():
                 spill for *_, spill in rows):
             raise AssertionError(f"{lib}: a kernel of {kernels} not built, or ptxas spilled "
                                  f"registers: {rows}")
-    # the dense pair's instances: bf16 with and without the key bias, fp16 without (mangled
+    # the dense pair's instances: bf16 and fp16, with and without the key bias (mangled
     # <64, true / false, E>)
     rows = ptxas_summary(builder.build_log[GROUP_SM90_LIB]["ptxas"])
     dense = {f"{kernel}<64, {bias}, {name}>": [
@@ -624,12 +647,24 @@ def setup():
         if f"{kernel}ILi64ELb{int(bias == 'true')}E{ty}E" in kname]
         for kernel in ("dense_dkdv_kernel", "dense_dq_kernel")
         for bias, name, ty in (("false", "bf16", MANGLED_BF16), ("true", "bf16", MANGLED_BF16),
-                               ("false", "f16", MANGLED_F16))}
+                               ("false", "f16", MANGLED_F16), ("true", "f16", MANGLED_F16))}
     print(f"{GROUP_SM90_LIB}.cu dense instances: " + "; ".join(
         f"{name} {found[0][0]} registers, {found[0][1]} spill bytes" if found else
         f"{name} not built" for name, found in dense.items()))
     if not all(len(found) == 1 for found in dense.values()):
         raise AssertionError(f"{GROUP_SM90_LIB}: a dense instance not built once: {dense}")
+    # the group kernels' instances: slot rows 16 / 32 / 64 x key bias, in bf16 and in fp16
+    for lib, kernels in ((GROUP_SM90_LIB, ("dkdv_sm90_kernel", "dq_sm90_kernel")),
+                         (FWD_LUT_SM90_LIB, ("fwd_lut_sm90_kernel",))):
+        rows = ptxas_summary(builder.build_log[lib]["ptxas"])
+        counts = {(kernel, ty): sum(kernel in kname and ty in kname for kname, *_ in rows)
+                  for kernel in kernels for ty in (MANGLED_BF16, MANGLED_F16)}
+        print(f"{lib}.cu group instances by element type: " + "; ".join(
+            f"{kernel} {'bf16' if ty == MANGLED_BF16 else 'fp16'} {n}"
+            for (kernel, ty), n in counts.items()))
+        if any(n != 6 for n in counts.values()):
+            raise AssertionError(f"{lib}: the group instances (slot rows x key bias) not built "
+                                 f"once in each element type: {counts}")
     t_rows = [kname for kname, *_ in ptxas_summary(builder.build_log[INT8_PREFILL_LIB]["ptxas"])
               if "int8_t_prefill_kernel" in kname]
     if len(t_rows) != 2 * len(im.T_PREFILL_TILES):
@@ -861,6 +896,64 @@ def flash_close(what, label, got, ref):
                              f"{share:.2f}x its limit")
     return err.max().item(), share
 
+
+
+# C1: dK/dV where one rounding flip of P or dS outweighs the rms-scaled limit (ROADMAP.md
+# section C).  The kernel's P and dS differ from the plain version's by ~1e-6 relative, so
+# each may round to the other neighbour of the same value: a flip moves dV by ulp(P) |dO|
+# and dK by ulp(dS) |Q| (ulp in the input dtype at that value).  Their sums over the query
+# rows bound what the flips can add, and the plain version gives them: C1_BOUND is
+#   |kernel - plain| <= a rms(plain) + r |plain| + U,
+#   U_dV = sum_q ulp(P) |dO|, U_dK = sum_q ulp(dS) |Q|,
+# with (a, r) phase 2's FLASH_TOL, P and dS from the plain version itself (``_p_ds``).  Beside
+# it the plain version run twice, with P and dS rounded to the input dtype and unrounded,
+# reads the rounding term one draw realises (printed as "realised"): U bounds it too.
+MANTISSA_BITS = {torch.bfloat16: 7, torch.float16: 10}
+SUBNORMAL_ULP = {torch.bfloat16: 2.0 ** -133, torch.float16: 2.0 ** -24}
+
+
+def ulp_of(x, dt):
+    """The spacing of dtype ``dt`` at each |x| of the fp32 tensor ``x`` (0
+    where x is 0: a masked P is exact)."""
+    _, e = torch.frexp(x.abs())
+    ulp = torch.ldexp(torch.ones_like(x), e - 1 - MANTISSA_BITS[dt])
+    return torch.where(x == 0, 0.0, ulp.clamp(min=SUBNORMAL_ULP[dt]))
+
+
+def c1_close(what, q, k, v, do, lse, delta, causal, lut, kb, ab, outs):
+    """``outs``: {kernel: (dk, dv)} fed ``lse`` / ``delta``; each held
+    against the plain version under C1_BOUND.  Returns {kernel: [(output,
+    max abs error, share of the C1 bound)]} and prints the bound's and the
+    realised rounding term's largest values."""
+    dt = q.dtype
+    a, r = FLASH_TOL[dt]
+    p, ds = fa._p_ds(q, k, v, do, lse, delta, causal, fa._scale(q, None), lut, kb, ab)
+    terms = {}
+    for label, m, x in (("dk", ds, q), ("dv", p, do)):
+        prod = lambda mm: torch.einsum("bhqk,bqhd->bkhd", mm, x.float())
+        unrounded, rounded = prod(m), prod(m.to(dt).float())
+        bound = torch.einsum("bhqk,bqhd->bkhd", ulp_of(m, dt), x.float().abs())
+        terms[label] = (rounded.to(dt).float(), bound, (rounded - unrounded).abs())
+        del unrounded
+    del p, ds
+    res = {}
+    for name, got in outs.items():
+        rows = []
+        for label, g in zip(("dk", "dv"), got):
+            ref, bound, _ = terms[label]
+            err = (g.float() - ref).abs()
+            limit = a * ref.pow(2).mean().sqrt() + r * ref.abs() + bound
+            share = (err / limit).max().item()
+            if not (torch.isfinite(g).all() and share <= 1.0):
+                raise AssertionError(f"{name} {what} {label}: error {err.max().item():.3e} is "
+                                     f"{share:.2f}x the C1 bound")
+            rows.append((label, err.max().item(), share))
+        res[name] = rows
+    print(f"c1-bound {what}: " + "; ".join(
+        f"{label} U max {b.max().item():.2e}, realised max {rz.max().item():.2e}"
+        for label, (_, b, rz) in terms.items()) + "; " + "; ".join(
+        f"{name} {flash_line({name: rows})}" for name, rows in res.items()))
+    return res
 
 def check_flash_case(q, k, v, do, causal, what):
     """Each flash kernel against its plain version on the same inputs: the
@@ -1908,12 +2001,14 @@ def bwd_templates(q, k, v, do, lut, kb, ab, causal, names):
     return {name: (pairs[name], call) for name, call in zip(names[1:], calls) if name in pairs}
 
 
-def check_masked_case(q, k, v, do, lut, kb, ab, causal, what, held=None):
+def check_masked_case(q, k, v, do, lut, kb, ab, causal, what, held=None, c1=False):
     """Each kernel of a biased / LUT case against its plain version on the
     same inputs (the backward ones fed the kernel's own O and lse); where
     the forward, dK/dV or dQ routes to its sm90 kernel, the template too
     (:func:`fwd_templates`, :func:`bwd_templates`).
-    ``held``: the kernels whose outputs are held (all by default).  On the
+    ``held``: the kernels whose outputs are held (all by default); with
+    ``c1`` the dK/dV kernel's (and its template's) also against C1_BOUND
+    (:func:`c1_close`).  On the
     dense biased path a fully padded batch row must read O = 0 and lse =
     NEG_INF exactly in both forwards.  Returns {kernel: [(output, max abs
     error, share of limit)]}."""
@@ -1939,12 +2034,17 @@ def check_masked_case(q, k, v, do, lut, kb, ab, causal, what, held=None):
                 if fo[b].any() or not (flse[b] == fa.NEG_INF).all():
                     raise AssertionError(f"{name} {what}: batch row {b} has no live key but "
                                          "O != 0 or lse != NEG_INF")
+    dkdv = {names[1]: (dk, dv)}
     for name, (template, call) in bwd_templates(q, k, v, do, lut, kb, ab, causal,
                                                 names).items():
         got = call(lse, delta)
+        if name == names[1]:
+            dkdv[template] = got
         pairs[template] = ([("dk", got[0], rdk), ("dv", got[1], rdv)] if name == names[1]
                            else [("dq", got, rdq)])
     torch.cuda.synchronize()
+    if c1:
+        c1_close(what, q, k, v, do, lse, delta, causal, lut, kb, ab, dkdv)
     return {name: [(label, *flash_close(f"{name} {what}", label, got, ref))
                    for label, got, ref in ps]
             for name, ps in pairs.items() if held is None or name in held}
@@ -2116,10 +2216,10 @@ def check_sparse_kernels(dev, gen, B=2, H=4):
             what = (f"{str(dt)[6:]} d={d} T={T} {label} bias={kind} causal={int(causal)} "
                     f"{view}")
             res = check_masked_case(*flash_inputs(dev, gen, dt, B, T, H, d, view), lut, kb, ab,
-                                    causal, what, held)
+                                    causal, what, held, c1=held is not None)
             for name, rows in res.items():
                 max_err[name] = max([max_err[name]] + [err for _, err, _ in rows])
-            note = "" if held is None else " (dK/dV not held: its limit here is open)"
+            note = "" if held is None else " (dK/dV held against the C1 bound instead)"
             print(f"sparse-check {what}{note}: {flash_line(res)}")
     return max_err
 
@@ -2176,16 +2276,17 @@ def bert_data(seed, n, T, vocab, padded=True):
 
 
 def bert_engine(dev, base, data, section=SPARSE_SECTION, plain=False, preset="bert-large",
-                seq=2048, micro=8, step_impl="auto"):
+                seq=2048, micro=8, step_impl="auto", dtype=torch.bfloat16, over=None):
     """``build(preset)`` -> ``extend_position_embedding`` (to ``seq``) ->
     ``initialize`` -> ``replace_model_self_attention`` with the layout of
     the engine config's ``sparse_attention`` section (``plain``: the
     ``_masked_dense`` attention instead, eager: it copies the layout to the
-    card each call, which a capture refuses)."""
-    model = build(preset, dtype=torch.bfloat16, device=dev)
+    card each call, which a capture refuses).  ``dtype``: the compute dtype;
+    ``over``: config keys over BERT_CONFIG (phase 18's fp16 block)."""
+    model = build(preset, dtype=dtype, device=dev)
     params, model = extend_position_embedding(base, model, seq)
     config = dict(BERT_CONFIG, train_micro_batch_size_per_gpu=micro,
-                  sparse_attention=section)
+                  sparse_attention=section, **(over or {}))
     engine, _, _, _ = deepspeed_tpu_torch.initialize(
         config=config, model=model, params=params, training_data=data,
         step_impl="eager" if plain else step_impl)
@@ -2210,7 +2311,8 @@ def bert_train(dev, card, warmup=3, timed=10, fit_steps=20, preset="bert-large",
                micro=8):
     """Phase 8 (and 8b, 8c): BERT MLM training through initialize ->
     train_batch; 8 and 8c captured and eager (:func:`ab_train`).  Returns
-    the launches of each phase's captured run."""
+    the launches of each phase's captured run and the :func:`ab_train`
+    results of 8 and 8c."""
     vocab = build(preset, device=dev).config.vocab_size
     base = build(preset, device=dev).init(0)          # the 512-row position table
     data = bert_data(0, 64, seq, vocab)
@@ -2266,12 +2368,13 @@ def bert_train(dev, card, warmup=3, timed=10, fit_steps=20, preset="bert-large",
                   f"launches ({name}; the template {template} ms a step, PERF.md section 5) "
                   f"({card})")
 
-    counts = {"8": ab_train(
+    results = {"8": ab_train(
         lambda impl: bert_engine(dev, base, data, preset=preset, seq=seq, micro=micro,
                                  step_impl=impl),
         f"train {preset} T={seq} micro {micro} bf16 zero1 remat sparse16", per_step, card,
         micro * seq, model.flops_per_token(), warmup=warmup, timed=timed, profile_n=1,
-        first=first, after=after)["graph"]["counts"]}
+        first=first, after=after)}
+    counts = {"8": results["8"]["graph"]["counts"]}
 
     # 8b: unpadded batches (packed sequences): the forward with no bias
     eng = bert_engine(dev, base, bert_data(1, 16, seq, vocab, False), preset=preset, seq=seq,
@@ -2317,17 +2420,19 @@ def bert_train(dev, card, warmup=3, timed=10, fit_steps=20, preset="bert-large",
               + f"; {dkdv_8c} / {dq_8c}; the template design took 24 x 4.03 ms a step, "
               f"PERF.md section 6) ({card})")
 
-    counts["8c"] = ab_train(
+    results["8c"] = ab_train(
         lambda impl: bert_engine(dev, base, data_8c, section=dense, preset=preset, seq=seq,
                                  micro=micro, step_impl=impl),
         f"train {preset} 8c dense padded", {fwd_8c: 2 * L, dkdv_8c: L, dq_8c: L}, card,
         micro * seq, model.flops_per_token(), warmup=2, timed=5, profile_n=1,
-        after=after_8c)["graph"]["counts"]
-    return counts
+        after=after_8c)
+    counts["8c"] = results["8c"]["graph"]["counts"]
+    return counts, results
 
 
 # ------------------------------------------- 9. sparse kernels at the shape
-def sparse_timing(dev, gen, bytes_per_s, card, B=8, T=2048, H=16, d=64):
+def sparse_timing(dev, gen, bytes_per_s, card, B=8, T=2048, H=16, d=64, dtype=torch.bfloat16,
+                  cases=None):
     """Phase 9 at the training shape (q, k, v views of one qkv tensor):
     the biased / LUT kernels of four cases, each held against its plain
     version, then timed beside its bound, its plain version and SDPA with
@@ -2337,9 +2442,11 @@ def sparse_timing(dev, gen, bytes_per_s, card, B=8, T=2048, H=16, d=64):
     template design) on the same call beside it; the forwards three
     readings each (median, min, max); then the path's forward+backward
     (``sparse_flash_attention`` under ``autograd.grad``).
-    The backward kernels' library time is SDPA's backward alone.  Returns
-    {case: {kernel: kernels-line fields}} and the cases' densities."""
-    q, k, v, do = flash_inputs(dev, gen, torch.bfloat16, B, T, H, d, "qkv")
+    The backward kernels' library time is SDPA's backward alone.  ``dtype``
+    (bf16 in phase 9, fp16 in phase 17d) and ``cases`` (a subset of the
+    four) select the run.  Returns {case: {kernel: kernels-line fields}} and
+    the cases' densities."""
+    q, k, v, do = flash_inputs(dev, gen, dtype, B, T, H, d, "qkv")
     keep = torch.arange(T, device=dev)[None, :] < key_lengths(gen, B, T, dev)[:, None]
     kb = torch.where(keep, 0.0, -10000.0).float()
     tutorial = build_sparsity_config(SPARSE_SECTION, H)
@@ -2347,15 +2454,19 @@ def sparse_timing(dev, gen, bytes_per_s, card, B=8, T=2048, H=16, d=64):
                                   num_global_blocks=1, attention="bidirectional")
     lut16 = fa.layout_luts(tutorial.make_layout(T), T, H, False)
     lut64 = fa.layout_luts(fixed64.make_layout(T), T, H, False)
-    cases = {"tutorial16+pad": (lut16, kb), "tutorial16": (lut16, None),
-             "fixed64": (lut64, None), "dense+pad": (None, kb)}
+    cases = {name: run for name, run in (("tutorial16+pad", (lut16, kb)),
+                                         ("tutorial16", (lut16, None)),
+                                         ("fixed64", (lut64, None)),
+                                         ("dense+pad", (None, kb)))
+             if cases is None or name in cases}
+    dname = str(dtype)[6:]
     sdpa = torch.nn.functional.scaled_dot_product_attention
     qh, kh, vh, doh = (x.transpose(1, 2).contiguous() for x in (q, k, v, do))
     elem, stat = B * T * H * d * 2, B * H * T * 4
     saved = dict(fa.launches)
     out, density = {}, {}
     for case, (lut, bias) in cases.items():
-        what = f"B={B} T={T} H={H} d={d} bf16 qkv views {case}"
+        what = f"B={B} T={T} H={H} d={d} {dname} qkv views {case}"
         res = check_masked_case(q, k, v, do, lut, bias, None, False, what)
         print(f"sparse-check {what} (the training shape): {flash_line(res)}")
         names, calls, plains = masked_calls(q, k, v, do, lut, bias, None, False)
@@ -2446,7 +2557,7 @@ def sparse_timing(dev, gen, bytes_per_s, card, B=8, T=2048, H=16, d=64):
         leaves3 = [x.detach().requires_grad_(True) for x in (q, k, v)]
         path = repeat_ms(lambda _: torch.autograd.grad(fa.sparse_flash_attention(
             *leaves3, layout, causal=False, key_padding_bias=bias), leaves3, do), 5, warmup=2)
-        print(f"timing SDPA {case} (B, H, T, d) bf16 with the boolean layout-and-padding "
+        print(f"timing SDPA {case} (B, H, T, d) {dname} with the boolean layout-and-padding "
               f"mask: forward {lib_f * 1e3:.2f} us, forward+backward {lib_fb * 1e3:.2f} us, "
               f"backward alone {lib_b * 1e3:.2f} us; the port's {' + '.join(names)} "
               f"{total * 1e3:.2f} us, its path forward+backward {spread(path)} ({card})")
@@ -3532,6 +3643,47 @@ def sparse_workload(dev, gen, card, bytes_per_s, B=1, H=8, d=64, line_shape=(64,
     torch.cuda.empty_cache()
     return total, line
 
+
+def check_path_seeds(dev, seeds=(23, 24, 25), B=1, H=8, d=64):
+    """Phase 14's backward over three seeds (generators of their own) at its
+    shapes up to PLAIN_T_MAX, as :func:`check_band_merge_seeds` holds the
+    forwards: the banded path (``SparseSelfAttention``, forward and
+    ``backward()``, launches 1/1/1) fed each seed's q/k/v and dO; dQ
+    against its plain version with phase 2's limit, dK/dV under C1_BOUND
+    (C1's second case: no single draw decides).  Returns the largest share
+    of the limit per output."""
+    worst = {}
+    for block, T in itertools.product(WORKLOAD_BLOCKS, WORKLOAD_T):
+        if T > PLAIN_T_MAX:
+            continue
+        attn = SparseSelfAttention(workload_config(H, block), max_seq_length=T)
+        lut = fa.layout_luts(attn.get_layout(T), T, H, True)
+        for seed in seeds:
+            gen = torch.Generator(device=dev).manual_seed(seed)
+            qkv = torch.randn((B, T, 3 * H * d), generator=gen, device=dev).to(torch.bfloat16)
+            do = torch.randn((B, T, H, d), generator=gen, device=dev).to(torch.bfloat16)
+            leaf = qkv.requires_grad_(True)
+            out, _ = path_run("banded", attn, leaf, do, B, T, H, d)
+            q, k, v = (t.detach().view(B, T, H, d) for t in leaf.split(H * d, dim=-1))
+            dq, dk, dv = (g.view(B, T, H, d) for g in leaf.grad.split(H * d, dim=-1))
+            o, lse = fa.flash_fwd_banded(q, k, v, fa.band_lut(
+                *fa.banded_structure(lut.layout, True), block, T))
+            delta = fa.attention_delta(o, do)
+            what = f"B={B} T={T} H={H} d={d} bf16 block {block} seed {seed}"
+            rdq = fa.flash_attention_reference_bwd_dq(q, k, v, do, lse, delta, lut=lut)
+            rows = [("dq", *flash_close(f"path-seeds {what}", "dq", dq, rdq))]
+            del rdq
+            rows += c1_close(what, q, k, v, do, lse, delta, True, lut, None, None,
+                             {"flash_bwd_dkdv_lut_sm90": (dk, dv)})["flash_bwd_dkdv_lut_sm90"]
+            for label, _, share in rows:
+                worst[label] = max(worst.get(label, 0.0), share)
+            print(f"path-seeds banded {what}: dq (phase 2's limit), dk and dv (the C1 bound) "
+                  f"{flash_line({'': rows})}")
+            del qkv, do, leaf, out, q, k, v, dq, dk, dv, o, lse, delta
+            torch.cuda.empty_cache()
+    return worst
+
+
 CKPT_WARMUP_STEPS = 10      # phase 15's WarmupLR warm-up: the lr moves at every step it runs
 CKPT_TIMED = 3              # saves and loads timed in phase 15 (the median is reported)
 
@@ -4110,7 +4262,8 @@ FP16_INF_AT = 65520.0       # the least magnitude fp16's round-to-nearest takes 
 FP16_CONFIG = {"fp16": {"enabled": True, "loss_scale": 0, "initial_scale_power": 16,
                         "loss_scale_window": 1000, "hysteresis": 2, "min_loss_scale": 1}}
 FP16_SOURCES = ("flash_attention_fwd_sm90.cu", "flash_attention_sparse_bwd_sm90.cu",
-                "flash_attention_sm90.cuh")
+                "flash_attention_sparse_fwd_sm90.cu", "flash_attention_sm90.cuh",
+                "flash_attention.cuh")
 
 
 def fp16_rows(q, k, v, do, causal, what, bwd=True):
@@ -4143,7 +4296,7 @@ def first_fp16_launches(dev, gen):
     dim, then ``flash_bwd_dkdv_sm90`` / ``flash_bwd_dq_sm90`` at B=2 H=4
     d=64 T 33, 65 and 200, each waited for under SM90_DEADLINE_S and held
     against its plain version with the fp16 limit."""
-    for d in fa.DENSE_SM90_HEAD_DIMS[torch.float16]:
+    for d in fa.SM90_HEAD_DIMS[torch.float16]:
         q, k, v, _ = flash_inputs(dev, gen, torch.float16, 1, 64, 1, d, "dense")
         t0 = time.perf_counter()
         o, lse = fa.flash_fwd_sm90(q, k, v, True)
@@ -4230,9 +4383,9 @@ def check_fp16_kernels(dev, B=8, H=16):
     gen = torch.Generator(device=dev).manual_seed(FP16_SEED)
     first_fp16_launches(dev, gen)
     max_err = {name: 0.0 for name in fa.DENSE_SM90}
-    for T, d in itertools.product(FP16_T, fa.DENSE_SM90_HEAD_DIMS[torch.float16]):
+    for T, d in itertools.product(FP16_T, fa.SM90_HEAD_DIMS[torch.float16]):
         what = f"B={B} H={H} d={d} T={T} causal qkv"
-        bwd = d in fa.DENSE_BWD_SM90_HEAD_DIMS[torch.float16]
+        bwd = d in fa.SM90_BWD_HEAD_DIMS[torch.float16]
         res = fp16_rows(*flash_inputs(dev, gen, torch.float16, B, T, H, d, "qkv"), True, what,
                         bwd=bwd)
         for name, rows in res.items():
@@ -4242,10 +4395,138 @@ def check_fp16_kernels(dev, B=8, H=16):
     return max_err
 
 
+
+# ------------------------------------------- 17a+. fp16 on every flash route
+FP16_ROUTE_SEEDS = (33, 34, 35)   # phase 17a+'s draws: one generator a seed
+# the fp16 instances phase 17a+ adds, each beside the kernels it routes to: the sm90 LUT,
+# key-bias, banded and merged kernels and the templates (PR 24's dense three stand in 17a)
+FP16_NEW = ("flash_fwd_lut_sm90", "flash_bwd_dkdv_lut_sm90", "flash_bwd_dq_lut_sm90",
+            *(f"{name} {KEY_BIAS}" for name in fa.DENSE_SM90), "flash_fwd_banded_sm90",
+            "flash_fwd_merged_sm90", "flash_fwd", "flash_bwd_dkdv", "flash_bwd_dq",
+            *fa.BIASED_KERNELS, "flash_fwd_lut", "flash_fwd_lut_ring", "flash_bwd_dkdv_lut",
+            "flash_bwd_dq_lut", "flash_fwd_banded", "flash_fwd_merged")
+
+
+def fp16_route_cases(H):
+    """Phase 17a+'s cases, each (label, config or None, key bias kind, head
+    dim, B, causal): BERT's tutorial layout and the dense path with padding
+    at d=64 (BERT-large's heads: the sm90 LUT and key-bias instances and the
+    templates beside them), a ``mul`` key bias with batch row 1 fully
+    padded, a (T, T) score bias (the templates alone), then d 96 and 128
+    (the templates, and ``flash_fwd_sm90``'s key-bias instance at 128)."""
+    tut = build_sparsity_config(SPARSE_SECTION, H)
+    return [("tutorial16+pad", tut, "add", 64, 8, False),
+            ("tutorial16", tut, "none", 64, 8, False),
+            ("dense+pad", None, "add", 64, 8, False),
+            ("tutorial16+mul", tut, "mul", 64, 2, False),
+            ("dense+mul", None, "mul", 64, 2, False),
+            ("tutorial16 attn", tut, "attn", 64, 2, False),
+            ("dense attn", None, "attn", 64, 2, True),
+            *((label, cfg, kind, d, 2, False) for d in (96, 128)
+              for label, cfg, kind in (("tutorial16+pad", tut, "add"),
+                                       ("tutorial16", tut, "none"),
+                                       ("dense+pad", None, "add")))]
+
+
+def fp16_padded_rows_zero(q, k, v, do, lut, kb, what):
+    """A fully padded batch row (every key NEG_INF) under the fp16 route:
+    O, dQ, dK and dV of that row are exactly 0 (its lse NEG_INF enters the
+    backward as +inf, so its P is 0)."""
+    names, calls, _ = masked_calls(q, k, v, do, lut, kb, None, False)
+    o, lse = calls[0]()
+    delta = fa.attention_delta(o, do)
+    dk, dv = calls[1](lse, delta)
+    dq = calls[2](lse, delta)
+    rows = padded_rows(kb)
+    if not rows or any(t[b].any() for b in rows for t in (o, dq, dk, dv)):
+        raise AssertionError(f"fp16 {what}: fully padded rows {rows} have non-zero outputs "
+                             f"or gradients ({names})")
+    return rows
+
+
+def check_fp16_routes(dev, T=2048, H=16):
+    """Phase 17a+: every fp16 instance this slice adds against its plain
+    version with the fp16 limit, the kernel each route names and the
+    template beside an sm90 one (:func:`check_masked_case`,
+    :func:`check_flash_case`, :func:`band_merge_runs`): first each case once
+    at T=256, B=1, H=2 (a first launch; the sm90 kernels trap on an mbarrier
+    wait of 2 s), then at BERT's T and H over FP16_ROUTE_SEEDS, each seed a
+    generator of its own: :func:`fp16_route_cases`, the dense path at d 96 and
+    128 (the templates; d=128's forward on ``flash_fwd_sm90``), and the causal
+    BSLongformer layout at block 64 through the banded and merged forwards
+    at d 64, 96 and 128.  A fully padded ``mul`` row must read exact zeros.
+    Returns ({kernel fp16: max abs error}, {kernel fp16: largest share of its
+    limit})."""
+    max_err, worst = {}, {}
+
+    def note(res, keyed=False):
+        for name, rows in res.items():
+            key = f"{name} {KEY_BIAS} {FP16}" if keyed and name in fa.DENSE_SM90 else \
+                f"{name} {FP16}"
+            max_err[key] = max([max_err.get(key, 0.0)] + [e for _, e, _ in rows])
+            worst[key] = max([worst.get(key, 0.0)] + [sh for *_, sh in rows])
+
+    for seed, (Tc, Hc) in [(FP16_ROUTE_SEEDS[0], (256, 2))] + [
+            (sd, (T, H)) for sd in FP16_ROUTE_SEEDS]:
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        first = Tc != T
+        tag = "first launch" if first else f"seed {seed}"
+        for label, cfg, kind, d, B, causal in fp16_route_cases(Hc):
+            B = 1 if first and kind != "mul" else B
+            lut = None if cfg is None else fa.layout_luts(cfg.make_layout(Tc), Tc, Hc, causal)
+            kb, ab = bias_inputs(kind, gen, B, Tc, dev)
+            what = f"fp16 d={d} B={B} T={Tc} H={Hc} {label} causal={int(causal)} {tag}"
+            inputs = flash_inputs(dev, gen, torch.float16, B, Tc, Hc, d, "qkv")
+            t0 = time.perf_counter()
+            res = check_masked_case(*inputs, lut, kb, ab, causal, what, c1=lut is not None)
+            ms = (time.perf_counter() - t0) * 1e3
+            if kind == "mul":
+                rows = fp16_padded_rows_zero(*inputs, lut, kb, what)
+                extra = f"; padded rows {rows} exactly 0 in O, dQ, dK, dV"
+            else:
+                extra = ""
+            note(res, keyed=lut is None and kb is not None and ab is None)
+            print(f"fp16-route {what} ({ms:.0f} ms): {flash_line(res)}{extra}")
+            del inputs
+        for d in (96, 128):
+            B = 1 if first else 2
+            what = f"fp16 d={d} B={B} T={Tc} H={Hc} dense causal {tag}"
+            res = check_flash_case(*flash_inputs(dev, gen, torch.float16, B, Tc, Hc, d, "qkv"),
+                                   True, what)
+            note(res)
+            print(f"fp16-route {what}: {flash_line(res)}")
+        layout = np.asarray(longformer(Hc, 64, 3, [0]).make_layout(Tc), np.int32) \
+            if Tc >= 512 else np.asarray(longformer(Hc, 32, 3, [0]).make_layout(Tc), np.int32)
+        for d in (64, 96, 128):
+            q, k, v, _ = flash_inputs(dev, gen, torch.float16, 1, Tc, Hc, d, "qkv")
+            res = {}
+            for name in BAND_MERGE:
+                sched = band_merge_schedule(layout, Tc, Hc, True, name)
+                ro, rlse = fa.flash_attention_reference_fwd(q, k, v, True, lut=sched)
+                t0 = time.perf_counter()
+                runs = band_merge_runs(name, q, k, v, sched)
+                if first:
+                    wait_first(name, f"fp16 d={d}", t0)
+                torch.cuda.synchronize()
+                for kernel, (o, lse) in runs.items():
+                    res[kernel] = [(lb, *flash_close(f"{kernel} fp16 d={d} {tag}", lb, got, ref))
+                                   for lb, got, ref in (("o", o, ro), ("lse", lse, rlse))]
+            note(res)
+            print(f"fp16-route fp16 d={d} B=1 T={Tc} H={Hc} longformer causal {tag}: " + "; ".join(
+                f"{name[10:]} {flash_line({name: rows})}" for name, rows in res.items()))
+        torch.cuda.empty_cache()
+    missing = [name for name in FP16_NEW if f"{name} {FP16}" not in max_err]
+    if missing:
+        raise AssertionError(f"phase 17a+ held no fp16 instance of {missing}")
+    print(f"fp16-route largest share of the limit per instance over seeds "
+          f"{FP16_ROUTE_SEEDS}: " + "; ".join(f"{k} {v:.2f}" for k, v in worst.items()))
+    return max_err, worst
+
 def fp16_timing(dev, bytes_per_s, card, B=8, T=1024, H=16, d=64):
     """Phase 17d at the 350M training shape (causal, q/k/v views of one qkv
-    tensor, a generator of its own): each fp16 instance and its bf16 twin
-    on the same values (three readings each, in turns), beside the plain
+    tensor, a generator of its own): each fp16 instance of the dense sm90
+    kernels and of the templates (by name) and its bf16 twin on the same
+    values (three readings each, in turns), beside the plain
     version, the bound and SDPA's forward or the flash-attention backward
     op at fp16.  Returns {kernel: the kernels line's numbers} for the fp16
     instances."""
@@ -4262,15 +4543,23 @@ def fp16_timing(dev, bytes_per_s, card, B=8, T=1024, H=16, d=64):
             "flash_bwd_dkdv_sm90": lambda tq=tq, tk=tk, tv=tv, tdo=tdo, lse=lse, delta=delta:
                 fa.flash_bwd_dkdv_sm90(tq, tk, tv, tdo, lse, delta, True),
             "flash_bwd_dq_sm90": lambda tq=tq, tk=tk, tv=tv, tdo=tdo, lse=lse, delta=delta:
-                fa.flash_bwd_dq_sm90(tq, tk, tv, tdo, lse, delta, True)}
+                fa.flash_bwd_dq_sm90(tq, tk, tv, tdo, lse, delta, True),
+            # the templates (PR 2's design), by name
+            "flash_fwd": lambda tq=tq, tk=tk, tv=tv: fa.flash_fwd_template(tq, tk, tv, True),
+            "flash_bwd_dkdv": lambda tq=tq, tk=tk, tv=tv, tdo=tdo, lse=lse, delta=delta:
+                fa.flash_bwd_dkdv_template(tq, tk, tv, tdo, lse, delta, True),
+            "flash_bwd_dq": lambda tq=tq, tk=tk, tv=tv, tdo=tdo, lse=lse, delta=delta:
+                fa.flash_bwd_dq_template(tq, tk, tv, tdo, lse, delta, True)}
     o, lse = fa.flash_fwd(q, k, v, True)
     delta = fa.attention_delta(o, do)
-    plain = {"flash_fwd_sm90": lambda: fa.flash_attention_reference_fwd(q, k, v, True),
-             "flash_bwd_dkdv_sm90": lambda: fa.flash_attention_reference_bwd_dkdv(
-                 q, k, v, do, lse, delta, True),
-             "flash_bwd_dq_sm90": lambda: fa.flash_attention_reference_bwd_dq(
-                 q, k, v, do, lse, delta, True)}
-    res = fp16_rows(q, k, v, do, True, f"B={B} T={T} H={H} d={d} (the timed inputs)")
+    plain_fwd = lambda: fa.flash_attention_reference_fwd(q, k, v, True)
+    plain_dkdv = lambda: fa.flash_attention_reference_bwd_dkdv(q, k, v, do, lse, delta, True)
+    plain_dq = lambda: fa.flash_attention_reference_bwd_dq(q, k, v, do, lse, delta, True)
+    plain = {"flash_fwd_sm90": plain_fwd, "flash_bwd_dkdv_sm90": plain_dkdv,
+             "flash_bwd_dq_sm90": plain_dq, "flash_fwd": plain_fwd,
+             "flash_bwd_dkdv": plain_dkdv, "flash_bwd_dq": plain_dq}
+    # the routed fp16 instances and the templates beside them, on the timed inputs
+    res = check_flash_case(q, k, v, do, True, f"fp16 B={B} T={T} H={H} d={d} (the timed inputs)")
     max_err = {name: max(err for _, err, _ in rows) for name, rows in res.items()}
     sdpa = torch.nn.functional.scaled_dot_product_attention
     qh, kh, vh, doh = (x.transpose(1, 2).contiguous() for x in (q, k, v, do))
@@ -4280,7 +4569,7 @@ def fp16_timing(dev, bytes_per_s, card, B=8, T=1024, H=16, d=64):
     work = flash_work(B, T, H, d)
     saved = dict(fa.launches)
     out = {}
-    for name in fa.DENSE_SM90:
+    for name in fa.DENSE_KERNELS:
         nbytes, ops = work[name]
         bound, by = bound_ms(nbytes, ops, bytes_per_s)
         r16a = repeat_ms(lambda _: calls[torch.float16][name](), 50)
@@ -4289,11 +4578,11 @@ def fp16_timing(dev, bytes_per_s, card, B=8, T=1024, H=16, d=64):
         r16 = (statistics.median([r16a[0], r16b[0]]), min(r16a[1], r16b[1]),
                max(r16a[2], r16b[2]))
         plain_ms = time_ms(lambda _: plain[name](), 5)
-        lib_r = sdpa_r if name == "flash_fwd_sm90" else sdpa_b
+        lib_r = sdpa_r if name in ("flash_fwd_sm90", "flash_fwd") else sdpa_b
         out[name] = {"max_abs_err": max_err[name], "ms": r16[0], "plain_ms": plain_ms,
                      "bound_ms": bound, "bound_by": by,
                      "library_ms": None if lib_r is None else lib_r[0]}
-        lib_note = ("SDPA forward fp16" if name == "flash_fwd_sm90"
+        lib_note = ("SDPA forward fp16" if name in ("flash_fwd_sm90", "flash_fwd")
                     else "the flash-attention backward op fp16 (dq, dk, dv)")
         print(f"timing {name} fp16 B={B} T={T} H={H} d={d} causal ({card}): {spread(r16)} "
               f"(readings before and after the bf16 twin: {spread(r16a)}; {spread(r16b)}); bf16 "
@@ -4304,6 +4593,57 @@ def fp16_timing(dev, bytes_per_s, card, B=8, T=1024, H=16, d=64):
     fa.launches.update(saved)          # timing launches are not path launches
     return out
 
+
+
+def fp16_band_timing(dev, bytes_per_s, card, B=1, T=8192, H=8, d=64, block=64, seed=36):
+    """Phase 17d: the banded and merged fp16 instances (sm90 and the
+    template designs) at phase 14's kernels-line shape (the causal
+    workload layout, block 64, T=8192), each beside its bf16 twin on the
+    same values, in turns (three readings each), with the bound (live
+    pairs of the layout), the plain version and SDPA fp16 with the layout
+    mask; a generator of its own.  Returns {kernel fp16: kernels-line
+    fields}."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    layout = np.asarray(workload_config(H, block).make_layout(T), np.int32)
+    lut = fa.layout_luts(layout, T, H, True)
+    q, k, v, _ = flash_inputs(dev, gen, torch.float16, B, T, H, d, "qkv")
+    twin = [x.to(torch.bfloat16) for x in (q, k, v)]
+    pairs = layout_pairs(layout, True, block) * B * (H // layout.shape[0])
+    nbytes, ops = 4 * B * T * H * d * 2 + B * H * T * 4, 4 * d * pairs
+    bound, by = bound_ms(nbytes, ops, bytes_per_s)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    qh, kh, vh = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+    mask = lut.element_mask(dev)[None]
+    lib = repeat_ms(lambda _: sdpa(qh, kh, vh, attn_mask=mask), 5, warmup=2)
+    saved = dict(fa.launches)
+    out = {}
+    for route in ("banded", "merged"):
+        sched = band_merge_schedule(layout, T, H, True, f"flash_fwd_{route}")
+        ro, rlse = fa.flash_attention_reference_fwd(q, k, v, True, lut=sched)
+        plain_ms = time_ms(lambda _: fa.flash_attention_reference_fwd(q, k, v, True, lut=sched),
+                           2, warmup=1)
+        for name, call in ((f"flash_fwd_{route}_sm90", getattr(fa, f"flash_fwd_{route}_sm90")),
+                           (f"flash_fwd_{route}", getattr(fa, f"flash_fwd_{route}_template"))):
+            o, lse = call(q, k, v, sched)
+            torch.cuda.synchronize()
+            err = max(flash_close(f"{name} fp16 timed", lb, got, ref)[0]
+                      for lb, got, ref in (("o", o, ro), ("lse", lse, rlse)))
+            turns = turns_ms({"fp16": lambda _: call(q, k, v, sched),
+                              "bf16": lambda _: call(*twin, sched)}, 20)
+            out[f"{name} {FP16}"] = {"max_abs_err": err, "ms": turns["fp16"][0],
+                                     "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
+                                     "library_ms": lib[0]}
+            print(f"timing {name} fp16 B={B} T={T} H={H} d={d} block {block} causal ({card}): "
+                  f"{spread(turns['fp16'])}, {bound / turns['fp16'][0]:.3f} of the bound; bf16 "
+                  f"twin in turns {spread(turns['bf16'])}; bound {bound * 1e3:.2f} us ({by}; "
+                  f"{nbytes / 1e6:.1f} MB, {ops / 1e9:.2f} GFLOP, {pairs} live pairs); plain "
+                  f"{plain_ms * 1e3:.2f} us; SDPA fp16 with the layout mask {spread(lib)}; "
+                  f"max abs error {err:.2e}")
+        del ro, rlse
+    fa.launches.update(saved)          # timing launches are not path launches
+    del mask
+    torch.cuda.empty_cache()
+    return out
 
 def scaler_state(eng):
     """The loss scaler's state and the skipped steps (host reads)."""
@@ -4487,6 +4827,257 @@ def model_options(dev, card, phase5, steps=3, preset="gpt2-350m", seq=1024, micr
               f"{phase5['eager']['peak_gb']:.2f} GB) ({card})")
 
 
+
+# ------------------------------------------------------ 18. BERT-large in fp16
+# phase 18's configuration: phase 8's with phase 17's dynamic loss scaler in place of bf16
+BERT_FP16 = {"bf16": {"enabled": False}, **FP16_CONFIG}
+
+
+def dtype_codes(call):
+    """``call()`` with the dtype code of every flash launch recorded (the
+    wrappers' ``_run``; a capture's Python runs it too): returns (result,
+    {kernel: set of codes})."""
+    seen, run = {}, fa._run
+
+    def spy(name, *args, device):
+        seen.setdefault(name, set()).add(args[0])
+        return run(name, *args, device=device)
+    fa._run = spy
+    try:
+        return call(), seen
+    finally:
+        fa._run = run
+
+
+def check_fp16_codes(tag, codes, per_step):
+    """Every flash launch of a run (``dtype_codes``) carried dtype code 2
+    (fp16), on the kernels of ``per_step`` alone."""
+    if set(codes) != set(per_step) or any(v != {2} for v in codes.values()):
+        raise AssertionError(f"{tag}: flash launches by dtype code {codes}, expected the fp16 "
+                             f"instances (code 2) of {sorted(per_step)} alone")
+    print(f"{tag}: every flash launch of the run carried dtype code 2 (fp16): {sorted(codes)}")
+
+
+def bert_fp16_train(dev, card, phase8, warmup=2, timed=5, fit_steps=20, preset="bert-large",
+                    seq=2048, micro=8):
+    """Phase 18: phase 8's BERT-large run in fp16 with the dynamic loss
+    scaler (BERT_FP16; the fp32 MLM head stays fp32), captured and eager
+    (:func:`ab_train`): on the tutorial's sparse layout (18: the fp16
+    instances of the sm90 LUT kernels, 48/24/24 a kernel run with remat, 0
+    on the templates) and on its ``"mode": "dense"`` twin with padding (18c:
+    the key-bias fp16 instances of the dense sm90 kernels).  Each holds:
+    every flash launch of the run carries dtype code 2 (fp16); captured =
+    eager in losses, grad norms and scaler state at every step; step 1
+    against the plain ``_masked_dense`` attention within phase 8's limits;
+    the fixed-batch loss falls >= BERT_FIT_MARGIN in ``fit_steps`` steps
+    (the skipped steps and the scale trajectory printed); a forced overflow
+    skipped with params, master and moments bit-unchanged; the figures
+    beside phase 8's bf16 ones from the same call.  Returns (launches of
+    each captured run, the :func:`ab_train` results)."""
+    vocab = build(preset, device=dev).config.vocab_size
+    base = build(preset, device=dev).init(0)
+    model = build(preset, device=dev)
+    c = model.config
+    L, hd = c.n_layer, c.hidden_size // c.n_head
+    f16 = torch.float16
+    dense = {"mode": "dense", "block": 16}
+    runs = {"18": (SPARSE_SECTION, bert_data(0, 64, seq, vocab),
+                   {fa.sparse_fwd_kernel(f16, hd, False, True): 2 * L,
+                    fa.sparse_dkdv_kernel(f16, hd, False): L,
+                    fa.sparse_dq_kernel(f16, hd, False): L}, "sparse16", "8"),
+            "18c": (dense, bert_data(1, 32, seq, vocab),
+                    {fa.biased_fwd_kernel(f16, hd, False): 2 * L,
+                     **{n: L for n in fa.biased_bwd_kernel(f16, hd, False)}},
+                    "8c dense padded", "8c")}
+    counts, results = {}, {}
+    for run, (section, data, per_step, label, twin) in runs.items():
+        def make(impl, plain=False, section=section, data=data):
+            return bert_engine(dev, base, data, section=section, plain=plain, preset=preset,
+                               seq=seq, micro=micro, step_impl=impl, dtype=f16, over=BERT_FP16)
+
+        eng = make("eager", plain=True)
+        plain = (float(eng.train_batch()), eng.get_global_grad_norm())
+        del eng
+        gc.collect()
+        torch.cuda.empty_cache()
+        tag = f"train {preset} T={seq} micro {micro} fp16 zero1 remat {label}"
+
+        def first(eng, loss, gnorm, plain=plain, tag=tag):
+            overflowed = not math.isfinite(gnorm), not math.isfinite(plain[1])
+            gaps = (abs(loss - plain[0]), abs(gnorm - plain[1]) / abs(plain[1]))
+            print(f"{tag} step 1 (captured): loss kernels {loss:.6f} plain {plain[0]:.6f}; "
+                  f"grad norm kernels {gnorm:.6f} plain {plain[1]:.6f} (gaps {gaps[0]:.3e} abs, "
+                  f"{gaps[1]:.3e} rel; tol {BERT_STEP1_LOSS_TOL:g} abs, "
+                  f"{BERT_STEP1_GNORM_TOL:g} rel); scaler {scaler_state(eng)}")
+            if not (gaps[0] <= BERT_STEP1_LOSS_TOL and (
+                    overflowed == (True, True) or gaps[1] <= BERT_STEP1_GNORM_TOL)):
+                raise AssertionError(f"{tag}: step 1 kernels {(loss, gnorm)} vs plain {plain}")
+
+        def after(eng, by_name, data=data, tag=tag):
+            fixed = itertools.repeat({key: val[:micro] for key, val in data.items()})
+            fit, states = [], []
+            for _ in range(fit_steps):
+                fit.append(float(eng.train_batch(fixed)))
+                states.append(scaler_state(eng))
+            print(f"{tag} fixed batch: loss {fit[0]:.4f} -> {fit[-1]:.4f} over {fit_steps} "
+                  f"steps (margin {BERT_FIT_MARGIN}); skipped steps {states[0][4]} -> "
+                  f"{states[-1][4]}; scale trajectory " + ", ".join(f"{st[0]:g}" for st in states))
+            if not fit[0] - fit[-1] >= BERT_FIT_MARGIN:
+                raise AssertionError(f"{tag}: fixed-batch loss fell only {fit[0] - fit[-1]}")
+            spent = {}
+            for kname, (t, n) in by_name.items():
+                m = re.search(r"\b(fwd_lut_sm90_kernel|dkdv_sm90_kernel|dq_sm90_kernel|"
+                              r"fwd_sm90_kernel|dense_dkdv_kernel|dense_dq_kernel)\b", kname)
+                if m and "__half" in kname:
+                    t0, n0 = spent.get(m.group(1), (0.0, 0.0))
+                    spent[m.group(1)] = (t0 + t, n0 + n)
+            print(f"profile {tag}: fp16 flash kernels' device time per captured step: " +
+                  "; ".join(f"{k} {t / 1e3:.2f} ms ({n:.0f} launches)"
+                            for k, (t, n) in spent.items()) + f" ({card})")
+
+        res, codes = dtype_codes(lambda: ab_train(
+            make, tag, per_step, card, micro * seq, model.flops_per_token(), warmup=warmup,
+            timed=timed, profile_n=1, first=first, after=after, extra=scaler_state,
+            skips_ok=True))
+        check_fp16_codes(tag, codes, per_step)
+        for impl in ("graph", "eager"):
+            a, b = res[impl], phase8[twin][impl]
+            print(f"fp16 vs bf16 {preset} {label} {impl} ({card}): step p50 {a['p50']:.3f} vs "
+                  f"{b['p50']:.3f} ms; busy {a['busy_ms']:.3f} vs {b['busy_ms']:.3f} ms; idle "
+                  f"{100 * (1 - a['busy_ms'] / a['p50']):.1f}% vs "
+                  f"{100 * (1 - b['busy_ms'] / b['p50']):.1f}%; tokens/s "
+                  f"{statistics.median(r[2] for r in a['rows']):.0f} vs "
+                  f"{statistics.median(r[2] for r in b['rows']):.0f}; MFU "
+                  f"{statistics.median(r[3] for r in a['rows']):.4f} vs "
+                  f"{statistics.median(r[3] for r in b['rows']):.4f}; peak memory "
+                  f"{a['peak_gb']:.2f} vs {b['peak_gb']:.2f} GB; skipped {a['skipped']}")
+        fp16_forced_overflow(make)
+        counts[run], results[run] = res["graph"]["counts"], res
+        gc.collect()
+        torch.cuda.empty_cache()
+    return counts, results
+
+
+# --------------------------------- 19. the imperative API, curriculum and PLD
+LOOP_GAS = 2                # phase 19: phase 5's configuration at gas 2
+LOOP_STEPS = 3
+CURRICULUM_STEPS = 16
+LOOP_CURRICULUM = {"enabled": True, "curriculum_type": "seqlen", "min_difficulty": 128,
+                   "max_difficulty": 1024, "schedule_type": "fixed_linear",
+                   "schedule_config": {"total_curriculum_step": 14, "difficulty_step": 128}}
+LOOP_PLD = {"enabled": True, "theta": 0.5, "gamma": 0.001}
+
+
+def curriculum_expected(cfg, step):
+    """The fixed_linear difficulty of ``step`` (the reference's formula,
+    runtime/data_pipeline/curriculum_scheduler.py)."""
+    sc, lo, hi = cfg["schedule_config"], cfg["min_difficulty"], cfg["max_difficulty"]
+    d = math.floor(step / sc["total_curriculum_step"] * (hi - lo) + lo)
+    return min(d - d % sc["difficulty_step"], hi)
+
+
+def train_loop(dev, card, preset="gpt2-350m", seq=1024, micro=8):
+    """Phase 19 on phase 5's configuration at gas LOOP_GAS, captured: (a)
+    ``forward`` / ``backward`` / ``step`` against ``train_batch`` from the
+    same state on the same micro-batches, LOOP_STEPS steps: losses and grad
+    norms bit-equal, the shim's engine one graph (one capture, a replay a
+    step); (b) a fixed_linear seqlen curriculum 128 -> 1024 in steps of 128
+    over CURRICULUM_STEPS steps, with progressive layer drop: the
+    difficulty of each step against the schedule, finite losses, a graph
+    and its pool bytes a difficulty and the reserved memory after each
+    step, first at micro 4 with every graph held in the engine's one pool
+    (``_release_graphs`` a no-op: do past graphs pin growing memory?), then
+    at micro 8 as the engine runs it (the past graphs released); PLD's
+    theta beside its formula."""
+    vocab = GPT2(preset=preset, device=dev).config.vocab_size
+    tokens = np.random.default_rng(0).integers(0, vocab, (64, seq + 1)).astype(np.int32)
+    np_params = GPT2(preset=preset, max_seq=seq, device=dev).init_numpy(seed=0)
+    make = lambda config, m=micro: train_engine(dev, np_params, tokens, "flash", preset, seq, m,
+                                                config=dict(config, gradient_accumulation_steps=
+                                                            LOOP_GAS))
+    mbs = [(tokens[i * micro:(i + 1) * micro],) for i in range(LOOP_STEPS * LOOP_GAS)]
+    feeds = [mbs[s * LOOP_GAS:(s + 1) * LOOP_GAS] for s in range(LOOP_STEPS)]
+    gc.collect()
+    torch.cuda.empty_cache()
+    ref = make({})                       # one engine at a time: each holds a captured step
+    want_rows = [(float(ref.train_batch(iter(feed))), ref.get_global_grad_norm())
+                 for feed in feeds]
+    del ref
+    gc.collect()
+    torch.cuda.empty_cache()
+    shim, rows = make({}), []
+    for feed, (a, ga) in zip(feeds, want_rows):
+        evals = []
+        for mb in feed:
+            if shim.step() is not None:
+                raise AssertionError("step() ran before the accumulation boundary")
+            evals.append(float(shim.backward(shim.forward(mb))))
+        if not shim.is_gradient_accumulation_boundary():
+            raise AssertionError("no accumulation boundary after gas micro-batches")
+        b = float(shim.step())
+        rows.append((a, ga, b, shim.get_global_grad_norm(), evals))
+    g = shim.stats()["graphs"]
+    want = (1, 1, LOOP_STEPS) if dev.type == "cuda" else (0, 0, 0)   # no graph on the CPU
+    if any((a, ga) != (b, gb) for a, ga, b, gb, _ in rows) or (
+            g["graphs"], g["captures"], g["replays"]) != want:
+        raise AssertionError(f"phase 19 shim: {rows}, graphs {g}")
+    print(f"train {preset} T={seq} micro {micro} gas {LOOP_GAS} bf16: forward/backward/step "
+          f"vs train_batch from the same state, {LOOP_STEPS} steps: losses and grad norms "
+          f"bit-equal {[(round(a, 6), round(ga, 6)) for a, ga, *_ in rows]}; forward's eval "
+          f"losses {[[round(x, 4) for x in e] for *_, e in rows]}; the shim's engine "
+          f"{g['graphs']} graph, {g['captures']} capture, {g['replays']} replays "
+          f"({engine_graphs_line(shim)}) ({card})")
+    del shim
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    out = {}
+    config = {"curriculum_learning": dict(LOOP_CURRICULUM),
+              "progressive_layer_drop": dict(LOOP_PLD)}
+    # first every difficulty's graph held (the release a no-op) at micro 4, which a card
+    # holds after the earlier phases; then the engine's own release at phase 5's micro 8
+    for label, m, release in (("held", micro // 2, False), ("released", micro, True)):
+        restore = engine_module.DeepSpeedEngine._release_graphs
+        if not release:
+            engine_module.DeepSpeedEngine._release_graphs = lambda self: None
+        try:
+            torch.cuda.synchronize()
+            reserved0 = torch.cuda.memory_reserved()
+            eng = make(config, m)
+            steps = []
+            for s in range(1, CURRICULUM_STEPS + 1):
+                loss = float(eng.train_batch())
+                want = curriculum_expected(LOOP_CURRICULUM, s)
+                if eng.curriculum_seqlen() != want or not math.isfinite(loss):
+                    raise AssertionError(f"curriculum step {s}: seqlen {eng.curriculum_seqlen()}"
+                                         f" (schedule {want}), loss {loss}")
+                torch.cuda.synchronize()
+                steps.append((eng.curriculum_seqlen(), loss,
+                              (torch.cuda.memory_reserved() - reserved0) / 1e9))
+        finally:
+            engine_module.DeepSpeedEngine._release_graphs = restore
+        g = eng.stats()["graphs"]
+        theta = float(eng.progressive_layer_drop.get_theta())
+        formula = (1.0 - LOOP_PLD["theta"]) * math.exp(-LOOP_PLD["gamma"] * CURRICULUM_STEPS) \
+            + LOOP_PLD["theta"]
+        print(f"train {preset} micro {m} gas {LOOP_GAS} curriculum fixed_linear 128 -> 1024 "
+              f"step 128 over {CURRICULUM_STEPS} steps, past graphs {label}: (seqlen, loss, "
+              f"reserved GB over the start) "
+              + ", ".join(f"({q}, {x:.4f}, {r:.2f})" for q, x, r in steps)
+              + f"; graphs held {g['graphs']}, released {g['released']}, captures "
+              f"{g['captures']}, replays {g['replays']}; pool bytes by graph "
+              + ", ".join(f"{n.split('[')[1].split(',')[0]} {b / 1e6:.0f} MB"
+                          for n, b in g["pool_bytes"].items())
+              + f"; PLD theta after {CURRICULUM_STEPS} steps {theta!r}, formula (1 - 0.5) "
+              f"e^(-0.001 x {CURRICULUM_STEPS}) + 0.5 = {formula!r} ({card})")
+        if abs(theta - formula) > 1e-12:
+            raise AssertionError(f"PLD theta {theta} vs {formula}")
+        out[label] = {"steps": steps, "graphs": g}
+        del eng
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false", file=sys.stderr)
@@ -4567,7 +5158,7 @@ def main():
     # 7. sparse kernels vs plain; 8. BERT-large training; 9. sparse timing
     sparse_err = check_sparse_kernels(dev, gen)
     print(json.dumps({"sparse_sweep_max_abs_err": sparse_err}))
-    bert_launches = bert_train(dev, card)
+    bert_launches, phase8 = bert_train(dev, card)
     ts, density = sparse_timing(dev, gen, bw, card)
     print(json.dumps({"sparse_timing": ts, "density": density}))
     # the kernels line: each kernel at the shape its main-path run gives it
@@ -4611,6 +5202,7 @@ def main():
     check_flash_lse(dev, gen)
     torch.cuda.empty_cache()
     print(json.dumps({"band_merge_seeds_largest_share": check_band_merge_seeds(dev)}))
+    print(json.dumps({"path_seeds_largest_share": check_path_seeds(dev)}))
     band_launches, tb = sparse_workload(dev, gen, card, bw)
     for name in BAND_MERGE + BAND_MERGE_SM90:
         kernels.append({"name": name, "route": "cuda", "source": flash_source(name),
@@ -4635,10 +5227,49 @@ def main():
     fp16_res = fp16_train(dev, card, phase5)
     model_options(dev, card, phase5)
     t16 = fp16_timing(dev, bw, card)
-    for name in fa.DENSE_SM90:
+    for name in fa.DENSE_KERNELS:            # the dense sm90 instances, and the templates: 0
         kernels.append({"name": f"{name} {FP16}", "route": "cuda", "source": flash_source(name),
                         "replaces": REPLACES[name], "launches": fp16_res["graph"]["counts"][name],
                         **t16[name]})
+
+    # 17a+. fp16 on every other flash route vs plain, three seeds; its timings (17d)
+    route_err, route_share = check_fp16_routes(dev)
+    print(json.dumps({"fp16_route_max_abs_err": route_err,
+                      "fp16_route_largest_share": route_share}))
+    ts16, _ = sparse_timing(dev, torch.Generator(device=dev).manual_seed(37), bw, card,
+                            dtype=torch.float16,
+                            cases=("tutorial16+pad", "tutorial16", "dense+pad"))
+    tb16 = fp16_band_timing(dev, bw, card)
+    torch.cuda.empty_cache()
+
+    # 18. BERT-large in fp16: the tutorial's sparse layout and its dense+padding twin
+    bert16, _ = bert_fp16_train(dev, card, phase8)
+    for name, case, run in (
+            ("flash_fwd_lut_sm90", "tutorial16+pad", "18"),
+            ("flash_bwd_dkdv_lut_sm90", "tutorial16+pad", "18"),
+            ("flash_bwd_dq_lut_sm90", "tutorial16+pad", "18"),
+            ("flash_fwd_lut", "tutorial16+pad", "18"),              # the template design: 0
+            ("flash_fwd_lut_ring", "tutorial16", "18"),             # the template design: 0
+            ("flash_bwd_dkdv_lut", "tutorial16+pad", "18"),         # the template design: 0
+            ("flash_bwd_dq_lut", "tutorial16+pad", "18"),           # the template design: 0
+            ("flash_fwd_biased", "dense+pad", "18c"),               # the template design: 0
+            ("flash_bwd_dkdv_biased", "dense+pad", "18c"),          # the template design: 0
+            ("flash_bwd_dq_biased", "dense+pad", "18c")):           # the template design: 0
+        kernels.append({"name": f"{name} {FP16}", "route": "cuda", "source": flash_source(name),
+                        "replaces": REPLACES[name], "launches": bert16[run][name],
+                        **ts16[case][name]})
+    for name in fa.DENSE_SM90:               # the key-bias fp16 instances (18c's run)
+        kernels.append({"name": f"{name} {KEY_BIAS} {FP16}", "route": "cuda",
+                        "source": flash_source(name), "replaces": REPLACES[f"{name} {KEY_BIAS}"],
+                        "launches": bert16["18c"][name], **ts16["dense+pad"][name]})
+    for name in BAND_MERGE_SM90 + BAND_MERGE:   # held by 17a+ only: no phase-18 launch
+        kernels.append({"name": f"{name} {FP16}", "route": "cuda", "source": flash_source(name),
+                        "replaces": REPLACES[name], "launches": bert16["18"][name],
+                        **tb16[f"{name} {FP16}"]})
+    torch.cuda.empty_cache()
+
+    # 19. the imperative API, a seqlen curriculum and PLD on phase 5's configuration
+    train_loop(dev, card)
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -7,10 +7,13 @@
 //   flash_bwd_dkdv  <- _bwd_dkdv_kernel (flash_attention.py:617-688, called at 842)
 //   flash_bwd_dq    <- _bwd_dq_kernel   (flash_attention.py:691-753, called at 886)
 // The kernels, what they compute, what bounds them and their design are in
-// flash_attention.cuh; here they run with every variant flag off.  The route sends bf16 at
-// head dim 64 to flash_fwd_sm90 (flash_attention_fwd_sm90.cu) and to flash_bwd_dkdv_sm90 /
-// flash_bwd_dq_sm90 (flash_attention_sparse_bwd_sm90.cu), and bf16 at head dim 128 to
-// flash_fwd_sm90; these entries keep the rest.
+// flash_attention.cuh; here they run with every variant flag off.  The route sends bf16 and
+// fp16 at head dim 64 to flash_fwd_sm90 (flash_attention_fwd_sm90.cu) and to
+// flash_bwd_dkdv_sm90 / flash_bwd_dq_sm90 (flash_attention_sparse_bwd_sm90.cu), and bf16 and
+// fp16 at head dim 128 to flash_fwd_sm90; these entries keep the rest (fp32; bf16 and fp16 at
+// head dim 96, and the backward at 128).
+//
+// dtype: 0 fp32, 1 bf16, 2 fp16.
 //
 // C interface for ctypes: each entry returns cudaGetLastError() after the launch
 // (0 on success), or -1 for a dtype / head dim / shape it was not built for.

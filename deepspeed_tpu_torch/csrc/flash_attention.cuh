@@ -26,7 +26,12 @@
 // Layouts: q, k, v, dO are (B, T, H, D) tensors read through their (b, t, h) strides in
 // elements with the last dim contiguous, so q/k/v can be views of the fused qkv matmul
 // output; O, dQ, dK, dV are written contiguous (B, T, H, D); lse and delta are fp32
-// (B, H, T).  Element type T is bf16 (tensor cores) or fp32 (CUDA cores).
+// (B, H, T).  Element type T is bf16 or fp16 (tensor cores: mma.sync .bf16 / .f16 operands,
+// fp32 accumulation) or fp32 (CUDA cores).  fp16 (dtype code 2) is bf16's path with the
+// operand type swapped: P and dS rounded to fp16 where the bf16 kernels round them to bf16
+// (__floats2half2_rn), outputs rounded to nearest into fp16 (a value past 65504 becomes inf:
+// no conversion saturates, so an overflow reaches the loss scaler); the scores, the biases
+// (NEG_INF included), m, l, lse and delta stay fp32.
 //
 // What each kernel computes, as the Pallas code does:
 //   forward  S = Q K^T * scale (+ biases), masked (k_pos < T, q_pos >= k_pos when causal,
@@ -75,7 +80,7 @@
 //     score bias is read straight from global memory.
 // Rows of shared tiles are padded by 8 elements so the 8 row addresses of an ldmatrix
 // fall in different banks.  The fp32 path runs the same tiling on the CUDA cores, with
-// P / dS staged through a per-warp shared tile.  The dense bf16 forward at head dims 64
+// P / dS staged through a per-warp shared tile.  The dense 16-bit forward at head dims 64
 // and 128 runs in flash_attention_fwd_sm90.cu instead (TMA, an mbarrier ring fed by a
 // producer warp, wgmma, 128-row q tiles); the dense fwd_kernel keeps fp32 and head dim
 // 96, and every kernel here is still mma.sync with cp.async.
@@ -87,6 +92,7 @@
 #pragma once
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -131,6 +137,10 @@ constexpr float kLn2 = 0.6931471805599453f;
 static_assert(kBQ == kBK, "the dK/dV kernel gives each warp 16 of the kBK key rows");
 
 using bf16 = __nv_bfloat16;
+using f16 = __half;
+// whether T is a 16-bit element type (bf16 or fp16: the tensor-core path)
+template <typename T>
+constexpr bool k16Bit = std::is_same<T, bf16>::value || std::is_same<T, f16>::value;
 
 struct Strides {
   long long b, t, h;  // elements
@@ -166,6 +176,7 @@ struct Args {
 template <typename T> __device__ __forceinline__ T from_f(float x);
 template <> __device__ __forceinline__ float from_f<float>(float x) { return x; }
 template <> __device__ __forceinline__ bf16 from_f<bf16>(float x) { return __float2bfloat16_rn(x); }
+template <> __device__ __forceinline__ f16 from_f<f16>(float x) { return __float2half_rn(x); }
 
 __host__ __device__ __forceinline__ int cdiv(int a, int b) { return (a + b - 1) / b; }
 
@@ -253,49 +264,66 @@ __device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const void* p) {
                : "memory");
 }
 
-// c (16x8) += a (16x16) * b (16x8).  Accumulator layout: lane = 4 g + i holds rows g
-// (c[0], c[1]) and g + 8 (c[2], c[3]) at columns 2i, 2i + 1.
+// c (16x8) += a (16x16) * b (16x8), operands of element type E (TY: its PTX type, bf16 or
+// f16).  Accumulator layout: lane = 4 g + i holds rows g (c[0], c[1]) and g + 8 (c[2], c[3])
+// at columns 2i, 2i + 1.
+#define MMA16816(TY)                                                          \
+  asm volatile("mma.sync.aligned.m16n8k16.row.col.f32." TY "." TY ".f32 "     \
+               "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n" \
+               : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])               \
+               : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1))
+template <typename E>
 __device__ __forceinline__ void mma16816(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
                                          uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+  if constexpr (std::is_same<E, f16>::value)
+    MMA16816("f16");
+  else
+    MMA16816("bf16");
 }
+#undef MMA16816
 
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
+// two floats rounded to nearest into one word of E (bf16 or fp16): lo in the low half
+template <typename E>
+__device__ __forceinline__ uint32_t pack2(float lo, float hi) {
+  if constexpr (std::is_same<E, f16>::value) {
+    const __half2 v = __floats2half2_rn(lo, hi);
+    return *reinterpret_cast<const uint32_t*>(&v);
+  } else {
+    const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+    return *reinterpret_cast<const uint32_t*>(&v);
+  }
 }
 
 // ---------------------------------------------------------------- A operands
-// The A operand (16 x K) of a warp's products.  bf16: mma fragments in registers,
+// The A operand (16 x K) of a warp's products.  bf16 and fp16: mma fragments in registers,
 // loaded with ldmatrix or packed from fp32 accumulators.  fp32: a pointer to the rows in
 // shared memory; accumulators are first stored to the warp's scratch tile.
 template <typename T, int K> struct FragA;
 
-template <int K> struct FragA<bf16, K> {
+template <typename E, int K> struct Frag16 {
   uint32_t r[K / 16][4];
 
-  __device__ __forceinline__ void load(const bf16* A, int lda) {
+  __device__ __forceinline__ void load(const E* A, int lda) {
     const int lane = lane_id();
 #pragma unroll
     for (int kk = 0; kk < K / 16; ++kk)
       ldsm_x4(r[kk], A + (lane & 15) * lda + kk * 16 + (lane >> 4) * 8);
   }
 
-  // from the accumulators of a (16 x K) product, rounded to bf16
-  __device__ __forceinline__ void from_acc(const float (&v)[K / 8][4], bf16*, int) {
+  // from the accumulators of a (16 x K) product, rounded to E
+  __device__ __forceinline__ void from_acc(const float (&v)[K / 8][4], E*, int) {
 #pragma unroll
     for (int kk = 0; kk < K / 16; ++kk) {
-      r[kk][0] = pack_bf16(v[2 * kk][0], v[2 * kk][1]);
-      r[kk][1] = pack_bf16(v[2 * kk][2], v[2 * kk][3]);
-      r[kk][2] = pack_bf16(v[2 * kk + 1][0], v[2 * kk + 1][1]);
-      r[kk][3] = pack_bf16(v[2 * kk + 1][2], v[2 * kk + 1][3]);
+      r[kk][0] = pack2<E>(v[2 * kk][0], v[2 * kk][1]);
+      r[kk][1] = pack2<E>(v[2 * kk][2], v[2 * kk][3]);
+      r[kk][2] = pack2<E>(v[2 * kk + 1][0], v[2 * kk + 1][1]);
+      r[kk][3] = pack2<E>(v[2 * kk + 1][2], v[2 * kk + 1][3]);
     }
   }
 };
+
+template <int K> struct FragA<bf16, K> : Frag16<bf16, K> {};
+template <int K> struct FragA<f16, K> : Frag16<f16, K> {};
 
 template <int K> struct FragA<float, K> {
   const float* p;
@@ -325,9 +353,9 @@ template <int K> struct FragA<float, K> {
 // acc (16 x N) += A (16 x K) * B (K x N).  B is read from shared memory: with kTransB
 // false it is given as its transpose, rows n of K contiguous elements (ldb apart); with
 // kTransB true as rows k of N contiguous elements.
-template <int N, int K, bool kTransB>
-__device__ __forceinline__ void warp_mm(float (&acc)[N / 8][4], const FragA<bf16, K>& a,
-                                        const bf16* B, int ldb) {
+template <int N, int K, bool kTransB, typename E, std::enable_if_t<k16Bit<E>, int> = 0>
+__device__ __forceinline__ void warp_mm(float (&acc)[N / 8][4], const FragA<E, K>& a,
+                                        const E* B, int ldb) {
   const int lane = lane_id();
 #pragma unroll
   for (int kk = 0; kk < K / 16; ++kk) {
@@ -340,8 +368,8 @@ __device__ __forceinline__ void warp_mm(float (&acc)[N / 8][4], const FragA<bf16
       else
         ldsm_x4(b, B + (j * 16 + (lane & 7) + ((lane >> 4) << 3)) * ldb + kk * 16 +
                        ((lane >> 3) & 1) * 8);
-      mma16816(acc[2 * j], a.r[kk], b[0], b[1]);
-      mma16816(acc[2 * j + 1], a.r[kk], b[2], b[3]);
+      mma16816<E>(acc[2 * j], a.r[kk], b[0], b[1]);
+      mma16816<E>(acc[2 * j + 1], a.r[kk], b[2], b[3]);
     }
   }
 }
@@ -862,7 +890,7 @@ int launch(const Args& a, cudaStream_t stream) {
   return static_cast<int>(cudaGetLastError());
 }
 
-// dtype: 0 fp32 (CUDA cores), 1 bf16 (tensor cores); head dims 64, 96, 128
+// dtype: 0 fp32 (CUDA cores), 1 bf16, 2 fp16 (tensor cores); head dims 64, 96, 128
 template <Which W, bool kLut, bool kBias, int kStages = 2>
 int dispatch(int dtype, int head_dim, const Args& a, cudaStream_t stream) {
   if (a.B * a.H > 65535) return -1;
@@ -872,6 +900,14 @@ int dispatch(int dtype, int head_dim, const Args& a, cudaStream_t stream) {
       case 64: return launch<W, kLut, kBias, kStages, bf16, 64>(a, stream);
       case 96: return launch<W, kLut, kBias, kStages, bf16, 96>(a, stream);
       case 128: return launch<W, kLut, kBias, kStages, bf16, 128>(a, stream);
+      default: return -1;
+    }
+  }
+  if (dtype == 2) {
+    switch (head_dim) {
+      case 64: return launch<W, kLut, kBias, kStages, f16, 64>(a, stream);
+      case 96: return launch<W, kLut, kBias, kStages, f16, 96>(a, stream);
+      case 128: return launch<W, kLut, kBias, kStages, f16, 128>(a, stream);
       default: return -1;
     }
   }

@@ -37,10 +37,10 @@
 // Both stage K/V through a ring of cp.async stages (3 where shared memory allows, as
 // flash_fwd_lut_ring; fewer for the wide fp32 tiles) and take no biases.
 //
-// bf16 at head dims 64 and 128 runs the schedule instances of flash_fwd_sm90 instead
+// bf16 and fp16 at head dims 64 and 128 run the schedule instances of flash_fwd_sm90 instead
 // (flash_fwd_banded_sm90 / flash_fwd_merged_sm90 in flash_attention_fwd_sm90.cu: TMA, wgmma,
-// 128-row q tiles, a persistent grid); these entries keep fp32 and head dim 96 and are
-// called by name for the rest (flash_fwd_banded_template / flash_fwd_merged_template).
+// 128-row q tiles, a persistent grid); these entries keep fp32 and head dim 96 (bf16, fp16)
+// and are called by name for the rest (flash_fwd_banded_template / flash_fwd_merged_template).
 //
 // C interface for ctypes: returns cudaGetLastError() after the launch (0 on success), or
 // -1 for a variant / dtype / head dim / shape it was not built for.
@@ -270,7 +270,7 @@ int launch_sched(const Args& a, const Band* band, cudaStream_t stream) {
   return static_cast<int>(cudaGetLastError());
 }
 
-// dtype: 0 fp32 (CUDA cores), 1 bf16 (tensor cores); head dims 64, 96, 128
+// dtype: 0 fp32 (CUDA cores), 1 bf16, 2 fp16 (tensor cores); head dims 64, 96, 128
 template <Sched S>
 int dispatch_sched(int dtype, int head_dim, const Args& a, const Band* band,
                    cudaStream_t stream) {
@@ -281,6 +281,14 @@ int dispatch_sched(int dtype, int head_dim, const Args& a, const Band* band,
       case 64: return launch_sched<S, bf16, 64>(a, band, stream);
       case 96: return launch_sched<S, bf16, 96>(a, band, stream);
       case 128: return launch_sched<S, bf16, 128>(a, band, stream);
+      default: return -1;
+    }
+  }
+  if (dtype == 2) {
+    switch (head_dim) {
+      case 64: return launch_sched<S, f16, 64>(a, band, stream);
+      case 96: return launch_sched<S, f16, 96>(a, band, stream);
+      case 128: return launch_sched<S, f16, 128>(a, band, stream);
       default: return -1;
     }
   }

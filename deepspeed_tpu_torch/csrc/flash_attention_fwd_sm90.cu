@@ -1,6 +1,6 @@
 // Flash-attention forward for Hopper (sm_90a) built the way the card is meant to be used:
-// the entry flash_fwd_sm90, bf16, head dims 64 and 128, causal or not, with or without a key
-// bias; and fp16 at head dims 64 and 128 without the key bias (fp16 training, below).
+// the entry flash_fwd_sm90, bf16 and fp16 (fp16 training, below), head dims 64 and 128, causal
+// or not, with or without a key bias.
 //
 // Replaces the Pallas TPU kernel _fwd_kernel of deepspeed_tpu/ops/transformer/flash_attention.py
 // (144-283, built by _fwd 441-613) on its dense path with no LUT: without a bias, and (the kBias
@@ -8,8 +8,8 @@
 // flash_attention(key_padding_bias=) 913 -> _biased_call 1221 -> _make_biased_bhtd 1178).  The
 // template fwd_kernel of flash_attention.cuh (4 warps, 64-row q tiles, mma.sync, a cp.async
 // double buffer) keeps fp32, head dim 96 and the (T, T) score bias (flash_fwd and
-// flash_fwd_biased); ops/transformer/flash_attention.py routes bf16 at head dims 64 and 128
-// here (dense_fwd_kernel, biased_fwd_kernel).  It computes what fwd_kernel computes on its
+// flash_fwd_biased); ops/transformer/flash_attention.py routes bf16 and fp16 at head dims 64
+// and 128 here (dense_fwd_kernel, biased_fwd_kernel).  It computes what fwd_kernel computes on its
 // dense path:
 //   S = Q K^T * scale (+ kbias[b, k_pos]), masked with NEG_INF = -1e30 where k_pos >= T or,
 //   when causal, q_pos < k_pos; an online softmax over the visited k tiles with fp32 m, l and
@@ -99,12 +99,13 @@
 //     and not stored.
 // In both the producer keeps 40 registers and the consumers 232, as in the kBias instances.
 //
-// fp16 (dtype code 2): the dense instances without the key bias at head dims 64 and 128
-// (fwd_sm90_kernel<D, false, kDense, f16>) are the bf16 ones with the element type a template
-// parameter: wgmma .f32.f16.f16, P rounded to fp16 before P V (__floats2half2_rn), O written
-// fp16 and the tensor maps of data type FLOAT16.  An O past fp16's 65504 (it is a convex mix of
-// V rows, so only an inf or a V past 65504 gives one) becomes inf: no conversion saturates.
-// The key-bias, banded and merged instances stay bf16 only (-1 for fp16).
+// fp16 (dtype code 2): every instance at head dims 64 and 128, dense with and without the key
+// bias, banded and merged (fwd_sm90_kernel<D, kBias, kSched, f16>), is the bf16 one with the
+// element type a template parameter: wgmma .f32.f16.f16, P rounded to fp16 before P V
+// (__floats2half2_rn), O written fp16 and the tensor maps of data type FLOAT16.  The scores,
+// the key bias (a padded key's NEG_INF included), m, l and lse stay fp32.  An O past fp16's
+// 65504 (it is a convex mix of V rows, so only an inf or a V past 65504 gives one) becomes
+// inf: no conversion saturates.
 // flash_fwd_banded_sm90_schedule / flash_fwd_merged_sm90_schedule are these schedules in
 // Python.
 //
@@ -980,51 +981,51 @@ int launch(const void* q, const void* k, const void* v, void* out, float* lse,
   return static_cast<int>(cudaGetLastError());
 }
 
-// a dense call: bf16 (dtype code 1) with or without the key bias, fp16 (code 2) without
-template <int D>
-int launch_bias(int dtype, const void* q, const void* k, const void* v, void* out, float* lse,
+// a dense call of element type E, with or without the key bias
+template <int D, typename E>
+int launch_bias(const void* q, const void* k, const void* v, void* out, float* lse,
                 const long long* strides, int B, int T, int H, int causal, float scale,
                 const float* kbias, cudaStream_t stream) {
   const NoSched none{};
-  if (dtype == 2)
-    return kbias != nullptr ? -1
-                            : launch<D, false, kDense, f16>(q, k, v, out, lse, strides, B, T, H,
-                                                            causal, scale, kbias, none, stream);
   return kbias != nullptr
-             ? launch<D, true>(q, k, v, out, lse, strides, B, T, H, causal, scale, kbias, none,
-                               stream)
-             : launch<D, false>(q, k, v, out, lse, strides, B, T, H, causal, scale, kbias, none,
-                                stream);
+             ? launch<D, true, kDense, E>(q, k, v, out, lse, strides, B, T, H, causal, scale,
+                                          kbias, none, stream)
+             : launch<D, false, kDense, E>(q, k, v, out, lse, strides, B, T, H, causal, scale,
+                                           kbias, none, stream);
 }
 
-// the entries' common refusals: bf16 (dtype code 1), or fp16 (code 2) where `fp16`, and work
-// item indices in an int
-bool fits(int dtype, int B, int T, int H, bool fp16 = false) {
-  return (dtype == 1 || (fp16 && dtype == 2)) &&
-         static_cast<long long>(cdiv(T, kBQ)) * B * H <= 0x7fffffffLL;
+// one call of an entry: instance (D, kBias, kSched) at head dim 64 or 128, in bf16 (dtype code
+// 1) or fp16 (code 2)
+#define SM90_DISPATCH(CALL)                                     \
+  switch (head_dim * 4 + dtype) {                               \
+    case 64 * 4 + 1: return CALL(64, bf16);                     \
+    case 64 * 4 + 2: return CALL(64, f16);                      \
+    case 128 * 4 + 1: return CALL(128, bf16);                   \
+    case 128 * 4 + 2: return CALL(128, f16);                    \
+    default: return -1;                                         \
+  }
+
+// the entries' common refusals: bf16 (dtype code 1) or fp16 (code 2), and work item indices in
+// an int
+bool fits(int dtype, int B, int T, int H) {
+  return (dtype == 1 || dtype == 2) && static_cast<long long>(cdiv(T, kBQ)) * B * H <= 0x7fffffffLL;
 }
 
 }  // namespace
 
 // dtype: 1 bf16, 2 fp16; strides: 12 int64, the (b, t, h) element strides of q, k, v (and
-// dout's, ignored here); kbias: the (B, T) fp32 key bias, contiguous, or null for none (bf16
-// only).
+// dout's, ignored here); kbias: the (B, T) fp32 key bias, contiguous, or null for none.
 extern "C" int flash_fwd_sm90(int dtype, int head_dim, const void* q, const void* k,
                               const void* v, void* out, float* lse, const long long* strides,
                               int B, int T, int H, int causal, float scale, const float* kbias,
                               void* stream) {
-  if (!fits(dtype, B, T, H, true) || (dtype == 2 && kbias != nullptr)) return -1;
+  if (!fits(dtype, B, T, H)) return -1;
   if (T == 0 || B * H == 0) return 0;
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
-  switch (head_dim) {
-    case 64:
-      return launch_bias<64>(dtype, q, k, v, out, lse, strides, B, T, H, causal, scale, kbias,
-                             st);
-    case 128:
-      return launch_bias<128>(dtype, q, k, v, out, lse, strides, B, T, H, causal, scale, kbias,
-                              st);
-    default: return -1;
-  }
+#define DENSE_CALL(D, E) \
+  launch_bias<D, E>(q, k, v, out, lse, strides, B, T, H, causal, scale, kbias, st)
+  SM90_DISPATCH(DENSE_CALL)
+#undef DENSE_CALL
 }
 
 // The banded forward: causal only, T <= 65536, band: the schedule's parameter (BandSm90).
@@ -1037,15 +1038,10 @@ extern "C" int flash_fwd_banded_sm90(int dtype, int head_dim, const void* q, con
     return -1;
   if (T == 0 || B * H == 0) return 0;
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
-  switch (head_dim) {
-    case 64:
-      return launch<64, false, kBanded>(q, k, v, out, lse, strides, B, T, H, 1, scale, nullptr,
-                                        *band, st);
-    case 128:
-      return launch<128, false, kBanded>(q, k, v, out, lse, strides, B, T, H, 1, scale, nullptr,
-                                         *band, st);
-    default: return -1;
-  }
+#define BANDED_CALL(D, E) \
+  launch<D, false, kBanded, E>(q, k, v, out, lse, strides, B, T, H, 1, scale, nullptr, *band, st)
+  SM90_DISPATCH(BANDED_CALL)
+#undef BANDED_CALL
 }
 
 // The merged-row forward: m, the MergedLut's slot arrays (rows of 128 queries: cdiv(T, 128) a
@@ -1060,13 +1056,9 @@ extern "C" int flash_fwd_merged_sm90(int dtype, int head_dim, const void* q, con
     return -1;
   if (T == 0 || B * H == 0) return 0;
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
-  switch (head_dim) {
-    case 64:
-      return launch<64, false, kMerged>(q, k, v, out, lse, strides, B, T, H, causal, scale,
-                                        nullptr, *m, st);
-    case 128:
-      return launch<128, false, kMerged>(q, k, v, out, lse, strides, B, T, H, causal, scale,
-                                         nullptr, *m, st);
-    default: return -1;
-  }
+#define MERGED_CALL(D, E)                                                                       \
+  launch<D, false, kMerged, E>(q, k, v, out, lse, strides, B, T, H, causal, scale, nullptr, *m, \
+                               st)
+  SM90_DISPATCH(MERGED_CALL)
+#undef MERGED_CALL
 }

@@ -243,8 +243,6 @@ __device__ __forceinline__ uint32_t pack2(float lo, float hi) {
   }
 }
 
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) { return pack2<bf16>(lo, hi); }
-
 // 2^x with one MUFU instruction (denormal results flush to 0; 2^-inf = 0)
 __device__ __forceinline__ float exp2_ftz(float x) {
   float y;
@@ -354,10 +352,10 @@ bool make_bias_map(EncodeTiled enc, CUtensorMap* map, const float* base, int B, 
              CU_TENSOR_MAP_L2_PROMOTION_NONE, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-// whether a group kernel's instances were built for a call: bf16, head dim 64, a slot of 16, 32 or 64 rows
-// that tiles T
+// whether a group kernel's instances were built for a call: bf16 or fp16 (dtype codes 1, 2),
+// head dim 64, a slot of 16, 32 or 64 rows that tiles T
 bool built_for(int dtype, int head_dim, int T, const GroupSchedule* s) {
-  return dtype == 1 && head_dim == 64 && s != nullptr &&
+  return (dtype == 1 || dtype == 2) && head_dim == 64 && s != nullptr &&
          (s->unit == 16 || s->unit == 32 || s->unit == 64) && T % s->unit == 0;
 }
 

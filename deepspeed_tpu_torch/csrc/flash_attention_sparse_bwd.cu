@@ -7,8 +7,9 @@
 //              use_lut (dK/dV over the transposed LUT qmap/qlen, dQ over kmap/klen) and
 //              the biases, each optional
 // The kernels, what they compute, what bounds them and their design are in
-// flash_attention.cuh.  ops/transformer/flash_attention.py sends the LUT dK/dV in bf16 at head
-// dim 64 without a (T, T) score bias to flash_attention_sparse_bwd_sm90.cu instead.
+// flash_attention.cuh.  ops/transformer/flash_attention.py sends the LUT dK/dV and dQ in bf16
+// and fp16 at head dim 64 without a (T, T) score bias to flash_attention_sparse_bwd_sm90.cu
+// instead.
 //
 // C interface for ctypes: returns cudaGetLastError() after the launch (0 on success), or
 // -1 for a variant / dtype / head dim / shape it was not built for.

@@ -1,8 +1,8 @@
-// Flash-attention backward for Hopper (sm_90a), bf16, head dim 64: the block-sparse entries
-// flash_bwd_dkdv_lut_sm90 (dK, dV) and flash_bwd_dq_lut_sm90 (dQ), and the dense entries
+// Flash-attention backward for Hopper (sm_90a), bf16 and fp16, head dim 64: the block-sparse
+// entries flash_bwd_dkdv_lut_sm90 (dK, dV) and flash_bwd_dq_lut_sm90 (dQ), and the dense entries
 // flash_bwd_dkdv_sm90 and flash_bwd_dq_sm90 (the end of this note), which share their helpers;
-// the (B, T) key bias optional in all four.  The dense entries are built for fp16 too, without
-// the key bias (fp16 mixed-precision training; the last paragraph of this note).
+// the (B, T) key bias optional in all four.  Every instance is built for fp16 too (fp16
+// mixed-precision training; the last paragraph of this note).
 //
 // Replace the Pallas TPU kernels _bwd_dkdv_kernel (617-688) and _bwd_dq_kernel (691-753) of
 // deepspeed_tpu/ops/transformer/flash_attention.py with use_lut and use_kbias, built by _bwd
@@ -11,8 +11,8 @@
 // tiles carrying a mask of their live layout cells, mma.sync, a cp.async double buffer) keep
 // fp32, head dims 96 and 128 (here the largest dK/dV instance spilled, and a dQ pipe of four
 // stages does not fit twice in shared memory) and the (T, T) score bias;
-// ops/transformer/flash_attention.py: sparse_dkdv_kernel and sparse_dq_kernel route bf16 at head
-// dim 64 here.  They compute what the template kernels compute:
+// ops/transformer/flash_attention.py: sparse_dkdv_kernel and sparse_dq_kernel route bf16 and
+// fp16 at head dim 64 here.  They compute what the template kernels compute:
 //   P = exp(S * scale + kbias - lse), 0 where the pair is not live and on a row whose lse is
 //   NEG_INF (no live key); dS = P * (dO V^T - delta) * scale; fp32 accumulation.
 //   dK/dV, for each key row over the query rows live for it: dV += P^T dO with P rounded to
@@ -119,14 +119,17 @@
 // flash_bwd_dkdv_sm90_schedule and flash_bwd_dq_sm90_schedule in ops/transformer/
 // flash_attention.py are their schedules in Python.
 //
-// fp16: the dense instances without the key bias (dense_dkdv_kernel<64, false, f16>,
-// dense_dq_kernel<64, false, f16>, dtype code 2) are the bf16 ones with the element type a
-// template parameter: wgmma .f32.f16.f16 in place of .f32.bf16.bf16, P and dS rounded to fp16
-// (__floats2half2_rn) where the bf16 instances round to bf16, fp16 stores, and the tensor maps
-// of data type FLOAT16.  fp16's range ends at 65504: a P^T dO, dS^T Q or dS K past it (or a dS
-// rounded past it) becomes inf, no conversion saturates, so an overflow reaches the outputs and
-// the loss scaler skips the step, as the reference's fp16 kernels do.  The group instances, the
-// key-bias instances and head dim 128 stay bf16 only (-1 for fp16).
+// fp16 (dtype code 2): every instance, group and dense, with and without the key bias
+// (dkdv_sm90_kernel<64, U, kBias, f16>, dq_sm90_kernel<64, U, kBias, f16>,
+// dense_dkdv_kernel<64, kBias, f16>, dense_dq_kernel<64, kBias, f16>), is the bf16 one with the
+// element type a template parameter: wgmma .f32.f16.f16 in place of .f32.bf16.bf16, P and dS
+// rounded to fp16 (__floats2half2_rn) where the bf16 instances round to bf16, fp16 stores, and
+// the tensor maps of data type FLOAT16.  The scores, the key bias (NEG_INF for a padded key
+// under "mul"), lse and delta stay fp32, so a fully padded row still gets P = 0 and zero
+// gradients.  fp16's range ends at 65504: a P^T dO, dS^T Q or dS K past it (or a dS rounded
+// past it) becomes inf, no conversion saturates, so an overflow reaches the outputs and the
+// loss scaler skips the step, as the reference's fp16 kernels do.  Head dim 128 stays unbuilt
+// in either type.
 //
 // The PTX, TMA, mbarrier, wgmma, tensor-map and launch helpers, the GroupSchedule struct and
 // the output product issue_dq are in flash_attention_sm90.cuh, shared with the forward of
@@ -313,15 +316,15 @@ __device__ __forceinline__ void issue_dvdk(float (&dv)[kB][32], float (&dk)[kB][
 
 struct Params {
   GroupSchedule s;
-  bf16* dk;
-  bf16* dv;
+  void* dk;                     // (B, T, H, D) of the element type E
+  void* dv;
   int T, H, causal;
   float scale, scale2;          // scale; scale * log2 e
 };
 
 struct DqParams {
   GroupSchedule s;
-  bf16* dq;
+  void* dq;
   int T, H, causal;
   float scale, scale2;          // scale; scale * log2 e
 };
@@ -336,8 +339,9 @@ struct DqParams {
 // through shared memory, written before its arrival on the item's (visit's) full barrier,
 // so the consumers read no global memory in their loop; it reads a visit's entries one
 // visit ahead.  The consumers issue the next visit's S^T and dP^T right behind this
-// visit's dV and dK, so the tensor cores run the two groups back to back.
-template <int D, int U, bool kBias>
+// visit's dV and dK, so the tensor cores run the two groups back to back.  E: the element type
+// of q, k, v, dO, dK and dV (bf16, fp16).
+template <int D, int U, bool kBias, typename E>
 __global__ void __launch_bounds__(kThreads, 1)
     dkdv_sm90_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
                      const __grid_constant__ CUtensorMap tv,
@@ -507,7 +511,7 @@ __global__ void __launch_bounds__(kThreads, 1)
       uint32_t pa[4][4], da[4][4];
       int st = vt % kS;
       mbar_wait(&full[st], (vt / kS) & 1);
-      issue_sdp<D>(s, dp, tK, tV, sQ + st * kTile, sdO + st * kTile);
+      issue_sdp<D, E>(s, dp, tK, tV, sQ + st * kTile, sdO + st * kTile);
       for (int j = 0; j < nv; ++j, ++vt) {
         // S^T and dP^T of this visit are done, and the last visit's dV and dK
         wgmma_wait<0>();
@@ -526,11 +530,11 @@ __global__ void __launch_bounds__(kThreads, 1)
         const int* vm = sVisit + st * 8;
 
         if (vm[0] != 0)
-          softmax_grad<U, true, kBias>(s, dp, pa, da, sl, sd, vm, kb2, kpos, qd, p.causal, scale,
-                                       scale2, T);
+          softmax_grad<U, true, kBias, E>(s, dp, pa, da, sl, sd, vm, kb2, kpos, qd, p.causal,
+                                          scale, scale2, T);
         else
-          softmax_grad<U, false, kBias>(s, dp, pa, da, sl, sd, vm, kb2, kpos, qd, p.causal, scale,
-                                        scale2, T);
+          softmax_grad<U, false, kBias, E>(s, dp, pa, da, sl, sd, vm, kb2, kpos, qd, p.causal,
+                                           scale, scale2, T);
 
         // dV += P^T dO and dK += dS^T Q
 #pragma unroll
@@ -540,7 +544,7 @@ __global__ void __launch_bounds__(kThreads, 1)
         }
         fence_regs(pa);
         fence_regs(da);
-        issue_dvdk<kB>(dv, dk, pa, da, sdO + st * kTile, sQ + st * kTile);
+        issue_dvdk<kB, E>(dv, dk, pa, da, sdO + st * kTile, sQ + st * kTile);
         // the next visit's S^T and dP^T right behind them; after the last visit, this
         // visit's again (its stage is still held; the results go unused): an issue that
         // every iteration makes keeps ptxas from serializing the wgmmas (C7515)
@@ -548,7 +552,7 @@ __global__ void __launch_bounds__(kThreads, 1)
           st = (vt + 1) % kS;
           mbar_wait(&full[st], ((vt + 1) / kS) & 1);
         }
-        issue_sdp<D>(s, dp, tK, tV, sQ + st * kTile, sdO + st * kTile);
+        issue_sdp<D, E>(s, dp, tK, tV, sQ + st * kTile, sdO + st * kTile);
       }
       wgmma_wait<0>();
 #pragma unroll
@@ -568,8 +572,8 @@ __global__ void __launch_bounds__(kThreads, 1)
     for (int r = 0; r < 2; ++r) {
       if (kpos[r] < 0) continue;
       const long long row = (static_cast<long long>(b) * T + kpos[r]) * H + h;
-      store_row<kB>(p.dk + row * D, dk, r, qd);
-      store_row<kB>(p.dv + row * D, dv, r, qd);
+      store_row<kB>(static_cast<E*>(p.dk) + row * D, dk, r, qd);
+      store_row<kB>(static_cast<E*>(p.dv) + row * D, dv, r, qd);
     }
   }
 }
@@ -579,8 +583,9 @@ __global__ void __launch_bounds__(kThreads, 1)
 // dP) or head-dim columns (in dQ).  A pipe loads each work item's Q, dO, lse and delta slots
 // once (two buffers) and streams each visit's K, V and key-bias slots through the ring; the
 // producer hands the entries over in shared memory as in dkdv_sm90_kernel, and the consumers
-// issue the next visit's S and dP right behind this visit's dQ.
-template <int D, int U, bool kBias>
+// issue the next visit's S and dP right behind this visit's dQ.  E: the element type (bf16,
+// fp16).
+template <int D, int U, bool kBias, typename E>
 __global__ void __launch_bounds__(kThreads, 1)
     dq_sm90_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
                    const __grid_constant__ CUtensorMap tv, const __grid_constant__ CUtensorMap tdo,
@@ -749,7 +754,7 @@ __global__ void __launch_bounds__(kThreads, 1)
       uint32_t da[4][4];
       int st = vt % kS;
       mbar_wait(&full[st], (vt / kS) & 1);
-      issue_sdp<D>(s, dp, tQ, tdO, sK + st * kTile, sV + st * kTile);
+      issue_sdp<D, E>(s, dp, tQ, tdO, sK + st * kTile, sV + st * kTile);
       for (int j = 0; j < nv; ++j, ++vt) {
         // S and dP of this visit are done, and the last visit's dQ
         wgmma_wait<0>();
@@ -763,24 +768,24 @@ __global__ void __launch_bounds__(kThreads, 1)
         const int* vm = sVisit + st * 8;
 
         if (vm[0] != 0)
-          softmax_grad_dq<U, true, kBias>(s, dp, da, kb, vm, l2, dd, qpos, qd, p.causal, scale,
-                                          scale2, T);
+          softmax_grad_dq<U, true, kBias, E>(s, dp, da, kb, vm, l2, dd, qpos, qd, p.causal,
+                                             scale, scale2, T);
         else
-          softmax_grad_dq<U, false, kBias>(s, dp, da, kb, vm, l2, dd, qpos, qd, p.causal, scale,
-                                           scale2, T);
+          softmax_grad_dq<U, false, kBias, E>(s, dp, da, kb, vm, l2, dd, qpos, qd, p.causal,
+                                              scale, scale2, T);
 
         // dQ += dS K
 #pragma unroll
         for (int x = 0; x < kB; ++x) fence_regs(dq[x]);
         fence_regs(da);
-        issue_dq<kB>(dq, da, sK + st * kTile);
+        issue_dq<kB, E>(dq, da, sK + st * kTile);
         // the next visit's S and dP right behind it; after the last visit, this visit's again
         // (as in dkdv_sm90_kernel: an issue every iteration makes keeps the wgmmas unserialized)
         if (j + 1 < nv) {
           st = (vt + 1) % kS;
           mbar_wait(&full[st], ((vt + 1) / kS) & 1);
         }
-        issue_sdp<D>(s, dp, tQ, tdO, sK + st * kTile, sV + st * kTile);
+        issue_sdp<D, E>(s, dp, tQ, tdO, sK + st * kTile, sV + st * kTile);
       }
       wgmma_wait<0>();
 #pragma unroll
@@ -795,7 +800,9 @@ __global__ void __launch_bounds__(kThreads, 1)
 #pragma unroll
     for (int r = 0; r < 2; ++r)
       if (qpos[r] >= 0)
-        store_row<kB>(p.dq + ((static_cast<long long>(b) * T + qpos[r]) * H + h) * D, dq, r, qd);
+        store_row<kB>(
+            static_cast<E*>(p.dq) + ((static_cast<long long>(b) * T + qpos[r]) * H + h) * D, dq,
+            r, qd);
   }
 }
 
@@ -1237,8 +1244,9 @@ __global__ void __launch_bounds__(kThreads, 1)
 }
 
 // ---------------------------------------------------------------- host side
-// dK/dV (kDq false: out0 dK, out1 dV) or dQ (kDq true: out0 dQ) of one instance
-template <bool kDq, int D, int U, bool kBias>
+// dK/dV (kDq false: out0 dK, out1 dV) or dQ (kDq true: out0 dQ) of one instance, of element
+// type E (bf16, fp16)
+template <bool kDq, int D, int U, bool kBias, typename E>
 int launch(const void* q, const void* k, const void* v, const void* dout, const float* lse,
            const float* delta, void* out0, void* out1, const long long* strides, int B, int T,
            int H, int causal, float scale, const GroupSchedule& s, cudaStream_t stream) {
@@ -1247,33 +1255,36 @@ int launch(const void* q, const void* k, const void* v, const void* dout, const 
   if (enc == nullptr) return -3;
   CUtensorMap mq, mk, mv, mdo, mlse, mdelta, mkb = {};
   if ((kBias && !make_bias_map(enc, &mkb, s.kbias, B, T, U)) ||
-      !make_map(enc, &mq, q, strides, B, T, H, D, U) ||
-      !make_map(enc, &mk, k, strides + 3, B, T, H, D, U) ||
-      !make_map(enc, &mv, v, strides + 6, B, T, H, D, U) ||
-      !make_map(enc, &mdo, dout, strides + 9, B, T, H, D, U) ||
+      !make_map(enc, &mq, q, strides, B, T, H, D, U, kMapType<E>) ||
+      !make_map(enc, &mk, k, strides + 3, B, T, H, D, U, kMapType<E>) ||
+      !make_map(enc, &mv, v, strides + 6, B, T, H, D, U, kMapType<E>) ||
+      !make_map(enc, &mdo, dout, strides + 9, B, T, H, D, U, kMapType<E>) ||
       !make_stat_map(enc, &mlse, lse, B, T, H, U) ||
       !make_stat_map(enc, &mdelta, delta, B, T, H, U))
     return -2;
   if constexpr (kDq) {
-    const DqParams p = {s, static_cast<bf16*>(out0), T, H, causal, scale, scale * kLog2e};
-    return launch_pipes(dq_sm90_kernel<D, U, kBias>, C::kSmemDq, s.n_work, stream, mq, mk, mv,
+    const DqParams p = {s, out0, T, H, causal, scale, scale * kLog2e};
+    return launch_pipes(dq_sm90_kernel<D, U, kBias, E>, C::kSmemDq, s.n_work, stream, mq, mk, mv,
                         mdo, mlse, mdelta, mkb, p);
   } else {
-    const Params p = {s, static_cast<bf16*>(out0), static_cast<bf16*>(out1), T, H, causal,
-                      scale, scale * kLog2e};
-    return launch_pipes(dkdv_sm90_kernel<D, U, kBias>, C::kSmem, s.n_work, stream, mq, mk, mv,
+    const Params p = {s, out0, out1, T, H, causal, scale, scale * kLog2e};
+    return launch_pipes(dkdv_sm90_kernel<D, U, kBias, E>, C::kSmem, s.n_work, stream, mq, mk, mv,
                         mdo, mlse, mdelta, mkb, p);
   }
 }
 
-// the instance of a head dim: by the slot rows and whether there is a key bias
+// the instance of a head dim: by the dtype code (1 bf16, 2 fp16), the slot rows and whether
+// there is a key bias
 template <bool kDq, int D>
-int launch_any(const void* q, const void* k, const void* v, const void* dout, const float* lse,
-               const float* delta, void* out0, void* out1, const long long* strides, int B,
-               int T, int H, int causal, float scale, const GroupSchedule& s, cudaStream_t st) {
-#define GROUP_LAUNCH(U, BIAS)                                                                \
-  launch<kDq, D, U, BIAS>(q, k, v, dout, lse, delta, out0, out1, strides, B, T, H, causal, \
-                          scale, s, st)
+int launch_any(int dtype, const void* q, const void* k, const void* v, const void* dout,
+               const float* lse, const float* delta, void* out0, void* out1,
+               const long long* strides, int B, int T, int H, int causal, float scale,
+               const GroupSchedule& s, cudaStream_t st) {
+#define GROUP_LAUNCH(U, BIAS)                                                                  \
+  (dtype == 2 ? launch<kDq, D, U, BIAS, f16>(q, k, v, dout, lse, delta, out0, out1, strides, B, \
+                                             T, H, causal, scale, s, st)                       \
+              : launch<kDq, D, U, BIAS, bf16>(q, k, v, dout, lse, delta, out0, out1, strides,  \
+                                              B, T, H, causal, scale, s, st))
   const bool bias = s.kbias != nullptr;
   switch (s.unit) {
     case 16: return bias ? GROUP_LAUNCH(16, true) : GROUP_LAUNCH(16, false);
@@ -1285,7 +1296,7 @@ int launch_any(const void* q, const void* k, const void* v, const void* dout, co
 }
 
 // dK/dV (kDq false: out0 dK, out1 dV) or dQ (kDq true: out0 dQ) of a dense call of element
-// type E (kbias: the (B, T) key bias, or null for none; bf16 only)
+// type E (kbias: the (B, T) key bias, or null for none)
 template <bool kDq, typename E>
 int launch_dense(const void* q, const void* k, const void* v, const void* dout, const float* lse,
                  const float* delta, void* out0, void* out1, const long long* strides, int B,
@@ -1307,26 +1318,23 @@ int launch_dense(const void* q, const void* k, const void* v, const void* dout, 
   constexpr size_t smem = DenseCfg<D>::kSmem;
   const int n_work = nt * B * H;
   if constexpr (kDq) {
-    if constexpr (!kHalf<E>)
-      if (kbias != nullptr)
-        return launch_pipes(dense_dq_kernel<D, true, E>, smem, n_work, stream, mq, mk, mv, mdo,
-                            p);
+    if (kbias != nullptr)
+      return launch_pipes(dense_dq_kernel<D, true, E>, smem, n_work, stream, mq, mk, mv, mdo, p);
     return launch_pipes(dense_dq_kernel<D, false, E>, smem, n_work, stream, mq, mk, mv, mdo, p);
   } else {
-    if constexpr (!kHalf<E>)
-      if (kbias != nullptr)
-        return launch_pipes(dense_dkdv_kernel<D, true, E>, smem, n_work, stream, mq, mk, mv,
-                            mdo, p);
+    if (kbias != nullptr)
+      return launch_pipes(dense_dkdv_kernel<D, true, E>, smem, n_work, stream, mq, mk, mv, mdo,
+                          p);
     return launch_pipes(dense_dkdv_kernel<D, false, E>, smem, n_work, stream, mq, mk, mv, mdo,
                         p);
   }
 }
 
-// whether the dense instances were built for a call: bf16 (dtype code 1), or fp16 (code 2)
-// without a key bias; head dim 64; the work items within int
-bool dense_built_for(int dtype, int head_dim, int B, int T, int H, const float* kbias) {
-  return (dtype == 1 || (dtype == 2 && kbias == nullptr)) && head_dim == 64 && B > 0 && T > 0 &&
-         H > 0 && static_cast<long long>(B) * H * ((T + kRows - 1) / kRows) < (1ll << 31);
+// whether the dense instances were built for a call: bf16 (dtype code 1) or fp16 (code 2), with
+// or without a key bias; head dim 64; the work items within int
+bool dense_built_for(int dtype, int head_dim, int B, int T, int H) {
+  return (dtype == 1 || dtype == 2) && head_dim == 64 && B > 0 && T > 0 && H > 0 &&
+         static_cast<long long>(B) * H * ((T + kRows - 1) / kRows) < (1ll << 31);
 }
 
 // a dense call of dtype code 1 (bf16) or 2 (fp16)
@@ -1343,8 +1351,8 @@ int launch_dense_any(int dtype, const void* q, const void* k, const void* v, con
 
 }  // namespace
 
-// strides: 12 int64, the (b, t, h) element strides of q, k, v and dout; s: the schedule
-// (GroupLut side "k").
+// dtype: 1 bf16, 2 fp16; strides: 12 int64, the (b, t, h) element strides of q, k, v and dout;
+// s: the schedule (GroupLut side "k").
 extern "C" int flash_bwd_dkdv_lut_sm90(int dtype, int head_dim, const void* q, const void* k,
                                        const void* v, const void* dout, const float* lse,
                                        const float* delta, void* dk, void* dv,
@@ -1353,8 +1361,8 @@ extern "C" int flash_bwd_dkdv_lut_sm90(int dtype, int head_dim, const void* q, c
                                        void* stream) {
   if (!built_for(dtype, head_dim, T, s)) return -1;
   if (s->n_work == 0) return 0;
-  return launch_any<false, 64>(q, k, v, dout, lse, delta, dk, dv, strides, B, T, H, causal,
-                               scale, *s, reinterpret_cast<cudaStream_t>(stream));
+  return launch_any<false, 64>(dtype, q, k, v, dout, lse, delta, dk, dv, strides, B, T, H,
+                               causal, scale, *s, reinterpret_cast<cudaStream_t>(stream));
 }
 
 // The same arguments with one output; s: the schedule of GroupLut side "q".
@@ -1365,18 +1373,18 @@ extern "C" int flash_bwd_dq_lut_sm90(int dtype, int head_dim, const void* q, con
                                      const GroupSchedule* s, void* stream) {
   if (!built_for(dtype, head_dim, T, s)) return -1;
   if (s->n_work == 0) return 0;
-  return launch_any<true, 64>(q, k, v, dout, lse, delta, dq, nullptr, strides, B, T, H, causal,
-                              scale, *s, reinterpret_cast<cudaStream_t>(stream));
+  return launch_any<true, 64>(dtype, q, k, v, dout, lse, delta, dq, nullptr, strides, B, T, H,
+                              causal, scale, *s, reinterpret_cast<cudaStream_t>(stream));
 }
 
 // The dense dK/dV: flash_bwd_dkdv's arguments (flash_attention.cu; dtype 1 bf16, 2 fp16), then
-// kbias: the (B, T) fp32 key bias, contiguous, or null for none (bf16 only).
+// kbias: the (B, T) fp32 key bias, contiguous, or null for none.
 extern "C" int flash_bwd_dkdv_sm90(int dtype, int head_dim, const void* q, const void* k,
                                    const void* v, const void* dout, const float* lse,
                                    const float* delta, void* dk, void* dv,
                                    const long long* strides, int B, int T, int H, int causal,
                                    float scale, const float* kbias, void* stream) {
-  if (!dense_built_for(dtype, head_dim, B, T, H, kbias)) return -1;
+  if (!dense_built_for(dtype, head_dim, B, T, H)) return -1;
   return launch_dense_any<false>(dtype, q, k, v, dout, lse, delta, dk, dv, strides, B, T, H,
                                  causal, scale, kbias, reinterpret_cast<cudaStream_t>(stream));
 }
@@ -1387,7 +1395,7 @@ extern "C" int flash_bwd_dq_sm90(int dtype, int head_dim, const void* q, const v
                                  const float* delta, void* dq, const long long* strides, int B,
                                  int T, int H, int causal, float scale, const float* kbias,
                                  void* stream) {
-  if (!dense_built_for(dtype, head_dim, B, T, H, kbias)) return -1;
+  if (!dense_built_for(dtype, head_dim, B, T, H)) return -1;
   return launch_dense_any<true>(dtype, q, k, v, dout, lse, delta, dq, nullptr, strides, B, T, H,
                                 causal, scale, kbias, reinterpret_cast<cudaStream_t>(stream));
 }

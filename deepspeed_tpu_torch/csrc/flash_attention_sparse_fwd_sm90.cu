@@ -1,5 +1,5 @@
-// Block-sparse flash-attention forward for Hopper (sm_90a), bf16, head dim 64: the entry
-// flash_fwd_lut_sm90, the (B, T) key bias optional.
+// Block-sparse flash-attention forward for Hopper (sm_90a), bf16 and fp16, head dim 64: the
+// entry flash_fwd_lut_sm90, the (B, T) key bias optional.
 //
 // Replaces the Pallas TPU kernels _fwd_kernel with use_lut and use_kbias (144-283) and
 // _fwd_kernel_dma (306-415) of deepspeed_tpu/ops/transformer/flash_attention.py, built by _fwd
@@ -7,8 +7,8 @@
 // The template kernel fwd_kernel<kLut, kBias> of flash_attention.cuh (flash_fwd_lut with the
 // biases, flash_fwd_lut_ring without: 4 warps, 64 x 64 tiles carrying a mask of their live
 // layout cells, mma.sync, a cp.async ring) keeps fp32, head dims 96 and 128 and the (T, T)
-// score bias; ops/transformer/flash_attention.py: sparse_fwd_kernel routes bf16 at head dim 64
-// here.  It computes what the template computes:
+// score bias; ops/transformer/flash_attention.py: sparse_fwd_kernel routes bf16 and fp16 at
+// head dim 64 here.  It computes what the template computes:
 //   S = Q K^T scale + kbias over the live pairs (the layout cell live, and when causal k <= q);
 //   an online softmax with fp32 m, l and O, P rounded to bf16 before P V; O = acc / l, bf16,
 //   contiguous (B, T, H, D); lse = m + log l, fp32 (B, H, T), natural log.  A row whose
@@ -51,6 +51,12 @@
 //   * instances by slot rows U (16, 32, 64) and key bias; the grid is persistent, one block
 //     an SM, the work items (an output tile of one (b, h)) longest first, dealt over the
 //     pipes in the snake of the group backward kernels.
+// fp16 (dtype code 2): the same instances with the element type E a template parameter:
+// wgmma .f32.f16.f16, P rounded to fp16 before P V (pack2<f16>, __floats2half2_rn), O written
+// fp16 and the tensor maps of data type FLOAT16.  The scores, the key bias (a padded key's
+// NEG_INF included), m, l and lse stay fp32: only P and O are fp16.  An O past 65504 (only an
+// inf or a V past 65504 gives one: O is a convex mix of V rows) becomes inf, no conversion
+// saturates.
 // flash_fwd_lut_sm90_schedule in ops/transformer/flash_attention.py is this kernel's schedule
 // in Python.  PERF.md holds its times; examples/sparse_fwd_check.py times variants with parts
 // taken out.
@@ -84,7 +90,7 @@ struct FwdCfg {
 
 struct FwdParams {
   GroupSchedule s;
-  bf16* o;
+  void* o;                      // (B, T, H, D) of the element type E
   float* lse;
   int T, H, causal;
   float scale2;                 // scale * log2 e
@@ -100,17 +106,18 @@ __device__ __forceinline__ float quad_sum(float x) {
   return x + __shfl_xor_sync(0xffffffffu, x, 2);
 }
 
-// S = Q K^T of one visit, both operands in shared memory (K-major, as TMA writes them); one
-// commit group.  It is issued while the last visit's O += P V is in flight, so it touches s
-// with nothing but the wgmmas (see issue_sdp in flash_attention_sparse_bwd_sm90.cu).
-template <int D>
+// S = Q K^T of one visit, both operands in shared memory (K-major, as TMA writes them), of
+// element type E; one commit group.  It is issued while the last visit's O += P V is in
+// flight, so it touches s with nothing but the wgmmas (see issue_sdp in
+// flash_attention_sparse_bwd_sm90.cu).
+template <int D, typename E>
 __device__ __forceinline__ void issue_s(float (&s)[32], const unsigned char* tQ,
                                         const unsigned char* vK) {
   wgmma_fence();
 #pragma unroll
   for (int kk = 0; kk < D / 16; ++kk) {
     const int off = (kk / 4) * kBoxBytes + (kk % 4) * 32;
-    wgmma_ss_n64(s, desc_sw128(tQ + off, 16, 1024), desc_sw128(vK + off, 16, 1024), kk > 0);
+    wgmma_ss_n64<E>(s, desc_sw128(tQ + off, 16, 1024), desc_sw128(vK + off, 16, 1024), kk > 0);
   }
   wgmma_commit();
 }
@@ -120,9 +127,9 @@ __device__ __forceinline__ void issue_s(float (&s)[32], const unsigned char* tQ,
 // -1 in an empty slot): the scores x = S scale log2e + kbias log2e, -inf where a flagged visit
 // (kMasked) masks (an empty key slot, and when causal a key after the query); m, the rows'
 // running maxima (log2 units, quad-uniform), and l, the thread's partial row sums, move on;
-// O is rescaled by 2^(m_old - m_new); P = 2^(x - m_new) goes to bf16 A fragments (columns
-// 8 n + qd + e of row r are word 2 (n & 1) + r of fragment n / 2, as in softmax_grad).
-template <int kB, int U, bool kMasked, bool kBias>
+// O is rescaled by 2^(m_old - m_new); P = 2^(x - m_new) goes to E A fragments (bf16 or fp16;
+// columns 8 n + qd + e of row r are word 2 (n & 1) + r of fragment n / 2, as in softmax_grad).
+template <int kB, int U, bool kMasked, bool kBias, typename E>
 __device__ __forceinline__ void online_softmax(const float (&s)[32], float (&o)[kB][32],
                                                uint32_t (&pa)[4][4], float (&m)[2],
                                                float (&l)[2], const float* kb, const int* vm,
@@ -172,7 +179,7 @@ __device__ __forceinline__ void online_softmax(const float (&s)[32], float (&o)[
       const int idx = 4 * n + 2 * r;
       const float p0 = exp2_ftz(x[idx] - m[r]), p1 = exp2_ftz(x[idx + 1] - m[r]);
       ls[r][n & 1] += p0 + p1;
-      pa[n >> 1][2 * (n & 1) + r] = pack_bf16(p0, p1);
+      pa[n >> 1][2 * (n & 1) + r] = pack2<E>(p0, p1);
     }
 #pragma unroll
   for (int r = 0; r < 2; ++r) l[r] = l[r] * alpha[r] + (ls[r][0] + ls[r][1]);
@@ -187,8 +194,9 @@ __device__ __forceinline__ void online_softmax(const float (&s)[32], float (&o)[
 // 16 w + g and 16 w + g + 8 (g = lane / 4); element 4 n + 2 r + e is row 16 w + g + 8 r,
 // column 8 n + 2 (lane % 4) + e.  Rows are query rows of the output tile, columns key rows of
 // the visit (in S) or head-dim columns (in O).  The producer and the loop are dq_sm90_kernel's
-// with Q alone per item and K, V and the key-bias slots per visit.
-template <int D, int U, bool kBias>
+// with Q alone per item and K, V and the key-bias slots per visit.  E: the element type of q,
+// k, v and O (bf16, fp16).
+template <int D, int U, bool kBias, typename E>
 __global__ void __launch_bounds__(kThreads, 1)
     fwd_lut_sm90_kernel(const __grid_constant__ CUtensorMap tq,
                         const __grid_constant__ CUtensorMap tk,
@@ -344,7 +352,7 @@ __global__ void __launch_bounds__(kThreads, 1)
       uint32_t pa[4][4];
       int st = vt % kS;
       mbar_wait(&full[st], (vt / kS) & 1);
-      issue_s<D>(s, tQ, sK + st * kTile);
+      issue_s<D, E>(s, tQ, sK + st * kTile);
       for (int j = 0; j < nv; ++j, ++vt) {
         // S of this visit is done, and the last visit's O += P V
         wgmma_wait<0>();
@@ -357,16 +365,17 @@ __global__ void __launch_bounds__(kThreads, 1)
         const int* vm = sVisit + st * 8;
 
         if (vm[0] != 0)
-          online_softmax<kB, U, true, kBias>(s, o, pa, m, l, kb, vm, qpos, qd, p.causal, scale2);
+          online_softmax<kB, U, true, kBias, E>(s, o, pa, m, l, kb, vm, qpos, qd, p.causal,
+                                                scale2);
         else
-          online_softmax<kB, U, false, kBias>(s, o, pa, m, l, kb, vm, qpos, qd, p.causal,
-                                              scale2);
+          online_softmax<kB, U, false, kBias, E>(s, o, pa, m, l, kb, vm, qpos, qd, p.causal,
+                                                 scale2);
 
         // O += P V
 #pragma unroll
         for (int x = 0; x < kB; ++x) fence_regs(o[x]);
         fence_regs(pa);
-        issue_dq<kB>(o, pa, sV + st * kTile);
+        issue_dq<kB, E>(o, pa, sV + st * kTile);
         // the next visit's S right behind it; after the last visit, this visit's again (its
         // stage is still held; the result goes unused), as in dq_sm90_kernel: an issue that
         // every iteration makes keeps ptxas from serializing the wgmmas (C7515)
@@ -374,7 +383,7 @@ __global__ void __launch_bounds__(kThreads, 1)
           st = (vt + 1) % kS;
           mbar_wait(&full[st], ((vt + 1) / kS) & 1);
         }
-        issue_s<D>(s, tQ, sK + st * kTile);
+        issue_s<D, E>(s, tQ, sK + st * kTile);
       }
       wgmma_wait<0>();
 #pragma unroll
@@ -405,12 +414,15 @@ __global__ void __launch_bounds__(kThreads, 1)
 #pragma unroll
     for (int r = 0; r < 2; ++r)
       if (qpos[r] >= 0)
-        store_row<kB>(p.o + ((static_cast<long long>(b) * T + qpos[r]) * H + h) * D, o, r, qd);
+        store_row<kB>(
+            static_cast<E*>(p.o) + ((static_cast<long long>(b) * T + qpos[r]) * H + h) * D, o, r,
+            qd);
   }
 }
 
 // ---------------------------------------------------------------- host side
-template <int D, int U, bool kBias>
+// one call of instance (D, U, kBias) of element type E (bf16, fp16)
+template <int D, int U, bool kBias, typename E>
 int launch(const void* q, const void* k, const void* v, void* o, float* lse,
            const long long* strides, int B, int T, int H, int causal, float scale,
            const GroupSchedule& s, cudaStream_t stream) {
@@ -418,19 +430,19 @@ int launch(const void* q, const void* k, const void* v, void* o, float* lse,
   if (enc == nullptr) return -3;
   CUtensorMap mq, mk, mv, mkb = {};
   if ((kBias && !make_bias_map(enc, &mkb, s.kbias, B, T, U)) ||
-      !make_map(enc, &mq, q, strides, B, T, H, D, U) ||
-      !make_map(enc, &mk, k, strides + 3, B, T, H, D, U) ||
-      !make_map(enc, &mv, v, strides + 6, B, T, H, D, U))
+      !make_map(enc, &mq, q, strides, B, T, H, D, U, kMapType<E>) ||
+      !make_map(enc, &mk, k, strides + 3, B, T, H, D, U, kMapType<E>) ||
+      !make_map(enc, &mv, v, strides + 6, B, T, H, D, U, kMapType<E>))
     return -2;
-  const FwdParams p = {s, static_cast<bf16*>(o), lse, T, H, causal, scale * kLog2e};
-  return launch_pipes(fwd_lut_sm90_kernel<D, U, kBias>, FwdCfg<D>::kSmem, s.n_work, stream, mq,
+  const FwdParams p = {s, o, lse, T, H, causal, scale * kLog2e};
+  return launch_pipes(fwd_lut_sm90_kernel<D, U, kBias, E>, FwdCfg<D>::kSmem, s.n_work, stream, mq,
                       mk, mv, mkb, p);
 }
 
 }  // namespace
 
-// strides: 12 int64, the (b, t, h) element strides of q, k, v (and an unused fourth triple);
-// s: the schedule of GroupLut side "q" with the key bias (or null).
+// dtype: 1 bf16, 2 fp16; strides: 12 int64, the (b, t, h) element strides of q, k, v (and an
+// unused fourth triple); s: the schedule of GroupLut side "q" with the key bias (or null).
 extern "C" int flash_fwd_lut_sm90(int dtype, int head_dim, const void* q, const void* k,
                                   const void* v, void* out, float* lse, const long long* strides,
                                   int B, int T, int H, int causal, float scale,
@@ -438,8 +450,11 @@ extern "C" int flash_fwd_lut_sm90(int dtype, int head_dim, const void* q, const 
   if (!built_for(dtype, head_dim, T, s)) return -1;
   if (s->n_work == 0) return 0;
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
-#define FWD_LAUNCH(U, BIAS) \
-  launch<64, U, BIAS>(q, k, v, out, lse, strides, B, T, H, causal, scale, *s, st)
+#define FWD_LAUNCH(U, BIAS)                                                                   \
+  (dtype == 2 ? launch<64, U, BIAS, f16>(q, k, v, out, lse, strides, B, T, H, causal, scale, *s, \
+                                         st)                                                     \
+              : launch<64, U, BIAS, bf16>(q, k, v, out, lse, strides, B, T, H, causal, scale, *s, \
+                                          st))
   const bool bias = s->kbias != nullptr;
   switch (s->unit) {
     case 16: return bias ? FWD_LAUNCH(16, true) : FWD_LAUNCH(16, false);

@@ -12,15 +12,18 @@ dense path (``flash_attention`` 913-934 over ``_flash_bhtd``'s custom VJP
 CUDA kernels (``deepspeed_tpu_torch/csrc/flash_attention.cuh``, entries in
 ``flash_attention.cu``, ``flash_attention_sparse_fwd.cu``,
 ``flash_attention_sparse_bwd.cu`` and ``flash_attention_band_merge_fwd.cu``;
-the dense bf16 forward at head dims 64 and 128 in
-``flash_attention_fwd_sm90.cu``, the dense and the block-sparse bf16 dK/dV
+the dense 16-bit forward at head dims 64 and 128 in
+``flash_attention_fwd_sm90.cu``, the dense and the block-sparse 16-bit dK/dV
 and dQ at head dim 64 in ``flash_attention_sparse_bwd_sm90.cu``, the
-block-sparse bf16 forward at head dim 64 in
+block-sparse 16-bit forward at head dim 64 in
 ``flash_attention_sparse_fwd_sm90.cu``; the last two share the helpers of
-``flash_attention_sm90.cuh``), one wrapper and one launch counter per entry:
+``flash_attention_sm90.cuh``), one wrapper and one launch counter per entry.
+Every kernel is built for bf16 and fp16 (dtype codes 1 and 2, the element
+type a template parameter) wherever it is built for one of them, and the
+templates for fp32 too:
 
 - ``flash_fwd_sm90`` (for ``_fwd_kernel`` 144, dense, with or without
-  ``use_kbias`` 218): the bf16 forward at head dims 64 and 128 with TMA,
+  ``use_kbias`` 218): the 16-bit forward at head dims 64 and 128 with TMA,
   an mbarrier ring fed by a producer warp, ``wgmma`` and 128-row q tiles
   over two consumer warpgroups; with the (B, T) key bias (its key-bias
   instances) the producer warp's lanes copy each K tile's bias with
@@ -29,11 +32,9 @@ block-sparse bf16 forward at head dim 64 in
   (:func:`dense_fwd_kernel`), by dtype and head dim alone, and so does
   :func:`flash_fwd_biased` with no (T, T) score bias
   (:func:`biased_fwd_kernel`); :func:`flash_fwd_sm90_schedule` is its
-  schedule in Python.  Its instances without the key bias are built for
-  fp16 too (fp16 training; dtype code 2), and :func:`dense_fwd_kernel`
-  sends fp16 at head dims 64 and 128 there;
+  schedule in Python;
 - ``flash_fwd`` / ``flash_fwd_biased`` / ``flash_fwd_lut`` (for
-  ``_fwd_kernel`` 144: dense, fp32 and bf16 at head dim 96; with the (B,
+  ``_fwd_kernel`` 144: dense, fp32, and 16-bit at head dim 96; with the (B,
   T) key bias and the (T, T) score bias, for fp32, head dim 96 and any
   score bias; over the live tiles of a LUT, with the biases): online
   softmax over the visited k tiles, O in the input dtype and the fp32
@@ -42,7 +43,7 @@ block-sparse bf16 forward at head dim 64 in
   forward with a 3-deep ring of K/V tiles in flight;
 - ``flash_fwd_lut_sm90`` (for ``_fwd_kernel`` with ``use_lut`` and
   ``use_kbias`` 144-283, and ``_fwd_kernel_dma`` 306-415): the block-sparse
-  forward in bf16 at head dim 64, with or without the key bias, over
+  forward in 16 bits at head dim 64, with or without the key bias, over
   ``GroupLut(side="q")`` (the schedule dQ runs: Q gathered once per output
   tile, the visits' K, V and key bias streamed, S and P V on ``wgmma``, the
   online softmax on the accumulators); the sparse path sends CUDA tensors
@@ -55,7 +56,7 @@ block-sparse bf16 forward at head dim 64 in
   ``use_merge`` 161-164, 245-255, and ``_fwd_kernel_dma`` with
   ``use_merge`` 317-319, 384-390): schedule instances of
   ``flash_fwd_sm90``'s block (TMA ring, producer warp, ``wgmma``, 128-row
-  q tiles over two consumer warpgroups, persistent grid), bf16 at head dims
+  q tiles over two consumer warpgroups, persistent grid), 16-bit at head dims
   64 and 128: the causal forward over a :class:`BandLut`, its 128-key
   tiles computed in the kernel from the band and a positional element mask
   on the tiles that need it; the forward over a :class:`MergedLut`, one
@@ -71,7 +72,7 @@ block-sparse bf16 forward at head dim 64 in
   at any dtype;
 - ``flash_bwd_dkdv_sm90`` / ``flash_bwd_dq_sm90`` (for ``_bwd_dkdv_kernel``
   617 and ``_bwd_dq_kernel`` 691, dense, with or without ``use_kbias``,
-  659-660 and 731-732): the bf16 backward at head dim 64, the group
+  659-660 and 731-732): the 16-bit backward at head dim 64, the group
   kernels' design below over a schedule the kernels compute from (B, H, T,
   causal), 64-row output tiles, each visit one 64-row TMA box per operand;
   with the (B, T) key bias (their key-bias instances) dK/dV loads a work
@@ -83,15 +84,13 @@ block-sparse bf16 forward at head dim 64 in
   there (:func:`dense_bwd_kernel`), and so do :func:`flash_bwd_dkdv_biased`
   and :func:`flash_bwd_dq_biased` with a key bias and no (T, T) score bias
   (:func:`biased_bwd_kernel`); :func:`flash_bwd_dkdv_sm90_schedule` /
-  :func:`flash_bwd_dq_sm90_schedule` are their schedules in Python.  Their
-  instances without the key bias are built for fp16 too, and
-  :func:`dense_bwd_kernel` sends fp16 at head dim 64 there;
+  :func:`flash_bwd_dq_sm90_schedule` are their schedules in Python;
 - ``flash_bwd_dkdv`` / ``_biased`` / ``_lut`` (for ``_bwd_dkdv_kernel``
   617): per k tile over the (live) q tiles, P recomputed from the lse, dV
-  and dK (the dense one: fp32, and bf16 at head dims 96 and 128; the biased
+  and dK (the dense one: fp32, and 16-bit at head dims 96 and 128; the biased
   one: fp32, head dims 96 and 128, and any (T, T) score bias);
 - ``flash_bwd_dkdv_lut_sm90`` (for ``_bwd_dkdv_kernel`` with ``use_lut``):
-  the block-sparse dK/dV in bf16 at head dim 64 over a
+  the block-sparse dK/dV in 16 bits at head dim 64 over a
   :class:`GroupLut` (key blocks grouped by their live query blocks, both
   sides gathered by TMA into 64-row tiles, every product a ``wgmma``);
   :func:`flash_bwd_dkdv_lut` sends CUDA tensors there by dtype, head dim and
@@ -100,7 +99,7 @@ block-sparse bf16 forward at head dim 64 in
 - ``flash_bwd_dq`` / ``_biased`` / ``_lut`` (for ``_bwd_dq_kernel`` 691):
   per q tile over the (live) k tiles, dQ (the dense one as its dK/dV);
 - ``flash_bwd_dq_lut_sm90`` (for ``_bwd_dq_kernel`` with ``use_lut``, 691-753):
-  the block-sparse dQ in bf16 at head dim 64, the dK/dV design with the
+  the block-sparse dQ in 16 bits at head dim 64, the dK/dV design with the
   roles swapped, over ``GroupLut(side="q")`` (query blocks grouped by their
   live key blocks); :func:`flash_bwd_dq_lut` sends CUDA tensors there by the
   same rule (:func:`sparse_dq_kernel`), and
@@ -149,14 +148,13 @@ no biases; ``ValueError`` where JAX asserts).
 
 Differences from the JAX module: no block-size arguments for the kernels
 (64-row tiles, the ragged tail masked in place of padding T to
-lcm(bq, bk)); bf16 inputs run on the tensor cores, fp32 inputs on the
-CUDA cores (head dims 64, 96 and 128); fp16 inputs (which the JAX kernels
-take at any dtype) run only on the dense sm90 entries without a key bias
-(``flash_fwd_sm90`` at head dims 64 and 128, ``flash_bwd_dkdv_sm90`` /
-``flash_bwd_dq_sm90`` at 64): every other fp16 route on a CUDA tensor
-(the templates, the key bias, the LUT, banded and merged kernels) raises,
-and the plain versions compute fp16 as they compute bf16, rounding P and
-dS to the input dtype; an all-ones layout takes the dense
+lcm(bq, bk)); bf16 and fp16 inputs run on the tensor cores (the JAX
+kernels take any dtype; every route takes both, each kernel's fp16
+instance the bf16 one with the operand type swapped: P and dS rounded to
+fp16 where bf16 rounds them to bf16, the scores, biases, lse and delta in
+fp32, an output past 65504 inf), fp32 inputs on the CUDA cores (head
+dims 64, 96 and 128); the plain versions compute fp16 as they compute
+bf16, rounding P and dS to the input dtype; an all-ones layout takes the dense
 kernels (the same numbers, no LUT) unless ``block_q_merge=2``; a row with
 no live key (O = 0, lse = NEG_INF: a ``mul`` key bias's fully padded batch
 row) gets no gradient, where the JAX backward computes ``exp(S - lse) = 1``
@@ -213,19 +211,17 @@ ENTRIES = {
 GROUP_KERNELS = ("flash_bwd_dkdv_lut_sm90", "flash_bwd_dq_lut_sm90", "flash_fwd_lut_sm90")
 # launches per kernel since the last reset_launches(); only kernel launches count
 launches = {name: 0 for name in KERNELS}
-HEAD_DIMS = {torch.bfloat16: (64, 96, 128), torch.float32: (64, 96, 128)}
-# flash_fwd_sm90: the dtype and head dims it is built for, its q tile and its k tile
-# (csrc/flash_attention_fwd_sm90.cu: kBQ, Cfg<D>::kBN)
-SM90_HEAD_DIMS = {torch.bfloat16: (64, 128)}
+# the templates (csrc/flash_attention.cuh): fp32 on the CUDA cores, bf16 and fp16 on the
+# tensor cores
+HEAD_DIMS = {torch.bfloat16: (64, 96, 128), torch.float16: (64, 96, 128),
+             torch.float32: (64, 96, 128)}
+# flash_fwd_sm90 and its schedule instances: the dtypes and head dims they are built for
+# (csrc/flash_attention_fwd_sm90.cu; its q tile and k tile kBQ, Cfg<D>::kBN below)
+SM90_HEAD_DIMS = {torch.bfloat16: (64, 128), torch.float16: (64, 128)}
 # the entries of csrc/flash_attention_sparse_bwd_sm90.cu and sparse_fwd_sm90.cu
-# (GROUP_KERNELS and DENSE_BWD_SM90): the dtype and head dim they are built for (at 128 the
+# (GROUP_KERNELS and DENSE_BWD_SM90): the dtypes and head dim they are built for (at 128 the
 # dK/dV instances spill and two pipes of four stages do not fit in shared memory)
-SM90_BWD_HEAD_DIMS = {torch.bfloat16: (64,)}
-# the dense sm90 entries without the key bias are built for fp16 too (fp16 training): the
-# forward at SM90_HEAD_DIMS, dK/dV and dQ at SM90_BWD_HEAD_DIMS; every other fp16 route raises
-DENSE_SM90_HEAD_DIMS = {**SM90_HEAD_DIMS, torch.float16: SM90_HEAD_DIMS[torch.bfloat16]}
-DENSE_BWD_SM90_HEAD_DIMS = {**SM90_BWD_HEAD_DIMS,
-                            torch.float16: SM90_BWD_HEAD_DIMS[torch.bfloat16]}
+SM90_BWD_HEAD_DIMS = {torch.bfloat16: (64,), torch.float16: (64,)}
 DENSE_BWD_SM90 = ("flash_bwd_dkdv_sm90", "flash_bwd_dq_sm90")
 # the dense sm90 entries, which take the (B, T) key bias's pointer (null for none) last
 DENSE_SM90 = ("flash_fwd_sm90",) + DENSE_BWD_SM90
@@ -964,9 +960,7 @@ def _fwd(name, q, k, v, causal, sm_scale, lut=None, kbias=None, abias=None, sche
         return flash_attention_reference_fwd(q, k, v, causal, sm_scale, lut=lut,
                                              key_padding_bias=kbias, attn_bias=abias)
     B, T, H, d = q.shape
-    dense = name == "flash_fwd_sm90" and kbias is None
     _check(name, (q, k, v), q.dtype, d,
-           DENSE_SM90_HEAD_DIMS if dense else
            SM90_HEAD_DIMS if name in ("flash_fwd_sm90",) + SCHED_SM90 else HEAD_DIMS)
     template = ENTRIES[name][2] is not None       # the variants take both biases in their Extra
     for label, bias, taken in (("key_padding_bias", kbias, template or name in DENSE_SM90),
@@ -991,10 +985,9 @@ def _fwd(name, q, k, v, causal, sm_scale, lut=None, kbias=None, abias=None, sche
 def dense_fwd_kernel(dtype, head_dim):
     """The dense forward kernel a CUDA tensor of ``dtype`` and ``head_dim``
     takes: ``flash_fwd_sm90`` for bf16 and fp16 at head dims 64 and 128,
-    else the template ``flash_fwd`` (which raises for fp16).  Decided before
-    any launch, never by a failure."""
-    return ("flash_fwd_sm90" if head_dim in DENSE_SM90_HEAD_DIMS.get(dtype, ())
-            else "flash_fwd")
+    else the template ``flash_fwd``.  Decided before any launch, never by a
+    failure."""
+    return "flash_fwd_sm90" if head_dim in SM90_HEAD_DIMS.get(dtype, ()) else "flash_fwd"
 
 
 def flash_fwd(q, k, v, causal=True, sm_scale=None):
@@ -1012,8 +1005,7 @@ def flash_fwd_template(q, k, v, causal=True, sm_scale=None):
 def flash_fwd_sm90(q, k, v, causal=True, sm_scale=None, key_padding_bias=None):
     """``(o, lse)``: the ``flash_fwd_sm90`` kernel (bf16 and fp16, head dims
     64 and 128; others raise), with the optional fp32 (B, T) key bias (its
-    kBias instances, bf16 only), for CUDA tensors, the plain version for CPU
-    ones."""
+    kBias instances), for CUDA tensors, the plain version for CPU ones."""
     return _fwd("flash_fwd_sm90", q, k, v, causal, sm_scale, kbias=key_padding_bias)
 
 
@@ -1068,8 +1060,8 @@ def flash_fwd_sm90_schedule(T, causal, block_n=SM90_BLOCK_N):
 def biased_fwd_kernel(dtype, head_dim, has_abias):
     """The dense biased forward kernel a CUDA tensor of ``dtype`` and
     ``head_dim`` takes: ``flash_fwd_sm90`` (its key-bias instance) for bf16
-    at head dims 64 and 128 with no (T, T) score bias, else the template
-    ``flash_fwd_biased`` (fp32, head dim 96, any score bias).  Decided
+    and fp16 at head dims 64 and 128 with no (T, T) score bias, else the
+    template ``flash_fwd_biased`` (fp32, head dim 96, any score bias).  Decided
     before any launch, never by a failure."""
     if not has_abias and head_dim in SM90_HEAD_DIMS.get(dtype, ()):
         return "flash_fwd_sm90"
@@ -1111,8 +1103,8 @@ def flash_fwd_lut_ring(q, k, v, lut, sm_scale=None):
 def sparse_fwd_kernel(dtype, head_dim, has_abias, has_kbias=False):
     """The block-sparse forward kernel a CUDA tensor of ``dtype`` and
     ``head_dim`` takes: ``flash_fwd_lut_sm90`` where :func:`_group_route`
-    holds (bf16 at head dim 64, no (T, T) score bias; with or without the
-    key bias), else the template it took before: ``flash_fwd_lut`` with a
+    holds (bf16 and fp16 at head dim 64, no (T, T) score bias; with or
+    without the key bias), else the template it took before: ``flash_fwd_lut`` with a
     bias, ``flash_fwd_lut_ring`` without."""
     if _group_route(dtype, head_dim, has_abias):
         return "flash_fwd_lut_sm90"
@@ -1132,8 +1124,8 @@ def sparse_fwd(name, q, k, v, lut, kbias=None, abias=None, sm_scale=None):
 
 def flash_fwd_lut_sm90(q, k, v, lut, key_padding_bias=None, sm_scale=None):
     """``(o, lse)``: the ``flash_fwd_lut_sm90`` kernel over
-    ``lut.groups("q")`` with the optional (B, T) key bias (bf16, head dim
-    64; others raise) for CUDA tensors, the plain version for CPU tensors."""
+    ``lut.groups("q")`` with the optional (B, T) key bias (bf16 and fp16,
+    head dim 64; others raise) for CUDA tensors, the plain version for CPU tensors."""
     if q.device.type == "cpu":
         return flash_attention_reference_fwd(q, k, v, lut.causal, sm_scale, lut=lut,
                                              key_padding_bias=key_padding_bias)
@@ -1170,8 +1162,8 @@ class _MergedSched(ctypes.Structure):
 
 def banded_fwd_kernel(dtype, head_dim):
     """The banded forward kernel a CUDA tensor of ``dtype`` and
-    ``head_dim`` takes: ``flash_fwd_banded_sm90`` for bf16 at head dims 64
-    and 128, else the template ``flash_fwd_banded``.  Decided before any
+    ``head_dim`` takes: ``flash_fwd_banded_sm90`` for bf16 and fp16 at head
+    dims 64 and 128, else the template ``flash_fwd_banded``.  Decided before any
     launch, never by a failure."""
     sm90 = head_dim in SM90_HEAD_DIMS.get(dtype, ())
     return "flash_fwd_banded_sm90" if sm90 else "flash_fwd_banded"
@@ -1179,8 +1171,8 @@ def banded_fwd_kernel(dtype, head_dim):
 
 def merged_fwd_kernel(dtype, head_dim):
     """The merged-row forward kernel a CUDA tensor of ``dtype`` and
-    ``head_dim`` takes: ``flash_fwd_merged_sm90`` for bf16 at head dims 64
-    and 128, else the template ``flash_fwd_merged``.  Decided before any
+    ``head_dim`` takes: ``flash_fwd_merged_sm90`` for bf16 and fp16 at head
+    dims 64 and 128, else the template ``flash_fwd_merged``.  Decided before any
     launch, never by a failure."""
     sm90 = head_dim in SM90_HEAD_DIMS.get(dtype, ())
     return "flash_fwd_merged_sm90" if sm90 else "flash_fwd_merged"
@@ -1202,8 +1194,8 @@ def flash_fwd_banded_template(q, k, v, band, sm_scale=None):
 
 
 def flash_fwd_banded_sm90(q, k, v, band, sm_scale=None):
-    """``(o, lse)``: the ``flash_fwd_banded_sm90`` kernel (bf16, head dims
-    64 and 128; others raise) over ``band.param_sm90()`` for CUDA tensors,
+    """``(o, lse)``: the ``flash_fwd_banded_sm90`` kernel (bf16 and fp16,
+    head dims 64 and 128; others raise) over ``band.param_sm90()`` for CUDA tensors,
     the plain version for CPU ones."""
     return _fwd("flash_fwd_banded_sm90", q, k, v, True, sm_scale, band, sched=band.param_sm90)
 
@@ -1224,8 +1216,8 @@ def flash_fwd_merged_template(q, k, v, merged, sm_scale=None):
 
 
 def flash_fwd_merged_sm90(q, k, v, merged, sm_scale=None):
-    """``(o, lse)``: the ``flash_fwd_merged_sm90`` kernel (bf16, head dims
-    64 and 128; others raise) over ``merged.slots()`` for CUDA tensors, the
+    """``(o, lse)``: the ``flash_fwd_merged_sm90`` kernel (bf16 and fp16,
+    head dims 64 and 128; others raise) over ``merged.slots()`` for CUDA tensors, the
     plain version for CPU ones."""
     return _fwd("flash_fwd_merged_sm90", q, k, v, merged.causal, sm_scale, merged,
                 sched=lambda: merged_sched(merged, q.device))
@@ -1314,9 +1306,7 @@ def _bwd_args(name, q, k, v, do, lse, delta, kbias=None, abias=None):
     contiguous fp32, (B, T) and (T, T), on q's device."""
     B, T, H, d = q.shape
     sm90 = name in GROUP_KERNELS or name in DENSE_BWD_SM90
-    dense = name in DENSE_BWD_SM90 and kbias is None
-    _check(name, (q, k, v, do), q.dtype, d,
-           DENSE_BWD_SM90_HEAD_DIMS if dense else SM90_BWD_HEAD_DIMS if sm90 else HEAD_DIMS)
+    _check(name, (q, k, v, do), q.dtype, d, SM90_BWD_HEAD_DIMS if sm90 else HEAD_DIMS)
     template = ENTRIES[name][2] is not None      # the _biased and _lut templates
     for label, bias, taken in (("key_padding_bias", kbias, template or sm90),
                                ("attn_bias", abias, template)):
@@ -1382,9 +1372,8 @@ def dense_bwd_kernel(dtype, head_dim):
     """The dense backward kernels ``(dK/dV, dQ)`` a CUDA tensor of ``dtype``
     and ``head_dim`` takes: ``flash_bwd_dkdv_sm90`` and ``flash_bwd_dq_sm90``
     for bf16 and fp16 at head dim 64, else the templates ``flash_bwd_dkdv``
-    and ``flash_bwd_dq`` (which raise for fp16).  Decided before any launch,
-    never by a failure."""
-    if head_dim in DENSE_BWD_SM90_HEAD_DIMS.get(dtype, ()):
+    and ``flash_bwd_dq``.  Decided before any launch, never by a failure."""
+    if head_dim in SM90_BWD_HEAD_DIMS.get(dtype, ()):
         return DENSE_BWD_SM90
     return "flash_bwd_dkdv", "flash_bwd_dq"
 
@@ -1418,8 +1407,8 @@ def flash_bwd_dq_template(q, k, v, do, lse, delta, causal=True, sm_scale=None):
 def flash_bwd_dkdv_sm90(q, k, v, do, lse, delta, causal=True, sm_scale=None,
                         key_padding_bias=None):
     """``(dk, dv)``: the ``flash_bwd_dkdv_sm90`` kernel (bf16 and fp16, head
-    dim 64; others raise), with the optional fp32 (B, T) key bias (bf16
-    only), for CUDA tensors, the plain version for CPU ones."""
+    dim 64; others raise), with the optional fp32 (B, T) key bias, for CUDA
+    tensors, the plain version for CPU ones."""
     return _bwd_dkdv("flash_bwd_dkdv_sm90", q, k, v, do, lse, delta, causal, sm_scale,
                      kbias=key_padding_bias)
 
@@ -1427,8 +1416,8 @@ def flash_bwd_dkdv_sm90(q, k, v, do, lse, delta, causal=True, sm_scale=None,
 def flash_bwd_dq_sm90(q, k, v, do, lse, delta, causal=True, sm_scale=None,
                       key_padding_bias=None):
     """``dq``: the ``flash_bwd_dq_sm90`` kernel (bf16 and fp16, head dim 64;
-    others raise), with the optional fp32 (B, T) key bias (bf16 only), for
-    CUDA tensors, the plain version for CPU ones."""
+    others raise), with the optional fp32 (B, T) key bias, for CUDA tensors,
+    the plain version for CPU ones."""
     return _bwd_dq("flash_bwd_dq_sm90", q, k, v, do, lse, delta, causal, sm_scale,
                    kbias=key_padding_bias)
 
@@ -1479,8 +1468,8 @@ def biased_bwd_kernel(dtype, head_dim, has_abias):
     """The dense biased backward kernels ``(dK/dV, dQ)`` a CUDA tensor of
     ``dtype`` and ``head_dim`` takes: ``flash_bwd_dkdv_sm90`` and
     ``flash_bwd_dq_sm90`` (their key-bias instances) where
-    :func:`_group_route` holds (bf16 at head dim 64, no (T, T) score bias),
-    else the templates ``flash_bwd_dkdv_biased`` and ``flash_bwd_dq_biased``
+    :func:`_group_route` holds (bf16 and fp16 at head dim 64, no (T, T)
+    score bias), else the templates ``flash_bwd_dkdv_biased`` and ``flash_bwd_dq_biased``
     (fp32, head dims 96 and 128, any score bias).  Decided before any
     launch, never by a failure."""
     if _group_route(dtype, head_dim, has_abias):
@@ -1527,8 +1516,8 @@ def flash_bwd_dq_biased_template(q, k, v, do, lse, delta, key_padding_bias=None,
 def _group_route(dtype, head_dim, has_abias):
     """Whether a CUDA tensor takes the sm90 kernels that carry the key bias
     (``GROUP_KERNELS``, and the dense pair ``DENSE_BWD_SM90`` on the biased
-    path): bf16 at head dim 64 with no (T, T) score bias (the key bias is
-    optional).  Decided before any launch, never by a failure."""
+    path): bf16 and fp16 at head dim 64 with no (T, T) score bias (the key
+    bias is optional).  Decided before any launch, never by a failure."""
     return not has_abias and head_dim in SM90_BWD_HEAD_DIMS.get(dtype, ())
 
 
@@ -1574,7 +1563,7 @@ def flash_bwd_dkdv_lut_tiled(q, k, v, do, lse, delta, lut, key_padding_bias=None
 def flash_bwd_dkdv_lut_sm90(q, k, v, do, lse, delta, lut, key_padding_bias=None,
                             sm_scale=None):
     """``(dk, dv)``: the ``flash_bwd_dkdv_lut_sm90`` kernel over
-    ``lut.groups("k")`` (bf16, head dim 64; others raise) for CUDA
+    ``lut.groups("k")`` (bf16 and fp16, head dim 64; others raise) for CUDA
     tensors, the plain version for CPU tensors."""
     if q.device.type == "cpu":
         return flash_attention_reference_bwd_dkdv(q, k, v, do, lse, delta, lut.causal,
@@ -1673,8 +1662,8 @@ def flash_bwd_dq_lut_tiled(q, k, v, do, lse, delta, lut, key_padding_bias=None,
 def flash_bwd_dq_lut_sm90(q, k, v, do, lse, delta, lut, key_padding_bias=None,
                           sm_scale=None):
     """``dq``: the ``flash_bwd_dq_lut_sm90`` kernel over ``lut.groups("q")``
-    (bf16, head dim 64; others raise) for CUDA tensors, the plain version
-    for CPU tensors."""
+    (bf16 and fp16, head dim 64; others raise) for CUDA tensors, the plain
+    version for CPU tensors."""
     if q.device.type == "cpu":
         return flash_attention_reference_bwd_dq(q, k, v, do, lse, delta, lut.causal, sm_scale,
                                                 lut=lut, key_padding_bias=key_padding_bias)
@@ -1825,7 +1814,8 @@ def sparse_flash_attention(q, k, v, layout, *, causal=True, sm_scale=None, block
     the dense kernels; a causal band layout with no bias
     (:func:`banded_structure`, ``T <= MAX_BAND_T``) the banded kernel; any
     other the LUT forward :func:`sparse_fwd_kernel` names
-    (``flash_fwd_lut_sm90`` for bf16 at head dim 64 with no score bias,
+    (``flash_fwd_lut_sm90`` for bf16 and fp16 at head dim 64 with no score
+    bias,
     else the biased LUT template with a bias and the LUT ring without).
     The backward is the LUT (or dense, or biased) kernels."""
     B, T, H, d = q.shape

@@ -9,9 +9,12 @@ the dynamic or static loss scaler), ``optimizer``, ``scheduler``,
 ``data_types.grad_accum_dtype``, ``zero_optimization.stage``, the
 ``checkpoint`` and ``io_retry`` blocks (``DeepSpeedCheckpointConfig`` /
 ``DeepSpeedIORetryConfig``, JAX ``config.py:873-874``), the
-``health_check`` block's device sentinels and ``sparse_attention`` (the
+``health_check`` block's device sentinels, ``sparse_attention`` (the
 JSON section as a dict, default ``None``, as ``config.py:886`` stores it;
-the caller builds the layout with ``build_sparsity_config``).
+the caller builds the layout with ``build_sparsity_config``), and the
+``curriculum_learning`` and ``progressive_layer_drop`` blocks
+(``DeepSpeedCurriculumConfig`` / ``DeepSpeedPLDConfig``, JAX
+``config.py:258-271``: the same keys and defaults).
 
 What the port does not run raises ``NotImplementedError`` instead of
 being ignored: world size > 1, ZeRO stage 3 and offload,
@@ -20,7 +23,7 @@ fp32 master is unconditional), an optimizer other than Adam, AdamW, Lamb
 and SGD
 (the 1-bit ones, Adagrad), the health guardian's host escalation
 ladder, and every other block of the JAX config surface (monitor,
-compile cache, comms compression, curriculum, PLD, ...) set to
+compile cache, comms compression, eigenvalue, ...) set to
 anything but off.  So is a key the JAX package does not
 know.  ``prescale_gradients`` / ``gradient_predivide_factor`` and the
 ZeRO bucketing keys are accepted as no-ops, as in the JAX package, and
@@ -44,7 +47,7 @@ PORTED_KEYS = {
     C.FP16, C.BFLOAT16, C.BFLOAT16_OLD, C.GRADIENT_CLIPPING,
     C.PRESCALE_GRADIENTS, C.GRADIENT_PREDIVIDE_FACTOR, C.DATA_TYPES,
     C.DATALOADER_DROP_LAST, C.ZERO_OPTIMIZATION, C.HEALTH_CHECK, C.SPARSE_ATTENTION,
-    C.CHECKPOINT, C.IO_RETRY,
+    C.CHECKPOINT, C.IO_RETRY, C.CURRICULUM_LEARNING, C.PROGRESSIVE_LAYER_DROP,
 }
 
 
@@ -193,6 +196,26 @@ def _world_size():
     return 1
 
 
+class DeepSpeedCurriculumConfig:
+    """``curriculum_learning``: ``enabled`` and the whole block as
+    ``params`` (``CurriculumScheduler``'s config), as JAX keeps it."""
+
+    def __init__(self, param_dict):
+        cl_dict = param_dict.get(C.CURRICULUM_LEARNING) or {}
+        self.enabled = cl_dict.get(C.CURRICULUM_ENABLED, C.CURRICULUM_ENABLED_DEFAULT)
+        self.params = dict(cl_dict)
+
+
+class DeepSpeedPLDConfig:
+    """``progressive_layer_drop``: ``enabled``, ``theta``, ``gamma``."""
+
+    def __init__(self, param_dict):
+        pld_dict = param_dict.get(C.PROGRESSIVE_LAYER_DROP) or {}
+        self.enabled = pld_dict.get(C.PLD_ENABLED, C.PLD_ENABLED_DEFAULT)
+        self.theta = pld_dict.get(C.PLD_THETA, C.PLD_THETA_DEFAULT)
+        self.gamma = pld_dict.get(C.PLD_GAMMA, C.PLD_GAMMA_DEFAULT)
+
+
 class DeepSpeedConfig:
     """Parse and validate the JSON config document (world size 1; an
     initialised process group of more ranks raises)."""
@@ -262,6 +285,9 @@ class DeepSpeedConfig:
         self.health_check = DeepSpeedHealthCheckConfig(pd)
         self.checkpoint_config = DeepSpeedCheckpointConfig(pd)
         self.io_retry_config = DeepSpeedIORetryConfig(pd)
+        self.curriculum = DeepSpeedCurriculumConfig(pd)
+        self.pld = DeepSpeedPLDConfig(pd)
+        self.progressive_layer_drop = self.pld   # the reference's name
         self.sparse_attention = pd.get(C.SPARSE_ATTENTION)
         if self.sparse_attention is not None:
             if not isinstance(self.sparse_attention, dict):

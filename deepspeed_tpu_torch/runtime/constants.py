@@ -37,6 +37,18 @@ FP16_MASTER_WEIGHTS_AND_GRADS_DEFAULT = False
 BFLOAT16 = "bf16"
 BFLOAT16_OLD = "bfloat16"  # the reference accepts both spellings
 
+# curriculum learning and progressive layer drop (JAX runtime/constants.py:247-260)
+CURRICULUM_LEARNING = "curriculum_learning"
+CURRICULUM_ENABLED = "enabled"
+CURRICULUM_ENABLED_DEFAULT = False
+PROGRESSIVE_LAYER_DROP = "progressive_layer_drop"
+PLD_ENABLED = "enabled"
+PLD_ENABLED_DEFAULT = False
+PLD_THETA = "theta"
+PLD_THETA_DEFAULT = 1.0
+PLD_GAMMA = "gamma"
+PLD_GAMMA_DEFAULT = 0.001
+
 GRADIENT_CLIPPING = "gradient_clipping"
 GRADIENT_CLIPPING_DEFAULT = 0.0
 PRESCALE_GRADIENTS = "prescale_gradients"
@@ -107,8 +119,7 @@ HEALTH_LADDER_KEYS = ("consecutive_skip_budget", "rewind_limit", "on_exhausted",
 # or only says {"enabled": false}.
 UNPORTED = {
     "amp": {}, "activation_checkpointing": {}, "flops_profiler": {},
-    "tensorboard": {}, "monitor": {}, "analysis": {}, "pipeline": {},
-    "curriculum_learning": {}, "progressive_layer_drop": {}, "eigenvalue": {},
+    "tensorboard": {}, "monitor": {}, "analysis": {}, "pipeline": {}, "eigenvalue": {},
     "quantize_training": {}, "compile_cache": {}, "comms_compression": {}, "mesh": {},
     "sequence_parallel": {}, "elasticity": {}, "aio": {}, "autotuning": {},
     "sparse_gradients": False, "communication_data_type": None,

@@ -90,10 +90,37 @@ not run raises ``NotImplementedError`` naming the key: any optimizer tree
 but ``opt_state`` / ``master`` / ``scale`` / ``comm_error`` (ignored, as
 JAX ignores it in an engine without error feedback).
 
+The imperative API (JAX :1964-1998): ``forward(batch)`` stages the
+micro-batch and returns ``eval_batch``'s loss, ``backward()`` queues it,
+and ``step()`` runs, at the accumulation boundary
+(``is_gradient_accumulation_boundary``), the same captured step that
+``train_batch`` runs, over the queued micro-batches (``_run_step``): the
+same graph, seed fold and lr, so the two APIs give the same losses bit
+for bit; before the boundary it returns None.  As in JAX, only
+``train_batch`` visits the fault sites and applies the curriculum.
+
+Curriculum learning (``"curriculum_learning"``, JAX :461-464,
+:1432-1462): ``runtime/data_pipeline/curriculum_scheduler.py`` sets the
+difficulty of step ``global_steps + 1`` and ``train_batch`` crops each
+host micro-batch to it along axis 1 (integer leaves to ``seqlen + 1``
+tokens, the rest to ``seqlen``) before stacking.  Each difficulty is a new
+micro-batch shape and so a new step graph (the JAX step retraces).  Held,
+the graphs of the past difficulties pin memory that grows with each one
+(their pool's blocks are too small for the longer shapes; PERF.md section
+6, PR 25), and a curriculum never returns to a shorter length: when the
+difficulty moves on they are released (``_release_graphs``,
+``StepGraph.release``), the next capture takes a new pool (a private pool
+whose last graph is freed takes no capture) and the freed segments go
+back to the driver; ``stats()["graphs"]`` keeps counting them
+(``released``).  Progressive
+layer drop (``"progressive_layer_drop"``, JAX :465-470, :1573-1574):
+``runtime/progressive_layer_drop.py``'s theta is updated after each step
+and read with ``progressive_layer_drop.get_state()``; no model reads it.
+
 Not ported: the streamed / offload paths, ZeRO across ranks, the health
-monitor's host ladder (and so rewind), the forward/backward/step shim,
-monitoring, curriculum and PLD (the config raises for each), the 1-bit
-optimizers and CPU Adagrad, and client optimizer / scheduler objects.
+monitor's host ladder (and so rewind), monitoring (the config raises for
+each), the 1-bit optimizers and CPU Adagrad, and client optimizer /
+scheduler objects.
 """
 
 import json
@@ -109,6 +136,8 @@ from ..checkpoint.constants import MODEL_FILE, OPTIM_FILE
 from ..checkpoint.serialization import load_tree, restore_like, save_tree
 from .config import DeepSpeedConfig
 from . import health as hmod
+from .data_pipeline.curriculum_scheduler import CurriculumScheduler
+from .progressive_layer_drop import ProgressiveLayerDrop
 from .fp16 import loss_scaler as ls
 from .dataloader import DeepSpeedDataLoader, RepeatingLoader
 from .lr_schedules import get_lr_scheduler
@@ -205,6 +234,7 @@ class DeepSpeedEngine:
         self.step_impl = "eager" if step_impl == "eager" else "graph"
         self._graphs = None                 # the step graphs' GraphPool, made at first use
         self._steps = {}                    # graph key -> its StepGraph
+        self._released = []                 # StepGraphs of past curriculum difficulties
         self.zero_stage = self.config.zero_optimization_stage
         self.compute_dtype = COMPUTE_DTYPES[self.config.precision_dtype]
         self._needs_master = self.compute_dtype != torch.float32
@@ -231,6 +261,14 @@ class DeepSpeedEngine:
         self.global_samples = 0
         self._global_steps = 0
         self._last_metrics = {}
+        # the imperative API's staged and queued micro-batches
+        self._staged_batch = None
+        self._pending_microbatches = []
+        self.curriculum_scheduler = (CurriculumScheduler(self.config.curriculum.params)
+                                     if self.config.curriculum.enabled else None)
+        self.progressive_layer_drop = (
+            ProgressiveLayerDrop(theta=self.config.pld.theta, gamma=self.config.pld.gamma)
+            if self.config.pld.enabled else None)
         log_dist(f"DeepSpeedEngine ready: zero_stage={self.zero_stage} "
                  f"dtype={self.config.precision_dtype} device={self.device} "
                  f"micro_batch={self.train_micro_batch_size_per_gpu()} "
@@ -413,6 +451,8 @@ class DeepSpeedEngine:
         key = (tuple((n, a.shape, a.dtype.str) for n, a in sorted(named.items())), gas)
         step = self._steps.get(key)
         if step is None:
+            if self.curriculum_scheduler is not None and self._steps:
+                self._release_graphs()     # a new difficulty: the shorter ones never return
             if (self.step_impl == "graph" and self.device.type == "cuda"
                     and self._graphs is None):
                 self._graphs = GraphPool(self.device)
@@ -430,6 +470,22 @@ class DeepSpeedEngine:
                 seeded=True, hint=CAPTURE_HINT)
         return step
 
+    def _release_graphs(self):
+        """Free the step graphs held (those of the past curriculum
+        difficulties) and capture later steps into a new pool: a private
+        pool takes no capture once its last graph is freed.  On the card the
+        freed pool's segments and the cached blocks go back to the driver
+        before the next warm-up and capture, which cannot free them (the
+        allocator frees no cached block during a capture)."""
+        for old in self._steps.values():
+            old.release()
+            self._released.append(old)
+        self._steps.clear()
+        if self._graphs is not None:
+            self._graphs = self._graphs.fresh()
+        if self.device.type == "cuda":
+            torch.cuda.empty_cache()
+
     # ------------------------------------------------------------- public API
     def train_batch(self, data_iter=None):
         """One training step (gas microbatches → one optimizer step);
@@ -446,14 +502,72 @@ class DeepSpeedEngine:
         self._stream_step += 1
         if fault.is_enabled():
             micro_batches = [fault.corrupt_batch(mb, index) for mb in micro_batches]
+        if self.curriculum_scheduler is not None:
+            micro_batches = [self._apply_curriculum(mb) for mb in micro_batches]
+        return self._run_step(micro_batches)
+
+    def _run_step(self, micro_batches):
+        """The captured step over ``micro_batches`` (gas host micro-batches),
+        shared by :meth:`train_batch` and :meth:`step`; returns the loss."""
         batch = self._stack_microbatches(micro_batches)
         named = _named_leaves(batch)
         lr = self._lr_at(self._global_steps)
         out = self._step_for(batch, named)(step_seed=_fold(self._rng_seed, self.micro_steps),
-                                    commit=np.bool_(True), lr=np.float32(lr), **named)
+                                           commit=np.bool_(True), lr=np.float32(lr), **named)
         metrics = {k: v.clone() for k, v in out.items()}
         metrics["lr"] = lr
         return self._finish_step(metrics)
+
+    def _apply_curriculum(self, mb):
+        """Crop a host micro-batch to the difficulty of the coming step
+        (JAX :1445-1457): along axis 1, integer leaves to ``seqlen + 1``
+        (next-token targets), the rest to ``seqlen``."""
+        seqlen = self.curriculum_scheduler.update_difficulty(self._global_steps + 1)
+
+        def crop(x):
+            x = np.asarray(x)
+            if x.ndim >= 2 and x.shape[1] > seqlen:
+                return x[:, :seqlen + 1] if np.issubdtype(x.dtype, np.integer) else \
+                    x[:, :seqlen]
+            return x
+        return tree_map(crop, mb)
+
+    def curriculum_seqlen(self):
+        """The current curriculum difficulty, or None without a curriculum."""
+        if self.curriculum_scheduler is None:
+            return None
+        return self.curriculum_scheduler.get_current_difficulty()
+
+    # ------------------------------------------------ the imperative API (JAX :1964-1998)
+    def forward(self, batch, rng=None):
+        """Stage ``batch`` (one host micro-batch) for :meth:`backward` and
+        return its loss without gradients (:meth:`eval_batch`)."""
+        self._staged_batch = batch
+        return self.eval_batch(batch, rng)
+
+    def backward(self, loss=None):
+        """Queue the staged micro-batch; its gradients are taken inside the
+        step :meth:`step` runs at the accumulation boundary.  Returns
+        ``loss``."""
+        if self._staged_batch is None:
+            raise RuntimeError("call forward(batch) before backward()")
+        self._pending_microbatches.append(self._staged_batch)
+        self._staged_batch = None
+        return loss
+
+    def is_gradient_accumulation_boundary(self):
+        """Whether ``gas`` micro-batches are queued (the reference's
+        ``engine.py:1267``)."""
+        return len(self._pending_microbatches) >= self.gradient_accumulation_steps()
+
+    def step(self):
+        """At the accumulation boundary, the step :meth:`train_batch` runs
+        (the same graph) over the queued micro-batches; returns its loss,
+        or None before the boundary."""
+        if not self.is_gradient_accumulation_boundary():
+            return None
+        micro_batches, self._pending_microbatches = self._pending_microbatches, []
+        return self._run_step(micro_batches)
 
     def _stack_microbatches(self, micro_batches):
         """Host microbatches → one host tree of numpy arrays with a leading
@@ -467,6 +581,8 @@ class DeepSpeedEngine:
         self._global_steps += 1
         if self.lr_scheduler is not None:
             self.lr_scheduler.step()
+        if self.progressive_layer_drop is not None:
+            self.progressive_layer_drop.update_state(self._global_steps)
         if self._global_steps % self.config.steps_per_print == 0:
             # the only host read of a step, on reporting steps
             msg = (f"step={self._global_steps}, loss={float(metrics['loss']):.6f}, "
@@ -480,14 +596,16 @@ class DeepSpeedEngine:
         return metrics["loss"]
 
     def stats(self):
-        """The step graphs' counters: ``step_impl``, graphs captured,
-        captures, warm-ups and replays, dropout draws re-seeded per replay,
-        and each graph's pool bytes by its name (the reserved device memory
-        its capture added; 0 without a capture)."""
-        steps = list(self._steps.values())
+        """The step graphs' counters: ``step_impl``, graphs captured (and
+        held), graphs released (past curriculum difficulties), captures,
+        warm-ups and replays, dropout draws re-seeded per replay, and each
+        graph's pool bytes by its name (the reserved device memory its
+        capture added; 0 without a capture), released ones included."""
+        steps = self._released + list(self._steps.values())
         return {"graphs": {
             "step_impl": self.step_impl,
             "graphs": sum(s.captured for s in steps),
+            "released": len(self._released),
             "captures": sum(s.captures for s in steps),
             "warmups": sum(s.warmups for s in steps),
             "replays": sum(s.replays for s in steps),

@@ -243,6 +243,12 @@ class GraphPool:
             self.graph_factory = graph_factory
             self.handle = self.stream = None
 
+    def fresh(self):
+        """A new pool of the same kind, for captures after every graph of
+        this one is freed (CUDA refuses a capture into a private pool whose
+        last graph is gone)."""
+        return GraphPool(self.device, None if self.handle is not None else self.graph_factory)
+
 
 class StepGraph:
     """``body(**inputs)`` as one captured step (see the module docstring).
@@ -288,6 +294,12 @@ class StepGraph:
     def dropout_draws(self) -> int:
         """Dropout draws the captured step re-seeds before each replay."""
         return len(self._draws.generators) if self._draws is not None else 0
+
+    def release(self):
+        """Drop the graph, its static outputs and buffers (a step that is not
+        called again); the counters stay."""
+        self._graph = self._outputs = None
+        self.static, self._staging, self._copied = {}, None, None
 
     def prepare(self):
         """Warm up and capture now, on the static buffers' values, if a

@@ -123,16 +123,16 @@ def always_masked(t):
 LAUNCH_DENSE = (
     "  if constexpr (kDq) {\n"
     "    if (kbias != nullptr)\n"
-    "      return launch_pipes(dense_dq_kernel<D, true>, smem, n_work, stream, mq, mk, mv, mdo, "
+    "      return launch_pipes(dense_dq_kernel<D, true, E>, smem, n_work, stream, mq, mk, mv, mdo, "
     "p);\n"
-    "    return launch_pipes(dense_dq_kernel<D, false>, smem, n_work, stream, mq, mk, mv, mdo, "
+    "    return launch_pipes(dense_dq_kernel<D, false, E>, smem, n_work, stream, mq, mk, mv, mdo, "
     "p);\n"
     "  } else {\n"
     "    if (kbias != nullptr)\n"
-    "      return launch_pipes(dense_dkdv_kernel<D, true>, smem, n_work, stream, mq, mk, mv, mdo, "
-    "p);\n"
-    "    return launch_pipes(dense_dkdv_kernel<D, false>, smem, n_work, stream, mq, mk, mv, mdo, "
-    "p);\n"
+    "      return launch_pipes(dense_dkdv_kernel<D, true, E>, smem, n_work, stream, mq, mk, mv, "
+    "mdo,\n                          p);\n"
+    "    return launch_pipes(dense_dkdv_kernel<D, false, E>, smem, n_work, stream, mq, mk, mv, "
+    "mdo,\n                        p);\n"
     "  }\n")
 PINGPONG = os.path.join(os.path.dirname(os.path.abspath(__file__)), "dense_bwd_pingpong.cuh")
 
@@ -140,7 +140,8 @@ PINGPONG = os.path.join(os.path.dirname(os.path.abspath(__file__)), "dense_bwd_p
 def pingpong(t):
     """The 128-row ping-pong kernels of ``dense_bwd_pingpong.cuh`` in place
     of the dense ones (no key bias)."""
-    anchor = "// dK/dV (kDq false: out0 dK, out1 dV) or dQ (kDq true: out0 dQ) of a dense call\n"
+    anchor = ("// dK/dV (kDq false: out0 dK, out1 dV) or dQ (kDq true: out0 dQ) of a dense call of "
+              "element\n")
     t = patch(t, anchor, f'#include "{PINGPONG}"\n\n{anchor}')
     return patch(t, LAUNCH_DENSE, "  return launch_pp<kDq>(mq, mk, mv, mdo, p, stream);\n")
 

@@ -147,9 +147,9 @@ def no_overlap(t):
     """Each visit's S and dP issued at its top, after the last visit's
     output products have ended, in both kernels."""
     for issue, comment in (
-            ("issue_sdp<D>(s, dp, tK, tV, sQ + st * kTile, sdO + st * kTile);",
+            ("issue_sdp<D, E>(s, dp, tK, tV, sQ + st * kTile, sdO + st * kTile);",
              "S^T and dP^T of this visit are done, and the last visit's dV and dK"),
-            ("issue_sdp<D>(s, dp, tQ, tdO, sK + st * kTile, sV + st * kTile);",
+            ("issue_sdp<D, E>(s, dp, tQ, tdO, sK + st * kTile, sV + st * kTile);",
              "S and dP of this visit are done, and the last visit's dQ")):
         pipelined = (f"      {issue}\n"
                      "      for (int j = 0; j < nv; ++j, ++vt) {\n"

@@ -73,7 +73,7 @@ KB_LOAD = ("          if (kBias) tma_load2(sKb + (st * 4 + s) * kStatSlot, &tkb,
            "b);\n")
 # S = Q K^T (issue_s), then O += P V (issue_dq of the shared header)
 PRODUCTS = (
-    "    wgmma_ss_n64(s, desc_sw128(tQ + off, 16, 1024), desc_sw128(vK + off, 16, 1024), "
+    "    wgmma_ss_n64<E>(s, desc_sw128(tQ + off, 16, 1024), desc_sw128(vK + off, 16, 1024), "
     "kk > 0);\n",
     "      wgmma_rs_n64_tb<E>(dq[x], da[kk], desc_sw128(tK + x * kBoxBytes + kk * 16 * 128,\n"
     "                                                   kBoxBytes, 1024));\n")

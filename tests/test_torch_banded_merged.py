@@ -573,10 +573,10 @@ def test_band_and_merged_wrappers_check_their_inputs():
     layout = _longformer(16, 256, 5, [0, 3])
     band = fa.band_lut(*fa.banded_structure(layout, True), 16, 256)
     merged = fa.layout_luts(layout, 256, 2, True).merged
-    q16 = torch.empty((1, 256, 2, 64), dtype=torch.float16, device="meta")
+    q64 = torch.empty((1, 256, 2, 64), dtype=torch.float64, device="meta")   # no fp64 kernel
     q = torch.empty((1, 128, 2, 64), dtype=torch.bfloat16, device="meta")
-    for call, match in ((lambda: fa.flash_fwd_banded(q16, q16, q16, band), "dtype"),
-                        (lambda: fa.flash_fwd_merged(q16, q16, q16, merged), "dtype"),
+    for call, match in ((lambda: fa.flash_fwd_banded(q64, q64, q64, band), "dtype"),
+                        (lambda: fa.flash_fwd_merged(q64, q64, q64, merged), "dtype"),
                         (lambda: fa.flash_fwd_banded(q, q, q, band), "LUT"),
                         (lambda: fa.flash_fwd_merged(q, q, q, merged), "LUT")):
         with pytest.raises(ValueError, match=match):

@@ -21,8 +21,8 @@ scaler bookkeeping runs through ``test_torch_train_graph``'s stand-in
 graphs, and the twins of ``tests/test_engine.py``'s fp16 tests run the
 MLP of ``tests/simple_model.py``.
 
-The kernels: the fp16 routes on meta tensors (the dense sm90 entries, and
-a raise on every other fp16 route), and the plain fp16 forward and
+The kernels: the fp16 routes on meta tensors (the dense sm90 entries,
+and every other route's fp16 instance), and the plain fp16 forward and
 gradients against JAX's Pallas kernels in interpret mode within
 FP16_ATOL = 2^-8 absolute on values of magnitude up to ~4 (two fp16 ulps
 there, four at 1: P rounded to fp16 against the running maximum in JAX's
@@ -319,7 +319,9 @@ def test_fp16_routes_to_the_dense_sm90_entries(monkeypatch):
     assert fa._DTYPE_CODES[torch.float16] == 2
 
 
-def _refusals():
+def _routes():
+    """The eleven fp16 routes that raised while only the dense sm90 entries
+    had fp16 instances, each with the entry it must launch now."""
     B, T, H = 1, 256, 2
     q = torch.empty((B, T, H, 64), dtype=torch.float16, device="meta")
     q96 = torch.empty((B, T, H, 96), dtype=torch.float16, device="meta")
@@ -330,30 +332,42 @@ def _refusals():
     band = fa.band_lut(2, (0,), 16, T)
     merged = fa.layout_luts(layout, T, H, True).merged
     return {
-        "backward d=128": lambda: fa.flash_bwd_dkdv(q128, q128, q128, q128, lse, lse, True),
-        "dq d=128": lambda: fa.flash_bwd_dq(q128, q128, q128, q128, lse, lse, True),
-        "forward d=96": lambda: fa.flash_fwd(q96, q96, q96, True),
-        "key bias forward": lambda: fa.flash_fwd_biased(q, q, q, key_padding_bias=kb),
-        "key bias sm90 forward": lambda: fa.flash_fwd_sm90(q, q, q, key_padding_bias=kb),
-        "key bias dK/dV": lambda: fa.flash_bwd_dkdv_biased(q, q, q, q, lse, lse,
-                                                           key_padding_bias=kb),
-        "key bias sm90 dQ": lambda: fa.flash_bwd_dq_sm90(q, q, q, q, lse, lse,
-                                                         key_padding_bias=kb),
-        "LUT": lambda: fa.sparse_flash_attention(q, q, q, layout),
-        "banded": lambda: fa.flash_fwd_banded(q, q, q, band),
-        "merged": lambda: fa.flash_fwd_merged(q, q, q, merged),
-        "template": lambda: fa.flash_fwd_template(q, q, q, True),
+        "backward d=128": (lambda: fa.flash_bwd_dkdv(q128, q128, q128, q128, lse, lse, True),
+                           "flash_bwd_dkdv"),
+        "dq d=128": (lambda: fa.flash_bwd_dq(q128, q128, q128, q128, lse, lse, True),
+                     "flash_bwd_dq"),
+        "forward d=96": (lambda: fa.flash_fwd(q96, q96, q96, True), "flash_fwd"),
+        "key bias forward": (lambda: fa.flash_fwd_biased(q, q, q, key_padding_bias=kb),
+                             "flash_fwd_sm90"),
+        "key bias sm90 forward": (lambda: fa.flash_fwd_sm90(q, q, q, key_padding_bias=kb),
+                                  "flash_fwd_sm90"),
+        "key bias dK/dV": (lambda: fa.flash_bwd_dkdv_biased(q, q, q, q, lse, lse,
+                                                            key_padding_bias=kb),
+                           "flash_bwd_dkdv_sm90"),
+        "key bias sm90 dQ": (lambda: fa.flash_bwd_dq_sm90(q, q, q, q, lse, lse,
+                                                          key_padding_bias=kb),
+                             "flash_bwd_dq_sm90"),
+        "LUT": (lambda: fa.sparse_flash_attention(q, q, q, layout), "flash_fwd_lut_sm90"),
+        "banded": (lambda: fa.flash_fwd_banded(q, q, q, band), "flash_fwd_banded_sm90"),
+        "merged": (lambda: fa.flash_fwd_merged(q, q, q, merged), "flash_fwd_merged_sm90"),
+        "template": (lambda: fa.flash_fwd_template(q, q, q, True), "flash_fwd"),
     }
 
 
-@pytest.mark.parametrize("route", list(_refusals()))
-def test_every_other_fp16_route_raises(route):
-    """Off the CPU (meta tensors stand for CUDA ones) no other fp16 route
-    launches or falls back to a plain version: each raises naming the
-    dtype."""
-    with pytest.raises(ValueError, match="dtype"):
-        _refusals()[route]()
-    assert fa.launches == {n: 0 for n in fa.KERNELS}
+@pytest.mark.parametrize("route", list(_routes()))
+def test_every_other_fp16_route_raises(route, monkeypatch):
+    """Off the CPU (meta tensors stand for CUDA ones) each fp16 route that
+    raised while only the dense sm90 entries had fp16 instances now launches
+    its kernel's fp16 instance (dtype code 2), once, and falls back to no
+    plain version: the LUT, key-bias, banded and merged sm90 kernels and
+    the templates."""
+    calls = []
+    monkeypatch.setattr(fa, "_run", lambda name, dtype, *a, device: calls.append((name, dtype)))
+    call, name = _routes()[route]
+    out = call()
+    assert calls == [(name, 2)]
+    first = out[0] if isinstance(out, tuple) else out
+    assert first.dtype == torch.float16 and first.device.type == "meta"
 
 
 # ------------------------------------------- the plain fp16 versions vs JAX

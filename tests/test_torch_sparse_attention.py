@@ -438,7 +438,7 @@ def test_block_q_merge_invalid_arguments_raise(T, merge, bias, match):
 
 
 # ------------------------------------------ the device path: launch or raise
-@pytest.mark.parametrize("dtype,d,match", [(torch.float16, 64, "dtype"),
+@pytest.mark.parametrize("dtype,d,match", [(torch.float64, 64, "dtype"),
                                            (torch.bfloat16, 32, "head dim")])
 def test_lut_wrappers_reject_unsupported_configs(dtype, d, match):
     """Off the CPU the wrappers launch or raise; they never take the plain

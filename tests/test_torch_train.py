@@ -118,11 +118,11 @@ def test_config_fields_match_jax(pd):
     ({"train_batch_size": 8, "zero_optimization": {
         "stage": 2, "offload_optimizer": {"device": "cpu"}}}, 1),
     ({"train_batch_size": 8, "zero_optimization": {"stage": 2, "cpu_offload": True}}, 1),
-    ({"train_batch_size": 8, "progressive_layer_drop": {"enabled": True}}, 1),
+    ({"train_batch_size": 8, "eigenvalue": {"enabled": True}}, 1),
     ({"train_batch_size": 8, "optimizer": {"type": "OneBitAdam", "params": {}}}, 1),
     ({"train_batch_size": 8, "monitor": {"enabled": True}}, 1),
     ({"train_batch_size": 8, "checkpoint": {"tag_validation": "Fail"}}, 1),
-    ({"train_batch_size": 8, "curriculum_learning": {"enabled": True}}, 1),
+    ({"train_batch_size": 8, "quantize_training": {"enabled": True}}, 1),
     ({"train_batch_size": 8, "wall_clock_breakdown": True}, 1),
     ({"train_batch_size": 8, "health_check": {"rewind_limit": 1}}, 1),
     ({"train_batch_size": 8, "no_such_key": 1}, 1),
