@@ -377,6 +377,26 @@ JAX package ``deepspeed_tpu``):
     schedule followed, a graph and its pool bytes a difficulty, the
     reserved memory a step; at micro 4 the past graphs held, at micro 8
     released), PLD's theta beside its formula.
+20. graded config 3 (the JAX package's ``bench.py:301-330``): GPT-2 1.3B,
+    T=1024, micro 8, gas 8, bf16 with bf16 accumulation, AdamW, clip 1.0,
+    remat, ZeRO-3 with ``offload_optimizer`` cpu: the in-device engine of
+    the same config (eager) and the same at lr 0 (no update), then the
+    synchronous offload engine and the DPU one (warm-up 0), each a warm-up
+    step and 3 timed passes of 3 steps (step p50 / p99, tokens/s, MFU, the
+    device half alone, the d2h / widening / host Adam / h2d split, idle
+    share, peak memory), an eager DPU engine for OFFLOAD_RACE_STEPS
+    steps; hard: step 1's loss equal to the in-device engine's, steps 2-3
+    within OFFLOAD_UPDATE_SHARE of the gap the lr-0 run leaves, the host
+    master moved, the device params equal to the payload and the payload
+    to the master's bf16 cast (sync step 1, DPU step 4), the DPU master one
+    step stale bit for bit, the eager DPU run bit-equal to the captured
+    one, exact flash launches (the forward twice a micro-batch with
+    remat), no device master or moments; the host's CPU, copy rate, RSS
+    peak and pinned bytes, one wire copy against 64 MB chunks.
+21. at GPT-2 125M: a client FusedAdamW and WarmupLR captured = eager;
+    ``checkpointing.checkpoint`` inside a captured step bit-equal to the
+    unwrapped region; an fp16 offload run whose forced 2^40 step is skipped
+    with the host master, the moments and the params bit-unchanged.
 
 Prints a ``{"kernels": [...]}`` line (the dense sm90 kernels' key-bias
 instances as ``flash_fwd_sm90 (key bias)``, ``flash_bwd_dkdv_sm90 (key
@@ -434,8 +454,11 @@ from deepspeed_tpu_torch.ops.transformer import int8_matmul as im
 from deepspeed_tpu_torch.ops.transformer import paged_attention as pa
 from deepspeed_tpu_torch.runtime import engine as engine_module
 from deepspeed_tpu_torch.runtime.comm.quantized import quantize_blockwise
+from deepspeed_tpu_torch.ops.adam.fused_adam import FusedAdamW
 from deepspeed_tpu_torch.runtime.fp16 import loss_scaler as ls
+from deepspeed_tpu_torch.runtime.lr_schedules import WarmupLR
 from deepspeed_tpu_torch.runtime.utils import tree_leaves, tree_map
+from deepspeed_tpu_torch.runtime.zero import wire
 
 L_CYCLE = 12          # layers cycled through when timing (cold L2 per launch)
 PAGED_LIB = "paged_attention"
@@ -5078,6 +5101,510 @@ def train_loop(dev, card, preset="gpt2-350m", seq=1024, micro=8):
         torch.cuda.empty_cache()
     return out
 
+# 20. graded config 3: GPT-2 1.3B at ZeRO-3 with the optimizer offloaded to the host
+OFFLOAD_PRESET = "gpt2-1.3b"
+OFFLOAD_GAS = 8
+OFFLOAD_PASSES, OFFLOAD_TIMED = 3, 3     # timed passes of timed steps, each impl
+OFFLOAD_REF_STEPS = 3                    # the in-device reference's steps
+OFFLOAD_RACE_STEPS = 4                   # the eager DPU engine's steps, against the captured
+CHUNK_BYTES = 64 << 20                   # the JAX package's wire chunk, timed beside one copy
+HOST_BYTES_PER_PARAM = 30                # the host Adam's traffic: g, p, m, v in; p, m, v, bf16 out
+# steps 2-3 against the in-device engine: within this share of the gap a step with no
+# update leaves (the in-device engine at lr 0, read in the same run; PERF.md section 2)
+OFFLOAD_UPDATE_SHARE = 1 / 8
+
+
+def offload_config(dpu=None, gas=OFFLOAD_GAS, micro=8, **over):
+    """Graded config 3 as the JAX package's ``bench.py:301-330`` defines it:
+    bf16, grad_accum_dtype bf16, AdamW 6e-4 / wd 0.1, clip 1.0, stage 3,
+    ``offload_optimizer`` cpu (``dpu``: the DPU warm-up, None for sync)."""
+    zero = {"stage": 3, "offload_optimizer": {"device": "cpu"}}
+    if dpu is not None:
+        zero["offload_optimizer"].update(delayed_param_update=True,
+                                         delayed_param_update_warmup=dpu)
+    cfg = {"train_micro_batch_size_per_gpu": micro, "gradient_accumulation_steps": gas,
+           "steps_per_print": 10 ** 9, "gradient_clipping": 1.0, "bf16": {"enabled": True},
+           "data_types": {"grad_accum_dtype": "bf16"},
+           "optimizer": {"type": "AdamW", "params": {"lr": 6e-4, "weight_decay": 0.1}},
+           "zero_optimization": zero}
+    cfg.update(over)
+    return cfg
+
+
+def offload_engine(dev, params, tokens, config, preset, seq, step_impl="auto",
+                   dtype=torch.bfloat16, remat=True):
+    model = GPT2(preset=preset, max_seq=seq, dtype=dtype, device=dev, attention_impl="flash",
+                 remat=remat, embd_pdrop=0.0, attn_pdrop=0.0, resid_pdrop=0.0)
+    return deepspeed_tpu_torch.initialize(config=config, model=model, params=params,
+                                          training_data=(tokens,), step_impl=step_impl)[0]
+
+
+def host_copy_rate(nbytes=2 << 30):
+    """The host's copy rate, bytes read + written a second, over one large
+    ``ds_memcpy`` (the host library's OpenMP copy) of ``nbytes``; the best
+    of three, the buffers first touched."""
+    from deepspeed_tpu_torch.ops.adam.cpu_adam import host_memcpy
+    src, dst = np.ones(nbytes // 4, np.float32), np.zeros(nbytes // 4, np.float32)
+    best = math.inf
+    for _ in range(3):
+        t0 = time.perf_counter()
+        host_memcpy(dst.ctypes.data, src.ctypes.data, src.nbytes)
+        best = min(best, time.perf_counter() - t0)
+    return 2 * src.nbytes / best
+
+
+def device_state_bytes(eng):
+    """The bytes of the device tensors the engine holds as state."""
+    trees = [eng.params, eng.master, eng.opt_state, eng.scale, eng.health,
+             getattr(eng, "_param_stage", None), getattr(eng, "_grad_stage", None)]
+    return sum(t.numel() * t.element_size() for tree in trees for t in tree_leaves(tree)
+               if isinstance(t, torch.Tensor) and t.device.type == "cuda")
+
+
+def replay_ms(eng, n=2):
+    """The device half alone: its graph replayed ``n`` times with ``commit``
+    False (nothing trains), each timed with CUDA events; the median."""
+    step = next(iter(eng._steps.values()))
+    commit = step.static["commit"]
+    commit.fill_(False)
+    out = []
+    for _ in range(n):
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        step._graph.replay()
+        b.record()
+        b.synchronize()
+        out.append(a.elapsed_time(b))
+    commit.fill_(True)
+    return statistics.median(out)
+
+
+def wire_chunk_timing(eng):
+    """One d2h of the flat gradients and one h2d of the payload as one
+    copy each (the port's wire), then in the JAX package's 64 MB chunks
+    queued back to back on the same copy stream, in turns, each timed with
+    the copy stream's events (ms)."""
+    off, stream = eng._offload, eng._copies.stream
+    flat = next(iter(eng._steps.values()))._outputs["grads"]
+    rows = {}
+    for chunk in (None, CHUNK_BYTES, None, CHUNK_BYTES):
+        row = []
+        for dst, src in ((off.landing, flat), (eng._param_stage, off.payload)):
+            per = src.numel() if chunk is None else chunk // src.element_size()
+            a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            with torch.cuda.stream(stream):
+                stream.wait_stream(torch.cuda.current_stream())
+                a.record(stream)
+                for i in range(0, src.numel(), per):
+                    dst[i:i + per].copy_(src[i:i + per], non_blocking=True)
+                b.record(stream)
+            b.synchronize()
+            row.append(a.elapsed_time(b))
+        rows.setdefault(chunk, []).append(tuple(row))
+    return {("one copy" if k is None else f"{k >> 20} MB chunks"): v for k, v in rows.items()}
+
+
+def payload_landed(eng):
+    """(device params == the host payload image, payload == the host
+    master cast to the compute dtype), each bit for bit: the last update
+    reached the model whole."""
+    off = eng._offload
+    flat = off.payload.to(eng.device)
+    params = all(torch.equal(leaf, flat[o:o + leaf.numel()].view(leaf.shape))
+                 for leaf, o in zip(tree_leaves(eng.params), off.offsets))
+    del flat
+    payload = torch.equal(off.payload, torch.from_numpy(off.master).to(off.compute_dtype))
+    return params, payload
+
+
+def offload_run(make, tag, per_step, card, tokens_per_step, flops_per_token, numel,
+                after_step=None):
+    """One offload engine (``make()``): a warm-up step (the capture), then
+    OFFLOAD_PASSES passes of OFFLOAD_TIMED timed steps, each synchronised:
+    step wall p50 / p99 per pass, tokens/s and MFU, the host half's split
+    averaged over the timed steps (d2h and h2d on the copy stream's events,
+    the widening and the host Adam on the host's clock), the exact flash
+    launches per kernel run, peak device memory, then the device half alone
+    and a profiled step's busy time against the step p50 (idle share).
+    ``after_step(eng, i)`` runs after each step (i from 1).  Returns the
+    engine and its figures."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fa.reset_launches()
+    t0 = time.perf_counter()
+    eng = make()
+    build_s = time.perf_counter() - t0
+    if eng.master is not None or eng.opt_state is not None:
+        raise AssertionError(f"{tag}: the device holds a master or moments")
+    runs0 = kernel_runs(eng)
+    losses, splits, rows, i = [], [], [], 0
+
+    def step():
+        nonlocal i
+        t = time.perf_counter()
+        loss = float(eng.train_batch())
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t
+        i += 1
+        if after_step is not None:
+            after_step(eng, i)
+        losses.append((loss, eng.get_global_grad_norm()))
+        return dt
+    first_s = step()
+    check_launches(f"{tag} step 1", dict(fa.launches), per_step, kernel_runs(eng) - runs0)
+    for _ in range(OFFLOAD_PASSES):
+        ms = []
+        for _ in range(OFFLOAD_TIMED):
+            ms.append(step() * 1e3)
+            t = eng.offload_times
+            if "host_step_s" in t:
+                nan = lambda x: float("nan") if x is None else x    # noqa: E731 (no events)
+                splits.append((nan(t["d2h_s"]), t["widen_s"], t["host_step_s"],
+                               nan(wire.seconds(t["upload"])), t["land_wait_s"]))
+        ms = np.asarray(ms)
+        tok_s = OFFLOAD_TIMED * tokens_per_step / (ms.sum() / 1e3)
+        rows.append((np.percentile(ms, 50), np.percentile(ms, 99), tok_s,
+                     tok_s * flops_per_token / PEAK_OPS["bf16"]))
+    counts, runs = dict(fa.launches), kernel_runs(eng) - runs0
+    check_launches(tag, counts, per_step, runs)
+    peak = torch.cuda.max_memory_allocated()
+    if not all(math.isfinite(x) for x, _ in losses) or eng.skipped_steps:
+        raise AssertionError(f"{tag}: losses {losses}, skipped {eng.skipped_steps}")
+    device_ms = replay_ms(eng)
+    summary = {}
+    profile_steps(lambda: float(eng.train_batch()), tag, steps=1, unit="training step",
+                  summary=summary)
+    cols = list(zip(*rows))
+    p50 = statistics.median(cols[0])
+    busy_ms = summary.get("busy_us", float("nan")) / 1e3
+    split = {k: statistics.mean(v) for k, v in zip(
+        ("d2h_s", "widen_s", "host_step_s", "h2d_s", "land_wait_s"), zip(*splits))}
+    print(f"offload {tag}: " + ", ".join(
+        f"{name} {statistics.median(col):.3f} (readings {', '.join(f'{x:.3f}' for x in col)})"
+        for name, col in zip(("step p50 ms", "step p99 ms", "tokens/s", "MFU"), cols))
+          + f"; device half alone {device_ms:.3f} ms (a replay); host half a step: d2h "
+          f"{split['d2h_s']:.4f} s ({numel * 2 / split['d2h_s'] / 1e9:.1f} GB/s), widen "
+          f"{split['widen_s']:.4f} s, host Adam {split['host_step_s']:.4f} s, h2d "
+          f"{split['h2d_s']:.4f} s ({numel * 2 / split['h2d_s'] / 1e9:.1f} GB/s), host wait "
+          f"for the d2h {split['land_wait_s']:.4f} s; profiled step busy {busy_ms:.3f} ms, "
+          f"idle {100 * (1 - busy_ms / p50):.1f}% of the step p50; launches per kernel run "
+          + ", ".join(f"{n} {counts[n] // runs}" for n in per_step)
+          + f" over {runs} runs; peak device memory {peak / 1e9:.2f} GB, device state "
+          f"{device_state_bytes(eng) / 1e9:.2f} GB (no master, no moments); build "
+          f"{build_s:.1f} s, first step {first_s:.1f} s ({card})")
+    return eng, {"losses": losses, "p50": p50, "rows": rows, "device_ms": device_ms,
+                 "split": split, "busy_ms": busy_ms, "peak_gb": peak / 1e9, "counts": counts,
+                 "runs": runs}
+
+
+def graded_offload(dev, card, preset=OFFLOAD_PRESET, seq=1024, micro=8, gas=OFFLOAD_GAS,
+                   ref_gas=OFFLOAD_GAS):
+    """Phase 20: graded config 3 (``offload_config``) at GPT-2 1.3B, T=1024,
+    micro 8, gas 8, remat, on one card and its host.  From one seeded draw
+    of the parameters (``draw_gpt2_params``, moved to the host once) and
+    one token stream: the in-device engine of the same config without
+    offload, eager (``ref_gas``; its steps 1-3 and its peak memory;
+    captured = eager holds bit for bit, phases 5 and 20), the same at lr 0
+    (the losses of a run whose updates never land), then the synchronous
+    offload engine and the DPU one (warm-up 0) each through
+    :func:`offload_run`, then an eager DPU engine for OFFLOAD_RACE_STEPS
+    steps.  Hard checks: step 1's loss equal to the in-device engine's;
+    steps 2-3 within OFFLOAD_UPDATE_SHARE of the gap the lr-0 run leaves;
+    the host master moved by step 1; after sync's step 1 and DPU's step
+    OFFLOAD_RACE_STEPS the device params equal to the payload image and
+    the payload to the master's bf16 cast, bit for bit; the DPU master
+    after step 1 bit-equal to the initial master and after step 2 to the
+    synchronous master after step 1 (one step stale); the eager DPU run's
+    losses, grad norms and host master bit-equal to the captured one's
+    over OFFLOAD_RACE_STEPS steps (no race between the uploads, the copies
+    into the params and the queued replays); exact flash launches per
+    kernel run (with remat: the forward twice a micro-batch) and none on
+    the templates; no device master or moments.  Prints the host's CPU,
+    cores, threads, copy rate and the host Adam's bound, the host RSS peak
+    and the pinned bytes, the wire's one copy against 64 MB chunks, and
+    the phase's cost.  Returns the figures."""
+    t_phase = time.perf_counter()
+    model = GPT2(preset=preset, max_seq=seq, device=dev)
+    c = model.config
+    head_dim = c.n_embd // c.n_head
+    fwd = fa.dense_fwd_kernel(torch.bfloat16, head_dim)
+    dkdv, dq = fa.dense_bwd_kernel(torch.bfloat16, head_dim)
+    per_step = {fwd: 2 * c.n_layer * gas, dkdv: c.n_layer * gas, dq: c.n_layer * gas}
+    tokens = np.random.default_rng(0).integers(0, c.vocab_size, (micro * gas * 4, seq + 1)
+                                               ).astype(np.int32)
+    dev_params = draw_gpt2_params(model, dev, seed=0)
+    params = tree_map(lambda t: t.cpu().numpy(), dev_params)
+    del dev_params
+    torch.cuda.empty_cache()
+    numel = sum(a.size for a in tree_leaves(params))
+    try:        # the OpenMP runtime the host library links: its default thread count
+        import ctypes
+        threads = ctypes.CDLL("libgomp.so.1").omp_get_max_threads()
+    except OSError:
+        threads = "unknown"
+    rate = host_copy_rate()
+    print(f"offload {preset}: {numel} params; host {host_cpu()}, torch threads "
+          f"{torch.get_num_threads()}, OpenMP threads {threads} (OMP_NUM_THREADS "
+          f"{os.environ.get('OMP_NUM_THREADS', 'unset')}); host copy rate "
+          f"{rate / 1e9:.1f} GB/s (read + write, one 2 GiB ds_memcpy), the host Adam's bound "
+          f"{HOST_BYTES_PER_PARAM * numel / rate:.3f} s ({HOST_BYTES_PER_PARAM} B a parameter)")
+    tokens_per_step = micro * gas * seq
+    fpt = model.flops_per_token()
+    rss = RssPeak()
+    rss.__enter__()
+
+    # the in-device engine of the same config (no offload), eager: a capture's warm-up
+    # caches ~35 GB the capture cannot use, more than the card holds beside the engine;
+    # then the same engine at lr 0, whose losses are a run's whose updates never land
+    print(f"phase 20 starts with {torch.cuda.memory_allocated() / 1e9:.2f} GB allocated, "
+          f"{torch.cuda.memory_reserved() / 1e9:.2f} GB reserved")
+
+    def in_device(lr=None):
+        cfg = offload_config(gas=ref_gas, micro=micro)
+        cfg["zero_optimization"] = {"stage": 3}
+        if lr is not None:
+            cfg["optimizer"]["params"]["lr"] = lr
+        eng = offload_engine(dev, params, tokens, cfg, preset, seq, step_impl="eager")
+        losses = [float(eng.train_batch()) for _ in range(OFFLOAD_REF_STEPS)]
+        torch.cuda.synchronize()
+        state = device_state_bytes(eng) / 1e9
+        del eng
+        gc.collect()
+        torch.cuda.empty_cache()
+        return losses, state
+    torch.cuda.reset_peak_memory_stats()
+    ref_losses, ref_state = in_device()
+    ref_peak = torch.cuda.max_memory_allocated() / 1e9
+    still_losses, _ = in_device(lr=0.0)
+
+    # synchronous offload: the master before and after step 1 (the DPU checks), and
+    # after step 1 the device params against the payload and the master
+    masters, landed = {}, {}
+
+    def make_sync():
+        eng = offload_engine(dev, params, tokens, offload_config(gas=gas, micro=micro), preset,
+                             seq)
+        masters[0] = eng._offload.master.copy()
+        return eng
+
+    def keep(eng, i):
+        if i == 1:
+            masters[1] = eng._offload.master.copy()
+            landed["sync"] = payload_landed(eng)
+    sync, rs = offload_run(make_sync, "graded3 sync", per_step, card, tokens_per_step, fpt,
+                           numel, after_step=keep)
+    chunks = wire_chunk_timing(sync)
+    pinned = sync._offload.pinned_bytes
+    del sync
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # DPU from step 1 (warm-up 0): nothing applied after step 1, step 1's update after
+    # step 2; after step OFFLOAD_RACE_STEPS, step 3's update in the params (copied there
+    # behind a queued replay) and the master kept for the eager run
+    lag, race = {}, {}
+
+    def check_dpu(eng, i):
+        if i == 1:
+            lag[1] = np.array_equal(eng._offload.master, masters[0])
+        elif i == 2:
+            lag[2] = np.array_equal(eng._offload.master, masters[1])
+        elif i == OFFLOAD_RACE_STEPS:
+            race["master"] = eng._offload.master.copy()
+            landed["dpu"] = payload_landed(eng)
+    dpu, rd = offload_run(lambda: offload_engine(dev, params, tokens,
+                                                 offload_config(dpu=0, gas=gas, micro=micro),
+                                                 preset, seq),
+                          "graded3 dpu", per_step, card, tokens_per_step, fpt, numel,
+                          after_step=check_dpu)
+    del dpu
+    moved = not np.array_equal(masters[0], masters[1])
+    masters.clear()
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the device half eagerly, under DPU, against the captured run step by step
+    eager = offload_engine(dev, params, tokens, offload_config(dpu=0, gas=gas, micro=micro),
+                           preset, seq, step_impl="eager")
+    e_losses = [(float(eager.train_batch()), eager.get_global_grad_norm())
+                for _ in range(OFFLOAD_RACE_STEPS)]
+    eager_same = np.array_equal(eager._offload.master, race.pop("master"))
+    del eager
+    gc.collect()
+    torch.cuda.empty_cache()
+    rss.__exit__(None, None, None)
+
+    sync_l = [x for x, _ in rs["losses"][:OFFLOAD_REF_STEPS]]
+    gaps = [abs(a - b) for a, b in zip(sync_l, ref_losses)]
+    still = [abs(a - b) for a, b in zip(still_losses, ref_losses)]
+    limit = [OFFLOAD_UPDATE_SHARE * x for x in still]
+    captured = rd["losses"][:OFFLOAD_RACE_STEPS]
+    print(f"offload graded3 vs the in-device engine (stage 3, no offload, gas {ref_gas}, "
+          f"eager): losses {[round(x, 6) for x in sync_l]} vs {[round(x, 6) for x in ref_losses]}"
+          f", |diff| {gaps}; the in-device engine at lr 0 (no update) "
+          f"{[round(x, 6) for x in still_losses]}, |diff| {still}; steps 2-3 limit "
+          f"{OFFLOAD_UPDATE_SHARE:g} of it {limit[1:]}; host master moved by step 1 {moved}; "
+          f"device params = payload, payload = bf16(master): sync after step 1 "
+          f"{landed.get('sync')}, DPU after step {OFFLOAD_RACE_STEPS} {landed.get('dpu')}; "
+          f"in-device peak {ref_peak:.2f} GB, state {ref_state:.2f} GB, offload peak sync "
+          f"{rs['peak_gb']:.2f} / dpu {rd['peak_gb']:.2f} GB; DPU lag: master after step 1 = "
+          f"initial {lag.get(1)}, after step 2 = sync's after step 1 {lag.get(2)}; eager DPU "
+          f"{OFFLOAD_RACE_STEPS} steps {e_losses} vs captured {captured}, master after step "
+          f"{OFFLOAD_RACE_STEPS} equal {eager_same}; wire (d2h ms, h2d ms) "
+          + "; ".join(f"{k} {[(round(a, 2), round(b, 2)) for a, b in v]}"
+                      for k, v in chunks.items())
+          + f"; host RSS peak {rss.peak / 1e9:.1f} GB "
+          f"(base {rss.base / 1e9:.1f}), pinned {pinned / 1e9:.2f} GB an engine; DPU / sync "
+          f"step p50 {rd['p50'] / rs['p50']:.3f}; phase {time.perf_counter() - t_phase:.1f} s "
+          f"({card})")
+    if ref_gas == gas and sync_l[0] != ref_losses[0]:
+        raise AssertionError(f"graded3 step 1 loss {sync_l[0]} != in-device {ref_losses[0]}")
+    if ref_gas == gas and any(g > lim for g, lim in zip(gaps[1:], limit[1:])):
+        raise AssertionError(f"graded3 steps 2-3 {sync_l} vs in-device {ref_losses} "
+                             f"(no update {still_losses})")
+    if not moved:
+        raise AssertionError("graded3: the host master did not move in step 1")
+    if landed != {"sync": (True, True), "dpu": (True, True)}:
+        raise AssertionError(f"graded3 params / payload / master {landed}")
+    if lag != {1: True, 2: True}:
+        raise AssertionError(f"graded3 DPU lag checks {lag}")
+    if e_losses != captured or not eager_same:
+        raise AssertionError(f"graded3 eager DPU {e_losses} vs captured {captured}, "
+                             f"master equal {eager_same}")
+    return {"sync": rs, "dpu": rd, "ref_losses": ref_losses, "still_losses": still_losses,
+            "ref_peak_gb": ref_peak, "rss_peak_gb": rss.peak / 1e9, "pinned_gb": pinned / 1e9,
+            "chunks": chunks, "copy_rate": rate, "numel": numel,
+            "seconds": time.perf_counter() - t_phase}
+
+
+# 21. small checks at GPT-2 125M: client objects, checkpointing under capture, fp16 offload
+SMALL_PRESET = "gpt2-125m"
+
+
+def client_objects(dev, params, tokens, preset, seq, micro, per_step, steps=3):
+    """21a: a client FusedAdam and a client WarmupLR (no optimizer or
+    scheduler block), captured and eager: losses, grad norms and each
+    step's lr (the scheduler's ``lr_fn``) bit-equal, one graph, exact
+    launches."""
+    rows = {}
+    for impl in ("graph", "eager"):
+        opt = FusedAdamW(lr=6e-4, weight_decay=0.1)
+        sched = WarmupLR(opt, warmup_min_lr=0.0, warmup_max_lr=6e-4, warmup_num_steps=3)
+        model = GPT2(preset=preset, max_seq=seq, dtype=torch.bfloat16, device=dev,
+                     attention_impl="flash", remat=False, embd_pdrop=0.0, attn_pdrop=0.0,
+                     resid_pdrop=0.0)
+        cfg = {k: v for k, v in TRAIN_CONFIG.items() if k != "optimizer"}
+        eng, o, _, s = deepspeed_tpu_torch.initialize(
+            config=dict(cfg, train_micro_batch_size_per_gpu=micro), model=model, params=params,
+            training_data=(tokens,), optimizer=opt, lr_scheduler=sched, step_impl=impl)
+        if o is not opt or s is not sched:
+            raise AssertionError("initialize did not return the client objects")
+        fa.reset_launches()
+        runs0 = kernel_runs(eng)
+        rows[impl] = [(float(eng.train_batch()), eng.get_global_grad_norm(),
+                       eng._last_metrics["lr"]) for _ in range(steps)]
+        check_launches(f"client objects {impl}", dict(fa.launches), per_step,
+                       kernel_runs(eng) - runs0)
+        if impl == "graph" and dev.type == "cuda" and eng.stats()["graphs"]["graphs"] != 1:
+            raise AssertionError(f"client objects: {eng.stats()['graphs']}")
+        del eng
+        gc.collect()
+        torch.cuda.empty_cache()
+    lrs = [sched.lr_fn(i) for i in range(steps)]
+    if rows["graph"] != rows["eager"] or [r[2] for r in rows["graph"]] != lrs:
+        raise AssertionError(f"client objects: captured {rows['graph']} eager {rows['eager']}, "
+                             f"lr_fn {lrs}")
+    print(f"client FusedAdamW + WarmupLR ({preset} bf16, micro {micro}): {steps} steps "
+          f"captured and eager bit-equal (loss, grad norm, lr) {rows['graph']}")
+
+
+def checkpoint_under_capture(dev, gen, B=8, D=1024):
+    """21b: ``checkpointing.checkpoint`` over an MLP region, its loss and
+    gradients computed inside a captured StepGraph, against the unwrapped
+    region run eagerly: bit-equal."""
+    from deepspeed_tpu_torch.runtime.activation_checkpointing import checkpointing
+    from deepspeed_tpu_torch.runtime.step_graph import GraphPool, StepGraph
+    w1 = (torch.randn(D, 4 * D, device=dev, generator=gen) * 0.02).requires_grad_(True)
+    w2 = (torch.randn(4 * D, D, device=dev, generator=gen) * 0.02).requires_grad_(True)
+    x = torch.randn(B, 256, D, device=dev, generator=gen)
+
+    def region(a, b, h):
+        return torch.nn.functional.gelu(h @ a) @ b
+
+    def loss_grads(h, wrap):
+        out = checkpointing.checkpoint(region, w1, w2, h) if wrap else region(w1, w2, h)
+        loss = (out.float() ** 2).mean()
+        g1, g2 = torch.autograd.grad(loss, (w1, w2))
+        return {"loss": loss.detach(), "g1": g1, "g2": g2}
+    step = StepGraph("checkpoint.region", lambda h: loss_grads(h, True), {"h": x}, dev,
+                     GraphPool(dev))
+    got = {k: v.clone() for k, v in step(h=x).items()}
+    want = loss_grads(x, False)
+    same = all(torch.equal(got[k], want[k]) for k in want)
+    diff = max(float((got[k].float() - want[k].float()).abs().max()) for k in want)
+    print(f"checkpointing.checkpoint under capture (B={B}, T=256, D={D}, fp32): loss and "
+          f"grads vs the unwrapped region eagerly: bit-equal {same}, max |diff| {diff:g}; "
+          f"{step.captures} capture, {step.replays} replay")
+    if not same:
+        raise AssertionError(f"checkpoint under capture differs by {diff}")
+
+
+def fp16_offload_overflow(dev, params, tokens, preset, seq, micro, card, steps=2):
+    """21c: an fp16 offload run (stage 3, sync, captured, the fp32 gradient
+    wire): ``steps`` steps, then the loss scale set in place to 2^40: that
+    step skipped with the host master and moments and the device params
+    bit-unchanged, the skip counted; exact launches of the fp16 instances."""
+    cfg = offload_config(gas=1, micro=micro, fp16={"enabled": True})
+    del cfg["bf16"], cfg["data_types"]
+    eng = offload_engine(dev, params, tokens, cfg, preset, seq, dtype=torch.float16,
+                         remat=False)
+    c = eng.module.config
+    fwd = fa.dense_fwd_kernel(torch.float16, c.n_embd // c.n_head)
+    per_step = {fwd: c.n_layer, **{k: c.n_layer for k in fa.dense_bwd_kernel(
+        torch.float16, c.n_embd // c.n_head)}}
+    fa.reset_launches()
+    runs0 = kernel_runs(eng)
+    losses = [float(eng.train_batch()) for _ in range(steps)]
+    st = eng.offload_state()
+    before = {k: v.copy() for k, v in st.items()}
+    params_before = [t.clone() for t in tree_leaves(eng.params)]
+    skipped = eng.skipped_steps
+    eng.scale.cur_scale.fill_(2.0 ** 40)
+    loss = float(eng.train_batch())
+    after = eng.offload_state()
+    same = all(np.array_equal(after[k], before[k]) for k in before) and all(
+        torch.equal(a, b) for a, b in zip(params_before, tree_leaves(eng.params)))
+    check_launches("fp16 offload", dict(fa.launches), per_step, kernel_runs(eng) - runs0)
+    print(f"fp16 offload {preset} (stage 3, sync): losses {[round(x, 6) for x in losses]}, "
+          f"then the scale set to 2^40: loss {loss:.6f}, skipped {skipped} -> "
+          f"{eng.skipped_steps}, host master and moments and device params bit-unchanged "
+          f"{same}; wire {eng._offload.wire_dtype}, payload {eng._offload.compute_dtype} "
+          f"({card})")
+    if (eng.skipped_steps != skipped + 1 or not same
+            or eng._offload.wire_dtype != torch.float32):
+        raise AssertionError(f"fp16 offload forced overflow: skipped {skipped} -> "
+                             f"{eng.skipped_steps}, unchanged {same}")
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def small_checks(dev, card, preset=SMALL_PRESET, seq=1024, micro=8):
+    """Phase 21 at GPT-2 125M, T=1024, micro 8: 21a, 21b, 21c."""
+    t0 = time.perf_counter()
+    model = GPT2(preset=preset, max_seq=seq, device=dev)
+    c = model.config
+    tokens = np.random.default_rng(0).integers(0, c.vocab_size, (64, seq + 1)).astype(np.int32)
+    params = model.init_numpy(seed=0)
+    per_step = {name: c.n_layer for name in (
+        fa.dense_fwd_kernel(torch.bfloat16, c.n_embd // c.n_head),
+        *fa.dense_bwd_kernel(torch.bfloat16, c.n_embd // c.n_head))}
+    client_objects(dev, params, tokens, preset, seq, micro, per_step)
+    checkpoint_under_capture(dev, torch.Generator(device=dev).manual_seed(38))
+    fp16_offload_overflow(dev, params, tokens, preset, seq, micro, card)
+    print(f"phase 21: {time.perf_counter() - t0:.1f} s")
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false", file=sys.stderr)
@@ -5270,6 +5797,18 @@ def main():
 
     # 19. the imperative API, a seqlen curriculum and PLD on phase 5's configuration
     train_loop(dev, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 20. graded config 3: GPT-2 1.3B, ZeRO-3, the optimizer on the host, DPU
+    graded = graded_offload(dev, card)
+    print(json.dumps({"graded_offload": {
+        impl: {k: graded[impl][k] for k in ("p50", "device_ms", "split", "busy_ms", "peak_gb")}
+        for impl in ("sync", "dpu")}}))
+    torch.cuda.empty_cache()
+
+    # 21. client objects, checkpointing under capture, an fp16 offload overflow (125M)
+    small_checks(dev, card)
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card)

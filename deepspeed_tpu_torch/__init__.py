@@ -9,7 +9,8 @@ anything of ``deepspeed_tpu``.
 Deliberate difference: importing the package is light.  The JAX facade
 imports the training engine eagerly; here nothing below the package is
 imported until a caller asks for it (:func:`initialize`,
-:func:`init_inference`, ``deepspeed_tpu_torch.inference``,
+:func:`init_inference`, ``deepspeed_tpu_torch.checkpointing``,
+``deepspeed_tpu_torch.inference``,
 ``deepspeed_tpu_torch.models``), and no kernel is built at import time —
 CUDA sources compile at the first launch (``ops/op_builder/cuda.py``).
 """
@@ -17,27 +18,47 @@ CUDA sources compile at the first launch (``ops/op_builder/cuda.py``).
 from .version import __version__
 
 
-def initialize(model=None, training_data=None, config=None, loss_fn=None, params=None,
-               rng_seed=0, device=None, auto_resume=None, step_impl="auto"):
+def initialize(args=None, model=None, optimizer=None, model_parameters=None,
+               training_data=None, lr_scheduler=None, mpu=None, dist_init_required=None,
+               collate_fn=None, config=None, config_params=None, mesh=None, loss_fn=None,
+               params=None, apply_fn=None, rng_seed=0, auto_resume=None, elastic=None,
+               monitor=None, device=None, step_impl="auto"):
     """Build the training engine; returns ``(engine, optimizer,
     dataloader, lr_scheduler)``.
 
-    Counterpart of ``deepspeed_tpu.initialize`` (``__init__.py:21``) on
-    one device: the engine runs on ``model.device`` (CUDA unless the model
-    was built with ``device="cpu"``), or on ``device`` for a
-    ``loss_fn`` + ``params`` pair, which defaults to CUDA and raises
-    without a card.  ``auto_resume`` (then ``DSTPU_AUTO_RESUME``, then
-    the config's ``checkpoint.auto_resume``) restarts from the newest
-    valid checkpoint in ``checkpoint.dir``.  ``step_impl`` ("auto",
-    "graph", "eager") picks how ``train_batch`` runs its step: captured
-    as one CUDA graph ("auto" / "graph" on CUDA) or called directly
-    ("eager", and the CPU).  The JAX package's client
-    optimizer / scheduler, mesh, pipeline, elastic and monitor arguments
-    are not ported."""
+    Counterpart of ``deepspeed_tpu.initialize`` (``__init__.py:21-26``) on
+    one device, with its arguments and meanings: ``config`` (a dict or a
+    JSON path), else ``config_params`` (its alias), else
+    ``args.deepspeed_config``; ``optimizer`` and ``lr_scheduler``, client
+    objects (the port's own optimizers, a scheduler with ``lr_fn``;
+    ``runtime/engine.py``); ``collate_fn`` for the engine's loader;
+    ``model_parameters`` and ``dist_init_required`` are accepted and unused
+    (the engine takes its parameters from ``params`` or the model, and one
+    device needs no process group).  ``mpu``, ``mesh``, ``apply_fn``,
+    ``elastic`` and ``monitor`` raise ``NotImplementedError`` unless None.
+    The engine runs on ``model.device`` (CUDA unless the model was built
+    with ``device="cpu"``), or on ``device`` for a ``loss_fn`` + ``params``
+    pair, which defaults to CUDA and raises without a card.
+    ``auto_resume`` (then ``DSTPU_AUTO_RESUME``, then the config's
+    ``checkpoint.auto_resume``) restarts from the newest valid checkpoint
+    in ``checkpoint.dir``.  ``step_impl`` ("auto", "graph", "eager") picks
+    how ``train_batch`` runs its step: captured as one CUDA graph ("auto" /
+    "graph" on CUDA) or called directly ("eager", and the CPU)."""
+    for name, value in (("mpu", mpu), ("mesh", mesh), ("apply_fn", apply_fn),
+                        ("elastic", elastic), ("monitor", monitor)):
+        if value is not None:
+            raise NotImplementedError(f"initialize({name}=...) is not ported (one device; "
+                                      "model parallelism, meshes, elasticity and the "
+                                      "monitor come later)")
+    if config is None and config_params is not None:
+        config = config_params
+    if config is None and args is not None and getattr(args, "deepspeed_config", None):
+        config = args.deepspeed_config
     from .runtime.engine import DeepSpeedEngine
     engine = DeepSpeedEngine(model=model, config=config, training_data=training_data,
                              loss_fn=loss_fn, params=params, rng_seed=rng_seed,
-                             device=device, step_impl=step_impl)
+                             device=device, step_impl=step_impl, optimizer=optimizer,
+                             lr_scheduler=lr_scheduler, collate_fn=collate_fn)
     _maybe_auto_resume(engine, auto_resume)
     return engine, engine.optimizer, engine.training_dataloader, engine.lr_scheduler
 
@@ -83,4 +104,13 @@ def init_inference(model=None, **kwargs):
     return InferenceEngine(model, **kwargs)
 
 
-__all__ = ["__version__", "initialize", "init_inference"]
+def __getattr__(name):
+    """``deepspeed_tpu_torch.checkpointing`` (JAX ``__init__.py:12``),
+    imported at first use: importing the package stays light."""
+    if name == "checkpointing":
+        from .runtime.activation_checkpointing import checkpointing
+        return checkpointing
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+
+
+__all__ = ["__version__", "initialize", "init_inference", "checkpointing"]

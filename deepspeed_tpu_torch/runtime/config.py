@@ -6,7 +6,10 @@ over the same JSON dicts.  Resolved here: the batch triple
 1), the ``bf16`` block and the ``fp16`` block (``DeepSpeedFP16Config``:
 the dynamic or static loss scaler), ``optimizer``, ``scheduler``,
 ``gradient_clipping``, ``steps_per_print``, ``dataloader_drop_last``,
-``data_types.grad_accum_dtype``, ``zero_optimization.stage``, the
+``data_types.grad_accum_dtype``, ``zero_optimization`` (stages 0-3 and
+the optimizer offload block, ``zero/config.py``), the
+``activation_checkpointing`` block (JAX ``config.py:82-100``, read by
+``activation_checkpointing/checkpointing.py``'s ``configure``), the
 ``checkpoint`` and ``io_retry`` blocks (``DeepSpeedCheckpointConfig`` /
 ``DeepSpeedIORetryConfig``, JAX ``config.py:873-874``), the
 ``health_check`` block's device sentinels, ``sparse_attention`` (the
@@ -17,11 +20,12 @@ the caller builds the layout with ``build_sparsity_config``), and the
 ``config.py:258-271``: the same keys and defaults).
 
 What the port does not run raises ``NotImplementedError`` instead of
-being ignored: world size > 1, ZeRO stage 3 and offload,
+being ignored: world size > 1, the NVMe tier and parameter offload
+(``zero/config.py``, ``aio``, ``sparse_gradients``: ROADMAP item 7b),
 ``fp16.master_weights_and_grads`` (a no-op key in the JAX package, whose
-fp32 master is unconditional), an optimizer other than Adam, AdamW, Lamb
-and SGD
-(the 1-bit ones, Adagrad), the health guardian's host escalation
+fp32 master is unconditional), an optimizer other than Adam, AdamW, Lamb,
+SGD and Adagrad
+(the 1-bit ones), the health guardian's host escalation
 ladder, and every other block of the JAX config surface (monitor,
 compile cache, comms compression, eigenvalue, ...) set to
 anything but off.  So is a key the JAX package does not
@@ -48,6 +52,7 @@ PORTED_KEYS = {
     C.PRESCALE_GRADIENTS, C.GRADIENT_PREDIVIDE_FACTOR, C.DATA_TYPES,
     C.DATALOADER_DROP_LAST, C.ZERO_OPTIMIZATION, C.HEALTH_CHECK, C.SPARSE_ATTENTION,
     C.CHECKPOINT, C.IO_RETRY, C.CURRICULUM_LEARNING, C.PROGRESSIVE_LAYER_DROP,
+    C.ACTIVATION_CHECKPOINTING,
 }
 
 
@@ -216,6 +221,27 @@ class DeepSpeedPLDConfig:
         self.gamma = pld_dict.get(C.PLD_GAMMA, C.PLD_GAMMA_DEFAULT)
 
 
+class DeepSpeedActivationCheckpointingConfig:
+    """``activation_checkpointing`` (JAX ``config.py:82-100``): the same
+    keys and defaults; ``activation_checkpointing.checkpointing.configure``
+    reads them."""
+
+    KEYS = ("partition_activations", "contiguous_memory_optimization", "cpu_checkpointing",
+            "number_checkpoints", "synchronize_checkpoint_boundary", "profile")
+
+    def __init__(self, param_dict):
+        a = param_dict.get(C.ACTIVATION_CHECKPOINTING) or {}
+        unknown = sorted(set(a) - set(self.KEYS))
+        if unknown:
+            raise DeepSpeedConfigError(f"activation_checkpointing: unknown keys {unknown}")
+        self.partition_activations = a.get("partition_activations", False)
+        self.contiguous_memory_optimization = a.get("contiguous_memory_optimization", False)
+        self.cpu_checkpointing = a.get("cpu_checkpointing", False)
+        self.number_checkpoints = a.get("number_checkpoints", None)
+        self.synchronize_checkpoint_boundary = a.get("synchronize_checkpoint_boundary", False)
+        self.profile = a.get("profile", False)
+
+
 class DeepSpeedConfig:
     """Parse and validate the JSON config document (world size 1; an
     initialised process group of more ranks raises)."""
@@ -238,8 +264,9 @@ class DeepSpeedConfig:
             if key not in C.UNPORTED:
                 raise NotImplementedError(f"config key {key!r} is unknown or not ported")
             if not _is_off(value, C.UNPORTED[key]):
-                raise NotImplementedError(f"config block {key!r} is not ported; it may "
-                                          f"only be absent or off, got {value!r}")
+                why = f" ({C.UNPORTED_WHY[key]})" if key in C.UNPORTED_WHY else ""
+                raise NotImplementedError(f"config block {key!r} is not ported{why}; it "
+                                          f"may only be absent or off, got {value!r}")
 
     def _initialize_params(self, pd):
         self.train_batch_size = pd.get(C.TRAIN_BATCH_SIZE)
@@ -265,9 +292,10 @@ class DeepSpeedConfig:
                 self.optimizer_name = self.optimizer_name.lower()
             self.optimizer_params = opt.get(C.OPTIMIZER_PARAMS, {})
             if self.optimizer_name not in (None, C.ADAM_OPTIMIZER, C.ADAMW_OPTIMIZER,
-                                           C.LAMB_OPTIMIZER, C.SGD_OPTIMIZER):
+                                           C.LAMB_OPTIMIZER, C.SGD_OPTIMIZER,
+                                           C.ADAGRAD_OPTIMIZER):
                 raise NotImplementedError(f"optimizer {opt.get(C.TYPE)!r}: only Adam, "
-                                          "AdamW, Lamb and SGD are ported")
+                                          "AdamW, Lamb, SGD and Adagrad are ported")
         self.scheduler_name = self.scheduler_params = None
         sched = pd.get(C.SCHEDULER)
         if sched is not None:
@@ -287,6 +315,7 @@ class DeepSpeedConfig:
         self.io_retry_config = DeepSpeedIORetryConfig(pd)
         self.curriculum = DeepSpeedCurriculumConfig(pd)
         self.pld = DeepSpeedPLDConfig(pd)
+        self.activation_checkpointing = DeepSpeedActivationCheckpointingConfig(pd)
         self.progressive_layer_drop = self.pld   # the reference's name
         self.sparse_attention = pd.get(C.SPARSE_ATTENTION)
         if self.sparse_attention is not None:

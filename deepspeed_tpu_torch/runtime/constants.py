@@ -18,6 +18,7 @@ ADAM_OPTIMIZER = "adam"
 ADAMW_OPTIMIZER = "adamw"
 LAMB_OPTIMIZER = "lamb"
 SGD_OPTIMIZER = "sgd"
+ADAGRAD_OPTIMIZER = "adagrad"
 
 FP16 = "fp16"
 FP16_ENABLED = "enabled"
@@ -60,6 +61,7 @@ DATALOADER_DROP_LAST = "dataloader_drop_last"
 DATALOADER_DROP_LAST_DEFAULT = False
 
 ZERO_OPTIMIZATION = "zero_optimization"
+ACTIVATION_CHECKPOINTING = "activation_checkpointing"
 SPARSE_ATTENTION = "sparse_attention"      # a dict (build_sparsity_config) or None
 
 # checkpoint: the atomic-commit layer's retention / validation / auto-resume
@@ -118,7 +120,7 @@ HEALTH_LADDER_KEYS = ("consecutive_skip_budget", "rewind_limit", "on_exhausted",
 # with the value that means "off".  A dict block is off when it is empty
 # or only says {"enabled": false}.
 UNPORTED = {
-    "amp": {}, "activation_checkpointing": {}, "flops_profiler": {},
+    "amp": {}, "flops_profiler": {},
     "tensorboard": {}, "monitor": {}, "analysis": {}, "pipeline": {}, "eigenvalue": {},
     "quantize_training": {}, "compile_cache": {}, "comms_compression": {}, "mesh": {},
     "sequence_parallel": {}, "elasticity": {}, "aio": {}, "autotuning": {},
@@ -126,3 +128,6 @@ UNPORTED = {
     "disable_allgather": False, "dump_state": False, "wall_clock_breakdown": False,
     "memory_breakdown": False,
 }
+# why a block of UNPORTED is refused, where a ROADMAP item names it
+UNPORTED_WHY = {"aio": "ROADMAP item 7b: the NVMe tier",
+                "sparse_gradients": "ROADMAP item 7b: the sparse-gradient offload wire"}

@@ -9,7 +9,8 @@ order, and the same checkpointable sampler state (:45-50, :121-145):
 and ``load_state_dict`` resumes the exact stream at the next
 ``__iter__``, converting the position through rows when the batch size
 changed.  Batches are host numpy trees; the engine moves them to its
-device.  The ``collate_fn`` argument is not ported.
+device.  ``collate_fn`` (default: stack each field) batches the samples
+of a dataset that is not columnar, as in JAX.
 
 Accepted dataset forms: a tuple/list of numpy arrays with equal leading
 dim (samples are tuples), a dict of arrays (samples are dicts), or
@@ -68,8 +69,10 @@ def _default_collate(samples):
 class DeepSpeedDataLoader:
     """Shuffling, batching loader yielding micro-batches."""
 
-    def __init__(self, dataset, batch_size, *, shuffle=True, seed=0, drop_last=False):
+    def __init__(self, dataset, batch_size, *, shuffle=True, seed=0, drop_last=False,
+                 collate_fn=None):
         self.dataset = dataset
+        self.collate_fn = collate_fn or _default_collate
         self.batch_size = batch_size
         self.shuffle = shuffle
         self.seed = seed
@@ -145,7 +148,7 @@ class DeepSpeedDataLoader:
             return {k: np.asarray(v)[indices] for k, v in self.dataset.items()}
         if self._columnar == "tuple":
             return tuple(np.asarray(a)[indices] for a in self.dataset)
-        return _default_collate([self.dataset[int(i)] for i in indices])
+        return self.collate_fn([self.dataset[int(i)] for i in indices])
 
     def _batch_indices(self, order):
         n_full = self._len // self.batch_size

@@ -117,11 +117,58 @@ layer drop (``"progressive_layer_drop"``, JAX :465-470, :1573-1574):
 ``runtime/progressive_layer_drop.py``'s theta is updated after each step
 and read with ``progressive_layer_drop.get_state()``; no model reads it.
 
-Not ported: the streamed / offload paths, ZeRO across ranks, the health
-monitor's host ladder (and so rewind), monitoring (the config raises for
-each), the 1-bit optimizers and CPU Adagrad, and client optimizer /
-scheduler objects.
+Client objects (JAX :516-524, :566-579): ``optimizer=`` takes the
+port's own ``FusedAdam`` / ``FusedAdamW`` / ``FusedLamb`` / ``SGD`` /
+``DeepSpeedCPUAdagrad`` (their ``init`` / ``update`` run inside the
+captured step), ``lr_scheduler=`` an object with ``lr_fn(step)`` and
+``step()`` (the port's ``lr_schedules`` classes); the lr stays the step's
+0-d input, filled from the host each step.  Any other object raises
+``TypeError`` naming itself: nothing falls back.
+
+ZeRO-Offload (``zero_optimization.offload_optimizer: {"device": "cpu"}``,
+JAX :333-406, :1224-1286, :1337-1420, :1493-1526, :1856-1913,
+:1927-1941), at any stage (stage 3's placement on one device is stage
+0's).  The device holds the compute-dtype params and no fp32 master or
+moments (``master`` and ``opt_state`` are None); the host holds them in
+``runtime/zero/offload_engine.py``.  A step is two halves.  The device
+half (``_grad_only_step``) is the captured ``StepGraph``: gradients of
+the params, unscaled, clipped and flattened into one static buffer (bf16
+under bf16, fp32 otherwise, as JAX keeps them), the loss scale and the
+health EMA advanced in the graph under ``commit``, and the unified
+``skip``.  The host half (``_host_offload_update``) lands the d2h of that
+buffer (and of ``skip``) on a copy stream, runs the native host Adam (or,
+on a skip, touches nothing on the host) and uploads the payload image
+on the copy stream into a second device buffer, which is copied into the
+params on the compute stream, behind the replays queued there, so an
+upload never writes the params a replay reads.  With
+``delayed_param_update`` (DPU), from step ``delayed_param_update_warmup``
+on the host half of step k runs after the replay of step k+1 is queued:
+that replay reads the params of step k-1's update (one step stale), the
+gradients it writes are first copied to a staging buffer on the device
+(so the next replay never overwrites a buffer whose d2h is in flight),
+and the pending step is applied by ``_flush_offload`` before
+``save_checkpoint``, ``save_16bit_model``, ``eval_batch`` and
+``offload_state``.  The pending step's host work (landing, widening, the
+native Adam: ``_host_offload_compute``) runs on a worker thread started
+before the replay, because a replay holds its calling thread until most
+of its launches have run (PERF.md section 6, PR 26); its stream work (the
+upload and the copy into the params: ``_host_offload_finish``) stays on
+the calling thread.  The host reads no device value of a step but
+through the landed copies.
+Checkpoints carry the host master and moments in the in-device layout.
+The client optimizer under offload raises JAX's ``ValueError``.  As in
+JAX, health's ``skip_nonfinite`` checks the gradients and the loss there,
+not the updated params (the host updates them); the engine logs so.
+Difference: the lr of step k is ``lr_fn(k)`` under DPU too (JAX reads its
+device step counter, which lags by the pending step there).
+
+Not ported: the streamed-parameter path, the NVMe tier, the sparse
+gradient wire (ROADMAP item 7b), ZeRO across ranks, the health monitor's
+host ladder (and so rewind), monitoring (the config raises for each) and
+the 1-bit optimizers.
 """
+
+import time
 
 import json
 import os
@@ -144,6 +191,7 @@ from .lr_schedules import get_lr_scheduler
 from .step_graph import GraphPool, StepGraph, fold as _fold
 from .utils import (DummyOptim, clip_by_global_norm, global_norm, tree_cast,
                     tree_leaves, tree_map)
+from ..ops.adagrad.cpu_adagrad import DeepSpeedCPUAdagrad
 from ..ops.adam.fused_adam import FusedAdam, FusedAdamW
 from ..ops.lamb.fused_lamb import FusedLamb
 from ..ops.sgd import SGD
@@ -160,6 +208,11 @@ COMPUTE_DTYPES = {"bfloat16": torch.bfloat16, "float16": torch.float16,
 STEP_IMPLS = ("auto", "graph", "eager")
 CAPTURE_HINT = ("a loss_fn that reads a device value back to the host cannot be captured; "
                 "train it with step_impl='eager'")
+# the optimizer objects the captured step runs (a client optimizer must be one)
+CAPTURED_OPTIMIZERS = (FusedAdam, FusedLamb, SGD, DeepSpeedCPUAdagrad)
+OFFLOAD_CLIENT_ERROR = ("offload_optimizer requires a config-specified Adam/AdamW (the host "
+                        "tier runs its own fused step; a client optimizer object cannot be "
+                        "offloaded)")
 
 
 def _named_leaves(tree, prefix="batch"):
@@ -205,7 +258,8 @@ class DeepSpeedEngine:
     directly on the CPU) or "eager" (called directly on the card too)."""
 
     def __init__(self, model=None, config=None, training_data=None, loss_fn=None,
-                 params=None, rng_seed=0, device=None, step_impl="auto"):
+                 params=None, rng_seed=0, device=None, step_impl="auto", optimizer=None,
+                 lr_scheduler=None, collate_fn=None):
         if config is None:
             raise ValueError("DeepSpeed requires a config (dict or JSON path)")
         self.config = DeepSpeedConfig(config)
@@ -245,14 +299,15 @@ class DeepSpeedEngine:
             log_dist("config keys accepted but NO-OPs on one device: "
                      + ", ".join(self.config.noop_keys_set), ranks=[0])
 
-        self.optimizer = self._configure_optimizer()
-        self.lr_scheduler = self._configure_lr_scheduler()
-        self._init_state(_to_master(params, self.device))
+        self.optimizer = self._configure_optimizer(optimizer)
+        self.lr_scheduler = self._configure_lr_scheduler(lr_scheduler)
+        self._configure_offload(optimizer, params)
+        self._init_state(None if self._offload is not None else _to_master(params, self.device))
 
         self.training_dataloader = None
         self._data_iterator = None
         if training_data is not None:
-            self.training_dataloader = self.deepspeed_io(training_data)
+            self.training_dataloader = self.deepspeed_io(training_data, collate_fn=collate_fn)
             self._data_iterator = iter(RepeatingLoader(self.training_dataloader))
         self._rng_seed = int(rng_seed)
         self._stream_step = 0             # monotonic data-stream batch index
@@ -276,7 +331,15 @@ class DeepSpeedEngine:
                  ranks=[0])
 
     # ------------------------------------------------------------------ config
-    def _configure_optimizer(self):
+    def _configure_optimizer(self, client_optimizer=None):
+        if client_optimizer is not None:
+            if not isinstance(client_optimizer, CAPTURED_OPTIMIZERS):
+                raise TypeError(
+                    f"client optimizer {type(client_optimizer).__module__}."
+                    f"{type(client_optimizer).__name__} cannot run in the captured step; pass "
+                    "one of the port's FusedAdam, FusedAdamW, FusedLamb, SGD or "
+                    "DeepSpeedCPUAdagrad")
+            return client_optimizer
         name = self.config.optimizer_name
         if name is None:
             return DummyOptim()
@@ -289,9 +352,19 @@ class DeepSpeedEngine:
             return FusedLamb(**p)
         if name == "sgd":
             return SGD(**p)
+        if name == "adagrad":
+            return DeepSpeedCPUAdagrad(**p)
         return FusedAdam(**p)
 
-    def _configure_lr_scheduler(self):
+    def _configure_lr_scheduler(self, client_scheduler=None):
+        if client_scheduler is not None:
+            missing = [a for a in ("lr_fn", "step") if not callable(
+                getattr(client_scheduler, a, None))]
+            if missing:
+                raise TypeError(f"client lr_scheduler {type(client_scheduler).__name__} has no "
+                                f"{' / '.join(missing)}: the captured step takes its lr from "
+                                "lr_fn(step) each step (the port's lr_schedules classes)")
+            return client_scheduler
         if self.config.scheduler_name is not None:
             return get_lr_scheduler(self.config.scheduler_name,
                                     self.config.scheduler_params,
@@ -304,18 +377,69 @@ class DeepSpeedEngine:
             return self.lr_scheduler.lr_fn(step)
         return float(getattr(self.optimizer, "lr", 0.0))
 
+    def _configure_offload(self, client_optimizer, params):
+        """The host tier (JAX :333-406): built when the config offloads the
+        optimizer to the CPU and names one."""
+        self._offload = None
+        self._dpu = False
+        self._dpu_warmup = 0
+        self._pending_offload = None      # (wire handle, metrics) of DPU's pending step
+        off = self.config.zero_config.offload_optimizer
+        if off is None or off.device != "cpu" or isinstance(self.optimizer, DummyOptim):
+            return
+        if client_optimizer is not None:
+            raise ValueError(OFFLOAD_CLIENT_ERROR)
+        name = self.config.optimizer_name or "adam"
+        if name not in ("adam", "adamw"):
+            raise ValueError(f"offload_optimizer requires Adam/AdamW (got {name!r}; "
+                             "reference parity: DeepSpeedCPUAdam)")
+        from .zero import wire
+        from .zero.offload_engine import HostOffloadOptimizer
+        self._offload = HostOffloadOptimizer(
+            params, self.config.zero_config, optimizer_name=name,
+            optimizer_params=self.config.optimizer_params, compute_dtype=self.compute_dtype,
+            device=self.device)
+        if self._health_enabled and self._health_cfg.skip_nonfinite:
+            # JAX :1240-1244: the update runs on the host, so no params sentinel
+            log_dist("offload_optimizer: health.skip_nonfinite checks the gradients and "
+                     "the loss only; the updated params are not checked (the host updates "
+                     "them)", ranks=[0])
+        self._dpu = bool(off.delayed_param_update)
+        self._dpu_warmup = off.delayed_param_update_warmup if self._dpu else 0
+        self._copies = wire.CopyStream(self.device)
+        self._h2d = wire.H2DUploader(self._copies)
+        self._host_opt_steps = 0            # the host mirror of optimizer_steps
+        self._skip_host = wire.pinned(1, torch.bool, self.device)
+        self._settled_event = None          # the last copy out of _param_stage
+        self._grad_stage = None             # DPU's device copy of the flat gradients
+        self._last_d2h = None               # the event of the last d2h's end (flags included)
+        self._host_pool = None              # the thread DPU's host work runs on
+        self.offload_times = {}             # the last host update's split (seconds)
+
     # ------------------------------------------------------------------- state
     def _init_state(self, master):
         """fp32 master (16-bit training only), compute-dtype params, optimizer
         state over the fp32 base, device step counters, health EMA, and in
-        fp16 the loss scaler (``self.scale`` is its state, updated in place)."""
-        if self._needs_master:
+        fp16 the loss scaler (``self.scale`` is its state, updated in place).
+        Under offload the params come from the host payload image and the
+        device holds no master or optimizer state."""
+        if self._offload is not None:
+            self._needs_master = False
+            self.master = None
+            self.opt_state = None
+            off = self._offload
+            flat = off.payload.to(self.device)
+            self.params = off._unflatten_like(flat)
+            # where every upload lands before it is copied into the params
+            self._param_stage = torch.empty_like(flat)
+        elif self._needs_master:
             self.master = master
             self.params = tree_cast(master, self.compute_dtype)
         else:
             self.master = None
             self.params = master
-        self.opt_state = self.optimizer.init(self._base)
+        if self._offload is None:
+            self.opt_state = self.optimizer.init(self._base)
         z = lambda: torch.zeros((), dtype=torch.int32, device=self.device)
         self._optimizer_steps, self._skipped_steps = z(), z()
         self.health = hmod.init_state(self.device) if self._health_enabled else None
@@ -402,20 +526,8 @@ class DeepSpeedEngine:
         0-d fp32 tensor.  Returns the step's device metrics."""
         base = self._base
         grads, metrics = self._grads_and_metrics(base, batch, seed)
-        overflow = metrics.get("overflow")
         with torch.no_grad():
-            skip = self._start_skip(overflow)
-            if self._health_enabled:
-                skip, new_health, sm = self._health_sentinels(metrics["loss"], grads, overflow)
-                metrics.update(sm)
-                for old, new in zip(self.health, new_health):
-                    torch.where(commit, new, old, out=old)
-            if self.scale is not None:
-                # the scale reacts to an overflow only, never to a health skip
-                new_scale = ls.update_scale(self.scale, overflow,
-                                            **self._scaler.update_kwargs())
-                for old, new in zip(self.scale, new_scale):
-                    torch.where(commit, new, old, out=old)
+            skip = self._advance_guards(grads, metrics, commit)
             new_base, new_opt = self.optimizer.update(
                 grads, self.opt_state, base, step=self._optimizer_steps + 1, lr=lr)
             del grads
@@ -435,6 +547,42 @@ class DeepSpeedEngine:
             self._skipped_steps += (commit & skip).int()
         metrics["skip"] = skip
         return metrics
+
+    def _grad_only_step(self, batch, seed, commit):
+        """The device half of the offload step (JAX :1224-1286): gradients
+        of the params, unscaled, clipped and flattened into one buffer of
+        the wire dtype (bf16 under bf16: its range is fp32's, so no inf
+        appears after the overflow scan; fp32 otherwise), the loss scale
+        and the health EMA advanced in place under ``commit``, and the
+        unified ``skip``.  Returns the metrics with the flat buffer under
+        ``"grads"``."""
+        grads, metrics = self._grads_and_metrics(self.params, batch, seed)
+        with torch.no_grad():
+            skip = self._advance_guards(grads, metrics, commit)
+            wire = self._offload.wire_dtype
+            metrics["grads"] = torch.cat([g.reshape(-1).to(wire) for g in tree_leaves(grads)])
+        metrics["skip"] = skip
+        return metrics
+
+    def _advance_guards(self, grads, metrics, commit):
+        """The guards both steps share (JAX :1115-1175): the skip flag from
+        the fp16 overflow and the health sentinels (their flags added to
+        ``metrics``), then the health EMA and the loss scale advanced in
+        place under ``commit``.  Returns ``skip``."""
+        overflow = metrics.get("overflow")
+        if self._health_enabled:
+            skip, new_health, sm = self._health_sentinels(metrics["loss"], grads, overflow)
+            metrics.update(sm)
+            for old, new in zip(self.health, new_health):
+                torch.where(commit, new, old, out=old)
+        else:
+            skip = self._start_skip(overflow)
+        if self.scale is not None:
+            # the scale reacts to an overflow only, never to a health skip
+            new_scale = ls.update_scale(self.scale, overflow, **self._scaler.update_kwargs())
+            for old, new in zip(self.scale, new_scale):
+                torch.where(commit, new, old, out=old)
+        return skip
 
     def _start_skip(self, overflow):
         """The skip flag before the health sentinels: the fp16 overflow
@@ -463,10 +611,15 @@ class DeepSpeedEngine:
             shapes = ",".join(f"{n[6:]}:{'x'.join(map(str, a.shape))}"
                               for n, a in sorted(named.items()))
 
-            def body(seed, commit, lr, **leaves):
-                return self._train_step(_like(batch, leaves), seed, lr, commit)
+            if self._offload is not None:
+                def body(seed, commit, lr, **leaves):   # the host half takes the lr
+                    return self._grad_only_step(_like(batch, leaves), seed, commit)
+            else:
+                def body(seed, commit, lr, **leaves):
+                    return self._train_step(_like(batch, leaves), seed, lr, commit)
+            what = "grad_step" if self._offload is not None else "train"
             step = self._steps[key] = StepGraph(
-                f"engine.train[{shapes},gas{gas}]", body, inputs, self.device, pool,
+                f"engine.{what}[{shapes},gas{gas}]", body, inputs, self.device, pool,
                 seeded=True, hint=CAPTURE_HINT)
         return step
 
@@ -512,11 +665,120 @@ class DeepSpeedEngine:
         batch = self._stack_microbatches(micro_batches)
         named = _named_leaves(batch)
         lr = self._lr_at(self._global_steps)
-        out = self._step_for(batch, named)(step_seed=_fold(self._rng_seed, self.micro_steps),
-                                           commit=np.bool_(True), lr=np.float32(lr), **named)
-        metrics = {k: v.clone() for k, v in out.items()}
+        step = self._step_for(batch, named)
+        host = None
+        if self._offload is not None and self._pending_offload is not None:
+            # DPU: the pending step's host work runs beside the replay, which holds the
+            # calling thread until most of the step's launches have run
+            pending, self._pending_offload = self._pending_offload, None
+            host = (self._host_worker().submit(self._host_offload_compute, pending[0],
+                                               pending[1]["lr"]), pending[1])
+        out = step(step_seed=_fold(self._rng_seed, self.micro_steps),
+                   commit=np.bool_(True), lr=np.float32(lr), **named)
+        metrics = {k: v.clone() for k, v in out.items() if k != "grads"}
         metrics["lr"] = lr
+        if self._offload is not None:
+            self._offload_after_replay(out["grads"], metrics, host)
         return self._finish_step(metrics)
+
+    def _host_worker(self):
+        """The one thread the host half of a DPU step runs on."""
+        if self._host_pool is None:
+            from concurrent.futures import ThreadPoolExecutor
+            self._host_pool = ThreadPoolExecutor(max_workers=1,
+                                                 thread_name_prefix="offload-host")
+        return self._host_pool
+
+    # ------------------------------------------- the offload step's host half
+    def _offload_after_replay(self, flat, metrics, host=None):
+        """After the device half's replay (JAX :1493-1526): start the d2h of
+        its flat gradients and ``skip``, then apply a step on the host: this
+        one (synchronous), or under DPU past the warm-up the pending one
+        (``host``: its host work, submitted before the replay, and its
+        metrics), leaving this one pending."""
+        from .zero import wire
+        from .zero.offload_engine import FlatWireHandle
+        dpu = self._dpu and self._global_steps >= self._dpu_warmup
+        if dpu:
+            # the next replay rewrites `flat` while this d2h may still run: copy it
+            # on the device first, after the last d2h from the stage
+            if self._grad_stage is None:
+                self._grad_stage = torch.empty_like(flat)
+            if self._last_d2h is not None:
+                torch.cuda.current_stream(self.device).wait_event(self._last_d2h)
+            self._grad_stage.copy_(flat)
+            flat = self._grad_stage
+        if host is not None:
+            future, pending_metrics = host
+            self._host_offload_finish(future.result(), pending_metrics)
+        handle = FlatWireHandle(wire.d2h_flat_start(
+            flat, self._offload.landing, self._copies, after=self._copies.event(),
+            extra=((metrics["skip"].reshape(1), self._skip_host),)))
+        self._last_d2h = None if handle.handle is None else handle.handle[2]
+        if dpu:
+            self._pending_offload = (handle, metrics)
+        else:
+            self._host_offload_update(handle, metrics)
+
+    def _host_offload_update(self, handle, metrics):
+        """The host half (JAX :1337-1420) in the calling thread."""
+        self._host_offload_finish(self._host_offload_compute(handle, metrics["lr"]), metrics)
+
+    def _host_offload_compute(self, handle, lr):
+        """The host half's host work, which touches no device stream (a DPU
+        step runs it on a worker thread): land the d2h of the gradients and
+        the skip flag, then, unless the step is skipped, widen them and run
+        the native Adam, whose copy-back writes the payload image.  Returns
+        ``(skip, times)``."""
+        from .zero import wire
+        t0 = time.perf_counter()
+        wire.d2h_flat_land(handle.handle)
+        t1 = time.perf_counter()
+        times = {"land_wait_s": t1 - t0, "d2h_s": wire.seconds(handle.handle)}
+        skip = bool(self._skip_host[0])
+        if not skip:
+            flat = self._offload.widen()
+            t2 = time.perf_counter()
+            self._offload.step(flat, self._host_opt_steps + 1, lr)
+            times.update(widen_s=t2 - t1, host_step_s=time.perf_counter() - t2)
+        return skip, times
+
+    def _host_offload_finish(self, result, metrics):
+        """The host half's stream work, on the calling thread: the upload
+        of the payload into the stage and its copy into the params, and the
+        step counters."""
+        skip, times = result
+        if skip:
+            self._skipped_steps += 1
+        else:
+            self._host_opt_steps += 1
+            # the stage's last reader is the copy into the params below
+            landed = self._h2d.upload(self._offload.payload, self._param_stage,
+                                      after=self._settled_event)
+            # the copy into the params goes behind the replays already on the compute
+            # stream, which read the old params; the next replay reads the new ones
+            if landed is not None:
+                torch.cuda.current_stream(self.device).wait_event(landed)
+            with torch.no_grad():
+                self._offload.copy_into(self.params, self._param_stage)
+            self._settled_event = self._copies.event()
+            self._optimizer_steps += 1
+            times["upload"] = self._h2d.last
+        self.offload_times = times
+
+    def _flush_offload(self):
+        """Apply a pending DPU step, so exported or evaluated state reflects
+        every batch seen (JAX :1927-1941)."""
+        if self._offload is not None and self._pending_offload is not None:
+            pending, self._pending_offload = self._pending_offload, None
+            self._host_offload_update(*pending)
+
+    def offload_state(self):
+        """The host tier after a flush: ``{"master", "exp_avg",
+        "exp_avg_sq"}``, flat fp32 numpy arrays (views, not copies)."""
+        self._flush_offload()
+        m, v = self._offload.moments()
+        return {"master": self._offload.master, "exp_avg": m, "exp_avg_sq": v}
 
     def _apply_curriculum(self, mb):
         """Crop a host micro-batch to the difficulty of the coming step
@@ -614,15 +876,18 @@ class DeepSpeedEngine:
 
     def eval_batch(self, batch, rng=None):
         """The loss of ``batch`` (host arrays) without gradients or update."""
+        self._flush_offload()
         batch = tree_map(lambda a: torch.as_tensor(np.asarray(a)).to(self.device), batch)
         with torch.no_grad():
             return self._loss_fn(self.params, batch, 0 if rng is None else int(rng))
 
-    def deepspeed_io(self, dataset):
+    def deepspeed_io(self, dataset, collate_fn=None):
         """The config-driven loader (micro-batches of
-        ``train_micro_batch_size_per_gpu`` samples)."""
+        ``train_micro_batch_size_per_gpu`` samples; ``collate_fn`` batches
+        the samples of a dataset that is not columnar, JAX :2003-2015)."""
         return DeepSpeedDataLoader(dataset, batch_size=self.train_micro_batch_size_per_gpu(),
-                                   drop_last=self.config.dataloader_drop_last)
+                                   drop_last=self.config.dataloader_drop_last,
+                                   collate_fn=collate_fn)
 
     # ------------------------------------------------------------- accessors
     @property
@@ -693,6 +958,7 @@ class DeepSpeedEngine:
         and ``latest`` and ``keep_n`` rotation follow: a kill at any
         instant leaves the previous checkpoints intact or the new tag whole.
         A failed write raises after the ``io_retry`` policy."""
+        self._flush_offload()
         tag = tag or f"global_step{self.global_steps}"
         retry = self.config.io_retry_config.policy()
         fsync = self.config.checkpoint_config.fsync
@@ -706,7 +972,12 @@ class DeepSpeedEngine:
         save_tree(os.path.join(path, MODEL_FILE), {"params": self.params},
                   meta=self._engine_meta(client_state), fsync=False, retry=retry)
         fault.site("ckpt.after_model_file")
-        optim_tree = {"opt_state": self.opt_state}
+        if self._offload is not None:
+            # the host tier in the in-device layout (JAX :2231-2238)
+            optim_tree = {"opt_state": self._offload.moments_tree(),
+                          "master": self._offload.master_tree()}
+        else:
+            optim_tree = {"opt_state": self.opt_state}
         if self.master is not None:
             optim_tree["master"] = self.master
         if self.scale is not None:
@@ -741,6 +1012,7 @@ class DeepSpeedEngine:
                          retry=None):
         """The params in the compute dtype, with meta ``{"dtype": ...}``
         (JAX :2300)."""
+        self._flush_offload()
         os.makedirs(save_dir, exist_ok=True)
         path = os.path.join(save_dir, save_filename)
         save_tree(path, {"params": self.params}, meta={"dtype": self.config.precision_dtype},
@@ -829,10 +1101,52 @@ class DeepSpeedEngine:
         with torch.no_grad():
             tree_map(put, dst_tree, src_tree)
 
+    def _load_device(self, loaded_params, optim_tree):
+        """The in-device state from a checkpoint, copied in place."""
+        self._copy_into(self.params, loaded_params, "params")
+        if self.master is not None:
+            # the master follows the loaded params now; the optimizer file's
+            # master, when loaded, overwrites it below
+            self._copy_into(self.master, loaded_params, "master")
+        if optim_tree is not None:
+            self._copy_into(self.opt_state,
+                            restore_like(self.opt_state, optim_tree["opt_state"]), "opt_state")
+            if "master" in optim_tree and self.master is not None:
+                self._copy_into(self.master, restore_like(self.master, optim_tree["master"]),
+                                "master")
+            self._load_scale(optim_tree)
+
+    def _load_scale(self, optim_tree):
+        if "scale" in optim_tree and self.scale is not None:
+            # an engine without a scaler ignores the tree, as JAX does
+            self._copy_into(self.scale, restore_like(self.scale, optim_tree["scale"]), "scale")
+        # comm_error (qgZ error feedback) is ignored: this engine keeps none
+
+    def _load_offload(self, loaded_params, optim_tree):
+        """The host tier from a checkpoint (JAX :2505-2534): the master from
+        the params (then from the optimizer file's master where it has
+        one), the moments from its ``opt_state``, and the params uploaded
+        from the refreshed payload image."""
+        off = self._offload
+        self._h2d.wait()                  # no upload still reads the image
+        off.load_state(master_tree=loaded_params)
+        if optim_tree is not None:
+            opt = optim_tree["opt_state"]
+            master = optim_tree.get("master")
+            off.load_state(master_tree=None if master is None else restore_like(
+                self.params, master), m=restore_like(self.params, opt["exp_avg"]),
+                v=restore_like(self.params, opt["exp_avg_sq"]))
+            self._load_scale(optim_tree)
+        flat = off.payload.to(self.device)
+        with torch.no_grad():
+            off.copy_into(self.params, flat)
+
     def load_checkpoint(self, load_dir, tag=None, load_module_only=False,
                         load_optimizer_states=True, load_lr_scheduler_states=True):
         """Load a manifest-verified checkpoint into the engine's tensors in
         place (JAX :2465).  Returns ``(path, client_state)``."""
+        # a pending delayed update is superseded by the loaded state (JAX :2472-2474)
+        self._pending_offload = None
         tag = self._resolve_checkpoint_tag(load_dir, tag)
         path = self._get_ckpt_name(load_dir, tag)
         retry = self.config.io_retry_config.policy()
@@ -847,25 +1161,15 @@ class DeepSpeedEngine:
                 raise NotImplementedError(f"checkpoint optimizer keys {extra} are not ported")
         self.loaded_checkpoint_tag = tag
         loaded_params = restore_like(self.params, model_tree["params"])
-        self._copy_into(self.params, loaded_params, "params")
-        if self.master is not None:
-            # the master follows the loaded params now; the optimizer file's
-            # master, when loaded, overwrites it below
-            self._copy_into(self.master, loaded_params, "master")
-        if optim_tree is not None:
-            self._copy_into(self.opt_state,
-                            restore_like(self.opt_state, optim_tree["opt_state"]), "opt_state")
-            if "master" in optim_tree and self.master is not None:
-                self._copy_into(self.master, restore_like(self.master, optim_tree["master"]),
-                                "master")
-            if "scale" in optim_tree and self.scale is not None:
-                # an engine without a scaler ignores the tree, as JAX does
-                self._copy_into(self.scale, restore_like(self.scale, optim_tree["scale"]),
-                                "scale")
-            # comm_error (qgZ error feedback) is ignored: this engine keeps none
+        if self._offload is not None:
+            self._load_offload(loaded_params, optim_tree)
+        else:
+            self._load_device(loaded_params, optim_tree)
         self._global_steps = int(meta["global_steps"])
         self._optimizer_steps.fill_(int(meta["optimizer_steps"]))
         self._skipped_steps.fill_(int(meta["skipped_steps"]))
+        if self._offload is not None:
+            self._host_opt_steps = int(meta["optimizer_steps"])
         if self.health is not None:
             # a fresh EMA: the loaded run must not inherit the loss statistics
             # of the steps just discarded (init_state's zeros, in place)

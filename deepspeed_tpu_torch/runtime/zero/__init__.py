@@ -1,2 +1,3 @@
-"""ZeRO (counterpart of ``deepspeed_tpu/runtime/zero``; only the config
-is ported: on one device stages 0-2 share one placement)."""
+"""ZeRO (counterpart of ``deepspeed_tpu/runtime/zero``): the config (stages
+0-3 share one placement on one device), and the optimizer offload tier
+(``offload_engine.py``, ``wire.py``)."""

@@ -1,0 +1,203 @@
+"""ZeRO-Offload's host optimizer tier, on one card over PCIe.
+
+Counterpart of ``deepspeed_tpu/runtime/zero/offload_engine.py`` (lines
+39-320: ``HostOffloadOptimizer``, ``FlatWireHandle``).  The card computes
+the gradients (unscaled, clipped, flattened into one buffer); this object
+owns, on the host, the flat fp32 master and the Adam moments, split into
+``sub_group_size`` groups, runs the repo's native fused step
+(``ops/adam/cpu_adam.py`` over ``csrc/adam/ds_cpu_adam.cpp``) group by
+group, and keeps the compute-dtype payload image that the engine uploads:
+one host sweep a step, the transfers at the step boundary only.
+
+Host buffers: ``master``, ``m`` and ``v`` (numpy fp32, first-touched at
+build), the fp32 gradient buffer ``grad32`` the step reads and, on the
+wire, the landing buffer ``landing`` of the wire dtype (bf16 under bf16,
+as JAX moves 16-bit gradients; fp32 otherwise) and the ``payload`` image
+of the compute dtype, both pinned on a card.  bf16 gradients are widened
+into ``grad32`` by the native ``ds_bf16_to_fp32``; fp32 ones land in it
+directly.  The fused step writes the bf16 / fp16 image in its own pass
+(``out16``); an fp32 image is the master copied after the step.
+
+Checkpoint layout: :meth:`master_tree` and :meth:`moments_tree` rebuild
+the parameter tree (the in-device ``AdamState``'s ``exp_avg`` /
+``exp_avg_sq`` paths), so offload and in-device checkpoints load into
+each other, and into the JAX package's engines.
+
+Deliberate differences: the NVMe tier (moments swapped through
+``swap_tensor``), the streamed-parameter layout (``consume_params``) and
+the sparse-gradient wire are not ported (ROADMAP item 7b); the d2h and
+h2d are the engine's (``runtime/zero/wire.py``), and
+:class:`FlatWireHandle` holds the handle of a started d2h into
+:attr:`HostOffloadOptimizer.landing`.
+"""
+
+import numpy as np
+import torch
+
+from ...ops.adam.cpu_adam import DeepSpeedCPUAdam, host_memcpy, widen_bf16
+from ...utils.logging import log_dist
+from ..utils import tree_leaves, tree_map
+from . import wire
+
+OUT_DTYPE = {torch.bfloat16: "bfloat16", torch.float16: "float16", torch.float32: None}
+
+
+def _fill(template, leaves):
+    """``template``'s structure with leaves taken from the iterator
+    ``leaves`` in :func:`tree_leaves` order (dict keys sorted)."""
+    if isinstance(template, dict):
+        out = {k: _fill(template[k], leaves) for k in sorted(template)}
+        return {k: out[k] for k in template}
+    if isinstance(template, (tuple, list)):
+        items = [_fill(t, leaves) for t in template]
+        return type(template)(*items) if hasattr(template, "_fields") else type(template)(items)
+    return next(leaves)
+
+
+class FlatWireHandle:
+    """A started d2h of the flat gradient buffer into
+    :attr:`HostOffloadOptimizer.landing` (``wire.d2h_flat_start``'s
+    handle)."""
+
+    def __init__(self, handle):
+        self.handle = handle
+
+
+class HostOffloadOptimizer:
+    """The host master, moments and payload image of ``params0`` (a tree
+    of tensors or numpy arrays)."""
+
+    def __init__(self, params0, zero_config, *, optimizer_name, optimizer_params,
+                 compute_dtype, device):
+        p = dict(optimizer_params or {})
+        p.pop("torch_adam", None)
+        # FusedAdam's default (adam_w_mode=True): the same rule with and without offload
+        adam_w_mode = p.pop("adam_w_mode", True)
+        self.opt = DeepSpeedCPUAdam(adamw_mode=True if optimizer_name == "adamw"
+                                    else adam_w_mode, **p)
+        self.compute_dtype = compute_dtype
+        self.out_dtype = OUT_DTYPE[compute_dtype]
+        self.wire_dtype = torch.bfloat16 if compute_dtype == torch.bfloat16 else torch.float32
+        self.device = torch.device(device)
+
+        # ---- the flat layout of the master, in tree_leaves order
+        self._template = tree_map(lambda _: None, params0)    # the structure alone
+        leaves = tree_leaves(params0)
+        self.shapes = [tuple(leaf.shape) for leaf in leaves]
+        sizes = [int(np.prod(s or (1,))) for s in self.shapes]
+        self.offsets = np.concatenate([[0], np.cumsum(sizes)]).astype(np.int64)
+        self.numel = int(self.offsets[-1])
+        self.master = np.empty(self.numel, np.float32)
+        for leaf, off, n in zip(leaves, self.offsets, sizes):
+            if isinstance(leaf, torch.Tensor):
+                leaf = leaf.detach().to("cpu", torch.float32).numpy()
+            self.master[off:off + n] = np.asarray(leaf, np.float32).ravel()
+
+        sg = int(zero_config.sub_group_size)
+        bounds = list(range(0, self.numel, sg)) + [self.numel]
+        self.sub_groups = [(bounds[i], bounds[i + 1]) for i in range(len(bounds) - 1)]
+        self.m, self.v = self.opt.init_buffers(self.numel)
+        self.m.fill(0.0)           # first touch now, not inside the first step
+        self.v.fill(0.0)
+
+        # ---- the wire's host buffers
+        wire16 = self.wire_dtype != torch.float32
+        self.grad32 = wire.pinned(self.numel, torch.float32,
+                                  self.device if not wire16 else "cpu")
+        self.landing = (wire.pinned(self.numel, self.wire_dtype, self.device) if wire16
+                        else self.grad32)
+        self.payload = wire.pinned(self.numel, compute_dtype, self.device)
+        for buf in (self.grad32, self.landing):
+            buf.zero_()
+        self.refresh_payload()
+        log_dist(f"host offload optimizer: {self.numel} params, {len(self.sub_groups)} "
+                 f"sub-group(s), wire {self.wire_dtype}, payload {compute_dtype}, "
+                 f"pinned {self.payload.is_pinned()}", ranks=[0])
+
+    # ------------------------------------------------------------- payload
+    def refresh_payload(self):
+        """Re-encode the whole payload image from the master (build and
+        load; a step updates it through the fused copy-back)."""
+        self.payload.copy_(torch.from_numpy(self.master))
+
+    @property
+    def pinned_bytes(self):
+        return sum(b.numel() * b.element_size() for b in {id(x): x for x in (
+            self.grad32, self.landing, self.payload)}.values() if b.is_pinned())
+
+    # ---------------------------------------------------------- gradients
+    def widen(self):
+        """The landed gradients as fp32: ``grad32``, widened from the bf16
+        landing buffer where the wire is bf16."""
+        if self.landing is not self.grad32:
+            widen_bf16(self.landing, self.grad32)
+        return self.grad32
+
+    # ---------------------------------------------------------------- step
+    def step(self, flat_grads, step_no, lr):
+        """One fused host Adam step over every sub-group, in place; the
+        payload image follows."""
+        g = flat_grads.numpy() if isinstance(flat_grads, torch.Tensor) else flat_grads
+        out16 = self.payload if self.out_dtype is not None else None
+        for s, e in self.sub_groups:
+            self.opt.step_flat(self.master[s:e], g[s:e], self.m[s:e], self.v[s:e], step_no,
+                               lr=lr, out16=None if out16 is None else out16[s:e],
+                               out_dtype=self.out_dtype)
+        if out16 is None:
+            host_memcpy(self.payload.data_ptr(), self.master.ctypes.data, self.master.nbytes)
+
+    # --------------------------------------------------------- checkpoints
+    def _unflatten(self, flat):
+        it = iter(torch.from_numpy(flat[off:off + int(np.prod(s or (1,)))].reshape(s).copy())
+                  for off, s in zip(self.offsets, self.shapes))
+        return _fill(self._template, it)
+
+    def _unflatten_like(self, flat):
+        """The parameter tree as owned tensors cut from ``flat`` (a flat
+        tensor of the layout, on any device)."""
+        it = iter(flat[off:off + int(np.prod(s or (1,)))].view(s).clone()
+                  for off, s in zip(self.offsets, self.shapes))
+        return _fill(self._template, it)
+
+    def copy_into(self, tree, flat):
+        """Copy ``flat`` (the layout, on ``tree``'s device) into the leaves
+        of ``tree`` in place."""
+        for leaf, off in zip(tree_leaves(tree), self.offsets):
+            leaf.copy_(flat[off:off + leaf.numel()].view(leaf.shape))
+
+    def master_tree(self):
+        return self._unflatten(self.master)
+
+    def moments(self):
+        """(exp_avg, exp_avg_sq), flat fp32."""
+        return self.m, self.v
+
+    def moments_tree(self):
+        """The moments in the parameter tree's layout (the in-device
+        ``AdamState``'s paths, so checkpoints cross)."""
+        return {"exp_avg": self._unflatten(self.m), "exp_avg_sq": self._unflatten(self.v)}
+
+    def _to_flat(self, tree):
+        leaves = tree_leaves(tree)
+        if len(leaves) == 1 and np.ndim(leaves[0]) == 1 and np.size(leaves[0]) == self.numel:
+            leaves = [leaves[0]]
+        out = np.empty(self.numel, np.float32)
+        o = 0
+        for leaf in leaves:
+            a = (leaf.detach().to("cpu", torch.float32).numpy()
+                 if isinstance(leaf, torch.Tensor) else np.asarray(leaf, np.float32))
+            out[o:o + a.size] = a.ravel()
+            o += a.size
+        if o != self.numel:
+            raise ValueError(f"a tree of {o} elements for {self.numel} parameters")
+        return out
+
+    def load_state(self, master_tree=None, m=None, v=None):
+        """Copy a master tree and / or moment trees (or flat buffers) in
+        place; the payload image follows the master."""
+        if master_tree is not None:
+            np.copyto(self.master, self._to_flat(master_tree))
+        if m is not None and v is not None:
+            np.copyto(self.m, self._to_flat(m))
+            np.copyto(self.v, self._to_flat(v))
+        self.refresh_payload()

@@ -10,7 +10,13 @@ tokens, with an initial scale of 2^24 (the first steps overflow) and a
 ``loss_scale_window`` of 3 (the scale grows again within the run).  The
 scale, the hysteresis and the skipped steps are equal at every step.  No
 step's largest |gradient x scale| lies within 1% of 65504 in either
-package, so the overflow decisions cannot part on a rounding.  The
+package, so the overflow decisions cannot part on a rounding.  That
+guard reads the final gradients only, so the draws here must also keep
+every partial sum of an fp16 reduction below 65504: JAX's fp16 bias
+gradients accumulate in fp16 and overflow where a partial sum passes it
+while the final one does not (ROADMAP section C;
+``test_fp16_bias_gradient_partial_sum_stays_finite`` holds the port's
+sums there).  The
 losses agree within LOSS_RTOL = 2^-11 relative, fp16's unit roundoff u:
 the loss is an fp32 mean over fp32 logits of fp16 activations, which XLA
 and PyTorch's CPU kernels round after each op from sums in another order,
@@ -399,3 +405,17 @@ def test_plain_fp16_forward_and_gradients_match_jax_interpret(causal):
         assert leaf.grad.dtype == torch.float16
         np.testing.assert_allclose(leaf.grad.float().numpy(), np.asarray(jg, np.float32),
                                    rtol=0, atol=FP16_ATOL, err_msg=f"d{name}")
+
+
+def test_fp16_bias_gradient_partial_sum_stays_finite():
+    """ROADMAP section C, item 1: the bias gradient of ``x + b`` with x fp16
+    (8, 32, 4) and a cotangent of 128 rows of +1000, then 128 of -600.  The
+    exact sum is 51200, and its partial sums pass 65504 on the way.  The
+    port's torch reduction accumulates fp16 in fp32: 51200 exactly.  JAX's
+    vjp of the same expression returns inf (its fp16 reduction overflows at
+    the partial sum); the port does not mirror that fault."""
+    x = torch.zeros(8, 32, 4, dtype=torch.float16, requires_grad=True)
+    b = torch.zeros(4, dtype=torch.float16, requires_grad=True)
+    ct = torch.cat([torch.full((128, 4), 1000.0), torch.full((128, 4), -600.0)])
+    (x + b).backward(ct.to(torch.float16).reshape(8, 32, 4))
+    assert torch.equal(b.grad, torch.full((4,), 51200.0, dtype=torch.float16))

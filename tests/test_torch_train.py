@@ -114,10 +114,11 @@ def test_config_fields_match_jax(pd):
 
 @pytest.mark.parametrize("pd,world_size", [
     ({"train_batch_size": 32}, 4),
-    ({"train_batch_size": 8, "zero_optimization": {"stage": 3}}, 1),
     ({"train_batch_size": 8, "zero_optimization": {
-        "stage": 2, "offload_optimizer": {"device": "cpu"}}}, 1),
-    ({"train_batch_size": 8, "zero_optimization": {"stage": 2, "cpu_offload": True}}, 1),
+        "stage": 3, "offload_param": {"device": "cpu"}}}, 1),
+    ({"train_batch_size": 8, "zero_optimization": {
+        "stage": 2, "offload_optimizer": {"device": "nvme", "nvme_path": "/tmp/x"}}}, 1),
+    ({"train_batch_size": 8, "zero_optimization": {"stage": 2, "cpu_offload_params": True}}, 1),
     ({"train_batch_size": 8, "eigenvalue": {"enabled": True}}, 1),
     ({"train_batch_size": 8, "optimizer": {"type": "OneBitAdam", "params": {}}}, 1),
     ({"train_batch_size": 8, "monitor": {"enabled": True}}, 1),
