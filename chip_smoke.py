@@ -2268,6 +2268,7 @@ BERT_CONFIG = {
 BERT_STEP1_LOSS_TOL = 1e-3        # absolute
 BERT_STEP1_GNORM_TOL = 2e-3       # relative
 BERT_FIT_MARGIN = 0.5             # fixed-batch loss fall over 20 steps
+BERT_TIMED = 5                    # phase 8's timed steps a pass, as phase 18's
 
 
 class PlainSparseAttention(SparseSelfAttention):
@@ -3709,6 +3710,7 @@ def check_path_seeds(dev, seeds=(23, 24, 25), B=1, H=8, d=64):
 
 CKPT_WARMUP_STEPS = 10      # phase 15's WarmupLR warm-up: the lr moves at every step it runs
 CKPT_TIMED = 3              # saves and loads timed in phase 15 (the median is reported)
+CKPT_LAYERS = 2             # phase 15's depth: GPT-2 350M's width at 2 of its 24 layers
 
 
 def host_rss_bytes():
@@ -3820,9 +3822,9 @@ def same_batches(tag, got, want):
 
 
 def checkpoint_resume(dev, card, preset="gpt2-350m", seq=1024, micro=8, steps=3,
-                      timed=CKPT_TIMED, new=8):
+                      timed=CKPT_TIMED, new=8, n_layer=CKPT_LAYERS):
     """Phase 15: training -> save -> resume -> serve at phase 5's
-    configuration with WarmupLR.  Run A trains ``steps`` steps, saves,
+    configuration with WarmupLR, cut to ``n_layer`` layers (full width).  Run A trains ``steps`` steps, saves,
     trains ``steps`` more, reloads its own checkpoint and repeats them (the
     repeat difference); run B, from other weights (seed 1), loads the
     checkpoint and trains the same steps.  Returns the phase's figures."""
@@ -3835,7 +3837,7 @@ def checkpoint_resume(dev, card, preset="gpt2-350m", seq=1024, micro=8, steps=3,
     def model():
         return GPT2(preset=preset, max_seq=seq, dtype=torch.bfloat16, device=dev,
                     embd_pdrop=0.0, attn_pdrop=0.0, resid_pdrop=0.0, remat=False,
-                    attention_impl="flash")
+                    attention_impl="flash", n_layer=n_layer)
 
     def engine(seed):
         m = model()
@@ -3905,7 +3907,8 @@ def checkpoint_resume(dev, card, preset="gpt2-350m", seq=1024, micro=8, steps=3,
         if load_diff > repeat_diff:
             raise AssertionError(f"steps {steps + 2}-{2 * steps} after load differ by "
                                  f"{load_diff!r}, a repeat by {repeat_diff!r}")
-        print(f"checkpoint {preset} T={seq} micro {micro} bf16 zero1 WarmupLR: {n_leaves} "
+        print(f"checkpoint {preset} ({n_layer} layers) T={seq} micro {micro} bf16 zero1 "
+              f"WarmupLR: {n_leaves} "
               f"leaves (params, master, exp_avg, exp_avg_sq) torch.equal after load and after "
               f"the repeat's reload; counters, lr {counters['lr']!r}, loader "
               f"{counters['loader']} equal; steps {steps + 1}-{2 * steps} losses A {run1} "
@@ -3918,9 +3921,9 @@ def checkpoint_resume(dev, card, preset="gpt2-350m", seq=1024, micro=8, steps=3,
         # serving from the checkpoint against the in-memory weights of step `steps`
         ids = np.random.default_rng(15).integers(0, vocab, (2, 32))
         ref = InferenceEngine(GPT2(preset=preset, max_seq=seq, dtype=torch.bfloat16,
-                                   device=dev), params=ref_params)
+                                   device=dev, n_layer=n_layer), params=ref_params)
         ck = InferenceEngine(GPT2(preset=preset, max_seq=seq, dtype=torch.bfloat16,
-                                  device=dev), checkpoint=save_dir)
+                                  device=dev, n_layer=n_layer), checkpoint=save_dir)
         for x, y in zip(tree_leaves(ref.params), tree_leaves(ck.params)):
             if not torch.equal(x, y):
                 raise AssertionError("InferenceEngine(checkpoint=) params differ")
@@ -4005,7 +4008,7 @@ def checkpoint_resume(dev, card, preset="gpt2-350m", seq=1024, micro=8, steps=3,
                    "repeat_diff": repeat_diff, "load_diff": load_diff,
                    "losses": {"a": run1, "repeat": run2, "b": run_b}}
         parts = lambda d: ", ".join(f"{k} {v:.3f}" for k, v in d.items())
-        print(f"checkpoint timing {preset}: model file {sizes[MODEL_FILE]} B, optim file "
+        print(f"checkpoint timing {preset} ({n_layer} layers): model file {sizes[MODEL_FILE]} B, optim file "
               f"{sizes[OPTIM_FILE]} B; save (fsync, sha256 manifest, commit) median "
               f"{figures['save_s']:.3f} s of {[round(x, 3) for x in save_s]} (medians: "
               f"{parts(figures['save_parts_s'])}); load (full verify, warm page cache) median "
@@ -4989,6 +4992,7 @@ LOOP_CURRICULUM = {"enabled": True, "curriculum_type": "seqlen", "min_difficulty
                    "max_difficulty": 1024, "schedule_type": "fixed_linear",
                    "schedule_config": {"total_curriculum_step": 14, "difficulty_step": 128}}
 LOOP_PLD = {"enabled": True, "theta": 0.5, "gamma": 0.001}
+LOOP_LAYERS = 8             # phase 19's depth: GPT-2 350M's width at 8 of its 24 layers
 
 
 def curriculum_expected(cfg, step):
@@ -4999,8 +5003,9 @@ def curriculum_expected(cfg, step):
     return min(d - d % sc["difficulty_step"], hi)
 
 
-def train_loop(dev, card, preset="gpt2-350m", seq=1024, micro=8):
-    """Phase 19 on phase 5's configuration at gas LOOP_GAS, captured: (a)
+def train_loop(dev, card, preset="gpt2-350m", seq=1024, micro=8, n_layer=LOOP_LAYERS):
+    """Phase 19 on phase 5's configuration at gas LOOP_GAS, cut to
+    ``n_layer`` layers (full width), captured: (a)
     ``forward`` / ``backward`` / ``step`` against ``train_batch`` from the
     same state on the same micro-batches, LOOP_STEPS steps: losses and grad
     norms bit-equal, the shim's engine one graph (one capture, a replay a
@@ -5014,10 +5019,10 @@ def train_loop(dev, card, preset="gpt2-350m", seq=1024, micro=8):
     theta beside its formula."""
     vocab = GPT2(preset=preset, device=dev).config.vocab_size
     tokens = np.random.default_rng(0).integers(0, vocab, (64, seq + 1)).astype(np.int32)
-    np_params = GPT2(preset=preset, max_seq=seq, device=dev).init_numpy(seed=0)
+    np_params = GPT2(preset=preset, max_seq=seq, device=dev, n_layer=n_layer).init_numpy(seed=0)
     make = lambda config, m=micro: train_engine(dev, np_params, tokens, "flash", preset, seq, m,
                                                 config=dict(config, gradient_accumulation_steps=
-                                                            LOOP_GAS))
+                                                            LOOP_GAS), n_layer=n_layer)
     mbs = [(tokens[i * micro:(i + 1) * micro],) for i in range(LOOP_STEPS * LOOP_GAS)]
     feeds = [mbs[s * LOOP_GAS:(s + 1) * LOOP_GAS] for s in range(LOOP_STEPS)]
     gc.collect()
@@ -5044,7 +5049,8 @@ def train_loop(dev, card, preset="gpt2-350m", seq=1024, micro=8):
     if any((a, ga) != (b, gb) for a, ga, b, gb, _ in rows) or (
             g["graphs"], g["captures"], g["replays"]) != want:
         raise AssertionError(f"phase 19 shim: {rows}, graphs {g}")
-    print(f"train {preset} T={seq} micro {micro} gas {LOOP_GAS} bf16: forward/backward/step "
+    print(f"train {preset} ({n_layer} layers) T={seq} micro {micro} gas {LOOP_GAS} bf16: "
+          f"forward/backward/step "
           f"vs train_batch from the same state, {LOOP_STEPS} steps: losses and grad norms "
           f"bit-equal {[(round(a, 6), round(ga, 6)) for a, ga, *_ in rows]}; forward's eval "
           f"losses {[[round(x, 4) for x in e] for *_, e in rows]}; the shim's engine "
@@ -5083,7 +5089,8 @@ def train_loop(dev, card, preset="gpt2-350m", seq=1024, micro=8):
         theta = float(eng.progressive_layer_drop.get_theta())
         formula = (1.0 - LOOP_PLD["theta"]) * math.exp(-LOOP_PLD["gamma"] * CURRICULUM_STEPS) \
             + LOOP_PLD["theta"]
-        print(f"train {preset} micro {m} gas {LOOP_GAS} curriculum fixed_linear 128 -> 1024 "
+        print(f"train {preset} ({n_layer} layers) micro {m} gas {LOOP_GAS} curriculum "
+              f"fixed_linear 128 -> 1024 "
               f"step 128 over {CURRICULUM_STEPS} steps, past graphs {label}: (seqlen, loss, "
               f"reserved GB over the start) "
               + ", ".join(f"({q}, {x:.4f}, {r:.2f})" for q, x, r in steps)
@@ -5104,7 +5111,7 @@ def train_loop(dev, card, preset="gpt2-350m", seq=1024, micro=8):
 # 20. graded config 3: GPT-2 1.3B at ZeRO-3 with the optimizer offloaded to the host
 OFFLOAD_PRESET = "gpt2-1.3b"
 OFFLOAD_GAS = 8
-OFFLOAD_PASSES, OFFLOAD_TIMED = 3, 3     # timed passes of timed steps, each impl
+OFFLOAD_PASSES, OFFLOAD_TIMED = 3, 2     # timed passes of timed steps, each impl
 OFFLOAD_REF_STEPS = 3                    # the in-device reference's steps
 OFFLOAD_RACE_STEPS = 4                   # the eager DPU engine's steps, against the captured
 CHUNK_BYTES = 64 << 20                   # the JAX package's wire chunk, timed beside one copy
@@ -5605,6 +5612,588 @@ def small_checks(dev, card, preset=SMALL_PRESET, seq=1024, micro=8):
     print(f"phase 21: {time.perf_counter() - t0:.1f} s")
 
 
+# 22. the health ladder: skip -> rewind -> abort at GPT-2 125M, ZeRO-2, captured
+LADDER_PRESET = "gpt2-125m"
+LADDER_HEALTH = {"consecutive_skip_budget": 2, "rewind_limit": 3}
+LADDER_WINDOW = "grad_nan=3:8"     # JAX tests/test_health.py:405-441: 5 poisoned stream steps
+LADDER_PASSES, LADDER_TIMED = 3, 10
+CHIP_TMP = os.path.join(os.path.dirname(os.path.abspath(__file__)), ".chip_tmp")
+
+
+def gated_engine(dev, params, data, config, preset, seq=1024, step_impl="auto", remat=False):
+    """An engine whose batch is ``(tokens, gate)`` and whose loss is the
+    model's times ``mean(gate)``: the gate is ones, so the loss is the
+    model's bit for bit, and ``fault.corrupt_batch``'s ``grad_nan`` (which
+    poisons float leaves only) makes it NaN."""
+    model = GPT2(preset=preset, max_seq=seq, dtype=torch.bfloat16, device=dev,
+                 attention_impl="flash", remat=remat, embd_pdrop=0.0, attn_pdrop=0.0,
+                 resid_pdrop=0.0)
+    return deepspeed_tpu_torch.initialize(
+        config=config, model=model, params=params, training_data=data, step_impl=step_impl,
+        loss_fn=lambda p, b, r: model.loss(p, b[0], r) * b[1].mean())[0]
+
+
+def ladder_config(micro, health, ckpt_dir=None, **over):
+    cfg = dict(TRAIN_CONFIG, train_micro_batch_size_per_gpu=micro,
+               zero_optimization={"stage": 2}, **over)
+    if health is not None:
+        cfg["health_check"] = health
+    if ckpt_dir is not None:
+        cfg["checkpoint"] = {"dir": ckpt_dir}
+    return cfg
+
+
+def device_state(eng):
+    """Clones of the params and the master, on the card."""
+    return [t.clone() for t in tree_leaves(eng.params) + tree_leaves(eng.master)]
+
+
+def same_state(eng, state):
+    return all(torch.equal(a, b) for a, b in zip(
+        tree_leaves(eng.params) + tree_leaves(eng.master), state))
+
+
+def ladder_run(make, ckpt_dir, per_step):
+    """JAX's rewind scenario on ``make()``: 3 steps, a save as "good", the
+    grad_nan window over stream steps 3-7 and 9 steps, then 3 clean steps.
+    Each skipped step that no rewind followed must leave the params and
+    the master bit-unchanged.  Returns the readings."""
+    fa.reset_launches()
+    eng = make()
+    runs0 = kernel_runs(eng)
+    times = {"rewind": []}
+    rewind = eng.rewind
+
+    def timed_rewind(*args, **kwargs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = rewind(*args, **kwargs)
+        torch.cuda.synchronize()
+        times["rewind"].append(time.perf_counter() - t0)
+        return out
+    eng.rewind = timed_rewind
+    losses = [float(eng.train_batch()) for _ in range(3)]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    eng.save_checkpoint(ckpt_dir, tag="good")
+    times["save"] = time.perf_counter() - t0
+    good = device_state(eng)
+    fault.configure(LADDER_WINDOW)
+    skipped_same, streams = [], []
+    try:
+        for _ in range(9):
+            before, rewinds = device_state(eng), eng.health_monitor.rewinds
+            losses.append(float(eng.train_batch()))
+            streams.append(eng._stream_step)
+            if bool(eng._last_metrics["skip"]) and eng.health_monitor.rewinds == rewinds:
+                skipped_same.append(same_state(eng, before))
+            del before
+    finally:
+        fault.reset()
+    mon = eng.health_monitor
+    state = {"rewinds": mon.rewinds, "tag": eng.loaded_checkpoint_tag,
+             "stream_step": eng._stream_step, "global_steps": eng.global_steps,
+             "counters": mon.counters()}
+    after = [float(eng.train_batch()) for _ in range(3)]
+    skip_after = bool(eng._last_metrics["skip"])
+    moved = not same_state(eng, good)
+    # eager, a step is a kernel run (global_steps, which the rewinds moved back, is not)
+    captured = eng.step_impl == "graph" and eng.device.type == "cuda"
+    runs = kernel_runs(eng) - runs0 if captured else len(losses) + len(after)
+    check_launches(f"ladder {eng.step_impl}", dict(fa.launches), per_step, runs)
+    out = {"losses": losses, "after": after, "state": state, "skipped_same": skipped_same,
+           "streams": streams, "moved": moved, "skip_after": skip_after, "times": times,
+           "runs": runs, "graphs": eng.stats()["graphs"]}
+    del eng, good
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def ladder_abort(make, steps):
+    """One clean step, then grad_nan from stream step 1 on: the step at
+    which ``TrainingHealthError`` comes, its message and its forensic
+    payload."""
+    eng = make()
+    eng.train_batch()
+    fault.configure("grad_nan=1:1000")
+    try:
+        for n in range(1, steps + 1):
+            eng.train_batch()
+        raise AssertionError(f"ladder: no TrainingHealthError in {steps} poisoned steps")
+    except deepspeed_tpu_torch.TrainingHealthError as e:
+        path = e.forensic_path
+        with open(path) as f:
+            payload = json.load(f)
+        return {"step": n, "msg": str(e), "path": path, "payload": payload}
+    finally:
+        fault.reset()
+        del eng
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+def ladder_timing(make, dev):
+    """LADDER_PASSES passes of LADDER_TIMED steps, synchronised once a pass
+    (the monitor's read of step t-1 must not wait on step t): the step p50
+    over the passes' mean step times, and the share of steps whose
+    ``train_batch`` returned with the card still busy."""
+    eng = make()
+    for _ in range(3):
+        eng.train_batch()
+    torch.cuda.synchronize()
+    rows, busy = [], 0
+    for _ in range(LADDER_PASSES):
+        t0 = time.perf_counter()
+        for _ in range(LADDER_TIMED):
+            eng.train_batch()
+            busy += dev.type == "cuda" and not torch.cuda.current_stream(dev).query()
+        torch.cuda.synchronize()
+        rows.append((time.perf_counter() - t0) * 1e3 / LADDER_TIMED)
+    skipped = eng.skipped_steps
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    if skipped:
+        raise AssertionError(f"ladder timing: {skipped} skipped steps")
+    return statistics.median(rows), rows, busy / (LADDER_PASSES * LADDER_TIMED)
+
+
+def health_ladder(dev, card, preset=LADDER_PRESET, seq=1024, micro=8):
+    """Phase 22: the health guardian's ladder at GPT-2 125M (graded config
+    2's model), full width and depth, T=1024, micro 8, bf16, ZeRO-2,
+    captured, with ``checkpoint.dir`` under ``.chip_tmp/`` and
+    ``health_check`` LADDER_HEALTH: JAX's rewind scenario
+    (``ladder_run``), captured and eager, bit-equal in losses, rewinds and
+    stream positions; ``rewind_limit: 0`` raising ``TrainingHealthError``
+    with a forensic file whose history holds the skips; the default
+    ``health_check`` (no ladder key, no checkpoint directory) aborting
+    with "rewind failed" after 10 consecutive skips, as JAX does; exact
+    flash launches (12 of each sm90 kernel a step run, skipped and
+    replayed steps included, 0 on the templates); save and rewind
+    seconds; the step p50 with the ladder armed (the default) against
+    ``consecutive_skip_budget: 0``."""
+    t_phase = time.perf_counter()
+    model = GPT2(preset=preset, max_seq=seq, device=dev)
+    c = model.config
+    head_dim = c.n_embd // c.n_head
+    per_step = {name: c.n_layer for name in (fa.dense_fwd_kernel(torch.bfloat16, head_dim),
+                                             *fa.dense_bwd_kernel(torch.bfloat16, head_dim))}
+    n = 64
+    data = (np.random.default_rng(0).integers(0, c.vocab_size, (n, seq + 1)).astype(np.int32),
+            np.ones((n,), np.float32))
+    params = model.init_numpy(seed=0)
+    os.makedirs(CHIP_TMP, exist_ok=True)       # a fresh checkout has none
+    root = tempfile.mkdtemp(prefix="ladder_", dir=CHIP_TMP)
+    cwd = os.getcwd()
+    try:
+        runs = {}
+        for impl in ("graph", "eager"):
+            d = os.path.join(root, impl)
+            runs[impl] = ladder_run(lambda: gated_engine(
+                dev, params, data, ladder_config(micro, LADDER_HEALTH, d), preset, seq,
+                step_impl=impl), d, per_step)
+        g, e = runs["graph"], runs["eager"]
+        st = g["state"]
+        print(f"ladder {preset} T={seq} micro {micro} bf16 zero2 {LADDER_HEALTH} "
+              f"{LADDER_WINDOW}: captured {st}; losses {[round(x, 6) for x in g['losses']]}, "
+              f"after {[round(x, 6) for x in g['after']]}; stream steps {g['streams']}; "
+              f"skipped steps with no rewind bit-unchanged {g['skipped_same']}; params moved "
+              f"from 'good' {g['moved']}; save {g['times']['save']:.3f} s, rewinds "
+              f"{[round(x, 3) for x in g['times']['rewind']]} s; launches per kernel run "
+              f"{per_step} over {g['runs']} runs ({g['graphs']['replays']} replays, "
+              f"{g['graphs']['warmups']} warm-ups); eager: {e['state']}, losses equal "
+              f"{np.array_equal(g['losses'] + g['after'], e['losses'] + e['after'], equal_nan=True)}"
+              f", stream steps equal {g['streams'] == e['streams']} ({card})")
+        if not (st["rewinds"] >= 1 and st["tag"] == "good" and st["stream_step"] > 8
+                and st["global_steps"] < st["stream_step"]):
+            raise AssertionError(f"ladder: {st}")
+        if not g["skipped_same"] or not all(g["skipped_same"]) or not g["moved"] \
+                or g["skip_after"] or not all(math.isfinite(x) for x in g["after"]):
+            raise AssertionError(f"ladder: skipped same {g['skipped_same']}, moved "
+                                 f"{g['moved']}, after {g['after']}")
+        if (e["state"] != st or g["streams"] != e["streams"] or not np.array_equal(
+                g["losses"] + g["after"], e["losses"] + e["after"], equal_nan=True)):
+            raise AssertionError(f"ladder captured {st} {g['losses']} != eager {e['state']} "
+                                 f"{e['losses']}")
+        if dev.type == "cuda" and g["graphs"]["graphs"] != 1:
+            raise AssertionError(f"ladder: the captured run holds {g['graphs']}")
+
+        # rewind_limit 0: abort with forensics
+        limit0 = dict(LADDER_HEALTH, rewind_limit=0, forensic_dir=os.path.join(root, "f0"))
+        ab = ladder_abort(lambda: gated_engine(dev, params, data,
+                                               ladder_config(micro, limit0), preset, seq), 6)
+        hist = ab["payload"]["history"]
+        # the default health_check: no ladder key, no checkpoint dir; forensics to the cwd
+        os.makedirs(os.path.join(root, "cwd"))
+        os.chdir(os.path.join(root, "cwd"))
+        df = ladder_abort(lambda: gated_engine(dev, params, data, ladder_config(micro, None),
+                                               preset, seq), 14)
+        os.chdir(cwd)
+        print(f"ladder rewind_limit 0: TrainingHealthError at poisoned step {ab['step']} "
+              f"({ab['msg'][:90]}...), forensics {os.path.basename(ab['path'])} with "
+              f"{sum(r['skip'] for r in hist)} skips in {len(hist)} records; default "
+              f"health_check: at poisoned step {df['step']} ({df['msg'][:60]}...), counters "
+              f"{df['payload']['counters']}")
+        if ab["step"] != 3 or sum(r["skip"] for r in hist) < 2 or \
+                "rewind limit spent" not in ab["msg"]:
+            raise AssertionError(f"ladder rewind_limit 0: {ab['step']} {ab['msg']} {hist}")
+        if df["step"] != 11 or "rewind failed" not in df["msg"] or \
+                df["payload"]["policy"]["consecutive_skip_budget"] != 10:
+            raise AssertionError(f"ladder default config: {df['step']} {df['msg']}")
+
+        # the ladder armed (the default) against a budget of 0 (never escalates)
+        armed = ladder_timing(lambda: gated_engine(dev, params, data,
+                                                   ladder_config(micro, None), preset, seq),
+                              dev)
+        unarmed = ladder_timing(lambda: gated_engine(
+            dev, params, data, ladder_config(micro, {"consecutive_skip_budget": 0}), preset,
+            seq), dev)
+        print(f"ladder step p50 (passes of {LADDER_TIMED} steps, one sync a pass): armed "
+              f"{armed[0]:.3f} ms {[round(x, 3) for x in armed[1]]} (card still busy when "
+              f"train_batch returned: {armed[2]:.2f} of steps), consecutive_skip_budget 0 "
+              f"{unarmed[0]:.3f} ms {[round(x, 3) for x in unarmed[1]]} ({unarmed[2]:.2f}); "
+              f"phase 22 {time.perf_counter() - t_phase:.1f} s ({card})")
+        return {"state": st, "save_s": g["times"]["save"], "rewind_s": g["times"]["rewind"],
+                "armed_ms": armed, "unarmed_ms": unarmed, "counts": dict(fa.launches)}
+    finally:
+        os.chdir(cwd)
+        fault.reset()
+        shutil.rmtree(root, ignore_errors=True)
+
+
+# 23. the NVMe tier: GPT-2 350M at ZeRO-3 with the Adam moments in swap files
+NVME_PRESET = "gpt2-350m"
+NVME_GAS = 8
+NVME_SUB_GROUP = int(5e7)
+NVME_CHECK_STEPS = 3                     # steps held bit for bit against the CPU tier
+NVME_PASSES, NVME_TIMED = 3, 2           # timed passes of timed steps, sync and DPU
+RAW_AIO_BYTES = 1 << 30
+
+
+def fs_of(path):
+    """(device, mount point, filesystem type) of ``path`` from /proc/mounts."""
+    path, best = os.path.realpath(path), ("?", "?", "?")
+    with open("/proc/mounts") as f:
+        for line in f:
+            dev, mnt, typ = line.split()[:3]
+            if (path == mnt or path.startswith(mnt.rstrip("/") + "/")) and \
+                    (best[1] == "?" or len(mnt) > len(best[1])):
+                best = (dev, mnt, typ)
+    return best
+
+
+def io_setup_works():
+    """Whether the kernel AIO syscalls that ``ds_aio.cpp`` uses are allowed
+    here (``io_setup`` / ``io_destroy`` through ``syscall``)."""
+    import ctypes
+    nr = {"x86_64": (206, 207), "aarch64": (0, 1)}.get(platform.machine())
+    if nr is None:
+        return None
+    libc = ctypes.CDLL(None, use_errno=True)
+    ctx = ctypes.c_ulong(0)
+    if libc.syscall(nr[0], 8, ctypes.byref(ctx)) != 0:
+        return False
+    libc.syscall(nr[1], ctx)
+    return True
+
+
+def raw_aio_rates(path, aio):
+    """One 1 GiB aligned ``AsyncIOHandle`` sync write and read on ``path``,
+    twice: [(write GB/s, read GB/s)]; the data read back must equal."""
+    from deepspeed_tpu_torch.ops.aio import AsyncIOHandle
+    from deepspeed_tpu_torch.runtime.swap_tensor.utils import aligned_empty, is_aligned
+    h = AsyncIOHandle(**aio)
+    src, dst = aligned_empty(RAW_AIO_BYTES // 4), aligned_empty(RAW_AIO_BYTES // 4)
+    src.copy_(torch.arange(src.numel(), dtype=torch.float32))
+    if not (is_aligned(src) and is_aligned(dst)):
+        raise AssertionError("raw aio buffers are not aligned")
+    f = os.path.join(path, "raw_aio.swp")
+    rates = []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        h.sync_pwrite(src, f)
+        w = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        h.sync_pread(dst, f)
+        r = time.perf_counter() - t0
+        rates.append((RAW_AIO_BYTES / w / 1e9, RAW_AIO_BYTES / r / 1e9))
+    same = torch.equal(src, dst)
+    os.remove(f)
+    if not same:
+        raise AssertionError("raw aio: the data read back differs")
+    return rates
+
+
+def nvme_config(path=None, pipe=False, dpu=None, micro=8, gas=NVME_GAS):
+    """Phase 20's configuration (``offload_config``) at the NVMe tier:
+    ``offload_optimizer`` nvme under ``path`` (the CPU tier without one),
+    ``sub_group_size`` NVME_SUB_GROUP."""
+    cfg = offload_config(dpu=dpu, gas=gas, micro=micro)
+    off = cfg["zero_optimization"]["offload_optimizer"]
+    if path is not None:
+        off.update(device="nvme", nvme_path=path, pipeline_read=pipe, pipeline_write=pipe)
+    cfg["zero_optimization"]["sub_group_size"] = NVME_SUB_GROUP
+    return cfg
+
+
+def host_tier(eng):
+    """Copies of the host master and moments, and the device params on the host."""
+    off = eng._offload
+    m, v = off.moments()
+    return {"master": off.master.copy(), "m": np.array(m), "v": np.array(v),
+            "params": [t.detach().to("cpu", copy=True) for t in tree_leaves(eng.params)]}
+
+
+def same_tier(a, b):
+    return {k: (np.array_equal(a[k], b[k]) if k != "params" else
+                all(torch.equal(x, y) for x, y in zip(a[k], b[k]))) for k in a}
+
+
+def swap_stats(eng):
+    folder = eng._offload.swapper.swap_folder
+    return {f: (os.stat(os.path.join(folder, f)).st_size,
+                os.stat(os.path.join(folder, f)).st_mtime_ns) for f in sorted(os.listdir(folder))}
+
+
+def nvme_tier(dev, card, preset=NVME_PRESET, seq=1024, micro=8, gas=NVME_GAS):
+    """Phase 23: the NVMe tier at GPT-2 350M, full width and depth, T=1024,
+    micro 8, gas 8, bf16, remat, ZeRO-3 (phase 20's configuration at 350M)
+    with ``offload_optimizer`` nvme under ``.chip_tmp/nvme`` and
+    ``sub_group_size`` 5e7 (eight groups).  The filesystem under the path,
+    whether ``io_setup`` works, and a raw 1 GiB ``AsyncIOHandle`` write and
+    read there (the disk's own rate).  Hard checks: NVME_CHECK_STEPS sync
+    steps on the NVMe tier equal the CPU tier's bit for bit (losses,
+    master, moments, params); the pipelined tier equals the unpipelined
+    one bit for bit; a forced grad_nan step leaves the master, the
+    moments, the swap files (size and mtime) and the params unchanged;
+    DPU's master one step stale; every swap buffer aligned; exact flash
+    launches (384 / 192 / 192 a step run with remat).  Readings: sync and
+    DPU step p50 / p99 (NVME_PASSES passes of NVME_TIMED steps), tokens/s,
+    MFU, the host half's split (swap-in wait, Adam, swap-out submit and
+    wait, widening, d2h, h2d), bytes read and written a step and their
+    rate, the idle share, device peak and host RSS.  Raises when the disk
+    holds less than twice the bytes the phase writes; removes its files."""
+    from deepspeed_tpu_torch.runtime.swap_tensor.utils import aligned_numel, is_aligned
+    t_phase = time.perf_counter()
+    model = GPT2(preset=preset, max_seq=seq, device=dev)
+    c = model.config
+    head_dim = c.n_embd // c.n_head
+    fwd = fa.dense_fwd_kernel(torch.bfloat16, head_dim)
+    dkdv, dq = fa.dense_bwd_kernel(torch.bfloat16, head_dim)
+    per_step = {fwd: 2 * c.n_layer * gas, dkdv: c.n_layer * gas, dq: c.n_layer * gas}
+    n = micro * gas * 4
+    data = (np.random.default_rng(0).integers(0, c.vocab_size, (n, seq + 1)).astype(np.int32),
+            np.ones((n,), np.float32))
+    dev_params = draw_gpt2_params(model, dev, seed=0)
+    params = tree_map(lambda t: t.cpu().numpy(), dev_params)
+    del dev_params
+    torch.cuda.empty_cache()
+    numel = sum(a.size for a in tree_leaves(params))
+    groups = -(-numel // NVME_SUB_GROUP)
+    swap_bytes = sum(2 * 4 * aligned_numel(min(NVME_SUB_GROUP, numel - g * NVME_SUB_GROUP))
+                     for g in range(groups))
+    root = os.path.join(CHIP_TMP, "nvme")
+    os.makedirs(root, exist_ok=True)
+    free = shutil.disk_usage(root).free
+    need = 2 * (swap_bytes + RAW_AIO_BYTES)
+    fs = fs_of(root)
+    io_ok = io_setup_works()
+    print(f"nvme {preset}: {numel} params in {groups} groups, {swap_bytes} B of moments on "
+          f"disk; nvme_path {root} on {fs[2]} ({fs[0]} at {fs[1]}), {free / 1e9:.1f} GB free "
+          f"(need {need / 1e9:.1f}); io_setup {'works' if io_ok else 'refused'}"
+          + ("; tmpfs takes no O_DIRECT" if fs[2] == "tmpfs" else ""))
+    if free < need:
+        raise AssertionError(f"nvme: {free} B free under {root}, the phase needs {need}")
+    fpt = model.flops_per_token()
+    tokens_per_step = micro * gas * seq
+    rss = RssPeak()
+    rss.__enter__()
+    try:
+        from deepspeed_tpu_torch.runtime.config import DeepSpeedConfig
+        aio = DeepSpeedConfig(nvme_config(root)).aio_config
+        raw = raw_aio_rates(root, aio)
+        print(f"nvme raw AsyncIOHandle ({aio}) 1 GiB sync write / read GB/s, twice: {raw}")
+
+        def make(cfg, step_impl="auto"):
+            return gated_engine(dev, params, data, cfg, preset, seq, step_impl=step_impl,
+                                remat=True)
+
+        def steps(eng, k):
+            out = [(float(eng.train_batch()), eng.get_global_grad_norm()) for _ in range(k)]
+            torch.cuda.synchronize()
+            return out
+
+        # the CPU tier, then the NVMe tier unpipelined: bit for bit
+        torch.cuda.reset_peak_memory_stats()
+        cpu = make(nvme_config())
+        cpu_losses, cpu_state = steps(cpu, NVME_CHECK_STEPS), host_tier(cpu)
+        del cpu
+        gc.collect()
+        torch.cuda.empty_cache()
+        sync = make(nvme_config(os.path.join(root, "sync")))
+        bufs = [b.data for slot in sync._offload.swapper._bufs for b in slot.values()]
+        sync_losses, sync_state = steps(sync, NVME_CHECK_STEPS), host_tier(sync)
+        same_cpu = same_tier(sync_state, cpu_state)
+        aligned = all(is_aligned(b) for b in bufs) and len(bufs) > 0
+        # a forced grad_nan step: nothing on the host, the files or the card changes
+        files = swap_stats(sync)
+        fault.configure(f"grad_nan={NVME_CHECK_STEPS}")
+        try:
+            nan_loss = float(sync.train_batch())
+        finally:
+            fault.reset()
+        torch.cuda.synchronize()
+        nan_same = same_tier(host_tier(sync), sync_state)
+        files_same = swap_stats(sync) == files
+        nan_skipped = sync.skipped_steps == 1
+        del sync, cpu_state
+        gc.collect()
+        torch.cuda.empty_cache()
+        print(f"nvme {preset} sync vs the CPU tier, {NVME_CHECK_STEPS} steps: losses "
+              f"{sync_losses} vs {cpu_losses}, equal {sync_losses == cpu_losses}; state "
+              f"equal {same_cpu}; swap buffers 4096-aligned {aligned} ({len(bufs)}); a grad_nan "
+              f"step: loss {nan_loss}, skipped {nan_skipped}, state unchanged {nan_same}, swap "
+              f"files (size, mtime) unchanged {files_same}")
+        if sync_losses != cpu_losses or not all(same_cpu.values()) or not aligned:
+            raise AssertionError(f"nvme sync vs cpu tier: {same_cpu}, aligned {aligned}")
+        if not (nan_skipped and all(nan_same.values()) and files_same):
+            raise AssertionError(f"nvme grad_nan step: {nan_same}, files {files_same}")
+
+        # pipelined sync: bit for bit against unpipelined, then timed
+        masters = {}
+
+        def keep(eng, i):
+            if i == 1:
+                masters[1] = eng._offload.master.copy()
+        splits = []
+
+        def split(eng, i):
+            keep(eng, i)
+            off, t = eng._offload, eng.offload_times
+            if i > NVME_CHECK_STEPS and "host_step_s" in t:
+                nan = lambda x: float("nan") if x is None else x    # noqa: E731 (no events)
+                splits.append({**off.swap_times, "widen_s": t["widen_s"],
+                               "host_step_s": t["host_step_s"], "d2h_s": nan(t["d2h_s"]),
+                               "h2d_s": nan(wire.seconds(t["upload"])),
+                               "bytes": off.swap_bytes})
+        pipe_state = {}
+
+        def make_pipe():
+            eng = make(nvme_config(os.path.join(root, "pipe"), pipe=True))
+            masters[0] = eng._offload.master.copy()
+            return eng
+
+        def after_pipe(eng, i):
+            split(eng, i)
+            if i == NVME_CHECK_STEPS:
+                pipe_state.update(host_tier(eng))
+        rp = nvme_run(make_pipe, "nvme pipelined sync", per_step, card, tokens_per_step, fpt,
+                      after_pipe)
+        pipe_same = same_tier(pipe_state, sync_state)
+        pipe_losses = rp["losses"][:NVME_CHECK_STEPS]
+        del sync_state, pipe_state
+        gc.collect()
+        if pipe_losses != [x for x, _ in sync_losses] or not all(pipe_same.values()):
+            raise AssertionError(f"nvme pipelined {pipe_losses} vs sync {sync_losses}: "
+                                 f"{pipe_same}")
+
+        # DPU (warm-up 0): the master one step stale
+        lag = {}
+
+        def check_dpu(eng, i):
+            if i == 1:
+                lag[1] = np.array_equal(eng._offload.master, masters[0])
+            elif i == 2:
+                lag[2] = np.array_equal(eng._offload.master, masters[1])
+        rd = nvme_run(lambda: make(nvme_config(os.path.join(root, "dpu"), pipe=True, dpu=0)),
+                      "nvme pipelined dpu", per_step, card, tokens_per_step, fpt, check_dpu,
+                      check_steps=2)
+        masters.clear()
+        if lag != {1: True, 2: True}:
+            raise AssertionError(f"nvme DPU lag checks {lag}")
+        rss.__exit__(None, None, None)
+        sp = {k: statistics.mean(s[k] for s in splits) for k in splits[0] if k != "bytes"}
+        rb, wb = splits[-1]["bytes"]
+        io_s = sp["host_step_s"]
+        print(f"nvme host half a sync step (pipelined, mean of {len(splits)}): swap-in wait "
+              f"{sp['swap_in_wait_s']:.4f} s, Adam {sp['adam_s']:.4f} s, swap-out submit "
+              f"{sp['swap_out_s']:.4f} s and final wait {sp['swap_out_wait_s']:.4f} s (host step "
+              f"{io_s:.4f} s), widen {sp['widen_s']:.4f} s, d2h {sp['d2h_s']:.4f} s, h2d "
+              f"{sp['h2d_s']:.4f} s; {rb} B read and {wb} B written a step, "
+              f"{(rb + wb) / io_s / 1e9:.2f} GB/s over the host step (raw {raw}); DPU lag "
+              f"{lag}; DPU / sync step p50 {rd['p50'] / rp['p50']:.3f}; host RSS peak "
+              f"{rss.peak / 1e9:.1f} GB (base {rss.base / 1e9:.1f}); phase 23 "
+              f"{time.perf_counter() - t_phase:.1f} s ({card})")
+        return {"sync": rp, "dpu": rd, "split": sp, "bytes": (rb, wb), "raw": raw,
+                "fs": fs, "io_setup": io_ok, "rss_peak_gb": rss.peak / 1e9,
+                "seconds": time.perf_counter() - t_phase}
+    finally:
+        fault.reset()
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def nvme_run(make, tag, per_step, card, tokens_per_step, flops_per_token, after_step,
+             check_steps=NVME_CHECK_STEPS):
+    """One NVMe engine: ``check_steps`` steps (the first captures), then
+    NVME_PASSES passes of NVME_TIMED synchronised steps (p50 / p99,
+    tokens/s, MFU), exact launches, peak device memory, a profiled step's
+    busy time against the p50.  ``after_step(eng, i)`` runs after each
+    step (i from 1).  Returns the engine's figures."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fa.reset_launches()
+    t0 = time.perf_counter()
+    eng = make()
+    build_s = time.perf_counter() - t0
+    runs0 = kernel_runs(eng)
+    losses, rows, i = [], [], 0
+
+    def step():
+        nonlocal i
+        t = time.perf_counter()
+        loss = float(eng.train_batch())
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t
+        i += 1
+        after_step(eng, i)
+        losses.append((loss, eng.get_global_grad_norm()))
+        return dt
+    first_s = step()
+    for _ in range(check_steps - 1):
+        step()
+    for _ in range(NVME_PASSES):
+        ms = np.asarray([step() * 1e3 for _ in range(NVME_TIMED)])
+        tok_s = NVME_TIMED * tokens_per_step / (ms.sum() / 1e3)
+        rows.append((np.percentile(ms, 50), np.percentile(ms, 99), tok_s,
+                     tok_s * flops_per_token / PEAK_OPS["bf16"]))
+    counts, runs = dict(fa.launches), kernel_runs(eng) - runs0
+    check_launches(tag, counts, per_step, runs)
+    peak = torch.cuda.max_memory_allocated()
+    if not all(math.isfinite(x) for x, _ in losses) or eng.skipped_steps:
+        raise AssertionError(f"{tag}: losses {losses}, skipped {eng.skipped_steps}")
+    summary = {}
+    profile_steps(lambda: float(eng.train_batch()), tag, steps=1, unit="training step",
+                  summary=summary)
+    cols = list(zip(*rows))
+    p50 = statistics.median(cols[0])
+    busy_ms = summary.get("busy_us", float("nan")) / 1e3
+    print(f"{tag}: " + ", ".join(
+        f"{name} {statistics.median(col):.3f} (readings {', '.join(f'{x:.3f}' for x in col)})"
+        for name, col in zip(("step p50 ms", "step p99 ms", "tokens/s", "MFU"), cols))
+          + f"; profiled step busy {busy_ms:.3f} ms, idle {100 * (1 - busy_ms / p50):.1f}% "
+          f"of the step p50; launches per kernel run (expected {per_step}) "
+          + ", ".join(f"{n} {counts[n] // runs}" for n in per_step)
+          + f" over {runs} runs; peak device memory {peak / 1e9:.2f} GB; build {build_s:.1f} s,"
+          f" first step {first_s:.1f} s ({card})")
+    out = {"losses": [x for x, _ in losses], "p50": p50, "rows": rows, "busy_ms": busy_ms,
+           "peak_gb": peak / 1e9, "counts": counts, "runs": runs}
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false", file=sys.stderr)
@@ -5615,11 +6204,22 @@ def main():
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
     kind = torch.cuda.get_device_name(0)
+    seconds = {}
+    last = [t_start]
+
+    def phase_done(name):
+        """Print and keep the seconds since the previous phase ended."""
+        now = time.perf_counter()
+        seconds[name] = round(now - last[0], 1)
+        last[0] = now
+        print(f"phase seconds: {name} {seconds[name]} s (at {now - t_start:.1f} s)")
     card = setup()
+    phase_done("1 setup and build")
     gen = torch.Generator(device=dev).manual_seed(0)
     max_err = check_kernels(dev, gen)
     flash_err = check_flash_kernels(dev, gen)
     check_flash_grad(dev, gen)
+    phase_done("2 kernels vs plain")
 
     # 3. serving at full width: GPT-2 125M, bf16, random weights from a seed
     model = GPT2(preset="gpt2-125m", dtype=torch.bfloat16, device=dev)
@@ -5671,6 +6271,7 @@ def main():
         copy_device_time(by_name, tag)
     del srv16, srv8, engine
     torch.cuda.empty_cache()
+    phase_done("3-4 serving and paged timing")
 
     # 5. training at full width; 6. flash kernel timing at its shape
     phase5 = train(dev, card)
@@ -5681,11 +6282,12 @@ def main():
                  "replaces": REPLACES[name], "launches": train_launches[name],
                  **tf[name]} for name in fa.DENSE_KERNELS]
     torch.cuda.empty_cache()
+    phase_done("5-6 training and flash timing")
 
     # 7. sparse kernels vs plain; 8. BERT-large training; 9. sparse timing
     sparse_err = check_sparse_kernels(dev, gen)
     print(json.dumps({"sparse_sweep_max_abs_err": sparse_err}))
-    bert_launches, phase8 = bert_train(dev, card)
+    bert_launches, phase8 = bert_train(dev, card, timed=BERT_TIMED)
     ts, density = sparse_timing(dev, gen, bw, card)
     print(json.dumps({"sparse_timing": ts, "density": density}))
     # the kernels line: each kernel at the shape its main-path run gives it
@@ -5709,6 +6311,7 @@ def main():
         kernels.append({"name": f"{name} {KEY_BIAS}", "route": "cuda",
                         "source": flash_source(name), "replaces": REPLACES[f"{name} {KEY_BIAS}"],
                         "launches": bert_launches["8c"][name], **ts["dense+pad"][name]})
+    phase_done("7-9 sparse kernels, BERT-large, sparse timing")
 
     # 10. int8 kernels vs plain; 11. int8 serving of GPT-2 1.3B; 12. int8 timing
     int8_err = check_int8_kernels(dev, gen)
@@ -5721,6 +6324,7 @@ def main():
                         "replaces": REPLACES[name], "launches": int8_launches[name],
                         **ti[name]})
     torch.cuda.empty_cache()
+    phase_done("10-12 int8")
 
     # 13. banded and merged kernels vs plain, flash_attention_with_lse;
     # 14. the causal block-sparse path at the sparse workload, with timing
@@ -5736,14 +6340,17 @@ def main():
                         "replaces": REPLACES[name], "launches": band_launches[name],
                         **tb[name]})
     torch.cuda.empty_cache()
+    phase_done("13-14 banded, merged, sparse workload")
 
     # 15. checkpoints: train -> save -> resume -> serve at phase 5's configuration
     print(json.dumps({"checkpoint": checkpoint_resume(dev, card)}))
     torch.cuda.empty_cache()
+    phase_done("15 checkpoints")
 
     # 16. speculative serving: 125M bf16 (kv16, kv8), then 1.3B int8 weights
     print(json.dumps({"spec_int8_launches": spec_serving(dev, card, prompts)}))
     torch.cuda.empty_cache()
+    phase_done("16 speculative serving")
 
     # 17. fp16 training: the fp16 instances vs plain, phase 5's run in fp16, the GPT-2
     # model options, the fp16 instances' timing
@@ -5758,6 +6365,7 @@ def main():
         kernels.append({"name": f"{name} {FP16}", "route": "cuda", "source": flash_source(name),
                         "replaces": REPLACES[name], "launches": fp16_res["graph"]["counts"][name],
                         **t16[name]})
+    phase_done("17 fp16 training")
 
     # 17a+. fp16 on every other flash route vs plain, three seeds; its timings (17d)
     route_err, route_share = check_fp16_routes(dev)
@@ -5768,6 +6376,7 @@ def main():
                             cases=("tutorial16+pad", "tutorial16", "dense+pad"))
     tb16 = fp16_band_timing(dev, bw, card)
     torch.cuda.empty_cache()
+    phase_done("17a+ fp16 routes")
 
     # 18. BERT-large in fp16: the tutorial's sparse layout and its dense+padding twin
     bert16, _ = bert_fp16_train(dev, card, phase8)
@@ -5794,11 +6403,13 @@ def main():
                         "replaces": REPLACES[name], "launches": bert16["18"][name],
                         **tb16[f"{name} {FP16}"]})
     torch.cuda.empty_cache()
+    phase_done("18 BERT-large fp16")
 
     # 19. the imperative API, a seqlen curriculum and PLD on phase 5's configuration
     train_loop(dev, card)
     gc.collect()
     torch.cuda.empty_cache()
+    phase_done("19 loop, curriculum, PLD")
 
     # 20. graded config 3: GPT-2 1.3B, ZeRO-3, the optimizer on the host, DPU
     graded = graded_offload(dev, card)
@@ -5806,9 +6417,24 @@ def main():
         impl: {k: graded[impl][k] for k in ("p50", "device_ms", "split", "busy_ms", "peak_gb")}
         for impl in ("sync", "dpu")}}))
     torch.cuda.empty_cache()
+    phase_done("20 graded config 3")
 
     # 21. client objects, checkpointing under capture, an fp16 offload overflow (125M)
     small_checks(dev, card)
+    phase_done("21 small checks")
+
+    # 22. the health ladder at 125M; 23. the NVMe tier at 350M
+    ladder = health_ladder(dev, card)
+    print(json.dumps({"health_ladder": {k: ladder[k] for k in (
+        "state", "save_s", "rewind_s", "armed_ms", "unarmed_ms")}}))
+    phase_done("22 health ladder")
+    nvme = nvme_tier(dev, card)
+    print(json.dumps({"nvme_tier": {"sync": {k: nvme["sync"][k] for k in (
+        "p50", "rows", "busy_ms", "peak_gb")}, "dpu": {k: nvme["dpu"][k] for k in (
+            "p50", "rows", "busy_ms", "peak_gb")}, **{k: nvme[k] for k in (
+                "split", "bytes", "raw", "fs", "io_setup", "rss_peak_gb")}}}))
+    phase_done("23 NVMe tier")
+    print(json.dumps({"phase_seconds": seconds}))
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -105,12 +105,18 @@ def init_inference(model=None, **kwargs):
 
 
 def __getattr__(name):
-    """``deepspeed_tpu_torch.checkpointing`` (JAX ``__init__.py:12``),
-    imported at first use: importing the package stays light."""
+    """``deepspeed_tpu_torch.checkpointing`` (JAX ``__init__.py:12``) and
+    the health guardian's ``HealthMonitor`` / ``TrainingHealthError`` (JAX
+    ``__init__.py:15``), imported at first use: importing the package
+    stays light."""
     if name == "checkpointing":
         from .runtime.activation_checkpointing import checkpointing
         return checkpointing
+    if name in ("HealthMonitor", "TrainingHealthError"):
+        from .runtime import health
+        return getattr(health, name)
     raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
 
 
-__all__ = ["__version__", "initialize", "init_inference", "checkpointing"]
+__all__ = ["__version__", "initialize", "init_inference", "checkpointing", "HealthMonitor",
+           "TrainingHealthError"]

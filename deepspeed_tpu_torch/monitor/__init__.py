@@ -1,1 +1,1 @@
-"""Monitoring helpers of the port (the latency histogram)."""
+"""Monitoring helpers of the port (the latency histogram, the bounded ring)."""

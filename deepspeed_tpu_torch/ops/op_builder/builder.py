@@ -13,12 +13,17 @@ keyed by a hash of the sources, the flags and the host CPU's feature
 flags (``-march=native`` builds for them), so the same machine code runs
 here and under the JAX package's builder.
 
-Deliberate differences: one builder for the one library (the JAX
+:class:`AsyncIOBuilder` builds the repo's ``csrc/aio/ds_aio.cpp`` (the
+NVMe tier's kernel AIO over raw ``io_setup`` / ``io_submit``, with
+``O_DIRECT`` for aligned requests; JAX ``builder.py:129-158``) the same
+way, with ``-O3 -std=c++17 -fPIC -shared -pthread``, and types its C ABI
+(``ds_aio.cpp:338-403``); ``ops/aio`` wraps it.
+
+Deliberate differences: one builder for the Adam library (the JAX
 package registers ``cpu_adam``, ``cpu_adagrad`` and ``utils`` builders
 that all name it); a missing ``g++``, a missing source or a failed build
 raises (the JAX package's ``cpu_adam.py:37`` falls back to numpy; here
-nothing does); the async-IO builder (``csrc/aio``) is not ported
-(ROADMAP item 7b).
+nothing does).
 """
 
 import ctypes
@@ -40,6 +45,7 @@ c_i64 = ctypes.c_int64
 c_int = ctypes.c_int
 c_f32 = ctypes.c_float
 c_void = ctypes.c_void_p
+c_str = ctypes.c_char_p
 f32p = ctypes.POINTER(ctypes.c_float)
 u16p = ctypes.POINTER(ctypes.c_uint16)
 i64p = ctypes.POINTER(ctypes.c_int64)
@@ -55,12 +61,13 @@ def _cpu_flags():
         return ""
 
 
-class CPUAdamBuilder:
-    """``csrc/adam/ds_cpu_adam.cpp``, compiled once and loaded via ctypes
-    with every entry of the library typed."""
+class HostOpBuilder:
+    """One library of ``csrc/``, compiled once and loaded via ctypes with
+    every entry typed (``_declare``)."""
 
-    NAME = "cpu_adam"
-    SOURCES = ("adam/ds_cpu_adam.cpp",)     # relative to csrc/
+    NAME = None
+    SOURCES = ()                            # relative to csrc/
+    CFLAGS = CFLAGS
 
     def __init__(self):
         self._lib = None
@@ -69,14 +76,15 @@ class CPUAdamBuilder:
         return [CSRC_DIR / s for s in self.SOURCES]
 
     def cflags(self):
-        return list(CFLAGS)
+        return list(self.CFLAGS)
 
     def lib_path(self):
         h = hashlib.sha256()
         for s in self.sources():
             h.update(s.read_bytes())
         h.update(" ".join(self.cflags()).encode())
-        h.update(_cpu_flags().encode())
+        if "-march=native" in self.cflags():
+            h.update(_cpu_flags().encode())
         return BUILD_DIR / f"{self.NAME}-{h.hexdigest()[:16]}.so"
 
     def jit_build(self):
@@ -110,23 +118,63 @@ class CPUAdamBuilder:
         """Build if needed and return the ctypes library with typed symbols."""
         if self._lib is None:
             lib = ctypes.CDLL(str(self.jit_build()))
-            lib.ds_adam_step.argtypes = [f32p, f32p, f32p, f32p, c_i64, c_i64, c_f32, c_f32,
-                                         c_f32, c_f32, c_f32, c_int, c_int, u16p, c_int]
-            lib.ds_adam_step.restype = c_int
-            lib.ds_adagrad_step.argtypes = [f32p, f32p, f32p, c_i64, c_f32, c_f32, c_f32,
-                                            u16p, c_int]
-            lib.ds_adagrad_step.restype = c_int
-            lib.ds_adagrad_step_sparse.argtypes = [f32p, i64p, f32p, f32p, c_i64, c_i64,
-                                                   c_f32, c_f32, c_f32, u16p, c_int]
-            lib.ds_adagrad_step_sparse.restype = c_int
-            lib.ds_memcpy.argtypes = [c_void, c_void, c_i64]
-            lib.ds_memcpy.restype = c_int
-            lib.ds_fp32_to_bf16.argtypes = [f32p, u16p, c_i64]
-            lib.ds_fp32_to_bf16.restype = c_int
-            lib.ds_bf16_to_fp32.argtypes = [u16p, f32p, c_i64]
-            lib.ds_bf16_to_fp32.restype = c_int
+            self._declare(lib)
             self._lib = lib
         return self._lib
+
+
+class CPUAdamBuilder(HostOpBuilder):
+    """``csrc/adam/ds_cpu_adam.cpp``: Adam(W), Adagrad, the memcpy and bf16
+    sweeps."""
+
+    NAME = "cpu_adam"
+    SOURCES = ("adam/ds_cpu_adam.cpp",)
+
+    @staticmethod
+    def _declare(lib):
+        lib.ds_adam_step.argtypes = [f32p, f32p, f32p, f32p, c_i64, c_i64, c_f32, c_f32,
+                                     c_f32, c_f32, c_f32, c_int, c_int, u16p, c_int]
+        lib.ds_adam_step.restype = c_int
+        lib.ds_adagrad_step.argtypes = [f32p, f32p, f32p, c_i64, c_f32, c_f32, c_f32,
+                                        u16p, c_int]
+        lib.ds_adagrad_step.restype = c_int
+        lib.ds_adagrad_step_sparse.argtypes = [f32p, i64p, f32p, f32p, c_i64, c_i64,
+                                               c_f32, c_f32, c_f32, u16p, c_int]
+        lib.ds_adagrad_step_sparse.restype = c_int
+        lib.ds_memcpy.argtypes = [c_void, c_void, c_i64]
+        lib.ds_memcpy.restype = c_int
+        lib.ds_fp32_to_bf16.argtypes = [f32p, u16p, c_i64]
+        lib.ds_fp32_to_bf16.restype = c_int
+        lib.ds_bf16_to_fp32.argtypes = [u16p, f32p, c_i64]
+        lib.ds_bf16_to_fp32.restype = c_int
+
+
+class AsyncIOBuilder(HostOpBuilder):
+    """``csrc/aio/ds_aio.cpp``: the ``dsaio_*`` handle (create / destroy,
+    sync and async pread / pwrite, wait, the accessors)."""
+
+    NAME = "async_io"
+    SOURCES = ("aio/ds_aio.cpp",)
+    CFLAGS = ("-O3", "-std=c++17", "-fPIC", "-shared", "-pthread")
+
+    @staticmethod
+    def _declare(lib):
+        lib.dsaio_create.argtypes = [c_i64, c_int, c_int, c_int, c_int]
+        lib.dsaio_create.restype = c_void
+        lib.dsaio_destroy.argtypes = [c_void]
+        lib.dsaio_destroy.restype = None
+        for sym, res in (("dsaio_sync_pread", c_i64), ("dsaio_sync_pwrite", c_i64),
+                         ("dsaio_async_pread", c_int), ("dsaio_async_pwrite", c_int)):
+            fn = getattr(lib, sym)
+            fn.argtypes = [c_void, c_str, c_void, c_i64, c_i64]
+            fn.restype = res
+        for sym, res in (("dsaio_wait", c_i64), ("dsaio_block_size", c_i64),
+                         ("dsaio_queue_depth", c_int), ("dsaio_single_submit", c_int),
+                         ("dsaio_overlap_events", c_int), ("dsaio_thread_count", c_int),
+                         ("dsaio_pending_count", c_i64)):
+            fn = getattr(lib, sym)
+            fn.argtypes = [c_void]
+            fn.restype = res
 
 
 _builder = CPUAdamBuilder()

@@ -7,12 +7,16 @@ over the same JSON dicts.  Resolved here: the batch triple
 the dynamic or static loss scaler), ``optimizer``, ``scheduler``,
 ``gradient_clipping``, ``steps_per_print``, ``dataloader_drop_last``,
 ``data_types.grad_accum_dtype``, ``zero_optimization`` (stages 0-3 and
-the optimizer offload block, ``zero/config.py``), the
+the optimizer offload block to the host or NVMe, ``zero/config.py``), the
+``aio`` block (JAX ``AIO_DEFAULT_DICT`` updated by the section,
+``config.py:887-888``), the
 ``activation_checkpointing`` block (JAX ``config.py:82-100``, read by
 ``activation_checkpointing/checkpointing.py``'s ``configure``), the
 ``checkpoint`` and ``io_retry`` blocks (``DeepSpeedCheckpointConfig`` /
 ``DeepSpeedIORetryConfig``, JAX ``config.py:873-874``), the
-``health_check`` block's device sentinels, ``sparse_attention`` (the
+``health_check`` block (the device sentinels and the host escalation
+ladder, with JAX's validation and its ``DSTPU_HEALTH_CHECK`` override of
+``enabled``), ``sparse_attention`` (the
 JSON section as a dict, default ``None``, as ``config.py:886`` stores it;
 the caller builds the layout with ``build_sparsity_config``), and the
 ``curriculum_learning`` and ``progressive_layer_drop`` blocks
@@ -20,13 +24,12 @@ the caller builds the layout with ``build_sparsity_config``), and the
 ``config.py:258-271``: the same keys and defaults).
 
 What the port does not run raises ``NotImplementedError`` instead of
-being ignored: world size > 1, the NVMe tier and parameter offload
-(``zero/config.py``, ``aio``, ``sparse_gradients``: ROADMAP item 7b),
+being ignored: world size > 1, parameter offload (``zero/config.py``)
+and ``sparse_gradients`` (ROADMAP item 7c),
 ``fp16.master_weights_and_grads`` (a no-op key in the JAX package, whose
 fp32 master is unconditional), an optimizer other than Adam, AdamW, Lamb,
 SGD and Adagrad
-(the 1-bit ones), the health guardian's host escalation
-ladder, and every other block of the JAX config surface (monitor,
+(the 1-bit ones), and every other block of the JAX config surface (monitor,
 compile cache, comms compression, eigenvalue, ...) set to
 anything but off.  So is a key the JAX package does not
 know.  ``prescale_gradients`` / ``gradient_predivide_factor`` and the
@@ -52,7 +55,7 @@ PORTED_KEYS = {
     C.PRESCALE_GRADIENTS, C.GRADIENT_PREDIVIDE_FACTOR, C.DATA_TYPES,
     C.DATALOADER_DROP_LAST, C.ZERO_OPTIMIZATION, C.HEALTH_CHECK, C.SPARSE_ATTENTION,
     C.CHECKPOINT, C.IO_RETRY, C.CURRICULUM_LEARNING, C.PROGRESSIVE_LAYER_DROP,
-    C.ACTIVATION_CHECKPOINTING,
+    C.ACTIVATION_CHECKPOINTING, C.AIO,
 }
 
 
@@ -97,32 +100,53 @@ class DeepSpeedFP16Config:
 
 
 class DeepSpeedHealthCheckConfig:
-    """``health_check``: the device sentinels (``skip_nonfinite``, the EMA
-    loss-spike z-score) drive the branchless skip-step; the host ladder
-    keys (rewind / abort) raise when set to anything but their default."""
+    """``health_check`` (JAX ``config.py:396-463``): the device sentinels
+    (``skip_nonfinite``, the EMA loss-spike z-score) drive the branchless
+    skip-step, and the host ladder (``runtime/health.py``'s
+    ``HealthMonitor``) escalates a run of ``consecutive_skip_budget``
+    skips to a rewind, and ``rewind_limit`` spent rewinds to
+    ``on_exhausted`` (abort with forensics, or warn).  The same keys,
+    defaults and checks; ``DSTPU_HEALTH_CHECK`` overrides ``enabled``
+    either way."""
 
     def __init__(self, param_dict):
+        import os
         h = param_dict.get(C.HEALTH_CHECK) or {}
         unknown = sorted(set(h) - set(C.HEALTH_DEFAULTS))
         if unknown:
             raise DeepSpeedConfigError(f"health_check: unknown keys {unknown}")
-        ladder = sorted(k for k in C.HEALTH_LADDER_KEYS
-                        if k in h and h[k] != C.HEALTH_DEFAULTS[k])
-        if ladder:
-            raise NotImplementedError(f"health_check {ladder}: the host escalation "
-                                      "ladder (rewind / abort) is not ported")
-        get = lambda k: h.get(k, C.HEALTH_DEFAULTS[k])
+        get = lambda k: h.get(k, C.HEALTH_DEFAULTS[k])  # noqa: E731
         self.enabled = bool(get("enabled"))
+        env = os.environ.get(C.HEALTH_CHECK_ENV)
+        if env:
+            self.enabled = env.lower() in ("1", "true", "yes")
         self.skip_nonfinite = bool(get("skip_nonfinite"))
         self.spike_window = int(get("spike_window"))
         self.spike_zmax = float(get("spike_zmax"))
         self.skip_on_spike = bool(get("skip_on_spike"))
+        self.consecutive_skip_budget = int(get("consecutive_skip_budget"))
+        self.rewind_limit = int(get("rewind_limit"))
+        self.on_exhausted = get("on_exhausted")
+        self.check_interval = int(get("check_interval"))
+        self.history = int(get("history"))
+        self.forensic_dir = get("forensic_dir")
         if self.spike_window < 2:
             raise DeepSpeedConfigError("health_check.spike_window must be >= 2")
         if self.spike_zmax < 0:
             raise DeepSpeedConfigError("health_check.spike_zmax must be >= 0")
         if self.skip_on_spike and self.spike_zmax <= 0:
             raise DeepSpeedConfigError("health_check.skip_on_spike needs spike_zmax > 0")
+        if self.consecutive_skip_budget < 0:
+            raise DeepSpeedConfigError("health_check.consecutive_skip_budget must be >= 0")
+        if self.rewind_limit < 0:
+            raise DeepSpeedConfigError("health_check.rewind_limit must be >= 0")
+        if self.on_exhausted not in C.HEALTH_ON_EXHAUSTED_MODES:
+            raise DeepSpeedConfigError(f"health_check.on_exhausted must be one of "
+                                       f"{C.HEALTH_ON_EXHAUSTED_MODES}")
+        if self.check_interval < 1:
+            raise DeepSpeedConfigError("health_check.check_interval must be >= 1")
+        if self.history < 1:
+            raise DeepSpeedConfigError("health_check.history must be >= 1")
 
 
 class DeepSpeedCheckpointConfig:
@@ -311,6 +335,8 @@ class DeepSpeedConfig:
         if self.fp16_enabled and self.bf16_enabled:
             raise DeepSpeedConfigError("fp16 and bf16 cannot both be enabled")
         self.health_check = DeepSpeedHealthCheckConfig(pd)
+        self.aio_config = dict(C.AIO_DEFAULT_DICT)
+        self.aio_config.update(pd.get(C.AIO) or {})
         self.checkpoint_config = DeepSpeedCheckpointConfig(pd)
         self.io_retry_config = DeepSpeedIORetryConfig(pd)
         self.curriculum = DeepSpeedCurriculumConfig(pd)

@@ -105,16 +105,17 @@ HEALTH_DEFAULTS = {
     "spike_window": 50,          # EMA horizon (steps) of the loss statistics
     "spike_zmax": 0.0,           # 0 = spike detection off
     "skip_on_spike": False,
-    # the host escalation ladder (skip -> rewind -> abort), not ported:
-    "consecutive_skip_budget": 10,
-    "rewind_limit": 4,
+    # the host escalation ladder (skip -> rewind -> abort):
+    "consecutive_skip_budget": 10,  # 0 = never escalate past skipping
+    "rewind_limit": 4,              # rewinds a poison episode
     "on_exhausted": "abort",
-    "check_interval": 1,
-    "history": 64,
-    "forensic_dir": None,
+    "check_interval": 1,            # the monitor trails the device by N steps
+    "history": 64,                  # the forensic ring's length (steps)
+    "forensic_dir": None,           # None: checkpoint.dir, else the working directory
 }
-HEALTH_LADDER_KEYS = ("consecutive_skip_budget", "rewind_limit", "on_exhausted",
-                      "check_interval", "history", "forensic_dir")
+HEALTH_ON_EXHAUSTED_MODES = ["abort", "warn"]
+# the environment override of health_check.enabled (set by the launcher's --health-check)
+HEALTH_CHECK_ENV = "DSTPU_HEALTH_CHECK"
 
 # Top-level keys of the JAX config surface that the port does not run yet,
 # with the value that means "off".  A dict block is off when it is empty
@@ -123,11 +124,20 @@ UNPORTED = {
     "amp": {}, "flops_profiler": {},
     "tensorboard": {}, "monitor": {}, "analysis": {}, "pipeline": {}, "eigenvalue": {},
     "quantize_training": {}, "compile_cache": {}, "comms_compression": {}, "mesh": {},
-    "sequence_parallel": {}, "elasticity": {}, "aio": {}, "autotuning": {},
+    "sequence_parallel": {}, "elasticity": {}, "autotuning": {},
     "sparse_gradients": False, "communication_data_type": None,
     "disable_allgather": False, "dump_state": False, "wall_clock_breakdown": False,
     "memory_breakdown": False,
 }
 # why a block of UNPORTED is refused, where a ROADMAP item names it
-UNPORTED_WHY = {"aio": "ROADMAP item 7b: the NVMe tier",
-                "sparse_gradients": "ROADMAP item 7b: the sparse-gradient offload wire"}
+UNPORTED_WHY = {"sparse_gradients": "ROADMAP item 7c: the sparse-gradient offload wire"}
+
+# aio: the NVMe tier's async-IO handles (ops/aio over csrc/aio)
+AIO = "aio"
+AIO_DEFAULT_DICT = {
+    "block_size": 1048576,
+    "queue_depth": 8,
+    "thread_count": 1,
+    "single_submit": False,
+    "overlap_events": True,
+}

@@ -22,6 +22,28 @@ accessors, and checkpoints (JAX :2154-2628): ``save_checkpoint``,
 monotonic data-stream index ``_stream_step`` and passes the host
 micro-batches through ``fault.corrupt_batch`` (JAX :1409-1430).
 
+The health guardian's host ladder (JAX :181-194, :1594-1598,
+:1733-1853): with ``health_check.enabled`` (the default) the engine
+builds a ``HealthMonitor`` and feeds it each step's metrics after
+``train_batch`` and after a boundary ``step()`` (``_health_observe``);
+the monitor reads them ``check_interval`` steps later (the metrics are
+clones of the step's outputs, so a later replay does not overwrite
+them).  A run of ``consecutive_skip_budget`` skipped steps rewinds in
+process (``_health_rewind`` → :meth:`rewind`): ``load_checkpoint`` of
+the newest valid tag under ``checkpoint.dir`` (or the last directory
+saved to or loaded from), then the data stream fast-forwarded past the
+last poisoned batch, by an O(1) jump of the loader's ``(epoch,
+batch_index)`` where the engine owns a ``RepeatingLoader`` over a
+``DeepSpeedDataLoader``, else batch by batch; a rewind that runs straight
+back into skips doubles the stride.  ``rewind_limit`` spent rewinds, or
+a rewind that cannot run (no checkpoint directory), end in
+``on_exhausted``: ``TrainingHealthError`` with a forensic JSON file
+(``_health_abort``), or a warning.  Every state a rewind restores is
+restored in place (``load_checkpoint``), so the captured step graphs
+stay valid; ``save_checkpoint`` flushes the monitor's lag window, and
+``load_checkpoint`` drops a pending DPU step, resets the monitor's
+consecutive count and pending entries, and restores the stream position.
+
 As in the JAX engine, gradients are taken with respect to the fp32
 master through its cast to the compute dtype (``_micro_loss_fn``), and a
 step whose loss, gradients or updated parameters are non-finite (or
@@ -162,10 +184,16 @@ not the updated params (the host updates them); the engine logs so.
 Difference: the lr of step k is ``lr_fn(k)`` under DPU too (JAX reads its
 device step counter, which lags by the pending step there).
 
-Not ported: the streamed-parameter path, the NVMe tier, the sparse
-gradient wire (ROADMAP item 7b), ZeRO across ranks, the health monitor's
-host ladder (and so rewind), monitoring (the config raises for each) and
-the 1-bit optimizers.
+The NVMe tier (``offload_optimizer: {"device": "nvme", "nvme_path":
+...}``, JAX :333-406): the host tier with its Adam moments in swap files
+(``runtime/zero/offload_engine.py`` over ``runtime/swap_tensor`` and
+``ops/aio``), built with the ``aio`` block's handles and the
+``io_retry`` policy; the step, DPU's worker thread and checkpoints go
+through the swap files, and checkpoints keep the in-device layout.
+
+Not ported: the streamed-parameter path, the sparse gradient wire
+(ROADMAP item 7c), ZeRO across ranks, monitoring (the config raises for
+each) and the 1-bit optimizers.
 """
 
 import time
@@ -311,6 +339,16 @@ class DeepSpeedEngine:
             self._data_iterator = iter(RepeatingLoader(self.training_dataloader))
         self._rng_seed = int(rng_seed)
         self._stream_step = 0             # monotonic data-stream batch index
+        self._last_batch_index = None     # the stream index of the running step
+        # whether _stream_step and the engine's iterator agree (a rewind's
+        # fast-forward needs it): lost to an external data_iter or a load
+        # without the loader's state
+        self._stream_pos_known = True
+        self._ff_stride = 1               # a same-episode rewind's fast-forward stride
+        self._last_ckpt_dir = self.config.checkpoint_config.dir
+        self.health_monitor = (hmod.HealthMonitor(self._health_cfg)
+                               if self._health_enabled else None)
+        self._sentinel_ring, self._sentinel_slot = None, 0   # pinned copies the monitor reads
         self.loaded_checkpoint_tag = None
         self.micro_steps = 0
         self.global_samples = 0
@@ -385,7 +423,8 @@ class DeepSpeedEngine:
         self._dpu_warmup = 0
         self._pending_offload = None      # (wire handle, metrics) of DPU's pending step
         off = self.config.zero_config.offload_optimizer
-        if off is None or off.device != "cpu" or isinstance(self.optimizer, DummyOptim):
+        if (off is None or off.device not in ("cpu", "nvme")
+                or isinstance(self.optimizer, DummyOptim)):
             return
         if client_optimizer is not None:
             raise ValueError(OFFLOAD_CLIENT_ERROR)
@@ -398,7 +437,8 @@ class DeepSpeedEngine:
         self._offload = HostOffloadOptimizer(
             params, self.config.zero_config, optimizer_name=name,
             optimizer_params=self.config.optimizer_params, compute_dtype=self.compute_dtype,
-            device=self.device)
+            device=self.device, aio_config=self.config.aio_config,
+            retry=self.config.io_retry_config.policy())
         if self._health_enabled and self._health_cfg.skip_nonfinite:
             # JAX :1240-1244: the update runs on the host, so no params sentinel
             log_dist("offload_optimizer: health.skip_nonfinite checks the gradients and "
@@ -648,10 +688,14 @@ class DeepSpeedEngine:
         it = data_iter if data_iter is not None else self._data_iterator
         if it is None:
             raise ValueError("train_batch needs training_data or a data_iter")
+        if it is not self._data_iterator:
+            # an external iterator: the engine's loader no longer tracks the
+            # stream, so a rewind must not fast-forward it
+            self._stream_pos_known = False
         micro_batches = [next(it) for _ in range(self.gradient_accumulation_steps())]
         # this step's data-stream position: checkpointed with the loader
         # state, and the index the value faults key on
-        index = self._stream_step
+        index = self._last_batch_index = self._stream_step
         self._stream_step += 1
         if fault.is_enabled():
             micro_batches = [fault.corrupt_batch(mb, index) for mb in micro_batches]
@@ -855,7 +899,125 @@ class DeepSpeedEngine:
             elif self._health_enabled and bool(metrics["skip"]):
                 msg += f", SKIPPED (health sentinel; total {self.skipped_steps})"
             log_dist(msg, ranks=[0])
+        if self.health_monitor is not None:
+            # trails the card by check_interval steps; may rewind or abort
+            self._health_observe(self._global_steps, self._landed_sentinels(metrics))
         return metrics["loss"]
+
+    def _landed_sentinels(self, metrics):
+        """The step's sentinels for the monitor: on the card one pinned copy
+        (of a ring of ``check_interval + 2``) queued right behind the step
+        and an event after it, so the monitor's late read waits on this step
+        only; on the CPU the tensors themselves."""
+        keys = [k for k in hmod.METRIC_KEYS if isinstance(metrics.get(k), torch.Tensor)]
+        if self.device.type != "cuda":
+            return {k: metrics[k] for k in keys}
+        ring = self._sentinel_ring
+        if ring is None or ring[0].numel() != len(keys):
+            ring = self._sentinel_ring = [
+                torch.empty(len(keys), pin_memory=True)
+                for _ in range(int(self._health_cfg.check_interval) + 2)]
+        buf = ring[self._sentinel_slot % len(ring)]
+        self._sentinel_slot += 1
+        buf.copy_(torch.stack([metrics[k].reshape(()).float() for k in keys]), non_blocking=True)
+        event = torch.cuda.Event()
+        event.record()
+        return {k: hmod.LandedScalar(buf, i, event) for i, k in enumerate(keys)}
+
+    # ------------------------------------------------ the health ladder (JAX :1733-1856)
+    def _health_observe(self, step_no, metrics):
+        """Feed the step's sentinels to the monitor and carry out the
+        action it escalates to."""
+        action = self.health_monitor.observe(step_no, self._last_batch_index, metrics)
+        if action == "rewind":
+            self._health_rewind()
+        elif action == "abort":
+            self._health_abort("consecutive-skip budget exhausted and rewind limit spent")
+
+    def _health_abort(self, reason):
+        # the lag window first: the steps that tripped the abort belong in the history
+        self.health_monitor.flush()
+        path = self.health_monitor.forensic_dump(self._forensic_dir(), reason,
+                                                 last_good_tag=self.loaded_checkpoint_tag)
+        raise hmod.TrainingHealthError(
+            f"training health: {reason}; counters={self.health_monitor.counters()}"
+            + (f"; forensics at {path}" if path else ""), forensic_path=path)
+
+    def _forensic_dir(self):
+        return (self._health_cfg.forensic_dir or self.config.checkpoint_config.dir
+                or self._last_ckpt_dir or os.getcwd())
+
+    def _health_rewind(self):
+        """Rewind to the newest valid checkpoint and fast-forward past the
+        last poisoned batch.  A rewind that runs straight back into skips
+        (no clean step since the last one: the same poison window) doubles
+        the stride, so a window of W batches is crossed in O(log W)
+        rewinds.  A rewind that cannot run ends in ``on_exhausted``."""
+        mon = self.health_monitor
+        same_episode = mon.episode_rewinds > 0 and mon.clean_since_rewind == 0
+        self._ff_stride = self._ff_stride * 2 if same_episode else 1
+        target = mon.last_bad_stream_step
+        if target is not None:
+            target += self._ff_stride - 1
+        try:
+            self.rewind(replay_past=target)
+        except Exception as e:
+            if self._health_cfg.on_exhausted == "warn":
+                logger.warning(f"health: rewind unavailable ({e}); on_exhausted=warn, "
+                               "continuing without it")
+                mon.consecutive_skips = 0
+                return
+            self._health_abort(f"rewind failed: {e}")
+        mon.record_rewind(tag=self.loaded_checkpoint_tag)
+
+    def rewind(self, load_dir=None, tag=None, replay_past=None):
+        """Rewind in process: load the newest valid checkpoint (in place),
+        then fast-forward the restored data stream past the stream index
+        ``replay_past``, so the replay resumes on the batches after it.
+        The ladder calls it; an operator may too.  Returns the path."""
+        load_dir = load_dir or self._rewind_dir()
+        if load_dir is None:
+            raise ValueError("rewind needs a checkpoint directory: set checkpoint.dir in "
+                             "the config or save/load a checkpoint first")
+        path, _ = self.load_checkpoint(load_dir, tag=tag)
+        if replay_past is None:
+            return path
+        if self._data_iterator is None:
+            logger.warning("rewind: no engine-owned data iterator to fast-forward (external "
+                           "data_iter?); replay will re-feed the stream from the "
+                           "checkpointed position")
+        elif not self._stream_pos_known:
+            logger.warning("rewind: data-stream position unknown (the checkpoint carried no "
+                           "data-pipeline state); fast-forward skipped, and replay may "
+                           "re-feed already-seen batches")
+        else:
+            gas = self.gradient_accumulation_steps()
+            skipped = max(replay_past - self._stream_step + 1, 0)
+            loader = self.training_dataloader
+            if (skipped and isinstance(self._data_iterator, RepeatingLoader)
+                    and self._data_iterator.loader is loader
+                    and hasattr(loader, "load_state_dict")):
+                # an O(1) jump of the loader's (epoch, batch_index), where
+                # draining would collate every discarded batch
+                per_epoch = max(len(loader), 1)
+                sd = loader.state_dict()
+                pos = sd["epoch"] * per_epoch + sd["batch_index"] + skipped * gas
+                loader.load_state_dict({"seed": sd["seed"], "epoch": pos // per_epoch,
+                                        "batch_index": pos % per_epoch})
+                self._data_iterator = iter(RepeatingLoader(loader))
+                self._stream_step += skipped
+            else:
+                while self._stream_step <= replay_past:
+                    for _ in range(gas):
+                        next(self._data_iterator)
+                    self._stream_step += 1
+            log_dist("rewind fast-forward: " + json.dumps(
+                {"event": "health_fast_forward", "batches": skipped,
+                 "resume_stream_step": self._stream_step}), ranks=[0])
+        return path
+
+    def _rewind_dir(self):
+        return self.config.checkpoint_config.dir or self._last_ckpt_dir
 
     def stats(self):
         """The step graphs' counters: ``step_impl``, graphs captured (and
@@ -872,7 +1034,9 @@ class DeepSpeedEngine:
             "warmups": sum(s.warmups for s in steps),
             "replays": sum(s.replays for s in steps),
             "dropout_draws": sum(s.dropout_draws for s in steps),
-            "pool_bytes": {s.name: s.pool_bytes for s in steps}}}
+            "pool_bytes": {s.name: s.pool_bytes for s in steps}},
+            **({"health": self.health_monitor.counters()}
+               if self.health_monitor is not None else {})}
 
     def eval_batch(self, batch, rng=None):
         """The loss of ``batch`` (host arrays) without gradients or update."""
@@ -957,8 +1121,12 @@ class DeepSpeedEngine:
         SHA-256 manifest is written, the tag is published by one rename,
         and ``latest`` and ``keep_n`` rotation follow: a kill at any
         instant leaves the previous checkpoints intact or the new tag whole.
-        A failed write raises after the ``io_retry`` policy."""
+        A failed write raises after the ``io_retry`` policy.  The health
+        monitor's lag window is processed first; its verdict is dropped
+        (the counters still stand and escalate at the next step)."""
         self._flush_offload()
+        if self.health_monitor is not None:
+            self.health_monitor.flush()
         tag = tag or f"global_step{self.global_steps}"
         retry = self.config.io_retry_config.policy()
         fsync = self.config.checkpoint_config.fsync
@@ -995,6 +1163,7 @@ class DeepSpeedEngine:
         keep_n = self.config.checkpoint_config.keep_n
         if keep_n:
             atomic.rotate_checkpoints(save_dir, keep_n)
+        self._last_ckpt_dir = save_dir     # the rewind's directory of last resort
         log_dist(f"saved checkpoint {final}", ranks=[0])
         return True
 
@@ -1179,9 +1348,17 @@ class DeepSpeedEngine:
         self.global_samples = meta.get("global_samples", 0)
         data_state = meta.get("data_state") or {}
         self._stream_step = int(data_state.get("stream_step", 0))
+        self._last_batch_index = None
         if data_state.get("loader") is not None and self.training_dataloader is not None:
-            self.training_dataloader.load_state_dict(data_state["loader"])
+            exact = self.training_dataloader.load_state_dict(data_state["loader"])
             self._data_iterator = iter(RepeatingLoader(self.training_dataloader))
+            self._stream_pos_known = exact is not False
+        else:
+            # no loader state: the live iterator no longer matches _stream_step
+            self._stream_pos_known = False
+        if self.health_monitor is not None:
+            self.health_monitor.on_checkpoint_load()
+        self._last_ckpt_dir = load_dir
         if (load_lr_scheduler_states and self.lr_scheduler is not None
                 and meta.get("lr_scheduler") is not None):
             self.lr_scheduler.load_state_dict(meta["lr_scheduler"])

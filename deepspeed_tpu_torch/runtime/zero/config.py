@@ -6,17 +6,20 @@ shard), so stages 0-3 are accepted and run the single-device step; stage
 3's own keys (``sub_group_size``, ``stage3_param_persistence_threshold``
 / ``param_persistence_threshold``,
 ``stage3_gather_16bit_weights_on_model_save``) are parsed with the JAX
-package's defaults.  The optimizer offload tier is ported:
-``offload_optimizer`` (:class:`DeepSpeedZeroOffloadOptimizerConfig`, the
-JAX class's keys and defaults, ``delayed_param_update`` and
-``delayed_param_update_warmup`` 20 among them) and the legacy
-``cpu_offload`` flag, which means ``offload_optimizer: {"device":
-"cpu"}`` as in JAX.  The NVMe tier is not: ``offload_optimizer.device ==
-"nvme"``, any ``offload_param`` block and ``cpu_offload_params`` raise
-``NotImplementedError`` naming ROADMAP item 7b.  The bucketing and overlap
-keys that the JAX package accepts as no-ops are accepted here too and
-named by ``noop_keys_set``, as are the offload block's NVMe and pinning
-keys.
+package's defaults.  The optimizer offload tier is ported, to the host
+and to NVMe: ``offload_optimizer``
+(:class:`DeepSpeedZeroOffloadOptimizerConfig`, the JAX class's keys and
+defaults: ``device`` cpu or nvme, ``nvme_path``, ``buffer_count`` 4,
+``pin_memory``, ``pipeline_read`` / ``pipeline_write``,
+``delayed_param_update`` and ``delayed_param_update_warmup`` 20) and the
+legacy ``cpu_offload`` flag, which means ``offload_optimizer:
+{"device": "cpu"}`` as in JAX.  ``nvme`` without ``nvme_path`` raises,
+as JAX's assert does (``offload_engine.py:85-86``).  Parameter offload is
+not ported: any ``offload_param`` block and ``cpu_offload_params`` raise
+``NotImplementedError`` naming ROADMAP item 7c.  The bucketing and
+overlap keys that the JAX package accepts as no-ops are accepted here
+too and named by ``noop_keys_set``, as is the offload block's
+``fast_init`` (JAX reads it for the streamed parameter tier only).
 """
 
 ZERO_OPTIMIZATION = "zero_optimization"
@@ -24,7 +27,7 @@ ZERO_OPTIMIZATION = "zero_optimization"
 OFFLOAD_DEVICE_NONE = "none"
 OFFLOAD_DEVICE_CPU = "cpu"
 OFFLOAD_DEVICE_NVME = "nvme"
-NVME_TIER = "ROADMAP item 7b: the NVMe tier and parameter offload"
+PARAM_TIER = "ROADMAP item 7c: parameter offload and streaming"
 
 # accepted, with no effect on one device (the JAX package's NOOP_KEYS)
 NOOP_KEYS = ("contiguous_gradients", "reduce_scatter", "reduce_bucket_size",
@@ -38,20 +41,21 @@ NOOP_KEYS = ("contiguous_gradients", "reduce_scatter", "reduce_bucket_size",
 PARSED_KEYS = ("stage", "sub_group_size", "stage3_param_persistence_threshold",
                "param_persistence_threshold", "stage3_gather_16bit_weights_on_model_save",
                "gather_16bit_weights_on_model_save", "cpu_offload", "offload_optimizer")
-# the NVMe tier and parameter offload (item 7b)
-NVME_KEYS = ("offload_param", "cpu_offload_params")
+# parameter offload and streaming (item 7c)
+PARAM_KEYS = ("offload_param", "cpu_offload_params")
 
 
 class DeepSpeedZeroOffloadOptimizerConfig:
     """``zero_optimization.offload_optimizer`` (JAX ``zero/config.py:67-103``):
-    the same keys, ``device`` and the DPU pair with JAX's defaults.
-    ``device`` "cpu" runs the host tier (``runtime/zero/offload_engine.py``);
-    "nvme" raises.  The NVMe and pinning keys are accepted and listed in
-    ``noop_keys``: the host tier always pins its wire buffers on a card."""
+    the same keys and defaults.  ``device`` "cpu" runs the host tier,
+    "nvme" the host tier with the Adam moments in swap files under
+    ``nvme_path`` (``runtime/zero/offload_engine.py``); ``pipeline`` is
+    ``pipeline_read or pipeline_write``, as in JAX.  ``fast_init`` is
+    accepted and listed in ``noop_keys``."""
 
-    KEYS = ("device", "delayed_param_update", "delayed_param_update_warmup")
-    NOOP_KEYS = ("nvme_path", "buffer_count", "pin_memory", "pipeline_read", "pipeline_write",
-                 "fast_init")
+    KEYS = ("device", "nvme_path", "buffer_count", "pin_memory", "pipeline_read",
+            "pipeline_write", "delayed_param_update", "delayed_param_update_warmup")
+    NOOP_KEYS = ("fast_init",)
 
     def __init__(self, param_dict=None):
         d = param_dict or {}
@@ -59,17 +63,25 @@ class DeepSpeedZeroOffloadOptimizerConfig:
         if unknown:
             raise NotImplementedError(f"offload_optimizer keys {unknown} are unknown")
         self.device = d.get("device", OFFLOAD_DEVICE_NONE)
-        if self.device == OFFLOAD_DEVICE_NVME:
-            raise NotImplementedError(f"offload_optimizer.device 'nvme' is not ported "
-                                      f"({NVME_TIER})")
-        if self.device not in (OFFLOAD_DEVICE_NONE, OFFLOAD_DEVICE_CPU):
+        if self.device not in (OFFLOAD_DEVICE_NONE, OFFLOAD_DEVICE_CPU, OFFLOAD_DEVICE_NVME):
             raise ValueError(f"offload_optimizer.device must be none|cpu|nvme, "
                              f"got {self.device!r}")
+        self.nvme_path = d.get("nvme_path")
+        if self.device == OFFLOAD_DEVICE_NVME and not self.nvme_path:
+            raise ValueError("offload_optimizer.device=nvme requires nvme_path")
+        self.buffer_count = int(d.get("buffer_count", 4))
+        self.pin_memory = bool(d.get("pin_memory", False))
+        self.pipeline_read = bool(d.get("pipeline_read", False))
+        self.pipeline_write = bool(d.get("pipeline_write", False))
         self.noop_keys = sorted(k for k in d if k in self.NOOP_KEYS)
         # one-step delayed parameter update (ZeRO-Offload's DPU): the device
         # computes step k+1's gradients while the host runs step k's update
         self.delayed_param_update = d.get("delayed_param_update", False)
         self.delayed_param_update_warmup = int(d.get("delayed_param_update_warmup", 20))
+
+    @property
+    def pipeline(self):
+        return self.pipeline_read or self.pipeline_write
 
 
 class DeepSpeedZeroConfig:
@@ -84,12 +96,12 @@ class DeepSpeedZeroConfig:
         self.stage = zero_dict.get("stage", 0)
         if self.stage not in (0, 1, 2, 3):
             raise ValueError(f"Invalid ZeRO stage {self.stage}")
-        nvme = sorted(k for k in NVME_KEYS if k in zero_dict and zero_dict[k]
-                      not in (None, False))
-        if nvme:
-            raise NotImplementedError(f"zero_optimization {nvme} is not ported ({NVME_TIER})")
+        param = sorted(k for k in PARAM_KEYS if k in zero_dict and zero_dict[k]
+                       not in (None, False))
+        if param:
+            raise NotImplementedError(f"zero_optimization {param} is not ported ({PARAM_TIER})")
         unported = sorted(k for k in zero_dict
-                          if k not in PARSED_KEYS and k not in NOOP_KEYS and k not in NVME_KEYS)
+                          if k not in PARSED_KEYS and k not in NOOP_KEYS and k not in PARAM_KEYS)
         if unported:
             raise NotImplementedError(f"zero_optimization keys {unported} are not ported")
         self.sub_group_size = int(zero_dict.get("sub_group_size", 1e9))

@@ -23,13 +23,27 @@ the parameter tree (the in-device ``AdamState``'s ``exp_avg`` /
 ``exp_avg_sq`` paths), so offload and in-device checkpoints load into
 each other, and into the JAX package's engines.
 
-Deliberate differences: the NVMe tier (moments swapped through
-``swap_tensor``), the streamed-parameter layout (``consume_params``) and
-the sparse-gradient wire are not ported (ROADMAP item 7b); the d2h and
-h2d are the engine's (``runtime/zero/wire.py``), and
+The NVMe tier (``offload_optimizer.device == "nvme"``, JAX :79-95,
+:229-250, :268-273, :310-312): the moments live in the swap files of a
+``PartitionedOptimizerSwapper``, or of a ``PipelinedOptimizerSwapper``
+under ``pipeline_read`` / ``pipeline_write`` (``runtime/swap_tensor``),
+zeroed at build; a step swaps each sub-group in, runs the native Adam on
+the swap buffers and swaps it out, and the pipelined swapper reads group
+g+1 while g steps and g-1 is written.  ``moments()``, ``load_state`` and
+so checkpoints go through the files.  ``swap_times`` holds the last
+step's split (the swap-in wait, the Adam, the swap-out submit and wait)
+and ``swap_bytes`` its bytes read and written.  The master stays in
+host memory, as in JAX.
+
+Deliberate differences: the streamed-parameter layout
+(``consume_params``) and the sparse-gradient wire are not ported
+(ROADMAP item 7c); the d2h and h2d are the engine's
+(``runtime/zero/wire.py``), and
 :class:`FlatWireHandle` holds the handle of a started d2h into
 :attr:`HostOffloadOptimizer.landing`.
 """
+
+import time
 
 import numpy as np
 import torch
@@ -67,8 +81,10 @@ class HostOffloadOptimizer:
     """The host master, moments and payload image of ``params0`` (a tree
     of tensors or numpy arrays)."""
 
+    MOMENTS = ("exp_avg", "exp_avg_sq")
+
     def __init__(self, params0, zero_config, *, optimizer_name, optimizer_params,
-                 compute_dtype, device):
+                 compute_dtype, device, aio_config=None, retry=None):
         p = dict(optimizer_params or {})
         p.pop("torch_adam", None)
         # FusedAdam's default (adam_w_mode=True): the same rule with and without offload
@@ -96,9 +112,25 @@ class HostOffloadOptimizer:
         sg = int(zero_config.sub_group_size)
         bounds = list(range(0, self.numel, sg)) + [self.numel]
         self.sub_groups = [(bounds[i], bounds[i + 1]) for i in range(len(bounds) - 1)]
-        self.m, self.v = self.opt.init_buffers(self.numel)
-        self.m.fill(0.0)           # first touch now, not inside the first step
-        self.v.fill(0.0)
+        off = zero_config.offload_optimizer
+        self.nvme = off is not None and off.device == "nvme"
+        self.swap_times, self.swap_bytes = {}, (0, 0)
+        if self.nvme:
+            from ..swap_tensor.partitioned_optimizer_swapper import (
+                PartitionedOptimizerSwapper, PipelinedOptimizerSwapper)
+            cls = PipelinedOptimizerSwapper if off.pipeline else PartitionedOptimizerSwapper
+            big = max(e - s for s, e in self.sub_groups)
+            self.swapper = cls(off, aio_config, off.nvme_path, retry=retry, buffer_numel=big,
+                               pin=off.pin_memory and self.device.type == "cuda")
+            zeros = torch.zeros(big)
+            for g, (s, e) in enumerate(self.sub_groups):
+                self.swapper.swap_out_group(g, {n: zeros[:e - s] for n in self.MOMENTS})
+            self.m = self.v = None
+        else:
+            self.swapper = None
+            self.m, self.v = self.opt.init_buffers(self.numel)
+            self.m.fill(0.0)           # first touch now, not inside the first step
+            self.v.fill(0.0)
 
         # ---- the wire's host buffers
         wire16 = self.wire_dtype != torch.float32
@@ -111,7 +143,10 @@ class HostOffloadOptimizer:
             buf.zero_()
         self.refresh_payload()
         log_dist(f"host offload optimizer: {self.numel} params, {len(self.sub_groups)} "
-                 f"sub-group(s), wire {self.wire_dtype}, payload {compute_dtype}, "
+                 f"sub-group(s), moments on {'nvme' if self.nvme else 'cpu'}"
+                 + (f" ({type(self.swapper).__name__}, {self.swapper.slots} slot(s) under "
+                    f"{self.swapper.swap_folder})" if self.nvme else "")
+                 + f", wire {self.wire_dtype}, payload {compute_dtype}, "
                  f"pinned {self.payload.is_pinned()}", ranks=[0])
 
     # ------------------------------------------------------------- payload
@@ -139,12 +174,50 @@ class HostOffloadOptimizer:
         payload image follows."""
         g = flat_grads.numpy() if isinstance(flat_grads, torch.Tensor) else flat_grads
         out16 = self.payload if self.out_dtype is not None else None
-        for s, e in self.sub_groups:
-            self.opt.step_flat(self.master[s:e], g[s:e], self.m[s:e], self.v[s:e], step_no,
-                               lr=lr, out16=None if out16 is None else out16[s:e],
+
+        def adam(s, e, m, v):
+            self.opt.step_flat(self.master[s:e], g[s:e], m, v, step_no, lr=lr,
+                               out16=None if out16 is None else out16[s:e],
                                out_dtype=self.out_dtype)
+        if not self.nvme:
+            for s, e in self.sub_groups:
+                adam(s, e, self.m[s:e], self.v[s:e])
+        else:
+            self._step_nvme(adam)
         if out16 is None:
             host_memcpy(self.payload.data_ptr(), self.master.ctypes.data, self.master.nbytes)
+
+    def _step_nvme(self, adam):
+        """Each sub-group swapped in, stepped by ``adam(s, e, m, v)`` and
+        swapped out (JAX :229-250); the pipelined swapper prefetches
+        group g+1 before group g steps and writes asynchronously."""
+        sw, names = self.swapper, self.MOMENTS
+        pipelined = hasattr(sw, "prefetch_group")
+        r0, w0 = sw.bytes_read, sw.bytes_written
+        t = dict.fromkeys(("swap_in_wait_s", "adam_s", "swap_out_s", "swap_out_wait_s"), 0.0)
+        clock = time.perf_counter
+        if pipelined:
+            sw.prefetch_group(0, names)
+        for g, (s, e) in enumerate(self.sub_groups):
+            t0 = clock()
+            if pipelined:
+                bufs = sw.get_group(g, names)
+                if g + 1 < len(self.sub_groups):
+                    sw.prefetch_group(g + 1, names)
+            else:
+                bufs = sw.swap_in_group(g, names)
+            t1 = clock()
+            adam(s, e, bufs["exp_avg"], bufs["exp_avg_sq"])
+            t2 = clock()
+            sw.swap_out_group(g, bufs, async_op=pipelined)
+            t["swap_in_wait_s"] += t1 - t0
+            t["adam_s"] += t2 - t1
+            t["swap_out_s"] += clock() - t2
+        t0 = clock()
+        sw.wait()
+        t["swap_out_wait_s"] = clock() - t0
+        self.swap_times = t
+        self.swap_bytes = (sw.bytes_read - r0, sw.bytes_written - w0)
 
     # --------------------------------------------------------- checkpoints
     def _unflatten(self, flat):
@@ -169,13 +242,23 @@ class HostOffloadOptimizer:
         return self._unflatten(self.master)
 
     def moments(self):
-        """(exp_avg, exp_avg_sq), flat fp32."""
-        return self.m, self.v
+        """(exp_avg, exp_avg_sq), flat fp32 numpy arrays: the host buffers,
+        or on NVMe copies gathered from the swap files."""
+        if not self.nvme:
+            return self.m, self.v
+        self.swapper.wait()
+        m, v = np.empty(self.numel, np.float32), np.empty(self.numel, np.float32)
+        for g, (s, e) in enumerate(self.sub_groups):
+            bufs = self.swapper.swap_in_group(g, self.MOMENTS)
+            m[s:e] = bufs["exp_avg"].numpy()
+            v[s:e] = bufs["exp_avg_sq"].numpy()
+        return m, v
 
     def moments_tree(self):
         """The moments in the parameter tree's layout (the in-device
         ``AdamState``'s paths, so checkpoints cross)."""
-        return {"exp_avg": self._unflatten(self.m), "exp_avg_sq": self._unflatten(self.v)}
+        m, v = self.moments()
+        return {"exp_avg": self._unflatten(m), "exp_avg_sq": self._unflatten(v)}
 
     def _to_flat(self, tree):
         leaves = tree_leaves(tree)
@@ -198,6 +281,14 @@ class HostOffloadOptimizer:
         if master_tree is not None:
             np.copyto(self.master, self._to_flat(master_tree))
         if m is not None and v is not None:
-            np.copyto(self.m, self._to_flat(m))
-            np.copyto(self.v, self._to_flat(v))
+            m, v = self._to_flat(m), self._to_flat(v)
+            if self.nvme:
+                self.swapper.wait()
+                for g, (s, e) in enumerate(self.sub_groups):
+                    self.swapper.swap_out_group(g, {"exp_avg": torch.from_numpy(m[s:e]),
+                                                    "exp_avg_sq": torch.from_numpy(v[s:e])},
+                                                async_op=False)
+            else:
+                np.copyto(self.m, m)
+                np.copyto(self.v, v)
         self.refresh_payload()

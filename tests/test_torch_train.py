@@ -108,7 +108,8 @@ def test_config_fields_match_jax(pd):
             t.grad_accum_dtype) == (j.gradient_clipping, j.steps_per_print,
                                     j.dataloader_drop_last, j.grad_accum_dtype)
     for key in ("enabled", "skip_nonfinite", "spike_window", "spike_zmax",
-                "skip_on_spike"):
+                "skip_on_spike", "consecutive_skip_budget", "rewind_limit", "on_exhausted",
+                "check_interval", "history", "forensic_dir"):
         assert getattr(t.health_check, key) == getattr(j.health_check, key), key
 
 
@@ -117,7 +118,7 @@ def test_config_fields_match_jax(pd):
     ({"train_batch_size": 8, "zero_optimization": {
         "stage": 3, "offload_param": {"device": "cpu"}}}, 1),
     ({"train_batch_size": 8, "zero_optimization": {
-        "stage": 2, "offload_optimizer": {"device": "nvme", "nvme_path": "/tmp/x"}}}, 1),
+        "stage": 3, "offload_param": {"device": "nvme", "nvme_path": "/tmp/x"}}}, 1),
     ({"train_batch_size": 8, "zero_optimization": {"stage": 2, "cpu_offload_params": True}}, 1),
     ({"train_batch_size": 8, "eigenvalue": {"enabled": True}}, 1),
     ({"train_batch_size": 8, "optimizer": {"type": "OneBitAdam", "params": {}}}, 1),
@@ -125,7 +126,7 @@ def test_config_fields_match_jax(pd):
     ({"train_batch_size": 8, "checkpoint": {"tag_validation": "Fail"}}, 1),
     ({"train_batch_size": 8, "quantize_training": {"enabled": True}}, 1),
     ({"train_batch_size": 8, "wall_clock_breakdown": True}, 1),
-    ({"train_batch_size": 8, "health_check": {"rewind_limit": 1}}, 1),
+    ({"train_batch_size": 8, "sparse_gradients": True}, 1),
     ({"train_batch_size": 8, "no_such_key": 1}, 1),
 ])
 def test_unported_config_raises(pd, world_size, monkeypatch):
