@@ -382,9 +382,10 @@ JAX package ``deepspeed_tpu``):
     remat, ZeRO-3 with ``offload_optimizer`` cpu: the in-device engine of
     the same config (eager) and the same at lr 0 (no update), then the
     synchronous offload engine and the DPU one (warm-up 0), each a warm-up
-    step and 3 timed passes of 3 steps (step p50 / p99, tokens/s, MFU, the
-    device half alone, the d2h / widening / host Adam / h2d split, idle
-    share, peak memory), an eager DPU engine for OFFLOAD_RACE_STEPS
+    step and OFFLOAD_PASSES timed passes of OFFLOAD_TIMED steps (step p50 /
+    p99, tokens/s, MFU, the device half alone, the d2h / widening / host
+    Adam / h2d split, idle share, peak memory), an eager DPU engine for
+    OFFLOAD_RACE_STEPS
     steps; hard: step 1's loss equal to the in-device engine's, steps 2-3
     within OFFLOAD_UPDATE_SHARE of the gap the lr-0 run leaves, the host
     master moved, the device params equal to the payload and the payload
@@ -397,6 +398,17 @@ JAX package ``deepspeed_tpu``):
     ``checkpointing.checkpoint`` inside a captured step bit-equal to the
     unwrapped region; an fp16 offload run whose forced 2^40 step is skipped
     with the host master, the moments and the params bit-unchanged.
+22. the health ladder at 125M; 23. the NVMe optimizer tier at 350M.
+24. ZeRO-3 parameter offload at graded config 3's width (GPT-2 1.3B,
+    phase 20's config with ``offload_param`` cpu): the layer blocks
+    streamed through two device buffers; step 1 against phase 20's
+    in-device step 1, steps 2-3 within its update share, the overlapped
+    step bit-equal to the eager-sequential one, a grad_nan step changing
+    nothing, exact flash launches (``param_stream``).
+25. the NVMe parameter tier at 350M, bit-equal to the CPU parameter tier
+    (``param_nvme``).
+26. the sparse-gradient wire (an embedding bag at V=50257) and
+    ``cpu_checkpointing`` on a 125M block (``sparse_and_cpu_ckpt``).
 
 Prints a ``{"kernels": [...]}`` line (the dense sm90 kernels' key-bias
 instances as ``flash_fwd_sm90 (key bias)``, ``flash_bwd_dkdv_sm90 (key
@@ -415,6 +427,7 @@ Any failure raises and the script exits non-zero without that line; with no
 CUDA device it exits 2.
 """
 
+import collections
 import gc
 import itertools
 import json
@@ -432,6 +445,7 @@ import time
 
 import numpy as np
 import torch
+import torch.utils._python_dispatch
 
 import deepspeed_tpu_torch
 from deepspeed_tpu_torch import fault
@@ -5111,7 +5125,7 @@ def train_loop(dev, card, preset="gpt2-350m", seq=1024, micro=8, n_layer=LOOP_LA
 # 20. graded config 3: GPT-2 1.3B at ZeRO-3 with the optimizer offloaded to the host
 OFFLOAD_PRESET = "gpt2-1.3b"
 OFFLOAD_GAS = 8
-OFFLOAD_PASSES, OFFLOAD_TIMED = 3, 2     # timed passes of timed steps, each impl
+OFFLOAD_PASSES, OFFLOAD_TIMED = 2, 2     # timed passes of timed steps, each impl
 OFFLOAD_REF_STEPS = 3                    # the in-device reference's steps
 OFFLOAD_RACE_STEPS = 4                   # the eager DPU engine's steps, against the captured
 CHUNK_BYTES = 64 << 20                   # the JAX package's wire chunk, timed beside one copy
@@ -5867,7 +5881,7 @@ NVME_PRESET = "gpt2-350m"
 NVME_GAS = 8
 NVME_SUB_GROUP = int(5e7)
 NVME_CHECK_STEPS = 3                     # steps held bit for bit against the CPU tier
-NVME_PASSES, NVME_TIMED = 3, 2           # timed passes of timed steps, sync and DPU
+NVME_PASSES, NVME_TIMED = 1, 2           # timed passes of timed steps, sync and DPU
 RAW_AIO_BYTES = 1 << 30
 
 
@@ -6194,6 +6208,551 @@ def nvme_run(make, tag, per_step, card, tokens_per_step, flops_per_token, after_
     return out
 
 
+# 24. parameter streaming at graded config 3's width: GPT-2 1.3B with its layer blocks
+# streamed from the host through the card
+STREAM_TIMED = 3                         # timed steps after the warm-up (steps 2-4)
+STREAM_RAM_PER_PARAM = 30                # host bytes a parameter the phase needs at its peak
+
+
+class GatedStreamGPT2(GPT2):
+    """GPT-2 whose streamed batches are ``(tokens, gate)``: the labels
+    carry the gate as their last column and the loss is the model's times
+    the gate's mean, ones (the model's loss bit for bit) or NaN inside a
+    ``grad_nan`` window (``fault.corrupt_batch`` poisons float leaves only)."""
+
+    def stream_fns(self):
+        sf = dict(super().stream_fns())
+        split, head = sf["split_batch"], sf["head_loss"]
+
+        def split_batch(b):
+            tokens, labels = split(b[0])
+            return tokens, torch.cat([labels.float(), b[1].float()[:, None]], 1)
+
+        def head_loss(nb, x, lg):
+            T = lg.shape[1] - 1
+            return head(nb, x, lg[:, :T].long()) * lg[:, T].mean()
+        sf.update(split_batch=split_batch, head_loss=head_loss)
+        return sf
+
+
+def mem_available():
+    """The host's MemAvailable, bytes (``/proc/meminfo``)."""
+    with open("/proc/meminfo") as f:
+        for line in f:
+            if line.startswith("MemAvailable:"):
+                return int(line.split()[1]) * 1024
+    return 0
+
+
+def stream_engine(dev, params, data, config, preset, seq, cls=GatedStreamGPT2):
+    model = cls(preset=preset, max_seq=seq, dtype=torch.bfloat16, device=dev,
+                attention_impl="flash", embd_pdrop=0.0, attn_pdrop=0.0, resid_pdrop=0.0)
+    return deepspeed_tpu_torch.initialize(config=config, model=model, params=params,
+                                          training_data=data)[0]
+
+
+def stream_restart(eng, master0):
+    """Back to the state before step 1: the initial master, zero moments,
+    the payload and the card's nonblock params from them, the counters and
+    the host EMA reset."""
+    off = eng._offload
+    np.copyto(off.master, master0)
+    off.m.fill(0.0)
+    off.v.fill(0.0)
+    off.refresh_payload()
+    eng._param_stream.reload_from_host()
+    eng._param_stream.reset_health_ema()
+    eng._host_opt_steps = eng._global_steps = eng.micro_steps = eng.global_samples = 0
+    eng._optimizer_steps.fill_(0)
+    eng._skipped_steps.fill_(0)
+    if eng.health_monitor is not None:
+        eng.health_monitor.on_checkpoint_load()
+
+
+def host_state(eng):
+    """Copies of the host master, moments and payload image."""
+    off = eng._offload
+    return [off.master.copy(), off.m.copy(), off.v.copy(), off.payload.clone()]
+
+
+def same_host_state(eng, state):
+    off = eng._offload
+    return [np.array_equal(off.master, state[0]), np.array_equal(off.m, state[1]),
+            np.array_equal(off.v, state[2]), torch.equal(off.payload, state[3])]
+
+
+def param_stream(dev, card, graded, preset=OFFLOAD_PRESET, seq=1024, micro=8,
+                 gas=OFFLOAD_GAS):
+    """Phase 24: phase 20's configuration (``offload_config``: GPT-2 1.3B,
+    T=1024, micro 8, gas 8, bf16, AdamW, clip 1.0, stage 3, the optimizer
+    on the host; the same seeded parameters and token stream) with
+    ``offload_param: {"device": "cpu"}``: the model is never whole on the
+    card.  Its batches are ``(tokens, ones)`` on ``GatedStreamGPT2`` (the
+    same loss).  Hard checks: step 1's loss within 1e-5 relative of phase
+    20's in-device step 1; steps 2-3 within OFFLOAD_UPDATE_SHARE of phase
+    20's lr-0 gap; step 1 overlapped (two layer buffers, uploads and
+    landings on copy streams, the land-add thread) equal to step 1 run
+    again eager-sequentially from the same state (each copy on the
+    compute stream and waited for) bit for bit, in the loss, the host
+    gradients and the master; a forced grad_nan step leaves the master,
+    the moments and the payload bit-unchanged; two device layer buffers,
+    the card holding them and the nonblock params only; exact flash
+    launches (384 / 192 / 192 a step: each block's forward twice a
+    micro-batch, the second under autograd).  Readings: step p50 / p99
+    over STREAM_TIMED steps after the warm-up, tokens/s, MFU,
+    ``last_times``' split with the h2d and d2h bytes and GB/s, the idle
+    share (a profiled step), the device peak beside phase 20's, the host
+    RSS.  Raises before the build when MemAvailable is short of the
+    phase's need."""
+    t_phase = time.perf_counter()
+    model = GPT2(preset=preset, max_seq=seq, device=dev)
+    c = model.config
+    head_dim = c.n_embd // c.n_head
+    fwd = fa.dense_fwd_kernel(torch.bfloat16, head_dim)
+    dkdv, dq = fa.dense_bwd_kernel(torch.bfloat16, head_dim)
+    per_step = {fwd: 2 * c.n_layer * gas, dkdv: c.n_layer * gas, dq: c.n_layer * gas}
+    n = micro * gas * 4
+    data = (np.random.default_rng(0).integers(0, c.vocab_size, (n, seq + 1)).astype(np.int32),
+            np.ones((n,), np.float32))
+    numel = model.num_params()
+    need = STREAM_RAM_PER_PARAM * numel
+    avail = mem_available()
+    print(f"stream {preset}: {numel} params; expected flash launches a step {per_step}; "
+          f"host MemAvailable {avail / 1e9:.1f} GB before the build, the phase needs "
+          f"~{need / 1e9:.1f} GB ({STREAM_RAM_PER_PARAM} B a parameter), RSS "
+          f"{host_rss_bytes() / 1e9:.1f} GB")
+    if avail < need:
+        raise AssertionError(f"stream: {avail} B of host memory available, the phase needs "
+                             f"{need}")
+    cfg = offload_config(gas=gas, micro=micro)
+    cfg["zero_optimization"]["offload_param"] = {"device": "cpu"}
+    rss = RssPeak()
+    rss.__enter__()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base_alloc = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    dev_params = draw_gpt2_params(model, dev, seed=0)
+    params = tree_map(lambda t: t.cpu().numpy(), dev_params)
+    del dev_params
+    torch.cuda.empty_cache()
+    eng = stream_engine(dev, params, data, cfg, preset, seq)
+    del params
+    gc.collect()
+    build_s = time.perf_counter() - t0
+    ps, off = eng._param_stream, eng._offload
+    layer_bytes = ps.per_layer * 2
+    state_bytes = torch.cuda.memory_allocated() - base_alloc
+    two_layers = (len(ps.wire.bufs) == 2 and all(
+        b.numel() == ps.per_layer and b.device == dev for b in ps.wire.bufs))
+    held = 2 * layer_bytes + (ps.nb_hi - ps.nb_lo) * 2
+    if eng.params is not None or eng.master is not None or not two_layers or \
+            not held <= state_bytes < held + (1 << 20):
+        raise AssertionError(f"stream: the card holds {state_bytes} B, expected two layer "
+                             f"buffers and the nonblock params ({held} B) and the counters")
+    master0 = off.master.copy()
+    mbs = [next(eng._data_iterator) for _ in range(gas)]
+
+    def timed_step(data_iter=None):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        loss = float(eng.train_batch(data_iter))
+        torch.cuda.synchronize()
+        return loss, time.perf_counter() - t
+
+    # step 1 overlapped, then again eager-sequentially from the same state
+    fa.reset_launches()
+    loss_a, first_s = timed_step(iter(mbs))
+    check_launches("stream step 1", dict(fa.launches), per_step, 1)
+    grads_a, master_a = off.grad32.clone(), off.master.copy()
+    stream_restart(eng, master0)
+    ps.wire.overlap = False
+    loss_b, seq_s = timed_step(iter(mbs))
+    seq_same = [loss_a == loss_b, torch.equal(off.grad32, grads_a),
+                np.array_equal(off.master, master_a)]
+    ps.wire.overlap = True
+    del grads_a, master_a, master0
+    gc.collect()
+    ref = graded["ref_losses"]
+    rel1 = abs(loss_a - ref[0]) / abs(ref[0])
+    # steps 2-4 from the loader (steps 2-3 against phase 20), timed
+    fa.reset_launches()
+    losses, ms, splits = [loss_a], [], []
+    for _ in range(STREAM_TIMED):
+        loss, dt = timed_step()
+        losses.append(loss)
+        ms.append(dt * 1e3)
+        splits.append(dict(eng.offload_times))
+    check_launches("stream steps 2-4", dict(fa.launches), per_step, STREAM_TIMED)
+    peak = torch.cuda.max_memory_allocated() - base_alloc
+    # a forced grad_nan step: nothing on the host changes
+    before = host_state(eng)
+    fault.configure(f"grad_nan={eng._stream_step}")
+    try:
+        nan_loss, _ = timed_step()
+    finally:
+        fault.reset()
+    nan_same = same_host_state(eng, before)
+    skipped = eng.skipped_steps
+    nan_skipped = skipped == 1 and bool(eng._last_metrics["skip"])
+    del before
+    gc.collect()
+    summary = {}
+    profile_steps(lambda: float(eng.train_batch()), "stream 1.3B", steps=1,
+                  unit="training step", summary=summary)
+    rss.__exit__(None, None, None)
+    ms = np.asarray(ms)
+    p50, p99 = np.percentile(ms, 50), np.percentile(ms, 99)
+    tokens_per_step = micro * gas * seq
+    tok_s = len(ms) * tokens_per_step / (ms.sum() / 1e3)
+    mfu = tok_s * model.flops_per_token() / PEAK_OPS["bf16"]
+    busy_ms = summary.get("busy_us", float("nan")) / 1e3
+    split = {k: statistics.mean(s[k] for s in splits) for k in (
+        "device_plus_wire_s", "grad_d2h_land_s", "land_wait_s", "host_adam_s", "step_wall_s",
+        "h2d_s", "d2h_s", "h2d_bytes", "d2h_bytes")}
+    still = [abs(a - b) for a, b in zip(graded["still_losses"], ref)]
+    gaps = [abs(a - b) for a, b in zip(losses[:OFFLOAD_REF_STEPS], ref)]
+    limit = [OFFLOAD_UPDATE_SHARE * x for x in still]
+    print(f"stream {preset}: losses {losses} vs phase 20's in-device {ref} (step 1 rel "
+          f"{rel1:.3e}, |diff| {gaps}, steps 2-3 limit {limit[1:]}); step 1 overlapped vs "
+          f"eager-sequential (loss, host grads, master) equal {seq_same} ({first_s:.2f} s vs "
+          f"{seq_s:.2f} s); grad_nan step: loss {nan_loss}, skipped {nan_skipped} (skipped steps "
+          f"{skipped}), master / "
+          f"moments / payload unchanged {nan_same}; two layer buffers {two_layers}, card state "
+          f"{state_bytes / 1e9:.3f} GB ({layer_bytes / 1e6:.1f} MB a layer); step p50 "
+          f"{p50:.3f} ms, p99 {p99:.3f} (readings {[round(float(x), 3) for x in ms]}), tokens/s "
+          f"{tok_s:.1f}, MFU {mfu:.4f}; split a step: device + wire "
+          f"{split['device_plus_wire_s']:.3f} s, land-add (worker) "
+          f"{split['grad_d2h_land_s']:.3f} s, calling thread's wait for it "
+          f"{split['land_wait_s']:.3f} s, host norm + Adam + nonblock upload "
+          f"{split['host_adam_s']:.3f} s, wall {split['step_wall_s']:.3f} s; h2d "
+          f"{split['h2d_bytes'] / 1e9:.2f} GB in {split['h2d_s']:.3f} s of copies "
+          f"({split['h2d_bytes'] / split['h2d_s'] / 1e9:.1f} GB/s), d2h "
+          f"{split['d2h_bytes'] / 1e9:.2f} GB in {split['d2h_s']:.3f} s "
+          f"({split['d2h_bytes'] / split['d2h_s'] / 1e9:.1f} GB/s); profiled step busy "
+          f"{busy_ms:.3f} ms, idle {100 * (1 - busy_ms / p50):.1f}% of the p50; device peak "
+          f"{peak / 1e9:.2f} GB (phase 20 sync {graded['sync']['peak_gb']:.2f}, in-device "
+          f"{graded['ref_peak_gb']:.2f}); host RSS peak {rss.peak / 1e9:.1f} GB (base "
+          f"{rss.base / 1e9:.1f}); build {build_s:.1f} s; phase "
+          f"{time.perf_counter() - t_phase:.1f} s ({card})")
+    if rel1 > 1e-5:
+        raise AssertionError(f"stream step 1 loss {loss_a} vs in-device {ref[0]}")
+    if any(g > lim for g, lim in zip(gaps[1:], limit[1:])):
+        raise AssertionError(f"stream steps 2-3 {losses} vs in-device {ref} (limit {limit})")
+    if not all(seq_same):
+        raise AssertionError(f"stream overlapped vs eager-sequential {seq_same}")
+    if not (nan_skipped and all(nan_same)):
+        raise AssertionError(f"stream grad_nan step: skipped {nan_skipped}, same {nan_same}")
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"stream losses {losses}")
+    ps.close()
+    del eng, ps, off
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"losses": losses, "p50": p50, "p99": p99, "ms": ms.tolist(), "tokens_s": tok_s,
+            "mfu": mfu, "split": split, "busy_ms": busy_ms, "peak_gb": peak / 1e9,
+            "rss_peak_gb": rss.peak / 1e9, "seq_s": seq_s,
+            "seconds": time.perf_counter() - t_phase}
+
+
+# 25. the NVMe parameter tier at GPT-2 350M
+PARAM_NVME_STEPS = 2                     # steps held bit for bit against the CPU tier
+PARAM_NVME_TIMED = 3
+
+
+def param_nvme(dev, card, preset=NVME_PRESET, seq=1024, micro=8):
+    """Phase 25: GPT-2 350M, full width and depth, T=1024, micro 8, gas 1,
+    bf16, ZeRO-3, the optimizer on the host, ``offload_param`` nvme under
+    ``.chip_tmp/nvme`` (phase 23's path): the 16-bit layer payloads in one
+    file a layer, read one layer ahead of the loop and written again after
+    each step.  Hard checks: from one init, PARAM_NVME_STEPS steps equal
+    the CPU parameter tier's bit for bit (losses, master, moments, and
+    every layer's payload read back from its file against the CPU tier's
+    image); no 16-bit RAM image kept; every swap buffer 4096-aligned;
+    exact flash launches (48 / 24 / 24 a step).  Readings: bytes read and
+    written a step and their rate, the host's wait for the reads, the
+    write-back's seconds, step p50 over PARAM_NVME_TIMED steps, the
+    filesystem under the path.  Raises when the disk holds less than twice
+    the payload; removes its files."""
+    from deepspeed_tpu_torch.runtime.swap_tensor.utils import is_aligned
+    t_phase = time.perf_counter()
+    model = GPT2(preset=preset, max_seq=seq, device=dev)
+    c = model.config
+    head_dim = c.n_embd // c.n_head
+    fwd = fa.dense_fwd_kernel(torch.bfloat16, head_dim)
+    dkdv, dq = fa.dense_bwd_kernel(torch.bfloat16, head_dim)
+    per_step = {fwd: 2 * c.n_layer, dkdv: c.n_layer, dq: c.n_layer}
+    n = micro * 8
+    data = (np.random.default_rng(0).integers(0, c.vocab_size, (n, seq + 1)).astype(np.int32),)
+    dev_params = draw_gpt2_params(model, dev, seed=0)
+    params = tree_map(lambda t: t.cpu().numpy(), dev_params)
+    del dev_params
+    torch.cuda.empty_cache()
+    numel = sum(a.size for a in tree_leaves(params))
+    root = os.path.join(CHIP_TMP, "nvme")
+    os.makedirs(root, exist_ok=True)
+    free, need = shutil.disk_usage(root).free, 2 * 2 * numel
+    fs = fs_of(root)
+    print(f"param nvme {preset}: {numel} params, {2 * numel} B of payload; nvme_path {root} "
+          f"on {fs[2]} ({fs[0]} at {fs[1]}), {free / 1e9:.1f} GB free (need {need / 1e9:.1f})")
+    if free < need:
+        raise AssertionError(f"param nvme: {free} B free under {root}, the phase needs {need}")
+
+    def make(tier):
+        cfg = offload_config(gas=1, micro=micro)
+        cfg["zero_optimization"]["offload_param"] = (
+            {"device": "nvme", "nvme_path": root} if tier == "nvme" else {"device": "cpu"})
+        return stream_engine(dev, params, data, cfg, preset, seq, cls=GPT2)
+
+    def state(eng):
+        m, v = eng._offload.moments()
+        return [eng._offload.master.copy(), np.array(m), np.array(v)]
+    try:
+        cpu = make("cpu")
+        cpu_losses = [float(cpu.train_batch()) for _ in range(PARAM_NVME_STEPS)]
+        cpu_state, cpu_payload = state(cpu), cpu._offload.payload.clone()
+        cpu._param_stream.close()
+        del cpu
+        gc.collect()
+        fa.reset_launches()
+        eng = make("nvme")
+        ps = eng._param_stream
+        no_image = eng._offload.payload is None
+        aligned = all(is_aligned(b.data) for b in ps.swapper._pool.buffers)
+        losses = [float(eng.train_batch()) for _ in range(PARAM_NVME_STEPS)]
+        check_launches("param nvme", dict(fa.launches), per_step, PARAM_NVME_STEPS)
+        same = [losses == cpu_losses] + [np.array_equal(a, b)
+                                         for a, b in zip(state(eng), cpu_state)]
+        files = []
+        for i in range(ps.L):
+            ps.swapper.swap_in([i])
+            lo, hi = ps.layer_bounds[i]
+            files.append(torch.equal(ps.swapper.get_buffer(i), cpu_payload[lo:hi]))
+            ps.swapper.release([i])
+        ms, io = [], []
+        for _ in range(PARAM_NVME_TIMED):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            float(eng.train_batch())
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t) * 1e3)
+            io.append(dict(eng.offload_times))
+        p50 = float(np.percentile(ms, 50))
+        rd = statistics.mean(x["nvme_read_bytes"] for x in io)
+        wr = statistics.mean(x["nvme_written_bytes"] for x in io)
+        wait = statistics.mean(x["nvme_read_wait_s"] for x in io)
+        flush = statistics.mean(x["nvme_flush_s"] for x in io)
+        print(f"param nvme {preset}: {PARAM_NVME_STEPS} steps vs the CPU parameter tier: losses "
+              f"{losses} vs {cpu_losses}; (losses, master, moments) equal {same}; layer files = "
+              f"the CPU tier's image {sum(files)}/{len(files)}; no RAM image {no_image}; swap "
+              f"buffers 4096-aligned {aligned} ({len(ps.swapper._pool.buffers)}); step p50 "
+              f"{p50:.3f} ms (readings {[round(x, 3) for x in ms]}); a step reads {rd / 1e9:.3f} "
+              f"GB (the host waited {wait:.3f} s on reads, {rd / p50 * 1e3 / 1e9:.2f} GB/s over "
+              f"the step) and writes {wr / 1e9:.3f} GB in {flush:.3f} s "
+              f"({wr / flush / 1e9:.2f} GB/s); filesystem {fs[2]}; phase "
+              f"{time.perf_counter() - t_phase:.1f} s ({card})")
+        if not (all(same) and all(files) and no_image and aligned):
+            raise AssertionError(f"param nvme: equal {same}, files {files}, no image "
+                                 f"{no_image}, aligned {aligned}")
+        ps.close()
+        del eng, ps
+        gc.collect()
+        torch.cuda.empty_cache()
+        return {"p50": p50, "read_bytes": rd, "written_bytes": wr, "read_wait_s": wait,
+                "flush_s": flush, "fs": fs, "seconds": time.perf_counter() - t_phase}
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+# 26. the sparse-gradient wire and cpu_checkpointing
+SPARSE_V, SPARSE_D, SPARSE_MICRO, SPARSE_IDS, SPARSE_STEPS = 50257, 1024, 32, 8, 5
+# the ops that only feed the ckpt mark of marked_block (tests/test_torch_sparse_offload.py)
+CKPT_PRUNED = ["aten.mm.default", "aten._unsafe_view.default", "aten.add.Tensor"]
+
+
+class EmbedBag:
+    """An untied embedding table, mean-pooled, and a linear head: a
+    lookup-only table (``tests/test_sparse_gradients.py:25-45``)."""
+
+    def __init__(self, device, bound=None):
+        self.device = torch.device(device)
+        if bound is not None:
+            self.sparse_grad_row_bound = lambda batch: bound
+
+    def loss(self, params, batch, rng=None):
+        tokens, target = batch
+        h = params["emb"]["table"][tokens.long()].mean(dim=1)
+        return (((h @ params["head"]["w"])[:, 0] - target.float()) ** 2).mean()
+
+    def sparse_grad_paths(self):
+        return [("emb", "table")]
+
+
+class OpCount(torch.utils._python_dispatch.TorchDispatchMode):
+    """The ops dispatched, the checkpoint machinery's ``detach``s aside."""
+
+    def __init__(self):
+        super().__init__()
+        self.ops = collections.Counter()
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        if func is not torch.ops.aten.detach.default:
+            self.ops[str(func)] += 1
+        return func(*args, **(kwargs or {}))
+
+
+def marked_block(model, B, T):
+    """A GPT-2 block whose attention output (after the projection) is
+    marked ``ckpt``: ``fn(x, *leaves)``, leaves in sorted key order."""
+    from deepspeed_tpu_torch.models.gpt2 import _layer_norm
+    from deepspeed_tpu_torch.runtime.activation_checkpointing import checkpointing as ck
+    c = model.config
+    D, H, hd = c.n_embd, c.n_head, c.head_dim
+    keys = sorted(("ln1_scale", "ln1_bias", "qkv_w", "qkv_b", "proj_w", "proj_b", "ln2_scale",
+                   "ln2_bias", "fc_w", "fc_b", "fc_proj_w", "fc_proj_b"))
+
+    def fn(x, *leaves):
+        p = dict(zip(keys, leaves))
+        h = _layer_norm(x, p["ln1_scale"], p["ln1_bias"], c.layer_norm_eps)
+        qkv = h @ p["qkv_w"] + p["qkv_b"]
+        q, k, v = (t.reshape(B, T, H, hd) for t in qkv.split(D, dim=-1))
+        a = model._attend(q, k, v, None, 0, True).reshape(B, T, D)
+        x = x + ck.checkpoint_name(a @ p["proj_w"] + p["proj_b"], ck.CKPT)
+        h = _layer_norm(x, p["ln2_scale"], p["ln2_bias"], c.layer_norm_eps)
+        h = torch.nn.functional.gelu(h @ p["fc_w"] + p["fc_b"], approximate="tanh")
+        return x + h @ p["fc_proj_w"] + p["fc_proj_b"]
+    return fn, keys
+
+
+def sparse_and_cpu_ckpt(dev, card, seq=1024, micro=8, preset=SMALL_PRESET):
+    """Phase 26.  (a) The sparse-gradient wire: an embedding-bag model
+    (V=50257, D=1024, fp32, Adam lr 1e-2, ZeRO-1, the optimizer on the host,
+    micro-batches of 32 x 8 ids): SPARSE_STEPS captured steps with
+    ``sparse_gradients`` equal them with it off bit for bit (losses, host
+    master, moments, device params), the eager run equals the captured one,
+    the d2h bytes a step sparse against dense, and an under-declared
+    ``sparse_grad_row_bound`` (2) raises at a reporting step.  (b)
+    ``cpu_checkpointing`` on a GPT-2 125M block (B=8, T=1024, bf16, flash)
+    whose attention output after the projection is marked ``ckpt``: the
+    gradients equal the plain checkpoint's bit for bit, the mark is kept
+    in pinned host memory, the backward's op count (a dispatch mode) is
+    the plain checkpoint's less exactly CKPT_PRUNED (the CPU test's
+    count), and the flash launches of the forward and of the recompute."""
+    from deepspeed_tpu_torch.runtime.activation_checkpointing import checkpointing as ck
+    t_phase = time.perf_counter()
+    g = torch.Generator().manual_seed(26)
+    params = {"emb": {"table": (torch.randn(SPARSE_V, SPARSE_D, generator=g) * 0.1).numpy()},
+              "head": {"w": (torch.randn(SPARSE_D, 1, generator=g) * 0.1).numpy()}}
+    rng = np.random.default_rng(26)
+    n = SPARSE_MICRO * SPARSE_STEPS
+    data = (rng.integers(0, SPARSE_V, (n, SPARSE_IDS)).astype(np.int32),
+            rng.normal(size=(n,)).astype(np.float32))
+
+    def make(sparse, impl="auto", bound=None, spp=10 ** 6):
+        cfg = {"train_micro_batch_size_per_gpu": SPARSE_MICRO, "gradient_accumulation_steps": 1,
+               "steps_per_print": spp, "sparse_gradients": sparse,
+               "optimizer": {"type": "Adam", "params": {"lr": 1e-2}},
+               "zero_optimization": {"stage": 1, "offload_optimizer": {"device": "cpu"}}}
+        return deepspeed_tpu_torch.initialize(config=cfg, model=EmbedBag(dev, bound),
+                                              params=params, training_data=data,
+                                              step_impl=impl)[0]
+
+    def run(eng):
+        losses, ms = [], []
+        for _ in range(SPARSE_STEPS):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            losses.append(float(eng.train_batch()))
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t) * 1e3)
+        m, v = eng._offload.moments()
+        return {"losses": losses, "ms": ms, "master": eng._offload.master.copy(),
+                "m": np.array(m), "v": np.array(v),
+                "params": [t.cpu() for t in tree_leaves(eng.params)],
+                "wire": {str(k): b.numel() * b.element_size()
+                         for k, b in eng._sparse_host.items()}}
+
+    def same(a, b):
+        return [a["losses"] == b["losses"], np.array_equal(a["master"], b["master"]),
+                np.array_equal(a["m"], b["m"]), np.array_equal(a["v"], b["v"]),
+                all(torch.equal(x, y) for x, y in zip(a["params"], b["params"]))]
+    sparse, dense, eager = run(make(True)), run(make(False)), run(make(True, "eager"))
+    sparse_dense, captured_eager = same(sparse, dense), same(sparse, eager)
+    dense_bytes = SPARSE_V * SPARSE_D * 4 + SPARSE_D * 4
+    sparse_bytes = sum(sparse["wire"].values())
+    lying = make(True, bound=2, spp=1)
+    try:
+        lying.train_batch()
+        raised = None
+    except RuntimeError as e:
+        raised = str(e)
+    del lying
+    print(f"sparse wire V={SPARSE_V} D={SPARSE_D} fp32, micro {SPARSE_MICRO} x {SPARSE_IDS} ids, "
+          f"{SPARSE_STEPS} captured steps: sparse = dense (losses, master, m, v, params) "
+          f"{sparse_dense}; captured = eager {captured_eager}; d2h a step: sparse "
+          f"{sparse_bytes} B ({sparse['wire']}) vs dense {dense_bytes} B "
+          f"({dense_bytes / sparse_bytes:.0f}x); step p50 sparse "
+          f"{statistics.median(sparse['ms']):.3f} ms vs dense "
+          f"{statistics.median(dense['ms']):.3f} ms; an under-declared bound raised: "
+          f"{raised is not None and 'under-declared' in raised} ({card})")
+    if not (all(sparse_dense) and all(captured_eager)):
+        raise AssertionError(f"sparse wire: {sparse_dense}, captured = eager {captured_eager}")
+    if raised is None or "under-declared" not in raised:
+        raise AssertionError(f"sparse wire: the lying bound gave {raised!r}")
+    del sparse, dense, eager
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (b) cpu_checkpointing on a 125M block
+    model = GPT2(preset=preset, max_seq=seq, dtype=torch.bfloat16, device=dev,
+                 attention_impl="flash")
+    fn, keys = marked_block(model, micro, seq)
+    gen = torch.Generator(device=dev).manual_seed(26)
+    blocks = draw_gpt2_params(model, dev, seed=26)["blocks"]
+    leaves = [blocks[k][0].to(torch.bfloat16).clone().requires_grad_() for k in keys]
+    x0 = torch.randn(micro, seq, model.config.n_embd, generator=gen, device=dev,
+                     dtype=torch.bfloat16)
+
+    def grads(cpu):
+        ck.configure(None, checkpoint_in_cpu=cpu)
+        try:
+            x = x0.clone().requires_grad_()
+            fa.reset_launches()
+            y = ck.checkpoint(fn, x, *leaves)
+            fwd_launches = dict(fa.launches)
+            loss = y.float().square().mean()
+            fa.reset_launches()
+            with OpCount() as count:
+                out = torch.autograd.grad(loss, [x, *leaves])
+            torch.cuda.synchronize()
+            return out, count.ops, fwd_launches, dict(fa.launches)
+        finally:
+            ck.configure(None)
+    g_plain, ops_plain, f_plain, b_plain = grads(False)
+    g_cpu, ops_cpu, f_cpu, b_cpu = grads(True)
+    st = ck.last_stats
+    (mark,) = st["marks"]
+    equal = all(torch.equal(a, b) for a, b in zip(g_plain, g_cpu))
+    diff = ops_plain - ops_cpu
+    nz = lambda d: {k: v for k, v in d.items() if v}  # noqa: E731
+    print(f"cpu_checkpointing {preset} block (B={micro}, T={seq}, bf16, flash, the attention "
+          f"output marked ckpt): grads equal to the plain checkpoint's {equal}; the mark on the "
+          f"host: pinned {mark.is_pinned()}, {tuple(mark.shape)} {mark.dtype}; backward ops: "
+          f"plain {sum(ops_plain.values())}, cpu_checkpointing {sum(ops_cpu.values())}, not "
+          f"recomputed {dict(diff)} (expected {CKPT_PRUNED}), extra {dict(ops_cpu - ops_plain)};"
+          f" pruned {st['pruned']}, skipped {st['skipped']}; flash launches forward plain "
+          f"{nz(f_plain)} / cpu {nz(f_cpu)}, backward with its recompute plain {nz(b_plain)} / "
+          f"cpu {nz(b_cpu)}; phase {time.perf_counter() - t_phase:.1f} s ({card})")
+    if not (equal and mark.is_pinned() and diff == collections.Counter(CKPT_PRUNED)
+            and not ops_cpu - ops_plain and st["pruned"] == CKPT_PRUNED):
+        raise AssertionError(f"cpu_checkpointing: equal {equal}, pinned {mark.is_pinned()}, "
+                             f"diff {dict(diff)}, extra {dict(ops_cpu - ops_plain)}, pruned "
+                             f"{st['pruned']}")
+    return {"sparse_bytes": sparse_bytes, "dense_bytes": dense_bytes,
+            "ckpt_ops": (sum(ops_plain.values()), sum(ops_cpu.values())),
+            "seconds": time.perf_counter() - t_phase}
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false", file=sys.stderr)
@@ -6434,6 +6993,23 @@ def main():
             "p50", "rows", "busy_ms", "peak_gb")}, **{k: nvme[k] for k in (
                 "split", "bytes", "raw", "fs", "io_setup", "rss_peak_gb")}}}))
     phase_done("23 NVMe tier")
+
+    # 24. GPT-2 1.3B with its layer blocks streamed through the card (offload_param cpu)
+    gc.collect()
+    torch.cuda.empty_cache()
+    stream = param_stream(dev, card, graded)
+    print(json.dumps({"param_stream": {k: stream[k] for k in (
+        "p50", "p99", "tokens_s", "mfu", "split", "busy_ms", "peak_gb", "rss_peak_gb")}}))
+    phase_done("24 parameter streaming")
+    # 25. the NVMe parameter tier (350M); 26. the sparse wire and cpu_checkpointing
+    pn = param_nvme(dev, card)
+    print(json.dumps({"param_nvme": {k: pn[k] for k in (
+        "p50", "read_bytes", "written_bytes", "read_wait_s", "flush_s", "fs")}}))
+    phase_done("25 NVMe parameter tier")
+    sc = sparse_and_cpu_ckpt(dev, card)
+    print(json.dumps({"sparse_wire_and_cpu_checkpointing": {k: sc[k] for k in (
+        "sparse_bytes", "dense_bytes", "ckpt_ops")}}))
+    phase_done("26 sparse wire, cpu_checkpointing")
     print(json.dumps({"phase_seconds": seconds}))
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

@@ -83,14 +83,20 @@ Deliberate differences:
   JAX; a quantized ``wte`` makes the head ``q_matmul(x, wte,
   w_transposed=True, out_dtype=float32)``, a float one keeps
   :func:`tied_head`;
-- ``init`` (JAX PRNG draws), ``stream_fns``, tensor parallelism and
-  ``local_attn_window`` are not ported.
+- ``stream_fns`` (the decomposed forward of the ZeRO-3 parameter-offload
+  runner, ``runtime/zero/param_stream.py``) returns torch callables with
+  JAX's keys; its dropout seeds follow :meth:`GPT2.apply`'s derivation
+  (``fold(seed, 17)`` for the embedding, ``fold(fold(seed, 31), i)`` for
+  layer ``i``), so a streamed step draws the monolithic step's masks, and
+  its block and head are ``apply``'s own; ``local_flags`` passes through
+  as JAX's does and no block reads it;
+- ``init`` (JAX PRNG draws), tensor parallelism and ``local_attn_window``
+  are not ported.
 """
 
 import dataclasses
 import functools
 import math
-import threading
 from typing import Optional
 
 import numpy as np
@@ -99,6 +105,7 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
+from ..runtime.activation_checkpointing.checkpointing import checkpoint_name, marking
 from ..runtime.step_graph import as_seed, dropout_uniform, fold as _fold
 from ..module_inject.module_quantize import is_quantized_leaf, q_gather, q_matmul
 from ..utils.device import resolve_device
@@ -330,21 +337,8 @@ def flash_or_jnp_attention(q, k, v, causal_mask, attn_pdrop, seed,
                           deterministic, scale=scale)
 
 
-# the name checkpoint_name is marking while its alias op runs (read by a names policy)
-_MARKING = threading.local()
 # the weight products of a block as the dispatcher sees them ("dots" saves their outputs)
 _DOT_OPS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
-
-
-def checkpoint_name(x, name):
-    """``x`` marked ``name`` for a ``names:`` remat policy (JAX
-    ``checkpoint_name``): an alias of ``x`` (no copy) whose op the policy
-    saves when it lists ``name``; the same values either way."""
-    _MARKING.name = name
-    try:
-        return torch.ops.aten.alias.default(x)
-    finally:
-        _MARKING.name = None
 
 
 def _dots_policy(ctx, op, *args, **kwargs):
@@ -353,7 +347,7 @@ def _dots_policy(ctx, op, *args, **kwargs):
 
 
 def _names_policy(names, ctx, op, *args, **kwargs):
-    saved = op is torch.ops.aten.alias.default and getattr(_MARKING, "name", None) in names
+    saved = op is torch.ops.aten.alias.default and marking() in names
     return CheckpointPolicy.MUST_SAVE if saved else CheckpointPolicy.PREFER_RECOMPUTE
 
 
@@ -625,6 +619,46 @@ class GPT2:
         :func:`_chunked_head_nll`)."""
         x = self.apply(params, tokens, rng=rng, deterministic=False, return_hidden=True)
         return _chunked_head_nll(self.config, params["wte"], x, labels)
+
+    # ------------------------------------------------- param-offload streaming
+    def stream_fns(self):
+        """The forward in per-layer pieces for the ZeRO-3 parameter-offload
+        runner (JAX ``gpt2.py:837-890``): ``embed(nonblock, tokens, seed,
+        deterministic)``, ``layer_rngs(seed)`` (one seed a layer),
+        ``block(layer_params, x, seed, is_local, deterministic)``,
+        ``head_loss(nonblock, x, labels)`` (the final LN, the tied head
+        and the mean NLL, chunked with ``loss_chunk``) and
+        ``split_batch``; ``nonblock`` holds every leaf but ``blocks``."""
+        c = self.config
+        dtype = self.dtype
+
+        def embed(nonblock, tokens, seed, deterministic):
+            pos = torch.arange(tokens.shape[1], device=tokens.device)
+            x = nonblock["wte"].to(dtype)[tokens] + nonblock["wpe"].to(dtype)[pos]
+            return _dropout(x, c.embd_pdrop, _fold(as_seed(seed), 17), deterministic)
+
+        def layer_rngs(seed):
+            layer_seed = _fold(as_seed(seed), 31)
+            return [_fold(layer_seed, i) for i in range(c.n_layer)]
+
+        def block(layer_p, x, seed, is_local, deterministic):
+            T = x.shape[1]
+            causal_mask = torch.ones((T, T), dtype=torch.bool, device=x.device).tril()[None, None]
+            return self._block(x, layer_p, seed, deterministic, causal_mask)
+
+        def head_loss(nonblock, x, labels):
+            x = _layer_norm(x, nonblock["lnf_scale"], nonblock["lnf_bias"], c.layer_norm_eps)
+            if c.loss_chunk > 0:
+                return _chunked_head_nll(c, nonblock["wte"], x, labels)
+            logits = tied_head(x, nonblock["wte"].to(x.dtype))
+            lse = torch.logsumexp(logits, dim=-1)
+            label_logit = torch.gather(logits, -1, labels[..., None].long())[..., 0]
+            return (lse - label_logit).mean()
+
+        return {"stacked_key": "blocks", "n_layer": c.n_layer,
+                "local_flags": np.arange(c.n_layer) % 2 == 1, "embed": embed,
+                "layer_rngs": layer_rngs, "block": block, "head_loss": head_loss,
+                "split_batch": self._split_batch}
 
     @staticmethod
     def _split_batch(batch):

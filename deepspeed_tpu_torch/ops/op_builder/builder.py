@@ -13,6 +13,9 @@ keyed by a hash of the sources, the flags and the host CPU's feature
 flags (``-march=native`` builds for them), so the same machine code runs
 here and under the JAX package's builder.
 
+:class:`HostLandAddBuilder` builds the port's own
+``deepspeed_tpu_torch/csrc/host/land_add.cpp`` (the streamed parameter
+tier's one-pass bf16 land-and-accumulate) with the same flags.
 :class:`AsyncIOBuilder` builds the repo's ``csrc/aio/ds_aio.cpp`` (the
 NVMe tier's kernel AIO over raw ``io_setup`` / ``io_submit``, with
 ``O_DIRECT`` for aligned requests; JAX ``builder.py:129-158``) the same
@@ -36,6 +39,7 @@ from pathlib import Path
 
 REPO = Path(__file__).resolve().parents[3]
 CSRC_DIR = REPO / "csrc"
+PORT_CSRC_DIR = REPO / "deepspeed_tpu_torch" / "csrc"
 BUILD_DIR = REPO / ".torch_build"
 CFLAGS = ["-O3", "-std=c++17", "-fPIC", "-shared", "-fopenmp", "-march=native"]
 
@@ -175,6 +179,23 @@ class AsyncIOBuilder(HostOpBuilder):
             fn = getattr(lib, sym)
             fn.argtypes = [c_void]
             fn.restype = res
+
+
+class HostLandAddBuilder(HostOpBuilder):
+    """The port's own ``deepspeed_tpu_torch/csrc/host/land_add.cpp``: the
+    streamed tier's one-pass bf16 land-and-accumulate, with the Adam
+    library's flags."""
+
+    NAME = "land_add"
+    SOURCES = ("host/land_add.cpp",)
+
+    def sources(self):
+        return [PORT_CSRC_DIR / s for s in self.SOURCES]
+
+    @staticmethod
+    def _declare(lib):
+        lib.ds_bf16_accumulate.argtypes = [u16p, f32p, c_i64]
+        lib.ds_bf16_accumulate.restype = c_int
 
 
 _builder = CPUAdamBuilder()

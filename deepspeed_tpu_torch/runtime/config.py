@@ -23,9 +23,11 @@ the caller builds the layout with ``build_sparsity_config``), and the
 (``DeepSpeedCurriculumConfig`` / ``DeepSpeedPLDConfig``, JAX
 ``config.py:258-271``: the same keys and defaults).
 
+``sparse_gradients`` (JAX ``sparse_gradients_enabled``, the offload
+wire's row-sparse leaves) is parsed.
+
 What the port does not run raises ``NotImplementedError`` instead of
-being ignored: world size > 1, parameter offload (``zero/config.py``)
-and ``sparse_gradients`` (ROADMAP item 7c),
+being ignored: world size > 1,
 ``fp16.master_weights_and_grads`` (a no-op key in the JAX package, whose
 fp32 master is unconditional), an optimizer other than Adam, AdamW, Lamb,
 SGD and Adagrad
@@ -55,7 +57,7 @@ PORTED_KEYS = {
     C.PRESCALE_GRADIENTS, C.GRADIENT_PREDIVIDE_FACTOR, C.DATA_TYPES,
     C.DATALOADER_DROP_LAST, C.ZERO_OPTIMIZATION, C.HEALTH_CHECK, C.SPARSE_ATTENTION,
     C.CHECKPOINT, C.IO_RETRY, C.CURRICULUM_LEARNING, C.PROGRESSIVE_LAYER_DROP,
-    C.ACTIVATION_CHECKPOINTING, C.AIO,
+    C.ACTIVATION_CHECKPOINTING, C.AIO, C.SPARSE_GRADIENTS,
 }
 
 
@@ -274,7 +276,8 @@ class DeepSpeedConfig:
         world_size = _world_size()
         if world_size != 1:
             raise NotImplementedError(f"world size {world_size}: only one device is "
-                                      "ported (ZeRO across ranks comes later)")
+                                      "ported (ZeRO across ranks and sparse_allreduce: "
+                                      "ROADMAP item 9)")
         self._param_dict = dict(load_config_dict(config))
         self._check_unported(self._param_dict)
         self._initialize_params(self._param_dict)
@@ -343,6 +346,8 @@ class DeepSpeedConfig:
         self.pld = DeepSpeedPLDConfig(pd)
         self.activation_checkpointing = DeepSpeedActivationCheckpointingConfig(pd)
         self.progressive_layer_drop = self.pld   # the reference's name
+        self.sparse_gradients_enabled = bool(pd.get(C.SPARSE_GRADIENTS,
+                                                    C.SPARSE_GRADIENTS_DEFAULT))
         self.sparse_attention = pd.get(C.SPARSE_ATTENTION)
         if self.sparse_attention is not None:
             if not isinstance(self.sparse_attention, dict):

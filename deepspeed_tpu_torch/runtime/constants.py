@@ -61,6 +61,9 @@ DATALOADER_DROP_LAST = "dataloader_drop_last"
 DATALOADER_DROP_LAST_DEFAULT = False
 
 ZERO_OPTIMIZATION = "zero_optimization"
+# the sparse-gradient offload wire (JAX runtime/constants.py:91-97)
+SPARSE_GRADIENTS = "sparse_gradients"
+SPARSE_GRADIENTS_DEFAULT = False
 ACTIVATION_CHECKPOINTING = "activation_checkpointing"
 SPARSE_ATTENTION = "sparse_attention"      # a dict (build_sparsity_config) or None
 
@@ -125,12 +128,13 @@ UNPORTED = {
     "tensorboard": {}, "monitor": {}, "analysis": {}, "pipeline": {}, "eigenvalue": {},
     "quantize_training": {}, "compile_cache": {}, "comms_compression": {}, "mesh": {},
     "sequence_parallel": {}, "elasticity": {}, "autotuning": {},
-    "sparse_gradients": False, "communication_data_type": None,
+    "communication_data_type": None,
     "disable_allgather": False, "dump_state": False, "wall_clock_breakdown": False,
     "memory_breakdown": False,
 }
 # why a block of UNPORTED is refused, where a ROADMAP item names it
-UNPORTED_WHY = {"sparse_gradients": "ROADMAP item 7c: the sparse-gradient offload wire"}
+UNPORTED_WHY = {"comms_compression": "ROADMAP item 13: comms compression, the streamed "
+                                    "tier's quantized layer wire among its routes"}
 
 # aio: the NVMe tier's async-IO handles (ops/aio over csrc/aio)
 AIO = "aio"

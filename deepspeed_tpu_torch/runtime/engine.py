@@ -191,9 +191,45 @@ The NVMe tier (``offload_optimizer: {"device": "nvme", "nvme_path":
 ``io_retry`` policy; the step, DPU's worker thread and checkpoints go
 through the swap files, and checkpoints keep the in-device layout.
 
-Not ported: the streamed-parameter path, the sparse gradient wire
-(ROADMAP item 7c), ZeRO across ranks, monitoring (the config raises for
-each) and the 1-bit optimizers.
+ZeRO-3 parameter offload (``zero_optimization.offload_param: {"device":
+"cpu" | "nvme"}``, JAX :227-268, :348-392, :1532-1563): the model's
+parameters live in the host tier only, built over the layer-major stream
+tree (``runtime/zero/param_stream.py``'s ``to_stream_tree``, the init tree
+consumed leaf by leaf), and ``ParamStreamRunner`` streams the layer blocks
+through the card each step (``_run_stream_step``; ``params``, ``master``,
+``opt_state`` and ``health`` are None, the metrics are host values).
+JAX's validation and ``ValueError`` texts: stage 3, an
+``offload_optimizer`` with a config Adam/AdamW, no fp16, a model with
+``stream_fns``, ``fast_init`` only with ``init_numpy``.  The step is a
+Python loop over per-layer work, as JAX's is a loop over per-layer jits:
+``step_impl`` "auto" runs it eagerly and "graph" raises.  As in JAX,
+``delayed_param_update`` has no effect there (the step runs
+synchronously; logged once).  ``eval_batch``, ``module_state_dict``,
+``save_16bit_model`` and checkpoints go through the host tier in the
+stacked model layout (``from_stream_tree`` / ``to_stream_tree``), so
+streamed and monolithic checkpoints load into each other;
+``load_checkpoint`` refreshes the NVMe layer files and the card's
+nonblock params (``reload_from_host``) and resets the runner's host EMA.
+
+The sparse-gradient wire (``sparse_gradients``, JAX :413-432, :1271-1340,
+:1856-1941): with the host tier, the leaves the model declares in
+``sparse_grad_paths()`` (lookup tables only) leave the captured grad step
+as ``SparseTensor.from_dense``'s first ``k`` nonzero rows (indices and
+values, ``runtime/sparse_tensor.py``; ``k`` the model's
+``sparse_grad_row_bound(batch)`` or the batch's integer id count, static),
+beside the dense buffer of the other leaves; the host scatters them
+through ``HostOffloadOptimizer.flatten_grads``.  The rows beyond the bound
+are counted on the card (``sparse_rows_dropped``); the counts of applied
+steps are read at reporting steps, every 50 steps and at every flush
+(``_flush_row_drop_checks``), and a nonzero count raises
+``RuntimeError``.  Without declared paths JAX's warning is logged and the
+gradients stay dense.  Difference: the upload stays one flat copy (JAX
+uploads a tree under the sparse wire, with DPU's alternating staging
+trees; the port's stage and its events already keep an upload off the
+image the next host step writes).
+
+Not ported: ZeRO across ranks, monitoring (the config raises for each)
+and the 1-bit optimizers.
 """
 
 import time
@@ -238,6 +274,9 @@ CAPTURE_HINT = ("a loss_fn that reads a device value back to the host cannot be 
                 "train it with step_impl='eager'")
 # the optimizer objects the captured step runs (a client optimizer must be one)
 CAPTURED_OPTIMIZERS = (FusedAdam, FusedLamb, SGD, DeepSpeedCPUAdagrad)
+STREAM_GRAPH_ERROR = ("step_impl='graph' cannot capture the streamed step of offload_param: "
+                      "it is a host loop of per-layer uploads, blocks, gradient landings and "
+                      "a host optimizer step; use step_impl='auto' or 'eager'")
 OFFLOAD_CLIENT_ERROR = ("offload_optimizer requires a config-specified Adam/AdamW (the host "
                         "tier runs its own fused step; a client optimizer object cannot be "
                         "offloaded)")
@@ -298,6 +337,7 @@ class DeepSpeedEngine:
         if model is not None and getattr(model, "device", self.device) != self.device:
             raise ValueError(f"device {self.device} differs from the model's "
                              f"{model.device}")
+        self._streamed = self._check_param_stream(model, optimizer, params)
         if loss_fn is None:
             if model is None or not hasattr(model, "loss"):
                 raise ValueError("Provide model= (with .loss) or loss_fn= and params=")
@@ -313,7 +353,9 @@ class DeepSpeedEngine:
         self._loss_fn = loss_fn
         if step_impl not in STEP_IMPLS:
             raise ValueError(f"step_impl must be one of {STEP_IMPLS}, got {step_impl!r}")
-        self.step_impl = "eager" if step_impl == "eager" else "graph"
+        if self._streamed and step_impl == "graph":
+            raise ValueError(STREAM_GRAPH_ERROR)
+        self.step_impl = "eager" if step_impl == "eager" or self._streamed else "graph"
         self._graphs = None                 # the step graphs' GraphPool, made at first use
         self._steps = {}                    # graph key -> its StepGraph
         self._released = []                 # StepGraphs of past curriculum difficulties
@@ -415,16 +457,50 @@ class DeepSpeedEngine:
             return self.lr_scheduler.lr_fn(step)
         return float(getattr(self.optimizer, "lr", 0.0))
 
+    def _check_param_stream(self, model, client_optimizer, params):
+        """JAX's validation of ``offload_param`` (:227-268); returns whether
+        the engine streams its parameters."""
+        zc = self.config.zero_config
+        if zc.offload_param_device() not in ("cpu", "nvme"):
+            return False
+        offload_wanted = (zc.offload_optimizer_device() in ("cpu", "nvme")
+                          and client_optimizer is None
+                          and self.config.optimizer_name is not None)
+        if self.config.zero_optimization_stage != 3:
+            raise ValueError("zero_optimization.offload_param requires stage 3 "
+                             f"(got stage {self.config.zero_optimization_stage})")
+        if not offload_wanted:
+            raise ValueError("offload_param requires offload_optimizer (cpu or nvme) with a "
+                             "config-specified Adam/AdamW: streamed parameters have no "
+                             "device-resident master for an in-device optimizer to update")
+        if self.config.fp16_enabled:
+            raise ValueError("offload_param does not support fp16 dynamic loss scaling; use "
+                             "bf16 or fp32")
+        if not callable(getattr(model, "stream_fns", None)):
+            raise ValueError("offload_param needs a model exposing stream_fns() (decomposed "
+                             "embed/block/head forward) — GPT2 and compatible families "
+                             "provide it")
+        if (params is None and zc.offload_param.fast_init
+                and not callable(getattr(model, "init_numpy", None))):
+            raise ValueError("offload_param.fast_init requires the model to expose "
+                             "init_numpy(seed) (a host-RAM init twin)")
+        return True
+
     def _configure_offload(self, client_optimizer, params):
         """The host tier (JAX :333-406): built when the config offloads the
-        optimizer to the CPU and names one."""
+        optimizer to the CPU and names one; over the stream tree, with the
+        runner, when the parameters stream (JAX :348-392)."""
         self._offload = None
+        self._param_stream = None
         self._dpu = False
         self._dpu_warmup = 0
         self._pending_offload = None      # (wire handle, metrics) of DPU's pending step
+        self._pending_row_drop_checks = []   # the sparse wire's device drop counts
+        self._sparse_grad_paths = ()
         off = self.config.zero_config.offload_optimizer
         if (off is None or off.device not in ("cpu", "nvme")
                 or isinstance(self.optimizer, DummyOptim)):
+            self._configure_sparse_wire()
             return
         if client_optimizer is not None:
             raise ValueError(OFFLOAD_CLIENT_ERROR)
@@ -434,8 +510,39 @@ class DeepSpeedEngine:
                              "reference parity: DeepSpeedCPUAdam)")
         from .zero import wire
         from .zero.offload_engine import HostOffloadOptimizer
+        zc = self.config.zero_config
+        if self._streamed:
+            from .zero import param_stream as ps
+            sf = self.module.stream_fns()
+            tree = ps.to_stream_tree(params, sf["stacked_key"])
+            del params
+            # consume_params drops each init leaf as the master absorbs it; the
+            # buffers come after (the init tree, master and buffers never all at once)
+            self._offload = HostOffloadOptimizer(
+                tree, zc, optimizer_name=name, optimizer_params=self.config.optimizer_params,
+                compute_dtype=self.compute_dtype, device=self.device,
+                aio_config=self.config.aio_config, retry=self.config.io_retry_config.policy(),
+                consume_params=True, payload_in_ram=zc.offload_param_device() == "cpu")
+            del tree
+            self._offload.alloc_buffers(flat_wire=False)
+            cfg = self._health_cfg
+            self._param_stream = ps.ParamStreamRunner(
+                self.module, self._offload, self.device,
+                gas=self.config.gradient_accumulation_steps,
+                grad_clip=self.config.gradient_clipping, zero_config=zc,
+                aio_config=self.config.aio_config, retry=self.config.io_retry_config.policy(),
+                skip_nonfinite=self._health_enabled and cfg.skip_nonfinite,
+                spike=((cfg.spike_window, cfg.spike_zmax, cfg.skip_on_spike)
+                       if self._health_enabled else None))
+            if off.delayed_param_update:
+                log_dist("offload_param: delayed_param_update has no effect on the streamed "
+                         "step, which runs synchronously (as the JAX engine's does)", ranks=[0])
+            self._host_opt_steps = 0
+            self.offload_times = {}
+            self._configure_sparse_wire()
+            return
         self._offload = HostOffloadOptimizer(
-            params, self.config.zero_config, optimizer_name=name,
+            params, zc, optimizer_name=name,
             optimizer_params=self.config.optimizer_params, compute_dtype=self.compute_dtype,
             device=self.device, aio_config=self.config.aio_config,
             retry=self.config.io_retry_config.policy())
@@ -455,6 +562,22 @@ class DeepSpeedEngine:
         self._last_d2h = None               # the event of the last d2h's end (flags included)
         self._host_pool = None              # the thread DPU's host work runs on
         self.offload_times = {}             # the last host update's split (seconds)
+        self._sparse_host = {}              # pinned landings of the sparse wire, by name
+        self._configure_sparse_wire()
+
+    def _configure_sparse_wire(self):
+        """The declared row-sparse leaves (JAX :413-432)."""
+        if not self.config.sparse_gradients_enabled:
+            return
+        declared = getattr(self.module, "sparse_grad_paths", None)
+        if callable(declared):
+            self._sparse_grad_paths = tuple(tuple(p) for p in declared())
+        if not self._sparse_grad_paths:
+            log_dist("sparse_gradients enabled but the model declares no "
+                     "sparse_grad_paths(); gradients stay dense", ranks=[0])
+        elif self._offload is None or self._param_stream is not None:
+            log_dist("sparse_gradients: the sparse wire format applies to the offload d2h "
+                     "path only", ranks=[0])
 
     # ------------------------------------------------------------------- state
     def _init_state(self, master):
@@ -463,7 +586,12 @@ class DeepSpeedEngine:
         fp16 the loss scaler (``self.scale`` is its state, updated in place).
         Under offload the params come from the host payload image and the
         device holds no master or optimizer state."""
-        if self._offload is not None:
+        if self._param_stream is not None:
+            # nothing model-sized on the card: the runner keeps the nonblock
+            # params, the host the rest; its sentinels are host values
+            self._needs_master = False
+            self.master = self.opt_state = self.params = None
+        elif self._offload is not None:
             self._needs_master = False
             self.master = None
             self.opt_state = None
@@ -482,7 +610,8 @@ class DeepSpeedEngine:
             self.opt_state = self.optimizer.init(self._base)
         z = lambda: torch.zeros((), dtype=torch.int32, device=self.device)
         self._optimizer_steps, self._skipped_steps = z(), z()
-        self.health = hmod.init_state(self.device) if self._health_enabled else None
+        self.health = (hmod.init_state(self.device)
+                       if self._health_enabled and self._param_stream is None else None)
         self._scaler = (ls.create_loss_scaler(self.config.fp16, self.device)
                         if self.fp16_enabled else None)
         self.scale = self._scaler.state if self._scaler is not None else None
@@ -599,10 +728,66 @@ class DeepSpeedEngine:
         grads, metrics = self._grads_and_metrics(self.params, batch, seed)
         with torch.no_grad():
             skip = self._advance_guards(grads, metrics, commit)
-            wire = self._offload.wire_dtype
-            metrics["grads"] = torch.cat([g.reshape(-1).to(wire) for g in tree_leaves(grads)])
+            leaves = [g.to(self._offload.wire_dtype) for g in tree_leaves(grads)]
+            del grads
+            if self._sparse_grad_paths:
+                leaves, sparse, metrics["sparse_rows_dropped"] = self._sparsify_grads(
+                    leaves, batch)
+                for i, (idx, vals) in sparse.items():
+                    metrics[f"sparse/{i}/indices"], metrics[f"sparse/{i}/values"] = idx, vals
+            metrics["grads"] = torch.cat([g.reshape(-1) for g in leaves])
         metrics["skip"] = skip
         return metrics
+
+    def _sparse_leaf_ids(self):
+        """``{leaf position: path}`` of the declared sparse paths in the
+        parameter tree (positions in :func:`tree_leaves` order)."""
+        def walk(tree, path):
+            if isinstance(tree, dict):
+                for k in sorted(tree):
+                    yield from walk(tree[k], path + (k,))
+            elif isinstance(tree, (tuple, list)):
+                for i, t in enumerate(tree):
+                    yield from walk(t, path + (i,))
+            else:
+                yield path
+        paths = list(walk(self.params, ()))
+        missing = [p for p in self._sparse_grad_paths if p not in paths]
+        if missing:
+            raise ValueError(f"sparse_grad_paths {missing} name no parameter leaf")
+        return {paths.index(p): p for p in self._sparse_grad_paths}
+
+    def _sparsify_grads(self, leaves, batch):
+        """The declared leaves as row-sparse (indices, values) for the d2h
+        wire (JAX :1287-1340).  The static row bound is the model's
+        ``sparse_grad_row_bound(batch)``, else the batch's integer id count
+        (safe: a lookup touches at most one row an id); a leaf with no more
+        rows than that stays dense.  The nonzero rows past the bound are
+        counted on the card (``dropped``), never silently lost.  Returns
+        ``(dense leaves, {position: (indices, values)}, dropped)``."""
+        from .sparse_tensor import SparseTensor
+        bound_fn = getattr(self.module, "sparse_grad_row_bound", None)
+        if callable(bound_fn):
+            tokens = int(bound_fn(batch))
+        else:
+            tokens = sum(leaf.numel() for leaf in tree_leaves(batch)
+                         if not (leaf.is_floating_point() or leaf.is_complex()
+                                 or leaf.dtype == torch.bool))
+        dropped = torch.zeros((), dtype=torch.int32, device=self.device)
+        dense, sparse = [], {}
+        ids = self._sparse_leaf_ids() if tokens else {}
+        for i, g in enumerate(leaves):
+            if i in ids:
+                if g.dim() != 2:
+                    raise ValueError(f"sparse_grad_paths leaf {ids[i]} must be 2-D (rows, dim)")
+                if tokens < g.shape[0]:           # else dense is smaller: keep it
+                    nz = (g != 0).any(dim=1)
+                    dropped = dropped + torch.clamp(nz.sum(dtype=torch.int32) - tokens, min=0)
+                    st = SparseTensor.from_dense(g, max_rows=tokens, nz=nz)
+                    sparse[i] = (st.indices, st.values)
+                    continue
+            dense.append(g)
+        return dense, sparse, dropped
 
     def _advance_guards(self, grads, metrics, commit):
         """The guards both steps share (JAX :1115-1175): the skip flag from
@@ -706,6 +891,8 @@ class DeepSpeedEngine:
     def _run_step(self, micro_batches):
         """The captured step over ``micro_batches`` (gas host micro-batches),
         shared by :meth:`train_batch` and :meth:`step`; returns the loss."""
+        if self._param_stream is not None:
+            return self._run_stream_step(micro_batches)
         batch = self._stack_microbatches(micro_batches)
         named = _named_leaves(batch)
         lr = self._lr_at(self._global_steps)
@@ -719,10 +906,31 @@ class DeepSpeedEngine:
                                                pending[1]["lr"]), pending[1])
         out = step(step_seed=_fold(self._rng_seed, self.micro_steps),
                    commit=np.bool_(True), lr=np.float32(lr), **named)
-        metrics = {k: v.clone() for k, v in out.items() if k != "grads"}
+        metrics = {k: v.clone() for k, v in out.items()
+                   if k != "grads" and not k.startswith("sparse/")}
         metrics["lr"] = lr
         if self._offload is not None:
-            self._offload_after_replay(out["grads"], metrics, host)
+            # the sparse leaves' rows, cloned: the next replay rewrites the outputs
+            sparse = {int(k.split("/")[1]): (v.clone(), out[k[:-len("indices")] + "values"].clone())
+                      for k, v in out.items() if k.startswith("sparse/") and
+                      k.endswith("/indices")}
+            self._offload_after_replay(out["grads"], metrics, host, sparse)
+        return self._finish_step(metrics)
+
+    def _run_stream_step(self, micro_batches):
+        """The ZeRO-3 parameter-offload step (JAX :1532-1563): the runner
+        streams the layer blocks through the card and runs the host step;
+        the counters follow its skip flag as the fused path's do."""
+        lr = self._lr_at(self._global_steps)
+        metrics = self._param_stream.train_step(
+            micro_batches, _fold(self._rng_seed, self.micro_steps), lr=lr,
+            step_no=self._host_opt_steps + 1)
+        self.offload_times = self._param_stream.last_times
+        if bool(metrics["skip"]):
+            self._skipped_steps += 1
+        else:
+            self._optimizer_steps += 1
+            self._host_opt_steps += 1
         return self._finish_step(metrics)
 
     def _host_worker(self):
@@ -734,7 +942,7 @@ class DeepSpeedEngine:
         return self._host_pool
 
     # ------------------------------------------- the offload step's host half
-    def _offload_after_replay(self, flat, metrics, host=None):
+    def _offload_after_replay(self, flat, metrics, host=None, sparse=None):
         """After the device half's replay (JAX :1493-1526): start the d2h of
         its flat gradients and ``skip``, then apply a step on the host: this
         one (synchronous), or under DPU past the warm-up the pending one
@@ -755,14 +963,35 @@ class DeepSpeedEngine:
         if host is not None:
             future, pending_metrics = host
             self._host_offload_finish(future.result(), pending_metrics)
+        extra = [(metrics["skip"].reshape(1), self._skip_host)]
+        landing, host_sparse = self._offload.landing, None
+        if sparse:
+            # the other leaves land in a buffer of their own (the fp32 wire's landing
+            # is grad32, which flatten_grads writes); the rows in pinned buffers
+            landing = self._sparse_landing("dense", flat)
+            host_sparse = {i: (self._sparse_landing((i, 0), a), self._sparse_landing((i, 1), b))
+                           for i, (a, b) in sparse.items()}
+            extra += [(a, host_sparse[i][0]) for i, (a, _) in sparse.items()]
+            extra += [(b, host_sparse[i][1]) for i, (_, b) in sparse.items()]
         handle = FlatWireHandle(wire.d2h_flat_start(
-            flat, self._offload.landing, self._copies, after=self._copies.event(),
-            extra=((metrics["skip"].reshape(1), self._skip_host),)))
+            flat, landing, self._copies, after=self._copies.event(), extra=tuple(extra)),
+            dense=landing if sparse else None, sparse=host_sparse)
         self._last_d2h = None if handle.handle is None else handle.handle[2]
         if dpu:
             self._pending_offload = (handle, metrics)
         else:
             self._host_offload_update(handle, metrics)
+
+    def _sparse_landing(self, name, like):
+        """The pinned host buffer ``name`` of the sparse wire, shaped as the
+        device tensor ``like`` (made at first use, then reused: a step's
+        host work ends before the next step's d2h starts)."""
+        from .zero import wire
+        buf = self._sparse_host.get(name)
+        if buf is None or buf.shape != like.shape or buf.dtype != like.dtype:
+            buf = self._sparse_host[name] = wire.pinned(like.numel(), like.dtype,
+                                                        self.device).view(like.shape)
+        return buf
 
     def _host_offload_update(self, handle, metrics):
         """The host half (JAX :1337-1420) in the calling thread."""
@@ -781,7 +1010,11 @@ class DeepSpeedEngine:
         times = {"land_wait_s": t1 - t0, "d2h_s": wire.seconds(handle.handle)}
         skip = bool(self._skip_host[0])
         if not skip:
-            flat = self._offload.widen()
+            if handle.sparse is not None:
+                flat = self._offload.flatten_grads(
+                    self._offload.wire_tree(handle.dense, handle.sparse))
+            else:
+                flat = self._offload.widen()
             t2 = time.perf_counter()
             self._offload.step(flat, self._host_opt_steps + 1, lr)
             times.update(widen_s=t2 - t1, host_step_s=time.perf_counter() - t2)
@@ -792,6 +1025,13 @@ class DeepSpeedEngine:
         of the payload into the stage and its copy into the params, and the
         step counters."""
         skip, times = result
+        if not skip and "sparse_rows_dropped" in metrics:
+            # checked on applied steps only (a NaN step makes every row nonzero), read
+            # on reporting steps, every 50 and at every flush: a read syncs the stream
+            self._pending_row_drop_checks.append(metrics["sparse_rows_dropped"])
+            if ((self._global_steps + 1) % self.config.steps_per_print == 0
+                    or len(self._pending_row_drop_checks) >= 50):
+                self._flush_row_drop_checks()
         if skip:
             self._skipped_steps += 1
         else:
@@ -810,12 +1050,27 @@ class DeepSpeedEngine:
             times["upload"] = self._h2d.last
         self.offload_times = times
 
+    def _flush_row_drop_checks(self):
+        """Read the pending drop counts (a sync) and raise if a sparse
+        gradient row was dropped since the last read (JAX :1913-1925)."""
+        pending, self._pending_row_drop_checks = self._pending_row_drop_checks, []
+        n_dropped = sum(int(x) for x in pending)
+        if n_dropped > 0:
+            raise RuntimeError(
+                f"sparse_grad_row_bound under-declared: {n_dropped} nonzero gradient row(s) "
+                "exceeded the declared bound within the last reporting interval and were "
+                "dropped; raise the bound (or remove sparse_grad_row_bound to use the safe "
+                "default)")
+
     def _flush_offload(self):
         """Apply a pending DPU step, so exported or evaluated state reflects
-        every batch seen (JAX :1927-1941)."""
+        every batch seen (JAX :1927-1941); the sparse wire's drop counts are
+        read before and after it, so no export skips the check."""
+        self._flush_row_drop_checks()
         if self._offload is not None and self._pending_offload is not None:
             pending, self._pending_offload = self._pending_offload, None
             self._host_offload_update(*pending)
+            self._flush_row_drop_checks()
 
     def offload_state(self):
         """The host tier after a flush: ``{"master", "exp_avg",
@@ -910,8 +1165,8 @@ class DeepSpeedEngine:
         and an event after it, so the monitor's late read waits on this step
         only; on the CPU the tensors themselves."""
         keys = [k for k in hmod.METRIC_KEYS if isinstance(metrics.get(k), torch.Tensor)]
-        if self.device.type != "cuda":
-            return {k: metrics[k] for k in keys}
+        if self.device.type != "cuda" or self._param_stream is not None:
+            return {k: metrics[k] for k in keys}      # host values (the streamed step's too)
         ring = self._sentinel_ring
         if ring is None or ring[0].numel() != len(keys):
             ring = self._sentinel_ring = [
@@ -1041,6 +1296,8 @@ class DeepSpeedEngine:
     def eval_batch(self, batch, rng=None):
         """The loss of ``batch`` (host arrays) without gradients or update."""
         self._flush_offload()
+        if self._param_stream is not None:
+            return self._param_stream.eval_loss(batch, 0 if rng is None else int(rng))
         batch = tree_map(lambda a: torch.as_tensor(np.asarray(a)).to(self.device), batch)
         with torch.no_grad():
             return self._loss_fn(self.params, batch, 0 if rng is None else int(rng))
@@ -1088,6 +1345,20 @@ class DeepSpeedEngine:
     def get_global_grad_norm(self):
         m = self._last_metrics.get("grad_norm")
         return float(m) if m is not None else None
+
+    def module_state_dict(self):
+        """The full parameters on the host (CPU tensors of the compute
+        dtype), after a flush (JAX :2143-2148)."""
+        self._flush_offload()
+        if self._param_stream is not None:
+            return self._param_stream.full_params_host()
+        return tree_map(lambda t: t.detach().to("cpu", copy=True), self.params)
+
+    def _params_out(self):
+        """The parameters a checkpoint or a 16-bit save writes."""
+        if self._param_stream is not None:
+            return self._param_stream.full_params_host()
+        return self.params
 
     # ----------------------------------------------------------- checkpoints
     def _get_ckpt_name(self, checkpoints_path, tag):
@@ -1137,13 +1408,19 @@ class DeepSpeedEngine:
         path = atomic.stage_path(save_dir, tag)
         os.makedirs(path)
         # fsync deferred to commit_staged: one durability pass per file
-        save_tree(os.path.join(path, MODEL_FILE), {"params": self.params},
+        save_tree(os.path.join(path, MODEL_FILE), {"params": self._params_out()},
                   meta=self._engine_meta(client_state), fsync=False, retry=retry)
         fault.site("ckpt.after_model_file")
         if self._offload is not None:
-            # the host tier in the in-device layout (JAX :2231-2238)
-            optim_tree = {"opt_state": self._offload.moments_tree(),
-                          "master": self._offload.master_tree()}
+            # the host tier in the in-device layout (JAX :2231-2245); a streamed
+            # engine's layer-major trees go back to the stacked model tree
+            moments, master = self._offload.moments_tree(), self._offload.master_tree()
+            if self._param_stream is not None:
+                from .zero.param_stream import from_stream_tree
+                key = self._param_stream.sf["stacked_key"]
+                moments = {k: from_stream_tree(v, key) for k, v in moments.items()}
+                master = from_stream_tree(master, key)
+            optim_tree = {"opt_state": moments, "master": master}
         else:
             optim_tree = {"opt_state": self.opt_state}
         if self.master is not None:
@@ -1184,8 +1461,8 @@ class DeepSpeedEngine:
         self._flush_offload()
         os.makedirs(save_dir, exist_ok=True)
         path = os.path.join(save_dir, save_filename)
-        save_tree(path, {"params": self.params}, meta={"dtype": self.config.precision_dtype},
-                  fsync=fsync, retry=retry)
+        save_tree(path, {"params": self._params_out()},
+                  meta={"dtype": self.config.precision_dtype}, fsync=fsync, retry=retry)
         log_dist(f"saved 16-bit model to {path}", ranks=[0])
         return True
 
@@ -1310,6 +1587,26 @@ class DeepSpeedEngine:
         with torch.no_grad():
             off.copy_into(self.params, flat)
 
+    def _load_stream(self, model_tree, optim_tree):
+        """The streamed engine's host tier from a checkpoint (JAX
+        :2505-2531): the stacked trees converted to the layer-major layout,
+        the master from the params (then from the optimizer file's master
+        where it has one), the moments, then the NVMe layer files and the
+        card's nonblock params."""
+        from .zero.param_stream import to_stream_tree
+        key = self._param_stream.sf["stacked_key"]
+        tmpl = self._offload._template
+        stacked = tree_map(lambda _: 0, {**tmpl["nonblock"], key: tmpl["layers"][0]})
+        conv = lambda t: None if t is None else to_stream_tree(  # noqa: E731
+            restore_like(stacked, t), key)
+        off = self._offload
+        off.load_state(master_tree=conv(model_tree["params"]))
+        if optim_tree is not None:
+            opt = optim_tree["opt_state"]
+            off.load_state(master_tree=conv(optim_tree.get("master")),
+                           m=conv(opt["exp_avg"]), v=conv(opt["exp_avg_sq"]))
+        self._param_stream.reload_from_host()
+
     def load_checkpoint(self, load_dir, tag=None, load_module_only=False,
                         load_optimizer_states=True, load_lr_scheduler_states=True):
         """Load a manifest-verified checkpoint into the engine's tensors in
@@ -1329,11 +1626,12 @@ class DeepSpeedEngine:
             if extra:
                 raise NotImplementedError(f"checkpoint optimizer keys {extra} are not ported")
         self.loaded_checkpoint_tag = tag
-        loaded_params = restore_like(self.params, model_tree["params"])
-        if self._offload is not None:
-            self._load_offload(loaded_params, optim_tree)
+        if self._param_stream is not None:
+            self._load_stream(model_tree, optim_tree)
+        elif self._offload is not None:
+            self._load_offload(restore_like(self.params, model_tree["params"]), optim_tree)
         else:
-            self._load_device(loaded_params, optim_tree)
+            self._load_device(restore_like(self.params, model_tree["params"]), optim_tree)
         self._global_steps = int(meta["global_steps"])
         self._optimizer_steps.fill_(int(meta["optimizer_steps"]))
         self._skipped_steps.fill_(int(meta["skipped_steps"]))
@@ -1358,6 +1656,8 @@ class DeepSpeedEngine:
             self._stream_pos_known = False
         if self.health_monitor is not None:
             self.health_monitor.on_checkpoint_load()
+        if self._param_stream is not None:
+            self._param_stream.reset_health_ema()
         self._last_ckpt_dir = load_dir
         if (load_lr_scheduler_states and self.lr_scheduler is not None
                 and meta.get("lr_scheduler") is not None):

@@ -5,8 +5,9 @@ Counterpart of ``deepspeed_tpu/runtime/swap_tensor/partitioned_param_swapper.py`
 file per id under ``<nvme_path>/zero_stage_3/<dtype>params/rank<r>/``
 (JAX's layout; ``float32params`` for fp32), and a bounded pool of
 aligned host buffers serves swap-in (async reads ahead of use) and
-swap-out (async writes after release).  Its engine user, the streamed
-parameter runner, is not ported (ROADMAP item 7c); it stands alone here.
+swap-out (async writes after release).  Its engine user is the streamed
+parameter runner's NVMe tier (``runtime/zero/param_stream.py``).
+``bytes_read`` / ``bytes_written`` count the bytes its requests move.
 
 Deliberate differences: CPU torch tensors and aligned torch buffers
 (``utils.aligned_empty``); each request moves the buffer's block-rounded
@@ -42,6 +43,7 @@ class AsyncPartitionedParameterSwapper:
         self._id_to_buffer = {}      # swapped-in id -> SwapBuffer
         self._inflight_reads = []    # ids with reads in flight
         self._inflight_writes = []   # buffers with writes in flight
+        self.bytes_read = self.bytes_written = 0
 
     def _path(self, param_id):
         return make_swap_path(self.swap_folder, f"param_{param_id}")
@@ -60,6 +62,7 @@ class AsyncPartitionedParameterSwapper:
             io[flat.numel():].zero_()
             swap_out_tensors(self.aio_write_handle, [io], [self._path(param_id)],
                              retry=self.retry)
+            self.bytes_written += io.numel() * io.element_size()
         except Exception:
             self._pool.release(buf)      # not in flight yet: nothing else frees it
             raise
@@ -84,8 +87,9 @@ class AsyncPartitionedParameterSwapper:
                 continue
             buf = acquire_swap_buffer(self._pool, retry=self.retry)
             try:
-                swap_in_tensors(self.aio_read_handle, [buf.io_view(self._id_to_numel[pid])],
-                                [self._path(pid)], retry=self.retry)
+                io = buf.io_view(self._id_to_numel[pid])
+                swap_in_tensors(self.aio_read_handle, [io], [self._path(pid)], retry=self.retry)
+                self.bytes_read += io.numel() * io.element_size()
             except Exception:
                 self._pool.release(buf)
                 raise

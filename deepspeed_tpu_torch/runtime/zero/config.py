@@ -14,12 +14,18 @@ defaults: ``device`` cpu or nvme, ``nvme_path``, ``buffer_count`` 4,
 ``delayed_param_update`` and ``delayed_param_update_warmup`` 20) and the
 legacy ``cpu_offload`` flag, which means ``offload_optimizer:
 {"device": "cpu"}`` as in JAX.  ``nvme`` without ``nvme_path`` raises,
-as JAX's assert does (``offload_engine.py:85-86``).  Parameter offload is
-not ported: any ``offload_param`` block and ``cpu_offload_params`` raise
-``NotImplementedError`` naming ROADMAP item 7c.  The bucketing and
-overlap keys that the JAX package accepts as no-ops are accepted here
-too and named by ``noop_keys_set``, as is the offload block's
-``fast_init`` (JAX reads it for the streamed parameter tier only).
+as JAX's assert does (``offload_engine.py:85-86``).  Parameter offload
+(``offload_param``, :class:`DeepSpeedZeroOffloadParamConfig`, JAX
+``zero/config.py:43-65``: ``device`` cpu or nvme streams the layer
+blocks through the card, ``runtime/zero/param_stream.py``); ``nvme``
+without ``nvme_path`` raises, as JAX's assert in ``param_stream.py:155``
+does, here at parse time.  ``cpu_offload_params``, which JAX parses
+(``:132``) and never reads, is accepted with no effect (it does not mean
+``offload_param: cpu``).  The bucketing and overlap keys that the JAX
+package accepts as no-ops are accepted here too and named by
+``noop_keys_set``, as are the offload blocks' keys JAX reads nothing of
+(``offload_optimizer.fast_init``, ``offload_param.buffer_size`` /
+``max_in_cpu``) and ``cpu_offload_params``.
 """
 
 ZERO_OPTIMIZATION = "zero_optimization"
@@ -27,7 +33,6 @@ ZERO_OPTIMIZATION = "zero_optimization"
 OFFLOAD_DEVICE_NONE = "none"
 OFFLOAD_DEVICE_CPU = "cpu"
 OFFLOAD_DEVICE_NVME = "nvme"
-PARAM_TIER = "ROADMAP item 7c: parameter offload and streaming"
 
 # accepted, with no effect on one device (the JAX package's NOOP_KEYS)
 NOOP_KEYS = ("contiguous_gradients", "reduce_scatter", "reduce_bucket_size",
@@ -40,9 +45,10 @@ NOOP_KEYS = ("contiguous_gradients", "reduce_scatter", "reduce_bucket_size",
 # parsed (JAX zero/config.py:121-161)
 PARSED_KEYS = ("stage", "sub_group_size", "stage3_param_persistence_threshold",
                "param_persistence_threshold", "stage3_gather_16bit_weights_on_model_save",
-               "gather_16bit_weights_on_model_save", "cpu_offload", "offload_optimizer")
-# parameter offload and streaming (item 7c)
-PARAM_KEYS = ("offload_param", "cpu_offload_params")
+               "gather_16bit_weights_on_model_save", "cpu_offload", "offload_optimizer",
+               "offload_param")
+# parsed as JAX parses them and read by nothing, in JAX as here
+UNREAD_KEYS = ("cpu_offload_params",)
 
 
 class DeepSpeedZeroOffloadOptimizerConfig:
@@ -84,9 +90,42 @@ class DeepSpeedZeroOffloadOptimizerConfig:
         return self.pipeline_read or self.pipeline_write
 
 
+class DeepSpeedZeroOffloadParamConfig:
+    """``zero_optimization.offload_param`` (JAX ``zero/config.py:43-65``):
+    the same keys and defaults.  ``device`` "cpu" or "nvme" streams the
+    layer blocks through the card (``runtime/zero/param_stream.py``; the
+    16-bit layer payloads in files under ``nvme_path`` for "nvme"),
+    ``buffer_count`` sizes the NVMe swapper's pool (at least 4, as in
+    JAX), ``fast_init`` asks for the model's ``init_numpy``.
+    ``buffer_size`` and ``max_in_cpu`` are parsed and, as in JAX, read by
+    nothing (``noop_keys``); ``pin_memory`` likewise (the port's layer
+    wire is always pinned on a card)."""
+
+    KEYS = ("device", "nvme_path", "buffer_count", "fast_init")
+    NOOP_KEYS = ("buffer_size", "max_in_cpu", "pin_memory")
+
+    def __init__(self, param_dict=None):
+        d = param_dict or {}
+        unknown = sorted(set(d) - set(self.KEYS) - set(self.NOOP_KEYS))
+        if unknown:
+            raise NotImplementedError(f"offload_param keys {unknown} are unknown")
+        self.device = d.get("device", OFFLOAD_DEVICE_NONE)
+        if self.device not in (OFFLOAD_DEVICE_NONE, OFFLOAD_DEVICE_CPU, OFFLOAD_DEVICE_NVME):
+            raise ValueError(f"offload_param.device must be none|cpu|nvme, got {self.device!r}")
+        self.nvme_path = d.get("nvme_path")
+        if self.device == OFFLOAD_DEVICE_NVME and not self.nvme_path:
+            raise ValueError("offload_param.device=nvme needs nvme_path")
+        self.buffer_count = int(d.get("buffer_count", 5))
+        self.buffer_size = int(d.get("buffer_size", 1e8))
+        self.max_in_cpu = int(d.get("max_in_cpu", 1e9))
+        self.pin_memory = bool(d.get("pin_memory", False))
+        self.fast_init = bool(d.get("fast_init", False))
+        self.noop_keys = sorted(k for k in d if k in self.NOOP_KEYS)
+
+
 class DeepSpeedZeroConfig:
     """Parsed ``zero_optimization`` section: ``stage`` in 0..3, stage 3's
-    keys and the optimizer offload block."""
+    keys and the optimizer and parameter offload blocks."""
 
     def __init__(self, param_dict=None):
         zero_dict = (param_dict or {}).get(ZERO_OPTIMIZATION, {})
@@ -96,12 +135,8 @@ class DeepSpeedZeroConfig:
         self.stage = zero_dict.get("stage", 0)
         if self.stage not in (0, 1, 2, 3):
             raise ValueError(f"Invalid ZeRO stage {self.stage}")
-        param = sorted(k for k in PARAM_KEYS if k in zero_dict and zero_dict[k]
-                       not in (None, False))
-        if param:
-            raise NotImplementedError(f"zero_optimization {param} is not ported ({PARAM_TIER})")
         unported = sorted(k for k in zero_dict
-                          if k not in PARSED_KEYS and k not in NOOP_KEYS and k not in PARAM_KEYS)
+                          if k not in PARSED_KEYS and k not in NOOP_KEYS and k not in UNREAD_KEYS)
         if unported:
             raise NotImplementedError(f"zero_optimization keys {unported} are not ported")
         self.sub_group_size = int(zero_dict.get("sub_group_size", 1e9))
@@ -117,6 +152,18 @@ class DeepSpeedZeroConfig:
             off = {"device": OFFLOAD_DEVICE_CPU}
         self.offload_optimizer = (DeepSpeedZeroOffloadOptimizerConfig(off)
                                   if off is not None else None)
-        self.noop_keys_set = sorted(k for k in zero_dict if k in NOOP_KEYS) + (
-            [f"offload_optimizer.{k}" for k in self.offload_optimizer.noop_keys]
-            if self.offload_optimizer is not None else [])
+        self.cpu_offload_params = zero_dict.get("cpu_offload_params", False)
+        op = zero_dict.get("offload_param")
+        self.offload_param = DeepSpeedZeroOffloadParamConfig(op) if op is not None else None
+        self.noop_keys_set = sorted(k for k in zero_dict if k in NOOP_KEYS + UNREAD_KEYS)
+        for name, block in (("offload_optimizer", self.offload_optimizer),
+                            ("offload_param", self.offload_param)):
+            if block is not None:
+                self.noop_keys_set += [f"{name}.{k}" for k in block.noop_keys]
+
+    def offload_optimizer_device(self):
+        return (self.offload_optimizer.device if self.offload_optimizer is not None
+                else OFFLOAD_DEVICE_NONE)
+
+    def offload_param_device(self):
+        return self.offload_param.device if self.offload_param is not None else OFFLOAD_DEVICE_NONE

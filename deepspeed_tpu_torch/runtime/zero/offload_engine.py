@@ -35,12 +35,22 @@ step's split (the swap-in wait, the Adam, the swap-out submit and wait)
 and ``swap_bytes`` its bytes read and written.  The master stays in
 host memory, as in JAX.
 
-Deliberate differences: the streamed-parameter layout
-(``consume_params``) and the sparse-gradient wire are not ported
-(ROADMAP item 7c); the d2h and h2d are the engine's
-(``runtime/zero/wire.py``), and
-:class:`FlatWireHandle` holds the handle of a started d2h into
-:attr:`HostOffloadOptimizer.landing`.
+The streamed parameter tier (JAX :40-220; ``runtime/zero/param_stream.py``)
+builds this object over the layer-major stream tree with
+``consume_params`` (each init leaf dropped from its tree as the master
+absorbs it) and then calls :meth:`alloc_buffers` with ``flat_wire=False``
+(no whole-model landing buffer: its gradients land layer by layer, and
+its ``grad32`` is a plain host buffer); with ``payload_in_ram=False``
+(the NVMe parameter tier) no 16-bit image is kept and the layer payloads
+are made by :meth:`encode_range`.  :meth:`payload_flat` /
+:meth:`payload_tree` read the image, :meth:`drop_payload` frees it.  The
+sparse-gradient wire lands through :meth:`flatten_grads`: a leaf may
+arrive as ``{"sparse_indices", "sparse_values"}`` and is scattered with
+an add into its zeroed segment, as ``np.add.at`` does in JAX.
+
+Deliberate differences: the d2h and h2d are the engine's and the
+runner's (``runtime/zero/wire.py``), and :class:`FlatWireHandle` holds
+the handle of a started d2h into :attr:`HostOffloadOptimizer.landing`.
 """
 
 import time
@@ -54,6 +64,30 @@ from ..utils import tree_leaves, tree_map
 from . import wire
 
 OUT_DTYPE = {torch.bfloat16: "bfloat16", torch.float16: "float16", torch.float32: None}
+
+
+def _slots(tree):
+    """(container, key) of each leaf of ``tree`` in :func:`tree_leaves`
+    order (dict keys sorted)."""
+    if isinstance(tree, dict):
+        items = ((k, tree[k]) for k in sorted(tree))
+    else:
+        items = enumerate(tree)
+    for k, v in items:
+        if isinstance(v, (dict, list)):
+            yield from _slots(v)
+        else:
+            yield tree, k
+
+
+def _leaves_up_to(template, tree):
+    """``tree``'s subtrees at the leaf positions of ``template`` (JAX's
+    ``flatten_up_to``): a leaf of the template may be a dict in ``tree``."""
+    if isinstance(template, dict):
+        return [x for k in sorted(template) for x in _leaves_up_to(template[k], tree[k])]
+    if isinstance(template, (tuple, list)):
+        return [x for t, u in zip(template, tree) for x in _leaves_up_to(t, u)]
+    return [tree]
 
 
 def _fill(template, leaves):
@@ -71,20 +105,28 @@ def _fill(template, leaves):
 class FlatWireHandle:
     """A started d2h of the flat gradient buffer into
     :attr:`HostOffloadOptimizer.landing` (``wire.d2h_flat_start``'s
-    handle)."""
+    handle); under the sparse wire, into ``dense`` (the other leaves'
+    buffer), with ``sparse`` ``{leaf position: (indices, values)}``, the
+    pinned host buffers the row-sparse leaves land in."""
 
-    def __init__(self, handle):
+    def __init__(self, handle, dense=None, sparse=None):
         self.handle = handle
+        self.dense = dense
+        self.sparse = sparse
 
 
 class HostOffloadOptimizer:
     """The host master, moments and payload image of ``params0`` (a tree
-    of tensors or numpy arrays)."""
+    of tensors or numpy arrays).  ``consume_params``: each leaf of
+    ``params0`` is dropped from its tree (dicts and lists) once the master
+    holds it, and the buffers wait for :meth:`alloc_buffers`;
+    ``payload_in_ram``: keep the compute-dtype image."""
 
     MOMENTS = ("exp_avg", "exp_avg_sq")
 
     def __init__(self, params0, zero_config, *, optimizer_name, optimizer_params,
-                 compute_dtype, device, aio_config=None, retry=None):
+                 compute_dtype, device, aio_config=None, retry=None, consume_params=False,
+                 payload_in_ram=True):
         p = dict(optimizer_params or {})
         p.pop("torch_adam", None)
         # FusedAdam's default (adam_w_mode=True): the same rule with and without offload
@@ -104,10 +146,17 @@ class HostOffloadOptimizer:
         self.offsets = np.concatenate([[0], np.cumsum(sizes)]).astype(np.int64)
         self.numel = int(self.offsets[-1])
         self.master = np.empty(self.numel, np.float32)
-        for leaf, off, n in zip(leaves, self.offsets, sizes):
+        slots = list(_slots(params0)) if consume_params else None
+        for i, (off, n) in enumerate(zip(self.offsets, sizes)):
+            leaf = leaves[i]
+            if consume_params:        # the init tree shrinks as the master fills
+                leaves[i] = None
+                container, key = slots[i]
+                container[key] = None
             if isinstance(leaf, torch.Tensor):
                 leaf = leaf.detach().to("cpu", torch.float32).numpy()
             self.master[off:off + n] = np.asarray(leaf, np.float32).ravel()
+            del leaf
 
         sg = int(zero_config.sub_group_size)
         bounds = list(range(0, self.numel, sg)) + [self.numel]
@@ -132,33 +181,73 @@ class HostOffloadOptimizer:
             self.m.fill(0.0)           # first touch now, not inside the first step
             self.v.fill(0.0)
 
-        # ---- the wire's host buffers
+        self.grad32 = self.landing = self.payload = None
+        self._payload_in_ram = payload_in_ram
+        if not consume_params:
+            self.alloc_buffers()
+
+    def alloc_buffers(self, flat_wire=True):
+        """The gradient buffer ``grad32`` and the payload image (when kept),
+        first-touched now; with ``flat_wire`` the whole-model wire's
+        pinned ``landing`` buffer too (bf16 under bf16; fp32 gradients
+        land in a pinned ``grad32``).  Apart from :meth:`__init__` so the
+        streamed tier can free its init tree first."""
         wire16 = self.wire_dtype != torch.float32
-        self.grad32 = wire.pinned(self.numel, torch.float32,
-                                  self.device if not wire16 else "cpu")
-        self.landing = (wire.pinned(self.numel, self.wire_dtype, self.device) if wire16
-                        else self.grad32)
-        self.payload = wire.pinned(self.numel, compute_dtype, self.device)
-        for buf in (self.grad32, self.landing):
-            buf.zero_()
-        self.refresh_payload()
+        if self.grad32 is None:
+            self.grad32 = wire.pinned(self.numel, torch.float32,
+                                      self.device if flat_wire and not wire16 else "cpu")
+            self.grad32.zero_()
+        if flat_wire and self.landing is None:
+            self.landing = (wire.pinned(self.numel, self.wire_dtype, self.device) if wire16
+                            else self.grad32)
+            self.landing.zero_()
+        if self._payload_in_ram and self.payload is None:
+            self.payload = wire.pinned(self.numel, self.compute_dtype, self.device)
+            self.refresh_payload()
         log_dist(f"host offload optimizer: {self.numel} params, {len(self.sub_groups)} "
                  f"sub-group(s), moments on {'nvme' if self.nvme else 'cpu'}"
                  + (f" ({type(self.swapper).__name__}, {self.swapper.slots} slot(s) under "
                     f"{self.swapper.swap_folder})" if self.nvme else "")
-                 + f", wire {self.wire_dtype}, payload {compute_dtype}, "
-                 f"pinned {self.payload.is_pinned()}", ranks=[0])
+                 + f", wire {self.wire_dtype}, payload "
+                 + (f"{self.compute_dtype}, pinned {self.payload.is_pinned()}"
+                    if self.payload is not None else "not kept"), ranks=[0])
 
     # ------------------------------------------------------------- payload
     def refresh_payload(self):
         """Re-encode the whole payload image from the master (build and
         load; a step updates it through the fused copy-back)."""
-        self.payload.copy_(torch.from_numpy(self.master))
+        if self.payload is not None:
+            self.payload.copy_(torch.from_numpy(self.master))
+
+    def encode_range(self, lo, hi, out):
+        """``master[lo:hi]`` in the compute dtype, into the first ``hi - lo``
+        elements of the tensor ``out`` (the NVMe parameter tier's layer
+        payloads, made without a whole-model image)."""
+        out[:hi - lo].copy_(torch.from_numpy(self.master[lo:hi]))
+
+    def drop_payload(self):
+        """Free the payload image (the NVMe parameter tier keeps it on disk)."""
+        self.payload = None
+
+    def payload_flat(self):
+        """The payload image, one flat compute-dtype host tensor."""
+        if self.payload is None:
+            raise RuntimeError("the payload image was dropped (NVMe parameter tier); "
+                               "use encode_range")
+        return self.payload
+
+    def payload_tree(self):
+        """The payload image as the parameter tree (views of the image)."""
+        src = self.payload_flat()
+        return _fill(self._template, iter(
+            src[off:off + int(np.prod(s or (1,)))].view(s)
+            for off, s in zip(self.offsets, self.shapes)))
 
     @property
     def pinned_bytes(self):
         return sum(b.numel() * b.element_size() for b in {id(x): x for x in (
-            self.grad32, self.landing, self.payload)}.values() if b.is_pinned())
+            self.grad32, self.landing, self.payload) if x is not None}.values()
+            if b.is_pinned())
 
     # ---------------------------------------------------------- gradients
     def widen(self):
@@ -168,23 +257,55 @@ class HostOffloadOptimizer:
             widen_bf16(self.landing, self.grad32)
         return self.grad32
 
+    def wire_tree(self, dense, sparse):
+        """The gradient tree of a sparse-wire landing: each leaf position
+        in ``sparse`` as ``{"sparse_indices", "sparse_values"}``, the others
+        views of the flat ``dense`` in order."""
+        items, o = [], 0
+        for i, shape in enumerate(self.shapes):
+            if i in sparse:
+                items.append({"sparse_indices": sparse[i][0], "sparse_values": sparse[i][1]})
+            else:
+                n = int(np.prod(shape or (1,)))
+                items.append(dense[o:o + n].view(shape))
+                o += n
+        return _fill(self._template, iter(items))
+
+    def flatten_grads(self, grads):
+        """A host gradient tree (tensors or arrays of any float dtype) into
+        ``grad32``, widened; a leaf given as ``{"sparse_indices",
+        "sparse_values"}`` (the sparse wire) is scattered with an add into
+        its zeroed segment.  Returns ``grad32``."""
+        for leaf, off, shape in zip(_leaves_up_to(self._template, grads), self.offsets,
+                                    self.shapes):
+            n = int(np.prod(shape or (1,)))
+            seg = self.grad32[off:off + n]
+            if isinstance(leaf, dict) and "sparse_indices" in leaf:
+                seg.zero_()
+                seg.view(shape).index_add_(0, torch.as_tensor(leaf["sparse_indices"]).long(),
+                                           torch.as_tensor(leaf["sparse_values"]).float())
+            else:
+                seg.copy_(torch.as_tensor(leaf).reshape(-1))
+        return self.grad32
+
     # ---------------------------------------------------------------- step
     def step(self, flat_grads, step_no, lr):
         """One fused host Adam step over every sub-group, in place; the
-        payload image follows."""
+        payload image follows (when kept)."""
         g = flat_grads.numpy() if isinstance(flat_grads, torch.Tensor) else flat_grads
+        # no image kept (the NVMe parameter tier): no 16-bit copy-back
         out16 = self.payload if self.out_dtype is not None else None
+        kind = self.out_dtype if out16 is not None else None
 
         def adam(s, e, m, v):
             self.opt.step_flat(self.master[s:e], g[s:e], m, v, step_no, lr=lr,
-                               out16=None if out16 is None else out16[s:e],
-                               out_dtype=self.out_dtype)
+                               out16=None if out16 is None else out16[s:e], out_dtype=kind)
         if not self.nvme:
             for s, e in self.sub_groups:
                 adam(s, e, self.m[s:e], self.v[s:e])
         else:
             self._step_nvme(adam)
-        if out16 is None:
+        if self.out_dtype is None and self.payload is not None:
             host_memcpy(self.payload.data_ptr(), self.master.ctypes.data, self.master.nbytes)
 
     def _step_nvme(self, adam):

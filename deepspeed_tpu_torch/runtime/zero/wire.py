@@ -1,8 +1,9 @@
 """Host <-> card transfers of the optimizer offload tier, over PCIe.
 
 Counterpart of ``deepspeed_tpu/runtime/zero/wire.py``: the d2h of one
-flat gradient buffer (``d2h_flat_start`` / ``d2h_flat_land``) and the
-h2d of the 16-bit parameter payload (:class:`H2DUploader`).  On the card
+flat gradient buffer (``d2h_flat_start`` / ``d2h_flat_land``), the h2d
+of the 16-bit parameter payload (:class:`H2DUploader`) and the streamed
+parameter tier's per-layer wire (:class:`LayerWire`).  On the card
 both run on a copy stream of their own, between pinned host buffers and
 device buffers, each ordered against the card's work by events: the d2h
 starts after the event of the work that wrote the gradients, and landing
@@ -20,7 +21,12 @@ buffers are flat, and it copies the landed payload into the parameters
 itself.
 """
 
+import time
+
+import numpy as np
 import torch
+
+
 
 def pinned(numel, dtype, device):
     """A host buffer for transfers to and from ``device``: pinned when the
@@ -44,6 +50,26 @@ class CopyStream:
         ev = torch.cuda.Event(enable_timing=True)
         ev.record(stream if stream is not None else torch.cuda.current_stream(self.device))
         return ev
+
+
+def bf16_accumulate(src, dst):
+    """``dst += src`` on the host, ``src`` bf16 and ``dst`` fp32 contiguous
+    CPU tensors of one size: each word widened exactly, one fp32 rounding
+    (torch's mixed-dtype ``add_``'s sum), in one multi-threaded pass
+    (``csrc/host/land_add.cpp``; torch's mixed-dtype ``add_`` runs one
+    thread, unvectorized: 13x slower on 50M elements)."""
+    from ...ops.adam.cpu_adam import _ptr, host_array
+    from ...ops.op_builder.builder import HostLandAddBuilder, c_i64, f32p, u16p
+    global _land_lib
+    if _land_lib is None:
+        _land_lib = HostLandAddBuilder().load()
+    s, d = host_array(src, np.uint16), host_array(dst)
+    if s.size != d.size:
+        raise ValueError(f"{s.size} bf16 words into {d.size} floats")
+    _land_lib.ds_bf16_accumulate(_ptr(s, u16p), _ptr(d, f32p), c_i64(s.size))
+
+
+_land_lib = None
 
 
 def seconds(pair):
@@ -116,3 +142,179 @@ class H2DUploader:
         """Block the host until the last upload has left its source."""
         if self.last is not None:
             self.last[1].synchronize()
+
+
+class LayerWire:
+    """The streamed parameter tier's per-layer wire on one card (JAX
+    ``param_stream.py``'s uploads, landings and throttle, :653-700).
+
+    Uploads: two device layer buffers of ``numel`` elements; an upload of
+    a layer's payload segment (a pinned host tensor) goes into the next
+    buffer in turn on the upload stream, after the event of the last block
+    that read that buffer (:meth:`release`), and records its own event,
+    which the block reading it waits on (:meth:`take`).  The two buffers
+    bound the uploads in flight to one ahead of the block that computes,
+    so nothing like JAX's ``DS_TPU_STREAM_THROTTLE`` / ``DS_TPU_STREAM_GC``
+    knobs (they bound the uploads JAX's runtime queues without limit) is
+    needed.  :meth:`staging` hands out the pinned host buffer an upload
+    of slot ``i`` reads (the NVMe tier copies a swap buffer into it), once
+    that slot's previous upload has left it.
+
+    Gradients: :meth:`grad_out` starts the d2h of a layer's flat gradient
+    (the wire dtype) into one of ``landings`` pinned landing slots on the
+    download stream, after the event of the work that wrote it, and hands
+    the land-and-accumulate (``grad32[lo:hi] += landing``, widened and
+    added in fp32 in one host pass, :func:`bf16_accumulate`) to a worker
+    thread, so the backward of the next layer is queued
+    while the add runs.  A landing slot takes a new d2h only after the add
+    that read it.  :meth:`drain` waits for every add.
+
+    ``overlap=False`` is the eager-sequential wire: each copy runs on the
+    compute stream and the host waits for it, and each land-add runs in
+    the calling thread.  On a CPU device every copy is a plain ``copy_``.
+    ``stats`` counts bytes, copies and (on a card) device seconds of the
+    copies, host seconds of the land-adds and the calling thread's waits."""
+
+    def __init__(self, numel, dtype, grad_dtype, device, landings=2):
+        self.device = torch.device(device)
+        self.cuda = self.device.type == "cuda"
+        self.overlap = True
+        self.numel = int(numel)
+        self.bufs = [torch.empty(self.numel, dtype=dtype, device=self.device) for _ in range(2)]
+        self._stage = [None, None]
+        self._ready = [None, None]       # the event of each buffer's last upload
+        self._free = [None, None]        # the event of the last block that read it
+        self._turn = 0
+        self._up, self._down = CopyStream(self.device), CopyStream(self.device)
+        self.landing = [pinned(self.numel, grad_dtype, self.device) for _ in range(landings)]
+        self._landed = [None] * landings  # the future of the add that last read each slot
+        self._n_down = 0
+        self._pool = None
+        self.reset_stats()
+
+    def reset_stats(self):
+        self._events = {"h2d": [], "d2h": []}
+        self.stats = {"h2d_bytes": 0, "d2h_bytes": 0, "h2d": 0, "d2h": 0, "land_s": 0.0,
+                      "land_wait_s": 0.0}
+
+    # --------------------------------------------------------------- uploads
+    def _stream(self, copies):
+        return copies.stream if self.overlap else torch.cuda.current_stream(self.device)
+
+    def staging(self, slot):
+        """The pinned host buffer the next upload into ``slot`` reads, once
+        the previous upload out of it has finished."""
+        if self._stage[slot] is None:
+            self._stage[slot] = pinned(self.numel, self.bufs[0].dtype, self.device)
+        if self._ready[slot] is not None:
+            self._ready[slot].synchronize()
+        return self._stage[slot]
+
+    def next_slot(self):
+        return self._turn
+
+    def upload(self, src):
+        """Start the copy of ``src`` into the next device buffer; returns
+        its slot."""
+        slot, self._turn = self._turn, 1 - self._turn
+        n = src.numel()
+        dst = self.bufs[slot][:n]
+        self.stats["h2d_bytes"] += n * src.element_size()
+        self.stats["h2d"] += 1
+        if not self.cuda:
+            dst.copy_(src)
+            return slot
+        stream = self._stream(self._up)
+        with torch.cuda.stream(stream):
+            if self._free[slot] is not None:
+                stream.wait_event(self._free[slot])
+            start = self._up.event(stream)
+            dst.copy_(src, non_blocking=True)
+            self._ready[slot] = self._up.event(stream)
+        self._events["h2d"].append((start, self._ready[slot]))
+        if not self.overlap:
+            self._ready[slot].synchronize()
+        return slot
+
+    def take(self, slot):
+        """The device buffer of ``slot``, the compute stream made to wait
+        for its upload."""
+        if self.cuda and self._ready[slot] is not None:
+            torch.cuda.current_stream(self.device).wait_event(self._ready[slot])
+        return self.bufs[slot]
+
+    def release(self, slot):
+        """Mark the work queued so far as the last reader of ``slot``."""
+        if self.cuda:
+            ev = torch.cuda.Event()
+            ev.record(torch.cuda.current_stream(self.device))
+            self._free[slot] = ev
+
+    # -------------------------------------------------------------- gradients
+    def grad_out(self, flat, grad32, lo):
+        """Start the d2h of ``flat`` (a device gradient segment of the wire
+        dtype) and accumulate it into ``grad32[lo:lo + flat.numel()]``."""
+        n = flat.numel()
+        k, self._n_down = self._n_down % len(self.landing), self._n_down + 1
+        if self._landed[k] is not None:
+            t0 = time.perf_counter()
+            self._landed[k].result()
+            self.stats["land_wait_s"] += time.perf_counter() - t0
+        dst = self.landing[k][:n]
+        self.stats["d2h_bytes"] += n * flat.element_size()
+        self.stats["d2h"] += 1
+        seg = grad32[lo:lo + n]
+        if not self.cuda:
+            dst.copy_(flat)
+            self._land_add(None, seg, dst)
+            return
+        stream = self._stream(self._down)
+        compute = torch.cuda.current_stream(self.device)   # the stream that wrote `flat`
+        with torch.cuda.stream(stream):
+            stream.wait_stream(compute)
+            start = self._down.event(stream)
+            dst.copy_(flat, non_blocking=True)
+            end = self._down.event(stream)
+        flat.record_stream(stream)
+        self._events["d2h"].append((start, end))
+        if not self.overlap:
+            self._land_add(end, seg, dst)
+            return
+        if self._pool is None:
+            from concurrent.futures import ThreadPoolExecutor
+            self._pool = ThreadPoolExecutor(max_workers=1, thread_name_prefix="stream-land")
+        self._landed[k] = self._pool.submit(self._land_add, end, seg, dst)
+
+    def _land_add(self, event, seg, landing):
+        t0 = time.perf_counter()
+        if event is not None:
+            event.synchronize()
+        if landing.dtype == seg.dtype:
+            seg.add_(landing)
+        else:
+            bf16_accumulate(landing, seg)
+        self.stats["land_s"] += time.perf_counter() - t0
+
+    def drain(self):
+        """Wait for every land-add in flight."""
+        t0 = time.perf_counter()
+        for k, fut in enumerate(self._landed):
+            if fut is not None:
+                fut.result()
+                self._landed[k] = None
+        self.stats["land_wait_s"] += time.perf_counter() - t0
+
+    def device_seconds(self, kind):
+        """The summed device seconds of the ``kind`` ("h2d" / "d2h") copies
+        since :meth:`reset_stats` (their events must have completed); None
+        on the CPU."""
+        if not self.cuda:
+            return None
+        return sum(a.elapsed_time(b) for a, b in self._events[kind]) / 1e3
+
+    def close(self):
+        self.drain()
+        if self._pool is not None:
+            self._pool.shutdown()
+            self._pool = None
+        self.bufs = self.landing = self._stage = []

@@ -8,7 +8,8 @@ a checkpointed MLP's loss and gradients equal to the unwrapped one's and
 to JAX's ``checkpoint`` (1e-6 / 1e-5: another order of fp32 sums), the
 region saving no intermediate, the config block, the contiguous-buffer
 assertion, the RNG tracker's streams and ``model_parallel_seed``.  Then
-the port's own: ``cpu_checkpointing`` refused (not ported);
+the port's own: ``cpu_checkpointing`` keeps the ``ckpt`` marks on the
+host and prunes their producers from the recompute;
 ``partition_activations`` at world size 1 changes nothing;
 ``checkpoint_wrapper``.
 """
@@ -145,22 +146,29 @@ def test_model_parallel_seed_sets_streams():
 
 
 def test_cpu_checkpointing_offloads_marked_tensors():
-    """``cpu_checkpointing`` is refused: torch's eager recompute reruns the
-    producers of a marked tensor, so its host copy would save no work.
-    ``configure`` raises from the argument and from the config block, and
-    leaves it off; a region with a ``ckpt`` mark still checkpoints as the
-    plain run computes."""
+    """``cpu_checkpointing`` (JAX ``save_and_offload_only_these_names(
+    ["ckpt"])``) is on from the argument and from the config block; a
+    region with a ``ckpt`` mark keeps the marked tensor on the host, its
+    recompute prunes the ops that only feed the mark (the matmul and the
+    tanh: the tanh's result is the mark's value, the matmul's output is
+    saved by nothing), and its loss and gradients equal the plain run's."""
     for kwargs in ({"checkpoint_in_cpu": True},
                    {"deepspeed_config": {"train_micro_batch_size_per_gpu": 1,
                                          "activation_checkpointing": {
                                              "cpu_checkpointing": True}}}):
-        with pytest.raises(NotImplementedError, match="cpu_checkpointing is not ported"):
-            ckpt.configure(None, **kwargs)
+        ckpt.configure(None, **kwargs)
+        assert ckpt.CPU_CHECKPOINT is True
+        ckpt.configure(None)
         assert ckpt.CPU_CHECKPOINT is False
     arrays = _setup(1)
     lp, *gp = _loss_and_grads(_marked_mlp, arrays, None)
+    ckpt.configure(None, checkpoint_in_cpu=True)
     lc, *gc = _loss_and_grads(_marked_mlp, arrays, ckpt.checkpoint)
     assert lp == lc and all(torch.equal(a, b) for a, b in zip(gp, gc))
+    st = ckpt.last_stats
+    assert st["pruned"] == ["aten.mm.default", "aten.tanh.default"] and st["skipped"] == 2
+    (mark,) = st["marks"]
+    assert mark.device.type == "cpu" and mark.shape == (8, 64)
 
 
 def test_partition_activations_one_device_is_identity():

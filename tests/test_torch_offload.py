@@ -335,22 +335,35 @@ def test_sub_groups_bit_equal_to_one_group():
     np.testing.assert_array_equal(one._offload.master, split._offload.master)
 
 
-@pytest.mark.parametrize("zero,top", [
-    ({"stage": 3, "offload_optimizer": {"device": "nvme", "nvme_path": "/tmp/x"},
-      "offload_param": {"device": "nvme", "nvme_path": "/tmp/x"}}, {}),
-    ({"stage": 3, "offload_param": {"device": "cpu"}}, {}),
-    ({"stage": 3, "offload_param": {"device": "nvme", "nvme_path": "/tmp/x"}}, {}),
-    ({"stage": 2, "cpu_offload_params": True}, {}),
-    ({"stage": 3, "offload_param": {"device": "cpu"}}, {"aio": {"block_size": 1048576}}),
-    ({"stage": 3}, {"sparse_gradients": True}),
+STREAMED = {"stage": 3, "offload_optimizer": {"device": "cpu"}, "offload_param": {"device": "cpu"}}
+
+
+@pytest.mark.parametrize("zero,top,err", [
+    ({**STREAMED, "offload_param": {"device": "nvme"}}, {}, (ValueError, "needs nvme_path")),
+    ({**STREAMED, "offload_param": {"device": "disk"}}, {}, (ValueError, "none|cpu|nvme")),
+    ({**STREAMED, "offload_param": {"device": "cpu", "prefetch": 2}}, {},
+     (NotImplementedError, "unknown")),
+    (STREAMED, {"comms_compression": {"enabled": True, "routes": ["param_stream"]}},
+     (NotImplementedError, "item 13")),
+    ({**STREAMED, "stage": 2}, {"_engine": "auto"}, (ValueError, "requires stage 3")),
+    (STREAMED, {"_engine": "graph"}, (ValueError, "step_impl='graph'")),
 ])
-def test_nvme_tier_raises_naming_item_7b(zero, top):
-    """What of the offload tier is still unported (parameter offload and
-    streaming, the sparse-gradient wire) raises naming ROADMAP item 7c;
-    the NVMe optimizer tier and the ``aio`` block run
-    (``tests/test_torch_nvme.py``)."""
-    with pytest.raises(NotImplementedError, match="7c"):
-        DeepSpeedConfig(dict({"train_batch_size": 8, "zero_optimization": zero}, **top))
+def test_nvme_tier_raises_naming_item_7b(zero, top, err):
+    """The offload tier is whole (item 7b's NVMe tiers, item 7c's parameter
+    streaming and sparse wire); what stays invalid or unported beside it
+    raises: ``offload_param`` nvme without ``nvme_path``, an unknown device
+    or key, the quantized layer wire of ``comms_compression`` (item 13),
+    and at the engine JAX's stage-3 ``ValueError`` and a captured
+    streamed step."""
+    top = dict(top)
+    impl = top.pop("_engine", None)
+    cfg = dict({"train_batch_size": 8, "zero_optimization": zero,
+                "optimizer": {"type": "AdamW", "params": {"lr": 1e-3}}}, **top)
+    with pytest.raises(err[0], match=err[1]):
+        if impl is None:
+            DeepSpeedConfig(cfg)
+        else:
+            _port(cfg, step_impl=impl)
 
 
 def test_offload_config_parses_jax_defaults():

@@ -115,18 +115,19 @@ def test_config_fields_match_jax(pd):
 
 @pytest.mark.parametrize("pd,world_size", [
     ({"train_batch_size": 32}, 4),
+    ({"train_batch_size": 8, "comms_compression": {"enabled": True}}, 1),
     ({"train_batch_size": 8, "zero_optimization": {
-        "stage": 3, "offload_param": {"device": "cpu"}}}, 1),
-    ({"train_batch_size": 8, "zero_optimization": {
-        "stage": 3, "offload_param": {"device": "nvme", "nvme_path": "/tmp/x"}}}, 1),
-    ({"train_batch_size": 8, "zero_optimization": {"stage": 2, "cpu_offload_params": True}}, 1),
+        "stage": 3, "offload_param": {"device": "cpu", "no_such_key": 1}}}, 1),
+    ({"train_batch_size": 8, "zero_optimization": {"stage": 3, "offload_param": {
+        "device": "cpu"}}, "comms_compression": {"enabled": True, "routes": ["param_stream"],
+                                                 "weights_bits": 8}}, 1),
     ({"train_batch_size": 8, "eigenvalue": {"enabled": True}}, 1),
     ({"train_batch_size": 8, "optimizer": {"type": "OneBitAdam", "params": {}}}, 1),
     ({"train_batch_size": 8, "monitor": {"enabled": True}}, 1),
     ({"train_batch_size": 8, "checkpoint": {"tag_validation": "Fail"}}, 1),
     ({"train_batch_size": 8, "quantize_training": {"enabled": True}}, 1),
     ({"train_batch_size": 8, "wall_clock_breakdown": True}, 1),
-    ({"train_batch_size": 8, "sparse_gradients": True}, 1),
+    ({"train_batch_size": 8, "sparse_gradients": True}, 2),
     ({"train_batch_size": 8, "no_such_key": 1}, 1),
 ])
 def test_unported_config_raises(pd, world_size, monkeypatch):
